@@ -1,4 +1,5 @@
-"""Carry `Default` weights between the JAX package and this one.
+"""Carry `Default` and `LSTMWrapper(Default)` weights between the JAX
+package and this one.
 
 The JAX `Policy(Default)` params are a pytree
 {'params': {'encoder': {'kernel', 'bias'}, 'head': {'kernel', 'bias'}}}
@@ -34,4 +35,30 @@ def default_params(state_dict):
         bias = state_dict[f'{layer}.bias'].detach().cpu().float().numpy()
         params[layer] = {'kernel': np.ascontiguousarray(weight.T),
             'bias': bias.copy()}
+    return {'params': params}
+
+
+def lstm_state_dict(params):
+    """JAX LSTMWrapper(Default) params (numpy pytree) -> the port's
+    LSTMWrapper state_dict. The nested policy's layers transpose as in
+    default_state_dict; the LSTM weights keep the (in, out) layout of
+    both packages and copy as they are."""
+    p = params['params'] if 'params' in params else params
+    out = {f'policy.{k}': v for k, v in default_state_dict(
+        p['policy']).items()}
+    for k, v in p.items():
+        if k != 'policy':
+            out[k] = torch.from_numpy(np.array(v, np.float32))
+    return out
+
+
+def lstm_params(state_dict):
+    """The port's LSTMWrapper state_dict -> JAX LSTMWrapper(Default)
+    params (numpy)."""
+    inner = {k[len('policy.'):]: v for k, v in state_dict.items()
+        if k.startswith('policy.')}
+    params = {'policy': default_params(inner)['params']}
+    for k, v in state_dict.items():
+        if not k.startswith('policy.'):
+            params[k] = v.detach().cpu().float().numpy().copy()
     return {'params': params}

@@ -51,12 +51,14 @@ class CudaKernel:
 
     functions: {C function name: [ctypes argument types]}; each returns
     an int cudaError_t. `launches` counts successful launches through
-    `launch` and nothing else; callers may reset it to 0."""
+    `launch` and nothing else, `fn_launches` the same per C function;
+    reset_counts() sets both to 0."""
 
     def __init__(self, source, functions):
         self.source = source
         self.functions = functions
         self.launches = 0
+        self.fn_launches = dict.fromkeys(functions, 0)
         self.build_log = ''
         self.build_seconds = None
         self._lib = None
@@ -66,8 +68,12 @@ class CudaKernel:
         return os.path.splitext(self.source)[0]
 
     def library_path(self):
-        with open(os.path.join(CSRC_DIR, self.source), 'rb') as f:
-            digest = hashlib.sha1(f.read())
+        # the source and every shared header it may include
+        headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith('.cuh'))
+        digest = hashlib.sha1()
+        for name in [self.source] + headers:
+            with open(os.path.join(CSRC_DIR, name), 'rb') as f:
+                digest.update(f.read())
         digest.update(' '.join(NVCC_FLAGS).encode())
         return os.path.join(BUILD_DIR,
             f'lib{self.name}-{digest.hexdigest()[:12]}.so')
@@ -121,6 +127,11 @@ class CudaKernel:
             msg = lib.cuda_error_string(err).decode()
             raise RuntimeError(f'{fn} failed: cudaError {err} ({msg})')
         self.launches += 1
+        self.fn_launches[fn] += 1
+
+    def reset_counts(self):
+        self.launches = 0
+        self.fn_launches = dict.fromkeys(self.functions, 0)
 
 
 def build_all(kernels):

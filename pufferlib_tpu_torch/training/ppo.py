@@ -1,8 +1,9 @@
 """PuffeRL in PyTorch: the fused PPO trainer on one CUDA device.
 
-Counterpart of pufferlib_tpu/training/ppo.py for non-recurrent policies.
-Everything stays on the device: the rollout steps the policy and the env
-lanes as batched tensors and writes the batch into buffers on the card;
+Counterpart of pufferlib_tpu/training/ppo.py, with `Policy` or with
+`RecurrentPolicy(LSTMWrapper(...))`. Everything stays on the device: the
+rollout steps the policy and the env lanes as batched tensors and writes
+the batch into buffers on the card;
 GAE runs as one CUDA kernel (ops/cuda/gae.py); the update runs
 update_epochs x minibatch PPO with Adam. Metrics stay on the device until
 they are read (TrainerData.stats / .losses / .infos); nothing in the
@@ -24,6 +25,13 @@ Where the two differ:
   state; their stats still count in the means.
 - The rollout buffers are allocated once and reused: a batch returned
   by evaluate() is overwritten by the next rollout.
+
+Recurrent policies follow the JAX trainer: the rollout carries the LSTM
+state through episode ends (no reset at `done`, ppo.py:390-427) and
+stores it at each BPTT segment start (`lstm0`); every minibatch starts
+from those stored states. With num_minibatches == T // bptt_horizon (and
+lstm_time_slab_minibatches on) a minibatch is one time slab of all
+agents, fed time-major; otherwise it is a group of agent-major segments.
 """
 import uuid
 
@@ -72,6 +80,10 @@ def default_config(**overrides):
         # advantage normalization; False reproduces the agent-major
         # composition
         mlp_contiguous_minibatches=True,
+        # recurrent: when num_minibatches == T // bptt_horizon, a minibatch
+        # is one time slab of all agents, run time-major; False keeps the
+        # agent-major segment grouping (ppo.py:104-109)
+        lstm_time_slab_minibatches=True,
         # dtype name of the stored rollout obs (e.g. 'bfloat16'); None
         # keeps the env's
         obs_store_dtype=None,
@@ -131,9 +143,6 @@ def create(config, vecenv, policy, device=None):
     if vecenv.device != device:
         raise APIUsageError(
             f'vecenv runs on {vecenv.device}, the trainer on {device}')
-    if getattr(policy, 'lstm', None) is not None:
-        raise NotImplementedError(
-            'recurrent policies are the next slice of the port (ROADMAP)')
     env = vecenv.env
     num_envs = vecenv.num_envs_total
     total_agents = vecenv.num_agents
@@ -168,6 +177,9 @@ def create(config, vecenv, policy, device=None):
         env.sample_reset(num_envs, device, generator))
 
     policy.to(device)
+    recurrent = getattr(policy, 'lstm', None) is not None
+    lstm_state = policy.initial_state(total_agents, device=device) \
+        if recurrent else None
     optimizer = torch.optim.Adam(policy.parameters(),
         lr=config.learning_rate, betas=(0.9, 0.999), eps=1e-5)
 
@@ -177,7 +189,7 @@ def create(config, vecenv, policy, device=None):
     update_fn = make_update_fn(policy, optimizer, config, T, total_agents,
         num_minibatches, seg_rows, obs_shape)
 
-    carry = dict(env=env_states, done=dones, obs=obs)
+    carry = dict(env=env_states, done=dones, obs=obs, lstm=lstm_state)
     return TrainerData(
         config=config,
         vecenv=vecenv,
@@ -203,30 +215,49 @@ def create(config, vecenv, policy, device=None):
 
 
 def make_rollout_fn(policy, env, step_batch, config, T, generator):
-    """rollout(carry) -> (carry, batch, info_sums, episode_count).
+    """rollout(carry, draws=None) -> (carry, batch, info_sums,
+    episode_count).
 
     T fused policy+env steps; the batch is (T, N, ...) time-major, obs
-    flattened to (T, N, numel) in config.obs_store_dtype. The buffers are
-    allocated at the first call and reused."""
+    flattened to (T, N, numel) in config.obs_store_dtype. With a
+    recurrent policy the batch also holds `lstm0`, the state at each BPTT
+    segment start, (h, c) each (T // bptt_horizon, layers, N, H). The
+    buffers are allocated at the first call and reused. `draws`
+    ({'u': (T, N, k) sampler uniforms, 'reset': (T, N, ...) env reset
+    draws}) replaces the generator's, so a test can replay another
+    implementation's randomness."""
     store_dtype = config.get('obs_store_dtype', None)
     store_dtype = getattr(torch, store_dtype) if store_dtype else None
+    recurrent = getattr(policy, 'lstm', None) is not None
+    horizon = config.bptt_horizon
     bufs = {}
 
-    def store(name, t, value, dtype=None):
+    def store(name, t, value, dtype=None, length=T):
         if name not in bufs:
-            bufs[name] = torch.empty((T,) + tuple(value.shape),
+            bufs[name] = torch.empty((length,) + tuple(value.shape),
                 dtype=dtype or value.dtype, device=value.device)
         bufs[name][t] = value
 
     @torch.no_grad()
-    def rollout(carry):
+    def rollout(carry, draws=None):
         c = carry
         for t in range(T):
             obs = c['obs']
-            action, logprob, _, value = policy(obs, generator=generator)
-            draws = env.sample_reset(obs.shape[0], obs.device, generator)
+            u = None if draws is None else draws['u'][t]
+            lstm = c['lstm']
+            if recurrent:
+                if t % horizon == 0:
+                    for name, s in zip(('lstm0_h', 'lstm0_c'), lstm):
+                        store(name, t // horizon, s, length=T // horizon)
+                action, logprob, _, value, lstm = policy(obs, lstm,
+                    generator=generator, u=u)
+            else:
+                action, logprob, _, value = policy(obs, generator=generator,
+                    u=u)
+            reset_draws = env.sample_reset(obs.shape[0], obs.device,
+                generator) if draws is None else draws['reset'][t]
             (env_states, done_next, next_obs, reward, done, trunc,
-                infos) = step_batch(c['env'], c['done'], action, draws)
+                infos) = step_batch(c['env'], c['done'], action, reset_draws)
 
             store('obs', t, obs.reshape(obs.shape[0], -1), store_dtype)
             store('action', t, action)
@@ -237,13 +268,18 @@ def make_rollout_fn(policy, env, step_batch, config, T, generator):
             store('ended', t, done | trunc)
             for k, v in infos.items():
                 store('info/' + k, t, v)
-            c = dict(env=env_states, done=done_next, obs=next_obs)
+            # the LSTM state carries through episode ends, as in JAX
+            c = dict(env=env_states, done=done_next, obs=next_obs,
+                lstm=lstm)
 
         batch = {k: bufs[k] for k in
             ('obs', 'action', 'logprob', 'value', 'reward', 'done')}
         # bootstrap value for GAE at the rollout end
-        batch['last_value'] = policy.get_value(c['obs']).reshape(-1) \
-            .float().contiguous()
+        last_value = policy.get_value(c['obs'], c['lstm']) if recurrent \
+            else policy.get_value(c['obs'])
+        batch['last_value'] = last_value.reshape(-1).float().contiguous()
+        if recurrent:
+            batch['lstm0'] = (bufs['lstm0_h'], bufs['lstm0_c'])
         info_sums = {k[len('info/'):]: v.sum() for k, v in bufs.items()
             if k.startswith('info/')}
         episode_count = bufs['ended'].sum()
@@ -261,7 +297,14 @@ def make_update_fn(policy, optimizer, config, T, total_agents,
     S = total_agents * n_seg
     mb_rows = seg_rows * h
     params = list(policy.parameters())
-    contiguous = config.get('mlp_contiguous_minibatches', True)
+    recurrent = getattr(policy, 'lstm', None) is not None
+    # recurrent time slabs (ppo.py:605-620): minibatch i is the i-th
+    # bptt_horizon steps of every agent, a free slice of the time-major
+    # batch
+    time_slab = (recurrent and num_minibatches == n_seg
+        and config.get('lstm_time_slab_minibatches', True))
+    contiguous = time_slab or (not recurrent
+        and config.get('mlp_contiguous_minibatches', True))
     has_target_kl = config.target_kl is not None
     if config.get('shuffle_minibatches', False):
         raise NotImplementedError('shuffle_minibatches is not ported')
@@ -277,9 +320,29 @@ def make_update_fn(policy, optimizer, config, T, total_agents,
         x = x.reshape((n_seg, h, total_agents) + rest).movedim(2, 0)
         return x.reshape((S * h,) + rest)
 
-    def minibatch_update(mb, lr, stop):
-        obs = mb['obs'].reshape((mb_rows,) + tuple(obs_shape))
-        _, newlogprob, entropy, newvalue = policy(obs, action=mb['action'])
+    def segment_lstm(x):
+        """(n_seg, layers, N, H) -> (S, layers, H), segment-major."""
+        x = x.movedim(2, 0)
+        return x.reshape((S,) + tuple(x.shape[2:]))
+
+    def minibatch_state(lstm0, i):
+        """The stored (h, c) at the start of minibatch i, each
+        (layers, rows, H)."""
+        if time_slab:
+            return lstm0[0][i], lstm0[1][i]
+        return tuple(s[i * seg_rows:(i + 1) * seg_rows].movedim(0, 1)
+            for s in lstm0)
+
+    def minibatch_update(mb, state, lr, stop):
+        if recurrent:
+            lead = (h, seg_rows) if time_slab else (seg_rows, h)
+            obs = mb['obs'].reshape(lead + tuple(obs_shape))
+            _, newlogprob, entropy, newvalue, _ = policy(obs, state,
+                action=mb['action'], time_major=time_slab)
+        else:
+            obs = mb['obs'].reshape((mb_rows,) + tuple(obs_shape))
+            _, newlogprob, entropy, newvalue = policy(obs,
+                action=mb['action'])
         loss, stats = ppo_losses(
             newlogprob=newlogprob,
             logprob=mb['logprob'],
@@ -310,14 +373,15 @@ def make_update_fn(policy, optimizer, config, T, total_agents,
             optimizer.step()
         return stats
 
-    def run_epochs(seg_batch, lr):
+    def run_epochs(seg_batch, lstm0, lr):
         all_stats = []
         stop = False
         for _ in range(config.update_epochs):
             for i in range(num_minibatches):
                 mb = {k: v[i * mb_rows:(i + 1) * mb_rows]
                     for k, v in seg_batch.items()}
-                all_stats.append(minibatch_update(mb, lr, stop))
+                state = minibatch_state(lstm0, i) if recurrent else None
+                all_stats.append(minibatch_update(mb, state, lr, stop))
             if has_target_kl and not stop:
                 # the one host read per epoch (ppo.py:583-585)
                 stop = bool(all_stats[-1]['approx_kl'] > config.target_kl)
@@ -338,7 +402,11 @@ def make_update_fn(policy, optimizer, config, T, total_agents,
             advantages=segment(advantages),
             returns=segment(returns),
         )
-        mean_stats = run_epochs(seg_batch, lr)
+        lstm0 = None
+        if recurrent:
+            lstm0 = batch['lstm0'] if time_slab else tuple(
+                segment_lstm(s) for s in batch['lstm0'])
+        mean_stats = run_epochs(seg_batch, lstm0, lr)
 
         y_true = returns.reshape(-1)
         y_pred = batch['value'].reshape(-1)

@@ -8,6 +8,9 @@ and every losses/* stat must agree in f32: 2e-5 absolute on params, 1e-4
 on the stats. Both run the same float32 math; sums are taken in other
 orders, and Adam's update divides by sqrt(v) + eps, which magnifies a
 last-bit difference of a tiny gradient component at most to lr * 1e-3.
+The recurrent update (RecurrentPolicy(LSTMWrapper(Default))) is held to
+the same tolerances in both minibatch layouts, and a recurrent rollout
+replays the JAX rollout's own draws.
 """
 import os
 import subprocess
@@ -21,16 +24,22 @@ import jax
 import jax.numpy as jnp
 import optax
 from pufferlib_tpu import spaces as jspaces
+import pufferlib_tpu.vector as jax_vector
 from pufferlib_tpu.models import Default as JaxDefault
+from pufferlib_tpu.models import LSTMWrapper as JaxLSTMWrapper
 from pufferlib_tpu.models import Policy as JaxPolicy
+from pufferlib_tpu.models import RecurrentPolicy as JaxRecurrentPolicy
+from pufferlib_tpu.ocean import env_creator as jax_env_creator
 from pufferlib_tpu.ops import ppo_losses as jax_ppo_losses
 from pufferlib_tpu.training import ppo as jax_ppo
 
 import pufferlib_tpu_torch.vector as vector
 from pufferlib_tpu_torch import spaces
 from pufferlib_tpu_torch.exceptions import APIUsageError
-from pufferlib_tpu_torch.convert import default_params, default_state_dict
-from pufferlib_tpu_torch.models import Default, Policy
+from pufferlib_tpu_torch.convert import (
+    default_params, default_state_dict, lstm_params, lstm_state_dict)
+from pufferlib_tpu_torch.models import (
+    Default, LSTMWrapper, Policy, RecurrentPolicy)
 from pufferlib_tpu_torch.ocean import env_creator
 from pufferlib_tpu_torch.ops import ppo_losses
 from pufferlib_tpu_torch.training import checkpoint, ppo
@@ -245,10 +254,189 @@ def test_package_imports_no_jax():
     (checked in a fresh interpreter: this test process has both)."""
     code = ('import sys, pufferlib_tpu_torch, '
         'pufferlib_tpu_torch.training.ppo, pufferlib_tpu_torch.convert, '
-        'pufferlib_tpu_torch.ops.cuda; '
+        'pufferlib_tpu_torch.ops.cuda, pufferlib_tpu_torch.ops.cuda.lstm_enc, '
+        'pufferlib_tpu_torch.ops.cuda.lstm_cat; '
         'bad = [m for m in sys.modules if m in ("jax", "flax", "optax", '
         '"pufferlib_tpu") or m.startswith(("jax.", "flax.", "optax.", '
         '"pufferlib_tpu."))]; '
         'assert not bad, bad')
     subprocess.run([sys.executable, '-c', code], cwd=REPO, check=True,
         timeout=120)
+
+
+def _jax_recurrent(hidden=HIDDEN, seed=0):
+    jmod = JaxLSTMWrapper(policy=JaxDefault(obs_shape=OBS_SHAPE,
+        action_space=jspaces.Discrete(8), hidden_size=hidden),
+        obs_shape=OBS_SHAPE, input_size=hidden, hidden_size=hidden,
+        use_pallas=False)
+    jpolicy = JaxRecurrentPolicy(jmod)
+    params = jpolicy.init(jax.random.PRNGKey(seed),
+        jnp.zeros((1,) + OBS_SHAPE, jnp.float32), jpolicy.initial_state(1))
+    return jpolicy, params
+
+
+def _port_recurrent(params, hidden=HIDDEN, **kwargs):
+    module = LSTMWrapper(Default(obs_shape=OBS_SHAPE,
+        action_space=spaces.Discrete(8), hidden_size=hidden),
+        obs_shape=OBS_SHAPE, input_size=hidden, hidden_size=hidden, **kwargs)
+    module.load_state_dict(lstm_state_dict(jax.tree.map(np.asarray, params)))
+    return RecurrentPolicy(module)
+
+
+RECURRENT_CASES = {
+    # minibatch_size, overrides, LSTMWrapper kwargs of the port
+    'time_slab': (64, dict(), dict()),
+    'agent_major': (64, dict(lstm_time_slab_minibatches=False), dict()),
+    # num_minibatches != T // h: agent-major whatever the flag
+    'agent_major_mb32_cat': (32, dict(), dict(kernel='cat', use_kernel=True)),
+    # the enc5 kernel's plain version on the time-slab path
+    'time_slab_enc5': (64, dict(), dict(kernel='enc5', use_kernel=True)),
+}
+
+
+@pytest.mark.parametrize('case', sorted(RECURRENT_CASES))
+def test_one_recurrent_update_matches_jax(case):
+    minibatch_size, extra, port_kwargs = RECURRENT_CASES[case]
+    overrides = dict(batch_size=T * N, minibatch_size=minibatch_size,
+        bptt_horizon=4, update_epochs=2, learning_rate=3e-3, anneal_lr=False,
+        verbose=False, **extra)
+    lr = 3e-3
+    num_minibatches = T * N // minibatch_size
+    seg_rows = minibatch_size // 4
+    jpolicy, params = _jax_recurrent()
+    tx = optax.scale_by_adam(b1=0.9, b2=0.999, eps=1e-5)
+    jupdate = jax_ppo.make_update_fn(jpolicy, tx,
+        jax_ppo.default_config(**overrides), T, N, num_minibatches, seg_rows,
+        obs_shape=OBS_SHAPE)
+    batch = _batch(3)
+    h, c = (np.random.RandomState(4).randn(2, T // 4, 1, N, HIDDEN) * 0.5
+        ).astype(np.float32)
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    jbatch['lstm0'] = (jnp.asarray(h), jnp.asarray(c))
+    jparams, _, jstats = jax.jit(jupdate)(params, tx.init(params), jbatch,
+        jax.random.PRNGKey(1), jnp.float32(lr))
+
+    policy = _port_recurrent(params, **port_kwargs)
+    optimizer = torch.optim.Adam(policy.parameters(), lr=lr,
+        betas=(0.9, 0.999), eps=1e-5)
+    update = ppo.make_update_fn(policy, optimizer,
+        ppo.default_config(device='cpu', **overrides), T, N,
+        num_minibatches, seg_rows, OBS_SHAPE)
+    tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    tbatch['lstm0'] = (torch.from_numpy(h), torch.from_numpy(c))
+    stats = update(tbatch, lr)
+
+    got = dict(jax.tree.leaves_with_path(
+        lstm_params(policy.module.state_dict())))
+    before = dict(jax.tree.leaves_with_path(params))
+    moved = 0.0
+    for path, leaf in jax.tree.leaves_with_path(jparams):
+        np.testing.assert_allclose(got[path], np.asarray(leaf), rtol=0,
+            atol=2e-5, err_msg=str(path))
+        moved = max(moved, float(np.abs(np.asarray(leaf)
+            - np.asarray(before[path])).max()))
+    assert moved > 1e-3, 'the update must move the params'
+    assert sorted(stats) == sorted(jstats)
+    for k in stats:
+        np.testing.assert_allclose(stats[k].item(), float(jstats[k]),
+            rtol=1e-4, atol=1e-5, err_msg=k)
+
+
+def test_recurrent_rollout_replays_jax_draws():
+    """The JAX rollout and the port's, from the same weights and env
+    lanes, with the JAX sampler's uniforms and reset draws injected: the
+    same actions and obs exactly; logprobs, values, the stored segment
+    states lstm0, the carried state and the bootstrap value to 1e-5. The
+    state is carried through episode ends (squared's end every few
+    steps)."""
+    steps, lanes, horizon = 12, 8, 4
+    kwargs = dict(distance_to_target=3, num_targets=1)
+    jvec = jax_vector.make(jax_env_creator('squared'), env_kwargs=kwargs,
+        backend=jax_vector.Device, num_envs=lanes)
+    jreset, jstep = jax_vector.make_env_ops(jvec.env, jvec.emulated)
+    jpolicy, params = _jax_recurrent(seed=2)
+    jconfig = jax_ppo.default_config(batch_size=steps * lanes,
+        minibatch_size=steps * lanes, bptt_horizon=horizon)
+    jrollout = jax_ppo.make_rollout_fn(jpolicy, jstep, jconfig, steps)
+    key = jax.random.PRNGKey(3)
+    lane_keys = jax.random.split(jax.random.PRNGKey(4), lanes)
+    reset_keys = jax.random.split(jax.random.PRNGKey(5), lanes)
+    env_states, obs, dones = jreset(reset_keys)
+    carry = dict(env=env_states, done=dones, obs=obs, keys=lane_keys,
+        t=jnp.uint32(0), lstm=jpolicy.initial_state(lanes), key=key)
+    jcarry, jbatch, _, _ = jax.jit(jrollout)(params, carry)
+
+    # the draws the JAX rollout made: the action key chain, and each lane's
+    # reset target from fold_in(fold_in(lane_key, t), 0)
+    def chosen_index(keys):
+        states, _ = jax.vmap(jvec.env.reset)(keys)
+        return np.argmax(np.asarray(states['env']['chosen']), axis=1)
+    u, resets = [], []
+    for t in range(steps):
+        key, act_key = jax.random.split(key)
+        u.append(np.asarray(jax.random.uniform(jax.random.split(act_key, 1)[0],
+            (lanes,), dtype=jnp.float32)))
+        step_keys = jax.vmap(jax.random.fold_in, (0, None))(lane_keys, t)
+        resets.append(chosen_index(jax.vmap(jax.random.fold_in,
+            (0, None))(step_keys, 0)))
+    draws = dict(u=torch.from_numpy(np.stack(u)),
+        reset=torch.from_numpy(np.stack(resets)))
+
+    vecenv = vector.make(env_creator('squared'), env_kwargs=kwargs,
+        num_envs=lanes, device='cpu')
+    reset_batch, step_batch = vector.make_env_ops(vecenv.env,
+        vecenv.emulated)
+    policy = _port_recurrent(params)
+    states, tobs, tdones = reset_batch(torch.from_numpy(
+        chosen_index(reset_keys)))
+    np.testing.assert_array_equal(tobs.numpy(), np.asarray(obs))
+    rollout = ppo.make_rollout_fn(policy, vecenv.env, step_batch,
+        ppo.default_config(device='cpu', bptt_horizon=horizon), steps,
+        torch.Generator())
+    tcarry, tbatch, _, episodes = rollout(dict(env=states, done=tdones,
+        obs=tobs, lstm=policy.initial_state(lanes)), draws)
+
+    assert episodes > 0, 'the rollout must cross episode ends'
+    np.testing.assert_array_equal(tbatch['action'].numpy(),
+        np.asarray(jbatch['action']))
+    np.testing.assert_array_equal(tbatch['obs'].numpy(),
+        np.asarray(jbatch['obs']))
+    for name in ('logprob', 'value', 'last_value'):
+        np.testing.assert_allclose(tbatch[name].numpy(),
+            np.asarray(jbatch[name]), rtol=0, atol=1e-5, err_msg=name)
+    assert tbatch['lstm0'][0].shape == (steps // horizon, 1, lanes, HIDDEN)
+    for got, want in zip(tbatch['lstm0'] + tcarry['lstm'],
+            tuple(jbatch['lstm0']) + tuple(jcarry['lstm'])):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+            atol=1e-5)
+
+
+def _recurrent_trainer(tmp_path, **overrides):
+    vecenv = vector.make(env_creator('squared'), num_envs=16, device='cpu')
+    shape = vecenv.single_observation_space.shape
+    policy = RecurrentPolicy(LSTMWrapper(Default(obs_shape=shape,
+        action_space=vecenv.single_action_space, hidden_size=16,
+        generator=torch.Generator().manual_seed(0)), obs_shape=shape,
+        input_size=16, hidden_size=16,
+        generator=torch.Generator().manual_seed(1)))
+    cfg = dict(batch_size=16 * 8, minibatch_size=64, bptt_horizon=4,
+        update_epochs=2, total_timesteps=16 * 8 * 100, verbose=False,
+        data_dir=str(tmp_path), device='cpu')
+    cfg.update(overrides)
+    return ppo.create(ppo.default_config(**cfg), vecenv, policy)
+
+
+@pytest.mark.parametrize('obs_store_dtype', [None, 'bfloat16'])
+def test_recurrent_steps_on_cpu_give_finite_stats(tmp_path,
+        obs_store_dtype):
+    data = _recurrent_trainer(tmp_path, obs_store_dtype=obs_store_dtype)
+    assert ppo.default_config().lstm_time_slab_minibatches is True
+    ppo.step(data)
+    ppo.step_many(data, 2)
+    assert data.epoch == 3
+    losses = data.losses
+    assert all(np.isfinite(v) for v in losses.values()), losses
+    assert losses.grad_norm > 0
+    h, c = data.carry['lstm']
+    assert h.shape == (1, 16, 16) and torch.isfinite(h).all()
+    assert torch.any(h != 0), 'the rollout carries the LSTM state'

@@ -1,9 +1,11 @@
 """Where an epoch of the PyTorch port's trainer goes, on one NVIDIA GPU.
 
-    python3 tools/profile_torch_trainer.py [--use-kernel]
+    python3 tools/profile_torch_trainer.py [--use-kernel] [--lstm]
 
 Builds chip_smoke.py's main-path trainer (Ocean squared, Default MLP
-h128 bf16, 8192 lanes x 64 steps, minibatch 131072), runs one warm-up
+h128 bf16, 8192 lanes x 64 steps, minibatch 131072; with --lstm the
+LSTM line, RecurrentPolicy(LSTMWrapper(Default)) h128 bf16 through the
+enc5 kernels, time-slab minibatches of 131072), runs one warm-up
 epoch, then runs the rollout and the update of an epoch twice each:
 once timed on the host clock, once under torch.profiler. For each phase
 it prints the wall time, the summed device time of its kernels, the
@@ -55,6 +57,8 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--use-kernel', action='store_true',
         help='Default(use_kernel=True): the fused MLP head kernel')
+    parser.add_argument('--lstm', action='store_true',
+        help='the recurrent trainer (LSTMWrapper, enc5 kernels)')
     args = parser.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -67,7 +71,8 @@ def main():
     build_all(KERNELS)
     card = card_line()
 
-    ppo, data = make_trainer(torch, use_kernel=args.use_kernel)
+    ppo, data = make_trainer(torch, use_kernel=args.use_kernel,
+        lstm_kernel='enc5' if args.lstm else None)
     ppo.step(data)  # warm-up: buffers, cuBLAS handles, kernel libraries
 
     def rollout_fn():
@@ -77,7 +82,7 @@ def main():
     batch, rollout = profile_phase(torch, rollout_fn)
     _, update = profile_phase(torch,
         lambda: data.update_fn(batch, data.config.learning_rate))
-    result = dict(card=card, use_kernel=args.use_kernel,
+    result = dict(card=card, use_kernel=args.use_kernel, lstm=args.lstm,
         batch_size=data.config.batch_size, rollout=rollout, update=update)
     for phase in ('rollout', 'update'):
         r = result[phase]
