@@ -5,10 +5,15 @@
 Builds the CUDA kernels from the sources in this checkout, holds each
 against its plain PyTorch version at the trainer's shapes, times both
 beside the least time the card could take, and drives the port's main
-path: the fused PPO trainer on Ocean `squared` with the `Default` MLP at
-8192 lanes (GAE kernel), then the same trainer with the fused MLP head
-kernel (`Default(use_kernel=True)`). Last, a small trainer update and env
-run on the card are held against the same on the CPU.
+paths: the fused PPO trainer on Ocean `squared` with the `Default` MLP at
+8192 lanes (GAE kernel), the same trainer with the fused MLP head kernel
+(`Default(use_kernel=True)`), the recurrent trainer through the enc5 and
+through the cat LSTM kernels, and the LSTM validation path
+(tools/validate_lstm_torch.py: lstm_scan and lstm_scan_fused timed at
+the bench shapes, then a 40-epoch learning proof that must reach score
+0.9; tools/kernel_lab_torch.py over every ported variant). Last, small
+trainer updates and an env run on the card are held against the same on
+the CPU.
 
 Prints one line per phase, a `{"kernels": [...]}` JSON line, the card's
 name and power limit, and last `{"ok": true, "device": {...}}`. Any
@@ -18,9 +23,11 @@ nothing of JAX.
 """
 import json
 import os
-import subprocess
 import sys
 import time
+
+from pufferlib_tpu_torch.ops.cuda.timing import (
+    card_line, l2_flush_buffer, timed_ms)
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -44,33 +51,6 @@ def log(msg):
     print(msg, flush=True)
 
 
-def card_line():
-    out = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
-        '--format=csv,noheader'], capture_output=True, text=True, check=True,
-        timeout=60)
-    return out.stdout.strip().splitlines()[0]
-
-
-def timed_ms(torch, fn, flush, reps=20):
-    """Mean device ms of fn() over reps launches, each after a write of
-    `flush` that evicts the 50 MB L2 (the trainer's batch is not resident
-    when GAE runs), with CUDA events around the call alone."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    total = 0.0
-    for _ in range(reps):
-        flush.zero_()
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        total += start.elapsed_time(end)
-    return total / reps
-
-
 def bound(bytes_moved, flops, dtype_name):
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
@@ -92,8 +72,8 @@ def check_gae(torch, gae, flush, rng, T, E):
     err = (got - want).abs().max().item()
     if not (torch.isfinite(got).all() and err <= GAE_TOL):
         raise AssertionError(f'GAE ({T}, {E}): max abs err {err} > {GAE_TOL}')
-    ms = timed_ms(torch, lambda: gae.compute_gae_cuda(*args), flush)
-    plain_ms = timed_ms(torch, lambda: gae.compute_gae(*args), flush, reps=5)
+    ms = timed_ms(lambda: gae.compute_gae_cuda(*args), flush)
+    plain_ms = timed_ms(lambda: gae.compute_gae(*args), flush, reps=5)
     bytes_moved = (4 * T * E + E) * 4
     flops = 9 * T * E
     bound_ms, bound_by = bound(bytes_moved, flops, 'float32')
@@ -127,8 +107,8 @@ def check_mlp(torch, mlp, flush, rng, B, dtype_name, F=49, H=128, O=9):
         raise AssertionError(
             f'MLP head B={B} {dtype_name}: max abs err {err} > {tol}')
     with torch.no_grad():
-        ms = timed_ms(torch, lambda: mlp.mlp_head(*args), flush)
-        plain_ms = timed_ms(torch, lambda: mlp.mlp_head_reference(*args),
+        ms = timed_ms(lambda: mlp.mlp_head(*args), flush)
+        plain_ms = timed_ms(lambda: mlp.mlp_head_reference(*args),
             flush)
     bytes_moved = (B * F * x.element_size() + 4 * (F * H + H + H * O + O)
         + 4 * B * O)
@@ -149,19 +129,48 @@ def check_mlp(torch, mlp, flush, rng, B, dtype_name, F=49, H=128, O=9):
 # and carries on; 2e-2 is five ulps of the largest value.
 LSTM_TOL = {'float32': 1e-5, 'bfloat16': 2e-2}
 LSTM_OUTS = ('outs', 'hT', 'cT', 'cseq')
-LSTM_GRADS = {
-    'enc5': ('dh0', 'dc0', 'dw_enc', 'db_enc', 'dw_ih', 'dw_hh', 'db'),
-    'cat': ('dx', 'dh0', 'dc0', 'dw_ih', 'dw_hh', 'db'),
-}
+ENC_GRADS = ('dh0', 'dc0', 'dw_enc', 'db_enc', 'dw_ih', 'dw_hh', 'db')
+CELL_GRADS = ('dx', 'dh0', 'dc0', 'dw_ih', 'dw_hh', 'db')
 
 
-def lstm_case(torch, rng, kind, T, B, dtype_name, F=49, H=128):
-    """Inputs at the trainer's shapes: (module, plain forward, plain
-    backward, forward args, upstream gradients, cdt). Dense normal
-    features and inputs, weights scaled as the trainer's orthogonal
-    init."""
+def lstm_kinds():
+    """kind -> (kernel forward, kernel backward, plain forward, plain
+    backward, gradient names). 'enc' is lstm_scan_enc: enc5's forward
+    kernel with the step-by-step backward."""
+    from pufferlib_tpu_torch.ops.cuda import lstm_cat, lstm_enc, lstm_scan
+    return {
+        'enc5': (lstm_enc._launch_forward, lstm_enc._launch_backward,
+            lstm_enc.lstm_enc_reference,
+            lstm_enc.lstm_enc_backward_reference, ENC_GRADS),
+        'enc': (lstm_enc._launch_forward, lstm_enc._launch_step_backward,
+            lstm_enc.lstm_enc_reference,
+            lstm_enc.lstm_scan_enc_backward_reference, ENC_GRADS),
+        'cat': (lstm_cat._launch_forward, lstm_cat._launch_backward,
+            lstm_cat.lstm_cat_reference,
+            lstm_cat.lstm_cat_backward_reference, CELL_GRADS),
+        'fused': (lstm_scan._launch_fused_forward,
+            lstm_scan._launch_fused_backward,
+            lstm_scan.lstm_scan_fused_reference,
+            lstm_scan.lstm_scan_fused_backward_reference, CELL_GRADS),
+        'scan': (lstm_scan._launch_scan_forward,
+            lstm_scan._launch_scan_backward, lstm_scan.lstm_scan_reference,
+            lstm_scan.lstm_scan_backward_reference,
+            ('dx_proj', 'dh0', 'dc0', 'dw_hh')),
+    }
+
+
+# kinds whose forward takes save_cseq: without it the kernel is handed a
+# null cseq and must give the same outs, hT and cT bit for bit
+PRIMAL_KINDS = ('enc', 'fused', 'scan')
+
+
+def lstm_case(torch, rng, kind, T, B, dtype_name, F=49, H=128,
+        xp_dtype_name=None):
+    """Inputs at the trainer's shapes: (forward args, upstream gradients,
+    cdt). Dense normal features and inputs, weights scaled as the
+    trainer's orthogonal init. scan's x_proj is in xp_dtype_name (the
+    compute dtype when None)."""
     import numpy as np
-    from pufferlib_tpu_torch.ops.cuda import lstm_cat, lstm_enc
     cdt = getattr(torch, dtype_name)
 
     def arr(*shape, scale=1.0):
@@ -170,99 +179,115 @@ def lstm_case(torch, rng, kind, T, B, dtype_name, F=49, H=128):
     state = (arr(B, H, scale=0.5), arr(B, H, scale=0.5))
     weights = (arr(H, 4 * H, scale=H ** -0.5), arr(H, 4 * H, scale=H ** -0.5),
         arr(4 * H, scale=0.1))
-    if kind == 'enc5':
+    if kind in ('enc5', 'enc'):
         args = (arr(T, B, F).to(cdt), *state, arr(F, H, scale=(2 / F) ** 0.5),
             arr(H, scale=0.1), *weights)
-        plain = (lstm_enc, lstm_enc.lstm_enc_reference,
-            lstm_enc.lstm_enc_backward_reference)
+    elif kind == 'scan':
+        xp_dtype = getattr(torch, xp_dtype_name or dtype_name)
+        args = (arr(T, B, 4 * H).to(xp_dtype), *state, weights[1])
     else:
         args = (arr(T, B, H, scale=0.5).to(cdt), *state, *weights)
-        plain = (lstm_cat, lstm_cat.lstm_cat_reference,
-            lstm_cat.lstm_cat_backward_reference)
     grads = (arr(T, B, H).to(cdt), arr(B, H), arr(B, H))
-    return (*plain, args, grads, cdt)
+    return args, grads, cdt
 
 
 def lstm_bounds(kind, args, T, B, H, dtype_name):
     """(forward, backward) bounds from this call's inputs: every input
     read once and every output written once, and the flops of the
-    function, at the peak of the input type."""
+    function, at the peak of the compute type."""
     x = args[0]
-    e = x.element_size()
-    F_or_D = x.shape[2]
+    x_bytes = x.numel() * x.element_size()
     weights = sum(t.numel() for t in args[3:]) * 4
     state = 2 * B * H * 4
-    seq = T * B * H * e
-    if kind == 'enc5':
-        F, D = F_or_D, H
+    seq = T * B * H * (2 if dtype_name == 'bfloat16' else 4)
+    # in: the sequence, weights, h0/c0; out: outs, cseq, hT/cT
+    fwd_bytes = x_bytes + weights + state + 2 * seq + state
+    # in: the sequence, weights, h0/c0, outs, cseq, g_outs, g_hT/g_cT;
+    # out: dh0/dc0 and the weight gradients
+    bwd_bytes = x_bytes + weights + state + 3 * seq + state + state + weights
+    if kind in ('enc5', 'enc'):
+        F, D = x.shape[2], H
         fwd_flops = 2 * T * B * (F * D + (D + H) * 4 * H)
         bwd_flops = 2 * T * B * (2 * F * D + 2 * (D + H) * 4 * H
             + 4 * H * H + 4 * H * D)
-        fwd_bytes = x.numel() * e + weights + state + 2 * seq + state
-        # in: feats, weights, h0/c0, outs, cseq, g_outs, g_hT/g_cT;
-        # out: dh0/dc0 and the weight gradients
-        bwd_bytes = (x.numel() * e + weights + state + 3 * seq + state
-            + state + weights)
+    elif kind == 'scan':
+        # the recurrent product alone; backward: the gate recompute,
+        # dh_prev and dW_hh, and dx_proj written
+        fwd_flops = 2 * T * B * H * 4 * H
+        bwd_flops = 3 * fwd_flops
+        bwd_bytes += x_bytes
     else:
-        D = F_or_D
+        D = x.shape[2]
         fwd_flops = 2 * T * B * (D + H) * 4 * H
         bwd_flops = 3 * fwd_flops
-        fwd_bytes = x.numel() * e + weights + state + 2 * seq + state
-        # as enc5's, plus dx written
-        bwd_bytes = (2 * x.numel() * e + weights + state + 3 * seq + state
-            + state + weights)
+        bwd_bytes += x_bytes  # dx written
     return (bound(fwd_bytes, fwd_flops, dtype_name),
         bound(bwd_bytes, bwd_flops, dtype_name))
 
 
 def check_lstm(torch, flush, rng, kind, B, dtype_name, T=16, H=128,
-        timed=False):
+        timed=False, xp_dtype_name=None):
     """The LSTM kernel pair `kind` against its plain versions on the same
     inputs: every output and gradient within LSTM_TOL. With timed: the
-    kernels', the plain versions' and (cat) cuDNN's times and the
+    kernels', the plain versions' and (cat, fused) cuDNN's times and the
     bounds."""
-    mod, fwd_plain, bwd_plain, args, grads, cdt = lstm_case(torch, rng, kind,
-        T, B, dtype_name, H=H)
+    fwd, bwd, fwd_plain, bwd_plain, grad_names = lstm_kinds()[kind]
+    args, grads, cdt = lstm_case(torch, rng, kind, T, B, dtype_name, H=H,
+        xp_dtype_name=xp_dtype_name)
     with torch.no_grad():
-        got = mod._launch_forward(*args, cdt)
+        got = fwd(*args, cdt)
         want = fwd_plain(*args, cdt)
         bargs = (*args, want[0], want[3], *grads, cdt)
-        got_b = mod._launch_backward(*bargs)
+        got_b = bwd(*bargs)
         want_b = bwd_plain(*bargs)
+        primal = fwd(*args, cdt, False) if kind in PRIMAL_KINDS else None
     torch.cuda.synchronize()
-    tol = LSTM_TOL[dtype_name]
+    what = f'{kind} T={T} B={B} {dtype_name}' + (
+        f' x_proj {xp_dtype_name}' if xp_dtype_name else '')
+    if primal is not None:
+        if primal[3] is not None or not all(torch.equal(a, w)
+                for a, w in zip(primal[:3], got[:3])):
+            raise AssertionError(f'{what}: the forward without cseq differs '
+                'from the one that saves it')
+    tol = LSTM_TOL['bfloat16' if 'bfloat16' in (dtype_name, xp_dtype_name)
+        else 'float32']
     errs = {}
-    for name, a, w in zip(LSTM_OUTS + LSTM_GRADS[kind], got + got_b,
+    for name, a, w in zip(LSTM_OUTS + grad_names, got + got_b,
             want + want_b):
+        if a.dtype != w.dtype or a.shape != w.shape:
+            raise AssertionError(f'{what} {name}: {a.dtype} {tuple(a.shape)} '
+                f'against {w.dtype} {tuple(w.shape)}')
         err = (a.float() - w.float()).abs().max().item()
         scale = max(1.0, w.float().abs().max().item())
         if not (torch.isfinite(a).all() and err <= tol * scale):
-            raise AssertionError(f'{kind} B={B} {dtype_name} {name}: max abs '
-                f'err {err} > {tol} x {scale:.4g}')
+            raise AssertionError(f'{what} {name}: max abs err {err} > {tol} '
+                f'x {scale:.4g}')
         errs[name] = (err, tol * scale)
-    log(f'lstm {kind} T={T} B={B} {dtype_name}, max abs err (tol): ' + ', '.join(
-        f'{k} {e:.3g} ({t:.3g})' for k, (e, t) in errs.items()))
+    log(f'lstm {what}, max abs err (tol): ' + ', '.join(
+        f'{k} {e:.3g} ({t:.3g})' for k, (e, t) in errs.items()) + (
+        '; forward without cseq equal bit for bit' if primal else ''))
     result = dict(fwd_err=max(errs[k][0] for k in LSTM_OUTS),
-        bwd_err=max(errs[k][0] for k in LSTM_GRADS[kind]),
+        bwd_err=max(errs[k][0] for k in grad_names),
         shape=f'T={T} B={B} H={H} {dtype_name}')
     if not timed:
         return result
     with torch.no_grad():
-        result['fwd_ms'] = timed_ms(torch,
-            lambda: mod._launch_forward(*args, cdt), flush)
-        result['bwd_ms'] = timed_ms(torch,
-            lambda: mod._launch_backward(*bargs), flush)
-        result['fwd_plain_ms'] = timed_ms(torch,
-            lambda: fwd_plain(*args, cdt), flush, reps=5)
-        result['bwd_plain_ms'] = timed_ms(torch,
-            lambda: bwd_plain(*bargs), flush, reps=5)
+        result['fwd_ms'] = timed_ms(lambda: fwd(*args, cdt), flush)
+        result['bwd_ms'] = timed_ms(lambda: bwd(*bargs), flush)
+        result['fwd_plain_ms'] = timed_ms(lambda: fwd_plain(*args, cdt),
+            flush, reps=5)
+        result['bwd_plain_ms'] = timed_ms(lambda: bwd_plain(*bargs), flush,
+            reps=5)
     (result['fwd_bound'], result['fwd_by']), (result['bwd_bound'],
         result['bwd_by']) = lstm_bounds(kind, args, T, B, H, dtype_name)
+    # cuDNN's LSTM takes x, W_ih, W_hh and b: the cat and fused kernels'
+    # function. No single PyTorch call fuses the encoder in, or takes the
+    # projection x_proj as its input
     result['fwd_lib'] = result['bwd_lib'] = None
-    if kind == 'cat':
+    if kind in ('cat', 'fused'):
         result['fwd_lib'], result['bwd_lib'] = cudnn_lstm_ms(torch, flush,
             args, grads[0])
-    log(f'lstm {kind} T={T} B={B} {dtype_name}: forward {result["fwd_ms"]:.4f}'
+    log(f'lstm {what}: forward {result["fwd_ms"]:.4f}'
         f' ms (plain {result["fwd_plain_ms"]:.4f}, bound '
         f'{result["fwd_bound"]:.4f} {result["fwd_by"]}, library '
         f'{result["fwd_lib"]}); backward {result["bwd_ms"]:.4f} ms (plain '
@@ -286,11 +311,11 @@ def cudnn_lstm_ms(torch, flush, args, g_outs):
         lstm.bias_hh_l0.zero_()
     state = (h0[None].to(x.dtype), c0[None].to(x.dtype))
     with torch.no_grad():
-        fwd_ms = timed_ms(torch, lambda: lstm(x, state), flush)
+        fwd_ms = timed_ms(lambda: lstm(x, state), flush)
     xg = x.detach().requires_grad_()
     outs, _ = lstm(xg, state)
     inputs = [xg] + list(lstm.parameters())
-    bwd_ms = timed_ms(torch, lambda: torch.autograd.grad(outs, inputs,
+    bwd_ms = timed_ms(lambda: torch.autograd.grad(outs, inputs,
         g_outs, retain_graph=True), flush)
     return fwd_ms, bwd_ms
 
@@ -422,7 +447,7 @@ def main():
         log(f'  {k.source}: {seconds}; ' + ' | '.join(usage))
 
     # phases 3-4: each kernel against its plain version, then timed
-    flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device='cuda')
+    flush = l2_flush_buffer()
     rng = np.random.RandomState(0)
     gae_main = check_gae(torch, gae, flush, rng, 64, 8192)
     gae_ragged = check_gae(torch, gae, flush, rng, 64, 1000)
@@ -430,15 +455,21 @@ def main():
         for B in (8192, 131072) for d in ('bfloat16', 'float32')}
     lstm_runs = {(kind, B, d): check_lstm(torch, flush, rng, kind, B, d,
             timed=(B, d) == (8192, 'bfloat16'))
-        for kind in ('enc5', 'cat') for B in (8192, 1000)
-        for d in ('bfloat16', 'float32')}
+        for kind in ('enc5', 'cat', 'scan', 'fused', 'enc')
+        for B in (8192, 1000) for d in ('bfloat16', 'float32')}
+    # x_proj and the compute dtype apart, both ways
+    for B in (8192, 1000):
+        lstm_runs['scan', B, 'bfloat16/f32 x_proj'] = check_lstm(torch, flush,
+            rng, 'scan', B, 'bfloat16', xp_dtype_name='float32')
+        lstm_runs['scan', B, 'float32/bf16 x_proj'] = check_lstm(torch, flush,
+            rng, 'scan', B, 'float32', xp_dtype_name='bfloat16')
     del flush
 
     # phase 5: the main path, GAE kernel once per epoch
     ppo, data = make_trainer(torch)
     ppo.step(data)  # warm-up epoch
     torch.cuda.synchronize()
-    epochs = 4
+    epochs = 3
     for k in KERNELS:
         k.launches = 0
     start = time.perf_counter()
@@ -485,11 +516,10 @@ def main():
         f'(first 2 epochs, no warm-up); losses {json.dumps(losses)}')
     del data
 
-    # phase 7: this slice's main path, the LSTM trainer through the enc5
-    # kernels, then the synchronised rollout/update split of an epoch
+    # phase 7: the LSTM trainer through the enc5 kernels, then the synchronised rollout/update split of an epoch
     torch.cuda.reset_peak_memory_stats()
     ppo, data, enc5_launches = run_lstm_trainer(torch, card, 'enc5',
-        epochs=3, warmup=True)
+        epochs=2, warmup=True)
     for _ in range(2):
         ppo.evaluate(data)
         ppo.train(data)
@@ -505,7 +535,10 @@ def main():
         warmup=False)
     del data
 
-    # phase 9: the card against the CPU, at a small size in f32
+    # phase 9: the LSTM validation path, at its full settings
+    validation_launches = run_validation_path(torch)
+
+    # phase 10: the card against the CPU, at a small size in f32
     check_card_against_cpu(torch, np)
     check_lstm_card_against_cpu(torch, np)
 
@@ -529,6 +562,8 @@ def main():
             bound_by=mlp_runs[131072, 'bfloat16']['bound_by'],
             library_ms=None, shape=mlp_runs[131072, 'bfloat16']['shape']),
     ]
+    # (name, check_lstm kind, forward or backward, source, the TPU kernel,
+    # launches on the path that runs it)
     lstm_rows = (
         ('lstm_enc5_forward', 'enc5', 'fwd', 'lstm_enc.cu',
             'lstm_enc.py:170', enc5_launches['lstm_enc_forward']),
@@ -538,6 +573,16 @@ def main():
             cat_launches['lstm_cat_forward']),
         ('lstm_cat_backward', 'cat', 'bwd', 'lstm_cat.cu', 'lstm_cat.py:185',
             cat_launches['lstm_cat_backward']),
+        ('lstm_enc_step_backward', 'enc', 'bwd', 'lstm_enc.cu',
+            'lstm_enc.py:241', validation_launches['lstm_enc_step_backward']),
+        ('lstm_scan_forward', 'scan', 'fwd', 'lstm_scan.cu', 'lstm.py:185',
+            validation_launches['lstm_scan_forward']),
+        ('lstm_scan_backward', 'scan', 'bwd', 'lstm_scan.cu', 'lstm.py:236',
+            validation_launches['lstm_scan_backward']),
+        ('lstm_fused_forward', 'fused', 'fwd', 'lstm_scan.cu', 'lstm.py:407',
+            validation_launches['lstm_fused_forward']),
+        ('lstm_fused_backward', 'fused', 'bwd', 'lstm_scan.cu',
+            'lstm.py:464', validation_launches['lstm_fused_backward']),
     )
     for name, kind, part, source, replaces, launches in lstm_rows:
         main = lstm_runs[kind, 8192, 'bfloat16']
@@ -556,6 +601,59 @@ def main():
         'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def load_tool(name):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(name,
+        os.path.join(REPO, 'tools', f'{name}.py'))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+LAB_VARIANTS = ('fused', 'fused-fwd', 'xp', 'cat', 'enc', 'enc5')
+
+
+def run_validation_path(torch):
+    """The LSTM kernel-validation path through its two entry points, with
+    every launch count set to 0 just before and read just after:
+    tools/validate_lstm_torch.main() (lstm_scan_fused and lstm_scan
+    forward + backward at T=16, B=8192, H=128, bf16, then 40 epochs of the
+    1024-lane recurrent trainer through the enc5 kernels, which must reach
+    score 0.9) and tools/kernel_lab_torch.main over every ported variant.
+    Returns the launches by C function."""
+    from pufferlib_tpu_torch.ops.cuda import KERNELS
+    validate = load_tool('validate_lstm_torch')
+    lab = load_tool('kernel_lab_torch')
+    for k in KERNELS:
+        k.reset_counts()
+    start = time.perf_counter()
+    result = validate.main()
+    lab_ms = lab.main(LAB_VARIANTS)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - start
+    launches = {fn: n for k in KERNELS for fn, n in k.fn_launches.items()}
+    # the proof: 40 epochs x 4 update epochs x 4 time-slab minibatches
+    want = {'gae_forward': 40, 'lstm_enc_forward': 640,
+        'lstm_enc_backward': 640}
+    wrong = {fn: launches[fn] for fn, n in want.items() if launches[fn] < n}
+    idle = [fn for fn in ('lstm_scan_forward', 'lstm_scan_backward',
+        'lstm_fused_forward', 'lstm_fused_backward', 'lstm_enc_step_backward',
+        'lstm_cat_forward', 'lstm_cat_backward') if launches[fn] == 0]
+    if wrong or idle:
+        raise AssertionError(f'validation path: launches {launches}; too few '
+            f'of {wrong}, none of {idle}')
+    learning = result['learning']
+    if not (learning['score'] > 0.9 and learning['steps'] == 40 * 65536):
+        raise AssertionError(f'validation path: {learning}')
+    log(f'validation path: score {learning["score"]:.4f} after '
+        f'{learning["steps"]} steps in {learning["seconds"]:.1f} s; timings '
+        f'{json.dumps(result["timings"])}; lab '
+        f'{json.dumps({" ".join(k): v for k, v in lab_ms.items()})}; '
+        f'{elapsed:.1f} s in all on {result["card"]}; launches '
+        f'{json.dumps({k: v for k, v in launches.items() if v})}')
+    return launches
 
 
 def check_card_against_cpu(torch, np):

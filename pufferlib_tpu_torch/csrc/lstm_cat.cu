@@ -36,8 +36,9 @@ struct Forward {
                            const float* w_ih, const float* w_hh, const float* b,
                            void* outs, void* cseq, float* hT, float* cT, int T, int B,
                            cudaStream_t stream) {
-        return lstm::run_forward<H, E, false>(x, h0, c0, nullptr, nullptr, w_ih, w_hh, b,
-                                              outs, cseq, hT, cT, T, B, 0, stream);
+        return lstm::run_forward<H, E, E, lstm::CAT>(x, h0, c0, nullptr, nullptr, w_ih,
+                                                     w_hh, b, outs, cseq, hT, cT, T, B, 0,
+                                                     stream);
     }
 };
 
@@ -50,7 +51,7 @@ struct Backward {
                            float* dc0, float* dw, float* db, void* dg, float* dw_part,
                            float* db_part, int T, int B, int splits, int part_rows,
                            cudaStream_t stream) {
-        return lstm::run_backward<H, E, false>(
+        return lstm::run_backward<H, E, E, lstm::CAT>(
             x, h0, c0, nullptr, nullptr, w_ih, w_hh, b, outs, cseq, g_outs, g_hT, g_cT,
             dh0, dc0, nullptr, nullptr, dw, db, dx, nullptr, dg, dw_part, db_part,
             nullptr, nullptr, T, B, 0, splits, 0, part_rows, stream);

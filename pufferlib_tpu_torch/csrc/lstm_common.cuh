@@ -1,8 +1,9 @@
-// Device code shared by the LSTM kernels csrc/lstm_cat.cu and
-// csrc/lstm_enc.cu, for Hopper (sm_90a). See those files for which TPU
-// kernel each replaces and what bounds it.
+// Device code shared by the LSTM kernels csrc/lstm_cat.cu, csrc/lstm_enc.cu
+// and csrc/lstm_scan.cu, for Hopper (sm_90a). See those files for which
+// TPU kernel each replaces and what bounds it.
 //
-// One design serves both:
+// One design serves them all; a Mode (below) says which function a cell
+// kernel computes per step:
 //
 // * cell_forward: one block per BT = 32 batch rows walks t = 0..T-1. Per
 //   step it builds the operand [x_t | h] (rounded to the compute dtype)
@@ -14,6 +15,9 @@
 //   rounded to the compute dtype as it is staged. With ENC the step first
 //   computes x_t = relu(feats_t @ W_enc + b_enc) from a W_enc held in
 //   shared memory, so no encoded sequence ever reaches device memory.
+//   The modes XP and FUSED keep two f32 sums apart, as their TPU kernels
+//   do: the recurrent h @ W_hh, and the term it is added to (x_proj_t
+//   read from device memory, or x_t @ W_ih + b computed first).
 // * cell_backward: the same blocks walk t = T-1..0. Per step they
 //   recompute the gates from [x_t | h_prev] (h_prev read back from the
 //   stored outs), carry the dh/dc chain in registers, round dgates to the
@@ -76,6 +80,21 @@ __device__ __forceinline__ float to_cdt(float v) {
 
 __device__ __forceinline__ float sigm(float x) { return 1.f / (1.f + expf(-x)); }
 
+// The function a cell kernel computes per step, after its TPU kernel
+enum Mode {
+    CAT,    // gates = [x_t | h] @ [W_ih; W_hh] + b: one sum over K = D + H
+    ENC,    // CAT behind the fused encoder; backward with f32 activations
+            // and db from the unrounded dgates (lstm_enc._bwd_kernel)
+    ENC5,   // backward only: ENC with the activations rounded to the compute
+            // dtype and db from the rounded dgates (lstm_enc5._bwd_kernel)
+    XP,     // gates = x_proj_t + h @ W_hh: the projection is an operand, in
+            // its own dtype S (lstm._fwd_kernel, _bwd_kernel)
+    FUSED,  // gates = (x_t @ W_ih + b) + h @ W_hh: two f32 sums, then added
+            // (lstm._fwd_fused_kernel, _bwd_fused_kernel)
+};
+__host__ __device__ constexpr bool has_encoder(int mode) { return mode == ENC || mode == ENC5; }
+__host__ __device__ constexpr bool two_sums(int mode) { return mode == XP || mode == FUSED; }
+
 template <int H>
 struct Tile {
     static_assert(NT % H == 0, "H must divide the block");
@@ -134,32 +153,42 @@ __device__ __forceinline__ void put_rows(float* w_s, const float4 (&r)[RowChunk<
 
 // Column chunk: columns k0 .. k0+KC of [W_ih; W_hh] (K, G), read as
 // float4s along the row; stored transposed as w_s[kk * KS + n], with the
-// row stride padded to KS = K + 1 against bank conflicts.
-template <int H>
+// row stride padded to KS = K + 1 against bank conflicts. Without XHALF
+// only the rows of W_hh (n >= D) are staged, at the same places.
+template <int H, bool XHALF>
 struct ColChunk {
     static constexpr int KS = Tile<H>::K + 1;
-    static constexpr int LOADS = KC / 4 * Tile<H>::K / NT;
-    static_assert(KC / 4 * Tile<H>::K % NT == 0, "column chunk must tile the block");
+    static constexpr int N0 = XHALF ? 0 : Tile<H>::D;
+    static constexpr int TOTAL = KC / 4 * (Tile<H>::K - N0);  // float4s per chunk
+    static constexpr int LOADS = (TOTAL + NT - 1) / NT;
+    static constexpr bool FULL = TOTAL % NT == 0;
 };
 
-template <int H>
-__device__ __forceinline__ void fetch_cols(float4 (&r)[ColChunk<H>::LOADS],
+template <int H, bool XHALF>
+__device__ __forceinline__ void fetch_cols(float4 (&r)[ColChunk<H, XHALF>::LOADS],
                                            const float* w_ih, const float* w_hh, int k0) {
+    using CC = ColChunk<H, XHALF>;
     constexpr int D = Tile<H>::D, G = Tile<H>::G;
 #pragma unroll
-    for (int q = 0; q < ColChunk<H>::LOADS; ++q) {
-        const int idx = threadIdx.x + q * NT, n = idx / (KC / 4), k4 = idx - n * (KC / 4);
+    for (int q = 0; q < CC::LOADS; ++q) {
+        const int idx = threadIdx.x + q * NT;
+        if (!CC::FULL && idx >= CC::TOTAL) break;
+        const int n = CC::N0 + idx / (KC / 4), k4 = idx % (KC / 4);
         const float* row = n < D ? w_ih + (size_t)n * G : w_hh + (size_t)(n - D) * G;
         r[q] = reinterpret_cast<const float4*>(row + k0)[k4];
     }
 }
 
-template <int H, typename E>
-__device__ __forceinline__ void put_cols(float* w_s, const float4 (&r)[ColChunk<H>::LOADS]) {
-    constexpr int KS = ColChunk<H>::KS;
+template <int H, typename E, bool XHALF>
+__device__ __forceinline__ void put_cols(float* w_s,
+                                         const float4 (&r)[ColChunk<H, XHALF>::LOADS]) {
+    using CC = ColChunk<H, XHALF>;
+    constexpr int KS = CC::KS;
 #pragma unroll
-    for (int q = 0; q < ColChunk<H>::LOADS; ++q) {
-        const int idx = threadIdx.x + q * NT, n = idx / (KC / 4), k4 = idx - n * (KC / 4);
+    for (int q = 0; q < CC::LOADS; ++q) {
+        const int idx = threadIdx.x + q * NT;
+        if (!CC::FULL && idx >= CC::TOTAL) break;
+        const int n = CC::N0 + idx / (KC / 4), k4 = idx % (KC / 4);
         const float4 v = to_cdt4(r[q], std::is_same<E, bf16>::value);
         w_s[(4 * k4) * KS + n] = v.x;
         w_s[(4 * k4 + 1) * KS + n] = v.y;
@@ -168,30 +197,33 @@ __device__ __forceinline__ void put_cols(float* w_s, const float4 (&r)[ColChunk<
     }
 }
 
-// acc[g][i] = sum_k op_s[k][r0 + i] * W[k][g*H + j] over k < K, with the
-// weights streamed through w_s. op_s is (K, BT), already rounded. Every
-// thread of the block must call it; it ends with a barrier, after which
-// op_s and w_s may be written again. PREFETCH keeps the next chunk in
-// flight during this one: it pays where the block already runs one per
-// SM (the backward, 180 registers), and costs the forward its second
-// block per SM (126 registers without it).
-template <int H, typename E, bool PREFETCH>
+// acc[g][i] = sum_k op_s[k][r0 + i] * W[k][g*H + j] over KBEG <= k < KEND,
+// rows of [W_ih; W_hh] (all K of them for the combined operand; D..K for
+// the recurrent half alone, 0..D for the input half), with the weights
+// streamed through w_s. op_s is (K, BT), already rounded. Every thread of
+// the block must call it; it ends with a barrier, after which op_s and
+// w_s may be written again. PREFETCH keeps the next chunk in flight
+// during this one: it pays where the block already runs one per SM (the
+// backward, 180 registers), and costs the forward its second block per
+// SM (126 registers without it).
+template <int H, typename E, bool PREFETCH, int KBEG = 0, int KEND = Tile<H>::K>
 __device__ __forceinline__ void gates_gemm(float (&acc)[4][Tile<H>::RPT],
                                            const float* op_s, float* w_s,
                                            const float* w_ih, const float* w_hh,
                                            int r0, int j) {
-    constexpr int K = Tile<H>::K, G = Tile<H>::G, RPT = Tile<H>::RPT;
+    constexpr int G = Tile<H>::G, RPT = Tile<H>::RPT;
+    static_assert((KEND - KBEG) % KC == 0, "the range must be whole chunks");
 #pragma unroll
     for (int g = 0; g < 4; ++g)
 #pragma unroll
         for (int i = 0; i < RPT; ++i) acc[g][i] = 0.f;
     float4 next[RowChunk<H>::LOADS];
-    if (PREFETCH) fetch_rows<H>(next, w_ih, w_hh, 0);
-    for (int k0 = 0; k0 < K; k0 += KC) {
+    if (PREFETCH) fetch_rows<H>(next, w_ih, w_hh, KBEG);
+    for (int k0 = KBEG; k0 < KEND; k0 += KC) {
         if (!PREFETCH) fetch_rows<H>(next, w_ih, w_hh, k0);
         put_rows<H, E>(w_s, next);
         __syncthreads();
-        if (PREFETCH && k0 + KC < K) fetch_rows<H>(next, w_ih, w_hh, k0 + KC);
+        if (PREFETCH && k0 + KC < KEND) fetch_rows<H>(next, w_ih, w_hh, k0 + KC);
 #pragma unroll 4
         for (int kk = 0; kk < KC; ++kk) {
             const float* wr = w_s + kk * G;
@@ -252,9 +284,56 @@ __device__ __forceinline__ void load_rows(float* op_s, const S* src, size_t base
     }
 }
 
-template <int H, typename E, bool ENC>
+// pre[g][i] = x_proj_t[r0 + i][g*H + j] in f32, zero past the batch edge
+template <int H, typename S>
+__device__ __forceinline__ void load_x_proj(float (&pre)[4][Tile<H>::RPT], const S* xp,
+                                            size_t base, int nrows, int r0, int j) {
+    constexpr int G = Tile<H>::G, RPT = Tile<H>::RPT;
+#pragma unroll
+    for (int i = 0; i < RPT; ++i)
+#pragma unroll
+        for (int g = 0; g < 4; ++g)
+            pre[g][i] = r0 + i < nrows ? ld(xp, (base + r0 + i) * G + g * H + j) : 0.f;
+}
+
+// The gate pre-activations of one step, into acc, from the operand
+// [x_t | h] in op_s. CAT, ENC, ENC5: one sum over K = D + H, plus b.
+// FUSED: (x_t @ W_ih + b) + h @ W_hh. XP: pre (x_proj_t, loaded by the
+// caller) + h @ W_hh.
+template <int H, typename E, int MODE, bool PREFETCH>
+__device__ __forceinline__ void gate_sums(float (&acc)[4][Tile<H>::RPT],
+                                          float (&pre)[4][Tile<H>::RPT], const float* op_s,
+                                          float* w_s, const float* w_ih, const float* w_hh,
+                                          const float (&bias)[4], int r0, int j) {
+    constexpr int D = Tile<H>::D, K = Tile<H>::K, RPT = Tile<H>::RPT;
+    if constexpr (MODE == FUSED) {
+        gates_gemm<H, E, PREFETCH, 0, D>(acc, op_s, w_s, w_ih, w_hh, r0, j);
+#pragma unroll
+        for (int g = 0; g < 4; ++g)
+#pragma unroll
+            for (int i = 0; i < RPT; ++i) pre[g][i] = acc[g][i] + bias[g];
+    }
+    if constexpr (two_sums(MODE)) {
+        gates_gemm<H, E, PREFETCH, D, K>(acc, op_s, w_s, w_ih, w_hh, r0, j);
+#pragma unroll
+        for (int g = 0; g < 4; ++g)
+#pragma unroll
+            for (int i = 0; i < RPT; ++i) acc[g][i] = pre[g][i] + acc[g][i];
+    } else {
+        gates_gemm<H, E, PREFETCH>(acc, op_s, w_s, w_ih, w_hh, r0, j);
+#pragma unroll
+        for (int g = 0; g < 4; ++g)
+#pragma unroll
+            for (int i = 0; i < RPT; ++i) acc[g][i] += bias[g];
+    }
+}
+
+// xin: CAT and FUSED, x (T, B, D); ENC, feats (T, B, F); XP, x_proj
+// (T, B, 4H) in its own dtype S (S is E in the other modes). A null cseq
+// skips its store: the forward of a call that needs no gradient.
+template <int H, typename E, typename S, int MODE>
 __global__ void __launch_bounds__(NT) cell_forward(
-        const E* __restrict__ xin, const float* __restrict__ h0,
+        const S* __restrict__ xin, const float* __restrict__ h0,
         const float* __restrict__ c0, const float* __restrict__ w_enc,
         const float* __restrict__ b_enc, const float* __restrict__ w_ih,
         const float* __restrict__ w_hh, const float* __restrict__ b,
@@ -271,11 +350,13 @@ __global__ void __launch_bounds__(NT) cell_forward(
     const int j = threadIdx.x % H, r0 = (threadIdx.x / H) * RPT;
     const int row0 = blockIdx.x * BT;
     const int nrows = min(BT, B - row0);
-    float bias[4];
+    float bias[4] = {0.f, 0.f, 0.f, 0.f};
+    if constexpr (MODE != XP) {
 #pragma unroll
-    for (int g = 0; g < 4; ++g) bias[g] = b[g * H + j];
+        for (int g = 0; g < 4; ++g) bias[g] = b[g * H + j];
+    }
     float be = 0.f;
-    if constexpr (ENC) {
+    if constexpr (MODE == ENC) {
         be = b_enc[j];
         for (int i = threadIdx.x; i < F * D; i += NT) we_s[i] = to_cdt<E>(w_enc[i]);
     }
@@ -291,26 +372,28 @@ __global__ void __launch_bounds__(NT) cell_forward(
 
     for (int t = 0; t < T; ++t) {
         const size_t base = (size_t)t * B + row0;
-        if constexpr (ENC) {
+        float acc[4][RPT], pre[4][RPT];
+        if constexpr (MODE == ENC) {
             load_rows<E>(f_s, xin, base, F, nrows);
             __syncthreads();
             float x[RPT];
             encode_rows<H>(x, f_s, we_s, be, F, r0, j);
 #pragma unroll
             for (int i = 0; i < RPT; ++i) xh_s[j * BT + r0 + i] = to_cdt<E>(x[i]);
+        } else if constexpr (MODE == XP) {
+            load_x_proj<H>(pre, xin, base, nrows, r0, j);
         } else {
             load_rows<E>(xh_s, xin, base, D, nrows);
         }
         __syncthreads();
-        float acc[4][RPT];
-        gates_gemm<H, E, false>(acc, xh_s, w_s, w_ih, w_hh, r0, j);
+        gate_sums<H, E, MODE, false>(acc, pre, xh_s, w_s, w_ih, w_hh, bias, r0, j);
 #pragma unroll
         for (int i = 0; i < RPT; ++i) {
             const int r = r0 + i;
-            const float ig = sigm(acc[0][i] + bias[0]);
-            const float fg = sigm(acc[1][i] + bias[1]);
-            const float gg = tanhf(acc[2][i] + bias[2]);
-            const float og = sigm(acc[3][i] + bias[3]);
+            const float ig = sigm(acc[0][i]);
+            const float fg = sigm(acc[1][i]);
+            const float gg = tanhf(acc[2][i]);
+            const float og = sigm(acc[3][i]);
             c[i] = fg * c[i] + ig * gg;
             h[i] = og * tanhf(c[i]);
             xh_s[(D + j) * BT + r] = to_cdt<E>(h[i]);
@@ -332,37 +415,46 @@ __global__ void __launch_bounds__(NT) cell_forward(
     }
 }
 
-// xo: cat, the x gradient (T, B, D); ENC, the x slab (T, B, D) that the
-// dW_ih contraction reads. dpre and dbe_part are ENC only.
-template <int H, typename E, bool ENC>
+// xin as the forward's. xo: CAT and FUSED, the x gradient (T, B, D); ENC
+// and ENC5, the x slab (T, B, D) that the dW_ih contraction reads; XP,
+// dx_proj (T, B, 4H), the f32 dgates stored in x_proj's dtype S. dg is the
+// slab of dgates rounded to the compute dtype that the weight-gradient
+// contractions read; XP passes a null dg where dx_proj serves as that
+// slab (S is E, or S is f32 and the contraction rounds as it loads).
+// dpre and dbe_part are ENC and ENC5 only; XP has no bias and no db_part.
+template <int H, typename E, typename S, int MODE>
 __global__ void __launch_bounds__(NT) cell_backward(
-        const E* __restrict__ xin, const float* __restrict__ h0,
+        const S* __restrict__ xin, const float* __restrict__ h0,
         const float* __restrict__ c0, const float* __restrict__ w_enc,
         const float* __restrict__ b_enc, const float* __restrict__ w_ih,
         const float* __restrict__ w_hh, const float* __restrict__ b,
         const E* __restrict__ outs, const E* __restrict__ cseq,
         const E* __restrict__ g_outs, const float* __restrict__ g_hT,
         const float* __restrict__ g_cT, float* __restrict__ dh0,
-        float* __restrict__ dc0, E* __restrict__ xo, E* __restrict__ dpre,
+        float* __restrict__ dc0, S* __restrict__ xo, E* __restrict__ dpre,
         E* __restrict__ dg, float* __restrict__ db_part,
         float* __restrict__ dbe_part, int T, int B, int F) {
     using TL = Tile<H>;
     constexpr int D = TL::D, G = TL::G, RG = TL::RG, RPT = TL::RPT;
-    constexpr int KS = ColChunk<H>::KS;
+    constexpr bool ENCODER = has_encoder(MODE), XHALF = MODE != XP;
+    using CC = ColChunk<H, XHALF>;
+    constexpr int KS = CC::KS;
     extern __shared__ __align__(16) float smem[];
     float* buf = smem;                // (K, BT) [x_t | h_prev], then (G, BT) dgates
     float* w_s = buf + G * BT;        // (KC, G) weight rows / (KC, KS) columns
-    float* we_s = w_s + KC * G;       // ENC: (F, D)
-    float* f_s = we_s + F * D;        // ENC: (F, BT)
+    float* we_s = w_s + KC * G;       // encoder: (F, D)
+    float* f_s = we_s + F * D;        // encoder: (F, BT)
 
     const int j = threadIdx.x % H, rg = threadIdx.x / H, r0 = rg * RPT;
     const int row0 = blockIdx.x * BT;
     const int nrows = min(BT, B - row0);
-    float bias[4];
+    float bias[4] = {0.f, 0.f, 0.f, 0.f};
+    if constexpr (MODE != XP) {
 #pragma unroll
-    for (int g = 0; g < 4; ++g) bias[g] = b[g * H + j];
+        for (int g = 0; g < 4; ++g) bias[g] = b[g * H + j];
+    }
     float be = 0.f;
-    if constexpr (ENC) {
+    if constexpr (ENCODER) {
         be = b_enc[j];
         for (int i = threadIdx.x; i < F * D; i += NT) we_s[i] = to_cdt<E>(w_enc[i]);
     }
@@ -380,7 +472,8 @@ __global__ void __launch_bounds__(NT) cell_backward(
     for (int t = T - 1; t >= 0; --t) {
         const size_t base = (size_t)t * B + row0;
         float x[RPT];
-        if constexpr (ENC) {
+        float acc[4][RPT], pre[4][RPT];
+        if constexpr (ENCODER) {
             load_rows<E>(f_s, xin, base, F, nrows);
             __syncthreads();
             encode_rows<H>(x, f_s, we_s, be, F, r0, j);
@@ -391,6 +484,8 @@ __global__ void __launch_bounds__(NT) cell_backward(
                 buf[j * BT + r] = x[i];
                 if (r < nrows) st(xo, (base + r) * D + j, x[i]);
             }
+        } else if constexpr (MODE == XP) {
+            load_x_proj<H>(pre, xin, base, nrows, r0, j);
         } else {
             load_rows<E>(buf, xin, base, D, nrows);
         }
@@ -400,19 +495,20 @@ __global__ void __launch_bounds__(NT) cell_backward(
         else
             load_rows<E>(buf + D * BT, outs, base - B, H, nrows);
         __syncthreads();
-        float acc[4][RPT];
-        gates_gemm<H, E, true>(acc, buf, w_s, w_ih, w_hh, r0, j);
+        // the second accumulator of XP and FUSED takes the registers of
+        // the prefetched chunk
+        gate_sums<H, E, MODE, !two_sums(MODE)>(acc, pre, buf, w_s, w_ih, w_hh, bias, r0, j);
 
 #pragma unroll
         for (int i = 0; i < RPT; ++i) {
             const int r = r0 + i;
             const bool ok = r < nrows;
             const size_t idx = (base + r) * H + j;
-            float ai = sigm(acc[0][i] + bias[0]);
-            float af = sigm(acc[1][i] + bias[1]);
-            float ag = tanhf(acc[2][i] + bias[2]);
-            float ao = sigm(acc[3][i] + bias[3]);
-            if constexpr (ENC) {
+            float ai = sigm(acc[0][i]);
+            float af = sigm(acc[1][i]);
+            float ag = tanhf(acc[2][i]);
+            float ao = sigm(acc[3][i]);
+            if constexpr (MODE == ENC5) {
                 // the enc5 activation slab is stored in the compute dtype
                 ai = to_cdt<E>(ai);
                 af = to_cdt<E>(af);
@@ -436,36 +532,46 @@ __global__ void __launch_bounds__(NT) cell_backward(
                 const float dcg = to_cdt<E>(d[g]);
                 buf[(g * H + j) * BT + r] = dcg;
                 if (ok) {
-                    st(dg, (base + r) * G + g * H + j, dcg);
-                    // enc5 sums the rounded slab, cat the f32 dgates
-                    db_acc[g] += ENC ? dcg : d[g];
+                    const size_t at = (base + r) * G + g * H + j;
+                    if constexpr (MODE == XP) {
+                        st(xo, at, d[g]);
+                        if (dg) st(dg, at, dcg);
+                    } else {
+                        st(dg, at, dcg);
+                        // enc5 sums the rounded slab, the others the f32 dgates
+                        db_acc[g] += MODE == ENC5 ? dcg : d[g];
+                    }
                 }
             }
             dc[i] = dcv * af;
         }
         __syncthreads();
 
-        // [dx | dh_prev] = dgates @ [W_ih; W_hh]^T, streaming columns
+        // [dx | dh_prev] = dgates @ [W_ih; W_hh]^T (XP: dh_prev alone),
+        // streaming columns
         float ax[RPT], ah[RPT];
 #pragma unroll
         for (int i = 0; i < RPT; ++i) ax[i] = ah[i] = 0.f;
-        float4 next[ColChunk<H>::LOADS];
-        fetch_cols<H>(next, w_ih, w_hh, 0);
+        float4 next[CC::LOADS];
+        fetch_cols<H, XHALF>(next, w_ih, w_hh, 0);
         for (int k0 = 0; k0 < G; k0 += KC) {
-            put_cols<H, E>(w_s, next);
+            put_cols<H, E, XHALF>(w_s, next);
             __syncthreads();
-            if (k0 + KC < G) fetch_cols<H>(next, w_ih, w_hh, k0 + KC);
+            if (k0 + KC < G) fetch_cols<H, XHALF>(next, w_ih, w_hh, k0 + KC);
 #pragma unroll 4
             for (int kk = 0; kk < KC; ++kk) {
-                const float wx = w_s[kk * KS + j], wh = w_s[kk * KS + D + j];
+                const float wx = XHALF ? w_s[kk * KS + j] : 0.f;
+                const float wh = w_s[kk * KS + D + j];
                 const float4* dv = reinterpret_cast<const float4*>(buf + (k0 + kk) * BT + r0);
 #pragma unroll
                 for (int q = 0; q < RPT / 4; ++q) {
                     const float4 v = dv[q];
-                    ax[4 * q] = fmaf(v.x, wx, ax[4 * q]);
-                    ax[4 * q + 1] = fmaf(v.y, wx, ax[4 * q + 1]);
-                    ax[4 * q + 2] = fmaf(v.z, wx, ax[4 * q + 2]);
-                    ax[4 * q + 3] = fmaf(v.w, wx, ax[4 * q + 3]);
+                    if constexpr (XHALF) {
+                        ax[4 * q] = fmaf(v.x, wx, ax[4 * q]);
+                        ax[4 * q + 1] = fmaf(v.y, wx, ax[4 * q + 1]);
+                        ax[4 * q + 2] = fmaf(v.z, wx, ax[4 * q + 2]);
+                        ax[4 * q + 3] = fmaf(v.w, wx, ax[4 * q + 3]);
+                    }
                     ah[4 * q] = fmaf(v.x, wh, ah[4 * q]);
                     ah[4 * q + 1] = fmaf(v.y, wh, ah[4 * q + 1]);
                     ah[4 * q + 2] = fmaf(v.z, wh, ah[4 * q + 2]);
@@ -480,11 +586,11 @@ __global__ void __launch_bounds__(NT) cell_backward(
             dh[i] = ah[i];
             if (r >= nrows) continue;
             const size_t idx = (base + r) * D + j;
-            if constexpr (ENC) {
+            if constexpr (ENCODER) {
                 const float p = to_cdt<E>(x[i] > 0.f ? ax[i] : 0.f);
                 st(dpre, idx, p);
                 dbe_acc += p;
-            } else {
+            } else if constexpr (MODE != XP) {
                 st(xo, idx, ax[i]);
             }
         }
@@ -498,24 +604,26 @@ __global__ void __launch_bounds__(NT) cell_backward(
             dc0[idx] = dc[i];
         }
     }
-    // per-block bias gradients: the row groups' sums added in order
-    // (buf is free: the loop ended on a barrier)
-    float* red = buf;              // (RG, G)
-    float* red_e = buf + RG * G;   // (RG, D)
+    if constexpr (MODE != XP) {
+        // per-block bias gradients: the row groups' sums added in order
+        // (buf is free: the loop ended on a barrier)
+        float* red = buf;              // (RG, G)
+        float* red_e = buf + RG * G;   // (RG, D)
 #pragma unroll
-    for (int g = 0; g < 4; ++g) red[rg * G + g * H + j] = db_acc[g];
-    if constexpr (ENC) red_e[rg * D + j] = dbe_acc;
-    __syncthreads();
-    for (int n = threadIdx.x; n < G; n += NT) {
-        float s = 0.f;
-        for (int q = 0; q < RG; ++q) s += red[q * G + n];
-        db_part[(size_t)blockIdx.x * G + n] = s;
-    }
-    if constexpr (ENC) {
-        for (int n = threadIdx.x; n < D; n += NT) {
+        for (int g = 0; g < 4; ++g) red[rg * G + g * H + j] = db_acc[g];
+        if constexpr (ENCODER) red_e[rg * D + j] = dbe_acc;
+        __syncthreads();
+        for (int n = threadIdx.x; n < G; n += NT) {
             float s = 0.f;
-            for (int q = 0; q < RG; ++q) s += red_e[q * D + n];
-            dbe_part[(size_t)blockIdx.x * D + n] = s;
+            for (int q = 0; q < RG; ++q) s += red[q * G + n];
+            db_part[(size_t)blockIdx.x * G + n] = s;
+        }
+        if constexpr (ENCODER) {
+            for (int n = threadIdx.x; n < D; n += NT) {
+                float s = 0.f;
+                for (int q = 0; q < RG; ++q) s += red_e[q * D + n];
+                dbe_part[(size_t)blockIdx.x * D + n] = s;
+            }
         }
     }
 }
@@ -565,17 +673,21 @@ struct XHRows {
     }
 };
 
-// Row k of a (K, width) array
-template <typename E>
+// Row k of a (K, width) array stored in S, as values of the compute
+// dtype E (the dgates slab that XP keeps in x_proj's dtype is rounded
+// here, as it is loaded)
+template <typename E, typename S = E>
 struct Rows {
-    const E* p;
+    const S* p;
     int width;
     __device__ __forceinline__ float operator()(size_t k, int m) const {
-        return ld(p, k * width + m);
+        return to_cdt<E>(ld(p, k * width + m));
     }
     __device__ __forceinline__ uint4 load8(size_t k, int m) const {
         const size_t i = k * width + m;
-        if (m + 8 <= width && i % 8 == 0) return load8_bf16(p, i);
+        if constexpr (std::is_same<S, bf16>::value) {
+            if (m + 8 <= width && i % 8 == 0) return load8_bf16(p, i);
+        }
         float v[8];
 #pragma unroll
         for (int q = 0; q < 8; ++q) v[q] = m + q < width ? ld(p, i + q) : 0.f;
@@ -755,17 +867,17 @@ cudaError_t prepare(Kernel kernel, size_t smem) {
                                 (int)smem);
 }
 
-template <int H, typename E, bool ENC>
+template <int H, typename E, typename S, int MODE>
 cudaError_t run_forward(const void* xin, const float* h0, const float* c0,
                         const float* w_enc, const float* b_enc, const float* w_ih,
                         const float* w_hh, const float* b, void* outs, void* cseq,
                         float* hT, float* cT, int T, int B, int F, cudaStream_t stream) {
-    auto kernel = cell_forward<H, E, ENC>;
-    const size_t smem = forward_smem(H, F, ENC);
+    auto kernel = cell_forward<H, E, S, MODE>;
+    const size_t smem = forward_smem(H, F, has_encoder(MODE));
     cudaError_t err = prepare(kernel, smem);
     if (err != cudaSuccess) return err;
     kernel<<<(B + BT - 1) / BT, NT, smem, stream>>>(
-        static_cast<const E*>(xin), h0, c0, w_enc, b_enc, w_ih, w_hh, b,
+        static_cast<const S*>(xin), h0, c0, w_enc, b_enc, w_ih, w_hh, b,
         static_cast<E*>(outs), static_cast<E*>(cseq), hT, cT, T, B, F);
     return cudaGetLastError();
 }
@@ -796,8 +908,9 @@ cudaError_t splitk(SA a, SB bm, float* part, float* out, int M, int N, long long
 }
 
 // The whole backward: the recurrent kernel, then the split-K weight
-// gradients and the ordered sums of every partial.
-template <int H, typename E, bool ENC>
+// gradients and the ordered sums of every partial. dw is [dW_ih; dW_hh]
+// (D + H, 4H); XP: dW_hh (H, 4H) alone, and no db.
+template <int H, typename E, typename S, int MODE>
 cudaError_t run_backward(const void* xin, const float* h0, const float* c0,
                          const float* w_enc, const float* b_enc, const float* w_ih,
                          const float* w_hh, const float* b, const void* outs,
@@ -808,37 +921,51 @@ cudaError_t run_backward(const void* xin, const float* h0, const float* c0,
                          float* dbe_part, int T, int B, int F, int splits_w,
                          int splits_e, int part_rows, cudaStream_t stream) {
     constexpr int D = H, G = 4 * H;
+    constexpr bool ENCODER = has_encoder(MODE);
     const int nblk = (B + BT - 1) / BT;
-    if (part_rows != nblk || splits_w < 1 || (ENC && splits_e < 1))
+    if (part_rows != nblk || splits_w < 1 || (ENCODER && splits_e < 1))
         return cudaErrorInvalidValue;
-    auto kernel = cell_backward<H, E, ENC>;
-    const size_t smem = backward_smem(H, F, ENC);
+    // an f32 contraction cannot read its dgates from a bf16 dx_proj
+    if (MODE == XP && !std::is_same<S, E>::value && std::is_same<S, bf16>::value && !dg)
+        return cudaErrorInvalidValue;
+    auto kernel = cell_backward<H, E, S, MODE>;
+    const size_t smem = backward_smem(H, F, ENCODER);
     cudaError_t err = prepare(kernel, smem);
     if (err != cudaSuccess) return err;
     kernel<<<nblk, NT, smem, stream>>>(
-        static_cast<const E*>(xin), h0, c0, w_enc, b_enc, w_ih, w_hh, b,
+        static_cast<const S*>(xin), h0, c0, w_enc, b_enc, w_ih, w_hh, b,
         static_cast<const E*>(outs), static_cast<const E*>(cseq),
-        static_cast<const E*>(g_outs), g_hT, g_cT, dh0, dc0, static_cast<E*>(xo),
+        static_cast<const E*>(g_outs), g_hT, g_cT, dh0, dc0, static_cast<S*>(xo),
         static_cast<E*>(dpre), static_cast<E*>(dg), db_part, dbe_part, T, B, F);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
     const long long K = (long long)T * B;
-    const E* x_rows = ENC ? static_cast<const E*>(xo) : static_cast<const E*>(xin);
-    XHRows<E> xh{x_rows, h0, static_cast<const E*>(outs), B, D, H};
-    Rows<E> dgates{static_cast<const E*>(dg), G};
-    if ((err = splitk<E>(xh, dgates, dw_part, dw, D + H, G, K, splits_w, stream)) !=
-        cudaSuccess)
-        return err;
-    if ((err = reduce(db_part, db, nblk, G, stream)) != cudaSuccess) return err;
-    if constexpr (ENC) {
-        Rows<E> feats{static_cast<const E*>(xin), F};
-        Rows<E> dp{static_cast<const E*>(dpre), D};
-        if ((err = splitk<E>(feats, dp, dwe_part, dw_enc, F, D, K, splits_e, stream)) !=
+    if constexpr (MODE == XP) {
+        XHRows<E> h_prev{nullptr, h0, static_cast<const E*>(outs), B, 0, H};
+        if (dg) {
+            Rows<E> dgates{static_cast<const E*>(dg), G};
+            return splitk<E>(h_prev, dgates, dw_part, dw, H, G, K, splits_w, stream);
+        }
+        Rows<E, S> dgates{static_cast<const S*>(xo), G};
+        return splitk<E>(h_prev, dgates, dw_part, dw, H, G, K, splits_w, stream);
+    } else {
+        const E* x_rows = ENCODER ? static_cast<const E*>(xo) : static_cast<const E*>(xin);
+        XHRows<E> xh{x_rows, h0, static_cast<const E*>(outs), B, D, H};
+        Rows<E> dgates{static_cast<const E*>(dg), G};
+        if ((err = splitk<E>(xh, dgates, dw_part, dw, D + H, G, K, splits_w, stream)) !=
             cudaSuccess)
             return err;
-        if ((err = reduce(dbe_part, db_enc, nblk, D, stream)) != cudaSuccess) return err;
+        if ((err = reduce(db_part, db, nblk, G, stream)) != cudaSuccess) return err;
+        if constexpr (ENCODER) {
+            Rows<E> feats{static_cast<const E*>(xin), F};
+            Rows<E> dp{static_cast<const E*>(dpre), D};
+            if ((err = splitk<E>(feats, dp, dwe_part, dw_enc, F, D, K, splits_e, stream)) !=
+                cudaSuccess)
+                return err;
+            if ((err = reduce(dbe_part, db_enc, nblk, D, stream)) != cudaSuccess) return err;
+        }
+        return cudaSuccess;
     }
-    return cudaSuccess;
 }
 
 // dispatch on the hidden size and the compute dtype

@@ -1,15 +1,22 @@
-// Encoder-fused LSTM time scan (enc5), forward and backward, for Hopper
-// (sm_90a).
+// Encoder-fused LSTM time scan (enc5 and enc), forward and backward, for
+// Hopper (sm_90a).
 //
-// Replaces two TPU kernels of pufferlib_tpu/ops/pallas/: the forward of
-// lstm_enc5.lstm_scan_enc5, which is lstm_enc._impl / _fwd_kernel, and its
-// backward, lstm_enc5._hoisted_bwd / _bwd_kernel. Same function as the
-// plain pufferlib_tpu_torch.ops.cuda.lstm_enc.lstm_enc_reference and
-// lstm_enc_backward_reference: x_t = relu(feats_t @ W_enc + b_enc) rounded
-// to the compute dtype feeds the cell of lstm_cat.cu; the backward stores
-// the gate activations and dgates in the compute dtype (the TPU kernel's
-// shared activation/dgates slab), rounds dpre to it, and sums db and
-// db_enc from the rounded values. The feats cotangent is zero by contract.
+// Replaces three TPU kernels of pufferlib_tpu/ops/pallas/: the forward of
+// lstm_enc5.lstm_scan_enc5 and lstm_enc.lstm_scan_enc, which is
+// lstm_enc._impl / _fwd_kernel; the enc5 backward, lstm_enc5._hoisted_bwd
+// / _bwd_kernel; and the un-hoisted backward of lstm_scan_enc,
+// lstm_enc._bwd / _bwd_kernel (lstm_enc_step_backward below). Same
+// functions as the plain pufferlib_tpu_torch.ops.cuda.lstm_enc
+// lstm_enc_reference, lstm_enc_backward_reference and
+// lstm_scan_enc_backward_reference: x_t = relu(feats_t @ W_enc + b_enc)
+// rounded to the compute dtype feeds the cell of lstm_cat.cu. The enc5
+// backward stores the gate activations and dgates in the compute dtype
+// (the TPU kernel's shared activation/dgates slab), rounds dpre to it, and
+// sums db and db_enc from the rounded values. The step backward keeps the
+// recomputed activations in f32 and sums db from the unrounded dgates, as
+// its TPU kernel does inside its loop; its dgates, dpre and db_enc round
+// as enc5's. The two differ in bf16 only. The feats cotangent is zero by
+// contract.
 //
 // Bound: at the bench shapes (T = 16, B = 8192, F = 49, D = H = 128,
 // bf16) the forward does 2*T*B*(F*D + (D+H)*4H) = 36.0 GFLOP and the
@@ -36,26 +43,40 @@ struct Forward {
                            const float* w_enc, const float* b_enc, const float* w_ih,
                            const float* w_hh, const float* b, void* outs, void* cseq,
                            float* hT, float* cT, int T, int B, int F, cudaStream_t stream) {
-        return lstm::run_forward<H, E, true>(feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b,
-                                             outs, cseq, hT, cT, T, B, F, stream);
+        return lstm::run_forward<H, E, E, lstm::ENC>(feats, h0, c0, w_enc, b_enc, w_ih,
+                                                     w_hh, b, outs, cseq, hT, cT, T, B, F,
+                                                     stream);
+    }
+};
+
+template <int H, typename E, int MODE>
+cudaError_t backward(const void* feats, const float* h0, const float* c0,
+                     const float* w_enc, const float* b_enc, const float* w_ih,
+                     const float* w_hh, const float* b, const void* outs, const void* cseq,
+                     const void* g_outs, const float* g_hT, const float* g_cT, float* dh0,
+                     float* dc0, float* dw_enc, float* db_enc, float* dw, float* db,
+                     void* xs, void* dpre, void* dg, float* dw_part, float* db_part,
+                     float* dwe_part, float* dbe_part, int T, int B, int F, int splits_w,
+                     int splits_e, int part_rows, cudaStream_t stream) {
+    return lstm::run_backward<H, E, E, MODE>(
+        feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b, outs, cseq, g_outs, g_hT, g_cT, dh0,
+        dc0, dw_enc, db_enc, dw, db, xs, dpre, dg, dw_part, db_part, dwe_part, dbe_part,
+        T, B, F, splits_w, splits_e, part_rows, stream);
+}
+
+template <int H, typename E>
+struct Backward {
+    template <typename... Args>
+    static cudaError_t run(Args... args) {
+        return backward<H, E, lstm::ENC5>(args...);
     }
 };
 
 template <int H, typename E>
-struct Backward {
-    static cudaError_t run(const void* feats, const float* h0, const float* c0,
-                           const float* w_enc, const float* b_enc, const float* w_ih,
-                           const float* w_hh, const float* b, const void* outs,
-                           const void* cseq, const void* g_outs, const float* g_hT,
-                           const float* g_cT, float* dh0, float* dc0, float* dw_enc,
-                           float* db_enc, float* dw, float* db, void* xs, void* dpre,
-                           void* dg, float* dw_part, float* db_part, float* dwe_part,
-                           float* dbe_part, int T, int B, int F, int splits_w,
-                           int splits_e, int part_rows, cudaStream_t stream) {
-        return lstm::run_backward<H, E, true>(
-            feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b, outs, cseq, g_outs, g_hT, g_cT,
-            dh0, dc0, dw_enc, db_enc, dw, db, xs, dpre, dg, dw_part, db_part, dwe_part,
-            dbe_part, T, B, F, splits_w, splits_e, part_rows, stream);
+struct StepBackward {
+    template <typename... Args>
+    static cudaError_t run(Args... args) {
+        return backward<H, E, lstm::ENC>(args...);
     }
 };
 
@@ -102,6 +123,28 @@ int lstm_enc_backward(const void* feats, const float* h0, const float* c0,
                                     b, outs, cseq, g_outs, g_hT, g_cT, dh0, dc0, dw_enc,
                                     db_enc, dw, db, xs, dpre, dg, dw_part, db_part, dwe_part,
                                     dbe_part, T, B, F, splits_w, splits_e, part_rows, stream);
+}
+
+// The un-hoisted backward of lstm_scan_enc: arguments, outputs and scratch
+// as lstm_enc_backward's.
+int lstm_enc_step_backward(const void* feats, const float* h0, const float* c0,
+                           const float* w_enc, const float* b_enc, const float* w_ih,
+                           const float* w_hh, const float* b, const void* outs,
+                           const void* cseq, const void* g_outs, const float* g_hT,
+                           const float* g_cT, float* dh0, float* dc0, float* dw_enc,
+                           float* db_enc, float* dw, float* db, void* xs, void* dpre,
+                           void* dg, float* dw_part, float* db_part, float* dwe_part,
+                           float* dbe_part, int T, int B, int F, int H, int cdt_bf16,
+                           int splits_w, int splits_e, int part_rows,
+                           cudaStream_t stream) {
+    if (T <= 0 || B <= 0 || F <= 0) return (int)cudaErrorInvalidValue;
+    if (!lstm::aligned16(w_ih) || !lstm::aligned16(w_hh))
+        return (int)cudaErrorMisalignedAddress;
+    return lstm::dispatch<StepBackward>(H, cdt_bf16, feats, h0, c0, w_enc, b_enc, w_ih,
+                                        w_hh, b, outs, cseq, g_outs, g_hT, g_cT, dh0, dc0,
+                                        dw_enc, db_enc, dw, db, xs, dpre, dg, dw_part,
+                                        db_part, dwe_part, dbe_part, T, B, F, splits_w,
+                                        splits_e, part_rows, stream);
 }
 
 const char* cuda_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

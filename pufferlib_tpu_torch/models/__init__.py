@@ -17,8 +17,9 @@ from pufferlib_tpu_torch import spaces
 from pufferlib_tpu_torch.models.distributions import sample_logits
 from pufferlib_tpu_torch.models.policy import (
     Policy, RecurrentPolicy, count_params)
-from pufferlib_tpu_torch.ops.cuda.lstm_cat import (
-    gate_activations, lstm_scan_cat, round_to)
+from pufferlib_tpu_torch.ops.cuda.lstm_cat import lstm_scan_cat
+from pufferlib_tpu_torch.ops.cuda.lstm_common import (
+    gate_activations, round_to)
 from pufferlib_tpu_torch.ops.cuda.lstm_enc import lstm_scan_enc5
 from pufferlib_tpu_torch.ops.cuda.mlp import mlp_head
 

@@ -160,6 +160,12 @@ def ptr(tensor):
     return ctypes.c_void_p(tensor.data_ptr())
 
 
+def ptr_or_null(tensor):
+    """ptr(tensor), or a null pointer for None: an optional output that
+    the kernel then skips."""
+    return None if tensor is None else ptr(tensor)
+
+
 P = ctypes.c_void_p
 I = ctypes.c_int
 F = ctypes.c_float

@@ -23,12 +23,14 @@ rounding points (not autograd of the forward). The autograd.Function runs
 them for tensors on the CPU; for CUDA tensors it launches the kernels or
 raises. chip_smoke.py holds the kernels against them on the card.
 """
-import math
-
 import torch
 
 from pufferlib_tpu_torch.ops.cuda._build import (
     CudaKernel, I, P, ptr, stream_handle)
+from pufferlib_tpu_torch.ops.cuda.lstm_common import (
+    CDTS, backward_inputs, blocks, cell_backward_step, check_kernel_shape,
+    check_placement, check_state_and_weights, gate_activations, round_to,
+    scan_forward, splitk_splits)
 
 __all__ = ['lstm_scan_cat', 'lstm_cat_reference',
     'lstm_cat_backward_reference', 'KERNEL']
@@ -37,61 +39,6 @@ KERNEL = CudaKernel('lstm_cat.cu', {
     'lstm_cat_forward': [P] * 10 + [I] * 4 + [P],
     'lstm_cat_backward': [P] * 19 + [I] * 6 + [P],
 })
-
-CDTS = (torch.float32, torch.bfloat16)
-# What the CUDA kernels serve (csrc/lstm_common.cuh): hidden sizes whose
-# units tile the 256-thread block, and an input width equal to the hidden
-# size (layer 0 with input_size == hidden_size, and every later layer)
-KERNEL_HIDDEN = (32, 64, 128)
-# batch rows per block of the recurrent kernels (lstm_common.cuh BT)
-ROWS_PER_BLOCK = 32
-
-
-def round_to(t, cdt):
-    """t rounded to cdt, carried in float32: an f32 matmul of such values
-    accumulates in f32, as the JAX preferred_element_type=f32 does."""
-    return t.to(cdt).float()
-
-
-def gate_activations(gates, H):
-    """i, f, g, o from (B, 4H) gate pre-activations."""
-    return (torch.sigmoid(gates[:, :H]), torch.sigmoid(gates[:, H:2 * H]),
-        torch.tanh(gates[:, 2 * H:3 * H]), torch.sigmoid(gates[:, 3 * H:]))
-
-
-def scan_forward(x, h0, c0, w, b, cdt):
-    """The cell loop over T. x (T, B, D): float32 values already rounded
-    to cdt; w = [W_ih; W_hh] (D+H, 4H). Returns outs (T, B, H) and cseq
-    (T, B, H) in cdt, hT and cT (B, H) in float32."""
-    T, B, _ = x.shape
-    H = h0.shape[-1]
-    w = round_to(w, cdt)
-    bias = b.float()
-    h, c = h0.float(), c0.float()
-    outs = torch.empty((T, B, H), dtype=cdt, device=x.device)
-    cseq = torch.empty((T, B, H), dtype=cdt, device=x.device)
-    for t in range(T):
-        xh = torch.cat([x[t], round_to(h, cdt)], dim=-1)
-        i, f, g, o = gate_activations(xh @ w + bias, H)
-        c = f * c + i * g
-        h = o * torch.tanh(c)
-        outs[t] = h.to(cdt)
-        cseq[t] = c.to(cdt)
-    return outs, h, c, cseq
-
-
-def cell_backward_step(acts, dh, dc, c_t, c_prev):
-    """dgates (f32, (B, 4H)) and dc_prev of one reverse step, in the
-    order of operations of the TPU kernels' _bwd_kernel."""
-    i, f, g, o = acts
-    tc = torch.tanh(c_t)
-    do = dh * tc
-    dc = dc + dh * o * (1.0 - tc * tc)
-    di, dg = dc * g, dc * i
-    df = dc * c_prev
-    dgates = torch.cat([di * i * (1.0 - i), df * f * (1.0 - f),
-        dg * (1.0 - g * g), do * o * (1.0 - o)], dim=-1)
-    return dgates, dc * f
 
 
 def lstm_cat_reference(x, h0, c0, w_ih, w_hh, b, cdt=torch.bfloat16):
@@ -126,54 +73,6 @@ def lstm_cat_backward_reference(x, h0, c0, w_ih, w_hh, b, outs, cseq,
         dw += xh.t() @ dgates_c
         db += dgates.sum(dim=0)
     return dx, dh, dc, dw[:D], dw[D:], db
-
-
-def check_state_and_weights(B, D, h0, c0, w_ih, w_hh, b, device):
-    """Shapes, dtypes, device and contiguity of the LSTM state and
-    weights (all float32); returns H."""
-    if h0.dim() != 2 or h0.shape[0] != B:
-        raise ValueError(f'h0 must be ({B}, H), got {tuple(h0.shape)}')
-    H = h0.shape[1]
-    for name, t, shape in (('h0', h0, (B, H)), ('c0', c0, (B, H)),
-            ('w_ih', w_ih, (D, 4 * H)), ('w_hh', w_hh, (H, 4 * H)),
-            ('b', b, (4 * H,))):
-        if t.dtype != torch.float32 or tuple(t.shape) != shape:
-            raise ValueError(f'{name} must be float32 {shape}, got '
-                f'{t.dtype} {tuple(t.shape)}')
-        check_placement(name, t, device)
-    return H
-
-
-def check_placement(name, t, device):
-    if t.device != device:
-        raise ValueError(f'{name} is on {t.device}, expected {device}')
-    if not t.is_contiguous():
-        raise ValueError(f'{name} must be contiguous')
-
-
-def check_kernel_shape(D, H, device):
-    """Raise for a CUDA launch the kernels do not serve."""
-    if device.type != 'cuda':
-        raise ValueError(f'no LSTM kernel for device {device}')
-    if H not in KERNEL_HIDDEN or D != H:
-        raise ValueError(f'the CUDA LSTM kernels take hidden sizes '
-            f'{KERNEL_HIDDEN} with input width equal to the hidden size; '
-            f'got input {D}, hidden {H}')
-
-
-def splitk_splits(M, N, K, device):
-    """K-splits of a post-loop (M, N) weight-gradient contraction over
-    K = T*B rows: about four blocks per SM, at least 1024 rows each. The
-    partial sums are added in split order by a second pass, so the result
-    does not depend on the schedule."""
-    # output tiles of 64 x 64 (lstm_common.cuh gemm_tn_splitk)
-    tiles = math.ceil(M / 64) * math.ceil(N / 64)
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(math.ceil(4 * sms / tiles), math.ceil(K / 1024)))
-
-
-def blocks(B):
-    return math.ceil(B / ROWS_PER_BLOCK)
 
 
 def _check(x, h0, c0, w_ih, w_hh, b, cdt):
@@ -229,12 +128,6 @@ def _launch_backward(x, h0, c0, w_ih, w_hh, b, outs, cseq, g_outs, g_hT,
         ptr(dw_part), ptr(db_part), T, B, H, int(cdt == torch.bfloat16),
         splits, blocks(B), stream_handle(x))
     return dx, dh0, dc0, dw[:D], dw[D:], db
-
-
-def backward_inputs(outs, g_outs, g_hT, g_cT):
-    """The incoming gradients, contiguous and in the saved dtypes."""
-    return (g_outs.to(outs.dtype).contiguous(), g_hT.float().contiguous(),
-        g_cT.float().contiguous())
 
 
 class _LSTMCat(torch.autograd.Function):

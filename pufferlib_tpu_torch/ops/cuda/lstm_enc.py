@@ -1,8 +1,8 @@
-"""Encoder-fused LSTM time scan (enc5), through csrc/lstm_enc.cu.
+"""Encoder-fused LSTM time scans (enc5 and enc), through csrc/lstm_enc.cu.
 
-Replaces two TPU kernels of pufferlib_tpu/ops/pallas/:
-- the forward of lstm_enc5.lstm_scan_enc5, which is lstm_enc._impl /
-  lstm_enc._fwd_kernel: per step the encoder
+Replaces three TPU kernels of pufferlib_tpu/ops/pallas/:
+- the forward of lstm_enc5.lstm_scan_enc5 and of lstm_enc.lstm_scan_enc,
+  which is lstm_enc._impl / lstm_enc._fwd_kernel: per step the encoder
 
       x_t = relu(feats_t @ W_enc + b_enc)    rounded to cdt
 
@@ -12,32 +12,42 @@ Replaces two TPU kernels of pufferlib_tpu/ops/pallas/:
   reverse dh/dc chain with dgates rounded to cdt and
   dh_prev = dgates @ W_hh^T, then dW_ih = x^T dg, dW_hh = h_prev^T dg,
   db = sum(dg), dx = dg @ W_ih^T, the relu mask, dW_enc = feats^T dpre
-  and db_enc = sum(dpre), with dpre rounded to cdt.
+  and db_enc = sum(dpre), with dpre rounded to cdt;
+- the backward of lstm_scan_enc, lstm_enc._bwd / _bwd_kernel, which
+  recomputes the gates step by step inside the reverse loop and keeps
+  their activations in f32 (enc5 rounds them to cdt, where its TPU kernel
+  stores them in a slab), carries dW and db through the loop, db from the
+  unrounded dgates (enc5 sums the rounded ones), and ends with the same
+  relu mask, dW_enc and db_enc. The two backwards are the same function
+  in f32 and differ in bf16.
 
 feats (T, B, F) is in the compute dtype cdt; the feats cotangent is zero
 by contract (observations are constants in RL training; the caller
 detaches them), as the JAX kernel's is.
 
-lstm_enc_reference and lstm_enc_backward_reference are the plain
-versions: explicit PyTorch that follows the TPU kernels' math and
-rounding points. The autograd.Function runs them for tensors on the CPU;
-for CUDA tensors it launches the kernels or raises.
+lstm_enc_reference, lstm_enc_backward_reference and
+lstm_scan_enc_backward_reference are the plain versions: explicit PyTorch
+that follows the TPU kernels' math and rounding points. The
+autograd.Functions run them for tensors on the CPU; for CUDA tensors they
+launch the kernels or raise.
 """
 import torch
 
 from pufferlib_tpu_torch.ops.cuda._build import (
-    CudaKernel, I, P, ptr, stream_handle)
-from pufferlib_tpu_torch.ops.cuda.lstm_cat import (
+    CudaKernel, I, P, ptr, ptr_or_null, stream_handle)
+from pufferlib_tpu_torch.ops.cuda.lstm_common import (
     CDTS, backward_inputs, blocks, cell_backward_step, check_kernel_shape,
-    check_placement, check_state_and_weights, gate_activations, round_to,
-    scan_forward, splitk_splits)
+    check_placement, check_state_and_weights, gate_activations, needs_cseq,
+    round_to, scan_forward, splitk_splits)
 
-__all__ = ['lstm_scan_enc5', 'lstm_enc_reference',
-    'lstm_enc_backward_reference', 'KERNEL']
+__all__ = ['lstm_scan_enc5', 'lstm_scan_enc', 'lstm_enc_reference',
+    'lstm_enc_backward_reference', 'lstm_scan_enc_backward_reference',
+    'KERNEL']
 
 KERNEL = CudaKernel('lstm_enc.cu', {
     'lstm_enc_forward': [P] * 12 + [I] * 5 + [P],
     'lstm_enc_backward': [P] * 26 + [I] * 8 + [P],
+    'lstm_enc_step_backward': [P] * 26 + [I] * 8 + [P],
 })
 
 # feature widths whose W_enc the kernels hold in shared memory
@@ -53,10 +63,11 @@ def encode(feats, w_enc, b_enc, cdt):
 
 
 def lstm_enc_reference(feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b,
-        cdt=torch.bfloat16):
-    """Plain forward: (outs, hT, cT, cseq)."""
+        cdt=torch.bfloat16, save_cseq=True):
+    """Plain forward: (outs, hT, cT, cseq); cseq None without save_cseq."""
     x = round_to(encode(feats, w_enc, b_enc, cdt), cdt)
-    return scan_forward(x, h0, c0, torch.cat([w_ih, w_hh], dim=0), b, cdt)
+    return scan_forward(x, h0, c0, torch.cat([w_ih, w_hh], dim=0), b, cdt,
+        save_cseq)
 
 
 def lstm_enc_backward_reference(feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b,
@@ -96,6 +107,42 @@ def lstm_enc_backward_reference(feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b,
     return dh, dc, dw_enc, db_enc, dw_ih, dw_hh, db
 
 
+def lstm_scan_enc_backward_reference(feats, h0, c0, w_enc, b_enc, w_ih,
+        w_hh, b, outs, cseq, g_outs, g_hT, g_cT, cdt=torch.bfloat16):
+    """Plain backward, step by step as lstm_enc._bwd_kernel: (dh0, dc0,
+    dW_enc, db_enc, dW_ih, dW_hh, db)."""
+    T, B, F = feats.shape
+    H = h0.shape[-1]
+    D = w_enc.shape[-1]
+    w = round_to(torch.cat([w_ih, w_hh], dim=0), cdt)
+    bias = b.float()
+    feats2 = round_to(feats.reshape(T * B, F), cdt)
+    x_all = round_to(encode(feats2, w_enc, b_enc, cdt), cdt)
+    dx_all = torch.empty_like(x_all)
+    dw = torch.zeros_like(w)
+    db = torch.zeros_like(bias)
+    dh, dc = g_hT.float(), g_cT.float()
+    for t in reversed(range(T)):
+        rows = slice(t * B, (t + 1) * B)
+        h_prev = h0 if t == 0 else outs[t - 1]
+        c_prev = c0.float() if t == 0 else cseq[t - 1].float()
+        xh = torch.cat([x_all[rows], round_to(h_prev, cdt)], dim=-1)
+        # the activations stay in f32
+        acts = gate_activations(xh @ w + bias, H)
+        dgates, dc = cell_backward_step(acts, dh + g_outs[t].float(), dc,
+            cseq[t].float(), c_prev)
+        dgates_c = round_to(dgates, cdt)
+        dxh = dgates_c @ w.t()
+        dx_all[rows] = round_to(dxh[:, :D], cdt)
+        dh = dxh[:, D:]
+        dw += xh.t() @ dgates_c
+        db += dgates.sum(dim=0)
+    dpre = round_to(torch.where(x_all > 0, dx_all, 0.0), cdt)
+    dw_enc = feats2.t() @ dpre
+    db_enc = dpre.sum(dim=0)
+    return dh, dc, dw_enc, db_enc, dw[:D], dw[D:], db
+
+
 def _check(feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b, cdt):
     if cdt not in CDTS:
         raise ValueError(f'compute dtype must be one of {CDTS}, got {cdt}')
@@ -121,28 +168,34 @@ def _check(feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b, cdt):
 def _check_kernel(feats, w_enc, H):
     check_kernel_shape(w_enc.shape[1], H, feats.device)
     if feats.shape[2] > KERNEL_MAX_FEATURES:
-        raise ValueError(f'the CUDA enc5 kernels take at most '
+        raise ValueError(f'the CUDA encoder-fused LSTM kernels take at most '
             f'{KERNEL_MAX_FEATURES} features, got {feats.shape[2]}')
 
 
-def _launch_forward(feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b, cdt):
+def _launch_forward(feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b, cdt,
+        save_cseq=True):
     T, B, F = feats.shape
     H = h0.shape[1]
     _check_kernel(feats, w_enc, H)
     outs = torch.empty((T, B, H), dtype=cdt, device=feats.device)
-    cseq = torch.empty_like(outs)
+    cseq = torch.empty_like(outs) if save_cseq else None
     hT = torch.empty_like(h0)
     cT = torch.empty_like(c0)
     if B > 0:
         KERNEL.launch('lstm_enc_forward', ptr(feats), ptr(h0), ptr(c0),
             ptr(w_enc), ptr(b_enc), ptr(w_ih), ptr(w_hh), ptr(b), ptr(outs),
-            ptr(cseq), ptr(hT), ptr(cT), T, B, F, H,
+            ptr_or_null(cseq), ptr(hT), ptr(cT), T, B, F, H,
             int(cdt == torch.bfloat16), stream_handle(feats))
     return outs, hT, cT, cseq
 
 
+def _launch_step_backward(*args):
+    """The un-hoisted backward of lstm_scan_enc."""
+    return _launch_backward(*args, fn='lstm_enc_step_backward')
+
+
 def _launch_backward(feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b, outs,
-        cseq, g_outs, g_hT, g_cT, cdt):
+        cseq, g_outs, g_hT, g_cT, cdt, fn='lstm_enc_backward'):
     T, B, F = feats.shape
     H = h0.shape[1]
     D, G = H, 4 * H
@@ -167,7 +220,7 @@ def _launch_backward(feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b, outs,
     db_part = torch.empty((blocks(B), G), **f32)
     dwe_part = torch.empty((splits_e, F, D), **f32)
     dbe_part = torch.empty((blocks(B), D), **f32)
-    KERNEL.launch('lstm_enc_backward', ptr(feats), ptr(h0), ptr(c0),
+    KERNEL.launch(fn, ptr(feats), ptr(h0), ptr(c0),
         ptr(w_enc), ptr(b_enc), ptr(w_ih), ptr(w_hh), ptr(b), ptr(outs),
         ptr(cseq), ptr(g_outs), ptr(g_hT), ptr(g_cT), ptr(dh0), ptr(dc0),
         ptr(dw_enc), ptr(db_enc), ptr(dw), ptr(db), ptr(xs), ptr(dpre),
@@ -213,3 +266,43 @@ def lstm_scan_enc5(feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b,
     (outs (T, B, H) in cdt, hT, cT (B, H) float32). Differentiable in
     every input but feats, whose gradient is zero by contract."""
     return _LSTMEnc5.apply(feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b, cdt)
+
+
+class _LSTMEnc(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b, cdt,
+            save_cseq):
+        _check(feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b, cdt)
+        fn = lstm_enc_reference if feats.device.type == 'cpu' \
+            else _launch_forward
+        outs, hT, cT, cseq = fn(feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b,
+            cdt, save_cseq)
+        ctx.save_for_backward(feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b,
+            outs, cseq)
+        ctx.cdt = cdt
+        return outs, hT, cT
+
+    @staticmethod
+    def backward(ctx, g_outs, g_hT, g_cT):
+        saved = ctx.saved_tensors
+        outs = saved[8]
+        args = (*saved, *backward_inputs(outs, g_outs, g_hT, g_cT), ctx.cdt)
+        if saved[0].device.type == 'cpu':
+            grads = lstm_scan_enc_backward_reference(*args)
+        else:
+            grads = _launch_step_backward(*args)
+        # the feats cotangent is zero by contract
+        dfeats = torch.zeros_like(saved[0]) if ctx.needs_input_grad[0] \
+            else None
+        return (dfeats, *grads, None, None)
+
+
+def lstm_scan_enc(feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b,
+        cdt=torch.bfloat16):
+    """lstm_scan_enc5's function with the step-by-step backward of
+    pufferlib_tpu's lstm_scan_enc: the same forward, and gradients that
+    differ from enc5's in bf16 rounding only. A call none of whose inputs
+    requires a gradient keeps no cell sequence."""
+    return _LSTMEnc.apply(feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b, cdt,
+        needs_cseq(feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b))

@@ -1,0 +1,42 @@
+"""Timing of work on one NVIDIA GPU, for the scripts that measure the
+port's kernels (chip_smoke.py, tools/validate_lstm_torch.py,
+tools/kernel_lab_torch.py). Every number they print stands beside
+card_line(): the card's name and its power limit, which may be set below
+the part's maximum and then slows the card under load.
+"""
+import subprocess
+
+
+def card_line():
+    """The card's name and power limit, as nvidia-smi reports them."""
+    out = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
+        '--format=csv,noheader'], capture_output=True, text=True, check=True,
+        timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def l2_flush_buffer(device='cuda'):
+    """256 MB whose rewrite evicts the 50 MB L2 (see timed_ms)."""
+    import torch
+    return torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=device)
+
+
+def timed_ms(fn, flush, reps=20):
+    """Mean device ms of fn() over reps calls, each after a write of
+    `flush` that evicts the L2 (a trainer's batch is not resident when a
+    kernel starts), with CUDA events around the call alone."""
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    total = 0.0
+    for _ in range(reps):
+        flush.zero_()
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps

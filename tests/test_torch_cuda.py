@@ -8,7 +8,7 @@ without them. On a machine with a card:
 Tolerances are those of chip_smoke.py: GAE 1e-5 (the kernel rounds every
 operation as the plain version does), MLP head 1e-4 in f32 and 2e-2 in
 bf16 (one bf16 ulp of a hidden unit that rounds the other way); the LSTM
-kernels 1e-5 in f32 and 2e-2 in bf16 of max(1, max |plain|) per output
+kernels (enc5, cat, enc, scan, fused) 1e-5 in f32 and 2e-2 in bf16 of max(1, max |plain|) per output
 and gradient (sums in another order; in bf16 a value that rounds one ulp
 the other way inside the recurrence).
 """
@@ -78,7 +78,36 @@ def test_mlp_head_kernel_rejects_bad_inputs(cuda):
 LSTM_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 
 
-def _lstm_case(kind, T, B, H, F, cdt, cuda):
+def _lstm_kinds():
+    """kind -> (module, kernel forward, kernel backward, plain forward,
+    plain backward, the C functions one forward + backward launches)."""
+    from pufferlib_tpu_torch.ops.cuda import lstm_cat, lstm_enc, lstm_scan
+    return {
+        'enc5': (lstm_enc, lstm_enc._launch_forward,
+            lstm_enc._launch_backward, lstm_enc.lstm_enc_reference,
+            lstm_enc.lstm_enc_backward_reference,
+            ('lstm_enc_forward', 'lstm_enc_backward')),
+        'enc': (lstm_enc, lstm_enc._launch_forward,
+            lstm_enc._launch_step_backward, lstm_enc.lstm_enc_reference,
+            lstm_enc.lstm_scan_enc_backward_reference,
+            ('lstm_enc_forward', 'lstm_enc_step_backward')),
+        'cat': (lstm_cat, lstm_cat._launch_forward,
+            lstm_cat._launch_backward, lstm_cat.lstm_cat_reference,
+            lstm_cat.lstm_cat_backward_reference,
+            ('lstm_cat_forward', 'lstm_cat_backward')),
+        'fused': (lstm_scan, lstm_scan._launch_fused_forward,
+            lstm_scan._launch_fused_backward,
+            lstm_scan.lstm_scan_fused_reference,
+            lstm_scan.lstm_scan_fused_backward_reference,
+            ('lstm_fused_forward', 'lstm_fused_backward')),
+        'scan': (lstm_scan, lstm_scan._launch_scan_forward,
+            lstm_scan._launch_scan_backward, lstm_scan.lstm_scan_reference,
+            lstm_scan.lstm_scan_backward_reference,
+            ('lstm_scan_forward', 'lstm_scan_backward')),
+    }
+
+
+def _lstm_case(kind, T, B, H, F, cdt, cuda, xp_dtype=None):
     rng = np.random.RandomState(T * B + H)
 
     def arr(*shape, scale=1.0):
@@ -87,10 +116,37 @@ def _lstm_case(kind, T, B, H, F, cdt, cuda):
     state = (arr(B, H, scale=0.5), arr(B, H, scale=0.5))
     weights = (arr(H, 4 * H, scale=H ** -0.5), arr(H, 4 * H, scale=H ** -0.5),
         arr(4 * H, scale=0.1))
-    if kind == 'enc5':
+    if kind in ('enc5', 'enc'):
         return (arr(T, B, F).to(cdt), *state, arr(F, H, scale=(2 / F) ** 0.5),
             arr(H, scale=0.1), *weights)
+    if kind == 'scan':
+        return (arr(T, B, 4 * H).to(xp_dtype or cdt), *state, weights[1])
     return (arr(T, B, H, scale=0.5).to(cdt), *state, *weights)
+
+
+def _check_lstm_pair(cuda, kind, T, B, H, cdt, xp_dtype=None):
+    mod, fwd, bwd, fwd_plain, bwd_plain, fns = _lstm_kinds()[kind]
+    args = _lstm_case(kind, T, B, H, 49, cdt, cuda, xp_dtype)
+    g = (torch.randn(T, B, H, device=cuda).to(cdt),
+        torch.randn(B, H, device=cuda), torch.randn(B, H, device=cuda))
+    before = dict(mod.KERNEL.fn_launches)
+    with torch.no_grad():
+        got = fwd(*args, cdt)
+        want = fwd_plain(*args, cdt)
+        bargs = (*args, want[0], want[3], *g, cdt)
+        got += bwd(*bargs)
+        want += bwd_plain(*bargs)
+    torch.cuda.synchronize()
+    after = mod.KERNEL.fn_launches
+    assert all(after[fn] == n + (fn in fns) for fn, n in before.items())
+    tol = LSTM_TOL[torch.bfloat16 if torch.bfloat16 in (cdt, xp_dtype)
+        else torch.float32]
+    for a, w in zip(got, want):
+        assert a.dtype == w.dtype and a.shape == w.shape
+        scale = max(1.0, w.float().abs().max().item())
+        torch.testing.assert_close(a.float(), w.float(), rtol=0,
+            atol=tol * scale)
+    return args, got
 
 
 @pytest.mark.parametrize('kind', ['enc5', 'cat'])
@@ -100,28 +156,67 @@ def _lstm_case(kind, T, B, H, F, cdt, cuda):
 def test_lstm_kernels_match_plain(cuda, kind, T, B, H, cdt):
     """Forward (outs, hT, cT, cseq) and every gradient of the kernel pair
     against the plain versions on the same inputs."""
-    from pufferlib_tpu_torch.ops.cuda import lstm_cat, lstm_enc
-    mod = lstm_enc if kind == 'enc5' else lstm_cat
-    fwd, bwd = ((lstm_enc.lstm_enc_reference, lstm_enc.lstm_enc_backward_reference)
-        if kind == 'enc5' else
-        (lstm_cat.lstm_cat_reference, lstm_cat.lstm_cat_backward_reference))
-    args = _lstm_case(kind, T, B, H, 49, cdt, cuda)
-    g = (torch.randn(T, B, H, device=cuda).to(cdt),
-        torch.randn(B, H, device=cuda), torch.randn(B, H, device=cuda))
-    before = dict(mod.KERNEL.fn_launches)
+    _check_lstm_pair(cuda, kind, T, B, H, cdt)
+
+
+@pytest.mark.parametrize('kind', ['scan', 'fused', 'enc'])
+@pytest.mark.parametrize('T,B,H', [(16, 8192, 128), (16, 1000, 128),
+    (3, 45, 32), (5, 100, 64)])
+@pytest.mark.parametrize('cdt', [torch.float32, torch.bfloat16])
+def test_lstm_scan_kernels_match_plain(cuda, kind, T, B, H, cdt):
+    """lstm_scan, lstm_scan_fused and lstm_scan_enc: forward, every
+    gradient, and the forward that is handed a null cseq, which must give
+    the saving forward's outs, hT and cT bit for bit."""
+    fwd = _lstm_kinds()[kind][1]
+    args, got = _check_lstm_pair(cuda, kind, T, B, H, cdt)
     with torch.no_grad():
-        got = mod._launch_forward(*args, cdt)
-        want = fwd(*args, cdt)
-        bargs = (*args, want[0], want[3], *g, cdt)
-        got += mod._launch_backward(*bargs)
-        want += bwd(*bargs)
+        primal = fwd(*args, cdt, False)
     torch.cuda.synchronize()
-    assert all(mod.KERNEL.fn_launches[fn] == n + 1 for fn, n in before.items())
-    for a, w in zip(got, want):
-        assert a.dtype == w.dtype and a.shape == w.shape
-        scale = max(1.0, w.float().abs().max().item())
-        torch.testing.assert_close(a.float(), w.float(), rtol=0,
-            atol=LSTM_TOL[cdt] * scale)
+    assert primal[3] is None
+    for a, w in zip(primal[:3], got[:3]):
+        assert torch.equal(a, w)
+
+
+@pytest.mark.parametrize('B,H', [(1000, 128), (45, 32)])
+@pytest.mark.parametrize('cdt,xp_dtype', [(torch.bfloat16, torch.float32),
+    (torch.float32, torch.bfloat16)])
+def test_lstm_scan_x_proj_dtype_apart_from_compute_dtype(cuda, B, H, cdt,
+        xp_dtype):
+    """x_proj in one dtype under the other compute dtype; dx_proj comes
+    back in x_proj's (checked with the dtypes in _check_lstm_pair)."""
+    _check_lstm_pair(cuda, 'scan', 5, B, H, cdt, xp_dtype)
+
+
+def test_lstm_scan_autograd_on_the_card(cuda):
+    """The three autograd.Functions on CUDA tensors launch their kernels,
+    and a call under no_grad launches the forward alone."""
+    from pufferlib_tpu_torch.ops.cuda import lstm_enc, lstm_scan
+    cdt = torch.float32
+    for kind, fn in (('scan', lstm_scan.lstm_scan),
+            ('fused', lstm_scan.lstm_scan_fused),
+            ('enc', lstm_enc.lstm_scan_enc)):
+        mod, _, _, fwd_plain, bwd_plain, fns = _lstm_kinds()[kind]
+        args = _lstm_case(kind, 4, 40, 32, 49, cdt, cuda)
+        first = 1 if kind == 'enc' else 0
+        for t in args[first:]:
+            t.requires_grad_()
+        before = dict(mod.KERNEL.fn_launches)
+        with torch.no_grad():
+            fn(*args, cdt)
+        assert mod.KERNEL.fn_launches[fns[0]] == before[fns[0]] + 1
+        assert mod.KERNEL.fn_launches[fns[1]] == before[fns[1]]
+        outs, hT, cT = fn(*args, cdt)
+        (outs.square().sum() + (hT * cT).sum()).backward()
+        torch.cuda.synchronize()
+        assert mod.KERNEL.fn_launches[fns[1]] == before[fns[1]] + 1
+        with torch.no_grad():
+            want = fwd_plain(*args, cdt)
+            want_g = bwd_plain(*args, want[0], want[3], 2 * want[0], want[2],
+                want[1], cdt)
+        for t, w in zip(args[first:], want_g):
+            scale = max(1.0, w.abs().max().item())
+            torch.testing.assert_close(t.grad, w, rtol=0,
+                atol=LSTM_TOL[cdt] * scale)
 
 
 def test_lstm_autograd_on_the_card(cuda):

@@ -1,0 +1,84 @@
+"""The PyTorch port's recurrent trainer learns Ocean squared on the CPU,
+and the LSTM validation tools run at a small size.
+
+The learning proof is tools/validate_lstm_torch.py's, cut to 64 lanes x
+32 steps, hidden 32, float32, LSTMWrapper(kernel='off'), 30 epochs, one
+thread: about 5 s. Measured there over seeds 0-3: score 0.904-0.914 after
+30 epochs; with learning rate 0 (random play) 0.002 after one epoch and
+0.012 after 30. The test asks for 0.6, far from both.
+"""
+import importlib.util
+import math
+import os
+
+import pytest
+import torch
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def load_tool(name):
+    spec = importlib.util.spec_from_file_location(name,
+        os.path.join(REPO, 'tools', f'{name}.py'))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+SMALL = dict(num_envs=64, horizon=32, hidden=32, dtype_name='float32')
+
+
+def test_recurrent_trainer_learns_squared():
+    tool = load_tool('validate_lstm_torch')
+    cpu = torch.device('cpu')
+    random_play = tool.learning_proof(cpu, kernel='off', epochs=2,
+        learning_rate=0.0, **SMALL)
+    trained = tool.learning_proof(cpu, kernel='off', epochs=30, **SMALL)
+    assert trained['steps'] == 30 * 64 * 32
+    assert math.isfinite(trained['policy_loss'])
+    assert random_play['score'] < 0.1
+    assert trained['score'] > 0.6, trained
+
+
+@pytest.mark.parametrize('kernel', ['enc5', 'cat'])
+def test_learning_proof_runs_the_kernels_plain_versions(kernel):
+    """Two epochs in bf16 through LSTMWrapper's kernel paths, which on the
+    CPU leave the kernels off (use_kernel=None): finite losses and the
+    step count."""
+    tool = load_tool('validate_lstm_torch')
+    result = tool.learning_proof(torch.device('cpu'), kernel=kernel,
+        epochs=2, num_envs=64, horizon=32, hidden=32,
+        dtype_name='bfloat16')
+    assert result['steps'] == 2 * 64 * 32
+    assert math.isfinite(result['policy_loss'])
+    assert math.isfinite(result['score'])
+
+
+def test_time_kernels_on_the_cpu_is_a_host_clock_rehearsal():
+    tool = load_tool('validate_lstm_torch')
+    timings = tool.time_kernels(torch.device('cpu'), T=3, B=16, H=32, reps=1)
+    assert set(timings) == {'fused', 'xp'}
+    assert all(ms > 0 for ms in timings.values())
+
+
+def test_tools_need_a_card_by_default():
+    """Both entry points run on the card unless asked for the CPU, and
+    raise without one; the lab refuses what is not ported by name."""
+    if torch.cuda.is_available():
+        pytest.skip('a CUDA device is present')
+    validate = load_tool('validate_lstm_torch')
+    lab = load_tool('kernel_lab_torch')
+    with pytest.raises(RuntimeError, match='cuda'):
+        validate.main()
+    with pytest.raises(ValueError, match='kernel'):
+        validate.main(device='cpu', kernel='enc4')
+    with pytest.raises(RuntimeError, match='cuda'):
+        lab.main(('xp',))
+    with pytest.raises(RuntimeError, match='CUDA'):
+        lab.main(('xp',), device='cpu')
+    with pytest.raises(SystemExit, match='not ported yet'):
+        lab.main(('enc4',))
+    with pytest.raises(SystemExit, match='unknown'):
+        lab.main(('tc',))

@@ -1,0 +1,295 @@
+"""lstm_scan, lstm_scan_fused and lstm_scan_enc of the PyTorch port against
+the JAX package, on the CPU.
+
+The port's side runs the kernels' plain versions (explicit forward and
+backward in PyTorch, what the autograd.Functions run for CPU tensors).
+The JAX side runs as the JAX package's own tests run it: the Pallas
+kernels under pltpu.force_tpu_interpret_mode(), and the pure references
+lstm_scan_reference, lstm_scan_fused_reference, lstm_scan_enc_reference.
+Inputs come from numpy.random.default_rng(seed) and go into both.
+
+Loss: sum(outs ** 2) + sum(hT * cT), as tests/test_pallas.py. Tolerances:
+float32, 1e-5 on outputs and 5e-4 on gradients (the JAX tests' own: the
+same f32 products summed in another order); bfloat16, 2e-2 of
+max(1, max |reference|) per tensor: h, c and dgates round to bf16 inside
+the recurrence, so a sum on the other side of a rounding boundary rounds
+one ulp (2^-8) the other way and carries on.
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+from jax.experimental.pallas import tpu as pltpu
+from pufferlib_tpu.ops.pallas import lstm as jax_lstm
+from pufferlib_tpu.ops.pallas import lstm_enc as jax_lstm_enc
+
+from pufferlib_tpu_torch.ops.cuda import lstm_common, lstm_enc, lstm_scan
+
+torch.set_num_threads(1)
+
+T, F = 3, 7
+JD = {'float32': jnp.float32, 'bfloat16': jnp.bfloat16}
+TD = {'float32': torch.float32, 'bfloat16': torch.bfloat16}
+
+# name -> (JAX kernel, JAX reference, the port's function, shapes of the
+# arguments as functions of (B, H), index of the first differentiable
+# argument, gradient names)
+KINDS = {
+    'scan': (jax_lstm.lstm_scan, jax_lstm.lstm_scan_reference,
+        lstm_scan.lstm_scan,
+        lambda B, H: ((T, B, 4 * H), (B, H), (B, H), (H, 4 * H)), 0,
+        ('dx_proj', 'dh0', 'dc0', 'dw_hh')),
+    'fused': (jax_lstm.lstm_scan_fused, jax_lstm.lstm_scan_fused_reference,
+        lstm_scan.lstm_scan_fused,
+        lambda B, H: ((T, B, H), (B, H), (B, H), (H, 4 * H), (H, 4 * H),
+            (4 * H,)), 0,
+        ('dx', 'dh0', 'dc0', 'dw_ih', 'dw_hh', 'db')),
+    'enc': (jax_lstm_enc.lstm_scan_enc, jax_lstm_enc.lstm_scan_enc_reference,
+        lstm_enc.lstm_scan_enc,
+        lambda B, H: ((T, B, F), (B, H), (B, H), (F, H), (H,), (H, 4 * H),
+            (H, 4 * H), (4 * H,)), 1,
+        ('dh0', 'dc0', 'dw_enc', 'db_enc', 'dw_ih', 'dw_hh', 'db')),
+}
+
+
+def make_inputs(kind, B, H, seed, seq_dtype):
+    """numpy float32 arguments; the sequence (argument 0) holds values of
+    seq_dtype, so that both packages start from the same bits."""
+    rng = np.random.default_rng(seed)
+    shapes = KINDS[kind][3](B, H)
+    scales = [0.5] + [0.3] * (len(shapes) - 1)
+    arrays = [(rng.standard_normal(s) * k).astype(np.float32)
+        for s, k in zip(shapes, scales)]
+    arrays[0] = np.array(jnp.asarray(arrays[0]).astype(JD[seq_dtype])
+        .astype(jnp.float32))
+    return arrays
+
+
+def to_np(t):
+    if isinstance(t, torch.Tensor):
+        return t.detach().float().numpy()
+    return np.asarray(jnp.asarray(t, jnp.float32))
+
+
+def jax_run(fn, arrays, cdt, seq_dtype, first):
+    """(outs, hT, cT) and the gradients of the loss from argument `first`
+    on."""
+    args = [jnp.asarray(arrays[0]).astype(JD[seq_dtype])] + [
+        jnp.asarray(a) for a in arrays[1:]]
+
+    def loss(*a):
+        o, h, c = fn(*a, JD[cdt])
+        return jnp.sum(o.astype(jnp.float32) ** 2) + jnp.sum(h * c)
+    outs = fn(*args, JD[cdt])
+    grads = jax.grad(loss, argnums=tuple(range(first, len(args))))(*args)
+    return outs, grads
+
+
+def torch_run(fn, arrays, cdt, seq_dtype, first):
+    tensors = [torch.from_numpy(arrays[0]).to(TD[seq_dtype])] + [
+        torch.from_numpy(a) for a in arrays[1:]]
+    for t in tensors[first:]:
+        t.requires_grad_()
+    outs = fn(*tensors, TD[cdt])
+    (outs[0].float().square().sum() + (outs[1] * outs[2]).sum()).backward()
+    return outs, [t.grad for t in tensors[first:]]
+
+
+def assert_close(got, want, tol, relative, what):
+    want = to_np(want)
+    if relative:
+        tol = tol * max(1.0, np.abs(want).max())
+    np.testing.assert_allclose(to_np(got), want, rtol=0, atol=tol,
+        err_msg=what)
+
+
+def compare(kind, got, want, bf16):
+    """Outputs and gradients of one run against another, at the
+    tolerances of the module docstring."""
+    (outs, grads), (jouts, jgrads) = got, want
+    out_tol, grad_tol = (2e-2, 2e-2) if bf16 else (1e-5, 5e-4)
+    for name, a, w in zip(('outs', 'hT', 'cT'), outs, jouts):
+        assert_close(a, w, out_tol, bf16, f'{kind} {name}')
+    names = KINDS[kind][5]
+    assert len(grads) == len(jgrads) == len(names)
+    for name, a, w in zip(names, grads, jgrads):
+        assert a.shape == tuple(w.shape), name
+        assert_close(a, w, grad_tol, bf16, f'{kind} {name}')
+
+
+@pytest.mark.parametrize('cdt', sorted(TD))
+@pytest.mark.parametrize('H', [32, 128])
+@pytest.mark.parametrize('kind', sorted(KINDS))
+def test_plain_matches_pallas_kernel(kind, H, cdt):
+    """The port against the Pallas kernel in interpret mode (B % 8 == 0),
+    sequences stored in the compute dtype."""
+    jfn, _, tfn, _, first, _ = KINDS[kind]
+    arrays = make_inputs(kind, 16, H, 1, cdt)
+    with pltpu.force_tpu_interpret_mode():
+        want = jax_run(jfn, arrays, cdt, cdt, first)
+    got = torch_run(tfn, arrays, cdt, cdt, first)
+    assert got[0][0].dtype == TD[cdt] and got[0][1].dtype == torch.float32
+    compare(kind, got, want, cdt == 'bfloat16')
+
+
+@pytest.mark.parametrize('seq,cdt', [('float32', 'bfloat16'),
+    ('bfloat16', 'float32')])
+def test_scan_x_proj_dtype_apart_from_compute_dtype(seq, cdt):
+    """x_proj in one dtype under the other compute dtype: dx_proj comes
+    back in x_proj's dtype, as the Pallas kernel's. 2e-2 of the scale:
+    one of the two is bf16."""
+    arrays = make_inputs('scan', 16, 32, 2, seq)
+    with pltpu.force_tpu_interpret_mode():
+        want = jax_run(jax_lstm.lstm_scan, arrays, cdt, seq, 0)
+    got = torch_run(lstm_scan.lstm_scan, arrays, cdt, seq, 0)
+    assert got[1][0].dtype == TD[seq] and got[0][0].dtype == TD[cdt]
+    compare('scan', got, want, True)
+
+
+@pytest.mark.parametrize('B', [16, 12])
+@pytest.mark.parametrize('kind', sorted(KINDS))
+def test_plain_matches_jax_reference(kind, B):
+    """The port against jax.grad of the pure-JAX reference, in f32; the
+    ragged B = 12 has no interpret-mode counterpart (B % 8)."""
+    _, jref, tfn, _, first, _ = KINDS[kind]
+    arrays = make_inputs(kind, B, 32, 3, 'float32')
+    want = jax_run(jref, arrays, 'float32', 'float32', first)
+    got = torch_run(tfn, arrays, 'float32', 'float32', first)
+    compare(kind, got, want, False)
+
+
+PLAIN = {
+    'scan': (lstm_scan.lstm_scan_reference,
+        lstm_scan.lstm_scan_backward_reference),
+    'fused': (lstm_scan.lstm_scan_fused_reference,
+        lstm_scan.lstm_scan_fused_backward_reference),
+    'enc': (lstm_enc.lstm_enc_reference,
+        lstm_enc.lstm_scan_enc_backward_reference),
+}
+
+
+@pytest.mark.parametrize('kind', sorted(KINDS))
+def test_explicit_backward_matches_autograd(kind):
+    """The hand-written plain backward against torch.autograd through the
+    plain forward, f32, to 1e-5 (the same math in another order)."""
+    fwd, bwd = PLAIN[kind]
+    first = KINDS[kind][4]
+    B, H = 12, 32
+    arrays = make_inputs(kind, B, H, 4, 'float32')
+    tensors = [torch.from_numpy(a) for a in arrays]
+    for t in tensors[first:]:
+        t.requires_grad_()
+    outs, hT, cT, cseq = fwd(*tensors, torch.float32)
+    rng = np.random.default_rng(5)
+    cot = [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+        for s in ((T, B, H), (B, H), (B, H))]
+    want = torch.autograd.grad([outs, hT, cT], tensors[first:], cot)
+    with torch.no_grad():
+        got = bwd(*tensors, outs, cseq, *cot, torch.float32)
+    assert len(got) == len(want)
+    for name, a, w in zip(KINDS[kind][5], got, want):
+        assert_close(a, w, 1e-5, False, f'{kind} {name}')
+
+
+def test_fused_is_scan_of_the_projection():
+    """lstm_scan_fused(x) == lstm_scan(x @ W_ih + b) in f32, to 1e-6:
+    the same two sums, added in the same order."""
+    x, h0, c0, w_ih, w_hh, b = (torch.from_numpy(a) for a in make_inputs(
+        'fused', 12, 32, 6, 'float32'))
+    fused = lstm_scan.lstm_scan_fused(x, h0, c0, w_ih, w_hh, b, torch.float32)
+    scan = lstm_scan.lstm_scan(x @ w_ih + b, h0, c0, w_hh, torch.float32)
+    for name, a, w in zip(('outs', 'hT', 'cT'), fused, scan):
+        assert_close(a, w, 1e-6, False, name)
+
+
+@pytest.mark.parametrize('cdt', sorted(TD))
+def test_enc_forward_is_enc5_forward(cdt):
+    """One forward kernel serves both: bit for bit. Their backwards round
+    at different places in bf16 and agree to 1e-5 in f32."""
+    arrays = make_inputs('enc', 16, 32, 7, cdt)
+    enc = torch_run(lstm_enc.lstm_scan_enc, arrays, cdt, cdt, 1)
+    enc5 = torch_run(lstm_enc.lstm_scan_enc5, arrays, cdt, cdt, 1)
+    for a, w in zip(enc[0], enc5[0]):
+        assert torch.equal(a, w)
+    if cdt == 'float32':
+        for name, a, w in zip(KINDS['enc'][5], enc[1], enc5[1]):
+            assert_close(a, w, 1e-5, True, name)
+    else:
+        # not the same function in bf16: some gradient differs
+        assert any(not torch.equal(a, w) for a, w in zip(enc[1], enc5[1]))
+
+
+@pytest.mark.parametrize('kind', sorted(KINDS))
+def test_no_cell_sequence_without_gradients(kind, monkeypatch):
+    """A call that needs no gradient asks the forward for no cseq (the
+    kernel is then handed a null pointer) and returns the same outputs;
+    one that needs a gradient asks for it."""
+    fwd, _ = PLAIN[kind]
+    mod = lstm_enc if kind == 'enc' else lstm_scan
+    seen = []
+
+    def recording(*args):
+        seen.append(args[-1])
+        result = fwd(*args)
+        assert (result[3] is None) == (not args[-1])
+        return result
+    monkeypatch.setattr(mod, fwd.__name__, recording)
+    tfn, first = KINDS[kind][2], KINDS[kind][4]
+    tensors = [torch.from_numpy(a) for a in make_inputs(kind, 12, 32, 8,
+        'float32')]
+    primal = tfn(*tensors, torch.float32)
+    tensors[-1].requires_grad_()
+    with torch.no_grad():
+        tfn(*tensors, torch.float32)
+    saving = tfn(*tensors, torch.float32)
+    assert seen == [False, False, True]
+    assert saving[0].requires_grad and not primal[0].requires_grad
+    for a, w in zip(primal, saving):
+        assert torch.equal(a, w)
+
+
+def test_launchers_refuse_what_the_kernels_do_not_serve():
+    """No kernel launch for CPU tensors, for hidden sizes off {32, 64,
+    128}, or for an input width other than the hidden size: ValueError
+    that names the limit."""
+    scan = [torch.from_numpy(a) for a in make_inputs('scan', 8, 32, 9,
+        'float32')]
+    fused = [torch.from_numpy(a) for a in make_inputs('fused', 8, 32, 9,
+        'float32')]
+    enc = [torch.from_numpy(a) for a in make_inputs('enc', 8, 32, 9,
+        'float32')]
+    with pytest.raises(ValueError, match='no LSTM kernel for device cpu'):
+        lstm_scan._launch_scan_forward(*scan, torch.float32)
+    with pytest.raises(ValueError, match='no LSTM kernel for device cpu'):
+        lstm_scan._launch_fused_forward(*fused, torch.float32)
+    outs, _, _, cseq = lstm_enc.lstm_enc_reference(*enc, torch.float32)
+    cot = (torch.zeros(T, 8, 32), torch.zeros(8, 32), torch.zeros(8, 32))
+    with pytest.raises(ValueError, match='no LSTM kernel for device cpu'):
+        lstm_enc._launch_step_backward(*enc, outs, cseq, *cot, torch.float32)
+    cuda = torch.device('cuda')
+    for D, H in ((96, 96), (256, 256), (64, 128)):
+        with pytest.raises(ValueError, match=r'\(32, 64, 128\)'):
+            lstm_common.check_kernel_shape(D, H, cuda)
+
+
+def test_wrappers_check_their_inputs():
+    x_proj, h0, c0, w_hh = (torch.from_numpy(a) for a in make_inputs(
+        'scan', 8, 32, 10, 'float32'))
+    with pytest.raises(ValueError, match='x_proj'):
+        lstm_scan.lstm_scan(x_proj.double(), h0, c0, w_hh, torch.float32)
+    with pytest.raises(ValueError, match='h0'):
+        lstm_scan.lstm_scan(x_proj[:, :, :64].contiguous(), h0, c0, w_hh,
+            torch.float32)
+    with pytest.raises(ValueError, match='w_hh'):
+        lstm_scan.lstm_scan(x_proj, h0, c0, w_hh.t(), torch.float32)
+    with pytest.raises(ValueError, match='compute dtype'):
+        lstm_scan.lstm_scan(x_proj, h0, c0, w_hh, torch.float16)
+    x, h0, c0, w_ih, w_hh, b = (torch.from_numpy(a) for a in make_inputs(
+        'fused', 8, 32, 10, 'float32'))
+    with pytest.raises(ValueError, match='x must be'):
+        lstm_scan.lstm_scan_fused(x, h0, c0, w_ih, w_hh, b, torch.bfloat16)
+    with pytest.raises(ValueError, match='contiguous'):
+        lstm_scan.lstm_scan_fused(x.transpose(0, 1).contiguous().transpose(
+            0, 1), h0, c0, w_ih, w_hh, b, torch.float32)
