@@ -11,9 +11,9 @@ paths: the fused PPO trainer on Ocean `squared` with the `Default` MLP at
 through the cat LSTM kernels, and the LSTM validation path
 (tools/validate_lstm_torch.py: lstm_scan and lstm_scan_fused timed at
 the bench shapes, then a 40-epoch learning proof that must reach score
-0.9; tools/kernel_lab_torch.py over every ported variant). Last, small
-trainer updates and an env run on the card are held against the same on
-the CPU.
+0.9; tools/kernel_lab_torch.py over every variant, the archived enc2,
+enc3, enc4, enc6 and tm among them). Last, small trainer updates and an
+env run on the card are held against the same on the CPU.
 
 Prints one line per phase, a `{"kernels": [...]}` JSON line, the card's
 name and power limit, and last `{"ok": true, "device": {...}}`. Any
@@ -136,9 +136,23 @@ CELL_GRADS = ('dx', 'dh0', 'dc0', 'dw_ih', 'dw_hh', 'db')
 def lstm_kinds():
     """kind -> (kernel forward, kernel backward, plain forward, plain
     backward, gradient names). 'enc' is lstm_scan_enc: enc5's forward
-    kernel with the step-by-step backward."""
+    kernel with the step-by-step backward; enc3, enc4 and enc6 have that
+    forward too, under their own backwards."""
+    import importlib
     from pufferlib_tpu_torch.ops.cuda import lstm_cat, lstm_enc, lstm_scan
+    from pufferlib_tpu_torch.ops.cuda.archive import lstm_tm
+    scan_grads = ('dx_proj', 'dh0', 'dc0', 'dw_hh')
+    archived = {}
+    for kind in ARCHIVED_ENC_KINDS:
+        v = importlib.import_module(
+            f'pufferlib_tpu_torch.ops.cuda.archive.lstm_{kind}').VARIANT
+        archived[kind] = (v.forward_launch, v.backward_launch,
+            v.forward_plain, v.backward_plain, ENC_GRADS)
     return {
+        **archived,
+        'tm': (lstm_tm._launch_forward, lstm_tm._launch_backward,
+            lstm_tm.lstm_tm_reference, lstm_tm.lstm_tm_backward_reference,
+            scan_grads),
         'enc5': (lstm_enc._launch_forward, lstm_enc._launch_backward,
             lstm_enc.lstm_enc_reference,
             lstm_enc.lstm_enc_backward_reference, ENC_GRADS),
@@ -154,22 +168,25 @@ def lstm_kinds():
             lstm_scan.lstm_scan_fused_backward_reference, CELL_GRADS),
         'scan': (lstm_scan._launch_scan_forward,
             lstm_scan._launch_scan_backward, lstm_scan.lstm_scan_reference,
-            lstm_scan.lstm_scan_backward_reference,
-            ('dx_proj', 'dh0', 'dc0', 'dw_hh')),
+            lstm_scan.lstm_scan_backward_reference, scan_grads),
     }
 
 
+ARCHIVED_ENC_KINDS = ('enc2', 'enc3', 'enc4', 'enc6')
+# kinds that take feats behind the fused encoder; kinds that take x_proj
+ENC_KINDS = ('enc5', 'enc') + ARCHIVED_ENC_KINDS
+XP_KINDS = ('scan', 'tm')
 # kinds whose forward takes save_cseq: without it the kernel is handed a
 # null cseq and must give the same outs, hT and cT bit for bit
-PRIMAL_KINDS = ('enc', 'fused', 'scan')
+PRIMAL_KINDS = ('enc', 'fused', 'scan') + ARCHIVED_ENC_KINDS
 
 
 def lstm_case(torch, rng, kind, T, B, dtype_name, F=49, H=128,
         xp_dtype_name=None):
     """Inputs at the trainer's shapes: (forward args, upstream gradients,
     cdt). Dense normal features and inputs, weights scaled as the
-    trainer's orthogonal init. scan's x_proj is in xp_dtype_name (the
-    compute dtype when None)."""
+    trainer's orthogonal init. scan's and tm's x_proj is in xp_dtype_name
+    (the compute dtype when None)."""
     import numpy as np
     cdt = getattr(torch, dtype_name)
 
@@ -179,10 +196,10 @@ def lstm_case(torch, rng, kind, T, B, dtype_name, F=49, H=128,
     state = (arr(B, H, scale=0.5), arr(B, H, scale=0.5))
     weights = (arr(H, 4 * H, scale=H ** -0.5), arr(H, 4 * H, scale=H ** -0.5),
         arr(4 * H, scale=0.1))
-    if kind in ('enc5', 'enc'):
+    if kind in ENC_KINDS:
         args = (arr(T, B, F).to(cdt), *state, arr(F, H, scale=(2 / F) ** 0.5),
             arr(H, scale=0.1), *weights)
-    elif kind == 'scan':
+    elif kind in XP_KINDS:
         xp_dtype = getattr(torch, xp_dtype_name or dtype_name)
         args = (arr(T, B, 4 * H).to(xp_dtype), *state, weights[1])
     else:
@@ -194,7 +211,9 @@ def lstm_case(torch, rng, kind, T, B, dtype_name, F=49, H=128,
 def lstm_bounds(kind, args, T, B, H, dtype_name):
     """(forward, backward) bounds from this call's inputs: every input
     read once and every output written once, and the flops of the
-    function, at the peak of the compute type."""
+    function, at the peak of the compute type. The bound is the
+    function's, whatever the schedule: enc2, enc3, enc4 and enc6 have
+    enc5's, tm has scan's."""
     x = args[0]
     x_bytes = x.numel() * x.element_size()
     weights = sum(t.numel() for t in args[3:]) * 4
@@ -205,12 +224,12 @@ def lstm_bounds(kind, args, T, B, H, dtype_name):
     # in: the sequence, weights, h0/c0, outs, cseq, g_outs, g_hT/g_cT;
     # out: dh0/dc0 and the weight gradients
     bwd_bytes = x_bytes + weights + state + 3 * seq + state + state + weights
-    if kind in ('enc5', 'enc'):
+    if kind in ENC_KINDS:
         F, D = x.shape[2], H
         fwd_flops = 2 * T * B * (F * D + (D + H) * 4 * H)
         bwd_flops = 2 * T * B * (2 * F * D + 2 * (D + H) * 4 * H
             + 4 * H * H + 4 * H * D)
-    elif kind == 'scan':
+    elif kind in XP_KINDS:
         # the recurrent product alone; backward: the gate recompute,
         # dh_prev and dW_hh, and dx_proj written
         fwd_flops = 2 * T * B * H * 4 * H
@@ -456,13 +475,15 @@ def main():
     lstm_runs = {(kind, B, d): check_lstm(torch, flush, rng, kind, B, d,
             timed=(B, d) == (8192, 'bfloat16'))
         for kind in ('enc5', 'cat', 'scan', 'fused', 'enc')
+            + ARCHIVED_ENC_KINDS + ('tm',)
         for B in (8192, 1000) for d in ('bfloat16', 'float32')}
     # x_proj and the compute dtype apart, both ways
-    for B in (8192, 1000):
-        lstm_runs['scan', B, 'bfloat16/f32 x_proj'] = check_lstm(torch, flush,
-            rng, 'scan', B, 'bfloat16', xp_dtype_name='float32')
-        lstm_runs['scan', B, 'float32/bf16 x_proj'] = check_lstm(torch, flush,
-            rng, 'scan', B, 'float32', xp_dtype_name='bfloat16')
+    for kind in XP_KINDS:
+        for B in (8192, 1000):
+            lstm_runs[kind, B, 'bfloat16/f32 x_proj'] = check_lstm(torch,
+                flush, rng, kind, B, 'bfloat16', xp_dtype_name='float32')
+            lstm_runs[kind, B, 'float32/bf16 x_proj'] = check_lstm(torch,
+                flush, rng, kind, B, 'float32', xp_dtype_name='bfloat16')
     del flush
 
     # phase 5: the main path, GAE kernel once per epoch
@@ -583,6 +604,29 @@ def main():
             validation_launches['lstm_fused_forward']),
         ('lstm_fused_backward', 'fused', 'bwd', 'lstm_scan.cu',
             'lstm.py:464', validation_launches['lstm_fused_backward']),
+        ('lstm_enc2_forward', 'enc2', 'fwd', 'lstm_archive.cu',
+            'archive/lstm_enc2.py:228',
+            validation_launches['lstm_enc2_forward']),
+        ('lstm_enc2_backward', 'enc2', 'bwd', 'lstm_archive.cu',
+            'archive/lstm_enc2.py:273',
+            validation_launches['lstm_enc2_backward']),
+        ('lstm_enc3_backward', 'enc3', 'bwd', 'lstm_archive.cu',
+            'archive/lstm_enc3.py:159',
+            validation_launches['lstm_enc3_backward']),
+        ('lstm_enc4_backward', 'enc4', 'bwd', 'lstm_archive.cu',
+            'archive/lstm_enc4.py:142',
+            validation_launches['lstm_enc4_backward']),
+        ('lstm_enc6_backward', 'enc6', 'bwd', 'lstm_archive.cu',
+            'archive/lstm_enc6.py:161',
+            validation_launches['lstm_enc6_backward']),
+        # one call of tm is T launches of its step kernel; the times are
+        # one call's
+        ('lstm_tm_step_forward', 'tm', 'fwd', 'lstm_archive.cu',
+            'archive/lstm_tm.py:144',
+            validation_launches['lstm_tm_step_forward']),
+        ('lstm_tm_step_backward', 'tm', 'bwd', 'lstm_archive.cu',
+            'archive/lstm_tm.py:199',
+            validation_launches['lstm_tm_step_backward']),
     )
     for name, kind, part, source, replaces, launches in lstm_rows:
         main = lstm_runs[kind, 8192, 'bfloat16']
@@ -612,7 +656,8 @@ def load_tool(name):
     return module
 
 
-LAB_VARIANTS = ('fused', 'fused-fwd', 'xp', 'cat', 'enc', 'enc5')
+LAB_VARIANTS = ('fused', 'fused-fwd', 'xp', 'cat', 'enc', 'enc5', 'enc2',
+    'enc3', 'enc4', 'enc6', 'tm')
 
 
 def run_validation_path(torch):
@@ -621,8 +666,9 @@ def run_validation_path(torch):
     tools/validate_lstm_torch.main() (lstm_scan_fused and lstm_scan
     forward + backward at T=16, B=8192, H=128, bf16, then 40 epochs of the
     1024-lane recurrent trainer through the enc5 kernels, which must reach
-    score 0.9) and tools/kernel_lab_torch.main over every ported variant.
-    Returns the launches by C function."""
+    score 0.9) and tools/kernel_lab_torch.main over every variant, which
+    is the path that launches the archived kernels. Returns the launches
+    by C function."""
     from pufferlib_tpu_torch.ops.cuda import KERNELS
     validate = load_tool('validate_lstm_torch')
     lab = load_tool('kernel_lab_torch')
@@ -640,7 +686,10 @@ def run_validation_path(torch):
     wrong = {fn: launches[fn] for fn, n in want.items() if launches[fn] < n}
     idle = [fn for fn in ('lstm_scan_forward', 'lstm_scan_backward',
         'lstm_fused_forward', 'lstm_fused_backward', 'lstm_enc_step_backward',
-        'lstm_cat_forward', 'lstm_cat_backward') if launches[fn] == 0]
+        'lstm_cat_forward', 'lstm_cat_backward', 'lstm_enc2_forward',
+        'lstm_enc2_backward', 'lstm_enc3_backward', 'lstm_enc4_backward',
+        'lstm_enc6_backward', 'lstm_tm_step_forward', 'lstm_tm_step_backward')
+        if launches[fn] == 0]
     if wrong or idle:
         raise AssertionError(f'validation path: launches {launches}; too few '
             f'of {wrong}, none of {idle}')

@@ -1,6 +1,6 @@
-// Device code shared by the LSTM kernels csrc/lstm_cat.cu, csrc/lstm_enc.cu
-// and csrc/lstm_scan.cu, for Hopper (sm_90a). See those files for which
-// TPU kernel each replaces and what bounds it.
+// Device code shared by the LSTM kernels csrc/lstm_cat.cu, csrc/lstm_enc.cu,
+// csrc/lstm_scan.cu and csrc/lstm_archive.cu, for Hopper (sm_90a). See
+// those files for which TPU kernel each replaces and what bounds it.
 //
 // One design serves them all; a Mode (below) says which function a cell
 // kernel computes per step:
@@ -24,6 +24,10 @@
 //   compute dtype, and compute [dx | dh_prev] = dgates @ [W_ih; W_hh]^T,
 //   again streaming the weights in chunks. dgates go to a (T*B, 4H) slab
 //   in the compute dtype; db (and, with ENC, db_enc) are summed per block.
+//   Its pieces (gate_sums, dgates_chain, cols_gemm, store_bias_partials)
+//   also serve the archived schedules of csrc/lstm_archive.cu. Both cell
+//   kernels walk a range of steps, so that a launch per timestep (the
+//   time-major variant) is the same kernel over one step.
 // * gemm_tn_splitk + reduce_partials: the weight gradients
 //   dW = [x | h_prev]^T dgates (and dW_enc = feats^T dpre) are
 //   contractions over K = T*B rows. The TPU kernels add them into one
@@ -91,9 +95,31 @@ enum Mode {
             // its own dtype S (lstm._fwd_kernel, _bwd_kernel)
     FUSED,  // gates = (x_t @ W_ih + b) + h @ W_hh: two f32 sums, then added
             // (lstm._fwd_fused_kernel, _bwd_fused_kernel)
+    // The archived variants (csrc/lstm_archive.cu), all behind the encoder:
+    ENC2,   // FUSED whose first sum passes through the compute dtype before
+            // the recurrent one is added; backward with f32 activations and
+            // db from the rounded dgates (archive/lstm_enc2)
+    ENC3,   // backward only: activations rounded, db from the unrounded
+            // dgates (archive/lstm_enc3._bwd_kernel)
+    ENC4,   // backward only: f32 activations, db from the rounded dgates
+            // (archive/lstm_enc4._bwd_kernel)
+    ENC6,   // backward only: ENC5's function on two half tiles per block
+            // (archive/lstm_enc6._bwd_kernel)
 };
-__host__ __device__ constexpr bool has_encoder(int mode) { return mode == ENC || mode == ENC5; }
-__host__ __device__ constexpr bool two_sums(int mode) { return mode == XP || mode == FUSED; }
+__host__ __device__ constexpr bool has_encoder(int mode) {
+    return mode == ENC || mode == ENC5 || mode >= ENC2;
+}
+__host__ __device__ constexpr bool two_sums(int mode) {
+    return mode == XP || mode == FUSED || mode == ENC2;
+}
+// the gate activations pass through the compute dtype (a stored slab on the TPU)
+__host__ __device__ constexpr bool rounded_acts(int mode) {
+    return mode == ENC5 || mode == ENC3 || mode == ENC6;
+}
+// db sums the dgates rounded to the compute dtype, not the f32 ones
+__host__ __device__ constexpr bool rounded_db(int mode) {
+    return mode == ENC5 || mode == ENC2 || mode == ENC4 || mode == ENC6;
+}
 
 template <int H>
 struct Tile {
@@ -151,44 +177,44 @@ __device__ __forceinline__ void put_rows(float* w_s, const float4 (&r)[RowChunk<
     }
 }
 
-// Column chunk: columns k0 .. k0+KC of [W_ih; W_hh] (K, G), read as
-// float4s along the row; stored transposed as w_s[kk * KS + n], with the
-// row stride padded to KS = K + 1 against bank conflicts. Without XHALF
-// only the rows of W_hh (n >= D) are staged, at the same places.
-template <int H, bool XHALF>
+// Column chunk: columns k0 .. k0+KC of rows N0 .. N1 of [W_ih; W_hh]
+// (K, G), read as float4s along the row; stored transposed as
+// w_s[kk * KS + n], with the row stride padded to KS = K + 1 against bank
+// conflicts. A range that leaves out W_ih (N0 = D) or W_hh (N1 = D) stages
+// the other's rows at the same places.
+template <int H, int N0, int N1>
 struct ColChunk {
     static constexpr int KS = Tile<H>::K + 1;
-    static constexpr int N0 = XHALF ? 0 : Tile<H>::D;
-    static constexpr int TOTAL = KC / 4 * (Tile<H>::K - N0);  // float4s per chunk
+    static constexpr int TOTAL = KC / 4 * (N1 - N0);  // float4s per chunk
     static constexpr int LOADS = (TOTAL + NT - 1) / NT;
     static constexpr bool FULL = TOTAL % NT == 0;
 };
 
-template <int H, bool XHALF>
-__device__ __forceinline__ void fetch_cols(float4 (&r)[ColChunk<H, XHALF>::LOADS],
+template <int H, int N0, int N1>
+__device__ __forceinline__ void fetch_cols(float4 (&r)[ColChunk<H, N0, N1>::LOADS],
                                            const float* w_ih, const float* w_hh, int k0) {
-    using CC = ColChunk<H, XHALF>;
+    using CC = ColChunk<H, N0, N1>;
     constexpr int D = Tile<H>::D, G = Tile<H>::G;
 #pragma unroll
     for (int q = 0; q < CC::LOADS; ++q) {
         const int idx = threadIdx.x + q * NT;
         if (!CC::FULL && idx >= CC::TOTAL) break;
-        const int n = CC::N0 + idx / (KC / 4), k4 = idx % (KC / 4);
+        const int n = N0 + idx / (KC / 4), k4 = idx % (KC / 4);
         const float* row = n < D ? w_ih + (size_t)n * G : w_hh + (size_t)(n - D) * G;
         r[q] = reinterpret_cast<const float4*>(row + k0)[k4];
     }
 }
 
-template <int H, typename E, bool XHALF>
+template <int H, typename E, int N0, int N1>
 __device__ __forceinline__ void put_cols(float* w_s,
-                                         const float4 (&r)[ColChunk<H, XHALF>::LOADS]) {
-    using CC = ColChunk<H, XHALF>;
+                                         const float4 (&r)[ColChunk<H, N0, N1>::LOADS]) {
+    using CC = ColChunk<H, N0, N1>;
     constexpr int KS = CC::KS;
 #pragma unroll
     for (int q = 0; q < CC::LOADS; ++q) {
         const int idx = threadIdx.x + q * NT;
         if (!CC::FULL && idx >= CC::TOTAL) break;
-        const int n = CC::N0 + idx / (KC / 4), k4 = idx % (KC / 4);
+        const int n = N0 + idx / (KC / 4), k4 = idx % (KC / 4);
         const float4 v = to_cdt4(r[q], std::is_same<E, bf16>::value);
         w_s[(4 * k4) * KS + n] = v.x;
         w_s[(4 * k4 + 1) * KS + n] = v.y;
@@ -297,21 +323,25 @@ __device__ __forceinline__ void load_x_proj(float (&pre)[4][Tile<H>::RPT], const
 }
 
 // The gate pre-activations of one step, into acc, from the operand
-// [x_t | h] in op_s. CAT, ENC, ENC5: one sum over K = D + H, plus b.
-// FUSED: (x_t @ W_ih + b) + h @ W_hh. XP: pre (x_proj_t, loaded by the
-// caller) + h @ W_hh.
+// [x_t | h] in op_s. CAT, ENC, ENC3-6: one sum over K = D + H, plus b.
+// FUSED: (x_t @ W_ih + b) + h @ W_hh; ENC2: the same with the first sum
+// rounded to the compute dtype. XP: pre (x_proj_t, loaded by the caller)
+// + h @ W_hh.
 template <int H, typename E, int MODE, bool PREFETCH>
 __device__ __forceinline__ void gate_sums(float (&acc)[4][Tile<H>::RPT],
                                           float (&pre)[4][Tile<H>::RPT], const float* op_s,
                                           float* w_s, const float* w_ih, const float* w_hh,
                                           const float (&bias)[4], int r0, int j) {
     constexpr int D = Tile<H>::D, K = Tile<H>::K, RPT = Tile<H>::RPT;
-    if constexpr (MODE == FUSED) {
+    if constexpr (MODE == FUSED || MODE == ENC2) {
         gates_gemm<H, E, PREFETCH, 0, D>(acc, op_s, w_s, w_ih, w_hh, r0, j);
 #pragma unroll
         for (int g = 0; g < 4; ++g)
 #pragma unroll
-            for (int i = 0; i < RPT; ++i) pre[g][i] = acc[g][i] + bias[g];
+            for (int i = 0; i < RPT; ++i) {
+                pre[g][i] = acc[g][i] + bias[g];
+                if constexpr (MODE == ENC2) pre[g][i] = to_cdt<E>(pre[g][i]);
+            }
     }
     if constexpr (two_sums(MODE)) {
         gates_gemm<H, E, PREFETCH, D, K>(acc, op_s, w_s, w_ih, w_hh, r0, j);
@@ -328,9 +358,115 @@ __device__ __forceinline__ void gate_sums(float (&acc)[4][Tile<H>::RPT],
     }
 }
 
-// xin: CAT and FUSED, x (T, B, D); ENC, feats (T, B, F); XP, x_proj
-// (T, B, 4H) in its own dtype S (S is E in the other modes). A null cseq
-// skips its store: the forward of a call that needs no gradient.
+// ax[s][i] = sum_k dg_s[k][r0 + i] * W_ih[j][k] and ah[s][i] the same with
+// W_hh, for the NH row tiles dg_s = dg_all + s * G * BT (each (G, BT),
+// already rounded): [dx | dh_prev] = dgates @ [W_ih; W_hh]^T for rows
+// N0 .. N1 of the weights, whose columns are streamed through w_s, each
+// staged chunk serving every tile. A range without W_ih leaves ax at zero,
+// one without W_hh ah. Every thread of the block must call it; it ends
+// with a barrier.
+template <int H, typename E, int N0, int N1, int NH>
+__device__ __forceinline__ void cols_gemm(float (&ax)[NH][Tile<H>::RPT],
+                                          float (&ah)[NH][Tile<H>::RPT],
+                                          const float* dg_all, float* w_s,
+                                          const float* w_ih, const float* w_hh,
+                                          int r0, int j) {
+    constexpr int D = Tile<H>::D, G = Tile<H>::G, RPT = Tile<H>::RPT;
+    constexpr bool XH = N0 < D, HH = N1 > D;
+    using CC = ColChunk<H, N0, N1>;
+    constexpr int KS = CC::KS;
+#pragma unroll
+    for (int s = 0; s < NH; ++s)
+#pragma unroll
+        for (int i = 0; i < RPT; ++i) ax[s][i] = ah[s][i] = 0.f;
+    float4 next[CC::LOADS];
+    fetch_cols<H, N0, N1>(next, w_ih, w_hh, 0);
+    for (int k0 = 0; k0 < G; k0 += KC) {
+        put_cols<H, E, N0, N1>(w_s, next);
+        __syncthreads();
+        if (k0 + KC < G) fetch_cols<H, N0, N1>(next, w_ih, w_hh, k0 + KC);
+#pragma unroll 4
+        for (int kk = 0; kk < KC; ++kk) {
+            const float wx = XH ? w_s[kk * KS + j] : 0.f;
+            const float wh = HH ? w_s[kk * KS + D + j] : 0.f;
+#pragma unroll
+            for (int s = 0; s < NH; ++s) {
+                const float4* dv = reinterpret_cast<const float4*>(
+                    dg_all + s * G * BT + (k0 + kk) * BT + r0);
+#pragma unroll
+                for (int q = 0; q < RPT / 4; ++q) {
+                    const float4 v = dv[q];
+                    if constexpr (XH) {
+                        ax[s][4 * q] = fmaf(v.x, wx, ax[s][4 * q]);
+                        ax[s][4 * q + 1] = fmaf(v.y, wx, ax[s][4 * q + 1]);
+                        ax[s][4 * q + 2] = fmaf(v.z, wx, ax[s][4 * q + 2]);
+                        ax[s][4 * q + 3] = fmaf(v.w, wx, ax[s][4 * q + 3]);
+                    }
+                    if constexpr (HH) {
+                        ah[s][4 * q] = fmaf(v.x, wh, ah[s][4 * q]);
+                        ah[s][4 * q + 1] = fmaf(v.y, wh, ah[s][4 * q + 1]);
+                        ah[s][4 * q + 2] = fmaf(v.z, wh, ah[s][4 * q + 2]);
+                        ah[s][4 * q + 3] = fmaf(v.w, wh, ah[s][4 * q + 3]);
+                    }
+                }
+            }
+        }
+        __syncthreads();
+    }
+}
+
+// One (row, unit) of the reverse step, in the order of operations of the
+// TPU kernels' _bwd_kernel: the f32 dgates d (i, f, g, o) from the gate
+// activations, dhv = dh + g_outs_t, c_t and c_prev. dc comes in as the
+// carried dc and leaves as dc_prev.
+__device__ __forceinline__ void dgates_chain(float (&d)[4], float& dc, float dhv, float ai,
+                                             float af, float ag, float ao, float ct,
+                                             float cp) {
+    const float tc = tanhf(ct);
+    const float dov = dhv * tc;
+    const float dcv = dc + dhv * ao * (1.f - tc * tc);
+    const float di = dcv * ag, dgg = dcv * ai, df = dcv * cp;
+    d[0] = di * ai * (1.f - ai);
+    d[1] = df * af * (1.f - af);
+    d[2] = dgg * (1.f - ag * ag);
+    d[3] = dov * ao * (1.f - ao);
+    dc = dcv * af;
+}
+
+// The block's bias gradients: every thread's sums added over the row
+// groups in order, into row blockIdx.x of db_part (G wide) and, with
+// ENCODER, dbe_part (D wide). red is RG * (G + D) floats of shared memory
+// whose last use ended on a barrier.
+template <int H, bool ENCODER>
+__device__ __forceinline__ void store_bias_partials(float* red, const float (&db_acc)[4],
+                                                    float dbe_acc, float* db_part,
+                                                    float* dbe_part, int rg, int j) {
+    constexpr int D = Tile<H>::D, G = Tile<H>::G, RG = Tile<H>::RG;
+    float* red_e = red + RG * G;   // (RG, D)
+#pragma unroll
+    for (int g = 0; g < 4; ++g) red[rg * G + g * H + j] = db_acc[g];
+    if constexpr (ENCODER) red_e[rg * D + j] = dbe_acc;
+    __syncthreads();
+    for (int n = threadIdx.x; n < G; n += NT) {
+        float s = 0.f;
+        for (int q = 0; q < RG; ++q) s += red[q * G + n];
+        db_part[(size_t)blockIdx.x * G + n] = s;
+    }
+    if constexpr (ENCODER) {
+        for (int n = threadIdx.x; n < D; n += NT) {
+            float s = 0.f;
+            for (int q = 0; q < RG; ++q) s += red_e[q * D + n];
+            dbe_part[(size_t)blockIdx.x * D + n] = s;
+        }
+    }
+}
+
+// xin: CAT and FUSED, x (T, B, D); ENC and ENC2, feats (T, B, F); XP,
+// x_proj (T, B, 4H) in its own dtype S (S is E in the other modes). A null
+// cseq skips its store: the forward of a call that needs no gradient. The
+// block walks steps t_lo .. t_hi-1 of the sequence, from the state h0, c0
+// before step t_lo to hT, cT after step t_hi-1: the whole sequence in one
+// launch, or one step per launch with the state carried in device memory.
 template <int H, typename E, typename S, int MODE>
 __global__ void __launch_bounds__(NT) cell_forward(
         const S* __restrict__ xin, const float* __restrict__ h0,
@@ -338,14 +474,15 @@ __global__ void __launch_bounds__(NT) cell_forward(
         const float* __restrict__ b_enc, const float* __restrict__ w_ih,
         const float* __restrict__ w_hh, const float* __restrict__ b,
         E* __restrict__ outs, E* __restrict__ cseq, float* __restrict__ hT,
-        float* __restrict__ cT, int T, int B, int F) {
+        float* __restrict__ cT, int t_lo, int t_hi, int B, int F) {
     using TL = Tile<H>;
     constexpr int D = TL::D, K = TL::K, G = TL::G, RPT = TL::RPT;
+    constexpr bool ENCODER = has_encoder(MODE);
     extern __shared__ __align__(16) float smem[];
     float* xh_s = smem;               // (K, BT): [x_t | h], rounded
     float* w_s = xh_s + K * BT;       // (KC, G): staged weight rows
-    float* we_s = w_s + KC * G;       // ENC: (F, D) W_enc, rounded
-    float* f_s = we_s + F * D;        // ENC: (F, BT) feats_t, rounded
+    float* we_s = w_s + KC * G;       // encoder: (F, D) W_enc, rounded
+    float* f_s = we_s + F * D;        // encoder: (F, BT) feats_t, rounded
 
     const int j = threadIdx.x % H, r0 = (threadIdx.x / H) * RPT;
     const int row0 = blockIdx.x * BT;
@@ -356,7 +493,7 @@ __global__ void __launch_bounds__(NT) cell_forward(
         for (int g = 0; g < 4; ++g) bias[g] = b[g * H + j];
     }
     float be = 0.f;
-    if constexpr (MODE == ENC) {
+    if constexpr (ENCODER) {
         be = b_enc[j];
         for (int i = threadIdx.x; i < F * D; i += NT) we_s[i] = to_cdt<E>(w_enc[i]);
     }
@@ -370,10 +507,10 @@ __global__ void __launch_bounds__(NT) cell_forward(
         xh_s[(D + j) * BT + r] = to_cdt<E>(h[i]);
     }
 
-    for (int t = 0; t < T; ++t) {
+    for (int t = t_lo; t < t_hi; ++t) {
         const size_t base = (size_t)t * B + row0;
         float acc[4][RPT], pre[4][RPT];
-        if constexpr (MODE == ENC) {
+        if constexpr (ENCODER) {
             load_rows<E>(f_s, xin, base, F, nrows);
             __syncthreads();
             float x[RPT];
@@ -422,6 +559,9 @@ __global__ void __launch_bounds__(NT) cell_forward(
 // contractions read; XP passes a null dg where dx_proj serves as that
 // slab (S is E, or S is f32 and the contraction rounds as it loads).
 // dpre and dbe_part are ENC and ENC5 only; XP has no bias and no db_part.
+// The block walks steps t_hi-1 .. t_lo, from the gradients g_hT, g_cT that
+// enter step t_hi-1 to dh0, dc0 that leave step t_lo (h0 and c0 stay the
+// state before step 0): the whole sequence, or one step per launch.
 template <int H, typename E, typename S, int MODE>
 __global__ void __launch_bounds__(NT) cell_backward(
         const S* __restrict__ xin, const float* __restrict__ h0,
@@ -433,12 +573,10 @@ __global__ void __launch_bounds__(NT) cell_backward(
         const float* __restrict__ g_cT, float* __restrict__ dh0,
         float* __restrict__ dc0, S* __restrict__ xo, E* __restrict__ dpre,
         E* __restrict__ dg, float* __restrict__ db_part,
-        float* __restrict__ dbe_part, int T, int B, int F) {
+        float* __restrict__ dbe_part, int t_lo, int t_hi, int B, int F) {
     using TL = Tile<H>;
-    constexpr int D = TL::D, G = TL::G, RG = TL::RG, RPT = TL::RPT;
-    constexpr bool ENCODER = has_encoder(MODE), XHALF = MODE != XP;
-    using CC = ColChunk<H, XHALF>;
-    constexpr int KS = CC::KS;
+    constexpr int D = TL::D, K = TL::K, G = TL::G, RPT = TL::RPT;
+    constexpr bool ENCODER = has_encoder(MODE);
     extern __shared__ __align__(16) float smem[];
     float* buf = smem;                // (K, BT) [x_t | h_prev], then (G, BT) dgates
     float* w_s = buf + G * BT;        // (KC, G) weight rows / (KC, KS) columns
@@ -469,7 +607,7 @@ __global__ void __launch_bounds__(NT) cell_backward(
     float db_acc[4] = {0.f, 0.f, 0.f, 0.f};
     float dbe_acc = 0.f;
 
-    for (int t = T - 1; t >= 0; --t) {
+    for (int t = t_hi - 1; t >= t_lo; --t) {
         const size_t base = (size_t)t * B + row0;
         float x[RPT];
         float acc[4][RPT], pre[4][RPT];
@@ -508,7 +646,7 @@ __global__ void __launch_bounds__(NT) cell_backward(
             float af = sigm(acc[1][i]);
             float ag = tanhf(acc[2][i]);
             float ao = sigm(acc[3][i]);
-            if constexpr (MODE == ENC5) {
+            if constexpr (rounded_acts(MODE)) {
                 // the enc5 activation slab is stored in the compute dtype
                 ai = to_cdt<E>(ai);
                 af = to_cdt<E>(af);
@@ -520,13 +658,8 @@ __global__ void __launch_bounds__(NT) cell_backward(
             const float cp = !ok ? 0.f
                 : t == 0 ? c0[(size_t)(row0 + r) * H + j]
                 : ld(cseq, idx - (size_t)B * H);
-            const float dhv = dh[i] + gout;
-            const float tc = tanhf(ct);
-            const float dov = dhv * tc;
-            const float dcv = dc[i] + dhv * ao * (1.f - tc * tc);
-            const float di = dcv * ag, dgg = dcv * ai, df = dcv * cp;
-            const float d[4] = {di * ai * (1.f - ai), df * af * (1.f - af),
-                                dgg * (1.f - ag * ag), dov * ao * (1.f - ao)};
+            float d[4];
+            dgates_chain(d, dc[i], dh[i] + gout, ai, af, ag, ao, ct, cp);
 #pragma unroll
             for (int g = 0; g < 4; ++g) {
                 const float dcg = to_cdt<E>(d[g]);
@@ -539,59 +672,29 @@ __global__ void __launch_bounds__(NT) cell_backward(
                     } else {
                         st(dg, at, dcg);
                         // enc5 sums the rounded slab, the others the f32 dgates
-                        db_acc[g] += MODE == ENC5 ? dcg : d[g];
+                        db_acc[g] += rounded_db(MODE) ? dcg : d[g];
                     }
                 }
             }
-            dc[i] = dcv * af;
         }
         __syncthreads();
 
         // [dx | dh_prev] = dgates @ [W_ih; W_hh]^T (XP: dh_prev alone),
         // streaming columns
-        float ax[RPT], ah[RPT];
-#pragma unroll
-        for (int i = 0; i < RPT; ++i) ax[i] = ah[i] = 0.f;
-        float4 next[CC::LOADS];
-        fetch_cols<H, XHALF>(next, w_ih, w_hh, 0);
-        for (int k0 = 0; k0 < G; k0 += KC) {
-            put_cols<H, E, XHALF>(w_s, next);
-            __syncthreads();
-            if (k0 + KC < G) fetch_cols<H, XHALF>(next, w_ih, w_hh, k0 + KC);
-#pragma unroll 4
-            for (int kk = 0; kk < KC; ++kk) {
-                const float wx = XHALF ? w_s[kk * KS + j] : 0.f;
-                const float wh = w_s[kk * KS + D + j];
-                const float4* dv = reinterpret_cast<const float4*>(buf + (k0 + kk) * BT + r0);
-#pragma unroll
-                for (int q = 0; q < RPT / 4; ++q) {
-                    const float4 v = dv[q];
-                    if constexpr (XHALF) {
-                        ax[4 * q] = fmaf(v.x, wx, ax[4 * q]);
-                        ax[4 * q + 1] = fmaf(v.y, wx, ax[4 * q + 1]);
-                        ax[4 * q + 2] = fmaf(v.z, wx, ax[4 * q + 2]);
-                        ax[4 * q + 3] = fmaf(v.w, wx, ax[4 * q + 3]);
-                    }
-                    ah[4 * q] = fmaf(v.x, wh, ah[4 * q]);
-                    ah[4 * q + 1] = fmaf(v.y, wh, ah[4 * q + 1]);
-                    ah[4 * q + 2] = fmaf(v.z, wh, ah[4 * q + 2]);
-                    ah[4 * q + 3] = fmaf(v.w, wh, ah[4 * q + 3]);
-                }
-            }
-            __syncthreads();
-        }
+        float ax[1][RPT], ah[1][RPT];
+        cols_gemm<H, E, MODE == XP ? D : 0, K, 1>(ax, ah, buf, w_s, w_ih, w_hh, r0, j);
 #pragma unroll
         for (int i = 0; i < RPT; ++i) {
             const int r = r0 + i;
-            dh[i] = ah[i];
+            dh[i] = ah[0][i];
             if (r >= nrows) continue;
             const size_t idx = (base + r) * D + j;
             if constexpr (ENCODER) {
-                const float p = to_cdt<E>(x[i] > 0.f ? ax[i] : 0.f);
+                const float p = to_cdt<E>(x[i] > 0.f ? ax[0][i] : 0.f);
                 st(dpre, idx, p);
                 dbe_acc += p;
             } else if constexpr (MODE != XP) {
-                st(xo, idx, ax[i]);
+                st(xo, idx, ax[0][i]);
             }
         }
     }
@@ -605,26 +708,8 @@ __global__ void __launch_bounds__(NT) cell_backward(
         }
     }
     if constexpr (MODE != XP) {
-        // per-block bias gradients: the row groups' sums added in order
-        // (buf is free: the loop ended on a barrier)
-        float* red = buf;              // (RG, G)
-        float* red_e = buf + RG * G;   // (RG, D)
-#pragma unroll
-        for (int g = 0; g < 4; ++g) red[rg * G + g * H + j] = db_acc[g];
-        if constexpr (ENCODER) red_e[rg * D + j] = dbe_acc;
-        __syncthreads();
-        for (int n = threadIdx.x; n < G; n += NT) {
-            float s = 0.f;
-            for (int q = 0; q < RG; ++q) s += red[q * G + n];
-            db_part[(size_t)blockIdx.x * G + n] = s;
-        }
-        if constexpr (ENCODER) {
-            for (int n = threadIdx.x; n < D; n += NT) {
-                float s = 0.f;
-                for (int q = 0; q < RG; ++q) s += red_e[q * D + n];
-                dbe_part[(size_t)blockIdx.x * D + n] = s;
-            }
-        }
+        // buf is free: the loop ended on a barrier
+        store_bias_partials<H, ENCODER>(buf, db_acc, dbe_acc, db_part, dbe_part, rg, j);
     }
 }
 
@@ -867,19 +952,31 @@ cudaError_t prepare(Kernel kernel, size_t smem) {
                                 (int)smem);
 }
 
+// Steps t_lo .. t_hi-1 of the forward: h0, c0 the state before step t_lo,
+// hT, cT the state after step t_hi-1
 template <int H, typename E, typename S, int MODE>
-cudaError_t run_forward(const void* xin, const float* h0, const float* c0,
-                        const float* w_enc, const float* b_enc, const float* w_ih,
-                        const float* w_hh, const float* b, void* outs, void* cseq,
-                        float* hT, float* cT, int T, int B, int F, cudaStream_t stream) {
+cudaError_t run_forward_steps(const void* xin, const float* h0, const float* c0,
+                              const float* w_enc, const float* b_enc, const float* w_ih,
+                              const float* w_hh, const float* b, void* outs, void* cseq,
+                              float* hT, float* cT, int t_lo, int t_hi, int B, int F,
+                              cudaStream_t stream) {
     auto kernel = cell_forward<H, E, S, MODE>;
     const size_t smem = forward_smem(H, F, has_encoder(MODE));
     cudaError_t err = prepare(kernel, smem);
     if (err != cudaSuccess) return err;
     kernel<<<(B + BT - 1) / BT, NT, smem, stream>>>(
         static_cast<const S*>(xin), h0, c0, w_enc, b_enc, w_ih, w_hh, b,
-        static_cast<E*>(outs), static_cast<E*>(cseq), hT, cT, T, B, F);
+        static_cast<E*>(outs), static_cast<E*>(cseq), hT, cT, t_lo, t_hi, B, F);
     return cudaGetLastError();
+}
+
+template <int H, typename E, typename S, int MODE>
+cudaError_t run_forward(const void* xin, const float* h0, const float* c0,
+                        const float* w_enc, const float* b_enc, const float* w_ih,
+                        const float* w_hh, const float* b, void* outs, void* cseq,
+                        float* hT, float* cT, int T, int B, int F, cudaStream_t stream) {
+    return run_forward_steps<H, E, S, MODE>(xin, h0, c0, w_enc, b_enc, w_ih, w_hh, b, outs,
+                                            cseq, hT, cT, 0, T, B, F, stream);
 }
 
 inline cudaError_t reduce(const float* part, float* out, int S, long long n,
@@ -907,24 +1004,53 @@ cudaError_t splitk(SA a, SB bm, float* part, float* out, int M, int N, long long
     return reduce(part, out, splits, (long long)M * N, stream);
 }
 
-// The whole backward: the recurrent kernel, then the split-K weight
-// gradients and the ordered sums of every partial. dw is [dW_ih; dW_hh]
-// (D + H, 4H); XP: dW_hh (H, 4H) alone, and no db.
+// The weight and bias gradients behind the encoder, after a recurrent
+// kernel has left the x slab xs, the rounded dgates dg and dpre in device
+// memory and its blocks' bias sums in db_part and dbe_part (nblk rows):
+// dw = [xs | h_prev]^T dg (D + H, 4H), dw_enc = feats^T dpre, both split-K,
+// and db, db_enc as the ordered sums of the partials.
+template <int H, typename E>
+cudaError_t encoder_weight_grads(const void* feats, const float* h0, const void* outs,
+                                 const void* xs, const void* dpre, const void* dg,
+                                 float* dw_enc, float* db_enc, float* dw, float* db,
+                                 float* dw_part, float* db_part, float* dwe_part,
+                                 float* dbe_part, int T, int B, int F, int splits_w,
+                                 int splits_e, int nblk, cudaStream_t stream) {
+    constexpr int D = H, G = 4 * H;
+    const long long K = (long long)T * B;
+    XHRows<E> xh{static_cast<const E*>(xs), h0, static_cast<const E*>(outs), B, D, H};
+    Rows<E> dgates{static_cast<const E*>(dg), G};
+    cudaError_t err = splitk<E>(xh, dgates, dw_part, dw, D + H, G, K, splits_w, stream);
+    if (err != cudaSuccess) return err;
+    if ((err = reduce(db_part, db, nblk, G, stream)) != cudaSuccess) return err;
+    Rows<E> f{static_cast<const E*>(feats), F};
+    Rows<E> dp{static_cast<const E*>(dpre), D};
+    if ((err = splitk<E>(f, dp, dwe_part, dw_enc, F, D, K, splits_e, stream)) != cudaSuccess)
+        return err;
+    return reduce(dbe_part, db_enc, nblk, D, stream);
+}
+
+// Steps t_hi-1 .. t_lo of the backward (cell_backward) and, once step 0 is
+// done, the split-K weight gradients and the ordered sums of every
+// partial. dw is [dW_ih; dW_hh] (D + H, 4H); XP: dW_hh (H, 4H) alone, and
+// no db. T is the length of the whole sequence.
 template <int H, typename E, typename S, int MODE>
-cudaError_t run_backward(const void* xin, const float* h0, const float* c0,
-                         const float* w_enc, const float* b_enc, const float* w_ih,
-                         const float* w_hh, const float* b, const void* outs,
-                         const void* cseq, const void* g_outs, const float* g_hT,
-                         const float* g_cT, float* dh0, float* dc0, float* dw_enc,
-                         float* db_enc, float* dw, float* db, void* xo, void* dpre,
-                         void* dg, float* dw_part, float* db_part, float* dwe_part,
-                         float* dbe_part, int T, int B, int F, int splits_w,
-                         int splits_e, int part_rows, cudaStream_t stream) {
+cudaError_t run_backward_steps(const void* xin, const float* h0, const float* c0,
+                               const float* w_enc, const float* b_enc, const float* w_ih,
+                               const float* w_hh, const float* b, const void* outs,
+                               const void* cseq, const void* g_outs, const float* g_hT,
+                               const float* g_cT, float* dh0, float* dc0, float* dw_enc,
+                               float* db_enc, float* dw, float* db, void* xo, void* dpre,
+                               void* dg, float* dw_part, float* db_part, float* dwe_part,
+                               float* dbe_part, int t_lo, int t_hi, int T, int B, int F,
+                               int splits_w, int splits_e, int part_rows,
+                               cudaStream_t stream) {
     constexpr int D = H, G = 4 * H;
     constexpr bool ENCODER = has_encoder(MODE);
     const int nblk = (B + BT - 1) / BT;
     if (part_rows != nblk || splits_w < 1 || (ENCODER && splits_e < 1))
         return cudaErrorInvalidValue;
+    if (t_lo < 0 || t_lo >= t_hi || t_hi > T) return cudaErrorInvalidValue;
     // an f32 contraction cannot read its dgates from a bf16 dx_proj
     if (MODE == XP && !std::is_same<S, E>::value && std::is_same<S, bf16>::value && !dg)
         return cudaErrorInvalidValue;
@@ -936,8 +1062,9 @@ cudaError_t run_backward(const void* xin, const float* h0, const float* c0,
         static_cast<const S*>(xin), h0, c0, w_enc, b_enc, w_ih, w_hh, b,
         static_cast<const E*>(outs), static_cast<const E*>(cseq),
         static_cast<const E*>(g_outs), g_hT, g_cT, dh0, dc0, static_cast<S*>(xo),
-        static_cast<E*>(dpre), static_cast<E*>(dg), db_part, dbe_part, T, B, F);
+        static_cast<E*>(dpre), static_cast<E*>(dg), db_part, dbe_part, t_lo, t_hi, B, F);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    if (t_lo > 0) return cudaSuccess;
 
     const long long K = (long long)T * B;
     if constexpr (MODE == XP) {
@@ -948,24 +1075,35 @@ cudaError_t run_backward(const void* xin, const float* h0, const float* c0,
         }
         Rows<E, S> dgates{static_cast<const S*>(xo), G};
         return splitk<E>(h_prev, dgates, dw_part, dw, H, G, K, splits_w, stream);
+    } else if constexpr (ENCODER) {
+        return encoder_weight_grads<H, E>(xin, h0, outs, xo, dpre, dg, dw_enc, db_enc, dw,
+                                          db, dw_part, db_part, dwe_part, dbe_part, T, B, F,
+                                          splits_w, splits_e, nblk, stream);
     } else {
-        const E* x_rows = ENCODER ? static_cast<const E*>(xo) : static_cast<const E*>(xin);
-        XHRows<E> xh{x_rows, h0, static_cast<const E*>(outs), B, D, H};
+        XHRows<E> xh{static_cast<const E*>(xin), h0, static_cast<const E*>(outs), B, D, H};
         Rows<E> dgates{static_cast<const E*>(dg), G};
         if ((err = splitk<E>(xh, dgates, dw_part, dw, D + H, G, K, splits_w, stream)) !=
             cudaSuccess)
             return err;
-        if ((err = reduce(db_part, db, nblk, G, stream)) != cudaSuccess) return err;
-        if constexpr (ENCODER) {
-            Rows<E> feats{static_cast<const E*>(xin), F};
-            Rows<E> dp{static_cast<const E*>(dpre), D};
-            if ((err = splitk<E>(feats, dp, dwe_part, dw_enc, F, D, K, splits_e, stream)) !=
-                cudaSuccess)
-                return err;
-            if ((err = reduce(dbe_part, db_enc, nblk, D, stream)) != cudaSuccess) return err;
-        }
-        return cudaSuccess;
+        return reduce(db_part, db, nblk, G, stream);
     }
+}
+
+// The whole backward in one launch of the recurrent kernel
+template <int H, typename E, typename S, int MODE>
+cudaError_t run_backward(const void* xin, const float* h0, const float* c0,
+                         const float* w_enc, const float* b_enc, const float* w_ih,
+                         const float* w_hh, const float* b, const void* outs,
+                         const void* cseq, const void* g_outs, const float* g_hT,
+                         const float* g_cT, float* dh0, float* dc0, float* dw_enc,
+                         float* db_enc, float* dw, float* db, void* xo, void* dpre,
+                         void* dg, float* dw_part, float* db_part, float* dwe_part,
+                         float* dbe_part, int T, int B, int F, int splits_w,
+                         int splits_e, int part_rows, cudaStream_t stream) {
+    return run_backward_steps<H, E, S, MODE>(
+        xin, h0, c0, w_enc, b_enc, w_ih, w_hh, b, outs, cseq, g_outs, g_hT, g_cT, dh0, dc0,
+        dw_enc, db_enc, dw, db, xo, dpre, dg, dw_part, db_part, dwe_part, dbe_part, 0, T, T,
+        B, F, splits_w, splits_e, part_rows, stream);
 }
 
 // dispatch on the hidden size and the compute dtype

@@ -9,11 +9,18 @@ kernel's plain PyTorch version for tensors on the CPU.
 | lstm_enc.KERNEL   | pufferlib_tpu/ops/pallas/lstm_enc.py:170 (forward), lstm_enc5.py:147 (enc5 backward), lstm_enc.py:241 (enc backward) |
 | lstm_cat.KERNEL   | pufferlib_tpu/ops/pallas/lstm_cat.py:131 (forward), :185 (backward) |
 | lstm_scan.KERNEL  | pufferlib_tpu/ops/pallas/lstm.py:185 (lstm_scan forward), :236 (backward), :407 (lstm_scan_fused forward), :464 (backward) |
+| archive.KERNEL    | pufferlib_tpu/ops/pallas/archive/lstm_enc2.py:176 (forward), :246 (backward), lstm_enc3.py:132, lstm_enc4.py:142, lstm_enc6.py:161 (backwards), lstm_tm.py:137 (forward), :181 (backward) |
+
+The archive's variants (archive/lstm_enc2.py, lstm_enc3.py, lstm_enc4.py,
+lstm_enc6.py, lstm_tm.py) are off the production import path, as the TPU
+package's are: only their kernel is listed here, so that it is built and
+counted with the others.
 """
 from pufferlib_tpu_torch.ops.cuda import (
-    gae, lstm_cat, lstm_enc, lstm_scan, mlp)
+    archive, gae, lstm_cat, lstm_enc, lstm_scan, mlp)
 
 KERNELS = (gae.KERNEL, mlp.KERNEL, lstm_enc.KERNEL, lstm_cat.KERNEL,
-    lstm_scan.KERNEL)
+    lstm_scan.KERNEL, archive.KERNEL)
 
-__all__ = ['KERNELS', 'gae', 'lstm_cat', 'lstm_enc', 'lstm_scan', 'mlp']
+__all__ = ['KERNELS', 'archive', 'gae', 'lstm_cat', 'lstm_enc', 'lstm_scan',
+    'mlp']

@@ -5,7 +5,12 @@ first use, into a shared library with a plain C interface and loaded
 with ctypes:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -Xptxas -v -o _build/lib<name>-<hash>.so <name>.cu
+         -Xcompiler -fPIC -Xptxas -v -split-compile 0 \
+         -o _build/lib<name>-<hash>.so <name>.cu
+
+-split-compile 0 lets nvcc optimise a source's kernels on every core at
+once: the LSTM sources hold dozens of template instantiations each, and
+the longest of them sets the wall time of a build.
 
 The library's name carries a hash of the source and the flags, so an
 edited source is rebuilt and a stale one is never loaded. The build
@@ -28,7 +33,8 @@ PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
 CSRC_DIR = os.path.join(PACKAGE_DIR, 'csrc')
 BUILD_DIR = os.path.join(PACKAGE_DIR, '_build')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-    '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+    '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v',
+    '-split-compile', '0')
 
 
 def nvcc_path():

@@ -1,7 +1,7 @@
-"""What the LSTM kernel wrappers lstm_cat.py, lstm_enc.py and lstm_scan.py
-share: the cell loop and the reverse step of their plain versions, in the
-TPU kernels' order of operations, the input checks, and the launch
-geometry of csrc/lstm_common.cuh.
+"""What the LSTM kernel wrappers lstm_cat.py, lstm_enc.py, lstm_scan.py and
+archive/ share: the encoder, the cell loop and the reverse step of their
+plain versions, in the TPU kernels' order of operations, the input
+checks, and the launch geometry of csrc/lstm_common.cuh.
 """
 import math
 
@@ -14,12 +14,30 @@ CDTS = (torch.float32, torch.bfloat16)
 KERNEL_HIDDEN = (32, 64, 128)
 # batch rows per block of the recurrent kernels (lstm_common.cuh BT)
 ROWS_PER_BLOCK = 32
+# feature widths whose W_enc the encoder-fused kernels hold in shared
+# memory (lstm_common.cuh forward_smem / backward_smem)
+KERNEL_MAX_FEATURES = 128
 
 
 def round_to(t, cdt):
     """t rounded to cdt, carried in float32: an f32 matmul of such values
     accumulates in f32, as the JAX preferred_element_type=f32 does."""
     return t.to(cdt).float()
+
+
+def encode(feats, w_enc, b_enc, cdt):
+    """relu(feats @ W_enc + b_enc) in f32 (not yet rounded), feats and
+    W_enc rounded to cdt: lstm_enc._encode_block."""
+    pre = round_to(feats, cdt) @ round_to(w_enc, cdt) + b_enc.float()
+    return torch.relu(pre)
+
+
+def h_prev_rows(h0, outs, cdt):
+    """The recurrent operand of every step, (T * B, H): h0 rounded to
+    cdt, then the stored outs of steps 0 .. T-2."""
+    T, B, H = outs.shape
+    return torch.cat([round_to(h0, cdt),
+        round_to(outs[:T - 1].reshape((T - 1) * B, H), cdt)], dim=0)
 
 
 def gate_activations(gates, H):
@@ -88,6 +106,60 @@ def check_state_and_weights(B, D, h0, c0, w_ih, w_hh, b, device):
     return H
 
 
+def check_cdt(cdt):
+    if cdt not in CDTS:
+        raise ValueError(f'compute dtype must be one of {CDTS}, got {cdt}')
+
+
+def check_scan_inputs(x_proj, h0, c0, w_hh, cdt):
+    """Shapes, dtypes, device and contiguity of a scan over projected
+    inputs: x_proj (T, B, 4H) in either dtype, the rest float32; returns
+    H."""
+    check_cdt(cdt)
+    if x_proj.dim() != 3 or x_proj.dtype not in CDTS:
+        raise ValueError(f'x_proj must be (T, B, 4H) in one of {CDTS}, got '
+            f'{x_proj.dtype} {tuple(x_proj.shape)}')
+    T, B, G = x_proj.shape
+    if T < 1:
+        raise ValueError('x_proj needs at least one timestep')
+    dev = x_proj.device
+    check_placement('x_proj', x_proj, dev)
+    if h0.dim() != 2 or h0.shape[0] != B or 4 * h0.shape[1] != G:
+        raise ValueError(f'h0 must be ({B}, {G // 4}) for x_proj '
+            f'{tuple(x_proj.shape)}, got {tuple(h0.shape)}')
+    H = h0.shape[1]
+    for name, t, shape in (('h0', h0, (B, H)), ('c0', c0, (B, H)),
+            ('w_hh', w_hh, (H, G))):
+        if t.dtype != torch.float32 or tuple(t.shape) != shape:
+            raise ValueError(f'{name} must be float32 {shape}, got '
+                f'{t.dtype} {tuple(t.shape)}')
+        check_placement(name, t, dev)
+    return H
+
+
+def check_encoder_inputs(feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b, cdt):
+    """Shapes, dtypes, device and contiguity of an encoder-fused scan's
+    inputs: feats (T, B, F) in cdt, the rest float32; returns H."""
+    check_cdt(cdt)
+    if feats.dim() != 3 or feats.dtype != cdt:
+        raise ValueError(f'feats must be (T, B, F) in {cdt}, got '
+            f'{feats.dtype} {tuple(feats.shape)}')
+    T, B, F = feats.shape
+    if T < 1:
+        raise ValueError('feats needs at least one timestep')
+    dev = feats.device
+    check_placement('feats', feats, dev)
+    if w_enc.dim() != 2 or w_enc.shape[0] != F:
+        raise ValueError(f'w_enc must be ({F}, D), got {tuple(w_enc.shape)}')
+    D = w_enc.shape[1]
+    for name, t, shape in (('w_enc', w_enc, (F, D)), ('b_enc', b_enc, (D,))):
+        if t.dtype != torch.float32 or tuple(t.shape) != shape:
+            raise ValueError(f'{name} must be float32 {shape}, got '
+                f'{t.dtype} {tuple(t.shape)}')
+        check_placement(name, t, dev)
+    return check_state_and_weights(B, D, h0, c0, w_ih, w_hh, b, dev)
+
+
 def check_placement(name, t, device):
     if t.device != device:
         raise ValueError(f'{name} is on {t.device}, expected {device}')
@@ -103,6 +175,15 @@ def check_kernel_shape(D, H, device):
         raise ValueError(f'the CUDA LSTM kernels take hidden sizes '
             f'{KERNEL_HIDDEN} with input width equal to the hidden size; '
             f'got input {D}, hidden {H}')
+
+
+def check_encoder_kernel_shape(feats, w_enc, H):
+    """check_kernel_shape for an encoder-fused launch, and its feature
+    width."""
+    check_kernel_shape(w_enc.shape[1], H, feats.device)
+    if feats.shape[2] > KERNEL_MAX_FEATURES:
+        raise ValueError(f'the CUDA encoder-fused LSTM kernels take at most '
+            f'{KERNEL_MAX_FEATURES} features, got {feats.shape[2]}')
 
 
 def splitk_splits(M, N, K, device):

@@ -36,31 +36,20 @@ import torch
 from pufferlib_tpu_torch.ops.cuda._build import (
     CudaKernel, I, P, ptr, ptr_or_null, stream_handle)
 from pufferlib_tpu_torch.ops.cuda.lstm_common import (
-    CDTS, backward_inputs, blocks, cell_backward_step, check_kernel_shape,
-    check_placement, check_state_and_weights, gate_activations, needs_cseq,
-    round_to, scan_forward, splitk_splits)
+    KERNEL_MAX_FEATURES, backward_inputs, blocks, cell_backward_step,
+    check_encoder_inputs, check_encoder_kernel_shape, encode,
+    gate_activations, h_prev_rows, needs_cseq, round_to, scan_forward,
+    splitk_splits)
 
 __all__ = ['lstm_scan_enc5', 'lstm_scan_enc', 'lstm_enc_reference',
     'lstm_enc_backward_reference', 'lstm_scan_enc_backward_reference',
-    'KERNEL']
+    'encode', 'KERNEL', 'KERNEL_MAX_FEATURES']
 
 KERNEL = CudaKernel('lstm_enc.cu', {
     'lstm_enc_forward': [P] * 12 + [I] * 5 + [P],
     'lstm_enc_backward': [P] * 26 + [I] * 8 + [P],
     'lstm_enc_step_backward': [P] * 26 + [I] * 8 + [P],
 })
-
-# feature widths whose W_enc the kernels hold in shared memory
-# (lstm_common.cuh forward_smem / backward_smem)
-KERNEL_MAX_FEATURES = 128
-
-
-def encode(feats, w_enc, b_enc, cdt):
-    """relu(feats @ W_enc + b_enc) in f32 (not yet rounded), feats and
-    W_enc rounded to cdt: lstm_enc._encode_block."""
-    pre = round_to(feats, cdt) @ round_to(w_enc, cdt) + b_enc.float()
-    return torch.relu(pre)
-
 
 def lstm_enc_reference(feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b,
         cdt=torch.bfloat16, save_cseq=True):
@@ -80,8 +69,7 @@ def lstm_enc_backward_reference(feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b,
     w = round_to(torch.cat([w_ih, w_hh], dim=0), cdt)
     feats2 = round_to(feats.reshape(T * B, F), cdt)
     x_all = round_to(encode(feats2, w_enc, b_enc, cdt), cdt)
-    hprev_all = torch.cat([round_to(h0, cdt),
-        round_to(outs[:T - 1].reshape((T - 1) * B, H), cdt)], dim=0)
+    hprev_all = h_prev_rows(h0, outs, cdt)
     gates = torch.cat([x_all, hprev_all], dim=-1) @ w + b.float()
     # the activation slab is stored in cdt
     acts = [round_to(a, cdt) for a in gate_activations(gates, H)]
@@ -143,46 +131,19 @@ def lstm_scan_enc_backward_reference(feats, h0, c0, w_enc, b_enc, w_ih,
     return dh, dc, dw_enc, db_enc, dw[:D], dw[D:], db
 
 
-def _check(feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b, cdt):
-    if cdt not in CDTS:
-        raise ValueError(f'compute dtype must be one of {CDTS}, got {cdt}')
-    if feats.dim() != 3 or feats.dtype != cdt:
-        raise ValueError(f'feats must be (T, B, F) in {cdt}, got '
-            f'{feats.dtype} {tuple(feats.shape)}')
-    T, B, F = feats.shape
-    if T < 1:
-        raise ValueError('feats needs at least one timestep')
-    dev = feats.device
-    check_placement('feats', feats, dev)
-    if w_enc.dim() != 2 or w_enc.shape[0] != F:
-        raise ValueError(f'w_enc must be ({F}, D), got {tuple(w_enc.shape)}')
-    D = w_enc.shape[1]
-    for name, t, shape in (('w_enc', w_enc, (F, D)), ('b_enc', b_enc, (D,))):
-        if t.dtype != torch.float32 or tuple(t.shape) != shape:
-            raise ValueError(f'{name} must be float32 {shape}, got '
-                f'{t.dtype} {tuple(t.shape)}')
-        check_placement(name, t, dev)
-    return check_state_and_weights(B, D, h0, c0, w_ih, w_hh, b, dev)
-
-
-def _check_kernel(feats, w_enc, H):
-    check_kernel_shape(w_enc.shape[1], H, feats.device)
-    if feats.shape[2] > KERNEL_MAX_FEATURES:
-        raise ValueError(f'the CUDA encoder-fused LSTM kernels take at most '
-            f'{KERNEL_MAX_FEATURES} features, got {feats.shape[2]}')
-
-
 def _launch_forward(feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b, cdt,
-        save_cseq=True):
+        save_cseq=True, kernel=KERNEL, fn='lstm_enc_forward'):
+    """Launch an encoder-fused forward: this module's, or `fn` of another
+    source with the same C signature (the archive's enc2)."""
     T, B, F = feats.shape
     H = h0.shape[1]
-    _check_kernel(feats, w_enc, H)
+    check_encoder_kernel_shape(feats, w_enc, H)
     outs = torch.empty((T, B, H), dtype=cdt, device=feats.device)
     cseq = torch.empty_like(outs) if save_cseq else None
     hT = torch.empty_like(h0)
     cT = torch.empty_like(c0)
     if B > 0:
-        KERNEL.launch('lstm_enc_forward', ptr(feats), ptr(h0), ptr(c0),
+        kernel.launch(fn, ptr(feats), ptr(h0), ptr(c0),
             ptr(w_enc), ptr(b_enc), ptr(w_ih), ptr(w_hh), ptr(b), ptr(outs),
             ptr_or_null(cseq), ptr(hT), ptr(cT), T, B, F, H,
             int(cdt == torch.bfloat16), stream_handle(feats))
@@ -199,7 +160,7 @@ def _launch_backward(feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b, outs,
     T, B, F = feats.shape
     H = h0.shape[1]
     D, G = H, 4 * H
-    _check_kernel(feats, w_enc, H)
+    check_encoder_kernel_shape(feats, w_enc, H)
     dev = feats.device
     f32 = dict(dtype=torch.float32, device=dev)
     dh0 = torch.empty_like(h0)
@@ -234,7 +195,7 @@ class _LSTMEnc5(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b, cdt):
-        _check(feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b, cdt)
+        check_encoder_inputs(feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b, cdt)
         args = (feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b, cdt)
         if feats.device.type == 'cpu':
             outs, hT, cT, cseq = lstm_enc_reference(*args)
@@ -273,7 +234,7 @@ class _LSTMEnc(torch.autograd.Function):
     @staticmethod
     def forward(ctx, feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b, cdt,
             save_cseq):
-        _check(feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b, cdt)
+        check_encoder_inputs(feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b, cdt)
         fn = lstm_enc_reference if feats.device.type == 'cpu' \
             else _launch_forward
         outs, hT, cT, cseq = fn(feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b,

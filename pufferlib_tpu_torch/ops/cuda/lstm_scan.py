@@ -40,9 +40,10 @@ import torch
 from pufferlib_tpu_torch.ops.cuda._build import (
     CudaKernel, I, P, ptr, ptr_or_null, stream_handle)
 from pufferlib_tpu_torch.ops.cuda.lstm_common import (
-    CDTS, backward_inputs, blocks, cell_backward_step, check_kernel_shape,
-    check_placement, check_state_and_weights, gate_activations, needs_cseq,
-    round_to, scan_cells, splitk_splits)
+    backward_inputs, blocks, cell_backward_step, check_cdt,
+    check_kernel_shape, check_placement, check_scan_inputs,
+    check_state_and_weights, gate_activations, needs_cseq, round_to,
+    scan_cells, splitk_splits)
 
 __all__ = ['lstm_scan', 'lstm_scan_fused', 'lstm_scan_reference',
     'lstm_scan_backward_reference', 'lstm_scan_fused_reference',
@@ -125,36 +126,8 @@ def lstm_scan_fused_backward_reference(x, h0, c0, w_ih, w_hh, b, outs, cseq,
     return dx, dh, dc, dwi, dwh, db
 
 
-def _check_cdt(cdt):
-    if cdt not in CDTS:
-        raise ValueError(f'compute dtype must be one of {CDTS}, got {cdt}')
-
-
-def _check_scan(x_proj, h0, c0, w_hh, cdt):
-    _check_cdt(cdt)
-    if x_proj.dim() != 3 or x_proj.dtype not in CDTS:
-        raise ValueError(f'x_proj must be (T, B, 4H) in one of {CDTS}, got '
-            f'{x_proj.dtype} {tuple(x_proj.shape)}')
-    T, B, G = x_proj.shape
-    if T < 1:
-        raise ValueError('x_proj needs at least one timestep')
-    dev = x_proj.device
-    check_placement('x_proj', x_proj, dev)
-    if h0.dim() != 2 or h0.shape[0] != B or 4 * h0.shape[1] != G:
-        raise ValueError(f'h0 must be ({B}, {G // 4}) for x_proj '
-            f'{tuple(x_proj.shape)}, got {tuple(h0.shape)}')
-    H = h0.shape[1]
-    for name, t, shape in (('h0', h0, (B, H)), ('c0', c0, (B, H)),
-            ('w_hh', w_hh, (H, G))):
-        if t.dtype != torch.float32 or tuple(t.shape) != shape:
-            raise ValueError(f'{name} must be float32 {shape}, got '
-                f'{t.dtype} {tuple(t.shape)}')
-        check_placement(name, t, dev)
-    return H
-
-
 def _check_fused(x, h0, c0, w_ih, w_hh, b, cdt):
-    _check_cdt(cdt)
+    check_cdt(cdt)
     if x.dim() != 3 or x.dtype != cdt:
         raise ValueError(f'x must be (T, B, D) in {cdt}, got {x.dtype} '
             f'{tuple(x.shape)}')
@@ -254,7 +227,7 @@ class _LSTMScan(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x_proj, h0, c0, w_hh, cdt, save_cseq):
-        _check_scan(x_proj, h0, c0, w_hh, cdt)
+        check_scan_inputs(x_proj, h0, c0, w_hh, cdt)
         fn = lstm_scan_reference if x_proj.device.type == 'cpu' \
             else _launch_scan_forward
         outs, hT, cT, cseq = fn(x_proj, h0, c0, w_hh, cdt, save_cseq)

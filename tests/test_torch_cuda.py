@@ -8,10 +8,13 @@ without them. On a machine with a card:
 Tolerances are those of chip_smoke.py: GAE 1e-5 (the kernel rounds every
 operation as the plain version does), MLP head 1e-4 in f32 and 2e-2 in
 bf16 (one bf16 ulp of a hidden unit that rounds the other way); the LSTM
-kernels (enc5, cat, enc, scan, fused) 1e-5 in f32 and 2e-2 in bf16 of max(1, max |plain|) per output
+kernels (enc5, cat, enc, scan, fused and the archived enc2, enc3, enc4,
+enc6, tm) 1e-5 in f32 and 2e-2 in bf16 of max(1, max |plain|) per output
 and gradient (sums in another order; in bf16 a value that rounds one ulp
 the other way inside the recurrence).
 """
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -78,33 +81,65 @@ def test_mlp_head_kernel_rejects_bad_inputs(cuda):
 LSTM_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 
 
+ARCHIVED_ENC = ('enc2', 'enc3', 'enc4', 'enc6')
+ENC_KINDS = ('enc5', 'enc') + ARCHIVED_ENC
+XP_KINDS = ('scan', 'tm')
+
+
+def _archived(kind):
+    return importlib.import_module(
+        f'pufferlib_tpu_torch.ops.cuda.archive.lstm_{kind}')
+
+
 def _lstm_kinds():
-    """kind -> (module, kernel forward, kernel backward, plain forward,
-    plain backward, the C functions one forward + backward launches)."""
+    """kind -> (kernel forward, kernel backward, plain forward, plain
+    backward, the C functions of the forward and of the backward)."""
     from pufferlib_tpu_torch.ops.cuda import lstm_cat, lstm_enc, lstm_scan
-    return {
-        'enc5': (lstm_enc, lstm_enc._launch_forward,
+    lstm_tm = _archived('tm')
+    kinds = {
+        'enc5': (lstm_enc._launch_forward,
             lstm_enc._launch_backward, lstm_enc.lstm_enc_reference,
             lstm_enc.lstm_enc_backward_reference,
             ('lstm_enc_forward', 'lstm_enc_backward')),
-        'enc': (lstm_enc, lstm_enc._launch_forward,
+        'enc': (lstm_enc._launch_forward,
             lstm_enc._launch_step_backward, lstm_enc.lstm_enc_reference,
             lstm_enc.lstm_scan_enc_backward_reference,
             ('lstm_enc_forward', 'lstm_enc_step_backward')),
-        'cat': (lstm_cat, lstm_cat._launch_forward,
+        'cat': (lstm_cat._launch_forward,
             lstm_cat._launch_backward, lstm_cat.lstm_cat_reference,
             lstm_cat.lstm_cat_backward_reference,
             ('lstm_cat_forward', 'lstm_cat_backward')),
-        'fused': (lstm_scan, lstm_scan._launch_fused_forward,
+        'fused': (lstm_scan._launch_fused_forward,
             lstm_scan._launch_fused_backward,
             lstm_scan.lstm_scan_fused_reference,
             lstm_scan.lstm_scan_fused_backward_reference,
             ('lstm_fused_forward', 'lstm_fused_backward')),
-        'scan': (lstm_scan, lstm_scan._launch_scan_forward,
+        'scan': (lstm_scan._launch_scan_forward,
             lstm_scan._launch_scan_backward, lstm_scan.lstm_scan_reference,
             lstm_scan.lstm_scan_backward_reference,
             ('lstm_scan_forward', 'lstm_scan_backward')),
+        'tm': (lstm_tm._launch_forward, lstm_tm._launch_backward,
+            lstm_tm.lstm_tm_reference, lstm_tm.lstm_tm_backward_reference,
+            ('lstm_tm_step_forward', 'lstm_tm_step_backward')),
     }
+    for kind in ARCHIVED_ENC:
+        v = _archived(kind).VARIANT
+        kinds[kind] = (v.forward_launch, v.backward_launch, v.forward_plain,
+            v.backward_plain, ('lstm_enc2_forward' if kind == 'enc2'
+                else 'lstm_enc_forward', f'lstm_{kind}_backward'))
+    return kinds
+
+
+def _launches():
+    """Launch counts by C function, over every kernel source."""
+    from pufferlib_tpu_torch.ops.cuda import KERNELS
+    return {fn: n for k in KERNELS for fn, n in k.fn_launches.items()}
+
+
+def _steps(kind, T):
+    """Launches of one call: tm launches its step kernel once per
+    timestep, every other kind once."""
+    return T if kind == 'tm' else 1
 
 
 def _lstm_case(kind, T, B, H, F, cdt, cuda, xp_dtype=None):
@@ -116,20 +151,20 @@ def _lstm_case(kind, T, B, H, F, cdt, cuda, xp_dtype=None):
     state = (arr(B, H, scale=0.5), arr(B, H, scale=0.5))
     weights = (arr(H, 4 * H, scale=H ** -0.5), arr(H, 4 * H, scale=H ** -0.5),
         arr(4 * H, scale=0.1))
-    if kind in ('enc5', 'enc'):
+    if kind in ENC_KINDS:
         return (arr(T, B, F).to(cdt), *state, arr(F, H, scale=(2 / F) ** 0.5),
             arr(H, scale=0.1), *weights)
-    if kind == 'scan':
+    if kind in XP_KINDS:
         return (arr(T, B, 4 * H).to(xp_dtype or cdt), *state, weights[1])
     return (arr(T, B, H, scale=0.5).to(cdt), *state, *weights)
 
 
 def _check_lstm_pair(cuda, kind, T, B, H, cdt, xp_dtype=None):
-    mod, fwd, bwd, fwd_plain, bwd_plain, fns = _lstm_kinds()[kind]
+    fwd, bwd, fwd_plain, bwd_plain, fns = _lstm_kinds()[kind]
     args = _lstm_case(kind, T, B, H, 49, cdt, cuda, xp_dtype)
     g = (torch.randn(T, B, H, device=cuda).to(cdt),
         torch.randn(B, H, device=cuda), torch.randn(B, H, device=cuda))
-    before = dict(mod.KERNEL.fn_launches)
+    before = _launches()
     with torch.no_grad():
         got = fwd(*args, cdt)
         want = fwd_plain(*args, cdt)
@@ -137,8 +172,9 @@ def _check_lstm_pair(cuda, kind, T, B, H, cdt, xp_dtype=None):
         got += bwd(*bargs)
         want += bwd_plain(*bargs)
     torch.cuda.synchronize()
-    after = mod.KERNEL.fn_launches
-    assert all(after[fn] == n + (fn in fns) for fn, n in before.items())
+    after = _launches()
+    assert all(after[fn] == n + (fn in fns) * _steps(kind, T)
+        for fn, n in before.items())
     tol = LSTM_TOL[torch.bfloat16 if torch.bfloat16 in (cdt, xp_dtype)
         else torch.float32]
     for a, w in zip(got, want):
@@ -167,7 +203,34 @@ def test_lstm_scan_kernels_match_plain(cuda, kind, T, B, H, cdt):
     """lstm_scan, lstm_scan_fused and lstm_scan_enc: forward, every
     gradient, and the forward that is handed a null cseq, which must give
     the saving forward's outs, hT and cT bit for bit."""
-    fwd = _lstm_kinds()[kind][1]
+    _check_pair_and_primal(cuda, kind, T, B, H, cdt)
+
+
+@pytest.mark.parametrize('kind', ARCHIVED_ENC)
+@pytest.mark.parametrize('T,B,H', [(16, 8192, 128), (16, 1000, 128),
+    (3, 45, 32), (5, 980, 64)])
+@pytest.mark.parametrize('cdt', [torch.float32, torch.bfloat16])
+def test_archived_enc_kernels_match_plain(cuda, kind, T, B, H, cdt):
+    """enc2, enc3, enc4 and enc6: forward, every gradient, and the
+    forward handed a null cseq. B = 980 leaves enc6's last block (64 rows
+    as two tiles of 32) a short first tile and an empty second one."""
+    _check_pair_and_primal(cuda, kind, T, B, H, cdt)
+
+
+@pytest.mark.parametrize('T,B,H', [(16, 8192, 128), (16, 1000, 128),
+    (3, 45, 32), (5, 100, 64), (1, 33, 32)])
+@pytest.mark.parametrize('cdt,xp_dtype', [(torch.float32, None),
+    (torch.bfloat16, None), (torch.bfloat16, torch.float32),
+    (torch.float32, torch.bfloat16)])
+def test_archived_tm_kernels_match_plain(cuda, T, B, H, cdt, xp_dtype):
+    """The time-major scan, T launches of the step kernel each way
+    (counted in _check_lstm_pair), x_proj in the compute dtype and in the
+    other one."""
+    _check_lstm_pair(cuda, 'tm', T, B, H, cdt, xp_dtype)
+
+
+def _check_pair_and_primal(cuda, kind, T, B, H, cdt):
+    fwd = _lstm_kinds()[kind][0]
     args, got = _check_lstm_pair(cuda, kind, T, B, H, cdt)
     with torch.no_grad():
         primal = fwd(*args, cdt, False)
@@ -188,27 +251,31 @@ def test_lstm_scan_x_proj_dtype_apart_from_compute_dtype(cuda, B, H, cdt,
 
 
 def test_lstm_scan_autograd_on_the_card(cuda):
-    """The three autograd.Functions on CUDA tensors launch their kernels,
-    and a call under no_grad launches the forward alone."""
+    """The autograd.Functions of the validation path and of the archive
+    on CUDA tensors launch their kernels, and a call under no_grad
+    launches the forward alone."""
     from pufferlib_tpu_torch.ops.cuda import lstm_enc, lstm_scan
     cdt = torch.float32
-    for kind, fn in (('scan', lstm_scan.lstm_scan),
-            ('fused', lstm_scan.lstm_scan_fused),
-            ('enc', lstm_enc.lstm_scan_enc)):
-        mod, _, _, fwd_plain, bwd_plain, fns = _lstm_kinds()[kind]
-        args = _lstm_case(kind, 4, 40, 32, 49, cdt, cuda)
-        first = 1 if kind == 'enc' else 0
+    T = 4
+    functions = [('scan', lstm_scan.lstm_scan),
+        ('fused', lstm_scan.lstm_scan_fused), ('enc', lstm_enc.lstm_scan_enc)]
+    functions += [(kind, getattr(_archived(kind), f'lstm_scan_{kind}'))
+        for kind in ARCHIVED_ENC + ('tm',)]
+    for kind, fn in functions:
+        _, _, fwd_plain, bwd_plain, fns = _lstm_kinds()[kind]
+        args = _lstm_case(kind, T, 40, 32, 49, cdt, cuda)
+        first = 1 if kind in ENC_KINDS else 0
         for t in args[first:]:
             t.requires_grad_()
-        before = dict(mod.KERNEL.fn_launches)
+        before = _launches()
         with torch.no_grad():
             fn(*args, cdt)
-        assert mod.KERNEL.fn_launches[fns[0]] == before[fns[0]] + 1
-        assert mod.KERNEL.fn_launches[fns[1]] == before[fns[1]]
+        assert _launches()[fns[0]] == before[fns[0]] + _steps(kind, T)
+        assert _launches()[fns[1]] == before[fns[1]]
         outs, hT, cT = fn(*args, cdt)
         (outs.square().sum() + (hT * cT).sum()).backward()
         torch.cuda.synchronize()
-        assert mod.KERNEL.fn_launches[fns[1]] == before[fns[1]] + 1
+        assert _launches()[fns[1]] == before[fns[1]] + _steps(kind, T)
         with torch.no_grad():
             want = fwd_plain(*args, cdt)
             want_g = bwd_plain(*args, want[0], want[3], 2 * want[0], want[2],
@@ -217,6 +284,43 @@ def test_lstm_scan_autograd_on_the_card(cuda):
             scale = max(1.0, w.abs().max().item())
             torch.testing.assert_close(t.grad, w, rtol=0,
                 atol=LSTM_TOL[cdt] * scale)
+
+
+@pytest.mark.parametrize('kind', ARCHIVED_ENC + ('tm',))
+def test_archived_launchers_refuse_what_the_kernels_do_not_serve(cuda, kind):
+    """The archived kernels keep the others' reach: hidden sizes 32, 64
+    and 128, an input width equal to the hidden size, at most 128
+    features; enc6, whose block holds two tiles of dgates, also refuses a
+    feature width that its shared memory cannot hold. ValueError, and no
+    launch."""
+    fwd, bwd = _lstm_kinds()[kind][:2]
+    cdt = torch.float32
+    before = _launches()
+
+    def case(T, B, F, D, H):
+        z = lambda *shape: torch.zeros(*shape, device=cuda)
+        if kind == 'tm':
+            args = (z(T, B, 4 * H), z(B, H), z(B, H), z(H, 4 * H))
+        else:
+            args = (z(T, B, F), z(B, H), z(B, H), z(F, D), z(D), z(D, 4 * H),
+                z(H, 4 * H), z(4 * H))
+        return args, (z(T, B, H), z(T, B, H), z(T, B, H), z(B, H), z(B, H))
+
+    shapes = [(2, 8, 7, 256, 256, r'\(32, 64, 128\)')]
+    if kind != 'tm':
+        shapes += [(2, 8, 7, 64, 128, r'\(32, 64, 128\)'),
+            (2, 8, 129, 32, 32, 'at most 128 features')]
+    for T, B, F, D, H, message in shapes:
+        args, rest = case(T, B, F, D, H)
+        with pytest.raises(ValueError, match=message):
+            fwd(*args, cdt)
+        with pytest.raises(ValueError, match=message):
+            bwd(*args, *rest, cdt)
+    if kind == 'enc6':
+        args, rest = case(2, 8, 128, 128, 128)
+        with pytest.raises(ValueError, match='shared memory'):
+            bwd(*args, *rest, cdt)
+    assert _launches() == before
 
 
 def test_lstm_autograd_on_the_card(cuda):

@@ -65,7 +65,7 @@ def test_time_kernels_on_the_cpu_is_a_host_clock_rehearsal():
 
 def test_tools_need_a_card_by_default():
     """Both entry points run on the card unless asked for the CPU, and
-    raise without one; the lab refuses what is not ported by name."""
+    raise without one, for an archived variant as for any other."""
     if torch.cuda.is_available():
         pytest.skip('a CUDA device is present')
     validate = load_tool('validate_lstm_torch')
@@ -78,7 +78,7 @@ def test_tools_need_a_card_by_default():
         lab.main(('xp',))
     with pytest.raises(RuntimeError, match='CUDA'):
         lab.main(('xp',), device='cpu')
-    with pytest.raises(SystemExit, match='not ported yet'):
+    with pytest.raises(RuntimeError, match='cuda'):
         lab.main(('enc4',))
     with pytest.raises(SystemExit, match='unknown'):
         lab.main(('tc',))

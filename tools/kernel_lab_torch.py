@@ -6,12 +6,14 @@ D=H=128, F=49, bf16). The counterpart of tools/kernel_lab.py.
 
 Variants: fused, fused-fwd (lstm_scan_fused), xp (lstm_scan), cat
 (lstm_scan_cat), enc (lstm_scan_enc, the step-by-step backward), enc5
-(lstm_scan_enc5). Default: fused fused-fwd. Each line is the mean device
-time of one call (CUDA events, the L2 flushed before every call) of the
-forward alone (no gradient needed: no cell sequence is written) or of
+(lstm_scan_enc5), and the archived schedules of ops/cuda/archive: enc2,
+enc3, enc4, enc6 (lstm_scan_enc2 ... lstm_scan_enc6) and tm
+(lstm_scan_tm, one launch per timestep; the JAX lab has no such line).
+Default: fused fused-fwd. Each line is the mean device time of one call
+(CUDA events, the L2 flushed before every call) of the forward alone (no
+gradient needed: no cell sequence is written, except by tm) or of
 forward + backward, with gradients in every input (the encoder-fused
-ones: in the state and the weights; observations are constants). enc2,
-enc3, enc4 and enc6 are not ported yet (ROADMAP queue 2).
+ones: in the state and the weights; observations are constants).
 """
 import os
 import sys
@@ -19,8 +21,8 @@ import sys
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
-VARIANTS = ('fused', 'fused-fwd', 'xp', 'cat', 'enc', 'enc5')
-NOT_PORTED = ('enc2', 'enc3', 'enc4', 'enc6')
+ENC_VARIANTS = ('enc', 'enc5', 'enc2', 'enc3', 'enc4', 'enc6')
+VARIANTS = ('fused', 'fused-fwd', 'xp', 'cat', 'tm') + ENC_VARIANTS
 
 
 def bench(name, fn, args, flush, card, grad=True, reps=20):
@@ -49,18 +51,16 @@ def main(variants=('fused', 'fused-fwd'), device='cuda', T=16, B=8192,
         H=128, F=49, seed=0):
     """Run the named variants; returns {(variant, 'fwd+bwd' | 'fwd'): ms}.
     Needs a CUDA device."""
+    import importlib
     import torch
     from pufferlib_tpu_torch import resolve_device
+    from pufferlib_tpu_torch.ops.cuda import lstm_enc
+    from pufferlib_tpu_torch.ops.cuda.archive.lstm_tm import lstm_scan_tm
     from pufferlib_tpu_torch.ops.cuda.lstm_cat import lstm_scan_cat
-    from pufferlib_tpu_torch.ops.cuda.lstm_enc import (
-        lstm_scan_enc, lstm_scan_enc5)
     from pufferlib_tpu_torch.ops.cuda.lstm_scan import (
         lstm_scan, lstm_scan_fused)
     from pufferlib_tpu_torch.ops.cuda.timing import (
         card_line, l2_flush_buffer)
-    waiting = [v for v in variants if v in NOT_PORTED]
-    if waiting:
-        sys.exit(f'{waiting}: not ported yet (ROADMAP queue 2)')
     unknown = [v for v in variants if v not in VARIANTS]
     if unknown:
         sys.exit(f'unknown variant(s) {unknown}; choose from '
@@ -97,20 +97,25 @@ def main(variants=('fused', 'fused-fwd'), device='cuda', T=16, B=8192,
     if 'fused-fwd' in variants:
         results['fused', 'fwd'] = bench('lstm_scan_fused', lstm_scan_fused,
             cell, flush, card, grad=False)
-    if 'xp' in variants:
+    if 'xp' in variants or 'tm' in variants:
         xp = normal(T, B, 4 * H, dtype=bf16)
-        both('xp', 'lstm_scan', lstm_scan, (xp, h0, c0, w_hh, bf16))
+        if 'xp' in variants:
+            both('xp', 'lstm_scan', lstm_scan, (xp, h0, c0, w_hh, bf16))
+        if 'tm' in variants:
+            both('tm', 'lstm_scan_tm', lstm_scan_tm, (xp, h0, c0, w_hh, bf16))
     if 'cat' in variants:
         both('cat', 'lstm_scan_cat', lstm_scan_cat, cell)
-    if 'enc' in variants or 'enc5' in variants:
+    enc_variants = [v for v in ENC_VARIANTS if v in variants]
+    if enc_variants:
         feats = normal(T, B, F, dtype=bf16, grad=False)
         w_enc = normal(F, H, scale=0.1)
         b_enc = torch.zeros(H, device=device, requires_grad=True)
         eargs = (feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b, bf16)
-        if 'enc' in variants:
-            both('enc', 'lstm_scan_enc', lstm_scan_enc, eargs)
-        if 'enc5' in variants:
-            both('enc5', 'lstm_scan_enc5', lstm_scan_enc5, eargs)
+        for v in enc_variants:
+            # enc and enc5 are production kernels, the rest archived
+            mod = lstm_enc if v in ('enc', 'enc5') else importlib.import_module(
+                f'pufferlib_tpu_torch.ops.cuda.archive.lstm_{v}')
+            both(v, f'lstm_scan_{v}', getattr(mod, f'lstm_scan_{v}'), eargs)
     return results
 
 
