@@ -13,7 +13,10 @@ through the cat LSTM kernels, and the LSTM validation path
 the bench shapes, then a 40-epoch learning proof that must reach score
 0.9; tools/kernel_lab_torch.py over every variant, the archived enc2,
 enc3, enc4, enc6 and tm among them). Last, small trainer updates and an
-env run on the card are held against the same on the CPU.
+env run on the card are held against the same on the CPU. For the bf16
+tensor-core kernels of lstm_scan_fused (csrc/lstm_tc.cuh) it also prints
+each kernel's registers and spilled bytes after the build, and the time of
+each phase at the main shape (pre-pass, loop, dx, dW + db).
 
 Prints one line per phase, a `{"kernels": [...]}` JSON line, the card's
 name and power limit, and last `{"ok": true, "device": {...}}`. Any
@@ -315,6 +318,53 @@ def check_lstm(torch, flush, rng, kind, B, dtype_name, T=16, H=128,
     return result
 
 
+# the bf16 kernels of lstm_scan_fused (csrc/lstm_tc.cuh), in the order of
+# lstm_fused_tc_usage's output
+TC_KERNELS = ('forward pre-pass', 'forward loop', 'backward pre-pass',
+    'backward loop', 'dx')
+
+
+def log_tc_usage():
+    """Registers and spilled bytes per thread of lstm_scan_fused's bf16
+    kernels at each hidden size (cudaFuncGetAttributes)."""
+    import ctypes
+    from pufferlib_tpu_torch.ops.cuda import lstm_scan
+    for H in (32, 64, 128):
+        out = (ctypes.c_int * 10)()
+        err = lstm_scan.KERNEL.lib().lstm_fused_tc_usage(H, out)
+        if err:
+            raise RuntimeError(f'lstm_fused_tc_usage({H}): cudaError {err}')
+        log(f'  lstm_scan_fused bf16 kernels, H={H}: ' + ', '.join(
+            f'{name} {out[2 * i]} registers, {out[2 * i + 1]} bytes spilled'
+            for i, name in enumerate(TC_KERNELS)))
+
+
+def time_fused_phases(torch, flush, rng, T=16, B=8192):
+    """Device ms of each phase of lstm_scan_fused's bf16 kernels at the
+    main shape: a launch runs the first k phases, so a phase's time is the
+    difference of two such means (cold L2 each)."""
+    from pufferlib_tpu_torch.ops.cuda import lstm_scan
+    args, grads, cdt = lstm_case(torch, rng, 'fused', T, B, 'bfloat16')
+    with torch.no_grad():
+        outs, _, _, cseq = lstm_scan._launch_fused_forward(*args, cdt)
+        bargs = (*args, outs, cseq, *grads, cdt)
+        fwd = [timed_ms(lambda: lstm_scan._launch_fused_forward(*args, cdt,
+            phases=k), flush) for k in range(1, lstm_scan.FORWARD_PHASES + 1)]
+        bwd = [timed_ms(lambda: lstm_scan._launch_fused_backward(*bargs,
+            phases=k), flush) for k in range(1, lstm_scan.BACKWARD_PHASES + 1)]
+    names = {'forward': ('pre-pass', 'loop'),
+        'backward': ('pre-pass', 'loop', 'dx', 'dW + db')}
+    phases = {}
+    for part, cumulative in (('forward', fwd), ('backward', bwd)):
+        for k, name in enumerate(names[part]):
+            phases[f'{part} {name}'] = cumulative[k] - (cumulative[k - 1]
+                if k else 0.0)
+    log(f'lstm_scan_fused bf16 phases T={T} B={B} H=128, ms: ' + ', '.join(
+        f'{k} {v:.4f}' for k, v in phases.items())
+        + f'; whole forward {fwd[-1]:.4f}, backward {bwd[-1]:.4f}')
+    return phases
+
+
 def cudnn_lstm_ms(torch, flush, args, g_outs):
     """torch.nn.LSTM (cuDNN) on the cat kernel's inputs, as a yardstick:
     (forward ms, backward ms). Weights w_ih.T, w_hh.T, b and a zero
@@ -464,6 +514,7 @@ def main():
         usage = [line.strip() for line in k.build_log.splitlines()
             if 'registers' in line or 'spill' in line]
         log(f'  {k.source}: {seconds}; ' + ' | '.join(usage))
+    log_tc_usage()
 
     # phases 3-4: each kernel against its plain version, then timed
     flush = l2_flush_buffer()
@@ -484,6 +535,7 @@ def main():
                 flush, rng, kind, B, 'bfloat16', xp_dtype_name='float32')
             lstm_runs[kind, B, 'float32/bf16 x_proj'] = check_lstm(torch,
                 flush, rng, kind, B, 'float32', xp_dtype_name='bfloat16')
+    time_fused_phases(torch, flush, rng)
     del flush
 
     # phase 5: the main path, GAE kernel once per epoch

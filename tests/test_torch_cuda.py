@@ -11,7 +11,8 @@ bf16 (one bf16 ulp of a hidden unit that rounds the other way); the LSTM
 kernels (enc5, cat, enc, scan, fused and the archived enc2, enc3, enc4,
 enc6, tm) 1e-5 in f32 and 2e-2 in bf16 of max(1, max |plain|) per output
 and gradient (sums in another order; in bf16 a value that rounds one ulp
-the other way inside the recurrence).
+the other way inside the recurrence). lstm_scan_fused runs its
+tensor-core kernels in bf16 and its FMA kernels in f32.
 """
 import importlib
 
@@ -195,15 +196,42 @@ def test_lstm_kernels_match_plain(cuda, kind, T, B, H, cdt):
     _check_lstm_pair(cuda, kind, T, B, H, cdt)
 
 
-@pytest.mark.parametrize('kind', ['scan', 'fused', 'enc'])
-@pytest.mark.parametrize('T,B,H', [(16, 8192, 128), (16, 1000, 128),
-    (3, 45, 32), (5, 100, 64)])
+SCAN_SHAPES = [(16, 8192, 128), (16, 1000, 128), (3, 45, 32), (5, 100, 64)]
+# lstm_scan_fused's bf16 loops hold 64 batch rows per block: one row, and
+# one block with a single row over, at every hidden size
+FUSED_EDGES = [(T, B, H) for T, B in ((1, 1), (5, 65)) for H in (32, 64, 128)]
+
+
+@pytest.mark.parametrize('kind,T,B,H', [(kind, *shape)
+    for kind in ('scan', 'fused', 'enc') for shape in SCAN_SHAPES]
+    + [('fused', *shape) for shape in FUSED_EDGES])
 @pytest.mark.parametrize('cdt', [torch.float32, torch.bfloat16])
 def test_lstm_scan_kernels_match_plain(cuda, kind, T, B, H, cdt):
     """lstm_scan, lstm_scan_fused and lstm_scan_enc: forward, every
     gradient, and the forward that is handed a null cseq, which must give
     the saving forward's outs, hT and cT bit for bit."""
     _check_pair_and_primal(cuda, kind, T, B, H, cdt)
+
+
+@pytest.mark.parametrize('T,B,H', [(16, 1000, 128), (5, 65, 32)])
+def test_lstm_fused_bf16_is_deterministic(cuda, T, B, H):
+    """lstm_scan_fused's bf16 kernels add every partial sum in a fixed
+    order (no atomics): the same inputs twice give the same outputs and
+    gradients bit for bit."""
+    fwd, bwd = _lstm_kinds()['fused'][:2]
+    cdt = torch.bfloat16
+    args = _lstm_case('fused', T, B, H, 49, cdt, cuda)
+    g = (torch.randn(T, B, H, device=cuda).to(cdt),
+        torch.randn(B, H, device=cuda), torch.randn(B, H, device=cuda))
+    runs = []
+    with torch.no_grad():
+        for _ in range(2):
+            outs, hT, cT, cseq = fwd(*args, cdt)
+            runs.append((outs, hT, cT, cseq)
+                + bwd(*args, outs, cseq, *g, cdt))
+    torch.cuda.synchronize()
+    for a, w in zip(*runs):
+        assert torch.equal(a, w)
 
 
 @pytest.mark.parametrize('kind', ARCHIVED_ENC)

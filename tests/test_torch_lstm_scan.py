@@ -293,3 +293,103 @@ def test_wrappers_check_their_inputs():
     with pytest.raises(ValueError, match='contiguous'):
         lstm_scan.lstm_scan_fused(x.transpose(0, 1).contiguous().transpose(
             0, 1), h0, c0, w_ih, w_hh, b, torch.float32)
+
+
+def tc_schedule(x, h0, c0, w_ih, w_hh, b, cdt, rows=64):
+    """What lstm_scan_fused's bf16 tensor-core kernels (csrc/lstm_tc.cuh)
+    compute, in their order, in plain torch. Forward: the XW slab over all
+    T*B rows, then the loop gates = XW_t + h @ W_hh. Returns (outs, hT,
+    cT, cseq) and the backward as a function of the upstream gradients:
+    the P slab ((x @ W_ih + b) + h_prev @ W_hh over all rows), the reverse
+    loop that produces only dh_prev and the dg slab, then dx = dg @ W_ih^T
+    and dW = [x | h_prev]^T dg after it, and db from the unrounded dgates
+    summed per block of `rows` batch rows, the blocks then added in
+    order."""
+    T, B, D = x.shape
+    H = h0.shape[1]
+
+    def rd(t):
+        return t.to(cdt).float()
+    xc, wi, wh, bias = rd(x).reshape(T * B, D), rd(w_ih), rd(w_hh), b.float()
+
+    def acts(gates):
+        return (torch.sigmoid(gates[:, :H]), torch.sigmoid(gates[:, H:2 * H]),
+            torch.tanh(gates[:, 2 * H:3 * H]), torch.sigmoid(gates[:, 3 * H:]))
+    xw = (xc @ wi + bias).reshape(T, B, 4 * H)
+    h, c = h0.float(), c0.float()
+    outs, cseq = [], []
+    for t in range(T):
+        i, f, g, o = acts(xw[t] + rd(h) @ wh)
+        c = f * c + i * g
+        h = o * torch.tanh(c)
+        outs.append(h.to(cdt))
+        cseq.append(c.to(cdt))
+    outs, cseq = torch.stack(outs), torch.stack(cseq)
+
+    def backward(g_outs, g_hT, g_cT):
+        h_prev = torch.cat([rd(h0)[None], outs[:T - 1].float()]).reshape(
+            T * B, H)
+        pre = ((xc @ wi + bias) + h_prev @ wh).reshape(T, B, 4 * H)
+        blocks = -(-B // rows)
+        db_blocks = torch.zeros(blocks, 4 * H)
+        dg = torch.empty((T, B, 4 * H), dtype=cdt)
+        dh, dc = g_hT.float(), g_cT.float()
+        for t in reversed(range(T)):
+            i, f, g, o = acts(pre[t])
+            c_prev = c0.float() if t == 0 else cseq[t - 1].float()
+            dhv = dh + g_outs[t].float()
+            tc = torch.tanh(cseq[t].float())
+            dcv = dc + dhv * o * (1 - tc * tc)
+            dgates = torch.cat([dcv * g * i * (1 - i), dcv * c_prev * f * (1 - f),
+                dcv * i * (1 - g * g), dhv * tc * o * (1 - o)], dim=-1)
+            dc = dcv * f
+            dg[t] = dgates.to(cdt)
+            padded = torch.zeros(blocks * rows, 4 * H)
+            padded[:B] = dgates
+            db_blocks += padded.reshape(blocks, rows, 4 * H).sum(dim=1)
+            dh = dg[t].float() @ wh.t()
+        dgf = dg.float().reshape(T * B, 4 * H)
+        dx = (dgf @ wi.t()).to(x.dtype).reshape(T, B, D)
+        db = torch.zeros(4 * H)
+        for k in range(blocks):
+            db = db + db_blocks[k]
+        return dx, dh, dc, xc.t() @ dgf, h_prev.t() @ dgf, db
+    return (outs, h, c, cseq), backward
+
+
+@pytest.mark.parametrize('cdt', sorted(TD))
+@pytest.mark.parametrize('B', [16, 72])
+@pytest.mark.parametrize('H', [32, 64])
+def test_tensor_core_schedule_keeps_the_function(H, B, cdt):
+    """The bf16 kernels' schedule (hoisted XW and P slabs, a reverse loop
+    that keeps only dh_prev, dx and dW after it, db by blocks of 64 rows)
+    against the plain forward and backward on the same inputs (1e-5 in
+    f32, 2e-2 of max(1, max |plain|) in bf16), and against the Pallas
+    kernel in interpret mode under the loss sum(outs ** 2) + sum(hT * cT)
+    (the tolerances of compare). B = 72 leaves a second block of 8 rows."""
+    arrays = make_inputs('fused', B, H, 11, cdt)
+    x = torch.from_numpy(arrays[0]).to(TD[cdt])
+    rest = [torch.from_numpy(a) for a in arrays[1:]]
+    fwd, backward = tc_schedule(x, *rest, TD[cdt])
+    plain = lstm_scan.lstm_scan_fused_reference(x, *rest, TD[cdt])
+    bf16 = cdt == 'bfloat16'
+    tol = 2e-2 if bf16 else 1e-5
+    for name, a, w in zip(('outs', 'hT', 'cT', 'cseq'), fwd, plain):
+        assert a.dtype == w.dtype
+        assert_close(a, w, tol, bf16, f'schedule {name}')
+    rng = np.random.default_rng(12)
+    cot = (torch.from_numpy(rng.standard_normal((T, B, H)).astype(
+        np.float32)).to(TD[cdt]), *(torch.from_numpy(rng.standard_normal(
+        (B, H)).astype(np.float32)) for _ in range(2)))
+    grads = backward(*cot)
+    want = lstm_scan.lstm_scan_fused_backward_reference(x, *rest, plain[0],
+        plain[3], *cot, TD[cdt])
+    for name, a, w in zip(KINDS['fused'][5], grads, want):
+        assert a.dtype == w.dtype and a.shape == w.shape
+        assert_close(a, w, tol, bf16, f'schedule {name}')
+    # the loss of the JAX tests: g_outs = 2 outs, g_hT = cT, g_cT = hT
+    outs, hT, cT, _ = fwd
+    loss_grads = backward((2 * outs.float()).to(TD[cdt]), cT, hT)
+    with pltpu.force_tpu_interpret_mode():
+        jax_want = jax_run(jax_lstm.lstm_scan_fused, arrays, cdt, cdt, 0)
+    compare('fused', (fwd[:3], loss_grads), jax_want, bf16)
