@@ -8,15 +8,21 @@ beside the least time the card could take, and drives the port's main
 paths: the fused PPO trainer on Ocean `squared` with the `Default` MLP at
 8192 lanes (GAE kernel), the same trainer with the fused MLP head kernel
 (`Default(use_kernel=True)`), the recurrent trainer through the enc5 and
-through the cat LSTM kernels, and the LSTM validation path
+through the cat LSTM kernels, the recurrent trainer through LSTMWrapper's
+default route at input width 96 (cat's kernels), at hidden size 256
+with use_kernel=False (the plain scan, which the caller must ask for: the
+default and use_kernel=True refuse that shape on the card), and the LSTM
+validation path
 (tools/validate_lstm_torch.py: lstm_scan and lstm_scan_fused timed at
 the bench shapes, then a 40-epoch learning proof that must reach score
 0.9; tools/kernel_lab_torch.py over every variant, the archived enc2,
 enc3, enc4, enc6 and tm among them). Last, small trainer updates and an
 env run on the card are held against the same on the CPU. For the bf16
-tensor-core kernels of lstm_scan_fused (csrc/lstm_tc.cuh) it also prints
-each kernel's registers and spilled bytes after the build, and the time of
-each phase at the main shape (pre-pass, loop, dx, dW + db).
+tensor-core kernels of lstm_scan_cat and lstm_scan_fused
+(csrc/lstm_tc.cuh) it also prints each kernel's registers and spilled
+bytes after the build, and the time of each phase at the main shape
+(pre-pass, loop, dx, dW + db); both are also held to their plain
+versions at input width 96.
 
 Prints one line per phase, a `{"kernels": [...]}` JSON line, the card's
 name and power limit, and last `{"ok": true, "device": {...}}`. Any
@@ -185,19 +191,21 @@ PRIMAL_KINDS = ('enc', 'fused', 'scan') + ARCHIVED_ENC_KINDS
 
 
 def lstm_case(torch, rng, kind, T, B, dtype_name, F=49, H=128,
-        xp_dtype_name=None):
+        xp_dtype_name=None, D=None):
     """Inputs at the trainer's shapes: (forward args, upstream gradients,
     cdt). Dense normal features and inputs, weights scaled as the
     trainer's orthogonal init. scan's and tm's x_proj is in xp_dtype_name
-    (the compute dtype when None)."""
+    (the compute dtype when None); cat's and fused's input width is D (H
+    when None)."""
     import numpy as np
     cdt = getattr(torch, dtype_name)
+    D = D or H
 
     def arr(*shape, scale=1.0):
         return torch.from_numpy((rng.randn(*shape) * scale).astype(
             np.float32)).cuda()
     state = (arr(B, H, scale=0.5), arr(B, H, scale=0.5))
-    weights = (arr(H, 4 * H, scale=H ** -0.5), arr(H, 4 * H, scale=H ** -0.5),
+    weights = (arr(D, 4 * H, scale=D ** -0.5), arr(H, 4 * H, scale=H ** -0.5),
         arr(4 * H, scale=0.1))
     if kind in ENC_KINDS:
         args = (arr(T, B, F).to(cdt), *state, arr(F, H, scale=(2 / F) ** 0.5),
@@ -206,7 +214,7 @@ def lstm_case(torch, rng, kind, T, B, dtype_name, F=49, H=128,
         xp_dtype = getattr(torch, xp_dtype_name or dtype_name)
         args = (arr(T, B, 4 * H).to(xp_dtype), *state, weights[1])
     else:
-        args = (arr(T, B, H, scale=0.5).to(cdt), *state, *weights)
+        args = (arr(T, B, D, scale=0.5).to(cdt), *state, *weights)
     grads = (arr(T, B, H).to(cdt), arr(B, H), arr(B, H))
     return args, grads, cdt
 
@@ -248,14 +256,14 @@ def lstm_bounds(kind, args, T, B, H, dtype_name):
 
 
 def check_lstm(torch, flush, rng, kind, B, dtype_name, T=16, H=128,
-        timed=False, xp_dtype_name=None):
+        timed=False, xp_dtype_name=None, D=None):
     """The LSTM kernel pair `kind` against its plain versions on the same
     inputs: every output and gradient within LSTM_TOL. With timed: the
     kernels', the plain versions' and (cat, fused) cuDNN's times and the
-    bounds."""
+    bounds, beside the card's name and power limit."""
     fwd, bwd, fwd_plain, bwd_plain, grad_names = lstm_kinds()[kind]
     args, grads, cdt = lstm_case(torch, rng, kind, T, B, dtype_name, H=H,
-        xp_dtype_name=xp_dtype_name)
+        xp_dtype_name=xp_dtype_name, D=D)
     with torch.no_grad():
         got = fwd(*args, cdt)
         want = fwd_plain(*args, cdt)
@@ -264,8 +272,9 @@ def check_lstm(torch, flush, rng, kind, B, dtype_name, T=16, H=128,
         want_b = bwd_plain(*bargs)
         primal = fwd(*args, cdt, False) if kind in PRIMAL_KINDS else None
     torch.cuda.synchronize()
-    what = f'{kind} T={T} B={B} {dtype_name}' + (
-        f' x_proj {xp_dtype_name}' if xp_dtype_name else '')
+    what = f'{kind} T={T} B={B}' + (f' D={D}' if D else '') + (
+        f' {dtype_name}') + (f' x_proj {xp_dtype_name}' if xp_dtype_name
+        else '')
     if primal is not None:
         if primal[3] is not None or not all(torch.equal(a, w)
                 for a, w in zip(primal[:3], got[:3])):
@@ -290,7 +299,7 @@ def check_lstm(torch, flush, rng, kind, B, dtype_name, T=16, H=128,
         '; forward without cseq equal bit for bit' if primal else ''))
     result = dict(fwd_err=max(errs[k][0] for k in LSTM_OUTS),
         bwd_err=max(errs[k][0] for k in grad_names),
-        shape=f'T={T} B={B} H={H} {dtype_name}')
+        shape=f'T={T} B={B} D={D or H} H={H} {dtype_name}')
     if not timed:
         return result
     with torch.no_grad():
@@ -314,44 +323,63 @@ def check_lstm(torch, flush, rng, kind, B, dtype_name, T=16, H=128,
         f'{result["fwd_bound"]:.4f} {result["fwd_by"]}, library '
         f'{result["fwd_lib"]}); backward {result["bwd_ms"]:.4f} ms (plain '
         f'{result["bwd_plain_ms"]:.4f}, bound {result["bwd_bound"]:.4f} '
-        f'{result["bwd_by"]}, library {result["bwd_lib"]})')
+        f'{result["bwd_by"]}, library {result["bwd_lib"]}) on {card_line()}')
     return result
 
 
-# the bf16 kernels of lstm_scan_fused (csrc/lstm_tc.cuh), in the order of
-# lstm_fused_tc_usage's output
+# the bf16 kernels of lstm_scan_fused and lstm_scan_cat (csrc/lstm_tc.cuh),
+# in the order of lstm_fused_tc_usage's and lstm_cat_tc_usage's output
 TC_KERNELS = ('forward pre-pass', 'forward loop', 'backward pre-pass',
     'backward loop', 'dx')
 
 
 def log_tc_usage():
-    """Registers and spilled bytes per thread of lstm_scan_fused's bf16
-    kernels at each hidden size (cudaFuncGetAttributes)."""
+    """Registers and spilled bytes per thread of the bf16 kernels of
+    lstm_scan_fused and lstm_scan_cat at each hidden size
+    (cudaFuncGetAttributes), and the widest input they take, held against
+    the wrappers' check."""
     import ctypes
-    from pufferlib_tpu_torch.ops.cuda import lstm_scan
+    from pufferlib_tpu_torch.ops.cuda import lstm_cat, lstm_scan
+    from pufferlib_tpu_torch.ops.cuda.lstm_common import tc_max_input
+    for kind, kernel in (('fused', lstm_scan.KERNEL), ('cat', lstm_cat.KERNEL)):
+        fn = f'lstm_{kind}_tc_usage'
+        for H in (32, 64, 128):
+            out = (ctypes.c_int * 10)()
+            err = getattr(kernel.lib(), fn)(H, out)
+            if err:
+                raise RuntimeError(f'{fn}({H}): cudaError {err}')
+            log(f'  lstm_scan_{kind} bf16 kernels, H={H}: ' + ', '.join(
+                f'{name} {out[2 * i]} registers, {out[2 * i + 1]} bytes '
+                f'spilled' for i, name in enumerate(TC_KERNELS)))
+    # the widest input the checks before a launch let through is the one
+    # the C side serves (lstm_common.tc_max_input copies its constants)
     for H in (32, 64, 128):
-        out = (ctypes.c_int * 10)()
-        err = lstm_scan.KERNEL.lib().lstm_fused_tc_usage(H, out)
-        if err:
-            raise RuntimeError(f'lstm_fused_tc_usage({H}): cudaError {err}')
-        log(f'  lstm_scan_fused bf16 kernels, H={H}: ' + ', '.join(
-            f'{name} {out[2 * i]} registers, {out[2 * i + 1]} bytes spilled'
-            for i, name in enumerate(TC_KERNELS)))
+        out = (ctypes.c_int * 1)()
+        lstm_cat.KERNEL.lib().lstm_tc_max_input(H, out)
+        if out[0] != tc_max_input(H):
+            raise AssertionError(f'lstm_tc_max_input({H}) = {out[0]}, but '
+                f'lstm_common.tc_max_input({H}) = {tc_max_input(H)}')
+    log('  bf16 tensor-core widest input by hidden size: ' + ', '.join(
+        f'H={H}: {tc_max_input(H)}' for H in (32, 64, 128))
+        + ' (C and Python agree)')
 
 
-def time_fused_phases(torch, flush, rng, T=16, B=8192):
-    """Device ms of each phase of lstm_scan_fused's bf16 kernels at the
-    main shape: a launch runs the first k phases, so a phase's time is the
-    difference of two such means (cold L2 each)."""
-    from pufferlib_tpu_torch.ops.cuda import lstm_scan
-    args, grads, cdt = lstm_case(torch, rng, 'fused', T, B, 'bfloat16')
+def time_tc_phases(torch, flush, rng, kind='fused', T=16, B=8192):
+    """Device ms of each phase of the bf16 tensor-core kernels of `kind`
+    ('fused': lstm_scan_fused, 'cat': lstm_scan_cat) at the main shape: a
+    launch runs the first k phases, so a phase's time is the difference of
+    two such means (cold L2 each)."""
+    from pufferlib_tpu_torch.ops.cuda.lstm_common import (
+        BACKWARD_PHASES, FORWARD_PHASES)
+    launch_fwd, launch_bwd = lstm_kinds()[kind][:2]
+    args, grads, cdt = lstm_case(torch, rng, kind, T, B, 'bfloat16')
     with torch.no_grad():
-        outs, _, _, cseq = lstm_scan._launch_fused_forward(*args, cdt)
+        outs, _, _, cseq = launch_fwd(*args, cdt)
         bargs = (*args, outs, cseq, *grads, cdt)
-        fwd = [timed_ms(lambda: lstm_scan._launch_fused_forward(*args, cdt,
-            phases=k), flush) for k in range(1, lstm_scan.FORWARD_PHASES + 1)]
-        bwd = [timed_ms(lambda: lstm_scan._launch_fused_backward(*bargs,
-            phases=k), flush) for k in range(1, lstm_scan.BACKWARD_PHASES + 1)]
+        fwd = [timed_ms(lambda: launch_fwd(*args, cdt, phases=k), flush)
+            for k in range(1, FORWARD_PHASES + 1)]
+        bwd = [timed_ms(lambda: launch_bwd(*bargs, phases=k), flush)
+            for k in range(1, BACKWARD_PHASES + 1)]
     names = {'forward': ('pre-pass', 'loop'),
         'backward': ('pre-pass', 'loop', 'dx', 'dW + db')}
     phases = {}
@@ -359,9 +387,10 @@ def time_fused_phases(torch, flush, rng, T=16, B=8192):
         for k, name in enumerate(names[part]):
             phases[f'{part} {name}'] = cumulative[k] - (cumulative[k - 1]
                 if k else 0.0)
-    log(f'lstm_scan_fused bf16 phases T={T} B={B} H=128, ms: ' + ', '.join(
+    log(f'lstm_scan_{kind} bf16 phases T={T} B={B} H=128, ms: ' + ', '.join(
         f'{k} {v:.4f}' for k, v in phases.items())
-        + f'; whole forward {fwd[-1]:.4f}, backward {bwd[-1]:.4f}')
+        + f'; whole forward {fwd[-1]:.4f}, backward {bwd[-1]:.4f} on '
+        f'{card_line()}')
     return phases
 
 
@@ -391,12 +420,14 @@ def cudnn_lstm_ms(torch, flush, args, g_outs):
 
 def make_trainer(torch, num_envs=8192, horizon=64, hidden=128,
         dtype_name='bfloat16', use_kernel=False, minibatch_size=131072,
-        seed=0, device='cuda', lstm_kernel=None, lstm_use_kernel=None):
+        seed=0, device='cuda', lstm_kernel=None, lstm_use_kernel=None,
+        lstm_input=None):
     """bench.py's `_8k_lanes` configuration (bench.py:33-81), on the port;
     with lstm_kernel ('enc5', 'cat' or 'off') its LSTM line instead
     (bench.py:53-57, 66): RecurrentPolicy(LSTMWrapper(Default)) with
-    input and hidden size `hidden`, minibatch batch_size // 4 by the
-    caller's choice of minibatch_size."""
+    hidden size `hidden` and input size lstm_input (`hidden` when None:
+    Default's encoder emits it, its head reads the LSTM's `hidden`),
+    minibatch batch_size // 4 by the caller's choice of minibatch_size."""
     import pufferlib_tpu_torch.vector as vector
     from pufferlib_tpu_torch.models import (
         Default, LSTMWrapper, Policy, RecurrentPolicy)
@@ -408,15 +439,18 @@ def make_trainer(torch, num_envs=8192, horizon=64, hidden=128,
         env_kwargs=dict(distance_to_target=3, num_targets=1),
         num_envs=num_envs, device=device)
     obs_shape = vecenv.single_observation_space.shape
+    lstm_input = lstm_input or hidden
     module = Default(obs_shape=obs_shape,
-        action_space=vecenv.single_action_space, hidden_size=hidden,
+        action_space=vecenv.single_action_space,
+        hidden_size=hidden if lstm_kernel is None else lstm_input,
         dtype=dtype, use_kernel=use_kernel,
-        generator=torch.Generator().manual_seed(seed))
+        generator=torch.Generator().manual_seed(seed),
+        decoder_input_size=hidden)
     if lstm_kernel is None:
         policy = Policy(module)
     else:
         policy = RecurrentPolicy(LSTMWrapper(module, obs_shape=obs_shape,
-            input_size=hidden, hidden_size=hidden, dtype=dtype,
+            input_size=lstm_input, hidden_size=hidden, dtype=dtype,
             kernel=lstm_kernel, use_kernel=lstm_use_kernel,
             generator=torch.Generator().manual_seed(seed + 1)))
     config = ppo.default_config(
@@ -477,6 +511,71 @@ def run_lstm_trainer(torch, card, kernel, epochs, warmup):
     return ppo, data, launches
 
 
+def run_default_routes(torch, card):
+    """The LSTM trainer where enc5 cannot serve, one epoch each, every
+    launch count set to 0 just before and read just after: input width 96
+    with hidden 128 and use_kernel=None must route to cat (16 launches of
+    each cat function, none of enc5's); hidden 256, which no kernel
+    serves, with use_kernel=False (the caller asks for the plain scan)
+    must run it with no LSTM launch. Both with finite losses. Then
+    use_kernel=None and use_kernel=True at hidden 256 must each raise
+    before any launch."""
+    from pufferlib_tpu_torch import spaces
+    from pufferlib_tpu_torch.models import Default, LSTMWrapper
+    from pufferlib_tpu_torch.ops.cuda import KERNELS
+    device = torch.device('cuda')
+    for lstm_input, hidden, use, route in ((96, 128, None, 'cat'),
+            (256, 256, False, 'off')):
+        ppo, data = make_trainer(torch, hidden=hidden, lstm_kernel='enc5',
+            lstm_input=lstm_input, lstm_use_kernel=use)
+        got = data.policy.module.route(16, device)
+        if got != route:
+            raise AssertionError(f'input {lstm_input}, hidden {hidden}, '
+                f'use_kernel={use}: route {got}, expected {route}')
+        for k in KERNELS:
+            k.reset_counts()
+        start = time.perf_counter()
+        ppo.step(data)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - start
+        launches = {fn: n for k in KERNELS for fn, n in k.fn_launches.items()}
+        want = dict.fromkeys(launches, 0)
+        want['gae_forward'] = 1
+        if route == 'cat':
+            want['lstm_cat_forward'] = want['lstm_cat_backward'] = \
+                LSTM_PER_EPOCH
+        if launches != want:
+            raise AssertionError(f'input {lstm_input}, hidden {hidden}, '
+                f'use_kernel={use}: launches {launches}, expected {want}')
+        losses = check_losses(data, f'input {lstm_input}, hidden {hidden}, '
+            f'use_kernel={use}')
+        log(f'LSTM trainer, input {lstm_input}, hidden {hidden} bf16, '
+            f'use_kernel={use}: route {got}; 1 epoch (no warm-up) in '
+            f'{elapsed * 1e3:.2f} ms on {card}; launches '
+            f'{json.dumps({k: v for k, v in launches.items() if v})}; '
+            f'losses {json.dumps(losses)}')
+        del data
+    for use in (None, True):
+        mod = LSTMWrapper(Default((7, 7), spaces.Discrete(8),
+            hidden_size=256, dtype=torch.bfloat16), obs_shape=(7, 7),
+            input_size=256, hidden_size=256, dtype=torch.bfloat16,
+            use_kernel=use).to(device)
+        before = {fn: n for k in KERNELS for fn, n in k.fn_launches.items()}
+        try:
+            mod(torch.zeros(8, 2, 7, 7, device=device))
+        except ValueError as e:
+            refused = str(e)
+        else:
+            raise AssertionError(f'use_kernel={use} at hidden 256 ran on '
+                f'the card')
+        if before != {fn: n for k in KERNELS
+                for fn, n in k.fn_launches.items()}:
+            raise AssertionError(f'use_kernel={use} at hidden 256 launched '
+                f'a kernel')
+        log(f'LSTMWrapper use_kernel={use}, hidden 256 on the card: '
+            f'refused ({refused})')
+
+
 def check_losses(data, what):
     import math
     losses = dict(data.losses)
@@ -528,6 +627,10 @@ def main():
         for kind in ('enc5', 'cat', 'scan', 'fused', 'enc')
             + ARCHIVED_ENC_KINDS + ('tm',)
         for B in (8192, 1000) for d in ('bfloat16', 'float32')}
+    # the tensor-core kernels at an input width apart from the hidden size
+    for kind in ('cat', 'fused'):
+        lstm_runs[kind, 8192, 'bfloat16 D=96'] = check_lstm(torch, flush,
+            rng, kind, 8192, 'bfloat16', D=96)
     # x_proj and the compute dtype apart, both ways
     for kind in XP_KINDS:
         for B in (8192, 1000):
@@ -535,7 +638,8 @@ def main():
                 flush, rng, kind, B, 'bfloat16', xp_dtype_name='float32')
             lstm_runs[kind, B, 'float32/bf16 x_proj'] = check_lstm(torch,
                 flush, rng, kind, B, 'float32', xp_dtype_name='bfloat16')
-    time_fused_phases(torch, flush, rng)
+    for kind in ('fused', 'cat'):
+        time_tc_phases(torch, flush, rng, kind)
     del flush
 
     # phase 5: the main path, GAE kernel once per epoch
@@ -603,15 +707,20 @@ def main():
         f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB')
     del data
 
-    # phase 8: the same trainer through the cat kernels
+    # phase 8: the same trainer through the cat kernels (bf16: the
+    # tensor-core ones)
     _, data, cat_launches = run_lstm_trainer(torch, card, 'cat', epochs=2,
         warmup=False)
     del data
 
-    # phase 9: the LSTM validation path, at its full settings
+    # phase 9: the default route (use_kernel=None) where enc5 cannot
+    # serve, and hidden 256, which no kernel serves
+    run_default_routes(torch, card)
+
+    # phase 10: the LSTM validation path, at its full settings
     validation_launches = run_validation_path(torch)
 
-    # phase 10: the card against the CPU, at a small size in f32
+    # phase 11: the card against the CPU, at a small size in f32
     check_card_against_cpu(torch, np)
     check_lstm_card_against_cpu(torch, np)
 

@@ -44,14 +44,15 @@
 // bf16 tensor cores.
 //
 // Design of lstm_scan_fused, chosen by the compute dtype, the only branch:
-// * bf16: csrc/lstm_tc.cuh, every product on the tensor cores: the
-//   projections in GEMMs over all T*B rows before and after the loops, and
-//   loops that hold W_hh in shared memory and keep only the recurrent
-//   product. Its scratch: an f32 slab of the projections (XW or P) and
-//   the bf16 weights.
+// * bf16: csrc/lstm_tc.cuh in mode FUSED, every product on the tensor
+//   cores: the projections in GEMMs over all T*B rows before and after the
+//   loops, and loops that hold W_hh in shared memory and keep only the
+//   recurrent product. Its scratch: an f32 slab of the projections (XW or
+//   P) and the bf16 weights. The input width D is free (a multiple of 8,
+//   up to what a GEMM block's shared memory holds).
 // * f32: mode FUSED of csrc/lstm_common.cuh, the cat kernels with a second
-//   accumulator, on FMA: f32 is the exact test mode, and the tensor cores
-//   have no exact f32 product. Its scratch pointers are null.
+//   accumulator, on FMA, D == H: f32 is the exact test mode, and the
+//   tensor cores have no exact f32 product. Its scratch pointers are null.
 #include "lstm_common.cuh"
 #include "lstm_tc.cuh"
 
@@ -95,48 +96,10 @@ struct ScanBackward {
 };
 
 template <int H, typename E>
-struct FusedForward {
-    static cudaError_t run(const void* x, const float* h0, const float* c0,
-                           const float* w_ih, const float* w_hh, const float* b,
-                           void* outs, void* cseq, float* hT, float* cT, float* xw, void* w16,
-                           int T, int B, int phases, cudaStream_t stream) {
-        if constexpr (std::is_same<E, lstm::bf16>::value) {
-            return lstm::tc::forward<H>(static_cast<const E*>(x), h0, c0, w_ih, w_hh, b,
-                                        static_cast<E*>(outs), static_cast<E*>(cseq), hT, cT,
-                                        xw, static_cast<E*>(w16), T, B, phases, stream);
-        } else {
-            if (phases != lstm::tc::FORWARD_PHASES) return cudaErrorInvalidValue;
-            return lstm::run_forward<H, E, E, lstm::FUSED>(x, h0, c0, nullptr, nullptr, w_ih,
-                                                           w_hh, b, outs, cseq, hT, cT, T, B,
-                                                           0, stream);
-        }
-    }
-};
+struct FusedForward : lstm::tc::CellForward<lstm::FUSED, H, E> {};
 
 template <int H, typename E>
-struct FusedBackward {
-    static cudaError_t run(const void* x, const float* h0, const float* c0,
-                           const float* w_ih, const float* w_hh, const float* b,
-                           const void* outs, const void* cseq, const void* g_outs,
-                           const float* g_hT, const float* g_cT, void* dx, float* dh0,
-                           float* dc0, float* dw, float* db, void* dg, float* dw_part,
-                           float* db_part, float* pre, void* w16, int T, int B, int splits,
-                           int part_rows, int phases, cudaStream_t stream) {
-        if constexpr (std::is_same<E, lstm::bf16>::value) {
-            return lstm::tc::backward<H>(
-                static_cast<const E*>(x), h0, c0, w_ih, w_hh, b, static_cast<const E*>(outs),
-                static_cast<const E*>(cseq), static_cast<const E*>(g_outs), g_hT, g_cT,
-                static_cast<E*>(dx), dh0, dc0, dw, db, static_cast<E*>(dg), dw_part, db_part,
-                pre, static_cast<E*>(w16), T, B, splits, part_rows, phases, stream);
-        } else {
-            if (phases != lstm::tc::BACKWARD_PHASES) return cudaErrorInvalidValue;
-            return lstm::run_backward<H, E, E, lstm::FUSED>(
-                x, h0, c0, nullptr, nullptr, w_ih, w_hh, b, outs, cseq, g_outs, g_hT, g_cT,
-                dh0, dc0, nullptr, nullptr, dw, db, dx, nullptr, dg, dw_part, db_part,
-                nullptr, nullptr, T, B, 0, splits, 0, part_rows, stream);
-        }
-    }
-};
+struct FusedBackward : lstm::tc::CellBackward<lstm::FUSED, H, E> {};
 
 }  // namespace
 
@@ -173,36 +136,36 @@ int lstm_scan_backward(const void* x_proj, const float* h0, const float* c0,
                                         dg, dw_part, T, B, splits, stream);
 }
 
-// x: (T, B, H) in the compute dtype; h0, c0: (B, H); w_ih, w_hh: (H, 4H);
-// b: (4H,), all f32. Outputs as lstm_scan_forward's. Scratch, bf16 only
-// (null in f32): xw (T * 64 ceil(B / 64) * 4H) f32, the slab of
-// lstm_tc.cuh, and w16 (2H * 4H) bf16. phases: 2 runs the whole forward;
-// in bf16, 1 stops after the pre-pass (to time it).
+// x: (T, B, D) in the compute dtype; h0, c0: (B, H); w_ih: (D, 4H), w_hh:
+// (H, 4H); b: (4H,), all f32. Outputs as lstm_scan_forward's. Scratch,
+// bf16 only (null in f32): xw (T * 64 ceil(B / 64) * 4H) f32, the slab of
+// lstm_tc.cuh, and w16 ((D + H) * 4H) bf16. f32 takes D == H. phases: 2
+// runs the whole forward; in bf16, 1 stops after the pre-pass (to time it).
 int lstm_fused_forward(const void* x, const float* h0, const float* c0,
                        const float* w_ih, const float* w_hh, const float* b, void* outs,
                        void* cseq, float* hT, float* cT, float* xw, void* w16, int T, int B,
-                       int H, int cdt_bf16, int phases, cudaStream_t stream) {
+                       int D, int H, int cdt_bf16, int phases, cudaStream_t stream) {
     if (T <= 0 || B <= 0) return (int)cudaErrorInvalidValue;
     if (!lstm::aligned16(w_ih) || !lstm::aligned16(w_hh))
         return (int)cudaErrorMisalignedAddress;
     if (cdt_bf16 && (!xw || !w16)) return (int)cudaErrorInvalidValue;
     return lstm::dispatch<FusedForward>(H, cdt_bf16, x, h0, c0, w_ih, w_hh, b, outs, cseq,
-                                        hT, cT, xw, w16, T, B, phases, stream);
+                                        hT, cT, xw, w16, T, B, D, phases, stream);
 }
 
-// Writes dx (T, B, H, compute dtype), dh0, dc0 (B, H), dw = [dW_ih; dW_hh]
-// (2H, 4H) and db (4H,), f32. Scratch: dg (T, B, 4H) compute dtype,
-// dw_part (splits, 2H, 4H) and db_part (part_rows, 4H) f32, part_rows =
+// Writes dx (T, B, D, compute dtype), dh0, dc0 (B, H), dw = [dW_ih; dW_hh]
+// (D + H, 4H) and db (4H,), f32. Scratch: dg (T, B, 4H) compute dtype,
+// dw_part (splits, D + H, 4H) and db_part (part_rows, 4H) f32, part_rows =
 // ceil(B / 64) in bf16 and ceil(B / 32) in f32; bf16 only (null in f32):
-// pre (as the forward's xw) f32 and w16 (3H * 4H + B * H) bf16. phases: 4
-// runs the whole backward; in bf16, 1 .. 3 stop after the pre-pass, the
-// loop or dx (to time them).
+// pre (as the forward's xw) f32 and w16 ((D + H) * 4H + 4H * D + B * H)
+// bf16. phases: 4 runs the whole backward; in bf16, 1 .. 3 stop after the
+// pre-pass, the loop or dx (to time them).
 int lstm_fused_backward(const void* x, const float* h0, const float* c0,
                         const float* w_ih, const float* w_hh, const float* b,
                         const void* outs, const void* cseq, const void* g_outs,
                         const float* g_hT, const float* g_cT, void* dx, float* dh0,
                         float* dc0, float* dw, float* db, void* dg, float* dw_part,
-                        float* db_part, float* pre, void* w16, int T, int B, int H,
+                        float* db_part, float* pre, void* w16, int T, int B, int D, int H,
                         int cdt_bf16, int splits, int part_rows, int phases,
                         cudaStream_t stream) {
     if (T <= 0 || B <= 0) return (int)cudaErrorInvalidValue;
@@ -211,20 +174,13 @@ int lstm_fused_backward(const void* x, const float* h0, const float* c0,
     if (cdt_bf16 && (!pre || !w16)) return (int)cudaErrorInvalidValue;
     return lstm::dispatch<FusedBackward>(H, cdt_bf16, x, h0, c0, w_ih, w_hh, b, outs, cseq,
                                          g_outs, g_hT, g_cT, dx, dh0, dc0, dw, db, dg,
-                                         dw_part, db_part, pre, w16, T, B, splits, part_rows,
-                                         phases, stream);
+                                         dw_part, db_part, pre, w16, T, B, D, splits,
+                                         part_rows, phases, stream);
 }
 
 // Registers and spilled bytes per thread of the bf16 kernels of
 // lstm_scan_fused at hidden size H (lstm::tc::usage): ten ints into out.
-int lstm_fused_tc_usage(int H, int* out) {
-    switch (H) {
-        case 32: return (int)lstm::tc::usage<32>(out);
-        case 64: return (int)lstm::tc::usage<64>(out);
-        case 128: return (int)lstm::tc::usage<128>(out);
-    }
-    return (int)cudaErrorInvalidValue;
-}
+int lstm_fused_tc_usage(int H, int* out) { return lstm::tc::usage_at<lstm::FUSED>(H, out); }
 
 const char* cuda_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 

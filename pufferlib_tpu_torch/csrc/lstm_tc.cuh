@@ -1,28 +1,45 @@
-// lstm_scan_fused in bf16 on the tensor cores, for Hopper (sm_90a): what
-// csrc/lstm_scan.cu's lstm_fused_forward and lstm_fused_backward run when
-// the compute dtype is bf16. In f32 they keep lstm_common.cuh's FUSED cell
+// The two LSTM cells whose input projection runs beside the recurrence,
+// in bf16 on the tensor cores, for Hopper (sm_90a): what csrc/lstm_scan.cu's
+// lstm_fused_forward / lstm_fused_backward (mode FUSED) and
+// csrc/lstm_cat.cu's lstm_cat_forward / lstm_cat_backward (mode CAT) run
+// when the compute dtype is bf16. In f32 they keep lstm_common.cuh's cell
 // kernels: the tensor cores have no exact f32 product, and f32 is the
 // exact test mode.
 //
-// Replaces the TPU kernels of pufferlib_tpu/ops/pallas/lstm.py, phase by
-// phase:
-// * forward (`_lstm_fused_impl`, `_fwd_fused_kernel`, `_noresid`):
-//   1. pre-pass XW = x @ W_ih + b over all T*B rows (the kernel body's
-//      first product, lstm.py:321), an f32 (T, B, 4H) slab;
-//   2. recurrent loop: gates = XW_t + h @ W_hh, the cell update, outs and
-//      (unless cseq is null) cseq.
-// * backward (`_lstm_fused_bwd`, `_bwd_fused_kernel`):
-//   1. pre-pass P = (x @ W_ih + b) + h_prev @ W_hh over all T*B rows
-//      (h_prev: h0 rounded, then the stored outs): the gate recompute,
-//      which needs no carried state, as an f32 slab;
+// Replaces the TPU kernels of pufferlib_tpu/ops/pallas/lstm.py (FUSED) and
+// lstm_cat.py (CAT), phase by phase:
+// * forward (FUSED: `_lstm_fused_impl`, `_fwd_fused_kernel`, `_noresid`;
+//   CAT: `_impl`, `_fwd_kernel`):
+//   1. pre-pass over all T*B rows into an f32 (T, B, 4H) slab: FUSED
+//      XW = x @ W_ih + b (the kernel body's first product, lstm.py:321),
+//      CAT S = x @ W_ih with no bias;
+//   2. recurrent loop: FUSED gates = XW_t + h @ W_hh, two sums added; CAT
+//      the accumulators start from S_t, h @ W_hh accumulates onto them,
+//      then + b: [x_t | h] @ [W_ih; W_hh] + b, one sum over K = D + H
+//      (lstm_cat.py:48-51); the cell update, outs and (unless cseq is
+//      null) cseq.
+// * backward (FUSED: `_lstm_fused_bwd`, `_bwd_fused_kernel`; CAT: `_bwd`,
+//   `_bwd_kernel`):
+//   1. pre-pass P over all T*B rows (h_prev: h0 rounded, then the stored
+//      outs): the gate recompute, which needs no carried state, as an f32
+//      slab; FUSED (x @ W_ih + b) + h_prev @ W_hh, CAT
+//      (x @ W_ih + h_prev @ W_hh) + b;
 //   2. reverse loop: the activations from P_t, the dh/dc chain, dgates
-//      rounded to bf16 into the dg slab, db, dh_prev = dg_t @ W_hh^T;
+//      rounded to bf16 into the dg slab, db, dh_prev = dg_t @ W_hh^T
+//      (cat's dxh[:, D:], lstm_cat.py:107-110);
 //   3. dx = dg @ W_ih^T (lstm.py:375) over all rows;
 //   4. dW = [x | h_prev]^T dg and db: lstm_common.cuh's split-K
 //      contraction and ordered sums of partials, shared with the other
 //      LSTM kernels.
-// The function is the TPU kernels': two f32 sums on bf16 operands, added
-// after; f32 activations; db from the unrounded dgates.
+// The functions are the TPU kernels': f32 sums on bf16 operands, in each
+// mode's order; f32 activations; db from the unrounded dgates. The modes
+// differ only in where the bias and the input product enter the sum.
+//
+// Shapes: H in {32, 64, 128}; the input width D is a run-time argument,
+// a multiple of 8 (rows of x move as 16-byte cp.async copies) whose
+// weight column still fits a pre-pass block (serves, below): up to 640
+// at H = 128, 704 at H = 32 and 64. Only W_hh stays in the loops, so
+// nothing else depends on D.
 //
 // Bound (T = 16, B = 8192, D = H = 128): the forward moves 35 MB of x,
 // outs and cseq at the crossover with its 34 GFLOP of bf16 operations
@@ -53,20 +70,20 @@
 //   dgates tile is written, then read by every warp of the half); the
 //   halves drift apart, so that one's products overlap the other's cell
 //   math.
-// * the slabs: XW and P are stored in the loops' fragment order
-//   (slab_index), so that a warp reads a gate of a unit group as one
-//   contiguous 512-byte run of float4s, and each group's values are
-//   loaded a group ahead: in the forward during the previous group's cell
-//   update and product, in the backward (the first group of a step)
-//   during the product of the step before. An L2 prefetch of the next
-//   step's rows measured slower on the H100.
+// * the slabs: the forward's (XW or S) and P are stored in the loops'
+//   fragment order (slab_index), so that a warp reads a gate of a unit
+//   group as one contiguous 512-byte run of float4s, and each group's
+//   values are loaded a group ahead: in the forward during the previous
+//   group's cell update and product, in the backward (the first group of
+//   a step) during the product of the step before. An L2 prefetch of the
+//   next step's rows measured slower on the H100.
 // * cell math: the forward loop takes exp and division from the special
 //   function unit (sig_tc, tanh_tc), a few f32 ulp where bf16 rounds at
 //   2^-8; the backward, which read no faster with it, keeps expf and tanhf.
 // * the GEMMs hold their block's column of the weights in shared memory
 //   and stream the row tiles through a cp.async ring; a block walks a
 //   column of tiles, so that loads overlap products and epilogues.
-// The slabs are this design's main cost: XW and P are 268 MB each in f32
+// The slabs are this design's main cost: 268 MB each way in f32
 // at the bench shapes, written once and read once. A later design would
 // keep W_ih resident too, streaming it through a TMA ring beside W_hh, or
 // split the gate columns across a 2-CTA cluster so that [W_ih; W_hh]
@@ -140,13 +157,14 @@ __device__ __forceinline__ void cp_async_wait_all() {
     asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-// The slabs XW and P (f32, 4H columns n = g*H + u per row) are stored in
-// the order the loops read them: each step's rows padded to 64 *
-// ceil(B / 64), cut into tiles of 16 rows by 8 units, each tile holding
-// its four gates one after another as 32 float4s, lane gid * 4 + tig
-// holding rows gid and gid + 8 of units 2 tig and 2 tig + 1: the values of
-// one mma accumulator fragment. A warp reads (and the pre-pass writes) 512
-// contiguous bytes per gate. rtiles is the number of 16-row tiles of a step.
+// The slabs (the forward's XW or S, and P; f32, 4H columns n = g*H + u
+// per row) are stored in the order the loops read them: each step's rows
+// padded to 64 * ceil(B / 64), cut into tiles of 16 rows by 8 units, each
+// tile holding its four gates one after another as 32 float4s, lane
+// gid * 4 + tig holding rows gid and gid + 8 of units 2 tig and 2 tig + 1:
+// the values of one mma accumulator fragment. A warp reads (and the
+// pre-pass writes) 512 contiguous bytes per gate. rtiles is the number of
+// 16-row tiles of a step.
 __device__ __forceinline__ size_t slab_index(long long t, int r, int g, int u, int rtiles,
                                              int ugroups) {
     const long long tile = ((t * rtiles + r / 16) * ugroups + u / 8) * 4 + g;
@@ -264,19 +282,13 @@ __device__ __forceinline__ void load_item(Item& it, const float* __restrict__ pr
     }
 }
 
-// acc[mt][g] = h @ W_hh for the warp's m-tiles and unit group u0, gate g's
-// n-tile being columns g*H + u0 .. +8. h: the (BR, HS) tile; W_hh: (H, WS)
-// read as [k][n] through ldmatrix.trans, two gates per x4.
+// acc[mt][g] += h @ W_hh for the warp's m-tiles and unit group u0, gate
+// g's n-tile being columns g*H + u0 .. +8. h: the (BR, HS) tile; W_hh:
+// (H, WS) read as [k][n] through ldmatrix.trans, two gates per x4.
 template <int H, int MT>
 __device__ __forceinline__ void gates_mma(float (&acc)[MT][4][4], const bf16* hc,
                                           const bf16* w_s, int mt0, int u0, int lane) {
     constexpr int WS = Geo<H>::WS, HS = Geo<H>::HS;
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int g = 0; g < 4; ++g)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) acc[mt][g][e] = 0.f;
 #pragma unroll
     for (int ks = 0; ks < H; ks += 16) {
         uint32_t a[MT][4];
@@ -326,16 +338,17 @@ __device__ __forceinline__ void dh_mma(float (&acc)[UPW][MT][4], const bf16* d_s
     }
 }
 
-// The forward loop: xw, the XW slab of the pre-pass, h0/c0 (B, H) f32,
-// W_hh (H, 4H) bf16; writes outs, cseq (unless null) (T, B, H) bf16, hT,
-// cT (B, H) f32. Thread (warp, lane) holds c for rows row(mt, e / 2) and
+// The forward loop: xw, the slab of the pre-pass (FUSED: XW, CAT: S), b
+// (4H,) f32 (CAT only: FUSED's bias is in XW), h0/c0 (B, H) f32, W_hh
+// (H, 4H) bf16; writes outs, cseq (unless null) (T, B, H) bf16, hT, cT
+// (B, H) f32. Thread (warp, lane) holds c for rows row(mt, e / 2) and
 // units u0 + 2 tig + e % 2 of its unit groups.
-template <int H>
+template <int H, int MODE>
 __global__ void __launch_bounds__(NTC, 1) forward_loop(
-        const float* __restrict__ xw, const float* __restrict__ h0,
-        const float* __restrict__ c0, const bf16* __restrict__ w_hh16,
-        bf16* __restrict__ outs, bf16* __restrict__ cseq, float* __restrict__ hT,
-        float* __restrict__ cT, int T, int B) {
+        const float* __restrict__ xw, const float* __restrict__ b,
+        const float* __restrict__ h0, const float* __restrict__ c0,
+        const bf16* __restrict__ w_hh16, bf16* __restrict__ outs, bf16* __restrict__ cseq,
+        float* __restrict__ hT, float* __restrict__ cT, int T, int B) {
     using GE = Geo<H>;
     constexpr int MT = GE::MT, UPW = GE::UPW, HS = GE::HS;
     extern __shared__ __align__(16) unsigned char smem_tc[];
@@ -367,8 +380,8 @@ __global__ void __launch_bounds__(NTC, 1) forward_loop(
                 c[ug][mt][2 * half + 1] = cc.y;
                 st2(h_s + r * HS + j, h.x, h.y);
             }
-    // XW of the first unit group of step 0; every later group's values are
-    // loaded one group ahead, during the cell update and the product
+    // the slab of the first unit group of step 0; every later group's values
+    // are loaded one group ahead, during the cell update and the product
     float4 pre[MT][4];
     load_gates<H>(pre, xw, 0, ug0, mt0, nrows, lane);
     cp_async_wait_all();
@@ -381,23 +394,49 @@ __global__ void __launch_bounds__(NTC, 1) forward_loop(
 #pragma unroll
         for (int ug = 0; ug < UPW; ++ug) {
             const int u0 = (ug0 + ug) * 8;
+            // the slab's value of fragment element e, zero past the batch edge
+            auto slab = [&](int mt, int g, int e) {
+                const bool ok = (mt0 + mt) * 16 + gid + 8 * (e / 2) < nrows;
+                return ok ? frag(pre[mt][g], e) : 0.f;
+            };
+            auto load_next = [&]() {
+                if (ug + 1 < UPW)
+                    load_gates<H>(pre, xw, t, ug0 + ug + 1, mt0, nrows, lane);
+                else if (t + 1 < T)
+                    load_gates<H>(pre, xw, t + 1, ug0, mt0, nrows, lane);
+            };
             float acc[MT][4][4];
-            gates_mma<H>(acc, hc, w_s, mt0, u0, lane);
-            // (x_t @ W_ih + b) + h @ W_hh: two f32 sums, then added (XW taken
-            // as zero past the batch edge)
 #pragma unroll
             for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
                 for (int g = 0; g < 4; ++g)
 #pragma unroll
-                    for (int e = 0; e < 4; ++e) {
-                        const bool ok = (mt0 + mt) * 16 + gid + 8 * (e / 2) < nrows;
-                        acc[mt][g][e] = (ok ? frag(pre[mt][g], e) : 0.f) + acc[mt][g][e];
-                    }
-            if (ug + 1 < UPW)
-                load_gates<H>(pre, xw, t, ug0 + ug + 1, mt0, nrows, lane);
-            else if (t + 1 < T)
-                load_gates<H>(pre, xw, t + 1, ug0, mt0, nrows, lane);
+                    for (int e = 0; e < 4; ++e)
+                        acc[mt][g][e] = MODE == CAT ? slab(mt, g, e) : 0.f;
+            if constexpr (MODE == CAT) {
+                // one sum: h @ W_hh accumulates onto x_t @ W_ih, then + b
+                load_next();
+                gates_mma<H>(acc, hc, w_s, mt0, u0, lane);
+#pragma unroll
+                for (int g = 0; g < 4; ++g) {
+                    const float bias[2] = {__ldg(b + g * H + u0 + 2 * tig),
+                                           __ldg(b + g * H + u0 + 2 * tig + 1)};
+#pragma unroll
+                    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+                        for (int e = 0; e < 4; ++e) acc[mt][g][e] += bias[e % 2];
+                }
+            } else {
+                // (x_t @ W_ih + b) + h @ W_hh: two f32 sums, then added
+                gates_mma<H>(acc, hc, w_s, mt0, u0, lane);
+#pragma unroll
+                for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+                    for (int g = 0; g < 4; ++g)
+#pragma unroll
+                        for (int e = 0; e < 4; ++e) acc[mt][g][e] = slab(mt, g, e) + acc[mt][g][e];
+                load_next();
+            }
 #pragma unroll
             for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
@@ -772,9 +811,13 @@ __global__ void __launch_bounds__(QTHREADS, 2) rows_gemm_kernel(SA1 a1, SB1 b1, 
 // multiple of 16, nb of 8): v[e] at row mb + lane / 4 + 8 (e / 2), column
 // nb + 2 (lane % 4) + e % 2, the mma accumulator layout. M < 2^31.
 
-// (s1 + b) + s2 in f32 into a slab (slab_index): XW, with s2 = 0, and P,
-// from the gate-interleaved columns of GateRows. When B is a multiple of
-// 16 a fragment's rows lie in one step, and it is one float4 of the slab.
+// The gate pre-activations in f32 into a slab (slab_index), from the
+// gate-interleaved columns of GateRows: FUSED (s1 + b) + s2, CAT
+// (s1 + s2) + b, with s1 the input's sum and s2 the recurrent one (zero
+// in the forward's pre-pass). A null b adds none: cat's forward slab. When
+// B is a multiple of 16 a fragment's rows lie in one step, and it is one
+// float4 of the slab.
+template <int MODE>
 struct GatesOut {
     float* out;
     const float* b;
@@ -785,7 +828,10 @@ struct GatesOut {
         const int g = nb % QN / 32, u = nb / QN * 32 + nb % 32 + lane % 4 * 2;
         float v[4];
 #pragma unroll
-        for (int e = 0; e < 4; ++e) v[e] = (s1[e] + b[g * H + u + e % 2]) + s2[e];
+        for (int e = 0; e < 4; ++e) {
+            const float bias = b ? b[g * H + u + e % 2] : 0.f;
+            v[e] = MODE == CAT ? (s1[e] + s2[e]) + bias : (s1[e] + bias) + s2[e];
+        }
         const int m = (int)mb + lane / 4;
         if (B % 16 == 0) {
             if (m < M) {
@@ -867,31 +913,40 @@ inline cudaError_t round_into(const float* w_ih, const float* w_hh, const float*
     return cudaGetLastError();
 }
 
-// The forward: x (T, B, D) bf16, weights f32; scratch xw (the XW slab,
-// T * 64 ceil(B / 64) * 4H f32, slab_index) and w16 ((D + H) * 4H bf16).
+// The input widths the kernels take at hidden size H: rows of x move as
+// 16-byte cp.async copies (D % 8 == 0), and the backward pre-pass holds
+// its block's column of [W_ih; W_hh] (D + H rows) in shared memory
+inline bool serves(int D, int H) {
+    return D >= 8 && D % 8 == 0 && gemm_smem(D, H) <= (size_t)MAX_SMEM;
+}
+
+// The forward: x (T, B, D) bf16, weights f32; scratch xw (the slab, T * 64
+// ceil(B / 64) * 4H f32, slab_index) and w16 ((D + H) * 4H bf16).
 // phases: 1 stops after the pre-pass, 2 runs it all (a partial run serves
 // only to time a phase).
-template <int H>
+template <int H, int MODE>
 cudaError_t forward(const bf16* x, const float* h0, const float* c0, const float* w_ih,
                     const float* w_hh, const float* b, bf16* outs, bf16* cseq, float* hT,
-                    float* cT, float* xw, bf16* w16, int T, int B, int phases,
+                    float* cT, float* xw, bf16* w16, int T, int B, int D, int phases,
                     cudaStream_t stream) {
-    constexpr int D = H, G = 4 * H;
-    if (phases < 1 || phases > FORWARD_PHASES) return cudaErrorInvalidValue;
+    constexpr int G = 4 * H;
+    if (phases < 1 || phases > FORWARD_PHASES || !serves(D, H)) return cudaErrorInvalidValue;
+    if (!aligned16(x)) return cudaErrorMisalignedAddress;
     const long long M = (long long)T * B;
     cudaError_t err = round_into(w_ih, w_hh, h0, w16, nullptr, nullptr, D, H, B, stream);
     if (err != cudaSuccess) return err;
     BRows xs{x, D};
     GateRows wi{w16, H};
     const int nblk = (B + BR - 1) / BR;
-    if ((err = rows_gemm(xs, wi, D, xs, wi, 0, GatesOut{xw, b, B, H, 4 * nblk}, M, G, stream)) !=
-            cudaSuccess ||
+    // cat's slab holds x @ W_ih alone: its loop adds b after h @ W_hh
+    const GatesOut<MODE> slab{xw, MODE == CAT ? nullptr : b, B, H, 4 * nblk};
+    if ((err = rows_gemm(xs, wi, D, xs, wi, 0, slab, M, G, stream)) != cudaSuccess ||
         phases < 2)
         return err;
-    auto kernel = forward_loop<H>;
+    auto kernel = forward_loop<H, MODE>;
     if ((err = prepare(kernel, Geo<H>::FWD_SMEM)) != cudaSuccess) return err;
     kernel<<<nblk, NTC, Geo<H>::FWD_SMEM, stream>>>(
-        xw, h0, c0, w16 + (size_t)D * G, outs, cseq, hT, cT, T, B);
+        xw, b, h0, c0, w16 + (size_t)D * G, outs, cseq, hT, cT, T, B);
     return cudaGetLastError();
 }
 
@@ -899,17 +954,19 @@ cudaError_t forward(const bf16* x, const float* h0, const float* c0, const float
 // B * H) bf16 (the rounded [W_ih; W_hh], W_ih^T and h0), dg (T, B, 4H)
 // bf16, dw_part (splits, D + H, 4H) and db_part (ceil(B / BR), 4H) f32.
 // phases: the first 1 .. 4 of pre-pass, loop, dx, dW + db.
-template <int H>
+template <int H, int MODE>
 cudaError_t backward(const bf16* x, const float* h0, const float* c0, const float* w_ih,
                      const float* w_hh, const float* b, const bf16* outs, const bf16* cseq,
                      const bf16* g_outs, const float* g_hT, const float* g_cT, bf16* dx,
                      float* dh0, float* dc0, float* dw, float* db, bf16* dg, float* dw_part,
-                     float* db_part, float* pre, bf16* w16, int T, int B, int splits,
+                     float* db_part, float* pre, bf16* w16, int T, int B, int D, int splits,
                      int part_rows, int phases, cudaStream_t stream) {
-    constexpr int D = H, G = 4 * H;
+    constexpr int G = 4 * H;
     const int nblk = (B + BR - 1) / BR;
-    if (phases < 1 || phases > BACKWARD_PHASES || part_rows != nblk || splits < 1)
+    if (phases < 1 || phases > BACKWARD_PHASES || part_rows != nblk || splits < 1 ||
+        !serves(D, H))
         return cudaErrorInvalidValue;
+    if (!aligned16(x) || !aligned16(outs)) return cudaErrorMisalignedAddress;
     const long long M = (long long)T * B;
     bf16* w16t = w16 + (size_t)(D + H) * G;  // W_ih^T (G, D)
     bf16* h16 = w16t + (size_t)G * D;        // h0 (B, H)
@@ -918,9 +975,8 @@ cudaError_t backward(const bf16* x, const float* h0, const float* c0, const floa
     BRows xs{x, D};
     GateRows wi{w16, H}, wh{w16 + (size_t)D * G, H};
     HPrev h_prev{h16, outs, B, H};
-    if ((err = rows_gemm(xs, wi, D, h_prev, wh, H, GatesOut{pre, b, B, H, 4 * nblk}, M, G,
-                         stream)) !=
-            cudaSuccess ||
+    const GatesOut<MODE> slab{pre, b, B, H, 4 * nblk};
+    if ((err = rows_gemm(xs, wi, D, h_prev, wh, H, slab, M, G, stream)) != cudaSuccess ||
         phases < 2)
         return err;
     auto kernel = backward_loop<H>;
@@ -942,16 +998,17 @@ cudaError_t backward(const bf16* x, const float* h0, const float* c0, const floa
 }
 
 // Registers and local (spilled) bytes per thread of the bf16 path's
-// kernels at hidden size H, as out[2i], out[2i + 1] for: the forward
-// pre-pass, the forward loop, the backward pre-pass, the backward loop, dx
-template <int H>
+// kernels at hidden size H in mode MODE, as out[2i], out[2i + 1] for: the
+// forward pre-pass, the forward loop, the backward pre-pass, the backward
+// loop, dx (the last two serve both modes)
+template <int H, int MODE>
 cudaError_t usage(int* out) {
     const void* fns[] = {
         reinterpret_cast<const void*>(
-            rows_gemm_kernel<BRows, GateRows, BRows, GateRows, GatesOut>),
-        reinterpret_cast<const void*>(forward_loop<H>),
+            rows_gemm_kernel<BRows, GateRows, BRows, GateRows, GatesOut<MODE>>),
+        reinterpret_cast<const void*>(forward_loop<H, MODE>),
         reinterpret_cast<const void*>(
-            rows_gemm_kernel<BRows, GateRows, HPrev, GateRows, GatesOut>),
+            rows_gemm_kernel<BRows, GateRows, HPrev, GateRows, GatesOut<MODE>>),
         reinterpret_cast<const void*>(backward_loop<H>),
         reinterpret_cast<const void*>(rows_gemm_kernel<BRows, BRows, BRows, BRows, Bf16Out>)};
     for (int i = 0; i < 5; ++i) {
@@ -963,6 +1020,63 @@ cudaError_t usage(int* out) {
     }
     return cudaSuccess;
 }
+
+template <int MODE>
+int usage_at(int H, int* out) {
+    switch (H) {
+        case 32: return (int)usage<32, MODE>(out);
+        case 64: return (int)usage<64, MODE>(out);
+        case 128: return (int)usage<128, MODE>(out);
+    }
+    return (int)cudaErrorInvalidValue;
+}
+
+// The bodies of the C functions of both cells (lstm_scan.cu's fused pair,
+// lstm_cat.cu's cat pair), for lstm::dispatch: the compute dtype is the
+// only branch. bf16 runs the kernels above; f32 lstm_common.cuh's cell
+// kernels, which take D == H and no scratch and run every phase.
+template <int MODE, int H, typename E>
+struct CellForward {
+    static cudaError_t run(const void* x, const float* h0, const float* c0,
+                           const float* w_ih, const float* w_hh, const float* b,
+                           void* outs, void* cseq, float* hT, float* cT, float* xw, void* w16,
+                           int T, int B, int D, int phases, cudaStream_t stream) {
+        if constexpr (std::is_same<E, bf16>::value) {
+            return forward<H, MODE>(static_cast<const E*>(x), h0, c0, w_ih, w_hh, b,
+                                    static_cast<E*>(outs), static_cast<E*>(cseq), hT, cT, xw,
+                                    static_cast<E*>(w16), T, B, D, phases, stream);
+        } else {
+            if (phases != FORWARD_PHASES || D != H) return cudaErrorInvalidValue;
+            return run_forward<H, E, E, MODE>(x, h0, c0, nullptr, nullptr, w_ih, w_hh, b,
+                                              outs, cseq, hT, cT, T, B, 0, stream);
+        }
+    }
+};
+
+template <int MODE, int H, typename E>
+struct CellBackward {
+    static cudaError_t run(const void* x, const float* h0, const float* c0,
+                           const float* w_ih, const float* w_hh, const float* b,
+                           const void* outs, const void* cseq, const void* g_outs,
+                           const float* g_hT, const float* g_cT, void* dx, float* dh0,
+                           float* dc0, float* dw, float* db, void* dg, float* dw_part,
+                           float* db_part, float* pre, void* w16, int T, int B, int D,
+                           int splits, int part_rows, int phases, cudaStream_t stream) {
+        if constexpr (std::is_same<E, bf16>::value) {
+            return backward<H, MODE>(
+                static_cast<const E*>(x), h0, c0, w_ih, w_hh, b, static_cast<const E*>(outs),
+                static_cast<const E*>(cseq), static_cast<const E*>(g_outs), g_hT, g_cT,
+                static_cast<E*>(dx), dh0, dc0, dw, db, static_cast<E*>(dg), dw_part, db_part,
+                pre, static_cast<E*>(w16), T, B, D, splits, part_rows, phases, stream);
+        } else {
+            if (phases != BACKWARD_PHASES || D != H) return cudaErrorInvalidValue;
+            return run_backward<H, E, E, MODE>(
+                x, h0, c0, nullptr, nullptr, w_ih, w_hh, b, outs, cseq, g_outs, g_hT, g_cT,
+                dh0, dc0, nullptr, nullptr, dw, db, dx, nullptr, dg, dw_part, db_part,
+                nullptr, nullptr, T, B, 0, splits, 0, part_rows, stream);
+        }
+    }
+};
 
 }  // namespace tc
 }  // namespace lstm

@@ -19,14 +19,57 @@ from pufferlib_tpu_torch.models.policy import (
     Policy, RecurrentPolicy, count_params)
 from pufferlib_tpu_torch.ops.cuda.lstm_cat import lstm_scan_cat
 from pufferlib_tpu_torch.ops.cuda.lstm_common import (
-    gate_activations, round_to)
+    cell_shape_error, encoder_shape_error, gate_activations, round_to)
 from pufferlib_tpu_torch.ops.cuda.lstm_enc import lstm_scan_enc5
 from pufferlib_tpu_torch.ops.cuda.mlp import mlp_head
 
-__all__ = ['Default', 'LSTMWrapper', 'sample_logits', 'Policy',
-    'RecurrentPolicy', 'count_params']
+__all__ = ['Default', 'LSTMWrapper', 'lstm_route', 'sample_logits',
+    'Policy', 'RecurrentPolicy', 'count_params']
 
 LSTM_KERNELS = ('enc5', 'cat', 'off')
+
+
+def lstm_route(kernel, use_kernel, device, T, D, H, F, num_layers, cdt):
+    """Which LSTM scan LSTMWrapper runs: 'enc5', 'cat' or 'off', decided
+    from shapes before any launch.
+
+    kernel: the selected kernel ('enc5', 'cat' or 'off'); use_kernel: None,
+    True or False; device: where x lies; T: timesteps; D: input_size; H:
+    hidden_size; F: the encoder's feature width when the policy has the
+    encoder_features / encoder_params contract, else None; cdt: the
+    compute dtype. enc5 needs to fuse the encoder: one layer and the
+    contract; otherwise its place goes to cat.
+    - T == 1, use_kernel False, or kernel 'off': 'off' (at T == 1 the
+      plain combined-operand step). These are the only ways to the plain
+      scan on the card: the caller asks for it.
+    - use_kernel True: the selected kernel, or cat where enc5 cannot fuse.
+      On the card a shape that kernel refuses raises ValueError; on the
+      CPU its plain version runs.
+    - use_kernel None: 'off' off the card. On the card the first kernel
+      that serves the shape, from the selected one on: enc5 (where it can
+      fuse), then cat; a shape neither serves raises ValueError, which
+      names use_kernel=False, the way to the plain scan."""
+    if T == 1 or use_kernel is False or kernel == 'off':
+        return 'off'
+    fuse = kernel == 'enc5' and num_layers == 1 and F is not None
+    on_card = torch.device(device).type == 'cuda'
+    if use_kernel:
+        if on_card:
+            err = encoder_shape_error(F, D, H) if fuse \
+                else cell_shape_error(D, H, cdt)
+            if err is not None:
+                raise ValueError(err)
+        return 'enc5' if fuse else 'cat'
+    if not on_card:
+        return 'off'
+    if fuse and encoder_shape_error(F, D, H) is None:
+        return 'enc5'
+    err = cell_shape_error(D, H, cdt)
+    if err is not None:
+        raise ValueError(f'{err}; no CUDA LSTM kernel serves this shape: '
+            f'pass use_kernel=False (or kernel=\'off\') to run the plain '
+            f'scan on the card')
+    return 'cat'
 
 
 def _action_info(action_space):
@@ -53,11 +96,15 @@ class Default(nn.Module):
     use_kernel: run encoder + relu + head as one CUDA kernel
     (ops/cuda/mlp.py), the counterpart of the JAX `use_pallas=True`.
     generator: torch.Generator for the init (CPU); None uses torch's
-    global one."""
+    global one. decoder_input_size: the width decode_actions takes, which
+    the JAX head's Dense infers from its input: the hidden size of an
+    LSTMWrapper around this policy where it differs from the encoder's
+    hidden_size (its input_size); None is hidden_size."""
 
     def __init__(self, obs_shape, action_space, hidden_size=128,
             dtype=torch.float32, emulated=None, use_kernel=False,
-            init_style='orthogonal', generator=None):
+            init_style='orthogonal', generator=None,
+            decoder_input_size=None):
         super().__init__()
         if emulated is not None and np.dtype(
                 emulated.emulated_observation_dtype).names is not None:
@@ -73,7 +120,8 @@ class Default(nn.Module):
         self.is_multidiscrete, self.nvec = _action_info(action_space)
         in_features = int(np.prod(self.obs_shape))
         self.encoder = nn.Linear(in_features, hidden_size)
-        self.head = nn.Linear(hidden_size, sum(self.nvec) + 1)
+        self.head = nn.Linear(decoder_input_size or hidden_size,
+            sum(self.nvec) + 1)
         self._init_params(generator)
 
     def _init_params(self, generator):
@@ -96,9 +144,12 @@ class Default(nn.Module):
                     generator=generator)
                 off += n
             if self.init_style == 'torch':
-                bound = 1.0 / math.sqrt(head.in_features)
-                _uniform_(head.weight[off:], bound, generator)
-                _uniform_(head.bias[off:], bound, generator)
+                # the JAX init's bounds: the weight's fan-in, and the
+                # encoder's width for the bias
+                _uniform_(head.weight[off:], 1.0 / math.sqrt(
+                    head.in_features), generator)
+                _uniform_(head.bias[off:], 1.0 / math.sqrt(self.hidden_size),
+                    generator)
             else:
                 nn.init.orthogonal_(head.weight[off:], 1.0,
                     generator=generator)
@@ -165,14 +216,17 @@ class LSTMWrapper(nn.Module):
 
     kernel: 'enc5' (the default), 'cat' or 'off', the counterpart of the
     JAX PUFFER_LSTM_KERNEL. use_kernel (None, True or False), the
-    counterpart of use_pallas: None runs the kernels when the input lies
-    on CUDA and T > 1. With the kernels on, 'enc5' fuses the policy's
-    encoder into the LSTM kernel (T > 1, one layer, a policy with the
-    encoder_features / encoder_params contract); otherwise every layer
-    runs the 'cat' kernel with the encoder outside. On the CPU the
-    kernels' plain versions run. 'off' is the plain scan with the JAX
-    package's own rounding points. T == 1 is always the plain
-    combined-operand step."""
+    counterpart of use_pallas. lstm_route decides, from shapes: None runs
+    a kernel where the input lies on CUDA and T > 1 ('enc5' first where
+    it can fuse and serves the shape, then 'cat') and raises on the card
+    for a shape neither serves; True runs the selected kernel and raises
+    on the card for a shape it refuses; False runs the 'off' scan, on the
+    card too. 'enc5' fuses the policy's encoder into the LSTM
+    kernel (one layer, a policy with the encoder_features /
+    encoder_params contract); otherwise every layer runs the 'cat' kernel
+    with the encoder outside. On the CPU the kernels' plain versions run.
+    'off' is the plain scan with the JAX package's own rounding points.
+    T == 1 is always the plain combined-operand step."""
 
     def __init__(self, policy, obs_shape, input_size=128, hidden_size=128,
             num_layers=1, dtype=torch.float32, kernel='enc5', use_kernel=None,
@@ -181,6 +235,11 @@ class LSTMWrapper(nn.Module):
         if kernel not in LSTM_KERNELS:
             raise ValueError(
                 f'kernel must be one of {LSTM_KERNELS}, got {kernel!r}')
+        head = getattr(policy, 'head', None)
+        if isinstance(head, nn.Linear) and head.in_features != hidden_size:
+            raise ValueError(f'the policy head reads {head.in_features} '
+                f'features but the LSTM emits hidden_size={hidden_size}: '
+                f'build the policy with decoder_input_size={hidden_size}')
         self.policy = policy
         self.obs_shape = tuple(obs_shape)
         self.input_size = input_size
@@ -200,6 +259,17 @@ class LSTMWrapper(nn.Module):
             setattr(self, f'w_ih_l{layer}', w_ih)
             setattr(self, f'w_hh_l{layer}', w_hh)
             setattr(self, f'b_l{layer}', nn.Parameter(torch.zeros(4 * H)))
+
+    def route(self, T, device):
+        """lstm_route for an input of T steps on `device`: 'enc5', 'cat'
+        or 'off'."""
+        F = None
+        if (hasattr(self.policy, 'encoder_features')
+                and hasattr(self.policy, 'encoder_params')):
+            F = self.policy.encoder_params()[0].shape[0]
+        return lstm_route(self.kernel, self.use_kernel, device, T,
+            self.input_size, self.hidden_size, F, self.num_layers,
+            self.dtype)
 
     def layer_params(self, layer):
         return (getattr(self, f'w_ih_l{layer}'),
@@ -223,14 +293,8 @@ class LSTMWrapper(nn.Module):
         else:
             raise ValueError(f'Invalid input tensor shape {x_shape}')
 
-        use_kernel = self.use_kernel
-        if use_kernel is None:
-            use_kernel = x.device.type == 'cuda' and T > 1
-        kind = self.kernel if use_kernel else 'off'
-        use_kernel = kind != 'off'
-        fuse_enc = (kind == 'enc5' and T > 1 and self.num_layers == 1
-            and hasattr(self.policy, 'encoder_features')
-            and hasattr(self.policy, 'encoder_params'))
+        route = self.route(T, x.device)
+        fuse_enc = route == 'enc5'
 
         lead = (T, B) if time_major else (B, T)
         x = x.reshape((B * T,) + self.obs_shape)
@@ -266,7 +330,7 @@ class LSTMWrapper(nn.Module):
                     layer_in[0] if time_major else layer_in[:, 0],
                     h_l, c_l, w_ih, w_hh, b)
                 layer_in = h_fin[None] if time_major else h_fin[:, None]
-            elif use_kernel and fuse_enc and layer == 0:
+            elif fuse_enc:
                 w_enc, b_enc = self.policy.encoder_params()
                 if w_enc.shape[-1] != self.input_size:
                     raise ValueError(f'policy encoder emits {w_enc.shape[-1]}'
@@ -276,7 +340,7 @@ class LSTMWrapper(nn.Module):
                     c_l.contiguous(), w_enc.contiguous(), b_enc, w_ih, w_hh,
                     b, cdt)
                 layer_in = to_tm(outs)
-            elif use_kernel:
+            elif route == 'cat':
                 outs, h_fin, c_fin = lstm_scan_cat(
                     to_tm(layer_in).to(cdt).contiguous(), h_l.contiguous(),
                     c_l.contiguous(), w_ih, w_hh, b, cdt)

@@ -17,6 +17,14 @@ stored outs and cseq), rounds dgates to cdt for the two contractions
 [dx | dh_prev] = dgates @ W^T and dW = [x | h_prev]^T dgates, and sums db
 from the unrounded dgates.
 
+On the card the kernels of csrc/lstm_cat.cu run: in bf16 csrc/lstm_tc.cuh's
+tensor-core kernels in mode CAT (x @ W_ih as a GEMM over all T*B rows
+into an f32 slab, the loop's accumulators starting from it, h @ W_hh
+onto them with W_hh held in shared memory, then + b; the gate recompute,
+dx and dW as GEMMs around a reverse loop), at any input width D that is
+a multiple of 8 up to lstm_common.tc_max_input(H); in f32, the exact test
+mode, lstm_common.cuh's FMA cell kernels, which take D == H.
+
 lstm_cat_reference and lstm_cat_backward_reference are the plain
 versions: explicit PyTorch that follows the TPU kernels' math and
 rounding points (not autograd of the forward). The autograd.Function runs
@@ -25,19 +33,22 @@ raises. chip_smoke.py holds the kernels against them on the card.
 """
 import torch
 
-from pufferlib_tpu_torch.ops.cuda._build import (
-    CudaKernel, I, P, ptr, stream_handle)
+from pufferlib_tpu_torch.ops.cuda._build import CudaKernel, I, P
 from pufferlib_tpu_torch.ops.cuda.lstm_common import (
-    CDTS, backward_inputs, blocks, cell_backward_step, check_kernel_shape,
-    check_placement, check_state_and_weights, gate_activations, round_to,
-    scan_forward, splitk_splits)
+    BACKWARD_PHASES, FORWARD_PHASES, backward_inputs, cell_backward_step,
+    check_cell_inputs, gate_activations, launch_cell_backward,
+    launch_cell_forward, round_to, scan_forward)
 
 __all__ = ['lstm_scan_cat', 'lstm_cat_reference',
     'lstm_cat_backward_reference', 'KERNEL']
 
 KERNEL = CudaKernel('lstm_cat.cu', {
-    'lstm_cat_forward': [P] * 10 + [I] * 4 + [P],
-    'lstm_cat_backward': [P] * 19 + [I] * 6 + [P],
+    'lstm_cat_forward': [P] * 12 + [I] * 6 + [P],
+    'lstm_cat_backward': [P] * 21 + [I] * 8 + [P],
+    # not a launch: the bf16 kernels' registers and spills
+    'lstm_cat_tc_usage': [I, P],
+    # not a launch: the widest input lstm_tc.cuh serves at a hidden size
+    'lstm_tc_max_input': [I, P],
 })
 
 
@@ -75,66 +86,22 @@ def lstm_cat_backward_reference(x, h0, c0, w_ih, w_hh, b, outs, cseq,
     return dx, dh, dc, dw[:D], dw[D:], db
 
 
-def _check(x, h0, c0, w_ih, w_hh, b, cdt):
-    if cdt not in CDTS:
-        raise ValueError(f'compute dtype must be one of {CDTS}, got {cdt}')
-    if x.dim() != 3 or x.dtype != cdt:
-        raise ValueError(f'x must be (T, B, D) in {cdt}, got {x.dtype} '
-            f'{tuple(x.shape)}')
-    T, B, D = x.shape
-    if T < 1:
-        raise ValueError('x needs at least one timestep')
-    check_placement('x', x, x.device)
-    return check_state_and_weights(B, D, h0, c0, w_ih, w_hh, b, x.device)
-
-
-def _launch_forward(x, h0, c0, w_ih, w_hh, b, cdt):
-    T, B, D = x.shape
-    H = h0.shape[1]
-    check_kernel_shape(D, H, x.device)
-    outs = torch.empty((T, B, H), dtype=cdt, device=x.device)
-    cseq = torch.empty_like(outs)
-    hT = torch.empty_like(h0)
-    cT = torch.empty_like(c0)
-    if B > 0:
-        KERNEL.launch('lstm_cat_forward', ptr(x), ptr(h0), ptr(c0),
-            ptr(w_ih), ptr(w_hh), ptr(b), ptr(outs), ptr(cseq), ptr(hT),
-            ptr(cT), T, B, H, int(cdt == torch.bfloat16), stream_handle(x))
-    return outs, hT, cT, cseq
+def _launch_forward(x, h0, c0, w_ih, w_hh, b, cdt, phases=FORWARD_PHASES):
+    return launch_cell_forward(KERNEL, 'lstm_cat_forward', x, h0, c0, w_ih,
+        w_hh, b, cdt, True, phases)
 
 
 def _launch_backward(x, h0, c0, w_ih, w_hh, b, outs, cseq, g_outs, g_hT,
-        g_cT, cdt):
-    T, B, D = x.shape
-    H = h0.shape[1]
-    G = 4 * H
-    check_kernel_shape(D, H, x.device)
-    dev = x.device
-    dx = torch.empty_like(x)
-    dh0 = torch.empty_like(h0)
-    dc0 = torch.empty_like(c0)
-    dw = torch.empty((D + H, G), dtype=torch.float32, device=dev)
-    db = torch.empty((G,), dtype=torch.float32, device=dev)
-    if B == 0:
-        return dx, dh0, dc0, dw[:D].zero_(), dw[D:].zero_(), db.zero_()
-    splits = splitk_splits(D + H, G, T * B, dev)
-    dg = torch.empty((T, B, G), dtype=cdt, device=dev)
-    dw_part = torch.empty((splits, D + H, G), dtype=torch.float32,
-        device=dev)
-    db_part = torch.empty((blocks(B), G), dtype=torch.float32, device=dev)
-    KERNEL.launch('lstm_cat_backward', ptr(x), ptr(h0), ptr(c0), ptr(w_ih),
-        ptr(w_hh), ptr(b), ptr(outs), ptr(cseq), ptr(g_outs), ptr(g_hT),
-        ptr(g_cT), ptr(dx), ptr(dh0), ptr(dc0), ptr(dw), ptr(db), ptr(dg),
-        ptr(dw_part), ptr(db_part), T, B, H, int(cdt == torch.bfloat16),
-        splits, blocks(B), stream_handle(x))
-    return dx, dh0, dc0, dw[:D], dw[D:], db
+        g_cT, cdt, phases=BACKWARD_PHASES):
+    return launch_cell_backward(KERNEL, 'lstm_cat_backward', x, h0, c0, w_ih,
+        w_hh, b, outs, cseq, g_outs, g_hT, g_cT, cdt, phases)
 
 
 class _LSTMCat(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, h0, c0, w_ih, w_hh, b, cdt):
-        _check(x, h0, c0, w_ih, w_hh, b, cdt)
+        check_cell_inputs(x, h0, c0, w_ih, w_hh, b, cdt)
         if x.device.type == 'cpu':
             outs, hT, cT, cseq = lstm_cat_reference(x, h0, c0, w_ih, w_hh,
                 b, cdt)

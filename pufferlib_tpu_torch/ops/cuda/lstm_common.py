@@ -1,22 +1,38 @@
 """What the LSTM kernel wrappers lstm_cat.py, lstm_enc.py, lstm_scan.py and
 archive/ share: the encoder, the cell loop and the reverse step of their
-plain versions, in the TPU kernels' order of operations, the input
-checks, and the launch geometry of csrc/lstm_common.cuh.
+plain versions, in the TPU kernels' order of operations, the input and
+shape checks, the launch geometry of csrc/lstm_common.cuh and
+csrc/lstm_tc.cuh, and the launches of the two cells whose bf16 kernels
+run on the tensor cores (cat's and lstm_scan_fused's).
 """
 import math
 
 import torch
 
+from pufferlib_tpu_torch.ops.cuda._build import (
+    ptr, ptr_or_null, stream_handle)
+
 CDTS = (torch.float32, torch.bfloat16)
-# What the CUDA kernels serve (csrc/lstm_common.cuh): hidden sizes whose
-# units tile the 256-thread block, and an input width equal to the hidden
-# size (layer 0 with input_size == hidden_size, and every later layer)
+# Hidden sizes of every CUDA LSTM kernel: the FMA kernels' units tile the
+# 256-thread block (csrc/lstm_common.cuh), the tensor-core loops' groups
+# of 8 units the 16-warp block (csrc/lstm_tc.cuh Geo). The FMA kernels
+# also take only an input width equal to the hidden size (layer 0 with
+# input_size == hidden_size, and every later layer).
 KERNEL_HIDDEN = (32, 64, 128)
 # batch rows per block of the recurrent kernels (lstm_common.cuh BT)
 ROWS_PER_BLOCK = 32
 # feature widths whose W_enc the encoder-fused kernels hold in shared
 # memory (lstm_common.cuh forward_smem / backward_smem)
 KERNEL_MAX_FEATURES = 128
+# batch rows per block of the tensor-core loops (lstm_tc.cuh BR)
+TC_ROWS_PER_BLOCK = 64
+# phases of the tensor-core forward (pre-pass, loop) and backward
+# (pre-pass, loop, dx, dW + db); a launch runs the first `phases` of them:
+# all, except to time a phase
+FORWARD_PHASES = 2
+BACKWARD_PHASES = 4
+# shared memory a block may use (lstm_common.cuh MAX_SMEM)
+MAX_SMEM = 227 * 1024
 
 
 def round_to(t, cdt):
@@ -167,23 +183,83 @@ def check_placement(name, t, device):
         raise ValueError(f'{name} must be contiguous')
 
 
-def check_kernel_shape(D, H, device):
-    """Raise for a CUDA launch the kernels do not serve."""
-    if device.type != 'cuda':
-        raise ValueError(f'no LSTM kernel for device {device}')
+def tc_max_input(H):
+    """The widest input the tensor-core kernels take at hidden size H: the
+    backward pre-pass holds its block's column of [W_ih; W_hh], D + H rows
+    in chunks of 64 x (128 + 8) bf16, beside a ring of two 64 x (64 + 8)
+    bf16 tiles, in MAX_SMEM (lstm_tc.cuh gemm_smem and serves). The
+    checks made before a launch need it without the library, so this
+    copies the constants; chip_smoke.py and tests/test_torch_cuda.py hold
+    it to the C function lstm_tc_max_input (csrc/lstm_cat.cu) on the
+    card."""
+    chunks = (MAX_SMEM - 2 * 2 * 64 * (64 + 8)) // (2 * 64 * (128 + 8))
+    return 64 * (chunks - math.ceil(H / 64))
+
+
+def fma_shape_error(D, H):
+    """Why the FMA kernels (lstm_common.cuh; every LSTM kernel but the
+    bf16 cat and fused ones) refuse input width D and hidden size H, or
+    None."""
     if H not in KERNEL_HIDDEN or D != H:
-        raise ValueError(f'the CUDA LSTM kernels take hidden sizes '
+        return (f'the CUDA LSTM kernels on FMA take hidden sizes '
             f'{KERNEL_HIDDEN} with input width equal to the hidden size; '
             f'got input {D}, hidden {H}')
+    return None
+
+
+def tc_shape_error(D, H):
+    """Why the bf16 tensor-core kernels (lstm_tc.cuh) refuse input width D
+    and hidden size H, or None: rows of x move as 16-byte copies, so D is a
+    multiple of 8, up to tc_max_input(H)."""
+    if H not in KERNEL_HIDDEN:
+        return (f'the bf16 tensor-core CUDA LSTM kernels take hidden sizes '
+            f'{KERNEL_HIDDEN}; got hidden {H}')
+    if D < 8 or D % 8 or D > tc_max_input(H):
+        return (f'the bf16 tensor-core CUDA LSTM kernels take input widths '
+            f'that are multiples of 8 up to {tc_max_input(H)} at hidden '
+            f'size {H}; got input {D}')
+    return None
+
+
+def cell_shape_error(D, H, cdt):
+    """Why the cat and fused kernels refuse (D, H) in cdt, or None: their
+    bf16 kernels run on the tensor cores, their f32 ones on FMA."""
+    return tc_shape_error(D, H) if cdt == torch.bfloat16 \
+        else fma_shape_error(D, H)
+
+
+def encoder_shape_error(F, D, H):
+    """Why the encoder-fused kernels (FMA in both dtypes) refuse F
+    features, encoder width D and hidden size H, or None."""
+    err = fma_shape_error(D, H)
+    if err is None and F > KERNEL_MAX_FEATURES:
+        err = (f'the CUDA encoder-fused LSTM kernels take at most '
+            f'{KERNEL_MAX_FEATURES} features, got {F}')
+    return err
+
+
+def _refuse(device, err):
+    if device.type != 'cuda':
+        raise ValueError(f'no LSTM kernel for device {device}')
+    if err is not None:
+        raise ValueError(err)
+
+
+def check_kernel_shape(D, H, device):
+    """Raise for a CUDA launch the FMA kernels do not serve."""
+    _refuse(device, fma_shape_error(D, H))
+
+
+def check_cell_kernel_shape(D, H, cdt, device):
+    """Raise for a launch of the cat or fused kernels that they do not
+    serve in cdt."""
+    _refuse(device, cell_shape_error(D, H, cdt))
 
 
 def check_encoder_kernel_shape(feats, w_enc, H):
-    """check_kernel_shape for an encoder-fused launch, and its feature
-    width."""
-    check_kernel_shape(w_enc.shape[1], H, feats.device)
-    if feats.shape[2] > KERNEL_MAX_FEATURES:
-        raise ValueError(f'the CUDA encoder-fused LSTM kernels take at most '
-            f'{KERNEL_MAX_FEATURES} features, got {feats.shape[2]}')
+    """Raise for an encoder-fused launch the kernels do not serve."""
+    _refuse(feats.device, encoder_shape_error(feats.shape[2],
+        w_enc.shape[1], H))
 
 
 def splitk_splits(M, N, K, device):
@@ -213,3 +289,91 @@ def needs_cseq(*tensors):
     gradient. Read before autograd.Function.apply, which turns recording
     off inside forward."""
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def check_cell_inputs(x, h0, c0, w_ih, w_hh, b, cdt):
+    """Shapes, dtypes, device and contiguity of a cell scan's inputs (cat
+    and fused): x (T, B, D) in cdt, the rest float32; returns H."""
+    check_cdt(cdt)
+    if x.dim() != 3 or x.dtype != cdt:
+        raise ValueError(f'x must be (T, B, D) in {cdt}, got {x.dtype} '
+            f'{tuple(x.shape)}')
+    T, B, D = x.shape
+    if T < 1:
+        raise ValueError('x needs at least one timestep')
+    check_placement('x', x, x.device)
+    return check_state_and_weights(B, D, h0, c0, w_ih, w_hh, b, x.device)
+
+
+def forward_outputs(T, h0, c0, cdt, save_cseq):
+    """Uninitialised (outs, hT, cT, cseq) of a forward launch; cseq None
+    without save_cseq."""
+    outs = torch.empty((T, *h0.shape), dtype=cdt, device=h0.device)
+    cseq = torch.empty_like(outs) if save_cseq else None
+    return outs, torch.empty_like(h0), torch.empty_like(c0), cseq
+
+
+def tc_slab(T, B, H, device):
+    """The f32 slab of the tensor-core kernels (the forward's XW or S, the
+    backward's P): the 4H gate columns of T steps of B rows padded to
+    whole blocks, in the loops' order (lstm_tc.cuh slab_index)."""
+    rows = math.ceil(B / TC_ROWS_PER_BLOCK) * TC_ROWS_PER_BLOCK
+    return torch.empty((T * rows * 4 * H,), dtype=torch.float32,
+        device=device)
+
+
+def launch_cell_forward(kernel, fn, x, h0, c0, w_ih, w_hh, b, cdt,
+        save_cseq=True, phases=FORWARD_PHASES):
+    """The forward C function `fn` of a cell pair (lstm_cat_forward,
+    lstm_fused_forward): (outs, hT, cT, cseq). In bf16 its scratch is the
+    slab and the bf16 [W_ih; W_hh]; in f32 none."""
+    T, B, D = x.shape
+    H = h0.shape[1]
+    check_cell_kernel_shape(D, H, cdt, x.device)
+    outs, hT, cT, cseq = forward_outputs(T, h0, c0, cdt, save_cseq)
+    if B > 0:
+        tc = cdt == torch.bfloat16
+        xw = tc_slab(T, B, H, x.device) if tc else None
+        w16 = torch.empty(((D + H) * 4 * H,), dtype=torch.bfloat16,
+            device=x.device) if tc else None
+        kernel.launch(fn, ptr(x), ptr(h0), ptr(c0), ptr(w_ih), ptr(w_hh),
+            ptr(b), ptr(outs), ptr_or_null(cseq), ptr(hT), ptr(cT),
+            ptr_or_null(xw), ptr_or_null(w16), T, B, D, H, int(tc), phases,
+            stream_handle(x))
+    return outs, hT, cT, cseq
+
+
+def launch_cell_backward(kernel, fn, x, h0, c0, w_ih, w_hh, b, outs, cseq,
+        g_outs, g_hT, g_cT, cdt, phases=BACKWARD_PHASES):
+    """The backward C function `fn` of a cell pair (lstm_cat_backward,
+    lstm_fused_backward): (dx, dh0, dc0, dW_ih, dW_hh, db)."""
+    T, B, D = x.shape
+    H = h0.shape[1]
+    G = 4 * H
+    check_cell_kernel_shape(D, H, cdt, x.device)
+    dev = x.device
+    dx = torch.empty_like(x)
+    dh0 = torch.empty_like(h0)
+    dc0 = torch.empty_like(c0)
+    dw = torch.empty((D + H, G), dtype=torch.float32, device=dev)
+    db = torch.empty((G,), dtype=torch.float32, device=dev)
+    if B == 0:
+        return dx, dh0, dc0, dw[:D].zero_(), dw[D:].zero_(), db.zero_()
+    tc = cdt == torch.bfloat16
+    splits = splitk_splits(D + H, G, T * B, dev)
+    dg = torch.empty((T, B, G), dtype=cdt, device=dev)
+    dw_part = torch.empty((splits, D + H, G), dtype=torch.float32,
+        device=dev)
+    # db partials, a row per block: of 64 batch rows in bf16, 32 in f32
+    part_rows = math.ceil(B / TC_ROWS_PER_BLOCK) if tc else blocks(B)
+    db_part = torch.empty((part_rows, G), dtype=torch.float32, device=dev)
+    # bf16 scratch: the P slab, and [W_ih; W_hh], W_ih^T and h0 in bf16
+    pre = tc_slab(T, B, H, dev) if tc else None
+    w16 = torch.empty(((D + H) * G + G * D + B * H,), dtype=torch.bfloat16,
+        device=dev) if tc else None
+    kernel.launch(fn, ptr(x), ptr(h0), ptr(c0), ptr(w_ih), ptr(w_hh), ptr(b),
+        ptr(outs), ptr(cseq), ptr(g_outs), ptr(g_hT), ptr(g_cT), ptr(dx),
+        ptr(dh0), ptr(dc0), ptr(dw), ptr(db), ptr(dg), ptr(dw_part),
+        ptr(db_part), ptr_or_null(pre), ptr_or_null(w16), T, B, D, H, int(tc),
+        splits, part_rows, phases, stream_handle(x))
+    return dx, dh0, dc0, dw[:D], dw[D:], db

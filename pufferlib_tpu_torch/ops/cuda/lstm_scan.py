@@ -29,8 +29,9 @@ Gate order, rounding points and the saved outs/cseq are lstm_cat.py's.
 On the card, lstm_scan_fused in bf16 runs csrc/lstm_tc.cuh's tensor-core
 kernels (the projections as GEMMs over all T*B rows, W_hh held in shared
 memory by the recurrent loops) with f32 scratch slabs of the
-projections; in f32, the exact test mode, it runs the FMA cell kernels of
-lstm_common.cuh.
+projections, at any input width D that is a multiple of 8 up to
+lstm_common.tc_max_input(H); in f32, the exact test mode, it runs the FMA
+cell kernels of lstm_common.cuh, which take D == H.
 A call none of whose inputs requires a gradient writes no cell sequence
 (the TPU package's `_noresid` kernels); on the card the forward kernel is
 then handed a null cseq.
@@ -45,10 +46,10 @@ import torch
 from pufferlib_tpu_torch.ops.cuda._build import (
     CudaKernel, I, P, ptr, ptr_or_null, stream_handle)
 from pufferlib_tpu_torch.ops.cuda.lstm_common import (
-    backward_inputs, blocks, cell_backward_step, check_cdt,
-    check_kernel_shape, check_placement, check_scan_inputs,
-    check_state_and_weights, gate_activations, needs_cseq, round_to,
-    scan_cells, splitk_splits)
+    BACKWARD_PHASES, FORWARD_PHASES, backward_inputs, cell_backward_step,
+    check_cell_inputs, check_kernel_shape, check_scan_inputs,
+    forward_outputs, gate_activations, launch_cell_backward,
+    launch_cell_forward, needs_cseq, round_to, scan_cells, splitk_splits)
 
 __all__ = ['lstm_scan', 'lstm_scan_fused', 'lstm_scan_reference',
     'lstm_scan_backward_reference', 'lstm_scan_fused_reference',
@@ -57,18 +58,11 @@ __all__ = ['lstm_scan', 'lstm_scan_fused', 'lstm_scan_reference',
 KERNEL = CudaKernel('lstm_scan.cu', {
     'lstm_scan_forward': [P] * 8 + [I] * 5 + [P],
     'lstm_scan_backward': [P] * 15 + [I] * 6 + [P],
-    'lstm_fused_forward': [P] * 12 + [I] * 5 + [P],
-    'lstm_fused_backward': [P] * 21 + [I] * 7 + [P],
+    'lstm_fused_forward': [P] * 12 + [I] * 6 + [P],
+    'lstm_fused_backward': [P] * 21 + [I] * 8 + [P],
     # not a launch: the bf16 kernels' registers and spills
     'lstm_fused_tc_usage': [I, P],
 })
-# batch rows per block of lstm_scan_fused's bf16 loops (lstm_tc.cuh BR)
-TC_ROWS_PER_BLOCK = 64
-# phases of lstm_fused_forward (pre-pass, loop) and lstm_fused_backward
-# (pre-pass, loop, dx, dW + db) in bf16 (csrc/lstm_tc.cuh); a launch runs
-# the first `phases` of them: all, except to time a phase
-FORWARD_PHASES = 2
-BACKWARD_PHASES = 4
 
 
 def lstm_scan_reference(x_proj, h0, c0, w_hh, cdt=torch.bfloat16,
@@ -140,29 +134,11 @@ def lstm_scan_fused_backward_reference(x, h0, c0, w_ih, w_hh, b, outs, cseq,
     return dx, dh, dc, dwi, dwh, db
 
 
-def _check_fused(x, h0, c0, w_ih, w_hh, b, cdt):
-    check_cdt(cdt)
-    if x.dim() != 3 or x.dtype != cdt:
-        raise ValueError(f'x must be (T, B, D) in {cdt}, got {x.dtype} '
-            f'{tuple(x.shape)}')
-    T, B, D = x.shape
-    if T < 1:
-        raise ValueError('x needs at least one timestep')
-    check_placement('x', x, x.device)
-    return check_state_and_weights(B, D, h0, c0, w_ih, w_hh, b, x.device)
-
-
-def _forward_outputs(T, h0, c0, cdt, save_cseq):
-    outs = torch.empty((T, *h0.shape), dtype=cdt, device=h0.device)
-    cseq = torch.empty_like(outs) if save_cseq else None
-    return outs, torch.empty_like(h0), torch.empty_like(c0), cseq
-
-
 def _launch_scan_forward(x_proj, h0, c0, w_hh, cdt, save_cseq=True):
     T, B, _ = x_proj.shape
     H = h0.shape[1]
     check_kernel_shape(H, H, x_proj.device)
-    outs, hT, cT, cseq = _forward_outputs(T, h0, c0, cdt, save_cseq)
+    outs, hT, cT, cseq = forward_outputs(T, h0, c0, cdt, save_cseq)
     if B > 0:
         KERNEL.launch('lstm_scan_forward', ptr(x_proj), ptr(h0), ptr(c0),
             ptr(w_hh), ptr(outs), ptr_or_null(cseq), ptr(hT), ptr(cT), T, B,
@@ -197,66 +173,16 @@ def _launch_scan_backward(x_proj, h0, c0, w_hh, outs, cseq, g_outs, g_hT,
     return dxp, dh0, dc0, dw
 
 
-def _slab(T, B, H, device):
-    """The f32 slab (XW or P) of lstm_tc.cuh's bf16 kernels: the 4H gate
-    columns of T steps of B rows padded to whole blocks, in the loops'
-    order (slab_index)."""
-    rows = -(-B // TC_ROWS_PER_BLOCK) * TC_ROWS_PER_BLOCK
-    return torch.empty((T * rows * 4 * H,), dtype=torch.float32,
-        device=device)
-
-
 def _launch_fused_forward(x, h0, c0, w_ih, w_hh, b, cdt, save_cseq=True,
         phases=FORWARD_PHASES):
-    T, B, D = x.shape
-    H = h0.shape[1]
-    check_kernel_shape(D, H, x.device)
-    outs, hT, cT, cseq = _forward_outputs(T, h0, c0, cdt, save_cseq)
-    if B > 0:
-        # bf16 scratch: the XW slab and the bf16 [W_ih; W_hh]
-        tc = cdt == torch.bfloat16
-        xw = _slab(T, B, H, x.device) if tc else None
-        w16 = torch.empty(((D + H) * 4 * H,), dtype=torch.bfloat16,
-            device=x.device) if tc else None
-        KERNEL.launch('lstm_fused_forward', ptr(x), ptr(h0), ptr(c0),
-            ptr(w_ih), ptr(w_hh), ptr(b), ptr(outs), ptr_or_null(cseq),
-            ptr(hT), ptr(cT), ptr_or_null(xw), ptr_or_null(w16), T, B, H,
-            int(tc), phases, stream_handle(x))
-    return outs, hT, cT, cseq
+    return launch_cell_forward(KERNEL, 'lstm_fused_forward', x, h0, c0, w_ih,
+        w_hh, b, cdt, save_cseq, phases)
 
 
 def _launch_fused_backward(x, h0, c0, w_ih, w_hh, b, outs, cseq, g_outs,
         g_hT, g_cT, cdt, phases=BACKWARD_PHASES):
-    T, B, D = x.shape
-    H = h0.shape[1]
-    G = 4 * H
-    check_kernel_shape(D, H, x.device)
-    dev = x.device
-    dx = torch.empty_like(x)
-    dh0 = torch.empty_like(h0)
-    dc0 = torch.empty_like(c0)
-    dw = torch.empty((D + H, G), dtype=torch.float32, device=dev)
-    db = torch.empty((G,), dtype=torch.float32, device=dev)
-    if B == 0:
-        return dx, dh0, dc0, dw[:D].zero_(), dw[D:].zero_(), db.zero_()
-    tc = cdt == torch.bfloat16
-    splits = splitk_splits(D + H, G, T * B, dev)
-    dg = torch.empty((T, B, G), dtype=cdt, device=dev)
-    dw_part = torch.empty((splits, D + H, G), dtype=torch.float32,
-        device=dev)
-    # db partials, a row per block: of 64 batch rows in bf16, 32 in f32
-    part_rows = -(-B // TC_ROWS_PER_BLOCK) if tc else blocks(B)
-    db_part = torch.empty((part_rows, G), dtype=torch.float32, device=dev)
-    # bf16 scratch: the P slab, and [W_ih; W_hh], W_ih^T and h0 in bf16
-    pre = _slab(T, B, H, dev) if tc else None
-    w16 = torch.empty(((D + H) * G + G * D + B * H,), dtype=torch.bfloat16,
-        device=dev) if tc else None
-    KERNEL.launch('lstm_fused_backward', ptr(x), ptr(h0), ptr(c0), ptr(w_ih),
-        ptr(w_hh), ptr(b), ptr(outs), ptr(cseq), ptr(g_outs), ptr(g_hT),
-        ptr(g_cT), ptr(dx), ptr(dh0), ptr(dc0), ptr(dw), ptr(db), ptr(dg),
-        ptr(dw_part), ptr(db_part), ptr_or_null(pre), ptr_or_null(w16), T, B,
-        H, int(tc), splits, part_rows, phases, stream_handle(x))
-    return dx, dh0, dc0, dw[:D], dw[D:], db
+    return launch_cell_backward(KERNEL, 'lstm_fused_backward', x, h0, c0,
+        w_ih, w_hh, b, outs, cseq, g_outs, g_hT, g_cT, cdt, phases)
 
 
 class _LSTMScan(torch.autograd.Function):
@@ -287,7 +213,7 @@ class _LSTMScanFused(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, h0, c0, w_ih, w_hh, b, cdt, save_cseq):
-        _check_fused(x, h0, c0, w_ih, w_hh, b, cdt)
+        check_cell_inputs(x, h0, c0, w_ih, w_hh, b, cdt)
         fn = lstm_scan_fused_reference if x.device.type == 'cpu' \
             else _launch_fused_forward
         outs, hT, cT, cseq = fn(x, h0, c0, w_ih, w_hh, b, cdt, save_cseq)

@@ -11,8 +11,9 @@ bf16 (one bf16 ulp of a hidden unit that rounds the other way); the LSTM
 kernels (enc5, cat, enc, scan, fused and the archived enc2, enc3, enc4,
 enc6, tm) 1e-5 in f32 and 2e-2 in bf16 of max(1, max |plain|) per output
 and gradient (sums in another order; in bf16 a value that rounds one ulp
-the other way inside the recurrence). lstm_scan_fused runs its
-tensor-core kernels in bf16 and its FMA kernels in f32.
+the other way inside the recurrence). lstm_scan_cat and lstm_scan_fused
+run their tensor-core kernels in bf16 (also at input widths other than
+the hidden size) and their FMA kernels in f32.
 """
 import importlib
 
@@ -143,26 +144,29 @@ def _steps(kind, T):
     return T if kind == 'tm' else 1
 
 
-def _lstm_case(kind, T, B, H, F, cdt, cuda, xp_dtype=None):
-    rng = np.random.RandomState(T * B + H)
+def _lstm_case(kind, T, B, H, F, cdt, cuda, xp_dtype=None, D=None):
+    """Inputs of one call; D, the input width of cat and fused, is H when
+    None."""
+    D = D or H
+    rng = np.random.RandomState(T * B + D)
 
     def arr(*shape, scale=1.0):
         return torch.from_numpy((rng.randn(*shape) * scale).astype(
             np.float32)).to(cuda)
     state = (arr(B, H, scale=0.5), arr(B, H, scale=0.5))
-    weights = (arr(H, 4 * H, scale=H ** -0.5), arr(H, 4 * H, scale=H ** -0.5),
+    weights = (arr(D, 4 * H, scale=D ** -0.5), arr(H, 4 * H, scale=H ** -0.5),
         arr(4 * H, scale=0.1))
     if kind in ENC_KINDS:
         return (arr(T, B, F).to(cdt), *state, arr(F, H, scale=(2 / F) ** 0.5),
             arr(H, scale=0.1), *weights)
     if kind in XP_KINDS:
         return (arr(T, B, 4 * H).to(xp_dtype or cdt), *state, weights[1])
-    return (arr(T, B, H, scale=0.5).to(cdt), *state, *weights)
+    return (arr(T, B, D, scale=0.5).to(cdt), *state, *weights)
 
 
-def _check_lstm_pair(cuda, kind, T, B, H, cdt, xp_dtype=None):
+def _check_lstm_pair(cuda, kind, T, B, H, cdt, xp_dtype=None, D=None):
     fwd, bwd, fwd_plain, bwd_plain, fns = _lstm_kinds()[kind]
-    args = _lstm_case(kind, T, B, H, 49, cdt, cuda, xp_dtype)
+    args = _lstm_case(kind, T, B, H, 49, cdt, cuda, xp_dtype, D)
     g = (torch.randn(T, B, H, device=cuda).to(cdt),
         torch.randn(B, H, device=cuda), torch.randn(B, H, device=cuda))
     before = _launches()
@@ -213,14 +217,60 @@ def test_lstm_scan_kernels_match_plain(cuda, kind, T, B, H, cdt):
     _check_pair_and_primal(cuda, kind, T, B, H, cdt)
 
 
-@pytest.mark.parametrize('T,B,H', [(16, 1000, 128), (5, 65, 32)])
-def test_lstm_fused_bf16_is_deterministic(cuda, T, B, H):
-    """lstm_scan_fused's bf16 kernels add every partial sum in a fixed
-    order (no atomics): the same inputs twice give the same outputs and
-    gradients bit for bit."""
-    fwd, bwd = _lstm_kinds()['fused'][:2]
+@pytest.mark.parametrize('T,B,H', FUSED_EDGES)
+@pytest.mark.parametrize('cdt', [torch.float32, torch.bfloat16])
+def test_lstm_cat_edges_match_plain(cuda, T, B, H, cdt):
+    """The cat pair at one step, one row, and one row over a 64-row
+    block of the bf16 loops (B = 65: the slab's padding and the element
+    stores of a batch that is no multiple of 16), at every hidden size."""
+    _check_lstm_pair(cuda, 'cat', T, B, H, cdt)
+
+
+# (T, B, D, H) with the input width apart from the hidden size
+TC_WIDTHS = [(16, 8192, 96, 128), (16, 1000, 96, 128), (5, 65, 40, 32),
+    (3, 100, 200, 64), (2, 64, 640, 128)]
+
+
+@pytest.mark.parametrize('kind', ['cat', 'fused'])
+@pytest.mark.parametrize('T,B,D,H', TC_WIDTHS)
+def test_lstm_tensor_core_kernels_take_other_input_widths(cuda, kind, T, B,
+        D, H):
+    """cat's and fused's bf16 kernels at D != H (640 at H = 128 is the
+    widest a pre-pass block holds), against the plain versions; fused's
+    null-cseq forward bit for bit."""
+    fwd = _lstm_kinds()[kind][0]
+    args, got = _check_lstm_pair(cuda, kind, T, B, H, torch.bfloat16, D=D)
+    if kind == 'fused':
+        with torch.no_grad():
+            primal = fwd(*args, torch.bfloat16, False)
+        torch.cuda.synchronize()
+        assert primal[3] is None
+        for a, w in zip(primal[:3], got[:3]):
+            assert torch.equal(a, w)
+
+
+def test_lstm_cell_launchers_refuse_what_the_kernels_do_not_serve(cuda):
+    """cat and fused: the FMA kernels (f32) refuse D != H, the bf16 ones
+    a width that is no multiple of 8 or too wide and a hidden size off
+    {32, 64, 128}: ValueError, and no launch."""
+    before = _launches()
+    for kind in ('cat', 'fused'):
+        fwd = _lstm_kinds()[kind][0]
+        for T, B, D, H, cdt, message in (
+                (2, 8, 96, 128, torch.float32, 'input width equal'),
+                (2, 8, 100, 128, torch.bfloat16, 'multiples of 8'),
+                (2, 8, 648, 128, torch.bfloat16, 'up to 640'),
+                (2, 8, 256, 256, torch.bfloat16, 'hidden sizes')):
+            args = _lstm_case(kind, T, B, H, 49, cdt, cuda, D=D)
+            with pytest.raises(ValueError, match=message):
+                fwd(*args, cdt)
+    assert _launches() == before
+
+
+def _check_deterministic(cuda, kind, T, B, H, D=None):
+    fwd, bwd = _lstm_kinds()[kind][:2]
     cdt = torch.bfloat16
-    args = _lstm_case('fused', T, B, H, 49, cdt, cuda)
+    args = _lstm_case(kind, T, B, H, 49, cdt, cuda, D=D)
     g = (torch.randn(T, B, H, device=cuda).to(cdt),
         torch.randn(B, H, device=cuda), torch.randn(B, H, device=cuda))
     runs = []
@@ -232,6 +282,21 @@ def test_lstm_fused_bf16_is_deterministic(cuda, T, B, H):
     torch.cuda.synchronize()
     for a, w in zip(*runs):
         assert torch.equal(a, w)
+
+
+@pytest.mark.parametrize('T,B,H', [(16, 1000, 128), (5, 65, 32)])
+def test_lstm_fused_bf16_is_deterministic(cuda, T, B, H):
+    """lstm_scan_fused's bf16 kernels add every partial sum in a fixed
+    order (no atomics): the same inputs twice give the same outputs and
+    gradients bit for bit."""
+    _check_deterministic(cuda, 'fused', T, B, H)
+
+
+@pytest.mark.parametrize('T,B,D,H', [(16, 1000, 128, 128), (5, 65, 32, 32),
+    (16, 1000, 96, 128)])
+def test_lstm_cat_bf16_is_deterministic(cuda, T, B, D, H):
+    """The same of lstm_scan_cat's bf16 kernels."""
+    _check_deterministic(cuda, 'cat', T, B, H, D)
 
 
 @pytest.mark.parametrize('kind', ARCHIVED_ENC)
@@ -377,3 +442,50 @@ def test_lstm_autograd_on_the_card(cuda):
         scale = max(1.0, want.abs().max().item())
         err = (grads[1][k] - want).abs().max().item()
         assert err <= LSTM_TOL[torch.float32] * scale, (k, err, scale)
+
+
+def test_lstm_default_route_on_the_card(cuda):
+    """LSTMWrapper in bf16 on the card: with use_kernel=None, input 96 with
+    hidden 128 runs cat's kernels (enc5 takes no D != H), with finite
+    gradients. Hidden 256, which no kernel serves, raises with
+    use_kernel=None and with use_kernel=True before any launch, and runs
+    the 'off' scan with no LSTM launch where the caller asks for it
+    (use_kernel=False)."""
+    from pufferlib_tpu_torch import spaces
+    from pufferlib_tpu_torch.models import Default, LSTMWrapper
+    torch.manual_seed(0)
+    x = torch.randn(40, 6, 7, 7, device=cuda)
+    cdt = torch.bfloat16
+    for D, H, use, route in ((96, 128, None, 'cat'), (256, 256, False, 'off')):
+        mod = LSTMWrapper(Default((7, 7), spaces.Discrete(5), hidden_size=D,
+            dtype=cdt, decoder_input_size=H), obs_shape=(7, 7), input_size=D,
+            hidden_size=H, dtype=cdt, use_kernel=use).to(cuda)
+        assert mod.route(6, cuda) == route
+        before = _launches()
+        logits, value, (h, c) = mod(x)
+        (logits.square().sum() + value.sum() + (h * c).sum()).backward()
+        torch.cuda.synchronize()
+        after = _launches()
+        launched = {fn for fn, n in after.items()
+            if fn.startswith('lstm_') and n > before[fn]}
+        assert launched == ({'lstm_cat_forward', 'lstm_cat_backward'}
+            if route == 'cat' else set())
+        assert all(torch.isfinite(p.grad).all() for p in mod.parameters())
+    for use, message in ((None, 'hidden sizes.*use_kernel=False'),
+            (True, 'hidden sizes')):
+        mod.use_kernel = use
+        with pytest.raises(ValueError, match=message):
+            mod(x)
+    assert _launches() == after
+
+
+def test_tc_max_input_is_the_kernels_limit(cuda):
+    """lstm_common.tc_max_input, which the checks before a launch use,
+    copies lstm_tc.cuh's constants: it must equal the widest input the C
+    side serves (lstm_tc_max_input), at every hidden size."""
+    import ctypes
+    from pufferlib_tpu_torch.ops.cuda import lstm_cat, lstm_common
+    for H in (32, 64, 128):
+        out = (ctypes.c_int * 1)()
+        assert lstm_cat.KERNEL.lib().lstm_tc_max_input(H, out) == 0
+        assert out[0] == lstm_common.tc_max_input(H), H

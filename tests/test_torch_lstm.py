@@ -3,15 +3,19 @@
 - The plain versions of the enc5 and cat kernels (forward, and the
   explicit backward that follows the TPU kernels' _bwd_kernel) against
   the Pallas kernels themselves, run in interpret mode on the CPU, from
-  the same numpy inputs: f32 to 1e-5 (the same f32 products, summed in
+  the same numpy inputs (cat also at the JAX package's own input width
+  96 with hidden 128): f32 to 1e-5 (the same f32 products, summed in
   another order); bf16 to 1e-2, two and a half bf16 ulps of a value of
   order 1, for a sum that lands on the other side of a rounding boundary
   and rounds the other way.
+- lstm_route, the decision LSTMWrapper takes from shapes before any
+  launch, over a table of cases.
 - LSTMWrapper and RecurrentPolicy against the JAX modules from the same
   flax-initialised weights (convert.lstm_state_dict), in f32: logits,
   value and state to 1e-5, weight gradients to 1e-4. On the CPU the
   port's 'enc5' and 'cat' run the kernels' plain versions; JAX runs its
   'off' scan (use_pallas is off on the CPU), which is the same function.
+  Also at input_size 96 with hidden 128, through 'off' and cat.
 """
 import numpy as np
 import pytest
@@ -32,8 +36,8 @@ import pufferlib_tpu_torch.models as models
 from pufferlib_tpu_torch import spaces
 from pufferlib_tpu_torch.convert import lstm_params, lstm_state_dict
 from pufferlib_tpu_torch.models import (
-    Default, LSTMWrapper, RecurrentPolicy, count_params)
-from pufferlib_tpu_torch.ops.cuda import lstm_cat, lstm_enc
+    Default, LSTMWrapper, RecurrentPolicy, count_params, lstm_route)
+from pufferlib_tpu_torch.ops.cuda import lstm_common
 from pufferlib_tpu_torch.ops.cuda.lstm_cat import lstm_scan_cat
 from pufferlib_tpu_torch.ops.cuda.lstm_enc import lstm_scan_enc5
 
@@ -61,9 +65,9 @@ def _assert_close(got, want, atol, what):
         err_msg=what)
 
 
-def _cotangents(seed):
+def _cotangents(seed, hidden=H):
     """Upstream gradients of outs, hT and cT."""
-    return _arrays(seed, (T, B, H), (B, H), (B, H), scale=1.0)
+    return _arrays(seed, (T, B, hidden), (B, hidden), (B, hidden), scale=1.0)
 
 
 def _jax_grads(fn, args, argnums, jd, cot):
@@ -84,15 +88,17 @@ def _torch_outs_and_grads(fn, args, td, cot):
     return outs
 
 
+@pytest.mark.parametrize('D,hidden', [(32, 32), (96, 128)])
 @pytest.mark.parametrize('dtype', sorted(DTYPES))
-def test_cat_plain_matches_pallas_kernel(dtype):
-    """Forward and every gradient, dx included."""
+def test_cat_plain_matches_pallas_kernel(dtype, D, hidden):
+    """Forward and every gradient, dx included; input width 96 with hidden
+    128 is the JAX package's own cat shape (tests/test_pallas.py)."""
     jd, td, tol = DTYPES[dtype]
-    x, h0, c0, w_ih, w_hh, b = _arrays(1, (T, B, H), (B, H), (B, H),
-        (H, 4 * H), (H, 4 * H), (4 * H,))
+    x, h0, c0, w_ih, w_hh, b = _arrays(1, (T, B, D), (B, hidden),
+        (B, hidden), (D, 4 * hidden), (hidden, 4 * hidden), (4 * hidden,))
     xj = jnp.asarray(x).astype(jd)
     args = (xj, h0, c0, w_ih, w_hh, b)
-    cot = _cotangents(2)
+    cot = _cotangents(2, hidden)
     with pltpu.force_tpu_interpret_mode():
         want = jax_scan_cat(*args, jd)
         want_grads = _jax_grads(jax_scan_cat, args, tuple(range(6)), jd, cot)
@@ -274,18 +280,145 @@ def test_kernel_selection(monkeypatch):
 
 
 def test_kernels_refuse_shapes_they_do_not_serve():
+    """Two checks: the FMA kernels (every kernel in f32, and every one but
+    cat's and fused's in bf16) take hidden sizes 32, 64, 128 with the
+    input width equal to the hidden size; the bf16 tensor-core kernels of
+    cat and fused take those hidden sizes with input widths that are
+    multiples of 8 up to what a GEMM block's shared memory holds (640 at
+    hidden 128, 704 at 32 and 64)."""
     cuda = torch.device('cuda')
-    lstm_cat.check_kernel_shape(128, 128, cuda)
+    lstm_common.check_kernel_shape(128, 128, cuda)
     with pytest.raises(ValueError, match='hidden'):
-        lstm_cat.check_kernel_shape(64, 128, cuda)
+        lstm_common.check_kernel_shape(64, 128, cuda)
     with pytest.raises(ValueError, match='hidden'):
-        lstm_cat.check_kernel_shape(96, 96, cuda)
+        lstm_common.check_kernel_shape(96, 96, cuda)
     with pytest.raises(ValueError, match='device'):
-        lstm_cat.check_kernel_shape(32, 32, torch.device('cpu'))
+        lstm_common.check_kernel_shape(32, 32, torch.device('cpu'))
+    bf16, f32 = torch.bfloat16, torch.float32
+    assert [lstm_common.tc_max_input(h) for h in (32, 64, 128)] == [
+        704, 704, 640]
+    for D, hidden in ((96, 128), (8, 32), (640, 128), (704, 64), (128, 128)):
+        lstm_common.check_cell_kernel_shape(D, hidden, bf16, cuda)
+    lstm_common.check_cell_kernel_shape(64, 64, f32, cuda)
+    for D, hidden, cdt, message in ((100, 128, bf16, 'multiples of 8'),
+            (648, 128, bf16, 'up to 640'), (712, 32, bf16, 'up to 704'),
+            (256, 256, bf16, 'hidden sizes'), (96, 96, bf16, 'hidden sizes'),
+            (96, 128, f32, 'input width equal to the hidden size')):
+        with pytest.raises(ValueError, match=message):
+            lstm_common.check_cell_kernel_shape(D, hidden, cdt, cuda)
+    with pytest.raises(ValueError, match='device'):
+        lstm_common.check_cell_kernel_shape(96, 128, bf16, torch.device('cpu'))
     with pytest.raises(ValueError, match='dtype|bfloat16|float32'):
         lstm_scan_cat(torch.zeros(T, B, H), *(torch.zeros(B, H),) * 2,
             torch.zeros(H, 4 * H), torch.zeros(H, 4 * H),
             torch.zeros(4 * H), torch.bfloat16)
+
+
+# lstm_route's arguments at the LSTM trainer's shapes (bench.py's LSTM
+# line: T = 16, input and hidden 128, Default's 49 features, bf16, on the
+# card), and each case's changes to them with the route it must take
+ROUTE_BENCH = dict(kernel='enc5', use_kernel=None, device='cuda', T=16,
+    D=128, H=128, F=49, num_layers=1, cdt=torch.bfloat16)
+ROUTES = {
+    'bench shapes': ({}, 'enc5'),
+    'two layers': (dict(num_layers=2), 'cat'),
+    'no encoder contract': (dict(F=None), 'cat'),
+    'input 96 bf16': (dict(D=96), 'cat'),
+    'input 96 f32': (dict(D=96, cdt=torch.float32),
+        'input width equal.*use_kernel=False'),
+    'features 200': (dict(F=200), 'cat'),
+    'hidden 256': (dict(D=256, H=256), 'hidden sizes.*use_kernel=False'),
+    'hidden 256, use_kernel False': (dict(D=256, H=256, use_kernel=False),
+        'off'),
+    'hidden 256, kernel off': (dict(D=256, H=256, kernel='off'), 'off'),
+    'hidden 256, cpu': (dict(D=256, H=256, device='cpu'), 'off'),
+    'input 100': (dict(D=100), 'multiples of 8.*use_kernel=False'),
+    'kernel cat': (dict(kernel='cat'), 'cat'),
+    'kernel off': (dict(kernel='off'), 'off'),
+    'cpu': (dict(device='cpu'), 'off'),
+    'one step': (dict(T=1), 'off'),
+    'one step, use_kernel': (dict(T=1, use_kernel=True, D=256, H=256), 'off'),
+    'use_kernel False': (dict(use_kernel=False), 'off'),
+    'use_kernel': (dict(use_kernel=True), 'enc5'),
+    'use_kernel, two layers': (dict(use_kernel=True, num_layers=2), 'cat'),
+    'use_kernel, cpu, input 96 f32': (dict(use_kernel=True, device='cpu',
+        D=96, cdt=torch.float32), 'enc5'),
+    'use_kernel, cat, input 96': (dict(use_kernel=True, kernel='cat', D=96),
+        'cat'),
+    'use_kernel, hidden 256': (dict(use_kernel=True, D=256, H=256),
+        'hidden sizes'),
+    'use_kernel, features 200': (dict(use_kernel=True, F=200),
+        'at most 128 features'),
+    'use_kernel, cat, input 96 f32': (dict(use_kernel=True, kernel='cat',
+        D=96, cdt=torch.float32), 'input width equal'),
+}
+
+
+@pytest.mark.parametrize('case', list(ROUTES))
+def test_lstm_route(case):
+    """The default (use_kernel=None) takes, on the card with T > 1, the
+    first kernel that serves the shape: enc5 where it can fuse, then cat,
+    and raises for a shape neither serves, naming use_kernel=False;
+    use_kernel=True runs the selected kernel and, on the card, raises for
+    a shape it refuses (the expected value is then the error's message).
+    The plain scan runs on the card only where the caller asks for it."""
+    changes, want = ROUTES[case]
+    args = {**ROUTE_BENCH, **changes}
+    if want in ('enc5', 'cat', 'off'):
+        assert lstm_route(**args) == want
+    else:
+        with pytest.raises(ValueError, match=want):
+            lstm_route(**args)
+
+
+def test_lstm_wrapper_refuses_a_head_of_another_width():
+    """The policy's head reads the LSTM's hidden state: a head built for
+    another width is refused when the wrapper is built, naming the
+    option that fixes it."""
+    with pytest.raises(ValueError, match='decoder_input_size=128'):
+        LSTMWrapper(Default(obs_shape=OBS_SHAPE,
+            action_space=spaces.Discrete(5), hidden_size=96),
+            obs_shape=OBS_SHAPE, input_size=96, hidden_size=128)
+
+
+@pytest.mark.parametrize('kind', ['off', 'cat'])
+def test_lstm_wrapper_input_width_matches_jax(kind):
+    """input_size 96 with hidden 128 (the encoder emits 96 features, the
+    head reads the LSTM's 128), through the 'off' scan and cat's plain
+    version: logits, value and state to 1e-5, weight gradients to 1e-4,
+    against JAX's use_pallas=False module from the same weights."""
+    D, hidden = 96, 128
+    jmod = JaxLSTMWrapper(policy=JaxDefault(obs_shape=OBS_SHAPE,
+        action_space=jspaces.Discrete(5), hidden_size=D),
+        obs_shape=OBS_SHAPE, input_size=D, hidden_size=hidden,
+        use_pallas=False)
+    params = jax.tree.map(np.asarray, jmod.init(jax.random.PRNGKey(7),
+        jnp.zeros((2, 2) + OBS_SHAPE, jnp.float32)))
+    mod = LSTMWrapper(Default(obs_shape=OBS_SHAPE,
+        action_space=spaces.Discrete(5), hidden_size=D,
+        decoder_input_size=hidden), obs_shape=OBS_SHAPE, input_size=D,
+        hidden_size=hidden, **KINDS[kind])
+    mod.load_state_dict(lstm_state_dict(params))
+    assert mod.route(T, torch.device('cpu')) == kind
+    x = np.random.RandomState(13).randn(B, T, *OBS_SHAPE).astype(np.float32)
+    h0, c0 = _arrays(14, (1, B, hidden), (1, B, hidden), scale=0.5)
+
+    def jloss(p):
+        lo, v, (h, c) = jmod.apply(p, jnp.asarray(x),
+            (jnp.asarray(h0), jnp.asarray(c0)))
+        return (jnp.sum(jax.nn.log_softmax(lo) ** 2) + jnp.sum(v * 0.7)
+            + jnp.sum(h * c)), (lo, v, h, c)
+    jgrads, jouts = jax.grad(jloss, has_aux=True)(params)
+    lo, v, (h, c) = mod(torch.from_numpy(x),
+        (torch.from_numpy(h0), torch.from_numpy(c0)))
+    for name, a, w in zip(('logits', 'value', 'h', 'c'), (lo, v, h, c),
+            jouts):
+        _assert_close(a, w, 1e-5, name)
+    (torch.log_softmax(lo, -1).square().sum() + (v * 0.7).sum()
+        + (h * c).sum()).backward()
+    jgrads = lstm_state_dict(jax.tree.map(np.asarray, jgrads))
+    for name, p in mod.named_parameters():
+        _assert_close(p.grad, jgrads[name], 1e-4, name)
 
 
 @pytest.mark.parametrize('space_name', ['discrete', 'multidiscrete'])

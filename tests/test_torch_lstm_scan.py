@@ -24,8 +24,10 @@ import jax.numpy as jnp
 from jax.experimental.pallas import tpu as pltpu
 from pufferlib_tpu.ops.pallas import lstm as jax_lstm
 from pufferlib_tpu.ops.pallas import lstm_enc as jax_lstm_enc
+from pufferlib_tpu.ops.pallas.lstm_cat import lstm_scan_cat as jax_scan_cat
 
-from pufferlib_tpu_torch.ops.cuda import lstm_common, lstm_enc, lstm_scan
+from pufferlib_tpu_torch.ops.cuda import (
+    lstm_cat, lstm_common, lstm_enc, lstm_scan)
 
 torch.set_num_threads(1)
 
@@ -295,16 +297,18 @@ def test_wrappers_check_their_inputs():
             0, 1), h0, c0, w_ih, w_hh, b, torch.float32)
 
 
-def tc_schedule(x, h0, c0, w_ih, w_hh, b, cdt, rows=64):
-    """What lstm_scan_fused's bf16 tensor-core kernels (csrc/lstm_tc.cuh)
-    compute, in their order, in plain torch. Forward: the XW slab over all
-    T*B rows, then the loop gates = XW_t + h @ W_hh. Returns (outs, hT,
-    cT, cseq) and the backward as a function of the upstream gradients:
-    the P slab ((x @ W_ih + b) + h_prev @ W_hh over all rows), the reverse
-    loop that produces only dh_prev and the dg slab, then dx = dg @ W_ih^T
-    and dW = [x | h_prev]^T dg after it, and db from the unrounded dgates
-    summed per block of `rows` batch rows, the blocks then added in
-    order."""
+def tc_schedule(x, h0, c0, w_ih, w_hh, b, cdt, rows=64, cat=False):
+    """What the bf16 tensor-core kernels (csrc/lstm_tc.cuh) compute, in
+    their order, in plain torch: lstm_scan_fused's (mode FUSED) or, with
+    cat, lstm_scan_cat's (mode CAT). Forward: the slab over all T*B rows
+    (FUSED XW = x @ W_ih + b, CAT S = x @ W_ih), then the loop gates =
+    XW_t + h @ W_hh, or (S_t + h @ W_hh) + b. Returns (outs, hT, cT, cseq)
+    and the backward as a function of the upstream gradients: the P slab
+    over all rows ((x @ W_ih + b) + h_prev @ W_hh, or (x @ W_ih + h_prev @
+    W_hh) + b), the reverse loop that produces only dh_prev and the dg
+    slab, then dx = dg @ W_ih^T and dW = [x | h_prev]^T dg after it, and
+    db from the unrounded dgates summed per block of `rows` batch rows,
+    the blocks then added in order."""
     T, B, D = x.shape
     H = h0.shape[1]
 
@@ -315,11 +319,12 @@ def tc_schedule(x, h0, c0, w_ih, w_hh, b, cdt, rows=64):
     def acts(gates):
         return (torch.sigmoid(gates[:, :H]), torch.sigmoid(gates[:, H:2 * H]),
             torch.tanh(gates[:, 2 * H:3 * H]), torch.sigmoid(gates[:, 3 * H:]))
-    xw = (xc @ wi + bias).reshape(T, B, 4 * H)
+    xw = (xc @ wi + (0 if cat else bias)).reshape(T, B, 4 * H)
     h, c = h0.float(), c0.float()
     outs, cseq = [], []
     for t in range(T):
-        i, f, g, o = acts(xw[t] + rd(h) @ wh)
+        i, f, g, o = acts((xw[t] + rd(h) @ wh) + bias if cat
+            else xw[t] + rd(h) @ wh)
         c = f * c + i * g
         h = o * torch.tanh(c)
         outs.append(h.to(cdt))
@@ -329,7 +334,8 @@ def tc_schedule(x, h0, c0, w_ih, w_hh, b, cdt, rows=64):
     def backward(g_outs, g_hT, g_cT):
         h_prev = torch.cat([rd(h0)[None], outs[:T - 1].float()]).reshape(
             T * B, H)
-        pre = ((xc @ wi + bias) + h_prev @ wh).reshape(T, B, 4 * H)
+        pre = ((xc @ wi + h_prev @ wh) + bias if cat
+            else (xc @ wi + bias) + h_prev @ wh).reshape(T, B, 4 * H)
         blocks = -(-B // rows)
         db_blocks = torch.zeros(blocks, 4 * H)
         dg = torch.empty((T, B, 4 * H), dtype=cdt)
@@ -392,4 +398,44 @@ def test_tensor_core_schedule_keeps_the_function(H, B, cdt):
     loss_grads = backward((2 * outs.float()).to(TD[cdt]), cT, hT)
     with pltpu.force_tpu_interpret_mode():
         jax_want = jax_run(jax_lstm.lstm_scan_fused, arrays, cdt, cdt, 0)
+    compare('fused', (fwd[:3], loss_grads), jax_want, bf16)
+
+
+@pytest.mark.parametrize('cdt', sorted(TD))
+@pytest.mark.parametrize('B,D,H', [(16, 96, 128), (72, 40, 32)])
+def test_cat_tensor_core_schedule_keeps_the_function(B, D, H, cdt):
+    """The cat kernels' schedule on the tensor cores (tc_schedule with
+    cat: the bias after the one sum of x @ W_ih and h @ W_hh, in the
+    forward loop and in the backward slab), at input widths other than
+    the hidden size, against the plain cat versions (1e-5 in f32, 2e-2 of
+    max(1, max |plain|) in bf16) and the Pallas cat kernel in interpret
+    mode (the tolerances of compare)."""
+    rng = np.random.default_rng(13)
+    arrays = [(rng.standard_normal(shape) * k).astype(np.float32)
+        for shape, k in (((T, B, D), 0.5), ((B, H), 0.3), ((B, H), 0.3),
+            ((D, 4 * H), 0.3), ((H, 4 * H), 0.3), ((4 * H,), 0.3))]
+    arrays[0] = np.array(jnp.asarray(arrays[0]).astype(JD[cdt]).astype(
+        jnp.float32))
+    x = torch.from_numpy(arrays[0]).to(TD[cdt])
+    rest = [torch.from_numpy(a) for a in arrays[1:]]
+    fwd, backward = tc_schedule(x, *rest, TD[cdt], cat=True)
+    plain = lstm_cat.lstm_cat_reference(x, *rest, TD[cdt])
+    bf16 = cdt == 'bfloat16'
+    tol = 2e-2 if bf16 else 1e-5
+    for name, a, w in zip(('outs', 'hT', 'cT', 'cseq'), fwd, plain):
+        assert a.dtype == w.dtype
+        assert_close(a, w, tol, bf16, f'cat schedule {name}')
+    cot = (torch.from_numpy(rng.standard_normal((T, B, H)).astype(
+        np.float32)).to(TD[cdt]), *(torch.from_numpy(rng.standard_normal(
+        (B, H)).astype(np.float32)) for _ in range(2)))
+    grads = backward(*cot)
+    want = lstm_cat.lstm_cat_backward_reference(x, *rest, plain[0], plain[3],
+        *cot, TD[cdt])
+    for name, a, w in zip(KINDS['fused'][5], grads, want):
+        assert a.dtype == w.dtype and a.shape == w.shape
+        assert_close(a, w, tol, bf16, f'cat schedule {name}')
+    outs, hT, cT, _ = fwd
+    loss_grads = backward((2 * outs.float()).to(TD[cdt]), cT, hT)
+    with pltpu.force_tpu_interpret_mode():
+        jax_want = jax_run(jax_scan_cat, arrays, cdt, cdt, 0)
     compare('fused', (fwd[:3], loss_grads), jax_want, bf16)

@@ -1,13 +1,16 @@
-"""Where the time of lstm_scan_fused's bf16 tensor-core kernels goes, by
-ablation, on one NVIDIA GPU.
+"""Where the time of the bf16 tensor-core kernels of lstm_scan_fused or
+lstm_scan_cat goes, by ablation, on one NVIDIA GPU.
 
-    python3 tools/ablate_lstm_tc_torch.py [--baseline CSRC_DIR] [--only NAME ...]
+    python3 tools/ablate_lstm_tc_torch.py [--kind fused|cat]
+        [--baseline CSRC_DIR] [--only NAME ...]
 
 The machines the port is measured on run no stall profiler, so this tool
 removes one part of the recurrent loops of csrc/lstm_tc.cuh at a time and
-times what is left. It builds pufferlib_tpu_torch/csrc/lstm_scan.cu as it
-is and in these variants, each a copy of the sources with one edit, built
-by nvcc into a library of its own (under pufferlib_tpu_torch/_build/):
+times what is left. It builds the kind's source
+(pufferlib_tpu_torch/csrc/lstm_scan.cu for fused, the default, or
+lstm_cat.cu for cat) as it is and in these variants, each a copy of the
+sources with one edit, built by nvcc into a library of its own (under
+pufferlib_tpu_torch/_build/):
 
 - no-slab: the loops read no XW / P values (zeros in their place; in
   the backward the activations of those zeros then fold to constants);
@@ -21,13 +24,16 @@ by nvcc into a library of its own (under pufferlib_tpu_torch/_build/):
   memory holds and store it);
 - gemm-stages-4: a ring of 4 A chunks instead of 2;
 - gemm-no-barrier: the GEMMs' per-chunk barrier removed (racing loads:
-  the numbers are wrong, the time shows what the barrier costs).
+  the numbers are wrong, the time shows what the barrier costs);
+- late-slab-load (cat only; not an ablation but the other order): the
+  forward loop issues the next unit group's slab load after the product,
+  as fused's does, instead of before it.
 
-With --baseline, also the lstm_scan.cu of another csrc/ directory with the
+With --baseline, also the same source of another csrc/ directory with the
 same C interface (an earlier version of these kernels). The variants run
 in turns, forward and back, each twice, at T = 16, B = 8192, D = H = 128,
 bf16, and each run times the phases of the forward and the backward
-(chip_smoke.time_fused_phases: pre-pass, loop, dx, dW + db; cold L2). An
+(chip_smoke.time_tc_phases: pre-pass, loop, dx, dW + db; cold L2). An
 ablated variant computes wrong numbers by design: only its times mean
 anything. The last line is one JSON object: the mean ms of each phase by
 variant, and the card's name and power limit.
@@ -70,12 +76,19 @@ ABLATIONS = {
     'gemm-no-barrier': ((
         ('            // every thread is past the chunk before: its stage may be loaded again\n'
             '            __syncthreads();', ''),), ()),
+    'late-slab-load': ((
+        ('                load_next();\n                gates_mma<H>(acc, hc, w_s, mt0, u0, lane);\n',
+            '                gates_mma<H>(acc, hc, w_s, mt0, u0, lane);\n                load_next();\n'),),
+        ()),
 }
+# variants that change only one kind's code
+ONLY_FOR = {'late-slab-load': 'cat'}
+SOURCES = {'fused': 'lstm_scan.cu', 'cat': 'lstm_cat.cu'}
 
 
-def start_build(name, csrc, edits, flags, build_dir):
-    """Copy csrc, apply the edits to lstm_tc.cuh, start nvcc; returns
-    (process, library path)."""
+def start_build(name, csrc, edits, flags, build_dir, source):
+    """Copy csrc, apply the edits to lstm_tc.cuh, start nvcc on source;
+    returns (process, library path)."""
     from pufferlib_tpu_torch.ops.cuda import _build
     src = os.path.join(build_dir, name)
     shutil.rmtree(src, ignore_errors=True)
@@ -90,19 +103,17 @@ def start_build(name, csrc, edits, flags, build_dir):
             text = text.replace(old, new)
         with open(path, 'w') as f:
             f.write(text)
-    lib = os.path.join(build_dir, f'liblstm_scan-{name}.so')
+    lib = os.path.join(build_dir, f'lib{source[:-3]}-{name}.so')
     cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, *flags, '-o', lib,
-        os.path.join(src, 'lstm_scan.cu')]
+        os.path.join(src, source)]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True), lib
 
 
-def load(lib_path):
-    """The library with the argument types of lstm_scan.KERNEL's
-    functions."""
-    from pufferlib_tpu_torch.ops.cuda import lstm_scan
+def load(lib_path, kernel):
+    """The library with the argument types of kernel's functions."""
     lib = ctypes.CDLL(lib_path)
-    for fn, argtypes in lstm_scan.KERNEL.functions.items():
+    for fn, argtypes in kernel.functions.items():
         getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = ctypes.c_int
     lib.cuda_error_string.argtypes = [ctypes.c_int]
@@ -112,6 +123,7 @@ def load(lib_path):
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
+    parser.add_argument('--kind', choices=sorted(SOURCES), default='fused')
     parser.add_argument('--baseline', help='another csrc/ directory')
     parser.add_argument('--only', nargs='*', default=None,
         help=f'variants among {sorted(ABLATIONS)} (default: all)')
@@ -121,25 +133,29 @@ def main(argv=None):
     if not torch.cuda.is_available():
         sys.exit('ablate_lstm_tc_torch needs a CUDA device')
     import chip_smoke
-    from pufferlib_tpu_torch.ops.cuda import _build, lstm_scan
+    from pufferlib_tpu_torch.ops.cuda import _build, lstm_cat, lstm_scan
+    kernel = {'fused': lstm_scan, 'cat': lstm_cat}[args.kind].KERNEL
+    source = SOURCES[args.kind]
     from pufferlib_tpu_torch.ops.cuda.timing import card_line, l2_flush_buffer
     card = card_line()
     csrc = os.path.join(REPO, 'pufferlib_tpu_torch', 'csrc')
     build_dir = os.path.join(_build.BUILD_DIR, 'ablate')
     os.makedirs(build_dir, exist_ok=True)
-    names = args.only if args.only is not None else list(ABLATIONS)
+    names = args.only if args.only is not None else [n for n in ABLATIONS
+        if ONLY_FOR.get(n, args.kind) == args.kind]
     specs = {'as-is': (csrc, (), ())}
     specs.update({n: (csrc, *ABLATIONS[n]) for n in names})
     if args.baseline:
         specs['baseline'] = (os.path.abspath(args.baseline), (), ())
     start = time.perf_counter()
-    pending = {n: start_build(n, *spec, build_dir) for n, spec in specs.items()}
+    pending = {n: start_build(n, *spec, build_dir, source)
+        for n, spec in specs.items()}
     libs = {}
     for name, (proc, lib) in pending.items():
         out, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f'nvcc failed on variant {name}:\n{out}')
-        libs[name] = load(lib)
+        libs[name] = load(lib, kernel)
     print(f'built {len(libs)} variants in {time.perf_counter() - start:.1f} s',
         flush=True)
 
@@ -147,14 +163,15 @@ def main(argv=None):
     order = list(specs) + list(reversed(specs))
     runs = {n: [] for n in specs}
     for name in order:
-        lstm_scan.KERNEL._lib = libs[name]
+        kernel._lib = libs[name]
         print(f'{name}:', flush=True)
-        runs[name].append(chip_smoke.time_fused_phases(torch, flush,
-            np.random.RandomState(0)))
-    lstm_scan.KERNEL._lib = None
+        runs[name].append(chip_smoke.time_tc_phases(torch, flush,
+            np.random.RandomState(0), args.kind))
+    kernel._lib = None
     means = {n: {k: sum(r[k] for r in rs) / len(rs) for k in rs[0]}
         for n, rs in runs.items()}
-    print(json.dumps({'card': card, 'shape': 'T=16 B=8192 D=H=128 bf16',
+    print(json.dumps({'card': card, 'kind': args.kind,
+        'shape': 'T=16 B=8192 D=H=128 bf16',
         'phases_ms': means}), flush=True)
     return means
 

@@ -1,11 +1,12 @@
 """Where an epoch of the PyTorch port's trainer goes, on one NVIDIA GPU.
 
-    python3 tools/profile_torch_trainer.py [--use-kernel] [--lstm]
+    python3 tools/profile_torch_trainer.py [--use-kernel] [--lstm [enc5|cat]]
 
 Builds chip_smoke.py's main-path trainer (Ocean squared, Default MLP
 h128 bf16, 8192 lanes x 64 steps, minibatch 131072; with --lstm the
 LSTM line, RecurrentPolicy(LSTMWrapper(Default)) h128 bf16 through the
-enc5 kernels, time-slab minibatches of 131072), runs one warm-up
+enc5 kernels, or with --lstm cat through the cat kernels, time-slab
+minibatches of 131072), runs one warm-up
 epoch, then runs the rollout and the update of an epoch twice each:
 once timed on the host clock, once under torch.profiler. For each phase
 it prints the wall time, the summed device time of its kernels, the
@@ -57,8 +58,9 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--use-kernel', action='store_true',
         help='Default(use_kernel=True): the fused MLP head kernel')
-    parser.add_argument('--lstm', action='store_true',
-        help='the recurrent trainer (LSTMWrapper, enc5 kernels)')
+    parser.add_argument('--lstm', nargs='?', const='enc5',
+        choices=('enc5', 'cat'),
+        help='the recurrent trainer (LSTMWrapper) through these kernels')
     args = parser.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -72,7 +74,7 @@ def main():
     card = card_line()
 
     ppo, data = make_trainer(torch, use_kernel=args.use_kernel,
-        lstm_kernel='enc5' if args.lstm else None)
+        lstm_kernel=args.lstm)
     ppo.step(data)  # warm-up: buffers, cuBLAS handles, kernel libraries
 
     def rollout_fn():
