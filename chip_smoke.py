@@ -9,7 +9,8 @@ paths: the fused PPO trainer on Ocean `squared` with the `Default` MLP at
 8192 lanes (GAE kernel), the same trainer with the fused MLP head kernel
 (`Default(use_kernel=True)`), the recurrent trainer through the enc5 and
 through the cat LSTM kernels, the recurrent trainer through LSTMWrapper's
-default route at input width 96 (cat's kernels), at hidden size 256
+default route at input width 96 (enc5's kernels), with two LSTM layers
+(cat's: enc5 cannot fuse the encoder), at hidden size 256
 with use_kernel=False (the plain scan, which the caller must ask for: the
 default and use_kernel=True refuse that shape on the card), and the LSTM
 validation path
@@ -18,11 +19,14 @@ the bench shapes, then a 40-epoch learning proof that must reach score
 0.9; tools/kernel_lab_torch.py over every variant, the archived enc2,
 enc3, enc4, enc6 and tm among them). Last, small trainer updates and an
 env run on the card are held against the same on the CPU. For the bf16
-tensor-core kernels of lstm_scan_cat and lstm_scan_fused
+tensor-core kernels of lstm_scan_cat, lstm_scan_fused and the enc5 pair
 (csrc/lstm_tc.cuh) it also prints each kernel's registers and spilled
 bytes after the build, and the time of each phase at the main shape
-(pre-pass, loop, dx, dW + db); both are also held to their plain
-versions at input width 96.
+(pre-pass, loop, dx, dW + db; enc5's encoder runs in both pre-pass
+phases, dpre takes dx's place and dW_enc joins the last); all three are
+also held to their plain versions at input width 96 (enc5 with 200
+features), and enc5's bf16 kernels run twice and must agree bit for
+bit.
 
 Prints one line per phase, a `{"kernels": [...]}` JSON line, the card's
 name and power limit, and last `{"ok": true, "device": {...}}`. Any
@@ -165,7 +169,7 @@ def lstm_kinds():
         'enc5': (lstm_enc._launch_forward, lstm_enc._launch_backward,
             lstm_enc.lstm_enc_reference,
             lstm_enc.lstm_enc_backward_reference, ENC_GRADS),
-        'enc': (lstm_enc._launch_forward, lstm_enc._launch_step_backward,
+        'enc': (lstm_enc._launch_enc_forward, lstm_enc._launch_step_backward,
             lstm_enc.lstm_enc_reference,
             lstm_enc.lstm_scan_enc_backward_reference, ENC_GRADS),
         'cat': (lstm_cat._launch_forward, lstm_cat._launch_backward,
@@ -195,8 +199,8 @@ def lstm_case(torch, rng, kind, T, B, dtype_name, F=49, H=128,
     """Inputs at the trainer's shapes: (forward args, upstream gradients,
     cdt). Dense normal features and inputs, weights scaled as the
     trainer's orthogonal init. scan's and tm's x_proj is in xp_dtype_name
-    (the compute dtype when None); cat's and fused's input width is D (H
-    when None)."""
+    (the compute dtype when None); cat's and fused's input width and the
+    encoder width of the encoder-fused kinds is D (H when None)."""
     import numpy as np
     cdt = getattr(torch, dtype_name)
     D = D or H
@@ -208,8 +212,8 @@ def lstm_case(torch, rng, kind, T, B, dtype_name, F=49, H=128,
     weights = (arr(D, 4 * H, scale=D ** -0.5), arr(H, 4 * H, scale=H ** -0.5),
         arr(4 * H, scale=0.1))
     if kind in ENC_KINDS:
-        args = (arr(T, B, F).to(cdt), *state, arr(F, H, scale=(2 / F) ** 0.5),
-            arr(H, scale=0.1), *weights)
+        args = (arr(T, B, F).to(cdt), *state, arr(F, D, scale=(2 / F) ** 0.5),
+            arr(D, scale=0.1), *weights)
     elif kind in XP_KINDS:
         xp_dtype = getattr(torch, xp_dtype_name or dtype_name)
         args = (arr(T, B, 4 * H).to(xp_dtype), *state, weights[1])
@@ -236,7 +240,7 @@ def lstm_bounds(kind, args, T, B, H, dtype_name):
     # out: dh0/dc0 and the weight gradients
     bwd_bytes = x_bytes + weights + state + 3 * seq + state + state + weights
     if kind in ENC_KINDS:
-        F, D = x.shape[2], H
+        F, D = args[3].shape
         fwd_flops = 2 * T * B * (F * D + (D + H) * 4 * H)
         bwd_flops = 2 * T * B * (2 * F * D + 2 * (D + H) * 4 * H
             + 4 * H * H + 4 * H * D)
@@ -256,14 +260,14 @@ def lstm_bounds(kind, args, T, B, H, dtype_name):
 
 
 def check_lstm(torch, flush, rng, kind, B, dtype_name, T=16, H=128,
-        timed=False, xp_dtype_name=None, D=None):
+        timed=False, xp_dtype_name=None, D=None, F=49):
     """The LSTM kernel pair `kind` against its plain versions on the same
     inputs: every output and gradient within LSTM_TOL. With timed: the
     kernels', the plain versions' and (cat, fused) cuDNN's times and the
     bounds, beside the card's name and power limit."""
     fwd, bwd, fwd_plain, bwd_plain, grad_names = lstm_kinds()[kind]
-    args, grads, cdt = lstm_case(torch, rng, kind, T, B, dtype_name, H=H,
-        xp_dtype_name=xp_dtype_name, D=D)
+    args, grads, cdt = lstm_case(torch, rng, kind, T, B, dtype_name, F=F,
+        H=H, xp_dtype_name=xp_dtype_name, D=D)
     with torch.no_grad():
         got = fwd(*args, cdt)
         want = fwd_plain(*args, cdt)
@@ -273,8 +277,8 @@ def check_lstm(torch, flush, rng, kind, B, dtype_name, T=16, H=128,
         primal = fwd(*args, cdt, False) if kind in PRIMAL_KINDS else None
     torch.cuda.synchronize()
     what = f'{kind} T={T} B={B}' + (f' D={D}' if D else '') + (
-        f' {dtype_name}') + (f' x_proj {xp_dtype_name}' if xp_dtype_name
-        else '')
+        f' F={F}' if kind in ENC_KINDS else '') + f' {dtype_name}' + (
+        f' x_proj {xp_dtype_name}' if xp_dtype_name else '')
     if primal is not None:
         if primal[3] is not None or not all(torch.equal(a, w)
                 for a, w in zip(primal[:3], got[:3])):
@@ -299,7 +303,8 @@ def check_lstm(torch, flush, rng, kind, B, dtype_name, T=16, H=128,
         '; forward without cseq equal bit for bit' if primal else ''))
     result = dict(fwd_err=max(errs[k][0] for k in LSTM_OUTS),
         bwd_err=max(errs[k][0] for k in grad_names),
-        shape=f'T={T} B={B} D={D or H} H={H} {dtype_name}')
+        shape=f'T={T} B={B} D={D or H} H={H}' + (f' F={F}' if kind in
+            ENC_KINDS else '') + f' {dtype_name}')
     if not timed:
         return result
     with torch.no_grad():
@@ -328,47 +333,71 @@ def check_lstm(torch, flush, rng, kind, B, dtype_name, T=16, H=128,
 
 
 # the bf16 kernels of lstm_scan_fused and lstm_scan_cat (csrc/lstm_tc.cuh),
-# in the order of lstm_fused_tc_usage's and lstm_cat_tc_usage's output
+# in the order of lstm_fused_tc_usage's and lstm_cat_tc_usage's output;
+# enc5's, in the order of lstm_enc_tc_usage's
 TC_KERNELS = ('forward pre-pass', 'forward loop', 'backward pre-pass',
     'backward loop', 'dx')
+ENC5_TC_KERNELS = ('encoder', 'forward pre-pass', 'forward loop',
+    'backward pre-pass', 'backward loop', 'dpre')
+# the phases a launch with phases=k runs the first k of
+TC_PHASES = {
+    'forward': ('pre-pass', 'loop'),
+    'backward': ('pre-pass', 'loop', 'dx', 'dW + db'),
+}
+ENC5_PHASES = {
+    'forward': ('encoder + pre-pass', 'loop'),
+    'backward': ('encoder + pre-pass', 'loop', 'dpre', 'dW + db + dW_enc'),
+}
 
 
 def log_tc_usage():
     """Registers and spilled bytes per thread of the bf16 kernels of
-    lstm_scan_fused and lstm_scan_cat at each hidden size
-    (cudaFuncGetAttributes), and the widest input they take, held against
-    the wrappers' check."""
+    lstm_scan_fused, lstm_scan_cat and enc5 at each hidden size
+    (cudaFuncGetAttributes), and the widest input and feature width they
+    take, held against the wrappers' checks."""
     import ctypes
-    from pufferlib_tpu_torch.ops.cuda import lstm_cat, lstm_scan
-    from pufferlib_tpu_torch.ops.cuda.lstm_common import tc_max_input
-    for kind, kernel in (('fused', lstm_scan.KERNEL), ('cat', lstm_cat.KERNEL)):
-        fn = f'lstm_{kind}_tc_usage'
+    from pufferlib_tpu_torch.ops.cuda import lstm_cat, lstm_enc, lstm_scan
+    from pufferlib_tpu_torch.ops.cuda.lstm_common import (
+        tc_max_features, tc_max_input)
+    for kind, kernel, fn, names in (
+            ('lstm_scan_fused', lstm_scan.KERNEL, 'lstm_fused_tc_usage',
+                TC_KERNELS),
+            ('lstm_scan_cat', lstm_cat.KERNEL, 'lstm_cat_tc_usage',
+                TC_KERNELS),
+            ('enc5', lstm_enc.KERNEL, 'lstm_enc_tc_usage', ENC5_TC_KERNELS)):
         for H in (32, 64, 128):
-            out = (ctypes.c_int * 10)()
+            out = (ctypes.c_int * (2 * len(names)))()
             err = getattr(kernel.lib(), fn)(H, out)
             if err:
                 raise RuntimeError(f'{fn}({H}): cudaError {err}')
-            log(f'  lstm_scan_{kind} bf16 kernels, H={H}: ' + ', '.join(
+            log(f'  {kind} bf16 kernels, H={H}: ' + ', '.join(
                 f'{name} {out[2 * i]} registers, {out[2 * i + 1]} bytes '
-                f'spilled' for i, name in enumerate(TC_KERNELS)))
-    # the widest input the checks before a launch let through is the one
-    # the C side serves (lstm_common.tc_max_input copies its constants)
+                f'spilled' for i, name in enumerate(names)))
+    # the widest input and feature width the checks before a launch let
+    # through are the ones the C side serves (lstm_common copies its
+    # constants)
     for H in (32, 64, 128):
         out = (ctypes.c_int * 1)()
         lstm_cat.KERNEL.lib().lstm_tc_max_input(H, out)
         if out[0] != tc_max_input(H):
             raise AssertionError(f'lstm_tc_max_input({H}) = {out[0]}, but '
                 f'lstm_common.tc_max_input({H}) = {tc_max_input(H)}')
+    out = (ctypes.c_int * 1)()
+    lstm_enc.KERNEL.lib().lstm_enc_tc_max_features(out)
+    if out[0] != tc_max_features():
+        raise AssertionError(f'lstm_enc_tc_max_features = {out[0]}, but '
+            f'lstm_common.tc_max_features() = {tc_max_features()}')
     log('  bf16 tensor-core widest input by hidden size: ' + ', '.join(
         f'H={H}: {tc_max_input(H)}' for H in (32, 64, 128))
-        + ' (C and Python agree)')
+        + f'; enc5 widest feature width {tc_max_features()} (C and Python '
+        'agree)')
 
 
 def time_tc_phases(torch, flush, rng, kind='fused', T=16, B=8192):
     """Device ms of each phase of the bf16 tensor-core kernels of `kind`
-    ('fused': lstm_scan_fused, 'cat': lstm_scan_cat) at the main shape: a
-    launch runs the first k phases, so a phase's time is the difference of
-    two such means (cold L2 each)."""
+    ('fused': lstm_scan_fused, 'cat': lstm_scan_cat, 'enc5') at the main
+    shape: a launch runs the first k phases, so a phase's time is the
+    difference of two such means (cold L2 each)."""
     from pufferlib_tpu_torch.ops.cuda.lstm_common import (
         BACKWARD_PHASES, FORWARD_PHASES)
     launch_fwd, launch_bwd = lstm_kinds()[kind][:2]
@@ -380,18 +409,41 @@ def time_tc_phases(torch, flush, rng, kind='fused', T=16, B=8192):
             for k in range(1, FORWARD_PHASES + 1)]
         bwd = [timed_ms(lambda: launch_bwd(*bargs, phases=k), flush)
             for k in range(1, BACKWARD_PHASES + 1)]
-    names = {'forward': ('pre-pass', 'loop'),
-        'backward': ('pre-pass', 'loop', 'dx', 'dW + db')}
+    names = ENC5_PHASES if kind == 'enc5' else TC_PHASES
     phases = {}
     for part, cumulative in (('forward', fwd), ('backward', bwd)):
         for k, name in enumerate(names[part]):
             phases[f'{part} {name}'] = cumulative[k] - (cumulative[k - 1]
                 if k else 0.0)
-    log(f'lstm_scan_{kind} bf16 phases T={T} B={B} H=128, ms: ' + ', '.join(
+    title = kind if kind == 'enc5' else f'lstm_scan_{kind}'
+    log(f'{title} bf16 phases T={T} B={B} H=128, ms: ' + ', '.join(
         f'{k} {v:.4f}' for k, v in phases.items())
         + f'; whole forward {fwd[-1]:.4f}, backward {bwd[-1]:.4f} on '
         f'{card_line()}')
     return phases
+
+
+def check_bit_equal(torch, rng, kind, B, T=16, D=None, F=49):
+    """The bf16 kernels of `kind` twice on the same inputs: every output
+    and gradient must be equal bit for bit (sums in a fixed order, no
+    atomics)."""
+    fwd, bwd = lstm_kinds()[kind][:2]
+    args, grads, cdt = lstm_case(torch, rng, kind, T, B, 'bfloat16', F=F,
+        D=D)
+    runs = []
+    with torch.no_grad():
+        for _ in range(2):
+            outs, hT, cT, cseq = fwd(*args, cdt)
+            runs.append((outs, hT, cT, cseq) + bwd(*args, outs, cseq,
+                *grads, cdt))
+    torch.cuda.synchronize()
+    names = LSTM_OUTS + lstm_kinds()[kind][4]
+    unequal = [n for n, a, w in zip(names, *runs) if not torch.equal(a, w)]
+    if unequal:
+        raise AssertionError(f'{kind} bf16 T={T} B={B} D={D} F={F}: two runs '
+            f'differ in {unequal}')
+    log(f'{kind} bf16 T={T} B={B} D={D or 128} F={F}: two runs equal bit for '
+        f'bit in {len(names)} outputs and gradients')
 
 
 def cudnn_lstm_ms(torch, flush, args, g_outs):
@@ -421,13 +473,14 @@ def cudnn_lstm_ms(torch, flush, args, g_outs):
 def make_trainer(torch, num_envs=8192, horizon=64, hidden=128,
         dtype_name='bfloat16', use_kernel=False, minibatch_size=131072,
         seed=0, device='cuda', lstm_kernel=None, lstm_use_kernel=None,
-        lstm_input=None):
+        lstm_input=None, lstm_layers=1):
     """bench.py's `_8k_lanes` configuration (bench.py:33-81), on the port;
     with lstm_kernel ('enc5', 'cat' or 'off') its LSTM line instead
     (bench.py:53-57, 66): RecurrentPolicy(LSTMWrapper(Default)) with
-    hidden size `hidden` and input size lstm_input (`hidden` when None:
-    Default's encoder emits it, its head reads the LSTM's `hidden`),
-    minibatch batch_size // 4 by the caller's choice of minibatch_size."""
+    hidden size `hidden`, input size lstm_input (`hidden` when None:
+    Default's encoder emits it, its head reads the LSTM's `hidden`) and
+    lstm_layers layers, minibatch batch_size // 4 by the caller's choice
+    of minibatch_size."""
     import pufferlib_tpu_torch.vector as vector
     from pufferlib_tpu_torch.models import (
         Default, LSTMWrapper, Policy, RecurrentPolicy)
@@ -450,8 +503,8 @@ def make_trainer(torch, num_envs=8192, horizon=64, hidden=128,
         policy = Policy(module)
     else:
         policy = RecurrentPolicy(LSTMWrapper(module, obs_shape=obs_shape,
-            input_size=lstm_input, hidden_size=hidden, dtype=dtype,
-            kernel=lstm_kernel, use_kernel=lstm_use_kernel,
+            input_size=lstm_input, hidden_size=hidden, num_layers=lstm_layers,
+            dtype=dtype, kernel=lstm_kernel, use_kernel=lstm_use_kernel,
             generator=torch.Generator().manual_seed(seed + 1)))
     config = ppo.default_config(
         env='squared',
@@ -512,26 +565,30 @@ def run_lstm_trainer(torch, card, kernel, epochs, warmup):
 
 
 def run_default_routes(torch, card):
-    """The LSTM trainer where enc5 cannot serve, one epoch each, every
-    launch count set to 0 just before and read just after: input width 96
-    with hidden 128 and use_kernel=None must route to cat (16 launches of
-    each cat function, none of enc5's); hidden 256, which no kernel
-    serves, with use_kernel=False (the caller asks for the plain scan)
-    must run it with no LSTM launch. Both with finite losses. Then
-    use_kernel=None and use_kernel=True at hidden 256 must each raise
-    before any launch."""
+    """The LSTM trainer through LSTMWrapper's default route
+    (use_kernel=None) off the bench shapes, one epoch each, every launch
+    count set to 0 just before and read just after: input width 96 with
+    hidden 128 must route to enc5 (16 launches of each enc5 function, as
+    the JAX package runs enc5 at D != H); two layers at hidden 128 to cat
+    (enc5 cannot fuse the encoder: 16 launches of each cat function per
+    layer); hidden 256, which no kernel serves, with use_kernel=False (the
+    caller asks for the plain scan) must run it with no LSTM launch. All
+    with finite losses. Then use_kernel=None and use_kernel=True at hidden
+    256 must each raise before any launch."""
     from pufferlib_tpu_torch import spaces
     from pufferlib_tpu_torch.models import Default, LSTMWrapper
     from pufferlib_tpu_torch.ops.cuda import KERNELS
     device = torch.device('cuda')
-    for lstm_input, hidden, use, route in ((96, 128, None, 'cat'),
-            (256, 256, False, 'off')):
+    for lstm_input, hidden, layers, use, route in (
+            (96, 128, 1, None, 'enc5'), (128, 128, 2, None, 'cat'),
+            (256, 256, 1, False, 'off')):
+        what = (f'input {lstm_input}, hidden {hidden}, {layers} layer(s), '
+            f'use_kernel={use}')
         ppo, data = make_trainer(torch, hidden=hidden, lstm_kernel='enc5',
-            lstm_input=lstm_input, lstm_use_kernel=use)
+            lstm_input=lstm_input, lstm_use_kernel=use, lstm_layers=layers)
         got = data.policy.module.route(16, device)
         if got != route:
-            raise AssertionError(f'input {lstm_input}, hidden {hidden}, '
-                f'use_kernel={use}: route {got}, expected {route}')
+            raise AssertionError(f'{what}: route {got}, expected {route}')
         for k in KERNELS:
             k.reset_counts()
         start = time.perf_counter()
@@ -541,17 +598,15 @@ def run_default_routes(torch, card):
         launches = {fn: n for k in KERNELS for fn, n in k.fn_launches.items()}
         want = dict.fromkeys(launches, 0)
         want['gae_forward'] = 1
-        if route == 'cat':
-            want['lstm_cat_forward'] = want['lstm_cat_backward'] = \
-                LSTM_PER_EPOCH
+        if route != 'off':
+            want[f'lstm_{route[:3]}_forward'] = want[
+                f'lstm_{route[:3]}_backward'] = LSTM_PER_EPOCH * layers
         if launches != want:
-            raise AssertionError(f'input {lstm_input}, hidden {hidden}, '
-                f'use_kernel={use}: launches {launches}, expected {want}')
-        losses = check_losses(data, f'input {lstm_input}, hidden {hidden}, '
-            f'use_kernel={use}')
-        log(f'LSTM trainer, input {lstm_input}, hidden {hidden} bf16, '
-            f'use_kernel={use}: route {got}; 1 epoch (no warm-up) in '
-            f'{elapsed * 1e3:.2f} ms on {card}; launches '
+            raise AssertionError(f'{what}: launches {launches}, expected '
+                f'{want}')
+        losses = check_losses(data, what)
+        log(f'LSTM trainer, {what}, bf16: route {got}; 1 epoch (no warm-up) '
+            f'in {elapsed * 1e3:.2f} ms on {card}; launches '
             f'{json.dumps({k: v for k, v in launches.items() if v})}; '
             f'losses {json.dumps(losses)}')
         del data
@@ -627,10 +682,17 @@ def main():
         for kind in ('enc5', 'cat', 'scan', 'fused', 'enc')
             + ARCHIVED_ENC_KINDS + ('tm',)
         for B in (8192, 1000) for d in ('bfloat16', 'float32')}
-    # the tensor-core kernels at an input width apart from the hidden size
+    # the tensor-core kernels at an input width apart from the hidden size;
+    # enc5 also with a feature width past the FMA kernels' 128
     for kind in ('cat', 'fused'):
         lstm_runs[kind, 8192, 'bfloat16 D=96'] = check_lstm(torch, flush,
             rng, kind, 8192, 'bfloat16', D=96)
+    for B in (8192, 1000):
+        lstm_runs['enc5', B, 'bfloat16 D=96 F=200'] = check_lstm(torch, flush,
+            rng, 'enc5', B, 'bfloat16', D=96, F=200)
+    # enc5's bf16 kernels add every partial sum in a fixed order
+    check_bit_equal(torch, rng, 'enc5', 8192)
+    check_bit_equal(torch, rng, 'enc5', 1000, D=96, F=200)
     # x_proj and the compute dtype apart, both ways
     for kind in XP_KINDS:
         for B in (8192, 1000):
@@ -638,7 +700,7 @@ def main():
                 flush, rng, kind, B, 'bfloat16', xp_dtype_name='float32')
             lstm_runs[kind, B, 'float32/bf16 x_proj'] = check_lstm(torch,
                 flush, rng, kind, B, 'float32', xp_dtype_name='bfloat16')
-    for kind in ('fused', 'cat'):
+    for kind in ('fused', 'cat', 'enc5'):
         time_tc_phases(torch, flush, rng, kind)
     del flush
 
@@ -713,8 +775,9 @@ def main():
         warmup=False)
     del data
 
-    # phase 9: the default route (use_kernel=None) where enc5 cannot
-    # serve, and hidden 256, which no kernel serves
+    # phase 9: the default route (use_kernel=None) off the bench shapes:
+    # input 96 (enc5), two layers (cat), and hidden 256, which no kernel
+    # serves
     run_default_routes(torch, card)
 
     # phase 10: the LSTM validation path, at its full settings

@@ -1,15 +1,19 @@
-// The two LSTM cells whose input projection runs beside the recurrence,
+// The three LSTM cells whose input projection runs beside the recurrence,
 // in bf16 on the tensor cores, for Hopper (sm_90a): what csrc/lstm_scan.cu's
-// lstm_fused_forward / lstm_fused_backward (mode FUSED) and
-// csrc/lstm_cat.cu's lstm_cat_forward / lstm_cat_backward (mode CAT) run
+// lstm_fused_forward / lstm_fused_backward (mode FUSED),
+// csrc/lstm_cat.cu's lstm_cat_forward / lstm_cat_backward (mode CAT) and
+// csrc/lstm_enc.cu's lstm_enc_forward / lstm_enc_backward (mode ENC5) run
 // when the compute dtype is bf16. In f32 they keep lstm_common.cuh's cell
 // kernels: the tensor cores have no exact f32 product, and f32 is the
 // exact test mode.
 //
-// Replaces the TPU kernels of pufferlib_tpu/ops/pallas/lstm.py (FUSED) and
-// lstm_cat.py (CAT), phase by phase:
+// Replaces the TPU kernels of pufferlib_tpu/ops/pallas/lstm.py (FUSED),
+// lstm_cat.py (CAT) and lstm_enc5.py (ENC5), phase by phase:
 // * forward (FUSED: `_lstm_fused_impl`, `_fwd_fused_kernel`, `_noresid`;
-//   CAT: `_impl`, `_fwd_kernel`):
+//   CAT: `_impl`, `_fwd_kernel`; ENC5: lstm_enc.py `_impl`, `_fwd_kernel`):
+//   0. ENC5 only: the encoder xs = bf16(relu(feats @ W_enc + b_enc)) over
+//      all T*B rows (`_encode_block`), as a GEMM into a (T, B, D) bf16
+//      buffer; then CAT's forward on xs;
 //   1. pre-pass over all T*B rows into an f32 (T, B, 4H) slab: FUSED
 //      XW = x @ W_ih + b (the kernel body's first product, lstm.py:321),
 //      CAT S = x @ W_ih with no bias;
@@ -19,31 +23,41 @@
 //      (lstm_cat.py:48-51); the cell update, outs and (unless cseq is
 //      null) cseq.
 // * backward (FUSED: `_lstm_fused_bwd`, `_bwd_fused_kernel`; CAT: `_bwd`,
-//   `_bwd_kernel`):
+//   `_bwd_kernel`; ENC5: lstm_enc5.py `_hoisted_bwd`, `_bwd_kernel`):
+//   0. ENC5 only: xs recomputed by the forward's encoder, bit for bit;
 //   1. pre-pass P over all T*B rows (h_prev: h0 rounded, then the stored
 //      outs): the gate recompute, which needs no carried state, as an f32
-//      slab; FUSED (x @ W_ih + b) + h_prev @ W_hh, CAT
+//      slab; FUSED (x @ W_ih + b) + h_prev @ W_hh, CAT and ENC5
 //      (x @ W_ih + h_prev @ W_hh) + b;
-//   2. reverse loop: the activations from P_t, the dh/dc chain, dgates
-//      rounded to bf16 into the dg slab, db, dh_prev = dg_t @ W_hh^T
-//      (cat's dxh[:, D:], lstm_cat.py:107-110);
-//   3. dx = dg @ W_ih^T (lstm.py:375) over all rows;
+//   2. reverse loop: the activations from P_t (ENC5 rounds them to bf16,
+//      the TPU kernel's activation slab, lstm_enc5.py:74-76), the dh/dc
+//      chain, dgates rounded to bf16 into the dg slab, db, dh_prev =
+//      dg_t @ W_hh^T (cat's dxh[:, D:], lstm_cat.py:107-110);
+//   3. dx = dg @ W_ih^T (lstm.py:375) over all rows; ENC5 stores in its
+//      place dpre = bf16(xs > 0 ? dx : 0), the relu mask (lstm_enc5.py:
+//      123-125);
 //   4. dW = [x | h_prev]^T dg and db: lstm_common.cuh's split-K
 //      contraction and ordered sums of partials, shared with the other
-//      LSTM kernels.
+//      LSTM kernels; ENC5 also dW_enc = feats^T dpre and db_enc, one
+//      split-K contraction over [feats | 1].
 // The functions are the TPU kernels': f32 sums on bf16 operands, in each
-// mode's order; f32 activations; db from the unrounded dgates. The modes
-// differ only in where the bias and the input product enter the sum.
+// mode's order; FUSED and CAT keep f32 activations and sum db from the
+// unrounded dgates, ENC5 rounds the activations and sums db (and db_enc)
+// from the rounded values. The modes differ only in where the bias and
+// the input product enter the sum, and in ENC5's encoder and roundings.
 //
 // Shapes: H in {32, 64, 128}; the input width D is a run-time argument,
 // a multiple of 8 (rows of x move as 16-byte cp.async copies) whose
 // weight column still fits a pre-pass block (serves, below): up to 640
 // at H = 128, 704 at H = 32 and 64. Only W_hh stays in the loops, so
-// nothing else depends on D.
+// nothing else depends on D. ENC5's encoder takes any feature width F
+// whose W_enc column a GEMM block holds (serves_features): up to 768.
 //
 // Bound (T = 16, B = 8192, D = H = 128): the forward moves 35 MB of x,
 // outs and cseq at the crossover with its 34 GFLOP of bf16 operations
 // (about 0.035 ms); the backward's 103 GFLOP bound it (about 0.10 ms).
+// ENC5 adds the encoder's 1.6 GFLOP each way (F = 49) and reads feats
+// instead of x.
 //
 // Design. Only h @ W_hh (forward) and dg_t @ W_hh^T (backward) depend on
 // the carried state; every other product moves out of the loop into a
@@ -82,7 +96,10 @@
 //   2^-8; the backward, which read no faster with it, keeps expf and tanhf.
 // * the GEMMs hold their block's column of the weights in shared memory
 //   and stream the row tiles through a cp.async ring; a block walks a
-//   column of tiles, so that loads overlap products and epilogues.
+//   column of tiles, so that loads overlap products and epilogues. ENC5's
+//   encoder reads feats rows of any width: a row of F = 49 bf16 is 98
+//   bytes, so its A tiles load element by element (FeatRows), zeros past
+//   F.
 // The slabs are this design's main cost: 268 MB each way in f32
 // at the bench shapes, written once and read once. A later design would
 // keep W_ih resident too, streaming it through a TMA ring beside W_hh, or
@@ -483,8 +500,11 @@ __global__ void __launch_bounds__(NTC, 1) forward_loop(
 // f32, W_hh bf16, cseq and g_outs (T, B, H) bf16, g_hT, g_cT (B, H) f32.
 // Writes dh0, dc0 (B, H) f32, the rounded dgates dg (T, B, 4H) bf16 and
 // the block's db sums into row blockIdx.x of db_part (4H wide). dh and dc
-// live at the forward's (row, unit) positions.
-template <int H>
+// live at the forward's (row, unit) positions. ROUNDED (mode ENC5): the
+// activations pass through bf16 before the dgates chain and db sums the
+// rounded dgates, as lstm_enc5._bwd_kernel's shared activation/dgates
+// slab does; otherwise f32 activations and db from the unrounded dgates.
+template <int H, bool ROUNDED = false>
 __global__ void __launch_bounds__(NTC, 1) backward_loop(
         const float* __restrict__ pre, const float* __restrict__ c0,
         const bf16* __restrict__ w_hh16, const bf16* __restrict__ cseq,
@@ -566,15 +586,20 @@ __global__ void __launch_bounds__(NTC, 1) backward_loop(
                     float a[4];
 #pragma unroll
                     for (int g = 0; g < 4; ++g) a[g] = ok ? frag(in.p[g], e) : 0.f;
-                    dgates_chain(d[q], dc[ug][mt][e], dh[ug][mt][e] + gq[q], sigm(a[0]),
-                                 sigm(a[1]), tanhf(a[2]), sigm(a[3]), cq[q], pq[q]);
+                    float act[4] = {sigm(a[0]), sigm(a[1]), tanhf(a[2]), sigm(a[3])};
+                    if constexpr (ROUNDED) {
+#pragma unroll
+                        for (int g = 0; g < 4; ++g) act[g] = to_cdt<bf16>(act[g]);
+                    }
+                    dgates_chain(d[q], dc[ug][mt][e], dh[ug][mt][e] + gq[q], act[0], act[1],
+                                 act[2], act[3], cq[q], pq[q]);
                 }
 #pragma unroll
                 for (int g = 0; g < 4; ++g) {
                     if (ok) {
-                        // db sums the unrounded dgates
-                        db[ug][g][0] += d[0][g];
-                        db[ug][g][1] += d[1][g];
+                        // db sums the dgates: as stored in bf16 (ROUNDED), else unrounded
+                        db[ug][g][0] += ROUNDED ? to_cdt<bf16>(d[0][g]) : d[0][g];
+                        db[ug][g][1] += ROUNDED ? to_cdt<bf16>(d[1][g]) : d[1][g];
                     }
                     st2(d_s + r * WS + g * H + j, d[0][g], d[1][g]);
                     if (ok) st2(dg + (base + r) * G + g * H + j, d[0][g], d[1][g]);
@@ -716,6 +741,34 @@ __device__ __forceinline__ void load_a(bf16* as, SA a, int k0, int K, long long 
         const int r = i / (QK / 8), c = i % (QK / 8) * 8;
         const bool ok = m0 + r < M && k0 + c < K;
         cp_async16_zfill(as + r * QA + c, ok ? a.row(m0 + r) + k0 + c : a.row(0), ok);
+    }
+}
+
+// rows of the encoder's input feats, (rows, F) bf16, as the A operand of
+// its GEMM: a row of F bf16 starts on 16 bytes only when F is a multiple
+// of 8 (F = 49: 98-byte rows), so its elements move through registers,
+// zeros past F. They store to shared memory at once; the ring's next
+// barrier publishes them as it does the copies of the other A sources.
+struct FeatRows {
+    const bf16* p;
+    int F;
+};
+
+__device__ __forceinline__ void load_a(bf16* as, FeatRows a, int k0, int K, long long m0,
+                                       long long M) {
+    const unsigned short* raw = reinterpret_cast<const unsigned short*>(a.p);
+    for (int i = threadIdx.x; i < QM * QK / 8; i += QTHREADS) {
+        const int r = i / (QK / 8), c = i % (QK / 8) * 8;
+        const bool ok = m0 + r < M && k0 + c < K;
+        const long long at = (m0 + r) * a.F + k0 + c;
+        uint32_t v[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+            const uint32_t lo = ok && k0 + c + 2 * q < K ? __ldg(raw + at + 2 * q) : 0u;
+            const uint32_t hi = ok && k0 + c + 2 * q + 1 < K ? __ldg(raw + at + 2 * q + 1) : 0u;
+            v[q] = lo | hi << 16;
+        }
+        *reinterpret_cast<uint4*>(as + r * QA + c) = make_uint4(v[0], v[1], v[2], v[3]);
     }
 }
 
@@ -864,6 +917,72 @@ struct Bf16Out {
     }
 };
 
+// relu that keeps a NaN, as jnp.maximum(v, 0)
+__device__ __forceinline__ float relu(float v) { return v < 0.f ? 0.f : v; }
+
+// ENC5's encoder: bf16(relu(s1 + b_enc)) into a row-major (M, D) array,
+// the encoded inputs xs (lstm_enc._encode_block, then its bf16 scratch)
+struct EncodeOut {
+    bf16* out;
+    const float* b;
+    int D;
+    __device__ __forceinline__ void operator()(long long mb, int nb, int lane, long long M,
+                                               const float (&s1)[4], const float (&)[4]) const {
+        const int n = nb + lane % 4 * 2;
+        const float b0 = __ldg(b + n), b1 = __ldg(b + n + 1);
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+            const long long m = mb + lane / 4 + 8 * half;
+            if (m < M) st2(out + m * D + n, relu(s1[2 * half] + b0), relu(s1[2 * half + 1] + b1));
+        }
+    }
+};
+
+// ENC5's dx epilogue: dpre = bf16(xs > 0 ? dx : 0), dx = s1 in f32, into
+// a row-major (M, D) array; dx itself is never stored
+struct DpreOut {
+    bf16* out;
+    const bf16* x;
+    int D;
+    __device__ __forceinline__ void operator()(long long mb, int nb, int lane, long long M,
+                                               const float (&s1)[4], const float (&)[4]) const {
+        const int n = nb + lane % 4 * 2;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+            const long long m = mb + lane / 4 + 8 * half;
+            if (m < M) {
+                const float2 xv = ld2(x + m * D + n);
+                st2(out + m * D + n, xv.x > 0.f ? s1[2 * half] : 0.f,
+                    xv.y > 0.f ? s1[2 * half + 1] : 0.f);
+            }
+        }
+    }
+};
+
+// Row k of [feats | 1], (T*B, F + 1), as the A operand of the split-K
+// contraction [feats | 1]^T dpre: its rows 0 .. F-1 are dW_enc, row F
+// the column sums of dpre, db_enc (bf16 1.0 is exact, so each is an f32
+// sum of the rounded dpre, in the contraction's fixed order)
+struct FeatOnes {
+    const bf16* p;
+    int F;
+    __device__ __forceinline__ uint4 load8(size_t k, int m) const {
+        const unsigned short* raw = reinterpret_cast<const unsigned short*>(p) + k * F;
+        uint32_t v[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+            uint32_t h[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+                const int c = m + 2 * q + e;
+                h[e] = c < F ? __ldg(raw + c) : c == F ? 0x3f80u : 0u;
+            }
+            v[q] = h[0] | h[1] << 16;
+        }
+        return make_uint4(v[0], v[1], v[2], v[3]);
+    }
+};
+
 template <class SA1, class SB1, class SA2, class SB2, class Epi>
 cudaError_t rows_gemm(SA1 a1, SB1 b1, int k1, SA2 a2, SB2 b2, int k2, Epi epi, long long M,
                       int N, cudaStream_t stream) {
@@ -913,11 +1032,53 @@ inline cudaError_t round_into(const float* w_ih, const float* w_hh, const float*
     return cudaGetLastError();
 }
 
+__global__ void round_rows(const float* __restrict__ src, bf16* __restrict__ dst, long long n) {
+    for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+         i += (long long)gridDim.x * blockDim.x)
+        dst[i] = __float2bfloat16_rn(src[i]);
+}
+
 // The input widths the kernels take at hidden size H: rows of x move as
 // 16-byte cp.async copies (D % 8 == 0), and the backward pre-pass holds
 // its block's column of [W_ih; W_hh] (D + H rows) in shared memory
 inline bool serves(int D, int H) {
     return D >= 8 && D % 8 == 0 && gemm_smem(D, H) <= (size_t)MAX_SMEM;
+}
+
+// The feature widths ENC5's encoder takes: its GEMM holds the block's
+// column of W_enc (F rows) in shared memory
+inline bool serves_features(int F) { return F >= 1 && gemm_smem(F, 0) <= (size_t)MAX_SMEM; }
+
+// What mode ENC5 puts in front of the cell, and the encoder's share of
+// its backward: feats (T*B, F) bf16; W_enc (F, D), b_enc (D,) f32; xs
+// (T*B, D) bf16, the encoded inputs, written by encode (scratch); we16
+// (F, D) bf16 scratch. Backward only: dpre (T*B, D) bf16 scratch; dwe
+// (F + 1, D) f32, dW_enc then db_enc; dwe_part (splits, F + 1, D) f32.
+struct Encoder {
+    const bf16* feats = nullptr;
+    const float* w_enc = nullptr;
+    const float* b_enc = nullptr;
+    bf16* xs = nullptr;
+    bf16* we16 = nullptr;
+    int F = 0;
+    bf16* dpre = nullptr;
+    float* dwe = nullptr;
+    float* dwe_part = nullptr;
+    int splits = 0;
+};
+
+// xs = bf16(relu(feats @ W_enc + b_enc)) over M = T*B rows: one GEMM
+// with bf16 operands and an f32 sum, + b_enc, relu, then one rounding
+// (lstm_enc._encode_block). The forward and the backward both call this,
+// so that the backward's xs, and with it the relu mask, are the
+// forward's bit for bit.
+inline cudaError_t encode(const Encoder& e, int D, long long M, cudaStream_t stream) {
+    round_rows<<<132, 256, 0, stream>>>(e.w_enc, e.we16, (long long)e.F * D);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    const FeatRows f{e.feats, e.F};
+    const BRows we{e.we16, D};
+    return rows_gemm(f, we, e.F, f, we, 0, EncodeOut{e.xs, e.b_enc, D}, M, D, stream);
 }
 
 // The forward: x (T, B, D) bf16, weights f32; scratch xw (the slab, T * 64
@@ -950,21 +1111,45 @@ cudaError_t forward(const bf16* x, const float* h0, const float* c0, const float
     return cudaGetLastError();
 }
 
-// The backward: scratch pre (as the forward's xw) f32, w16 ((D + H) * 4H + 4H * D +
-// B * H) bf16 (the rounded [W_ih; W_hh], W_ih^T and h0), dg (T, B, 4H)
-// bf16, dw_part (splits, D + H, 4H) and db_part (ceil(B / BR), 4H) f32.
-// phases: the first 1 .. 4 of pre-pass, loop, dx, dW + db.
+// ENC5's forward: the encoder into enc.xs, then CAT's forward on it. Its
+// phases: 1, the encoder and the pre-pass; 2, all.
+template <int H>
+cudaError_t enc5_forward(const Encoder& enc, const float* h0, const float* c0,
+                         const float* w_ih, const float* w_hh, const float* b, bf16* outs,
+                         bf16* cseq, float* hT, float* cT, float* xw, bf16* w16, int T, int B,
+                         int D, int phases, cudaStream_t stream) {
+    if (phases < 1 || phases > FORWARD_PHASES || !serves(D, H) || !serves_features(enc.F))
+        return cudaErrorInvalidValue;
+    const cudaError_t err = encode(enc, D, (long long)T * B, stream);
+    if (err != cudaSuccess) return err;
+    return forward<H, CAT>(enc.xs, h0, c0, w_ih, w_hh, b, outs, cseq, hT, cT, xw, w16, T, B, D,
+                           phases, stream);
+}
+
+// The backward: scratch pre (as the forward's xw) f32, w16 ((D + H) * 4H +
+// 4H * D + B * H) bf16 (the rounded [W_ih; W_hh], W_ih^T and h0), dg
+// (T, B, 4H) bf16, dw_part (splits, D + H, 4H) and db_part (ceil(B / BR),
+// 4H) f32. phases: the first 1 .. 4 of pre-pass, loop, dx, dW + db.
+// ENC5: x is enc.xs, which the encoder writes first (the pre-pass phase);
+// dx is not written, dpre in its place; the last phase adds dW_enc and
+// db_enc.
 template <int H, int MODE>
 cudaError_t backward(const bf16* x, const float* h0, const float* c0, const float* w_ih,
                      const float* w_hh, const float* b, const bf16* outs, const bf16* cseq,
                      const bf16* g_outs, const float* g_hT, const float* g_cT, bf16* dx,
                      float* dh0, float* dc0, float* dw, float* db, bf16* dg, float* dw_part,
                      float* db_part, float* pre, bf16* w16, int T, int B, int D, int splits,
-                     int part_rows, int phases, cudaStream_t stream) {
+                     int part_rows, int phases, cudaStream_t stream,
+                     const Encoder& enc = Encoder{}) {
     constexpr int G = 4 * H;
+    constexpr bool ENCODER = MODE == ENC5;
+    // where the bias enters the gate sum: ENC5's cell is CAT's
+    constexpr int SUM = ENCODER ? CAT : MODE;
     const int nblk = (B + BR - 1) / BR;
     if (phases < 1 || phases > BACKWARD_PHASES || part_rows != nblk || splits < 1 ||
         !serves(D, H))
+        return cudaErrorInvalidValue;
+    if (ENCODER && (x != enc.xs || !serves_features(enc.F) || enc.splits < 1))
         return cudaErrorInvalidValue;
     if (!aligned16(x) || !aligned16(outs)) return cudaErrorMisalignedAddress;
     const long long M = (long long)T * B;
@@ -972,46 +1157,43 @@ cudaError_t backward(const bf16* x, const float* h0, const float* c0, const floa
     bf16* h16 = w16t + (size_t)G * D;        // h0 (B, H)
     cudaError_t err = round_into(w_ih, w_hh, h0, w16, w16t, h16, D, H, B, stream);
     if (err != cudaSuccess) return err;
+    if constexpr (ENCODER) {
+        if ((err = encode(enc, D, M, stream)) != cudaSuccess) return err;
+    }
     BRows xs{x, D};
     GateRows wi{w16, H}, wh{w16 + (size_t)D * G, H};
     HPrev h_prev{h16, outs, B, H};
-    const GatesOut<MODE> slab{pre, b, B, H, 4 * nblk};
+    const GatesOut<SUM> slab{pre, b, B, H, 4 * nblk};
     if ((err = rows_gemm(xs, wi, D, h_prev, wh, H, slab, M, G, stream)) != cudaSuccess ||
         phases < 2)
         return err;
-    auto kernel = backward_loop<H>;
+    auto kernel = backward_loop<H, ENCODER>;
     if ((err = prepare(kernel, Geo<H>::BWD_SMEM)) != cudaSuccess) return err;
     kernel<<<nblk, NTC, Geo<H>::BWD_SMEM, stream>>>(pre, c0, w16 + (size_t)D * G, cseq, g_outs,
                                                     g_hT, g_cT, dh0, dc0, dg, db_part, T, B);
     if ((err = cudaGetLastError()) != cudaSuccess || phases < 3) return err;
     BRows dgs{dg, G}, wit{w16t, D};
-    if ((err = rows_gemm(dgs, wit, G, dgs, wit, 0, Bf16Out{dx, D}, M, D, stream)) !=
-            cudaSuccess ||
-        phases < 4)
-        return err;
+    if constexpr (ENCODER)
+        err = rows_gemm(dgs, wit, G, dgs, wit, 0, DpreOut{enc.dpre, x, D}, M, D, stream);
+    else
+        err = rows_gemm(dgs, wit, G, dgs, wit, 0, Bf16Out{dx, D}, M, D, stream);
+    if (err != cudaSuccess || phases < 4) return err;
     XHRows<bf16> xh{x, h0, outs, B, D, H};
     Rows<bf16> dgates{dg, G};
     if ((err = splitk<bf16>(xh, dgates, dw_part, dw, D + H, G, M, splits, stream)) !=
         cudaSuccess)
         return err;
-    return reduce(db_part, db, nblk, G, stream);
+    if ((err = reduce(db_part, db, nblk, G, stream)) != cudaSuccess) return err;
+    if constexpr (ENCODER)
+        err = splitk<bf16>(FeatOnes{enc.feats, enc.F}, Rows<bf16>{enc.dpre, D}, enc.dwe_part,
+                           enc.dwe, enc.F + 1, D, M, enc.splits, stream);
+    return err;
 }
 
-// Registers and local (spilled) bytes per thread of the bf16 path's
-// kernels at hidden size H in mode MODE, as out[2i], out[2i + 1] for: the
-// forward pre-pass, the forward loop, the backward pre-pass, the backward
-// loop, dx (the last two serve both modes)
-template <int H, int MODE>
-cudaError_t usage(int* out) {
-    const void* fns[] = {
-        reinterpret_cast<const void*>(
-            rows_gemm_kernel<BRows, GateRows, BRows, GateRows, GatesOut<MODE>>),
-        reinterpret_cast<const void*>(forward_loop<H, MODE>),
-        reinterpret_cast<const void*>(
-            rows_gemm_kernel<BRows, GateRows, HPrev, GateRows, GatesOut<MODE>>),
-        reinterpret_cast<const void*>(backward_loop<H>),
-        reinterpret_cast<const void*>(rows_gemm_kernel<BRows, BRows, BRows, BRows, Bf16Out>)};
-    for (int i = 0; i < 5; ++i) {
+// Registers and local (spilled) bytes per thread of n kernels, as
+// out[2i], out[2i + 1]
+inline cudaError_t attributes(const void* const* fns, int n, int* out) {
+    for (int i = 0; i < n; ++i) {
         cudaFuncAttributes a;
         const cudaError_t err = cudaFuncGetAttributes(&a, fns[i]);
         if (err != cudaSuccess) return err;
@@ -1019,6 +1201,45 @@ cudaError_t usage(int* out) {
         out[2 * i + 1] = (int)a.localSizeBytes;
     }
     return cudaSuccess;
+}
+
+// Those of ENC5's bf16 kernels at hidden size H: the encoder, the forward
+// pre-pass, the forward loop, the backward pre-pass, the backward loop,
+// dpre
+template <int H>
+cudaError_t enc5_usage(int* out) {
+    const void* fns[] = {
+        reinterpret_cast<const void*>(
+            rows_gemm_kernel<FeatRows, BRows, FeatRows, BRows, EncodeOut>),
+        reinterpret_cast<const void*>(
+            rows_gemm_kernel<BRows, GateRows, BRows, GateRows, GatesOut<CAT>>),
+        reinterpret_cast<const void*>(forward_loop<H, CAT>),
+        reinterpret_cast<const void*>(
+            rows_gemm_kernel<BRows, GateRows, HPrev, GateRows, GatesOut<CAT>>),
+        reinterpret_cast<const void*>(backward_loop<H, true>),
+        reinterpret_cast<const void*>(rows_gemm_kernel<BRows, BRows, BRows, BRows, DpreOut>)};
+    return attributes(fns, 6, out);
+}
+
+// Those of the bf16 path's kernels at hidden size H in mode MODE: FUSED
+// and CAT, the forward pre-pass, the forward loop, the backward pre-pass,
+// the backward loop, dx (the last two serve both modes); ENC5 enc5_usage's
+template <int H, int MODE>
+cudaError_t usage(int* out) {
+    if constexpr (MODE == ENC5) {
+        return enc5_usage<H>(out);
+    } else {
+        const void* fns[] = {
+            reinterpret_cast<const void*>(
+                rows_gemm_kernel<BRows, GateRows, BRows, GateRows, GatesOut<MODE>>),
+            reinterpret_cast<const void*>(forward_loop<H, MODE>),
+            reinterpret_cast<const void*>(
+                rows_gemm_kernel<BRows, GateRows, HPrev, GateRows, GatesOut<MODE>>),
+            reinterpret_cast<const void*>(backward_loop<H>),
+            reinterpret_cast<const void*>(
+                rows_gemm_kernel<BRows, BRows, BRows, BRows, Bf16Out>)};
+        return attributes(fns, 5, out);
+    }
 }
 
 template <int MODE>

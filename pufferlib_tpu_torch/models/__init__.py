@@ -38,7 +38,11 @@ def lstm_route(kernel, use_kernel, device, T, D, H, F, num_layers, cdt):
     hidden_size; F: the encoder's feature width when the policy has the
     encoder_features / encoder_params contract, else None; cdt: the
     compute dtype. enc5 needs to fuse the encoder: one layer and the
-    contract; otherwise its place goes to cat.
+    contract; otherwise its place goes to cat. Its reach on the card is
+    lstm_common.encoder_shape_error's: in bf16 the tensor-core kernels'
+    (D a multiple of 8 up to tc_max_input(H), F up to
+    tc_max_features()), in f32 the FMA kernels' (D == H, F <= 128), as
+    the JAX package runs enc5 at any D and F.
     - T == 1, use_kernel False, or kernel 'off': 'off' (at T == 1 the
       plain combined-operand step). These are the only ways to the plain
       scan on the card: the caller asks for it.
@@ -55,14 +59,14 @@ def lstm_route(kernel, use_kernel, device, T, D, H, F, num_layers, cdt):
     on_card = torch.device(device).type == 'cuda'
     if use_kernel:
         if on_card:
-            err = encoder_shape_error(F, D, H) if fuse \
+            err = encoder_shape_error(F, D, H, cdt) if fuse \
                 else cell_shape_error(D, H, cdt)
             if err is not None:
                 raise ValueError(err)
         return 'enc5' if fuse else 'cat'
     if not on_card:
         return 'off'
-    if fuse and encoder_shape_error(F, D, H) is None:
+    if fuse and encoder_shape_error(F, D, H, cdt) is None:
         return 'enc5'
     err = cell_shape_error(D, H, cdt)
     if err is not None:

@@ -20,7 +20,7 @@ from pufferlib_tpu_torch.ops.cuda._build import (
     CudaKernel, I, P, ptr, ptr_or_null, stream_handle)
 from pufferlib_tpu_torch.ops.cuda.lstm_common import (
     ROWS_PER_BLOCK, backward_inputs, check_encoder_inputs,
-    check_encoder_kernel_shape, needs_cseq, splitk_splits)
+    check_fma_encoder_kernel_shape, needs_cseq, splitk_splits)
 
 _ENC_BACKWARD = [P] * 27 + [I] * 8 + [P]
 KERNEL = CudaKernel('lstm_archive.cu', {
@@ -53,7 +53,7 @@ def launch_enc_backward(fn, feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b, outs,
     T, B, F = feats.shape
     H = h0.shape[1]
     D, G = H, 4 * H
-    check_encoder_kernel_shape(feats, w_enc, H)
+    check_fma_encoder_kernel_shape(feats, w_enc, H)
     # lstm_archive.cu archive_smem: dgates tiles, a weight chunk, W_enc, feats_t
     shared = 4 * (row_tiles * G * ROWS_PER_BLOCK + 16 * G
         + F * (H + ROWS_PER_BLOCK))

@@ -23,12 +23,13 @@ feats (T, B, F) is in cdt; its cotangent is zero by contract.
 """
 import torch
 
-from pufferlib_tpu_torch.ops.cuda import lstm_enc
+from pufferlib_tpu_torch.ops.cuda._build import (
+    ptr, ptr_or_null, stream_handle)
 from pufferlib_tpu_torch.ops.cuda.archive import (
     KERNEL, EncVariant, launch_enc_backward, scan_enc_variant)
 from pufferlib_tpu_torch.ops.cuda.lstm_common import (
-    cell_backward_step, encode, gate_activations, h_prev_rows, round_to,
-    scan_cells)
+    cell_backward_step, check_fma_encoder_kernel_shape, encode,
+    forward_outputs, gate_activations, h_prev_rows, round_to, scan_cells)
 
 __all__ = ['lstm_scan_enc2', 'lstm_enc2_reference',
     'lstm_enc2_backward_reference', 'VARIANT']
@@ -83,9 +84,19 @@ def lstm_enc2_backward_reference(feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b,
     return dh, dc, dw_enc, db_enc, dw_ih, dw_hh, db
 
 
-def _launch_forward(*args):
-    return lstm_enc._launch_forward(*args, kernel=KERNEL,
-        fn='lstm_enc2_forward')
+def _launch_forward(feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b, cdt,
+        save_cseq=True):
+    """lstm_enc2_forward, on FMA in both dtypes: (outs, hT, cT, cseq)."""
+    T, B, F = feats.shape
+    H = h0.shape[1]
+    check_fma_encoder_kernel_shape(feats, w_enc, H)
+    outs, hT, cT, cseq = forward_outputs(T, h0, c0, cdt, save_cseq)
+    if B > 0:
+        KERNEL.launch('lstm_enc2_forward', ptr(feats), ptr(h0), ptr(c0),
+            ptr(w_enc), ptr(b_enc), ptr(w_ih), ptr(w_hh), ptr(b), ptr(outs),
+            ptr_or_null(cseq), ptr(hT), ptr(cT), T, B, F, H,
+            int(cdt == torch.bfloat16), stream_handle(feats))
+    return outs, hT, cT, cseq
 
 
 def _launch_backward(*args):

@@ -63,8 +63,9 @@ def _launch_backward(*args):
     return launch_enc_backward('lstm_enc3_backward', *args, acts_slab=True)
 
 
-VARIANT = EncVariant(lstm_enc.lstm_enc_reference, lstm_enc._launch_forward,
-    lstm_enc3_backward_reference, _launch_backward)
+VARIANT = EncVariant(lstm_enc.lstm_enc_reference,
+    lstm_enc._launch_enc_forward, lstm_enc3_backward_reference,
+    _launch_backward)
 
 
 def lstm_scan_enc3(feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b,

@@ -65,8 +65,9 @@ def _launch_backward(*args):
     return launch_enc_backward('lstm_enc4_backward', *args)
 
 
-VARIANT = EncVariant(lstm_enc.lstm_enc_reference, lstm_enc._launch_forward,
-    lstm_enc4_backward_reference, _launch_backward)
+VARIANT = EncVariant(lstm_enc.lstm_enc_reference,
+    lstm_enc._launch_enc_forward, lstm_enc4_backward_reference,
+    _launch_backward)
 
 
 def lstm_scan_enc4(feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b,

@@ -30,8 +30,9 @@ def _launch_backward(*args):
         row_tiles=ROW_TILES, acts_slab=True)
 
 
-VARIANT = EncVariant(lstm_enc.lstm_enc_reference, lstm_enc._launch_forward,
-    lstm_enc.lstm_enc_backward_reference, _launch_backward)
+VARIANT = EncVariant(lstm_enc.lstm_enc_reference,
+    lstm_enc._launch_enc_forward, lstm_enc.lstm_enc_backward_reference,
+    _launch_backward)
 
 
 def lstm_scan_enc6(feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b,

@@ -2,8 +2,8 @@
 archive/ share: the encoder, the cell loop and the reverse step of their
 plain versions, in the TPU kernels' order of operations, the input and
 shape checks, the launch geometry of csrc/lstm_common.cuh and
-csrc/lstm_tc.cuh, and the launches of the two cells whose bf16 kernels
-run on the tensor cores (cat's and lstm_scan_fused's).
+csrc/lstm_tc.cuh, and the launches of the two cells without an encoder
+whose bf16 kernels run on the tensor cores (cat's and lstm_scan_fused's).
 """
 import math
 
@@ -21,8 +21,9 @@ CDTS = (torch.float32, torch.bfloat16)
 KERNEL_HIDDEN = (32, 64, 128)
 # batch rows per block of the recurrent kernels (lstm_common.cuh BT)
 ROWS_PER_BLOCK = 32
-# feature widths whose W_enc the encoder-fused kernels hold in shared
-# memory (lstm_common.cuh forward_smem / backward_smem)
+# feature widths whose W_enc the encoder-fused FMA kernels hold in shared
+# memory (lstm_common.cuh forward_smem / backward_smem); enc5's bf16
+# kernels take up to tc_max_features()
 KERNEL_MAX_FEATURES = 128
 # batch rows per block of the tensor-core loops (lstm_tc.cuh BR)
 TC_ROWS_PER_BLOCK = 64
@@ -183,17 +184,29 @@ def check_placement(name, t, device):
         raise ValueError(f'{name} must be contiguous')
 
 
+def _tc_weight_chunks():
+    """Chunks of 64 weight rows that a tensor-core GEMM block holds in
+    shared memory: each 64 x (128 + 8) bf16, beside a ring of two
+    64 x (64 + 8) bf16 tiles, in MAX_SMEM (lstm_tc.cuh gemm_smem)."""
+    return (MAX_SMEM - 2 * 2 * 64 * (64 + 8)) // (2 * 64 * (128 + 8))
+
+
 def tc_max_input(H):
     """The widest input the tensor-core kernels take at hidden size H: the
     backward pre-pass holds its block's column of [W_ih; W_hh], D + H rows
-    in chunks of 64 x (128 + 8) bf16, beside a ring of two 64 x (64 + 8)
-    bf16 tiles, in MAX_SMEM (lstm_tc.cuh gemm_smem and serves). The
-    checks made before a launch need it without the library, so this
-    copies the constants; chip_smoke.py and tests/test_torch_cuda.py hold
-    it to the C function lstm_tc_max_input (csrc/lstm_cat.cu) on the
-    card."""
-    chunks = (MAX_SMEM - 2 * 2 * 64 * (64 + 8)) // (2 * 64 * (128 + 8))
-    return 64 * (chunks - math.ceil(H / 64))
+    (lstm_tc.cuh serves). The checks made before a launch need it without
+    the library, so this copies the constants; chip_smoke.py and
+    tests/test_torch_cuda.py hold it to the C function lstm_tc_max_input
+    (csrc/lstm_cat.cu) on the card."""
+    return 64 * (_tc_weight_chunks() - math.ceil(H / 64))
+
+
+def tc_max_features():
+    """The widest feature width enc5's bf16 encoder takes: its GEMM holds
+    the block's column of W_enc, F rows (lstm_tc.cuh serves_features).
+    A copy of the constants, as tc_max_input; held to the C function
+    lstm_enc_tc_max_features (csrc/lstm_enc.cu) on the card."""
+    return 64 * _tc_weight_chunks()
 
 
 def fma_shape_error(D, H):
@@ -228,14 +241,33 @@ def cell_shape_error(D, H, cdt):
         else fma_shape_error(D, H)
 
 
-def encoder_shape_error(F, D, H):
-    """Why the encoder-fused kernels (FMA in both dtypes) refuse F
-    features, encoder width D and hidden size H, or None."""
+def fma_encoder_shape_error(F, D, H):
+    """Why the encoder-fused FMA kernels (enc5 in f32; lstm_scan_enc and
+    the archived variants in both dtypes) refuse F features, encoder width
+    D and hidden size H, or None."""
     err = fma_shape_error(D, H)
     if err is None and F > KERNEL_MAX_FEATURES:
-        err = (f'the CUDA encoder-fused LSTM kernels take at most '
+        err = (f'the CUDA encoder-fused LSTM kernels on FMA take at most '
             f'{KERNEL_MAX_FEATURES} features, got {F}')
     return err
+
+
+def tc_encoder_shape_error(F, D, H):
+    """Why enc5's bf16 tensor-core kernels refuse F features, encoder width
+    D and hidden size H, or None: the cell's reach (tc_shape_error), and
+    F up to tc_max_features()."""
+    err = tc_shape_error(D, H)
+    if err is None and not 1 <= F <= tc_max_features():
+        err = (f'the bf16 tensor-core enc5 kernels take at most '
+            f'{tc_max_features()} features, got {F}')
+    return err
+
+
+def encoder_shape_error(F, D, H, cdt):
+    """Why the enc5 kernels refuse (F, D, H) in cdt, or None: their bf16
+    kernels run on the tensor cores, their f32 ones on FMA."""
+    return tc_encoder_shape_error(F, D, H) if cdt == torch.bfloat16 \
+        else fma_encoder_shape_error(F, D, H)
 
 
 def _refuse(device, err):
@@ -256,9 +288,18 @@ def check_cell_kernel_shape(D, H, cdt, device):
     _refuse(device, cell_shape_error(D, H, cdt))
 
 
-def check_encoder_kernel_shape(feats, w_enc, H):
-    """Raise for an encoder-fused launch the kernels do not serve."""
+def check_encoder_kernel_shape(feats, w_enc, H, cdt):
+    """Raise for a launch of the enc5 kernels that they do not serve in
+    cdt."""
     _refuse(feats.device, encoder_shape_error(feats.shape[2],
+        w_enc.shape[1], H, cdt))
+
+
+def check_fma_encoder_kernel_shape(feats, w_enc, H):
+    """Raise for a launch of an encoder-fused kernel pair whose backward
+    runs on FMA (lstm_scan_enc, the archived variants) that it does not
+    serve."""
+    _refuse(feats.device, fma_encoder_shape_error(feats.shape[2],
         w_enc.shape[1], H))
 
 

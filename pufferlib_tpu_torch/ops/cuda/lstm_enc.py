@@ -25,30 +25,49 @@ feats (T, B, F) is in the compute dtype cdt; the feats cotangent is zero
 by contract (observations are constants in RL training; the caller
 detaches them), as the JAX kernel's is.
 
+On the card, in bf16, the enc5 pair runs csrc/lstm_tc.cuh in mode ENC5:
+the encoder as one GEMM over all T*B rows into a (T, B, D) bf16 buffer,
+then cat's tensor-core forward on it; the backward recomputes that buffer
+with the same encoder, runs the gate recompute, dpre and the weight
+gradients as GEMMs around a reverse loop that keeps only dg_t @ W_hh^T.
+It takes any encoder width D that is a multiple of 8 up to
+lstm_common.tc_max_input(H), and up to lstm_common.tc_max_features()
+features. In f32, the exact test mode, and for lstm_scan_enc's step
+backward in both dtypes, the FMA kernels of csrc/lstm_common.cuh run,
+with D == H and at most KERNEL_MAX_FEATURES features; lstm_scan_enc's
+forward shares enc5's C function but keeps its backward's reach.
+
 lstm_enc_reference, lstm_enc_backward_reference and
 lstm_scan_enc_backward_reference are the plain versions: explicit PyTorch
 that follows the TPU kernels' math and rounding points. The
 autograd.Functions run them for tensors on the CPU; for CUDA tensors they
 launch the kernels or raise.
 """
+import math
+
 import torch
 
 from pufferlib_tpu_torch.ops.cuda._build import (
     CudaKernel, I, P, ptr, ptr_or_null, stream_handle)
 from pufferlib_tpu_torch.ops.cuda.lstm_common import (
-    KERNEL_MAX_FEATURES, backward_inputs, blocks, cell_backward_step,
-    check_encoder_inputs, check_encoder_kernel_shape, encode,
-    gate_activations, h_prev_rows, needs_cseq, round_to, scan_forward,
-    splitk_splits)
+    BACKWARD_PHASES, FORWARD_PHASES, KERNEL_MAX_FEATURES, TC_ROWS_PER_BLOCK,
+    backward_inputs, blocks, cell_backward_step, check_encoder_inputs,
+    check_encoder_kernel_shape, check_fma_encoder_kernel_shape, encode,
+    forward_outputs, gate_activations, h_prev_rows, needs_cseq, round_to,
+    scan_forward, splitk_splits, tc_slab)
 
 __all__ = ['lstm_scan_enc5', 'lstm_scan_enc', 'lstm_enc_reference',
     'lstm_enc_backward_reference', 'lstm_scan_enc_backward_reference',
     'encode', 'KERNEL', 'KERNEL_MAX_FEATURES']
 
 KERNEL = CudaKernel('lstm_enc.cu', {
-    'lstm_enc_forward': [P] * 12 + [I] * 5 + [P],
-    'lstm_enc_backward': [P] * 26 + [I] * 8 + [P],
+    'lstm_enc_forward': [P] * 15 + [I] * 7 + [P],
+    'lstm_enc_backward': [P] * 27 + [I] * 10 + [P],
     'lstm_enc_step_backward': [P] * 26 + [I] * 8 + [P],
+    # not a launch: enc5's bf16 kernels' registers and spills
+    'lstm_enc_tc_usage': [I, P],
+    # not a launch: the widest feature width enc5's bf16 encoder takes
+    'lstm_enc_tc_max_features': [P],
 })
 
 def lstm_enc_reference(feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b,
@@ -132,35 +151,97 @@ def lstm_scan_enc_backward_reference(feats, h0, c0, w_enc, b_enc, w_ih,
 
 
 def _launch_forward(feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b, cdt,
-        save_cseq=True, kernel=KERNEL, fn='lstm_enc_forward'):
-    """Launch an encoder-fused forward: this module's, or `fn` of another
-    source with the same C signature (the archive's enc2)."""
+        save_cseq=True, phases=FORWARD_PHASES):
+    """lstm_enc_forward at enc5's reach: (outs, hT, cT, cseq). In bf16 its
+    scratch is the encoded inputs, the slab and the bf16 weights; in f32
+    none."""
     T, B, F = feats.shape
     H = h0.shape[1]
-    check_encoder_kernel_shape(feats, w_enc, H)
-    outs = torch.empty((T, B, H), dtype=cdt, device=feats.device)
-    cseq = torch.empty_like(outs) if save_cseq else None
-    hT = torch.empty_like(h0)
-    cT = torch.empty_like(c0)
+    D = w_enc.shape[1]
+    check_encoder_kernel_shape(feats, w_enc, H, cdt)
+    outs, hT, cT, cseq = forward_outputs(T, h0, c0, cdt, save_cseq)
     if B > 0:
-        kernel.launch(fn, ptr(feats), ptr(h0), ptr(c0),
+        tc = cdt == torch.bfloat16
+        dev = feats.device
+        xs = torch.empty((T, B, D), dtype=cdt, device=dev) if tc else None
+        xw = tc_slab(T, B, H, dev) if tc else None
+        # [W_ih; W_hh], then W_enc, in bf16
+        w16 = torch.empty(((D + H) * 4 * H + F * D,), dtype=torch.bfloat16,
+            device=dev) if tc else None
+        KERNEL.launch('lstm_enc_forward', ptr(feats), ptr(h0), ptr(c0),
             ptr(w_enc), ptr(b_enc), ptr(w_ih), ptr(w_hh), ptr(b), ptr(outs),
-            ptr_or_null(cseq), ptr(hT), ptr(cT), T, B, F, H,
-            int(cdt == torch.bfloat16), stream_handle(feats))
+            ptr_or_null(cseq), ptr(hT), ptr(cT), ptr_or_null(xs),
+            ptr_or_null(xw), ptr_or_null(w16), T, B, F, D, H, int(tc), phases,
+            stream_handle(feats))
     return outs, hT, cT, cseq
 
 
-def _launch_step_backward(*args):
-    """The un-hoisted backward of lstm_scan_enc."""
-    return _launch_backward(*args, fn='lstm_enc_step_backward')
+def _launch_enc_forward(feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b, cdt,
+        save_cseq=True):
+    """The same forward for the kernel pairs whose backward runs on FMA
+    (lstm_scan_enc; the archived enc3, enc4 and enc6), which take only
+    their backward's shapes."""
+    check_fma_encoder_kernel_shape(feats, w_enc, h0.shape[1])
+    return _launch_forward(feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b, cdt,
+        save_cseq)
 
 
 def _launch_backward(feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b, outs,
-        cseq, g_outs, g_hT, g_cT, cdt, fn='lstm_enc_backward'):
+        cseq, g_outs, g_hT, g_cT, cdt, phases=BACKWARD_PHASES):
+    """lstm_enc_backward, enc5's: (dh0, dc0, dW_enc, db_enc, dW_ih, dW_hh,
+    db)."""
+    T, B, F = feats.shape
+    H = h0.shape[1]
+    D = w_enc.shape[1]
+    G = 4 * H
+    check_encoder_kernel_shape(feats, w_enc, H, cdt)
+    dev = feats.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    dh0 = torch.empty_like(h0)
+    dc0 = torch.empty_like(c0)
+    # dW_enc (F, D), then db_enc (D,)
+    dwe = torch.empty((F + 1, D), **f32)
+    dw = torch.empty((D + H, G), **f32)
+    db = torch.empty((G,), **f32)
+    if B == 0:
+        dwe.zero_()
+        return dh0, dc0, dwe[:F], dwe[F], dw[:D].zero_(), dw[D:].zero_(), \
+            db.zero_()
+    tc = cdt == torch.bfloat16
+    # bf16 sums db_enc as row F of [feats | 1]^T dpre, f32 from partials
+    enc_rows = F + 1 if tc else F
+    splits_w = splitk_splits(D + H, G, T * B, dev)
+    splits_e = splitk_splits(enc_rows, D, T * B, dev)
+    xs = torch.empty((T, B, D), dtype=cdt, device=dev)
+    dpre = torch.empty_like(xs)
+    dg = torch.empty((T, B, G), dtype=cdt, device=dev)
+    dw_part = torch.empty((splits_w, D + H, G), **f32)
+    # bias partials, a row per block: of 64 batch rows in bf16, 32 in f32
+    part_rows = math.ceil(B / TC_ROWS_PER_BLOCK) if tc else blocks(B)
+    db_part = torch.empty((part_rows, G), **f32)
+    dwe_part = torch.empty((splits_e, enc_rows, D), **f32)
+    dbe_part = None if tc else torch.empty((part_rows, D), **f32)
+    # bf16: the P slab; [W_ih; W_hh], W_ih^T, h0 and W_enc in bf16
+    pre = tc_slab(T, B, H, dev) if tc else None
+    w16 = torch.empty(((D + H) * G + G * D + B * H + F * D,),
+        dtype=torch.bfloat16, device=dev) if tc else None
+    KERNEL.launch('lstm_enc_backward', ptr(feats), ptr(h0), ptr(c0),
+        ptr(w_enc), ptr(b_enc), ptr(w_ih), ptr(w_hh), ptr(b), ptr(outs),
+        ptr(cseq), ptr(g_outs), ptr(g_hT), ptr(g_cT), ptr(dh0), ptr(dc0),
+        ptr(dwe), ptr(dw), ptr(db), ptr(xs), ptr(dpre), ptr(dg), ptr(dw_part),
+        ptr(db_part), ptr(dwe_part), ptr_or_null(dbe_part), ptr_or_null(pre),
+        ptr_or_null(w16), T, B, F, D, H, int(tc), splits_w, splits_e,
+        part_rows, phases, stream_handle(feats))
+    return dh0, dc0, dwe[:F], dwe[F], dw[:D], dw[D:], db
+
+
+def _launch_step_backward(feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b, outs,
+        cseq, g_outs, g_hT, g_cT, cdt):
+    """The un-hoisted backward of lstm_scan_enc, on FMA in both dtypes."""
     T, B, F = feats.shape
     H = h0.shape[1]
     D, G = H, 4 * H
-    check_encoder_kernel_shape(feats, w_enc, H)
+    check_fma_encoder_kernel_shape(feats, w_enc, H)
     dev = feats.device
     f32 = dict(dtype=torch.float32, device=dev)
     dh0 = torch.empty_like(h0)
@@ -181,7 +262,7 @@ def _launch_backward(feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b, outs,
     db_part = torch.empty((blocks(B), G), **f32)
     dwe_part = torch.empty((splits_e, F, D), **f32)
     dbe_part = torch.empty((blocks(B), D), **f32)
-    KERNEL.launch(fn, ptr(feats), ptr(h0), ptr(c0),
+    KERNEL.launch('lstm_enc_step_backward', ptr(feats), ptr(h0), ptr(c0),
         ptr(w_enc), ptr(b_enc), ptr(w_ih), ptr(w_hh), ptr(b), ptr(outs),
         ptr(cseq), ptr(g_outs), ptr(g_hT), ptr(g_cT), ptr(dh0), ptr(dc0),
         ptr(dw_enc), ptr(db_enc), ptr(dw), ptr(db), ptr(xs), ptr(dpre),
@@ -236,7 +317,7 @@ class _LSTMEnc(torch.autograd.Function):
             save_cseq):
         check_encoder_inputs(feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b, cdt)
         fn = lstm_enc_reference if feats.device.type == 'cpu' \
-            else _launch_forward
+            else _launch_enc_forward
         outs, hT, cT, cseq = fn(feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b,
             cdt, save_cseq)
         ctx.save_for_backward(feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b,

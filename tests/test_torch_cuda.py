@@ -11,9 +11,10 @@ bf16 (one bf16 ulp of a hidden unit that rounds the other way); the LSTM
 kernels (enc5, cat, enc, scan, fused and the archived enc2, enc3, enc4,
 enc6, tm) 1e-5 in f32 and 2e-2 in bf16 of max(1, max |plain|) per output
 and gradient (sums in another order; in bf16 a value that rounds one ulp
-the other way inside the recurrence). lstm_scan_cat and lstm_scan_fused
-run their tensor-core kernels in bf16 (also at input widths other than
-the hidden size) and their FMA kernels in f32.
+the other way inside the recurrence). lstm_scan_cat, lstm_scan_fused and
+the enc5 pair run their tensor-core kernels in bf16 (also at input widths
+other than the hidden size, and enc5 at feature widths up to the
+encoder's limit) and their FMA kernels in f32.
 """
 import importlib
 
@@ -103,7 +104,7 @@ def _lstm_kinds():
             lstm_enc._launch_backward, lstm_enc.lstm_enc_reference,
             lstm_enc.lstm_enc_backward_reference,
             ('lstm_enc_forward', 'lstm_enc_backward')),
-        'enc': (lstm_enc._launch_forward,
+        'enc': (lstm_enc._launch_enc_forward,
             lstm_enc._launch_step_backward, lstm_enc.lstm_enc_reference,
             lstm_enc.lstm_scan_enc_backward_reference,
             ('lstm_enc_forward', 'lstm_enc_step_backward')),
@@ -145,8 +146,8 @@ def _steps(kind, T):
 
 
 def _lstm_case(kind, T, B, H, F, cdt, cuda, xp_dtype=None, D=None):
-    """Inputs of one call; D, the input width of cat and fused, is H when
-    None."""
+    """Inputs of one call; D, the input width of cat and fused and the
+    encoder width of enc5, is H when None."""
     D = D or H
     rng = np.random.RandomState(T * B + D)
 
@@ -157,16 +158,16 @@ def _lstm_case(kind, T, B, H, F, cdt, cuda, xp_dtype=None, D=None):
     weights = (arr(D, 4 * H, scale=D ** -0.5), arr(H, 4 * H, scale=H ** -0.5),
         arr(4 * H, scale=0.1))
     if kind in ENC_KINDS:
-        return (arr(T, B, F).to(cdt), *state, arr(F, H, scale=(2 / F) ** 0.5),
-            arr(H, scale=0.1), *weights)
+        return (arr(T, B, F).to(cdt), *state, arr(F, D, scale=(2 / F) ** 0.5),
+            arr(D, scale=0.1), *weights)
     if kind in XP_KINDS:
         return (arr(T, B, 4 * H).to(xp_dtype or cdt), *state, weights[1])
     return (arr(T, B, D, scale=0.5).to(cdt), *state, *weights)
 
 
-def _check_lstm_pair(cuda, kind, T, B, H, cdt, xp_dtype=None, D=None):
+def _check_lstm_pair(cuda, kind, T, B, H, cdt, xp_dtype=None, D=None, F=49):
     fwd, bwd, fwd_plain, bwd_plain, fns = _lstm_kinds()[kind]
-    args = _lstm_case(kind, T, B, H, 49, cdt, cuda, xp_dtype, D)
+    args = _lstm_case(kind, T, B, H, F, cdt, cuda, xp_dtype, D)
     g = (torch.randn(T, B, H, device=cuda).to(cdt),
         torch.randn(B, H, device=cuda), torch.randn(B, H, device=cuda))
     before = _launches()
@@ -267,10 +268,10 @@ def test_lstm_cell_launchers_refuse_what_the_kernels_do_not_serve(cuda):
     assert _launches() == before
 
 
-def _check_deterministic(cuda, kind, T, B, H, D=None):
+def _check_deterministic(cuda, kind, T, B, H, D=None, F=49):
     fwd, bwd = _lstm_kinds()[kind][:2]
     cdt = torch.bfloat16
-    args = _lstm_case(kind, T, B, H, 49, cdt, cuda, D=D)
+    args = _lstm_case(kind, T, B, H, F, cdt, cuda, D=D)
     g = (torch.randn(T, B, H, device=cuda).to(cdt),
         torch.randn(B, H, device=cuda), torch.randn(B, H, device=cuda))
     runs = []
@@ -297,6 +298,89 @@ def test_lstm_fused_bf16_is_deterministic(cuda, T, B, H):
 def test_lstm_cat_bf16_is_deterministic(cuda, T, B, D, H):
     """The same of lstm_scan_cat's bf16 kernels."""
     _check_deterministic(cuda, 'cat', T, B, H, D)
+
+
+# enc5's bf16 encoder at feature widths that are no multiple of 8 (49: the
+# bench's, 98-byte rows), one that is (200), and the widest its GEMM block
+# holds (768, lstm_common.tc_max_features)
+ENC5_FEATURES = (49, 200, 768)
+
+
+@pytest.mark.parametrize('F', ENC5_FEATURES)
+@pytest.mark.parametrize('T,B,H', FUSED_EDGES)
+def test_enc5_tensor_core_edges_match_plain(cuda, T, B, H, F):
+    """The enc5 pair's bf16 kernels at one step, one row, and one row over
+    a 64-row block of the loops, at every hidden size, with the encoder
+    emitting 96 (D != H), against the plain versions."""
+    _check_lstm_pair(cuda, 'enc5', T, B, H, torch.bfloat16, D=96, F=F)
+
+
+@pytest.mark.parametrize('T,B,D,H,F', [(16, 1000, 96, 128, 200),
+    (16, 8192, 96, 128, 200), (5, 65, 40, 32, 49), (3, 100, 200, 64, 768),
+    (2, 64, 640, 128, 49)])
+def test_enc5_tensor_core_kernels_take_other_widths(cuda, T, B, D, H, F):
+    """enc5's bf16 kernels at encoder widths D != H (640 at H = 128 is the
+    widest a pre-pass block holds) and feature widths past the FMA
+    kernels' 128, against the plain versions."""
+    _check_lstm_pair(cuda, 'enc5', T, B, H, torch.bfloat16, D=D, F=F)
+
+
+def test_enc5_launchers_refuse_what_the_kernels_do_not_serve(cuda):
+    """enc5: in bf16 a feature width past tc_max_features, an encoder width
+    that is no multiple of 8 or too wide, a hidden size off {32, 64, 128};
+    in f32 (FMA) D != H and more than 128 features. lstm_scan_enc, whose
+    backward runs on FMA, keeps FMA's reach in bf16 too. ValueError, and
+    no launch."""
+    from pufferlib_tpu_torch.ops.cuda import lstm_common, lstm_enc
+    limit = lstm_common.tc_max_features()
+    before = _launches()
+    bf16, f32 = torch.bfloat16, torch.float32
+    for launch, T, B, D, H, F, cdt, message in (
+            (lstm_enc._launch_forward, 2, 8, 96, 128, limit + 1, bf16,
+                f'at most {limit} features'),
+            (lstm_enc._launch_backward, 2, 8, 96, 128, limit + 1, bf16,
+                f'at most {limit} features'),
+            (lstm_enc._launch_forward, 2, 8, 100, 128, 49, bf16,
+                'multiples of 8'),
+            (lstm_enc._launch_forward, 2, 8, 648, 128, 49, bf16, 'up to 640'),
+            (lstm_enc._launch_forward, 2, 8, 256, 256, 49, bf16,
+                'hidden sizes'),
+            (lstm_enc._launch_forward, 2, 8, 96, 128, 49, f32,
+                'input width equal'),
+            (lstm_enc._launch_forward, 2, 8, 128, 128, 200, f32,
+                'at most 128 features'),
+            (lstm_enc._launch_enc_forward, 2, 8, 128, 128, 200, bf16,
+                'at most 128 features'),
+            (lstm_enc._launch_enc_forward, 2, 8, 96, 128, 49, bf16,
+                'input width equal')):
+        args = _lstm_case('enc5', T, B, H, F, cdt, cuda, D=D)
+        if launch is lstm_enc._launch_backward:
+            z = torch.zeros(T, B, H, device=cuda, dtype=cdt)
+            args = (*args, z, z, z, torch.zeros(B, H, device=cuda),
+                torch.zeros(B, H, device=cuda))
+        with pytest.raises(ValueError, match=message):
+            launch(*args, cdt)
+    assert _launches() == before
+
+
+@pytest.mark.parametrize('T,B,D,H,F', [(16, 1000, 128, 128, 49),
+    (5, 65, 32, 32, 49), (16, 1000, 96, 128, 200)])
+def test_enc5_bf16_is_deterministic(cuda, T, B, D, H, F):
+    """enc5's bf16 kernels add every partial sum in a fixed order (no
+    atomics; db_enc as a row of the split-K contraction): the same inputs
+    twice give the same outputs and gradients bit for bit."""
+    _check_deterministic(cuda, 'enc5', T, B, H, D, F)
+
+
+def test_tc_max_features_is_the_encoders_limit(cuda):
+    """lstm_common.tc_max_features, which the checks before a launch use,
+    copies lstm_tc.cuh's constants: it must equal the widest feature width
+    the C side serves (lstm_enc_tc_max_features)."""
+    import ctypes
+    from pufferlib_tpu_torch.ops.cuda import lstm_common, lstm_enc
+    out = (ctypes.c_int * 1)()
+    assert lstm_enc.KERNEL.lib().lstm_enc_tc_max_features(out) == 0
+    assert out[0] == lstm_common.tc_max_features()
 
 
 @pytest.mark.parametrize('kind', ARCHIVED_ENC)
@@ -446,20 +530,25 @@ def test_lstm_autograd_on_the_card(cuda):
 
 def test_lstm_default_route_on_the_card(cuda):
     """LSTMWrapper in bf16 on the card: with use_kernel=None, input 96 with
-    hidden 128 runs cat's kernels (enc5 takes no D != H), with finite
-    gradients. Hidden 256, which no kernel serves, raises with
-    use_kernel=None and with use_kernel=True before any launch, and runs
-    the 'off' scan with no LSTM launch where the caller asks for it
-    (use_kernel=False)."""
+    hidden 128 runs enc5's kernels (the tensor-core pair takes D != H, as
+    the JAX package runs enc5 there), two layers run cat's (enc5 cannot
+    fuse the encoder), each with finite gradients. Hidden 256, which no
+    kernel serves, raises with use_kernel=None and with use_kernel=True
+    before any launch, and runs the 'off' scan with no LSTM launch where
+    the caller asks for it (use_kernel=False)."""
     from pufferlib_tpu_torch import spaces
     from pufferlib_tpu_torch.models import Default, LSTMWrapper
     torch.manual_seed(0)
     x = torch.randn(40, 6, 7, 7, device=cuda)
     cdt = torch.bfloat16
-    for D, H, use, route in ((96, 128, None, 'cat'), (256, 256, False, 'off')):
+    kernels = {'enc5': {'lstm_enc_forward', 'lstm_enc_backward'},
+        'cat': {'lstm_cat_forward', 'lstm_cat_backward'}, 'off': set()}
+    for D, H, layers, use, route in ((96, 128, 1, None, 'enc5'),
+            (128, 128, 2, None, 'cat'), (256, 256, 1, False, 'off')):
         mod = LSTMWrapper(Default((7, 7), spaces.Discrete(5), hidden_size=D,
             dtype=cdt, decoder_input_size=H), obs_shape=(7, 7), input_size=D,
-            hidden_size=H, dtype=cdt, use_kernel=use).to(cuda)
+            hidden_size=H, num_layers=layers, dtype=cdt,
+            use_kernel=use).to(cuda)
         assert mod.route(6, cuda) == route
         before = _launches()
         logits, value, (h, c) = mod(x)
@@ -468,8 +557,7 @@ def test_lstm_default_route_on_the_card(cuda):
         after = _launches()
         launched = {fn for fn, n in after.items()
             if fn.startswith('lstm_') and n > before[fn]}
-        assert launched == ({'lstm_cat_forward', 'lstm_cat_backward'}
-            if route == 'cat' else set())
+        assert launched == kernels[route]
         assert all(torch.isfinite(p.grad).all() for p in mod.parameters())
     for use, message in ((None, 'hidden sizes.*use_kernel=False'),
             (True, 'hidden sizes')):

@@ -323,10 +323,15 @@ ROUTES = {
     'bench shapes': ({}, 'enc5'),
     'two layers': (dict(num_layers=2), 'cat'),
     'no encoder contract': (dict(F=None), 'cat'),
-    'input 96 bf16': (dict(D=96), 'cat'),
+    'input 96 bf16': (dict(D=96), 'enc5'),
     'input 96 f32': (dict(D=96, cdt=torch.float32),
         'input width equal.*use_kernel=False'),
-    'features 200': (dict(F=200), 'cat'),
+    'features 200': (dict(F=200), 'enc5'),
+    'features at the encoder limit': (dict(F=768), 'enc5'),
+    'features past the encoder limit': (dict(F=769), 'cat'),
+    'features 200 f32': (dict(F=200, cdt=torch.float32), 'cat'),
+    'features 128 f32': (dict(F=128, cdt=torch.float32), 'enc5'),
+    'input 96, two layers': (dict(D=96, num_layers=2), 'cat'),
     'hidden 256': (dict(D=256, H=256), 'hidden sizes.*use_kernel=False'),
     'hidden 256, use_kernel False': (dict(D=256, H=256, use_kernel=False),
         'off'),
@@ -347,8 +352,12 @@ ROUTES = {
         'cat'),
     'use_kernel, hidden 256': (dict(use_kernel=True, D=256, H=256),
         'hidden sizes'),
-    'use_kernel, features 200': (dict(use_kernel=True, F=200),
-        'at most 128 features'),
+    'use_kernel, features 200': (dict(use_kernel=True, F=200), 'enc5'),
+    'use_kernel, input 96': (dict(use_kernel=True, D=96), 'enc5'),
+    'use_kernel, features past the encoder limit': (dict(use_kernel=True,
+        F=769), 'at most 768 features'),
+    'use_kernel, features 200 f32': (dict(use_kernel=True, F=200,
+        cdt=torch.float32), 'at most 128 features'),
     'use_kernel, cat, input 96 f32': (dict(use_kernel=True, kernel='cat',
         D=96, cdt=torch.float32), 'input width equal'),
 }
@@ -357,8 +366,10 @@ ROUTES = {
 @pytest.mark.parametrize('case', list(ROUTES))
 def test_lstm_route(case):
     """The default (use_kernel=None) takes, on the card with T > 1, the
-    first kernel that serves the shape: enc5 where it can fuse, then cat,
-    and raises for a shape neither serves, naming use_kernel=False;
+    first kernel that serves the shape: enc5 where it can fuse and serves
+    the shape (bf16: D a multiple of 8, F up to 768; f32: D == H, F up to
+    128), then cat, and raises for a shape neither serves, naming
+    use_kernel=False;
     use_kernel=True runs the selected kernel and, on the card, raises for
     a shape it refuses (the expected value is then the error's message).
     The plain scan runs on the card only where the caller asks for it."""
@@ -409,6 +420,58 @@ def test_lstm_wrapper_input_width_matches_jax(kind):
         return (jnp.sum(jax.nn.log_softmax(lo) ** 2) + jnp.sum(v * 0.7)
             + jnp.sum(h * c)), (lo, v, h, c)
     jgrads, jouts = jax.grad(jloss, has_aux=True)(params)
+    lo, v, (h, c) = mod(torch.from_numpy(x),
+        (torch.from_numpy(h0), torch.from_numpy(c0)))
+    for name, a, w in zip(('logits', 'value', 'h', 'c'), (lo, v, h, c),
+            jouts):
+        _assert_close(a, w, 1e-5, name)
+    (torch.log_softmax(lo, -1).square().sum() + (v * 0.7).sum()
+        + (h * c).sum()).backward()
+    jgrads = lstm_state_dict(jax.tree.map(np.asarray, jgrads))
+    for name, p in mod.named_parameters():
+        _assert_close(p.grad, jgrads[name], 1e-4, name)
+
+
+# (obs_shape, input_size, hidden_size): the encoder emits 96 for an LSTM
+# of 128; Default's 200 features, past the FMA kernels' 128
+ENC5_WRAPPERS = {'input 96': (OBS_SHAPE, 96, 128),
+    'features 200': ((10, 20), 32, 32)}
+
+
+@pytest.mark.parametrize('case', sorted(ENC5_WRAPPERS))
+def test_lstm_wrapper_enc5_matches_jax_enc5(case):
+    """LSTMWrapper(kernel='enc5', use_kernel=True) at the shapes where the
+    port's enc5 runs on the tensor cores only (D != H, F > 128): on the CPU
+    the enc5 kernels' plain versions, against JAX's LSTMWrapper with
+    use_pallas=True, which runs its enc5 Pallas kernel there (interpret
+    mode), from the same weights, in f32: logits, value and state to
+    1e-5, weight gradients to 1e-4, as the other wrapper tests."""
+    obs_shape, D, hidden = ENC5_WRAPPERS[case]
+    jmod = JaxLSTMWrapper(policy=JaxDefault(obs_shape=obs_shape,
+        action_space=jspaces.Discrete(5), hidden_size=D),
+        obs_shape=obs_shape, input_size=D, hidden_size=hidden,
+        use_pallas=False)
+    params = jax.tree.map(np.asarray, jmod.init(jax.random.PRNGKey(8),
+        jnp.zeros((2, 2) + obs_shape, jnp.float32)))
+    jmod = jmod.clone(use_pallas=True)
+    mod = LSTMWrapper(Default(obs_shape=obs_shape,
+        action_space=spaces.Discrete(5), hidden_size=D,
+        decoder_input_size=hidden), obs_shape=obs_shape, input_size=D,
+        hidden_size=hidden, kernel='enc5', use_kernel=True)
+    mod.load_state_dict(lstm_state_dict(params))
+    assert mod.route(T, torch.device('cpu')) == 'enc5'
+    assert lstm_route('enc5', None, 'cuda', T, D, hidden,
+        int(np.prod(obs_shape)), 1, torch.bfloat16) == 'enc5'
+    x = np.random.RandomState(15).randn(B, T, *obs_shape).astype(np.float32)
+    h0, c0 = _arrays(16, (1, B, hidden), (1, B, hidden), scale=0.5)
+
+    def jloss(p):
+        lo, v, (h, c) = jmod.apply(p, jnp.asarray(x),
+            (jnp.asarray(h0), jnp.asarray(c0)))
+        return (jnp.sum(jax.nn.log_softmax(lo) ** 2) + jnp.sum(v * 0.7)
+            + jnp.sum(h * c)), (lo, v, h, c)
+    with pltpu.force_tpu_interpret_mode():
+        jgrads, jouts = jax.grad(jloss, has_aux=True)(params)
     lo, v, (h, c) = mod(torch.from_numpy(x),
         (torch.from_numpy(h0), torch.from_numpy(c0)))
     for name, a, w in zip(('logits', 'value', 'h', 'c'), (lo, v, h, c),

@@ -25,6 +25,7 @@ from jax.experimental.pallas import tpu as pltpu
 from pufferlib_tpu.ops.pallas import lstm as jax_lstm
 from pufferlib_tpu.ops.pallas import lstm_enc as jax_lstm_enc
 from pufferlib_tpu.ops.pallas.lstm_cat import lstm_scan_cat as jax_scan_cat
+from pufferlib_tpu.ops.pallas.lstm_enc5 import lstm_scan_enc5 as jax_scan_enc5
 
 from pufferlib_tpu_torch.ops.cuda import (
     lstm_cat, lstm_common, lstm_enc, lstm_scan)
@@ -297,7 +298,8 @@ def test_wrappers_check_their_inputs():
             0, 1), h0, c0, w_ih, w_hh, b, torch.float32)
 
 
-def tc_schedule(x, h0, c0, w_ih, w_hh, b, cdt, rows=64, cat=False):
+def tc_schedule(x, h0, c0, w_ih, w_hh, b, cdt, rows=64, cat=False,
+        enc5=False):
     """What the bf16 tensor-core kernels (csrc/lstm_tc.cuh) compute, in
     their order, in plain torch: lstm_scan_fused's (mode FUSED) or, with
     cat, lstm_scan_cat's (mode CAT). Forward: the slab over all T*B rows
@@ -308,7 +310,9 @@ def tc_schedule(x, h0, c0, w_ih, w_hh, b, cdt, rows=64, cat=False):
     W_hh) + b), the reverse loop that produces only dh_prev and the dg
     slab, then dx = dg @ W_ih^T and dW = [x | h_prev]^T dg after it, and
     db from the unrounded dgates summed per block of `rows` batch rows,
-    the blocks then added in order."""
+    the blocks then added in order. With enc5 (mode ENC5's cell, which is
+    CAT's), the reverse loop rounds the activations to cdt and db sums the
+    rounded dgates, and dx comes back in f32 for the relu mask."""
     T, B, D = x.shape
     H = h0.shape[1]
 
@@ -342,6 +346,8 @@ def tc_schedule(x, h0, c0, w_ih, w_hh, b, cdt, rows=64, cat=False):
         dh, dc = g_hT.float(), g_cT.float()
         for t in reversed(range(T)):
             i, f, g, o = acts(pre[t])
+            if enc5:
+                i, f, g, o = rd(i), rd(f), rd(g), rd(o)
             c_prev = c0.float() if t == 0 else cseq[t - 1].float()
             dhv = dh + g_outs[t].float()
             tc = torch.tanh(cseq[t].float())
@@ -351,11 +357,13 @@ def tc_schedule(x, h0, c0, w_ih, w_hh, b, cdt, rows=64, cat=False):
             dc = dcv * f
             dg[t] = dgates.to(cdt)
             padded = torch.zeros(blocks * rows, 4 * H)
-            padded[:B] = dgates
+            padded[:B] = rd(dgates) if enc5 else dgates
             db_blocks += padded.reshape(blocks, rows, 4 * H).sum(dim=1)
             dh = dg[t].float() @ wh.t()
         dgf = dg.float().reshape(T * B, 4 * H)
-        dx = (dgf @ wi.t()).to(x.dtype).reshape(T, B, D)
+        dx = (dgf @ wi.t()).reshape(T, B, D)
+        if not enc5:
+            dx = dx.to(x.dtype)
         db = torch.zeros(4 * H)
         for k in range(blocks):
             db = db + db_blocks[k]
@@ -439,3 +447,100 @@ def test_cat_tensor_core_schedule_keeps_the_function(B, D, H, cdt):
     with pltpu.force_tpu_interpret_mode():
         jax_want = jax_run(jax_scan_cat, arrays, cdt, cdt, 0)
     compare('fused', (fwd[:3], loss_grads), jax_want, bf16)
+
+
+def enc5_tc_schedule(feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b, cdt,
+        rows=64):
+    """What the enc5 pair's bf16 kernels (csrc/lstm_tc.cuh, mode ENC5)
+    compute, in their order, in plain torch: the encoder over all T*B rows
+    as one product, xs = cdt(relu(feats @ W_enc + b_enc)), then
+    tc_schedule's CAT forward on xs. The backward recomputes xs the same
+    way, runs tc_schedule's CAT backward with ENC5's roundings (rounded
+    activations, db from the rounded dgates), masks dx with xs > 0 into
+    dpre rounded to cdt, and takes dW_enc and db_enc as one contraction
+    [feats | 1]^T dpre."""
+    T, B, F = feats.shape
+
+    def rd(t):
+        return t.to(cdt).float()
+    f2 = rd(feats).reshape(T * B, F)
+    xs = rd(torch.relu(f2 @ rd(w_enc) + b_enc.float())).to(cdt).reshape(
+        T, B, -1)
+    fwd, cell_backward = tc_schedule(xs, h0, c0, w_ih, w_hh, b, cdt, rows,
+        cat=True, enc5=True)
+
+    def backward(g_outs, g_hT, g_cT):
+        dx, dh, dc, dw_ih, dw_hh, db = cell_backward(g_outs, g_hT, g_cT)
+        dpre = rd(torch.where(xs.float() > 0, dx, 0.0)).reshape(T * B, -1)
+        dwe = torch.cat([f2, torch.ones(T * B, 1)], dim=1).t() @ dpre
+        return dh, dc, dwe[:F], dwe[F], dw_ih, dw_hh, db
+    return fwd, backward
+
+
+# (B, F, D, H): B = 65 leaves a second 64-row block of one row; F = 49 has
+# 98-byte bf16 rows, F = 200 is past the FMA kernels' 128; D != H
+ENC5_SCHEDULES = [(16, 49, 128, 128), (65, 200, 96, 128), (16, 200, 96, 32),
+    (65, 49, 128, 32)]
+
+
+@pytest.mark.parametrize('cdt', sorted(TD))
+@pytest.mark.parametrize('B,F,D,H', ENC5_SCHEDULES)
+def test_enc5_tensor_core_schedule_keeps_the_function(B, F, D, H, cdt):
+    """The enc5 pair's schedule on the tensor cores (enc5_tc_schedule)
+    against the plain enc5 versions on the same inputs, and against the
+    JAX package's enc5 under the same loss: at B % 8 == 0 its Pallas kernel
+    in interpret mode, at B = 65, which no Pallas LSTM kernel tiles, its
+    pure reference lstm_scan_enc_reference (f32 only: in bf16 that
+    reference rounds as lstm_scan_enc, not as enc5). The tolerances of
+    the enc5 parity test (tests/test_torch_lstm.py): 1e-5 in f32, 1e-2 in
+    bf16 against the plain versions and the kernel; 1e-4 on gradients
+    against the pure reference; each of max(1, max |reference|) per
+    tensor, as chip_smoke.py and the card tests scale theirs: with up to
+    200 features of order 1, dW_enc reaches tens, where the same f32
+    products summed in another order differ by more than 1e-5, and other
+    gradients pass 2, where a dgate one bf16 ulp the other way moves a
+    value by more than 1e-2."""
+    rng = np.random.default_rng(14)
+    arrays = [(rng.standard_normal(shape) * k).astype(np.float32)
+        for shape, k in (((T, B, F), 0.9), ((B, H), 0.3), ((B, H), 0.3),
+            ((F, D), 0.3), ((D,), 0.3), ((D, 4 * H), 0.3), ((H, 4 * H), 0.3),
+            ((4 * H,), 0.3))]
+    arrays[0] = np.array(jnp.asarray(arrays[0]).astype(JD[cdt]).astype(
+        jnp.float32))
+    feats = torch.from_numpy(arrays[0]).to(TD[cdt])
+    rest = [torch.from_numpy(a) for a in arrays[1:]]
+    bf16 = cdt == 'bfloat16'
+    tol = 1e-2 if bf16 else 1e-5
+    fwd, backward = enc5_tc_schedule(feats, *rest, TD[cdt])
+    plain = lstm_enc.lstm_enc_reference(feats, *rest, TD[cdt])
+    for name, a, w in zip(('outs', 'hT', 'cT', 'cseq'), fwd, plain):
+        assert a.dtype == w.dtype
+        assert_close(a, w, tol, True, f'enc5 schedule {name}')
+    cot = (torch.from_numpy(rng.standard_normal((T, B, H)).astype(
+        np.float32)).to(TD[cdt]), *(torch.from_numpy(rng.standard_normal(
+        (B, H)).astype(np.float32)) for _ in range(2)))
+    grads = backward(*cot)
+    want = lstm_enc.lstm_enc_backward_reference(feats, *rest, plain[0],
+        plain[3], *cot, TD[cdt])
+    for name, a, w in zip(KINDS['enc'][5], grads, want):
+        assert a.dtype == w.dtype and a.shape == w.shape
+        assert_close(a, w, tol, True, f'enc5 schedule {name}')
+    # the loss of the JAX tests: g_outs = 2 outs, g_hT = cT, g_cT = hT
+    outs, hT, cT, _ = fwd
+    loss_grads = backward((2 * outs.float()).to(TD[cdt]), cT, hT)
+    if B % 8 == 0:
+        with pltpu.force_tpu_interpret_mode():
+            jouts, jgrads = jax_run(jax_scan_enc5, arrays, cdt, cdt, 1)
+        grad_tol = tol
+    elif not bf16:
+        jouts, jgrads = jax_run(jax_lstm_enc.lstm_scan_enc_reference, arrays,
+            cdt, cdt, 1)
+        grad_tol = 1e-4
+    else:
+        return
+    for name, a, w in zip(('outs', 'hT', 'cT'), fwd, jouts):
+        assert_close(a, w, tol, True, f'enc5 schedule {name} against JAX')
+    for name, a, w in zip(KINDS['enc'][5], loss_grads, jgrads):
+        assert a.shape == tuple(w.shape), name
+        assert_close(a, w, grad_tol, True, f'enc5 schedule {name} against '
+            'JAX')

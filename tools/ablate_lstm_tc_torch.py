@@ -1,16 +1,16 @@
-"""Where the time of the bf16 tensor-core kernels of lstm_scan_fused or
-lstm_scan_cat goes, by ablation, on one NVIDIA GPU.
+"""Where the time of the bf16 tensor-core kernels of lstm_scan_fused,
+lstm_scan_cat or enc5 goes, by ablation, on one NVIDIA GPU.
 
-    python3 tools/ablate_lstm_tc_torch.py [--kind fused|cat]
+    python3 tools/ablate_lstm_tc_torch.py [--kind fused|cat|enc5]
         [--baseline CSRC_DIR] [--only NAME ...]
 
 The machines the port is measured on run no stall profiler, so this tool
 removes one part of the recurrent loops of csrc/lstm_tc.cuh at a time and
 times what is left. It builds the kind's source
-(pufferlib_tpu_torch/csrc/lstm_scan.cu for fused, the default, or
-lstm_cat.cu for cat) as it is and in these variants, each a copy of the
-sources with one edit, built by nvcc into a library of its own (under
-pufferlib_tpu_torch/_build/):
+(pufferlib_tpu_torch/csrc/lstm_scan.cu for fused, the default,
+lstm_cat.cu for cat, lstm_enc.cu for enc5) as it is and in these
+variants, each a copy of the sources with one edit, built by nvcc into a
+library of its own (under pufferlib_tpu_torch/_build/):
 
 - no-slab: the loops read no XW / P values (zeros in their place; in
   the backward the activations of those zeros then fold to constants);
@@ -21,19 +21,22 @@ pufferlib_tpu_torch/_build/):
 - gemm-no-store: the GEMMs (pre-passes, dx) store nothing (their
   products still run);
 - gemm-no-load: the GEMMs load no A tiles (they multiply what shared
-  memory holds and store it);
+  memory holds and store it), except enc5's encoder, whose feats rows
+  load through their own path;
 - gemm-stages-4: a ring of 4 A chunks instead of 2;
 - gemm-no-barrier: the GEMMs' per-chunk barrier removed (racing loads:
   the numbers are wrong, the time shows what the barrier costs);
-- late-slab-load (cat only; not an ablation but the other order): the
-  forward loop issues the next unit group's slab load after the product,
-  as fused's does, instead of before it.
+- late-slab-load (cat and enc5, whose forward loop is cat's; not an
+  ablation but the other order): the forward loop issues the next unit
+  group's slab load after the product, as fused's does, instead of
+  before it.
 
 With --baseline, also the same source of another csrc/ directory with the
 same C interface (an earlier version of these kernels). The variants run
-in turns, forward and back, each twice, at T = 16, B = 8192, D = H = 128,
-bf16, and each run times the phases of the forward and the backward
-(chip_smoke.time_tc_phases: pre-pass, loop, dx, dW + db; cold L2). An
+in turns, forward and back, each twice, at T = 16, B = 8192, D = H = 128
+(enc5: F = 49), bf16, and each run times the phases of the forward and
+the backward (chip_smoke.time_tc_phases: pre-pass, loop, dx, dW + db;
+enc5's encoder in both pre-passes, dpre for dx; cold L2). An
 ablated variant computes wrong numbers by design: only its times mean
 anything. The last line is one JSON object: the mean ms of each phase by
 variant, and the card's name and power limit.
@@ -81,9 +84,10 @@ ABLATIONS = {
             '                gates_mma<H>(acc, hc, w_s, mt0, u0, lane);\n                load_next();\n'),),
         ()),
 }
-# variants that change only one kind's code
-ONLY_FOR = {'late-slab-load': 'cat'}
-SOURCES = {'fused': 'lstm_scan.cu', 'cat': 'lstm_cat.cu'}
+# variants that change only some kinds' code
+ONLY_FOR = {'late-slab-load': ('cat', 'enc5')}
+SOURCES = {'fused': 'lstm_scan.cu', 'cat': 'lstm_cat.cu',
+    'enc5': 'lstm_enc.cu'}
 
 
 def start_build(name, csrc, edits, flags, build_dir, source):
@@ -133,8 +137,10 @@ def main(argv=None):
     if not torch.cuda.is_available():
         sys.exit('ablate_lstm_tc_torch needs a CUDA device')
     import chip_smoke
-    from pufferlib_tpu_torch.ops.cuda import _build, lstm_cat, lstm_scan
-    kernel = {'fused': lstm_scan, 'cat': lstm_cat}[args.kind].KERNEL
+    from pufferlib_tpu_torch.ops.cuda import (
+        _build, lstm_cat, lstm_enc, lstm_scan)
+    kernel = {'fused': lstm_scan, 'cat': lstm_cat,
+        'enc5': lstm_enc}[args.kind].KERNEL
     source = SOURCES[args.kind]
     from pufferlib_tpu_torch.ops.cuda.timing import card_line, l2_flush_buffer
     card = card_line()
@@ -142,7 +148,7 @@ def main(argv=None):
     build_dir = os.path.join(_build.BUILD_DIR, 'ablate')
     os.makedirs(build_dir, exist_ok=True)
     names = args.only if args.only is not None else [n for n in ABLATIONS
-        if ONLY_FOR.get(n, args.kind) == args.kind]
+        if args.kind in ONLY_FOR.get(n, (args.kind,))]
     specs = {'as-is': (csrc, (), ())}
     specs.update({n: (csrc, *ABLATIONS[n]) for n in names})
     if args.baseline:
@@ -171,7 +177,8 @@ def main(argv=None):
     means = {n: {k: sum(r[k] for r in rs) / len(rs) for k in rs[0]}
         for n, rs in runs.items()}
     print(json.dumps({'card': card, 'kind': args.kind,
-        'shape': 'T=16 B=8192 D=H=128 bf16',
+        'shape': 'T=16 B=8192 D=H=128' + (' F=49' if args.kind == 'enc5'
+            else '') + ' bf16',
         'phases_ms': means}), flush=True)
     return means
 
