@@ -26,7 +26,13 @@ bytes after the build, and the time of each phase at the main shape
 phases, dpre takes dx's place and dW_enc joins the last); all three are
 also held to their plain versions at input width 96 (enc5 with 200
 features), and enc5's bf16 kernels run twice and must agree bit for
-bit.
+bit. GAE must equal its plain version bit for bit. The MLP head is held
+to its plain version in bf16 (the tensor-core kernel, at the trainer's
+two shapes, at F = 200 with H = 256 and 512 and O = 17, and with f32 x)
+and in f32 (the FMA kernel); its bf16 kernel runs twice and must agree
+bit for bit, and is timed beside cuBLAS's three-call bf16 composition.
+Both MLP trainers run a warm-up epoch, three timed ones and the
+rollout/update split.
 
 Prints one line per phase, a `{"kernels": [...]}` JSON line, the card's
 name and power limit, and last `{"ok": true, "device": {...}}`. Any
@@ -40,7 +46,7 @@ import sys
 import time
 
 from pufferlib_tpu_torch.ops.cuda.timing import (
-    card_line, l2_flush_buffer, timed_ms)
+    card_line, l2_flush_buffer, profiled_ms, timed_ms)
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -49,7 +55,6 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {'bfloat16': 989e12, 'float32': 67e12}
 
-GAE_TOL = 1e-5       # the kernel rounds every op as the plain version does
 MLP_TOL = {
     # f32: the same products summed in another order (outputs of order 10)
     'float32': 1e-4,
@@ -71,6 +76,9 @@ def bound(bytes_moved, flops, dtype_name):
 
 
 def check_gae(torch, gae, flush, rng, T, E):
+    """The GAE kernel against its plain version: equal bit for bit (every
+    product and sum rounded on its own, in the plain version's order),
+    then both timed beside the bound."""
     import numpy as np
     rewards = torch.from_numpy(rng.uniform(-1, 1, (T, E)).astype(
         np.float32)).cuda()
@@ -83,55 +91,121 @@ def check_gae(torch, gae, flush, rng, T, E):
     want = gae.compute_gae(*args)
     torch.cuda.synchronize()
     err = (got - want).abs().max().item()
-    if not (torch.isfinite(got).all() and err <= GAE_TOL):
-        raise AssertionError(f'GAE ({T}, {E}): max abs err {err} > {GAE_TOL}')
+    if not (torch.isfinite(got).all() and torch.equal(got, want)):
+        raise AssertionError(f'GAE ({T}, {E}): differs from the plain '
+            f'version (max abs err {err})')
     ms = timed_ms(lambda: gae.compute_gae_cuda(*args), flush)
+    device_ms = profiled_ms(lambda: gae.compute_gae_cuda(*args), flush,
+        'gae_kernel')
     plain_ms = timed_ms(lambda: gae.compute_gae(*args), flush, reps=5)
     bytes_moved = (4 * T * E + E) * 4
     flops = 9 * T * E
     bound_ms, bound_by = bound(bytes_moved, flops, 'float32')
-    log(f'gae ({T}, {E}) f32: max abs err {err:.3g} (tol {GAE_TOL}); '
-        f'kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} '
-        f'ms ({bound_by})')
-    return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+    log(f'gae ({T}, {E}) f32: equal to the plain version bit for bit; '
+        f'kernel {ms:.4f} ms (profiler: {device_ms:.4f}), plain '
+        f'{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) on '
+        f'{card_line()}')
+    return dict(err=err, ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+        bound_ms=bound_ms,
         bound_by=bound_by, shape=f'({T}, {E}) float32')
 
 
-def check_mlp(torch, mlp, flush, rng, B, dtype_name, F=49, H=128, O=9):
+def mlp_case(torch, rng, B, F, H, O, x_dtype):
+    """x dense normal in x_dtype (the trainer stores obs in the compute
+    dtype; denser than squared's grid, so every sum has terms to round),
+    weights scaled as the trainer's init."""
     import numpy as np
-    cdt = getattr(torch, dtype_name)
-    # dense inputs in the compute dtype (the trainer stores obs in it);
-    # denser than squared's grid, so every sum has terms to round
-    x = torch.from_numpy(rng.randn(B, F).astype(np.float32)).cuda().to(cdt)
+    x = torch.from_numpy(rng.randn(B, F).astype(np.float32)).cuda().to(
+        x_dtype)
     w1 = torch.from_numpy((rng.randn(F, H) * np.sqrt(2 / F)).astype(
         np.float32)).cuda()
     b1 = torch.from_numpy((rng.randn(H) * 0.1).astype(np.float32)).cuda()
     w2 = torch.from_numpy((rng.randn(H, O) / np.sqrt(H)).astype(
         np.float32)).cuda()
     b2 = torch.from_numpy((rng.randn(O) * 0.1).astype(np.float32)).cuda()
+    return x, w1, b1, w2, b2
+
+
+def cublas_mlp_ms(torch, flush, x, w1, b1, w2, b2):
+    """The bf16 composition the fused head stands in for, on cuBLAS:
+    addmm, relu (the hidden layer already rounded to bf16), addmm. Three
+    calls, so context for the kernel's time, not a single-call yardstick;
+    the port never calls it. Weights converted before the timing."""
+    bf16 = torch.bfloat16
+    w1c, b1c, w2c, b2c = (t.to(bf16) for t in (w1, b1, w2, b2))
+    xc = x.to(bf16)
+    with torch.no_grad():
+        return timed_ms(lambda: torch.addmm(b2c, torch.relu(
+            torch.addmm(b1c, xc, w1c)), w2c), flush)
+
+
+def check_mlp(torch, mlp, flush, rng, B, dtype_name, F=49, H=128, O=9,
+        x_dtype_name=None):
+    """The MLP head kernel of compute dtype dtype_name against its plain
+    version on x of x_dtype_name (the compute dtype when None), within
+    MLP_TOL; the kernel, the plain version and (bf16) cuBLAS's
+    composition timed beside the bound. In bf16 the configuration the C
+    side picks must be mlp.tc_config's."""
+    cdt = getattr(torch, dtype_name)
+    x_dtype = getattr(torch, x_dtype_name or dtype_name)
+    x, w1, b1, w2, b2 = mlp_case(torch, rng, B, F, H, O, x_dtype)
     args = (x, w1, b1, w2, b2, cdt)
+    before = mlp.KERNEL.launches
     with torch.no_grad():
         got = mlp.mlp_head(*args)
         want = mlp.mlp_head_reference(*args)
     torch.cuda.synchronize()
+    what = f'B={B} F={F} H={H} O={O} {dtype_name}' + (
+        f' x {x_dtype_name}' if x_dtype_name else '')
+    if mlp.KERNEL.launches != before + 1:
+        raise AssertionError(f'MLP head {what}: no launch counted')
     err = (got - want).abs().max().item()
     tol = MLP_TOL[dtype_name]
     if not (torch.isfinite(got).all() and err <= tol):
-        raise AssertionError(
-            f'MLP head B={B} {dtype_name}: max abs err {err} > {tol}')
+        raise AssertionError(f'MLP head {what}: max abs err {err} > {tol}')
+    kernel = 'FMA'
+    if cdt == torch.bfloat16:
+        config = mlp.KERNEL.lib().mlp_head_tc_config(F, H, O,
+            int(x_dtype == torch.bfloat16))
+        if config != mlp.tc_config(F, H, O, x_dtype):
+            raise AssertionError(f'MLP head {what}: the C side takes '
+                f'configuration {config}, mlp.tc_config says '
+                f'{mlp.tc_config(F, H, O, x_dtype)}')
+        kernel = (f'tensor cores, configuration {config} '
+            f'{mlp.TC_CONFIGS[config]}')
     with torch.no_grad():
         ms = timed_ms(lambda: mlp.mlp_head(*args), flush)
-        plain_ms = timed_ms(lambda: mlp.mlp_head_reference(*args),
-            flush)
+        device_ms = profiled_ms(lambda: mlp.mlp_head(*args), flush,
+            'mlp_head')
+        plain_ms = timed_ms(lambda: mlp.mlp_head_reference(*args), flush,
+            reps=5)
+    cublas_ms = cublas_mlp_ms(torch, flush, *args[:5]) \
+        if cdt == torch.bfloat16 else None
     bytes_moved = (B * F * x.element_size() + 4 * (F * H + H + H * O + O)
         + 4 * B * O)
     flops = 2 * B * (F * H + H * O)
     bound_ms, bound_by = bound(bytes_moved, flops, dtype_name)
-    log(f'mlp_head B={B} {dtype_name}: max abs err {err:.3g} (tol {tol}); '
-        f'kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} '
-        f'ms ({bound_by})')
-    return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-        bound_by=bound_by, shape=f'({B}, {F}) {dtype_name}')
+    log(f'mlp_head {what} ({kernel}): max abs err {err:.3g} (tol {tol}); '
+        f'kernel {ms:.4f} ms (profiler: {device_ms:.4f}), plain '
+        f'{plain_ms:.4f} ms, cuBLAS bf16 '
+        f'addmm-relu-addmm {cublas_ms if cublas_ms is None else round(cublas_ms, 4)} '
+        f'ms, bound {bound_ms:.4f} ms ({bound_by}) on {card_line()}')
+    return dict(err=err, ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+        cublas_ms=cublas_ms,
+        bound_ms=bound_ms, bound_by=bound_by,
+        shape=f'({B}, {F}) {x_dtype_name or dtype_name}, H={H}, O={O}')
+
+
+def check_mlp_bit_equal(torch, mlp, rng, B=131072, F=49, H=128, O=9):
+    """The bf16 kernel twice on the same inputs: equal bit for bit (sums
+    in a fixed order, no atomics)."""
+    args = mlp_case(torch, rng, B, F, H, O, torch.bfloat16)
+    with torch.no_grad():
+        runs = [mlp.mlp_head(*args, torch.bfloat16) for _ in range(2)]
+    torch.cuda.synchronize()
+    if not torch.equal(*runs):
+        raise AssertionError(f'MLP head bf16 B={B}: two runs differ')
+    log(f'mlp_head bf16 B={B} F={F} H={H} O={O}: two runs equal bit for bit')
 
 
 # |kernel - plain| <= tol * max(1, max |plain|), per output and gradient.
@@ -529,6 +603,58 @@ def make_trainer(torch, num_envs=8192, horizon=64, hidden=128,
 LSTM_PER_EPOCH = 16
 
 
+# launches of the MLP head kernel per epoch of the 8192-lane trainer with
+# use_kernel=True: 64 rollout steps and the bootstrap value at B = 8192, 4
+# update epochs x 4 minibatches at B = 131072
+MLP_PER_EPOCH = 65 + 16
+
+
+def run_mlp_trainer(torch, card, use_kernel, epochs=3):
+    """bench.py's MLP line on the card: a warm-up epoch, then `epochs`
+    calls of ppo.step with every launch count set to 0 just before and
+    read just after (GAE once an epoch; the MLP head MLP_PER_EPOCH times
+    with use_kernel, else never), then the synchronised rollout/update
+    split of two more epochs. Returns (MLP head launches, GAE launches)."""
+    from pufferlib_tpu_torch.ops.cuda import KERNELS, gae, mlp
+    torch.cuda.reset_peak_memory_stats()
+    ppo, data = make_trainer(torch, use_kernel=use_kernel)
+    ppo.step(data)  # warm-up epoch
+    torch.cuda.synchronize()
+    for k in KERNELS:
+        k.reset_counts()
+    start = time.perf_counter()
+    for _ in range(epochs):
+        ppo.step(data)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - start
+    launches = (mlp.KERNEL.launches, gae.KERNEL.launches)
+    want = (MLP_PER_EPOCH * epochs if use_kernel else 0, epochs)
+    others = sum(k.launches for k in KERNELS) - sum(launches)
+    if launches != want or others:
+        raise AssertionError(f'trainer use_kernel={use_kernel}: (MLP head, '
+            f'GAE) launches {launches} in {epochs} epochs, expected {want}; '
+            f'{others} other launches')
+    losses = check_losses(data, f'trainer use_kernel={use_kernel}')
+    sps = epochs * data.config.batch_size / elapsed
+    log(f'trainer 8192 lanes x 64, Default h128 bf16, use_kernel='
+        f'{use_kernel}: {sps:.1f} steps/s over {epochs} epochs after a '
+        f'warm-up epoch ({elapsed / epochs * 1e3:.2f} ms/epoch) on {card}; '
+        f'launches an epoch: MLP head {launches[0] // epochs}, GAE '
+        f'{launches[1] // epochs}; losses {json.dumps(losses)}; stats '
+        f'{json.dumps(data.stats)}')
+    # where the epoch goes: the rollout and the update, each synchronised
+    for _ in range(2):
+        ppo.evaluate(data)
+        ppo.train(data)
+    timers = data._timers
+    log(f'trainer use_kernel={use_kernel} split, 2 epochs: rollout '
+        f'{timers["evaluate"].prev * 1e3:.2f} ms, update '
+        f'{timers["train"].prev * 1e3:.2f} ms (last epoch); peak memory '
+        f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB')
+    del data
+    return launches
+
+
 def run_lstm_trainer(torch, card, kernel, epochs, warmup):
     """The LSTM trainer of bench.py's LSTM line on the card: `epochs`
     calls of ppo.step with every launch count set to 0 just before and
@@ -673,10 +799,22 @@ def main():
     # phases 3-4: each kernel against its plain version, then timed
     flush = l2_flush_buffer()
     rng = np.random.RandomState(0)
-    gae_main = check_gae(torch, gae, flush, rng, 64, 8192)
-    gae_ragged = check_gae(torch, gae, flush, rng, 64, 1000)
+    gae_runs = [check_gae(torch, gae, flush, rng, T, E)
+        for T, E in ((64, 8192), (64, 1000), (100, 257), (7, 33))]
+    # the trainer's two shapes, then the bf16 kernel's other reach: H in
+    # chunks (256, 512: configurations 1 and 2), a multidiscrete head (O =
+    # 17), a ragged tile, f32 x under bf16 compute
     mlp_runs = {(B, d): check_mlp(torch, mlp, flush, rng, B, d)
         for B in (8192, 131072) for d in ('bfloat16', 'float32')}
+    for H in (256, 512):
+        for B in (8192, 1000):
+            mlp_runs[B, f'bfloat16 F=200 H={H} O=17'] = check_mlp(torch, mlp,
+                flush, rng, B, 'bfloat16', F=200, H=H, O=17)
+    mlp_runs[1000, 'bfloat16 x float32'] = check_mlp(torch, mlp, flush, rng,
+        1000, 'bfloat16', x_dtype_name='float32')
+    mlp_runs[8192, 'bfloat16 x float32'] = check_mlp(torch, mlp, flush, rng,
+        8192, 'bfloat16', x_dtype_name='float32')
+    check_mlp_bit_equal(torch, mlp, rng)
     lstm_runs = {(kind, B, d): check_lstm(torch, flush, rng, kind, B, d,
             timed=(B, d) == (8192, 'bfloat16'))
         for kind in ('enc5', 'cat', 'scan', 'fused', 'enc')
@@ -705,55 +843,11 @@ def main():
     del flush
 
     # phase 5: the main path, GAE kernel once per epoch
-    ppo, data = make_trainer(torch)
-    ppo.step(data)  # warm-up epoch
-    torch.cuda.synchronize()
-    epochs = 3
-    for k in KERNELS:
-        k.launches = 0
-    start = time.perf_counter()
-    for _ in range(epochs):
-        ppo.step(data)
-    torch.cuda.synchronize()
-    elapsed = time.perf_counter() - start
-    gae_launches, mlp_plain_launches = gae.KERNEL.launches, \
-        mlp.KERNEL.launches
-    if gae_launches != epochs or mlp_plain_launches != 0:
-        raise AssertionError(f'trainer: {gae_launches} GAE launches for '
-            f'{epochs} epochs, {mlp_plain_launches} MLP launches')
-    losses = check_losses(data, 'trainer')
-    sps = epochs * data.config.batch_size / elapsed
-    log(f'trainer 8192 lanes x 64, Default h128 bf16: {sps:.1f} steps/s '
-        f'over {epochs} epochs ({elapsed / epochs * 1e3:.2f} ms/epoch) on '
-        f'{card}; losses {json.dumps(losses)}; stats '
-        f'{json.dumps(data.stats)}')
-    # where the epoch goes: the rollout and the update, each synchronised
-    for _ in range(2):
-        ppo.evaluate(data)
-        ppo.train(data)
-    timers = data._timers
-    log(f'trainer split, 2 epochs: rollout {timers["evaluate"].prev * 1e3:.2f}'
-        f' ms, update {timers["train"].prev * 1e3:.2f} ms (last epoch); '
-        f'peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB')
-    del data
+    run_mlp_trainer(torch, card, use_kernel=False)
 
     # phase 6: the opt-in fused MLP head on the same trainer
-    ppo, data = make_trainer(torch, use_kernel=True)
-    for k in KERNELS:
-        k.launches = 0
-    start = time.perf_counter()
-    ppo.step_many(data, 2)
-    torch.cuda.synchronize()
-    elapsed = time.perf_counter() - start
-    mlp_launches, gae_launches_k = mlp.KERNEL.launches, gae.KERNEL.launches
-    if mlp_launches <= 0 or gae_launches_k != 2:
-        raise AssertionError(f'use_kernel trainer: {mlp_launches} MLP '
-            f'launches, {gae_launches_k} GAE launches in 2 epochs')
-    losses = check_losses(data, 'use_kernel trainer')
-    log(f'trainer use_kernel=True: {mlp_launches} MLP head launches in 2 '
-        f'epochs, {2 * data.config.batch_size / elapsed:.1f} steps/s '
-        f'(first 2 epochs, no warm-up); losses {json.dumps(losses)}')
-    del data
+    mlp_launches, gae_launches = run_mlp_trainer(torch, card,
+        use_kernel=True)
 
     # phase 7: the LSTM trainer through the enc5 kernels, then the synchronised rollout/update split of an epoch
     torch.cuda.reset_peak_memory_stats()
@@ -787,25 +881,33 @@ def main():
     check_card_against_cpu(torch, np)
     check_lstm_card_against_cpu(torch, np)
 
+    mlp_big, mlp_small = (mlp_runs[B, 'bfloat16'] for B in (131072, 8192))
     kernels = [
         dict(name='gae', route='cuda',
             source='pufferlib_tpu_torch/csrc/gae.cu',
             replaces='pufferlib_tpu/ops/pallas/gae.py:42',
             launches=gae_launches,
-            max_abs_err=max(gae_main['err'], gae_ragged['err']),
-            ms=gae_main['ms'], plain_ms=gae_main['plain_ms'],
-            bound_ms=gae_main['bound_ms'], bound_by=gae_main['bound_by'],
-            library_ms=None, shape=gae_main['shape']),
+            max_abs_err=max(r['err'] for r in gae_runs),
+            ms=gae_runs[0]['ms'], device_ms=gae_runs[0]['device_ms'],
+            plain_ms=gae_runs[0]['plain_ms'],
+            bound_ms=gae_runs[0]['bound_ms'], bound_by=gae_runs[0]['bound_by'],
+            library_ms=None, shape=gae_runs[0]['shape']),
         dict(name='mlp_head', route='cuda',
             source='pufferlib_tpu_torch/csrc/mlp_head.cu',
             replaces='pufferlib_tpu/ops/pallas/mlp.py:80',
             launches=mlp_launches,
             max_abs_err=max(r['err'] for r in mlp_runs.values()),
-            ms=mlp_runs[131072, 'bfloat16']['ms'],
-            plain_ms=mlp_runs[131072, 'bfloat16']['plain_ms'],
-            bound_ms=mlp_runs[131072, 'bfloat16']['bound_ms'],
-            bound_by=mlp_runs[131072, 'bfloat16']['bound_by'],
-            library_ms=None, shape=mlp_runs[131072, 'bfloat16']['shape']),
+            ms=mlp_big['ms'], device_ms=mlp_big['device_ms'],
+            plain_ms=mlp_big['plain_ms'],
+            bound_ms=mlp_big['bound_ms'], bound_by=mlp_big['bound_by'],
+            library_ms=None, shape=mlp_big['shape'],
+            # the trainer's other shape (65 of its 81 launches an epoch),
+            # and cuBLAS's three-call composition at both, as context
+            ms_8192=mlp_small['ms'], device_ms_8192=mlp_small['device_ms'],
+            plain_ms_8192=mlp_small['plain_ms'],
+            bound_ms_8192=mlp_small['bound_ms'],
+            cublas_composition_ms=mlp_big['cublas_ms'],
+            cublas_composition_ms_8192=mlp_small['cublas_ms']),
     ]
     # (name, check_lstm kind, forward or backward, source, the TPU kernel,
     # launches on the path that runs it)

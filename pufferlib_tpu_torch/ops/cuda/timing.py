@@ -40,3 +40,27 @@ def timed_ms(fn, flush, reps=20):
         end.synchronize()
         total += start.elapsed_time(end)
     return total / reps
+
+
+def profiled_ms(fn, flush, name, reps=20):
+    """Mean device ms of the kernels whose name holds `name`, over reps
+    calls of fn(), each after a write of `flush` that evicts the L2, as
+    torch.profiler (CUPTI) reports their durations: the kernel alone,
+    without the launch and host gaps that timed_ms's events may take in
+    for a kernel of a few microseconds."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+        if e.device_type == torch.autograd.DeviceType.CUDA and name in e.name]
+    if len(kernels) != reps:
+        raise RuntimeError(f'profiled_ms: {len(kernels)} kernels named '
+            f'{name!r} in {reps} calls')
+    return sum(e.device_time_total for e in kernels) / reps / 1e3

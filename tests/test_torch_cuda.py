@@ -5,9 +5,11 @@ without them. On a machine with a card:
 
     python -m pytest tests/test_torch_cuda.py -m cuda
 
-Tolerances are those of chip_smoke.py: GAE 1e-5 (the kernel rounds every
-operation as the plain version does), MLP head 1e-4 in f32 and 2e-2 in
-bf16 (one bf16 ulp of a hidden unit that rounds the other way); the LSTM
+Tolerances are those of chip_smoke.py: GAE 1e-5 and, since the kernel
+rounds every operation as the plain version does, also equal bit for bit;
+MLP head 1e-4 in f32 and 2e-2 in bf16 (one bf16 ulp of a hidden unit that
+rounds the other way; the bf16 tensor-core kernel also equal to itself bit
+for bit across runs); the LSTM
 kernels (enc5, cat, enc, scan, fused and the archived enc2, enc3, enc4,
 enc6, tm) 1e-5 in f32 and 2e-2 in bf16 of max(1, max |plain|) per output
 and gradient (sums in another order; in bf16 a value that rounds one ulp
@@ -69,6 +71,125 @@ def test_mlp_head_kernel_matches_plain(cuda, B, dtype, tol):
     torch.cuda.synchronize()
     assert mlp.KERNEL.launches == before + 1
     torch.testing.assert_close(got, want, rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize('T,E', [(64, 8192), (64, 1000), (100, 257),
+    (7, 33)])
+def test_gae_kernel_equals_plain_bit_for_bit(cuda, T, E):
+    """Every product and sum rounded on its own, in the plain version's
+    order: the kernel gives the plain version's bits. (100, 257) takes
+    the 4-byte copies (E % 4 != 0) and two chunks of T through the ring."""
+    from pufferlib_tpu_torch.ops.cuda import gae
+    rng = np.random.RandomState(T * E)
+    args = [torch.from_numpy(a).to(cuda) for a in (
+        rng.uniform(-1, 1, (T, E)).astype(np.float32),
+        rng.randn(T, E).astype(np.float32),
+        (rng.rand(T, E) < 0.3).astype(np.float32),
+        rng.randn(E).astype(np.float32))]
+    before = gae.KERNEL.launches
+    got = gae.compute_gae_cuda(*args, 0.99, 0.95)
+    want = gae.compute_gae(*args, 0.99, 0.95)
+    torch.cuda.synchronize()
+    assert gae.KERNEL.launches == before + 1
+    assert torch.equal(got, want)
+
+
+def _mlp_case(rng, B, F, H, O, cuda):
+    x = torch.from_numpy(rng.randn(B, F).astype(np.float32)).to(cuda)
+    ws = [torch.from_numpy(a).to(cuda) for a in (
+        (rng.randn(F, H) * np.sqrt(2 / F)).astype(np.float32),
+        (rng.randn(H) * 0.1).astype(np.float32),
+        (rng.randn(H, O) / np.sqrt(H)).astype(np.float32),
+        (rng.randn(O) * 0.1).astype(np.float32))]
+    return x, ws
+
+
+# (B, F, H, O, x dtype): the trainer's shapes, ragged tiles, H in several
+# chunks, O past one 32-column pass, and each of the bf16 kernel's
+# configurations (mlp.TC_CONFIGS: 0 at F = 49, 1 at F = 200 / H = 256, 2
+# at H = 512, 3 at F = 1500)
+MLP_TC_CASES = [
+    (8192, 49, 128, 9, torch.bfloat16),
+    (131072, 49, 128, 9, torch.bfloat16),
+    (1000, 49, 128, 9, torch.float32),
+    (1, 49, 128, 9, torch.bfloat16),
+    (65, 49, 128, 40, torch.bfloat16),
+    (24, 200, 256, 17, torch.bfloat16),
+    (1000, 200, 256, 17, torch.bfloat16),
+    (1000, 200, 512, 17, torch.bfloat16),
+    (1000, 200, 512, 17, torch.float32),
+    (300, 1500, 8, 2, torch.bfloat16),
+    (77, 7, 20, 3, torch.bfloat16),
+]
+
+
+@pytest.mark.parametrize('B,F,H,O,x_dtype', MLP_TC_CASES)
+def test_mlp_head_tensor_core_kernel_matches_plain(cuda, B, F, H, O,
+        x_dtype):
+    """bf16 compute: the tensor-core kernel, one launch a call, within the
+    bf16 tolerance of the plain version (one bf16 ulp of a hidden unit
+    that rounds the other way), and equal bit for bit across two runs."""
+    from pufferlib_tpu_torch.ops.cuda import mlp
+    rng = np.random.RandomState(B + F + H + O)
+    x, ws = _mlp_case(rng, B, F, H, O, cuda)
+    x = x.to(x_dtype)
+    before = mlp.KERNEL.launches
+    with torch.no_grad():
+        got = mlp.mlp_head(x, *ws, torch.bfloat16)
+        again = mlp.mlp_head(x, *ws, torch.bfloat16)
+        want = mlp.mlp_head_reference(x, *ws, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert mlp.KERNEL.launches == before + 2
+    assert got.shape == (B, O) and got.dtype == torch.float32
+    torch.testing.assert_close(got, want, rtol=0, atol=2e-2)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize('offset', [1, 3, 7])
+def test_mlp_head_reads_x_at_any_offset(cuda, offset):
+    """x a view that starts off the 16-byte boundary (a slice of a larger
+    storage): read in place, the same result as a contiguous copy."""
+    from pufferlib_tpu_torch.ops.cuda import mlp
+    rng = np.random.RandomState(offset)
+    x, ws = _mlp_case(rng, 1001, 49, 128, 9, cuda)
+    flat = torch.zeros(offset + x.numel(), dtype=torch.bfloat16, device=cuda)
+    flat[offset:] = x.reshape(-1).to(torch.bfloat16)
+    view = flat[offset:].view(1001, 49)
+    assert view.data_ptr() % 16 != 0 and view.is_contiguous()
+    with torch.no_grad():
+        got = mlp.mlp_head(view, *ws, torch.bfloat16)
+        want = mlp.mlp_head(view.clone(), *ws, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_mlp_head_tc_config_is_the_kernels(cuda):
+    """mlp.tc_config copies the C side's choice of configuration, and with
+    it the shape limit that mlp_shape_error states."""
+    from pufferlib_tpu_torch.ops.cuda import mlp
+    lib = mlp.KERNEL.lib()
+    for F in (1, 7, 49, 200, 700, 1500, 1816, 2500, 4000):
+        for H in (1, 20, 128, 256, 512, 1024):
+            for O in (1, 9, 17, 40, 300):
+                for x_dtype in (torch.bfloat16, torch.float32):
+                    c = lib.mlp_head_tc_config(F, H, O,
+                        int(x_dtype == torch.bfloat16))
+                    want = mlp.tc_config(F, H, O, x_dtype)
+                    assert c == (-1 if want is None else want), (F, H, O,
+                        x_dtype)
+
+
+def test_mlp_head_refuses_past_its_limit_before_launch(cuda):
+    from pufferlib_tpu_torch.ops.cuda import mlp
+    F, H, O = 4000, 16, 1
+    assert mlp.mlp_shape_error(F, H, O, torch.bfloat16) is not None
+    x = torch.zeros(16, F, dtype=torch.bfloat16, device=cuda)
+    ws = (torch.zeros(F, H, device=cuda), torch.zeros(H, device=cuda),
+        torch.zeros(H, O, device=cuda), torch.zeros(O, device=cuda))
+    before = mlp.KERNEL.launches
+    with pytest.raises(ValueError, match='shared memory'):
+        mlp.mlp_head(x, *ws, torch.bfloat16)
+    assert mlp.KERNEL.launches == before
 
 
 def test_mlp_head_kernel_rejects_bad_inputs(cuda):

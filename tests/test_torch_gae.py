@@ -54,6 +54,23 @@ def test_gae_matches_pallas_kernel_ragged():
     np.testing.assert_allclose(got, expected, rtol=0, atol=ATOL)
 
 
+@pytest.mark.parametrize('T,E', [(100, 257), (7, 33)])
+def test_gae_kernel_edge_shapes_match_jax(T, E):
+    """The CUDA kernel's edges: E % 4 != 0 (its 4-byte copies), T past one
+    64-step chunk (its ring) and a single short chunk. The wrapper on CPU
+    tensors against JAX's compute_gae and the Pallas kernel in interpret
+    mode. On the CPU XLA may contract a multiply-add, so the port's kernel
+    is held to its plain version bit for bit only on the card
+    (tests/test_torch_cuda.py)."""
+    args = _inputs(T, E, seed=T * E, p_done=0.3)
+    got = compute_gae_cuda(*_torch(*args), 0.99, 0.95).numpy()
+    assert got.dtype == np.float32 and got.shape == (T, E)
+    np.testing.assert_allclose(got, np.asarray(jax_compute_gae(*args, 0.99,
+        0.95)), rtol=0, atol=ATOL)
+    np.testing.assert_allclose(got, np.asarray(compute_gae_pallas(*args,
+        0.99, 0.95, interpret=True)), rtol=0, atol=ATOL)
+
+
 def test_gae_all_done_rows():
     """Every step terminal: each advantage is its own reward - value, the
     bootstrap never reaches past a done."""

@@ -24,7 +24,8 @@ from jax.experimental.pallas import tpu as pltpu
 from pufferlib_tpu.ops.pallas.mlp import mlp_head_fwd, mlp_head_reference
 
 from pufferlib_tpu_torch.ops.cuda.mlp import (
-    mlp_head, mlp_head_reference as torch_reference)
+    TC_CONFIGS, fma_smem, mlp_head, mlp_head_reference as torch_reference,
+    mlp_shape_error, tc_config)
 
 torch.set_num_threads(1)
 
@@ -40,6 +41,19 @@ def _inputs(B=40, F=49, H=32, O=9, seed=0):
         (rng.randn(F, H) * 0.3).astype(np.float32),
         (rng.randn(H) * 0.1).astype(np.float32),
         (rng.randn(H, O) * 0.3).astype(np.float32),
+        (rng.randn(O) * 0.1).astype(np.float32))
+
+
+def _wide_inputs(B, seed, F=200, H=256, O=17):
+    """The bf16 kernel's wider reach: more features than one 64-column
+    chunk of x, H in several chunks, a multidiscrete head past 16 outputs.
+    Weights scaled as the trainer's init, so that outputs stay of order 1
+    as the tolerances assume."""
+    rng = np.random.RandomState(seed)
+    return (rng.randn(B, F).astype(np.float32),
+        (rng.randn(F, H) * np.sqrt(2 / F)).astype(np.float32),
+        (rng.randn(H) * 0.1).astype(np.float32),
+        (rng.randn(H, O) / np.sqrt(H)).astype(np.float32),
         (rng.randn(O) * 0.1).astype(np.float32))
 
 
@@ -113,3 +127,90 @@ def test_kernel_wrapper_rejects_other_devices():
     arrays = [torch.from_numpy(a).to('meta') for a in _inputs(B=8)]
     with pytest.raises(ValueError, match='no MLP head kernel'):
         mlp_head(*arrays, torch.float32)
+
+
+@pytest.mark.parametrize('name', ['float32', 'bfloat16'])
+def test_mlp_head_wide_matches_jax_reference(name):
+    """F = 200, H = 256, O = 17 at a ragged B = 1000, which the Pallas
+    kernel does not tile (B % 8 != 0): against the JAX reference. The
+    weight gradients sum 1000 rows and reach 150, so their tolerance is
+    the file's taken of max(1, max |reference|): f32 sums of that many
+    terms in another order differ by a few ulp of the largest value."""
+    jdt, tdt, atol, gtol = DTYPES[name]
+    arrays = _wide_inputs(1000, seed=4)
+    expected, jgrads = _jax_grads(mlp_head_reference, arrays, jdt)
+    out, dx, grads = _torch_grads(arrays, tdt)
+    assert out.shape == (1000, 17)
+    np.testing.assert_allclose(out.detach().numpy(), expected, rtol=0,
+        atol=atol)
+    # as above: the reference's autodiff rounds its cotangents in bf16
+    if name == 'float32':
+        for g, jg in zip(grads, jgrads):
+            np.testing.assert_allclose(g, jg, rtol=0,
+                atol=gtol * max(1.0, np.abs(jg).max()))
+    assert torch.count_nonzero(dx) == 0
+
+
+@pytest.mark.parametrize('name', ['float32', 'bfloat16'])
+def test_mlp_head_wide_matches_pallas_kernel(name):
+    """F = 200, H = 256, O = 17 at B = 24: forward and weight gradients
+    against the Pallas kernel in interpret mode."""
+    jdt, tdt, atol, gtol = DTYPES[name]
+    arrays = _wide_inputs(24, seed=5)
+    with pltpu.force_tpu_interpret_mode():
+        expected, jgrads = _jax_grads(mlp_head_fwd, arrays, jdt)
+    out, _, grads = _torch_grads(arrays, tdt)
+    np.testing.assert_allclose(out.detach().numpy(), expected, rtol=0,
+        atol=atol)
+    for g, jg in zip(grads, jgrads):
+        np.testing.assert_allclose(g, jg, rtol=0, atol=gtol)
+
+
+@pytest.mark.parametrize('x_dtype', [torch.bfloat16, torch.float32])
+def test_bf16_kernel_serves_every_shape_the_fma_kernel_served(x_dtype):
+    """In bf16 the tensor-core kernel took over from the FMA kernel, whose
+    limit (fma_smem, its weights in f32 shared memory) was the only one:
+    every (F, H, O) within it is still served, for x in either dtype. The
+    largest O per (F, H) is the one to check: shared memory grows with O."""
+    limit = 227 * 1024
+    checked = 0
+    for F in range(1, 1900, 19):
+        for H in range(1, 1900, 23):
+            O = (limit // 4 - F * H - H - 32 * F - 32 * H) // (H + 1)
+            if O < 1:
+                continue
+            assert fma_smem(F, H, O) <= limit < fma_smem(F, H, O + 1)
+            for o in (1, O):
+                assert mlp_shape_error(F, H, o, torch.bfloat16,
+                    x_dtype) is None, (F, H, o)
+            checked += 1
+    assert checked > 300
+
+
+@pytest.mark.parametrize('F,H,O,cdt,x_dtype,config,error', [
+    # the trainer's head: weights resident, a ring of three x spans
+    (49, 128, 9, torch.bfloat16, torch.bfloat16, 0, None),
+    (49, 128, 9, torch.bfloat16, torch.float32, 0, None),
+    # wider: one ring stage, then weights read from L2 (beyond the FMA
+    # kernel's limit), then 16-row tiles
+    (200, 256, 17, torch.bfloat16, torch.bfloat16, 1, None),
+    (200, 512, 17, torch.bfloat16, torch.bfloat16, 2, None),
+    (1500, 8, 2, torch.bfloat16, torch.bfloat16, 3, None),
+    (2400, 64, 9, torch.bfloat16, torch.float32, 3, None),
+    # past the last configuration
+    (4000, 16, 1, torch.bfloat16, torch.bfloat16, None, 'shared memory'),
+    (2500, 16, 1, torch.bfloat16, torch.float32, None, 'shared memory'),
+    # f32 compute keeps the FMA kernel and its limit
+    (49, 128, 9, torch.float32, torch.float32, None, None),
+    (200, 512, 17, torch.float32, torch.float32, None, 'f32 MLP head'),
+    (1, 1, 0, torch.bfloat16, torch.bfloat16, None, 'F, H, O >= 1'),
+])
+def test_mlp_shape_error_table(F, H, O, cdt, x_dtype, config, error):
+    got = mlp_shape_error(F, H, O, cdt, x_dtype)
+    if error is None:
+        assert got is None
+    else:
+        assert error in got
+    if cdt == torch.bfloat16 and O >= 1:
+        assert tc_config(F, H, O, x_dtype) == config
+        assert config is None or 0 <= config < len(TC_CONFIGS)
