@@ -17,8 +17,9 @@ validation path
 (tools/validate_lstm_torch.py: lstm_scan and lstm_scan_fused timed at
 the bench shapes, then a 40-epoch learning proof that must reach score
 0.9; tools/kernel_lab_torch.py over every variant, the archived enc2,
-enc3, enc4, enc6 and tm among them). Last, small trainer updates and an
-env run on the card are held against the same on the CPU. For the bf16
+enc3, enc4, enc6 and tm among them). Last, small trainer updates and
+12 steps of every Ocean env on the card are held against the same on the
+CPU. For the bf16
 tensor-core kernels of lstm_scan_cat, lstm_scan_fused and the enc5 pair
 (csrc/lstm_tc.cuh) it also prints each kernel's registers and spilled
 bytes after the build, and the time of each phase at the main shape
@@ -33,6 +34,19 @@ and in f32 (the FMA kernel); its bf16 kernel runs twice and must agree
 bit for bit, and is timed beside cuBLAS's three-call bf16 composition.
 Both MLP trainers run a warm-up epoch, three timed ones and the
 rollout/update split.
+
+The Ocean phase: the MLP head is also held to its plain version at the
+Ocean envs' shapes (F = 1, 5 and 30 features; O = 3, 5 and 11 outputs;
+B = 128 to 4096 rows) and enc5 at F = 1 (memory's one feature; hidden
+128 at T = 8, hidden 64 at T = 4), and the Performance envs' burn kernel
+(csrc/ocean_burn.cu, not a TPU kernel) against its plain version. Then
+the fused trainer runs each of the ten Ocean envs at its config.yaml
+section (Default hidden 128 in bf16; memory through LSTMWrapper's default
+route, enc5), a warm-up epoch and two timed ones, and bandit, password and
+spaces again with the fused MLP head; 12 steps of every env on the card
+must equal the CPU exactly; and two learning proofs at the JAX package's
+own test settings must pass: memory (best score > 0.9 within 60 epochs,
+through enc5) and spaces (score > 0.8 after 40 epochs).
 
 Prints one line per phase, a `{"kernels": [...]}` JSON line, the card's
 name and power limit, and last `{"ok": true, "device": {...}}`. Any
@@ -766,6 +780,333 @@ def check_losses(data, what):
     return losses
 
 
+# a grid of MLP head shapes (F, H, O) around the Ocean envs', beside the
+# ones ocean_kernel_shapes works out: bandit, stochastic and memory's one
+# feature with bandit's 10 arms + value; password's 5 features; spaces' 30
+# nativized features (25 f32 + 5 int8) with its MultiDiscrete [2, 2] +
+# value; one feature with a binary action + value. B: rollout lanes (128,
+# 256) and minibatches (1024, 4096)
+OCEAN_MLP_SHAPES = ((1, 128, 11), (5, 128, 3), (30, 128, 5), (1, 128, 3))
+OCEAN_MLP_ROWS = (128, 256, 1024, 4096)
+
+# config.yaml's Ocean sections (config.yaml:55-157), layered default ->
+# ocean -> env: num_envs, batch_size, minibatch_size, bptt_horizon,
+# learning_rate. visual has no section of its own: the ocean package's
+OCEAN_CONFIGS = {
+    'squared': (256, 16384, 4096, 8, 0.017),
+    'bandit': (128, 4096, 1024, 4, 0.017),
+    'memory': (256, 16384, 4096, 8, 0.01),
+    'password': (256, 8192, 2048, 4, 0.017),
+    'stochastic': (128, 8192, 2048, 8, 0.017),
+    'spaces': (128, 4096, 1024, 4, 0.017),
+    'multiagent': (128, 4096, 1024, 4, 0.017),
+    'performance': (1024, 16384, 4096, 8, 0.017),
+    'performance_empiric': (1024, 16384, 4096, 8, 0.017),
+    'visual': (256, 16384, 4096, 8, 0.017),
+}
+# config.yaml:81-94: memory trains recurrent
+OCEAN_RECURRENT = ('memory',)
+# the envs that phase 12 runs a second time with the fused MLP head
+OCEAN_KERNEL_ENVS = ('bandit', 'password', 'spaces')
+# the JAX package's learning tests (tests/test_training.py:103-133,
+# tests/test_training_extra.py:105-130): (num_envs, batch_size,
+# minibatch_size, bptt_horizon, learning_rate), hidden size, epochs at
+# most, env kwargs, the score to pass
+OCEAN_PROOFS = {
+    'memory': ((128, 4096, 1024, 4, 0.01), 64, 60,
+        dict(mem_length=2, mem_delay=0), 0.9),
+    'spaces': ((64, 2048, 512, 8, 0.02), 64, 40, {}, 0.8),
+}
+
+
+def ocean_kernel_shapes():
+    """The shapes at which phases 12 and 13 launch GAE (T, agent rows),
+    the MLP head (B, F, H, O) and enc5 (T, segments, H, F), worked out
+    from OCEAN_CONFIGS and OCEAN_PROOFS as the trainer runs them: GAE once
+    an epoch over the rollout's T steps x agent rows; the MLP head (the
+    use_kernel runs) on the agent rows at each rollout step and the
+    bootstrap, and on each minibatch's rows; enc5 (the recurrent runs) on
+    a minibatch's segments of bptt steps. F and O are Default's encoder
+    and head widths on the env's emulated spaces."""
+    import pufferlib_tpu_torch.vector as vector
+    from pufferlib_tpu_torch.models import Default
+    from pufferlib_tpu_torch.ocean import env_creator
+    runs = [(name, config, 128, {}, False)
+        for name, config in OCEAN_CONFIGS.items()]
+    runs += [(name, OCEAN_CONFIGS[name], 128, {}, True)
+        for name in OCEAN_KERNEL_ENVS]
+    runs += [(name, config, hidden, kwargs, False)
+        for name, (config, hidden, _, kwargs, _) in OCEAN_PROOFS.items()]
+    gae, mlp, enc5 = {}, {}, {}  # ordered sets
+    for name, config, H, kwargs, use_kernel in runs:
+        num_envs, batch_size, minibatch_size, bptt, _ = config
+        vecenv = vector.make(env_creator(name), env_kwargs=kwargs,
+            num_envs=num_envs, device='cpu')
+        module = Default(obs_shape=vecenv.single_observation_space.shape,
+            action_space=vecenv.single_action_space, hidden_size=H,
+            emulated=vecenv.emulated)
+        F, O = module.encoder.in_features, module.head.out_features
+        rows = vecenv.num_agents
+        gae[batch_size // rows, rows] = None
+        if use_kernel:
+            mlp[rows, F, H, O] = mlp[minibatch_size, F, H, O] = None
+        if name in OCEAN_RECURRENT:
+            enc5[bptt, minibatch_size // bptt, H, F] = None
+    return list(gae), list(mlp), list(enc5)
+
+
+def check_burn(torch, flush, rng, N=1024, most=2000):
+    """The Performance envs' burn kernel against its plain version on
+    the same lanes and counts (0 to `most`): equal bit for bit (each
+    product and sum rounded on its own, as the plain version's two torch
+    operations), both timed (CUDA events). Not a TPU kernel: a line of
+    its own, no entry in the kernels line."""
+    import numpy as np
+    from pufferlib_tpu_torch.ops.cuda import burn
+    x = torch.from_numpy(rng.rand(N).astype(np.float32)).cuda()
+    iters = torch.from_numpy(rng.randint(-5, most, N).astype(
+        np.int32)).cuda()
+    before = burn.KERNEL.launches
+    got = burn.burn(x, iters)
+    want = burn.burn_reference(x, iters)
+    torch.cuda.synchronize()
+    if burn.KERNEL.launches != before + 1:
+        raise AssertionError('burn: no launch counted')
+    if not torch.equal(got, want):
+        raise AssertionError(f'burn: differs from the plain version (max '
+            f'abs err {(got - want).abs().max().item()})')
+    ms = timed_ms(lambda: burn.burn(x, iters), flush)
+    plain_ms = timed_ms(lambda: burn.burn_reference(x, iters), flush, reps=3)
+    log(f'ocean burn N={N}, counts up to {most}: equal to the plain version '
+        f'bit for bit; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (a '
+        f'latency-bound chain of {int(iters.max())} dependent multiply-adds) '
+        f'on {card_line()}')
+
+
+def make_ocean_trainer(torch, name, num_envs, batch_size, minibatch_size,
+        bptt, lr, hidden=128, dtype_name='bfloat16', use_kernel=False,
+        recurrent=False, env_kwargs=None, total_timesteps=None,
+        device='cuda', seed=0):
+    """The fused trainer on Ocean env `name`: Default (recurrent:
+    RecurrentPolicy(LSTMWrapper(Default)) through the default route) of
+    hidden size `hidden` in dtype_name, obs stored in bf16 unless they are
+    byte-packed (a structured space: bytes must stay bytes). Without
+    total_timesteps the learning rate stays constant."""
+    import pufferlib_tpu_torch.vector as vector
+    from pufferlib_tpu_torch.models import (
+        Default, LSTMWrapper, Policy, RecurrentPolicy)
+    from pufferlib_tpu_torch.ocean import env_creator
+    from pufferlib_tpu_torch.training import ppo
+    dtype = getattr(torch, dtype_name)
+    vecenv = vector.make(env_creator(name), env_kwargs=env_kwargs or {},
+        num_envs=num_envs, device=device)
+    shape = vecenv.single_observation_space.shape
+    module = Default(obs_shape=shape, action_space=vecenv.single_action_space,
+        hidden_size=hidden, dtype=dtype, emulated=vecenv.emulated,
+        use_kernel=use_kernel, generator=torch.Generator().manual_seed(seed))
+    policy = RecurrentPolicy(LSTMWrapper(module, obs_shape=shape,
+        input_size=hidden, hidden_size=hidden, dtype=dtype,
+        generator=torch.Generator().manual_seed(seed + 1))) if recurrent \
+        else Policy(module)
+    structured = vecenv.emulated.emulated_observation_dtype.names is not None
+    config = ppo.default_config(
+        env=name,
+        batch_size=batch_size,
+        minibatch_size=minibatch_size,
+        bptt_horizon=bptt,
+        learning_rate=lr,
+        total_timesteps=total_timesteps or batch_size * 1_000_000,
+        anneal_lr=total_timesteps is not None,
+        obs_store_dtype=None if structured or dtype_name != 'bfloat16'
+            else 'bfloat16',
+        verbose=False,
+        data_dir=os.path.join(REPO, 'experiments', 'chip_smoke'),
+        checkpoint_interval=1_000_000,
+        seed=seed,
+        device=device,
+    )
+    return ppo, ppo.create(config, vecenv, policy)
+
+
+def run_ocean_trainer(torch, card, name, use_kernel=False, epochs=2):
+    """The trainer on Ocean env `name` at its config.yaml section: a
+    warm-up epoch, then `epochs` calls of ppo.step with every launch count
+    set to 0 just before and read just after, then the synchronised
+    rollout/update split of one more epoch. The launches of GAE, enc5,
+    the MLP head and the burn must be what an epoch runs, and nothing
+    else launches."""
+    from pufferlib_tpu_torch.ops.cuda import KERNELS
+    num_envs, batch_size, minibatch_size, bptt, lr = OCEAN_CONFIGS[name]
+    recurrent = name in OCEAN_RECURRENT
+    ppo, data = make_ocean_trainer(torch, name, num_envs, batch_size,
+        minibatch_size, bptt, lr, use_kernel=use_kernel,
+        recurrent=recurrent)
+    T = batch_size // data.vecenv.num_agents
+    minibatches = data.config.update_epochs * (batch_size // minibatch_size)
+    if recurrent:
+        route = data.policy.module.route(bptt, torch.device('cuda'))
+        if route != 'enc5':
+            raise AssertionError(f'ocean {name}: LSTM route {route}, '
+                'expected enc5')
+    ppo.step(data)  # warm-up epoch
+    torch.cuda.synchronize()
+    for k in KERNELS:
+        k.reset_counts()
+    start = time.perf_counter()
+    for _ in range(epochs):
+        ppo.step(data)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - start
+    launches = {fn: n for k in KERNELS for fn, n in k.fn_launches.items()}
+    want = dict.fromkeys(launches, 0)
+    want['gae_forward'] = epochs
+    if use_kernel:
+        # each rollout step and the bootstrap value, each minibatch
+        want['mlp_head_forward'] = (T + 1 + minibatches) * epochs
+    if recurrent:
+        want['lstm_enc_forward'] = want['lstm_enc_backward'] = \
+            minibatches * epochs
+    if name.startswith('performance'):
+        want['ocean_burn'] = T * epochs
+    if launches != want:
+        raise AssertionError(f'ocean {name} use_kernel={use_kernel}: '
+            f'launches {launches}, expected {want}')
+    losses = check_losses(data, f'ocean {name} use_kernel={use_kernel}')
+    sps = epochs * batch_size / elapsed
+    ppo.evaluate(data)
+    ppo.train(data)
+    timers = data._timers
+    per_epoch = {k: v // epochs for k, v in launches.items() if v}
+    log(f'ocean {name} ({num_envs} lanes x {T}, batch {batch_size}, '
+        f'minibatch {minibatch_size}, bptt {bptt}, lr {lr}; '
+        f'{"LSTMWrapper(Default) h128 (enc5)" if recurrent else "Default h128"}'
+        f' bf16, use_kernel={use_kernel}): {sps:.1f} steps/s over {epochs} '
+        f'epochs after a warm-up epoch ({elapsed / epochs * 1e3:.2f} '
+        f'ms/epoch); split: rollout {timers["evaluate"].prev * 1e3:.2f} ms, '
+        f'update {timers["train"].prev * 1e3:.2f} ms; launches an epoch '
+        f'{json.dumps(per_epoch)}; losses {json.dumps(losses)}; stats '
+        f'{json.dumps(data.stats)} on {card}')
+    del data
+
+
+def run_ocean_phase(torch, card):
+    """Every Ocean env through the trainer, then bandit, password and
+    spaces with the fused MLP head."""
+    for name in OCEAN_CONFIGS:
+        run_ocean_trainer(torch, card, name)
+    for name in OCEAN_KERNEL_ENVS:
+        run_ocean_trainer(torch, card, name, use_kernel=True)
+
+
+def ocean_learning_proofs(torch, card):
+    """The JAX package's own learning tests on the card, in bf16, at
+    OCEAN_PROOFS' settings: memory (mem_length 2, mem_delay 0; the best
+    score must pass 0.9, stopping there) through LSTMWrapper's default
+    route, enc5, whose launches are counted; spaces (the score after all
+    its epochs must pass 0.8)."""
+    from pufferlib_tpu_torch.ops.cuda import KERNELS
+    config, hidden, most, kwargs, goal = OCEAN_PROOFS['memory']
+    total = config[1] * most
+    ppo, data = make_ocean_trainer(torch, 'memory', *config, hidden=hidden,
+        recurrent=True, env_kwargs=kwargs, total_timesteps=total)
+    bptt = config[3]
+    minibatches = config[1] // config[2]
+    route = data.policy.module.route(bptt, torch.device('cuda'))
+    for k in KERNELS:
+        k.reset_counts()
+    start = time.perf_counter()
+    best, epochs = 0.0, 0
+    while data.global_step < total:
+        stats, _ = ppo.evaluate(data)
+        ppo.train(data)
+        epochs += 1
+        best = max(best, stats.get('score', 0.0))
+        if best > goal:
+            break
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - start
+    launches = {fn: n for k in KERNELS for fn, n in k.fn_launches.items()
+        if n}
+    want = data.config.update_epochs * minibatches * epochs
+    if route != 'enc5' or launches.get('lstm_enc_forward', 0) != want \
+            or launches.get('lstm_enc_backward', 0) != want:
+        raise AssertionError(f'memory proof: route {route}, launches '
+            f'{launches} in {epochs} epochs')
+    if not best > goal:
+        raise AssertionError(f'memory proof: best score {best} after '
+            f'{epochs} epochs')
+    log(f'learning proof memory (mem_length 2, {config[0]} lanes, LSTM '
+        f'h{hidden} bf16, enc5): best score {best:.4f} after {epochs} '
+        f'epochs in {elapsed:.1f} s; launches {json.dumps(launches)} on '
+        f'{card}')
+    del data
+
+    config, hidden, epochs, kwargs, goal = OCEAN_PROOFS['spaces']
+    total = config[1] * epochs
+    ppo, data = make_ocean_trainer(torch, 'spaces', *config, hidden=hidden,
+        env_kwargs=kwargs, total_timesteps=total)
+    start = time.perf_counter()
+    while data.global_step < total:
+        ppo.step(data)
+    score = data.stats.get('score')
+    elapsed = time.perf_counter() - start
+    if score is None or not score > goal:
+        raise AssertionError(f'spaces proof: score {score} after {epochs} '
+            'epochs')
+    log(f'learning proof spaces ({config[0]} lanes, Default h{hidden} '
+        f'bf16): score {score:.4f} after {epochs} epochs in {elapsed:.1f} s '
+        f'on {card}')
+
+
+def check_envs_card_against_cpu(torch, np):
+    """12 steps of every Ocean env (squared at distance 3, one target) on
+    the card and on the CPU from the same draws and actions, 256 lanes:
+    obs, reward, done, truncated, every info field and the Performance
+    envs' burnt x exactly equal."""
+    import pufferlib_tpu_torch.vector as vector
+    from pufferlib_tpu_torch.ocean import env_creator
+    N = 256
+    kwargs = {
+        'performance': dict(delay_mean=2e-6, delay_std=1e-6),
+        'performance_empiric': dict(count_n=20, count_std=8),
+    }
+    for name in OCEAN_CONFIGS:
+        envs = [vector.make(env_creator(name), env_kwargs=kwargs.get(name),
+            num_envs=N, device=d) for d in ('cpu', 'cuda')]
+        if name == 'performance':
+            for env in envs:
+                env.env.env.work_per_second = 10_000_000
+        g = torch.Generator().manual_seed(len(name))
+        env = envs[0].env
+        draws = [(env.sample_reset(N, 'cpu', g), env.sample_step(N, 'cpu', g))
+            for _ in range(13)]
+        space = envs[0].single_action_space
+        rng = np.random.RandomState(3)
+        outs = [[e.reset(reset_draws=draws[0][0].to(e.device))[0].cpu()]
+            for e in envs]
+        for t in range(12):
+            if hasattr(space, 'nvec'):
+                actions = np.stack([rng.randint(0, n, envs[0].num_agents)
+                    for n in space.nvec], axis=1)
+            else:
+                actions = rng.randint(0, space.n, envs[0].num_agents)
+            reset, step = draws[t + 1]
+            for e, out in zip(envs, outs):
+                result = e.step(torch.from_numpy(actions).to(e.device),
+                    reset_draws=reset.to(e.device),
+                    step_draws=None if step is None else step.to(e.device))
+                out.extend(x.cpu() for x in result[:4])
+                out.extend(result[4][k].cpu() for k in sorted(result[4]))
+                if name.startswith('performance'):
+                    out.append(e._state.env['env']['x'].cpu())
+        for a, b in zip(*outs):
+            if not torch.equal(a, b):
+                raise AssertionError(f'{name} on the card differs from the '
+                    'CPU')
+        log(f'env card vs CPU, {name}: 12 autoreset steps x {N} lanes '
+            f'({envs[0].num_agents} agent rows), exactly equal')
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -799,8 +1140,14 @@ def main():
     # phases 3-4: each kernel against its plain version, then timed
     flush = l2_flush_buffer()
     rng = np.random.RandomState(0)
+    ocean_gae, ocean_mlp, ocean_enc5 = ocean_kernel_shapes()
+    log(f'Ocean phase shapes: GAE (T, rows) {ocean_gae}; MLP head (B, F, H, '
+        f'O) {ocean_mlp}; enc5 (T, segments, H, F) {ocean_enc5}')
+    # the bench trainer's shape, ragged ones, then every shape phases 12
+    # and 13 run
     gae_runs = [check_gae(torch, gae, flush, rng, T, E)
-        for T, E in ((64, 8192), (64, 1000), (100, 257), (7, 33))]
+        for T, E in ((64, 8192), (64, 1000), (100, 257), (7, 33))
+            + tuple(ocean_gae)]
     # the trainer's two shapes, then the bf16 kernel's other reach: H in
     # chunks (256, 512: configurations 1 and 2), a multidiscrete head (O =
     # 17), a ragged tile, f32 x under bf16 compute
@@ -815,6 +1162,15 @@ def main():
     mlp_runs[8192, 'bfloat16 x float32'] = check_mlp(torch, mlp, flush, rng,
         8192, 'bfloat16', x_dtype_name='float32')
     check_mlp_bit_equal(torch, mlp, rng)
+    # every shape the use_kernel runs of phase 12 give it, then the
+    # Ocean grid's others
+    ocean_grid = [(B, F, H, O) for F, H, O in OCEAN_MLP_SHAPES
+        for B in OCEAN_MLP_ROWS]
+    for B, F, H, O in ocean_mlp + ocean_grid:
+        key = B, f'bfloat16 F={F} H={H} O={O}'
+        if key not in mlp_runs:
+            mlp_runs[key] = check_mlp(torch, mlp, flush, rng, B, 'bfloat16',
+                F=F, H=H, O=O)
     lstm_runs = {(kind, B, d): check_lstm(torch, flush, rng, kind, B, d,
             timed=(B, d) == (8192, 'bfloat16'))
         for kind in ('enc5', 'cat', 'scan', 'fused', 'enc')
@@ -828,6 +1184,13 @@ def main():
     for B in (8192, 1000):
         lstm_runs['enc5', B, 'bfloat16 D=96 F=200'] = check_lstm(torch, flush,
             rng, 'enc5', B, 'bfloat16', D=96, F=200)
+    # memory's one feature at the Ocean trainer's minibatch and the
+    # learning proof's
+    for T, B, H, F in ocean_enc5:
+        lstm_runs['enc5', B, f'bfloat16 F={F} H={H} T={T}'] = check_lstm(
+            torch, flush, rng, 'enc5', B, 'bfloat16', T=T, H=H, F=F,
+            timed=True)
+    check_burn(torch, flush, rng)
     # enc5's bf16 kernels add every partial sum in a fixed order
     check_bit_equal(torch, rng, 'enc5', 8192)
     check_bit_equal(torch, rng, 'enc5', 1000, D=96, F=200)
@@ -880,6 +1243,14 @@ def main():
     # phase 11: the card against the CPU, at a small size in f32
     check_card_against_cpu(torch, np)
     check_lstm_card_against_cpu(torch, np)
+    check_envs_card_against_cpu(torch, np)
+
+    # phase 12: every Ocean env through the trainer at its config.yaml
+    # section; bandit, password and spaces also with the fused MLP head
+    run_ocean_phase(torch, card)
+
+    # phase 13: the JAX package's learning tests of memory and spaces
+    ocean_learning_proofs(torch, card)
 
     mlp_big, mlp_small = (mlp_runs[B, 'bfloat16'] for B in (131072, 8192))
     kernels = [
@@ -1033,11 +1404,9 @@ def run_validation_path(torch):
 
 def check_card_against_cpu(torch, np):
     """One trainer update (GAE kernel, with and without the MLP head
-    kernel) and 12 env steps on the card, held against the same on the
-    CPU from the same weights, batch, actions and reset draws. f32;
-    params to 1e-4 (sums in other orders through Adam), env exactly."""
-    import pufferlib_tpu_torch.vector as vector
-    from pufferlib_tpu_torch.ocean import env_creator
+    kernel) on the card, held against the same on the CPU from the same
+    weights and batch. f32; params to 1e-4 (sums in other orders through
+    Adam)."""
     T, N, mb = 16, 256, 1024
     rng = np.random.RandomState(1)
     batch = dict(
@@ -1073,23 +1442,6 @@ def check_card_against_cpu(torch, np):
             f'abs diff {err:.3g} (tol 1e-4), stats max abs diff '
             f'{stat_err:.3g}')
 
-    kwargs = dict(distance_to_target=3, num_targets=1)
-    envs = [vector.make(env_creator('squared'), env_kwargs=kwargs,
-        num_envs=N, device=d) for d in ('cpu', 'cuda')]
-    draws = torch.from_numpy(rng.randint(0, 24, (13, N)))
-    outs = [[env.reset(reset_draws=draws[0].to(env.device))[0].cpu()]
-        for env in envs]
-    for t in range(12):
-        actions = torch.from_numpy(rng.randint(0, 8, N))
-        for env, out in zip(envs, outs):
-            step = env.step(actions.to(env.device),
-                reset_draws=draws[t + 1].to(env.device))
-            out.extend(x.cpu() for x in step[:4])
-            out.extend(v.cpu() for v in step[4].values())
-    for a, b in zip(*outs):
-        if not torch.equal(a, b):
-            raise AssertionError('Squared on the card differs from the CPU')
-    log(f'env card vs CPU: 12 autoreset steps x {N} lanes, exactly equal')
 
 
 def check_lstm_card_against_cpu(torch, np):

@@ -1,7 +1,9 @@
 """Model zoo in torch.nn, counterpart of pufferlib_tpu/models/__init__.py.
 
 This port has `Default` (models/__init__.py:118-233) and `LSTMWrapper`
-(:236-445); the conv family follows (ROADMAP, queue 1). Params are
+(:236-445); the conv family follows (ROADMAP, queue 1). `Default`
+takes structured observations through `emulated`, as the JAX module
+does. Params are
 float32; `dtype` is the compute dtype, as flax
 `Dense(dtype=cdt, param_dtype=f32)`: each layer casts its input, weight
 and bias to `dtype`.
@@ -13,7 +15,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from pufferlib_tpu_torch import spaces
+from pufferlib_tpu_torch import emulation, spaces
+from pufferlib_tpu_torch.environment import tree_leaves
 from pufferlib_tpu_torch.models.distributions import sample_logits
 from pufferlib_tpu_torch.models.policy import (
     Policy, RecurrentPolicy, count_params)
@@ -97,6 +100,9 @@ class Default(nn.Module):
     init_style: 'orthogonal' (CleanRL layer_init everywhere) or 'torch'
     (torch-default kaiming-uniform encoder and value column, orthogonal
     0.01 decoders), as the JAX module's two schemes.
+    emulated: vecenv.emulated; where the observation is structured (a
+    byte-packed Dict or Tuple), the encoder reads its nativized leaves,
+    so its width is the leaves' total, not the bytes'.
     use_kernel: run encoder + relu + head as one CUDA kernel
     (ops/cuda/mlp.py), the counterpart of the JAX `use_pallas=True`.
     generator: torch.Generator for the init (CPU); None uses torch's
@@ -110,10 +116,6 @@ class Default(nn.Module):
             init_style='orthogonal', generator=None,
             decoder_input_size=None):
         super().__init__()
-        if emulated is not None and np.dtype(
-                emulated.emulated_observation_dtype).names is not None:
-            raise NotImplementedError(
-                'structured (nativized) observations are not ported yet')
         if init_style not in ('orthogonal', 'torch'):
             raise ValueError(f'unknown init_style {init_style!r}')
         self.obs_shape = tuple(obs_shape)
@@ -122,7 +124,16 @@ class Default(nn.Module):
         self.use_kernel = use_kernel
         self.init_style = init_style
         self.is_multidiscrete, self.nvec = _action_info(action_space)
+        # structured (byte-packed) observations are nativized on entry:
+        # the encoder reads the typed leaves, not the bytes
+        self.native_spec = None
         in_features = int(np.prod(self.obs_shape))
+        if emulated is not None and np.dtype(
+                emulated.emulated_observation_dtype).names is not None:
+            self.native_spec = emulation.nativize_dtype(emulated)
+            in_features = sum(int(np.prod(shape)) for _, shape, _, _ in
+                tree_leaves(self.native_spec, sort_keys=True,
+                    is_leaf=emulation.is_spec))
         self.encoder = nn.Linear(in_features, hidden_size)
         self.head = nn.Linear(decoder_input_size or hidden_size,
             sum(self.nvec) + 1)
@@ -132,9 +143,12 @@ class Default(nn.Module):
         enc, head = self.encoder, self.head
         with torch.no_grad():
             if self.init_style == 'torch':
-                bound = 1.0 / math.sqrt(enc.in_features)
-                _uniform_(enc.weight, bound, generator)
-                _uniform_(enc.bias, bound, generator)
+                # the JAX init's bounds: the kernel's fan-in, and the
+                # flat observation's width for the bias
+                _uniform_(enc.weight, 1.0 / math.sqrt(enc.in_features),
+                    generator)
+                _uniform_(enc.bias, 1.0 / math.sqrt(
+                    np.prod(self.obs_shape)), generator)
             else:
                 nn.init.orthogonal_(enc.weight, math.sqrt(2),
                     generator=generator)
@@ -159,10 +173,19 @@ class Default(nn.Module):
                     generator=generator)
 
     def encoder_features(self, observations):
-        """Pre-encoder features: flatten + cast to the compute dtype.
-        Fused-kernel contract: encode_observations(x) ==
+        """Pre-encoder features: flatten, nativize a structured
+        observation (its leaves, in the JAX package's tree order, each
+        cast to the compute dtype and concatenated), cast to the compute
+        dtype. Fused-kernel contract: encode_observations(x) ==
         relu(encoder_features(x) @ k + b) with (k, b) = encoder_params()."""
-        return observations.reshape(observations.shape[0], -1).to(self.dtype)
+        batch = observations.shape[0]
+        x = observations.reshape(batch, -1)
+        if self.native_spec is None:
+            return x.to(self.dtype)
+        leaves = tree_leaves(emulation.nativize_tensor(x, self.native_spec),
+            sort_keys=True)
+        return torch.cat([leaf.reshape(batch, -1).to(self.dtype)
+            for leaf in leaves], dim=1)
 
     def encoder_params(self):
         """(kernel, bias) of the encoder, kernel in the JAX (in, out)

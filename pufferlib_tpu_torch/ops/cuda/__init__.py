@@ -11,16 +11,21 @@ kernel's plain PyTorch version for tensors on the CPU.
 | lstm_scan.KERNEL  | pufferlib_tpu/ops/pallas/lstm.py:185 (lstm_scan forward), :236 (backward), :407 (lstm_scan_fused forward), :464 (backward) |
 | archive.KERNEL    | pufferlib_tpu/ops/pallas/archive/lstm_enc2.py:176 (forward), :246 (backward), lstm_enc3.py:132, lstm_enc4.py:142, lstm_enc6.py:161 (backwards), lstm_tm.py:137 (forward), :181 (backward) |
 
+burn.KERNEL (csrc/ocean_burn.cu) replaces no Pallas kernel: it is the
+device work of the Ocean Performance envs, the lax.fori_loop of
+pufferlib_tpu/ocean/ocean.py:243-251 and :284-290. It is listed so that
+it is built and counted with the others.
+
 The archive's variants (archive/lstm_enc2.py, lstm_enc3.py, lstm_enc4.py,
 lstm_enc6.py, lstm_tm.py) are off the production import path, as the TPU
 package's are: only their kernel is listed here, so that it is built and
 counted with the others.
 """
 from pufferlib_tpu_torch.ops.cuda import (
-    archive, gae, lstm_cat, lstm_enc, lstm_scan, mlp)
+    archive, burn, gae, lstm_cat, lstm_enc, lstm_scan, mlp)
 
 KERNELS = (gae.KERNEL, mlp.KERNEL, lstm_enc.KERNEL, lstm_cat.KERNEL,
-    lstm_scan.KERNEL, archive.KERNEL)
+    lstm_scan.KERNEL, archive.KERNEL, burn.KERNEL)
 
-__all__ = ['KERNELS', 'archive', 'gae', 'lstm_cat', 'lstm_enc', 'lstm_scan',
-    'mlp']
+__all__ = ['KERNELS', 'archive', 'burn', 'gae', 'lstm_cat', 'lstm_enc',
+    'lstm_scan', 'mlp']

@@ -1,9 +1,10 @@
 """Framework-neutral observation/action space types.
 
 Counterpart of pufferlib_tpu/spaces.py: small metadata objects with numpy
-sampling on the host. Only the spaces the ported envs use are here (Box,
-Discrete, MultiDiscrete); the nested spaces come with the envs that need
-them (ROADMAP, queue 1).
+sampling on the host. Box, Discrete, MultiDiscrete, MultiBinary and the
+nested Dict (keys sorted) and Tuple. The gymnasium conversions
+(from_gymnasium / to_gymnasium) come with the host path, which needs them
+(ROADMAP, queue 1).
 """
 import numpy as np
 
@@ -97,3 +98,76 @@ class MultiDiscrete(Space):
 
     def __repr__(self):
         return f'MultiDiscrete({self.nvec.tolist()})'
+
+
+class MultiBinary(Space):
+    def __init__(self, n):
+        self.n = int(n)
+        self.shape = (self.n,)
+        self.dtype = np.dtype(np.int8)
+
+    def sample(self, rng=None):
+        rng = rng or np.random
+        return rng.randint(0, 2, self.shape).astype(self.dtype)
+
+    def contains(self, x):
+        x = np.asarray(x)
+        return x.shape == self.shape and bool(np.all((x == 0) | (x == 1)))
+
+    def __repr__(self):
+        return f'MultiBinary({self.n})'
+
+
+class Dict(Space):
+    def __init__(self, spaces=None, **kwargs):
+        if spaces is None:
+            spaces = kwargs
+        self.spaces = dict(sorted(spaces.items()))
+
+    def items(self):
+        return self.spaces.items()
+
+    def keys(self):
+        return self.spaces.keys()
+
+    def values(self):
+        return self.spaces.values()
+
+    def __getitem__(self, key):
+        return self.spaces[key]
+
+    def sample(self, rng=None):
+        return {k: v.sample(rng) for k, v in self.spaces.items()}
+
+    def contains(self, x):
+        if not isinstance(x, dict) or set(x) != set(self.spaces):
+            return False
+        return all(self.spaces[k].contains(v) for k, v in x.items())
+
+    def __repr__(self):
+        return f'Dict({self.spaces})'
+
+
+class Tuple(Space):
+    def __init__(self, spaces):
+        self.spaces = tuple(spaces)
+
+    def __getitem__(self, i):
+        return self.spaces[i]
+
+    def __iter__(self):
+        return iter(self.spaces)
+
+    def __len__(self):
+        return len(self.spaces)
+
+    def sample(self, rng=None):
+        return tuple(s.sample(rng) for s in self.spaces)
+
+    def contains(self, x):
+        if not isinstance(x, (tuple, list)) or len(x) != len(self.spaces):
+            return False
+        return all(s.contains(v) for s, v in zip(self.spaces, x))
+
+    def __repr__(self):
+        return f'Tuple({self.spaces})'

@@ -46,7 +46,7 @@ from pufferlib_tpu_torch.ops.losses import ppo_losses
 from pufferlib_tpu_torch.training import checkpoint as ckpt
 from pufferlib_tpu_torch.training.profile import (
     Profile, make_losses, profile as profile_deco)
-from pufferlib_tpu_torch.vector import make_env_ops
+from pufferlib_tpu_torch.vector import make_env_ops, make_mask_fn
 
 
 def default_config(**overrides):
@@ -185,7 +185,7 @@ def create(config, vecenv, policy, device=None):
 
     obs_shape = tuple(vecenv.single_observation_space.shape)
     rollout_fn = make_rollout_fn(policy, env, step_batch, config, T,
-        generator)
+        generator, mask_fn=make_mask_fn(env))
     update_fn = make_update_fn(policy, optimizer, config, T, total_agents,
         num_minibatches, seg_rows, obs_shape)
 
@@ -214,18 +214,23 @@ def create(config, vecenv, policy, device=None):
     )
 
 
-def make_rollout_fn(policy, env, step_batch, config, T, generator):
+def make_rollout_fn(policy, env, step_batch, config, T, generator,
+        mask_fn=None):
     """rollout(carry, draws=None) -> (carry, batch, info_sums,
     episode_count).
 
-    T fused policy+env steps; the batch is (T, N, ...) time-major, obs
+    T fused policy+env steps; the batch is (T, N, ...) time-major over
+    N agent rows (lanes x agents, agent-major within a lane), obs
     flattened to (T, N, numel) in config.obs_store_dtype. With a
     recurrent policy the batch also holds `lstm0`, the state at each BPTT
-    segment start, (h, c) each (T // bptt_horizon, layers, N, H). The
-    buffers are allocated at the first call and reused. `draws`
-    ({'u': (T, N, k) sampler uniforms, 'reset': (T, N, ...) env reset
-    draws}) replaces the generator's, so a test can replay another
-    implementation's randomness."""
+    segment start, (h, c) each (T // bptt_horizon, layers, N, H). With
+    mask_fn (vector.make_mask_fn) it holds `mask` (T, N) float32, the
+    validity of each row in the state its action was computed from
+    (ppo.py:422-425). The buffers are allocated at the first call and
+    reused. `draws` ({'u': (T, N, k) sampler uniforms, 'reset': (T, lanes,
+    ...) env reset draws, and 'step': (T, lanes, ...) env step draws for
+    an env that draws at each step}) replaces the generator's, so a test
+    can replay another implementation's randomness."""
     store_dtype = config.get('obs_store_dtype', None)
     store_dtype = getattr(torch, store_dtype) if store_dtype else None
     recurrent = getattr(policy, 'lstm', None) is not None
@@ -254,10 +259,18 @@ def make_rollout_fn(policy, env, step_batch, config, T, generator):
             else:
                 action, logprob, _, value = policy(obs, generator=generator,
                     u=u)
-            reset_draws = env.sample_reset(obs.shape[0], obs.device,
-                generator) if draws is None else draws['reset'][t]
+            lanes = c['done'].shape[0]
+            if draws is None:
+                reset_draws = env.sample_reset(lanes, obs.device, generator)
+                step_draws = env.sample_step(lanes, obs.device, generator)
+            else:
+                reset_draws = draws['reset'][t]
+                step_draws = draws['step'][t] if 'step' in draws else None
+            if mask_fn is not None:
+                store('mask', t, mask_fn(c['env']))
             (env_states, done_next, next_obs, reward, done, trunc,
-                infos) = step_batch(c['env'], c['done'], action, reset_draws)
+                infos) = step_batch(c['env'], c['done'], action, reset_draws,
+                step_draws)
 
             store('obs', t, obs.reshape(obs.shape[0], -1), store_dtype)
             store('action', t, action)
@@ -273,7 +286,8 @@ def make_rollout_fn(policy, env, step_batch, config, T, generator):
                 lstm=lstm)
 
         batch = {k: bufs[k] for k in
-            ('obs', 'action', 'logprob', 'value', 'reward', 'done')}
+            ('obs', 'action', 'logprob', 'value', 'reward', 'done', 'mask')
+            if k in bufs}
         # bootstrap value for GAE at the rollout end
         last_value = policy.get_value(c['obs'], c['lstm']) if recurrent \
             else policy.get_value(c['obs'])
@@ -357,6 +371,7 @@ def make_update_fn(policy, optimizer, config, T, total_agents,
             ent_coef=config.ent_coef,
             norm_adv=config.norm_adv,
             clip_vloss=config.clip_vloss,
+            mask=mb.get('mask'),
         )
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
@@ -402,6 +417,10 @@ def make_update_fn(policy, optimizer, config, T, total_agents,
             advantages=segment(advantages),
             returns=segment(returns),
         )
+        if 'mask' in batch:
+            # the agent mask goes through the same segmenting
+            # (ppo.py:690-691)
+            seg_batch['mask'] = segment(batch['mask'])
         lstm0 = None
         if recurrent:
             lstm0 = batch['lstm0'] if time_slab else tuple(

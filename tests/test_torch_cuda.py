@@ -120,6 +120,13 @@ MLP_TC_CASES = [
     (1000, 200, 512, 17, torch.float32),
     (300, 1500, 8, 2, torch.bfloat16),
     (77, 7, 20, 3, torch.bfloat16),
+    # the Ocean envs': one feature (rows of 2 bytes), password's 5, spaces'
+    # 30 nativized features; bandit's 11 outputs, spaces' 5, binary 3
+    (128, 1, 128, 11, torch.bfloat16),
+    (4096, 1, 128, 11, torch.bfloat16),
+    (256, 5, 128, 3, torch.bfloat16),
+    (1024, 30, 128, 5, torch.bfloat16),
+    (4096, 1, 128, 3, torch.bfloat16),
 ]
 
 
@@ -438,11 +445,12 @@ def test_enc5_tensor_core_edges_match_plain(cuda, T, B, H, F):
 
 @pytest.mark.parametrize('T,B,D,H,F', [(16, 1000, 96, 128, 200),
     (16, 8192, 96, 128, 200), (5, 65, 40, 32, 49), (3, 100, 200, 64, 768),
-    (2, 64, 640, 128, 49)])
+    (2, 64, 640, 128, 49), (8, 512, 128, 128, 1), (4, 256, 64, 64, 1)])
 def test_enc5_tensor_core_kernels_take_other_widths(cuda, T, B, D, H, F):
     """enc5's bf16 kernels at encoder widths D != H (640 at H = 128 is the
-    widest a pre-pass block holds) and feature widths past the FMA
-    kernels' 128, against the plain versions."""
+    widest a pre-pass block holds), feature widths past the FMA
+    kernels' 128, and the Ocean memory env's one feature (rows of 2
+    bytes), against the plain versions."""
     _check_lstm_pair(cuda, 'enc5', T, B, H, torch.bfloat16, D=D, F=F)
 
 
@@ -698,3 +706,21 @@ def test_tc_max_input_is_the_kernels_limit(cuda):
         out = (ctypes.c_int * 1)()
         assert lstm_cat.KERNEL.lib().lstm_tc_max_input(H, out) == 0
         assert out[0] == lstm_common.tc_max_input(H), H
+
+
+@pytest.mark.parametrize('N', [1024, 5])
+def test_ocean_burn_kernel_equals_plain_bit_for_bit(cuda, N):
+    """The Performance envs' burn: each product and sum rounded on its
+    own, as the plain version's two torch operations; counts <= 0 leave
+    their lanes."""
+    from pufferlib_tpu_torch.ops.cuda import burn
+    rng = np.random.RandomState(N)
+    x = torch.from_numpy(rng.rand(N).astype(np.float32)).to(cuda)
+    iters = torch.from_numpy(rng.randint(-3, 300, N).astype(np.int32)).to(
+        cuda)
+    before = burn.KERNEL.launches
+    got = burn.burn(x, iters)
+    want = burn.burn_reference(x, iters)
+    torch.cuda.synchronize()
+    assert burn.KERNEL.launches == before + 1
+    assert torch.equal(got, want)

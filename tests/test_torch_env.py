@@ -125,5 +125,5 @@ def test_protocol_errors():
     dev.reset()
     with pytest.raises(APIUsageError):
         dev.step(torch.full((4,), 8))
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        env_creator('bandit')
+    with pytest.raises(ValueError, match='Invalid environment name'):
+        env_creator('no_such_env')

@@ -240,6 +240,10 @@ def test_cuda_is_the_default_and_absence_raises(tmp_path):
     assert ppo.default_config().device == 'cuda'
     with pytest.raises(RuntimeError, match='cuda'):
         vector.make(env_creator('squared'), num_envs=4)
+    for name in ('spaces', 'multiagent'):
+        for backend in (vector.Device, vector.Serial):
+            with pytest.raises(RuntimeError, match='cuda'):
+                vector.make(env_creator(name), backend=backend, num_envs=4)
     vecenv = vector.make(env_creator('squared'), num_envs=4, device='cpu')
     policy = Policy(Default(obs_shape=(7, 7),
         action_space=vecenv.single_action_space, hidden_size=8))
@@ -255,7 +259,10 @@ def test_package_imports_no_jax():
     code = ('import sys, pufferlib_tpu_torch, '
         'pufferlib_tpu_torch.training.ppo, pufferlib_tpu_torch.convert, '
         'pufferlib_tpu_torch.ops.cuda, pufferlib_tpu_torch.ops.cuda.lstm_enc, '
-        'pufferlib_tpu_torch.ops.cuda.lstm_cat; '
+        'pufferlib_tpu_torch.ops.cuda.lstm_cat, pufferlib_tpu_torch.ocean, '
+        'pufferlib_tpu_torch.emulation, pufferlib_tpu_torch.vector, '
+        'pufferlib_tpu_torch.ops.cuda.burn, '
+        'pufferlib_tpu_torch.environments.test.environment; '
         'bad = [m for m in sys.modules if m in ("jax", "flax", "optax", '
         '"pufferlib_tpu") or m.startswith(("jax.", "flax.", "optax.", '
         '"pufferlib_tpu."))]; '

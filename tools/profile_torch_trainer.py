@@ -1,12 +1,14 @@
 """Where an epoch of the PyTorch port's trainer goes, on one NVIDIA GPU.
 
     python3 tools/profile_torch_trainer.py [--use-kernel] [--lstm [enc5|cat]]
+    python3 tools/profile_torch_trainer.py --ocean NAME [--use-kernel]
 
 Builds chip_smoke.py's main-path trainer (Ocean squared, Default MLP
 h128 bf16, 8192 lanes x 64 steps, minibatch 131072; with --lstm the
 LSTM line, RecurrentPolicy(LSTMWrapper(Default)) h128 bf16 through the
 enc5 kernels, or with --lstm cat through the cat kernels, time-slab
-minibatches of 131072), runs one warm-up
+minibatches of 131072; with --ocean the trainer of chip_smoke.py's Ocean
+phase on that env at its config.yaml section), runs one warm-up
 epoch, then runs the rollout and the update of an epoch twice each:
 once timed on the host clock, once under torch.profiler. For each phase
 it prints the wall time, the summed device time of its kernels, the
@@ -61,20 +63,30 @@ def main():
     parser.add_argument('--lstm', nargs='?', const='enc5',
         choices=('enc5', 'cat'),
         help='the recurrent trainer (LSTMWrapper) through these kernels')
+    parser.add_argument('--ocean', metavar='NAME',
+        help='an Ocean env at its config.yaml section (chip_smoke.py '
+        'OCEAN_CONFIGS) instead of the 8192-lane squared line')
     args = parser.parse_args()
     import torch
     if not torch.cuda.is_available():
         print('needs a CUDA device', file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
-    from chip_smoke import card_line, make_trainer
+    from chip_smoke import (
+        OCEAN_CONFIGS, OCEAN_RECURRENT, card_line, make_ocean_trainer,
+        make_trainer)
     from pufferlib_tpu_torch.ops.cuda import KERNELS
     from pufferlib_tpu_torch.ops.cuda._build import build_all
     build_all(KERNELS)
     card = card_line()
 
-    ppo, data = make_trainer(torch, use_kernel=args.use_kernel,
-        lstm_kernel=args.lstm)
+    if args.ocean:
+        ppo, data = make_ocean_trainer(torch, args.ocean,
+            *OCEAN_CONFIGS[args.ocean], use_kernel=args.use_kernel,
+            recurrent=args.ocean in OCEAN_RECURRENT)
+    else:
+        ppo, data = make_trainer(torch, use_kernel=args.use_kernel,
+            lstm_kernel=args.lstm)
     ppo.step(data)  # warm-up: buffers, cuBLAS handles, kernel libraries
 
     def rollout_fn():
@@ -84,7 +96,8 @@ def main():
     batch, rollout = profile_phase(torch, rollout_fn)
     _, update = profile_phase(torch,
         lambda: data.update_fn(batch, data.config.learning_rate))
-    result = dict(card=card, use_kernel=args.use_kernel, lstm=args.lstm,
+    result = dict(card=card, env=args.ocean or 'squared',
+        use_kernel=args.use_kernel, lstm=args.lstm,
         batch_size=data.config.batch_size, rollout=rollout, update=update)
     for phase in ('rollout', 'update'):
         r = result[phase]
