@@ -48,6 +48,24 @@ must equal the CPU exactly; and two learning proofs at the JAX package's
 own test settings must pass: memory (best score > 0.9 within 60 epochs,
 through enc5) and spaces (score > 0.8 after 40 epochs).
 
+The pixel-env phase (since the conv policies and the host path): cat's
+second design, csrc/lstm_cat_stream.cu (weights streamed from L2, for the
+shapes the resident kernels refuse), against its plain version in f32
+and bf16 at the Atari update's (T 16, B 256, D = H = 512) and three more
+shapes, timed beside its bound and cuDNN's nn.LSTM, two runs bit-equal;
+the route that sends Convolutional + LSTM(512) to it; the host trainer's
+flat GAE through the GAE kernel at N = 16384 and 4096, bit-equal; the
+native envpool driver built with g++. Then three trainers at full width:
+the Atari configuration (fake ALE frames of 4x84x84 uint8 behind the
+port's Atari wrappers in HostMultiprocessing with the native driver,
+ppo_host with cpu_offload, Convolutional + LSTM 512 in f32; 16 launches
+of each streamed cat function an epoch asserted), ProcgenResnet(16, 256)
+through ppo_host on a fake procgen env, and Convolutional on VisualTarget
+through the device trainer, whose tail score must reach 0.6 in 131072
+steps, then two epochs of it in bf16 inside LSTMWrapper(128, 128) (the
+resident cat); no phase imports gymnasium. The spawned envpool workers
+import this script as their main module: its top level imports no torch.
+
 Prints one line per phase, a `{"kernels": [...]}` JSON line, the card's
 name and power limit, and last `{"ok": true, "device": {...}}`. Any
 failing phase raises and the script exits non-zero without that line.
@@ -59,10 +77,31 @@ import os
 import sys
 import time
 
-from pufferlib_tpu_torch.ops.cuda.timing import (
-    card_line, l2_flush_buffer, profiled_ms, timed_ms)
-
 REPO = os.path.dirname(os.path.abspath(__file__))
+
+
+# The host envpool's workers are spawned, and each imports this script as
+# its main module: its top level stays free of torch, so the timing
+# helpers (ops/cuda/timing.py, whose package imports torch) are reached
+# through these.
+def card_line():
+    from pufferlib_tpu_torch.ops.cuda import timing
+    return timing.card_line()
+
+
+def l2_flush_buffer():
+    from pufferlib_tpu_torch.ops.cuda import timing
+    return timing.l2_flush_buffer()
+
+
+def profiled_ms(*args, **kwargs):
+    from pufferlib_tpu_torch.ops.cuda import timing
+    return timing.profiled_ms(*args, **kwargs)
+
+
+def timed_ms(*args, **kwargs):
+    from pufferlib_tpu_torch.ops.cuda import timing
+    return timing.timed_ms(*args, **kwargs)
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM rate, bf16
 # tensor-core rate, float32 rate outside the tensor cores
@@ -263,6 +302,9 @@ def lstm_kinds():
         'cat': (lstm_cat._launch_forward, lstm_cat._launch_backward,
             lstm_cat.lstm_cat_reference,
             lstm_cat.lstm_cat_backward_reference, CELL_GRADS),
+        'cat_stream': (lstm_cat._launch_stream_forward,
+            lstm_cat._launch_stream_backward, lstm_cat.lstm_cat_reference,
+            lstm_cat.lstm_cat_backward_reference, CELL_GRADS),
         'fused': (lstm_scan._launch_fused_forward,
             lstm_scan._launch_fused_backward,
             lstm_scan.lstm_scan_fused_reference,
@@ -408,7 +450,7 @@ def check_lstm(torch, flush, rng, kind, B, dtype_name, T=16, H=128,
     # function. No single PyTorch call fuses the encoder in, or takes the
     # projection x_proj as its input
     result['fwd_lib'] = result['bwd_lib'] = None
-    if kind in ('cat', 'fused'):
+    if kind in ('cat', 'cat_stream', 'fused'):
         result['fwd_lib'], result['bwd_lib'] = cudnn_lstm_ms(torch, flush,
             args, grads[0])
     log(f'lstm {what}: forward {result["fwd_ms"]:.4f}'
@@ -511,13 +553,14 @@ def time_tc_phases(torch, flush, rng, kind='fused', T=16, B=8192):
     return phases
 
 
-def check_bit_equal(torch, rng, kind, B, T=16, D=None, F=49):
-    """The bf16 kernels of `kind` twice on the same inputs: every output
-    and gradient must be equal bit for bit (sums in a fixed order, no
-    atomics)."""
+def check_bit_equal(torch, rng, kind, B, T=16, D=None, F=49, H=128,
+        dtype_name='bfloat16'):
+    """The kernels of `kind` in dtype_name twice on the same inputs: every
+    output and gradient must be equal bit for bit (sums in a fixed order,
+    no atomics)."""
     fwd, bwd = lstm_kinds()[kind][:2]
-    args, grads, cdt = lstm_case(torch, rng, kind, T, B, 'bfloat16', F=F,
-        D=D)
+    args, grads, cdt = lstm_case(torch, rng, kind, T, B, dtype_name, F=F,
+        H=H, D=D)
     runs = []
     with torch.no_grad():
         for _ in range(2):
@@ -527,11 +570,35 @@ def check_bit_equal(torch, rng, kind, B, T=16, D=None, F=49):
     torch.cuda.synchronize()
     names = LSTM_OUTS + lstm_kinds()[kind][4]
     unequal = [n for n, a, w in zip(names, *runs) if not torch.equal(a, w)]
+    what = f'{kind} {dtype_name} T={T} B={B} D={D or H} H={H}' + (
+        f' F={F}' if kind in ENC_KINDS else '')
     if unequal:
-        raise AssertionError(f'{kind} bf16 T={T} B={B} D={D} F={F}: two runs '
-            f'differ in {unequal}')
-    log(f'{kind} bf16 T={T} B={B} D={D or 128} F={F}: two runs equal bit for '
-        f'bit in {len(names)} outputs and gradients')
+        raise AssertionError(f'{what}: two runs differ in {unequal}')
+    log(f'{what}: two runs equal bit for bit in {len(names)} outputs and '
+        f'gradients')
+
+
+# (T, B, D, H) of cat's streamed design (csrc/lstm_cat_stream.cu): the
+# Atari update (16 segments of bptt 16 in a 4096-row minibatch, hidden
+# 512), hidden 256, an input width apart from the hidden size (f32's
+# resident kernels refuse it), and one that is no multiple of 8 (bf16's)
+CAT_STREAM_SHAPES = ((16, 256, 512, 512), (16, 256, 256, 256),
+    (8, 64, 200, 128), (4, 32, 9, 64))
+
+
+def check_cat_stream(torch, flush, rng):
+    """cat's streamed design against its plain version, forward and
+    backward, in f32 and bf16, at CAT_STREAM_SHAPES, each timed beside
+    its bound, the plain version and cuDNN's nn.LSTM, and run twice (equal
+    bit for bit). Returns {(shape, dtype): check_lstm's result}."""
+    runs = {}
+    for T, B, D, H in CAT_STREAM_SHAPES:
+        for dtype_name in ('float32', 'bfloat16'):
+            runs[(T, B, D, H), dtype_name] = check_lstm(torch, flush, rng,
+                'cat_stream', B, dtype_name, T=T, H=H, D=D, timed=True)
+            check_bit_equal(torch, rng, 'cat_stream', B, T=T, D=D, H=H,
+                dtype_name=dtype_name)
+    return runs
 
 
 def cudnn_lstm_ms(torch, flush, args, g_outs):
@@ -1107,6 +1174,307 @@ def check_envs_card_against_cpu(torch, np):
             f'({envs[0].num_agents} agent rows), exactly equal')
 
 
+def check_gae_flat(torch, gae, flush, rng, N):
+    """The host trainer's flat GAE through the GAE kernel (one column of
+    N - 1 steps) against its plain version, compute_gae_flat: equal bit
+    for bit; both timed beside the bound."""
+    import numpy as np
+    dones, values, rewards = (torch.from_numpy(a).cuda() for a in (
+        (rng.rand(N) < 0.05).astype(np.float32),
+        rng.randn(N).astype(np.float32),
+        rng.uniform(-1, 1, N).astype(np.float32)))
+    args = (dones, values, rewards, 0.99, 0.95)
+    before = gae.KERNEL.launches
+    got = gae.compute_gae_flat_cuda(*args)
+    want = gae.compute_gae_flat(*args)
+    torch.cuda.synchronize()
+    if gae.KERNEL.launches != before + 1:
+        raise AssertionError(f'flat GAE N={N}: no launch counted')
+    if not (torch.isfinite(got).all() and torch.equal(got, want)):
+        raise AssertionError(f'flat GAE N={N}: differs from the plain '
+            f'version (max abs err {(got - want).abs().max().item()})')
+    ms = timed_ms(lambda: gae.compute_gae_flat_cuda(*args), flush)
+    plain_ms = timed_ms(lambda: gae.compute_gae_flat(*args), flush, reps=3)
+    bound_ms, bound_by = bound(4 * N * 4, 9 * N, 'float32')
+    log(f'flat GAE N={N} (one column of {N - 1} steps): equal to the plain '
+        f'version bit for bit; kernel {ms:.4f} ms, plain {plain_ms:.4f} '
+        f'ms, bound {bound_ms:.4f} ms ({bound_by}) on {card_line()}')
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by=bound_by)
+
+
+def check_conv_routes(torch):
+    """LSTMWrapper's route for the Atari configuration on the card:
+    Convolutional (no encoder contract) + LSTM at input and hidden 512
+    takes cat, its streamed design, in f32 and bf16."""
+    from pufferlib_tpu_torch import spaces
+    from pufferlib_tpu_torch.models import Convolutional, LSTMWrapper
+    from pufferlib_tpu_torch.ops.cuda.lstm_common import cat_design
+    for cdt in (torch.float32, torch.bfloat16):
+        mod = LSTMWrapper(Convolutional(spaces.Discrete(4), 4, 64 * 7 * 7,
+            hidden_size=512, dtype=cdt), obs_shape=(4, 84, 84),
+            input_size=512, hidden_size=512, dtype=cdt)
+        route = mod.route(16, torch.device('cuda'))
+        design = cat_design(512, 512, cdt)
+        if (route, design) != ('cat', 'stream'):
+            raise AssertionError(f'Convolutional + LSTM(512) {cdt}: route '
+                f'{route}, design {design}')
+        log(f'Convolutional + LSTMWrapper(512, 512) {cdt} on the card: route '
+            f'{route} ({design} design)')
+
+
+def check_native_envpool():
+    """The native envpool driver, built with g++ from the port's copy of
+    csrc/envpool.cpp, loads."""
+    from pufferlib_tpu_torch import native
+    start = time.perf_counter()
+    lib = native.load(required=True)
+    log(f'native envpool driver: {native.library_path()} loaded ({lib}) in '
+        f'{time.perf_counter() - start:.2f} s')
+
+
+# config.yaml's atari section (config.yaml:159-170 over the defaults,
+# :13-40): Convolutional (framestack 4, flat 64*7*7, hidden 512) +
+# LSTMWrapper(512, 512) in f32, the modules' default dtype; batch 16384,
+# minibatch 4096, bptt 16, 64 envs, lr 2.5e-4. The envpool runs 8 workers
+# of 8 envs (the machine's 8 cores) and answers 32 envs a recv, two worker
+# groups in flight.
+ATARI = dict(num_envs=64, num_workers=8, env_batch=32, batch_size=16384,
+    minibatch_size=4096, bptt=16, hidden=512)
+# config.yaml's procgen section (:227-245): ProcgenResnet(16, 256), 64
+# envs, minibatch 2048, lr 5e-4, gamma 0.999, 3 update epochs, clip 0.2;
+# the batch cut from 16384 to 8192
+PROCGEN = dict(num_envs=64, batch_size=8192, minibatch_size=2048, bptt=16,
+    lr=5e-4, gamma=0.999, update_epochs=3, clip_coef=0.2)
+# tools/head_to_head.py:67-69, the JAX package's conv learning proof
+# (tests/test_visual_conv.py:119-137): visual, 64 envs, batch 4096,
+# minibatch 1024, bptt 16, lr 1e-3, 131072 steps, tail score >= 0.6
+VISUAL = dict(num_envs=64, batch_size=4096, minibatch_size=1024, bptt=16,
+    lr=1e-3, steps=131072, goal=0.6)
+
+
+def _host_epochs(torch, ppo_host, data, epochs):
+    """A warm-up epoch, then `epochs` epochs with every launch count set
+    to 0 just before and read just after: (elapsed s, launches by C
+    function)."""
+    from pufferlib_tpu_torch.ops.cuda import KERNELS
+    ppo_host.evaluate(data)
+    ppo_host.train(data)
+    torch.cuda.synchronize()
+    for k in KERNELS:
+        k.reset_counts()
+    start = time.perf_counter()
+    for _ in range(epochs):
+        ppo_host.evaluate(data)
+        ppo_host.train(data)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - start
+    return elapsed, {fn: n for k in KERNELS for fn, n in
+        k.fn_launches.items()}
+
+
+def _host_line(data, what, elapsed, epochs, launches, card):
+    timers, profile = data._timers, data.profile
+    losses = check_losses(data, what)
+    per_epoch = {k: v // epochs for k, v in launches.items() if v}
+    log(f'{what}: {epochs * data.config.batch_size / elapsed:.1f} steps/s '
+        f'over {epochs} epochs after a warm-up epoch '
+        f'({elapsed / epochs * 1e3:.2f} ms/epoch; {os.cpu_count()} host '
+        f'cores); last epoch: evaluate {timers["evaluate"].prev * 1e3:.2f} '
+        f'ms, train {timers["train"].prev * 1e3:.2f} ms; totals: env '
+        f'{profile.env.elapsed:.2f} s, forward wait '
+        f'{profile.eval_forward.elapsed:.2f} s, eval misc '
+        f'{profile.eval_misc.elapsed:.2f} s, learn '
+        f'{profile.learn.elapsed:.2f} s, train misc '
+        f'{profile.train_misc.elapsed:.2f} s; launches an epoch '
+        f'{json.dumps(per_epoch)}; losses {json.dumps(losses)}; stats '
+        f'{json.dumps(data.stats)} on {card}')
+
+
+def make_atari_trainer(torch):
+    """The Atari configuration (ATARI) through the host path: the fake ALE
+    (4x84x84 uint8 frames) behind the port's Atari wrappers, EpisodeStats
+    and GymnasiumPufferEnv in HostMultiprocessing with the native driver
+    and two worker groups in flight, ppo_host with cpu_offload; the LSTM
+    routed to cat. Returns the trainer's data (ppo_host.close it)."""
+    from pufferlib_tpu_torch import vector_host
+    from pufferlib_tpu_torch.environments.test.host_fixtures import (
+        make_fake_atari)
+    from pufferlib_tpu_torch.models import (
+        Convolutional, LSTMWrapper, RecurrentPolicy)
+    from pufferlib_tpu_torch.training import ppo_host
+    a = ATARI
+    vec = vector_host.make(make_fake_atari,
+        backend=vector_host.HostMultiprocessing, num_envs=a['num_envs'],
+        num_workers=a['num_workers'], batch_size=a['env_batch'], native=True)
+    if vec._lib is None or not vec.supports_pipeline:
+        raise AssertionError('atari: the envpool has no native driver or '
+            'no pipeline')
+    shape = vec.single_observation_space.shape
+    H = a['hidden']
+    lstm = LSTMWrapper(Convolutional(vec.single_action_space, 4, 64 * 7 * 7,
+        hidden_size=H, generator=torch.Generator().manual_seed(0)),
+        obs_shape=shape, input_size=H, hidden_size=H,
+        generator=torch.Generator().manual_seed(1))
+    route = lstm.route(a['bptt'], torch.device('cuda'))
+    if route != 'cat':
+        raise AssertionError(f'atari: LSTM route {route}, expected cat')
+    config = ppo_host.default_config(env='atari',
+        batch_size=a['batch_size'], minibatch_size=a['minibatch_size'],
+        bptt_horizon=a['bptt'], cpu_offload=True,
+        total_timesteps=a['batch_size'] * 1000, verbose=False,
+        data_dir=os.path.join(REPO, 'experiments', 'chip_smoke'),
+        checkpoint_interval=10 ** 6, seed=0)
+    return ppo_host.create(config, vec, RecurrentPolicy(lstm))
+
+
+def run_atari_phase(torch, card, epochs=2):
+    """make_atari_trainer's trainer: a warm-up epoch, then `epochs`. The
+    update runs cat's streamed design at (T 16, B 256, D = H = 512) in
+    f32: 16 launches of each of its C functions an epoch (4 update
+    epochs x 4 minibatches), and the flat GAE once. Returns the launches
+    by C function."""
+    from pufferlib_tpu_torch.training import ppo_host
+    a = ATARI
+    data = make_atari_trainer(torch)
+    config, H = data.config, a['hidden']
+    try:
+        elapsed, launches = _host_epochs(torch, ppo_host, data, epochs)
+    finally:
+        ppo_host.close(data)
+    minibatches = config.update_epochs * (a['batch_size']
+        // a['minibatch_size'])
+    want = dict.fromkeys(launches, 0)
+    want['gae_forward'] = epochs
+    want['lstm_cat_stream_forward'] = want['lstm_cat_stream_backward'] = \
+        minibatches * epochs
+    if launches != want:
+        raise AssertionError(f'atari: launches {launches}, expected {want}')
+    if 'episode_return' not in data.stats:
+        raise AssertionError(f'atari: no episode stats ({data.stats})')
+    _host_line(data, f'atari host trainer ({a["num_envs"]} fake ALE envs in '
+        f'{a["num_workers"]} workers, {a["env_batch"]} a recv, native driver,'
+        f' pipelined, cpu_offload; Convolutional h{H} + LSTM {H} f32, batch '
+        f'{a["batch_size"]}, minibatch {a["minibatch_size"]}, bptt '
+        f'{a["bptt"]})', elapsed, epochs, launches, card)
+    return launches
+
+
+def run_procgen_phase(torch, card, epochs=2):
+    """ProcgenResnet(16, 256) through ppo_host (PROCGEN) on the fake
+    procgen env (64x64x3 uint8) in HostSerial: no LSTM; the flat GAE once
+    an epoch is its only kernel."""
+    from pufferlib_tpu_torch import vector_host
+    from pufferlib_tpu_torch.environments.test.host_fixtures import (
+        make_fake_procgen)
+    from pufferlib_tpu_torch.models import Policy, ProcgenResnet
+    from pufferlib_tpu_torch.training import ppo_host
+    p = PROCGEN
+    vec = vector_host.make(make_fake_procgen,
+        backend=vector_host.HostSerial, num_envs=p['num_envs'])
+    policy = Policy(ProcgenResnet(vec.single_action_space, cnn_width=16,
+        mlp_width=256, obs_shape=vec.single_observation_space.shape,
+        generator=torch.Generator().manual_seed(0)))
+    config = ppo_host.default_config(env='procgen',
+        batch_size=p['batch_size'], minibatch_size=p['minibatch_size'],
+        bptt_horizon=p['bptt'], learning_rate=p['lr'], gamma=p['gamma'],
+        update_epochs=p['update_epochs'], clip_coef=p['clip_coef'],
+        total_timesteps=p['batch_size'] * 1000, verbose=False,
+        data_dir=os.path.join(REPO, 'experiments', 'chip_smoke'),
+        checkpoint_interval=10 ** 6, seed=0)
+    data = ppo_host.create(config, vec, policy)
+    try:
+        elapsed, launches = _host_epochs(torch, ppo_host, data, epochs)
+    finally:
+        ppo_host.close(data)
+    want = dict.fromkeys(launches, 0)
+    want['gae_forward'] = epochs
+    if launches != want:
+        raise AssertionError(f'procgen: launches {launches}, expected {want}')
+    _host_line(data, f'procgen host trainer ({p["num_envs"]} fake procgen '
+        f'envs, HostSerial; ProcgenResnet(16, 256) f32, batch '
+        f'{p["batch_size"]}, minibatch {p["minibatch_size"]})', elapsed,
+        epochs, launches, card)
+
+
+def run_visual_phase(torch, card):
+    """Convolutional(framestack 2, flat 64, hidden 128) on VisualTarget
+    through the device trainer at VISUAL's settings, the JAX package's
+    conv learning proof: the tail score (the mean of the last fifth of the
+    epochs' scores, tools/head_to_head.py tail_mean) must reach 0.6. Then
+    two epochs of the trained conv, in bf16, wrapped in LSTMWrapper(128,
+    128): the resident cat kernels, 16 launches of each an epoch."""
+    import pufferlib_tpu_torch.vector as vector
+    from pufferlib_tpu_torch.models import (
+        Convolutional, LSTMWrapper, Policy, RecurrentPolicy)
+    from pufferlib_tpu_torch.ocean import env_creator
+    from pufferlib_tpu_torch.ops.cuda import KERNELS
+    from pufferlib_tpu_torch.training import ppo
+    v = VISUAL
+
+    def trainer(policy, total, seed):
+        vecenv = vector.make(env_creator('visual'), num_envs=v['num_envs'],
+            device='cuda')
+        config = ppo.default_config(env='visual', seed=seed,
+            total_timesteps=total, learning_rate=v['lr'],
+            batch_size=v['batch_size'], minibatch_size=v['minibatch_size'],
+            bptt_horizon=v['bptt'], verbose=False,
+            data_dir=os.path.join(REPO, 'experiments', 'chip_smoke'),
+            checkpoint_interval=10 ** 6)
+        return ppo.create(config, vecenv, policy)
+
+    space = env_creator('visual')().action_space
+    conv = Convolutional(space, 2, 64, hidden_size=128,
+        generator=torch.Generator().manual_seed(1))
+    data = trainer(Policy(conv), v['steps'], 1)
+    scores = []
+    start = time.perf_counter()
+    while data.global_step < v['steps']:
+        ppo.evaluate(data)
+        ppo.train(data)
+        if 'score' in data.stats:
+            scores.append(data.stats['score'])
+    elapsed = time.perf_counter() - start
+    tail = scores[-max(1, len(scores) // 5):]
+    tail_mean = sum(tail) / len(tail) if tail else float('nan')
+    if not tail_mean >= v['goal']:
+        raise AssertionError(f'visual proof: tail score {tail_mean} '
+            f'(scores {scores})')
+    log(f'visual learning proof (Convolutional h128 f32, device trainer, '
+        f'{v["num_envs"]} lanes, {v["steps"]} steps): tail score '
+        f'{tail_mean:.4f} (goal {v["goal"]}) over {len(scores)} epochs in '
+        f'{elapsed:.1f} s; losses {json.dumps(dict(data.losses))} on {card}')
+
+    bf16 = Convolutional(space, 2, 64, hidden_size=128, dtype=torch.bfloat16)
+    bf16.load_state_dict(conv.state_dict())
+    lstm = LSTMWrapper(bf16, obs_shape=(2, 40, 40), input_size=128,
+        hidden_size=128, dtype=torch.bfloat16,
+        generator=torch.Generator().manual_seed(2))
+    data = trainer(RecurrentPolicy(lstm), v['batch_size'] * 1000, 2)
+    ppo.step(data)  # warm-up epoch
+    torch.cuda.synchronize()
+    for k in KERNELS:
+        k.reset_counts()
+    start = time.perf_counter()
+    for _ in range(2):
+        ppo.step(data)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - start
+    launches = {fn: n for k in KERNELS for fn, n in k.fn_launches.items()}
+    want = dict.fromkeys(launches, 0)
+    want['gae_forward'] = 2
+    want['lstm_cat_forward'] = want['lstm_cat_backward'] = 32
+    if launches != want:
+        raise AssertionError(f'visual + LSTM: launches {launches}, expected '
+            f'{want}')
+    losses = check_losses(data, 'visual + LSTM')
+    log(f'visual trainer, Convolutional + LSTMWrapper(128, 128) bf16 (resident'
+        f' cat): {2 * v["batch_size"] / elapsed:.1f} steps/s over 2 epochs '
+        f'after a warm-up epoch; launches '
+        f'{json.dumps({k: n for k, n in launches.items() if n})}; losses '
+        f'{json.dumps(losses)} on {card}')
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1203,6 +1571,15 @@ def main():
                 flush, rng, kind, B, 'float32', xp_dtype_name='bfloat16')
     for kind in ('fused', 'cat', 'enc5'):
         time_tc_phases(torch, flush, rng, kind)
+    # cat's streamed design at the Atari update's shape and the others
+    # the resident kernels refuse, the route that sends the Atari
+    # configuration to it, the host trainer's flat GAE at the Atari and
+    # a smaller batch, and the native envpool driver
+    stream_runs = check_cat_stream(torch, flush, rng)
+    check_conv_routes(torch)
+    flat_runs = {N: check_gae_flat(torch, gae, flush, rng, N)
+        for N in (16384, 4096)}
+    check_native_envpool()
     del flush
 
     # phase 5: the main path, GAE kernel once per epoch
@@ -1252,6 +1629,21 @@ def main():
     # phase 13: the JAX package's learning tests of memory and spaces
     ocean_learning_proofs(torch, card)
 
+    # phase 14: the Atari configuration through the host envpool and the
+    # host trainer (cat's streamed design at hidden 512, the flat GAE)
+    atari_launches = run_atari_phase(torch, card)
+
+    # phase 15: ProcgenResnet through the host trainer
+    run_procgen_phase(torch, card)
+    # the host path runs without gymnasium, which the card's machine may
+    # lack: nothing so far imported it
+    if 'gymnasium' in sys.modules:
+        raise AssertionError('the host phases imported gymnasium')
+
+    # phase 16: Convolutional on the device trainer (the conv learning
+    # proof), then wrapped in the LSTM (the resident cat kernels)
+    run_visual_phase(torch, card)
+
     mlp_big, mlp_small = (mlp_runs[B, 'bfloat16'] for B in (131072, 8192))
     kernels = [
         dict(name='gae', route='cuda',
@@ -1262,7 +1654,14 @@ def main():
             ms=gae_runs[0]['ms'], device_ms=gae_runs[0]['device_ms'],
             plain_ms=gae_runs[0]['plain_ms'],
             bound_ms=gae_runs[0]['bound_ms'], bound_by=gae_runs[0]['bound_by'],
-            library_ms=None, shape=gae_runs[0]['shape']),
+            library_ms=None, shape=gae_runs[0]['shape'],
+            # the host trainer's flat GAE: one column of N - 1 steps, at
+            # the Atari batch, once an epoch of phase 14
+            flat_launches=atari_launches['gae_forward'],
+            flat_ms=flat_runs[16384]['ms'],
+            flat_plain_ms=flat_runs[16384]['plain_ms'],
+            flat_bound_ms=flat_runs[16384]['bound_ms'],
+            flat_shape='N=16384 float32'),
         dict(name='mlp_head', route='cuda',
             source='pufferlib_tpu_torch/csrc/mlp_head.cu',
             replaces='pufferlib_tpu/ops/pallas/mlp.py:80',
@@ -1336,6 +1735,21 @@ def main():
             ms=main[f'{part}_ms'], plain_ms=main[f'{part}_plain_ms'],
             bound_ms=main[f'{part}_bound'], bound_by=main[f'{part}_by'],
             library_ms=main[f'{part}_lib'], shape=main['shape']))
+    # cat's streamed design (csrc/lstm_cat_stream.cu): the Atari update's
+    # shape in f32, as phase 14 runs it; one C call is T launches of its
+    # step kernel (the backward 2T + 3)
+    atari = stream_runs[(16, 256, 512, 512), 'float32']
+    for part in ('fwd', 'bwd'):
+        name = 'forward' if part == 'fwd' else 'backward'
+        kernels.append(dict(name=f'lstm_cat_stream_{name}', route='cuda',
+            source='pufferlib_tpu_torch/csrc/lstm_cat_stream.cu',
+            replaces='pufferlib_tpu/ops/pallas/lstm_cat.py:'
+                + ('131' if part == 'fwd' else '185'),
+            launches=atari_launches[f'lstm_cat_stream_{name}'],
+            max_abs_err=max(r[f'{part}_err'] for r in stream_runs.values()),
+            ms=atari[f'{part}_ms'], plain_ms=atari[f'{part}_plain_ms'],
+            bound_ms=atari[f'{part}_bound'], bound_by=atari[f'{part}_by'],
+            library_ms=atari[f'{part}_lib'], shape=atari['shape']))
     print(json.dumps({'kernels': kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu',

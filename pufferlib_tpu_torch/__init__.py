@@ -9,6 +9,9 @@ layout, so each counterpart is found by name; inside, PyTorch idiom:
 - every Pallas TPU kernel on the path is a CUDA C++ kernel for Hopper
   (csrc/, ops/cuda/), each beside a plain PyTorch version of the same
   function
+- external envs step on the host (host_env, vector_host: a shared-memory
+  envpool of spawned workers), feeding the host trainer
+  (training.ppo_host) on the card; those host modules import no torch
 
 Entry points default to device='cuda' and raise when no card is present;
 tests pass device='cpu', where the kernel wrappers run their plain

@@ -14,9 +14,11 @@ nativizing a batch are slices, byte copies and dtype views of tensors.
 - nativize_dtype: the (dtype, shape, offset, delta) spec of every leaf,
   its offset from numpy's own field layout
 - nativize_tensor / emulate_tensor: flat (B, numel) tensor <-> leaves
+
+torch is imported only by the tensor functions: the host envs and their
+spawned workers use the numpy half alone.
 """
 import numpy as np
-import torch
 
 from pufferlib_tpu_torch import spaces
 from pufferlib_tpu_torch.environment import tree_leaves
@@ -233,6 +235,7 @@ def _nativize_dtype(sample_dtype, structured_dtype, byte_offset=0):
 
 def torch_dtype(np_dtype):
     """The torch dtype of a numpy dtype."""
+    import torch
     return torch.from_numpy(np.empty(0, np.dtype(np_dtype))).dtype
 
 
@@ -250,6 +253,7 @@ def nativize_tensor(observation, native_dtype):
     JAX package's bitcast. A 64-bit integer leaf comes back as its low
     32-bit word (int32 / uint32), as the JAX package gives it without
     x64: the values must fit 32 bits."""
+    import torch
     if not isinstance(native_dtype, tuple):
         return {name: nativize_tensor(observation, sub)
             for name, sub in native_dtype.items()}
@@ -288,6 +292,7 @@ def write_leaves(leaves, specs, sample_dtype, numel):
     spec's dtype and written at its spec's offset: as bytes where the
     sample dtype is single-byte, else as elements of the sample dtype.
     Bytes the leaves do not cover (alignment padding) are zero."""
+    import torch
     sample_dtype = np.dtype(sample_dtype)
     batch = leaves[0].shape[0]
     out = torch.zeros((batch, numel), dtype=torch_dtype(sample_dtype),

@@ -23,16 +23,15 @@ done=False, truncated=False, and a reset lane's info is zeroed.
 """
 from typing import Any, NamedTuple
 
-import torch
-
 
 class Step(NamedTuple):
-    """Result of one batched env step; every field is lane-leading."""
+    """Result of one batched env step; every field is lane-leading:
+    reward, done and truncated are tensors."""
     state: Any
     obs: Any
-    reward: torch.Tensor
-    done: torch.Tensor
-    truncated: torch.Tensor
+    reward: Any
+    done: Any
+    truncated: Any
     info: dict
 
 
@@ -47,6 +46,7 @@ class PufferEnv:
     def sample_reset(self, num_lanes, device, generator=None):
         """Per-lane random draws that `reset` consumes; (n, 0) for an env
         whose reset draws nothing."""
+        import torch
         return torch.empty((num_lanes, 0), device=device)
 
     def sample_step(self, num_lanes, device, generator=None):
@@ -67,6 +67,7 @@ class PufferEnv:
 
 def _lane_where(pred, a, b):
     """torch.where with a (N,) predicate broadcast over trailing dims."""
+    import torch
     return torch.where(pred.reshape(pred.shape + (1,) * (a.dim() - 1)), a, b)
 
 
@@ -118,6 +119,7 @@ def autoreset_step(env, state, done_prev, action, reset_draws,
     Both branches are computed for every lane and selected, as the JAX
     version does: no host sync, no data-dependent shapes.
     Returns (Step, done_next) where done_next feeds the next call."""
+    import torch
     reset_state, reset_obs = env.reset(reset_draws)
     stepped = env.step(state, action, step_draws)
     reset_lane = lane_done(done_prev)
@@ -155,6 +157,7 @@ class EpisodeStats(PufferEnv):
         return self.env.sample_step(num_lanes, device, generator)
 
     def reset(self, draws):
+        import torch
         state, obs = self.env.reset(draws)
         n = draws.shape[0]
         wrapped = dict(

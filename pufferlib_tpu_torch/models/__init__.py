@@ -1,12 +1,19 @@
 """Model zoo in torch.nn, counterpart of pufferlib_tpu/models/__init__.py.
 
-This port has `Default` (models/__init__.py:118-233) and `LSTMWrapper`
-(:236-445); the conv family follows (ROADMAP, queue 1). `Default`
-takes structured observations through `emulated`, as the JAX module
-does. Params are
-float32; `dtype` is the compute dtype, as flax
-`Dense(dtype=cdt, param_dtype=f32)`: each layer casts its input, weight
-and bias to `dtype`.
+This port has `Default` (models/__init__.py:118-233), `LSTMWrapper`
+(:236-445) and the conv family, `Convolutional` and `ProcgenResnet`
+(:448-563). `Default` takes structured observations through `emulated`,
+as the JAX module does. Params are float32; `dtype` is the compute
+dtype, as flax `Dense(dtype=cdt, param_dtype=f32)`: each layer casts its
+input, weight and bias to `dtype`.
+
+The convolutions run in torch's NCHW layout (F.conv2d) and flatten their
+features in the JAX modules' NHWC order, so that a weight carried by
+convert.py reads the same features. They are not TPU kernels (the JAX
+package leaves them to XLA): on the card they go to cuDNN, which runs a
+float32 convolution in TF32 unless torch.backends.cudnn.allow_tf32 is
+False. This package sets no global flag; a caller who wants full float32
+convolutions turns TF32 off (chip_smoke.py does).
 """
 import math
 
@@ -22,12 +29,14 @@ from pufferlib_tpu_torch.models.policy import (
     Policy, RecurrentPolicy, count_params)
 from pufferlib_tpu_torch.ops.cuda.lstm_cat import lstm_scan_cat
 from pufferlib_tpu_torch.ops.cuda.lstm_common import (
-    cell_shape_error, encoder_shape_error, gate_activations, round_to)
+    cat_shape_error, cell_shape_error, encoder_shape_error, gate_activations,
+    round_to)
 from pufferlib_tpu_torch.ops.cuda.lstm_enc import lstm_scan_enc5
 from pufferlib_tpu_torch.ops.cuda.mlp import mlp_head
 
-__all__ = ['Default', 'LSTMWrapper', 'lstm_route', 'sample_logits',
-    'Policy', 'RecurrentPolicy', 'count_params']
+__all__ = ['Default', 'LSTMWrapper', 'Convolutional', 'ProcgenResnet',
+    'lstm_route', 'sample_logits', 'Policy', 'RecurrentPolicy',
+    'count_params']
 
 LSTM_KERNELS = ('enc5', 'cat', 'off')
 
@@ -45,7 +54,13 @@ def lstm_route(kernel, use_kernel, device, T, D, H, F, num_layers, cdt):
     lstm_common.encoder_shape_error's: in bf16 the tensor-core kernels'
     (D a multiple of 8 up to tc_max_input(H), F up to
     tc_max_features()), in f32 the FMA kernels' (D == H, F <= 128), as
-    the JAX package runs enc5 at any D and F.
+    the JAX package runs enc5 at any D and F. cat's reach is its two
+    designs' (lstm_common.cat_shape_error): the resident-weight kernels,
+    else the streamed ones (any D, H a multiple of 32). Where enc5 can
+    fuse but refuses the shape, the JAX package still runs enc5, so the
+    default takes cat there only where the resident kernels serve (in
+    bf16, more than tc_max_features() features), never the streamed
+    design: enc5 at H > 128 raises.
     - T == 1, use_kernel False, or kernel 'off': 'off' (at T == 1 the
       plain combined-operand step). These are the only ways to the plain
       scan on the card: the caller asks for it.
@@ -63,7 +78,7 @@ def lstm_route(kernel, use_kernel, device, T, D, H, F, num_layers, cdt):
     if use_kernel:
         if on_card:
             err = encoder_shape_error(F, D, H, cdt) if fuse \
-                else cell_shape_error(D, H, cdt)
+                else cat_shape_error(D, H, cdt)
             if err is not None:
                 raise ValueError(err)
         return 'enc5' if fuse else 'cat'
@@ -71,7 +86,7 @@ def lstm_route(kernel, use_kernel, device, T, D, H, F, num_layers, cdt):
         return 'off'
     if fuse and encoder_shape_error(F, D, H, cdt) is None:
         return 'enc5'
-    err = cell_shape_error(D, H, cdt)
+    err = cell_shape_error(D, H, cdt) if fuse else cat_shape_error(D, H, cdt)
     if err is not None:
         raise ValueError(f'{err}; no CUDA LSTM kernel serves this shape: '
             f'pass use_kernel=False (or kernel=\'off\') to run the plain '
@@ -410,3 +425,175 @@ class LSTMWrapper(nn.Module):
             h = o * torch.tanh(c)
             outs.append(h)
         return torch.stack(outs), h, c
+
+
+def _orthogonal_dense(in_features, out_features, std, generator):
+    """nn.Linear with an orthogonal weight of gain std and a zero bias
+    (the JAX layer_init_dense)."""
+    layer = nn.Linear(in_features, out_features)
+    with torch.no_grad():
+        nn.init.orthogonal_(layer.weight, std, generator=generator)
+        layer.bias.zero_()
+    return layer
+
+
+def _nhwc_flat(x):
+    """(B, C, H, W) -> (B, H * W * C): the JAX modules' NHWC flatten."""
+    return x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
+
+
+class _Heads(nn.Module):
+    """The conv policies' decoders, one per action component, and their
+    value head (JAX `actor_{i}`, std 0.01, and the value, std 1)."""
+
+    def __init__(self, action_space, hidden, generator):
+        super().__init__()
+        self.is_multidiscrete, self.nvec = _action_info(action_space)
+        self.actors = nn.ModuleList(_orthogonal_dense(hidden, n, 0.01,
+            generator) for n in self.nvec)
+        self.value = _orthogonal_dense(hidden, 1, 1.0, generator)
+
+    def forward(self, hidden, dense):
+        value = dense(self.value, hidden).float()
+        logits = [dense(actor, hidden).float() for actor in self.actors]
+        return (logits if self.is_multidiscrete else logits[0]), value
+
+
+class Convolutional(nn.Module):
+    """NatureCNN for Atari (pufferlib_tpu/models/__init__.py:448-498):
+    uint8 frames (B, framestack, H, W), or (B, H, W, framestack) with
+    channels_last, divided by 255; conv 8x8/4, 4x4/2, 3x3/1 (32, 64, 64
+    channels, VALID, relu), the features flattened in NHWC order, fc to
+    hidden_size (relu), decoders and a value head. downsample keeps every
+    downsample-th row and column first. flat_size is fc's input width (the
+    JAX module infers it). dtype is the compute dtype of every layer. It
+    has no encoder_features / encoder_params contract, so LSTMWrapper runs
+    it through cat."""
+
+    def __init__(self, action_space, framestack, flat_size, obs_shape=None,
+            hidden_size=512, channels_last=False, downsample=1,
+            dtype=torch.float32, generator=None):
+        super().__init__()
+        self.obs_shape = None if obs_shape is None else tuple(obs_shape)
+        self.hidden_size = hidden_size
+        self.channels_last = channels_last
+        self.downsample = downsample
+        self.dtype = dtype
+        self.convs = nn.ModuleList()
+        for cin, cout, k, stride in ((framestack, 32, 8, 4), (32, 64, 4, 2),
+                (64, 64, 3, 1)):
+            conv = nn.Conv2d(cin, cout, k, stride=stride)
+            with torch.no_grad():
+                nn.init.orthogonal_(conv.weight, math.sqrt(2),
+                    generator=generator)
+                conv.bias.zero_()
+            self.convs.append(conv)
+        self.fc = _orthogonal_dense(flat_size, hidden_size, math.sqrt(2),
+            generator)
+        self.heads = _Heads(action_space, hidden_size, generator)
+
+    def _dense(self, layer, x):
+        return F.linear(x.to(self.dtype), layer.weight.to(self.dtype),
+            layer.bias.to(self.dtype))
+
+    def encode_observations(self, observations):
+        cdt = self.dtype
+        x = observations.to(cdt) / torch.tensor(255.0, dtype=cdt)
+        if self.channels_last:
+            x = x.permute(0, 3, 1, 2)
+        if self.downsample > 1:
+            x = x[:, :, ::self.downsample, ::self.downsample]
+        for conv in self.convs:
+            x = torch.relu(F.conv2d(x, conv.weight.to(cdt),
+                conv.bias.to(cdt), stride=conv.stride))
+        return torch.relu(self._dense(self.fc, _nhwc_flat(x))), None
+
+    def decode_actions(self, hidden, lookup=None):
+        return self.heads(hidden, self._dense)
+
+    def forward(self, observations):
+        hidden, lookup = self.encode_observations(observations)
+        return self.decode_actions(hidden, lookup)
+
+
+def _max_pool_same(x):
+    """flax nn.max_pool(x, (3, 3), strides=(2, 2), padding='SAME') on
+    NCHW: output ceil(n / 2) per side, padded with -inf, the odd pad at
+    the end (64 pads (0, 1), 63 pads (1, 1))."""
+    pads = []
+    for n in (x.shape[3], x.shape[2]):
+        total = max((-(-n // 2) - 1) * 2 + 3 - n, 0)
+        pads += [total // 2, total - total // 2]
+    return F.max_pool2d(F.pad(x, pads, value=-math.inf), 3, 2)
+
+
+class _ResidualBlock(nn.Module):
+    """relu, conv 3x3 SAME, relu, conv 3x3 SAME, plus the input."""
+
+    def __init__(self, channels):
+        super().__init__()
+        self.conv0 = nn.Conv2d(channels, channels, 3, padding=1)
+        self.conv1 = nn.Conv2d(channels, channels, 3, padding=1)
+
+    def forward(self, x):
+        y = self.conv0(torch.relu(x))
+        return x + self.conv1(torch.relu(y))
+
+
+class _ConvSequence(nn.Module):
+    """conv 3x3 SAME, max pool 3x3/2 SAME, two residual blocks."""
+
+    def __init__(self, in_channels, out_channels):
+        super().__init__()
+        self.conv = nn.Conv2d(in_channels, out_channels, 3, padding=1)
+        self.res = nn.ModuleList(_ResidualBlock(out_channels)
+            for _ in range(2))
+
+    def forward(self, x):
+        x = _max_pool_same(self.conv(x))
+        for block in self.res:
+            x = block(x)
+        return x
+
+
+class ProcgenResnet(nn.Module):
+    """IMPALA resnet (pufferlib_tpu/models/__init__.py:527-563): uint8
+    frames (B, H, W, C), NHWC with no transpose, divided by 255; three
+    conv sequences of cnn_width, 2 cnn_width, 2 cnn_width channels, the
+    features flattened in NHWC order, relu, fc to mlp_width (relu),
+    decoders and a value head. float32. obs_shape (H, W, C) sizes the
+    first convolution and fc, which the JAX module infers."""
+
+    def __init__(self, action_space, cnn_width=16, mlp_width=256,
+            obs_shape=None, generator=None):
+        super().__init__()
+        if obs_shape is None:
+            raise ValueError('ProcgenResnet needs obs_shape (H, W, C)')
+        self.obs_shape = tuple(obs_shape)
+        self.hidden_size = mlp_width
+        height, width, channels = self.obs_shape
+        widths = [cnn_width, 2 * cnn_width, 2 * cnn_width]
+        self.sequences = nn.ModuleList(_ConvSequence(cin, cout)
+            for cin, cout in zip([channels] + widths[:-1], widths))
+        for _ in widths:
+            height, width = -(-height // 2), -(-width // 2)
+        self.fc = nn.Linear(widths[-1] * height * width, mlp_width)
+        self.heads = _Heads(action_space, mlp_width, generator)
+
+    @staticmethod
+    def _dense(layer, x):
+        return layer(x.float())
+
+    def encode_observations(self, observations):
+        x = (observations.float() / 255.0).permute(0, 3, 1, 2)
+        for seq in self.sequences:
+            x = seq(x)
+        x = torch.relu(_nhwc_flat(x))
+        return torch.relu(self.fc(x)), None
+
+    def decode_actions(self, hidden, lookup=None):
+        return self.heads(hidden, self._dense)
+
+    def forward(self, observations):
+        hidden, lookup = self.encode_observations(observations)
+        return self.decode_actions(hidden, lookup)

@@ -241,6 +241,40 @@ def cell_shape_error(D, H, cdt):
         else fma_shape_error(D, H)
 
 
+# hidden units a block of the streamed cat design owns (csrc/
+# lstm_cat_stream.cu UB): its hidden size is a multiple of it
+STREAM_UNITS = 32
+
+
+def stream_shape_error(D, H):
+    """Why the streamed cat design (csrc/lstm_cat_stream.cu, both dtypes:
+    weights streamed from L2, not held in shared memory) refuses input
+    width D and hidden size H, or None: any D >= 1, H a multiple of
+    STREAM_UNITS."""
+    if H < STREAM_UNITS or H % STREAM_UNITS or D < 1:
+        return (f'the streamed CUDA cat kernels take hidden sizes that are '
+            f'multiples of {STREAM_UNITS} and any input width; got input '
+            f'{D}, hidden {H}')
+    return None
+
+
+def cat_shape_error(D, H, cdt):
+    """Why neither design of the cat pair serves (D, H) in cdt, or None:
+    the resident-weight kernels (cell_shape_error) where they serve, else
+    the streamed ones (stream_shape_error)."""
+    resident = cell_shape_error(D, H, cdt)
+    if resident is None:
+        return None
+    stream = stream_shape_error(D, H)
+    return None if stream is None else f'{resident}; {stream}'
+
+
+def cat_design(D, H, cdt):
+    """'resident' where lstm_cat.cu's kernels serve (D, H) in cdt, else
+    'stream' (csrc/lstm_cat_stream.cu); call after cat_shape_error."""
+    return 'resident' if cell_shape_error(D, H, cdt) is None else 'stream'
+
+
 def fma_encoder_shape_error(F, D, H):
     """Why the encoder-fused FMA kernels (enc5 in f32; lstm_scan_enc and
     the archived variants in both dtypes) refuse F features, encoder width

@@ -2,9 +2,9 @@
 
 Counterpart of pufferlib_tpu/spaces.py: small metadata objects with numpy
 sampling on the host. Box, Discrete, MultiDiscrete, MultiBinary and the
-nested Dict (keys sorted) and Tuple. The gymnasium conversions
-(from_gymnasium / to_gymnasium) come with the host path, which needs them
-(ROADMAP, queue 1).
+nested Dict (keys sorted) and Tuple, and the host path's gymnasium
+conversions (from_gymnasium / to_gymnasium; gymnasium is imported only
+inside to_gymnasium).
 """
 import numpy as np
 
@@ -171,3 +171,44 @@ class Tuple(Space):
 
     def __repr__(self):
         return f'Tuple({self.spaces})'
+
+
+def from_gymnasium(space):
+    """Convert a gymnasium (or pettingzoo) space into a puffer space; a
+    puffer space passes through."""
+    name = type(space).__name__
+    if name == 'Box':
+        return Box(space.low, space.high, space.shape, space.dtype)
+    if name == 'Discrete':
+        return Discrete(space.n)
+    if name == 'MultiDiscrete':
+        return MultiDiscrete(space.nvec)
+    if name == 'MultiBinary':
+        return MultiBinary(space.n)
+    if name == 'Dict':
+        return Dict({k: from_gymnasium(v) for k, v in space.spaces.items()})
+    if name == 'Tuple':
+        return Tuple([from_gymnasium(s) for s in space.spaces])
+    if isinstance(space, Space):
+        return space
+    raise TypeError(f'Unsupported space type: {type(space)}')
+
+
+def to_gymnasium(space):
+    """Convert a puffer space into a gymnasium space (host bridge only)."""
+    import gymnasium
+    if isinstance(space, Box):
+        return gymnasium.spaces.Box(
+            low=space.low, high=space.high, shape=space.shape, dtype=space.dtype)
+    if isinstance(space, Discrete):
+        return gymnasium.spaces.Discrete(space.n)
+    if isinstance(space, MultiDiscrete):
+        return gymnasium.spaces.MultiDiscrete(space.nvec)
+    if isinstance(space, MultiBinary):
+        return gymnasium.spaces.MultiBinary(space.n)
+    if isinstance(space, Dict):
+        return gymnasium.spaces.Dict(
+            {k: to_gymnasium(v) for k, v in space.items()})
+    if isinstance(space, Tuple):
+        return gymnasium.spaces.Tuple([to_gymnasium(s) for s in space])
+    raise TypeError(f'Unsupported space type: {type(space)}')

@@ -44,8 +44,8 @@ from pufferlib_tpu_torch.namespace import Namespace, namespace
 from pufferlib_tpu_torch.ops.cuda.gae import compute_gae_cuda
 from pufferlib_tpu_torch.ops.losses import ppo_losses
 from pufferlib_tpu_torch.training import checkpoint as ckpt
-from pufferlib_tpu_torch.training.profile import (
-    Profile, make_losses, profile as profile_deco)
+from pufferlib_tpu_torch.training.profile import Profile, make_losses
+from pufferlib_tpu_torch.utils import profile as profile_deco
 from pufferlib_tpu_torch.vector import make_env_ops, make_mask_fn
 
 
@@ -74,6 +74,9 @@ def default_config(**overrides):
         batch_size=32768,
         minibatch_size=8192,
         bptt_horizon=16,
+        # each update epoch draws a permutation of the BPTT segments and
+        # cuts its minibatches from it (ppo.py:547-575)
+        shuffle_minibatches=False,
         # partition minibatches by a free contiguous reshape of the
         # time-major batch instead of the BPTT agent-major permutation.
         # Changes minibatch composition, and so the per-minibatch
@@ -84,6 +87,13 @@ def default_config(**overrides):
         # is one time slab of all agents, run time-major; False keeps the
         # agent-major segment grouping (ppo.py:104-109)
         lstm_time_slab_minibatches=True,
+        # host trainer only: keep the obs batch in host RAM and copy one
+        # minibatch to the card per update (reference
+        # clean_pufferl.py:388-391)
+        cpu_offload=False,
+        # host trainer only: double-buffer the rollout when the envpool
+        # has >= 2 worker groups
+        pipeline_rollout=True,
         # dtype name of the stored rollout obs (e.g. 'bfloat16'); None
         # keeps the env's
         obs_store_dtype=None,
@@ -187,7 +197,7 @@ def create(config, vecenv, policy, device=None):
     rollout_fn = make_rollout_fn(policy, env, step_batch, config, T,
         generator, mask_fn=make_mask_fn(env))
     update_fn = make_update_fn(policy, optimizer, config, T, total_agents,
-        num_minibatches, seg_rows, obs_shape)
+        num_minibatches, seg_rows, obs_shape, generator)
 
     carry = dict(env=env_states, done=dones, obs=obs, lstm=lstm_state)
     return TrainerData(
@@ -302,76 +312,51 @@ def make_rollout_fn(policy, env, step_batch, config, T, generator,
     return rollout
 
 
-def make_update_fn(policy, optimizer, config, T, total_agents,
-        num_minibatches, seg_rows, obs_shape):
-    """update(batch, lr) -> mean stats: GAE + update_epochs x minibatch
-    PPO on the policy's parameters, in place (ppo.py:462-711)."""
+def make_minibatch_update(policy, optimizer, config, seg_rows, obs_shape,
+        time_major=False):
+    """One PPO minibatch update (ppo.py:462-532): update(mb, lr, stop) ->
+    stats, in place on the policy's parameters. mb is a dict of (rows, h,
+    ...) tensors, or with time_major (the recurrent time-slab layout)
+    (h, rows, ...); obs rows flat or native-shaped, both reshaped to
+    obs_shape here; a recurrent policy's state in lstm_h / lstm_c,
+    (layers, rows, H) time-major, else (rows, layers, H). With `stop`
+    (target_kl's early stop) the stats are computed and the step skipped,
+    as the JAX select keeps the old params. Shared by make_epoch_runner
+    and the host trainer's cpu_offload path."""
     h = config.bptt_horizon
-    n_seg = T // h
-    S = total_agents * n_seg
-    mb_rows = seg_rows * h
     params = list(policy.parameters())
     recurrent = getattr(policy, 'lstm', None) is not None
-    # recurrent time slabs (ppo.py:605-620): minibatch i is the i-th
-    # bptt_horizon steps of every agent, a free slice of the time-major
-    # batch
-    time_slab = (recurrent and num_minibatches == n_seg
-        and config.get('lstm_time_slab_minibatches', True))
-    contiguous = time_slab or (not recurrent
-        and config.get('mlp_contiguous_minibatches', True))
-    has_target_kl = config.target_kl is not None
-    if config.get('shuffle_minibatches', False):
-        raise NotImplementedError('shuffle_minibatches is not ported')
+    obs_shape = tuple(obs_shape)
 
-    def segment(x):
-        """(T, N, ...) -> (S*h, ...) rows, segment-major: minibatch i is
-        rows [i*mb_rows, (i+1)*mb_rows)."""
-        rest = tuple(x.shape[2:])
-        if contiguous:
-            # a free reshape of the time-major batch (ppo.py:634-635)
-            return x.reshape((S * h,) + rest)
-        # segment s = n*n_seg + c holds agent n's c-th BPTT chunk
-        x = x.reshape((n_seg, h, total_agents) + rest).movedim(2, 0)
-        return x.reshape((S * h,) + rest)
-
-    def segment_lstm(x):
-        """(n_seg, layers, N, H) -> (S, layers, H), segment-major."""
-        x = x.movedim(2, 0)
-        return x.reshape((S,) + tuple(x.shape[2:]))
-
-    def minibatch_state(lstm0, i):
-        """The stored (h, c) at the start of minibatch i, each
-        (layers, rows, H)."""
-        if time_slab:
-            return lstm0[0][i], lstm0[1][i]
-        return tuple(s[i * seg_rows:(i + 1) * seg_rows].movedim(0, 1)
-            for s in lstm0)
-
-    def minibatch_update(mb, state, lr, stop):
+    def update(mb, lr, stop=False):
+        lead = (h, seg_rows) if time_major else (seg_rows, h)
+        obs = mb['obs'].reshape(lead + obs_shape)
+        action = mb['action'].reshape(
+            (seg_rows * h,) + tuple(mb['action'].shape[2:]))
         if recurrent:
-            lead = (h, seg_rows) if time_slab else (seg_rows, h)
-            obs = mb['obs'].reshape(lead + tuple(obs_shape))
+            state = (mb['lstm_h'], mb['lstm_c'])
+            if not time_major:
+                state = tuple(s.movedim(0, 1) for s in state)
             _, newlogprob, entropy, newvalue, _ = policy(obs, state,
-                action=mb['action'], time_major=time_slab)
+                action=action, time_major=time_major)
         else:
-            obs = mb['obs'].reshape((mb_rows,) + tuple(obs_shape))
-            _, newlogprob, entropy, newvalue = policy(obs,
-                action=mb['action'])
+            _, newlogprob, entropy, newvalue = policy(
+                obs.reshape((seg_rows * h,) + obs_shape), action=action)
         loss, stats = ppo_losses(
             newlogprob=newlogprob,
-            logprob=mb['logprob'],
+            logprob=mb['logprob'].reshape(-1),
             entropy=entropy,
             newvalue=newvalue,
-            values=mb['value'],
-            advantages=mb['advantages'],
-            returns=mb['returns'],
+            values=mb['value'].reshape(-1),
+            advantages=mb['advantages'].reshape(-1),
+            returns=mb['returns'].reshape(-1),
             clip_coef=config.clip_coef,
             vf_clip_coef=config.vf_clip_coef,
             vf_coef=config.vf_coef,
             ent_coef=config.ent_coef,
             norm_adv=config.norm_adv,
             clip_vloss=config.clip_vloss,
-            mask=mb.get('mask'),
+            mask=mb['mask'].reshape(-1) if 'mask' in mb else None,
         )
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
@@ -388,22 +373,109 @@ def make_update_fn(policy, optimizer, config, T, total_agents,
             optimizer.step()
         return stats
 
-    def run_epochs(seg_batch, lstm0, lr):
+    return update
+
+
+def shuffle_permutations(config, S, generator):
+    """(update_epochs, S) segment permutations of shuffle_minibatches,
+    drawn from `generator` on its device (ppo.py:553-556)."""
+    return torch.stack([torch.randperm(S, generator=generator,
+        device=generator.device) for _ in range(config.update_epochs)])
+
+
+def make_epoch_runner(policy, optimizer, config, seg_rows, num_minibatches,
+        S, obs_shape, time_major=False, prestacked=False):
+    """The PPO epoch x minibatch loop over pre-segmented data
+    (ppo.py:535-595): run_epochs(seg_batch, lr, perms=None) -> mean
+    stats.
+
+    seg_batch: dict of (S, h, ...) tensors [+ lstm_h / lstm_c (S, layers,
+    H)], or with prestacked (the recurrent time-slab layout) already
+    (num_minibatches, ...) per minibatch. With shuffle_minibatches,
+    minibatch i of epoch e is segments perms[e][i * seg_rows:(i + 1) *
+    seg_rows] (perms from shuffle_permutations, or another
+    implementation's, which a test injects); else the i-th contiguous
+    run. Shared by the device trainer and the host trainer (ppo_host)."""
+    has_target_kl = config.target_kl is not None
+    shuffle = config.get('shuffle_minibatches', False)
+    mb_update = make_minibatch_update(policy, optimizer, config, seg_rows,
+        obs_shape, time_major=time_major)
+    if prestacked and shuffle:
+        raise APIUsageError(
+            'shuffle_minibatches requires the segment-major layout '
+            '(set lstm_time_slab_minibatches=False)')
+
+    def minibatch(seg_batch, i, perm):
+        if perm is not None:
+            idx = perm[i * seg_rows:(i + 1) * seg_rows]
+            return {k: v[idx] for k, v in seg_batch.items()}
+        if prestacked:
+            return {k: v[i] for k, v in seg_batch.items()}
+        return {k: v[i * seg_rows:(i + 1) * seg_rows]
+            for k, v in seg_batch.items()}
+
+    def run_epochs(seg_batch, lr, perms=None):
+        if shuffle and perms is None:
+            raise APIUsageError('shuffle_minibatches needs the epochs\' '
+                'segment permutations (shuffle_permutations)')
         all_stats = []
         stop = False
-        for _ in range(config.update_epochs):
+        for epoch in range(config.update_epochs):
+            perm = perms[epoch] if shuffle else None
             for i in range(num_minibatches):
-                mb = {k: v[i * mb_rows:(i + 1) * mb_rows]
-                    for k, v in seg_batch.items()}
-                state = minibatch_state(lstm0, i) if recurrent else None
-                all_stats.append(minibatch_update(mb, state, lr, stop))
+                all_stats.append(mb_update(minibatch(seg_batch, i, perm),
+                    lr, stop))
             if has_target_kl and not stop:
                 # the one host read per epoch (ppo.py:583-585)
                 stop = bool(all_stats[-1]['approx_kl'] > config.target_kl)
         return {k: torch.stack([s[k] for s in all_stats]).mean()
             for k in all_stats[0]}
 
-    def update(batch, lr):
+    return run_epochs
+
+
+def make_update_fn(policy, optimizer, config, T, total_agents,
+        num_minibatches, seg_rows, obs_shape, generator=None):
+    """update(batch, lr, perms=None) -> mean stats: GAE + update_epochs x
+    minibatch PPO on the policy's parameters, in place
+    (ppo.py:598-711). With shuffle_minibatches the epochs' segment
+    permutations are drawn from `generator` unless perms is given."""
+    h = config.bptt_horizon
+    n_seg = T // h
+    S = total_agents * n_seg
+    recurrent = getattr(policy, 'lstm', None) is not None
+    shuffle = config.get('shuffle_minibatches', False)
+    # recurrent time slabs (ppo.py:605-620): minibatch i is the i-th
+    # bptt_horizon steps of every agent, a free slice of the time-major
+    # batch
+    time_slab = (recurrent and num_minibatches == n_seg and not shuffle
+        and config.get('lstm_time_slab_minibatches', True))
+    contiguous = not recurrent and config.get(
+        'mlp_contiguous_minibatches', True)
+    run_epochs = make_epoch_runner(policy, optimizer, config, seg_rows,
+        num_minibatches, S, obs_shape, time_major=time_slab,
+        prestacked=time_slab)
+
+    def segment(x):
+        """(T, N, ...) -> (S, h, ...) segments."""
+        rest = tuple(x.shape[2:])
+        if time_slab:
+            # (n_seg, h, N, ...): a free reshape, minibatch c is the c-th
+            # time slab, already time-major
+            return x.reshape((n_seg, h) + tuple(x.shape[1:]))
+        if contiguous:
+            # a free reshape of the time-major batch (ppo.py:634-635)
+            return x.reshape((S, h) + rest)
+        # segment s = n*n_seg + c holds agent n's c-th BPTT chunk
+        x = x.reshape((n_seg, h, total_agents) + rest).movedim(2, 0)
+        return x.reshape((S, h) + rest)
+
+    def segment_lstm(x):
+        """(n_seg, layers, N, H) -> (S, layers, H), segment-major."""
+        x = x.movedim(2, 0)
+        return x.reshape((S,) + tuple(x.shape[2:]))
+
+    def update(batch, lr, perms=None):
         advantages = compute_gae_cuda(batch['reward'], batch['value'],
             batch['done'], batch['last_value'], config.gamma,
             config.gae_lambda)
@@ -421,11 +493,14 @@ def make_update_fn(policy, optimizer, config, T, total_agents,
             # the agent mask goes through the same segmenting
             # (ppo.py:690-691)
             seg_batch['mask'] = segment(batch['mask'])
-        lstm0 = None
         if recurrent:
+            # time slabs: (n_seg, layers, N, H), minibatch-leading as is
             lstm0 = batch['lstm0'] if time_slab else tuple(
                 segment_lstm(s) for s in batch['lstm0'])
-        mean_stats = run_epochs(seg_batch, lstm0, lr)
+            seg_batch['lstm_h'], seg_batch['lstm_c'] = lstm0
+        if shuffle and perms is None:
+            perms = shuffle_permutations(config, S, generator)
+        mean_stats = run_epochs(seg_batch, lr, perms)
 
         y_true = returns.reshape(-1)
         y_pred = batch['value'].reshape(-1)
@@ -576,13 +651,15 @@ def _materialize_metrics(data):
     record_stats(data)
 
 
-def record_stats(data):
-    """Append the current stats snapshot to data.stats_history, bounded
-    by decimation."""
+def record_stats(data, stats=None):
+    """Append the current stats snapshot (`stats`, else the trainer's
+    materialized ones) to data.stats_history, bounded by decimation."""
     history = data.get('stats_history')
     if history is None:
         return
-    numeric = {k: v for k, v in data.__dict__['_stats'].items()
+    if stats is None:
+        stats = data.__dict__['_stats']
+    numeric = {k: v for k, v in stats.items()
         if isinstance(v, (int, float))}
     if numeric:
         history.append((data.global_step, numeric))

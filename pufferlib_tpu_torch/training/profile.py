@@ -1,5 +1,5 @@
 """Trainer profiling: per-phase timers + SPS (pufferlib_tpu/training/
-profile.py and the Profiler of pufferlib_tpu/utils.py).
+profile.py), on utils.Profiler.
 
 Device work is asynchronous: a phase timer measures the device only where
 the phase ends in a synchronising read (evaluate/train do; the fused
@@ -7,44 +7,7 @@ step does not)."""
 import time
 
 from pufferlib_tpu_torch.namespace import namespace
-
-
-class Profiler:
-    """Context-manager wall-clock timer with call accounting."""
-
-    def __init__(self):
-        self.elapsed = 0.0
-        self.calls = 0
-        self.prev = 0.0
-        self._start = None
-
-    def __enter__(self):
-        self._start = time.perf_counter()
-        return self
-
-    def __exit__(self, *args):
-        self.prev = time.perf_counter() - self._start
-        self.elapsed += self.prev
-        self.calls += 1
-        self._start = None
-        return False
-
-
-def profile(fn):
-    """Decorator accumulating a Profiler per function in
-    first_argument._timers."""
-    name = fn.__name__
-
-    def wrapper(self, *args, **kwargs):
-        if not hasattr(self, '_timers'):
-            self._timers = {}
-        if name not in self._timers:
-            self._timers[name] = Profiler()
-        with self._timers[name]:
-            return fn(self, *args, **kwargs)
-
-    wrapper.__name__ = name
-    return wrapper
+from pufferlib_tpu_torch.utils import Profiler
 
 
 def make_losses():

@@ -240,6 +240,10 @@ def _lstm_kinds():
             lstm_cat._launch_backward, lstm_cat.lstm_cat_reference,
             lstm_cat.lstm_cat_backward_reference,
             ('lstm_cat_forward', 'lstm_cat_backward')),
+        'cat_stream': (lstm_cat._launch_stream_forward,
+            lstm_cat._launch_stream_backward, lstm_cat.lstm_cat_reference,
+            lstm_cat.lstm_cat_backward_reference,
+            ('lstm_cat_stream_forward', 'lstm_cat_stream_backward')),
         'fused': (lstm_scan._launch_fused_forward,
             lstm_scan._launch_fused_backward,
             lstm_scan.lstm_scan_fused_reference,
@@ -426,6 +430,47 @@ def test_lstm_fused_bf16_is_deterministic(cuda, T, B, H):
 def test_lstm_cat_bf16_is_deterministic(cuda, T, B, D, H):
     """The same of lstm_scan_cat's bf16 kernels."""
     _check_deterministic(cuda, 'cat', T, B, H, D)
+
+
+# cat's streamed design (csrc/lstm_cat_stream.cu): the Atari update's
+# shape, hidden 256, an input width apart from the hidden size, one that
+# is no multiple of 8, and a ragged batch
+STREAM_SHAPES = [(16, 256, 512, 512), (16, 256, 256, 256), (8, 64, 200, 128),
+    (4, 32, 9, 64), (3, 45, 20, 96)]
+
+
+@pytest.mark.parametrize('T,B,D,H', STREAM_SHAPES)
+@pytest.mark.parametrize('cdt', [torch.float32, torch.bfloat16])
+def test_lstm_cat_stream_matches_plain(cuda, T, B, D, H, cdt):
+    """Forward and every gradient of cat's streamed design against the
+    plain versions."""
+    _check_lstm_pair(cuda, 'cat_stream', T, B, H, cdt, D=D)
+
+
+@pytest.mark.parametrize('T,B,D,H', STREAM_SHAPES[2:])
+def test_lstm_cat_stream_is_deterministic(cuda, T, B, D, H):
+    """The streamed design adds every sum in a fixed order: two runs are
+    equal bit for bit."""
+    _check_deterministic(cuda, 'cat_stream', T, B, H, D)
+
+
+def test_lstm_scan_cat_picks_the_design_by_shape(cuda):
+    """lstm_scan_cat launches the resident kernels where they serve and
+    the streamed ones elsewhere; a hidden size no design takes raises
+    before a launch."""
+    from pufferlib_tpu_torch.ops.cuda.lstm_cat import lstm_scan_cat
+    for D, H, cdt, fn in ((128, 128, torch.bfloat16, 'lstm_cat_forward'),
+            (96, 128, torch.float32, 'lstm_cat_stream_forward'),
+            (512, 512, torch.bfloat16, 'lstm_cat_stream_forward')):
+        args = _lstm_case('cat', 2, 8, H, 49, cdt, cuda, D=D)
+        before = _launches()
+        with torch.no_grad():
+            lstm_scan_cat(*args, cdt)
+        after = _launches()
+        assert {k for k in after if after[k] != before[k]} == {fn}
+    with pytest.raises(ValueError, match='multiples of 32'):
+        lstm_scan_cat(*_lstm_case('cat', 2, 8, 100, 49, torch.float32,
+            cuda), torch.float32)
 
 
 # enc5's bf16 encoder at feature widths that are no multiple of 8 (49: the

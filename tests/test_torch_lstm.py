@@ -93,9 +93,28 @@ def _torch_outs_and_grads(fn, args, td, cot):
 def test_cat_plain_matches_pallas_kernel(dtype, D, hidden):
     """Forward and every gradient, dx included; input width 96 with hidden
     128 is the JAX package's own cat shape (tests/test_pallas.py)."""
+    _check_cat_plain(dtype, D, hidden)
+
+
+@pytest.mark.parametrize('dtype', sorted(DTYPES))
+def test_cat_plain_matches_pallas_kernel_streamed_shape(dtype):
+    """The same at input width 9 with hidden 256, a shape only cat's
+    streamed design serves on the card, with the weights at the trainer's
+    scale (1 / sqrt(fan-in)): the tolerance is DTYPES' times the largest
+    value of each output or gradient, at least 1 (sums over K = 265 and
+    4H = 1024 terms)."""
+    _check_cat_plain(dtype, 9, 256, w_scale=265 ** -0.5)
+
+
+def _check_cat_plain(dtype, D, hidden, w_scale=None):
+    """w_scale: the weights' scale, and tolerances relative to each
+    value's size; None keeps _arrays' 0.3 and DTYPES' absolute ones."""
     jd, td, tol = DTYPES[dtype]
     x, h0, c0, w_ih, w_hh, b = _arrays(1, (T, B, D), (B, hidden),
         (B, hidden), (D, 4 * hidden), (hidden, 4 * hidden), (4 * hidden,))
+    relative = w_scale is not None
+    if relative:
+        w_ih, w_hh = (w * np.float32(w_scale / 0.3) for w in (w_ih, w_hh))
     xj = jnp.asarray(x).astype(jd)
     args = (xj, h0, c0, w_ih, w_hh, b)
     cot = _cotangents(2, hidden)
@@ -108,12 +127,15 @@ def test_cat_plain_matches_pallas_kernel(dtype, D, hidden):
         t.requires_grad_()
     got = _torch_outs_and_grads(lstm_scan_cat, tensors, td, cot)
     assert got[0].dtype == td and got[1].dtype == torch.float32
+
+    def atol(w):
+        return tol * max(1.0, np.abs(_np(w)).max()) if relative else tol
     for name, a, w in zip(('outs', 'hT', 'cT'), got, want):
-        _assert_close(a, w, tol, name)
+        _assert_close(a, w, atol(w), name)
     names = ('dx', 'dh0', 'dc0', 'dw_ih', 'dw_hh', 'db')
     for name, t, w in zip(names, tensors, want_grads):
         assert t.grad.dtype == t.dtype, name
-        _assert_close(t.grad, w, tol, name)
+        _assert_close(t.grad, w, atol(w), name)
 
 
 @pytest.mark.parametrize('dtype', sorted(DTYPES))
@@ -359,7 +381,33 @@ ROUTES = {
     'use_kernel, features 200 f32': (dict(use_kernel=True, F=200,
         cdt=torch.float32), 'at most 128 features'),
     'use_kernel, cat, input 96 f32': (dict(use_kernel=True, kernel='cat',
-        D=96, cdt=torch.float32), 'input width equal'),
+        D=96, cdt=torch.float32), 'cat'),
+    # cat's second design (csrc/lstm_cat_stream.cu) serves the shapes the
+    # resident kernels refuse where the JAX package runs cat: hidden sizes
+    # that are multiples of 32, any input width
+    'hidden 512': (dict(D=512, H=512), 'hidden sizes.*use_kernel=False'),
+    'no encoder contract, hidden 256 bf16': (dict(F=None, D=256, H=256),
+        'cat'),
+    'no encoder contract, hidden 256 f32': (dict(F=None, D=256, H=256,
+        cdt=torch.float32), 'cat'),
+    'no encoder contract, hidden 512 bf16': (dict(F=None, D=512, H=512),
+        'cat'),
+    'no encoder contract, hidden 512 f32': (dict(F=None, D=512, H=512,
+        cdt=torch.float32), 'cat'),
+    'two layers, hidden 256 f32': (dict(num_layers=2, D=256, H=256,
+        cdt=torch.float32), 'cat'),
+    'kernel cat, hidden 512': (dict(kernel='cat', D=512, H=512), 'cat'),
+    'no encoder contract, input 96 f32': (dict(F=None, D=96,
+        cdt=torch.float32), 'cat'),
+    'no encoder contract, input 100': (dict(F=None, D=100), 'cat'),
+    'no encoder contract, input 9, hidden 64': (dict(F=None, D=9, H=64),
+        'cat'),
+    'no encoder contract, hidden 100': (dict(F=None, D=100, H=100),
+        'multiples of 32.*use_kernel=False'),
+    'use_kernel, no encoder contract, hidden 512 f32': (dict(
+        use_kernel=True, F=None, D=512, H=512, cdt=torch.float32), 'cat'),
+    'use_kernel, cat, hidden 100': (dict(use_kernel=True, kernel='cat',
+        D=100, H=100), 'multiples of 32'),
 }
 
 
@@ -368,8 +416,9 @@ def test_lstm_route(case):
     """The default (use_kernel=None) takes, on the card with T > 1, the
     first kernel that serves the shape: enc5 where it can fuse and serves
     the shape (bf16: D a multiple of 8, F up to 768; f32: D == H, F up to
-    128), then cat, and raises for a shape neither serves, naming
-    use_kernel=False;
+    128), then cat (its resident-weight kernels, or where the policy
+    cannot fuse its streamed design: H a multiple of 32, any D), and
+    raises for a shape neither serves, naming use_kernel=False;
     use_kernel=True runs the selected kernel and, on the card, raises for
     a shape it refuses (the expected value is then the error's message).
     The plain scan runs on the card only where the caller asks for it."""

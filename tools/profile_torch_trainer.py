@@ -2,6 +2,13 @@
 
     python3 tools/profile_torch_trainer.py [--use-kernel] [--lstm [enc5|cat]]
     python3 tools/profile_torch_trainer.py --ocean NAME [--use-kernel]
+    python3 tools/profile_torch_trainer.py --atari
+
+With --atari, chip_smoke.py's Atari host trainer (the fake ALE in the
+host envpool, ppo_host with cpu_offload, Convolutional + LSTM 512 f32):
+after a warm-up epoch, an evaluate and a train timed on the host clock,
+then another pair under torch.profiler; beside the device numbers it
+prints the host operators that take the most CPU time.
 
 Builds chip_smoke.py's main-path trainer (Ocean squared, Default MLP
 h128 bf16, 8192 lanes x 64 steps, minibatch 131072; with --lstm the
@@ -26,16 +33,23 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 
-def profile_phase(torch, fn):
-    """fn() once timed on the host clock (synchronised, no profiler: the
-    profiler's own overhead inflates wall time), then once under
-    torch.profiler for its kernels' device time and launch count."""
-    from torch.profiler import ProfilerActivity, profile
+def timed_ms(torch, fn):
+    """fn() on the host clock, synchronised, no profiler (the profiler's
+    own overhead inflates wall time)."""
     torch.cuda.synchronize()
     start = time.perf_counter()
     fn()
     torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - start) * 1e3
+    return (time.perf_counter() - start) * 1e3
+
+
+def profile_phase(torch, fn, wall_ms=None):
+    """fn() once timed on the host clock (unless wall_ms is given), then
+    once under torch.profiler for its kernels' device time and launch
+    count, and the host operators with the most CPU time."""
+    from torch.profiler import ProfilerActivity, profile
+    if wall_ms is None:
+        wall_ms = timed_ms(torch, fn)
     with profile(activities=[ProfilerActivity.CPU,
             ProfilerActivity.CUDA]) as prof:
         out = fn()
@@ -51,9 +65,12 @@ def profile_phase(torch, fn):
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
     return out, dict(wall_ms=wall_ms, device_ms=device_ms,
         idle_share=1 - device_ms / wall_ms, launches=len(kernels),
-        top=[(name[:60], round(ms, 4)) for name, ms in top])
+        top=[(name[:60], round(ms, 4)) for name, ms in top],
+        host_top=[(e.key[:60], round(e.self_cpu_time_total / 1e3, 2),
+            e.count) for e in host[:8]])
 
 
 def main():
@@ -66,12 +83,16 @@ def main():
     parser.add_argument('--ocean', metavar='NAME',
         help='an Ocean env at its config.yaml section (chip_smoke.py '
         'OCEAN_CONFIGS) instead of the 8192-lane squared line')
+    parser.add_argument('--atari', action='store_true',
+        help="chip_smoke.py's Atari host trainer")
     args = parser.parse_args()
     import torch
     if not torch.cuda.is_available():
         print('needs a CUDA device', file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
+    # the conv policies' f32 convolutions in full f32, as chip_smoke.py
+    torch.backends.cudnn.allow_tf32 = False
     from chip_smoke import (
         OCEAN_CONFIGS, OCEAN_RECURRENT, card_line, make_ocean_trainer,
         make_trainer)
@@ -80,6 +101,8 @@ def main():
     build_all(KERNELS)
     card = card_line()
 
+    if args.atari:
+        return profile_atari(torch, card)
     if args.ocean:
         ppo, data = make_ocean_trainer(torch, args.ocean,
             *OCEAN_CONFIGS[args.ocean], use_kernel=args.use_kernel,
@@ -99,12 +122,40 @@ def main():
     result = dict(card=card, env=args.ocean or 'squared',
         use_kernel=args.use_kernel, lstm=args.lstm,
         batch_size=data.config.batch_size, rollout=rollout, update=update)
-    for phase in ('rollout', 'update'):
+    report(result, ('rollout', 'update'))
+    return 0
+
+
+def report(result, phases):
+    for phase in phases:
         r = result[phase]
         print(f'{phase}: wall {r["wall_ms"]:.2f} ms, kernels '
             f'{r["device_ms"]:.2f} ms, idle {r["idle_share"]:.3f}, '
-            f'{r["launches"]} launches; top {r["top"]}', flush=True)
+            f'{r["launches"]} launches; top {r["top"]}; host operators '
+            f'(self CPU ms, calls) {r["host_top"]}', flush=True)
     print(json.dumps(result), flush=True)
+
+
+def profile_atari(torch, card):
+    """chip_smoke.py's Atari host trainer: a warm-up epoch, an evaluate
+    and a train on the host clock, then one of each under the
+    profiler."""
+    from chip_smoke import ATARI, make_atari_trainer
+    from pufferlib_tpu_torch.training import ppo_host
+    data = make_atari_trainer(torch)
+    try:
+        ppo_host.evaluate(data)
+        ppo_host.train(data)
+        walls = [timed_ms(torch, lambda: ppo_host.evaluate(data)),
+            timed_ms(torch, lambda: ppo_host.train(data))]
+        _, evaluate = profile_phase(torch, lambda: ppo_host.evaluate(data),
+            walls[0])
+        _, train = profile_phase(torch, lambda: ppo_host.train(data),
+            walls[1])
+    finally:
+        ppo_host.close(data)
+    report(dict(card=card, env='atari', **ATARI, evaluate=evaluate,
+        train=train), ('evaluate', 'train'))
     return 0
 
 
