@@ -10,16 +10,17 @@ paths: the fused PPO trainer on Ocean `squared` with the `Default` MLP at
 (`Default(use_kernel=True)`), the recurrent trainer through the enc5 and
 through the cat LSTM kernels, the recurrent trainer through LSTMWrapper's
 default route at input width 96 (enc5's kernels), with two LSTM layers
-(cat's: enc5 cannot fuse the encoder), at hidden size 256
-with use_kernel=False (the plain scan, which the caller must ask for: the
-default and use_kernel=True refuse that shape on the card), and the LSTM
-validation path
+(cat's: enc5 cannot fuse the encoder), at hidden size 256 with
+use_kernel=False (the plain scan, which the caller must ask for), and at
+hidden 256 by default and with use_kernel=True (enc5's streamed design),
+and the LSTM validation path
 (tools/validate_lstm_torch.py: lstm_scan and lstm_scan_fused timed at
 the bench shapes, then a 40-epoch learning proof that must reach score
 0.9; tools/kernel_lab_torch.py over every variant, the archived enc2,
 enc3, enc4, enc6 and tm among them). Last, small trainer updates and
 12 steps of every Ocean env on the card are held against the same on the
-CPU. For the bf16
+CPU (the recurrent update also at hidden 256, through enc5's streamed
+design). For the bf16
 tensor-core kernels of lstm_scan_cat, lstm_scan_fused and the enc5 pair
 (csrc/lstm_tc.cuh) it also prints each kernel's registers and spilled
 bytes after the build, and the time of each phase at the main shape
@@ -48,18 +49,27 @@ must equal the CPU exactly; and two learning proofs at the JAX package's
 own test settings must pass: memory (best score > 0.9 within 60 epochs,
 through enc5) and spaces (score > 0.8 after 40 epochs).
 
-The pixel-env phase (since the conv policies and the host path): cat's
-second design, csrc/lstm_cat_stream.cu (weights streamed from L2, for the
-shapes the resident kernels refuse), against its plain version in f32
-and bf16 at the Atari update's (T 16, B 256, D = H = 512) and three more
-shapes, timed beside its bound and cuDNN's nn.LSTM, two runs bit-equal;
+The pixel-env phase (since the conv policies and the host path): the
+streamed design, csrc/lstm_cat_stream.cu (the input products as GEMMs
+outside the recurrence, the recurrence one persistent launch whose blocks
+hold slices of W_hh in shared memory, for the shapes the resident kernels
+refuse), cat's pair against its plain version in f32 and bf16 at the
+Atari update's (T 16, B 256, D = H = 512) and three more shapes, timed
+beside its bound and cuDNN's nn.LSTM, two runs bit-equal, and the kernels
+a call launches counted at T = 16, 32 and 64 (the same; the backward
+takes the gates its forward kept); enc5's pair against
+lstm_enc_reference / lstm_enc_backward_reference at hidden 256 and 512,
+at f32's encoder width 96, bf16's 800 features and minigrid's 147 in f32,
+likewise timed and bit-equal; the largest hidden size the streamed loops
+take held to its Python copy;
 the route that sends Convolutional + LSTM(512) to it; the host trainer's
 flat GAE through the GAE kernel at N = 16384 and 4096, bit-equal; the
 native envpool driver built with g++. Then three trainers at full width:
 the Atari configuration (fake ALE frames of 4x84x84 uint8 behind the
 port's Atari wrappers in HostMultiprocessing with the native driver,
 ppo_host with cpu_offload, Convolutional + LSTM 512 in f32; 16 launches
-of each streamed cat function an epoch asserted), ProcgenResnet(16, 256)
+of each streamed cat function an epoch asserted; one more update under
+the profiler for its kernel time), ProcgenResnet(16, 256)
 through ppo_host on a fake procgen env, and Convolutional on VisualTarget
 through the device trainer, whose tail score must reach 0.6 in 131072
 steps, then two epochs of it in bf16 inside LSTMWrapper(128, 128) (the
@@ -67,7 +77,9 @@ resident cat); no phase imports gymnasium. The spawned envpool workers
 import this script as their main module: its top level imports no torch.
 
 Prints one line per phase, a `{"kernels": [...]}` JSON line, the card's
-name and power limit, and last `{"ok": true, "device": {...}}`. Any
+name and power limit, and last `{"ok": true, "device": {...},
+"profiler_lost": [...]}`, the last key naming the kernels whose second,
+profiler reading was lost (their device_ms is null). Any
 failing phase raises and the script exits non-zero without that line.
 It exits non-zero at once when no CUDA device is present. It imports
 nothing of JAX.
@@ -94,9 +106,26 @@ def l2_flush_buffer():
     return timing.l2_flush_buffer()
 
 
-def profiled_ms(*args, **kwargs):
+# the kernels whose profiler reading was lost, named in the last line
+PROFILER_LOST = []
+
+
+def profiled_ms(fn, flush, name):
+    """timing.profiled_ms, or None where the profiler lost the kernels'
+    records in every window (CUPTI on the card's machine drops some): the
+    profiler's time is a second reading beside the events' and decides
+    nothing, but a lost one is logged and named in the last line."""
     from pufferlib_tpu_torch.ops.cuda import timing
-    return timing.profiled_ms(*args, **kwargs)
+    try:
+        return timing.profiled_ms(fn, flush, name)
+    except RuntimeError as e:
+        log(f'profiler reading lost: {e}')
+        PROFILER_LOST.append(name)
+        return None
+
+
+def fmt_ms(v):
+    return 'not measured' if v is None else f'{v:.4f}'
 
 
 def timed_ms(*args, **kwargs):
@@ -155,7 +184,7 @@ def check_gae(torch, gae, flush, rng, T, E):
     flops = 9 * T * E
     bound_ms, bound_by = bound(bytes_moved, flops, 'float32')
     log(f'gae ({T}, {E}) f32: equal to the plain version bit for bit; '
-        f'kernel {ms:.4f} ms (profiler: {device_ms:.4f}), plain '
+        f'kernel {ms:.4f} ms (profiler: {fmt_ms(device_ms)}), plain '
         f'{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) on '
         f'{card_line()}')
     return dict(err=err, ms=ms, device_ms=device_ms, plain_ms=plain_ms,
@@ -239,7 +268,7 @@ def check_mlp(torch, mlp, flush, rng, B, dtype_name, F=49, H=128, O=9,
     flops = 2 * B * (F * H + H * O)
     bound_ms, bound_by = bound(bytes_moved, flops, dtype_name)
     log(f'mlp_head {what} ({kernel}): max abs err {err:.3g} (tol {tol}); '
-        f'kernel {ms:.4f} ms (profiler: {device_ms:.4f}), plain '
+        f'kernel {ms:.4f} ms (profiler: {fmt_ms(device_ms)}), plain '
         f'{plain_ms:.4f} ms, cuBLAS bf16 '
         f'addmm-relu-addmm {cublas_ms if cublas_ms is None else round(cublas_ms, 4)} '
         f'ms, bound {bound_ms:.4f} ms ({bound_by}) on {card_line()}')
@@ -302,8 +331,13 @@ def lstm_kinds():
         'cat': (lstm_cat._launch_forward, lstm_cat._launch_backward,
             lstm_cat.lstm_cat_reference,
             lstm_cat.lstm_cat_backward_reference, CELL_GRADS),
-        'cat_stream': (lstm_cat._launch_stream_forward,
-            lstm_cat._launch_stream_backward, lstm_cat.lstm_cat_reference,
+        'enc5_stream': (*lstm_cat.kept_gates(
+            lstm_enc._launch_stream_forward, lstm_enc._launch_stream_backward),
+            lstm_enc.lstm_enc_reference,
+            lstm_enc.lstm_enc_backward_reference, ENC_GRADS),
+        'cat_stream': (*lstm_cat.kept_gates(
+            lstm_cat._launch_stream_forward, lstm_cat._launch_stream_backward),
+            lstm_cat.lstm_cat_reference,
             lstm_cat.lstm_cat_backward_reference, CELL_GRADS),
         'fused': (lstm_scan._launch_fused_forward,
             lstm_scan._launch_fused_backward,
@@ -317,7 +351,9 @@ def lstm_kinds():
 
 ARCHIVED_ENC_KINDS = ('enc2', 'enc3', 'enc4', 'enc6')
 # kinds that take feats behind the fused encoder; kinds that take x_proj
-ENC_KINDS = ('enc5', 'enc') + ARCHIVED_ENC_KINDS
+ENC_KINDS = ('enc5', 'enc', 'enc5_stream') + ARCHIVED_ENC_KINDS
+# kinds whose backward takes the gates their forward kept
+STREAM_KINDS = ('cat_stream', 'enc5_stream')
 XP_KINDS = ('scan', 'tm')
 # kinds whose forward takes save_cseq: without it the kernel is handed a
 # null cseq and must give the same outs, hT and cT bit for bit
@@ -358,7 +394,9 @@ def lstm_bounds(kind, args, T, B, H, dtype_name):
     read once and every output written once, and the flops of the
     function, at the peak of the compute type. The bound is the
     function's, whatever the schedule: enc2, enc3, enc4 and enc6 have
-    enc5's, tm has scan's."""
+    enc5's, tm has scan's. The streamed kinds' forward also writes every
+    step's f32 gates, and their backward takes them as an input in place
+    of recomputing them: it reads them and skips the gate product."""
     x = args[0]
     x_bytes = x.numel() * x.element_size()
     weights = sum(t.numel() for t in args[3:]) * 4
@@ -369,22 +407,33 @@ def lstm_bounds(kind, args, T, B, H, dtype_name):
     # in: the sequence, weights, h0/c0, outs, cseq, g_outs, g_hT/g_cT;
     # out: dh0/dc0 and the weight gradients
     bwd_bytes = x_bytes + weights + state + 3 * seq + state + state + weights
+    # the gate recompute, the backward's share of the flops the streamed
+    # kinds skip
     if kind in ENC_KINDS:
         F, D = args[3].shape
+        recompute = 2 * T * B * (D + H) * 4 * H
         fwd_flops = 2 * T * B * (F * D + (D + H) * 4 * H)
+        # the encoder recompute, the gates', [dx | dh_prev], dW and dW_enc
         bwd_flops = 2 * T * B * (2 * F * D + 2 * (D + H) * 4 * H
             + 4 * H * H + 4 * H * D)
     elif kind in XP_KINDS:
         # the recurrent product alone; backward: the gate recompute,
         # dh_prev and dW_hh, and dx_proj written
         fwd_flops = 2 * T * B * H * 4 * H
+        recompute = fwd_flops
         bwd_flops = 3 * fwd_flops
         bwd_bytes += x_bytes
     else:
         D = x.shape[2]
         fwd_flops = 2 * T * B * (D + H) * 4 * H
+        recompute = fwd_flops
         bwd_flops = 3 * fwd_flops
         bwd_bytes += x_bytes  # dx written
+    if kind in STREAM_KINDS:
+        gates = T * B * 4 * H * 4
+        fwd_bytes += gates
+        bwd_bytes += gates
+        bwd_flops -= recompute
     return (bound(fwd_bytes, fwd_flops, dtype_name),
         bound(bwd_bytes, bwd_flops, dtype_name))
 
@@ -585,12 +634,64 @@ def check_bit_equal(torch, rng, kind, B, T=16, D=None, F=49, H=128,
 CAT_STREAM_SHAPES = ((16, 256, 512, 512), (16, 256, 256, 256),
     (8, 64, 200, 128), (4, 32, 9, 64))
 
+# (T, B, F, D, H, dtypes) of enc5's streamed design: the default route's
+# hidden 256 at the 8192-lane trainer's minibatch (phase 9), hidden 512 at
+# the Atari update's rows, f32's encoder width 96 apart from hidden 128,
+# bf16's 800 features past the tensor-core encoder's 768, and minigrid's
+# 147 features in f32 (past the FMA encoder's 128)
+ENC5_STREAM_SHAPES = ((16, 8192, 49, 256, 256, ('bfloat16', 'float32')),
+    (16, 256, 49, 512, 512, ('float32', 'bfloat16')),
+    (16, 1000, 49, 96, 128, ('float32',)),
+    (16, 1000, 800, 128, 128, ('bfloat16',)),
+    (16, 1000, 147, 128, 128, ('float32',)))
+
+
+def kernels_per_call(fn):
+    """The kernels one call of fn launches through the streamed design's
+    library, by its own host count (lstm_stream_kernels)."""
+    import ctypes
+    from pufferlib_tpu_torch.ops.cuda.lstm_cat import STREAM_KERNEL
+    out = (ctypes.c_longlong * 1)()
+    lib = STREAM_KERNEL.lib()
+    lib.lstm_stream_kernels(out)
+    before = out[0]
+    fn()
+    lib.lstm_stream_kernels(out)
+    return out[0] - before
+
+
+def check_stream_launches(torch, rng, kind, B, D, H, F=49, dtype_name=
+        'float32', steps=(16, 32, 64)):
+    """The kernels one forward and one backward call of the streamed kind
+    launch, at each T in steps: they must not depend on T (the loops are
+    one persistent launch each; the steps are long enough that the weight
+    gradients split K, and add their splits, at every one). Returns {T:
+    (forward, backward)}."""
+    fwd, bwd = lstm_kinds()[kind][:2]
+    counts = {}
+    for T in steps:
+        args, grads, cdt = lstm_case(torch, rng, kind, T, B, dtype_name,
+            F=F, H=H, D=D)
+        with torch.no_grad():
+            outs, _, _, cseq = fwd(*args, cdt)
+            counts[T] = (kernels_per_call(lambda: fwd(*args, cdt)),
+                kernels_per_call(lambda: bwd(*args, outs, cseq, *grads,
+                    cdt)))
+    if len(set(counts.values())) != 1:
+        raise AssertionError(f'{kind}: kernels per call depend on T: '
+            f'{counts}')
+    log(f'{kind} B={B} D={D} H={H} {dtype_name}: kernels per call '
+        f'(forward, backward) by T {json.dumps(counts)}')
+    return counts
+
 
 def check_cat_stream(torch, flush, rng):
     """cat's streamed design against its plain version, forward and
     backward, in f32 and bf16, at CAT_STREAM_SHAPES, each timed beside
     its bound, the plain version and cuDNN's nn.LSTM, and run twice (equal
-    bit for bit). Returns {(shape, dtype): check_lstm's result}."""
+    bit for bit); then the kernels a call launches at T = 16, 32 and 64 in the
+    Atari update's shape. Returns ({(shape, dtype): check_lstm's result},
+    kernels per call)."""
     runs = {}
     for T, B, D, H in CAT_STREAM_SHAPES:
         for dtype_name in ('float32', 'bfloat16'):
@@ -598,6 +699,26 @@ def check_cat_stream(torch, flush, rng):
                 'cat_stream', B, dtype_name, T=T, H=H, D=D, timed=True)
             check_bit_equal(torch, rng, 'cat_stream', B, T=T, D=D, H=H,
                 dtype_name=dtype_name)
+    per_call = {d: check_stream_launches(torch, rng, 'cat_stream', 256, 512,
+        512, dtype_name=d) for d in ('float32', 'bfloat16')}
+    return runs, per_call
+
+
+def check_enc5_stream(torch, flush, rng):
+    """enc5's streamed design against lstm_enc_reference and
+    lstm_enc_backward_reference at ENC5_STREAM_SHAPES, each timed beside
+    its bound and the plain version and run twice (equal bit for bit);
+    then its kernels per call at T = 16, 32 and 64. Returns {(shape, dtype):
+    check_lstm's result}."""
+    runs = {}
+    for T, B, F, D, H, dtypes in ENC5_STREAM_SHAPES:
+        for dtype_name in dtypes:
+            runs[(T, B, F, D, H), dtype_name] = check_lstm(torch, flush, rng,
+                'enc5_stream', B, dtype_name, T=T, H=H, D=D, F=F, timed=True)
+            check_bit_equal(torch, rng, 'enc5_stream', B, T=T, D=D, F=F, H=H,
+                dtype_name=dtype_name)
+    check_stream_launches(torch, rng, 'enc5_stream', 1024, 256, 256,
+        dtype_name='bfloat16')
     return runs
 
 
@@ -775,20 +896,23 @@ def run_default_routes(torch, card):
     """The LSTM trainer through LSTMWrapper's default route
     (use_kernel=None) off the bench shapes, one epoch each, every launch
     count set to 0 just before and read just after: input width 96 with
-    hidden 128 must route to enc5 (16 launches of each enc5 function, as
-    the JAX package runs enc5 at D != H); two layers at hidden 128 to cat
-    (enc5 cannot fuse the encoder: 16 launches of each cat function per
-    layer); hidden 256, which no kernel serves, with use_kernel=False (the
-    caller asks for the plain scan) must run it with no LSTM launch. All
-    with finite losses. Then use_kernel=None and use_kernel=True at hidden
-    256 must each raise before any launch."""
-    from pufferlib_tpu_torch import spaces
-    from pufferlib_tpu_torch.models import Default, LSTMWrapper
+    hidden 128 must route to enc5's resident kernels (16 launches of each
+    lstm_enc function, as the JAX package runs enc5 at D != H); two
+    layers at hidden 128 to cat (enc5 cannot fuse the encoder: 16 launches
+    of each cat function per layer); hidden 256 with use_kernel=False (the
+    caller asks for the plain scan) must run it with no LSTM launch; hidden
+    256 by default and with use_kernel=True must route to enc5's streamed
+    design (16 launches of each lstm_enc_stream function). All with
+    finite losses. Returns the launches of the last run (hidden 256,
+    use_kernel=True)."""
     from pufferlib_tpu_torch.ops.cuda import KERNELS
     device = torch.device('cuda')
-    for lstm_input, hidden, layers, use, route in (
-            (96, 128, 1, None, 'enc5'), (128, 128, 2, None, 'cat'),
-            (256, 256, 1, False, 'off')):
+    for lstm_input, hidden, layers, use, route, fn in (
+            (96, 128, 1, None, 'enc5', 'lstm_enc'),
+            (128, 128, 2, None, 'cat', 'lstm_cat'),
+            (256, 256, 1, False, 'off', None),
+            (256, 256, 1, None, 'enc5', 'lstm_enc_stream'),
+            (256, 256, 1, True, 'enc5', 'lstm_enc_stream')):
         what = (f'input {lstm_input}, hidden {hidden}, {layers} layer(s), '
             f'use_kernel={use}')
         ppo, data = make_trainer(torch, hidden=hidden, lstm_kernel='enc5',
@@ -805,9 +929,9 @@ def run_default_routes(torch, card):
         launches = {fn: n for k in KERNELS for fn, n in k.fn_launches.items()}
         want = dict.fromkeys(launches, 0)
         want['gae_forward'] = 1
-        if route != 'off':
-            want[f'lstm_{route[:3]}_forward'] = want[
-                f'lstm_{route[:3]}_backward'] = LSTM_PER_EPOCH * layers
+        if fn is not None:
+            want[f'{fn}_forward'] = want[f'{fn}_backward'] = \
+                LSTM_PER_EPOCH * layers
         if launches != want:
             raise AssertionError(f'{what}: launches {launches}, expected '
                 f'{want}')
@@ -817,25 +941,24 @@ def run_default_routes(torch, card):
             f'{json.dumps({k: v for k, v in launches.items() if v})}; '
             f'losses {json.dumps(losses)}')
         del data
-    for use in (None, True):
-        mod = LSTMWrapper(Default((7, 7), spaces.Discrete(8),
-            hidden_size=256, dtype=torch.bfloat16), obs_shape=(7, 7),
-            input_size=256, hidden_size=256, dtype=torch.bfloat16,
-            use_kernel=use).to(device)
-        before = {fn: n for k in KERNELS for fn, n in k.fn_launches.items()}
-        try:
-            mod(torch.zeros(8, 2, 7, 7, device=device))
-        except ValueError as e:
-            refused = str(e)
-        else:
-            raise AssertionError(f'use_kernel={use} at hidden 256 ran on '
-                f'the card')
-        if before != {fn: n for k in KERNELS
-                for fn, n in k.fn_launches.items()}:
-            raise AssertionError(f'use_kernel={use} at hidden 256 launched '
-                f'a kernel')
-        log(f'LSTMWrapper use_kernel={use}, hidden 256 on the card: '
-            f'refused ({refused})')
+    return launches
+
+
+def log_stream_limits(torch):
+    """lstm_common.STREAM_MAX_HIDDEN and STREAM_ROWS, which the checks
+    and allocations before a launch use, must equal the built library's
+    limits in both dtypes."""
+    from pufferlib_tpu_torch.ops.cuda import lstm_cat, lstm_common
+    got = {}
+    for cdt in (torch.float32, torch.bfloat16):
+        limits = lstm_cat.stream_limits(cdt)
+        want = (lstm_common.STREAM_MAX_HIDDEN[cdt], lstm_common.STREAM_ROWS)
+        if limits != want:
+            raise AssertionError(f'lstm_stream_limits in {cdt}: {limits}, '
+                f'lstm_common: {want}')
+        got[str(cdt)] = limits[0]
+    log(f'streamed LSTM design: largest hidden size {json.dumps(got)}, '
+        f'tiles of {lstm_common.STREAM_ROWS} rows')
 
 
 def check_losses(data, what):
@@ -1273,15 +1396,18 @@ def _host_epochs(torch, ppo_host, data, epochs):
         k.fn_launches.items()}
 
 
-def _host_line(data, what, elapsed, epochs, launches, card):
+def _host_line(data, what, elapsed, epochs, launches, card, split=None):
+    """split: the last timed epoch's (evaluate, train) seconds, where the
+    trainer ran more since"""
     timers, profile = data._timers, data.profile
+    split = split or (timers['evaluate'].prev, timers['train'].prev)
     losses = check_losses(data, what)
     per_epoch = {k: v // epochs for k, v in launches.items() if v}
     log(f'{what}: {epochs * data.config.batch_size / elapsed:.1f} steps/s '
         f'over {epochs} epochs after a warm-up epoch '
         f'({elapsed / epochs * 1e3:.2f} ms/epoch; {os.cpu_count()} host '
-        f'cores); last epoch: evaluate {timers["evaluate"].prev * 1e3:.2f} '
-        f'ms, train {timers["train"].prev * 1e3:.2f} ms; totals: env '
+        f'cores); last epoch: evaluate {split[0] * 1e3:.2f} '
+        f'ms, train {split[1] * 1e3:.2f} ms; totals: env '
         f'{profile.env.elapsed:.2f} s, forward wait '
         f'{profile.eval_forward.elapsed:.2f} s, eval misc '
         f'{profile.eval_misc.elapsed:.2f} s, learn '
@@ -1340,8 +1466,18 @@ def run_atari_phase(torch, card, epochs=2):
     config, H = data.config, a['hidden']
     try:
         elapsed, launches = _host_epochs(torch, ppo_host, data, epochs)
+        # one more update, under the profiler: its kernels' device time,
+        # beside the wall time of the last timed epoch's update
+        split = (data._timers['evaluate'].prev, data._timers['train'].prev)
+        ppo_host.evaluate(data)
+        update = load_tool('profile_torch_trainer').profile_phase(torch,
+            lambda: ppo_host.train(data), split[1] * 1e3)[1]
     finally:
         ppo_host.close(data)
+    log(f'atari update under the profiler: wall {update["wall_ms"]:.2f} ms, '
+        f'kernels {update["device_ms"]:.2f} ms, idle '
+        f'{update["idle_share"]:.3f}, {update["launches"]} launches; top '
+        f'{update["top"]} on {card}')
     minibatches = config.update_epochs * (a['batch_size']
         // a['minibatch_size'])
     want = dict.fromkeys(launches, 0)
@@ -1356,7 +1492,7 @@ def run_atari_phase(torch, card, epochs=2):
         f'{a["num_workers"]} workers, {a["env_batch"]} a recv, native driver,'
         f' pipelined, cpu_offload; Convolutional h{H} + LSTM {H} f32, batch '
         f'{a["batch_size"]}, minibatch {a["minibatch_size"]}, bptt '
-        f'{a["bptt"]})', elapsed, epochs, launches, card)
+        f'{a["bptt"]})', elapsed, epochs, launches, card, split)
     return launches
 
 
@@ -1575,7 +1711,9 @@ def main():
     # the resident kernels refuse, the route that sends the Atari
     # configuration to it, the host trainer's flat GAE at the Atari and
     # a smaller batch, and the native envpool driver
-    stream_runs = check_cat_stream(torch, flush, rng)
+    stream_runs, stream_per_call = check_cat_stream(torch, flush, rng)
+    enc5_stream_runs = check_enc5_stream(torch, flush, rng)
+    log_stream_limits(torch)
     check_conv_routes(torch)
     flat_runs = {N: check_gae_flat(torch, gae, flush, rng, N)
         for N in (16384, 4096)}
@@ -1610,9 +1748,10 @@ def main():
     del data
 
     # phase 9: the default route (use_kernel=None) off the bench shapes:
-    # input 96 (enc5), two layers (cat), and hidden 256, which no kernel
-    # serves
-    run_default_routes(torch, card)
+    # input 96 (enc5), two layers (cat), hidden 256 with use_kernel=False
+    # (the plain scan), and hidden 256 by default and with use_kernel=True
+    # (enc5's streamed design)
+    route_launches = run_default_routes(torch, card)
 
     # phase 10: the LSTM validation path, at its full settings
     validation_launches = run_validation_path(torch)
@@ -1736,25 +1875,40 @@ def main():
             bound_ms=main[f'{part}_bound'], bound_by=main[f'{part}_by'],
             library_ms=main[f'{part}_lib'], shape=main['shape']))
     # cat's streamed design (csrc/lstm_cat_stream.cu): the Atari update's
-    # shape in f32, as phase 14 runs it; one C call is T launches of its
-    # step kernel (the backward 2T + 3)
+    # shape in f32, as phase 14 runs it; enc5's at the default route's
+    # hidden 256 in bf16, as phase 9 runs it. A C call is a constant
+    # number of kernels (kernels_per_call); the times are one call's
     atari = stream_runs[(16, 256, 512, 512), 'float32']
-    for part in ('fwd', 'bwd'):
-        name = 'forward' if part == 'fwd' else 'backward'
-        kernels.append(dict(name=f'lstm_cat_stream_{name}', route='cuda',
+    enc5_256 = enc5_stream_runs[(16, 8192, 49, 256, 256), 'bfloat16']
+    for fn, part, replaces, launches, main, runs in (
+            ('lstm_cat_stream_forward', 'fwd', 'lstm_cat.py:131',
+                atari_launches['lstm_cat_stream_forward'], atari,
+                stream_runs),
+            ('lstm_cat_stream_backward', 'bwd', 'lstm_cat.py:185',
+                atari_launches['lstm_cat_stream_backward'], atari,
+                stream_runs),
+            ('lstm_enc_stream_forward', 'fwd', 'lstm_enc.py:170',
+                route_launches['lstm_enc_stream_forward'], enc5_256,
+                enc5_stream_runs),
+            ('lstm_enc_stream_backward', 'bwd', 'lstm_enc5.py:147',
+                route_launches['lstm_enc_stream_backward'], enc5_256,
+                enc5_stream_runs)):
+        kernels.append(dict(name=fn, route='cuda',
             source='pufferlib_tpu_torch/csrc/lstm_cat_stream.cu',
-            replaces='pufferlib_tpu/ops/pallas/lstm_cat.py:'
-                + ('131' if part == 'fwd' else '185'),
-            launches=atari_launches[f'lstm_cat_stream_{name}'],
-            max_abs_err=max(r[f'{part}_err'] for r in stream_runs.values()),
-            ms=atari[f'{part}_ms'], plain_ms=atari[f'{part}_plain_ms'],
-            bound_ms=atari[f'{part}_bound'], bound_by=atari[f'{part}_by'],
-            library_ms=atari[f'{part}_lib'], shape=atari['shape']))
+            replaces=f'pufferlib_tpu/ops/pallas/{replaces}',
+            launches=launches,
+            max_abs_err=max(r[f'{part}_err'] for r in runs.values()),
+            ms=main[f'{part}_ms'], plain_ms=main[f'{part}_plain_ms'],
+            bound_ms=main[f'{part}_bound'], bound_by=main[f'{part}_by'],
+            library_ms=main[f'{part}_lib'], shape=main['shape']))
+    kernels[-4]['kernels_per_call'] = stream_per_call['float32'][16][0]
+    kernels[-3]['kernels_per_call'] = stream_per_call['float32'][16][1]
     print(json.dumps({'kernels': kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu',
         'kind': torch.cuda.get_device_name(0),
-        'count': torch.cuda.device_count()}}), flush=True)
+        'count': torch.cuda.device_count()},
+        'profiler_lost': PROFILER_LOST}), flush=True)
     return 0
 
 
@@ -1860,10 +2014,11 @@ def check_card_against_cpu(torch, np):
 
 def check_lstm_card_against_cpu(torch, np):
     """One recurrent update (time slabs, T = 16 per minibatch, N = 256,
-    hidden 32, f32) through the enc5 and the cat kernels on the card and
-    through their plain versions on the CPU, from the same weights and
-    batch. Params within 1e-4, as the MLP update: the same f32 math with
-    sums in other orders, through Adam."""
+    f32) through the enc5 and the cat kernels at hidden 32 and through
+    enc5's streamed design at hidden 256 on the card, and through their
+    plain versions on the CPU, from the same weights and batch. Params
+    within 1e-4, as the MLP update: the same f32 math with sums in other
+    orders, through Adam."""
     T, N, mb, h = 32, 256, 4096, 16
     rng = np.random.RandomState(2)
     batch = dict(
@@ -1876,30 +2031,42 @@ def check_lstm_card_against_cpu(torch, np):
         done=(rng.rand(T, N) < 0.3).astype(np.float32),
         last_value=(rng.randn(N) * 0.3).astype(np.float32),
     )
-    lstm0 = (rng.randn(2, T // h, 1, N, 32) * 0.5).astype(np.float32)
-    for kernel in ('enc5', 'cat'):
+    lstm0 = {32: (rng.randn(2, T // h, 1, N, 32) * 0.5).astype(np.float32)}
+    lstm0[256] = (rng.randn(2, T // h, 1, N, 256) * 0.5).astype(np.float32)
+    from pufferlib_tpu_torch.ops.cuda import KERNELS
+    for kernel, hidden, fn in (('enc5', 32, 'lstm_enc'),
+            ('cat', 32, 'lstm_cat'), ('enc5', 256, 'lstm_enc_stream')):
         results = []
         for device in ('cpu', 'cuda'):
-            ppo, data = make_trainer(torch, num_envs=N, horizon=T, hidden=32,
-                dtype_name='float32', minibatch_size=mb, device=device,
-                lstm_kernel=kernel, lstm_use_kernel=True)
+            ppo, data = make_trainer(torch, num_envs=N, horizon=T,
+                hidden=hidden, dtype_name='float32', minibatch_size=mb,
+                device=device, lstm_kernel=kernel, lstm_use_kernel=True)
             b = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
-            b['lstm0'] = tuple(torch.from_numpy(s).to(device) for s in lstm0)
+            b['lstm0'] = tuple(torch.from_numpy(s).to(device)
+                for s in lstm0[hidden])
+            for k in KERNELS:
+                k.reset_counts()
             stats = data.update_fn(b, 3e-3)
             results.append((
                 {k: v.detach().cpu() for k, v in
                     data.policy.state_dict().items()},
                 {k: v.item() for k, v in stats.items()}))
+        launched = {name: n for k in KERNELS
+            for name, n in k.fn_launches.items() if n}
+        if not launched.get(f'{fn}_forward') or not launched.get(
+                f'{fn}_backward'):
+            raise AssertionError(f'recurrent update kernel={kernel} hidden '
+                f'{hidden}: {fn} not launched ({launched})')
         (cpu_params, cpu_stats), (gpu_params, gpu_stats) = results
         err = max((cpu_params[k] - gpu_params[k]).abs().max().item()
             for k in cpu_params)
         stat_err = max(abs(cpu_stats[k] - gpu_stats[k]) for k in cpu_stats)
         if not err <= 1e-4:
             raise AssertionError(f'recurrent update on the card vs CPU '
-                f'(kernel={kernel}): params differ by {err}')
-        log(f'recurrent update card vs CPU, f32, kernel={kernel}: params max '
-            f'abs diff {err:.3g} (tol 1e-4), stats max abs diff '
-            f'{stat_err:.3g}')
+                f'(kernel={kernel}, hidden {hidden}): params differ by {err}')
+        log(f'recurrent update card vs CPU, f32, kernel={kernel}, hidden '
+            f'{hidden} ({fn}): params max abs diff {err:.3g} (tol 1e-4), '
+            f'stats max abs diff {stat_err:.3g}')
 
 
 if __name__ == '__main__':

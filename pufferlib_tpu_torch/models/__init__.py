@@ -29,8 +29,7 @@ from pufferlib_tpu_torch.models.policy import (
     Policy, RecurrentPolicy, count_params)
 from pufferlib_tpu_torch.ops.cuda.lstm_cat import lstm_scan_cat
 from pufferlib_tpu_torch.ops.cuda.lstm_common import (
-    cat_shape_error, cell_shape_error, encoder_shape_error, gate_activations,
-    round_to)
+    cat_shape_error, enc5_shape_error, gate_activations, round_to)
 from pufferlib_tpu_torch.ops.cuda.lstm_enc import lstm_scan_enc5
 from pufferlib_tpu_torch.ops.cuda.mlp import mlp_head
 
@@ -50,48 +49,38 @@ def lstm_route(kernel, use_kernel, device, T, D, H, F, num_layers, cdt):
     hidden_size; F: the encoder's feature width when the policy has the
     encoder_features / encoder_params contract, else None; cdt: the
     compute dtype. enc5 needs to fuse the encoder: one layer and the
-    contract; otherwise its place goes to cat. Its reach on the card is
-    lstm_common.encoder_shape_error's: in bf16 the tensor-core kernels'
-    (D a multiple of 8 up to tc_max_input(H), F up to
-    tc_max_features()), in f32 the FMA kernels' (D == H, F <= 128), as
-    the JAX package runs enc5 at any D and F. cat's reach is its two
-    designs' (lstm_common.cat_shape_error): the resident-weight kernels,
-    else the streamed ones (any D, H a multiple of 32). Where enc5 can
-    fuse but refuses the shape, the JAX package still runs enc5, so the
-    default takes cat there only where the resident kernels serve (in
-    bf16, more than tc_max_features() features), never the streamed
-    design: enc5 at H > 128 raises.
+    contract; otherwise its place goes to cat. Where enc5 can fuse it
+    runs, as the JAX package runs enc5 at any D, H and F: its reach on
+    the card is its two designs' (lstm_common.enc5_shape_error), the
+    resident kernels (lstm_common.encoder_shape_error) else the streamed
+    ones; cat's likewise (lstm_common.cat_shape_error). The streamed
+    design takes any D and F and every hidden size that is a multiple of
+    32 up to lstm_common.STREAM_MAX_HIDDEN (800 in f32, 1472 in bf16), so
+    only other hidden sizes raise.
     - T == 1, use_kernel False, or kernel 'off': 'off' (at T == 1 the
       plain combined-operand step). These are the only ways to the plain
       scan on the card: the caller asks for it.
     - use_kernel True: the selected kernel, or cat where enc5 cannot fuse.
       On the card a shape that kernel refuses raises ValueError; on the
       CPU its plain version runs.
-    - use_kernel None: 'off' off the card. On the card the first kernel
-      that serves the shape, from the selected one on: enc5 (where it can
-      fuse), then cat; a shape neither serves raises ValueError, which
-      names use_kernel=False, the way to the plain scan."""
+    - use_kernel None: 'off' off the card. On the card enc5 where it can
+      fuse, else cat; a shape that kernel refuses raises ValueError,
+      which names use_kernel=False, the way to the plain scan."""
     if T == 1 or use_kernel is False or kernel == 'off':
         return 'off'
     fuse = kernel == 'enc5' and num_layers == 1 and F is not None
-    on_card = torch.device(device).type == 'cuda'
-    if use_kernel:
-        if on_card:
-            err = encoder_shape_error(F, D, H, cdt) if fuse \
-                else cat_shape_error(D, H, cdt)
-            if err is not None:
-                raise ValueError(err)
-        return 'enc5' if fuse else 'cat'
-    if not on_card:
-        return 'off'
-    if fuse and encoder_shape_error(F, D, H, cdt) is None:
-        return 'enc5'
-    err = cell_shape_error(D, H, cdt) if fuse else cat_shape_error(D, H, cdt)
+    route = 'enc5' if fuse else 'cat'
+    if torch.device(device).type != 'cuda':
+        return route if use_kernel else 'off'
+    err = enc5_shape_error(F, D, H, cdt) if fuse \
+        else cat_shape_error(D, H, cdt)
     if err is not None:
+        if use_kernel:
+            raise ValueError(err)
         raise ValueError(f'{err}; no CUDA LSTM kernel serves this shape: '
             f'pass use_kernel=False (or kernel=\'off\') to run the plain '
             f'scan on the card')
-    return 'cat'
+    return route
 
 
 def _action_info(action_space):
@@ -259,9 +248,9 @@ class LSTMWrapper(nn.Module):
     kernel: 'enc5' (the default), 'cat' or 'off', the counterpart of the
     JAX PUFFER_LSTM_KERNEL. use_kernel (None, True or False), the
     counterpart of use_pallas. lstm_route decides, from shapes: None runs
-    a kernel where the input lies on CUDA and T > 1 ('enc5' first where
-    it can fuse and serves the shape, then 'cat') and raises on the card
-    for a shape neither serves; True runs the selected kernel and raises
+    a kernel where the input lies on CUDA and T > 1 ('enc5' where it can
+    fuse, else 'cat') and raises on the card for a shape that kernel
+    does not serve; True runs the selected kernel and raises
     on the card for a shape it refuses; False runs the 'off' scan, on the
     card too. 'enc5' fuses the policy's encoder into the LSTM
     kernel (one layer, a policy with the encoder_features /

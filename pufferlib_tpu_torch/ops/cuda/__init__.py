@@ -8,7 +8,7 @@ kernel's plain PyTorch version for tensors on the CPU.
 | mlp.KERNEL        | pufferlib_tpu/ops/pallas/mlp.py:80         |
 | lstm_enc.KERNEL   | pufferlib_tpu/ops/pallas/lstm_enc.py:170 (forward), lstm_enc5.py:147 (enc5 backward), lstm_enc.py:241 (enc backward) |
 | lstm_cat.KERNEL   | pufferlib_tpu/ops/pallas/lstm_cat.py:131 (forward), :185 (backward) |
-| lstm_cat.STREAM_KERNEL | the same, at the shapes lstm_cat.KERNEL refuses (hidden sizes past 128, other input widths) |
+| lstm_cat.STREAM_KERNEL | lstm_cat.py:131 and :185 (lstm_cat_stream_*), lstm_enc.py:170 and lstm_enc5.py:147 (lstm_enc_stream_*), at the shapes lstm_cat.KERNEL and lstm_enc.KERNEL refuse (hidden sizes past 128, other input and feature widths) |
 | lstm_scan.KERNEL  | pufferlib_tpu/ops/pallas/lstm.py:185 (lstm_scan forward), :236 (backward), :407 (lstm_scan_fused forward), :464 (backward) |
 | archive.KERNEL    | pufferlib_tpu/ops/pallas/archive/lstm_enc2.py:176 (forward), :246 (backward), lstm_enc3.py:132, lstm_enc4.py:142, lstm_enc6.py:161 (backwards), lstm_tm.py:137 (forward), :181 (backward) |
 

@@ -25,13 +25,15 @@ dx and dW as GEMMs around a reverse loop), at any input width D that is
 a multiple of 8 up to lstm_common.tc_max_input(H); in f32, the exact test
 mode, lstm_common.cuh's FMA cell kernels, which take D == H. These hold
 the weights in shared memory and take hidden sizes 32, 64 and 128. Every
-other shape with a hidden size that is a multiple of 32 and any input
-width runs the second design, csrc/lstm_cat_stream.cu (STREAM_KERNEL),
-in both dtypes: one launch a time step, the weights streamed from L2, the
-cell update local to a block that owns 32 hidden units with their four
-gate columns; the backward's dh_prev a second launch a step, dx and dW
-GEMMs after the loop. The wrapper picks the design by shape
-(lstm_common.cat_design) and raises where neither serves.
+other shape with a hidden size that is a multiple of 32 (up to
+lstm_common.STREAM_MAX_HIDDEN) and any input width runs the second
+design, csrc/lstm_cat_stream.cu (STREAM_KERNEL), in both dtypes: the
+input products as GEMMs over all T*B rows outside the recurrence, and
+the recurrence as one persistent launch whose blocks each hold a slice
+of W_hh in shared memory for every step and meet at a barrier a step
+(bf16 on the tensor cores, f32 on FMA). The wrapper picks the design by
+shape (lstm_common.cat_design) and raises where neither serves. The
+same file carries enc5's streamed pair (lstm_enc.py).
 
 lstm_cat_reference and lstm_cat_backward_reference are the plain
 versions: explicit PyTorch that follows the TPU kernels' math and
@@ -39,15 +41,18 @@ rounding points (not autograd of the forward). The autograd.Function runs
 them for tensors on the CPU; for CUDA tensors it launches the kernels or
 raises. chip_smoke.py holds the kernels against them on the card.
 """
+import ctypes
+
 import torch
 
 from pufferlib_tpu_torch.ops.cuda._build import CudaKernel, I, P
 from pufferlib_tpu_torch.ops.cuda._build import ptr, ptr_or_null, stream_handle
 from pufferlib_tpu_torch.ops.cuda.lstm_common import (
-    BACKWARD_PHASES, FORWARD_PHASES, STREAM_UNITS, backward_inputs,
+    BACKWARD_PHASES, FORWARD_PHASES, STREAM_ROWS, backward_inputs,
     cat_design, cat_shape_error, cell_backward_step, check_cell_inputs,
     forward_outputs, gate_activations, launch_cell_backward,
-    launch_cell_forward, round_to, scan_forward, stream_shape_error)
+    launch_cell_forward, round_to, scan_forward, stream_shape_error,
+    stream_splits)
 
 __all__ = ['lstm_scan_cat', 'lstm_cat_reference',
     'lstm_cat_backward_reference', 'KERNEL', 'STREAM_KERNEL']
@@ -60,10 +65,17 @@ KERNEL = CudaKernel('lstm_cat.cu', {
     # not a launch: the widest input lstm_tc.cuh serves at a hidden size
     'lstm_tc_max_input': [I, P],
 })
-# the second design, for the shapes KERNEL refuses
+# the second design, for the shapes KERNEL refuses, and enc5's (lstm_enc.py)
 STREAM_KERNEL = CudaKernel('lstm_cat_stream.cu', {
-    'lstm_cat_stream_forward': [P] * 10 + [I] * 5 + [P],
-    'lstm_cat_stream_backward': [P] * 18 + [I] * 5 + [P],
+    'lstm_cat_stream_forward': [P] * 13 + [I] * 5 + [P],
+    'lstm_cat_stream_backward': [P] * 20 + [I] * 6 + [P],
+    'lstm_enc_stream_forward': [P] * 16 + [I] * 6 + [P],
+    'lstm_enc_stream_backward': [P] * 25 + [I] * 8 + [P],
+    # not a launch: the largest hidden size the streamed loops take and
+    # the batch rows of their tiles
+    'lstm_stream_limits': [I, P],
+    # not a launch: the kernels the library has launched so far
+    'lstm_stream_kernels': [P],
 })
 
 
@@ -112,39 +124,72 @@ def _launch_backward(x, h0, c0, w_ih, w_hh, b, outs, cseq, g_outs, g_hT,
         w_hh, b, outs, cseq, g_outs, g_hT, g_cT, cdt, phases)
 
 
-def _check_stream(x, h0):
-    if x.device.type != 'cuda':
-        raise ValueError(f'no LSTM kernel for device {x.device}')
-    err = stream_shape_error(x.shape[2], h0.shape[1])
+def check_stream(device, D, H, cdt):
+    """Raise for a launch of the streamed design that it does not serve."""
+    if device.type != 'cuda':
+        raise ValueError(f'no LSTM kernel for device {device}')
+    err = stream_shape_error(D, H, cdt)
     if err is not None:
         raise ValueError(err)
 
 
+def stream_forward_scratch(T, B, H, cdt, device):
+    """The streamed forward's f32 slab (T*B*4H,), the sums over x that
+    the loop leaves as the gates for the backward, and its scratch: h0
+    rounded to cdt (B, H) and a barrier counter per row group (at most one
+    per tile of STREAM_ROWS rows)."""
+    return (torch.empty((T * B * 4 * H,), dtype=torch.float32,
+        device=device), torch.empty((B, H), dtype=cdt, device=device),
+        stream_counters(B, device))
+
+
+def stream_counters(B, device):
+    return torch.empty((-(-B // STREAM_ROWS),), dtype=torch.int32,
+        device=device)
+
+
+def stream_backward_scratch(T, B, D, H, cdt, device):
+    """The streamed backward's scratch: the dgates (T, B, 4H) in cdt, a
+    row of db partial sums per step and tile, the split count of dW and its
+    partial sums (None for one split), and the barrier counters."""
+    G = 4 * H
+    f32 = dict(dtype=torch.float32, device=device)
+    splits = stream_splits(D + H, G, T * B, device)
+    return (torch.empty((T, B, G), dtype=cdt, device=device),
+        torch.empty((T * -(-B // STREAM_ROWS), G), **f32), splits,
+        torch.empty((splits, D + H, G), **f32) if splits > 1 else None,
+        stream_counters(B, device))
+
+
 def _launch_stream_forward(x, h0, c0, w_ih, w_hh, b, cdt, save_cseq=True):
-    """The streamed design's forward (lstm_cat_stream_forward): (outs, hT,
-    cT, cseq); T launches of its step kernel, counted as one call."""
-    _check_stream(x, h0)
+    """The streamed design's forward (lstm_cat_stream_forward, three
+    kernels): (outs, hT, cT, cseq, gates), gates the f32 slab (T*B*4H,)
+    of every step's gate pre-activations that _launch_stream_backward
+    takes."""
     T, B, D = x.shape
     H = h0.shape[1]
+    check_stream(x.device, D, H, cdt)
     outs, hT, cT, cseq = forward_outputs(T, h0, c0, cdt, save_cseq)
+    gates, h_first, count = stream_forward_scratch(T, B, H, cdt, x.device)
     if B > 0:
         STREAM_KERNEL.launch('lstm_cat_stream_forward', ptr(x), ptr(h0),
             ptr(c0), ptr(w_ih), ptr(w_hh), ptr(b), ptr(outs),
-            ptr_or_null(cseq), ptr(hT), ptr(cT), T, B, D, H,
-            int(cdt == torch.bfloat16), stream_handle(x))
-    return outs, hT, cT, cseq
+            ptr_or_null(cseq), ptr(hT), ptr(cT), ptr(gates), ptr(h_first),
+            ptr(count), T, B, D, H, int(cdt == torch.bfloat16),
+            stream_handle(x))
+    return outs, hT, cT, cseq, gates
 
 
 def _launch_stream_backward(x, h0, c0, w_ih, w_hh, b, outs, cseq, g_outs,
-        g_hT, g_cT, cdt):
-    """The streamed design's backward (lstm_cat_stream_backward): (dx, dh0,
-    dc0, dW_ih, dW_hh, db). Scratch: the dgates (T, B, 4H) in cdt and one
-    row of db partial sums per step and block of 32 rows."""
-    _check_stream(x, h0)
+        g_hT, g_cT, cdt, gates):
+    """The streamed design's backward (lstm_cat_stream_backward, five or
+    six kernels) from its forward's outs, cseq and gates: (dx, dh0, dc0,
+    dW_ih, dW_hh, db)."""
     T, B, D = x.shape
     H = h0.shape[1]
     G = 4 * H
     dev = x.device
+    check_stream(dev, D, H, cdt)
     dx = torch.empty_like(x)
     dh0 = torch.empty_like(h0)
     dc0 = torch.empty_like(c0)
@@ -152,27 +197,49 @@ def _launch_stream_backward(x, h0, c0, w_ih, w_hh, b, outs, cseq, g_outs,
     db = torch.empty((G,), dtype=torch.float32, device=dev)
     if B == 0:
         return dx, dh0, dc0, dw[:D].zero_(), dw[D:].zero_(), db.zero_()
-    dg = torch.empty((T, B, G), dtype=cdt, device=dev)
-    db_part = torch.empty((T * -(-B // STREAM_UNITS), G),
-        dtype=torch.float32, device=dev)
+    dg, db_part, splits, dw_part, count = stream_backward_scratch(T, B, D, H,
+        cdt, dev)
     STREAM_KERNEL.launch('lstm_cat_stream_backward', ptr(x), ptr(h0),
-        ptr(c0), ptr(w_ih), ptr(w_hh), ptr(b), ptr(outs), ptr(cseq),
+        ptr(c0), ptr(w_ih), ptr(w_hh), ptr(outs), ptr(cseq), ptr(gates),
         ptr(g_outs), ptr(g_hT), ptr(g_cT), ptr(dx), ptr(dh0), ptr(dc0),
-        ptr(dw), ptr(db), ptr(dg), ptr(db_part), T, B, D, H,
-        int(cdt == torch.bfloat16), stream_handle(x))
+        ptr(dw), ptr(db), ptr(dg), ptr(db_part), ptr_or_null(dw_part),
+        ptr(count), splits, T, B, D, H, int(cdt == torch.bfloat16),
+        stream_handle(x))
     return dx, dh0, dc0, dw[:D], dw[D:], db
 
 
+def stream_limits(cdt):
+    """(largest hidden size, batch rows of a loop tile) of the streamed
+    loops in cdt, from the built library (lstm_stream_limits):
+    lstm_common.STREAM_MAX_HIDDEN[cdt] and STREAM_ROWS must equal them."""
+    out = (ctypes.c_int * 2)()
+    STREAM_KERNEL.lib().lstm_stream_limits(int(cdt == torch.bfloat16), out)
+    return out[0], out[1]
+
+
+def kept_gates(forward, backward):
+    """A streamed pair's launchers (this module's or lstm_enc's) with the
+    other designs' signatures: the forward's gates (its fifth output) go
+    to the next backward call, as the autograd Functions pass them."""
+    last = {}
+
+    def fwd(*args):
+        *out, last['gates'] = forward(*args)
+        return tuple(out)
+
+    def bwd(*args):
+        return backward(*args, last['gates'])
+    return fwd, bwd
+
+
 def _design(x, h0, cdt):
-    """The launchers of the design that serves x's shape on the card:
-    (forward, backward); raises where neither does."""
+    """The design that serves x's shape on the card: 'resident' or
+    'stream'; raises where neither does."""
     D, H = x.shape[2], h0.shape[1]
     err = cat_shape_error(D, H, cdt)
     if err is not None:
         raise ValueError(err)
-    if cat_design(D, H, cdt) == 'resident':
-        return _launch_forward, _launch_backward
-    return _launch_stream_forward, _launch_stream_backward
+    return cat_design(D, H, cdt)
 
 
 class _LSTMCat(torch.autograd.Function):
@@ -180,23 +247,28 @@ class _LSTMCat(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, h0, c0, w_ih, w_hh, b, cdt):
         check_cell_inputs(x, h0, c0, w_ih, w_hh, b, cdt)
+        args = (x, h0, c0, w_ih, w_hh, b, cdt)
+        gates = None
         if x.device.type == 'cpu':
-            outs, hT, cT, cseq = lstm_cat_reference(x, h0, c0, w_ih, w_hh,
-                b, cdt)
+            outs, hT, cT, cseq = lstm_cat_reference(*args)
             ctx.launch_backward = lstm_cat_backward_reference
+        elif _design(x, h0, cdt) == 'resident':
+            outs, hT, cT, cseq = _launch_forward(*args)
+            ctx.launch_backward = _launch_backward
         else:
-            launch_forward, ctx.launch_backward = _design(x, h0, cdt)
-            outs, hT, cT, cseq = launch_forward(x, h0, c0, w_ih, w_hh, b,
-                cdt)
-        ctx.save_for_backward(x, h0, c0, w_ih, w_hh, b, outs, cseq)
+            # the streamed backward takes the gates its forward kept
+            outs, hT, cT, cseq, gates = _launch_stream_forward(*args)
+            ctx.launch_backward = _launch_stream_backward
+        ctx.save_for_backward(x, h0, c0, w_ih, w_hh, b, outs, cseq, gates)
         ctx.cdt = cdt
         return outs, hT, cT
 
     @staticmethod
     def backward(ctx, g_outs, g_hT, g_cT):
-        x, h0, c0, w_ih, w_hh, b, outs, cseq = ctx.saved_tensors
+        x, h0, c0, w_ih, w_hh, b, outs, cseq, gates = ctx.saved_tensors
+        kept = () if gates is None else (gates,)
         grads = ctx.launch_backward(x, h0, c0, w_ih, w_hh, b, outs, cseq,
-            *backward_inputs(outs, g_outs, g_hT, g_cT), ctx.cdt)
+            *backward_inputs(outs, g_outs, g_hT, g_cT), ctx.cdt, *kept)
         return (*grads, None)
 
 

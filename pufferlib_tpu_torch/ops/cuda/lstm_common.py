@@ -241,21 +241,43 @@ def cell_shape_error(D, H, cdt):
         else fma_shape_error(D, H)
 
 
-# hidden units a block of the streamed cat design owns (csrc/
-# lstm_cat_stream.cu UB): its hidden size is a multiple of it
+# The streamed design (csrc/lstm_cat_stream.cu) for the shapes the
+# resident-weight kernels refuse: its hidden size is a multiple of
+# STREAM_UNITS up to STREAM_MAX_HIDDEN, where both persistent loops' slice
+# of W_hh and their two operand stages still fit a block's shared memory;
+# its loops walk tiles of STREAM_ROWS batch rows, by which the launchers
+# size the barrier counters and db's partial sums. The checks and
+# allocations before a launch need these without the library: the C
+# function lstm_stream_limits gives them, and tests/test_torch_cuda.py and
+# chip_smoke.py hold the two equal on the card.
 STREAM_UNITS = 32
+STREAM_MAX_HIDDEN = {torch.float32: 800, torch.bfloat16: 1472}
+STREAM_ROWS = 64
 
 
-def stream_shape_error(D, H):
-    """Why the streamed cat design (csrc/lstm_cat_stream.cu, both dtypes:
-    weights streamed from L2, not held in shared memory) refuses input
-    width D and hidden size H, or None: any D >= 1, H a multiple of
-    STREAM_UNITS."""
-    if H < STREAM_UNITS or H % STREAM_UNITS or D < 1:
-        return (f'the streamed CUDA cat kernels take hidden sizes that are '
-            f'multiples of {STREAM_UNITS} and any input width; got input '
-            f'{D}, hidden {H}')
+def stream_shape_error(D, H, cdt):
+    """Why the streamed design (csrc/lstm_cat_stream.cu, both dtypes:
+    W_hh's slices held across a persistent grid, the input products as
+    GEMMs outside the recurrence) refuses input width D and hidden size H
+    in cdt, or None: any D >= 1, H a multiple of STREAM_UNITS up to
+    STREAM_MAX_HIDDEN[cdt]."""
+    top = STREAM_MAX_HIDDEN[cdt]
+    if H < STREAM_UNITS or H % STREAM_UNITS or H > top or D < 1:
+        return (f'the streamed CUDA LSTM kernels take hidden sizes that are '
+            f'multiples of {STREAM_UNITS} up to {top} in '
+            f'{str(cdt).replace("torch.", "")} and any input width; got '
+            f'input {D}, hidden {H}')
     return None
+
+
+def stream_splits(M, N, K, device):
+    """K-splits of the streamed design's (M, N) weight-gradient GEMM over
+    K = T*B rows: about two blocks of 128 x 128 outputs per SM, at least
+    1024 rows each. The partial sums are added in split order by a second
+    pass, so the result does not depend on the schedule."""
+    tiles = math.ceil(M / 128) * math.ceil(N / 128)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, min(math.ceil(2 * sms / tiles), K // 1024))
 
 
 def cat_shape_error(D, H, cdt):
@@ -265,7 +287,7 @@ def cat_shape_error(D, H, cdt):
     resident = cell_shape_error(D, H, cdt)
     if resident is None:
         return None
-    stream = stream_shape_error(D, H)
+    stream = stream_shape_error(D, H, cdt)
     return None if stream is None else f'{resident}; {stream}'
 
 
@@ -302,6 +324,27 @@ def encoder_shape_error(F, D, H, cdt):
     kernels run on the tensor cores, their f32 ones on FMA."""
     return tc_encoder_shape_error(F, D, H) if cdt == torch.bfloat16 \
         else fma_encoder_shape_error(F, D, H)
+
+
+def enc5_shape_error(F, D, H, cdt):
+    """Why neither design of the enc5 pair serves F features, encoder
+    width D and hidden size H in cdt, or None: the resident kernels
+    (encoder_shape_error) where they serve, else the streamed ones (any F
+    and D, stream_shape_error's H)."""
+    resident = encoder_shape_error(F, D, H, cdt)
+    if resident is None:
+        return None
+    stream = stream_shape_error(D, H, cdt) if F >= 1 else \
+        f'the streamed CUDA LSTM kernels take at least one feature, got {F}'
+    return None if stream is None else f'{resident}; {stream}'
+
+
+def enc5_design(F, D, H, cdt):
+    """'resident' where lstm_enc.cu's enc5 kernels serve (F, D, H) in cdt,
+    else 'stream' (csrc/lstm_cat_stream.cu); call after
+    enc5_shape_error."""
+    return 'resident' if encoder_shape_error(F, D, H, cdt) is None \
+        else 'stream'
 
 
 def _refuse(device, err):

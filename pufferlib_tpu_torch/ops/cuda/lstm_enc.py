@@ -37,6 +37,16 @@ backward in both dtypes, the FMA kernels of csrc/lstm_common.cuh run,
 with D == H and at most KERNEL_MAX_FEATURES features; lstm_scan_enc's
 forward shares enc5's C function but keeps its backward's reach.
 
+Every other enc5 shape whose hidden size is a multiple of 32 (up to
+lstm_common.STREAM_MAX_HIDDEN), at any F and D, in both dtypes, runs
+enc5's streamed pair in csrc/lstm_cat_stream.cu (lstm_enc_stream_forward
+/ lstm_enc_stream_backward): the encoder as a GEMM over all T*B rows with
+a bias + relu + round epilogue, then cat's streamed forward on its
+output; the backward recomputes it, runs cat's streamed backward in enc5
+mode (the activations rounded to cdt, db from the rounded dgates), then
+dpre = round(relu-mask(dx)), dW_enc and db_enc as [feats | 1]^T dpre.
+lstm_scan_enc5 picks the design by shape (lstm_common.enc5_design).
+
 lstm_enc_reference, lstm_enc_backward_reference and
 lstm_scan_enc_backward_reference are the plain versions: explicit PyTorch
 that follows the TPU kernels' math and rounding points. The
@@ -53,8 +63,12 @@ from pufferlib_tpu_torch.ops.cuda.lstm_common import (
     BACKWARD_PHASES, FORWARD_PHASES, KERNEL_MAX_FEATURES, TC_ROWS_PER_BLOCK,
     backward_inputs, blocks, cell_backward_step, check_encoder_inputs,
     check_encoder_kernel_shape, check_fma_encoder_kernel_shape, encode,
-    forward_outputs, gate_activations, h_prev_rows, needs_cseq, round_to,
-    scan_forward, splitk_splits, tc_slab)
+    enc5_design, enc5_shape_error, forward_outputs, gate_activations,
+    h_prev_rows, needs_cseq, round_to, scan_forward, splitk_splits,
+    stream_splits, tc_slab)
+from pufferlib_tpu_torch.ops.cuda.lstm_cat import (
+    STREAM_KERNEL, check_stream, stream_backward_scratch,
+    stream_forward_scratch)
 
 __all__ = ['lstm_scan_enc5', 'lstm_scan_enc', 'lstm_enc_reference',
     'lstm_enc_backward_reference', 'lstm_scan_enc_backward_reference',
@@ -272,30 +286,107 @@ def _launch_step_backward(feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b, outs,
     return dh0, dc0, dw_enc, db_enc, dw[:D], dw[D:], db
 
 
+def _launch_stream_forward(feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b, cdt,
+        save_cseq=True):
+    """enc5's streamed forward (lstm_enc_stream_forward, four kernels):
+    (outs, hT, cT, cseq, gates), gates every step's gate pre-activations
+    for _launch_stream_backward. Scratch: the encoded inputs (T, B, D) in
+    cdt and the streamed forward's."""
+    T, B, F = feats.shape
+    H = h0.shape[1]
+    D = w_enc.shape[1]
+    dev = feats.device
+    check_stream(dev, D, H, cdt)
+    outs, hT, cT, cseq = forward_outputs(T, h0, c0, cdt, save_cseq)
+    gates, h_first, count = stream_forward_scratch(T, B, H, cdt, dev)
+    if B > 0:
+        xs = torch.empty((T, B, D), dtype=cdt, device=dev)
+        STREAM_KERNEL.launch('lstm_enc_stream_forward', ptr(feats), ptr(h0),
+            ptr(c0), ptr(w_enc), ptr(b_enc), ptr(w_ih), ptr(w_hh), ptr(b),
+            ptr(outs), ptr_or_null(cseq), ptr(hT), ptr(cT), ptr(xs),
+            ptr(gates), ptr(h_first), ptr(count), T, B, F, D, H,
+            int(cdt == torch.bfloat16), stream_handle(feats))
+    return outs, hT, cT, cseq, gates
+
+
+def _launch_stream_backward(feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b, outs,
+        cseq, g_outs, g_hT, g_cT, cdt, gates):
+    """enc5's streamed backward (lstm_enc_stream_backward, seven to nine
+    kernels) from its forward's outs, cseq and gates: (dh0, dc0, dW_enc,
+    db_enc, dW_ih, dW_hh, db)."""
+    T, B, F = feats.shape
+    H = h0.shape[1]
+    D = w_enc.shape[1]
+    G = 4 * H
+    dev = feats.device
+    check_stream(dev, D, H, cdt)
+    f32 = dict(dtype=torch.float32, device=dev)
+    dh0 = torch.empty_like(h0)
+    dc0 = torch.empty_like(c0)
+    # dW_enc (F, D), then db_enc (D,)
+    dwe = torch.empty((F + 1, D), **f32)
+    dw = torch.empty((D + H, G), **f32)
+    db = torch.empty((G,), **f32)
+    if B == 0:
+        dwe.zero_()
+        return dh0, dc0, dwe[:F], dwe[F], dw[:D].zero_(), dw[D:].zero_(), \
+            db.zero_()
+    xs = torch.empty((T, B, D), dtype=cdt, device=dev)
+    dpre = torch.empty_like(xs)
+    dg, db_part, splits_w, dw_part, count = stream_backward_scratch(T, B, D,
+        H, cdt, dev)
+    splits_e = stream_splits(F + 1, D, T * B, dev)
+    dwe_part = torch.empty((splits_e, F + 1, D), **f32) if splits_e > 1 \
+        else None
+    STREAM_KERNEL.launch('lstm_enc_stream_backward', ptr(feats), ptr(h0),
+        ptr(c0), ptr(w_enc), ptr(b_enc), ptr(w_ih), ptr(w_hh), ptr(outs),
+        ptr(cseq), ptr(gates), ptr(g_outs), ptr(g_hT), ptr(g_cT), ptr(dh0),
+        ptr(dc0), ptr(dwe), ptr(dw), ptr(db), ptr(xs), ptr(dpre), ptr(dg),
+        ptr(db_part), ptr_or_null(dw_part), ptr_or_null(dwe_part),
+        ptr(count), splits_w, splits_e, T, B, F, D, H,
+        int(cdt == torch.bfloat16), stream_handle(feats))
+    return dh0, dc0, dwe[:F], dwe[F], dw[:D], dw[D:], db
+
+
+def _enc5_design(feats, w_enc, H, cdt):
+    """The enc5 design that serves the shape on the card: 'resident' or
+    'stream'; raises where neither does."""
+    F, D = feats.shape[2], w_enc.shape[1]
+    err = enc5_shape_error(F, D, H, cdt)
+    if err is not None:
+        raise ValueError(err)
+    return enc5_design(F, D, H, cdt)
+
+
 class _LSTMEnc5(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b, cdt):
         check_encoder_inputs(feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b, cdt)
         args = (feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b, cdt)
+        gates = None
         if feats.device.type == 'cpu':
             outs, hT, cT, cseq = lstm_enc_reference(*args)
-        else:
+            ctx.launch_backward = lstm_enc_backward_reference
+        elif _enc5_design(feats, w_enc, h0.shape[1], cdt) == 'resident':
             outs, hT, cT, cseq = _launch_forward(*args)
+            ctx.launch_backward = _launch_backward
+        else:
+            # the streamed backward takes the gates its forward kept
+            outs, hT, cT, cseq, gates = _launch_stream_forward(*args)
+            ctx.launch_backward = _launch_stream_backward
         ctx.save_for_backward(feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b,
-            outs, cseq)
+            outs, cseq, gates)
         ctx.cdt = cdt
         return outs, hT, cT
 
     @staticmethod
     def backward(ctx, g_outs, g_hT, g_cT):
-        saved = ctx.saved_tensors
+        *saved, gates = ctx.saved_tensors
         outs = saved[8]
-        args = (*saved, *backward_inputs(outs, g_outs, g_hT, g_cT), ctx.cdt)
-        if saved[0].device.type == 'cpu':
-            grads = lstm_enc_backward_reference(*args)
-        else:
-            grads = _launch_backward(*args)
+        kept = () if gates is None else (gates,)
+        grads = ctx.launch_backward(*saved, *backward_inputs(outs, g_outs,
+            g_hT, g_cT), ctx.cdt, *kept)
         # the feats cotangent is zero by contract
         dfeats = torch.zeros_like(saved[0]) if ctx.needs_input_grad[0] \
             else None

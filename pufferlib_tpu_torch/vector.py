@@ -421,7 +421,9 @@ def make(env_creator, env_args=None, env_kwargs=None, backend=Device,
         device='cuda', **kwargs):
     """Vector engine factory (pufferlib_tpu/vector.py:499). Runs on
     `device`, CUDA unless the caller asks for the CPU. num_workers is
-    accepted for API compatibility; lanes are batched tensors."""
+    accepted for API compatibility; lanes are batched tensors. Any other
+    backend class is built as the reference builds it, with num_envs,
+    batch_size, seed and device."""
     if num_envs < 1 or int(num_envs) != num_envs:
         raise APIUsageError('num_envs must be a positive integer')
     if batch_size is not None and num_envs % batch_size != 0:
@@ -433,9 +435,5 @@ def make(env_creator, env_args=None, env_kwargs=None, backend=Device,
                 '(async env-pool mode) requires the Device backend')
         return Serial(env_creator, env_args, env_kwargs, num_envs=num_envs,
             seed=seed, device=device, **kwargs)
-    if backend is not Device:
-        raise NotImplementedError(
-            'only the Device and Serial backends are ported (ROADMAP, '
-            'queue 1)')
-    return Device(env_creator, env_args, env_kwargs, num_envs=num_envs,
+    return backend(env_creator, env_args, env_kwargs, num_envs=num_envs,
         batch_size=batch_size, seed=seed, device=device, **kwargs)

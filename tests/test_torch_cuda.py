@@ -213,7 +213,7 @@ LSTM_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 
 
 ARCHIVED_ENC = ('enc2', 'enc3', 'enc4', 'enc6')
-ENC_KINDS = ('enc5', 'enc') + ARCHIVED_ENC
+ENC_KINDS = ('enc5', 'enc', 'enc5_stream') + ARCHIVED_ENC
 XP_KINDS = ('scan', 'tm')
 
 
@@ -240,10 +240,16 @@ def _lstm_kinds():
             lstm_cat._launch_backward, lstm_cat.lstm_cat_reference,
             lstm_cat.lstm_cat_backward_reference,
             ('lstm_cat_forward', 'lstm_cat_backward')),
-        'cat_stream': (lstm_cat._launch_stream_forward,
-            lstm_cat._launch_stream_backward, lstm_cat.lstm_cat_reference,
+        'cat_stream': (*lstm_cat.kept_gates(
+            lstm_cat._launch_stream_forward, lstm_cat._launch_stream_backward),
+            lstm_cat.lstm_cat_reference,
             lstm_cat.lstm_cat_backward_reference,
             ('lstm_cat_stream_forward', 'lstm_cat_stream_backward')),
+        'enc5_stream': (*lstm_cat.kept_gates(
+            lstm_enc._launch_stream_forward, lstm_enc._launch_stream_backward),
+            lstm_enc.lstm_enc_reference,
+            lstm_enc.lstm_enc_backward_reference,
+            ('lstm_enc_stream_forward', 'lstm_enc_stream_backward')),
         'fused': (lstm_scan._launch_fused_forward,
             lstm_scan._launch_fused_backward,
             lstm_scan.lstm_scan_fused_reference,
@@ -400,21 +406,24 @@ def test_lstm_cell_launchers_refuse_what_the_kernels_do_not_serve(cuda):
     assert _launches() == before
 
 
-def _check_deterministic(cuda, kind, T, B, H, D=None, F=49):
+def _check_deterministic(cuda, kind, T, B, H, D=None, F=49,
+        cdt=torch.bfloat16, runs=2):
+    """`runs` forward and backward calls on the same inputs: every one
+    equal to the first bit for bit."""
     fwd, bwd = _lstm_kinds()[kind][:2]
-    cdt = torch.bfloat16
     args = _lstm_case(kind, T, B, H, F, cdt, cuda, D=D)
     g = (torch.randn(T, B, H, device=cuda).to(cdt),
         torch.randn(B, H, device=cuda), torch.randn(B, H, device=cuda))
-    runs = []
+    results = []
     with torch.no_grad():
-        for _ in range(2):
+        for _ in range(runs):
             outs, hT, cT, cseq = fwd(*args, cdt)
-            runs.append((outs, hT, cT, cseq)
+            results.append((outs, hT, cT, cseq)
                 + bwd(*args, outs, cseq, *g, cdt))
     torch.cuda.synchronize()
-    for a, w in zip(*runs):
-        assert torch.equal(a, w)
+    for later in results[1:]:
+        for a, w in zip(later, results[0]):
+            assert torch.equal(a, w)
 
 
 @pytest.mark.parametrize('T,B,H', [(16, 1000, 128), (5, 65, 32)])
@@ -471,6 +480,197 @@ def test_lstm_scan_cat_picks_the_design_by_shape(cuda):
     with pytest.raises(ValueError, match='multiples of 32'):
         lstm_scan_cat(*_lstm_case('cat', 2, 8, 100, 49, torch.float32,
             cuda), torch.float32)
+
+
+# enc5's streamed design (csrc/lstm_cat_stream.cu, lstm_enc_stream_*):
+# (T, B, F, D, H) at hidden 256 and 512 with the bench's 49 features, f32's
+# encoder width 96 apart from hidden 128, bf16's 800 features past the
+# tensor-core encoder's 768, minigrid's 147 features in f32, a ragged batch
+# and an odd feature and encoder width
+ENC5_STREAM_SHAPES = [(16, 256, 49, 256, 256), (16, 256, 49, 512, 512),
+    (8, 1000, 49, 96, 128), (8, 1000, 800, 128, 128), (8, 1000, 147, 128, 128),
+    (3, 45, 5, 20, 96)]
+
+
+@pytest.mark.parametrize('T,B,F,D,H', ENC5_STREAM_SHAPES)
+@pytest.mark.parametrize('cdt', [torch.float32, torch.bfloat16])
+def test_enc5_stream_matches_plain(cuda, T, B, F, D, H, cdt):
+    """Forward and every gradient of enc5's streamed design against the
+    plain versions (lstm_enc_reference, lstm_enc_backward_reference): in
+    bf16 the rounded activations and db from the rounded dgates."""
+    _check_lstm_pair(cuda, 'enc5_stream', T, B, H, cdt, D=D, F=F)
+
+
+@pytest.mark.parametrize('T,B,F,D,H', ENC5_STREAM_SHAPES[2:])
+@pytest.mark.parametrize('cdt', [torch.float32, torch.bfloat16])
+def test_enc5_stream_is_deterministic(cuda, T, B, F, D, H, cdt):
+    """enc5's streamed design adds every sum in a fixed order (no atomic
+    touches a value): two runs are equal bit for bit."""
+    _check_deterministic(cuda, 'enc5_stream', T, B, H, D, F, cdt)
+
+
+def test_lstm_scan_enc5_picks_the_design_by_shape(cuda):
+    """lstm_scan_enc5 launches the resident enc5 kernels where they serve
+    and the streamed ones elsewhere (hidden 256, f32 at D != H, bf16 past
+    768 features); a hidden size no design takes raises before a launch."""
+    from pufferlib_tpu_torch.ops.cuda.lstm_enc import lstm_scan_enc5
+    bf16, f32 = torch.bfloat16, torch.float32
+    for F, D, H, cdt, fn in ((49, 128, 128, bf16, 'lstm_enc_forward'),
+            (49, 256, 256, bf16, 'lstm_enc_stream_forward'),
+            (49, 256, 256, f32, 'lstm_enc_stream_forward'),
+            (49, 96, 128, f32, 'lstm_enc_stream_forward'),
+            (800, 128, 128, bf16, 'lstm_enc_stream_forward')):
+        args = _lstm_case('enc5', 2, 8, H, F, cdt, cuda, D=D)
+        before = _launches()
+        with torch.no_grad():
+            lstm_scan_enc5(*args, cdt)
+        after = _launches()
+        assert {k for k in after if after[k] != before[k]} == {fn}
+    before = _launches()
+    with pytest.raises(ValueError, match='multiples of 32'):
+        lstm_scan_enc5(*_lstm_case('enc5', 2, 8, 48, 49, f32, cuda), f32)
+    assert _launches() == before
+
+
+@pytest.mark.parametrize('kind', ['cat', 'enc5'])
+@pytest.mark.parametrize('cdt', [torch.float32, torch.bfloat16])
+def test_stream_autograd_keeps_the_forward_gates(cuda, kind, cdt):
+    """Through autograd, at a shape only the streamed design serves (hidden
+    256), the forward's gates go to the backward: one C call each way, and
+    every gradient within the tolerance of the plain backward's."""
+    from pufferlib_tpu_torch.ops.cuda import lstm_cat, lstm_enc
+    T, B, H = 5, 70, 256
+    fn = lstm_cat.lstm_scan_cat if kind == 'cat' else lstm_enc.lstm_scan_enc5
+    stream_kind = f'{kind}_stream'
+    _, _, fwd_plain, bwd_plain, fns = _lstm_kinds()[stream_kind]
+    args = _lstm_case(stream_kind, T, B, H, 49, cdt, cuda)
+    first = 1 if kind == 'enc5' else 0
+    for t in args[first:]:
+        t.requires_grad_()
+    g = (torch.randn(T, B, H, device=cuda).to(cdt),
+        torch.randn(B, H, device=cuda), torch.randn(B, H, device=cuda))
+    before = _launches()
+    torch.autograd.backward(fn(*args, cdt), g)
+    torch.cuda.synchronize()
+    after = _launches()
+    assert {k for k in after if after[k] != before[k]} == set(fns)
+    assert all(after[f] == before[f] + 1 for f in fns)
+    with torch.no_grad():
+        plain_args = tuple(t.detach() for t in args)
+        want = fwd_plain(*plain_args, cdt)
+        want_g = bwd_plain(*plain_args, want[0], want[3], *g, cdt)
+    for t, w in zip(args[first:], want_g):
+        scale = max(1.0, w.float().abs().max().item())
+        torch.testing.assert_close(t.grad.float(), w.float(), rtol=0,
+            atol=LSTM_TOL[cdt] * scale)
+
+
+def test_stream_limits_match_the_library(cuda):
+    """lstm_common.STREAM_MAX_HIDDEN and STREAM_ROWS, which the checks
+    and allocations before a launch use, must equal the limits the built
+    lstm_cat_stream.cu gives (lstm_stream_limits) in both dtypes."""
+    from pufferlib_tpu_torch.ops.cuda import lstm_cat, lstm_common
+    for cdt in (torch.float32, torch.bfloat16):
+        assert lstm_cat.stream_limits(cdt) == (
+            lstm_common.STREAM_MAX_HIDDEN[cdt], lstm_common.STREAM_ROWS)
+
+
+@pytest.mark.parametrize('kind,shape', [('cat_stream', (16, 256, 512, 512)),
+    ('enc5_stream', (16, 256, 49, 512, 512)),
+    ('enc5_stream', (16, 8192, 49, 256, 256))])
+@pytest.mark.parametrize('cdt', [torch.float32, torch.bfloat16])
+def test_stream_pair_repeats_bit_for_bit(cuda, kind, shape, cdt):
+    """The streamed loops' blocks meet at a barrier on a counter in device
+    memory each step. A block that read h_prev or dg_{t+1} before every
+    block had published it would read stale rows, and runs would differ
+    by timing: twenty runs at the main paths' shapes (the Atari update's,
+    and the default route at hidden 256) are all equal bit for bit."""
+    if kind == 'cat_stream':
+        T, B, D, H = shape
+        _check_deterministic(cuda, kind, T, B, H, D, cdt=cdt, runs=20)
+    else:
+        T, B, F, D, H = shape
+        _check_deterministic(cuda, kind, T, B, H, D, F, cdt, runs=20)
+
+
+# bytes of a pattern on each side of every buffer _GuardedTorch hands out
+GUARD = 4096
+
+
+class _GuardedTorch:
+    """torch, except that empty and empty_like put every tensor in the
+    middle of a buffer with GUARD bytes of 0xA5 on each side, and keep the
+    buffers: a kernel that writes past the end or before the start of any
+    of them changes a guard."""
+
+    def __init__(self):
+        self.buffers = []
+
+    def __getattr__(self, name):
+        return getattr(torch, name)
+
+    def empty(self, *shape, dtype=torch.float32, device=None):
+        if len(shape) == 1 and not isinstance(shape[0], int):
+            shape = tuple(shape[0])
+        return self.guarded(shape, dtype, device)
+
+    def empty_like(self, t):
+        return self.guarded(t.shape, t.dtype, t.device)
+
+    def guarded(self, shape, dtype, device):
+        n = int(np.prod(shape)) * torch.empty((), dtype=dtype).element_size()
+        buf = torch.full((n + 2 * GUARD,), 0xA5, dtype=torch.uint8,
+            device=device)
+        self.buffers.append((buf, n))
+        return buf[GUARD:GUARD + n].view(dtype).view(tuple(shape))
+
+    def overwritten(self):
+        """Indices of the buffers whose guards changed."""
+        torch.cuda.synchronize()
+        return [i for i, (buf, n) in enumerate(self.buffers)
+            if not bool((buf[:GUARD] == 0xA5).all())
+            or not bool((buf[GUARD + n:] == 0xA5).all())]
+
+
+@pytest.mark.parametrize('kind,shape', [('cat_stream', (3, 45, 20, 96)),
+    ('cat_stream', (4, 200, 9, 256)), ('enc5_stream', (3, 45, 5, 20, 96)),
+    ('enc5_stream', (4, 200, 49, 100, 256))])
+@pytest.mark.parametrize('cdt', [torch.float32, torch.bfloat16])
+def test_stream_pair_writes_only_its_buffers(cuda, monkeypatch, kind, shape,
+        cdt):
+    """Every input, output and scratch buffer of a streamed forward and
+    backward call sits between guards; after both calls no guard has
+    changed, at ragged batches (a last tile of 45 or 8 rows of 64) and
+    input widths that are no multiple of 8, and the results still match
+    the plain versions within LSTM_TOL."""
+    from pufferlib_tpu_torch.ops.cuda import lstm_cat, lstm_common, lstm_enc
+    if kind == 'cat_stream':
+        (T, B, D, H), F = shape, 49
+    else:
+        T, B, F, D, H = shape
+    fwd, bwd, fwd_plain, bwd_plain, _ = _lstm_kinds()[kind]
+    guarded = _GuardedTorch()
+    args = tuple(guarded.guarded(t.shape, t.dtype, t.device).copy_(t)
+        for t in _lstm_case(kind, T, B, H, F, cdt, cuda, D=D))
+    g = tuple(guarded.guarded(t.shape, t.dtype, t.device).copy_(t) for t in (
+        torch.randn(T, B, H, device=cuda).to(cdt),
+        torch.randn(B, H, device=cuda), torch.randn(B, H, device=cuda)))
+    with torch.no_grad():
+        want = fwd_plain(*args, cdt)
+        bargs = (*args, want[0], want[3], *g, cdt)
+        want += bwd_plain(*bargs)
+        for module in (lstm_cat, lstm_common, lstm_enc):
+            monkeypatch.setattr(module, 'torch', guarded)
+        inputs = len(guarded.buffers)
+        got = fwd(*args, cdt)
+        got += bwd(*bargs)
+    assert guarded.overwritten() == []
+    # the launchers' outputs and scratch went through the guards too
+    assert len(guarded.buffers) > inputs + len(got)
+    for a, w in zip(got, want):
+        scale = max(1.0, w.float().abs().max().item())
+        torch.testing.assert_close(a.float(), w.float(), rtol=0,
+            atol=LSTM_TOL[cdt] * scale)
 
 
 # enc5's bf16 encoder at feature widths that are no multiple of 8 (49: the
@@ -706,23 +906,32 @@ def test_lstm_default_route_on_the_card(cuda):
     """LSTMWrapper in bf16 on the card: with use_kernel=None, input 96 with
     hidden 128 runs enc5's kernels (the tensor-core pair takes D != H, as
     the JAX package runs enc5 there), two layers run cat's (enc5 cannot
-    fuse the encoder), each with finite gradients. Hidden 256, which no
-    kernel serves, raises with use_kernel=None and with use_kernel=True
-    before any launch, and runs the 'off' scan with no LSTM launch where
-    the caller asks for it (use_kernel=False)."""
+    fuse the encoder), hidden 256 runs enc5's streamed design with
+    use_kernel=None and with use_kernel=True, each with finite gradients;
+    hidden 256 runs the 'off' scan with no LSTM launch where the caller
+    asks for it (use_kernel=False). Hidden 48, which no kernel serves,
+    raises with use_kernel=None and with use_kernel=True before any
+    launch."""
     from pufferlib_tpu_torch import spaces
     from pufferlib_tpu_torch.models import Default, LSTMWrapper
     torch.manual_seed(0)
     x = torch.randn(40, 6, 7, 7, device=cuda)
     cdt = torch.bfloat16
     kernels = {'enc5': {'lstm_enc_forward', 'lstm_enc_backward'},
-        'cat': {'lstm_cat_forward', 'lstm_cat_backward'}, 'off': set()}
-    for D, H, layers, use, route in ((96, 128, 1, None, 'enc5'),
-            (128, 128, 2, None, 'cat'), (256, 256, 1, False, 'off')):
-        mod = LSTMWrapper(Default((7, 7), spaces.Discrete(5), hidden_size=D,
+        'cat': {'lstm_cat_forward', 'lstm_cat_backward'}, 'off': set(),
+        'stream': {'lstm_enc_stream_forward', 'lstm_enc_stream_backward'}}
+
+    def wrapper(D, H, layers, use):
+        return LSTMWrapper(Default((7, 7), spaces.Discrete(5), hidden_size=D,
             dtype=cdt, decoder_input_size=H), obs_shape=(7, 7), input_size=D,
             hidden_size=H, num_layers=layers, dtype=cdt,
             use_kernel=use).to(cuda)
+    for D, H, layers, use, route, design in ((96, 128, 1, None, 'enc5',
+            'enc5'), (128, 128, 2, None, 'cat', 'cat'),
+            (256, 256, 1, False, 'off', 'off'),
+            (256, 256, 1, None, 'enc5', 'stream'),
+            (256, 256, 1, True, 'enc5', 'stream')):
+        mod = wrapper(D, H, layers, use)
         assert mod.route(6, cuda) == route
         before = _launches()
         logits, value, (h, c) = mod(x)
@@ -731,10 +940,11 @@ def test_lstm_default_route_on_the_card(cuda):
         after = _launches()
         launched = {fn for fn, n in after.items()
             if fn.startswith('lstm_') and n > before[fn]}
-        assert launched == kernels[route]
+        assert launched == kernels[design]
         assert all(torch.isfinite(p.grad).all() for p in mod.parameters())
-    for use, message in ((None, 'hidden sizes.*use_kernel=False'),
-            (True, 'hidden sizes')):
+    mod = wrapper(48, 48, 1, None)
+    for use, message in ((None, 'multiples of 32.*use_kernel=False'),
+            (True, 'multiples of 32')):
         mod.use_kernel = use
         with pytest.raises(ValueError, match=message):
             mod(x)

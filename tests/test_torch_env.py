@@ -127,3 +127,40 @@ def test_protocol_errors():
         dev.step(torch.full((4,), 8))
     with pytest.raises(ValueError, match='Invalid environment name'):
         env_creator('no_such_env')
+
+
+def test_make_builds_a_custom_backend():
+    """vector.make builds whatever backend class it is given, with
+    num_envs, batch_size and seed (and the port's device), as the JAX make
+    does (pufferlib_tpu/vector.py:517): a small custom backend that
+    subclasses Serial, through both packages' make, must agree with its
+    JAX twin in what it was built with, its spaces and its lanes, and step
+    to the same observations when handed the JAX lanes' reset draws."""
+    class JaxCustom(jvector.Serial):
+        def __init__(self, *args, batch_size=None, marker=None, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.built_with = (batch_size, marker)
+
+    class Custom(vector.Serial):
+        def __init__(self, *args, batch_size=None, marker=None, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.built_with = (batch_size, marker)
+
+    kwargs = dict(distance_to_target=2, num_targets=1)
+    jvec = jvector.make(jax_env_creator('squared'), env_kwargs=kwargs,
+        backend=JaxCustom, num_envs=4, marker='custom')
+    vec = vector.make(env_creator('squared'), env_kwargs=kwargs,
+        backend=Custom, num_envs=4, marker='custom', device='cpu')
+    assert type(jvec) is JaxCustom and type(vec) is Custom
+    assert vec.built_with == jvec.built_with == (None, 'custom')
+    assert vec.num_agents == jvec.num_agents == 4
+    assert repr(vec.single_observation_space) == repr(
+        jvec.single_observation_space)
+    assert repr(vec.single_action_space) == repr(jvec.single_action_space)
+    jobs, _ = jvec.reset(seed=3)
+    chosen = np.stack([np.asarray(s['env']['chosen'])
+        for s in jvec._states]).reshape(4, -1)
+    vec.async_reset(3, reset_draws=torch.from_numpy(
+        np.argmax(chosen, axis=1)))
+    obs = vec.recv()[0]
+    _assert_equal(obs, jobs, 'obs')

@@ -142,12 +142,39 @@ def _check_cat_plain(dtype, D, hidden, w_scale=None):
 def test_enc5_plain_matches_pallas_kernel(dtype):
     """Forward and every gradient but the features' (zero by
     contract)."""
+    _check_enc5_plain(dtype, F, H, H)
+
+
+# (dtype, F, D, hidden): shapes only enc5's streamed design serves on the
+# card: hidden 256 with an encoder width apart from it and 200 features in
+# f32; 800 features in bf16, past the tensor-core encoder's 768
+ENC5_STREAMED = [('float32', 200, 96, 256), ('bfloat16', 800, 128, 128)]
+
+
+@pytest.mark.parametrize('dtype,feats,D,hidden', ENC5_STREAMED)
+def test_enc5_plain_matches_pallas_kernel_streamed_shape(dtype, feats, D,
+        hidden):
+    """The same at the streamed design's shapes, with the weights at the
+    trainer's scale (1 / sqrt(fan-in)): the tolerance is DTYPES' times the
+    largest value of each output or gradient, at least 1 (sums over up to
+    800 features and 4H = 1024 gate columns)."""
+    _check_enc5_plain(dtype, feats, D, hidden, relative=True)
+
+
+def _check_enc5_plain(dtype, F, D, hidden, relative=False):
+    """relative: the weights at 1 / sqrt(fan-in) and tolerances relative
+    to each value's size; else _arrays' 0.3 and DTYPES' absolute ones."""
     jd, td, tol = DTYPES[dtype]
     feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b = _arrays(3, (T, B, F),
-        (B, H), (B, H), (F, H), (H,), (H, 4 * H), (H, 4 * H), (4 * H,))
+        (B, hidden), (B, hidden), (F, D), (D,), (D, 4 * hidden),
+        (hidden, 4 * hidden), (4 * hidden,))
+    if relative:
+        w_enc = w_enc * np.float32(F ** -0.5 / 0.3)
+        w_ih = w_ih * np.float32((D + hidden) ** -0.5 / 0.3)
+        w_hh = w_hh * np.float32((D + hidden) ** -0.5 / 0.3)
     fj = jnp.asarray(feats * 3).astype(jd)
     args = (fj, h0, c0, w_enc, b_enc, w_ih, w_hh, b)
-    cot = _cotangents(4)
+    cot = _cotangents(4, hidden)
     argnums = tuple(range(1, 8))
     with pltpu.force_tpu_interpret_mode():
         want = jax_scan_enc5(*args, jd)
@@ -156,12 +183,15 @@ def test_enc5_plain_matches_pallas_kernel(dtype):
         torch.from_numpy(a).requires_grad_()
         for a in (h0, c0, w_enc, b_enc, w_ih, w_hh, b)]
     got = _torch_outs_and_grads(lstm_scan_enc5, tensors, td, cot)
+
+    def atol(w):
+        return tol * max(1.0, np.abs(_np(w)).max()) if relative else tol
     for name, a, w in zip(('outs', 'hT', 'cT'), got, want):
-        _assert_close(a, w, tol, name)
+        _assert_close(a, w, atol(w), name)
     names = ('dh0', 'dc0', 'dw_enc', 'db_enc', 'dw_ih', 'dw_hh', 'db')
     for name, t, w in zip(names, tensors[1:], want_grads):
-        _assert_close(t.grad, w, tol, name)
-    if dtype == 'float32':
+        _assert_close(t.grad, w, atol(w), name)
+    if dtype == 'float32' and not relative:
         # and the JAX package's pure reference (autograd of a scan)
         ref = lstm_scan_enc_reference(*args, jd)
         ref_grads = _jax_grads(lstm_scan_enc_reference, args, argnums, jd,
@@ -346,20 +376,19 @@ ROUTES = {
     'two layers': (dict(num_layers=2), 'cat'),
     'no encoder contract': (dict(F=None), 'cat'),
     'input 96 bf16': (dict(D=96), 'enc5'),
-    'input 96 f32': (dict(D=96, cdt=torch.float32),
-        'input width equal.*use_kernel=False'),
+    'input 96 f32': (dict(D=96, cdt=torch.float32), 'enc5'),
     'features 200': (dict(F=200), 'enc5'),
     'features at the encoder limit': (dict(F=768), 'enc5'),
-    'features past the encoder limit': (dict(F=769), 'cat'),
-    'features 200 f32': (dict(F=200, cdt=torch.float32), 'cat'),
+    'features past the encoder limit': (dict(F=769), 'enc5'),
+    'features 200 f32': (dict(F=200, cdt=torch.float32), 'enc5'),
     'features 128 f32': (dict(F=128, cdt=torch.float32), 'enc5'),
     'input 96, two layers': (dict(D=96, num_layers=2), 'cat'),
-    'hidden 256': (dict(D=256, H=256), 'hidden sizes.*use_kernel=False'),
+    'hidden 256': (dict(D=256, H=256), 'enc5'),
     'hidden 256, use_kernel False': (dict(D=256, H=256, use_kernel=False),
         'off'),
     'hidden 256, kernel off': (dict(D=256, H=256, kernel='off'), 'off'),
     'hidden 256, cpu': (dict(D=256, H=256, device='cpu'), 'off'),
-    'input 100': (dict(D=100), 'multiples of 8.*use_kernel=False'),
+    'input 100': (dict(D=100), 'enc5'),
     'kernel cat': (dict(kernel='cat'), 'cat'),
     'kernel off': (dict(kernel='off'), 'off'),
     'cpu': (dict(device='cpu'), 'off'),
@@ -372,20 +401,40 @@ ROUTES = {
         D=96, cdt=torch.float32), 'enc5'),
     'use_kernel, cat, input 96': (dict(use_kernel=True, kernel='cat', D=96),
         'cat'),
-    'use_kernel, hidden 256': (dict(use_kernel=True, D=256, H=256),
-        'hidden sizes'),
+    'use_kernel, hidden 256': (dict(use_kernel=True, D=256, H=256), 'enc5'),
     'use_kernel, features 200': (dict(use_kernel=True, F=200), 'enc5'),
     'use_kernel, input 96': (dict(use_kernel=True, D=96), 'enc5'),
     'use_kernel, features past the encoder limit': (dict(use_kernel=True,
-        F=769), 'at most 768 features'),
+        F=769), 'enc5'),
     'use_kernel, features 200 f32': (dict(use_kernel=True, F=200,
-        cdt=torch.float32), 'at most 128 features'),
+        cdt=torch.float32), 'enc5'),
     'use_kernel, cat, input 96 f32': (dict(use_kernel=True, kernel='cat',
         D=96, cdt=torch.float32), 'cat'),
-    # cat's second design (csrc/lstm_cat_stream.cu) serves the shapes the
-    # resident kernels refuse where the JAX package runs cat: hidden sizes
-    # that are multiples of 32, any input width
-    'hidden 512': (dict(D=512, H=512), 'hidden sizes.*use_kernel=False'),
+    # the streamed design (csrc/lstm_cat_stream.cu) serves the shapes the
+    # resident kernels refuse, for enc5 and for cat: hidden sizes that are
+    # multiples of 32 up to 800 in f32 and 1472 in bf16, any input and
+    # feature width
+    'hidden 512': (dict(D=512, H=512), 'enc5'),
+    'hidden 256 f32': (dict(D=256, H=256, cdt=torch.float32), 'enc5'),
+    'hidden 512 f32': (dict(D=512, H=512, cdt=torch.float32), 'enc5'),
+    'input 96, hidden 128 f32': (dict(D=96, H=128, cdt=torch.float32),
+        'enc5'),
+    'features 800': (dict(F=800), 'enc5'),
+    'features 147 f32': (dict(F=147, cdt=torch.float32), 'enc5'),
+    'hidden 800 f32': (dict(D=800, H=800, cdt=torch.float32), 'enc5'),
+    'hidden 832 f32': (dict(D=832, H=832, cdt=torch.float32),
+        'up to 800.*use_kernel=False'),
+    'hidden 1472': (dict(D=1472, H=1472), 'enc5'),
+    'hidden 1504': (dict(D=1504, H=1504), 'up to 1472.*use_kernel=False'),
+    'hidden 48': (dict(D=48, H=48), 'multiples of 32.*use_kernel=False'),
+    'hidden 48 f32': (dict(D=48, H=48, cdt=torch.float32),
+        'multiples of 32.*use_kernel=False'),
+    'use_kernel, hidden 48': (dict(use_kernel=True, D=48, H=48),
+        'multiples of 32'),
+    'use_kernel, hidden 512 f32': (dict(use_kernel=True, D=512, H=512,
+        cdt=torch.float32), 'enc5'),
+    'hidden 256, cpu, use_kernel': (dict(D=256, H=256, device='cpu',
+        use_kernel=True), 'enc5'),
     'no encoder contract, hidden 256 bf16': (dict(F=None, D=256, H=256),
         'cat'),
     'no encoder contract, hidden 256 f32': (dict(F=None, D=256, H=256,
@@ -413,12 +462,12 @@ ROUTES = {
 
 @pytest.mark.parametrize('case', list(ROUTES))
 def test_lstm_route(case):
-    """The default (use_kernel=None) takes, on the card with T > 1, the
-    first kernel that serves the shape: enc5 where it can fuse and serves
-    the shape (bf16: D a multiple of 8, F up to 768; f32: D == H, F up to
-    128), then cat (its resident-weight kernels, or where the policy
-    cannot fuse its streamed design: H a multiple of 32, any D), and
-    raises for a shape neither serves, naming use_kernel=False;
+    """The default (use_kernel=None) takes, on the card with T > 1, enc5
+    where it can fuse (one layer, the encoder contract), as the JAX
+    package does, else cat; each through its resident kernels where they
+    serve the shape, else its streamed design (H a multiple of 32 up to
+    800 in f32 and 1472 in bf16, any D and F), and raises for a shape
+    neither serves, naming use_kernel=False;
     use_kernel=True runs the selected kernel and, on the card, raises for
     a shape it refuses (the expected value is then the error's message).
     The plain scan runs on the card only where the caller asks for it."""
@@ -429,6 +478,43 @@ def test_lstm_route(case):
     else:
         with pytest.raises(ValueError, match=want):
             lstm_route(**args)
+
+
+# (F, D, H, cdt) -> the enc5 design lstm_scan_enc5 launches on the card
+ENC5_DESIGNS = [
+    ((49, 128, 128, torch.bfloat16), 'resident'),
+    ((768, 96, 128, torch.bfloat16), 'resident'),
+    ((769, 96, 128, torch.bfloat16), 'stream'),
+    ((800, 128, 128, torch.bfloat16), 'stream'),
+    ((49, 100, 128, torch.bfloat16), 'stream'),
+    ((49, 256, 256, torch.bfloat16), 'stream'),
+    ((49, 512, 512, torch.bfloat16), 'stream'),
+    ((128, 128, 128, torch.float32), 'resident'),
+    ((129, 128, 128, torch.float32), 'stream'),
+    ((147, 128, 128, torch.float32), 'stream'),
+    ((49, 96, 128, torch.float32), 'stream'),
+    ((49, 256, 256, torch.float32), 'stream'),
+    ((1, 64, 64, torch.float32), 'resident'),
+    ((49, 48, 48, torch.float32), 'multiples of 32'),
+    ((49, 832, 832, torch.float32), 'up to 800'),
+    ((0, 256, 256, torch.float32), 'at least one feature'),
+]
+
+
+@pytest.mark.parametrize('case', range(len(ENC5_DESIGNS)))
+def test_enc5_design(case):
+    """enc5_design: the resident kernels where encoder_shape_error serves
+    the shape, else the streamed ones; enc5_shape_error names what neither
+    takes."""
+    (F, D, hidden, cdt), want = ENC5_DESIGNS[case]
+    err = lstm_common.enc5_shape_error(F, D, hidden, cdt)
+    if want in ('resident', 'stream'):
+        assert err is None
+        assert lstm_common.enc5_design(F, D, hidden, cdt) == want
+        if want == 'stream':
+            assert lstm_common.encoder_shape_error(F, D, hidden, cdt)
+    else:
+        assert err is not None and want in err
 
 
 def test_lstm_wrapper_refuses_a_head_of_another_width():
@@ -462,6 +548,52 @@ def test_lstm_wrapper_input_width_matches_jax(kind):
     assert mod.route(T, torch.device('cpu')) == kind
     x = np.random.RandomState(13).randn(B, T, *OBS_SHAPE).astype(np.float32)
     h0, c0 = _arrays(14, (1, B, hidden), (1, B, hidden), scale=0.5)
+
+    def jloss(p):
+        lo, v, (h, c) = jmod.apply(p, jnp.asarray(x),
+            (jnp.asarray(h0), jnp.asarray(c0)))
+        return (jnp.sum(jax.nn.log_softmax(lo) ** 2) + jnp.sum(v * 0.7)
+            + jnp.sum(h * c)), (lo, v, h, c)
+    jgrads, jouts = jax.grad(jloss, has_aux=True)(params)
+    lo, v, (h, c) = mod(torch.from_numpy(x),
+        (torch.from_numpy(h0), torch.from_numpy(c0)))
+    for name, a, w in zip(('logits', 'value', 'h', 'c'), (lo, v, h, c),
+            jouts):
+        _assert_close(a, w, 1e-5, name)
+    (torch.log_softmax(lo, -1).square().sum() + (v * 0.7).sum()
+        + (h * c).sum()).backward()
+    jgrads = lstm_state_dict(jax.tree.map(np.asarray, jgrads))
+    for name, p in mod.named_parameters():
+        _assert_close(p.grad, jgrads[name], 1e-4, name)
+
+
+def test_lstm_wrapper_hidden_256_matches_jax():
+    """LSTMWrapper(use_kernel=True) at hidden 256, which the default route
+    sends to enc5's streamed design on the card: on the CPU the enc5
+    kernels' plain versions, forward and backward, against JAX's
+    use_pallas=False module from the same weights, in f32: logits, value
+    and state to 1e-5, weight gradients to 1e-4, as the other wrapper
+    tests."""
+    hidden = 256
+    jmod = JaxLSTMWrapper(policy=JaxDefault(obs_shape=OBS_SHAPE,
+        action_space=jspaces.Discrete(5), hidden_size=hidden),
+        obs_shape=OBS_SHAPE, input_size=hidden, hidden_size=hidden,
+        use_pallas=False)
+    params = jax.tree.map(np.asarray, jmod.init(jax.random.PRNGKey(9),
+        jnp.zeros((2, 2) + OBS_SHAPE, jnp.float32)))
+    mod = LSTMWrapper(Default(obs_shape=OBS_SHAPE,
+        action_space=spaces.Discrete(5), hidden_size=hidden),
+        obs_shape=OBS_SHAPE, input_size=hidden, hidden_size=hidden,
+        kernel='enc5', use_kernel=True)
+    mod.load_state_dict(lstm_state_dict(params))
+    assert mod.route(T, torch.device('cpu')) == 'enc5'
+    for cdt in (torch.float32, torch.bfloat16):
+        assert lstm_route('enc5', None, 'cuda', T, hidden, hidden, 49, 1,
+            cdt) == 'enc5'
+    assert lstm_common.enc5_design(49, hidden, hidden,
+        torch.float32) == 'stream'
+    x = np.random.RandomState(17).randn(B, T, *OBS_SHAPE).astype(np.float32)
+    h0, c0 = _arrays(18, (1, B, hidden), (1, B, hidden), scale=0.5)
 
     def jloss(p):
         lo, v, (h, c) = jmod.apply(p, jnp.asarray(x),
