@@ -11,8 +11,9 @@ paths: the fused PPO trainer on Ocean `squared` with the `Default` MLP at
 through the cat LSTM kernels, the recurrent trainer through LSTMWrapper's
 default route at input width 96 (enc5's kernels), with two LSTM layers
 (cat's: enc5 cannot fuse the encoder), at hidden size 256 with
-use_kernel=False (the plain scan, which the caller must ask for), and at
+use_kernel=False (the plain scan, which the caller must ask for), at
 hidden 256 by default and with use_kernel=True (enc5's streamed design),
+and at hidden 200 by default (the same, its hidden size padded to 224),
 and the LSTM validation path
 (tools/validate_lstm_torch.py: lstm_scan and lstm_scan_fused timed at
 the bench shapes, then a 40-epoch learning proof that must reach score
@@ -50,18 +51,20 @@ own test settings must pass: memory (best score > 0.9 within 60 epochs,
 through enc5) and spaces (score > 0.8 after 40 epochs).
 
 The pixel-env phase (since the conv policies and the host path): the
-streamed design, csrc/lstm_cat_stream.cu (the input products as GEMMs
-outside the recurrence, the recurrence one persistent launch whose blocks
-hold slices of W_hh in shared memory, for the shapes the resident kernels
-refuse), cat's pair against its plain version in f32 and bf16 at the
+streamed design, csrc/lstm_cat_stream.cu (for the shapes the resident
+kernels refuse: at few batch rows one persistent launch whose blocks hold
+slices of W_hh in shared memory, the input products as GEMMs outside it;
+at many rows blocks that own whole row tiles and stream the weights from
+L2), cat's pair against its plain version in f32 and bf16 at the
 Atari update's (T 16, B 256, D = H = 512) and three more shapes, timed
 beside its bound and cuDNN's nn.LSTM, two runs bit-equal, and the kernels
 a call launches counted at T = 16, 32 and 64 (the same; the backward
 takes the gates its forward kept); enc5's pair against
-lstm_enc_reference / lstm_enc_backward_reference at hidden 256 and 512,
-at f32's encoder width 96, bf16's 800 features and minigrid's 147 in f32,
-likewise timed and bit-equal; the largest hidden size the streamed loops
-take held to its Python copy;
+lstm_enc_reference / lstm_enc_backward_reference at hidden 256, 200 and
+512, at f32's encoder width 96, bf16's 800 features and minigrid's 147 in
+f32, likewise timed and bit-equal, its kernels a call counted on both
+schedules, and a line of every streamed shape's plain / kernel time; the
+largest hidden size the streamed loops take held to its Python copy;
 the route that sends Convolutional + LSTM(512) to it; the host trainer's
 flat GAE through the GAE kernel at N = 16384 and 4096, bit-equal; the
 native envpool driver built with g++. Then three trainers at full width:
@@ -635,11 +638,14 @@ CAT_STREAM_SHAPES = ((16, 256, 512, 512), (16, 256, 256, 256),
     (8, 64, 200, 128), (4, 32, 9, 64))
 
 # (T, B, F, D, H, dtypes) of enc5's streamed design: the default route's
-# hidden 256 at the 8192-lane trainer's minibatch (phase 9), hidden 512 at
-# the Atari update's rows, f32's encoder width 96 apart from hidden 128,
-# bf16's 800 features past the tensor-core encoder's 768, and minigrid's
-# 147 features in f32 (past the FMA encoder's 128)
+# hidden 256 at the 8192-lane trainer's minibatch (phase 9; the rows
+# schedule), hidden 200 there (no multiple of 32: padded to 224), hidden
+# 512 at the Atari update's rows (the units schedule), f32's encoder width
+# 96 apart from hidden 128, bf16's 800 features past the tensor-core
+# encoder's 768, and minigrid's 147 features in f32 (past the FMA
+# encoder's 128)
 ENC5_STREAM_SHAPES = ((16, 8192, 49, 256, 256, ('bfloat16', 'float32')),
+    (16, 8192, 49, 200, 200, ('bfloat16', 'float32')),
     (16, 256, 49, 512, 512, ('float32', 'bfloat16')),
     (16, 1000, 49, 96, 128, ('float32',)),
     (16, 1000, 800, 128, 128, ('bfloat16',)),
@@ -704,12 +710,14 @@ def check_cat_stream(torch, flush, rng):
     return runs, per_call
 
 
-def check_enc5_stream(torch, flush, rng):
+def check_enc5_stream(torch, flush, rng, cat_runs):
     """enc5's streamed design against lstm_enc_reference and
     lstm_enc_backward_reference at ENC5_STREAM_SHAPES, each timed beside
     its bound and the plain version and run twice (equal bit for bit);
-    then its kernels per call at T = 16, 32 and 64. Returns {(shape, dtype):
-    check_lstm's result}."""
+    then its kernels per call at T = 16, 32 and 64 on both schedules (B
+    1024: units; 8192: rows), and a line of the plain version's time over
+    the kernel's for every streamed shape, enc5's and cat's (cat_runs).
+    Returns {(shape, dtype): check_lstm's result}."""
     runs = {}
     for T, B, F, D, H, dtypes in ENC5_STREAM_SHAPES:
         for dtype_name in dtypes:
@@ -717,8 +725,15 @@ def check_enc5_stream(torch, flush, rng):
                 'enc5_stream', B, dtype_name, T=T, H=H, D=D, F=F, timed=True)
             check_bit_equal(torch, rng, 'enc5_stream', B, T=T, D=D, F=F, H=H,
                 dtype_name=dtype_name)
-    check_stream_launches(torch, rng, 'enc5_stream', 1024, 256, 256,
-        dtype_name='bfloat16')
+    for B in (1024, 8192):
+        check_stream_launches(torch, rng, 'enc5_stream', B, 256, 256,
+            dtype_name='bfloat16')
+    log('streamed LSTM design, plain / kernel time (forward, backward): ' +
+        '; '.join(f'{kind} {shape} {dtype_name} '
+            f'{r["fwd_plain_ms"] / r["fwd_ms"]:.3f} '
+            f'{r["bwd_plain_ms"] / r["bwd_ms"]:.3f}'
+            for kind, rows in (('enc5', runs), ('cat', cat_runs))
+            for (shape, dtype_name), r in rows.items()))
     return runs
 
 
@@ -902,9 +917,10 @@ def run_default_routes(torch, card):
     of each cat function per layer); hidden 256 with use_kernel=False (the
     caller asks for the plain scan) must run it with no LSTM launch; hidden
     256 by default and with use_kernel=True must route to enc5's streamed
-    design (16 launches of each lstm_enc_stream function). All with
-    finite losses. Returns the launches of the last run (hidden 256,
-    use_kernel=True)."""
+    design (16 launches of each lstm_enc_stream function), and so must
+    hidden 200, which is no multiple of 32 (the launchers pad it to 224).
+    All with finite losses. Returns the launches of the hidden 256,
+    use_kernel=True run."""
     from pufferlib_tpu_torch.ops.cuda import KERNELS
     device = torch.device('cuda')
     for lstm_input, hidden, layers, use, route, fn in (
@@ -912,7 +928,8 @@ def run_default_routes(torch, card):
             (128, 128, 2, None, 'cat', 'lstm_cat'),
             (256, 256, 1, False, 'off', None),
             (256, 256, 1, None, 'enc5', 'lstm_enc_stream'),
-            (256, 256, 1, True, 'enc5', 'lstm_enc_stream')):
+            (256, 256, 1, True, 'enc5', 'lstm_enc_stream'),
+            (200, 200, 1, None, 'enc5', 'lstm_enc_stream')):
         what = (f'input {lstm_input}, hidden {hidden}, {layers} layer(s), '
             f'use_kernel={use}')
         ppo, data = make_trainer(torch, hidden=hidden, lstm_kernel='enc5',
@@ -941,7 +958,9 @@ def run_default_routes(torch, card):
             f'{json.dumps({k: v for k, v in launches.items() if v})}; '
             f'losses {json.dumps(losses)}')
         del data
-    return launches
+        if (hidden, use) == (256, True):
+            result = launches
+    return result
 
 
 def log_stream_limits(torch):
@@ -1712,7 +1731,7 @@ def main():
     # configuration to it, the host trainer's flat GAE at the Atari and
     # a smaller batch, and the native envpool driver
     stream_runs, stream_per_call = check_cat_stream(torch, flush, rng)
-    enc5_stream_runs = check_enc5_stream(torch, flush, rng)
+    enc5_stream_runs = check_enc5_stream(torch, flush, rng, stream_runs)
     log_stream_limits(torch)
     check_conv_routes(torch)
     flat_runs = {N: check_gae_flat(torch, gae, flush, rng, N)
@@ -1876,10 +1895,13 @@ def main():
             library_ms=main[f'{part}_lib'], shape=main['shape']))
     # cat's streamed design (csrc/lstm_cat_stream.cu): the Atari update's
     # shape in f32, as phase 14 runs it; enc5's at the default route's
-    # hidden 256 in bf16, as phase 9 runs it. A C call is a constant
-    # number of kernels (kernels_per_call); the times are one call's
+    # hidden 256 in bf16, as phase 9 runs it, and in f32 (the same C
+    # functions, so the same launches: rows named _f32). A C call is a
+    # constant number of kernels (kernels_per_call); the times are one
+    # call's
     atari = stream_runs[(16, 256, 512, 512), 'float32']
     enc5_256 = enc5_stream_runs[(16, 8192, 49, 256, 256), 'bfloat16']
+    enc5_256_f32 = enc5_stream_runs[(16, 8192, 49, 256, 256), 'float32']
     for fn, part, replaces, launches, main, runs in (
             ('lstm_cat_stream_forward', 'fwd', 'lstm_cat.py:131',
                 atari_launches['lstm_cat_stream_forward'], atari,
@@ -1892,6 +1914,12 @@ def main():
                 enc5_stream_runs),
             ('lstm_enc_stream_backward', 'bwd', 'lstm_enc5.py:147',
                 route_launches['lstm_enc_stream_backward'], enc5_256,
+                enc5_stream_runs),
+            ('lstm_enc_stream_forward_f32', 'fwd', 'lstm_enc.py:170',
+                route_launches['lstm_enc_stream_forward'], enc5_256_f32,
+                enc5_stream_runs),
+            ('lstm_enc_stream_backward_f32', 'bwd', 'lstm_enc5.py:147',
+                route_launches['lstm_enc_stream_backward'], enc5_256_f32,
                 enc5_stream_runs)):
         kernels.append(dict(name=fn, route='cuda',
             source='pufferlib_tpu_torch/csrc/lstm_cat_stream.cu',
@@ -1901,8 +1929,8 @@ def main():
             ms=main[f'{part}_ms'], plain_ms=main[f'{part}_plain_ms'],
             bound_ms=main[f'{part}_bound'], bound_by=main[f'{part}_by'],
             library_ms=main[f'{part}_lib'], shape=main['shape']))
-    kernels[-4]['kernels_per_call'] = stream_per_call['float32'][16][0]
-    kernels[-3]['kernels_per_call'] = stream_per_call['float32'][16][1]
+    kernels[-6]['kernels_per_call'] = stream_per_call['float32'][16][0]
+    kernels[-5]['kernels_per_call'] = stream_per_call['float32'][16][1]
     print(json.dumps({'kernels': kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu',

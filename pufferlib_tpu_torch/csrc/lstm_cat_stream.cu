@@ -27,56 +27,78 @@
 // counts three times the operations (gate recompute, [dx | dh_prev], dW),
 // though this design keeps the forward's gates and skips the first.
 //
+// At T 16, B 8192, D = H = 256 (enc5 on the default route at hidden 256)
+// both directions do 68.7 GFLOP of recurrent product and the forward as
+// much again of input product: 2.1 ms at the f32 rate, 0.07 at bf16's, so
+// bf16 is bound by its bytes (0.21 ms).
+//
 // Design. Only h @ W_hh (forward) and dg_{t+1} @ W_hh^T (backward) depend
-// on the carried state; every other product is a GEMM over all T*B rows
-// outside the recurrence, and the recurrence is one persistent launch:
-// * forward: S = x @ W_ih into an f32 slab (T*B, 4H), the sum over k < D;
-//   then the loop, a cooperative launch of (H/16) x RG blocks. Block
-//   (u, rg) owns 16 hidden units with their four gate columns, so the cell
-//   update is local, and holds that 64-column slice of W_hh, rounded to
-//   the compute dtype, in shared memory for all T steps (128 KiB in f32
-//   at H = 512). It walks the row tiles rg, rg + RG, ... of 64 batch rows;
-//   per tile the accumulators start from the tile's S rows and take
-//   h_prev @ W_hh on, h_prev streaming by cp.async through two shared
-//   stages as deep as the shared memory left beside W_hh allows (one
-//   loads while the other is multiplied), then + b. The 256 threads split
-//   K in two halves (128 threads each) whose partial sums meet in shared
-//   memory; each half then updates the cell for half the tile's (row,
-//   unit) pairs.
-//   c lives in cT (f32), read and written by the thread that owns the
-//   pair; h_prev is the stored outs[t-1] (h rounded to the compute dtype
-//   is exactly what outs holds), h0 rounded by the first launch. After a
-//   step the blocks of a row group (the same rg) meet at a barrier on a
-//   counter in device memory, which publishes outs[t]. RG is as large as
-//   the card holds every block at once (cudaOccupancyMaxActiveBlocks
-//   PerMultiprocessor), at most the number of row tiles.
-// * backward: from P, the gates [x | h_prev] @ [W_ih; W_hh] + b of every
-//   step, which the forward loop writes over its S slab as it makes them
-//   (the TPU kernels recompute them; keeping them costs no product and
-//   4 bytes a gate of memory held until the backward); the
-//   reverse loop as one cooperative launch of the same grid, each block
-//   holding the 16 rows of W_hh of its units (W_hh^T's columns): per step
-//   dh = dg_{t+1} @ W_hh^T for its (row, unit) pairs (K = 4H split in two
-//   halves as above, dg_{t+1} through two stages likewise), the activations
-//   from P, the dh/dc chain (dc in f32, in dc0), the dgates rounded into
-//   the dg slab and this tile's column sums of the dgates as a row of
-//   db_part; a barrier; after step 0 one more product gives dh0. Then dx
-//   = dg @ W_ih^T (enc5: dpre = round(x > 0 ? dx : 0)), dW = [x |
-//   h_prev]^T dg (split-K, partial sums added in split order), enc5's
-//   dW_enc and db_enc = [feats | 1]^T dpre, and db as the ordered column
-//   sums of db_part.
+// on the carried state. Two schedules run the recurrence, chosen by B:
+// * units (few batch rows: fewer tiles of 64 rows than half the SMs): the
+//   recurrence is one cooperative launch whose blocks each hold a slice of
+//   W_hh for all T steps, so that the card's SMs share the few rows'
+//   work; the input products are GEMMs over all T*B rows outside it.
+//   - forward: S = x @ W_ih into an f32 slab (T*B, 4H), the sum over
+//     k < D; then the loop, a cooperative launch of (H/16) x RG blocks.
+//     Block (u, rg) owns 16 hidden units with their four gate columns, so
+//     the cell update is local, and holds that 64-column slice of W_hh,
+//     rounded to the compute dtype, in shared memory for all T steps (128
+//     KiB in f32 at H = 512). It walks the row tiles rg, rg + RG, ... of
+//     64 batch rows; per tile the accumulators start from the tile's S
+//     rows and take h_prev @ W_hh on, h_prev streaming by cp.async through
+//     two shared stages as deep as the shared memory left beside W_hh
+//     allows (one loads while the other is multiplied), then + b. The 256
+//     threads split K in two halves (128 threads each) whose partial sums
+//     meet in shared memory; each half then updates the cell for half the
+//     tile's (row, unit) pairs. c lives in cT (f32), read and written by
+//     the thread that owns the pair; h_prev is the stored outs[t-1] (h
+//     rounded to the compute dtype is exactly what outs holds), h0 rounded
+//     by the first launch. After a step the blocks of a row group (the
+//     same rg) meet at a barrier on a counter in device memory, which
+//     publishes outs[t]. RG is as large as the card holds every block at
+//     once (cudaOccupancyMaxActiveBlocksPerMultiprocessor), at most the
+//     number of row tiles; a grid that cannot be resident is refused
+//     before any launch.
+//   - backward: from P, the gate activations i, f, g, o of every step
+//     (f32, unrounded; enc5's backward rounds them), which the forward
+//     loop writes over its S slab as it makes them (the TPU kernels
+//     recompute the gates; keeping the activations costs no product and no
+//     transcendental, and 4 bytes a gate of memory held until the
+//     backward); the reverse loop as
+//     one cooperative launch of the same grid, each block holding the 16
+//     rows of W_hh of its units (W_hh^T's columns): per step dh = dg_{t+1}
+//     @ W_hh^T for its (row, unit) pairs (K = 4H split in two halves as
+//     above, dg_{t+1} through two stages likewise), the activations
+//     from P, the dh/dc chain (dc in f32, in dc0), the dgates rounded into the
+//     dg slab and this tile's column sums of the dgates as a row of
+//     db_part; a barrier; after step 0 one more product gives dh0.
+// * rows (many batch rows): a block owns whole tiles of 64 rows with all
+//   H units, so no block waits for another (an ordinary launch), and the
+//   weights stream from L2 (packed by prep in the compute dtype) through a
+//   3-stage cp.async ring (see "The rows schedule" below). The forward
+//   folds x @ W_ih into the loop (K = D + H in one ordered f32 sum, then
+//   the bias: no S slab is written or read) and writes P; the backward
+//   reads each dg_{t+1} row once a step (the units schedule's H/16 unit
+//   blocks each read all of it) and streams W_hh^T instead.
+// * after either backward loop: dx = dg @ W_ih^T (enc5: dpre = round(x >
+//   0 ? dx : 0)), dW = [x | h_prev]^T dg (split-K, partial sums added in
+//   split order), enc5's dW_enc and db_enc = [feats | 1]^T dpre, and db as
+//   the ordered column sums of db_part.
 // * math units by dtype: bf16 runs every product on the tensor cores
-//   (mma.sync m16n8k16, f32 accumulators; W_hh and the ring read through
+//   (mma.sync m16n8k16, f32 accumulators; operands read through
 //   ldmatrix); f32 stays on the FMA units (TF32 would compute another
 //   function than the f32 reference). Every sum is in a fixed order and
 //   no atomic touches a value, so two runs are equal bit for bit.
-// Launches: the cat forward 3 (prep, S, loop), enc5's 4 (prep, encoder,
-// S, loop); the cat backward 5 or 6 (prep, loop, dx, dW [+ the split
-// sum], db), enc5's 7 to 9 (the encoder again, dW_enc [+ its split
-// sum]).
-// Shapes: any D >= 1 (and F >= 1), H a multiple of 32 up to what a
-// block's shared memory holds (lstm_stream_limits: 800 in f32, 1472
-// in bf16), any B.
+// Launches (units / rows): the cat forward 3 (prep, S, loop) / 2 (prep,
+// loop), enc5's 4 / 3 (the encoder first); the cat backward 5 or 6 (prep,
+// loop, dx, dW [+ the split sum], db), enc5's 7 to 9 (the encoder again,
+// dW_enc [+ its split sum]); none depends on T.
+// Shapes: any D >= 1 (and F >= 1), H a multiple of 32 up to what the
+// units schedule's blocks hold (lstm_stream_limits: 800 in f32, 1472 in
+// bf16; the Python launchers pad other hidden sizes with zero units), any
+// B. The rows schedule also needs x's rows in whole 16-byte runs (D a
+// multiple of 4 in f32, 8 in bf16, x 16-byte aligned); else the units
+// schedule runs.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -123,6 +145,11 @@ template <typename E>
 __device__ __forceinline__ float rnd(float v) { return to_f(from_f<E>(v)); }
 
 __device__ __forceinline__ float sigm(float x) { return 1.f / (1.f + expf(-x)); }
+
+// a load of memory no thread writes during the kernel (the non-coherent
+// path, which the compiler may move past the kernel's stores)
+__device__ __forceinline__ float ld_ro(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ld_ro(const bf16* p) { return __bfloat162float(__ldg(p)); }
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool ok) {
     const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
@@ -738,7 +765,7 @@ __device__ __forceinline__ void stream_product(E* ring, int ap, int cps, const E
 template <typename E>
 struct FwdArgs {
     float* S;            // (T*B, 4H): the sums over k < D; the loop writes the
-                         // gates (+ b) of every step back in their place
+                         // gate activations of every step back in their place
     const E* h_first;    // (B, H): h0 rounded
     const float* c0;
     const float* w_hh;   // (H, 4H)
@@ -914,15 +941,18 @@ __global__ void __launch_bounds__(THREADS, 1) forward_loop(FwdArgs<E> p) {
                 const size_t at = (size_t)row * H + unit;
 #pragma unroll
                 for (int g = 0; g < 4; ++g) v[g] += bias[pp][g];
-                // the gates of this step, for the backward (each element of
-                // S was read by its one owner before the halves met)
-                float* sg = p.S + ((size_t)t * B + row) * G + unit;
-#pragma unroll
-                for (int g = 0; g < 4; ++g) sg[g * H] = v[g];
                 const float ig = sigm(v[0]);
                 const float fg = sigm(v[1]);
                 const float gg = tanhf(v[2]);
                 const float og = sigm(v[3]);
+                // the gate activations of this step, for the backward (each
+                // element of S was read by its one owner before the halves
+                // met)
+                float* sg = p.S + ((size_t)t * B + row) * G + unit;
+                sg[0] = ig;
+                sg[H] = fg;
+                sg[2 * H] = gg;
+                sg[3 * H] = og;
                 const float c = fg * c_prev[pp] + ig * gg;
                 const float h = og * tanhf(c);
                 const size_t st = (size_t)t * B * H + at;
@@ -939,7 +969,7 @@ __global__ void __launch_bounds__(THREADS, 1) forward_loop(FwdArgs<E> p) {
 
 template <typename E>
 struct BwdArgs {
-    const float* P;      // (T*B, 4H): the gate pre-activations, bias in
+    const float* P;      // (T*B, 4H): the gate activations i, f, g, o
     const E* cseq;       // (T, B, H)
     const float* c0;
     const E* g_outs;     // (T, B, H)
@@ -1039,10 +1069,10 @@ __global__ void __launch_bounds__(THREADS, 1) backward_loop(BwdArgs<E> p) {
         for (int tile = blockIdx.y; tile < ntiles; tile += gridDim.y) {
             const int r0 = tile * RB;
             // what the cell needs of the pairs this thread finalizes,
-            // fetched before the product: the gate pre-activations, c_t,
+            // fetched before the product: the gate activations, c_t,
             // c_{t-1}, the incoming dh (g_outs, and g_hT at the last step)
             // and the carried dc
-            float pre[4][4], ct[4], cp[4], dh_in[4], dc_in[4];
+            float act[4][4], ct[4], cp[4], dh_in[4], dc_in[4];
 #pragma unroll
             for (int pp = 0; pp < 4; ++pp) {
                 int row, unit;
@@ -1053,7 +1083,7 @@ __global__ void __launch_bounds__(THREADS, 1) backward_loop(BwdArgs<E> p) {
                 const size_t st = (size_t)t * B * H + at;
                 const float* pr = p.P + ((size_t)t * B + row) * G + u0 + unit;
 #pragma unroll
-                for (int g = 0; g < 4; ++g) pre[pp][g] = ok ? pr[g * H] : 0.f;
+                for (int g = 0; g < 4; ++g) act[pp][g] = ok ? pr[g * H] : 0.f;
                 ct[pp] = ok ? to_f(p.cseq[st]) : 0.f;
                 cp[pp] = ok ? (t == 0 ? p.c0[at] : to_f(p.cseq[st - (size_t)B * H])) : 0.f;
                 dh_in[pp] = ok ? to_f(p.g_outs[st]) + (s == 0 ? p.g_hT[at] : 0.f) : 0.f;
@@ -1093,8 +1123,7 @@ __global__ void __launch_bounds__(THREADS, 1) backward_loop(BwdArgs<E> p) {
                         p.dh0[at] = v[pp];
                         continue;
                     }
-                    float ig = sigm(pre[pp][0]), fg = sigm(pre[pp][1]), gg = tanhf(pre[pp][2]),
-                          og = sigm(pre[pp][3]);
+                    float ig = act[pp][0], fg = act[pp][1], gg = act[pp][2], og = act[pp][3];
                     if (ENC5) {
                         ig = rnd<E>(ig);
                         fg = rnd<E>(fg);
@@ -1138,30 +1167,6 @@ __global__ void __launch_bounds__(THREADS, 1) backward_loop(BwdArgs<E> p) {
         }
         if (s < T) group_barrier(p.count + blockIdx.y, (unsigned)(s + 1) * gridDim.x);
     }
-}
-
-// h0 rounded to E into h_first (the forward loop's first operand), and the
-// barrier counters zeroed
-template <typename E>
-__global__ void prep(const float* __restrict__ h0, E* __restrict__ h_first, long long n,
-                     unsigned* __restrict__ count, int ncount) {
-    const long long i0 = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i0 < ncount) count[i0] = 0u;
-    if (h_first == nullptr) return;
-    for (long long i = i0; i < n; i += (long long)gridDim.x * blockDim.x)
-        h_first[i] = from_f<E>(h0[i]);
-}
-
-template <typename E>
-cudaError_t launch_prep(const float* h0, E* h_first, long long n, unsigned* count, int ncount,
-                        cudaStream_t stream) {
-    long long blocks = ((h_first ? n : 0) + THREADS - 1) / THREADS;
-    const long long need = (ncount + THREADS - 1) / THREADS;
-    if (blocks < need) blocks = need;
-    if (blocks > 1024) blocks = 1024;
-    if (blocks < 1) blocks = 1;
-    prep<E><<<(int)blocks, THREADS, 0, stream>>>(h0, h_first, n, count, ncount);
-    return launched();
 }
 
 // The loop's grid: H / UB unit blocks times RG row groups, every block
@@ -1219,48 +1224,613 @@ cudaError_t launch_loop(Kernel kernel, const Args& args, dim3 grid, size_t smem,
     return err == cudaSuccess ? launched() : err;
 }
 
+// ---------------------------------------------------------------------------
+// The rows schedule, for large B: a block owns whole tiles of RB batch rows
+// with all H units, so its rows' recurrence needs no other block (no
+// barrier, an ordinary launch of min(tiles, resident blocks) blocks, each
+// walking its tiles one after another through all T steps). Every product
+// is a (RB x RN) chunk of outputs over K streamed through an RSTAGES-deep
+// cp.async ring of (A: RB x KS, B: KS x RN) stages, one barrier a stage;
+// the ring runs on across a step's chunks, so the next chunk's first
+// stages load while a chunk's last one is multiplied and its epilogue
+// stores. The weights stream from L2 (prep packs them once a call in the
+// compute dtype, as the chunks read them).
+// * forward: gates = [x_t | h_prev] @ [W_ih; W_hh] + b, K = D + H summed in
+//   order in one f32 sum, then the bias (x @ W_ih is not a GEMM of its own
+//   here: no S slab is written or read); a chunk is RN / 4 units with
+//   their four gates. The chunk's outputs go through a shared tile to the
+//   epilogue, a thread to a unit and a quarter of the rows, coalesced.
+// * backward: dh = dg_{t+1} @ W_hh^T, K = 4H, a chunk is RN units; through
+//   the tile to a thread for each unit and all the tile's rows in order:
+//   the cell's reverse step as the units loop's, and the unit's column
+//   sums of the dgates (no sum across threads) as a row of db_part.
+// Math units as the units loops': f32 on FMA (8 x 8 outputs a thread),
+// bf16 on mma.sync (eight warps of 32 x 64).
+
+constexpr int RN = 256;     // output columns of a rows-schedule chunk
+constexpr int RSTAGES = 3;  // stages of its ring
+constexpr int TP = RN + 4;  // row pitch of the chunk's output tile
+constexpr int RFU = RN / 4; // the forward's units of a chunk
+
+template <typename E>
+struct RowsCfg {
+    static constexpr int KS = is_bf16<E> ? 64 : 32;  // k depth of a stage
+    static constexpr int EPC = 16 / (int)sizeof(E);  // elements of a 16-byte copy
+    static constexpr int PAD = is_bf16<E> ? 8 : 4;
+    static constexpr int AP = KS + PAD;              // A stage row pitch
+    static constexpr int BP = RN + PAD;              // B stage row pitch
+    static constexpr int STAGE = RB * AP + KS * BP;  // elements of a stage
+    // the ring, then a chunk's outputs (RB x TP f32), which the epilogue
+    // reads with a thread to a unit column
+    static size_t smem() { return RSTAGES * (size_t)STAGE * sizeof(E) + (size_t)RB * TP * 4; }
+    __host__ __device__ static int fwd_k(int D, int H) { return (D + H + KS - 1) / KS * KS; }
+    // elements of the packed weights: the forward's [W_ih; W_hh] in chunks
+    // of RFU units, the backward's W_hh^T in chunks of RN units
+    static size_t pack(int D, int H, bool fwd) {
+        return fwd ? (size_t)((H + RFU - 1) / RFU) * fwd_k(D, H) * RN
+                   : (size_t)((H + RN - 1) / RN) * 4 * H * RN;
+    }
+};
+
+// The packed weights: fwd w[c][k][n] = [W_ih; W_hh][k][g H + c RFU + u],
+// where column n of a forward chunk holds gate g of unit u: f32 keeps a
+// unit's four gates side by side (n = 128 (u / 32) + 4 (u % 32) + g: a
+// thread owns units tx and tx + 32), bf16 a warp's 16 units per gate (n =
+// 64 (u / 16) + 16 g + u % 16: the mma fragments' columns); bwd w[c][k][n]
+// = W_hh[c RN + n][k]. Zero past H and past D + H.
+template <typename E>
+__device__ E packed_weight(size_t i, const float* w_ih, const float* w_hh, int D, int H,
+                           bool fwd) {
+    using R = RowsCfg<E>;
+    const int n = (int)(i % RN);
+    if (fwd) {
+        const int Kp = R::fwd_k(D, H);
+        const int k = (int)(i / RN % Kp), c = (int)(i / RN / Kp);
+        // gate and unit of column n
+        const int g = is_bf16<E> ? n % 64 / 16 : n % 4;
+        const int u = is_bf16<E> ? n / 64 * 16 + n % 16 : n / 128 * 32 + n % 128 / 4;
+        const int unit = c * RFU + u;
+        if (unit >= H || k >= D + H) return from_f<E>(0.f);
+        const size_t col = (size_t)g * H + unit;
+        return from_f<E>(k < D ? w_ih[(size_t)k * 4 * H + col] : w_hh[(size_t)(k - D) * 4 * H + col]);
+    }
+    const int G = 4 * H;
+    const int k = (int)(i / RN % G), c = (int)(i / RN / G);
+    const int unit = c * RN + n;
+    return from_f<E>(unit < H ? w_hh[(size_t)unit * G + k] : 0.f);
+}
+
+template <typename E>
+struct PackArgs {
+    const float* w_ih;  // null for the backward's W_hh^T
+    const float* w_hh;
+    E* w;               // null: nothing to pack
+    int D, H, fwd;
+};
+
+// h0 rounded to E into h_first (the forward loop's first operand), the
+// barrier counters zeroed and, for the rows schedule, the weights packed
+template <typename E>
+__global__ void prep(const float* __restrict__ h0, E* __restrict__ h_first, long long n,
+                     unsigned* __restrict__ count, int ncount, PackArgs<E> pk, long long npack) {
+    const long long i0 = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    const long long stride = (long long)gridDim.x * blockDim.x;
+    if (i0 < ncount) count[i0] = 0u;
+    if (h_first != nullptr)
+        for (long long i = i0; i < n; i += stride) h_first[i] = from_f<E>(h0[i]);
+    for (long long i = i0; i < npack; i += stride)
+        pk.w[i] = packed_weight<E>((size_t)i, pk.w_ih, pk.w_hh, pk.D, pk.H, pk.fwd != 0);
+}
+
+template <typename E>
+cudaError_t launch_prep(const float* h0, E* h_first, long long n, unsigned* count, int ncount,
+                        cudaStream_t stream, PackArgs<E> pk = PackArgs<E>{}, long long npack = 0) {
+    long long most = h_first ? n : 0;
+    if (ncount > most) most = ncount;
+    if (npack > most) most = npack;
+    long long blocks = (most + THREADS - 1) / THREADS;
+    if (blocks > 1024) blocks = 1024;
+    if (blocks < 1) blocks = 1;
+    prep<E><<<(int)blocks, THREADS, 0, stream>>>(h0, h_first, n, count, ncount, pk, npack);
+    return launched();
+}
+
+// The ring: jobs 0 .. njobs-1 each load one stage (load(job, stage)) and
+// multiply it (step(job, stage)), RSTAGES - 1 loads in flight ahead of the
+// product. It opens with a barrier, so that whatever the block stored
+// before is visible to its loads and no stage is still being read.
+template <typename E, class Load, class Step>
+__device__ __forceinline__ void rows_ring(E* ring, int njobs, Load load, Step step) {
+    constexpr int S = RowsCfg<E>::STAGE;
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < RSTAGES - 1; ++j) {
+        if (j < njobs) load(j, ring + j * S);
+        cp_commit();
+    }
+    for (int j = 0; j < njobs; ++j) {
+        cp_wait<RSTAGES - 2>();
+        __syncthreads();
+        const int nj = j + RSTAGES - 1;
+        if (nj < njobs) load(nj, ring + (nj % RSTAGES) * S);
+        cp_commit();
+        step(j, ring + (j % RSTAGES) * S);
+    }
+}
+
+// A stage's A rows: k0 .. k0 + KS - 1 of rows r0 .. r0 + RB - 1 of [a1 |
+// a2] (a1 (B, n1), a2 (B, n2); a2 may be null with n2 0), zeros past
+// n1 + n2 and past B. n1 is a multiple of EPC, so no 16-byte run straddles
+// the two.
+template <typename E>
+__device__ __forceinline__ void rows_load_a(E* as, const E* a1, int n1, const E* a2, int n2, int k0,
+                                            int r0, int B) {
+    using R = RowsCfg<E>;
+    constexpr int RUNS = R::KS / R::EPC;
+    for (int i = threadIdx.x; i < RB * RUNS; i += THREADS) {
+        const int r = i / RUNS, k = k0 + i % RUNS * R::EPC, row = r0 + r;
+        const E* src = a1;
+        bool ok = row < B;
+        if (k < n1)
+            src = a1 + (size_t)row * n1 + k;
+        else if (k < n1 + n2)
+            src = a2 + (size_t)row * n2 + (k - n1);
+        else
+            ok = false;
+        cp_async16(as + r * R::AP + i % RUNS * R::EPC, ok ? src : a1, ok);
+    }
+}
+
+// a stage's B rows: KS contiguous rows of RN packed weights
+template <typename E>
+__device__ __forceinline__ void rows_load_b(E* bs, const E* w) {
+    using R = RowsCfg<E>;
+    constexpr int RUNS = RN / R::EPC;
+    for (int i = threadIdx.x; i < R::KS * RUNS; i += THREADS) {
+        const int k = i / RUNS, q = i % RUNS;
+        cp_async16(bs + k * R::BP + q * R::EPC, w + (size_t)k * RN + q * R::EPC, true);
+    }
+}
+
+// The outputs a thread holds of a chunk, acc[64]. f32: rows ty + 8 i,
+// columns 4 tx + j (j < 4) and 128 + 4 tx + j - 4, acc[8 i + j], with ty =
+// 4 (warp / 4) + lane / 8 and tx = 8 (warp % 4) + lane % 8. bf16: warp
+// (wm, wn) = (warp / 4, warp % 4), rows 32 wm + 16 mi + lane / 4 + 8 (q /
+// 2), columns 64 wn + 8 nj + 2 (lane % 4) + q % 2, acc[4 (8 mi + nj) + q].
+template <typename E>
+struct RowsMap {
+    __device__ static int ty() { return threadIdx.x / 128 * 4 + threadIdx.x % 32 / 8; }
+    __device__ static int tx() { return threadIdx.x / 32 % 4 * 8 + threadIdx.x % 8; }
+    __device__ static void at(int a, int& row, int& col) {
+        const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+        if (is_bf16<E>) {
+            const int mi = a / 32, nj = a / 4 % 8, q = a % 4;
+            row = 32 * (warp / 4) + 16 * mi + lane / 4 + 8 * (q / 2);
+            col = 64 * (warp % 4) + 8 * nj + 2 * (lane % 4) + q % 2;
+        } else {
+            const int i = a / 8, j = a % 8;
+            row = ty() + 8 * i;
+            col = j < 4 ? 4 * tx() + j : 128 + 4 * tx() + j - 4;
+        }
+    }
+};
+
+// acc += the stage's A (RB x KS) @ B (KS x RN)
+template <typename E>
+__device__ __forceinline__ void rows_product(float (&acc)[64], const E* as, const E* bs) {
+    using R = RowsCfg<E>;
+    if constexpr (is_bf16<E>) {
+        const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+        const int wm = (warp / 4) * 32, wn = (warp % 4) * 64;
+#pragma unroll
+        for (int ks = 0; ks < R::KS; ks += 16) {
+            uint32_t af[2][4], bq[4][4];
+#pragma unroll
+            for (int mi = 0; mi < 2; ++mi)
+                ldsm_x4(af[mi], as + (wm + mi * 16 + lane % 16) * R::AP + ks + (lane / 16) * 8);
+#pragma unroll
+            for (int jb = 0; jb < 4; ++jb)
+                ldsm_x4_t(bq[jb], bs + (ks + lane % 8 + (lane / 8) % 2 * 8) * R::BP + wn + jb * 16 +
+                                      (lane / 16) * 8);
+#pragma unroll
+            for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+                for (int nj = 0; nj < 8; ++nj) {
+                    float* d = acc + (mi * 8 + nj) * 4;
+                    mma16816(d[0], d[1], d[2], d[3], af[mi], bq[nj / 2][(nj % 2) * 2],
+                             bq[nj / 2][(nj % 2) * 2 + 1]);
+                }
+        }
+    } else {
+        const int ty = RowsMap<E>::ty(), tx = RowsMap<E>::tx();
+#pragma unroll
+        for (int kk = 0; kk < R::KS; kk += 4) {
+            float4 a[8];
+#pragma unroll
+            for (int i = 0; i < 8; ++i)
+                a[i] = *reinterpret_cast<const float4*>(as + (ty + 8 * i) * R::AP + kk);
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+                const float4 b0 = *reinterpret_cast<const float4*>(bs + (kk + q) * R::BP + 4 * tx);
+                const float4 b1 =
+                    *reinterpret_cast<const float4*>(bs + (kk + q) * R::BP + 128 + 4 * tx);
+                const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+                for (int i = 0; i < 8; ++i) {
+                    const float av = q == 0 ? a[i].x : q == 1 ? a[i].y : q == 2 ? a[i].z : a[i].w;
+#pragma unroll
+                    for (int j = 0; j < 8; ++j) acc[i * 8 + j] = fmaf(av, bv[j], acc[i * 8 + j]);
+                }
+            }
+        }
+    }
+}
+
+template <typename E>
+struct RowsFwdArgs {
+    const E* x;          // (T, B, D): the cell's input
+    const E* h_first;    // (B, H): h0 rounded
+    const float* c0;
+    const E* w;          // the packed [W_ih; W_hh]
+    const float* b;      // (4H,)
+    float* gates;        // (T*B, 4H): every step's gate activations, for the backward
+    E* outs;             // (T, B, H)
+    E* cseq;             // (T, B, H) or null
+    float* hT;
+    float* cT;           // (B, H): also the carried c
+    int T, B, D, H;
+};
+
+// acc into the chunk's output tile, (RB, TP) f32, at RowsMap's places
+template <typename E>
+__device__ __forceinline__ void store_tile(float* tile, const float (&acc)[64]) {
+#pragma unroll
+    for (int a = 0; a < 64; ++a) {
+        int row, col;
+        RowsMap<E>::at(a, row, col);
+        tile[row * TP + col] = acc[a];
+    }
+}
+
+template <typename E>
+__global__ void __launch_bounds__(THREADS, 1) rows_forward(RowsFwdArgs<E> p) {
+    using R = RowsCfg<E>;
+    extern __shared__ __align__(16) unsigned char smem[];
+    E* ring = reinterpret_cast<E*>(smem);
+    float* tile = reinterpret_cast<float*>(ring + RSTAGES * R::STAGE);
+    const int H = p.H, G = 4 * H, B = p.B, D = p.D;
+    const int Kp = R::fwd_k(D, H), nks = Kp / R::KS, nch = (H + RFU - 1) / RFU;
+    const int ntiles = (B + RB - 1) / RB;
+    // the epilogue's thread: one unit of the chunk, every fourth row
+    const int eu = threadIdx.x % RFU, er = threadIdx.x / RFU;
+    constexpr int ER = RB / (THREADS / RFU);  // its rows
+    // the tile's column of gate g of unit eu (packed_weight's layout)
+    const int ecol = is_bf16<E> ? eu / 16 * 64 + eu % 16 : eu / 32 * 128 + eu % 32 * 4;
+    const int gstep = is_bf16<E> ? 16 : 1;
+    float acc[64];
+    for (int tile_i = blockIdx.x; tile_i < ntiles; tile_i += gridDim.x) {
+        const int r0 = tile_i * RB;
+        for (int t = 0; t < p.T; ++t) {
+            const E* hp = t == 0 ? p.h_first : p.outs + (size_t)(t - 1) * B * H;
+            const E* xt = p.x + (size_t)t * B * D;
+#pragma unroll
+            for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+            // the chunk of a job: each tile starts at another, so that the
+            // blocks of a step do not all read the same weights at once
+            auto chunk = [&](int job) { return (job / nks + tile_i) % nch; };
+            auto load = [&](int job, E* st) {
+                const int k0 = job % nks * R::KS;
+                rows_load_a<E>(st, xt, D, hp, H, k0, r0, B);
+                rows_load_b<E>(st + RB * R::AP, p.w + ((size_t)chunk(job) * Kp + k0) * RN);
+            };
+            rows_ring<E>(ring, nch * nks, load, [&](int job, const E* st) {
+                rows_product<E>(acc, st, st + RB * R::AP);
+                if (job % nks != nks - 1) return;
+                // the chunk's epilogue, through the tile (the ring's next
+                // stages keep loading meanwhile)
+                store_tile<E>(tile, acc);
+#pragma unroll
+                for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+                __syncthreads();
+                const int unit = chunk(job) * RFU + eu;
+                if (unit < H) {
+                    float bias[4], c_prev[ER];
+#pragma unroll
+                    for (int g = 0; g < 4; ++g) bias[g] = p.b[g * H + unit];
+#pragma unroll
+                    for (int i = 0; i < ER; ++i) {
+                        const int row = r0 + er + 4 * i;
+                        const size_t at = (size_t)row * H + unit;
+                        c_prev[i] = row >= B ? 0.f : t == 0 ? p.c0[at] : p.cT[at];
+                    }
+#pragma unroll
+                    for (int i = 0; i < ER; ++i) {
+                        const int r = er + 4 * i, row = r0 + r;
+                        if (row >= B) break;
+                        const size_t at = (size_t)row * H + unit;
+                        float v[4];
+                        float* sg = p.gates + ((size_t)t * B + row) * G + unit;
+#pragma unroll
+                        for (int g = 0; g < 4; ++g) v[g] = tile[r * TP + ecol + g * gstep] + bias[g];
+                        const float ig = sigm(v[0]);
+                        const float fg = sigm(v[1]);
+                        const float gg = tanhf(v[2]);
+                        const float og = sigm(v[3]);
+                        sg[0] = ig;
+                        sg[H] = fg;
+                        sg[2 * H] = gg;
+                        sg[3 * H] = og;
+                        const float c = fg * c_prev[i] + ig * gg;
+                        const float h = og * tanhf(c);
+                        const size_t st2 = (size_t)t * B * H + at;
+                        p.outs[st2] = from_f<E>(h);
+                        if (p.cseq) p.cseq[st2] = from_f<E>(c);
+                        p.cT[at] = c;
+                        if (t == p.T - 1) p.hT[at] = h;
+                    }
+                }
+            });
+        }
+    }
+}
+
+template <typename E>
+struct RowsBwdArgs {
+    const float* P;      // (T*B, 4H): the gate activations i, f, g, o
+    const E* cseq;       // (T, B, H)
+    const float* c0;
+    const E* g_outs;     // (T, B, H)
+    const float* g_hT;
+    const float* g_cT;
+    const E* w;          // the packed W_hh^T
+    E* dg;               // (T, B, 4H): the rounded dgates
+    float* dh0;
+    float* dc0;          // (B, H): also the carried dc
+    float* db_part;      // (T * ceil(B / RB), 4H)
+    int T, B, H;
+};
+
+template <typename E, bool ENC5>
+__global__ void __launch_bounds__(THREADS, 1) rows_backward(RowsBwdArgs<E> p) {
+    using R = RowsCfg<E>;
+    extern __shared__ __align__(16) unsigned char smem[];
+    E* ring = reinterpret_cast<E*>(smem);
+    float* tile = reinterpret_cast<float*>(ring + RSTAGES * R::STAGE);
+    const int H = p.H, G = 4 * H, B = p.B, T = p.T;
+    const int nks = G / R::KS, nch = (H + RN - 1) / RN, ntiles = (B + RB - 1) / RB;
+    constexpr int EB = 8;  // rows whose inputs the epilogue fetches at once
+    float acc[64];
+    for (int tile_i = blockIdx.x; tile_i < ntiles; tile_i += gridDim.x) {
+        const int r0 = tile_i * RB, rows = B - r0 < RB ? B - r0 : RB;
+        // s = 0 .. T - 1 is the reverse step t = T - 1 - s; s = T computes dh0
+        for (int s = 0; s <= T; ++s) {
+            const int t = T - 1 - s;
+            // the epilogue of chunk c, a thread to a unit and all the tile's
+            // rows in order: dh_prev from the tile (none at s = 0, where dh
+            // is g_hT alone), the cell's reverse step, and the unit's
+            // column sums of the dgates for db
+            auto epilogue = [&](int c) {
+                const int unit = c * RN + threadIdx.x;
+                if (unit >= H) return;
+                if (s == T) {
+                    for (int r = 0; r < rows; ++r)
+                        p.dh0[(size_t)(r0 + r) * H + unit] = tile[r * TP + threadIdx.x];
+                    return;
+                }
+                float part[4] = {0.f, 0.f, 0.f, 0.f};
+                for (int rb = 0; rb < rows; rb += EB) {
+                    float act[EB][4], ct[EB], cp[EB], dh[EB], dc_in[EB];
+#pragma unroll
+                    for (int i = 0; i < EB; ++i) {
+                        const int row = r0 + rb + i;
+                        const bool ok = rb + i < rows;
+                        const size_t at = (size_t)row * H + unit;
+                        const size_t st = (size_t)t * B * H + at;
+                        const float* pr = p.P + ((size_t)t * B + row) * G + unit;
+#pragma unroll
+                        for (int g = 0; g < 4; ++g) act[i][g] = ok ? ld_ro(pr + g * H) : 0.f;
+                        ct[i] = ok ? ld_ro(p.cseq + st) : 0.f;
+                        cp[i] = !ok ? 0.f : t == 0 ? ld_ro(p.c0 + at) : ld_ro(p.cseq + st - (size_t)B * H);
+                        dh[i] = !ok ? 0.f
+                                    : (s == 0 ? 0.f : tile[(rb + i) * TP + threadIdx.x]) +
+                                          (ld_ro(p.g_outs + st) + (s == 0 ? ld_ro(p.g_hT + at) : 0.f));
+                        dc_in[i] = !ok ? 0.f : s == 0 ? ld_ro(p.g_cT + at) : p.dc0[at];
+                    }
+#pragma unroll
+                    for (int i = 0; i < EB; ++i) {
+                        if (rb + i >= rows) break;
+                        const int row = r0 + rb + i;
+                        const size_t at = (size_t)row * H + unit;
+                        float ig = act[i][0], fg = act[i][1], gg = act[i][2], og = act[i][3];
+                        if (ENC5) {
+                            ig = rnd<E>(ig);
+                            fg = rnd<E>(fg);
+                            gg = rnd<E>(gg);
+                            og = rnd<E>(og);
+                        }
+                        const float tc = tanhf(ct[i]);
+                        const float dout = dh[i] * tc;
+                        const float dc = dc_in[i] + dh[i] * og * (1.f - tc * tc);
+                        const float di = dc * gg, dgg = dc * ig, df = dc * cp[i];
+                        float d[4];
+                        d[0] = di * ig * (1.f - ig);
+                        d[1] = df * fg * (1.f - fg);
+                        d[2] = dgg * (1.f - gg * gg);
+                        d[3] = dout * og * (1.f - og);
+                        p.dc0[at] = dc * fg;
+                        E* dgt = p.dg + ((size_t)t * B + row) * G + unit;
+#pragma unroll
+                        for (int g = 0; g < 4; ++g) {
+                            dgt[g * H] = from_f<E>(d[g]);
+                            part[g] += ENC5 ? rnd<E>(d[g]) : d[g];
+                        }
+                    }
+                }
+#pragma unroll
+                for (int g = 0; g < 4; ++g)
+                    p.db_part[((size_t)t * ntiles + tile_i) * G + g * H + unit] = part[g];
+            };
+            if (s == 0) {
+                for (int c = 0; c < nch; ++c) epilogue(c);
+                continue;
+            }
+#pragma unroll
+            for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+            const E* dgn = p.dg + (size_t)(t + 1) * B * G;  // dg_{t+1}
+            auto load = [&](int job, E* st) {
+                const int c = job / nks, k0 = job % nks * R::KS;
+                rows_load_a<E>(st, dgn, G, nullptr, 0, k0, r0, B);
+                rows_load_b<E>(st + RB * R::AP, p.w + ((size_t)c * G + k0) * RN);
+            };
+            rows_ring<E>(ring, nch * nks, load, [&](int job, const E* st) {
+                rows_product<E>(acc, st, st + RB * R::AP);
+                if (job % nks != nks - 1) return;
+                store_tile<E>(tile, acc);
+#pragma unroll
+                for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+                __syncthreads();
+                epilogue(job / nks);
+            });
+        }
+    }
+}
+
+// The rows schedule's grid: at most one block for each tile, at most as
+// many as the card holds at once (more would only wait). An ordinary
+// launch: no block waits for another.
+template <typename Kernel>
+cudaError_t rows_grid(Kernel kernel, size_t smem, int B, dim3& grid) {
+    cudaError_t err;
+    int dev = 0, sms = 0, per_sm = 0;
+    if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+        return err;
+    if ((err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    (int)smem)) != cudaSuccess)
+        return err;
+    if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, smem)) !=
+        cudaSuccess)
+        return err;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    const int ntiles = (B + RB - 1) / RB;
+    grid = dim3(ntiles < per_sm * sms ? ntiles : per_sm * sms);
+    return cudaSuccess;
+}
+
 bool shape_ok(int T, int B, int D, int H) {
     return T > 0 && B > 0 && D > 0 && H >= HIDDEN_MULTIPLE && H % HIDDEN_MULTIPLE == 0;
+}
+
+// Whether B rows make enough tiles for the rows schedule: they fill at
+// least half the card's SMs (fewer blocks leave the card idle, and the
+// units schedule spreads each tile's units over many blocks instead).
+bool many_tiles(int B) {
+    static int sms_of[64];  // SMs of each device, asked once
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return false;
+    if (sms_of[dev] == 0 &&
+        cudaDeviceGetAttribute(&sms_of[dev], cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+        return false;
+    return 2 * ((B + RB - 1) / RB) >= sms_of[dev];
+}
+
+// whether the rows forward can stream x's rows as 16-byte runs
+template <typename E>
+bool rows_reads(const E* x, int D) {
+    return D % RowsCfg<E>::EPC == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+}
+
+// The rows schedule's forward from x (the cell's input): prep (h0
+// rounded, [W_ih; W_hh] packed into wpack), then the loop.
+template <typename E>
+cudaError_t rows_forward_call(const E* x, const float* h0, const float* c0, const float* w_ih,
+                              const float* w_hh, const float* b, E* outs, E* cseq, float* hT,
+                              float* cT, float* gates, E* h_first, E* wpack, int T, int B, int D,
+                              int H, cudaStream_t stream) {
+    using R = RowsCfg<E>;
+    dim3 grid;
+    const size_t smem = R::smem();
+    cudaError_t err = rows_grid(rows_forward<E>, smem, B, grid);
+    if (err != cudaSuccess) return err;
+    if ((err = launch_prep<E>(h0, h_first, (long long)B * H, nullptr, 0, stream,
+                              PackArgs<E>{w_ih, w_hh, wpack, D, H, 1},
+                              (long long)R::pack(D, H, true))) != cudaSuccess)
+        return err;
+    RowsFwdArgs<E> args{x, h_first, c0, wpack, b, gates, outs, cseq, hT, cT, T, B, D, H};
+    rows_forward<E><<<grid, THREADS, smem, stream>>>(args);
+    return launched();
+}
+
+// The units schedule's forward from x: prep, S = x @ W_ih, then the loop.
+template <typename E>
+cudaError_t units_forward_call(const E* x, const float* h0, const float* c0, const float* w_ih,
+                               const float* w_hh, const float* b, E* outs, E* cseq, float* hT,
+                               float* cT, float* S, E* h_first, unsigned* count, int T, int B,
+                               int D, int H, cudaStream_t stream) {
+    dim3 grid;
+    const size_t smem = Loop<E>::smem(H, true);
+    cudaError_t err = plan(forward_loop<E>, smem, H, B, grid);
+    if (err != cudaSuccess) return err;
+    const int G = 4 * H;
+    if ((err = launch_prep<E>(h0, h_first, (long long)B * H, count, grid.y, stream)) !=
+        cudaSuccess)
+        return err;
+    if ((err = launch_gemm<E>(Rows<E, E>{x, D}, RowsB<E, float>{w_ih, G}, StoreF32{S, G}, T * B,
+                              G, D, 1, nullptr, nullptr, stream)) != cudaSuccess)
+        return err;
+    FwdArgs<E> args{S, h_first, c0, w_hh, b, outs, cseq, hT, cT, count, T, B, H,
+                    Loop<E>::cps(H, true)};
+    return launch_loop(forward_loop<E>, args, grid, smem, stream);
 }
 
 template <typename E>
 int forward(const E* x, const float* h0, const float* c0, const float* w_ih, const float* w_hh,
             const float* b, E* outs, E* cseq, float* hT, float* cT, float* S, E* h_first,
-            unsigned* count, int T, int B, int D, int H, cudaStream_t stream) {
-    dim3 grid;
-    const size_t smem = Loop<E>::smem(H, true);
-    cudaError_t err = plan(forward_loop<E>, smem, H, B, grid);
-    if (err != cudaSuccess) return (int)err;
-    const int G = 4 * H;
-    if ((err = launch_prep<E>(h0, h_first, (long long)B * H, count, grid.y, stream)) !=
-        cudaSuccess)
-        return (int)err;
-    if ((err = launch_gemm<E>(Rows<E, E>{x, D}, RowsB<E, float>{w_ih, G}, StoreF32{S, G}, T * B,
-                              G, D, 1, nullptr, nullptr, stream)) != cudaSuccess)
-        return (int)err;
-    FwdArgs<E> args{S, h_first, c0, w_hh, b, outs, cseq, hT, cT, count, T, B, H,
-                    Loop<E>::cps(H, true)};
-    return (int)launch_loop(forward_loop<E>, args, grid, smem, stream);
+            unsigned* count, E* wpack, int T, int B, int D, int H, cudaStream_t stream) {
+    if (wpack && many_tiles(B) && rows_reads(x, D))
+        return (int)rows_forward_call<E>(x, h0, c0, w_ih, w_hh, b, outs, cseq, hT, cT, S, h_first,
+                                         wpack, T, B, D, H, stream);
+    return (int)units_forward_call<E>(x, h0, c0, w_ih, w_hh, b, outs, cseq, hT, cT, S, h_first,
+                                      count, T, B, D, H, stream);
 }
 
 // The reverse loop, dx (or enc5's dpre), dW and db, from the gates P the
 // forward kept. x is the cell's input (enc5: the encoded xs); dpre null for
-// cat.
+// cat. The loop runs the rows schedule where wpack is given and B makes
+// many tiles, else the units schedule.
 template <typename E, bool ENC5>
 cudaError_t backward_core(const E* x, const float* h0, const float* c0, const float* w_ih,
                           const float* w_hh, const E* outs, const E* cseq, const E* g_outs,
                           const float* g_hT, const float* g_cT, E* dx, E* dpre, float* dh0,
                           float* dc0, float* dw, float* db, const float* P, E* dg,
-                          float* db_part, float* dw_part, unsigned* count, int splits, int T,
-                          int B, int D, int H, dim3 grid, size_t smem, cudaStream_t stream) {
+                          float* db_part, float* dw_part, unsigned* count, E* wpack, int splits,
+                          int T, int B, int D, int H, cudaStream_t stream) {
     const int G = 4 * H, M = T * B;
-    cudaError_t err = launch_prep<E>(nullptr, nullptr, 0, count, grid.y, stream);
-    if (err != cudaSuccess) return err;
+    dim3 grid;
+    cudaError_t err;
+    if (wpack && many_tiles(B)) {
+        using R = RowsCfg<E>;
+        const size_t smem = R::smem();
+        if ((err = rows_grid(rows_backward<E, ENC5>, smem, B, grid)) != cudaSuccess) return err;
+        if ((err = launch_prep<E>(nullptr, nullptr, 0, nullptr, 0, stream,
+                                  PackArgs<E>{nullptr, w_hh, wpack, D, H, 0},
+                                  (long long)R::pack(D, H, false))) != cudaSuccess)
+            return err;
+        RowsBwdArgs<E> args{P, cseq, c0, g_outs, g_hT, g_cT, wpack, dg, dh0, dc0, db_part,
+                            T, B, H};
+        rows_backward<E, ENC5><<<grid, THREADS, smem, stream>>>(args);
+        if ((err = launched()) != cudaSuccess) return err;
+    } else {
+        const size_t smem = Loop<E>::smem(H, false);
+        if ((err = plan(backward_loop<E, ENC5>, smem, H, B, grid)) != cudaSuccess) return err;
+        if ((err = launch_prep<E>(nullptr, nullptr, 0, count, grid.y, stream)) != cudaSuccess)
+            return err;
+        BwdArgs<E> args{P,   cseq, c0,      g_outs, g_hT, g_cT, w_hh, dg, dh0,
+                        dc0, db_part, count, T, B, H, Loop<E>::cps(H, false)};
+        if ((err = launch_loop(backward_loop<E, ENC5>, args, grid, smem, stream)) != cudaSuccess)
+            return err;
+    }
     XH<E> xh{x, h0, outs, B, D, H};
-    BwdArgs<E> args{P,   cseq, c0,      g_outs, g_hT, g_cT, w_hh, dg, dh0,
-                    dc0, db_part, count, T, B, H, Loop<E>::cps(H, false)};
-    if ((err = launch_loop(backward_loop<E, ENC5>, args, grid, smem, stream)) != cudaSuccess)
-        return err;
     if (ENC5)
         err = launch_gemm<E>(Rows<E, E>{dg, G}, WeightT<E>{w_ih, G}, DpreOut<E>{dpre, x, D}, M,
                              D, G, 1, nullptr, nullptr, stream);
@@ -1280,15 +1850,23 @@ template <typename E>
 int backward(const E* x, const float* h0, const float* c0, const float* w_ih, const float* w_hh,
              const E* outs, const E* cseq, const E* g_outs, const float* g_hT,
              const float* g_cT, E* dx, float* dh0, float* dc0, float* dw, float* db,
-             const float* P, E* dg, float* db_part, float* dw_part, unsigned* count, int splits,
-             int T, int B, int D, int H, cudaStream_t stream) {
-    dim3 grid;
-    const size_t smem = Loop<E>::smem(H, false);
-    cudaError_t err = plan(backward_loop<E, false>, smem, H, B, grid);
-    if (err != cudaSuccess) return (int)err;
+             const float* P, E* dg, float* db_part, float* dw_part, unsigned* count, E* wpack,
+             int splits, int T, int B, int D, int H, cudaStream_t stream) {
     return (int)backward_core<E, false>(x, h0, c0, w_ih, w_hh, outs, cseq, g_outs, g_hT, g_cT,
                                         dx, nullptr, dh0, dc0, dw, db, P, dg, db_part, dw_part,
-                                        count, splits, T, B, D, H, grid, smem, stream);
+                                        count, wpack, splits, T, B, D, H, stream);
+}
+
+// The error the loop of the schedule a call takes would give, asked before
+// the call's first launch (enc5 launches its encoder before the loop)
+template <typename E, bool ENC5>
+cudaError_t loop_error(bool fwd, bool rows, int B, int H) {
+    dim3 grid;
+    if (rows)
+        return fwd ? rows_grid(rows_forward<E>, RowsCfg<E>::smem(), B, grid)
+                   : rows_grid(rows_backward<E, ENC5>, RowsCfg<E>::smem(), B, grid);
+    return fwd ? plan(forward_loop<E>, Loop<E>::smem(H, true), H, B, grid)
+               : plan(backward_loop<E, ENC5>, Loop<E>::smem(H, false), H, B, grid);
 }
 
 template <typename E>
@@ -1302,23 +1880,14 @@ template <typename E>
 int enc_forward(const E* feats, const float* h0, const float* c0, const float* w_enc,
                 const float* b_enc, const float* w_ih, const float* w_hh, const float* b,
                 E* outs, E* cseq, float* hT, float* cT, E* xs, float* S, E* h_first,
-                unsigned* count, int T, int B, int F, int D, int H, cudaStream_t stream) {
-    dim3 grid;
-    const size_t smem = Loop<E>::smem(H, true);
-    cudaError_t err = plan(forward_loop<E>, smem, H, B, grid);
+                unsigned* count, E* wpack, int T, int B, int F, int D, int H,
+                cudaStream_t stream) {
+    cudaError_t err = loop_error<E, false>(true, wpack && many_tiles(B) && rows_reads(xs, D), B, H);
     if (err != cudaSuccess) return (int)err;
-    const int G = 4 * H;
-    if ((err = launch_prep<E>(h0, h_first, (long long)B * H, count, grid.y, stream)) !=
-        cudaSuccess)
-        return (int)err;
     if ((err = encode<E>(feats, w_enc, b_enc, xs, T, B, F, D, stream)) != cudaSuccess)
         return (int)err;
-    if ((err = launch_gemm<E>(Rows<E, E>{xs, D}, RowsB<E, float>{w_ih, G}, StoreF32{S, G}, T * B,
-                              G, D, 1, nullptr, nullptr, stream)) != cudaSuccess)
-        return (int)err;
-    FwdArgs<E> args{S, h_first, c0, w_hh, b, outs, cseq, hT, cT, count, T, B, H,
-                    Loop<E>::cps(H, true)};
-    return (int)launch_loop(forward_loop<E>, args, grid, smem, stream);
+    return forward<E>(xs, h0, c0, w_ih, w_hh, b, outs, cseq, hT, cT, S, h_first, count, wpack, T,
+                      B, D, H, stream);
 }
 
 template <typename E>
@@ -1327,19 +1896,16 @@ int enc_backward(const E* feats, const float* h0, const float* c0, const float* 
                  const E* cseq, const E* g_outs, const float* g_hT, const float* g_cT,
                  float* dh0, float* dc0, float* dwe, float* dw, float* db, E* xs, E* dpre,
                  const float* P, E* dg, float* db_part, float* dw_part, float* dwe_part,
-                 unsigned* count, int splits_w, int splits_e, int T, int B, int F, int D, int H,
-                 cudaStream_t stream) {
-    dim3 grid;
-    const size_t smem = Loop<E>::smem(H, false);
-    cudaError_t err = plan(backward_loop<E, true>, smem, H, B, grid);
+                 unsigned* count, E* wpack, int splits_w, int splits_e, int T, int B, int F,
+                 int D, int H, cudaStream_t stream) {
+    cudaError_t err = loop_error<E, true>(false, wpack && many_tiles(B), B, H);
     if (err != cudaSuccess) return (int)err;
     // x recomputed by the forward's encoder, bit for bit
     if ((err = encode<E>(feats, w_enc, b_enc, xs, T, B, F, D, stream)) != cudaSuccess)
         return (int)err;
     if ((err = backward_core<E, true>(xs, h0, c0, w_ih, w_hh, outs, cseq, g_outs, g_hT, g_cT,
                                       nullptr, dpre, dh0, dc0, dw, db, P, dg, db_part, dw_part,
-                                      count, splits_w, T, B, D, H, grid, smem, stream)) !=
-        cudaSuccess)
+                                      count, wpack, splits_w, T, B, D, H, stream)) != cudaSuccess)
         return (int)err;
     // [dW_enc; db_enc] = [feats | 1]^T dpre, (F + 1, D)
     return (int)launch_gemm<E>(FeatOnesCols<E>{feats, F}, RowsB<E, E>{dpre, D}, StoreF32{dwe, D},
@@ -1369,23 +1935,28 @@ extern "C" {
 // x: (T, B, D) in the compute dtype (bf16 when cdt_bf16, else f32); h0,
 // c0: (B, H); w_ih: (D, 4H), w_hh: (H, 4H); b: (4H,), all f32. Writes outs
 // and, unless it is null, cseq (T, B, H) in the compute dtype, hT and cT
-// (B, H) f32, and gates (T*B*4H) f32: every step's gate pre-activations,
-// bias in, which the backward takes. Scratch: h_first (B*H) in the
-// compute dtype, count (ceil(B / 64)) u32. H a multiple of 32 up to
-// lstm_stream_limits, any D >= 1. Three launches.
+// (B, H) f32, and gates (T*B*4H) f32: every step's gate activations i,
+// f, g, o (unrounded), which the backward takes. Scratch: h_first (B*H) in the
+// compute dtype, count (ceil(B / 64)) u32, and wpack in the compute dtype
+// (lstm_stream_pack's elements; null or empty: the units schedule). H a
+// multiple of 32 up to lstm_stream_limits (callers pad other hidden sizes
+// with zero units), any D >= 1. Two launches on the rows schedule, three
+// on the units schedule.
 int lstm_cat_stream_forward(const void* x, const float* h0, const float* c0,
                             const float* w_ih, const float* w_hh, const float* b, void* outs,
                             void* cseq, float* hT, float* cT, float* gates, void* h_first,
-                            unsigned* count, int T, int B, int D, int H, int cdt_bf16,
-                            cudaStream_t stream) {
+                            unsigned* count, void* wpack, int T, int B, int D, int H,
+                            int cdt_bf16, cudaStream_t stream) {
     if (!shape_ok(T, B, D, H) || !hidden_ok(H, cdt_bf16)) return (int)cudaErrorInvalidValue;
     if (cdt_bf16)
         return forward(static_cast<const bf16*>(x), h0, c0, w_ih, w_hh, b,
                        static_cast<bf16*>(outs), static_cast<bf16*>(cseq), hT, cT, gates,
-                       static_cast<bf16*>(h_first), count, T, B, D, H, stream);
+                       static_cast<bf16*>(h_first), count, static_cast<bf16*>(wpack), T, B, D,
+                       H, stream);
     return forward(static_cast<const float*>(x), h0, c0, w_ih, w_hh, b,
                    static_cast<float*>(outs), static_cast<float*>(cseq), hT, cT, gates,
-                   static_cast<float*>(h_first), count, T, B, D, H, stream);
+                   static_cast<float*>(h_first), count, static_cast<float*>(wpack), T, B, D, H,
+                   stream);
 }
 
 // Inputs as the forward's (but b) plus its outs, cseq and gates and the
@@ -1393,66 +1964,67 @@ int lstm_cat_stream_forward(const void* x, const float* h0, const float* c0,
 // Writes dx (T, B, D, compute dtype), dh0, dc0 (B, H), dw = [dW_ih;
 // dW_hh] (D + H, 4H) and db (4H,), f32. Scratch: dg (T*B*4H) in the
 // compute dtype, db_part (T * ceil(B / 64), 4H) f32, dw_part (splits,
-// D + H, 4H) f32 when splits > 1, count (ceil(B / 64)) u32. Five
-// launches, six with splits > 1.
+// D + H, 4H) f32 when splits > 1, count (ceil(B / 64)) u32, wpack as the
+// forward's. Five launches, six with splits > 1.
 int lstm_cat_stream_backward(const void* x, const float* h0, const float* c0,
                              const float* w_ih, const float* w_hh, const void* outs,
                              const void* cseq, const float* gates, const void* g_outs,
                              const float* g_hT, const float* g_cT, void* dx, float* dh0,
                              float* dc0, float* dw, float* db, void* dg, float* db_part,
-                             float* dw_part, unsigned* count, int splits, int T, int B, int D,
-                             int H, int cdt_bf16, cudaStream_t stream) {
+                             float* dw_part, unsigned* count, void* wpack, int splits, int T,
+                             int B, int D, int H, int cdt_bf16, cudaStream_t stream) {
     if (!shape_ok(T, B, D, H) || !hidden_ok(H, cdt_bf16)) return (int)cudaErrorInvalidValue;
     if (cdt_bf16)
         return backward(static_cast<const bf16*>(x), h0, c0, w_ih, w_hh,
                         static_cast<const bf16*>(outs), static_cast<const bf16*>(cseq),
                         static_cast<const bf16*>(g_outs), g_hT, g_cT, static_cast<bf16*>(dx),
                         dh0, dc0, dw, db, gates, static_cast<bf16*>(dg), db_part, dw_part,
-                        count, splits, T, B, D, H, stream);
+                        count, static_cast<bf16*>(wpack), splits, T, B, D, H, stream);
     return backward(static_cast<const float*>(x), h0, c0, w_ih, w_hh,
                     static_cast<const float*>(outs), static_cast<const float*>(cseq),
                     static_cast<const float*>(g_outs), g_hT, g_cT, static_cast<float*>(dx), dh0,
-                    dc0, dw, db, gates, static_cast<float*>(dg), db_part, dw_part, count, splits,
-                    T, B, D, H, stream);
+                    dc0, dw, db, gates, static_cast<float*>(dg), db_part, dw_part, count,
+                    static_cast<float*>(wpack), splits, T, B, D, H, stream);
 }
 
 // enc5 on this design. feats: (T, B, F) in the compute dtype; w_enc (F, D),
 // b_enc (D,) f32; the rest as lstm_cat_stream_forward's. Scratch as its,
-// plus xs (T*B*D) in the compute dtype. Four launches.
+// plus xs (T*B*D) in the compute dtype. Three launches on the rows
+// schedule, four on the units schedule.
 int lstm_enc_stream_forward(const void* feats, const float* h0, const float* c0,
                             const float* w_enc, const float* b_enc, const float* w_ih,
                             const float* w_hh, const float* b, void* outs, void* cseq, float* hT,
                             float* cT, void* xs, float* gates, void* h_first, unsigned* count,
-                            int T, int B, int F, int D, int H, int cdt_bf16,
+                            void* wpack, int T, int B, int F, int D, int H, int cdt_bf16,
                             cudaStream_t stream) {
     if (!shape_ok(T, B, D, H) || F < 1 || !hidden_ok(H, cdt_bf16))
         return (int)cudaErrorInvalidValue;
     if (cdt_bf16)
         return enc_forward(static_cast<const bf16*>(feats), h0, c0, w_enc, b_enc, w_ih, w_hh, b,
                            static_cast<bf16*>(outs), static_cast<bf16*>(cseq), hT, cT,
-                           static_cast<bf16*>(xs), gates, static_cast<bf16*>(h_first), count, T,
-                           B, F, D, H, stream);
+                           static_cast<bf16*>(xs), gates, static_cast<bf16*>(h_first), count,
+                           static_cast<bf16*>(wpack), T, B, F, D, H, stream);
     return enc_forward(static_cast<const float*>(feats), h0, c0, w_enc, b_enc, w_ih, w_hh, b,
                        static_cast<float*>(outs), static_cast<float*>(cseq), hT, cT,
-                       static_cast<float*>(xs), gates, static_cast<float*>(h_first), count, T, B,
-                       F, D, H, stream);
+                       static_cast<float*>(xs), gates, static_cast<float*>(h_first), count,
+                       static_cast<float*>(wpack), T, B, F, D, H, stream);
 }
 
 // enc5's backward on this design, from its forward's outs, cseq and gates:
 // writes dh0, dc0 (B, H), dwe = [dW_enc; db_enc] (F + 1, D), dw = [dW_ih;
 // dW_hh] (D + H, 4H) and db (4H,), f32. Scratch: xs and dpre (T*B*D) in
-// the compute dtype, dg, db_part and dw_part as lstm_cat_stream_backward's,
-// dwe_part (splits_e, F + 1, D) f32 when splits_e > 1, count. Seven
-// launches, one more for each split sum.
+// the compute dtype, dg, db_part, dw_part and wpack as
+// lstm_cat_stream_backward's, dwe_part (splits_e, F + 1, D) f32 when
+// splits_e > 1, count. Seven launches, one more for each split sum.
 int lstm_enc_stream_backward(const void* feats, const float* h0, const float* c0,
                              const float* w_enc, const float* b_enc, const float* w_ih,
                              const float* w_hh, const void* outs, const void* cseq,
                              const float* gates, const void* g_outs, const float* g_hT,
                              const float* g_cT, float* dh0, float* dc0, float* dwe, float* dw,
                              float* db, void* xs, void* dpre, void* dg, float* db_part,
-                             float* dw_part, float* dwe_part, unsigned* count, int splits_w,
-                             int splits_e, int T, int B, int F, int D, int H, int cdt_bf16,
-                             cudaStream_t stream) {
+                             float* dw_part, float* dwe_part, unsigned* count, void* wpack,
+                             int splits_w, int splits_e, int T, int B, int F, int D, int H,
+                             int cdt_bf16, cudaStream_t stream) {
     if (!shape_ok(T, B, D, H) || F < 1 || !hidden_ok(H, cdt_bf16))
         return (int)cudaErrorInvalidValue;
     if (cdt_bf16)
@@ -1460,14 +2032,28 @@ int lstm_enc_stream_backward(const void* feats, const float* h0, const float* c0
                             static_cast<const bf16*>(outs), static_cast<const bf16*>(cseq),
                             static_cast<const bf16*>(g_outs), g_hT, g_cT, dh0, dc0, dwe, dw, db,
                             static_cast<bf16*>(xs), static_cast<bf16*>(dpre), gates,
-                            static_cast<bf16*>(dg), db_part, dw_part, dwe_part, count, splits_w,
-                            splits_e, T, B, F, D, H, stream);
+                            static_cast<bf16*>(dg), db_part, dw_part, dwe_part, count,
+                            static_cast<bf16*>(wpack), splits_w, splits_e, T, B, F, D, H,
+                            stream);
     return enc_backward(static_cast<const float*>(feats), h0, c0, w_enc, b_enc, w_ih, w_hh,
                         static_cast<const float*>(outs), static_cast<const float*>(cseq),
                         static_cast<const float*>(g_outs), g_hT, g_cT, dh0, dc0, dwe, dw, db,
                         static_cast<float*>(xs), static_cast<float*>(dpre), gates,
-                        static_cast<float*>(dg), db_part, dw_part, dwe_part, count, splits_w,
-                        splits_e, T, B, F, D, H, stream);
+                        static_cast<float*>(dg), db_part, dw_part, dwe_part, count,
+                        static_cast<float*>(wpack), splits_w, splits_e, T, B, F, D, H, stream);
+}
+
+// Not a launch: out[0] the elements of wpack that a forward (fwd) or
+// backward call at (B, D, H) in bf16 (cdt_bf16) or f32 takes on the rows
+// schedule, 0 where the call takes the units schedule (a forward whose x
+// is not 16-byte aligned takes the units schedule and leaves it unused).
+int lstm_stream_pack(int B, int D, int H, int cdt_bf16, int fwd, long long* out) {
+    const bool rows = many_tiles(B) &&
+                      (!fwd || D % (cdt_bf16 ? RowsCfg<bf16>::EPC : RowsCfg<float>::EPC) == 0);
+    out[0] = !rows ? 0
+                   : (long long)(cdt_bf16 ? RowsCfg<bf16>::pack(D, H, fwd != 0)
+                                          : RowsCfg<float>::pack(D, H, fwd != 0));
+    return 0;
 }
 
 // Not a launch: out[0] the largest hidden size whose loops' shared memory

@@ -54,9 +54,11 @@ def lstm_route(kernel, use_kernel, device, T, D, H, F, num_layers, cdt):
     the card is its two designs' (lstm_common.enc5_shape_error), the
     resident kernels (lstm_common.encoder_shape_error) else the streamed
     ones; cat's likewise (lstm_common.cat_shape_error). The streamed
-    design takes any D and F and every hidden size that is a multiple of
-    32 up to lstm_common.STREAM_MAX_HIDDEN (800 in f32, 1472 in bf16), so
-    only other hidden sizes raise.
+    design takes any D and F and any hidden size that, padded with zero
+    units to a multiple of 32 (lstm_common.stream_hidden), is at most
+    lstm_common.STREAM_MAX_HIDDEN (800 in f32, 1472 in bf16), so only
+    larger hidden sizes raise: hidden 100 and 200, for example, run enc5's
+    (or cat's) streamed design.
     - T == 1, use_kernel False, or kernel 'off': 'off' (at T == 1 the
       plain combined-operand step). These are the only ways to the plain
       scan on the card: the caller asks for it.

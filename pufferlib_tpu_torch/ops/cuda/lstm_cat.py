@@ -25,15 +25,20 @@ dx and dW as GEMMs around a reverse loop), at any input width D that is
 a multiple of 8 up to lstm_common.tc_max_input(H); in f32, the exact test
 mode, lstm_common.cuh's FMA cell kernels, which take D == H. These hold
 the weights in shared memory and take hidden sizes 32, 64 and 128. Every
-other shape with a hidden size that is a multiple of 32 (up to
-lstm_common.STREAM_MAX_HIDDEN) and any input width runs the second
-design, csrc/lstm_cat_stream.cu (STREAM_KERNEL), in both dtypes: the
-input products as GEMMs over all T*B rows outside the recurrence, and
-the recurrence as one persistent launch whose blocks each hold a slice
-of W_hh in shared memory for every step and meet at a barrier a step
-(bf16 on the tensor cores, f32 on FMA). The wrapper picks the design by
-shape (lstm_common.cat_design) and raises where neither serves. The
-same file carries enc5's streamed pair (lstm_enc.py).
+other shape, at any input width and any hidden size up to
+lstm_common.STREAM_MAX_HIDDEN, runs the second design,
+csrc/lstm_cat_stream.cu (STREAM_KERNEL), in both dtypes (bf16 on the
+tensor cores, f32 on FMA). Its launchers pad a hidden size that is no
+multiple of 32 with zero units inside each gate block
+(lstm_common.pad_cell) and slice the outputs and gradients back. At few
+batch rows its recurrence is one persistent launch whose blocks each hold
+a slice of W_hh in shared memory for every step and meet at a barrier a
+step, the input products GEMMs over all T*B rows outside it; at many rows
+(64-row tiles for at least half the SMs) each block owns whole row tiles
+and streams the weights from L2, x @ W_ih folded into the forward loop.
+The wrapper picks the design by shape (lstm_common.cat_design) and raises
+where neither serves. The same file carries enc5's streamed pair
+(lstm_enc.py).
 
 lstm_cat_reference and lstm_cat_backward_reference are the plain
 versions: explicit PyTorch that follows the TPU kernels' math and
@@ -42,6 +47,7 @@ them for tensors on the CPU; for CUDA tensors it launches the kernels or
 raises. chip_smoke.py holds the kernels against them on the card.
 """
 import ctypes
+import functools
 
 import torch
 
@@ -51,8 +57,9 @@ from pufferlib_tpu_torch.ops.cuda.lstm_common import (
     BACKWARD_PHASES, FORWARD_PHASES, STREAM_ROWS, backward_inputs,
     cat_design, cat_shape_error, cell_backward_step, check_cell_inputs,
     forward_outputs, gate_activations, launch_cell_backward,
-    launch_cell_forward, round_to, scan_forward, stream_shape_error,
-    stream_splits)
+    launch_cell_forward, pad_cell, pad_units, round_to, scan_forward,
+    stream_hidden, stream_shape_error, stream_splits, unpad_cell_grads,
+    unpad_units)
 
 __all__ = ['lstm_scan_cat', 'lstm_cat_reference',
     'lstm_cat_backward_reference', 'KERNEL', 'STREAM_KERNEL']
@@ -67,13 +74,15 @@ KERNEL = CudaKernel('lstm_cat.cu', {
 })
 # the second design, for the shapes KERNEL refuses, and enc5's (lstm_enc.py)
 STREAM_KERNEL = CudaKernel('lstm_cat_stream.cu', {
-    'lstm_cat_stream_forward': [P] * 13 + [I] * 5 + [P],
-    'lstm_cat_stream_backward': [P] * 20 + [I] * 6 + [P],
-    'lstm_enc_stream_forward': [P] * 16 + [I] * 6 + [P],
-    'lstm_enc_stream_backward': [P] * 25 + [I] * 8 + [P],
+    'lstm_cat_stream_forward': [P] * 14 + [I] * 5 + [P],
+    'lstm_cat_stream_backward': [P] * 21 + [I] * 6 + [P],
+    'lstm_enc_stream_forward': [P] * 17 + [I] * 6 + [P],
+    'lstm_enc_stream_backward': [P] * 26 + [I] * 8 + [P],
     # not a launch: the largest hidden size the streamed loops take and
     # the batch rows of their tiles
     'lstm_stream_limits': [I, P],
+    # not a launch: the packed weights a call takes on the rows schedule
+    'lstm_stream_pack': [I] * 5 + [P],
     # not a launch: the kernels the library has launched so far
     'lstm_stream_kernels': [P],
 })
@@ -161,23 +170,52 @@ def stream_backward_scratch(T, B, D, H, cdt, device):
         stream_counters(B, device))
 
 
+def stream_pack(B, D, H, cdt, forward, device):
+    """The packed weights in cdt that a streamed forward (or backward)
+    call at (B, D, H) takes on its rows schedule (lstm_stream_pack), or
+    None where it takes the units schedule."""
+    n = _pack_elems(B, D, H, cdt == torch.bfloat16, forward,
+        torch.device(device).index or 0)
+    return torch.empty((n,), dtype=cdt, device=device) if n else None
+
+
+@functools.lru_cache(maxsize=None)
+def _pack_elems(B, D, H, bf16, forward, device_index):
+    """lstm_stream_pack's answer, asked once for each shape and card (the
+    host work before a launch is part of a short call's time)."""
+    out = (ctypes.c_longlong * 1)()
+    with torch.cuda.device(device_index):
+        STREAM_KERNEL.lib().lstm_stream_pack(B, D, H, int(bf16),
+            int(forward), out)
+    return out[0]
+
+
 def _launch_stream_forward(x, h0, c0, w_ih, w_hh, b, cdt, save_cseq=True):
-    """The streamed design's forward (lstm_cat_stream_forward, three
-    kernels): (outs, hT, cT, cseq, gates), gates the f32 slab (T*B*4H,)
-    of every step's gate pre-activations that _launch_stream_backward
-    takes."""
+    """The streamed design's forward (lstm_cat_stream_forward, two or
+    three kernels): (outs, hT, cT, cseq, gates), gates the f32 slab of
+    every step's gate activations, at the padded hidden size
+    stream_hidden(H), that _launch_stream_backward takes."""
     T, B, D = x.shape
     H = h0.shape[1]
     check_stream(x.device, D, H, cdt)
+    Hp = stream_hidden(H)
+    h0, c0 = pad_units(h0, H, Hp), pad_units(c0, H, Hp)
+    w_ih, w_hh, b = pad_cell(w_ih, w_hh, b, H, Hp)
     outs, hT, cT, cseq = forward_outputs(T, h0, c0, cdt, save_cseq)
-    gates, h_first, count = stream_forward_scratch(T, B, H, cdt, x.device)
+    gates, h_first, count = stream_forward_scratch(T, B, Hp, cdt, x.device)
     if B > 0:
+        wpack = stream_pack(B, D, Hp, cdt, True, x.device)
         STREAM_KERNEL.launch('lstm_cat_stream_forward', ptr(x), ptr(h0),
             ptr(c0), ptr(w_ih), ptr(w_hh), ptr(b), ptr(outs),
             ptr_or_null(cseq), ptr(hT), ptr(cT), ptr(gates), ptr(h_first),
-            ptr(count), T, B, D, H, int(cdt == torch.bfloat16),
-            stream_handle(x))
-    return outs, hT, cT, cseq, gates
+            ptr(count), ptr_or_null(wpack), T, B, D, Hp,
+            int(cdt == torch.bfloat16), stream_handle(x))
+    return (*unpad_outputs(H, outs, hT, cT, cseq), gates)
+
+
+def unpad_outputs(H, *tensors):
+    """A streamed forward's outputs back at hidden size H (None stays)."""
+    return tuple(None if t is None else unpad_units(t, H) for t in tensors)
 
 
 def _launch_stream_backward(x, h0, c0, w_ih, w_hh, b, outs, cseq, g_outs,
@@ -187,25 +225,33 @@ def _launch_stream_backward(x, h0, c0, w_ih, w_hh, b, outs, cseq, g_outs,
     dW_ih, dW_hh, db)."""
     T, B, D = x.shape
     H = h0.shape[1]
-    G = 4 * H
     dev = x.device
     check_stream(dev, D, H, cdt)
+    Hp = stream_hidden(H)
+    G = 4 * Hp
+    h0, c0, outs, cseq, g_outs, g_hT, g_cT = (pad_units(t, H, Hp)
+        for t in (h0, c0, outs, cseq, g_outs, g_hT, g_cT))
+    w_ih, w_hh, _ = pad_cell(w_ih, w_hh, b, H, Hp)
     dx = torch.empty_like(x)
     dh0 = torch.empty_like(h0)
     dc0 = torch.empty_like(c0)
-    dw = torch.empty((D + H, G), dtype=torch.float32, device=dev)
+    dw = torch.empty((D + Hp, G), dtype=torch.float32, device=dev)
     db = torch.empty((G,), dtype=torch.float32, device=dev)
     if B == 0:
-        return dx, dh0, dc0, dw[:D].zero_(), dw[D:].zero_(), db.zero_()
-    dg, db_part, splits, dw_part, count = stream_backward_scratch(T, B, D, H,
-        cdt, dev)
-    STREAM_KERNEL.launch('lstm_cat_stream_backward', ptr(x), ptr(h0),
-        ptr(c0), ptr(w_ih), ptr(w_hh), ptr(outs), ptr(cseq), ptr(gates),
-        ptr(g_outs), ptr(g_hT), ptr(g_cT), ptr(dx), ptr(dh0), ptr(dc0),
-        ptr(dw), ptr(db), ptr(dg), ptr(db_part), ptr_or_null(dw_part),
-        ptr(count), splits, T, B, D, H, int(cdt == torch.bfloat16),
-        stream_handle(x))
-    return dx, dh0, dc0, dw[:D], dw[D:], db
+        dw.zero_()
+        db.zero_()
+    else:
+        dg, db_part, splits, dw_part, count = stream_backward_scratch(T, B,
+            D, Hp, cdt, dev)
+        wpack = stream_pack(B, D, Hp, cdt, False, dev)
+        STREAM_KERNEL.launch('lstm_cat_stream_backward', ptr(x), ptr(h0),
+            ptr(c0), ptr(w_ih), ptr(w_hh), ptr(outs), ptr(cseq), ptr(gates),
+            ptr(g_outs), ptr(g_hT), ptr(g_cT), ptr(dx), ptr(dh0), ptr(dc0),
+            ptr(dw), ptr(db), ptr(dg), ptr(db_part), ptr_or_null(dw_part),
+            ptr(count), ptr_or_null(wpack), splits, T, B, D, Hp,
+            int(cdt == torch.bfloat16), stream_handle(x))
+    return (dx, *unpad_outputs(H, dh0, dc0),
+        *unpad_cell_grads(dw[:D], dw[D:], db, H))
 
 
 def stream_limits(cdt):

@@ -242,42 +242,92 @@ def cell_shape_error(D, H, cdt):
 
 
 # The streamed design (csrc/lstm_cat_stream.cu) for the shapes the
-# resident-weight kernels refuse: its hidden size is a multiple of
-# STREAM_UNITS up to STREAM_MAX_HIDDEN, where both persistent loops' slice
-# of W_hh and their two operand stages still fit a block's shared memory;
-# its loops walk tiles of STREAM_ROWS batch rows, by which the launchers
-# size the barrier counters and db's partial sums. The checks and
-# allocations before a launch need these without the library: the C
-# function lstm_stream_limits gives them, and tests/test_torch_cuda.py and
-# chip_smoke.py hold the two equal on the card.
+# resident-weight kernels refuse. Its loops take hidden sizes that are
+# multiples of STREAM_UNITS; the launchers pad any other hidden size H to
+# stream_hidden(H) with zero units (pad_cell), which changes no real
+# output. STREAM_MAX_HIDDEN bounds the padded size: up to it the units
+# schedule's slice of W_hh and its two operand stages still fit a block's
+# shared memory. Both schedules walk tiles of STREAM_ROWS batch rows, by
+# which the launchers size the barrier counters and db's partial sums. The
+# checks and allocations before a launch need these without the library:
+# the C function lstm_stream_limits gives them, and tests/test_torch_cuda.py
+# and chip_smoke.py hold the two equal on the card.
 STREAM_UNITS = 32
 STREAM_MAX_HIDDEN = {torch.float32: 800, torch.bfloat16: 1472}
 STREAM_ROWS = 64
 
 
+def stream_hidden(H):
+    """The hidden size the streamed kernels run for H: the next multiple
+    of STREAM_UNITS."""
+    return STREAM_UNITS * math.ceil(H / STREAM_UNITS)
+
+
 def stream_shape_error(D, H, cdt):
-    """Why the streamed design (csrc/lstm_cat_stream.cu, both dtypes:
-    W_hh's slices held across a persistent grid, the input products as
-    GEMMs outside the recurrence) refuses input width D and hidden size H
-    in cdt, or None: any D >= 1, H a multiple of STREAM_UNITS up to
+    """Why the streamed design (csrc/lstm_cat_stream.cu, both dtypes)
+    refuses input width D and hidden size H in cdt, or None: any D >= 1,
+    any H >= 1 whose padded size stream_hidden(H) is at most
     STREAM_MAX_HIDDEN[cdt]."""
     top = STREAM_MAX_HIDDEN[cdt]
-    if H < STREAM_UNITS or H % STREAM_UNITS or H > top or D < 1:
-        return (f'the streamed CUDA LSTM kernels take hidden sizes that are '
-            f'multiples of {STREAM_UNITS} up to {top} in '
-            f'{str(cdt).replace("torch.", "")} and any input width; got '
-            f'input {D}, hidden {H}')
+    if H < 1 or stream_hidden(H) > top or D < 1:
+        return (f'the streamed CUDA LSTM kernels take hidden sizes up to '
+            f'{top} in {str(cdt).replace("torch.", "")} (padded to a '
+            f'multiple of {STREAM_UNITS}) and any input width; got input '
+            f'{D}, hidden {H}')
     return None
+
+
+def pad_units(t, H, Hp, blocks=1):
+    """t whose last axis is `blocks` blocks of H (the gates [i | f | g | o]
+    with blocks=4, else one block of units), each block padded with zeros
+    to Hp. t itself where Hp == H."""
+    if Hp == H:
+        return t
+    lead = t.shape[:-1]
+    t = t.reshape(*lead, blocks, H)
+    return torch.nn.functional.pad(t, (0, Hp - H)).reshape(*lead, blocks * Hp)
+
+
+def unpad_units(t, H, blocks=1):
+    """pad_units undone: the first H of each of the last axis' blocks, a
+    contiguous tensor. t itself where nothing was padded."""
+    Hp = t.shape[-1] // blocks
+    if Hp == H:
+        return t
+    lead = t.shape[:-1]
+    return t.reshape(*lead, blocks, Hp)[..., :H].reshape(*lead, blocks * H)
+
+
+def pad_cell(w_ih, w_hh, b, H, Hp):
+    """The cell's weights with Hp - H zero units appended inside each gate
+    block: W_ih (D, 4Hp), W_hh (Hp, 4Hp) (its padded rows zero too), b
+    (4Hp,). A padded unit's gate pre-activations are exactly 0, so its c
+    stays 0 and its h is 0 at every step; its zero rows of W_hh add exact
+    zeros to the real units' sums, and its dgates are 0, so no real output
+    or gradient changes. Only the split of the units schedule's K in two
+    halves moves (by (Hp - H) / 2 rows)."""
+    w_hh = pad_units(w_hh, H, Hp, 4)
+    if Hp != H:
+        w_hh = torch.nn.functional.pad(w_hh, (0, 0, 0, Hp - H))
+    return pad_units(w_ih, H, Hp, 4), w_hh, pad_units(b, H, Hp, 4)
+
+
+def unpad_cell_grads(dw_ih, dw_hh, db, H):
+    """pad_cell's gradients back at hidden size H."""
+    return (unpad_units(dw_ih, H, 4), unpad_units(dw_hh[:H], H, 4),
+        unpad_units(db, H, 4))
 
 
 def stream_splits(M, N, K, device):
     """K-splits of the streamed design's (M, N) weight-gradient GEMM over
-    K = T*B rows: about two blocks of 128 x 128 outputs per SM, at least
-    1024 rows each. The partial sums are added in split order by a second
-    pass, so the result does not depend on the schedule."""
+    K = T*B rows: about eight blocks of 128 x 128 outputs per SM (so that
+    the last of the waves, at one or two resident blocks an SM, is not left
+    mostly empty), at least 1024 rows each. The partial sums are added in
+    split order by a second pass, so the result does not depend on the
+    schedule."""
     tiles = math.ceil(M / 128) * math.ceil(N / 128)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(math.ceil(2 * sms / tiles), K // 1024))
+    return max(1, min(math.ceil(8 * sms / tiles), K // 1024))
 
 
 def cat_shape_error(D, H, cdt):

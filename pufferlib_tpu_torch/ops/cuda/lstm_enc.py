@@ -37,9 +37,10 @@ backward in both dtypes, the FMA kernels of csrc/lstm_common.cuh run,
 with D == H and at most KERNEL_MAX_FEATURES features; lstm_scan_enc's
 forward shares enc5's C function but keeps its backward's reach.
 
-Every other enc5 shape whose hidden size is a multiple of 32 (up to
-lstm_common.STREAM_MAX_HIDDEN), at any F and D, in both dtypes, runs
-enc5's streamed pair in csrc/lstm_cat_stream.cu (lstm_enc_stream_forward
+Every other enc5 shape with a hidden size up to
+lstm_common.STREAM_MAX_HIDDEN (padded to a multiple of 32 with zero
+units, as cat's streamed launchers do), at any F and D, in both dtypes,
+runs enc5's streamed pair in csrc/lstm_cat_stream.cu (lstm_enc_stream_forward
 / lstm_enc_stream_backward): the encoder as a GEMM over all T*B rows with
 a bias + relu + round epilogue, then cat's streamed forward on its
 output; the backward recomputes it, runs cat's streamed backward in enc5
@@ -64,11 +65,11 @@ from pufferlib_tpu_torch.ops.cuda.lstm_common import (
     backward_inputs, blocks, cell_backward_step, check_encoder_inputs,
     check_encoder_kernel_shape, check_fma_encoder_kernel_shape, encode,
     enc5_design, enc5_shape_error, forward_outputs, gate_activations,
-    h_prev_rows, needs_cseq, round_to, scan_forward, splitk_splits,
-    stream_splits, tc_slab)
+    h_prev_rows, needs_cseq, pad_cell, pad_units, round_to, scan_forward,
+    splitk_splits, stream_hidden, stream_splits, tc_slab, unpad_cell_grads)
 from pufferlib_tpu_torch.ops.cuda.lstm_cat import (
     STREAM_KERNEL, check_stream, stream_backward_scratch,
-    stream_forward_scratch)
+    stream_forward_scratch, stream_pack, unpad_outputs)
 
 __all__ = ['lstm_scan_enc5', 'lstm_scan_enc', 'lstm_enc_reference',
     'lstm_enc_backward_reference', 'lstm_scan_enc_backward_reference',
@@ -288,25 +289,30 @@ def _launch_step_backward(feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b, outs,
 
 def _launch_stream_forward(feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b, cdt,
         save_cseq=True):
-    """enc5's streamed forward (lstm_enc_stream_forward, four kernels):
-    (outs, hT, cT, cseq, gates), gates every step's gate pre-activations
-    for _launch_stream_backward. Scratch: the encoded inputs (T, B, D) in
-    cdt and the streamed forward's."""
+    """enc5's streamed forward (lstm_enc_stream_forward, three or four
+    kernels): (outs, hT, cT, cseq, gates), gates every step's gate
+    activations at the padded hidden size stream_hidden(H), for
+    _launch_stream_backward. Scratch: the encoded inputs (T, B, D) in cdt
+    and the streamed forward's."""
     T, B, F = feats.shape
     H = h0.shape[1]
     D = w_enc.shape[1]
     dev = feats.device
     check_stream(dev, D, H, cdt)
+    Hp = stream_hidden(H)
+    h0, c0 = pad_units(h0, H, Hp), pad_units(c0, H, Hp)
+    w_ih, w_hh, b = pad_cell(w_ih, w_hh, b, H, Hp)
     outs, hT, cT, cseq = forward_outputs(T, h0, c0, cdt, save_cseq)
-    gates, h_first, count = stream_forward_scratch(T, B, H, cdt, dev)
+    gates, h_first, count = stream_forward_scratch(T, B, Hp, cdt, dev)
     if B > 0:
         xs = torch.empty((T, B, D), dtype=cdt, device=dev)
+        wpack = stream_pack(B, D, Hp, cdt, True, dev)
         STREAM_KERNEL.launch('lstm_enc_stream_forward', ptr(feats), ptr(h0),
             ptr(c0), ptr(w_enc), ptr(b_enc), ptr(w_ih), ptr(w_hh), ptr(b),
             ptr(outs), ptr_or_null(cseq), ptr(hT), ptr(cT), ptr(xs),
-            ptr(gates), ptr(h_first), ptr(count), T, B, F, D, H,
-            int(cdt == torch.bfloat16), stream_handle(feats))
-    return outs, hT, cT, cseq, gates
+            ptr(gates), ptr(h_first), ptr(count), ptr_or_null(wpack), T, B, F,
+            D, Hp, int(cdt == torch.bfloat16), stream_handle(feats))
+    return (*unpad_outputs(H, outs, hT, cT, cseq), gates)
 
 
 def _launch_stream_backward(feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b, outs,
@@ -317,35 +323,42 @@ def _launch_stream_backward(feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b, outs,
     T, B, F = feats.shape
     H = h0.shape[1]
     D = w_enc.shape[1]
-    G = 4 * H
     dev = feats.device
     check_stream(dev, D, H, cdt)
+    Hp = stream_hidden(H)
+    G = 4 * Hp
+    h0, c0, outs, cseq, g_outs, g_hT, g_cT = (pad_units(t, H, Hp)
+        for t in (h0, c0, outs, cseq, g_outs, g_hT, g_cT))
+    w_ih, w_hh, _ = pad_cell(w_ih, w_hh, b, H, Hp)
     f32 = dict(dtype=torch.float32, device=dev)
     dh0 = torch.empty_like(h0)
     dc0 = torch.empty_like(c0)
     # dW_enc (F, D), then db_enc (D,)
     dwe = torch.empty((F + 1, D), **f32)
-    dw = torch.empty((D + H, G), **f32)
+    dw = torch.empty((D + Hp, G), **f32)
     db = torch.empty((G,), **f32)
     if B == 0:
-        dwe.zero_()
-        return dh0, dc0, dwe[:F], dwe[F], dw[:D].zero_(), dw[D:].zero_(), \
-            db.zero_()
-    xs = torch.empty((T, B, D), dtype=cdt, device=dev)
-    dpre = torch.empty_like(xs)
-    dg, db_part, splits_w, dw_part, count = stream_backward_scratch(T, B, D,
-        H, cdt, dev)
-    splits_e = stream_splits(F + 1, D, T * B, dev)
-    dwe_part = torch.empty((splits_e, F + 1, D), **f32) if splits_e > 1 \
-        else None
-    STREAM_KERNEL.launch('lstm_enc_stream_backward', ptr(feats), ptr(h0),
-        ptr(c0), ptr(w_enc), ptr(b_enc), ptr(w_ih), ptr(w_hh), ptr(outs),
-        ptr(cseq), ptr(gates), ptr(g_outs), ptr(g_hT), ptr(g_cT), ptr(dh0),
-        ptr(dc0), ptr(dwe), ptr(dw), ptr(db), ptr(xs), ptr(dpre), ptr(dg),
-        ptr(db_part), ptr_or_null(dw_part), ptr_or_null(dwe_part),
-        ptr(count), splits_w, splits_e, T, B, F, D, H,
-        int(cdt == torch.bfloat16), stream_handle(feats))
-    return dh0, dc0, dwe[:F], dwe[F], dw[:D], dw[D:], db
+        for t in (dwe, dw, db):
+            t.zero_()
+    else:
+        xs = torch.empty((T, B, D), dtype=cdt, device=dev)
+        dpre = torch.empty_like(xs)
+        dg, db_part, splits_w, dw_part, count = stream_backward_scratch(T, B,
+            D, Hp, cdt, dev)
+        splits_e = stream_splits(F + 1, D, T * B, dev)
+        dwe_part = torch.empty((splits_e, F + 1, D), **f32) if splits_e > 1 \
+            else None
+        wpack = stream_pack(B, D, Hp, cdt, False, dev)
+        STREAM_KERNEL.launch('lstm_enc_stream_backward', ptr(feats), ptr(h0),
+            ptr(c0), ptr(w_enc), ptr(b_enc), ptr(w_ih), ptr(w_hh), ptr(outs),
+            ptr(cseq), ptr(gates), ptr(g_outs), ptr(g_hT), ptr(g_cT),
+            ptr(dh0), ptr(dc0), ptr(dwe), ptr(dw), ptr(db), ptr(xs),
+            ptr(dpre), ptr(dg), ptr(db_part), ptr_or_null(dw_part),
+            ptr_or_null(dwe_part), ptr(count), ptr_or_null(wpack), splits_w,
+            splits_e, T, B, F, D, Hp, int(cdt == torch.bfloat16),
+            stream_handle(feats))
+    return (*unpad_outputs(H, dh0, dc0), dwe[:F], dwe[F],
+        *unpad_cell_grads(dw[:D], dw[D:], db, H))
 
 
 def _enc5_design(feats, w_enc, H, cdt):

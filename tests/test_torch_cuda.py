@@ -465,21 +465,24 @@ def test_lstm_cat_stream_is_deterministic(cuda, T, B, D, H):
 
 def test_lstm_scan_cat_picks_the_design_by_shape(cuda):
     """lstm_scan_cat launches the resident kernels where they serve and
-    the streamed ones elsewhere; a hidden size no design takes raises
-    before a launch."""
+    the streamed ones elsewhere (hidden 100 padded to 128); a hidden size
+    no design takes raises before a launch."""
     from pufferlib_tpu_torch.ops.cuda.lstm_cat import lstm_scan_cat
     for D, H, cdt, fn in ((128, 128, torch.bfloat16, 'lstm_cat_forward'),
             (96, 128, torch.float32, 'lstm_cat_stream_forward'),
-            (512, 512, torch.bfloat16, 'lstm_cat_stream_forward')):
+            (512, 512, torch.bfloat16, 'lstm_cat_stream_forward'),
+            (100, 100, torch.float32, 'lstm_cat_stream_forward')):
         args = _lstm_case('cat', 2, 8, H, 49, cdt, cuda, D=D)
         before = _launches()
         with torch.no_grad():
             lstm_scan_cat(*args, cdt)
         after = _launches()
         assert {k for k in after if after[k] != before[k]} == {fn}
-    with pytest.raises(ValueError, match='multiples of 32'):
-        lstm_scan_cat(*_lstm_case('cat', 2, 8, 100, 49, torch.float32,
+    before = _launches()
+    with pytest.raises(ValueError, match='up to 800'):
+        lstm_scan_cat(*_lstm_case('cat', 2, 8, 801, 49, torch.float32,
             cuda), torch.float32)
+    assert _launches() == before
 
 
 # enc5's streamed design (csrc/lstm_cat_stream.cu, lstm_enc_stream_*):
@@ -512,14 +515,16 @@ def test_enc5_stream_is_deterministic(cuda, T, B, F, D, H, cdt):
 def test_lstm_scan_enc5_picks_the_design_by_shape(cuda):
     """lstm_scan_enc5 launches the resident enc5 kernels where they serve
     and the streamed ones elsewhere (hidden 256, f32 at D != H, bf16 past
-    768 features); a hidden size no design takes raises before a launch."""
+    768 features, hidden 48 padded to 64); a hidden size no design takes
+    raises before a launch."""
     from pufferlib_tpu_torch.ops.cuda.lstm_enc import lstm_scan_enc5
     bf16, f32 = torch.bfloat16, torch.float32
     for F, D, H, cdt, fn in ((49, 128, 128, bf16, 'lstm_enc_forward'),
             (49, 256, 256, bf16, 'lstm_enc_stream_forward'),
             (49, 256, 256, f32, 'lstm_enc_stream_forward'),
             (49, 96, 128, f32, 'lstm_enc_stream_forward'),
-            (800, 128, 128, bf16, 'lstm_enc_stream_forward')):
+            (800, 128, 128, bf16, 'lstm_enc_stream_forward'),
+            (49, 48, 48, f32, 'lstm_enc_stream_forward')):
         args = _lstm_case('enc5', 2, 8, H, F, cdt, cuda, D=D)
         before = _launches()
         with torch.no_grad():
@@ -527,8 +532,8 @@ def test_lstm_scan_enc5_picks_the_design_by_shape(cuda):
         after = _launches()
         assert {k for k in after if after[k] != before[k]} == {fn}
     before = _launches()
-    with pytest.raises(ValueError, match='multiples of 32'):
-        lstm_scan_enc5(*_lstm_case('enc5', 2, 8, 48, 49, f32, cuda), f32)
+    with pytest.raises(ValueError, match='up to 800'):
+        lstm_scan_enc5(*_lstm_case('enc5', 2, 8, 801, 49, f32, cuda), f32)
     assert _launches() == before
 
 
@@ -568,23 +573,51 @@ def test_stream_autograd_keeps_the_forward_gates(cuda, kind, cdt):
 def test_stream_limits_match_the_library(cuda):
     """lstm_common.STREAM_MAX_HIDDEN and STREAM_ROWS, which the checks
     and allocations before a launch use, must equal the limits the built
-    lstm_cat_stream.cu gives (lstm_stream_limits) in both dtypes."""
+    lstm_cat_stream.cu gives (lstm_stream_limits) in both dtypes; the
+    largest hidden size the launchers take pads to one the library takes,
+    and the next one is refused."""
     from pufferlib_tpu_torch.ops.cuda import lstm_cat, lstm_common
     for cdt in (torch.float32, torch.bfloat16):
-        assert lstm_cat.stream_limits(cdt) == (
-            lstm_common.STREAM_MAX_HIDDEN[cdt], lstm_common.STREAM_ROWS)
+        top = lstm_common.STREAM_MAX_HIDDEN[cdt]
+        assert lstm_cat.stream_limits(cdt) == (top, lstm_common.STREAM_ROWS)
+        assert lstm_common.stream_hidden(top) == top
+        assert lstm_common.stream_shape_error(1, top - 31, cdt) is None
+        assert lstm_common.stream_shape_error(1, top + 1, cdt) is not None
+
+
+# hidden sizes that are no multiple of 32, which the streamed launchers pad
+# (48 to 64, 100 to 128, 200 to 224), at a ragged batch on the units
+# schedule and at the default route's batch on the rows schedule
+PADDED_SHAPES = [(8, 1000, 49, 48, 48), (8, 1000, 49, 100, 100),
+    (8, 1000, 30, 96, 200), (16, 8192, 49, 200, 200)]
+
+
+@pytest.mark.parametrize('kind', ['cat_stream', 'enc5_stream'])
+@pytest.mark.parametrize('T,B,F,D,H', PADDED_SHAPES)
+@pytest.mark.parametrize('cdt', [torch.float32, torch.bfloat16])
+def test_stream_pads_the_hidden_size(cuda, kind, T, B, F, D, H, cdt):
+    """Forward and every gradient of the streamed pairs against the plain
+    versions at hidden sizes that are no multiple of 32, within the
+    streamed rows' tolerance (LSTM_TOL): the zero units change no real
+    output, only the units schedule's split of K in two halves."""
+    _check_lstm_pair(cuda, kind, T, B, H, cdt, D=D, F=F)
 
 
 @pytest.mark.parametrize('kind,shape', [('cat_stream', (16, 256, 512, 512)),
     ('enc5_stream', (16, 256, 49, 512, 512)),
-    ('enc5_stream', (16, 8192, 49, 256, 256))])
+    ('enc5_stream', (16, 8192, 49, 256, 256)),
+    ('enc5_stream', (16, 8000, 49, 256, 256)),
+    ('cat_stream', (16, 8192, 256, 256)), ('cat_stream', (16, 8000, 256, 256))])
 @pytest.mark.parametrize('cdt', [torch.float32, torch.bfloat16])
 def test_stream_pair_repeats_bit_for_bit(cuda, kind, shape, cdt):
-    """The streamed loops' blocks meet at a barrier on a counter in device
-    memory each step. A block that read h_prev or dg_{t+1} before every
-    block had published it would read stale rows, and runs would differ
-    by timing: twenty runs at the main paths' shapes (the Atari update's,
-    and the default route at hidden 256) are all equal bit for bit."""
+    """The units schedule's blocks meet at a barrier on a counter in
+    device memory each step; the rows schedule's ring hands stages from
+    one chunk, step and tile to the next. A block that read h_prev or
+    dg_{t+1} before it was published, or a stage before it arrived, would
+    read stale rows, and runs would differ by timing: twenty runs at the
+    main paths' shapes (the Atari update's on the units schedule; the
+    default route at hidden 256, B 8192 and a ragged 8000, on the rows
+    schedule) are all equal bit for bit."""
     if kind == 'cat_stream':
         T, B, D, H = shape
         _check_deterministic(cuda, kind, T, B, H, D, cdt=cdt, runs=20)
@@ -634,14 +667,19 @@ class _GuardedTorch:
 
 @pytest.mark.parametrize('kind,shape', [('cat_stream', (3, 45, 20, 96)),
     ('cat_stream', (4, 200, 9, 256)), ('enc5_stream', (3, 45, 5, 20, 96)),
-    ('enc5_stream', (4, 200, 49, 100, 256))])
+    ('enc5_stream', (4, 200, 49, 100, 256)),
+    ('enc5_stream', (16, 8192, 49, 256, 256)),
+    ('enc5_stream', (16, 8000, 49, 256, 256)),
+    ('cat_stream', (16, 8000, 256, 256)),
+    ('enc5_stream', (4, 8000, 49, 96, 200))])
 @pytest.mark.parametrize('cdt', [torch.float32, torch.bfloat16])
 def test_stream_pair_writes_only_its_buffers(cuda, monkeypatch, kind, shape,
         cdt):
     """Every input, output and scratch buffer of a streamed forward and
     backward call sits between guards; after both calls no guard has
-    changed, at ragged batches (a last tile of 45 or 8 rows of 64) and
-    input widths that are no multiple of 8, and the results still match
+    changed, at ragged batches (a last tile of 45, 8 or 0 rows of 64),
+    input widths that are no multiple of 8, the rows schedule's B 8192
+    and 8000 and a padded hidden size (200), and the results still match
     the plain versions within LSTM_TOL."""
     from pufferlib_tpu_torch.ops.cuda import lstm_cat, lstm_common, lstm_enc
     if kind == 'cat_stream':
@@ -909,9 +947,10 @@ def test_lstm_default_route_on_the_card(cuda):
     fuse the encoder), hidden 256 runs enc5's streamed design with
     use_kernel=None and with use_kernel=True, each with finite gradients;
     hidden 256 runs the 'off' scan with no LSTM launch where the caller
-    asks for it (use_kernel=False). Hidden 48, which no kernel serves,
-    raises with use_kernel=None and with use_kernel=True before any
-    launch."""
+    asks for it (use_kernel=False). Hidden 48 and 200, no multiples of
+    32, run enc5's streamed design too (padded to 64 and 224). Hidden 1473,
+    past what any kernel serves in bf16, raises with use_kernel=None and
+    with use_kernel=True before any launch."""
     from pufferlib_tpu_torch import spaces
     from pufferlib_tpu_torch.models import Default, LSTMWrapper
     torch.manual_seed(0)
@@ -930,7 +969,9 @@ def test_lstm_default_route_on_the_card(cuda):
             'enc5'), (128, 128, 2, None, 'cat', 'cat'),
             (256, 256, 1, False, 'off', 'off'),
             (256, 256, 1, None, 'enc5', 'stream'),
-            (256, 256, 1, True, 'enc5', 'stream')):
+            (256, 256, 1, True, 'enc5', 'stream'),
+            (48, 48, 1, None, 'enc5', 'stream'),
+            (200, 200, 1, None, 'enc5', 'stream')):
         mod = wrapper(D, H, layers, use)
         assert mod.route(6, cuda) == route
         before = _launches()
@@ -942,9 +983,9 @@ def test_lstm_default_route_on_the_card(cuda):
             if fn.startswith('lstm_') and n > before[fn]}
         assert launched == kernels[design]
         assert all(torch.isfinite(p.grad).all() for p in mod.parameters())
-    mod = wrapper(48, 48, 1, None)
-    for use, message in ((None, 'multiples of 32.*use_kernel=False'),
-            (True, 'multiples of 32')):
+    mod = wrapper(1473, 1473, 1, None)
+    for use, message in ((None, 'up to 1472.*use_kernel=False'),
+            (True, 'up to 1472')):
         mod.use_kernel = use
         with pytest.raises(ValueError, match=message):
             mod(x)

@@ -106,6 +106,62 @@ def test_cat_plain_matches_pallas_kernel_streamed_shape(dtype):
     _check_cat_plain(dtype, 9, 256, w_scale=265 ** -0.5)
 
 
+@pytest.mark.parametrize('dtype', sorted(DTYPES))
+def test_cat_plain_matches_pallas_kernel_streamed_hidden_48(dtype):
+    """The same at hidden 48, no multiple of 32: on the card the streamed
+    design runs it padded to 64 units (lstm_common.pad_cell)."""
+    _check_cat_plain(dtype, 9, 48, w_scale=57 ** -0.5)
+
+
+@pytest.mark.parametrize('hidden', [48, 100])
+@pytest.mark.parametrize('kind', ['cat', 'enc5'])
+def test_stream_padding_is_exact(kind, hidden):
+    """The streamed launchers' padding (lstm_common.pad_cell, pad_units,
+    unpad_units, unpad_cell_grads; the steps of _launch_stream_forward and
+    _launch_stream_backward) around the plain scans in f32: padded to
+    stream_hidden(H) units, run, and sliced back, against the scan run at
+    H. The padded units' gate pre-activations are exactly 0, so their h
+    and c stay 0 and their dgates are 0: every output and gradient agrees
+    to 1e-5, and exactly but for the order in which the CPU's matrix
+    products add the real terms (K and N change with the padding)."""
+    from pufferlib_tpu_torch.ops.cuda.lstm_cat import (
+        lstm_cat_backward_reference, lstm_cat_reference, unpad_outputs)
+    from pufferlib_tpu_torch.ops.cuda.lstm_enc import (
+        lstm_enc_backward_reference, lstm_enc_reference)
+    cdt, Dx, Fx = torch.float32, 24, 10
+    Hp = lstm_common.stream_hidden(hidden)
+    assert Hp % lstm_common.STREAM_UNITS == 0 and Hp > hidden
+    x, feats, w_enc, b_enc, h0, c0, w_ih, w_hh, b, g_outs, g_hT, g_cT = (
+        torch.from_numpy(a) for a in _arrays(5, (4, 8, Dx), (4, 8, Fx),
+            (Fx, Dx), (Dx,), (8, hidden), (8, hidden), (Dx, 4 * hidden),
+            (hidden, 4 * hidden), (4 * hidden,), (4, 8, hidden), (8, hidden),
+            (8, hidden)))
+    fwd, bwd = ((lstm_cat_reference, lstm_cat_backward_reference)
+        if kind == 'cat' else (lstm_enc_reference, lstm_enc_backward_reference))
+
+    def run(h0, c0, w_ih, w_hh, b, g_outs, g_hT, g_cT):
+        args = (x, h0, c0) if kind == 'cat' else (feats, h0, c0, w_enc, b_enc)
+        out = fwd(*args, w_ih, w_hh, b, cdt)
+        return out, bwd(*args, w_ih, w_hh, b, out[0], out[3], g_outs, g_hT,
+            g_cT, cdt)
+    want, want_b = run(h0, c0, w_ih, w_hh, b, g_outs, g_hT, g_cT)
+    pad = lambda t: lstm_common.pad_units(t, hidden, Hp)
+    got, got_b = run(pad(h0), pad(c0), *lstm_common.pad_cell(w_ih, w_hh, b,
+        hidden, Hp), pad(g_outs), pad(g_hT), pad(g_cT))
+    assert got[0].shape == (4, 8, Hp)
+    # the padded units' state is exactly zero at every step
+    for t in (got[0], got[3]):
+        assert not t.reshape(-1, Hp)[:, hidden:].any()
+    got = unpad_outputs(hidden, *got)
+    n = 1 if kind == 'cat' else 0   # dx leads cat's gradients
+    got_b = (*got_b[:n], *unpad_outputs(hidden, *got_b[n:n + 2]),
+        *got_b[n + 2:-3], *lstm_common.unpad_cell_grads(*got_b[-3:], hidden))
+    assert len(got_b) == len(want_b)
+    for i, (a, w) in enumerate(zip(got + got_b, want + want_b)):
+        assert a.shape == w.shape, i
+        _assert_close(a, w, 1e-5, f'{kind} output {i}')
+
+
 def _check_cat_plain(dtype, D, hidden, w_scale=None):
     """w_scale: the weights' scale, and tolerances relative to each
     value's size; None keeps _arrays' 0.3 and DTYPES' absolute ones."""
@@ -147,8 +203,10 @@ def test_enc5_plain_matches_pallas_kernel(dtype):
 
 # (dtype, F, D, hidden): shapes only enc5's streamed design serves on the
 # card: hidden 256 with an encoder width apart from it and 200 features in
-# f32; 800 features in bf16, past the tensor-core encoder's 768
-ENC5_STREAMED = [('float32', 200, 96, 256), ('bfloat16', 800, 128, 128)]
+# f32; 800 features in bf16, past the tensor-core encoder's 768; hidden 48,
+# no multiple of 32, which the launchers pad to 64
+ENC5_STREAMED = [('float32', 200, 96, 256), ('bfloat16', 800, 128, 128),
+    ('float32', 49, 48, 48), ('bfloat16', 49, 40, 48)]
 
 
 @pytest.mark.parametrize('dtype,feats,D,hidden', ENC5_STREAMED)
@@ -411,9 +469,9 @@ ROUTES = {
     'use_kernel, cat, input 96 f32': (dict(use_kernel=True, kernel='cat',
         D=96, cdt=torch.float32), 'cat'),
     # the streamed design (csrc/lstm_cat_stream.cu) serves the shapes the
-    # resident kernels refuse, for enc5 and for cat: hidden sizes that are
-    # multiples of 32 up to 800 in f32 and 1472 in bf16, any input and
-    # feature width
+    # resident kernels refuse, for enc5 and for cat: hidden sizes up to 800
+    # in f32 and 1472 in bf16 (others padded to a multiple of 32), any input
+    # and feature width
     'hidden 512': (dict(D=512, H=512), 'enc5'),
     'hidden 256 f32': (dict(D=256, H=256, cdt=torch.float32), 'enc5'),
     'hidden 512 f32': (dict(D=512, H=512, cdt=torch.float32), 'enc5'),
@@ -426,11 +484,21 @@ ROUTES = {
         'up to 800.*use_kernel=False'),
     'hidden 1472': (dict(D=1472, H=1472), 'enc5'),
     'hidden 1504': (dict(D=1504, H=1504), 'up to 1472.*use_kernel=False'),
-    'hidden 48': (dict(D=48, H=48), 'multiples of 32.*use_kernel=False'),
-    'hidden 48 f32': (dict(D=48, H=48, cdt=torch.float32),
-        'multiples of 32.*use_kernel=False'),
-    'use_kernel, hidden 48': (dict(use_kernel=True, D=48, H=48),
-        'multiples of 32'),
+    'hidden 48': (dict(D=48, H=48), 'enc5'),
+    'hidden 48 f32': (dict(D=48, H=48, cdt=torch.float32), 'enc5'),
+    'use_kernel, hidden 48': (dict(use_kernel=True, D=48, H=48), 'enc5'),
+    'hidden 100': (dict(D=100, H=100), 'enc5'),
+    'hidden 100 f32': (dict(D=100, H=100, cdt=torch.float32), 'enc5'),
+    'hidden 200': (dict(D=200, H=200), 'enc5'),
+    'hidden 200 f32': (dict(D=200, H=200, cdt=torch.float32), 'enc5'),
+    'use_kernel, hidden 200 f32': (dict(use_kernel=True, D=200, H=200,
+        cdt=torch.float32), 'enc5'),
+    'hidden 790 f32': (dict(D=790, H=790, cdt=torch.float32), 'enc5'),
+    'hidden 801 f32': (dict(D=801, H=801, cdt=torch.float32),
+        'up to 800.*use_kernel=False'),
+    'use_kernel, hidden 801 f32': (dict(use_kernel=True, D=801, H=801,
+        cdt=torch.float32), 'up to 800'),
+    'hidden 1473': (dict(D=1473, H=1473), 'up to 1472.*use_kernel=False'),
     'use_kernel, hidden 512 f32': (dict(use_kernel=True, D=512, H=512,
         cdt=torch.float32), 'enc5'),
     'hidden 256, cpu, use_kernel': (dict(D=256, H=256, device='cpu',
@@ -451,12 +519,16 @@ ROUTES = {
     'no encoder contract, input 100': (dict(F=None, D=100), 'cat'),
     'no encoder contract, input 9, hidden 64': (dict(F=None, D=9, H=64),
         'cat'),
-    'no encoder contract, hidden 100': (dict(F=None, D=100, H=100),
-        'multiples of 32.*use_kernel=False'),
+    'no encoder contract, hidden 100': (dict(F=None, D=100, H=100), 'cat'),
+    'no encoder contract, hidden 200 f32': (dict(F=None, D=200, H=200,
+        cdt=torch.float32), 'cat'),
+    'no encoder contract, hidden 200': (dict(F=None, D=200, H=200), 'cat'),
+    'no encoder contract, hidden 801 f32': (dict(F=None, D=801, H=801,
+        cdt=torch.float32), 'up to 800.*use_kernel=False'),
     'use_kernel, no encoder contract, hidden 512 f32': (dict(
         use_kernel=True, F=None, D=512, H=512, cdt=torch.float32), 'cat'),
     'use_kernel, cat, hidden 100': (dict(use_kernel=True, kernel='cat',
-        D=100, H=100), 'multiples of 32'),
+        D=100, H=100), 'cat'),
 }
 
 
@@ -465,9 +537,10 @@ def test_lstm_route(case):
     """The default (use_kernel=None) takes, on the card with T > 1, enc5
     where it can fuse (one layer, the encoder contract), as the JAX
     package does, else cat; each through its resident kernels where they
-    serve the shape, else its streamed design (H a multiple of 32 up to
-    800 in f32 and 1472 in bf16, any D and F), and raises for a shape
-    neither serves, naming use_kernel=False;
+    serve the shape, else its streamed design (any H up to 800 in f32 and
+    1472 in bf16, padded to a multiple of 32; any D and F), and raises for a shape
+    neither serves (a hidden size that, padded to a multiple of 32, is past
+    800 in f32 or 1472 in bf16), naming use_kernel=False;
     use_kernel=True runs the selected kernel and, on the card, raises for
     a shape it refuses (the expected value is then the error's message).
     The plain scan runs on the card only where the caller asks for it."""
@@ -495,9 +568,12 @@ ENC5_DESIGNS = [
     ((49, 96, 128, torch.float32), 'stream'),
     ((49, 256, 256, torch.float32), 'stream'),
     ((1, 64, 64, torch.float32), 'resident'),
-    ((49, 48, 48, torch.float32), 'multiples of 32'),
+    ((49, 48, 48, torch.float32), 'stream'),
     ((49, 832, 832, torch.float32), 'up to 800'),
     ((0, 256, 256, torch.float32), 'at least one feature'),
+    ((49, 100, 100, torch.bfloat16), 'stream'),
+    ((49, 200, 200, torch.float32), 'stream'),
+    ((49, 801, 801, torch.float32), 'up to 800'),
 ]
 
 

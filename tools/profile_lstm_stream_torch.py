@@ -2,7 +2,7 @@
 NVIDIA GPU.
 
     python3 tools/profile_lstm_stream_torch.py [--kind cat|enc5]
-        [--shape T,B,D,H[,F]] [--dtype float32|bfloat16]
+        [--shape T,B,D,H[,F]] [--dtype float32|bfloat16] [--plain]
 
 Runs one forward and one backward call of cat's (or enc5's) streamed pair
 (csrc/lstm_cat_stream.cu) at the shape given (default: the Atari
@@ -10,8 +10,11 @@ update's T 16, B 256, D = H = 512; F 49 for enc5), on chip_smoke.py's
 inputs, a few times under torch.profiler, and prints for each call the
 device time of every kernel it launched (mean over the calls, in launch
 order), their sum, the call's time by CUDA events with a cold L2, and the
-kernels the library counted. Last line: one JSON object with those numbers
-and the card's name and power limit.
+kernels the library counted; with --plain also the plain version's time
+(lstm_cat_reference / lstm_enc_reference and their backwards, the
+functions the kernels are held to) by the same events, mean of 5. Last
+line: one JSON object with those numbers and the card's name and power
+limit.
 """
 import argparse
 import json
@@ -49,6 +52,8 @@ def main():
     parser.add_argument('--dtype', choices=('float32', 'bfloat16'),
         default='float32')
     parser.add_argument('--calls', type=int, default=5)
+    parser.add_argument('--plain', action='store_true',
+        help="also time the plain version's call")
     args = parser.parse_args()
     import numpy as np
     import torch
@@ -63,13 +68,15 @@ def main():
     T, B, D, H, *rest = (int(v) for v in args.shape.split(','))
     F = rest[0] if rest else 49
     kind = f'{args.kind}_stream'
-    fwd, bwd = lstm_kinds()[kind][:2]
+    fwd, bwd, fwd_plain, bwd_plain = lstm_kinds()[kind][:4]
     case, grads, cdt = lstm_case(torch, np.random.RandomState(0), kind, T, B,
         args.dtype, F=F, H=H, D=D)
     with torch.no_grad():
         outs, _, _, cseq = fwd(*case, cdt)
         calls = {'forward': lambda: fwd(*case, cdt),
             'backward': lambda: bwd(*case, outs, cseq, *grads, cdt)}
+        plain = {'forward': lambda: fwd_plain(*case, cdt),
+            'backward': lambda: bwd_plain(*case, outs, cseq, *grads, cdt)}
         flush = l2_flush_buffer()
         result = dict(card=card_line(), kind=kind, T=T, B=B, D=D, H=H,
             F=F if args.kind == 'enc5' else None, dtype=args.dtype)
@@ -79,9 +86,14 @@ def main():
                 kernels_counted=kernels_per_call(fn),
                 profiled_sum_ms=sum(ms for _, ms in kernels),
                 kernels=kernels)
+            if args.plain:
+                result[name]['plain_ms'] = timed_ms(plain[name], flush,
+                    reps=5)
             print(f'{name}: events {result[name]["event_ms"]:.4f} ms, '
                 f'{result[name]["kernels_counted"]} kernels, profiled sum '
-                f'{result[name]["profiled_sum_ms"]:.4f} ms', flush=True)
+                f'{result[name]["profiled_sum_ms"]:.4f} ms' + (
+                f', plain {result[name]["plain_ms"]:.4f} ms' if args.plain
+                else ''), flush=True)
             for kname, ms in kernels:
                 print(f'    {ms:9.4f} ms  {kname}', flush=True)
     print(json.dumps(result), flush=True)

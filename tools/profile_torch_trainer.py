@@ -1,6 +1,7 @@
 """Where an epoch of the PyTorch port's trainer goes, on one NVIDIA GPU.
 
     python3 tools/profile_torch_trainer.py [--use-kernel] [--lstm [enc5|cat]]
+        [--hidden N]
     python3 tools/profile_torch_trainer.py --ocean NAME [--use-kernel]
     python3 tools/profile_torch_trainer.py --atari
 
@@ -14,7 +15,9 @@ Builds chip_smoke.py's main-path trainer (Ocean squared, Default MLP
 h128 bf16, 8192 lanes x 64 steps, minibatch 131072; with --lstm the
 LSTM line, RecurrentPolicy(LSTMWrapper(Default)) h128 bf16 through the
 enc5 kernels, or with --lstm cat through the cat kernels, time-slab
-minibatches of 131072; with --ocean the trainer of chip_smoke.py's Ocean
+minibatches of 131072; --hidden sets the hidden size (and the LSTM's
+input width): 256 or 200 take LSTMWrapper's default route to enc5's
+streamed design, as chip_smoke.py's phase 9 does; with --ocean the trainer of chip_smoke.py's Ocean
 phase on that env at its config.yaml section), runs one warm-up
 epoch, then runs the rollout and the update of an epoch twice each:
 once timed on the host clock, once under torch.profiler. For each phase
@@ -85,6 +88,8 @@ def main():
         'OCEAN_CONFIGS) instead of the 8192-lane squared line')
     parser.add_argument('--atari', action='store_true',
         help="chip_smoke.py's Atari host trainer")
+    parser.add_argument('--hidden', type=int, default=128,
+        help='the hidden size of the squared line (default 128)')
     args = parser.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -109,7 +114,7 @@ def main():
             recurrent=args.ocean in OCEAN_RECURRENT)
     else:
         ppo, data = make_trainer(torch, use_kernel=args.use_kernel,
-            lstm_kernel=args.lstm)
+            lstm_kernel=args.lstm, hidden=args.hidden)
     ppo.step(data)  # warm-up: buffers, cuBLAS handles, kernel libraries
 
     def rollout_fn():
@@ -120,7 +125,7 @@ def main():
     _, update = profile_phase(torch,
         lambda: data.update_fn(batch, data.config.learning_rate))
     result = dict(card=card, env=args.ocean or 'squared',
-        use_kernel=args.use_kernel, lstm=args.lstm,
+        use_kernel=args.use_kernel, lstm=args.lstm, hidden=args.hidden,
         batch_size=data.config.batch_size, rollout=rollout, update=update)
     report(result, ('rollout', 'update'))
     return 0
