@@ -22,13 +22,16 @@ enc3, enc4, enc6 and tm among them). Last, small trainer updates and
 12 steps of every Ocean env on the card are held against the same on the
 CPU (the recurrent update also at hidden 256, through enc5's streamed
 design). For the bf16
-tensor-core kernels of lstm_scan_cat, lstm_scan_fused and the enc5 pair
-(csrc/lstm_tc.cuh) it also prints each kernel's registers and spilled
-bytes after the build, and the time of each phase at the main shape
-(pre-pass, loop, dx, dW + db; enc5's encoder runs in both pre-pass
-phases, dpre takes dx's place and dW_enc joins the last); all three are
-also held to their plain versions at input width 96 (enc5 with 200
-features), and enc5's bf16 kernels run twice and must agree bit for
+tensor-core kernels of lstm_scan, lstm_scan_cat, lstm_scan_fused and the
+enc5 pair (csrc/lstm_tc.cuh) it also prints each kernel's registers and
+spilled bytes after the build, and the time of each phase at the main
+shape (pre-pass, loop, dx, dW + db; enc5's encoder runs in both pre-pass
+phases, dpre takes dx's place and dW_enc joins the last; lstm_scan's
+forward is its loop alone, its backward loop and dW); cat,
+fused and enc5 are also held to their plain versions at input width 96
+(enc5 with 200 features), and the bf16 kernels of every pair whose
+backward runs the split-K of csrc/lstm_common.cuh (enc5, scan, fused,
+cat, enc and the archived enc2-enc6) run twice and must agree bit for
 bit. GAE must equal its plain version bit for bit. The MLP head is held
 to its plain version in bf16 (the tensor-core kernel, at the trainer's
 two shapes, at F = 200 with H = 256 and 512 and O = 17, and with f32 x)
@@ -521,6 +524,10 @@ TC_KERNELS = ('forward pre-pass', 'forward loop', 'backward pre-pass',
     'backward loop', 'dx')
 ENC5_TC_KERNELS = ('encoder', 'forward pre-pass', 'forward loop',
     'backward pre-pass', 'backward loop', 'dpre')
+# lstm_scan's (mode XP), in the order of lstm_scan_tc_usage's output
+SCAN_TC_KERNELS = ('forward loop (bf16 x_proj)', 'forward loop (f32 x_proj)',
+    'backward loop (bf16 x_proj)', 'backward loop (f32 x_proj)',
+    'dW split-K (ring)')
 # the phases a launch with phases=k runs the first k of
 TC_PHASES = {
     'forward': ('pre-pass', 'loop'),
@@ -530,11 +537,17 @@ ENC5_PHASES = {
     'forward': ('encoder + pre-pass', 'loop'),
     'backward': ('encoder + pre-pass', 'loop', 'dpre', 'dW + db + dW_enc'),
 }
+# lstm_scan's: no pre-pass (the loops read x_proj, the reverse one
+# recomputes the gates), no dx
+SCAN_PHASES = {
+    'forward': ('loop',),
+    'backward': ('loop', 'dW'),
+}
 
 
 def log_tc_usage():
     """Registers and spilled bytes per thread of the bf16 kernels of
-    lstm_scan_fused, lstm_scan_cat and enc5 at each hidden size
+    lstm_scan, lstm_scan_fused, lstm_scan_cat and enc5 at each hidden size
     (cudaFuncGetAttributes), and the widest input and feature width they
     take, held against the wrappers' checks."""
     import ctypes
@@ -542,6 +555,8 @@ def log_tc_usage():
     from pufferlib_tpu_torch.ops.cuda.lstm_common import (
         tc_max_features, tc_max_input)
     for kind, kernel, fn, names in (
+            ('lstm_scan', lstm_scan.KERNEL, 'lstm_scan_tc_usage',
+                SCAN_TC_KERNELS),
             ('lstm_scan_fused', lstm_scan.KERNEL, 'lstm_fused_tc_usage',
                 TC_KERNELS),
             ('lstm_scan_cat', lstm_cat.KERNEL, 'lstm_cat_tc_usage',
@@ -577,27 +592,27 @@ def log_tc_usage():
 
 def time_tc_phases(torch, flush, rng, kind='fused', T=16, B=8192):
     """Device ms of each phase of the bf16 tensor-core kernels of `kind`
-    ('fused': lstm_scan_fused, 'cat': lstm_scan_cat, 'enc5') at the main
-    shape: a launch runs the first k phases, so a phase's time is the
-    difference of two such means (cold L2 each)."""
-    from pufferlib_tpu_torch.ops.cuda.lstm_common import (
-        BACKWARD_PHASES, FORWARD_PHASES)
+    ('fused': lstm_scan_fused, 'cat': lstm_scan_cat, 'enc5', 'scan':
+    lstm_scan with bf16 x_proj) at the main shape: a launch runs the first
+    k phases, so a phase's time is the difference of two such means (cold
+    L2 each)."""
     launch_fwd, launch_bwd = lstm_kinds()[kind][:2]
     args, grads, cdt = lstm_case(torch, rng, kind, T, B, 'bfloat16')
+    names = {'enc5': ENC5_PHASES, 'scan': SCAN_PHASES}.get(kind, TC_PHASES)
     with torch.no_grad():
         outs, _, _, cseq = launch_fwd(*args, cdt)
         bargs = (*args, outs, cseq, *grads, cdt)
         fwd = [timed_ms(lambda: launch_fwd(*args, cdt, phases=k), flush)
-            for k in range(1, FORWARD_PHASES + 1)]
+            for k in range(1, len(names['forward']) + 1)]
         bwd = [timed_ms(lambda: launch_bwd(*bargs, phases=k), flush)
-            for k in range(1, BACKWARD_PHASES + 1)]
-    names = ENC5_PHASES if kind == 'enc5' else TC_PHASES
+            for k in range(1, len(names['backward']) + 1)]
     phases = {}
     for part, cumulative in (('forward', fwd), ('backward', bwd)):
         for k, name in enumerate(names[part]):
             phases[f'{part} {name}'] = cumulative[k] - (cumulative[k - 1]
                 if k else 0.0)
-    title = kind if kind == 'enc5' else f'lstm_scan_{kind}'
+    title = {'enc5': 'enc5', 'scan': 'lstm_scan'}.get(kind,
+        f'lstm_scan_{kind}')
     log(f'{title} bf16 phases T={T} B={B} H=128, ms: ' + ', '.join(
         f'{k} {v:.4f}' for k, v in phases.items())
         + f'; whole forward {fwd[-1]:.4f}, backward {bwd[-1]:.4f} on '
@@ -1724,8 +1739,15 @@ def main():
                 flush, rng, kind, B, 'bfloat16', xp_dtype_name='float32')
             lstm_runs[kind, B, 'float32/bf16 x_proj'] = check_lstm(torch,
                 flush, rng, kind, B, 'float32', xp_dtype_name='bfloat16')
-    for kind in ('fused', 'cat', 'enc5'):
+    for kind in ('scan', 'fused', 'cat', 'enc5'):
         time_tc_phases(torch, flush, rng, kind)
+    # every other bf16 backward whose weight gradients run the split-K
+    # (lstm_common.cuh: the ring, or the register-staged kernel for
+    # sources it cannot copy) repeats bit for bit too
+    for kind in ('scan', 'fused', 'cat'):
+        check_bit_equal(torch, rng, kind, 8192)
+    for kind in ('enc',) + ARCHIVED_ENC_KINDS:
+        check_bit_equal(torch, rng, kind, 1000)
     # cat's streamed design at the Atari update's shape and the others
     # the resident kernels refuse, the route that sends the Atari
     # configuration to it, the host trainer's flat GAE at the Atari and

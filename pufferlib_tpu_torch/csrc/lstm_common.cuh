@@ -28,13 +28,21 @@
 //   also serve the archived schedules of csrc/lstm_archive.cu. Both cell
 //   kernels walk a range of steps, so that a launch per timestep (the
 //   time-major variant) is the same kernel over one step.
-// * gemm_tn_splitk + reduce_partials: the weight gradients
+// * the split-K (splitk) + reduce_partials: the weight gradients
 //   dW = [x | h_prev]^T dgates (and dW_enc = feats^T dpre) are
 //   contractions over K = T*B rows. The TPU kernels add them into one
 //   output block across a sequential grid; Hopper blocks run at once, so
 //   each block here writes the partial sum of its K-split, and a second
 //   pass adds the partials in split order. No atomics: the result is the
-//   same from run to run.
+//   same from run to run. In bf16, operands held as bf16 rows (every
+//   [x | h_prev] and dgates slab) run gemm_tn_splitk_ring: 128 x 128
+//   outputs a block and a 4-stage cp.async ring, so that a split reads its
+//   rows of A N / 128 times and of dg M / 128 times through L2 (about 0.54
+//   GB a call at cat's 256 x 512 output over 131072 rows, where 64 x 64
+//   tiles read 1.07 GB). Sources it cannot copy 16 bytes at a time (enc5's
+//   [feats | 1], feature rows of odd width, a dgates slab kept in f32)
+//   keep the register-staged 64 x 64 kernel gemm_tn_splitk_mma; f32 runs
+//   gemm_tn_splitk on FMA.
 //
 // Threads: NT = 256 per block. Thread t owns hidden unit j = t % H and
 // rows r0 .. r0+RPT-1 (r0 = (t / H) * RPT) of the block's BT rows, for
@@ -741,6 +749,9 @@ struct XHRows {
     const float* h0;
     const E* outs;
     int B, D, H;
+    // h0 already rounded to bf16 (B, H), where the caller has it: the ring
+    // then copies those rows too; else they are rounded as they load
+    const bf16* h16 = nullptr;
     __device__ __forceinline__ float operator()(size_t k, int m) const {
         if (m < D) return ld(x, k * D + m);
         m -= D;
@@ -755,6 +766,14 @@ struct XHRows {
         if (k >= (size_t)B) return load8_bf16(outs, (k - B) * H + m);
         const float* p = h0 + k * H + m;
         return pack8(p[0], p[1], p[2], p[3], p[4], p[5], p[6], p[7]);
+    }
+    // where the ring may copy elements m .. m+7 of row k from (bf16 only),
+    // or null: the h0 rows without h16 go through load8
+    __device__ __forceinline__ const bf16* src8(size_t k, int m) const {
+        if (m < D) return x + k * D + m;
+        m -= D;
+        if (k >= (size_t)B) return outs + (k - B) * H + m;
+        return h16 ? h16 + k * H + m : nullptr;
     }
 };
 
@@ -778,7 +797,32 @@ struct Rows {
         for (int q = 0; q < 8; ++q) v[q] = m + q < width ? ld(p, i + q) : 0.f;
         return pack8(v[0], v[1], v[2], v[3], v[4], v[5], v[6], v[7]);
     }
+    // the ring's copy source (bf16 rows whose width is a multiple of 8)
+    __device__ __forceinline__ const bf16* src8(size_t k, int m) const {
+        return p + k * width + m;
+    }
 };
+
+// Which operand sources the ring (gemm_tn_splitk_ring) takes: bf16 rows
+// that it can copy 16 bytes at a time. Others (enc5's [feats | 1],
+// feature rows of odd width, a dgates slab rounded as it loads) keep the
+// register-staged kernel.
+template <class S>
+struct RingSource : std::false_type {};
+template <>
+struct RingSource<Rows<bf16, bf16>> : std::true_type {};
+template <>
+struct RingSource<XHRows<bf16>> : std::true_type {};
+
+inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+inline bool ring_serves(const Rows<bf16, bf16>& r) {
+    return r.width % 8 == 0 && aligned16(r.p);
+}
+inline bool ring_serves(const XHRows<bf16>& r) {
+    return r.D % 8 == 0 && r.H % 8 == 0 && aligned16(r.x) && aligned16(r.outs) &&
+           aligned16(r.h16);
+}
 
 constexpr int GT = 64;  // output tile of gemm_tn_splitk
 constexpr int GK = 16;  // its depth per stage
@@ -842,6 +886,32 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
     asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                  : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                  : "r"(a));
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+    const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+
+// 16 bytes, or 16 zero bytes (nothing read) when !ok
+__device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem, bool ok) {
+    const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+                 "r"(ok ? 16 : 0)
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
@@ -921,6 +991,114 @@ __global__ void __launch_bounds__(128) gemm_tn_splitk_mma(SA a, SB bm, float* __
             }
 }
 
+// The same contraction for the card's larger tiles: RM x RN = 128 x 128
+// outputs a block, eight warps of 64 x 32, so that a split reads each row
+// of A N / 128 times and each row of dg M / 128 times (4 and 2 at cat's
+// and fused's M = 256, N = 512; 8 and 4 on the 64 x 64 tiles above). The
+// operands stream through a ring of RSTAGES stages of RK rows of K in
+// dynamic shared memory ([k][m] and [k][n], rows padded to RP against bank
+// conflicts), filled by cp.async RSTAGES - 1 stages ahead of the products,
+// one barrier a stage. An operand row that is not bf16 in device memory
+// (h0 in f32, where the caller has no rounded copy) is rounded through
+// registers into its place in the stage. Every split starts at a multiple
+// of RK (splitk_per_split), so only the last stage of the last split is
+// short; rows past K and columns past M or N stage as zeros.
+constexpr int RM = 128, RN = 128, RK = 32, RSTAGES = 4, RTHREADS = 256, RP = RM + 8;
+static_assert(RM == RN, "one padded row width for both operands");
+constexpr size_t RING_SMEM = sizeof(bf16) * RSTAGES * 2 * RK * RP;
+
+template <class S>
+__device__ __forceinline__ void ring_stage8(bf16* dst, const S& src, size_t k, int m, bool ok) {
+    const bf16* p = ok ? src.src8(k, m) : nullptr;
+    if (p)
+        cp_async16(dst, p);
+    else
+        *reinterpret_cast<uint4*>(dst) = ok ? src.load8(k, m) : make_uint4(0, 0, 0, 0);
+}
+
+template <class SA, class SB>
+__global__ void __launch_bounds__(RTHREADS, 2)
+    gemm_tn_splitk_ring(SA a, SB bm, float* __restrict__ part, int M, int N, long long K,
+                        long long per_split) {
+    extern __shared__ __align__(16) unsigned char smem_ring[];
+    bf16* ring = reinterpret_cast<bf16*>(smem_ring);  // RSTAGES x (A (RK, RP), B (RK, RP))
+    const int m0 = blockIdx.x * RM, n0 = blockIdx.y * RN;
+    const long long kb = (long long)blockIdx.z * per_split;
+    const long long ke = kb + per_split < K ? kb + per_split : K;
+    const int steps = kb < ke ? (int)((ke - kb + RK - 1) / RK) : 0;
+    const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+    const int wm = warp / 4 * 64, wn = warp % 4 * 32;
+    float acc[4][4][4] = {};
+    // every call commits a group, empty past the last step, so that
+    // cp_async_wait<RSTAGES - 2> finds the stage about to be multiplied
+    // complete
+    auto load = [&](int step) {
+        if (step < steps) {
+            bf16* as = ring + (size_t)(step % RSTAGES) * 2 * RK * RP;
+            bf16* bs = as + RK * RP;
+            const long long k0 = kb + (long long)step * RK;
+#pragma unroll
+            for (int q = 0; q < RK * RM / 8 / RTHREADS; ++q) {
+                const int i = threadIdx.x + q * RTHREADS, kk = i / (RM / 8), c = i % (RM / 8) * 8;
+                const long long k = k0 + kk;
+                ring_stage8(as + kk * RP + c, a, (size_t)k, m0 + c, k < ke && m0 + c < M);
+                ring_stage8(bs + kk * RP + c, bm, (size_t)k, n0 + c, k < ke && n0 + c < N);
+            }
+        }
+        cp_async_commit();
+    };
+#pragma unroll
+    for (int s = 0; s < RSTAGES - 1; ++s) load(s);
+    for (int step = 0; step < steps; ++step) {
+        cp_async_wait<RSTAGES - 2>();
+        // every thread is past the stage before: its slot may be filled again
+        __syncthreads();
+        load(step + RSTAGES - 1);
+        const bf16* as = ring + (size_t)(step % RSTAGES) * 2 * RK * RP;
+        const bf16* bs = as + RK * RP;
+#pragma unroll
+        for (int ks = 0; ks < RK; ks += 16) {
+            uint32_t af[4][4], bfr[2][4];
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+                ldsm_x4_trans(af[i], as + (ks + lane % 8 + (lane / 16) * 8) * RP + wm + i * 16 +
+                                         (lane / 8) % 2 * 8);
+#pragma unroll
+            for (int jb = 0; jb < 2; ++jb)
+                ldsm_x4_trans(bfr[jb], bs + (ks + lane % 8 + (lane / 8) % 2 * 8) * RP + wn +
+                                           jb * 16 + (lane / 16) * 8);
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+#pragma unroll
+                for (int j = 0; j < 4; ++j)
+                    mma_bf16(acc[i][j], af[i], bfr[j / 2][(j % 2) * 2],
+                             bfr[j / 2][(j % 2) * 2 + 1]);
+        }
+    }
+    cp_async_wait<0>();
+    // N is a multiple of 8, so a pair of columns is in or out together
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int half = 0; half < 2; ++half) {
+                const int m = m0 + wm + i * 16 + lane / 4 + half * 8;
+                const int n = n0 + wn + j * 8 + (lane % 4) * 2;
+                if (m < M && n < N)
+                    *reinterpret_cast<float2*>(part + ((size_t)blockIdx.z * M + m) * N + n) =
+                        make_float2(acc[i][j][2 * half], acc[i][j][2 * half + 1]);
+            }
+}
+
+// Rows of K a split of the ring takes: ceil(K / splits) rounded up to a
+// whole stage (lstm_common.splitk_ranges in python); the last splits may
+// be short or empty (an empty split writes zeros)
+inline long long ring_per_split(long long K, int splits) {
+    const long long per = (K + splits - 1) / splits;
+    return (per + RK - 1) / RK * RK;
+}
+
 // out[i] = sum_{s < S} part[s][i], added in order s = 0 .. S-1
 __global__ void reduce_partials(const float* __restrict__ part, float* __restrict__ out,
                                 int S, long long n) {
@@ -942,8 +1120,6 @@ inline size_t backward_smem(int H, int F, bool enc) {
     return sizeof(float) * ((size_t)4 * H * BT + (size_t)KC * 4 * H +
                             (enc ? (size_t)F * H + (size_t)F * BT : 0));
 }
-
-inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 template <typename Kernel>
 cudaError_t prepare(Kernel kernel, size_t smem) {
@@ -987,20 +1163,36 @@ inline cudaError_t reduce(const float* part, float* out, int S, long long n,
     return cudaGetLastError();
 }
 
-// bf16 operands on the tensor cores, f32 ones on FMA; both on 64 x 64
-// output tiles
+// bf16 operands on the tensor cores, through the ring where both sources
+// can be copied 16 bytes at a time (gemm_tn_splitk_ring, 128 x 128 tiles)
+// and else register-staged (gemm_tn_splitk_mma, 64 x 64); f32 ones on FMA
+// (64 x 64). Then the partials added in split order.
 template <typename E, class SA, class SB>
 cudaError_t splitk(SA a, SB bm, float* part, float* out, int M, int N, long long K,
                    int splits, cudaStream_t stream) {
     static_assert(GT == TM && GT == TN, "one tile grid for both");
+    if (splits < 1) return cudaErrorInvalidValue;
     const long long per_split = (K + splits - 1) / splits;
-    dim3 grid((M + GT - 1) / GT, (N + GT - 1) / GT, splits);
-    if constexpr (std::is_same<E, bf16>::value)
+    const dim3 grid((M + GT - 1) / GT, (N + GT - 1) / GT, splits);
+    cudaError_t err = cudaSuccess;
+    if constexpr (std::is_same<E, bf16>::value && RingSource<SA>::value &&
+                  RingSource<SB>::value) {
+        if (M % 8 == 0 && N % 8 == 0 && ring_serves(a) && ring_serves(bm)) {
+            auto kernel = gemm_tn_splitk_ring<SA, SB>;
+            if ((err = prepare(kernel, RING_SMEM)) != cudaSuccess) return err;
+            const dim3 rgrid((M + RM - 1) / RM, (N + RN - 1) / RN, splits);
+            kernel<<<rgrid, RTHREADS, RING_SMEM, stream>>>(a, bm, part, M, N, K,
+                                                          ring_per_split(K, splits));
+        } else {
+            gemm_tn_splitk_mma<SA, SB>
+                <<<grid, 128, 0, stream>>>(a, bm, part, M, N, K, per_split);
+        }
+    } else if constexpr (std::is_same<E, bf16>::value) {
         gemm_tn_splitk_mma<SA, SB><<<grid, 128, 0, stream>>>(a, bm, part, M, N, K, per_split);
-    else
+    } else {
         gemm_tn_splitk<SA, SB><<<grid, 256, 0, stream>>>(a, bm, part, M, N, K, per_split);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
+    }
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
     return reduce(part, out, splits, (long long)M * N, stream);
 }
 

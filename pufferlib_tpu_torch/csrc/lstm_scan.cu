@@ -31,42 +31,51 @@
 // bytes and bf16 tensor-core operations (about 0.035 ms), the backward
 // bound by operations (about 0.10 ms).
 //
-// Design of lstm_scan (csrc/lstm_common.cuh, mode XP): the cell kernels of
-// lstm_cat.cu with a second accumulator, so that the two sums the TPU
-// kernel keeps apart are rounded apart here too. It streams only W_hh
-// (K = H), reads x_proj_t into registers before the recurrent product and
-// adds it after; dx_proj doubles as the dgates slab of the post-loop
-// split-K contraction dW_hh = h_prev^T dg, which rounds it to the compute
-// dtype as it loads (a separate slab only for bf16 x_proj under f32
-// compute). The TPU kernels add dW tile after tile into one block; here
-// each K-split writes a partial sum and a second pass adds them in order.
-// The recurrent kernels run plain f32 FMA; the contraction runs on the
-// bf16 tensor cores.
-//
-// Design of lstm_scan_fused, chosen by the compute dtype, the only branch:
-// * bf16: csrc/lstm_tc.cuh in mode FUSED, every product on the tensor
-//   cores: the projections in GEMMs over all T*B rows before and after the
-//   loops, and loops that hold W_hh in shared memory and keep only the
-//   recurrent product. Its scratch: an f32 slab of the projections (XW or
-//   P) and the bf16 weights. The input width D is free (a multiple of 8,
-//   up to what a GEMM block's shared memory holds).
-// * f32: mode FUSED of csrc/lstm_common.cuh, the cat kernels with a second
-//   accumulator, on FMA, D == H: f32 is the exact test mode, and the
-//   tensor cores have no exact f32 product. Its scratch pointers are null.
+// Both pairs choose by the compute dtype, the only branch:
+// * bf16: csrc/lstm_tc.cuh, every product on the tensor cores, loops that
+//   hold W_hh in shared memory and keep only the recurrent product.
+//   lstm_scan runs mode XP: the forward loop reads x_proj itself, in its
+//   natural order and dtype (no pre-pass, no slab); the reverse loop
+//   recomputes each step's gates x_proj_t + h_prev @ W_hh from x_proj and
+//   the stored outs (no pre-pass, no slab, no db), then dW_hh = h_prev^T
+//   dg runs on lstm_common.cuh's ring split-K. With bf16 x_proj, dx_proj
+//   is the rounded dgates slab the loop writes and the split-K reads; with
+//   f32 x_proj the loop writes the f32 dgates to dx_proj and the rounded
+//   ones to a scratch slab. Its scratch: the rounded W_hh and h0, the
+//   split-K's partials. lstm_scan_fused runs mode FUSED: the projections
+//   in GEMMs over all T*B rows before and after the loops; its scratch, an
+//   f32 slab of the projections (XW or P) and the bf16 weights. The input
+//   width D is free (a multiple of 8, up to what a GEMM block's shared
+//   memory holds).
+// * f32: csrc/lstm_common.cuh's cell kernels on FMA, modes XP (the cat
+//   kernels' design streaming only W_hh, x_proj_t read into registers
+//   before the recurrent product and added after it) and FUSED (a second
+//   accumulator), D == H: f32 is the exact test mode, and the tensor cores
+//   have no exact f32 product. Their scratch pointers are null.
 #include "lstm_common.cuh"
 #include "lstm_tc.cuh"
 
 namespace {
 
+// lstm_scan: bf16 on lstm_tc.cuh's mode XP, f32 on lstm_common.cuh's;
+// x_proj in S (bf16 when xp_bf16, else f32)
 template <int H, typename E>
 struct ScanForward {
     template <typename S>
     static cudaError_t run_as(const void* x_proj, const float* h0, const float* c0,
                               const float* w_hh, void* outs, void* cseq, float* hT,
-                              float* cT, int T, int B, cudaStream_t stream) {
-        return lstm::run_forward<H, E, S, lstm::XP>(x_proj, h0, c0, nullptr, nullptr,
-                                                    nullptr, w_hh, nullptr, outs, cseq, hT,
-                                                    cT, T, B, 0, stream);
+                              float* cT, void* w16, int T, int B, int phases,
+                              cudaStream_t stream) {
+        if constexpr (std::is_same<E, lstm::bf16>::value) {
+            return lstm::tc::xp_forward<H, S>(
+                static_cast<const S*>(x_proj), h0, c0, w_hh, static_cast<E*>(outs),
+                static_cast<E*>(cseq), hT, cT, static_cast<E*>(w16), T, B, phases, stream);
+        } else {
+            if (phases != lstm::tc::XP_FORWARD_PHASES) return cudaErrorInvalidValue;
+            return lstm::run_forward<H, E, S, lstm::XP>(x_proj, h0, c0, nullptr, nullptr,
+                                                        nullptr, w_hh, nullptr, outs, cseq,
+                                                        hT, cT, T, B, 0, stream);
+        }
     }
     template <typename... Args>
     static cudaError_t run(int xp_bf16, Args... args) {
@@ -81,13 +90,22 @@ struct ScanBackward {
                               const float* w_hh, const void* outs, const void* cseq,
                               const void* g_outs, const float* g_hT, const float* g_cT,
                               void* dx_proj, float* dh0, float* dc0, float* dw_hh, void* dg,
-                              float* dw_part, int T, int B, int splits,
+                              float* dw_part, void* w16, int T, int B, int splits, int phases,
                               cudaStream_t stream) {
-        return lstm::run_backward<H, E, S, lstm::XP>(
-            x_proj, h0, c0, nullptr, nullptr, nullptr, w_hh, nullptr, outs, cseq, g_outs,
-            g_hT, g_cT, dh0, dc0, nullptr, nullptr, dw_hh, nullptr, dx_proj, nullptr, dg,
-            dw_part, nullptr, nullptr, nullptr, T, B, 0, splits, 0,
-            (B + lstm::BT - 1) / lstm::BT, stream);
+        if constexpr (std::is_same<E, lstm::bf16>::value) {
+            return lstm::tc::xp_backward<H, S>(
+                static_cast<const S*>(x_proj), h0, c0, w_hh, static_cast<const E*>(outs),
+                static_cast<const E*>(cseq), static_cast<const E*>(g_outs), g_hT, g_cT,
+                static_cast<S*>(dx_proj), dh0, dc0, dw_hh, static_cast<E*>(dg), dw_part,
+                static_cast<E*>(w16), T, B, splits, phases, stream);
+        } else {
+            if (phases != lstm::tc::XP_BACKWARD_PHASES) return cudaErrorInvalidValue;
+            return lstm::run_backward<H, E, S, lstm::XP>(
+                x_proj, h0, c0, nullptr, nullptr, nullptr, w_hh, nullptr, outs, cseq, g_outs,
+                g_hT, g_cT, dh0, dc0, nullptr, nullptr, dw_hh, nullptr, dx_proj, nullptr, dg,
+                dw_part, nullptr, nullptr, nullptr, T, B, 0, splits, 0,
+                (B + lstm::BT - 1) / lstm::BT, stream);
+        }
     }
     template <typename... Args>
     static cudaError_t run(int xp_bf16, Args... args) {
@@ -108,32 +126,37 @@ extern "C" {
 // x_proj: (T, B, 4H), bf16 when xp_bf16, else f32; h0, c0: (B, H); w_hh:
 // (H, 4H), f32. Writes outs and, unless it is null, cseq (T, B, H) in the
 // compute dtype (bf16 when cdt_bf16, else f32), hT and cT (B, H) f32.
+// Scratch, bf16 only (null in f32): w16 (H * 4H bf16). phases: 1, the
+// whole forward (the loop; there is no pre-pass).
 int lstm_scan_forward(const void* x_proj, const float* h0, const float* c0,
                       const float* w_hh, void* outs, void* cseq, float* hT, float* cT,
-                      int T, int B, int H, int cdt_bf16, int xp_bf16,
+                      void* w16, int T, int B, int H, int cdt_bf16, int xp_bf16, int phases,
                       cudaStream_t stream) {
     if (T <= 0 || B <= 0) return (int)cudaErrorInvalidValue;
     if (!lstm::aligned16(w_hh)) return (int)cudaErrorMisalignedAddress;
     return lstm::dispatch<ScanForward>(H, cdt_bf16, xp_bf16, x_proj, h0, c0, w_hh, outs,
-                                       cseq, hT, cT, T, B, stream);
+                                       cseq, hT, cT, w16, T, B, phases, stream);
 }
 
 // Inputs as the forward's plus its outs and cseq and the gradients g_outs
 // (T, B, H, compute dtype), g_hT and g_cT (B, H, f32). Writes dx_proj
 // (T, B, 4H) in x_proj's dtype, dh0, dc0 (B, H) and dw_hh (H, 4H), f32.
 // Scratch: dw_part (splits, H, 4H) f32, and dg (T, B, 4H) in the compute
-// dtype, which is null unless x_proj is bf16 and the compute dtype f32.
+// dtype, null unless x_proj and the compute dtype differ; bf16 only (null
+// in f32): w16 (H * 4H + B * H bf16). phases: 2 runs the whole backward;
+// in bf16, 1 stops after the loop (to time it).
 int lstm_scan_backward(const void* x_proj, const float* h0, const float* c0,
                        const float* w_hh, const void* outs, const void* cseq,
                        const void* g_outs, const float* g_hT, const float* g_cT,
                        void* dx_proj, float* dh0, float* dc0, float* dw_hh, void* dg,
-                       float* dw_part, int T, int B, int H, int cdt_bf16, int xp_bf16,
-                       int splits, cudaStream_t stream) {
+                       float* dw_part, void* w16, int T, int B, int H,
+                       int cdt_bf16, int xp_bf16, int splits, int phases,
+                       cudaStream_t stream) {
     if (T <= 0 || B <= 0) return (int)cudaErrorInvalidValue;
     if (!lstm::aligned16(w_hh)) return (int)cudaErrorMisalignedAddress;
     return lstm::dispatch<ScanBackward>(H, cdt_bf16, xp_bf16, x_proj, h0, c0, w_hh, outs,
                                         cseq, g_outs, g_hT, g_cT, dx_proj, dh0, dc0, dw_hh,
-                                        dg, dw_part, T, B, splits, stream);
+                                        dg, dw_part, w16, T, B, splits, phases, stream);
 }
 
 // x: (T, B, D) in the compute dtype; h0, c0: (B, H); w_ih: (D, 4H), w_hh:
@@ -181,6 +204,9 @@ int lstm_fused_backward(const void* x, const float* h0, const float* c0,
 // Registers and spilled bytes per thread of the bf16 kernels of
 // lstm_scan_fused at hidden size H (lstm::tc::usage): ten ints into out.
 int lstm_fused_tc_usage(int H, int* out) { return lstm::tc::usage_at<lstm::FUSED>(H, out); }
+
+// Those of lstm_scan's bf16 kernels (lstm::tc::xp_usage): ten ints
+int lstm_scan_tc_usage(int H, int* out) { return lstm::tc::usage_at<lstm::XP>(H, out); }
 
 const char* cuda_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 

@@ -1,14 +1,32 @@
-// The three LSTM cells whose input projection runs beside the recurrence,
-// in bf16 on the tensor cores, for Hopper (sm_90a): what csrc/lstm_scan.cu's
-// lstm_fused_forward / lstm_fused_backward (mode FUSED),
-// csrc/lstm_cat.cu's lstm_cat_forward / lstm_cat_backward (mode CAT) and
-// csrc/lstm_enc.cu's lstm_enc_forward / lstm_enc_backward (mode ENC5) run
-// when the compute dtype is bf16. In f32 they keep lstm_common.cuh's cell
-// kernels: the tensor cores have no exact f32 product, and f32 is the
-// exact test mode.
+// The four LSTM cells with a resident W_hh, in bf16 on the tensor cores,
+// for Hopper (sm_90a): what csrc/lstm_scan.cu's lstm_fused_forward /
+// lstm_fused_backward (mode FUSED) and lstm_scan_forward /
+// lstm_scan_backward (mode XP), csrc/lstm_cat.cu's lstm_cat_forward /
+// lstm_cat_backward (mode CAT) and csrc/lstm_enc.cu's lstm_enc_forward /
+// lstm_enc_backward (mode ENC5) run when the compute dtype is bf16. In f32
+// they keep lstm_common.cuh's cell kernels: the tensor cores have no exact
+// f32 product, and f32 is the exact test mode.
 //
-// Replaces the TPU kernels of pufferlib_tpu/ops/pallas/lstm.py (FUSED),
-// lstm_cat.py (CAT) and lstm_enc5.py (ENC5), phase by phase:
+// Mode XP (lstm.py's lstm_scan: `_lstm_fwd_impl` / `_fwd_kernel` and
+// `_noresid`, `_lstm_scan_bwd` / `_bwd_kernel`) is FUSED without the input
+// product: gates = x_proj_t + h @ W_hh, the projection an operand (T, B,
+// 4H) in bf16 or f32. Its forward has no pre-pass: the loop reads x_proj
+// itself in its natural order, a thread's pair of units of one row and
+// gate (4 bytes in bf16, 8 in f32) a unit group ahead, as FUSED's reads
+// its slab (the other design, a reorder pass into FUSED's slab, is
+// tools/ablate_lstm_tc_torch.py's variant xp-reorder-slab, and measured
+// slower: PERF.md). Its backward has no pre-pass either: the reverse loop
+// (xp_backward_loop) recomputes each step's gates, x_proj_t + h_prev @
+// W_hh, from x_proj and a tile of the stored outs in shared memory, by
+// the forward's own product, then runs the dh/dc chain and dh_prev as
+// backward_loop does, with no db and no dx GEMM: dx_proj is the dgates in
+// x_proj's dtype, the rounded slab itself for bf16 x_proj; and dW_hh =
+// h_prev^T dg by the split-K. Bound at T = 16, B = 8192, H = 128, bf16
+// x_proj: bytes, 0.065 ms forward (134 MB of x_proj read, 67 MB of outs
+// and cseq written) and 0.12 ms backward (about 400 MB).
+//
+// Replaces the TPU kernels of pufferlib_tpu/ops/pallas/lstm.py (FUSED,
+// XP), lstm_cat.py (CAT) and lstm_enc5.py (ENC5), phase by phase:
 // * forward (FUSED: `_lstm_fused_impl`, `_fwd_fused_kernel`, `_noresid`;
 //   CAT: `_impl`, `_fwd_kernel`; ENC5: lstm_enc.py `_impl`, `_fwd_kernel`):
 //   0. ENC5 only: the encoder xs = bf16(relu(feats @ W_enc + b_enc)) over
@@ -37,9 +55,12 @@
 //      place dpre = bf16(xs > 0 ? dx : 0), the relu mask (lstm_enc5.py:
 //      123-125);
 //   4. dW = [x | h_prev]^T dg and db: lstm_common.cuh's split-K
-//      contraction and ordered sums of partials, shared with the other
-//      LSTM kernels; ENC5 also dW_enc = feats^T dpre and db_enc, one
-//      split-K contraction over [feats | 1].
+//      contraction (the ring: 128 x 128 tiles, a 4-stage cp.async ring;
+//      h_prev's first rows from the rounded h0 the backward keeps) and
+//      ordered sums of partials, shared with the other LSTM kernels;
+//      ENC5 also dW_enc = feats^T dpre and db_enc, one split-K
+//      contraction over [feats | 1] (98-byte rows at F = 49: the
+//      register-staged kernel).
 // The functions are the TPU kernels': f32 sums on bf16 operands, in each
 // mode's order; FUSED and CAT keep f32 activations and sum db from the
 // unrounded dgates, ENC5 rounds the activations and sums db (and db_enc)
@@ -121,6 +142,8 @@ constexpr int HW = NW / 2;     // warps of each half of a block (32 rows)
 constexpr int PAD = 8;         // bf16 elements (16 bytes) that pad a shared row
 constexpr int FORWARD_PHASES = 2;   // pre-pass, loop
 constexpr int BACKWARD_PHASES = 4;  // pre-pass, loop, dx, dW + db
+constexpr int XP_FORWARD_PHASES = 1;   // mode XP: the loop
+constexpr int XP_BACKWARD_PHASES = 2;  // mode XP: loop, dW
 
 // The loops' geometry for hidden size H. A block's 64 rows are two halves
 // of 32 whose recurrences are independent: each half has HW warps and a
@@ -143,7 +166,9 @@ struct Geo {
     static constexpr size_t W_BYTES = sizeof(bf16) * H * WS;
     static constexpr size_t FWD_SMEM = W_BYTES + sizeof(bf16) * 2 * BR * HS;
     static constexpr size_t BWD_SMEM = W_BYTES + sizeof(bf16) * BR * WS;
-    static_assert(BWD_SMEM <= (size_t)MAX_SMEM, "W_hh and the dgates tile must fit");
+    static constexpr size_t XP_BWD_SMEM = BWD_SMEM + sizeof(bf16) * BR * HS;
+    static_assert(XP_BWD_SMEM <= (size_t)MAX_SMEM,
+                  "W_hh, the dgates tile and the h_prev tile must fit");
 };
 
 // the barrier of one half's warps (ids 1 and 2; 0 is __syncthreads)
@@ -163,15 +188,6 @@ __device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const bf16* p) {
     asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
                  : "=r"(r[0]), "=r"(r[1])
                  : "r"(a));
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-    const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-    asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 // The slabs (the forward's XW or S, and P; f32, 4H columns n = g*H + u
@@ -261,6 +277,49 @@ __device__ __forceinline__ float2 bf16x2(uint32_t v) {
     __nv_bfloat162 b;
     memcpy(&b, &v, sizeof b);
     return __bfloat1622float2(b);
+}
+
+// Mode XP's loop reads x_proj, in its natural (T, B, 4H) order and its
+// own dtype S, itself: no pre-pass reorders it. A thread's share of an
+// accumulator fragment is, per m-tile, gate and row half, the pair of
+// units 2 tig, 2 tig + 1 of one row: 4 bytes in bf16, 8 in f32, held raw
+// until the value is read, so that the load stays in flight.
+template <typename S>
+struct XpPair;
+template <>
+struct XpPair<bf16> {
+    using Raw = uint32_t;
+    __device__ __forceinline__ static Raw load(const bf16* p) { return ldg_u32(p); }
+    __device__ __forceinline__ static float2 get(Raw v) { return bf16x2(v); }
+};
+template <>
+struct XpPair<float> {
+    using Raw = float2;
+    __device__ __forceinline__ static Raw load(const float* p) {
+        return __ldg(reinterpret_cast<const float2*>(p));
+    }
+    __device__ __forceinline__ static float2 get(Raw v) { return v; }
+};
+
+// v[mt][g][half]: x_proj of step t at the accumulator positions of unit
+// group ug and gate g: rows (mt0 + mt) * 16 + gid (+ 8 for half 1), units
+// 8 ug + 2 tig and + 1; zero past the batch edge
+template <int H, int MT, typename S>
+__device__ __forceinline__ void load_xp(typename XpPair<S>::Raw (&v)[MT][4][2],
+                                        const S* __restrict__ xp, int t, int ug, int mt0, int B,
+                                        int row0, int nrows, int lane) {
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+            const int r = (mt0 + mt) * 16 + lane / 4 + 8 * half;
+            const S* p = xp + ((size_t)t * B + row0 + r) * (4 * H) + ug * 8 + lane % 4 * 2;
+#pragma unroll
+            for (int g = 0; g < 4; ++g) {
+                v[mt][g][half] = typename XpPair<S>::Raw{};
+                if (r < nrows) v[mt][g][half] = XpPair<S>::load(p + g * H);
+            }
+        }
 }
 
 // The inputs of one item of the reverse step, unit group ug by block
@@ -355,14 +414,15 @@ __device__ __forceinline__ void dh_mma(float (&acc)[UPW][MT][4], const bf16* d_s
     }
 }
 
-// The forward loop: xw, the slab of the pre-pass (FUSED: XW, CAT: S), b
-// (4H,) f32 (CAT only: FUSED's bias is in XW), h0/c0 (B, H) f32, W_hh
-// (H, 4H) bf16; writes outs, cseq (unless null) (T, B, H) bf16, hT, cT
-// (B, H) f32. Thread (warp, lane) holds c for rows row(mt, e / 2) and
-// units u0 + 2 tig + e % 2 of its unit groups.
-template <int H, int MODE>
+// The forward loop: xw, the slab of the pre-pass (FUSED: XW, CAT: S) or
+// (XP) x_proj itself, (T, B, 4H) in S; b (4H,) f32 (CAT only: FUSED's
+// bias is in XW, XP has none), h0/c0 (B, H) f32, W_hh (H, 4H) bf16;
+// writes outs, cseq (unless null) (T, B, H) bf16, hT, cT (B, H) f32.
+// Thread (warp, lane) holds c for rows row(mt, e / 2) and units
+// u0 + 2 tig + e % 2 of its unit groups.
+template <int H, int MODE, typename S = float>
 __global__ void __launch_bounds__(NTC, 1) forward_loop(
-        const float* __restrict__ xw, const float* __restrict__ b,
+        const S* __restrict__ xw, const float* __restrict__ b,
         const float* __restrict__ h0, const float* __restrict__ c0,
         const bf16* __restrict__ w_hh16, bf16* __restrict__ outs, bf16* __restrict__ cseq,
         float* __restrict__ hT, float* __restrict__ cT, int T, int B) {
@@ -400,7 +460,14 @@ __global__ void __launch_bounds__(NTC, 1) forward_loop(
     // the slab of the first unit group of step 0; every later group's values
     // are loaded one group ahead, during the cell update and the product
     float4 pre[MT][4];
-    load_gates<H>(pre, xw, 0, ug0, mt0, nrows, lane);
+    typename XpPair<S>::Raw xpv[MT][4][2];  // XP: x_proj's pairs
+    auto load_slab = [&](int t, int ug) {
+        if constexpr (MODE == XP)
+            load_xp<H>(xpv, xw, t, ug, mt0, B, row0, nrows, lane);
+        else
+            load_gates<H>(pre, xw, t, ug, mt0, nrows, lane);
+    };
+    load_slab(0, ug0);
     cp_async_wait_all();
     __syncthreads();
 
@@ -414,13 +481,18 @@ __global__ void __launch_bounds__(NTC, 1) forward_loop(
             // the slab's value of fragment element e, zero past the batch edge
             auto slab = [&](int mt, int g, int e) {
                 const bool ok = (mt0 + mt) * 16 + gid + 8 * (e / 2) < nrows;
-                return ok ? frag(pre[mt][g], e) : 0.f;
+                if constexpr (MODE == XP) {
+                    const float2 v = XpPair<S>::get(xpv[mt][g][e / 2]);
+                    return ok ? (e % 2 ? v.y : v.x) : 0.f;
+                } else {
+                    return ok ? frag(pre[mt][g], e) : 0.f;
+                }
             };
             auto load_next = [&]() {
                 if (ug + 1 < UPW)
-                    load_gates<H>(pre, xw, t, ug0 + ug + 1, mt0, nrows, lane);
+                    load_slab(t, ug0 + ug + 1);
                 else if (t + 1 < T)
-                    load_gates<H>(pre, xw, t + 1, ug0, mt0, nrows, lane);
+                    load_slab(t + 1, ug0);
             };
             float acc[MT][4][4];
 #pragma unroll
@@ -444,7 +516,8 @@ __global__ void __launch_bounds__(NTC, 1) forward_loop(
                         for (int e = 0; e < 4; ++e) acc[mt][g][e] += bias[e % 2];
                 }
             } else {
-                // (x_t @ W_ih + b) + h @ W_hh: two f32 sums, then added
+                // FUSED (x_t @ W_ih + b) + h @ W_hh, XP x_proj_t + h @ W_hh:
+                // two f32 sums, then added
                 gates_mma<H>(acc, hc, w_s, mt0, u0, lane);
 #pragma unroll
                 for (int mt = 0; mt < MT; ++mt)
@@ -651,6 +724,173 @@ __global__ void __launch_bounds__(NTC, 1) backward_loop(
     }
 }
 
+// Rows row0 .. row0 + nrows of h_prev of step t, (BR, HS) bf16, into the
+// tile h_s: h0 rounded (h16) at t = 0, else the stored outs of step t - 1;
+// zeros past the batch edge. Rows r0 .. r0 + rows, by threads
+// first .. first + count; the caller commits and waits.
+template <int H>
+__device__ __forceinline__ void stage_h_prev(bf16* h_s, const bf16* __restrict__ h16,
+                                             const bf16* __restrict__ outs, int t, int B,
+                                             int row0, int nrows, int r0, int rows, int first,
+                                             int count) {
+    constexpr int C = H / 8;  // 16-byte chunks per row
+    const bf16* src = t == 0 ? h16 + (size_t)row0 * H : outs + ((size_t)(t - 1) * B + row0) * H;
+    for (int i = threadIdx.x - first; i < rows * C; i += count) {
+        const int r = r0 + i / C, c = i % C * 8;
+        const bool ok = r < nrows;
+        cp_async16_zfill(h_s + r * Geo<H>::HS + c, ok ? src + (size_t)r * H + c : src, ok);
+    }
+}
+
+// Mode XP's reverse loop, with no P slab: each step recomputes its gates,
+// x_proj_t + h_prev @ W_hh, as the forward loop computes them (the same
+// product on the same bf16 h_prev, which the stored outs are, and x_proj
+// added after it), from x_proj in its natural order and a tile of h_prev
+// in shared memory; then backward_loop's dh/dc chain and dh_prev =
+// dg_t @ W_hh^T. The h_prev tile of the next step (t - 1) loads while the
+// half runs its dh_prev product: a half's warps are past their gates
+// product once they have written the dgates tile. Writes dh0, dc0, the
+// rounded dgates dg and, unless null, the f32 dgates dgf; no db.
+template <int H, typename S>
+__global__ void __launch_bounds__(NTC, 1) xp_backward_loop(
+        const S* __restrict__ xp, const bf16* __restrict__ h16, const float* __restrict__ c0,
+        const bf16* __restrict__ w_hh16, const bf16* __restrict__ outs,
+        const bf16* __restrict__ cseq, const bf16* __restrict__ g_outs,
+        const float* __restrict__ g_hT, const float* __restrict__ g_cT,
+        float* __restrict__ dh0, float* __restrict__ dc0, bf16* __restrict__ dg,
+        float* __restrict__ dgf, int T, int B) {
+    using GE = Geo<H>;
+    constexpr int G = GE::G, MT = GE::MT, UPW = GE::UPW, WS = GE::WS;
+    extern __shared__ __align__(16) unsigned char smem_tc[];
+    bf16* w_s = reinterpret_cast<bf16*>(smem_tc);  // (H, WS) W_hh
+    bf16* d_s = w_s + H * WS;                      // (BR, WS) dgates of the step, rounded
+    bf16* h_s = d_s + BR * WS;                     // (BR, HS) h_prev of the step
+    const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+    const int gid = lane / 4, tig = lane % 4;
+    const int side = warp / HW, wl = warp % HW;
+    const int ug0 = wl / GE::WPU * UPW, mt0 = side * (BR / 32) + wl % GE::WPU * MT;
+    const int row0 = blockIdx.x * BR, nrows = min(BR, B - row0);
+
+    stage_w_hh<H>(w_s, w_hh16);
+    stage_h_prev<H>(h_s, h16, outs, T - 1, B, row0, nrows, 0, BR, 0, NTC);
+    cp_async_commit();
+    float dh[UPW][MT][4], dc[UPW][MT][4];
+#pragma unroll
+    for (int ug = 0; ug < UPW; ++ug)
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+            for (int half = 0; half < 2; ++half) {
+                const int r = (mt0 + mt) * 16 + gid + 8 * half;
+                const size_t i = (size_t)(row0 + r) * H + (ug0 + ug) * 8 + 2 * tig;
+                float2 h = make_float2(0.f, 0.f), cc = h;
+                if (r < nrows) {
+                    h = ld2(g_hT + i);
+                    cc = ld2(g_cT + i);
+                }
+                dh[ug][mt][2 * half] = h.x;
+                dh[ug][mt][2 * half + 1] = h.y;
+                dc[ug][mt][2 * half] = cc.x;
+                dc[ug][mt][2 * half + 1] = cc.y;
+            }
+    cp_async_wait_all();
+    __syncthreads();
+
+    for (int t = T - 1; t >= 0; --t) {
+        const size_t base = (size_t)t * B + row0;
+#pragma unroll
+        for (int ug = 0; ug < UPW; ++ug) {
+            const int j = (ug0 + ug) * 8 + 2 * tig;
+            // this unit group's raw bf16 pairs of g_outs, cseq and the cseq
+            // before, and its x_proj, in flight during the gates product;
+            // f32 x_proj (twice the registers) loads after the product: in
+            // flight during it, the H = 128 loop spilled 244 bytes a thread on
+            // the H100, after it 64
+            constexpr bool EARLY = std::is_same<S, bf16>::value;
+            typename XpPair<S>::Raw xpv[MT][4][2];
+            if (EARLY) load_xp<H>(xpv, xp, t, ug0 + ug, mt0, B, row0, nrows, lane);
+            uint32_t go[MT][2], ct[MT][2], cp[MT][2];
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+                for (int half = 0; half < 2; ++half) {
+                    const int r = (mt0 + mt) * 16 + gid + 8 * half;
+                    const size_t i = (base + r) * H + j;
+                    go[mt][half] = ct[mt][half] = cp[mt][half] = 0u;
+                    if (r < nrows) {
+                        go[mt][half] = ldg_u32(g_outs + i);
+                        ct[mt][half] = ldg_u32(cseq + i);
+                        if (t > 0) cp[mt][half] = ldg_u32(cseq + i - (size_t)B * H);
+                    }
+                }
+            float acc[MT][4][4];
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+                for (int g = 0; g < 4; ++g)
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) acc[mt][g][e] = 0.f;
+            gates_mma<H>(acc, h_s, w_s, mt0, (ug0 + ug) * 8, lane);
+            if (!EARLY) load_xp<H>(xpv, xp, t, ug0 + ug, mt0, B, row0, nrows, lane);
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+                for (int half = 0; half < 2; ++half) {
+                    const int r = (mt0 + mt) * 16 + gid + 8 * half;
+                    const bool ok = r < nrows;
+                    const float2 gout = bf16x2(go[mt][half]), ctv = bf16x2(ct[mt][half]);
+                    // c_prev: the stored cseq of t - 1, c0 at t = 0
+                    float2 cpv = bf16x2(cp[mt][half]);
+                    if (t == 0 && ok) cpv = ld2(c0 + (size_t)(row0 + r) * H + j);
+                    const float gq[2] = {gout.x, gout.y}, cq[2] = {ctv.x, ctv.y},
+                                pq[2] = {cpv.x, cpv.y};
+                    float d[2][4];
+#pragma unroll
+                    for (int q = 0; q < 2; ++q) {
+                        const int e = 2 * half + q;
+                        float a[4];
+#pragma unroll
+                        for (int g = 0; g < 4; ++g) {
+                            const float2 x = XpPair<S>::get(xpv[mt][g][half]);
+                            a[g] = ok ? (q ? x.y : x.x) + acc[mt][g][e] : 0.f;
+                        }
+                        dgates_chain(d[q], dc[ug][mt][e], dh[ug][mt][e] + gq[q], sigm(a[0]),
+                                     sigm(a[1]), tanhf(a[2]), sigm(a[3]), cq[q], pq[q]);
+                    }
+#pragma unroll
+                    for (int g = 0; g < 4; ++g) {
+                        st2(d_s + r * WS + g * H + j, d[0][g], d[1][g]);
+                        if (ok) st2(dg + (base + r) * G + g * H + j, d[0][g], d[1][g]);
+                        if (ok && dgf) st2(dgf + (base + r) * G + g * H + j, d[0][g], d[1][g]);
+                    }
+                }
+        }
+        // the half's dgates are in d_s, and its warps are past their gates
+        // product: its rows of h_s take h_prev of step t - 1
+        half_sync(side);
+        if (t > 0) {
+            stage_h_prev<H>(h_s, h16, outs, t - 1, B, row0, nrows, side * (BR / 2), BR / 2,
+                            side * HW * 32, HW * 32);
+            cp_async_commit();
+        }
+        dh_mma<H>(dh, d_s, w_s, mt0, ug0, lane);
+        cp_async_wait_all();
+        half_sync(side);
+    }
+#pragma unroll
+    for (int ug = 0; ug < UPW; ++ug)
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+            for (int half = 0; half < 2; ++half) {
+                const int r = (mt0 + mt) * 16 + gid + 8 * half;
+                if (r >= nrows) continue;
+                const size_t i = (size_t)(row0 + r) * H + (ug0 + ug) * 8 + 2 * tig;
+                st2(dh0 + i, dh[ug][mt][2 * half], dh[ug][mt][2 * half + 1]);
+                st2(dc0 + i, dc[ug][mt][2 * half], dc[ug][mt][2 * half + 1]);
+            }
+}
+
 // The GEMMs over all T*B rows: out(m, n) from s1 = sum_k A1(m, k) B1(k, n)
 // and, when k2 > 0, s2 = sum_k A2(m, k) B2(k, n), bf16 operands already
 // in device memory (an A source's row(r) points to row r, a B source's
@@ -708,19 +948,6 @@ struct HPrev {
         return r < B ? h0 + r * H : outs + (r - B) * H;
     }
 };
-
-// 16 bytes, or 16 zero bytes (nothing read) when !ok
-__device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem, bool ok) {
-    const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
-                 "r"(ok ? 16 : 0)
-                 : "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-    asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 // rows 0 .. K of B's columns n0 .. n0 + QN into bs (whole chunks of QK
 // rows, QB wide)
@@ -1178,8 +1405,8 @@ cudaError_t backward(const bf16* x, const float* h0, const float* c0, const floa
     else
         err = rows_gemm(dgs, wit, G, dgs, wit, 0, Bf16Out{dx, D}, M, D, stream);
     if (err != cudaSuccess || phases < 4) return err;
-    XHRows<bf16> xh{x, h0, outs, B, D, H};
-    Rows<bf16> dgates{dg, G};
+    const XHRows<bf16> xh{x, h0, outs, B, D, H, h16};
+    const Rows<bf16> dgates{dg, G};
     if ((err = splitk<bf16>(xh, dgates, dw_part, dw, D + H, G, M, splits, stream)) !=
         cudaSuccess)
         return err;
@@ -1188,6 +1415,61 @@ cudaError_t backward(const bf16* x, const float* h0, const float* c0, const floa
         err = splitk<bf16>(FeatOnes{enc.feats, enc.F}, Rows<bf16>{enc.dpre, D}, enc.dwe_part,
                            enc.dwe, enc.F + 1, D, M, enc.splits, stream);
     return err;
+}
+
+// Mode XP (lstm_scan): x_proj (T, B, 4H) in S, natural order; h0, c0
+// (B, H), W_hh (H, 4H) f32. The forward: W_hh rounded into the scratch w16
+// (H * 4H bf16), then the loop, which reads x_proj itself (no slab, no
+// pre-pass); phases: 1, all of it.
+template <int H, typename S>
+cudaError_t xp_forward(const S* xp, const float* h0, const float* c0, const float* w_hh,
+                       bf16* outs, bf16* cseq, float* hT, float* cT, bf16* w16, int T, int B,
+                       int phases, cudaStream_t stream) {
+    if (phases != XP_FORWARD_PHASES || !w16) return cudaErrorInvalidValue;
+    cudaError_t err = round_into(nullptr, w_hh, nullptr, w16, nullptr, nullptr, 0, H, B, stream);
+    if (err != cudaSuccess) return err;
+    auto kernel = forward_loop<H, XP, S>;
+    if ((err = prepare(kernel, Geo<H>::FWD_SMEM)) != cudaSuccess) return err;
+    kernel<<<(B + BR - 1) / BR, NTC, Geo<H>::FWD_SMEM, stream>>>(xp, nullptr, h0, c0, w16, outs,
+                                                                 cseq, hT, cT, T, B);
+    return cudaGetLastError();
+}
+
+// Mode XP's backward: W_hh and h0 rounded into w16, then one reverse loop
+// (xp_backward_loop) that recomputes each step's gates from x_proj and the
+// stored outs, so that no pre-pass and no f32 slab of the gates run (a P
+// pre-pass, FUSED's design, measured 0.19 ms slower on an H100 at T 16, B
+// 8192, H 128: PERF.md), then dW_hh = h_prev^T dg by the split-K. dx_proj is the f32
+// dgates in S: with bf16 x_proj it is the rounded dgates slab itself (the
+// loop writes it, the split-K reads it); with f32 x_proj the loop writes
+// the f32 dgates to dx_proj and the rounded ones to the scratch dg ((T,
+// B, 4H) bf16, else unused). Scratch: w16 (H * 4H + B * H bf16: W_hh and
+// h0 rounded), dw_part (splits, H, 4H) f32. phases: the first 1 .. 2 of
+// loop, dW.
+template <int H, typename S>
+cudaError_t xp_backward(const S* xp, const float* h0, const float* c0, const float* w_hh,
+                        const bf16* outs, const bf16* cseq, const bf16* g_outs,
+                        const float* g_hT, const float* g_cT, S* dxp, float* dh0, float* dc0,
+                        float* dw, bf16* dg, float* dw_part, bf16* w16, int T, int B,
+                        int splits, int phases, cudaStream_t stream) {
+    constexpr int G = 4 * H;
+    constexpr bool F32 = std::is_same<S, float>::value;
+    if (phases < 1 || phases > XP_BACKWARD_PHASES || splits < 1 || !w16 || (F32 && !dg))
+        return cudaErrorInvalidValue;
+    if (!aligned16(outs) || !aligned16(w16)) return cudaErrorMisalignedAddress;
+    bf16* h16 = w16 + (size_t)H * G;
+    cudaError_t err = round_into(nullptr, w_hh, h0, w16, nullptr, h16, 0, H, B, stream);
+    if (err != cudaSuccess) return err;
+    bf16* dgs = F32 ? dg : reinterpret_cast<bf16*>(dxp);
+    auto kernel = xp_backward_loop<H, S>;
+    if ((err = prepare(kernel, Geo<H>::XP_BWD_SMEM)) != cudaSuccess) return err;
+    kernel<<<(B + BR - 1) / BR, NTC, Geo<H>::XP_BWD_SMEM, stream>>>(
+        xp, h16, c0, w16, outs, cseq, g_outs, g_hT, g_cT, dh0, dc0, dgs,
+        F32 ? reinterpret_cast<float*>(dxp) : nullptr, T, B);
+    if ((err = cudaGetLastError()) != cudaSuccess || phases < 2) return err;
+    const XHRows<bf16> hp{nullptr, h0, outs, B, 0, H, h16};
+    return splitk<bf16>(hp, Rows<bf16>{dgs, G}, dw_part, dw, H, G, (long long)T * B, splits,
+                        stream);
 }
 
 // Registers and local (spilled) bytes per thread of n kernels, as
@@ -1221,13 +1503,30 @@ cudaError_t enc5_usage(int* out) {
     return attributes(fns, 6, out);
 }
 
+// Those of mode XP's kernels at hidden size H: the forward loop with bf16
+// and with f32 x_proj, the backward loop likewise, and the ring split-K of
+// dW_hh (which every resident bf16 LSTM backward's dW runs)
+template <int H>
+cudaError_t xp_usage(int* out) {
+    const void* fns[] = {
+        reinterpret_cast<const void*>(forward_loop<H, XP, bf16>),
+        reinterpret_cast<const void*>(forward_loop<H, XP, float>),
+        reinterpret_cast<const void*>(xp_backward_loop<H, bf16>),
+        reinterpret_cast<const void*>(xp_backward_loop<H, float>),
+        reinterpret_cast<const void*>(gemm_tn_splitk_ring<XHRows<bf16>, Rows<bf16>>)};
+    return attributes(fns, 5, out);
+}
+
 // Those of the bf16 path's kernels at hidden size H in mode MODE: FUSED
 // and CAT, the forward pre-pass, the forward loop, the backward pre-pass,
-// the backward loop, dx (the last two serve both modes); ENC5 enc5_usage's
+// the backward loop, dx (the last two serve both modes); ENC5 enc5_usage's,
+// XP xp_usage's
 template <int H, int MODE>
 cudaError_t usage(int* out) {
     if constexpr (MODE == ENC5) {
         return enc5_usage<H>(out);
+    } else if constexpr (MODE == XP) {
+        return xp_usage<H>(out);
     } else {
         const void* fns[] = {
             reinterpret_cast<const void*>(

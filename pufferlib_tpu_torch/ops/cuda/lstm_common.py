@@ -32,6 +32,10 @@ TC_ROWS_PER_BLOCK = 64
 # all, except to time a phase
 FORWARD_PHASES = 2
 BACKWARD_PHASES = 4
+# lstm_scan's in bf16 (lstm_tc.cuh mode XP): the forward is its loop
+# alone, the backward its loop (which recomputes the gates), then dW
+SCAN_FORWARD_PHASES = 1
+SCAN_BACKWARD_PHASES = 2
 # shared memory a block may use (lstm_common.cuh MAX_SMEM)
 MAX_SMEM = 227 * 1024
 
@@ -430,15 +434,52 @@ def check_fma_encoder_kernel_shape(feats, w_enc, H):
         w_enc.shape[1], H))
 
 
+# The bf16 split-K's ring (lstm_common.cuh gemm_tn_splitk_ring): output
+# tiles of SPLITK_TILE x SPLITK_TILE, K in stages of SPLITK_STAGE rows; two
+# blocks are resident on an SM (its launch bounds)
+SPLITK_TILE = 128
+SPLITK_STAGE = 32
+
+
 def splitk_splits(M, N, K, device):
     """K-splits of a post-loop (M, N) weight-gradient contraction over
-    K = T*B rows: about four blocks per SM, at least 1024 rows each. The
-    partial sums are added in split order by a second pass, so the result
-    does not depend on the schedule."""
-    # output tiles of 64 x 64 (lstm_common.cuh gemm_tn_splitk)
-    tiles = math.ceil(M / 64) * math.ceil(N / 64)
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(math.ceil(4 * sms / tiles), math.ceil(K / 1024)))
+    K = T*B rows: one wave of the ring's 128 x 128 tiles at two blocks an
+    SM (2 x 132 / tiles: 66 splits for lstm_scan's 128 x 512 dW_hh, 33
+    for the 256 x 512 [dW_ih; dW_hh] of cat, fused and enc5), at least 1024
+    rows each. The register-staged and f32 kernels that serve the other
+    sources take the same count. The partial sums are added in split order
+    by a second pass, so the result does not depend on the schedule."""
+    return splitk_count(M, N, K,
+        torch.cuda.get_device_properties(device).multi_processor_count)
+
+
+def splitk_count(M, N, K, sms):
+    """splitk_splits on a card of `sms` SMs."""
+    tiles = math.ceil(M / SPLITK_TILE) * math.ceil(N / SPLITK_TILE)
+    return max(1, min(math.ceil(2 * sms / tiles), math.ceil(K / 1024)))
+
+
+def splitk_ranges(K, splits):
+    """The (start, stop) rows of K each split of the ring takes, in split
+    order: ceil(K / splits) rounded up to whole stages (lstm_common.cuh
+    ring_per_split), the last ones short or empty."""
+    per = math.ceil(math.ceil(K / splits) / SPLITK_STAGE) * SPLITK_STAGE
+    return [(min(s * per, K), min((s + 1) * per, K)) for s in range(splits)]
+
+
+def splitk_reference(a, b, splits):
+    """a^T b for a (K, M) and b (K, N), float32, summed as the ring does:
+    each split's rows stage by stage into its partial sum, then the
+    partials added in split order (reduce_partials)."""
+    out = torch.zeros((a.shape[1], b.shape[1]), dtype=torch.float32,
+        device=a.device)
+    for start, stop in splitk_ranges(a.shape[0], splits):
+        part = torch.zeros_like(out)
+        for k in range(start, stop, SPLITK_STAGE):
+            end = min(k + SPLITK_STAGE, stop)
+            part += a[k:end].float().t() @ b[k:end].float()
+        out += part
+    return out
 
 
 def blocks(B):

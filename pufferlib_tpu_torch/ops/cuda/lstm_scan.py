@@ -26,12 +26,15 @@ Replaces pufferlib_tpu/ops/pallas/lstm.py:
   dgates.
 
 Gate order, rounding points and the saved outs/cseq are lstm_cat.py's.
-On the card, lstm_scan_fused in bf16 runs csrc/lstm_tc.cuh's tensor-core
-kernels (the projections as GEMMs over all T*B rows, W_hh held in shared
-memory by the recurrent loops) with f32 scratch slabs of the
-projections, at any input width D that is a multiple of 8 up to
-lstm_common.tc_max_input(H); in f32, the exact test mode, it runs the FMA
-cell kernels of lstm_common.cuh, which take D == H.
+On the card both pairs in bf16 run csrc/lstm_tc.cuh's tensor-core
+kernels, W_hh held in shared memory by the recurrent loops: lstm_scan
+(mode XP) a forward loop that reads x_proj itself and a reverse loop that
+recomputes each step's gates from x_proj and the stored outs, so that
+neither writes a slab (SCAN_FORWARD_PHASES, SCAN_BACKWARD_PHASES);
+lstm_scan_fused (mode FUSED) the projections as GEMMs over all T*B rows
+with f32 scratch slabs, at any input width D that is a multiple of 8 up
+to lstm_common.tc_max_input(H). In f32, the exact test mode, both run the
+FMA cell kernels of lstm_common.cuh, which take D == H.
 A call none of whose inputs requires a gradient writes no cell sequence
 (the TPU package's `_noresid` kernels); on the card the forward kernel is
 then handed a null cseq.
@@ -46,8 +49,9 @@ import torch
 from pufferlib_tpu_torch.ops.cuda._build import (
     CudaKernel, I, P, ptr, ptr_or_null, stream_handle)
 from pufferlib_tpu_torch.ops.cuda.lstm_common import (
-    BACKWARD_PHASES, FORWARD_PHASES, backward_inputs, cell_backward_step,
-    check_cell_inputs, check_kernel_shape, check_scan_inputs,
+    BACKWARD_PHASES, FORWARD_PHASES, SCAN_BACKWARD_PHASES,
+    SCAN_FORWARD_PHASES, backward_inputs, cell_backward_step,
+    check_cell_inputs, check_cell_kernel_shape, check_scan_inputs,
     forward_outputs, gate_activations, launch_cell_backward,
     launch_cell_forward, needs_cseq, round_to, scan_cells, splitk_splits)
 
@@ -56,12 +60,13 @@ __all__ = ['lstm_scan', 'lstm_scan_fused', 'lstm_scan_reference',
     'lstm_scan_fused_backward_reference', 'KERNEL']
 
 KERNEL = CudaKernel('lstm_scan.cu', {
-    'lstm_scan_forward': [P] * 8 + [I] * 5 + [P],
-    'lstm_scan_backward': [P] * 15 + [I] * 6 + [P],
+    'lstm_scan_forward': [P] * 9 + [I] * 6 + [P],
+    'lstm_scan_backward': [P] * 16 + [I] * 7 + [P],
     'lstm_fused_forward': [P] * 12 + [I] * 6 + [P],
     'lstm_fused_backward': [P] * 21 + [I] * 8 + [P],
     # not a launch: the bf16 kernels' registers and spills
     'lstm_fused_tc_usage': [I, P],
+    'lstm_scan_tc_usage': [I, P],
 })
 
 
@@ -134,24 +139,30 @@ def lstm_scan_fused_backward_reference(x, h0, c0, w_ih, w_hh, b, outs, cseq,
     return dx, dh, dc, dwi, dwh, db
 
 
-def _launch_scan_forward(x_proj, h0, c0, w_hh, cdt, save_cseq=True):
+def _launch_scan_forward(x_proj, h0, c0, w_hh, cdt, save_cseq=True,
+        phases=SCAN_FORWARD_PHASES):
     T, B, _ = x_proj.shape
     H = h0.shape[1]
-    check_kernel_shape(H, H, x_proj.device)
+    check_cell_kernel_shape(H, H, cdt, x_proj.device)
     outs, hT, cT, cseq = forward_outputs(T, h0, c0, cdt, save_cseq)
     if B > 0:
+        tc = cdt == torch.bfloat16
+        # bf16 scratch: W_hh rounded
+        w16 = torch.empty((H * 4 * H,), dtype=torch.bfloat16,
+            device=x_proj.device) if tc else None
         KERNEL.launch('lstm_scan_forward', ptr(x_proj), ptr(h0), ptr(c0),
-            ptr(w_hh), ptr(outs), ptr_or_null(cseq), ptr(hT), ptr(cT), T, B,
-            H, int(cdt == torch.bfloat16),
-            int(x_proj.dtype == torch.bfloat16), stream_handle(x_proj))
+            ptr(w_hh), ptr(outs), ptr_or_null(cseq), ptr(hT), ptr(cT),
+            ptr_or_null(w16), T, B, H, int(tc),
+            int(x_proj.dtype == torch.bfloat16), phases,
+            stream_handle(x_proj))
     return outs, hT, cT, cseq
 
 
 def _launch_scan_backward(x_proj, h0, c0, w_hh, outs, cseq, g_outs, g_hT,
-        g_cT, cdt):
+        g_cT, cdt, phases=SCAN_BACKWARD_PHASES):
     T, B, G = x_proj.shape
     H = h0.shape[1]
-    check_kernel_shape(H, H, x_proj.device)
+    check_cell_kernel_shape(H, H, cdt, x_proj.device)
     dev = x_proj.device
     dxp = torch.empty_like(x_proj)
     dh0 = torch.empty_like(h0)
@@ -159,17 +170,23 @@ def _launch_scan_backward(x_proj, h0, c0, w_hh, outs, cseq, g_outs, g_hT,
     dw = torch.empty((H, G), dtype=torch.float32, device=dev)
     if B == 0:
         return dxp, dh0, dc0, dw.zero_()
+    tc = cdt == torch.bfloat16
     splits = splitk_splits(H, G, T * B, dev)
-    # dx_proj is also the slab of dgates that dW_hh = h_prev^T dg reads,
-    # rounded to cdt as it is loaded; bf16 cannot feed an f32 contraction
-    separate = x_proj.dtype == torch.bfloat16 and cdt == torch.float32
-    dg = torch.empty((T, B, G), dtype=cdt, device=dev) if separate else None
+    # dx_proj is also the slab of dgates that dh_prev and dW_hh = h_prev^T
+    # dg read where it is in cdt; else the dgates rounded to cdt go to a
+    # slab of their own
+    dg = torch.empty((T, B, G), dtype=cdt, device=dev) \
+        if x_proj.dtype != cdt else None
     dw_part = torch.empty((splits, H, G), dtype=torch.float32, device=dev)
+    # bf16 scratch: W_hh and h0 rounded
+    w16 = torch.empty((H * G + B * H,), dtype=torch.bfloat16, device=dev) \
+        if tc else None
     KERNEL.launch('lstm_scan_backward', ptr(x_proj), ptr(h0), ptr(c0),
         ptr(w_hh), ptr(outs), ptr(cseq), ptr(g_outs), ptr(g_hT), ptr(g_cT),
         ptr(dxp), ptr(dh0), ptr(dc0), ptr(dw), ptr_or_null(dg),
-        ptr(dw_part), T, B, H, int(cdt == torch.bfloat16),
-        int(x_proj.dtype == torch.bfloat16), splits, stream_handle(x_proj))
+        ptr(dw_part), ptr_or_null(w16), T, B, H, int(tc),
+        int(x_proj.dtype == torch.bfloat16), splits, phases,
+        stream_handle(x_proj))
     return dxp, dh0, dc0, dw
 
 

@@ -13,10 +13,10 @@ for bit across runs); the LSTM
 kernels (enc5, cat, enc, scan, fused and the archived enc2, enc3, enc4,
 enc6, tm) 1e-5 in f32 and 2e-2 in bf16 of max(1, max |plain|) per output
 and gradient (sums in another order; in bf16 a value that rounds one ulp
-the other way inside the recurrence). lstm_scan_cat, lstm_scan_fused and
-the enc5 pair run their tensor-core kernels in bf16 (also at input widths
-other than the hidden size, and enc5 at feature widths up to the
-encoder's limit) and their FMA kernels in f32.
+the other way inside the recurrence). lstm_scan, lstm_scan_cat,
+lstm_scan_fused and the enc5 pair run their tensor-core kernels in bf16
+(also at input widths other than the hidden size, and enc5 at feature
+widths up to the encoder's limit) and their FMA kernels in f32.
 """
 import importlib
 
@@ -347,7 +347,7 @@ FUSED_EDGES = [(T, B, H) for T, B in ((1, 1), (5, 65)) for H in (32, 64, 128)]
 
 @pytest.mark.parametrize('kind,T,B,H', [(kind, *shape)
     for kind in ('scan', 'fused', 'enc') for shape in SCAN_SHAPES]
-    + [('fused', *shape) for shape in FUSED_EDGES])
+    + [(kind, *shape) for kind in ('fused', 'scan') for shape in FUSED_EDGES])
 @pytest.mark.parametrize('cdt', [torch.float32, torch.bfloat16])
 def test_lstm_scan_kernels_match_plain(cuda, kind, T, B, H, cdt):
     """lstm_scan, lstm_scan_fused and lstm_scan_enc: forward, every
@@ -829,14 +829,64 @@ def _check_pair_and_primal(cuda, kind, T, B, H, cdt):
         assert torch.equal(a, w)
 
 
-@pytest.mark.parametrize('B,H', [(1000, 128), (45, 32)])
+@pytest.mark.parametrize('T,B,H', [(5, 1000, 128), (5, 45, 32)]
+    + FUSED_EDGES)
 @pytest.mark.parametrize('cdt,xp_dtype', [(torch.bfloat16, torch.float32),
     (torch.float32, torch.bfloat16)])
-def test_lstm_scan_x_proj_dtype_apart_from_compute_dtype(cuda, B, H, cdt,
+def test_lstm_scan_x_proj_dtype_apart_from_compute_dtype(cuda, T, B, H, cdt,
         xp_dtype):
     """x_proj in one dtype under the other compute dtype; dx_proj comes
-    back in x_proj's (checked with the dtypes in _check_lstm_pair)."""
-    _check_lstm_pair(cuda, 'scan', 5, B, H, cdt, xp_dtype)
+    back in x_proj's (checked with the dtypes in _check_lstm_pair). The
+    bf16 kernels (f32 x_proj: the loops read it as pairs of f32, the
+    backward writes dx_proj in f32 beside the rounded dgates slab) also at
+    one step, one row, and one row past a 64-row block."""
+    _check_lstm_pair(cuda, 'scan', T, B, H, cdt, xp_dtype)
+
+
+@pytest.mark.parametrize('T,B,H', [(16, 1000, 128), (5, 65, 32),
+    (16, 8192, 128)])
+def test_lstm_scan_bf16_is_deterministic(cuda, T, B, H):
+    """lstm_scan's bf16 kernels (mode XP, the ring split-K of dW_hh) add
+    every partial sum in a fixed order: the same inputs twice give the
+    same outputs and gradients bit for bit."""
+    _check_deterministic(cuda, 'scan', T, B, H)
+
+
+# every kind whose bf16 backward runs the split-K of lstm_common.cuh: the
+# ring where its sources are bf16 rows (cat, fused, scan, enc5's [x |
+# h_prev], the FMA backwards' [xs | h_prev]), the register-staged kernel
+# for the rest (enc5's [feats | 1], the feature rows of odd width)
+SPLITK_KINDS = ('enc5', 'enc', 'cat', 'fused', 'scan') + ARCHIVED_ENC
+
+
+@pytest.mark.parametrize('kind', SPLITK_KINDS)
+@pytest.mark.parametrize('T,B,H', [(16, 8192, 128), (5, 65, 64)])
+def test_bf16_backwards_on_the_split_k_match_plain_and_repeat(cuda, kind, T,
+        B, H):
+    """Each bf16 backward whose weight gradients run the split-K: within
+    2e-2 of its plain version, and two runs equal bit for bit."""
+    _check_lstm_pair(cuda, kind, T, B, H, torch.bfloat16)
+    _check_deterministic(cuda, kind, T, B, H)
+
+
+def test_lstm_scan_tc_usage(cuda):
+    """Registers and spills of lstm_scan's bf16 kernels (mode XP: the
+    forward and the reverse loop, each with bf16 and with f32 x_proj, and
+    the ring split-K) at every hidden size. The loops' 512 threads may
+    hold 128 registers each (one block an SM), the ring's 256 threads 128
+    (two blocks an SM). Nothing spills at H = 32 and 64, nor in the ring;
+    at H = 128 the loops spill at most what they spilled on the H100 when
+    this test was written (the forward 8 and 32 bytes, the reverse loop 16
+    and 64, as fused's forward loop spills 16)."""
+    import ctypes
+    from pufferlib_tpu_torch.ops.cuda import lstm_scan
+    for H in (32, 64, 128):
+        out = (ctypes.c_int * 10)()
+        assert lstm_scan.KERNEL.lib().lstm_scan_tc_usage(H, out) == 0
+        regs, spilled = list(out)[::2], list(out)[1::2]
+        assert all(0 < r <= 128 for r in regs), (H, regs)
+        most = [8, 32, 16, 64, 0] if H == 128 else [0] * 5
+        assert all(s <= m for s, m in zip(spilled, most)), (H, spilled)
 
 
 def test_lstm_scan_autograd_on_the_card(cuda):

@@ -544,3 +544,157 @@ def test_enc5_tensor_core_schedule_keeps_the_function(B, F, D, H, cdt):
         assert a.shape == tuple(w.shape), name
         assert_close(a, w, grad_tol, True, f'enc5 schedule {name} against '
             'JAX')
+
+
+def xp_tc_schedule(x_proj, h0, c0, w_hh, cdt, splits):
+    """What lstm_scan's bf16 kernels (csrc/lstm_tc.cuh, mode XP) compute,
+    in their order, in plain torch. Forward: no pre-pass; the loop reads
+    x_proj itself, gates = x_proj_t + h @ W_hh (the recurrent sum in f32
+    from zero, x_proj added after it). Returns (outs, hT, cT, cseq) and
+    the backward as a function of the upstream gradients: no pre-pass
+    either; the reverse loop recomputes each step's gates the same way
+    from x_proj and h_prev (h0 rounded, then the stored outs), produces
+    dh_prev and the dgates (no db), dx_proj = the f32 dgates in x_proj's
+    dtype (with bf16 x_proj the rounded dgates slab itself), and after the
+    loop dW_hh = h_prev^T dg over the rounded dgates, split by split in the
+    ring's partition and added in split order
+    (lstm_common.splitk_reference)."""
+    T, B, G = x_proj.shape
+    H = h0.shape[1]
+
+    def rd(t):
+        return t.to(cdt).float()
+    wh = rd(w_hh)
+
+    def gates(t, h):
+        return x_proj[t].float() + h @ wh
+    h, c = h0.float(), c0.float()
+    outs, cseq = [], []
+    for t in range(T):
+        i, f, g, o = lstm_common.gate_activations(gates(t, rd(h)), H)
+        c = f * c + i * g
+        h = o * torch.tanh(c)
+        outs.append(h.to(cdt))
+        cseq.append(c.to(cdt))
+    outs, cseq = torch.stack(outs), torch.stack(cseq)
+
+    def backward(g_outs, g_hT, g_cT):
+        h_prev = torch.cat([rd(h0)[None], outs[:T - 1].float()])
+        dxp = torch.empty_like(x_proj)
+        dg = torch.empty((T, B, G), dtype=cdt)
+        dh, dc = g_hT.float(), g_cT.float()
+        for t in reversed(range(T)):
+            acts = lstm_common.gate_activations(gates(t, h_prev[t]), H)
+            c_prev = c0.float() if t == 0 else cseq[t - 1].float()
+            dgates, dc = lstm_common.cell_backward_step(acts,
+                dh + g_outs[t].float(), dc, cseq[t].float(), c_prev)
+            dxp[t] = dgates.to(x_proj.dtype)
+            dg[t] = dgates.to(cdt)
+            dh = dg[t].float() @ wh.t()
+        dw = lstm_common.splitk_reference(h_prev.reshape(T * B, H),
+            dg.float().reshape(T * B, G), splits)
+        return dxp, dh, dc, dw
+    return (outs, h, c, cseq), backward
+
+
+@pytest.mark.parametrize('seq', ['bfloat16', 'float32'])
+@pytest.mark.parametrize('B', [8, 65])
+@pytest.mark.parametrize('H', [32, 64, 128])
+def test_xp_tensor_core_schedule_keeps_the_function(H, B, seq):
+    """lstm_scan's bf16 schedule (xp_tc_schedule, x_proj in bf16 and in
+    f32 under bf16 compute) against the plain forward and backward on the
+    same inputs, 2e-2 of max(1, max |plain|) per tensor; and against the
+    JAX package under the loss sum(outs ** 2) + sum(hT * cT): at B = 8 its
+    Pallas kernel in interpret mode (the tolerances of compare), at B = 65,
+    which no Pallas LSTM kernel tiles (B % 8), the forward of its pure
+    reference lstm_scan_reference (whose autodiff backward rounds at other
+    points than the kernel). dW_hh is split three ways, so that the
+    partition is exercised at this size."""
+    cdt = 'bfloat16'
+    arrays = make_inputs('scan', B, H, 15, seq)
+    x_proj = torch.from_numpy(arrays[0]).to(TD[seq])
+    rest = [torch.from_numpy(a) for a in arrays[1:]]
+    fwd, backward = xp_tc_schedule(x_proj, *rest, TD[cdt], splits=3)
+    plain = lstm_scan.lstm_scan_reference(x_proj, *rest, TD[cdt])
+    for name, a, w in zip(('outs', 'hT', 'cT', 'cseq'), fwd, plain):
+        assert a.dtype == w.dtype
+        assert_close(a, w, 2e-2, True, f'xp schedule {name}')
+    rng = np.random.default_rng(16)
+    cot = (torch.from_numpy(rng.standard_normal((T, B, H)).astype(
+        np.float32)).to(TD[cdt]), *(torch.from_numpy(rng.standard_normal(
+        (B, H)).astype(np.float32)) for _ in range(2)))
+    grads = backward(*cot)
+    want = lstm_scan.lstm_scan_backward_reference(x_proj, *rest, plain[0],
+        plain[3], *cot, TD[cdt])
+    for name, a, w in zip(KINDS['scan'][5], grads, want):
+        assert a.dtype == w.dtype and a.shape == w.shape
+        assert_close(a, w, 2e-2, True, f'xp schedule {name}')
+    outs, hT, cT, _ = fwd
+    if B % 8:
+        jouts = jax_lstm.lstm_scan_reference(
+            jnp.asarray(arrays[0]).astype(JD[seq]),
+            *(jnp.asarray(a) for a in arrays[1:]), JD[cdt])
+        for name, a, w in zip(('outs', 'hT', 'cT'), fwd, jouts):
+            assert_close(a, w, 2e-2, True, f'xp schedule {name} against JAX')
+        return
+    loss_grads = backward((2 * outs.float()).to(TD[cdt]), cT, hT)
+    with pltpu.force_tpu_interpret_mode():
+        jax_want = jax_run(jax_lstm.lstm_scan, arrays, cdt, seq, 0)
+    compare('scan', (fwd[:3], loss_grads), jax_want, True)
+
+
+@pytest.mark.parametrize('K,splits', [(131072, 66), (131072, 33), (1000, 1),
+    (4000, 3), (1 << 20, 264), (70, 5)])
+def test_splitk_partition_covers_k(K, splits):
+    """The ring's partition (lstm_common.splitk_ranges, the C function
+    ring_per_split's): `splits` ranges in order, each starting on a whole
+    stage of 32 rows, that cover 0 .. K once; only the last ones may be
+    short or empty."""
+    ranges = lstm_common.splitk_ranges(K, splits)
+    assert len(ranges) == splits
+    assert ranges[0][0] == 0 and ranges[-1][1] == K
+    for (a, b), (c, _) in zip(ranges, ranges[1:]):
+        assert b == c
+    sizes = [b - a for a, b in ranges]
+    per = sizes[0]
+    assert per % lstm_common.SPLITK_STAGE == 0 or splits == 1 or per == K
+    assert all(s <= per for s in sizes)
+    full = [s == per for s in sizes]
+    assert full == sorted(full, reverse=True)
+
+
+@pytest.mark.parametrize('M,N,K,sms', [(128, 512, 131072, 132),
+    (256, 512, 131072, 132), (49, 128, 131072, 132), (50, 128, 1000, 132),
+    (256, 512, 48, 132), (128, 512, 131072, 78)])
+def test_splitk_splits_contract(M, N, K, sms):
+    """The split count: one wave of 128 x 128 tiles at two blocks an SM,
+    at least one split and no more than one per 1024 rows of K (rounded
+    up); lstm_scan's and cat's main shapes give 66 and 33 on 132 SMs."""
+    n = lstm_common.splitk_count(M, N, K, sms)
+    tiles = -(-M // 128) * -(-N // 128)
+    assert 1 <= n <= max(1, -(-K // 1024))
+    assert n == max(1, min(-(-2 * sms // tiles), -(-K // 1024)))
+    if (M, N, K, sms) == (128, 512, 131072, 132):
+        assert n == 66
+    if (M, N, K, sms) == (256, 512, 131072, 132):
+        assert n == 33
+
+
+@pytest.mark.parametrize('M,N,K', [(32, 128, 3000), (50, 128, 777),
+    (128, 512, 4096)])
+def test_splitk_emulation_matches_plain_dw(M, N, K):
+    """The plain emulation of the ring split-K (each split stage by stage,
+    partials added in split order) against the plain contraction a^T b on
+    bf16-valued operands (every product exact in f32, only the order of
+    the sums differs: 1e-5 of max(1, max |a^T b|)), for several split
+    counts: the result does not depend on the schedule beyond that."""
+    rng = np.random.default_rng(M + N + K)
+    a = torch.from_numpy(rng.standard_normal((K, M)).astype(np.float32)
+        ).to(torch.bfloat16).float()
+    b = torch.from_numpy(rng.standard_normal((K, N)).astype(np.float32)
+        ).to(torch.bfloat16).float()
+    want = a.t() @ b
+    for splits in (1, 2, 7, max(1, -(-K // 1024))):
+        got = lstm_common.splitk_reference(a, b, splits)
+        assert_close(got, want, 1e-5, True, f'{splits} splits')
+        assert torch.equal(got, lstm_common.splitk_reference(a, b, splits))
