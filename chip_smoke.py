@@ -22,12 +22,14 @@ enc3, enc4, enc6 and tm among them). Last, small trainer updates and
 12 steps of every Ocean env on the card are held against the same on the
 CPU (the recurrent update also at hidden 256, through enc5's streamed
 design). For the bf16
-tensor-core kernels of lstm_scan, lstm_scan_cat, lstm_scan_fused and the
-enc5 pair (csrc/lstm_tc.cuh) it also prints each kernel's registers and
-spilled bytes after the build, and the time of each phase at the main
-shape (pre-pass, loop, dx, dW + db; enc5's encoder runs in both pre-pass
-phases, dpre takes dx's place and dW_enc joins the last; lstm_scan's
-forward is its loop alone, its backward loop and dW); cat,
+tensor-core kernels of lstm_scan, lstm_scan_cat, lstm_scan_fused, the
+enc5 pair and the archived enc2 and enc4 backwards (csrc/lstm_tc.cuh) it
+also prints each kernel's registers and spilled bytes after the build,
+and the time of each phase at the main shape (pre-pass, loop, dx, dW +
+db; enc5's encoder runs in both pre-pass phases, dpre takes dx's place
+and dW_enc joins the last, and the archived backwards have enc5's
+backward phases; lstm_scan's forward is its loop alone, its backward
+loop and dW); cat,
 fused and enc5 are also held to their plain versions at input width 96
 (enc5 with 200 features), and the bf16 kernels of every pair whose
 backward runs the split-K of csrc/lstm_common.cuh (enc5, scan, fused,
@@ -528,6 +530,11 @@ ENC5_TC_KERNELS = ('encoder', 'forward pre-pass', 'forward loop',
 SCAN_TC_KERNELS = ('forward loop (bf16 x_proj)', 'forward loop (f32 x_proj)',
     'backward loop (bf16 x_proj)', 'backward loop (f32 x_proj)',
     'dW split-K (ring)')
+# the archived enc2's and enc4's own, in the order of
+# lstm_archive_tc_usage's output (their encoder, dpre and split-K, and
+# enc4's pre-pass, are enc5's)
+ARCHIVE_TC_KERNELS = ('enc2 backward pre-pass',
+    'enc2 / enc4 backward loop (f32 activations)')
 # the phases a launch with phases=k runs the first k of
 TC_PHASES = {
     'forward': ('pre-pass', 'loop'),
@@ -543,15 +550,22 @@ SCAN_PHASES = {
     'forward': ('loop',),
     'backward': ('loop', 'dW'),
 }
+# the archived enc2's and enc4's bf16 backwards, enc5's phases (their
+# forwards take no phases: enc2's runs on FMA, enc4's is enc5's)
+ARCHIVE_PHASES = {'forward': (), 'backward': ENC5_PHASES['backward']}
+PHASES = {'enc5': ENC5_PHASES, 'scan': SCAN_PHASES, 'enc2': ARCHIVE_PHASES,
+    'enc4': ARCHIVE_PHASES}
 
 
 def log_tc_usage():
     """Registers and spilled bytes per thread of the bf16 kernels of
-    lstm_scan, lstm_scan_fused, lstm_scan_cat and enc5 at each hidden size
+    lstm_scan, lstm_scan_fused, lstm_scan_cat, enc5 and the archived enc2
+    and enc4 backwards at each hidden size
     (cudaFuncGetAttributes), and the widest input and feature width they
     take, held against the wrappers' checks."""
     import ctypes
-    from pufferlib_tpu_torch.ops.cuda import lstm_cat, lstm_enc, lstm_scan
+    from pufferlib_tpu_torch.ops.cuda import (
+        archive, lstm_cat, lstm_enc, lstm_scan)
     from pufferlib_tpu_torch.ops.cuda.lstm_common import (
         tc_max_features, tc_max_input)
     for kind, kernel, fn, names in (
@@ -561,7 +575,9 @@ def log_tc_usage():
                 TC_KERNELS),
             ('lstm_scan_cat', lstm_cat.KERNEL, 'lstm_cat_tc_usage',
                 TC_KERNELS),
-            ('enc5', lstm_enc.KERNEL, 'lstm_enc_tc_usage', ENC5_TC_KERNELS)):
+            ('enc5', lstm_enc.KERNEL, 'lstm_enc_tc_usage', ENC5_TC_KERNELS),
+            ('archive', archive.KERNEL, 'lstm_archive_tc_usage',
+                ARCHIVE_TC_KERNELS)):
         for H in (32, 64, 128):
             out = (ctypes.c_int * (2 * len(names)))()
             err = getattr(kernel.lib(), fn)(H, out)
@@ -593,12 +609,12 @@ def log_tc_usage():
 def time_tc_phases(torch, flush, rng, kind='fused', T=16, B=8192):
     """Device ms of each phase of the bf16 tensor-core kernels of `kind`
     ('fused': lstm_scan_fused, 'cat': lstm_scan_cat, 'enc5', 'scan':
-    lstm_scan with bf16 x_proj) at the main shape: a launch runs the first
-    k phases, so a phase's time is the difference of two such means (cold
-    L2 each)."""
+    lstm_scan with bf16 x_proj, and the backwards of the archived 'enc2'
+    and 'enc4') at the main shape: a launch runs the first k phases, so a
+    phase's time is the difference of two such means (cold L2 each)."""
     launch_fwd, launch_bwd = lstm_kinds()[kind][:2]
     args, grads, cdt = lstm_case(torch, rng, kind, T, B, 'bfloat16')
-    names = {'enc5': ENC5_PHASES, 'scan': SCAN_PHASES}.get(kind, TC_PHASES)
+    names = PHASES.get(kind, TC_PHASES)
     with torch.no_grad():
         outs, _, _, cseq = launch_fwd(*args, cdt)
         bargs = (*args, outs, cseq, *grads, cdt)
@@ -611,12 +627,12 @@ def time_tc_phases(torch, flush, rng, kind='fused', T=16, B=8192):
         for k, name in enumerate(names[part]):
             phases[f'{part} {name}'] = cumulative[k] - (cumulative[k - 1]
                 if k else 0.0)
-    title = {'enc5': 'enc5', 'scan': 'lstm_scan'}.get(kind,
-        f'lstm_scan_{kind}')
+    title = {'enc5': 'enc5', 'scan': 'lstm_scan', 'enc2': 'archived enc2',
+        'enc4': 'archived enc4'}.get(kind, f'lstm_scan_{kind}')
     log(f'{title} bf16 phases T={T} B={B} H=128, ms: ' + ', '.join(
         f'{k} {v:.4f}' for k, v in phases.items())
-        + f'; whole forward {fwd[-1]:.4f}, backward {bwd[-1]:.4f} on '
-        f'{card_line()}')
+        + (f'; whole forward {fwd[-1]:.4f}' if fwd else '')
+        + f'; whole backward {bwd[-1]:.4f} on {card_line()}')
     return phases
 
 
@@ -1739,12 +1755,12 @@ def main():
                 flush, rng, kind, B, 'bfloat16', xp_dtype_name='float32')
             lstm_runs[kind, B, 'float32/bf16 x_proj'] = check_lstm(torch,
                 flush, rng, kind, B, 'float32', xp_dtype_name='bfloat16')
-    for kind in ('scan', 'fused', 'cat', 'enc5'):
+    for kind in ('scan', 'fused', 'cat', 'enc5', 'enc2', 'enc4'):
         time_tc_phases(torch, flush, rng, kind)
     # every other bf16 backward whose weight gradients run the split-K
     # (lstm_common.cuh: the ring, or the register-staged kernel for
     # sources it cannot copy) repeats bit for bit too
-    for kind in ('scan', 'fused', 'cat'):
+    for kind in ('scan', 'fused', 'cat', 'enc2', 'enc4'):
         check_bit_equal(torch, rng, kind, 8192)
     for kind in ('enc',) + ARCHIVED_ENC_KINDS:
         check_bit_equal(torch, rng, kind, 1000)

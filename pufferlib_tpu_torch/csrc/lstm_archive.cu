@@ -39,10 +39,28 @@
 // Bound: the functions are those of lstm_enc.cu (enc2, 3, 4, 6: bound by
 // bf16 tensor-core operations, about 0.036 ms forward and 0.108 ms backward
 // at T = 16, B = 8192, F = 49, D = H = 128) and of lstm_scan.cu's lstm_scan
-// (tm: bound by bytes, about 0.065 and 0.12 ms). All of these run plain f32
-// FMA from weights streamed out of L2, far above those bounds.
+// (tm: bound by bytes, about 0.065 and 0.12 ms).
 //
-// Design (csrc/lstm_common.cuh): one backward kernel, archive_backward,
+// Design, by row and compute dtype. The encoder-fused backwards differ in
+// two roundings of the reverse loop (lstm_common.cuh rounded_acts,
+// rounded_db) and in where the gates are recomputed:
+// * bf16 enc2 and enc4 backwards: csrc/lstm_tc.cuh's backward in modes
+//   ENC2 and ENC4, mode ENC5's path, every product on the tensor cores:
+//   the encoder GEMM; the P pre-pass over all T*B rows, enc4 (x @ W_ih +
+//   h_prev @ W_hh) + b, enc2 bf16(x @ W_ih + b) + h_prev @ W_hh (the
+//   projection rounded in the epilogue, as its TPU kernel's slab); the
+//   reverse loop with W_hh in shared memory, f32 activations and db from
+//   the rounded dgates; dpre; the split-K of [x | h_prev]^T dg and of
+//   [feats | 1]^T dpre. Their TPU kernels recompute the gates inside the
+//   loop: [W_ih; W_hh] in bf16 fits no block here, so the pre-pass does.
+//   Both take the reach of the FMA kernels below (D == H, F <= 128),
+//   inside the tensor-core kernels'.
+// * everything else: plain f32 FMA from weights streamed out of L2 in
+//   chunks, far above the bounds above: the f32 enc2 and enc4 backwards
+//   (f32 is the exact test mode), enc2's forward in both dtypes, enc3's and
+//   enc6's backwards, tm.
+//
+// FMA design (csrc/lstm_common.cuh): one backward kernel, archive_backward,
 // whose MODE picks the rounding points and the schedule. The TPU kernels'
 // VMEM slabs of T * bt rows fit no block's shared memory, so a slab that
 // they keep (enc3's and enc6's activations, every variant's dgates) lives
@@ -58,6 +76,7 @@
 // weight gradients are split-K with partials added in a fixed order, as in
 // the other LSTM sources.
 #include "lstm_common.cuh"
+#include "lstm_tc.cuh"
 
 using namespace lstm;
 
@@ -355,6 +374,62 @@ struct Backward {
     };
 };
 
+// enc2's and enc4's backward: bf16 on the tensor cores (tc::backward in
+// modes ENC2 and ENC4), f32 on archive_backward. D == H. pre: the P slab
+// (lstm_tc.cuh slab_index) f32; bf16 only, as w16.
+template <int MODE>
+struct TcBackward {
+    template <int H, typename E>
+    struct Of {
+        static cudaError_t run(const void* feats, const float* h0, const float* c0,
+                               const float* w_enc, const float* b_enc, const float* w_ih,
+                               const float* w_hh, const float* b, const void* outs,
+                               const void* cseq, const void* g_outs, const float* g_hT,
+                               const float* g_cT, float* dh0, float* dc0, float* dwe, float* dw,
+                               float* db, void* xs, void* dpre, void* dg, float* dw_part,
+                               float* db_part, float* dwe_part, float* dbe_part, void* pre,
+                               void* w16, int T, int B, int F, int splits_w, int splits_e,
+                               int part_rows, int phases, cudaStream_t stream) {
+            if constexpr (std::is_same<E, bf16>::value) {
+                if (!pre || !w16) return cudaErrorInvalidValue;
+                const tc::Encoder enc = tc::backward_encoder(feats, w_enc, b_enc, xs, dpre, w16,
+                                                             dwe, dwe_part, splits_e, F, H, H, B);
+                return tc::backward<H, MODE>(
+                    enc.xs, h0, c0, w_ih, w_hh, b, static_cast<const E*>(outs),
+                    static_cast<const E*>(cseq), static_cast<const E*>(g_outs), g_hT, g_cT,
+                    nullptr, dh0, dc0, dw, db, static_cast<E*>(dg), dw_part, db_part,
+                    static_cast<float*>(pre), static_cast<E*>(w16), T, B, H, splits_w, part_rows,
+                    phases, stream, enc);
+            } else {
+                if (phases != tc::BACKWARD_PHASES) return cudaErrorInvalidValue;
+                return run_archive_backward<H, E, MODE>(
+                    feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b, outs, cseq, g_outs, g_hT, g_cT,
+                    dh0, dc0, dwe, dwe + (size_t)F * H, dw, db, xs, dpre, dg, nullptr, dw_part,
+                    db_part, dwe_part, dbe_part, T, B, F, splits_w, splits_e, part_rows, stream);
+            }
+        }
+    };
+};
+
+// Registers and spilled bytes per thread of the archive's own bf16 kernels
+// at hidden size H, as out[2i], out[2i + 1]: enc2's pre-pass (its
+// epilogue rounds the projection) and the reverse loop of enc2 and enc4
+// (f32 activations, db from the rounded dgates). The encoder, enc4's
+// pre-pass, dpre and the split-K are enc5's.
+template <int H>
+cudaError_t tc_usage(int* out) {
+    static_assert(rounded_acts(ENC2) == rounded_acts(ENC4) &&
+                      rounded_db(ENC2) == rounded_db(ENC4),
+                  "enc2 and enc4 share a reverse loop");
+    const void* fns[] = {
+        reinterpret_cast<const void*>(
+            tc::rows_gemm_kernel<tc::BRows, tc::GateRows, tc::HPrev, tc::GateRows,
+                                 tc::GatesOut<ENC2>>),
+        reinterpret_cast<const void*>(
+            tc::backward_loop<H, rounded_acts(ENC4), rounded_db(ENC4)>)};
+    return tc::attributes(fns, 2, out);
+}
+
 template <int H, typename E>
 struct Enc2Forward {
     static cudaError_t run(const void* feats, const float* h0, const float* c0,
@@ -422,15 +497,14 @@ int lstm_enc2_forward(const void* feats, const float* h0, const float* c0,
                                  outs, cseq, hT, cT, T, B, F, stream);
 }
 
-// The four encoder-fused backwards. Inputs as the forward's plus its outs
-// and cseq and the gradients g_outs (T, B, H, compute dtype), g_hT and
-// g_cT (B, H, f32). Writes dh0, dc0 (B, H), dw_enc (F, H), db_enc (H,),
-// dw = [dW_ih; dW_hh] (2H, 4H) and db (4H,), f32. Scratch: xs and dpre
-// (T, B, H), dg and acts (T, B, 4H) in the compute dtype (acts may be null
-// for enc2 and enc4, which recompute their gates inside the loop); dw_part
-// (splits_w, 2H, 4H), db_part (part_rows, 4H), dwe_part (splits_e, F, H)
-// and dbe_part (part_rows, H) f32, with part_rows = ceil(B / 32), for enc6
-// ceil(B / 64).
+// enc3's and enc6's backward, on FMA in both dtypes. Inputs as the
+// forward's plus its outs and cseq and the gradients g_outs (T, B, H,
+// compute dtype), g_hT and g_cT (B, H, f32). Writes dh0, dc0 (B, H),
+// dw_enc (F, H), db_enc (H,), dw = [dW_ih; dW_hh] (2H, 4H) and db (4H,),
+// f32. Scratch: xs and dpre (T, B, H), dg and acts (T, B, 4H) in the
+// compute dtype; dw_part (splits_w, 2H, 4H), db_part (part_rows, 4H),
+// dwe_part (splits_e, F, H) and dbe_part (part_rows, H) f32, with
+// part_rows = ceil(B / 32), for enc6 ceil(B / 64).
 #define ARCHIVE_BACKWARD(NAME, MODE)                                                       \
     int NAME(const void* feats, const float* h0, const float* c0, const float* w_enc,      \
              const float* b_enc, const float* w_ih, const float* w_hh, const float* b,     \
@@ -448,11 +522,52 @@ int lstm_enc2_forward(const void* feats, const float* h0, const float* c0,
             db_part, dwe_part, dbe_part, T, B, F, splits_w, splits_e, part_rows, stream);  \
     }
 
-ARCHIVE_BACKWARD(lstm_enc2_backward, ENC2)
 ARCHIVE_BACKWARD(lstm_enc3_backward, ENC3)
-ARCHIVE_BACKWARD(lstm_enc4_backward, ENC4)
 ARCHIVE_BACKWARD(lstm_enc6_backward, ENC6)
 #undef ARCHIVE_BACKWARD
+
+// enc2's and enc4's backward: the arguments of lstm_enc.cu's
+// lstm_enc_backward (inputs as enc3's; dwe (F + 1, H): dW_enc, then
+// db_enc), with D == H.
+// Scratch: xs and dpre (T, B, H) and dg (T, B, 4H) in the compute dtype;
+// dw_part (splits_w, 2H, 4H) and db_part (part_rows, 4H) f32, part_rows =
+// ceil(B / 64) in bf16 and ceil(B / 32) in f32; dwe_part (splits_e, F + 1,
+// H) in bf16, (splits_e, F, H) in f32; f32 only (null in bf16): dbe_part
+// (part_rows, H); bf16 only (null in f32): pre, the P slab (as
+// lstm_enc_backward's) f32, and w16 (2H * 4H + 4H * H + B * H + F * H)
+// bf16. phases: 4 runs the whole backward; in bf16, 1 .. 3 stop after the
+// encoder and the pre-pass, the loop or dpre (to time them).
+#define TC_BACKWARD(NAME, MODE)                                                             \
+    int NAME(const void* feats, const float* h0, const float* c0, const float* w_enc,       \
+             const float* b_enc, const float* w_ih, const float* w_hh, const float* b,      \
+             const void* outs, const void* cseq, const void* g_outs, const float* g_hT,     \
+             const float* g_cT, float* dh0, float* dc0, float* dwe, float* dw, float* db,   \
+             void* xs, void* dpre, void* dg, float* dw_part, float* db_part,                \
+             float* dwe_part, float* dbe_part, void* pre, void* w16, int T, int B, int F,   \
+             int D, int H, int cdt_bf16, int splits_w, int splits_e, int part_rows,         \
+             int phases, cudaStream_t stream) {                                             \
+        if (T <= 0 || B <= 0 || F <= 0 || D != H) return (int)cudaErrorInvalidValue;        \
+        if (!aligned16(w_ih) || !aligned16(w_hh)) return (int)cudaErrorMisalignedAddress;   \
+        return dispatch<TcBackward<MODE>::Of>(                                              \
+            H, cdt_bf16, feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b, outs, cseq, g_outs,    \
+            g_hT, g_cT, dh0, dc0, dwe, dw, db, xs, dpre, dg, dw_part, db_part, dwe_part,    \
+            dbe_part, pre, w16, T, B, F, splits_w, splits_e, part_rows, phases, stream);    \
+    }
+
+TC_BACKWARD(lstm_enc2_backward, ENC2)
+TC_BACKWARD(lstm_enc4_backward, ENC4)
+#undef TC_BACKWARD
+
+// Registers and spilled bytes per thread of the archive's own bf16
+// kernels at hidden size H (tc_usage): four ints into out.
+int lstm_archive_tc_usage(int H, int* out) {
+    switch (H) {
+        case 32: return (int)tc_usage<32>(out);
+        case 64: return (int)tc_usage<64>(out);
+        case 128: return (int)tc_usage<128>(out);
+    }
+    return (int)cudaErrorInvalidValue;
+}
 
 // Step t of the time-major forward, over the whole batch. x_proj:
 // (T, B, 4H), bf16 when xp_bf16, else f32; h_in, c_in: the state before

@@ -91,21 +91,9 @@ struct Backward {
                            void* w16, int T, int B, int F, int D, int splits_w, int splits_e,
                            int part_rows, int phases, cudaStream_t stream) {
         if constexpr (std::is_same<E, lstm::bf16>::value) {
-            constexpr int G = 4 * H;
             if (!pre || !w16) return cudaErrorInvalidValue;
-            lstm::tc::Encoder enc;
-            enc.feats = static_cast<const E*>(feats);
-            enc.w_enc = w_enc;
-            enc.b_enc = b_enc;
-            enc.xs = static_cast<E*>(xs);
-            // w16: [W_ih; W_hh] (D + H, 4H), W_ih^T (4H, D), h0 (B, H), W_enc (F, D)
-            enc.we16 = static_cast<E*>(w16) + (size_t)(D + H) * G + (size_t)G * D +
-                       (size_t)B * H;
-            enc.F = F;
-            enc.dpre = static_cast<E*>(dpre);
-            enc.dwe = dwe;
-            enc.dwe_part = dwe_part;
-            enc.splits = splits_e;
+            const lstm::tc::Encoder enc = lstm::tc::backward_encoder(
+                feats, w_enc, b_enc, xs, dpre, w16, dwe, dwe_part, splits_e, F, D, H, B);
             return lstm::tc::backward<H, lstm::ENC5>(
                 enc.xs, h0, c0, w_ih, w_hh, b, static_cast<const E*>(outs),
                 static_cast<const E*>(cseq), static_cast<const E*>(g_outs), g_hT, g_cT, nullptr,

@@ -3,9 +3,11 @@
 // lstm_fused_backward (mode FUSED) and lstm_scan_forward /
 // lstm_scan_backward (mode XP), csrc/lstm_cat.cu's lstm_cat_forward /
 // lstm_cat_backward (mode CAT) and csrc/lstm_enc.cu's lstm_enc_forward /
-// lstm_enc_backward (mode ENC5) run when the compute dtype is bf16. In f32
-// they keep lstm_common.cuh's cell kernels: the tensor cores have no exact
-// f32 product, and f32 is the exact test mode.
+// lstm_enc_backward (mode ENC5) run when the compute dtype is bf16, and
+// csrc/lstm_archive.cu's lstm_enc2_backward and lstm_enc4_backward (the
+// archived modes ENC2 and ENC4: ENC5's backward with other roundings). In
+// f32 they keep lstm_common.cuh's cell kernels: the tensor cores have no
+// exact f32 product, and f32 is the exact test mode.
 //
 // Mode XP (lstm.py's lstm_scan: `_lstm_fwd_impl` / `_fwd_kernel` and
 // `_noresid`, `_lstm_scan_bwd` / `_bwd_kernel`) is FUSED without the input
@@ -45,8 +47,10 @@
 //   0. ENC5 only: xs recomputed by the forward's encoder, bit for bit;
 //   1. pre-pass P over all T*B rows (h_prev: h0 rounded, then the stored
 //      outs): the gate recompute, which needs no carried state, as an f32
-//      slab; FUSED (x @ W_ih + b) + h_prev @ W_hh, CAT and ENC5
-//      (x @ W_ih + h_prev @ W_hh) + b;
+//      slab; FUSED (x @ W_ih + b) + h_prev @ W_hh, CAT, ENC5 and ENC4
+//      (x @ W_ih + h_prev @ W_hh) + b, ENC2 bf16(x @ W_ih + b) + h_prev @
+//      W_hh (its projection slab, lstm_enc2.py:103-105, rounded in the
+//      epilogue);
 //   2. reverse loop: the activations from P_t (ENC5 rounds them to bf16,
 //      the TPU kernel's activation slab, lstm_enc5.py:74-76), the dh/dc
 //      chain, dgates rounded to bf16 into the dg slab, db, dh_prev =
@@ -64,8 +68,15 @@
 // The functions are the TPU kernels': f32 sums on bf16 operands, in each
 // mode's order; FUSED and CAT keep f32 activations and sum db from the
 // unrounded dgates, ENC5 rounds the activations and sums db (and db_enc)
-// from the rounded values. The modes differ only in where the bias and
-// the input product enter the sum, and in ENC5's encoder and roundings.
+// from the rounded values, ENC4 and ENC2 keep f32 activations and sum db
+// from the rounded dgates. The modes differ only in where the bias and the
+// input product enter the sum, and in the encoder and the roundings. The
+// TPU kernels of ENC4 and ENC2 recompute their gates inside the reverse
+// loop from [W_ih; W_hh], 256 KiB in bf16 at D = H = 128, more than a
+// block holds: here the pre-pass does, as for ENC5. ENC2's other design,
+// a bf16 projection slab read by mode XP's reverse loop (the recompute in
+// the loop, db summed there), measured no faster on the H100 (PERF.md):
+// tools/ablate_lstm_tc_torch.py keeps it as variant enc2-xp.
 //
 // Shapes: H in {32, 64, 128}; the input width D is a run-time argument,
 // a multiple of 8 (rows of x move as 16-byte cp.async copies) whose
@@ -573,11 +584,13 @@ __global__ void __launch_bounds__(NTC, 1) forward_loop(
 // f32, W_hh bf16, cseq and g_outs (T, B, H) bf16, g_hT, g_cT (B, H) f32.
 // Writes dh0, dc0 (B, H) f32, the rounded dgates dg (T, B, 4H) bf16 and
 // the block's db sums into row blockIdx.x of db_part (4H wide). dh and dc
-// live at the forward's (row, unit) positions. ROUNDED (mode ENC5): the
-// activations pass through bf16 before the dgates chain and db sums the
-// rounded dgates, as lstm_enc5._bwd_kernel's shared activation/dgates
-// slab does; otherwise f32 activations and db from the unrounded dgates.
-template <int H, bool ROUNDED = false>
+// live at the forward's (row, unit) positions. Two roundings, each a flag
+// (lstm_common.cuh rounded_acts, rounded_db): ROUND_ACTS, the activations
+// pass through bf16 before the dgates chain, as lstm_enc5._bwd_kernel's
+// shared activation/dgates slab does; ROUND_DB, db sums the dgates as
+// stored in bf16 rather than the unrounded ones. ENC5 takes both, the
+// archived ENC4 and ENC2 ROUND_DB alone, CAT and FUSED neither.
+template <int H, bool ROUND_ACTS, bool ROUND_DB>
 __global__ void __launch_bounds__(NTC, 1) backward_loop(
         const float* __restrict__ pre, const float* __restrict__ c0,
         const bf16* __restrict__ w_hh16, const bf16* __restrict__ cseq,
@@ -660,7 +673,7 @@ __global__ void __launch_bounds__(NTC, 1) backward_loop(
 #pragma unroll
                     for (int g = 0; g < 4; ++g) a[g] = ok ? frag(in.p[g], e) : 0.f;
                     float act[4] = {sigm(a[0]), sigm(a[1]), tanhf(a[2]), sigm(a[3])};
-                    if constexpr (ROUNDED) {
+                    if constexpr (ROUND_ACTS) {
 #pragma unroll
                         for (int g = 0; g < 4; ++g) act[g] = to_cdt<bf16>(act[g]);
                     }
@@ -670,9 +683,9 @@ __global__ void __launch_bounds__(NTC, 1) backward_loop(
 #pragma unroll
                 for (int g = 0; g < 4; ++g) {
                     if (ok) {
-                        // db sums the dgates: as stored in bf16 (ROUNDED), else unrounded
-                        db[ug][g][0] += ROUNDED ? to_cdt<bf16>(d[0][g]) : d[0][g];
-                        db[ug][g][1] += ROUNDED ? to_cdt<bf16>(d[1][g]) : d[1][g];
+                        // db sums the dgates: as stored in bf16 (ROUND_DB), else unrounded
+                        db[ug][g][0] += ROUND_DB ? to_cdt<bf16>(d[0][g]) : d[0][g];
+                        db[ug][g][1] += ROUND_DB ? to_cdt<bf16>(d[1][g]) : d[1][g];
                     }
                     st2(d_s + r * WS + g * H + j, d[0][g], d[1][g]);
                     if (ok) st2(dg + (base + r) * G + g * H + j, d[0][g], d[1][g]);
@@ -1093,10 +1106,10 @@ __global__ void __launch_bounds__(QTHREADS, 2) rows_gemm_kernel(SA1 a1, SB1 b1, 
 
 // The gate pre-activations in f32 into a slab (slab_index), from the
 // gate-interleaved columns of GateRows: FUSED (s1 + b) + s2, CAT
-// (s1 + s2) + b, with s1 the input's sum and s2 the recurrent one (zero
-// in the forward's pre-pass). A null b adds none: cat's forward slab. When
-// B is a multiple of 16 a fragment's rows lie in one step, and it is one
-// float4 of the slab.
+// (s1 + s2) + b, ENC2 bf16(s1 + b) + s2, with s1 the input's sum and s2
+// the recurrent one (zero in the forward's pre-pass). A null b adds none:
+// cat's forward slab. When B is a multiple of 16 a fragment's rows lie in
+// one step, and it is one float4 of the slab.
 template <int MODE>
 struct GatesOut {
     float* out;
@@ -1110,7 +1123,9 @@ struct GatesOut {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
             const float bias = b ? b[g * H + u + e % 2] : 0.f;
-            v[e] = MODE == CAT ? (s1[e] + s2[e]) + bias : (s1[e] + bias) + s2[e];
+            v[e] = MODE == CAT    ? (s1[e] + s2[e]) + bias
+                   : MODE == ENC2 ? to_cdt<bf16>(s1[e] + bias) + s2[e]
+                                  : (s1[e] + bias) + s2[e];
         }
         const int m = (int)mb + lane / 4;
         if (B % 16 == 0) {
@@ -1294,6 +1309,28 @@ struct Encoder {
     int splits = 0;
 };
 
+// The Encoder of a backward from its C function's arguments: feats, W_enc,
+// b_enc, the scratch xs and dpre, w16 ((D + H) * 4H + 4H * D + B * H +
+// F * D bf16: [W_ih; W_hh], W_ih^T and h0 for backward, then W_enc), dwe
+// and dwe_part (splits of them)
+inline Encoder backward_encoder(const void* feats, const float* w_enc, const float* b_enc,
+                                void* xs, void* dpre, void* w16, float* dwe, float* dwe_part,
+                                int splits, int F, int D, int H, int B) {
+    Encoder enc;
+    enc.feats = static_cast<const bf16*>(feats);
+    enc.w_enc = w_enc;
+    enc.b_enc = b_enc;
+    enc.xs = static_cast<bf16*>(xs);
+    enc.we16 = static_cast<bf16*>(w16) + (size_t)(D + H) * 4 * H + (size_t)4 * H * D +
+               (size_t)B * H;
+    enc.F = F;
+    enc.dpre = static_cast<bf16*>(dpre);
+    enc.dwe = dwe;
+    enc.dwe_part = dwe_part;
+    enc.splits = splits;
+    return enc;
+}
+
 // xs = bf16(relu(feats @ W_enc + b_enc)) over M = T*B rows: one GEMM
 // with bf16 operands and an f32 sum, + b_enc, relu, then one rounding
 // (lstm_enc._encode_block). The forward and the backward both call this,
@@ -1357,9 +1394,9 @@ cudaError_t enc5_forward(const Encoder& enc, const float* h0, const float* c0,
 // 4H * D + B * H) bf16 (the rounded [W_ih; W_hh], W_ih^T and h0), dg
 // (T, B, 4H) bf16, dw_part (splits, D + H, 4H) and db_part (ceil(B / BR),
 // 4H) f32. phases: the first 1 .. 4 of pre-pass, loop, dx, dW + db.
-// ENC5: x is enc.xs, which the encoder writes first (the pre-pass phase);
-// dx is not written, dpre in its place; the last phase adds dW_enc and
-// db_enc.
+// ENC5 and the archived ENC4 and ENC2: x is enc.xs, which the encoder
+// writes first (the pre-pass phase); dx is not written, dpre in its place;
+// the last phase adds dW_enc and db_enc.
 template <int H, int MODE>
 cudaError_t backward(const bf16* x, const float* h0, const float* c0, const float* w_ih,
                      const float* w_hh, const float* b, const bf16* outs, const bf16* cseq,
@@ -1369,9 +1406,10 @@ cudaError_t backward(const bf16* x, const float* h0, const float* c0, const floa
                      int part_rows, int phases, cudaStream_t stream,
                      const Encoder& enc = Encoder{}) {
     constexpr int G = 4 * H;
-    constexpr bool ENCODER = MODE == ENC5;
-    // where the bias enters the gate sum: ENC5's cell is CAT's
-    constexpr int SUM = ENCODER ? CAT : MODE;
+    constexpr bool ENCODER = MODE == ENC5 || MODE == ENC4 || MODE == ENC2;
+    // where the bias enters the gate sum: ENC5's and ENC4's cell is CAT's,
+    // ENC2 rounds its projection before adding the recurrent sum
+    constexpr int SUM = MODE == ENC2 ? ENC2 : ENCODER ? CAT : MODE;
     const int nblk = (B + BR - 1) / BR;
     if (phases < 1 || phases > BACKWARD_PHASES || part_rows != nblk || splits < 1 ||
         !serves(D, H))
@@ -1394,7 +1432,7 @@ cudaError_t backward(const bf16* x, const float* h0, const float* c0, const floa
     if ((err = rows_gemm(xs, wi, D, h_prev, wh, H, slab, M, G, stream)) != cudaSuccess ||
         phases < 2)
         return err;
-    auto kernel = backward_loop<H, ENCODER>;
+    auto kernel = backward_loop<H, rounded_acts(MODE), rounded_db(MODE)>;
     if ((err = prepare(kernel, Geo<H>::BWD_SMEM)) != cudaSuccess) return err;
     kernel<<<nblk, NTC, Geo<H>::BWD_SMEM, stream>>>(pre, c0, w16 + (size_t)D * G, cseq, g_outs,
                                                     g_hT, g_cT, dh0, dc0, dg, db_part, T, B);
@@ -1498,7 +1536,7 @@ cudaError_t enc5_usage(int* out) {
         reinterpret_cast<const void*>(forward_loop<H, CAT>),
         reinterpret_cast<const void*>(
             rows_gemm_kernel<BRows, GateRows, HPrev, GateRows, GatesOut<CAT>>),
-        reinterpret_cast<const void*>(backward_loop<H, true>),
+        reinterpret_cast<const void*>(backward_loop<H, true, true>),
         reinterpret_cast<const void*>(rows_gemm_kernel<BRows, BRows, BRows, BRows, DpreOut>)};
     return attributes(fns, 6, out);
 }
@@ -1534,7 +1572,7 @@ cudaError_t usage(int* out) {
             reinterpret_cast<const void*>(forward_loop<H, MODE>),
             reinterpret_cast<const void*>(
                 rows_gemm_kernel<BRows, GateRows, HPrev, GateRows, GatesOut<MODE>>),
-            reinterpret_cast<const void*>(backward_loop<H>),
+            reinterpret_cast<const void*>(backward_loop<H, false, false>),
             reinterpret_cast<const void*>(
                 rows_gemm_kernel<BRows, BRows, BRows, BRows, Bf16Out>)};
         return attributes(fns, 5, out);

@@ -7,31 +7,54 @@ takes none of them. tools/kernel_lab_torch.py times them.
 
 This module holds what the four encoder-fused variants share: the
 autograd.Function (one forward and one backward, plain for CPU tensors, a
-kernel launch for CUDA tensors, no way from one to the other) and the
-backward's launcher. Each variant's module gives its plain versions, its
-launchers and its public function.
+kernel launch for CUDA tensors, no way from one to the other), the
+backwards' launchers and the design each backward runs. Each variant's
+module gives its plain versions, its launchers and its public function.
+
+In bf16 the enc2 and enc4 backwards run the tensor-core kernels of
+csrc/lstm_tc.cuh (backward_design): mode ENC5's path (the encoder, the P
+pre-pass, a reverse loop with W_hh in shared memory, dpre and the
+split-K) with f32 activations and db from the rounded dgates, enc2's
+pre-pass rounding its projection. Every other backward, and f32, runs
+lstm_archive.cu's FMA kernel. Both designs take the same shapes (D == H,
+at most 128 features, hidden sizes 32, 64 and 128), refused before any
+launch.
 """
 import collections
 import math
 
 import torch
 
+from pufferlib_tpu_torch.ops.cuda import lstm_enc
 from pufferlib_tpu_torch.ops.cuda._build import (
     CudaKernel, I, P, ptr, ptr_or_null, stream_handle)
 from pufferlib_tpu_torch.ops.cuda.lstm_common import (
-    ROWS_PER_BLOCK, backward_inputs, check_encoder_inputs,
+    BACKWARD_PHASES, ROWS_PER_BLOCK, backward_inputs, check_encoder_inputs,
     check_fma_encoder_kernel_shape, needs_cseq, splitk_splits)
 
 _ENC_BACKWARD = [P] * 27 + [I] * 8 + [P]
+_TC_BACKWARD = lstm_enc.KERNEL.functions['lstm_enc_backward']
 KERNEL = CudaKernel('lstm_archive.cu', {
     'lstm_enc2_forward': [P] * 12 + [I] * 5 + [P],
-    'lstm_enc2_backward': _ENC_BACKWARD,
+    'lstm_enc2_backward': _TC_BACKWARD,
     'lstm_enc3_backward': _ENC_BACKWARD,
-    'lstm_enc4_backward': _ENC_BACKWARD,
+    'lstm_enc4_backward': _TC_BACKWARD,
     'lstm_enc6_backward': _ENC_BACKWARD,
     'lstm_tm_step_forward': [P] * 8 + [I] * 6 + [P],
     'lstm_tm_step_backward': [P] * 15 + [I] * 7 + [P],
+    # not a launch: the archive's own bf16 kernels' registers and spills
+    'lstm_archive_tc_usage': [I, P],
 })
+
+# the backwards with a tensor-core design in bf16
+TC_BACKWARDS = ('lstm_enc2_backward', 'lstm_enc4_backward')
+
+
+def backward_design(fn, cdt):
+    """The design the backward C function `fn` runs in cdt: 'tc'
+    (lstm_tc.cuh's tensor-core kernels: TC_BACKWARDS in bf16) or 'fma'
+    (lstm_archive.cu's archive_backward)."""
+    return 'tc' if fn in TC_BACKWARDS and cdt == torch.bfloat16 else 'fma'
 
 # shared memory a block may use (lstm_common.cuh MAX_SMEM)
 MAX_SHARED_BYTES = 227 * 1024
@@ -44,12 +67,25 @@ EncVariant = collections.namedtuple('EncVariant',
     'forward_plain forward_launch backward_plain backward_launch')
 
 
+def launch_tc_backward(fn, feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b, outs,
+        cseq, g_outs, g_hT, g_cT, cdt, phases=BACKWARD_PHASES):
+    """Launch enc2's or enc4's backward `fn` of lstm_archive.cu, whose
+    arguments are lstm_enc_backward's: (dh0, dc0, dW_enc, db_enc, dW_ih,
+    dW_hh, db). In bf16 the tensor-core kernels (backward_design) with
+    their scratch, the f32 P slab and the bf16 weights; in f32 the FMA
+    kernel. phases < 4 stops a bf16 call early, to time a phase."""
+    check_fma_encoder_kernel_shape(feats, w_enc, h0.shape[1])
+    return lstm_enc.launch_backward(KERNEL, fn, feats, h0, c0, w_enc, b_enc,
+        w_ih, w_hh, b, outs, cseq, g_outs, g_hT, g_cT, cdt,
+        backward_design(fn, cdt) == 'tc', phases)
+
+
 def launch_enc_backward(fn, feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b, outs,
         cseq, g_outs, g_hT, g_cT, cdt, row_tiles=1, acts_slab=False):
-    """Launch the encoder-fused backward `fn` of lstm_archive.cu: (dh0,
-    dc0, dW_enc, db_enc, dW_ih, dW_hh, db). A block takes row_tiles tiles
-    of 32 rows; acts_slab: the kernel keeps every step's gate activations
-    in a (T, B, 4H) slab."""
+    """Launch enc3's or enc6's backward `fn` of lstm_archive.cu, on FMA in
+    both dtypes: (dh0, dc0, dW_enc, db_enc, dW_ih, dW_hh, db). A block
+    takes row_tiles tiles of 32 rows; acts_slab: the kernel keeps every
+    step's gate activations in a (T, B, 4H) slab."""
     T, B, F = feats.shape
     H = h0.shape[1]
     D, G = H, 4 * H

@@ -20,16 +20,25 @@ dW_ih = x^T dg, dW_hh = h_prev^T dg, db = sum(dg), dx = dg @ W_ih^T
 unrounded, the relu mask, dpre rounded to cdt, dW_enc and db_enc.
 
 feats (T, B, F) is in cdt; its cotangent is zero by contract.
+
+On the card the forward runs on FMA in both dtypes; the backward in bf16
+runs csrc/lstm_tc.cuh's tensor-core kernels on enc4's path: the encoder as
+a GEMM over all T*B rows, the gate recompute as the P pre-pass
+cdt(x @ W_ih + b) + h_prev @ W_hh (the projection rounded in its
+epilogue), a reverse loop with W_hh in shared memory, f32 activations and
+db from the rounded dgates, then dpre and the weight gradients as enc5's
+backward runs them. In f32 the backward runs on FMA.
 """
 import torch
 
 from pufferlib_tpu_torch.ops.cuda._build import (
     ptr, ptr_or_null, stream_handle)
 from pufferlib_tpu_torch.ops.cuda.archive import (
-    KERNEL, EncVariant, launch_enc_backward, scan_enc_variant)
+    KERNEL, EncVariant, launch_tc_backward, scan_enc_variant)
 from pufferlib_tpu_torch.ops.cuda.lstm_common import (
-    cell_backward_step, check_fma_encoder_kernel_shape, encode,
-    forward_outputs, gate_activations, h_prev_rows, round_to, scan_cells)
+    BACKWARD_PHASES, cell_backward_step, check_fma_encoder_kernel_shape,
+    encode, forward_outputs, gate_activations, h_prev_rows, round_to,
+    scan_cells)
 
 __all__ = ['lstm_scan_enc2', 'lstm_enc2_reference',
     'lstm_enc2_backward_reference', 'VARIANT']
@@ -99,8 +108,10 @@ def _launch_forward(feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b, cdt,
     return outs, hT, cT, cseq
 
 
-def _launch_backward(*args):
-    return launch_enc_backward('lstm_enc2_backward', *args)
+def _launch_backward(*args, phases=BACKWARD_PHASES):
+    """lstm_enc2_backward: on the tensor cores in bf16, on FMA in f32
+    (archive.launch_tc_backward)."""
+    return launch_tc_backward('lstm_enc2_backward', *args, phases=phases)
 
 
 VARIANT = EncVariant(lstm_enc2_reference, _launch_forward,

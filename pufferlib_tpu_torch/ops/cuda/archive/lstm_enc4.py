@@ -12,14 +12,22 @@ dW_ih = x^T dg, dW_hh = h_prev^T dg, db = sum(dg) (the rounded ones),
 dx = dg @ W_ih^T unrounded, the relu mask, dpre rounded to cdt, dW_enc and
 db_enc. Same function as enc and enc5 in f32; in bf16 it rounds at its
 own places.
+
+On the card in bf16 the backward is enc5's tensor-core backward
+(csrc/lstm_tc.cuh) with the reverse loop's activations in f32: the gate
+recompute moves out of the loop into enc5's P pre-pass, (x @ W_ih +
+h_prev @ W_hh) + b over all T*B rows, since [W_ih; W_hh] in bf16 (256 KiB
+at D = H = 128) is more than a block's shared memory. The function is
+the same. In f32 the backward runs on FMA.
 """
 import torch
 
 from pufferlib_tpu_torch.ops.cuda import lstm_enc
 from pufferlib_tpu_torch.ops.cuda.archive import (
-    EncVariant, launch_enc_backward, scan_enc_variant)
+    EncVariant, launch_tc_backward, scan_enc_variant)
 from pufferlib_tpu_torch.ops.cuda.lstm_common import (
-    cell_backward_step, encode, gate_activations, h_prev_rows, round_to)
+    BACKWARD_PHASES, cell_backward_step, encode, gate_activations,
+    h_prev_rows, round_to)
 
 __all__ = ['lstm_scan_enc4', 'lstm_enc4_backward_reference', 'VARIANT']
 
@@ -61,8 +69,10 @@ def lstm_enc4_backward_reference(feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b,
     return dh, dc, dw_enc, db_enc, dw_ih, dw_hh, db
 
 
-def _launch_backward(*args):
-    return launch_enc_backward('lstm_enc4_backward', *args)
+def _launch_backward(*args, phases=BACKWARD_PHASES):
+    """lstm_enc4_backward: on the tensor cores in bf16, on FMA in f32
+    (archive.launch_tc_backward)."""
+    return launch_tc_backward('lstm_enc4_backward', *args, phases=phases)
 
 
 VARIANT = EncVariant(lstm_enc.lstm_enc_reference,

@@ -205,11 +205,23 @@ def _launch_backward(feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b, outs,
         cseq, g_outs, g_hT, g_cT, cdt, phases=BACKWARD_PHASES):
     """lstm_enc_backward, enc5's: (dh0, dc0, dW_enc, db_enc, dW_ih, dW_hh,
     db)."""
+    check_encoder_kernel_shape(feats, w_enc, h0.shape[1], cdt)
+    return launch_backward(KERNEL, 'lstm_enc_backward', feats, h0, c0, w_enc,
+        b_enc, w_ih, w_hh, b, outs, cseq, g_outs, g_hT, g_cT, cdt,
+        cdt == torch.bfloat16, phases)
+
+
+def launch_backward(kernel, fn, feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b,
+        outs, cseq, g_outs, g_hT, g_cT, cdt, tc, phases=BACKWARD_PHASES):
+    """The backward C function `fn` of `kernel` that takes
+    lstm_enc_backward's arguments (enc5's, and the archived enc2's and
+    enc4's), on a shape the caller has checked: (dh0, dc0, dW_enc, db_enc,
+    dW_ih, dW_hh, db). tc: the bf16 tensor-core kernels run (with their
+    scratch), else the FMA ones."""
     T, B, F = feats.shape
     H = h0.shape[1]
     D = w_enc.shape[1]
     G = 4 * H
-    check_encoder_kernel_shape(feats, w_enc, H, cdt)
     dev = feats.device
     f32 = dict(dtype=torch.float32, device=dev)
     dh0 = torch.empty_like(h0)
@@ -222,7 +234,6 @@ def _launch_backward(feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b, outs,
         dwe.zero_()
         return dh0, dc0, dwe[:F], dwe[F], dw[:D].zero_(), dw[D:].zero_(), \
             db.zero_()
-    tc = cdt == torch.bfloat16
     # bf16 sums db_enc as row F of [feats | 1]^T dpre, f32 from partials
     enc_rows = F + 1 if tc else F
     splits_w = splitk_splits(D + H, G, T * B, dev)
@@ -240,7 +251,7 @@ def _launch_backward(feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b, outs,
     pre = tc_slab(T, B, H, dev) if tc else None
     w16 = torch.empty(((D + H) * G + G * D + B * H + F * D,),
         dtype=torch.bfloat16, device=dev) if tc else None
-    KERNEL.launch('lstm_enc_backward', ptr(feats), ptr(h0), ptr(c0),
+    kernel.launch(fn, ptr(feats), ptr(h0), ptr(c0),
         ptr(w_enc), ptr(b_enc), ptr(w_ih), ptr(w_hh), ptr(b), ptr(outs),
         ptr(cseq), ptr(g_outs), ptr(g_hT), ptr(g_cT), ptr(dh0), ptr(dc0),
         ptr(dwe), ptr(dw), ptr(db), ptr(xs), ptr(dpre), ptr(dg), ptr(dw_part),

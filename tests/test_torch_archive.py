@@ -380,7 +380,8 @@ def test_wrappers_check_their_inputs():
 
 def test_archive_kernel_is_built_and_counted_with_the_others():
     """The archive's C functions are in ops.cuda.KERNELS (so build_all
-    builds them and the launch counters see them), while the trainer's
+    builds them and the launch counters see them; lstm_archive_tc_usage
+    reads registers and launches nothing), while the trainer's
     LSTMWrapper keeps refusing the archived kinds."""
     from pufferlib_tpu_torch import spaces
     from pufferlib_tpu_torch.models import Default, LSTMWrapper
@@ -388,7 +389,8 @@ def test_archive_kernel_is_built_and_counted_with_the_others():
     assert archive.KERNEL in KERNELS
     assert set(archive.KERNEL.fn_launches) == {'lstm_enc2_forward',
         'lstm_enc2_backward', 'lstm_enc3_backward', 'lstm_enc4_backward',
-        'lstm_enc6_backward', 'lstm_tm_step_forward', 'lstm_tm_step_backward'}
+        'lstm_enc6_backward', 'lstm_tm_step_forward', 'lstm_tm_step_backward',
+        'lstm_archive_tc_usage'}
     assert all(n == 0 for n in archive.KERNEL.fn_launches.values())
     for kind in ENC_VARIANTS + ('tm',):
         with pytest.raises(ValueError, match='kernel'):

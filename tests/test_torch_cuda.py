@@ -806,6 +806,137 @@ def test_archived_enc_kernels_match_plain(cuda, kind, T, B, H, cdt):
     _check_pair_and_primal(cuda, kind, T, B, H, cdt)
 
 
+# the archived backwards with a tensor-core design in bf16 (lstm_tc.cuh:
+# mode ENC5's path with f32 activations; enc2's pre-pass rounds its
+# projection)
+ARCHIVED_TC = ('enc2', 'enc4')
+
+
+@pytest.mark.parametrize('kind', ARCHIVED_TC)
+@pytest.mark.parametrize('H', [32, 64, 128])
+@pytest.mark.parametrize('B', [65, 72])
+def test_archived_tensor_core_backwards_match_plain_and_repeat(cuda, kind, H,
+        B):
+    """enc2's and enc4's bf16 backwards at every hidden size, at batches
+    that leave a second 64-row block of one and of eight rows: within
+    2e-2 of max(1, max |plain|) of the plain versions, and two runs equal
+    bit for bit (db and every weight gradient summed in a fixed order)."""
+    _check_lstm_pair(cuda, kind, 5, B, H, torch.bfloat16)
+    _check_deterministic(cuda, kind, 5, B, H)
+
+
+@pytest.mark.parametrize('kind', ARCHIVED_TC)
+def test_archived_bf16_backwards_run_the_tensor_core_path(cuda, kind):
+    """In bf16 the C function runs lstm_tc.cuh's path, which needs its
+    scratch (the P slab, the bf16 weights): handed none, it
+    refuses; the FMA kernel, which f32 runs, reads none and takes only
+    the whole backward (phases = 4). The launcher's phases 1 .. 3 stop
+    the bf16 path early without an error."""
+    from pufferlib_tpu_torch.ops.cuda import archive
+    fwd = _lstm_kinds()[kind][0]
+    fn = f'lstm_{kind}_backward'
+    T, B, H, F = 3, 70, 64, 49
+    for cdt in (torch.bfloat16, torch.float32):
+        args = _lstm_case(kind, T, B, H, F, cdt, cuda)
+        with torch.no_grad():
+            outs, _, _, cseq = fwd(*args, cdt)
+        g = (torch.zeros(T, B, H, device=cuda, dtype=cdt),
+            torch.zeros(B, H, device=cuda), torch.zeros(B, H, device=cuda))
+        real = archive.KERNEL.lib()
+        seen = []
+
+        class NoScratch:
+            """The library, with null tensor-core scratch in fn's calls."""
+
+            def __getattr__(self, name):
+                f = getattr(real, name)
+                if name != fn:
+                    return f
+
+                def call(*a):
+                    a = list(a)
+                    seen.append(a[25] is not None)
+                    a[25] = a[26] = None
+                    return f(*a)
+                return call
+        archive.KERNEL._lib = NoScratch()
+        try:
+            if cdt == torch.bfloat16:
+                with pytest.raises(RuntimeError):
+                    archive.launch_tc_backward(fn, *args, outs, cseq, *g, cdt)
+            else:
+                archive.launch_tc_backward(fn, *args, outs, cseq, *g, cdt)
+                with pytest.raises(RuntimeError):
+                    archive.launch_tc_backward(fn, *args, outs, cseq, *g, cdt,
+                        phases=2)
+        finally:
+            archive.KERNEL._lib = real
+        assert seen[0] == (cdt == torch.bfloat16)
+    args = _lstm_case(kind, T, B, H, F, torch.bfloat16, cuda)
+    with torch.no_grad():
+        outs, _, _, cseq = fwd(*args, torch.bfloat16)
+        for phases in (1, 2, 3):
+            archive.launch_tc_backward(fn, *args, outs, cseq, *(
+                torch.zeros_like(t) for t in (outs, args[1], args[2])),
+                torch.bfloat16, phases=phases)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize('kind', ARCHIVED_TC)
+@pytest.mark.parametrize('T,B,F,H', [(3, 45, 7, 32), (4, 200, 49, 64),
+    (16, 1000, 49, 128), (2, 64, 128, 128)])
+@pytest.mark.parametrize('cdt', [torch.float32, torch.bfloat16])
+def test_archived_tc_backwards_write_only_their_buffers(cuda, monkeypatch,
+        kind, T, B, F, H, cdt):
+    """Every input, output and scratch buffer of enc2's and enc4's forward
+    and backward (the P slab, the bf16 weights, db_part at 64 rows a
+    block) sits between guards; after both calls no guard has changed,
+    at a ragged last block (45, 200 and 1000 rows), at the widest feature
+    width the archive takes, and the results still match the plain
+    versions within LSTM_TOL."""
+    from pufferlib_tpu_torch.ops.cuda import archive, lstm_common, lstm_enc
+    fwd, bwd, fwd_plain, bwd_plain, _ = _lstm_kinds()[kind]
+    guarded = _GuardedTorch()
+    args = tuple(guarded.guarded(t.shape, t.dtype, t.device).copy_(t)
+        for t in _lstm_case(kind, T, B, H, F, cdt, cuda))
+    g = tuple(guarded.guarded(t.shape, t.dtype, t.device).copy_(t) for t in (
+        torch.randn(T, B, H, device=cuda).to(cdt),
+        torch.randn(B, H, device=cuda), torch.randn(B, H, device=cuda)))
+    with torch.no_grad():
+        want = fwd_plain(*args, cdt)
+        bargs = (*args, want[0], want[3], *g, cdt)
+        want += bwd_plain(*bargs)
+        for module in (archive, lstm_common, lstm_enc):
+            monkeypatch.setattr(module, 'torch', guarded)
+        inputs = len(guarded.buffers)
+        got = fwd(*args, cdt)
+        got += bwd(*bargs)
+    assert guarded.overwritten() == []
+    assert len(guarded.buffers) > inputs + len(got)
+    for a, w in zip(got, want):
+        scale = max(1.0, w.float().abs().max().item())
+        torch.testing.assert_close(a.float(), w.float(), rtol=0,
+            atol=LSTM_TOL[cdt] * scale)
+
+
+def test_archive_tc_usage(cuda):
+    """Registers and spills of the archive's own bf16 kernels (enc2's
+    pre-pass, whose epilogue rounds the projection, and the reverse loop
+    of enc2 and enc4, ENC5's with f32 activations) at every hidden size:
+    the loop's 512 threads may hold 128 registers each (one block an SM),
+    the GEMM's 256 threads 128 (two blocks an SM). The loop spills
+    nothing, the GEMM at most the 16 bytes that enc5's backward pre-pass
+    spills (as on the H100 when this test was written)."""
+    import ctypes
+    from pufferlib_tpu_torch.ops.cuda import archive
+    for H in (32, 64, 128):
+        out = (ctypes.c_int * 4)()
+        assert archive.KERNEL.lib().lstm_archive_tc_usage(H, out) == 0
+        regs, spilled = list(out)[::2], list(out)[1::2]
+        assert all(0 < r <= 128 for r in regs), (H, regs)
+        assert spilled[0] <= 16 and spilled[1] == 0, (H, spilled)
+
+
 @pytest.mark.parametrize('T,B,H', [(16, 8192, 128), (16, 1000, 128),
     (3, 45, 32), (5, 100, 64), (1, 33, 32)])
 @pytest.mark.parametrize('cdt,xp_dtype', [(torch.float32, None),

@@ -1,5 +1,6 @@
-"""lstm_scan, lstm_scan_fused and lstm_scan_enc of the PyTorch port against
-the JAX package, on the CPU.
+"""lstm_scan, lstm_scan_fused and lstm_scan_enc of the PyTorch port, and the
+tensor-core schedules of every resident bf16 kernel pair (the archived
+enc2 and enc4 backwards among them), against the JAX package, on the CPU.
 
 The port's side runs the kernels' plain versions (explicit forward and
 backward in PyTorch, what the autograd.Functions run for CPU tensors).
@@ -26,9 +27,12 @@ from pufferlib_tpu.ops.pallas import lstm as jax_lstm
 from pufferlib_tpu.ops.pallas import lstm_enc as jax_lstm_enc
 from pufferlib_tpu.ops.pallas.lstm_cat import lstm_scan_cat as jax_scan_cat
 from pufferlib_tpu.ops.pallas.lstm_enc5 import lstm_scan_enc5 as jax_scan_enc5
+from pufferlib_tpu.ops.pallas.archive import lstm_enc2 as jax_archive_enc2
+from pufferlib_tpu.ops.pallas.archive import lstm_enc4 as jax_archive_enc4
 
 from pufferlib_tpu_torch.ops.cuda import (
-    lstm_cat, lstm_common, lstm_enc, lstm_scan)
+    archive, lstm_cat, lstm_common, lstm_enc, lstm_scan)
+from pufferlib_tpu_torch.ops.cuda.archive import lstm_enc2, lstm_enc4
 
 torch.set_num_threads(1)
 
@@ -299,7 +303,8 @@ def test_wrappers_check_their_inputs():
 
 
 def tc_schedule(x, h0, c0, w_ih, w_hh, b, cdt, rows=64, cat=False,
-        enc5=False):
+        round_xw=False, round_acts=False, round_db=False, encoder=False,
+        splits=None):
     """What the bf16 tensor-core kernels (csrc/lstm_tc.cuh) compute, in
     their order, in plain torch: lstm_scan_fused's (mode FUSED) or, with
     cat, lstm_scan_cat's (mode CAT). Forward: the slab over all T*B rows
@@ -310,9 +315,14 @@ def tc_schedule(x, h0, c0, w_ih, w_hh, b, cdt, rows=64, cat=False,
     W_hh) + b), the reverse loop that produces only dh_prev and the dg
     slab, then dx = dg @ W_ih^T and dW = [x | h_prev]^T dg after it, and
     db from the unrounded dgates summed per block of `rows` batch rows,
-    the blocks then added in order. With enc5 (mode ENC5's cell, which is
-    CAT's), the reverse loop rounds the activations to cdt and db sums the
-    rounded dgates, and dx comes back in f32 for the relu mask."""
+    the blocks then added in order. round_xw (the archived mode ENC2, on
+    FUSED's order): x @ W_ih + b is rounded to cdt before h @ W_hh is
+    added, in both slabs. The reverse loop's two roundings are flags
+    (lstm_tc.cuh backward_loop): round_acts rounds the activations to cdt
+    (mode ENC5), round_db sums db from the rounded dgates (ENC5 and the
+    archived ENC4 and ENC2). With encoder dx comes back in f32 for the relu
+    mask; with splits dW is summed split by split in the ring's partition
+    (lstm_common.splitk_reference)."""
     T, B, D = x.shape
     H = h0.shape[1]
 
@@ -323,7 +333,10 @@ def tc_schedule(x, h0, c0, w_ih, w_hh, b, cdt, rows=64, cat=False,
     def acts(gates):
         return (torch.sigmoid(gates[:, :H]), torch.sigmoid(gates[:, H:2 * H]),
             torch.tanh(gates[:, 2 * H:3 * H]), torch.sigmoid(gates[:, 3 * H:]))
-    xw = (xc @ wi + (0 if cat else bias)).reshape(T, B, 4 * H)
+    xw = xc @ wi + (0 if cat else bias)
+    if round_xw:
+        xw = rd(xw)
+    xw = xw.reshape(T, B, 4 * H)
     h, c = h0.float(), c0.float()
     outs, cseq = [], []
     for t in range(T):
@@ -339,14 +352,14 @@ def tc_schedule(x, h0, c0, w_ih, w_hh, b, cdt, rows=64, cat=False,
         h_prev = torch.cat([rd(h0)[None], outs[:T - 1].float()]).reshape(
             T * B, H)
         pre = ((xc @ wi + h_prev @ wh) + bias if cat
-            else (xc @ wi + bias) + h_prev @ wh).reshape(T, B, 4 * H)
+            else xw.reshape(T * B, -1) + h_prev @ wh).reshape(T, B, 4 * H)
         blocks = -(-B // rows)
         db_blocks = torch.zeros(blocks, 4 * H)
         dg = torch.empty((T, B, 4 * H), dtype=cdt)
         dh, dc = g_hT.float(), g_cT.float()
         for t in reversed(range(T)):
             i, f, g, o = acts(pre[t])
-            if enc5:
+            if round_acts:
                 i, f, g, o = rd(i), rd(f), rd(g), rd(o)
             c_prev = c0.float() if t == 0 else cseq[t - 1].float()
             dhv = dh + g_outs[t].float()
@@ -357,17 +370,21 @@ def tc_schedule(x, h0, c0, w_ih, w_hh, b, cdt, rows=64, cat=False,
             dc = dcv * f
             dg[t] = dgates.to(cdt)
             padded = torch.zeros(blocks * rows, 4 * H)
-            padded[:B] = rd(dgates) if enc5 else dgates
+            padded[:B] = rd(dgates) if round_db else dgates
             db_blocks += padded.reshape(blocks, rows, 4 * H).sum(dim=1)
             dh = dg[t].float() @ wh.t()
         dgf = dg.float().reshape(T * B, 4 * H)
         dx = (dgf @ wi.t()).reshape(T, B, D)
-        if not enc5:
+        if not encoder:
             dx = dx.to(x.dtype)
         db = torch.zeros(4 * H)
         for k in range(blocks):
             db = db + db_blocks[k]
-        return dx, dh, dc, xc.t() @ dgf, h_prev.t() @ dgf, db
+        if splits is None:
+            return dx, dh, dc, xc.t() @ dgf, h_prev.t() @ dgf, db
+        dw = lstm_common.splitk_reference(torch.cat([xc, h_prev], dim=1), dgf,
+            splits)
+        return dx, dh, dc, dw[:D], dw[D:], db
     return (outs, h, c, cseq), backward
 
 
@@ -450,7 +467,7 @@ def test_cat_tensor_core_schedule_keeps_the_function(B, D, H, cdt):
 
 
 def enc5_tc_schedule(feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b, cdt,
-        rows=64):
+        rows=64, **cell):
     """What the enc5 pair's bf16 kernels (csrc/lstm_tc.cuh, mode ENC5)
     compute, in their order, in plain torch: the encoder over all T*B rows
     as one product, xs = cdt(relu(feats @ W_enc + b_enc)), then
@@ -458,7 +475,9 @@ def enc5_tc_schedule(feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b, cdt,
     way, runs tc_schedule's CAT backward with ENC5's roundings (rounded
     activations, db from the rounded dgates), masks dx with xs > 0 into
     dpre rounded to cdt, and takes dW_enc and db_enc as one contraction
-    [feats | 1]^T dpre."""
+    [feats | 1]^T dpre. cell: tc_schedule's options for the cell behind
+    the encoder, where they differ from ENC5's (the archived enc4 and
+    enc2)."""
     T, B, F = feats.shape
 
     def rd(t):
@@ -467,7 +486,8 @@ def enc5_tc_schedule(feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b, cdt,
     xs = rd(torch.relu(f2 @ rd(w_enc) + b_enc.float())).to(cdt).reshape(
         T, B, -1)
     fwd, cell_backward = tc_schedule(xs, h0, c0, w_ih, w_hh, b, cdt, rows,
-        cat=True, enc5=True)
+        round_db=True, encoder=True, **{'cat': True, 'round_acts': True,
+            **cell})
 
     def backward(g_outs, g_hT, g_cT):
         dx, dh, dc, dw_ih, dw_hh, db = cell_backward(g_outs, g_hT, g_cT)
@@ -641,6 +661,110 @@ def test_xp_tensor_core_schedule_keeps_the_function(H, B, seq):
     with pltpu.force_tpu_interpret_mode():
         jax_want = jax_run(jax_lstm.lstm_scan, arrays, cdt, seq, 0)
     compare('scan', (fwd[:3], loss_grads), jax_want, True)
+
+
+def enc4_tc_schedule(*args, splits=3):
+    """What the archived enc4's bf16 backward (csrc/lstm_tc.cuh
+    tc::backward in mode ENC4) computes, in its order, with the forward
+    it shares with enc5: enc5_tc_schedule with the reverse loop's
+    activations in f32 (db still from the rounded dgates) and dW split
+    `splits` ways in the ring's partition."""
+    return enc5_tc_schedule(*args, round_acts=False, splits=splits)
+
+
+def enc2_tc_schedule(*args, splits=3):
+    """What the archived enc2's bf16 backward (csrc/lstm_tc.cuh
+    tc::backward in mode ENC2) computes, in its order, with the forward's
+    function (its FMA kernel's): enc4_tc_schedule with FUSED's bias order
+    and the projection rounded, the forward's gates cdt(x_t @ W_ih + b) +
+    h @ W_hh and the P slab's cdt(x @ W_ih + b) + h_prev @ W_hh."""
+    return enc5_tc_schedule(*args, cat=False, round_xw=True, round_acts=False,
+        splits=splits)
+
+
+ARCHIVED_SCHEDULES = {'enc2': (enc2_tc_schedule, lstm_enc2,
+    jax_archive_enc2.lstm_scan_enc2), 'enc4': (enc4_tc_schedule, lstm_enc4,
+    jax_archive_enc4.lstm_scan_enc4)}
+
+
+@pytest.mark.parametrize('cdt', sorted(TD))
+@pytest.mark.parametrize('B,F,H', [(8, 49, 128), (65, 49, 32), (33, 20, 64)])
+@pytest.mark.parametrize('kind', sorted(ARCHIVED_SCHEDULES))
+def test_archived_tensor_core_schedule_keeps_the_function(kind, B, F, H,
+        cdt):
+    """The archived enc2's and enc4's bf16 backward schedules on the
+    tensor cores (enc2_tc_schedule, enc4_tc_schedule; D == H, as the
+    archive takes) against the port's plain versions on the same inputs
+    (1e-5 in f32, 2e-2 in bf16, of max(1, max |plain|) per tensor), and
+    against the JAX package under the loss sum(outs ** 2) + sum(hT * cT):
+    at B = 8 the archived Pallas kernel in interpret mode (the tolerances
+    of compare); at the ragged B = 65 and 33 (a second 64-row block of one
+    row; one block of 33), which no Pallas LSTM kernel tiles (B % 8), its
+    pure reference lstm_scan_enc_reference (f32 only, 1e-5 on outputs and
+    1e-4 of max(1, max |reference|) on gradients: in bf16 that reference
+    rounds as lstm_scan_enc, not as the archived kernels)."""
+    schedule, module, jax_fn = ARCHIVED_SCHEDULES[kind]
+    rng = np.random.default_rng(17)
+    arrays = [(rng.standard_normal(shape) * k).astype(np.float32)
+        for shape, k in (((T, B, F), 0.9), ((B, H), 0.3), ((B, H), 0.3),
+            ((F, H), 0.3), ((H,), 0.3), ((H, 4 * H), 0.3), ((H, 4 * H), 0.3),
+            ((4 * H,), 0.3))]
+    arrays[0] = np.array(jnp.asarray(arrays[0]).astype(JD[cdt]).astype(
+        jnp.float32))
+    feats = torch.from_numpy(arrays[0]).to(TD[cdt])
+    rest = [torch.from_numpy(a) for a in arrays[1:]]
+    bf16 = cdt == 'bfloat16'
+    tol = 2e-2 if bf16 else 1e-5
+    fwd, backward = schedule(feats, *rest, TD[cdt])
+    variant = module.VARIANT
+    plain = variant.forward_plain(feats, *rest, TD[cdt])
+    for name, a, w in zip(('outs', 'hT', 'cT', 'cseq'), fwd, plain):
+        assert a.dtype == w.dtype
+        assert_close(a, w, tol, True, f'{kind} schedule {name}')
+    cot = (torch.from_numpy(rng.standard_normal((T, B, H)).astype(
+        np.float32)).to(TD[cdt]), *(torch.from_numpy(rng.standard_normal(
+        (B, H)).astype(np.float32)) for _ in range(2)))
+    grads = backward(*cot)
+    want = variant.backward_plain(feats, *rest, plain[0], plain[3], *cot,
+        TD[cdt])
+    for name, a, w in zip(KINDS['enc'][5], grads, want):
+        assert a.dtype == w.dtype and a.shape == w.shape
+        assert_close(a, w, tol, True, f'{kind} schedule {name}')
+    outs, hT, cT, _ = fwd
+    loss_grads = backward((2 * outs.float()).to(TD[cdt]), cT, hT)
+    if B % 8 == 0:
+        with pltpu.force_tpu_interpret_mode():
+            jax_want = jax_run(jax_fn, arrays, cdt, cdt, 1)
+        compare('enc', (fwd[:3], loss_grads), jax_want, bf16)
+    elif not bf16:
+        jouts, jgrads = jax_run(jax_lstm_enc.lstm_scan_enc_reference, arrays,
+            cdt, cdt, 1)
+        for name, a, w in zip(('outs', 'hT', 'cT'), fwd, jouts):
+            assert_close(a, w, 1e-5, True, f'{kind} schedule {name} '
+                'against JAX')
+        for name, a, w in zip(KINDS['enc'][5], loss_grads, jgrads):
+            assert a.shape == tuple(w.shape), name
+            assert_close(a, w, 1e-4, True, f'{kind} schedule {name} '
+                'against JAX')
+
+
+@pytest.mark.parametrize('cdt', sorted(TD))
+@pytest.mark.parametrize('kind', ['enc2', 'enc3', 'enc4', 'enc6'])
+def test_archived_backward_design(kind, cdt):
+    """Which design each archived backward runs (archive.backward_design):
+    in bf16 enc2 and enc4 the tensor-core kernels of lstm_tc.cuh ('tc');
+    enc3 and enc6, and every f32 backward, lstm_archive.cu's FMA kernel
+    ('fma'). The C functions' argument lists follow it: the tensor-core
+    ones take lstm_enc_backward's (the P slab, the bf16 weights, the
+    phases)."""
+    fn = f'lstm_{kind}_backward'
+    design = archive.backward_design(fn, TD[cdt])
+    tc = kind in ('enc2', 'enc4')
+    assert design == ('tc' if tc and cdt == 'bfloat16' else 'fma')
+    args = archive.KERNEL.functions[fn]
+    enc_backward = lstm_enc.KERNEL.functions['lstm_enc_backward']
+    assert (args == enc_backward) == tc and len(args) == (38 if tc else 36)
+    assert (fn in archive.TC_BACKWARDS) == (kind in ('enc2', 'enc4'))
 
 
 @pytest.mark.parametrize('K,splits', [(131072, 66), (131072, 33), (1000, 1),

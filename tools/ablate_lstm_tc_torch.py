@@ -1,17 +1,19 @@
 """Where the time of the bf16 tensor-core kernels of lstm_scan,
-lstm_scan_fused, lstm_scan_cat or enc5 goes, by ablation, on one NVIDIA
-GPU.
+lstm_scan_fused, lstm_scan_cat, enc5 or the archived enc2 and enc4
+backwards goes, by ablation, on one NVIDIA GPU.
 
-    python3 tools/ablate_lstm_tc_torch.py [--kind fused|cat|enc5|scan]
-        [--baseline CSRC_DIR] [--only NAME ...]
+    python3 tools/ablate_lstm_tc_torch.py
+        [--kind fused|cat|enc5|scan|enc2|enc4] [--baseline CSRC_DIR]
+        [--only NAME ...]
 
 The machines the port is measured on run no stall profiler, so this tool
 removes one part of the recurrent loops of csrc/lstm_tc.cuh at a time and
 times what is left. It builds the kind's source
 (pufferlib_tpu_torch/csrc/lstm_scan.cu for fused, the default, and scan,
-lstm_cat.cu for cat, lstm_enc.cu for enc5) as it is and in these
-variants, each a copy of the sources with one edit, built by nvcc into a
-library of its own (under pufferlib_tpu_torch/_build/):
+lstm_cat.cu for cat, lstm_enc.cu for enc5, lstm_archive.cu for enc2 and
+enc4) as it is and in these variants, each a copy of the sources with one
+edit, built by nvcc into a library of its own (under
+pufferlib_tpu_torch/_build/):
 
 - no-slab: the loops read no XW / P values, and scan's loops no x_proj
   (zeros in their place; in the backward the activations of those zeros
@@ -39,15 +41,22 @@ library of its own (under pufferlib_tpu_torch/_build/):
   loop reading x_proj in its natural order;
 - splitk-no-ring (every kind; the split-K before its redesign): the
   weight gradients' split-K on the register-staged 64 x 64 kernel
-  (gemm_tn_splitk_mma) for every source, at the same split count.
+  (gemm_tn_splitk_mma) for every source, at the same split count;
+- enc2-xp (enc2; not an ablation but the other design of its backward):
+  instead of the P pre-pass (its epilogue bf16(s1 + b) + s2) and the
+  reverse loop of enc4, a GEMM writes the projection xp = bf16(x @ W_ih
+  + b) as a bf16 (T, B, 4H) slab, and mode XP's reverse loop reads it,
+  recomputes xp_t + h_prev @ W_hh each step and sums db from the rounded
+  dgates (per step, into a table in shared memory).
 
 With --baseline, also the same source of another csrc/ directory with the
 same C interface (an earlier version of these kernels). The variants run
 in turns, forward and back, each twice, at T = 16, B = 8192, D = H = 128
-(enc5: F = 49), bf16, and each run times the phases of the forward and
-the backward (chip_smoke.time_tc_phases: pre-pass, loop, dx, dW + db;
-enc5's encoder in both pre-passes, dpre for dx; scan's forward loop
-alone and its backward loop and dW; cold L2). An
+(enc5, enc2, enc4: F = 49), bf16, and each run times the phases of the
+forward and the backward (chip_smoke.time_tc_phases: pre-pass, loop, dx,
+dW + db; enc5's encoder in both pre-passes, dpre for dx; scan's forward
+loop alone and its backward loop and dW; enc2's and enc4's backward
+alone, enc2-xp's projection in place of the pre-pass; cold L2). An
 ablated variant computes wrong numbers by design: only its times mean
 anything. The last line is one JSON object: the mean ms of each phase by
 variant, and the card's name and power limit.
@@ -108,6 +117,136 @@ XP_SLAB_LAUNCH = """    const int nblk = (B + BR - 1) / BR;
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
     return cudaFreeAsync(slab, stream);"""
 
+# the other design of enc2's backward, which the H100 measured no faster
+# than the P pre-pass (PERF.md): no P pre-pass, but the
+# projection xp = bf16(x @ W_ih + b) as a GEMM into a (T, B, 4H) bf16 slab
+# (in the P slab's memory, which holds it), and mode XP's reverse loop on
+# it, which recomputes xp_t + h_prev @ W_hh each step and sums db from the
+# rounded dgates: each step's sum over a warp's rows into the warp's row of
+# a table in shared memory (held in registers, sixteen more values a
+# thread at H = 128 spill from a loop already at its 128 registers)
+XP_DB_LOOP = (
+    ("""    static_assert(XP_BWD_SMEM <= (size_t)MAX_SMEM,
+                  "W_hh, the dgates tile and the h_prev tile must fit");""",
+     """    static constexpr size_t XP_DB_SMEM = XP_BWD_SMEM + sizeof(float) * 2 * WPU * G;
+    static_assert(XP_DB_SMEM <= (size_t)MAX_SMEM, "db must fit");"""),
+    ("""template <int H, typename S>
+__global__ void __launch_bounds__(NTC, 1) xp_backward_loop(""",
+     """template <int H, typename S, bool DB = false>
+__global__ void __launch_bounds__(NTC, 1) xp_backward_loop("""),
+    ("""        float* __restrict__ dgf, int T, int B) {""",
+     """        float* __restrict__ dgf, float* __restrict__ db_part, int T, int B) {"""),
+    ("""    stage_h_prev<H>(h_s, h16, outs, T - 1, B, row0, nrows, 0, BR, 0, NTC);
+    cp_async_commit();
+    float dh[UPW][MT][4], dc[UPW][MT][4];""",
+     """    stage_h_prev<H>(h_s, h16, outs, T - 1, B, row0, nrows, 0, BR, 0, NTC);
+    cp_async_commit();
+    float* db_s = reinterpret_cast<float*>(h_s + BR * GE::HS);
+    float* db_w = db_s + (side * GE::WPU + wl % GE::WPU) * G;
+    if constexpr (DB)
+        for (int i = threadIdx.x; i < 2 * GE::WPU * G; i += NTC) db_s[i] = 0.f;
+    float dh[UPW][MT][4], dc[UPW][MT][4];"""),
+    ("""            gates_mma<H>(acc, h_s, w_s, mt0, (ug0 + ug) * 8, lane);""",
+     """            float dbs[4][2] = {};
+            gates_mma<H>(acc, h_s, w_s, mt0, (ug0 + ug) * 8, lane);"""),
+    ("""                        if (ok && dgf) st2(dgf + (base + r) * G + g * H + j, d[0][g], d[1][g]);
+""",
+     """                        if (ok && dgf) st2(dgf + (base + r) * G + g * H + j, d[0][g], d[1][g]);
+                        if (DB && ok) {
+                            dbs[g][0] += to_cdt<bf16>(d[0][g]);
+                            dbs[g][1] += to_cdt<bf16>(d[1][g]);
+                        }
+"""),
+    ("""                }
+        }
+        // the half's dgates are in d_s""",
+     """                }
+            if constexpr (DB) {
+#pragma unroll
+                for (int g = 0; g < 4; ++g)
+#pragma unroll
+                    for (int q = 0; q < 2; ++q) {
+                        float v = dbs[g][q];
+                        v += __shfl_xor_sync(0xffffffffu, v, 4);
+                        v += __shfl_xor_sync(0xffffffffu, v, 8);
+                        v += __shfl_xor_sync(0xffffffffu, v, 16);
+                        if (gid == 0) db_w[g * H + j + q] += v;
+                    }
+            }
+        }
+        // the half's dgates are in d_s"""),
+    ("""                st2(dc0 + i, dc[ug][mt][2 * half], dc[ug][mt][2 * half + 1]);
+            }
+}
+
+// The GEMMs over all T*B rows""",
+     """                st2(dc0 + i, dc[ug][mt][2 * half], dc[ug][mt][2 * half + 1]);
+            }
+    if constexpr (DB) {
+        __syncthreads();
+        for (int n = threadIdx.x; n < G; n += NTC) {
+            float s = 0.f;
+            for (int q = 0; q < 2 * GE::WPU; ++q) s += db_s[q * G + n];
+            db_part[(size_t)blockIdx.x * G + n] = s;
+        }
+    }
+}
+
+// The GEMMs over all T*B rows"""),
+    ("""        F32 ? reinterpret_cast<float*>(dxp) : nullptr, T, B);""",
+     """        F32 ? reinterpret_cast<float*>(dxp) : nullptr, nullptr, T, B);"""),
+    ("""// relu that keeps a NaN""",
+     """// bf16(s1 + b) into a row-major (M, N) array: the projection slab xp
+struct ProjOut {
+    bf16* out;
+    const float* b;
+    int N;
+    __device__ __forceinline__ void operator()(long long mb, int nb, int lane, long long M,
+                                               const float (&s1)[4], const float (&)[4]) const {
+        const int n = nb + lane % 4 * 2;
+        const float b0 = __ldg(b + n), b1 = __ldg(b + n + 1);
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+            const long long m = mb + lane / 4 + 8 * half;
+            if (m < M) st2(out + m * N + n, s1[2 * half] + b0, s1[2 * half + 1] + b1);
+        }
+    }
+};
+
+// relu that keeps a NaN"""),
+    ("""    const GatesOut<SUM> slab{pre, b, B, H, 4 * nblk};
+    if ((err = rows_gemm(xs, wi, D, h_prev, wh, H, slab, M, G, stream)) != cudaSuccess ||
+        phases < 2)
+        return err;
+    auto kernel = backward_loop<H, rounded_acts(MODE), rounded_db(MODE)>;
+    if ((err = prepare(kernel, Geo<H>::BWD_SMEM)) != cudaSuccess) return err;
+    kernel<<<nblk, NTC, Geo<H>::BWD_SMEM, stream>>>(pre, c0, w16 + (size_t)D * G, cseq, g_outs,
+                                                    g_hT, g_cT, dh0, dc0, dg, db_part, T, B);""",
+     """    if constexpr (MODE == ENC2) {
+        bf16* xp = reinterpret_cast<bf16*>(pre);
+        const BRows wn{w16, G};
+        if ((err = rows_gemm(xs, wn, D, xs, wn, 0, ProjOut{xp, b, G}, M, G, stream)) !=
+                cudaSuccess ||
+            phases < 2)
+            return err;
+        auto kernel = xp_backward_loop<H, bf16, true>;
+        if ((err = prepare(kernel, Geo<H>::XP_DB_SMEM)) != cudaSuccess) return err;
+        kernel<<<nblk, NTC, Geo<H>::XP_DB_SMEM, stream>>>(xp, h16, c0, w16 + (size_t)D * G, outs,
+                                                          cseq, g_outs, g_hT, g_cT, dh0, dc0, dg,
+                                                          nullptr, db_part, T, B);
+    } else {
+        const GatesOut<SUM> slab{pre, b, B, H, 4 * nblk};
+        if ((err = rows_gemm(xs, wi, D, h_prev, wh, H, slab, M, G, stream)) != cudaSuccess ||
+            phases < 2)
+            return err;
+        auto kernel = backward_loop<H, rounded_acts(MODE), rounded_db(MODE)>;
+        if ((err = prepare(kernel, Geo<H>::BWD_SMEM)) != cudaSuccess) return err;
+        kernel<<<nblk, NTC, Geo<H>::BWD_SMEM, stream>>>(pre, c0, w16 + (size_t)D * G, cseq,
+                                                        g_outs, g_hT, g_cT, dh0, dc0, dg, db_part,
+                                                        T, B);
+    }"""),
+)
+
 # variant -> (edits of lstm_tc.cuh as (old, new) pairs, or of another file
 # of csrc/ as (file, old, new), extra nvcc flags)
 ABLATIONS = {
@@ -148,11 +287,14 @@ ABLATIONS = {
         ('lstm_common.cuh',
             'if (M % 8 == 0 && N % 8 == 0 && ring_serves(a) && ring_serves(bm)) {',
             'if (false) {'),), ()),
+    'enc2-xp': (XP_DB_LOOP, ()),
 }
 # variants that change only some kinds' code
-ONLY_FOR = {'late-slab-load': ('cat', 'enc5'), 'xp-reorder-slab': ('scan',)}
+ONLY_FOR = {'late-slab-load': ('cat', 'enc5'), 'xp-reorder-slab': ('scan',),
+    'enc2-xp': ('enc2',)}
 SOURCES = {'fused': 'lstm_scan.cu', 'cat': 'lstm_cat.cu',
-    'enc5': 'lstm_enc.cu', 'scan': 'lstm_scan.cu'}
+    'enc5': 'lstm_enc.cu', 'scan': 'lstm_scan.cu', 'enc2': 'lstm_archive.cu',
+    'enc4': 'lstm_archive.cu'}
 
 
 def start_build(name, csrc, edits, flags, build_dir, source):
@@ -202,9 +344,9 @@ def main(argv=None):
         sys.exit('ablate_lstm_tc_torch needs a CUDA device')
     import chip_smoke
     from pufferlib_tpu_torch.ops.cuda import (
-        _build, lstm_cat, lstm_enc, lstm_scan)
+        _build, archive, lstm_cat, lstm_enc, lstm_scan)
     kernel = {'fused': lstm_scan, 'cat': lstm_cat, 'enc5': lstm_enc,
-        'scan': lstm_scan}[args.kind].KERNEL
+        'scan': lstm_scan, 'enc2': archive, 'enc4': archive}[args.kind].KERNEL
     source = SOURCES[args.kind]
     from pufferlib_tpu_torch.ops.cuda.timing import card_line, l2_flush_buffer
     card = card_line()
@@ -241,8 +383,8 @@ def main(argv=None):
     means = {n: {k: sum(r[k] for r in rs) / len(rs) for k in rs[0]}
         for n, rs in runs.items()}
     print(json.dumps({'card': card, 'kind': args.kind,
-        'shape': 'T=16 B=8192 D=H=128' + (' F=49' if args.kind == 'enc5'
-            else '') + ' bf16',
+        'shape': 'T=16 B=8192 D=H=128' + (' F=49' if args.kind in
+            ('enc5', 'enc2', 'enc4') else '') + ' bf16',
         'phases_ms': means}), flush=True)
     return means
 

@@ -9,11 +9,17 @@ A, B, B, A), on one card: two builds are compared only within one run
 (two runs may land on two cards with other power limits). Each turn runs,
 as a child process in the tree, that tree's own chip_smoke.check_lstm
 (timed: CUDA events, cold L2, mean of 20) on the bf16 kernel pairs of
-lstm_scan (row 6), lstm_scan_fused (7), lstm_scan_cat (5) and enc5 (3 fwd
-/ 4) at T 16, B 8192, D = H = 128 (enc5: F 49), and its own
+lstm_scan (row 6), lstm_scan_fused (7), lstm_scan_cat (5), enc5 (3 fwd /
+4) and the archived enc2 (8) and enc4 (3 fwd / 10) at T 16, B 8192,
+D = H = 128 (the encoder kinds: F 49), and its own
 chip_smoke.time_tc_phases for the kinds it has phases of: the last
-backward phase of fused, cat and enc5 is their weight gradients (the
-split-K and db's ordered sum), scan's is dW_hh alone. Each tree builds
+backward phase of fused, cat, enc5, enc2 and enc4 is their weight
+gradients (the split-K and db's ordered sum), scan's is dW_hh alone. An
+older tree whose enc2 and enc4 backwards run on FMA has no phases of
+them. Each turn also prints, for each kind, the SHA-256 of every output
+and gradient of one forward and backward call on inputs from a fixed
+seed: two trees whose digests of a kind agree compute it bit for bit
+alike. Each tree builds
 its kernels from its own sources at its first turn. Prints a line per
 reading and, last, one JSON object with every reading and the card's name
 and power limit.
@@ -24,25 +30,41 @@ import os
 import subprocess
 import sys
 
-KINDS = ('scan', 'fused', 'cat', 'enc5')
+KINDS = ('scan', 'fused', 'cat', 'enc5', 'enc2', 'enc4')
 
 # run inside a tree: its own chip_smoke, its own kernels
 CHILD = r'''
-import json, sys
+import hashlib, json, sys
 import numpy as np
 import torch
 sys.path.insert(0, '.')
 import chip_smoke
+
+
+def digest(kind):
+    fwd, bwd = chip_smoke.lstm_kinds()[kind][:2]
+    args, grads, cdt = chip_smoke.lstm_case(torch, np.random.RandomState(1),
+        kind, 16, 8192, 'bfloat16')
+    with torch.no_grad():
+        outs = fwd(*args, cdt)
+        outs = tuple(outs) + tuple(bwd(*args, outs[0], outs[3], *grads, cdt))
+    h = hashlib.sha256()
+    for t in outs:
+        h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
 flush = chip_smoke.l2_flush_buffer()
 out = {}
 for kind in KINDS:
     r = chip_smoke.check_lstm(torch, flush, np.random.RandomState(0), kind,
         8192, 'bfloat16', timed=True)
-    out[kind] = {'forward': r['fwd_ms'], 'backward': r['bwd_ms']}
+    out[kind] = {'forward': r['fwd_ms'], 'backward': r['bwd_ms'],
+        'digest': digest(kind)}
     try:
         phases = chip_smoke.time_tc_phases(torch, flush,
             np.random.RandomState(0), kind)
-    except (KeyError, TypeError):
+    except (KeyError, TypeError, IndexError):
         # an older tree whose kind has no phases
         phases = None
     out[kind]['phases'] = phases
@@ -69,14 +91,16 @@ def main():
             for part in ('forward', 'backward'):
                 readings.append(dict(turn=turn, tree=tree, kind=kind,
                     part=part, ms=r[part]))
+            readings.append(dict(turn=turn, tree=tree, kind=kind,
+                part='digest', digest=r['digest']))
             for name, ms in (r['phases'] or {}).items():
                 readings.append(dict(turn=turn, tree=tree, kind=kind,
                     part=name, ms=ms))
             print(f'turn {turn} {tree}: {kind} forward {r["forward"]:.4f} '
-                f'ms, backward {r["backward"]:.4f} ms; phases '
-                + json.dumps(r['phases']), flush=True)
-    print(json.dumps(dict(card=card, shape='T=16 B=8192 D=H=128 (enc5 F=49) '
-        'bf16', readings=readings)), flush=True)
+                f'ms, backward {r["backward"]:.4f} ms; digest {r["digest"]}; '
+                'phases ' + json.dumps(r['phases']), flush=True)
+    print(json.dumps(dict(card=card, shape='T=16 B=8192 D=H=128 (encoder '
+        'kinds F=49) bf16', readings=readings)), flush=True)
     return 0
 
 
