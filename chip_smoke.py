@@ -23,8 +23,8 @@ enc3, enc4, enc6 and tm among them). Last, small trainer updates and
 CPU (the recurrent update also at hidden 256, through enc5's streamed
 design). For the bf16
 tensor-core kernels of lstm_scan, lstm_scan_cat, lstm_scan_fused, the
-enc5 pair and the archived enc2 and enc4 backwards (csrc/lstm_tc.cuh) it
-also prints each kernel's registers and spilled bytes after the build,
+enc5 pair and the archived enc2, enc3, enc4 and enc6 backwards
+(csrc/lstm_tc.cuh) it also prints each kernel's registers and spilled bytes after the build,
 and the time of each phase at the main shape (pre-pass, loop, dx, dW +
 db; enc5's encoder runs in both pre-pass phases, dpre takes dx's place
 and dW_enc joins the last, and the archived backwards have enc5's
@@ -34,7 +34,8 @@ fused and enc5 are also held to their plain versions at input width 96
 (enc5 with 200 features), and the bf16 kernels of every pair whose
 backward runs the split-K of csrc/lstm_common.cuh (enc5, scan, fused,
 cat, enc and the archived enc2-enc6) run twice and must agree bit for
-bit. GAE must equal its plain version bit for bit. The MLP head is held
+bit; the archived enc6's bf16 outputs and gradients must equal enc5's bit
+for bit (its backward is enc5's tensor-core backward). GAE must equal its plain version bit for bit. The MLP head is held
 to its plain version in bf16 (the tensor-core kernel, at the trainer's
 two shapes, at F = 200 with H = 256 and 512 and O = 17, and with f32 x)
 and in f32 (the FMA kernel); its bf16 kernel runs twice and must agree
@@ -530,11 +531,12 @@ ENC5_TC_KERNELS = ('encoder', 'forward pre-pass', 'forward loop',
 SCAN_TC_KERNELS = ('forward loop (bf16 x_proj)', 'forward loop (f32 x_proj)',
     'backward loop (bf16 x_proj)', 'backward loop (f32 x_proj)',
     'dW split-K (ring)')
-# the archived enc2's and enc4's own, in the order of
-# lstm_archive_tc_usage's output (their encoder, dpre and split-K, and
-# enc4's pre-pass, are enc5's)
+# the archived backwards' own, in the order of lstm_archive_tc_usage's
+# output (their encoder, dpre and split-K, the other pre-pass and enc6's
+# loop are enc5's)
 ARCHIVE_TC_KERNELS = ('enc2 backward pre-pass',
-    'enc2 / enc4 backward loop (f32 activations)')
+    'enc2 / enc4 backward loop (f32 activations)',
+    'enc3 backward loop (db from the unrounded dgates)')
 # the phases a launch with phases=k runs the first k of
 TC_PHASES = {
     'forward': ('pre-pass', 'loop'),
@@ -550,17 +552,17 @@ SCAN_PHASES = {
     'forward': ('loop',),
     'backward': ('loop', 'dW'),
 }
-# the archived enc2's and enc4's bf16 backwards, enc5's phases (their
-# forwards take no phases: enc2's runs on FMA, enc4's is enc5's)
+# the archived bf16 backwards, enc5's phases (their forwards take no
+# phases: enc2's runs on FMA, enc3's, enc4's and enc6's is enc5's)
 ARCHIVE_PHASES = {'forward': (), 'backward': ENC5_PHASES['backward']}
 PHASES = {'enc5': ENC5_PHASES, 'scan': SCAN_PHASES, 'enc2': ARCHIVE_PHASES,
-    'enc4': ARCHIVE_PHASES}
+    'enc3': ARCHIVE_PHASES, 'enc4': ARCHIVE_PHASES, 'enc6': ARCHIVE_PHASES}
 
 
 def log_tc_usage():
     """Registers and spilled bytes per thread of the bf16 kernels of
-    lstm_scan, lstm_scan_fused, lstm_scan_cat, enc5 and the archived enc2
-    and enc4 backwards at each hidden size
+    lstm_scan, lstm_scan_fused, lstm_scan_cat, enc5 and the archived enc2,
+    enc3, enc4 and enc6 backwards at each hidden size
     (cudaFuncGetAttributes), and the widest input and feature width they
     take, held against the wrappers' checks."""
     import ctypes
@@ -609,8 +611,8 @@ def log_tc_usage():
 def time_tc_phases(torch, flush, rng, kind='fused', T=16, B=8192):
     """Device ms of each phase of the bf16 tensor-core kernels of `kind`
     ('fused': lstm_scan_fused, 'cat': lstm_scan_cat, 'enc5', 'scan':
-    lstm_scan with bf16 x_proj, and the backwards of the archived 'enc2'
-    and 'enc4') at the main shape: a launch runs the first k phases, so a
+    lstm_scan with bf16 x_proj, and the backwards of the archived 'enc2',
+    'enc3', 'enc4' and 'enc6') at the main shape: a launch runs the first k phases, so a
     phase's time is the difference of two such means (cold L2 each)."""
     launch_fwd, launch_bwd = lstm_kinds()[kind][:2]
     args, grads, cdt = lstm_case(torch, rng, kind, T, B, 'bfloat16')
@@ -627,8 +629,9 @@ def time_tc_phases(torch, flush, rng, kind='fused', T=16, B=8192):
         for k, name in enumerate(names[part]):
             phases[f'{part} {name}'] = cumulative[k] - (cumulative[k - 1]
                 if k else 0.0)
-    title = {'enc5': 'enc5', 'scan': 'lstm_scan', 'enc2': 'archived enc2',
-        'enc4': 'archived enc4'}.get(kind, f'lstm_scan_{kind}')
+    title = {'enc5': 'enc5', 'scan': 'lstm_scan'}.get(kind,
+        f'archived {kind}' if kind in ARCHIVED_ENC_KINDS
+        else f'lstm_scan_{kind}')
     log(f'{title} bf16 phases T={T} B={B} H=128, ms: ' + ', '.join(
         f'{k} {v:.4f}' for k, v in phases.items())
         + (f'; whole forward {fwd[-1]:.4f}' if fwd else '')
@@ -659,6 +662,30 @@ def check_bit_equal(torch, rng, kind, B, T=16, D=None, F=49, H=128,
         raise AssertionError(f'{what}: two runs differ in {unequal}')
     log(f'{what}: two runs equal bit for bit in {len(names)} outputs and '
         f'gradients')
+
+
+def check_enc6_is_enc5(torch, rng, B, T=16, F=49, H=128):
+    """The archived enc6 and enc5 in bf16 on the same inputs: enc6's
+    backward is enc5's tensor-core backward (mode ENC6 runs ENC5's
+    reverse loop), so every output and gradient must be equal bit for
+    bit."""
+    kinds = lstm_kinds()
+    args, grads, cdt = lstm_case(torch, rng, 'enc6', T, B, 'bfloat16', F=F,
+        H=H)
+    runs = []
+    with torch.no_grad():
+        for kind in ('enc5', 'enc6'):
+            fwd, bwd = kinds[kind][:2]
+            outs, hT, cT, cseq = fwd(*args, cdt)
+            runs.append((outs, hT, cT, cseq) + bwd(*args, outs, cseq,
+                *grads, cdt))
+    torch.cuda.synchronize()
+    names = LSTM_OUTS + ENC_GRADS
+    unequal = [n for n, a, w in zip(names, *runs) if not torch.equal(a, w)]
+    what = f'enc6 against enc5, bf16 T={T} B={B} H={H} F={F}'
+    if unequal:
+        raise AssertionError(f'{what}: they differ in {unequal}')
+    log(f'{what}: equal bit for bit in {len(names)} outputs and gradients')
 
 
 # (T, B, D, H) of cat's streamed design (csrc/lstm_cat_stream.cu): the
@@ -1755,13 +1782,15 @@ def main():
                 flush, rng, kind, B, 'bfloat16', xp_dtype_name='float32')
             lstm_runs[kind, B, 'float32/bf16 x_proj'] = check_lstm(torch,
                 flush, rng, kind, B, 'float32', xp_dtype_name='bfloat16')
-    for kind in ('scan', 'fused', 'cat', 'enc5', 'enc2', 'enc4'):
+    for kind in ('scan', 'fused', 'cat', 'enc5') + ARCHIVED_ENC_KINDS:
         time_tc_phases(torch, flush, rng, kind)
     # every other bf16 backward whose weight gradients run the split-K
     # (lstm_common.cuh: the ring, or the register-staged kernel for
     # sources it cannot copy) repeats bit for bit too
-    for kind in ('scan', 'fused', 'cat', 'enc2', 'enc4'):
+    for kind in ('scan', 'fused', 'cat') + ARCHIVED_ENC_KINDS:
         check_bit_equal(torch, rng, kind, 8192)
+    check_enc6_is_enc5(torch, rng, 8192)
+    check_enc6_is_enc5(torch, rng, 980, H=64)
     for kind in ('enc',) + ARCHIVED_ENC_KINDS:
         check_bit_equal(torch, rng, kind, 1000)
     # cat's streamed design at the Atari update's shape and the others

@@ -44,24 +44,31 @@
 // Design, by row and compute dtype. The encoder-fused backwards differ in
 // two roundings of the reverse loop (lstm_common.cuh rounded_acts,
 // rounded_db) and in where the gates are recomputed:
-// * bf16 enc2 and enc4 backwards: csrc/lstm_tc.cuh's backward in modes
-//   ENC2 and ENC4, mode ENC5's path, every product on the tensor cores:
-//   the encoder GEMM; the P pre-pass over all T*B rows, enc4 (x @ W_ih +
-//   h_prev @ W_hh) + b, enc2 bf16(x @ W_ih + b) + h_prev @ W_hh (the
-//   projection rounded in the epilogue, as its TPU kernel's slab); the
-//   reverse loop with W_hh in shared memory, f32 activations and db from
-//   the rounded dgates; dpre; the split-K of [x | h_prev]^T dg and of
-//   [feats | 1]^T dpre. Their TPU kernels recompute the gates inside the
-//   loop: [W_ih; W_hh] in bf16 fits no block here, so the pre-pass does.
-//   Both take the reach of the FMA kernels below (D == H, F <= 128),
-//   inside the tensor-core kernels'.
+// * bf16 enc2, enc3, enc4 and enc6 backwards: csrc/lstm_tc.cuh's backward
+//   in modes ENC2, ENC3, ENC4 and ENC6, mode ENC5's path, every product on
+//   the tensor cores: the encoder GEMM; the P pre-pass over all T*B rows,
+//   (x @ W_ih + h_prev @ W_hh) + b, for enc2 bf16(x @ W_ih + b) + h_prev
+//   @ W_hh (the projection rounded in the epilogue, as its TPU kernel's
+//   slab); the reverse loop with W_hh in shared memory and the loop's
+//   roundings: enc2 and enc4 f32 activations and db from the rounded
+//   dgates, enc3 rounded activations and db from the unrounded dgates,
+//   enc6 enc5's own (both rounded: enc6's gradients are enc5's bit for
+//   bit); dpre; the split-K of [x | h_prev]^T dg and of [feats | 1]^T
+//   dpre. The TPU kernels of enc2 and enc4 recompute the gates inside the
+//   loop, enc3's runs [dx | dh_prev] = dg @ [W_ih; W_hh]^T and carries dW
+//   there: [W_ih; W_hh] in bf16 fits no block here, so the pre-pass
+//   recomputes the gates, dx is a GEMM after the loop and dW the split-K.
+//   enc6's two independent half-tile chains are the tensor-core loop's
+//   two halves, each with a barrier of its own. All four take the reach
+//   of the FMA kernels below (D == H, F <= 128), inside the tensor-core
+//   kernels'.
 // * everything else: plain f32 FMA from weights streamed out of L2 in
-//   chunks, far above the bounds above: the f32 enc2 and enc4 backwards
-//   (f32 is the exact test mode), enc2's forward in both dtypes, enc3's and
-//   enc6's backwards, tm.
+//   chunks, far above the bounds above: the f32 backwards (f32 is the
+//   exact test mode), enc2's forward in both dtypes, tm.
 //
-// FMA design (csrc/lstm_common.cuh): one backward kernel, archive_backward,
-// whose MODE picks the rounding points and the schedule. The TPU kernels'
+// FMA design (csrc/lstm_common.cuh): one backward kernel, archive_backward
+// (f32 only), whose MODE picks the rounding points and the schedule. The
+// TPU kernels'
 // VMEM slabs of T * bt rows fit no block's shared memory, so a slab that
 // they keep (enc3's and enc6's activations, every variant's dgates) lives
 // in device memory, written and read back by the thread that owns the
@@ -363,20 +370,10 @@ cudaError_t run_archive_backward(const void* feats, const float* h0, const float
                                       splits_w, splits_e, nblk, stream);
 }
 
-template <int MODE>
-struct Backward {
-    template <int H, typename E>
-    struct Of {
-        template <typename... Args>
-        static cudaError_t run(Args... args) {
-            return run_archive_backward<H, E, MODE>(args...);
-        }
-    };
-};
-
-// enc2's and enc4's backward: bf16 on the tensor cores (tc::backward in
-// modes ENC2 and ENC4), f32 on archive_backward. D == H. pre: the P slab
-// (lstm_tc.cuh slab_index) f32; bf16 only, as w16.
+// The encoder-fused backwards: bf16 on the tensor cores (tc::backward in
+// mode MODE), f32 on archive_backward. D == H. pre: in bf16 the P slab
+// (lstm_tc.cuh slab_index) f32; in f32 the activations slab (T, B, 4H)
+// of the modes that keep one (gates_before_loop: enc3, enc6), else null.
 template <int MODE>
 struct TcBackward {
     template <int H, typename E>
@@ -404,8 +401,9 @@ struct TcBackward {
                 if (phases != tc::BACKWARD_PHASES) return cudaErrorInvalidValue;
                 return run_archive_backward<H, E, MODE>(
                     feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b, outs, cseq, g_outs, g_hT, g_cT,
-                    dh0, dc0, dwe, dwe + (size_t)F * H, dw, db, xs, dpre, dg, nullptr, dw_part,
-                    db_part, dwe_part, dbe_part, T, B, F, splits_w, splits_e, part_rows, stream);
+                    dh0, dc0, dwe, dwe + (size_t)F * H, dw, db, xs, dpre, dg,
+                    gates_before_loop(MODE) ? pre : nullptr, dw_part, db_part, dwe_part, dbe_part,
+                    T, B, F, splits_w, splits_e, part_rows, stream);
             }
         }
     };
@@ -413,21 +411,27 @@ struct TcBackward {
 
 // Registers and spilled bytes per thread of the archive's own bf16 kernels
 // at hidden size H, as out[2i], out[2i + 1]: enc2's pre-pass (its
-// epilogue rounds the projection) and the reverse loop of enc2 and enc4
-// (f32 activations, db from the rounded dgates). The encoder, enc4's
-// pre-pass, dpre and the split-K are enc5's.
+// epilogue rounds the projection), the reverse loop of enc2 and enc4 (f32
+// activations, db from the rounded dgates) and enc3's (rounded
+// activations, db from the unrounded dgates). The encoder, the other
+// pre-pass, dpre, the split-K and enc6's loop are enc5's.
 template <int H>
 cudaError_t tc_usage(int* out) {
     static_assert(rounded_acts(ENC2) == rounded_acts(ENC4) &&
                       rounded_db(ENC2) == rounded_db(ENC4),
                   "enc2 and enc4 share a reverse loop");
+    static_assert(rounded_acts(ENC6) == rounded_acts(ENC5) &&
+                      rounded_db(ENC6) == rounded_db(ENC5),
+                  "enc6 runs enc5's reverse loop");
     const void* fns[] = {
         reinterpret_cast<const void*>(
             tc::rows_gemm_kernel<tc::BRows, tc::GateRows, tc::HPrev, tc::GateRows,
                                  tc::GatesOut<ENC2>>),
         reinterpret_cast<const void*>(
-            tc::backward_loop<H, rounded_acts(ENC4), rounded_db(ENC4)>)};
-    return tc::attributes(fns, 2, out);
+            tc::backward_loop<H, rounded_acts(ENC4), rounded_db(ENC4)>),
+        reinterpret_cast<const void*>(
+            tc::backward_loop<H, rounded_acts(ENC3), rounded_db(ENC3)>)};
+    return tc::attributes(fns, 3, out);
 }
 
 template <int H, typename E>
@@ -497,46 +501,22 @@ int lstm_enc2_forward(const void* feats, const float* h0, const float* c0,
                                  outs, cseq, hT, cT, T, B, F, stream);
 }
 
-// enc3's and enc6's backward, on FMA in both dtypes. Inputs as the
+// The four encoder-fused backwards (enc2, enc3, enc4, enc6): the arguments
+// of lstm_enc.cu's lstm_enc_backward, with D == H. Inputs as the
 // forward's plus its outs and cseq and the gradients g_outs (T, B, H,
-// compute dtype), g_hT and g_cT (B, H, f32). Writes dh0, dc0 (B, H),
-// dw_enc (F, H), db_enc (H,), dw = [dW_ih; dW_hh] (2H, 4H) and db (4H,),
-// f32. Scratch: xs and dpre (T, B, H), dg and acts (T, B, 4H) in the
-// compute dtype; dw_part (splits_w, 2H, 4H), db_part (part_rows, 4H),
-// dwe_part (splits_e, F, H) and dbe_part (part_rows, H) f32, with
-// part_rows = ceil(B / 32), for enc6 ceil(B / 64).
-#define ARCHIVE_BACKWARD(NAME, MODE)                                                       \
-    int NAME(const void* feats, const float* h0, const float* c0, const float* w_enc,      \
-             const float* b_enc, const float* w_ih, const float* w_hh, const float* b,     \
-             const void* outs, const void* cseq, const void* g_outs, const float* g_hT,    \
-             const float* g_cT, float* dh0, float* dc0, float* dw_enc, float* db_enc,      \
-             float* dw, float* db, void* xs, void* dpre, void* dg, void* acts,             \
-             float* dw_part, float* db_part, float* dwe_part, float* dbe_part, int T,      \
-             int B, int F, int H, int cdt_bf16, int splits_w, int splits_e, int part_rows, \
-             cudaStream_t stream) {                                                        \
-        if (T <= 0 || B <= 0 || F <= 0) return (int)cudaErrorInvalidValue;                 \
-        if (!aligned16(w_ih) || !aligned16(w_hh)) return (int)cudaErrorMisalignedAddress;  \
-        return dispatch<Backward<MODE>::Of>(                                               \
-            H, cdt_bf16, feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b, outs, cseq, g_outs,   \
-            g_hT, g_cT, dh0, dc0, dw_enc, db_enc, dw, db, xs, dpre, dg, acts, dw_part,     \
-            db_part, dwe_part, dbe_part, T, B, F, splits_w, splits_e, part_rows, stream);  \
-    }
-
-ARCHIVE_BACKWARD(lstm_enc3_backward, ENC3)
-ARCHIVE_BACKWARD(lstm_enc6_backward, ENC6)
-#undef ARCHIVE_BACKWARD
-
-// enc2's and enc4's backward: the arguments of lstm_enc.cu's
-// lstm_enc_backward (inputs as enc3's; dwe (F + 1, H): dW_enc, then
-// db_enc), with D == H.
+// compute dtype), g_hT and g_cT (B, H, f32). Writes dh0, dc0 (B, H), dwe
+// (F + 1, H): dW_enc, then db_enc, dw = [dW_ih; dW_hh] (2H, 4H) and db
+// (4H,), f32.
 // Scratch: xs and dpre (T, B, H) and dg (T, B, 4H) in the compute dtype;
 // dw_part (splits_w, 2H, 4H) and db_part (part_rows, 4H) f32, part_rows =
-// ceil(B / 64) in bf16 and ceil(B / 32) in f32; dwe_part (splits_e, F + 1,
-// H) in bf16, (splits_e, F, H) in f32; f32 only (null in bf16): dbe_part
-// (part_rows, H); bf16 only (null in f32): pre, the P slab (as
-// lstm_enc_backward's) f32, and w16 (2H * 4H + 4H * H + B * H + F * H)
-// bf16. phases: 4 runs the whole backward; in bf16, 1 .. 3 stop after the
-// encoder and the pre-pass, the loop or dpre (to time them).
+// ceil(B / 64) in bf16 and in f32 ceil(B / 32), for enc6 ceil(B / 64);
+// dwe_part (splits_e, F + 1, H) in bf16, (splits_e, F, H) in f32; f32 only
+// (null in bf16): dbe_part (part_rows, H); pre: in bf16 the P slab (as
+// lstm_enc_backward's) f32, in f32 enc3's and enc6's activations slab (T,
+// B, 4H) f32, else null; bf16 only (null in f32): w16 (2H * 4H + 4H * H +
+// B * H + F * H) bf16. phases: 4 runs the whole backward; in bf16, 1 .. 3
+// stop after the encoder and the pre-pass, the loop or dpre (to time
+// them).
 #define TC_BACKWARD(NAME, MODE)                                                             \
     int NAME(const void* feats, const float* h0, const float* c0, const float* w_enc,       \
              const float* b_enc, const float* w_ih, const float* w_hh, const float* b,      \
@@ -555,11 +535,13 @@ ARCHIVE_BACKWARD(lstm_enc6_backward, ENC6)
     }
 
 TC_BACKWARD(lstm_enc2_backward, ENC2)
+TC_BACKWARD(lstm_enc3_backward, ENC3)
 TC_BACKWARD(lstm_enc4_backward, ENC4)
+TC_BACKWARD(lstm_enc6_backward, ENC6)
 #undef TC_BACKWARD
 
 // Registers and spilled bytes per thread of the archive's own bf16
-// kernels at hidden size H (tc_usage): four ints into out.
+// kernels at hidden size H (tc_usage): six ints into out.
 int lstm_archive_tc_usage(int H, int* out) {
     switch (H) {
         case 32: return (int)tc_usage<32>(out);

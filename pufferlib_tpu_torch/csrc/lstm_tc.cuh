@@ -4,10 +4,10 @@
 // lstm_scan_backward (mode XP), csrc/lstm_cat.cu's lstm_cat_forward /
 // lstm_cat_backward (mode CAT) and csrc/lstm_enc.cu's lstm_enc_forward /
 // lstm_enc_backward (mode ENC5) run when the compute dtype is bf16, and
-// csrc/lstm_archive.cu's lstm_enc2_backward and lstm_enc4_backward (the
-// archived modes ENC2 and ENC4: ENC5's backward with other roundings). In
-// f32 they keep lstm_common.cuh's cell kernels: the tensor cores have no
-// exact f32 product, and f32 is the exact test mode.
+// csrc/lstm_archive.cu's four encoder-fused backwards (the archived modes
+// ENC2, ENC3, ENC4 and ENC6: ENC5's backward with other roundings, ENC6
+// with ENC5's own). In f32 they keep lstm_common.cuh's cell kernels: the
+// tensor cores have no exact f32 product, and f32 is the exact test mode.
 //
 // Mode XP (lstm.py's lstm_scan: `_lstm_fwd_impl` / `_fwd_kernel` and
 // `_noresid`, `_lstm_scan_bwd` / `_bwd_kernel`) is FUSED without the input
@@ -47,10 +47,10 @@
 //   0. ENC5 only: xs recomputed by the forward's encoder, bit for bit;
 //   1. pre-pass P over all T*B rows (h_prev: h0 rounded, then the stored
 //      outs): the gate recompute, which needs no carried state, as an f32
-//      slab; FUSED (x @ W_ih + b) + h_prev @ W_hh, CAT, ENC5 and ENC4
-//      (x @ W_ih + h_prev @ W_hh) + b, ENC2 bf16(x @ W_ih + b) + h_prev @
-//      W_hh (its projection slab, lstm_enc2.py:103-105, rounded in the
-//      epilogue);
+//      slab; FUSED (x @ W_ih + b) + h_prev @ W_hh, CAT, ENC5, ENC3, ENC4
+//      and ENC6 (x @ W_ih + h_prev @ W_hh) + b, ENC2 bf16(x @ W_ih + b) +
+//      h_prev @ W_hh (its projection slab, lstm_enc2.py:103-105, rounded
+//      in the epilogue);
 //   2. reverse loop: the activations from P_t (ENC5 rounds them to bf16,
 //      the TPU kernel's activation slab, lstm_enc5.py:74-76), the dh/dc
 //      chain, dgates rounded to bf16 into the dg slab, db, dh_prev =
@@ -67,13 +67,17 @@
 //      register-staged kernel).
 // The functions are the TPU kernels': f32 sums on bf16 operands, in each
 // mode's order; FUSED and CAT keep f32 activations and sum db from the
-// unrounded dgates, ENC5 rounds the activations and sums db (and db_enc)
-// from the rounded values, ENC4 and ENC2 keep f32 activations and sum db
-// from the rounded dgates. The modes differ only in where the bias and the
-// input product enter the sum, and in the encoder and the roundings. The
-// TPU kernels of ENC4 and ENC2 recompute their gates inside the reverse
-// loop from [W_ih; W_hh], 256 KiB in bf16 at D = H = 128, more than a
-// block holds: here the pre-pass does, as for ENC5. ENC2's other design,
+// unrounded dgates, ENC5 and ENC6 round the activations and sum db (and
+// db_enc) from the rounded values, ENC4 and ENC2 keep f32 activations and
+// sum db from the rounded dgates, ENC3 rounds the activations and sums db
+// from the unrounded dgates. The modes differ only in where the bias and
+// the input product enter the sum, and in the encoder and the roundings.
+// The TPU kernels of ENC4 and ENC2 recompute their gates inside the
+// reverse loop from [W_ih; W_hh], 256 KiB in bf16 at D = H = 128, more
+// than a block holds: here the pre-pass does, as for ENC5. ENC3's runs
+// [dx | dh_prev] = dg @ [W_ih; W_hh]^T in its loop: here dx is the GEMM
+// after the loop, as for ENC5. ENC6's two independent half-tile chains
+// are the loop's two halves below. ENC2's other design,
 // a bf16 projection slab read by mode XP's reverse loop (the recompute in
 // the loop, db summed there), measured no faster on the H100 (PERF.md):
 // tools/ablate_lstm_tc_torch.py keeps it as variant enc2-xp.
@@ -115,7 +119,9 @@
 //   double-buffered in shared memory) and two in the backward (the shared
 //   dgates tile is written, then read by every warp of the half); the
 //   halves drift apart, so that one's products overlap the other's cell
-//   math.
+//   math. This is the schedule of the archived enc6 (lstm_enc6.py: two
+//   independent half-tile chains in one loop body); the block stepping as
+//   one chain is tools/ablate_lstm_tc_torch.py's variant one-chain.
 // * the slabs: the forward's (XW or S) and P are stored in the loops'
 //   fragment order (slab_index), so that a warp reads a gate of a unit
 //   group as one contiguous 512-byte run of float4s, and each group's
@@ -588,8 +594,9 @@ __global__ void __launch_bounds__(NTC, 1) forward_loop(
 // (lstm_common.cuh rounded_acts, rounded_db): ROUND_ACTS, the activations
 // pass through bf16 before the dgates chain, as lstm_enc5._bwd_kernel's
 // shared activation/dgates slab does; ROUND_DB, db sums the dgates as
-// stored in bf16 rather than the unrounded ones. ENC5 takes both, the
-// archived ENC4 and ENC2 ROUND_DB alone, CAT and FUSED neither.
+// stored in bf16 rather than the unrounded ones. ENC5 and the archived
+// ENC6 take both, the archived ENC4 and ENC2 ROUND_DB alone, the archived
+// ENC3 ROUND_ACTS alone, CAT and FUSED neither.
 template <int H, bool ROUND_ACTS, bool ROUND_DB>
 __global__ void __launch_bounds__(NTC, 1) backward_loop(
         const float* __restrict__ pre, const float* __restrict__ c0,
@@ -1394,9 +1401,9 @@ cudaError_t enc5_forward(const Encoder& enc, const float* h0, const float* c0,
 // 4H * D + B * H) bf16 (the rounded [W_ih; W_hh], W_ih^T and h0), dg
 // (T, B, 4H) bf16, dw_part (splits, D + H, 4H) and db_part (ceil(B / BR),
 // 4H) f32. phases: the first 1 .. 4 of pre-pass, loop, dx, dW + db.
-// ENC5 and the archived ENC4 and ENC2: x is enc.xs, which the encoder
-// writes first (the pre-pass phase); dx is not written, dpre in its place;
-// the last phase adds dW_enc and db_enc.
+// ENC5 and the archived ENC2, ENC3, ENC4 and ENC6: x is enc.xs, which the
+// encoder writes first (the pre-pass phase); dx is not written, dpre in
+// its place; the last phase adds dW_enc and db_enc.
 template <int H, int MODE>
 cudaError_t backward(const bf16* x, const float* h0, const float* c0, const float* w_ih,
                      const float* w_hh, const float* b, const bf16* outs, const bf16* cseq,
@@ -1406,9 +1413,10 @@ cudaError_t backward(const bf16* x, const float* h0, const float* c0, const floa
                      int part_rows, int phases, cudaStream_t stream,
                      const Encoder& enc = Encoder{}) {
     constexpr int G = 4 * H;
-    constexpr bool ENCODER = MODE == ENC5 || MODE == ENC4 || MODE == ENC2;
-    // where the bias enters the gate sum: ENC5's and ENC4's cell is CAT's,
-    // ENC2 rounds its projection before adding the recurrent sum
+    constexpr bool ENCODER = has_encoder(MODE);
+    // where the bias enters the gate sum: ENC5's, ENC3's, ENC4's and
+    // ENC6's cell is CAT's, ENC2 rounds its projection before adding the
+    // recurrent sum
     constexpr int SUM = MODE == ENC2 ? ENC2 : ENCODER ? CAT : MODE;
     const int nblk = (B + BR - 1) / BR;
     if (phases < 1 || phases > BACKWARD_PHASES || part_rows != nblk || splits < 1 ||

@@ -11,35 +11,34 @@ kernel launch for CUDA tensors, no way from one to the other), the
 backwards' launchers and the design each backward runs. Each variant's
 module gives its plain versions, its launchers and its public function.
 
-In bf16 the enc2 and enc4 backwards run the tensor-core kernels of
+In bf16 the four backwards run the tensor-core kernels of
 csrc/lstm_tc.cuh (backward_design): mode ENC5's path (the encoder, the P
 pre-pass, a reverse loop with W_hh in shared memory, dpre and the
-split-K) with f32 activations and db from the rounded dgates, enc2's
-pre-pass rounding its projection. Every other backward, and f32, runs
-lstm_archive.cu's FMA kernel. Both designs take the same shapes (D == H,
-at most 128 features, hidden sizes 32, 64 and 128), refused before any
-launch.
+split-K) with each variant's roundings: enc2 and enc4 f32 activations and
+db from the rounded dgates (enc2's pre-pass rounding its projection),
+enc3 rounded activations and db from the unrounded dgates, enc6 enc5's
+own. In f32 they run lstm_archive.cu's FMA kernel. Both designs take the
+same shapes (D == H, at most 128 features, hidden sizes 32, 64 and 128;
+enc6's f32 block, two tiles of dgates, also a feature width its shared
+memory holds), refused before any launch.
 """
 import collections
-import math
 
 import torch
 
 from pufferlib_tpu_torch.ops.cuda import lstm_enc
-from pufferlib_tpu_torch.ops.cuda._build import (
-    CudaKernel, I, P, ptr, ptr_or_null, stream_handle)
+from pufferlib_tpu_torch.ops.cuda._build import CudaKernel, I, P
 from pufferlib_tpu_torch.ops.cuda.lstm_common import (
     BACKWARD_PHASES, ROWS_PER_BLOCK, backward_inputs, check_encoder_inputs,
-    check_fma_encoder_kernel_shape, needs_cseq, splitk_splits)
+    check_fma_encoder_kernel_shape, needs_cseq)
 
-_ENC_BACKWARD = [P] * 27 + [I] * 8 + [P]
 _TC_BACKWARD = lstm_enc.KERNEL.functions['lstm_enc_backward']
 KERNEL = CudaKernel('lstm_archive.cu', {
     'lstm_enc2_forward': [P] * 12 + [I] * 5 + [P],
     'lstm_enc2_backward': _TC_BACKWARD,
-    'lstm_enc3_backward': _ENC_BACKWARD,
+    'lstm_enc3_backward': _TC_BACKWARD,
     'lstm_enc4_backward': _TC_BACKWARD,
-    'lstm_enc6_backward': _ENC_BACKWARD,
+    'lstm_enc6_backward': _TC_BACKWARD,
     'lstm_tm_step_forward': [P] * 8 + [I] * 6 + [P],
     'lstm_tm_step_backward': [P] * 15 + [I] * 7 + [P],
     # not a launch: the archive's own bf16 kernels' registers and spills
@@ -47,7 +46,8 @@ KERNEL = CudaKernel('lstm_archive.cu', {
 })
 
 # the backwards with a tensor-core design in bf16
-TC_BACKWARDS = ('lstm_enc2_backward', 'lstm_enc4_backward')
+TC_BACKWARDS = ('lstm_enc2_backward', 'lstm_enc3_backward',
+    'lstm_enc4_backward', 'lstm_enc6_backward')
 
 
 def backward_design(fn, cdt):
@@ -68,65 +68,29 @@ EncVariant = collections.namedtuple('EncVariant',
 
 
 def launch_tc_backward(fn, feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b, outs,
-        cseq, g_outs, g_hT, g_cT, cdt, phases=BACKWARD_PHASES):
-    """Launch enc2's or enc4's backward `fn` of lstm_archive.cu, whose
+        cseq, g_outs, g_hT, g_cT, cdt, phases=BACKWARD_PHASES, row_tiles=1,
+        acts_slab=False):
+    """Launch the encoder-fused backward `fn` of lstm_archive.cu, whose
     arguments are lstm_enc_backward's: (dh0, dc0, dW_enc, db_enc, dW_ih,
     dW_hh, db). In bf16 the tensor-core kernels (backward_design) with
-    their scratch, the f32 P slab and the bf16 weights; in f32 the FMA
-    kernel. phases < 4 stops a bf16 call early, to time a phase."""
-    check_fma_encoder_kernel_shape(feats, w_enc, h0.shape[1])
-    return lstm_enc.launch_backward(KERNEL, fn, feats, h0, c0, w_enc, b_enc,
-        w_ih, w_hh, b, outs, cseq, g_outs, g_hT, g_cT, cdt,
-        backward_design(fn, cdt) == 'tc', phases)
-
-
-def launch_enc_backward(fn, feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b, outs,
-        cseq, g_outs, g_hT, g_cT, cdt, row_tiles=1, acts_slab=False):
-    """Launch enc3's or enc6's backward `fn` of lstm_archive.cu, on FMA in
-    both dtypes: (dh0, dc0, dW_enc, db_enc, dW_ih, dW_hh, db). A block
-    takes row_tiles tiles of 32 rows; acts_slab: the kernel keeps every
+    their scratch, the f32 P slab and the bf16 weights; phases < 4 stops a
+    bf16 call early, to time a phase. In f32 the FMA kernel, whose block
+    takes row_tiles tiles of 32 rows and, with acts_slab, keeps every
     step's gate activations in a (T, B, 4H) slab."""
-    T, B, F = feats.shape
-    H = h0.shape[1]
-    D, G = H, 4 * H
+    F, H = feats.shape[2], h0.shape[1]
     check_fma_encoder_kernel_shape(feats, w_enc, H)
-    # lstm_archive.cu archive_smem: dgates tiles, a weight chunk, W_enc, feats_t
-    shared = 4 * (row_tiles * G * ROWS_PER_BLOCK + 16 * G
+    tc = backward_design(fn, cdt) == 'tc'
+    # lstm_archive.cu archive_smem: dgates tiles, a weight chunk, W_enc,
+    # feats_t
+    shared = 4 * (row_tiles * 4 * H * ROWS_PER_BLOCK + 16 * 4 * H
         + F * (H + ROWS_PER_BLOCK))
-    if shared > MAX_SHARED_BYTES:
+    if not tc and shared > MAX_SHARED_BYTES:
         raise ValueError(f'{fn} needs {shared} bytes of shared memory at '
             f'hidden size {H} with {F} features, above a block\'s '
             f'{MAX_SHARED_BYTES}')
-    dev = feats.device
-    f32 = dict(dtype=torch.float32, device=dev)
-    dh0 = torch.empty_like(h0)
-    dc0 = torch.empty_like(c0)
-    dw_enc = torch.empty((F, D), **f32)
-    db_enc = torch.empty((D,), **f32)
-    dw = torch.empty((D + H, G), **f32)
-    db = torch.empty((G,), **f32)
-    if B == 0:
-        return (dh0, dc0, dw_enc.zero_(), db_enc.zero_(), dw[:D].zero_(),
-            dw[D:].zero_(), db.zero_())
-    nblk = math.ceil(B / (row_tiles * ROWS_PER_BLOCK))
-    splits_w = splitk_splits(D + H, G, T * B, dev)
-    splits_e = splitk_splits(F, D, T * B, dev)
-    xs = torch.empty((T, B, D), dtype=cdt, device=dev)
-    dpre = torch.empty_like(xs)
-    dg = torch.empty((T, B, G), dtype=cdt, device=dev)
-    acts = torch.empty_like(dg) if acts_slab else None
-    dw_part = torch.empty((splits_w, D + H, G), **f32)
-    db_part = torch.empty((nblk, G), **f32)
-    dwe_part = torch.empty((splits_e, F, D), **f32)
-    dbe_part = torch.empty((nblk, D), **f32)
-    KERNEL.launch(fn, ptr(feats), ptr(h0), ptr(c0), ptr(w_enc), ptr(b_enc),
-        ptr(w_ih), ptr(w_hh), ptr(b), ptr(outs), ptr(cseq), ptr(g_outs),
-        ptr(g_hT), ptr(g_cT), ptr(dh0), ptr(dc0), ptr(dw_enc), ptr(db_enc),
-        ptr(dw), ptr(db), ptr(xs), ptr(dpre), ptr(dg), ptr_or_null(acts),
-        ptr(dw_part), ptr(db_part), ptr(dwe_part), ptr(dbe_part), T, B, F, H,
-        int(cdt == torch.bfloat16), splits_w, splits_e, nblk,
-        stream_handle(feats))
-    return dh0, dc0, dw_enc, db_enc, dw[:D], dw[D:], db
+    return lstm_enc.launch_backward(KERNEL, fn, feats, h0, c0, w_enc, b_enc,
+        w_ih, w_hh, b, outs, cseq, g_outs, g_hT, g_cT, cdt, tc, phases,
+        fma_rows=row_tiles * ROWS_PER_BLOCK, acts_slab=acts_slab)
 
 
 class _EncVariantScan(torch.autograd.Function):

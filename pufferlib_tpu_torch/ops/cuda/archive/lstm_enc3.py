@@ -12,14 +12,27 @@ dx is stored rounded; dW is carried step by step from the rounded dgates
 and db from the unrounded ones; the relu mask, dpre rounded to cdt, dW_enc
 and db_enc close it. Same function as enc and enc5 in f32; in bf16 it
 rounds at its own places.
+
+On the card in bf16 the backward is enc5's tensor-core backward
+(csrc/lstm_tc.cuh, mode ENC3) with db summed from the unrounded dgates:
+the encoder and the gate recompute as GEMMs over all T*B rows (the P
+pre-pass, (x @ W_ih + h_prev @ W_hh) + b), a reverse loop with W_hh in
+shared memory that rounds the activations and keeps only dh_prev =
+dg_t @ W_hh^T, then dx = dg @ W_ih^T as a GEMM with the relu mask and
+dpre in its epilogue, and dW = [x | h_prev]^T dg and dW_enc by the
+split-K. [W_ih; W_hh] in bf16 (256 KiB at D = H = 128) is more than a
+block's shared memory, so [dx | dh_prev] cannot stay in the loop as on
+the TPU; the function is the same, only the order of f32 sums differs.
+In f32 the backward runs on FMA.
 """
 import torch
 
 from pufferlib_tpu_torch.ops.cuda import lstm_enc
 from pufferlib_tpu_torch.ops.cuda.archive import (
-    EncVariant, launch_enc_backward, scan_enc_variant)
+    EncVariant, launch_tc_backward, scan_enc_variant)
 from pufferlib_tpu_torch.ops.cuda.lstm_common import (
-    cell_backward_step, encode, gate_activations, h_prev_rows, round_to)
+    BACKWARD_PHASES, cell_backward_step, encode, gate_activations,
+    h_prev_rows, round_to)
 
 __all__ = ['lstm_scan_enc3', 'lstm_enc3_backward_reference', 'VARIANT']
 
@@ -59,8 +72,11 @@ def lstm_enc3_backward_reference(feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b,
     return dh, dc, dw_enc, db_enc, dw[:D], dw[D:], db
 
 
-def _launch_backward(*args):
-    return launch_enc_backward('lstm_enc3_backward', *args, acts_slab=True)
+def _launch_backward(*args, phases=BACKWARD_PHASES):
+    """lstm_enc3_backward: on the tensor cores in bf16, on FMA in f32 with
+    its activations slab (archive.launch_tc_backward)."""
+    return launch_tc_backward('lstm_enc3_backward', *args, phases=phases,
+        acts_slab=True)
 
 
 VARIANT = EncVariant(lstm_enc.lstm_enc_reference,

@@ -61,12 +61,13 @@ import torch
 from pufferlib_tpu_torch.ops.cuda._build import (
     CudaKernel, I, P, ptr, ptr_or_null, stream_handle)
 from pufferlib_tpu_torch.ops.cuda.lstm_common import (
-    BACKWARD_PHASES, FORWARD_PHASES, KERNEL_MAX_FEATURES, TC_ROWS_PER_BLOCK,
-    backward_inputs, blocks, cell_backward_step, check_encoder_inputs,
-    check_encoder_kernel_shape, check_fma_encoder_kernel_shape, encode,
-    enc5_design, enc5_shape_error, forward_outputs, gate_activations,
-    h_prev_rows, needs_cseq, pad_cell, pad_units, round_to, scan_forward,
-    splitk_splits, stream_hidden, stream_splits, tc_slab, unpad_cell_grads)
+    BACKWARD_PHASES, FORWARD_PHASES, KERNEL_MAX_FEATURES, ROWS_PER_BLOCK,
+    TC_ROWS_PER_BLOCK, backward_inputs, blocks, cell_backward_step,
+    check_encoder_inputs, check_encoder_kernel_shape,
+    check_fma_encoder_kernel_shape, encode, enc5_design, enc5_shape_error,
+    forward_outputs, gate_activations, h_prev_rows, needs_cseq, pad_cell,
+    pad_units, round_to, scan_forward, splitk_splits, stream_hidden,
+    stream_splits, tc_slab, unpad_cell_grads)
 from pufferlib_tpu_torch.ops.cuda.lstm_cat import (
     STREAM_KERNEL, check_stream, stream_backward_scratch,
     stream_forward_scratch, stream_pack, unpad_outputs)
@@ -212,12 +213,16 @@ def _launch_backward(feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b, outs,
 
 
 def launch_backward(kernel, fn, feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b,
-        outs, cseq, g_outs, g_hT, g_cT, cdt, tc, phases=BACKWARD_PHASES):
+        outs, cseq, g_outs, g_hT, g_cT, cdt, tc, phases=BACKWARD_PHASES,
+        fma_rows=ROWS_PER_BLOCK, acts_slab=False):
     """The backward C function `fn` of `kernel` that takes
-    lstm_enc_backward's arguments (enc5's, and the archived enc2's and
-    enc4's), on a shape the caller has checked: (dh0, dc0, dW_enc, db_enc,
-    dW_ih, dW_hh, db). tc: the bf16 tensor-core kernels run (with their
-    scratch), else the FMA ones."""
+    lstm_enc_backward's arguments (enc5's, and the archived enc2's, enc3's,
+    enc4's and enc6's), on a shape the caller has checked: (dh0, dc0,
+    dW_enc, db_enc, dW_ih, dW_hh, db). tc: the bf16 tensor-core kernels
+    run (with their scratch), else the FMA ones, whose block takes
+    fma_rows batch rows and, with acts_slab (the archived enc3 and enc6),
+    keeps every step's gate activations in a (T, B, 4H) slab handed over
+    in the P slab's place."""
     T, B, F = feats.shape
     H = h0.shape[1]
     D = w_enc.shape[1]
@@ -242,13 +247,16 @@ def launch_backward(kernel, fn, feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b,
     dpre = torch.empty_like(xs)
     dg = torch.empty((T, B, G), dtype=cdt, device=dev)
     dw_part = torch.empty((splits_w, D + H, G), **f32)
-    # bias partials, a row per block: of 64 batch rows in bf16, 32 in f32
-    part_rows = math.ceil(B / TC_ROWS_PER_BLOCK) if tc else blocks(B)
+    # bias partials, a row per block: of 64 batch rows in bf16, fma_rows
+    # in f32
+    part_rows = math.ceil(B / (TC_ROWS_PER_BLOCK if tc else fma_rows))
     db_part = torch.empty((part_rows, G), **f32)
     dwe_part = torch.empty((splits_e, enc_rows, D), **f32)
     dbe_part = None if tc else torch.empty((part_rows, D), **f32)
-    # bf16: the P slab; [W_ih; W_hh], W_ih^T, h0 and W_enc in bf16
-    pre = tc_slab(T, B, H, dev) if tc else None
+    # bf16: the P slab; [W_ih; W_hh], W_ih^T, h0 and W_enc in bf16. FMA
+    # with acts_slab: the activations
+    pre = tc_slab(T, B, H, dev) if tc else torch.empty((T * B * G,),
+        dtype=cdt, device=dev) if acts_slab else None
     w16 = torch.empty(((D + H) * G + G * D + B * H + F * D,),
         dtype=torch.bfloat16, device=dev) if tc else None
     kernel.launch(fn, ptr(feats), ptr(h0), ptr(c0),

@@ -807,9 +807,12 @@ def test_archived_enc_kernels_match_plain(cuda, kind, T, B, H, cdt):
 
 
 # the archived backwards with a tensor-core design in bf16 (lstm_tc.cuh:
-# mode ENC5's path with f32 activations; enc2's pre-pass rounds its
-# projection)
-ARCHIVED_TC = ('enc2', 'enc4')
+# mode ENC5's path with each variant's roundings; enc2's pre-pass rounds
+# its projection): all four
+ARCHIVED_TC = ARCHIVED_ENC
+# those whose f32 FMA kernel keeps every step's activations in a slab,
+# handed over in the P slab's place
+ACTS_SLAB = ('enc3', 'enc6')
 
 
 @pytest.mark.parametrize('kind', ARCHIVED_TC)
@@ -817,23 +820,59 @@ ARCHIVED_TC = ('enc2', 'enc4')
 @pytest.mark.parametrize('B', [65, 72])
 def test_archived_tensor_core_backwards_match_plain_and_repeat(cuda, kind, H,
         B):
-    """enc2's and enc4's bf16 backwards at every hidden size, at batches
-    that leave a second 64-row block of one and of eight rows: within
+    """The archived bf16 backwards at every hidden size, at batches that
+    leave a second 64-row block of one and of eight rows: within
     2e-2 of max(1, max |plain|) of the plain versions, and two runs equal
     bit for bit (db and every weight gradient summed in a fixed order)."""
     _check_lstm_pair(cuda, kind, 5, B, H, torch.bfloat16)
     _check_deterministic(cuda, kind, 5, B, H)
 
 
+@pytest.mark.parametrize('kind', ('enc3', 'enc6'))
+@pytest.mark.parametrize('H', [32, 64, 128])
+@pytest.mark.parametrize('B', [8192, 1000, 980])
+def test_enc3_enc6_bf16_backwards_match_plain(cuda, kind, H, B):
+    """enc3's and enc6's bf16 backwards on the tensor cores at every
+    hidden size, at the bench batch and at ragged ones (1000; 980, which
+    left enc6's last FMA block of two tiles a short first tile and an
+    empty second one): within 2e-2 of max(1, max |plain|) of the plain
+    versions, with one launch of each C function."""
+    _check_lstm_pair(cuda, kind, 16, B, H, torch.bfloat16)
+
+
+@pytest.mark.parametrize('H', [32, 64, 128])
+@pytest.mark.parametrize('B', [8192, 980])
+def test_enc6_bf16_gradients_are_enc5s(cuda, H, B):
+    """enc6 is enc5's function and, in bf16, enc5's tensor-core backward
+    (mode ENC6 runs ENC5's reverse loop): on the same inputs its forward
+    and every gradient equal lstm_scan_enc5's bit for bit."""
+    kinds = _lstm_kinds()
+    args = _lstm_case('enc6', 16, B, H, 49, torch.bfloat16, cuda)
+    g = (torch.randn(16, B, H, device=cuda).to(torch.bfloat16),
+        torch.randn(B, H, device=cuda), torch.randn(B, H, device=cuda))
+    runs = []
+    with torch.no_grad():
+        for kind in ('enc5', 'enc6'):
+            fwd, bwd = kinds[kind][:2]
+            outs, hT, cT, cseq = fwd(*args, torch.bfloat16)
+            runs.append((outs, hT, cT, cseq) + bwd(*args, outs, cseq, *g,
+                torch.bfloat16))
+    torch.cuda.synchronize()
+    for a, w in zip(*runs):
+        assert torch.equal(a, w)
+
+
 @pytest.mark.parametrize('kind', ARCHIVED_TC)
 def test_archived_bf16_backwards_run_the_tensor_core_path(cuda, kind):
     """In bf16 the C function runs lstm_tc.cuh's path, which needs its
-    scratch (the P slab, the bf16 weights): handed none, it
-    refuses; the FMA kernel, which f32 runs, reads none and takes only
-    the whole backward (phases = 4). The launcher's phases 1 .. 3 stop
-    the bf16 path early without an error."""
+    scratch (the P slab, the bf16 weights): handed none, it refuses. The
+    FMA kernel, which f32 runs, takes only the whole backward (phases =
+    4) and reads no bf16 weights; enc2's and enc4's read no slab either,
+    enc3's and enc6's their activations slab in the P slab's place, and
+    refuse without it. The launcher's phases 1 .. 3 stop the bf16 path
+    early without an error."""
     from pufferlib_tpu_torch.ops.cuda import archive
-    fwd = _lstm_kinds()[kind][0]
+    fwd, bwd = _lstm_kinds()[kind][:2]
     fn = f'lstm_{kind}_backward'
     T, B, H, F = 3, 70, 64, 49
     for cdt in (torch.bfloat16, torch.float32):
@@ -861,24 +900,24 @@ def test_archived_bf16_backwards_run_the_tensor_core_path(cuda, kind):
                 return call
         archive.KERNEL._lib = NoScratch()
         try:
-            if cdt == torch.bfloat16:
+            if cdt == torch.bfloat16 or kind in ACTS_SLAB:
                 with pytest.raises(RuntimeError):
-                    archive.launch_tc_backward(fn, *args, outs, cseq, *g, cdt)
+                    bwd(*args, outs, cseq, *g, cdt)
             else:
-                archive.launch_tc_backward(fn, *args, outs, cseq, *g, cdt)
-                with pytest.raises(RuntimeError):
-                    archive.launch_tc_backward(fn, *args, outs, cseq, *g, cdt,
-                        phases=2)
+                bwd(*args, outs, cseq, *g, cdt)
         finally:
             archive.KERNEL._lib = real
-        assert seen[0] == (cdt == torch.bfloat16)
+        if cdt == torch.float32:
+            bwd(*args, outs, cseq, *g, cdt)
+            with pytest.raises(RuntimeError):
+                bwd(*args, outs, cseq, *g, cdt, phases=2)
+        assert seen[0] == (cdt == torch.bfloat16 or kind in ACTS_SLAB)
     args = _lstm_case(kind, T, B, H, F, torch.bfloat16, cuda)
     with torch.no_grad():
         outs, _, _, cseq = fwd(*args, torch.bfloat16)
         for phases in (1, 2, 3):
-            archive.launch_tc_backward(fn, *args, outs, cseq, *(
-                torch.zeros_like(t) for t in (outs, args[1], args[2])),
-                torch.bfloat16, phases=phases)
+            bwd(*args, outs, cseq, *(torch.zeros_like(t) for t in (outs,
+                args[1], args[2])), torch.bfloat16, phases=phases)
     torch.cuda.synchronize()
 
 
@@ -888,14 +927,18 @@ def test_archived_bf16_backwards_run_the_tensor_core_path(cuda, kind):
 @pytest.mark.parametrize('cdt', [torch.float32, torch.bfloat16])
 def test_archived_tc_backwards_write_only_their_buffers(cuda, monkeypatch,
         kind, T, B, F, H, cdt):
-    """Every input, output and scratch buffer of enc2's and enc4's forward
-    and backward (the P slab, the bf16 weights, db_part at 64 rows a
-    block) sits between guards; after both calls no guard has changed,
-    at a ragged last block (45, 200 and 1000 rows), at the widest feature
-    width the archive takes, and the results still match the plain
-    versions within LSTM_TOL."""
+    """Every input, output and scratch buffer of the archived forward and
+    backward (the P slab, the bf16 weights, db_part at 64 rows a block;
+    in f32 enc3's and enc6's activations slab) sits between guards; after
+    both calls no guard has changed, at a ragged last block (45, 200 and
+    1000 rows), at the widest feature width the archive takes (for enc6
+    in f32, whose block of two dgates tiles the launcher refuses past 107
+    features at hidden size 128, that one), and the results still match
+    the plain versions within LSTM_TOL."""
     from pufferlib_tpu_torch.ops.cuda import archive, lstm_common, lstm_enc
     fwd, bwd, fwd_plain, bwd_plain, _ = _lstm_kinds()[kind]
+    if kind == 'enc6' and cdt == torch.float32 and H == 128:
+        F = min(F, 107)
     guarded = _GuardedTorch()
     args = tuple(guarded.guarded(t.shape, t.dtype, t.device).copy_(t)
         for t in _lstm_case(kind, T, B, H, F, cdt, cuda))
@@ -921,20 +964,21 @@ def test_archived_tc_backwards_write_only_their_buffers(cuda, monkeypatch,
 
 def test_archive_tc_usage(cuda):
     """Registers and spills of the archive's own bf16 kernels (enc2's
-    pre-pass, whose epilogue rounds the projection, and the reverse loop
-    of enc2 and enc4, ENC5's with f32 activations) at every hidden size:
-    the loop's 512 threads may hold 128 registers each (one block an SM),
-    the GEMM's 256 threads 128 (two blocks an SM). The loop spills
-    nothing, the GEMM at most the 16 bytes that enc5's backward pre-pass
-    spills (as on the H100 when this test was written)."""
+    pre-pass, whose epilogue rounds the projection, the reverse loop of
+    enc2 and enc4, ENC5's with f32 activations, and enc3's, ENC5's with db
+    from the unrounded dgates) at every hidden size: the loops' 512
+    threads may hold 128 registers each (one block an SM), the GEMM's 256
+    threads 128 (two blocks an SM). The loops spill nothing, the GEMM at
+    most the 16 bytes that enc5's backward pre-pass spills (as on the H100
+    when this test was written)."""
     import ctypes
     from pufferlib_tpu_torch.ops.cuda import archive
     for H in (32, 64, 128):
-        out = (ctypes.c_int * 4)()
+        out = (ctypes.c_int * 6)()
         assert archive.KERNEL.lib().lstm_archive_tc_usage(H, out) == 0
         regs, spilled = list(out)[::2], list(out)[1::2]
         assert all(0 < r <= 128 for r in regs), (H, regs)
-        assert spilled[0] <= 16 and spilled[1] == 0, (H, spilled)
+        assert spilled[0] <= 16 and spilled[1:] == [0, 0], (H, spilled)
 
 
 @pytest.mark.parametrize('T,B,H', [(16, 8192, 128), (16, 1000, 128),

@@ -1,6 +1,7 @@
 """lstm_scan, lstm_scan_fused and lstm_scan_enc of the PyTorch port, and the
 tensor-core schedules of every resident bf16 kernel pair (the archived
-enc2 and enc4 backwards among them), against the JAX package, on the CPU.
+enc2, enc3, enc4 and enc6 backwards among them), against the JAX package,
+on the CPU.
 
 The port's side runs the kernels' plain versions (explicit forward and
 backward in PyTorch, what the autograd.Functions run for CPU tensors).
@@ -28,11 +29,14 @@ from pufferlib_tpu.ops.pallas import lstm_enc as jax_lstm_enc
 from pufferlib_tpu.ops.pallas.lstm_cat import lstm_scan_cat as jax_scan_cat
 from pufferlib_tpu.ops.pallas.lstm_enc5 import lstm_scan_enc5 as jax_scan_enc5
 from pufferlib_tpu.ops.pallas.archive import lstm_enc2 as jax_archive_enc2
+from pufferlib_tpu.ops.pallas.archive import lstm_enc3 as jax_archive_enc3
 from pufferlib_tpu.ops.pallas.archive import lstm_enc4 as jax_archive_enc4
+from pufferlib_tpu.ops.pallas.archive import lstm_enc6 as jax_archive_enc6
 
 from pufferlib_tpu_torch.ops.cuda import (
     archive, lstm_cat, lstm_common, lstm_enc, lstm_scan)
-from pufferlib_tpu_torch.ops.cuda.archive import lstm_enc2, lstm_enc4
+from pufferlib_tpu_torch.ops.cuda.archive import (
+    lstm_enc2, lstm_enc3, lstm_enc4, lstm_enc6)
 
 torch.set_num_threads(1)
 
@@ -319,8 +323,9 @@ def tc_schedule(x, h0, c0, w_ih, w_hh, b, cdt, rows=64, cat=False,
     FUSED's order): x @ W_ih + b is rounded to cdt before h @ W_hh is
     added, in both slabs. The reverse loop's two roundings are flags
     (lstm_tc.cuh backward_loop): round_acts rounds the activations to cdt
-    (mode ENC5), round_db sums db from the rounded dgates (ENC5 and the
-    archived ENC4 and ENC2). With encoder dx comes back in f32 for the relu
+    (mode ENC5 and the archived ENC3 and ENC6), round_db sums db from the
+    rounded dgates (ENC5 and the archived ENC2, ENC4 and ENC6). With
+    encoder dx comes back in f32 for the relu
     mask; with splits dW is summed split by split in the ring's partition
     (lstm_common.splitk_reference)."""
     T, B, D = x.shape
@@ -476,8 +481,8 @@ def enc5_tc_schedule(feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b, cdt,
     activations, db from the rounded dgates), masks dx with xs > 0 into
     dpre rounded to cdt, and takes dW_enc and db_enc as one contraction
     [feats | 1]^T dpre. cell: tc_schedule's options for the cell behind
-    the encoder, where they differ from ENC5's (the archived enc4 and
-    enc2)."""
+    the encoder, where they differ from ENC5's (the archived enc2, enc3
+    and enc4)."""
     T, B, F = feats.shape
 
     def rd(t):
@@ -486,7 +491,7 @@ def enc5_tc_schedule(feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b, cdt,
     xs = rd(torch.relu(f2 @ rd(w_enc) + b_enc.float())).to(cdt).reshape(
         T, B, -1)
     fwd, cell_backward = tc_schedule(xs, h0, c0, w_ih, w_hh, b, cdt, rows,
-        round_db=True, encoder=True, **{'cat': True, 'round_acts': True,
+        encoder=True, **{'cat': True, 'round_acts': True, 'round_db': True,
             **cell})
 
     def backward(g_outs, g_hT, g_cT):
@@ -682,9 +687,29 @@ def enc2_tc_schedule(*args, splits=3):
         splits=splits)
 
 
+def enc3_tc_schedule(*args, splits=3):
+    """What the archived enc3's bf16 backward (csrc/lstm_tc.cuh
+    tc::backward in mode ENC3) computes, in its order, with the forward it
+    shares with enc5: enc5_tc_schedule with db summed from the unrounded
+    dgates (the activations still rounded), dx = dg @ W_ih^T after the
+    loop in place of the TPU kernel's [dx | dh_prev] inside it, and dW
+    split `splits` ways in the ring's partition."""
+    return enc5_tc_schedule(*args, round_db=False, splits=splits)
+
+
+def enc6_tc_schedule(*args, splits=3):
+    """What the archived enc6's bf16 backward (csrc/lstm_tc.cuh
+    tc::backward in mode ENC6) computes: enc5's backward itself, whose
+    loop's two halves are enc6's two chains, with dW split `splits` ways
+    in the ring's partition."""
+    return enc5_tc_schedule(*args, splits=splits)
+
+
 ARCHIVED_SCHEDULES = {'enc2': (enc2_tc_schedule, lstm_enc2,
-    jax_archive_enc2.lstm_scan_enc2), 'enc4': (enc4_tc_schedule, lstm_enc4,
-    jax_archive_enc4.lstm_scan_enc4)}
+    jax_archive_enc2.lstm_scan_enc2), 'enc3': (enc3_tc_schedule, lstm_enc3,
+    jax_archive_enc3.lstm_scan_enc3), 'enc4': (enc4_tc_schedule, lstm_enc4,
+    jax_archive_enc4.lstm_scan_enc4), 'enc6': (enc6_tc_schedule, lstm_enc6,
+    jax_archive_enc6.lstm_scan_enc6)}
 
 
 @pytest.mark.parametrize('cdt', sorted(TD))
@@ -692,9 +717,10 @@ ARCHIVED_SCHEDULES = {'enc2': (enc2_tc_schedule, lstm_enc2,
 @pytest.mark.parametrize('kind', sorted(ARCHIVED_SCHEDULES))
 def test_archived_tensor_core_schedule_keeps_the_function(kind, B, F, H,
         cdt):
-    """The archived enc2's and enc4's bf16 backward schedules on the
-    tensor cores (enc2_tc_schedule, enc4_tc_schedule; D == H, as the
-    archive takes) against the port's plain versions on the same inputs
+    """The archived enc2's, enc3's, enc4's and enc6's bf16 backward
+    schedules on the tensor cores (enc2_tc_schedule, enc3_tc_schedule,
+    enc4_tc_schedule, enc6_tc_schedule; D == H, as the archive takes)
+    against the port's plain versions on the same inputs
     (1e-5 in f32, 2e-2 in bf16, of max(1, max |plain|) per tensor), and
     against the JAX package under the loss sum(outs ** 2) + sum(hT * cT):
     at B = 8 the archived Pallas kernel in interpret mode (the tolerances
@@ -752,19 +778,18 @@ def test_archived_tensor_core_schedule_keeps_the_function(kind, B, F, H,
 @pytest.mark.parametrize('kind', ['enc2', 'enc3', 'enc4', 'enc6'])
 def test_archived_backward_design(kind, cdt):
     """Which design each archived backward runs (archive.backward_design):
-    in bf16 enc2 and enc4 the tensor-core kernels of lstm_tc.cuh ('tc');
-    enc3 and enc6, and every f32 backward, lstm_archive.cu's FMA kernel
-    ('fma'). The C functions' argument lists follow it: the tensor-core
-    ones take lstm_enc_backward's (the P slab, the bf16 weights, the
-    phases)."""
+    in bf16 all four the tensor-core kernels of lstm_tc.cuh ('tc'); in f32
+    lstm_archive.cu's FMA kernel ('fma'). The C functions' argument lists
+    follow it: the tensor-core ones take lstm_enc_backward's (the P slab,
+    the bf16 weights, the phases), which also carry the FMA kernel's f32
+    scratch (enc3's and enc6's activations slab in the P slab's place)."""
     fn = f'lstm_{kind}_backward'
     design = archive.backward_design(fn, TD[cdt])
-    tc = kind in ('enc2', 'enc4')
-    assert design == ('tc' if tc and cdt == 'bfloat16' else 'fma')
+    assert design == ('tc' if cdt == 'bfloat16' else 'fma')
     args = archive.KERNEL.functions[fn]
     enc_backward = lstm_enc.KERNEL.functions['lstm_enc_backward']
-    assert (args == enc_backward) == tc and len(args) == (38 if tc else 36)
-    assert (fn in archive.TC_BACKWARDS) == (kind in ('enc2', 'enc4'))
+    assert args == enc_backward and len(args) == 38
+    assert fn in archive.TC_BACKWARDS
 
 
 @pytest.mark.parametrize('K,splits', [(131072, 66), (131072, 33), (1000, 1),

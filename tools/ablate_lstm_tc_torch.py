@@ -1,17 +1,17 @@
 """Where the time of the bf16 tensor-core kernels of lstm_scan,
-lstm_scan_fused, lstm_scan_cat, enc5 or the archived enc2 and enc4
-backwards goes, by ablation, on one NVIDIA GPU.
+lstm_scan_fused, lstm_scan_cat, enc5 or the archived enc2, enc3, enc4 and
+enc6 backwards goes, by ablation, on one NVIDIA GPU.
 
     python3 tools/ablate_lstm_tc_torch.py
-        [--kind fused|cat|enc5|scan|enc2|enc4] [--baseline CSRC_DIR]
-        [--only NAME ...]
+        [--kind fused|cat|enc5|scan|enc2|enc3|enc4|enc6]
+        [--baseline CSRC_DIR] [--only NAME ...]
 
 The machines the port is measured on run no stall profiler, so this tool
 removes one part of the recurrent loops of csrc/lstm_tc.cuh at a time and
 times what is left. It builds the kind's source
 (pufferlib_tpu_torch/csrc/lstm_scan.cu for fused, the default, and scan,
-lstm_cat.cu for cat, lstm_enc.cu for enc5, lstm_archive.cu for enc2 and
-enc4) as it is and in these variants, each a copy of the sources with one
+lstm_cat.cu for cat, lstm_enc.cu for enc5, lstm_archive.cu for the
+archived kinds) as it is and in these variants, each a copy of the sources with one
 edit, built by nvcc into a library of its own (under
 pufferlib_tpu_torch/_build/):
 
@@ -47,16 +47,28 @@ pufferlib_tpu_torch/_build/):
   reverse loop of enc4, a GEMM writes the projection xp = bf16(x @ W_ih
   + b) as a bf16 (T, B, 4H) slab, and mode XP's reverse loop reads it,
   recomputes xp_t + h_prev @ W_hh each step and sums db from the rounded
-  dgates (per step, into a table in shared memory).
+  dgates (per step, into a table in shared memory);
+- one-chain (every kind but scan, whose reverse loop is another; not an
+  ablation but the schedule that the archived enc6 set out to beat, its
+  TPU kernel's enc5): the reverse loop's two barriers a step, each over
+  one half of the block (half_sync), become block-wide __syncthreads, so
+  that the block's 64 rows step as one chain instead of two independent
+  halves of 32 whose products and cell math may overlap. Both halves
+  pass the same number of barriers a step, so nothing waits forever; the
+  numbers are the same bit for bit, only the schedule differs.
 
 With --baseline, also the same source of another csrc/ directory with the
 same C interface (an earlier version of these kernels). The variants run
 in turns, forward and back, each twice, at T = 16, B = 8192, D = H = 128
-(enc5, enc2, enc4: F = 49), bf16, and each run times the phases of the
-forward and the backward (chip_smoke.time_tc_phases: pre-pass, loop, dx,
-dW + db; enc5's encoder in both pre-passes, dpre for dx; scan's forward
-loop alone and its backward loop and dW; enc2's and enc4's backward
-alone, enc2-xp's projection in place of the pre-pass; cold L2). An
+(enc5 and the archived kinds: F = 49), bf16, and each run times the
+phases of the forward and the backward (chip_smoke.time_tc_phases:
+pre-pass, loop, dx, dW + db; enc5's encoder in both pre-passes, dpre for
+dx; scan's forward loop alone and its backward loop and dW; the archived
+kinds' backward alone, enc2-xp's projection in place of the pre-pass;
+cold L2), and the reverse loop's kernel alone in one whole backward call
+as torch.profiler reports its device time ('backward loop kernel': a
+phase is the difference of two means, and reads up to 0.1 ms apart run
+to run where the kernel alone does not). An
 ablated variant computes wrong numbers by design: only its times mean
 anything. The last line is one JSON object: the mean ms of each phase by
 variant, and the card's name and power limit.
@@ -288,13 +300,19 @@ ABLATIONS = {
             'if (M % 8 == 0 && N % 8 == 0 && ring_serves(a) && ring_serves(bm)) {',
             'if (false) {'),), ()),
     'enc2-xp': (XP_DB_LOOP, ()),
+    'one-chain': ((
+        ('        half_sync(side);\n        dh_mma<H>(dh, d_s, w_s, mt0, ug0, lane);\n'
+            '        half_sync(side);',
+            '        __syncthreads();\n        dh_mma<H>(dh, d_s, w_s, mt0, ug0, lane);\n'
+            '        __syncthreads();'),), ()),
 }
 # variants that change only some kinds' code
+ARCHIVED = ('enc2', 'enc3', 'enc4', 'enc6')
 ONLY_FOR = {'late-slab-load': ('cat', 'enc5'), 'xp-reorder-slab': ('scan',),
-    'enc2-xp': ('enc2',)}
+    'enc2-xp': ('enc2',), 'one-chain': ('fused', 'cat', 'enc5') + ARCHIVED}
 SOURCES = {'fused': 'lstm_scan.cu', 'cat': 'lstm_cat.cu',
-    'enc5': 'lstm_enc.cu', 'scan': 'lstm_scan.cu', 'enc2': 'lstm_archive.cu',
-    'enc4': 'lstm_archive.cu'}
+    'enc5': 'lstm_enc.cu', 'scan': 'lstm_scan.cu',
+    **{kind: 'lstm_archive.cu' for kind in ARCHIVED}}
 
 
 def start_build(name, csrc, edits, flags, build_dir, source):
@@ -331,6 +349,21 @@ def load(lib_path, kernel):
     return lib
 
 
+def loop_kernel_ms(torch, np, flush, kind, T=16, B=8192):
+    """Device ms of the reverse loop's kernel (every kind's backward runs
+    one whose name holds 'backward_loop') in a whole bf16 backward call
+    of kind at the main shape, by torch.profiler, cold L2."""
+    import chip_smoke
+    from pufferlib_tpu_torch.ops.cuda.timing import profiled_ms
+    launch_fwd, launch_bwd = chip_smoke.lstm_kinds()[kind][:2]
+    args, grads, cdt = chip_smoke.lstm_case(torch, np.random.RandomState(0),
+        kind, T, B, 'bfloat16')
+    with torch.no_grad():
+        outs, _, _, cseq = launch_fwd(*args, cdt)
+        return profiled_ms(lambda: launch_bwd(*args, outs, cseq, *grads,
+            cdt), flush, 'backward_loop')
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--kind', choices=sorted(SOURCES), default='fused')
@@ -346,7 +379,8 @@ def main(argv=None):
     from pufferlib_tpu_torch.ops.cuda import (
         _build, archive, lstm_cat, lstm_enc, lstm_scan)
     kernel = {'fused': lstm_scan, 'cat': lstm_cat, 'enc5': lstm_enc,
-        'scan': lstm_scan, 'enc2': archive, 'enc4': archive}[args.kind].KERNEL
+        'scan': lstm_scan, **{kind: archive for kind in ARCHIVED}}[
+        args.kind].KERNEL
     source = SOURCES[args.kind]
     from pufferlib_tpu_torch.ops.cuda.timing import card_line, l2_flush_buffer
     card = card_line()
@@ -377,14 +411,19 @@ def main(argv=None):
     for name in order:
         kernel._lib = libs[name]
         print(f'{name}:', flush=True)
-        runs[name].append(chip_smoke.time_tc_phases(torch, flush,
-            np.random.RandomState(0), args.kind))
+        phases = chip_smoke.time_tc_phases(torch, flush,
+            np.random.RandomState(0), args.kind)
+        phases['backward loop kernel'] = loop_kernel_ms(torch, np, flush,
+            args.kind)
+        print(f'  backward loop kernel {phases["backward loop kernel"]:.4f} '
+            'ms (profiler)', flush=True)
+        runs[name].append(phases)
     kernel._lib = None
     means = {n: {k: sum(r[k] for r in rs) / len(rs) for k in rs[0]}
         for n, rs in runs.items()}
     print(json.dumps({'card': card, 'kind': args.kind,
         'shape': 'T=16 B=8192 D=H=128' + (' F=49' if args.kind in
-            ('enc5', 'enc2', 'enc4') else '') + ' bf16',
+            ('enc5',) + ARCHIVED else '') + ' bf16',
         'phases_ms': means}), flush=True)
     return means
 

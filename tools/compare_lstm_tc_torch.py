@@ -10,13 +10,13 @@ A, B, B, A), on one card: two builds are compared only within one run
 as a child process in the tree, that tree's own chip_smoke.check_lstm
 (timed: CUDA events, cold L2, mean of 20) on the bf16 kernel pairs of
 lstm_scan (row 6), lstm_scan_fused (7), lstm_scan_cat (5), enc5 (3 fwd /
-4) and the archived enc2 (8) and enc4 (3 fwd / 10) at T 16, B 8192,
-D = H = 128 (the encoder kinds: F 49), and its own
-chip_smoke.time_tc_phases for the kinds it has phases of: the last
-backward phase of fused, cat, enc5, enc2 and enc4 is their weight
-gradients (the split-K and db's ordered sum), scan's is dW_hh alone. An
-older tree whose enc2 and enc4 backwards run on FMA has no phases of
-them. Each turn also prints, for each kind, the SHA-256 of every output
+4) and the archived enc2 (8), enc3 (3 fwd / 9), enc4 (3 fwd / 10) and
+enc6 (3 fwd / 11) at T 16, B 8192, D = H = 128 (the encoder kinds: F
+49), and its own chip_smoke.time_tc_phases for the kinds it has phases
+of: the last backward phase of fused, cat, enc5 and the archived kinds
+is their weight gradients (the split-K and db's ordered sum), scan's is
+dW_hh alone. An older tree whose archived backwards run on FMA has no
+phases of them: its whole backward is timed alone. Each turn also prints, for each kind, the SHA-256 of every output
 and gradient of one forward and backward call on inputs from a fixed
 seed: two trees whose digests of a kind agree compute it bit for bit
 alike. Each tree builds
@@ -30,7 +30,7 @@ import os
 import subprocess
 import sys
 
-KINDS = ('scan', 'fused', 'cat', 'enc5', 'enc2', 'enc4')
+KINDS = ('scan', 'fused', 'cat', 'enc5', 'enc2', 'enc3', 'enc4', 'enc6')
 
 # run inside a tree: its own chip_smoke, its own kernels
 CHILD = r'''
