@@ -85,11 +85,19 @@ steps, then two epochs of it in bf16 inside LSTMWrapper(128, 128) (the
 resident cat); no phase imports gymnasium. The spawned envpool workers
 import this script as their main module: its top level imports no torch.
 
-Prints one line per phase, a `{"kernels": [...]}` JSON line, the card's
-name and power limit, and last `{"ok": true, "device": {...},
-"profiler_lost": [...]}`, the last key naming the kernels whose second,
-profiler reading was lost (their device_ms is null). Any
-failing phase raises and the script exits non-zero without that line.
+The CLI phase (phase 17, last): the port's entry point, demo_torch.main,
+trains config.yaml's squared and memory sections for 3 epochs each on the
+card (GAE once an epoch; enc5's pair 16 times an epoch each way in
+memory, f32, as config.yaml names no dtype: that shape is held to its
+plain version first), runs --mode autotune over 8192 and 32768 lanes,
+then bench_torch.py in a child process at 20 epochs, whose JSON lines it
+prints as they came.
+
+Prints one line per phase, a `{"profiler_lost": [...]}` JSON line naming
+the kernels whose second, profiler reading was lost (their device_ms is
+null), a `{"kernels": [...]}` JSON line, the card's name and power
+limit, and last `{"ok": true, "device": {...}}`. Any failing phase raises
+and the script exits non-zero without that line.
 It exits non-zero at once when no CUDA device is present. It imports
 nothing of JAX.
 """
@@ -115,7 +123,7 @@ def l2_flush_buffer():
     return timing.l2_flush_buffer()
 
 
-# the kernels whose profiler reading was lost, named in the last line
+# the kernels whose profiler reading was lost, named on a line of their own
 PROFILER_LOST = []
 
 
@@ -123,7 +131,7 @@ def profiled_ms(fn, flush, name):
     """timing.profiled_ms, or None where the profiler lost the kernels'
     records in every window (CUPTI on the card's machine drops some): the
     profiler's time is a second reading beside the events' and decides
-    nothing, but a lost one is logged and named in the last line."""
+    nothing, but a lost one is logged and named on a line of its own."""
     from pufferlib_tpu_torch.ops.cuda import timing
     try:
         return timing.profiled_ms(fn, flush, name)
@@ -1728,7 +1736,9 @@ def main():
     # and 13 run
     gae_runs = [check_gae(torch, gae, flush, rng, T, E)
         for T, E in ((64, 8192), (64, 1000), (100, 257), (7, 33))
-            + tuple(ocean_gae)]
+            + tuple(ocean_gae)
+            # the CLI phase's bench headline and autotune's widest rung
+            + ((64, max(CLI_AUTOTUNE_LANES)),)]
     # the trainer's two shapes, then the bf16 kernel's other reach: H in
     # chunks (256, 512: configurations 1 and 2), a multidiscrete head (O =
     # 17), a ragged tile, f32 x under bf16 compute
@@ -1771,6 +1781,11 @@ def main():
         lstm_runs['enc5', B, f'bfloat16 F={F} H={H} T={T}'] = check_lstm(
             torch, flush, rng, 'enc5', B, 'bfloat16', T=T, H=H, F=F,
             timed=True)
+    # memory's (one feature, hidden 128) in f32, as the CLI phase's
+    # memory run launches it: config.yaml names no dtype
+    _, _, mb, bptt, _ = OCEAN_CONFIGS['memory']
+    lstm_runs['enc5', mb // bptt, 'float32 F=1 H=128 T=8'] = check_lstm(
+        torch, flush, rng, 'enc5', mb // bptt, 'float32', T=bptt, F=1)
     check_burn(torch, flush, rng)
     # enc5's bf16 kernels add every partial sum in a fixed order
     check_bit_equal(torch, rng, 'enc5', 8192)
@@ -1869,6 +1884,10 @@ def main():
     # proof), then wrapped in the LSTM (the resident cat kernels)
     run_visual_phase(torch, card)
 
+    # phase 17: the command-line entry point (demo_torch.py) and its bench
+    # (bench_torch.py)
+    cli_launches = run_cli_phase(torch, card)
+
     mlp_big, mlp_small = (mlp_runs[B, 'bfloat16'] for B in (131072, 8192))
     kernels = [
         dict(name='gae', route='cuda',
@@ -1880,6 +1899,8 @@ def main():
             plain_ms=gae_runs[0]['plain_ms'],
             bound_ms=gae_runs[0]['bound_ms'], bound_by=gae_runs[0]['bound_by'],
             library_ms=None, shape=gae_runs[0]['shape'],
+            # demo_torch's squared and memory runs (phase 17)
+            cli_launches=sum(n['gae_forward'] for n in cli_launches.values()),
             # the host trainer's flat GAE: one column of N - 1 steps, at
             # the Atari batch, once an epoch of phase 14
             flat_launches=atari_launches['gae_forward'],
@@ -1960,6 +1981,11 @@ def main():
             ms=main[f'{part}_ms'], plain_ms=main[f'{part}_plain_ms'],
             bound_ms=main[f'{part}_bound'], bound_by=main[f'{part}_by'],
             library_ms=main[f'{part}_lib'], shape=main['shape']))
+    # enc5's launches in demo_torch's memory run (phase 17, f32)
+    rows = {row['name']: row for row in kernels}
+    for part in ('forward', 'backward'):
+        rows[f'lstm_enc5_{part}']['cli_launches'] = \
+            cli_launches['memory'][f'lstm_enc_{part}']
     # cat's streamed design (csrc/lstm_cat_stream.cu): the Atari update's
     # shape in f32, as phase 14 runs it; enc5's at the default route's
     # hidden 256 in bf16, as phase 9 runs it, and in f32 (the same C
@@ -1998,13 +2024,118 @@ def main():
             library_ms=main[f'{part}_lib'], shape=main['shape']))
     kernels[-6]['kernels_per_call'] = stream_per_call['float32'][16][0]
     kernels[-5]['kernels_per_call'] = stream_per_call['float32'][16][1]
+    print(json.dumps({'profiler_lost': PROFILER_LOST}), flush=True)
     print(json.dumps({'kernels': kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu',
         'kind': torch.cuda.get_device_name(0),
-        'count': torch.cuda.device_count()},
-        'profiler_lost': PROFILER_LOST}), flush=True)
+        'count': torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+# the CLI phase (phase 17): epochs of each config.yaml training run, the
+# autotune ladder, and the bench's window
+CLI_EPOCHS = 3
+CLI_AUTOTUNE_LANES = (8192, 32768)
+CLI_BENCH_ENV = {'BENCH_EPOCHS': '20', 'BENCH_CHUNK': '10'}
+CLI_BENCH_METRICS = ['ocean_squared_ppo_sps_8k_lanes',
+    'ocean_squared_ppo_lstm_sps', 'ocean_squared_ppo_sps']
+
+
+def run_cli_phase(torch, card):
+    """The port's command-line entry point on the card. demo_torch.main
+    trains config.yaml's squared section (256 lanes, batch 16384,
+    minibatch 4096, bptt 8, Default h128) and its memory section
+    (LSTMWrapper(128), the default route: enc5) for CLI_EPOCHS epochs
+    each, every launch count set to 0 just before and read just after:
+    GAE once an epoch, and in memory enc5's forward and backward 16 times
+    an epoch each (4 update epochs x 4 minibatches), nothing else. Then
+    --mode autotune over CLI_AUTOTUNE_LANES (GAE once an epoch of each
+    rung: a warm-up and 8 timed), and bench_torch.py in a child process
+    at CLI_BENCH_ENV, its lines printed as they came, each value finite
+    and positive. Returns the launches of each training run by env."""
+    import gc
+    import math
+    import subprocess
+    import demo_torch
+    from pufferlib_tpu_torch.ops.cuda import KERNELS
+
+    def counted(argv):
+        for k in KERNELS:
+            k.reset_counts()
+        start = time.perf_counter()
+        result = demo_torch.main(argv)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - start
+        launches = {fn: n for k in KERNELS for fn, n in k.fn_launches.items()}
+        return result, elapsed, launches
+
+    data_dir = os.path.join(REPO, 'experiments', 'chip_smoke_cli')
+    train_launches = {}
+    for env, per_epoch in (('squared', {'gae_forward': 1}),
+            ('memory', {'gae_forward': 1, 'lstm_enc_forward': LSTM_PER_EPOCH,
+                'lstm_enc_backward': LSTM_PER_EPOCH})):
+        batch = OCEAN_CONFIGS[env][1]
+        data, elapsed, launches = counted(['--env', env, '--mode', 'train',
+            '--no-train.verbose', '--train.total_timesteps',
+            str(CLI_EPOCHS * batch), '--train.data_dir', data_dir])
+        want = dict.fromkeys(launches, 0)
+        for fn, n in per_epoch.items():
+            want[fn] = n * CLI_EPOCHS
+        if data.epoch != CLI_EPOCHS or launches != want or \
+                data.device.type != 'cuda':
+            raise AssertionError(f'demo_torch --env {env}: {data.epoch} '
+                f'epochs on {data.device}, launches {launches}, expected '
+                f'{want}')
+        losses = check_losses(data, f'demo_torch --env {env}')
+        log(f'cli: demo_torch.main --env {env} (config.yaml section, '
+            f'{data.vecenv.num_envs_total} lanes, batch {batch}): '
+            f'{CLI_EPOCHS} epochs in {elapsed:.2f} s of main() wall, trainer '
+            f'build included; launches '
+            f'{json.dumps({k: v for k, v in launches.items() if v})}; '
+            f'losses {json.dumps(losses)}; stats {json.dumps(data.stats)} '
+            f'on {card}')
+        train_launches[env] = launches
+        del data
+
+    os.environ['PUFFER_AUTOTUNE_LANES'] = ','.join(
+        str(n) for n in CLI_AUTOTUNE_LANES)
+    try:
+        results, elapsed, launches = counted(['--env', 'squared', '--mode',
+            'autotune'])
+    finally:
+        del os.environ['PUFFER_AUTOTUNE_LANES']
+    want = dict.fromkeys(launches, 0)
+    want['gae_forward'] = 9 * len(CLI_AUTOTUNE_LANES)
+    if sorted(results) != list(CLI_AUTOTUNE_LANES) or launches != want:
+        raise AssertionError(f'demo_torch --mode autotune: {results}, '
+            f'launches {launches}, expected {want}')
+    log(f'cli: demo_torch.main --mode autotune: steps/s by lanes '
+        f'{json.dumps(results)} in {elapsed:.1f} s; launches '
+        f'{json.dumps({k: v for k, v in launches.items() if v})} on {card}')
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    start = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.join(REPO,
+        'bench_torch.py')], cwd=REPO, env=dict(os.environ, **CLI_BENCH_ENV),
+        capture_output=True, text=True, timeout=600)
+    elapsed = time.perf_counter() - start
+    for line in proc.stderr.splitlines():
+        log(f'cli: bench_torch.py: {line}')
+    if proc.returncode:
+        raise AssertionError(f'bench_torch.py exited {proc.returncode}')
+    lines = [line for line in proc.stdout.splitlines() if line.strip()]
+    for line in lines:
+        print(line, flush=True)
+    records = [json.loads(line) for line in lines]
+    bad = [r for r in records
+        if not (math.isfinite(r['value']) and r['value'] > 0)]
+    if [r['metric'] for r in records] != CLI_BENCH_METRICS or bad:
+        raise AssertionError(f'bench_torch.py: lines {records}, expected '
+            f'{CLI_BENCH_METRICS} with finite positive values')
+    log(f'cli: bench_torch.py ({CLI_BENCH_ENV}) ok in {elapsed:.1f} s')
+    return train_launches
 
 
 def load_tool(name):

@@ -33,6 +33,7 @@ from those stored states. With num_minibatches == T // bptt_horizon (and
 lstm_time_slab_minibatches on) a minibatch is one time slab of all
 agents, fed time-major; otherwise it is a group of agent-major segments.
 """
+import time
 import uuid
 
 import torch
@@ -99,6 +100,8 @@ def default_config(**overrides):
         obs_store_dtype=None,
         checkpoint_interval=200,
         device='cuda',
+        # carried as the JAX trainer carries it (ppo.py:118), read nowhere
+        compile=True,
         verbose=True,
         # materialize device metrics at the profile interval even with
         # no verbose sink (sweeps read stats_history)
@@ -145,10 +148,13 @@ class TrainerData(Namespace):
         self.__dict__['_infos'] = value
 
 
-def create(config, vecenv, policy, device=None):
+def create(config, vecenv, policy, device=None, wandb=None):
     """Initialize train state on `device` (config.device when None, CUDA
     by default; raises when CUDA is asked for and absent). vecenv must be
-    a vector.Device on the same device. The policy is moved there."""
+    a vector.Device on the same device. The policy is moved there.
+    wandb: the wandb module (or a stand-in with its surface), the sink of
+    the metrics and of the model artifact at close(); the caller imports
+    it."""
     device = resolve_device(config.device if device is None else device)
     if vecenv.device != device:
         raise APIUsageError(
@@ -217,10 +223,14 @@ def create(config, vecenv, policy, device=None):
         _stats={},
         _infos={},
         stats_history=[],
+        wandb=wandb,
         global_step=0,
         epoch=0,
         last_lr=config.learning_rate,
         msg=f'Model Size: {count_params(policy)} parameters',
+        last_log_time=0.0,
+        utilization=None,
+        dashboard=None,
     )
 
 
@@ -569,8 +579,8 @@ def train(data):
         data.epoch += 1
         data.last_lr = lr
         done_training = data.global_step >= config.total_timesteps
-        if (profile.update(data) or done_training) and config.verbose:
-            _print_progress(data)
+        if profile.update(data) or done_training:
+            report(data)
         if data.epoch % config.checkpoint_interval == 0 or done_training:
             ckpt.save_checkpoint(data)
             data.msg = f'Checkpoint saved at update {data.epoch}'
@@ -603,21 +613,48 @@ def step_many(data, epochs):
 def _after_epochs(data, epochs):
     config = data.config
     done_training = data.global_step >= config.total_timesteps
-    wants_metrics = config.verbose or config.get('track_history', False)
+    # track_history: sweeps read the run's metric series
+    wants_metrics = (data.dashboard is not None or config.verbose
+        or data.wandb is not None or config.get('track_history', False))
     if (data.profile.update(data) or done_training) and wants_metrics:
         _materialize_metrics(data)
-        if config.verbose:
-            _print_progress(data)
+        report(data)
     if done_training or data.epoch % config.checkpoint_interval < epochs:
         ckpt.save_checkpoint(data)
         data.msg = f'Checkpoint saved at update {data.epoch}'
 
 
-def _print_progress(data):
-    print(f'epoch {data.epoch} step {data.global_step} '
-        f'SPS {data.profile.SPS:.3g} '
-        f'loss {data.losses.policy_loss:.4f} '
-        + ' '.join(f'{k}={v:.3f}' for k, v in data.stats.items()))
+def report(data):
+    """The metric sinks: the dashboard hook, else (verbose) a progress
+    line; then wandb. Shared with the host trainer."""
+    if data.dashboard is not None:
+        data.dashboard(data)
+    elif data.config.verbose:
+        print(f'epoch {data.epoch} step {data.global_step} '
+            f'SPS {data.profile.SPS:.3g} '
+            f'loss {data.losses.policy_loss:.4f} '
+            + ' '.join(f'{k}={v:.3f}' for k, v in data.stats.items()
+                if isinstance(v, float)))
+    _log_wandb(data)
+
+
+def _log_wandb(data):
+    """wandb sink, at most one log every 3 s (the JAX trainer's metric
+    names, ppo.py:901-917)."""
+    if data.wandb is None or data.global_step == 0:
+        return
+    if time.time() - data.last_log_time <= 3.0:
+        return
+    data.last_log_time = time.time()
+    data.wandb.log({
+        '0verview/SPS': data.profile.SPS,
+        '0verview/agent_steps': data.global_step,
+        '0verview/epoch': data.epoch,
+        '0verview/learning_rate': data.last_lr,
+        **{f'environment/{k}': v for k, v in data.stats.items()},
+        **{f'losses/{k}': v for k, v in data.losses.items()},
+        **{f'performance/{k}': v for k, v in data.profile},
+    })
 
 
 def _host_losses(stats):
@@ -668,7 +705,17 @@ def record_stats(data, stats=None):
 
 
 def close(data):
+    """Close the envs; with wandb, save a checkpoint, log it as the
+    `{exp_id}_model` artifact and finish the run (ppo.py:964-970). Shared
+    with the host trainer (ppo_host.py:479-486)."""
     data.vecenv.close()
+    if data.wandb is not None:
+        model_path = ckpt.save_checkpoint(data)
+        artifact = data.wandb.Artifact(
+            f'{data.config.exp_id}_model', type='model')
+        artifact.add_file(model_path)
+        data.wandb.run.log_artifact(artifact)
+        data.wandb.finish()
 
 
 def train_loop(data, fused=True):

@@ -31,8 +31,8 @@ from pufferlib_tpu_torch.ops.cuda.gae import compute_gae_flat_cuda
 from pufferlib_tpu_torch.training import checkpoint as ckpt
 from pufferlib_tpu_torch.training import media
 from pufferlib_tpu_torch.training.ppo import (
-    default_config, make_epoch_runner, make_minibatch_update, record_stats,
-    shuffle_permutations)
+    close, default_config, make_epoch_runner, make_minibatch_update,
+    record_stats, report, shuffle_permutations)
 from pufferlib_tpu_torch.training.profile import Profile, make_losses
 from pufferlib_tpu_torch.utils import profile as profile_deco
 from pufferlib_tpu_torch.utils import unroll_nested_dict
@@ -138,10 +138,12 @@ class Experience:
         return idxs
 
 
-def create(config, vecenv, policy, device=None):
+def create(config, vecenv, policy, device=None, wandb=None):
     """Initialize the host-env trainer (reference clean_pufferl.create) on
     `device` (config.device when None, CUDA by default; raises when CUDA
-    is asked for and absent). The policy is moved there."""
+    is asked for and absent). The policy is moved there. wandb: the sink
+    of the metrics and of the model artifact at close(), as in
+    training.ppo.create."""
     device = resolve_device(config.device if device is None else device)
     vecenv.async_reset(config.seed)
     obs_space = vecenv.single_observation_space
@@ -193,7 +195,11 @@ def create(config, vecenv, policy, device=None):
         stats={},
         infos={},
         stats_history=[],
+        wandb=wandb,
         msg=f'Model Size: {count_params(policy)} parameters',
+        last_log_time=0.0,
+        utilization=None,
+        dashboard=None,
     )
 
 
@@ -335,8 +341,8 @@ def evaluate(data, draws=None):
         data.stats = {}
         # *_map infos become wandb Images (reference
         # clean_pufferl.py:125-146); media keys skip numeric averaging
-        media_keys = media.collect_media_stats(infos, data.stats, None,
-            data)
+        media_keys = media.collect_media_stats(infos, data.stats,
+            data.wandb, data)
         for k, v in infos.items():
             if k in media_keys:
                 continue
@@ -480,14 +486,7 @@ def train(data, perms=None):
         data.last_lr = lr
 
         done_training = data.global_step >= config.total_timesteps
-        if (profile.update(data) or done_training) and config.verbose:
-            print(f'epoch {data.epoch} step {data.global_step} '
-                f'SPS {profile.SPS:.3g} ' + ' '.join(
-                f'{k}={v:.3f}' for k, v in data.stats.items()
-                if isinstance(v, float)))
+        if profile.update(data) or done_training:
+            report(data)
         if data.epoch % config.checkpoint_interval == 0 or done_training:
             ckpt.save_checkpoint(data)
-
-
-def close(data):
-    data.vecenv.close()

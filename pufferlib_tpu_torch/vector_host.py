@@ -11,9 +11,9 @@ This is the bridge that lets Atari/NetHack-class CPU envs feed the
 trainer on the card (training/ppo_host.py): workers simulate and write
 slabs; the driver assembles batches, which the trainer copies to the
 card. Neither torch nor gymnasium is imported here: every spawned worker
-imports this module and its env creator's. HostRay (ray is not
-installed) and profile_env / autotune (they wait for the CLI) are not
-ported.
+imports this module and its env creator's. HostRay imports ray when it is
+built; profile_env / autotune (reference vector.py:669-854) pick an
+envpool configuration for the CLI (psutil, imported when called).
 """
 import multiprocessing
 import os
@@ -708,6 +708,315 @@ class HostMultiprocessing:
         return self.agents_per_batch
 
 
+def profile_env(env_creator, env_args=None, env_kwargs=None,
+        time_per_test=2.0):
+    """Single-env profile: SPS, step-time std %, reset %, RAM/env and
+    obs bandwidth (reference vector.py:684-737)."""
+    import psutil
+    proc = psutil.Process()
+    load_ram = proc.memory_info().rss
+    # _wrap handles raw gymnasium/pettingzoo creators (method-style
+    # observation_space(agent) etc.) exactly like the backends do
+    env = _wrap(env_creator, env_args, env_kwargs)
+    num_agents = env.num_agents
+    obs_space = env.single_observation_space
+    atn_space = env.single_action_space
+    env.reset(seed=0)
+    if num_agents == 1:
+        actions = [atn_space.sample() for _ in range(1000)]
+    else:
+        actions = [np.stack([atn_space.sample()
+            for _ in range(num_agents)]) for _ in range(1000)]
+
+    steps = 0
+    idle_ram = proc.memory_info().rss
+    step_times, reset_times = [], []
+    start = time.time()
+    while time.time() - start < time_per_test:
+        s = time.time()
+        if env.done:
+            env.reset()
+            reset_times.append(time.time() - s)
+        else:
+            env.step(actions[steps % 1000])
+            step_times.append(time.time() - s)
+        steps += 1
+        idle_ram = max(idle_ram, proc.memory_info().rss)
+    env.close()
+
+    sum_time = sum(step_times) + sum(reset_times)
+    sps = steps * num_agents / max(sum_time, 1e-9)
+    obs_size_gb = (np.prod(obs_space.shape)
+        * np.dtype(obs_space.dtype).itemsize * num_agents / 1e9)
+    cores = psutil.cpu_count(logical=False) or 1
+    prof = namespace(
+        sps=sps,
+        step_std_pct=100 * float(np.std(step_times))
+            / max(float(np.mean(step_times)), 1e-9) if step_times else 0.0,
+        reset_pct=100 * sum(reset_times) / max(sum_time, 1e-9),
+        ram_gb_per_env=max(1, idle_ram - load_ram) / 1e9,
+        obs_size_gb=obs_size_gb,
+        bandwidth_gbs=obs_size_gb * sps,
+        num_cores=cores,
+        num_agents=num_agents,
+    )
+    prof.throughput_gbs = prof.bandwidth_gbs * cores
+    return prof
+
+
+def _candidate_configs(batch_size, max_envs, cores, throughput):
+    """The reference's 5 candidate strategies (vector.py:760-820):
+    one-batch-per-core, full-async, contiguous-blocks, full-sync,
+    serial."""
+    configs = []
+    # 1: one batch per core
+    strategy_cores = max(min(cores, max_envs // batch_size), 1)
+    configs.append(dict(num_envs=batch_size * strategy_cores,
+        num_workers=strategy_cores, batch_size=batch_size,
+        backend=HostMultiprocessing))
+    # 2/3: full async + contiguous blocks over envs_per_worker ladder
+    min_epw = int(np.ceil((batch_size + 1) / cores))
+    for envs_per_worker in range(max(min_epw, 1), batch_size + 1):
+        num_envs = envs_per_worker * cores
+        if num_envs > max_envs:
+            break
+        if batch_size % envs_per_worker != 0:
+            continue
+        if num_envs % batch_size != 0:
+            continue  # make() requires num_envs % batch_size == 0
+        # full async (copies out of the slabs)
+        configs.append(dict(num_envs=num_envs, num_workers=cores,
+            batch_size=batch_size, zero_copy=False,
+            backend=HostMultiprocessing))
+        if throughput > 0.5:
+            # contiguous blocks, zero-copy (reference strategy 3)
+            configs.append(dict(num_envs=num_envs, num_workers=cores,
+                batch_size=batch_size, zero_copy=True,
+                backend=HostMultiprocessing))
+    # 4: full sync
+    for strategy_cores in range(cores, 1, -1):
+        if batch_size % strategy_cores == 0:
+            configs.append(dict(num_envs=batch_size,
+                num_workers=strategy_cores, batch_size=batch_size,
+                backend=HostMultiprocessing))
+    # 5: serial
+    configs.append(dict(num_envs=batch_size, backend=HostSerial))
+    # dedup preserving order
+    seen, out = set(), []
+    for c in configs:
+        key = (c['num_envs'], c.get('num_workers'),
+            c.get('batch_size'), c.get('zero_copy'),
+            c['backend'].__name__)
+        if key not in seen:
+            seen.add(key)
+            out.append(c)
+    return out
+
+
+def autotune(env_creator, env_args=None, env_kwargs=None, batch_size=None,
+        max_envs=64, max_env_ram_gb=32, max_batch_hbm_gb=0.05,
+        time_per_config=2.0, max_configs=None):
+    """Find the best host-envpool config (reference vector.py:669-854):
+    profile a single env (SPS / step std / reset % / RAM / bandwidth),
+    cap env counts by RAM and core divisibility, then benchmark the
+    reference's 5 candidate strategies and report the winner."""
+    prof = profile_env(env_creator, env_args, env_kwargs,
+        time_per_test=min(time_per_config, 2.0))
+    cores = prof.num_cores
+    print('Profile complete')
+    print(f'    SPS: {prof.sps:.3f}')
+    print(f'    STD: {prof.step_std_pct:.3f}%')
+    print(f'    Reset: {prof.reset_pct:.3f}%')
+    print(f'    RAM: {1000 * prof.ram_gb_per_env:.3f} MB/env')
+    print(f'    Bandwidth: {prof.bandwidth_gbs:.3f} GB/s')
+    print(f'    Throughput: {prof.throughput_gbs:.3f} GB/s '
+        f'({cores} cores)')
+
+    # cap envs by RAM FIRST so batch_size and every candidate config
+    # respect the budget (reference vector.py:741-745)
+    max_by_ram = int(max_env_ram_gb // prof.ram_gb_per_env)
+    if max_by_ram < max_envs:
+        max_envs = max(max_by_ram, 1)
+        print(f'Reducing max envs to {max_envs} based on RAM')
+    if batch_size is None:
+        batch_size = max(min(max_envs, 2 * cores) // 2, 1)
+    if max_envs < batch_size:
+        raise APIUsageError('max_envs < batch_size')
+    # cap by core divisibility (reference :752-756)
+    hardware_envs = max_envs - (max_envs % cores)
+    if hardware_envs > batch_size and hardware_envs != max_envs:
+        max_envs = hardware_envs
+        print(f'Reducing max envs to {max_envs} based on core division')
+    # batch obs must fit the device staging budget (reference :758
+    # checks VRAM)
+    if max_batch_hbm_gb // max(prof.obs_size_gb, 1e-12) < batch_size:
+        raise APIUsageError('batch obs exceed max_batch_hbm_gb')
+
+    configs = _candidate_configs(batch_size, max_envs, cores,
+        prof.throughput_gbs)
+    if max_configs:
+        configs = configs[:max_configs]
+    results = []
+    for config in configs:
+        desc = {k: (v.__name__ if k == 'backend' else v)
+            for k, v in config.items()}
+        try:
+            vec = make(env_creator, env_args, env_kwargs, **config)
+            vec.async_reset()
+            obs, *_ = vec.recv()
+            steps = 0
+            start = time.time()
+            while time.time() - start < time_per_config:
+                vec.send(np.zeros((len(obs),
+                    *vec.single_action_space.shape), np.int64))
+                obs, *_ = vec.recv()
+                steps += len(obs)
+            sps = steps / (time.time() - start)
+            vec.close()
+            results.append((sps, desc))
+            print(f'SPS: {sps:.0f}  {desc}')
+        except Exception as e:
+            print(f'failed: {desc}: {e}')
+    if not results:
+        return None
+    best_sps, best = max(results, key=lambda kv: kv[0])
+    print(f'Best: {best} ({best_sps:.0f} SPS)')
+    return namespace(profile=prof, best=best, best_sps=best_sps,
+        results=results)
+
+
+class HostRay:
+    """Ray-actor envpool: each remote actor runs a HostSerial of
+    envs_per_worker envs (reference vector.py:449-574). batch_size <
+    num_envs enables env-pool mode via ray.wait on first-ready actors.
+
+    Requires ray, imported at construction; raises ImportError naming it
+    where it is not installed.
+    """
+
+    def __init__(self, env_creators, env_args=None, env_kwargs=None,
+            num_envs=1, num_workers=None, batch_size=None, seed=42,
+            **kwargs):
+        self.seed = seed
+        try:
+            import ray
+        except ImportError as e:
+            raise ImportError(
+                'HostRay requires ray, which is not installed; use '
+                'HostMultiprocessing instead') from e
+        if not ray.is_initialized():
+            ray.init(include_dashboard=False, ignore_reinit_error=True)
+        self._ray = ray
+
+        num_workers = num_workers or num_envs
+        if num_envs % num_workers != 0:
+            raise APIUsageError('num_envs must be divisible by num_workers')
+        envs_per_worker = num_envs // num_workers
+        batch_size = batch_size or num_envs
+        if num_envs % batch_size != 0:
+            raise APIUsageError('num_envs must be divisible by batch_size')
+        self.workers_per_batch = batch_size // envs_per_worker
+        if self.workers_per_batch < 1:
+            raise APIUsageError('batch_size must be >= envs_per_worker')
+        self.envs_per_worker = envs_per_worker
+        self.num_workers = num_workers
+        self.batch_size = batch_size
+        self.env_pool = batch_size != num_envs
+
+        driver = _wrap(env_creators if not isinstance(
+            env_creators, (list, tuple)) else env_creators[0],
+            env_args, env_kwargs)
+        self.driver_env = driver
+        self.emulated = driver.emulated
+        self.agents_per_env = driver.num_agents
+        self.num_agents = num_envs * driver.num_agents
+        self.agents_per_worker = driver.num_agents * envs_per_worker
+        self.agents_per_batch = self.workers_per_batch \
+            * self.agents_per_worker
+        self.single_observation_space = driver.single_observation_space
+        self.single_action_space = driver.single_action_space
+        driver.close()
+
+        remote_serial = ray.remote(HostSerial)
+        self.workers = [remote_serial.remote(
+            env_creators, env_args, env_kwargs, num_envs=envs_per_worker)
+            for _ in range(num_workers)]
+        self.futures = None
+        self.prev_env_ids = list(range(self.workers_per_batch))
+        self.flag = RESET
+        self.initialized = False
+
+    def async_reset(self, seed=None):
+        self.flag = RECV
+        if seed is None:
+            seed = getattr(self, 'seed', 42)
+        self.futures = [w.reset.remote(seed + i * self.envs_per_worker)
+            for i, w in enumerate(self.workers)]
+        # per-future kind: reset futures return (obs, infos), step
+        # futures a 5-tuple — both kinds coexist in env-pool mode
+        self.future_kind = ['reset'] * self.num_workers
+
+    def _normalize(self, result, kind):
+        a = self.agents_per_worker
+        if kind == 'reset':
+            obs, infos = result
+            return (obs, np.zeros(a, np.float32), np.zeros(a, bool),
+                np.zeros(a, bool), infos or [])
+        obs, rew, term, trunc, infos = result
+        return obs, rew, term, trunc, (infos or [])
+
+    def recv(self):
+        recv_precheck(self)
+        ray = self._ray
+        if self.env_pool:
+            ready, _ = ray.wait(
+                self.futures, num_returns=self.workers_per_batch)
+            env_ids = [self.futures.index(f) for f in ready]
+            results = ray.get(ready)
+        else:
+            env_ids = list(range(self.workers_per_batch))
+            results = ray.get(self.futures[:self.workers_per_batch])
+        self.prev_env_ids = env_ids
+
+        results = [self._normalize(r, self.future_kind[e])
+            for e, r in zip(env_ids, results)]
+        obs = np.concatenate([r[0] for r in results])
+        rew = np.concatenate([r[1] for r in results])
+        term = np.concatenate([r[2] for r in results])
+        trunc = np.concatenate([r[3] for r in results])
+        infos = [i for r in results for i in r[4]]
+        agent_ids = np.concatenate([np.arange(
+            e * self.agents_per_worker, (e + 1) * self.agents_per_worker)
+            for e in env_ids])
+        mask = np.ones(self.agents_per_batch, bool)
+        return obs, rew, term, trunc, infos, agent_ids, mask
+
+    def send(self, actions):
+        send_precheck(self)
+        actions = np.asarray(actions)
+        per_worker = np.array_split(actions, self.workers_per_batch)
+        for e, atns in zip(self.prev_env_ids, per_worker):
+            self.futures[e] = self.workers[e].step.remote(atns)
+            self.future_kind[e] = 'step'
+
+    def reset(self, seed=42):
+        self.async_reset(seed)
+        obs, _, _, _, infos, _, _ = self.recv()
+        return obs, infos
+
+    def step(self, actions):
+        self.send(actions)
+        return self.recv()[:5]
+
+    def close(self):
+        for w in self.workers:
+            self._ray.kill(w)
+
+    @property
+    def num_envs(self):
+        return self.num_agents
+
+
 def make(env_creator, env_args=None, env_kwargs=None, backend=HostSerial,
         num_envs=1, num_workers=None, batch_size=None, seed=42, **kwargs):
     """Host vectorization factory (reference vector.py:577-637)."""
@@ -715,7 +1024,7 @@ def make(env_creator, env_args=None, env_kwargs=None, backend=HostSerial,
         raise APIUsageError('num_envs must be at least 1')
     if batch_size is not None and num_envs % batch_size != 0:
         raise APIUsageError('num_envs must be divisible by batch_size')
-    if backend is HostMultiprocessing:
+    if backend in (HostMultiprocessing, HostRay):
         return backend(env_creator, env_args, env_kwargs,
             num_envs=num_envs, num_workers=num_workers,
             batch_size=batch_size, seed=seed, **kwargs)

@@ -262,7 +262,10 @@ def test_package_imports_no_jax():
         'pufferlib_tpu_torch.ops.cuda.lstm_cat, pufferlib_tpu_torch.ocean, '
         'pufferlib_tpu_torch.emulation, pufferlib_tpu_torch.vector, '
         'pufferlib_tpu_torch.ops.cuda.burn, '
-        'pufferlib_tpu_torch.environments.test.environment; '
+        'pufferlib_tpu_torch.environments.test.environment, '
+        'pufferlib_tpu_torch.config.cli, pufferlib_tpu_torch.vector_host, '
+        'pufferlib_tpu_torch.training.dashboard, '
+        'pufferlib_tpu_torch.training.ppo_host, demo_torch, bench_torch; '
         'bad = [m for m in sys.modules if m in ("jax", "flax", "optax", '
         '"pufferlib_tpu") or m.startswith(("jax.", "flax.", "optax.", '
         '"pufferlib_tpu."))]; '
