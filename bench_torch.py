@@ -2,7 +2,7 @@
 `squared`, on one NVIDIA GPU (counterpart of bench.py).
 
     python3 bench_torch.py                  # the three lines below
-    BENCH_ONLY=mlp|lstm|conv python3 bench_torch.py
+    BENCH_ONLY=mlp|lstm|conv|scaling python3 bench_torch.py
     BENCH_SMOKE=1 python3 bench_torch.py    # the CPU, a small size
 
 Measures end-to-end env steps/s of the fused trainer (rollout, GAE and
@@ -28,10 +28,19 @@ seconds in it (the trainers wait on the host).
 The MLP lines' minibatch is BENCH_MINIBATCH rows (131072), capped at a
 quarter of the batch: bench.py's minibatch at hidden 128 at both widths,
 so that each line does the reference line's PPO work per epoch. It is
-checked against ppo.create's contracts and printed to stderr. The
-scaling lines of bench.py wait for multi-device training and the
-transformer line for its model family (ROADMAP queue 1 items 3 and 4).
-Without a card the script raises, unless BENCH_SMOKE=1.
+checked against ppo.create's contracts and printed to stderr.
+
+On a machine with two or more cards the lines of bench.py's run_scaling
+print before the headline: `ocean_squared_scaling_eff_{n}dev` for each n
+in BENCH_SCALING_DEVICES ('2 4 8') up to the card count, the weak-scaling
+efficiency of tools/bench_scaling_torch.py (one NCCL rank a card, 256
+lanes a card x 32 steps, 5 epochs; the best of BENCH_SCALING_ATTEMPTS,
+2), each with `device` as the other lines: its window is the child
+process's whole run (every width, builds included), its CPU seconds all
+ranks' together. With fewer cards no scaling line prints and stderr says why;
+BENCH_ONLY=scaling then exits non-zero. The transformer line waits for
+its model family (ROADMAP queue 1 item 4). Without a card the script
+raises, unless BENCH_SMOKE=1.
 """
 import json
 import os
@@ -219,13 +228,86 @@ def run_conv(smoke=False):
     return line('ocean_visual_ppo_conv_lstm_sps', sps, card, window)
 
 
+def scaling_devices(cards):
+    """The widths of the scaling lines: BENCH_SCALING_DEVICES up to
+    `cards`, none with fewer than two cards."""
+    widths = [int(d) for d in os.environ.get('BENCH_SCALING_DEVICES',
+        '2 4 8').split()]
+    return [n for n in widths if 2 <= n <= cards] if cards >= 2 else []
+
+
+def run_scaling(cards):
+    """bench.py's run_scaling (bench.py:223-270) on the port: the lines
+    `ocean_squared_scaling_eff_{n}dev` from tools/bench_scaling_torch.py
+    in a child process, the best of BENCH_SCALING_ATTEMPTS runs a
+    width."""
+    import subprocess
+    devices = scaling_devices(cards)
+    if not devices:
+        return []
+    attempts = int(os.environ.get('BENCH_SCALING_ATTEMPTS', 2))
+    best, windows = {}, {}
+    for _ in range(max(attempts, 1)):
+        load_before = os.getloadavg()
+        cpu = _children_cpu_seconds()
+        start = time.perf_counter()
+        proc = subprocess.run([sys.executable, os.path.join(
+            os.path.dirname(os.path.abspath(__file__)), 'tools',
+            'bench_scaling_torch.py'), '--devices', '1',
+            *[str(d) for d in devices], '--envs-per-dev', '256',
+            '--horizon', '32', '--epochs', '5'], capture_output=True,
+            text=True, timeout=2400)
+        if proc.returncode:
+            raise RuntimeError('tools/bench_scaling_torch.py exited '
+                f'{proc.returncode}: {proc.stderr[-2000:]}')
+        window = dict(load_before=load_before, load_after=os.getloadavg(),
+            seconds=time.perf_counter() - start,
+            cpu_seconds=_children_cpu_seconds() - cpu)
+        for text in proc.stdout.splitlines():
+            rec = json.loads(text)
+            n = rec.get('devices')
+            if n in devices and rec['scaling_efficiency'] > best.get(n, 0):
+                best[n] = rec['scaling_efficiency']
+                windows[n] = window
+        if len(best) == len(devices) and min(best.values()) >= 0.8:
+            break
+    from pufferlib_tpu_torch.ops.cuda import timing
+    card = timing.card_line()
+    return [{
+        'metric': f'ocean_squared_scaling_eff_{n}dev',
+        'value': eff,
+        'unit': 'x',
+        'vs_baseline': round(eff / 0.8, 4),
+        'device': device_record(card, windows[n]),
+    } for n, eff in sorted(best.items())]
+
+
+def _children_cpu_seconds():
+    """CPU seconds of this process's finished children so far."""
+    t = os.times()
+    return t.children_user + t.children_system
+
+
 def main():
     smoke = os.environ.get('BENCH_SMOKE') == '1'
     only = os.environ.get('BENCH_ONLY')
-    if only not in (None, 'mlp', 'lstm', 'conv'):
-        raise SystemExit(f'BENCH_ONLY={only!r}: expected mlp, lstm or conv')
+    if only not in (None, 'mlp', 'lstm', 'conv', 'scaling'):
+        raise SystemExit(f'BENCH_ONLY={only!r}: expected mlp, lstm, conv '
+            'or scaling')
     if only == 'conv':
         print(json.dumps(run_conv(smoke=smoke)), flush=True)
+        return 0
+    import torch
+    cards = 0 if smoke else torch.cuda.device_count()
+    if not scaling_devices(cards):
+        why = (f'bench_torch: no scaling line: {cards} card(s) here, the '
+            'scaling lines need two or more (one NCCL rank a card)')
+        if only == 'scaling':
+            raise SystemExit(why)
+        print(why, file=sys.stderr, flush=True)
+    if only == 'scaling':
+        for rec in run_scaling(cards):
+            print(json.dumps(rec), flush=True)
         return 0
     # the headline (MLP) line last, for a parser of the last line
     if only is None and not smoke:
@@ -233,6 +315,10 @@ def main():
             metric_suffix='_8k_lanes')), flush=True)
     if only != 'mlp':
         print(json.dumps(run_one(use_rnn=True, smoke=smoke)), flush=True)
+    if only is None:
+        # the scaling lines before the headline
+        for rec in run_scaling(cards):
+            print(json.dumps(rec), flush=True)
     if only != 'lstm':
         headline_envs = None if (smoke or 'BENCH_NUM_ENVS' in os.environ) \
             else 32768

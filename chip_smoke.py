@@ -85,13 +85,22 @@ steps, then two epochs of it in bf16 inside LSTMWrapper(128, 128) (the
 resident cat); no phase imports gymnasium. The spawned envpool workers
 import this script as their main module: its top level imports no torch.
 
-The CLI phase (phase 17, last): the port's entry point, demo_torch.main,
+The CLI phase (phase 17): the port's entry point, demo_torch.main,
 trains config.yaml's squared and memory sections for 3 epochs each on the
 card (GAE once an epoch; enc5's pair 16 times an epoch each way in
 memory, f32, as config.yaml names no dtype: that shape is held to its
 plain version first), runs --mode autotune over 8192 and 32768 lanes,
 then bench_torch.py in a child process at 20 epochs, whose JSON lines it
 prints as they came.
+
+The data-parallel phase (phase 18, last): ppo.create(..., mesh=) on the
+card. A world-size-1 NCCL mesh, joined in this process through a file
+store, trains bench.py's MLP (fused head) and LSTM (enc5) lines and the
+layouts that gather the batch, in bf16 and f32, each against the same
+trainer with no mesh (losses, launches, steps/s); then two spawned gloo
+ranks share the card (NCCL takes one rank a device) and hold their
+losses and launches to that. Tensor parallelism and the scaling lines
+need two or more cards and are held on the CPU only.
 
 Prints one line per phase, a `{"profiler_lost": [...]}` JSON line naming
 the kernels whose second, profiler reading was lost (their device_ms is
@@ -830,14 +839,15 @@ def cudnn_lstm_ms(torch, flush, args, g_outs):
 def make_trainer(torch, num_envs=8192, horizon=64, hidden=128,
         dtype_name='bfloat16', use_kernel=False, minibatch_size=131072,
         seed=0, device='cuda', lstm_kernel=None, lstm_use_kernel=None,
-        lstm_input=None, lstm_layers=1):
+        lstm_input=None, lstm_layers=1, mesh=None, **overrides):
     """bench.py's `_8k_lanes` configuration (bench.py:33-81), on the port;
     with lstm_kernel ('enc5', 'cat' or 'off') its LSTM line instead
     (bench.py:53-57, 66): RecurrentPolicy(LSTMWrapper(Default)) with
     hidden size `hidden`, input size lstm_input (`hidden` when None:
     Default's encoder emits it, its head reads the LSTM's `hidden`) and
     lstm_layers layers, minibatch batch_size // 4 by the caller's choice
-    of minibatch_size."""
+    of minibatch_size. mesh: ppo.create's (phase 18); overrides: more
+    config fields."""
     import pufferlib_tpu_torch.vector as vector
     from pufferlib_tpu_torch.models import (
         Default, LSTMWrapper, Policy, RecurrentPolicy)
@@ -876,8 +886,9 @@ def make_trainer(torch, num_envs=8192, horizon=64, hidden=128,
         checkpoint_interval=1_000_000,
         seed=seed,
         device=device,
+        **overrides,
     )
-    return ppo, ppo.create(config, vecenv, policy)
+    return ppo, ppo.create(config, vecenv, policy, mesh=mesh)
 
 
 # launches of each LSTM C function per epoch of the 8192-lane trainer: 4
@@ -1888,6 +1899,10 @@ def main():
     # (bench_torch.py)
     cli_launches = run_cli_phase(torch, card)
 
+    # phase 18: data parallel on the card: a world-size-1 NCCL mesh
+    # against no mesh, then two gloo ranks sharing the card
+    dp_launches, dp2_launches = run_dp_phase(torch, card)
+
     mlp_big, mlp_small = (mlp_runs[B, 'bfloat16'] for B in (131072, 8192))
     kernels = [
         dict(name='gae', route='cuda',
@@ -1986,6 +2001,14 @@ def main():
     for part in ('forward', 'backward'):
         rows[f'lstm_enc5_{part}']['cli_launches'] = \
             cli_launches['memory'][f'lstm_enc_{part}']
+    # phase 18's counted epochs (bf16): the world-size-1 mesh, and one of
+    # the two ranks that share the card
+    for row, leg, fn in (('gae', 0, 'gae_forward'),
+            ('mlp_head', 0, 'mlp_head_forward'),
+            ('lstm_enc5_forward', 1, 'lstm_enc_forward'),
+            ('lstm_enc5_backward', 1, 'lstm_enc_backward')):
+        rows[row]['dp_launches'] = dp_launches[leg, 'bfloat16'][fn]
+        rows[row]['dp_rank_launches'] = dp2_launches[leg, 'bfloat16'][fn]
     # cat's streamed design (csrc/lstm_cat_stream.cu): the Atari update's
     # shape in f32, as phase 14 runs it; enc5's at the default route's
     # hidden 256 in bf16, as phase 9 runs it, and in f32 (the same C
@@ -2136,6 +2159,158 @@ def run_cli_phase(torch, card):
             f'{CLI_BENCH_METRICS} with finite positive values')
     log(f'cli: bench_torch.py ({CLI_BENCH_ENV}) ok in {elapsed:.1f} s')
     return train_launches
+
+
+# phase 18: data parallel on the card. Each leg: (name, make_trainer's
+# arguments, launches an epoch of each C function on a rank). The MLP
+# (the fused head, contiguous: each rank trains on its own rows) and LSTM
+# (enc5, time slabs) legs are bench.py's lines in the layouts that move no
+# data; the others gather every minibatch ([r::k] of the whole batch)
+DP_MLP = {'gae_forward': 1, 'mlp_head_forward': MLP_PER_EPOCH}
+DP_LSTM = {'gae_forward': 1, 'lstm_enc_forward': LSTM_PER_EPOCH,
+    'lstm_enc_backward': LSTM_PER_EPOCH}
+DP_LEGS = (
+    ('mlp', dict(use_kernel=True), DP_MLP),
+    ('lstm', dict(lstm_kernel='enc5'), DP_LSTM),
+    ('mlp agent-major (gather)', dict(use_kernel=True,
+        mlp_contiguous_minibatches=False), DP_MLP),
+    ('mlp shuffle (gather)', dict(use_kernel=True,
+        shuffle_minibatches=True), DP_MLP),
+    ('lstm agent-major (gather)', dict(lstm_kernel='enc5',
+        lstm_time_slab_minibatches=False), DP_LSTM),
+)
+# the legs of the two ranks that share the card (gloo): the two layouts
+# that move no data, and one through the gather path
+DP2_LEGS = (0, 1, 2)
+# a world-size-1 mesh against no mesh, and 2 ranks against 1: the first
+# epoch's losses, each within rtol * |want| + atol. f32: the JAX mesh
+# tests' tolerance; bf16: one rounding of a weight to bf16 can move a
+# loss by its last bits, and the sums are taken in another order
+DP_TOL = {'float32': (1e-4, 1e-5), 'bfloat16': (1e-2, 1e-4)}
+DP_EPOCHS = 2
+
+
+def _dp_compare(got, want, dtype_name, what):
+    rtol, atol = DP_TOL[dtype_name]
+    bad = {k: (got[k], v) for k, v in want.items()
+        if not abs(got[k] - v) <= rtol * abs(v) + atol}
+    if bad:
+        raise AssertionError(f'{what}: losses (got, want) {bad} past rtol '
+            f'{rtol}, atol {atol}')
+    return max(abs(got[k] - v) for k, v in want.items())
+
+
+def _dp_leg(torch, mesh, kwargs, per_epoch, dtype_name, what):
+    """A warm-up epoch (its losses returned), then DP_EPOCHS epochs with
+    every launch count set to 0 just before and read just after, checked
+    against per_epoch. Returns (warm-up losses, steps/s, launches)."""
+    from pufferlib_tpu_torch.ops.cuda import KERNELS
+    ppo, data = make_trainer(torch, dtype_name=dtype_name, mesh=mesh,
+        **kwargs)
+    ppo.step(data)
+    first = check_losses(data, what)
+    torch.cuda.synchronize()
+    for k in KERNELS:
+        k.reset_counts()
+    start = time.perf_counter()
+    for _ in range(DP_EPOCHS):
+        ppo.step(data)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - start
+    launches = {fn: n for k in KERNELS for fn, n in k.fn_launches.items()}
+    want = dict.fromkeys(launches, 0)
+    for fn, n in per_epoch.items():
+        want[fn] = n * DP_EPOCHS
+    if launches != want:
+        raise AssertionError(f'{what}: launches {launches}, expected {want}')
+    check_losses(data, what)
+    lanes = data.carry['done'].shape[0]
+    sps = DP_EPOCHS * data.config.batch_size / elapsed
+    del data
+    return first, sps, {k: v for k, v in launches.items() if v}, lanes
+
+
+def _dp_rank(legs, dtype_names):
+    """One of the two ranks that share the card: each leg of `legs` in
+    each dtype, as _dp_leg. Runs in a spawned process."""
+    import torch
+    from pufferlib_tpu_torch.ops.cuda import KERNELS
+    from pufferlib_tpu_torch.ops.cuda._build import build_all
+    from pufferlib_tpu_torch.parallel import make_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build_all(KERNELS)  # the parent's libraries: loaded, not rebuilt
+    mesh = make_mesh(2)
+    out = []
+    for i in legs:
+        name, kwargs, per_epoch = DP_LEGS[i]
+        for dtype_name in dtype_names:
+            out.append((i, dtype_name) + _dp_leg(torch, mesh, kwargs,
+                per_epoch, dtype_name, f'rank {mesh.get_rank()}: {name} '
+                f'{dtype_name}'))
+    return out
+
+
+def run_dp_phase(torch, card):
+    """Phase 18, data parallel on the card. (a) NCCL at world size 1
+    (make_mesh(1), joined in this process through a file store): each leg
+    of DP_LEGS in bf16 and f32, 8192 lanes x 64, its warm-up epoch's
+    losses held to the same trainer built with no mesh and the same seed
+    (DP_TOL), then DP_EPOCHS counted and timed epochs: GAE once an epoch,
+    the MLP head 81 times, enc5 16 times each way; the no-mesh trainer is
+    counted and timed the same way first. (b) Two ranks on this
+    one card over gloo (NCCL refuses two ranks on a device; gloo runs only
+    all_reduce and broadcast on CUDA tensors, all the trainer calls: the
+    gather path is a zero-padded all-reduce), spawned, each stepping 4096
+    of the lanes through DP2_LEGS: each rank's warm-up losses held to
+    (a)'s, its own launches counted as in (a). Returns (a)'s and one
+    rank's launches by leg."""
+    import tempfile
+    import torch.distributed as dist
+    from pufferlib_tpu_torch.parallel import init_distributed, make_mesh
+    from pufferlib_tpu_torch.parallel.multihost import spawn
+    dtypes = ('bfloat16', 'float32')
+    one, launches_one = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        init_distributed('file://' + os.path.join(tmp, 'rendezvous'), 1, 0,
+            device='cuda')
+        try:
+            mesh = make_mesh(1)
+            for i, (name, kwargs, per_epoch) in enumerate(DP_LEGS):
+                for dtype_name in dtypes:
+                    what = f'dp world 1 (NCCL): {name} {dtype_name}'
+                    want, base, _, _ = _dp_leg(torch, None, kwargs,
+                        per_epoch, dtype_name, what + ', no mesh')
+                    first, sps, launches, lanes = _dp_leg(torch, mesh,
+                        kwargs, per_epoch, dtype_name, what)
+                    err = _dp_compare(first, want, dtype_name, what)
+                    one[i, dtype_name] = first
+                    launches_one[i, dtype_name] = launches
+                    log(f'{what}: {lanes} lanes, {sps:.1f} steps/s over '
+                        f'{DP_EPOCHS} epochs after a warm-up epoch (no '
+                        f'mesh: {base:.1f}) on {card}; launches '
+                        f'{json.dumps(launches)}; warm-up losses within '
+                        f'{err:.3g} of no mesh')
+        finally:
+            dist.destroy_process_group()
+    ranks = spawn(_dp_rank, 2, args=(DP2_LEGS, dtypes), device='cuda',
+        backend='gloo', timeout=600)
+    for r, legs in enumerate(ranks):
+        for i, dtype_name, first, sps, launches, lanes in legs:
+            what = f'dp 2 ranks on one card (gloo), rank {r}: ' \
+                f'{DP_LEGS[i][0]} {dtype_name}'
+            err = _dp_compare(first, one[i, dtype_name], dtype_name, what)
+            log(f'{what}: {lanes} lanes, {sps:.1f} steps/s of the whole '
+                f'batch over {DP_EPOCHS} epochs after a warm-up epoch, the '
+                f'card shared by both ranks, on {card}; launches '
+                f'{json.dumps(launches)}; warm-up losses within {err:.3g} '
+                'of world size 1')
+    log('dp: tensor parallelism (a model axis) and the scaling lines need '
+        'two or more cards; on this one card they were not run, and are '
+        'held on the CPU only (gloo ranks: tests/test_torch_parallel.py, '
+        'tests/test_torch_multihost.py)')
+    return launches_one, {(i, d): launches for i, d, _, _, launches, _
+        in ranks[0]}
 
 
 def load_tool(name):

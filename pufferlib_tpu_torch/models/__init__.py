@@ -16,6 +16,7 @@ False. This package sets no global flag; a caller who wants full float32
 convolutions turns TF32 off (chip_smoke.py does).
 """
 import math
+import sys
 
 import numpy as np
 import torch
@@ -92,6 +93,19 @@ def _action_info(action_space):
     if isinstance(action_space, spaces.Discrete):
         return False, [int(action_space.n)]
     raise ValueError(f'Policies take flat action spaces, got {action_space}')
+
+
+def _linear(layer, x, dtype):
+    """nn.Linear `layer` on x in the compute dtype, as flax
+    Dense(dtype=cdt): input, weight and bias cast. A layer sharded over a
+    model axis (parallel.param_shardings: its weight a DTensor) takes x
+    whole and gives its output whole (parallel.mesh.sharded_linear)."""
+    weight, bias = layer.weight.to(dtype), layer.bias.to(dtype)
+    dtensor = sys.modules.get('torch.distributed.tensor')
+    if dtensor is not None and isinstance(weight, dtensor.DTensor):
+        from pufferlib_tpu_torch.parallel.mesh import sharded_linear
+        return sharded_linear(x.to(dtype), weight, bias)
+    return F.linear(x.to(dtype), weight, bias)
 
 
 def _uniform_(t, bound, generator):
@@ -201,8 +215,7 @@ class Default(nn.Module):
     def _dense(self, layer, x):
         # flax Dense(dtype=cdt) casts its input too: the LSTM hands the
         # head f32 hidden states
-        return F.linear(x.to(self.dtype), layer.weight.to(self.dtype),
-            layer.bias.to(self.dtype))
+        return _linear(layer, x, self.dtype)
 
     def encode_observations(self, observations):
         x = self.encoder_features(observations)
@@ -484,8 +497,7 @@ class Convolutional(nn.Module):
         self.heads = _Heads(action_space, hidden_size, generator)
 
     def _dense(self, layer, x):
-        return F.linear(x.to(self.dtype), layer.weight.to(self.dtype),
-            layer.bias.to(self.dtype))
+        return _linear(layer, x, self.dtype)
 
     def encode_observations(self, observations):
         cdt = self.dtype

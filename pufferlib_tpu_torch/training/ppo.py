@@ -32,13 +32,41 @@ stores it at each BPTT segment start (`lstm0`); every minibatch starts
 from those stored states. With num_minibatches == T // bptt_horizon (and
 lstm_time_slab_minibatches on) a minibatch is one time slab of all
 agents, fed time-major; otherwise it is a group of agent-major segments.
+
+Under a mesh (parallel.make_mesh / make_mesh_2d, `create(..., mesh=)`)
+one process runs each rank, and k ranks train what one trains, up to the
+order of float sums (the JAX mesh's contract):
+- rank r of the env axis's k steps lanes [r * L / k, (r + 1) * L / k) of
+  the vecenv's L (agent rows likewise); vecenv and config.batch_size stay
+  global, as in JAX;
+- every rank seeds its generator with config.seed and draws every draw
+  at the global width (the sampler's uniforms, then the env's reset and
+  step draws, then the shuffle permutations), keeping its own block: at
+  k = 1 this is the no-mesh stream;
+- minibatch i holds the rows of minibatch i of one rank, an equal share
+  on each: the time slabs and the contiguous MLP layout (a minibatch a
+  multiple of the agent rows) split that way as they lie; the agent-major
+  and shuffled layouts gather the batch once after GAE (a zero-padded
+  byte all-reduce) and take segments [r::k] of each minibatch;
+- every mean of the loss is global (ops/losses.py), one all-reduce of a
+  flat gradient buffer a minibatch sums the ranks' parts, and the stats,
+  explained variance, info sums and episode counts are global, so every
+  rank takes the same target_kl decision;
+- GAE runs on each rank's own lanes (the JAX shard_map), with no
+  collective;
+- under a 'model' axis the Linear layers shard (parallel.param_shardings)
+  and each grad's sum of squares is reduced over it before the global
+  norm; the CUDA kernels are refused there (a DTensor cannot enter them);
+- checkpoint files, the progress line, the dashboard and wandb are rank
+  0's; a collective they need is called by every rank.
 """
 import time
 import uuid
 
 import torch
+import torch.distributed as dist
 
-from pufferlib_tpu_torch import resolve_device
+from pufferlib_tpu_torch import resolve_device, spaces
 from pufferlib_tpu_torch.exceptions import APIUsageError
 from pufferlib_tpu_torch.models import count_params
 from pufferlib_tpu_torch.namespace import Namespace, namespace
@@ -148,13 +176,18 @@ class TrainerData(Namespace):
         self.__dict__['_infos'] = value
 
 
-def create(config, vecenv, policy, device=None, wandb=None):
+def create(config, vecenv, policy, device=None, wandb=None, mesh=None):
     """Initialize train state on `device` (config.device when None, CUDA
     by default; raises when CUDA is asked for and absent). vecenv must be
     a vector.Device on the same device. The policy is moved there.
     wandb: the wandb module (or a stand-in with its surface), the sink of
     the metrics and of the model artifact at close(); the caller imports
-    it."""
+    it, and passes it on every rank or on none.
+    mesh: a DeviceMesh with an 'env' axis (parallel.make_mesh), and
+    optionally a 'model' axis (make_mesh_2d): this process trains as its
+    rank of it (the module docstring). Every rank builds the same policy
+    from the same seed (checked here: rank 0's params are broadcast and
+    compared) and passes the same global vecenv and config."""
     device = resolve_device(config.device if device is None else device)
     if vecenv.device != device:
         raise APIUsageError(
@@ -185,25 +218,42 @@ def create(config, vecenv, policy, device=None, wandb=None):
     if num_minibatches * seg_rows != num_segments:
         raise APIUsageError('minibatch geometry does not tile the batch')
 
+    recurrent = getattr(policy, 'lstm', None) is not None
+    axis = None
+    if mesh is not None:
+        axis = _mesh_axis(mesh, policy, device, recurrent, num_envs,
+            total_agents, seg_rows, vecenv.single_action_space)
+    lanes = slice(None) if axis is None else axis.lanes
+
     generator = torch.Generator(device=device)
     generator.manual_seed(config.seed)
 
     reset_batch, step_batch = make_env_ops(env, vecenv.emulated)
     env_states, obs, dones = reset_batch(
-        env.sample_reset(num_envs, device, generator))
+        env.sample_reset(num_envs, device, generator)[lanes])
 
     policy.to(device)
-    recurrent = getattr(policy, 'lstm', None) is not None
-    lstm_state = policy.initial_state(total_agents, device=device) \
+    if axis is not None:
+        _check_same_params(policy)
+        # one run, one directory: rank 0's exp_id (default_config draws
+        # a new one in each process)
+        exp_id = [config.exp_id]
+        dist.broadcast_object_list(exp_id, src=0)
+        config.exp_id = exp_id[0]
+        if axis.plan:
+            from torch.distributed.tensor.parallel import parallelize_module
+            parallelize_module(policy, axis.model, axis.plan)
+    rows = total_agents if axis is None else total_agents // axis.k
+    lstm_state = policy.initial_state(rows, device=device) \
         if recurrent else None
     optimizer = torch.optim.Adam(policy.parameters(),
         lr=config.learning_rate, betas=(0.9, 0.999), eps=1e-5)
 
     obs_shape = tuple(vecenv.single_observation_space.shape)
     rollout_fn = make_rollout_fn(policy, env, step_batch, config, T,
-        generator, mask_fn=make_mask_fn(env))
+        generator, mask_fn=make_mask_fn(env), axis=axis)
     update_fn = make_update_fn(policy, optimizer, config, T, total_agents,
-        num_minibatches, seg_rows, obs_shape, generator)
+        num_minibatches, seg_rows, obs_shape, generator, axis=axis)
 
     carry = dict(env=env_states, done=dones, obs=obs, lstm=lstm_state)
     return TrainerData(
@@ -216,6 +266,8 @@ def create(config, vecenv, policy, device=None, wandb=None):
         carry=carry,
         rollout_fn=rollout_fn,
         update_fn=update_fn,
+        mesh=mesh,
+        rank=0 if mesh is None else dist.get_rank(),
         pending=None,
         batch=None,
         profile=Profile(),
@@ -234,8 +286,74 @@ def create(config, vecenv, policy, device=None, wandb=None):
     )
 
 
+def _mesh_axis(mesh, policy, device, recurrent, num_envs, total_agents,
+        seg_rows, action_space):
+    """create()'s checks of a mesh, and what the trainer keeps of it:
+    parallel.mesh.env_axis's record, plus this rank's `lanes` and `rows`
+    slices, the global `num_envs` and agent rows (`width`), the sampler's
+    uniforms a row (`components`) and the tensor-parallel `plan`."""
+    from pufferlib_tpu_torch.parallel.mesh import env_axis, param_shardings
+    if torch.device(mesh.device_type).type != device.type:
+        raise APIUsageError(f'the mesh is on {mesh.device_type}, the '
+            f'trainer on {device}')
+    axis = env_axis(mesh)
+    k = axis.k
+    for what, n in (('lanes', num_envs), ('agent rows', total_agents),
+            ('segments a minibatch (minibatch_size // bptt_horizon)',
+                seg_rows)):
+        if n % k:
+            raise APIUsageError(f'{n} {what} do not divide over the env '
+                f'axis of {k} ranks')
+    axis.plan = {}
+    if axis.model is not None:
+        module = policy.module
+        inner = getattr(module, 'policy', None)
+        use_kernel = getattr(module, 'use_kernel', False)
+        # LSTMWrapper's None is a kernel on the card, Default's is not
+        if (use_kernel is True or (recurrent and use_kernel is None)
+                or getattr(inner, 'use_kernel', False) is True):
+            raise APIUsageError("a mesh with a 'model' axis (tensor "
+                'parallelism) requires use_kernel=False on the policy '
+                'module (LSTMWrapper / Default): a sharded weight cannot '
+                'enter the CUDA kernels')
+        axis.plan = param_shardings(mesh, policy)
+    lane_n, row_n = num_envs // k, total_agents // k
+    axis.lanes = slice(axis.r * lane_n, (axis.r + 1) * lane_n)
+    axis.rows = slice(axis.r * row_n, (axis.r + 1) * row_n)
+    axis.num_envs = num_envs
+    axis.width = total_agents
+    axis.components = len(action_space.nvec) if isinstance(action_space,
+        spaces.MultiDiscrete) else 1
+    return axis
+
+
+def _check_same_params(policy):
+    """Every rank must start from rank 0's params (each builds them from
+    the same seed): broadcast rank 0's and compare, raising on every rank
+    together when one differs."""
+    flat = torch.cat([p.detach().reshape(-1).float()
+        for p in policy.parameters()])
+    ref = flat.clone()
+    dist.broadcast(ref, src=0)
+    bad = torch.tensor(float(not torch.equal(ref, flat)), device=flat.device)
+    dist.all_reduce(bad)
+    if bad.item():
+        raise APIUsageError(f'the policy params differ from rank 0\'s on '
+            f'{int(bad.item())} rank(s): build the policy from the same '
+            'seed on every rank')
+
+
+def _all_reduce_stack(values, group):
+    """The tensors of `values` (on one device) summed over the group, in
+    one all-reduce of float64 (exact for counts); returns the stacked
+    sums."""
+    total = torch.stack([v.double() for v in values])
+    dist.all_reduce(total, group=group)
+    return total
+
+
 def make_rollout_fn(policy, env, step_batch, config, T, generator,
-        mask_fn=None):
+        mask_fn=None, axis=None):
     """rollout(carry, draws=None) -> (carry, batch, info_sums,
     episode_count).
 
@@ -250,7 +368,12 @@ def make_rollout_fn(policy, env, step_batch, config, T, generator,
     reused. `draws` ({'u': (T, N, k) sampler uniforms, 'reset': (T, lanes,
     ...) env reset draws, and 'step': (T, lanes, ...) env step draws for
     an env that draws at each step}) replaces the generator's, so a test
-    can replay another implementation's randomness."""
+    can replay another implementation's randomness.
+
+    axis (create's, under a mesh): the carry holds this rank's lanes;
+    every draw is made (or injected) at the global width and sliced to
+    them, and the info sums and episode count come back summed over the
+    env axis."""
     store_dtype = config.get('obs_store_dtype', None)
     store_dtype = getattr(torch, store_dtype) if store_dtype else None
     recurrent = getattr(policy, 'lstm', None) is not None
@@ -269,6 +392,11 @@ def make_rollout_fn(policy, env, step_batch, config, T, generator,
         for t in range(T):
             obs = c['obs']
             u = None if draws is None else draws['u'][t]
+            if axis is not None:
+                if u is None:
+                    u = torch.rand((axis.width, axis.components),
+                        generator=generator, device=obs.device)
+                u = u[axis.rows]
             lstm = c['lstm']
             if recurrent:
                 if t % horizon == 0:
@@ -279,13 +407,17 @@ def make_rollout_fn(policy, env, step_batch, config, T, generator,
             else:
                 action, logprob, _, value = policy(obs, generator=generator,
                     u=u)
-            lanes = c['done'].shape[0]
+            width = c['done'].shape[0] if axis is None else axis.num_envs
             if draws is None:
-                reset_draws = env.sample_reset(lanes, obs.device, generator)
-                step_draws = env.sample_step(lanes, obs.device, generator)
+                reset_draws = env.sample_reset(width, obs.device, generator)
+                step_draws = env.sample_step(width, obs.device, generator)
             else:
                 reset_draws = draws['reset'][t]
                 step_draws = draws['step'][t] if 'step' in draws else None
+            if axis is not None:
+                reset_draws = reset_draws[axis.lanes]
+                if step_draws is not None:
+                    step_draws = step_draws[axis.lanes]
             if mask_fn is not None:
                 store('mask', t, mask_fn(c['env']))
             (env_states, done_next, next_obs, reward, done, trunc,
@@ -317,13 +449,18 @@ def make_rollout_fn(policy, env, step_batch, config, T, generator,
         info_sums = {k[len('info/'):]: v.sum() for k, v in bufs.items()
             if k.startswith('info/')}
         episode_count = bufs['ended'].sum()
+        if axis is not None:
+            total = _all_reduce_stack(list(info_sums.values())
+                + [episode_count], axis.group).unbind()
+            info_sums = dict(zip(info_sums, total[:-1]))
+            episode_count = total[-1]
         return c, batch, info_sums, episode_count
 
     return rollout
 
 
 def make_minibatch_update(policy, optimizer, config, seg_rows, obs_shape,
-        time_major=False):
+        time_major=False, axis=None):
     """One PPO minibatch update (ppo.py:462-532): update(mb, lr, stop) ->
     stats, in place on the policy's parameters. mb is a dict of (rows, h,
     ...) tensors, or with time_major (the recurrent time-slab layout)
@@ -332,11 +469,20 @@ def make_minibatch_update(policy, optimizer, config, seg_rows, obs_shape,
     (layers, rows, H) time-major, else (rows, layers, H). With `stop`
     (target_kl's early stop) the stats are computed and the step skipped,
     as the JAX select keeps the old params. Shared by make_epoch_runner
-    and the host trainer's cpu_offload path."""
+    and the host trainer's cpu_offload path.
+
+    axis (create's, under a mesh): mb is this rank's share of the
+    minibatch (seg_rows its segments); the loss's means are over the
+    whole minibatch, one all-reduce of a flat buffer sums the ranks'
+    gradients over the env axis, and a grad sharded over the model axis
+    has its sum of squares reduced over it before the global norm."""
     h = config.bptt_horizon
     params = list(policy.parameters())
     recurrent = getattr(policy, 'lstm', None) is not None
     obs_shape = tuple(obs_shape)
+    env_group = None if axis is None else axis.group
+    if axis is not None:
+        from pufferlib_tpu_torch.parallel.mesh import full, local
 
     def update(mb, lr, stop=False):
         lead = (h, seg_rows) if time_major else (seg_rows, h)
@@ -367,12 +513,20 @@ def make_minibatch_update(policy, optimizer, config, seg_rows, obs_shape,
             norm_adv=config.norm_adv,
             clip_vloss=config.clip_vloss,
             mask=mb['mask'].reshape(-1) if 'mask' in mb else None,
+            group=env_group,
         )
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
         grads = [p.grad for p in params]
-        # optax.global_norm: sqrt of the sum of every leaf's squares
-        gnorm = torch.stack([g.square().sum() for g in grads]).sum().sqrt()
+        if axis is None:
+            # optax.global_norm: sqrt of the sum of every leaf's squares
+            gnorm = torch.stack([g.square().sum() for g in grads]).sum(
+                ).sqrt()
+        else:
+            grads = [local(g) for g in grads]
+            _sum_over(grads, env_group)
+            gnorm = torch.stack([full(p.grad.square().sum())
+                for p in params]).sum().sqrt()
         stats['grad_norm'] = gnorm
         if not stop:
             scale = (config.max_grad_norm / (gnorm + 1e-12)).clamp(max=1.0)
@@ -386,6 +540,51 @@ def make_minibatch_update(policy, optimizer, config, seg_rows, obs_shape,
     return update
 
 
+def _sum_over(tensors, group):
+    """Sum each tensor over the group's ranks, in place, in one all-reduce
+    of a flat buffer."""
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    dist.all_reduce(flat, group=group)
+    offset = 0
+    for t in tensors:
+        t.copy_(flat[offset:offset + t.numel()].view_as(t))
+        offset += t.numel()
+
+
+def _gather_rows(tensors, dims, axis):
+    """Each tensor's blocks along its dim from every rank of the env
+    axis, concatenated in rank order, on every rank. One all-reduce of a
+    zero-padded byte buffer: rank r writes its bytes into row r, so each
+    summed byte is one rank's plus zeros, the bits exactly (NCCL, and
+    gloo on CUDA tensors, both run it)."""
+    k, r = axis.k, axis.r
+    parts = [t.movedim(d, 0).contiguous() for t, d in zip(tensors, dims)]
+    raw = [p.reshape(-1).view(torch.uint8) for p in parts]
+    buf = torch.zeros((k, sum(b.numel() for b in raw)), dtype=torch.uint8,
+        device=raw[0].device)
+    buf[r] = torch.cat(raw)
+    dist.all_reduce(buf, group=axis.group)
+    out, offset = [], 0
+    for p, d, b in zip(parts, dims, raw):
+        block = buf[:, offset:offset + b.numel()].contiguous().view(p.dtype)
+        out.append(block.reshape((k * p.shape[0],) + tuple(p.shape[1:]))
+            .movedim(0, d))
+        offset += b.numel()
+    return out
+
+
+def _global_variances(xs, group):
+    """Population variance of each flat tensor over every rank's rows:
+    the means in one all-reduce, then the squared deviations in one."""
+    n = len(xs)
+    first = _all_reduce_stack([x.new_tensor(float(x.numel())) for x in xs]
+        + [x.sum() for x in xs], group)
+    counts, means = first[:n], first[n:] / first[:n]
+    second = _all_reduce_stack([(x.double() - m).square().sum()
+        for x, m in zip(xs, means)], group)
+    return (second / counts).float()
+
+
 def shuffle_permutations(config, S, generator):
     """(update_epochs, S) segment permutations of shuffle_minibatches,
     drawn from `generator` on its device (ppo.py:553-556)."""
@@ -394,7 +593,8 @@ def shuffle_permutations(config, S, generator):
 
 
 def make_epoch_runner(policy, optimizer, config, seg_rows, num_minibatches,
-        S, obs_shape, time_major=False, prestacked=False):
+        S, obs_shape, time_major=False, prestacked=False, axis=None,
+        gathered=False):
     """The PPO epoch x minibatch loop over pre-segmented data
     (ppo.py:535-595): run_epochs(seg_batch, lr, perms=None) -> mean
     stats.
@@ -405,11 +605,18 @@ def make_epoch_runner(policy, optimizer, config, seg_rows, num_minibatches,
     minibatch i of epoch e is segments perms[e][i * seg_rows:(i + 1) *
     seg_rows] (perms from shuffle_permutations, or another
     implementation's, which a test injects); else the i-th contiguous
-    run. Shared by the device trainer and the host trainer (ppo_host)."""
+    run. Shared by the device trainer and the host trainer (ppo_host).
+
+    axis (create's, under a mesh): seg_rows and S stay global; this rank
+    runs seg_rows // k segments a minibatch. seg_batch is this rank's own
+    segments, or with `gathered` every rank's, of which rank r takes
+    segments [r::k] of each minibatch."""
     has_target_kl = config.target_kl is not None
     shuffle = config.get('shuffle_minibatches', False)
-    mb_update = make_minibatch_update(policy, optimizer, config, seg_rows,
-        obs_shape, time_major=time_major)
+    k, r = (1, 0) if axis is None else (axis.k, axis.r)
+    rows = seg_rows // k
+    mb_update = make_minibatch_update(policy, optimizer, config, rows,
+        obs_shape, time_major=time_major, axis=axis)
     if prestacked and shuffle:
         raise APIUsageError(
             'shuffle_minibatches requires the segment-major layout '
@@ -418,11 +625,16 @@ def make_epoch_runner(policy, optimizer, config, seg_rows, num_minibatches,
     def minibatch(seg_batch, i, perm):
         if perm is not None:
             idx = perm[i * seg_rows:(i + 1) * seg_rows]
-            return {k: v[idx] for k, v in seg_batch.items()}
+            if gathered:
+                idx = idx[r::k]
+            return {k_: v[idx] for k_, v in seg_batch.items()}
         if prestacked:
-            return {k: v[i] for k, v in seg_batch.items()}
-        return {k: v[i * seg_rows:(i + 1) * seg_rows]
-            for k, v in seg_batch.items()}
+            return {k_: v[i] for k_, v in seg_batch.items()}
+        if gathered:
+            return {k_: v[i * seg_rows + r:(i + 1) * seg_rows:k]
+                for k_, v in seg_batch.items()}
+        return {k_: v[i * rows:(i + 1) * rows]
+            for k_, v in seg_batch.items()}
 
     def run_epochs(seg_batch, lr, perms=None):
         if shuffle and perms is None:
@@ -436,20 +648,29 @@ def make_epoch_runner(policy, optimizer, config, seg_rows, num_minibatches,
                 all_stats.append(mb_update(minibatch(seg_batch, i, perm),
                     lr, stop))
             if has_target_kl and not stop:
-                # the one host read per epoch (ppo.py:583-585)
+                # the one host read per epoch (ppo.py:583-585); under a
+                # mesh approx_kl is global, so every rank stops together
                 stop = bool(all_stats[-1]['approx_kl'] > config.target_kl)
-        return {k: torch.stack([s[k] for s in all_stats]).mean()
-            for k in all_stats[0]}
+        return {k_: torch.stack([s[k_] for s in all_stats]).mean()
+            for k_ in all_stats[0]}
 
     return run_epochs
 
 
 def make_update_fn(policy, optimizer, config, T, total_agents,
-        num_minibatches, seg_rows, obs_shape, generator=None):
+        num_minibatches, seg_rows, obs_shape, generator=None, axis=None):
     """update(batch, lr, perms=None) -> mean stats: GAE + update_epochs x
     minibatch PPO on the policy's parameters, in place
     (ppo.py:598-711). With shuffle_minibatches the epochs' segment
-    permutations are drawn from `generator` unless perms is given."""
+    permutations are drawn from `generator` unless perms is given.
+
+    axis (create's, under a mesh): batch holds this rank's agent rows of
+    the total_agents; GAE runs on them. The time slabs, and the contiguous
+    MLP layout with a minibatch a multiple of total_agents, train on them
+    as they lie (minibatch i of each rank is its rows of the global
+    minibatch i); the other layouts gather the batch after GAE and take
+    their share of each minibatch. explained_variance and adv_var are
+    over every rank's rows."""
     h = config.bptt_horizon
     n_seg = T // h
     S = total_agents * n_seg
@@ -462,12 +683,16 @@ def make_update_fn(policy, optimizer, config, T, total_agents,
         and config.get('lstm_time_slab_minibatches', True))
     contiguous = not recurrent and config.get(
         'mlp_contiguous_minibatches', True)
+    gather = axis is not None and not time_slab and (shuffle
+        or not contiguous or (seg_rows * h) % total_agents != 0)
+    agents = total_agents if axis is None or gather \
+        else total_agents // axis.k
     run_epochs = make_epoch_runner(policy, optimizer, config, seg_rows,
         num_minibatches, S, obs_shape, time_major=time_slab,
-        prestacked=time_slab)
+        prestacked=time_slab, axis=axis, gathered=gather)
 
     def segment(x):
-        """(T, N, ...) -> (S, h, ...) segments."""
+        """(T, agents, ...) -> (agents * n_seg, h, ...) segments."""
         rest = tuple(x.shape[2:])
         if time_slab:
             # (n_seg, h, N, ...): a free reshape, minibatch c is the c-th
@@ -475,15 +700,15 @@ def make_update_fn(policy, optimizer, config, T, total_agents,
             return x.reshape((n_seg, h) + tuple(x.shape[1:]))
         if contiguous:
             # a free reshape of the time-major batch (ppo.py:634-635)
-            return x.reshape((S, h) + rest)
+            return x.reshape((agents * n_seg, h) + rest)
         # segment s = n*n_seg + c holds agent n's c-th BPTT chunk
-        x = x.reshape((n_seg, h, total_agents) + rest).movedim(2, 0)
-        return x.reshape((S, h) + rest)
+        x = x.reshape((n_seg, h, agents) + rest).movedim(2, 0)
+        return x.reshape((agents * n_seg, h) + rest)
 
     def segment_lstm(x):
-        """(n_seg, layers, N, H) -> (S, layers, H), segment-major."""
+        """(n_seg, layers, N, H) -> (N * n_seg, layers, H), segment-major."""
         x = x.movedim(2, 0)
-        return x.reshape((S,) + tuple(x.shape[2:]))
+        return x.reshape((x.shape[0] * x.shape[1],) + tuple(x.shape[2:]))
 
     def update(batch, lr, perms=None):
         advantages = compute_gae_cuda(batch['reward'], batch['value'],
@@ -491,22 +716,27 @@ def make_update_fn(policy, optimizer, config, T, total_agents,
             config.gae_lambda)
         returns = advantages + batch['value']
 
-        seg_batch = dict(
-            obs=segment(batch['obs']),
-            action=segment(batch['action']),
-            logprob=segment(batch['logprob']),
-            value=segment(batch['value']),
-            advantages=segment(advantages),
-            returns=segment(returns),
-        )
+        fields = dict(obs=batch['obs'], action=batch['action'],
+            logprob=batch['logprob'], value=batch['value'],
+            advantages=advantages, returns=returns)
         if 'mask' in batch:
             # the agent mask goes through the same segmenting
             # (ppo.py:690-691)
-            seg_batch['mask'] = segment(batch['mask'])
+            fields['mask'] = batch['mask']
+        lstm0 = batch.get('lstm0')
+        if gather:
+            names = list(fields)
+            whole = _gather_rows(list(fields.values())
+                + list(lstm0 or ()), [1] * len(names)
+                + [2] * len(lstm0 or ()), axis)
+            fields = dict(zip(names, whole))
+            if recurrent:
+                lstm0 = tuple(whole[len(names):])
+        seg_batch = {name: segment(v) for name, v in fields.items()}
         if recurrent:
             # time slabs: (n_seg, layers, N, H), minibatch-leading as is
-            lstm0 = batch['lstm0'] if time_slab else tuple(
-                segment_lstm(s) for s in batch['lstm0'])
+            if not time_slab:
+                lstm0 = tuple(segment_lstm(s) for s in lstm0)
             seg_batch['lstm_h'], seg_batch['lstm_c'] = lstm0
         if shuffle and perms is None:
             perms = shuffle_permutations(config, S, generator)
@@ -514,10 +744,16 @@ def make_update_fn(policy, optimizer, config, T, total_agents,
 
         y_true = returns.reshape(-1)
         y_pred = batch['value'].reshape(-1)
-        var_y = y_true.var(correction=0)
+        if axis is None:
+            var_y = y_true.var(correction=0)
+            var_diff = (y_true - y_pred).var(correction=0)
+            adv_var = advantages.var(correction=0)
+        else:
+            var_y, var_diff, adv_var = _global_variances([y_true,
+                y_true - y_pred, advantages.reshape(-1)], axis.group)
         mean_stats['explained_variance'] = torch.where(var_y == 0,
-            torch.nan, 1 - (y_true - y_pred).var(correction=0) / var_y)
-        mean_stats['adv_var'] = advantages.var(correction=0)
+            torch.nan, 1 - var_diff / var_y)
+        mean_stats['adv_var'] = adv_var
         return mean_stats
 
     return update
@@ -543,12 +779,14 @@ def _epoch(data):
 
 
 @profile_deco
-def evaluate(data):
+def evaluate(data, draws=None):
     """Rollout phase: collect the training batch on the device and
-    aggregate episode stats (a host read)."""
+    aggregate episode stats (a host read). draws: make_rollout_fn's, at
+    the global width under a mesh (a test replays another
+    implementation's)."""
     with data.profile.eval_forward:
         data.carry, batch, info_sums, episode_count = data.rollout_fn(
-            data.carry)
+            data.carry, draws)
         if data.device.type == 'cuda':
             torch.cuda.synchronize(data.device)
 
@@ -626,7 +864,10 @@ def _after_epochs(data, epochs):
 
 def report(data):
     """The metric sinks: the dashboard hook, else (verbose) a progress
-    line; then wandb. Shared with the host trainer."""
+    line; then wandb. Shared with the host trainer. Under a mesh, rank
+    0's alone (the metrics they read are global already)."""
+    if data.get('rank', 0) != 0:
+        return
     if data.dashboard is not None:
         data.dashboard(data)
     elif data.config.verbose:
@@ -707,10 +948,13 @@ def record_stats(data, stats=None):
 def close(data):
     """Close the envs; with wandb, save a checkpoint, log it as the
     `{exp_id}_model` artifact and finish the run (ppo.py:964-970). Shared
-    with the host trainer (ppo_host.py:479-486)."""
+    with the host trainer (ppo_host.py:479-486). Under a mesh every rank
+    with wandb takes part in the checkpoint; rank 0 logs and finishes."""
     data.vecenv.close()
     if data.wandb is not None:
         model_path = ckpt.save_checkpoint(data)
+        if data.get('rank', 0) != 0:
+            return
         artifact = data.wandb.Artifact(
             f'{data.config.exp_id}_model', type='model')
         artifact.add_file(model_path)
