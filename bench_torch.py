@@ -2,7 +2,7 @@
 `squared`, on one NVIDIA GPU (counterpart of bench.py).
 
     python3 bench_torch.py                  # the three lines below
-    BENCH_ONLY=mlp|lstm|conv|scaling python3 bench_torch.py
+    BENCH_ONLY=mlp|lstm|conv|scaling|transformer python3 bench_torch.py
     BENCH_SMOKE=1 python3 bench_torch.py    # the CPU, a small size
 
 Measures end-to-end env steps/s of the fused trainer (rollout, GAE and
@@ -19,11 +19,14 @@ Prints one JSON line per metric, in this order:
   ocean_squared_ppo_sps            the headline, 32768 lanes x 64, last
 and with BENCH_ONLY=conv only ocean_visual_ppo_conv_lstm_sps
 (VisualTarget through Convolutional + LSTMWrapper(128) in bf16, the
-resident cat kernels). Each line has bench.py's keys (metric, value,
-unit, vs_baseline) and `device`: the card's name and power limit as
-nvidia-smi reports them, the host's CPU count, its load average before
-and after the timed window, the window's seconds and this process's CPU
-seconds in it (the trainers wait on the host).
+resident cat kernels), with BENCH_ONLY=transformer only
+ocean_squared_ppo_transformer_sps (the same squared through
+TransformerWrapper(128) in BENCH_DTYPE: window 16, 4 heads, ffn_mult 2;
+100 epochs by default, minibatch batch / 4). Each line has bench.py's
+keys (metric, value, unit, vs_baseline) and `device`: the card's name
+and power limit as nvidia-smi reports them, the host's CPU count, its
+load average before and after the timed window, the window's seconds and
+this process's CPU seconds in it (the trainers wait on the host).
 
 The MLP lines' minibatch is BENCH_MINIBATCH rows (131072), capped at a
 quarter of the batch: bench.py's minibatch at hidden 128 at both widths,
@@ -38,9 +41,9 @@ lanes a card x 32 steps, 5 epochs; the best of BENCH_SCALING_ATTEMPTS,
 2), each with `device` as the other lines: its window is the child
 process's whole run (every width, builds included), its CPU seconds all
 ranks' together. With fewer cards no scaling line prints and stderr says why;
-BENCH_ONLY=scaling then exits non-zero. The transformer line waits for
-its model family (ROADMAP queue 1 item 4). Without a card the script
-raises, unless BENCH_SMOKE=1.
+BENCH_ONLY=scaling then exits non-zero. The conv and transformer lines
+are opt-in, as in bench.py. Without a card the script raises, unless
+BENCH_SMOKE=1.
 """
 import json
 import os
@@ -138,25 +141,32 @@ def trainer_config(ppo, env, batch_size, minibatch_size, device,
     )
 
 
-def run_one(use_rnn, smoke, num_envs=None, metric_suffix=''):
-    """bench.py's run_one (bench.py:25-108) on the port."""
+def run_one(recurrent, smoke, num_envs=None, metric_suffix=''):
+    """bench.py's run_one (bench.py:25-108) on the port, and with
+    recurrent='transformer' its run_transformer (bench.py:166-220): the
+    policy is Default alone (recurrent None), inside LSTMWrapper ('lstm'),
+    or inside TransformerWrapper ('transformer': window 16, 4 heads,
+    ffn_mult 2). Both recurrent lines take bptt 16 and minibatch batch / 4."""
     import torch
     import pufferlib_tpu_torch.vector as vector
     from pufferlib_tpu_torch import resolve_device
-    from pufferlib_tpu_torch.models import (
-        Default, LSTMWrapper, Policy, RecurrentPolicy)
+    from pufferlib_tpu_torch.models import (Default, LSTMWrapper, Policy,
+        RecurrentPolicy, TransformerPolicy, TransformerWrapper)
     from pufferlib_tpu_torch.ocean import env_creator
     from pufferlib_tpu_torch.training import ppo
 
+    transformer = recurrent == 'transformer'
     device = resolve_device('cpu' if smoke else 'cuda')
     if smoke:
-        num_envs, horizon, hidden, epochs = 64, 16, 64, 3
+        num_envs = 32 if transformer else 64
+        horizon, hidden, epochs = 16, 64, 3
     else:
         if num_envs is None:
             num_envs = int(os.environ.get('BENCH_NUM_ENVS', 8192))
         horizon = int(os.environ.get('BENCH_HORIZON', 64))
         hidden = int(os.environ.get('BENCH_HIDDEN', 128))
-        epochs = int(os.environ.get('BENCH_EPOCHS', 200))
+        epochs = int(os.environ.get('BENCH_EPOCHS',
+            100 if transformer else 200))
     chunk = int(os.environ.get('BENCH_CHUNK', 10))
     card = card_line(device)
 
@@ -169,17 +179,26 @@ def run_one(use_rnn, smoke, num_envs=None, metric_suffix=''):
     module = Default(obs_shape=obs_shape,
         action_space=vecenv.single_action_space, hidden_size=hidden,
         dtype=dtype, generator=torch.Generator().manual_seed(0))
-    metric = ('ocean_squared_ppo_lstm_sps' if use_rnn
-        else 'ocean_squared_ppo_sps') + metric_suffix
-    if use_rnn:
-        policy = RecurrentPolicy(LSTMWrapper(module, obs_shape=obs_shape,
-            input_size=hidden, hidden_size=hidden, dtype=dtype,
-            generator=torch.Generator().manual_seed(1)))
-        # num_minibatches == T // bptt_horizon: time-slab minibatches
-        minibatch_size = batch_size // 4
-    else:
+    metric = {None: 'ocean_squared_ppo_sps',
+        'lstm': 'ocean_squared_ppo_lstm_sps',
+        'transformer': 'ocean_squared_ppo_transformer_sps'}[recurrent]
+    metric += metric_suffix
+    generator = torch.Generator().manual_seed(1)
+    if recurrent is None:
         policy = Policy(module)
         minibatch_size = mlp_minibatch(batch_size, 16)
+    else:
+        if transformer:
+            policy = TransformerPolicy(TransformerWrapper(module,
+                obs_shape=obs_shape, input_size=hidden, hidden_size=hidden,
+                window=16, num_heads=4, ffn_mult=2, dtype=dtype,
+                generator=generator))
+        else:
+            policy = RecurrentPolicy(LSTMWrapper(module, obs_shape=obs_shape,
+                input_size=hidden, hidden_size=hidden, dtype=dtype,
+                generator=generator))
+        # num_minibatches == T // bptt_horizon: time-slab minibatches
+        minibatch_size = batch_size // 4
     print(f'bench_torch: {metric}: {num_envs} lanes x {horizon}, batch '
         f'{batch_size}, minibatch {minibatch_size}, {device}', file=sys.stderr,
         flush=True)
@@ -291,11 +310,14 @@ def _children_cpu_seconds():
 def main():
     smoke = os.environ.get('BENCH_SMOKE') == '1'
     only = os.environ.get('BENCH_ONLY')
-    if only not in (None, 'mlp', 'lstm', 'conv', 'scaling'):
-        raise SystemExit(f'BENCH_ONLY={only!r}: expected mlp, lstm, conv '
-            'or scaling')
+    if only not in (None, 'mlp', 'lstm', 'conv', 'scaling', 'transformer'):
+        raise SystemExit(f'BENCH_ONLY={only!r}: expected mlp, lstm, conv, '
+            'scaling or transformer')
     if only == 'conv':
         print(json.dumps(run_conv(smoke=smoke)), flush=True)
+        return 0
+    if only == 'transformer':
+        print(json.dumps(run_one('transformer', smoke=smoke)), flush=True)
         return 0
     import torch
     cards = 0 if smoke else torch.cuda.device_count()
@@ -311,10 +333,10 @@ def main():
         return 0
     # the headline (MLP) line last, for a parser of the last line
     if only is None and not smoke:
-        print(json.dumps(run_one(use_rnn=False, smoke=False, num_envs=8192,
+        print(json.dumps(run_one(None, smoke=False, num_envs=8192,
             metric_suffix='_8k_lanes')), flush=True)
     if only != 'mlp':
-        print(json.dumps(run_one(use_rnn=True, smoke=smoke)), flush=True)
+        print(json.dumps(run_one('lstm', smoke=smoke)), flush=True)
     if only is None:
         # the scaling lines before the headline
         for rec in run_scaling(cards):
@@ -322,7 +344,7 @@ def main():
     if only != 'lstm':
         headline_envs = None if (smoke or 'BENCH_NUM_ENVS' in os.environ) \
             else 32768
-        print(json.dumps(run_one(use_rnn=False, smoke=smoke,
+        print(json.dumps(run_one(None, smoke=smoke,
             num_envs=headline_envs)), flush=True)
     return 0
 

@@ -93,7 +93,7 @@ plain version first), runs --mode autotune over 8192 and 32768 lanes,
 then bench_torch.py in a child process at 20 epochs, whose JSON lines it
 prints as they came.
 
-The data-parallel phase (phase 18, last): ppo.create(..., mesh=) on the
+The data-parallel phase (phase 18): ppo.create(..., mesh=) on the
 card. A world-size-1 NCCL mesh, joined in this process through a file
 store, trains bench.py's MLP (fused head) and LSTM (enc5) lines and the
 layouts that gather the batch, in bf16 and f32, each against the same
@@ -101,6 +101,19 @@ trainer with no mesh (losses, launches, steps/s); then two spawned gloo
 ranks share the card (NCCL takes one rank a device) and hold their
 losses and launches to that. Tensor parallelism and the scaling lines
 need two or more cards and are held on the CPU only.
+
+The transformer and self-play phase (phase 19, last): TransformerWrapper
+at the bench line's width (hidden 128, window 16, 4 heads, B 8192), its
+stepwise calls against one 16-step and one 20-step segment (past the
+window) in f32 (within 1e-5) and bf16 (XF_TOL), and on the card against
+the CPU at a small size; bench_torch.py's transformer line (8192 lanes x
+64, bf16) for 2 epochs after a warm-up, GAE counted once an epoch and
+nothing else launched (the attention is plain torch, as the JAX
+package's is XLA), its rollout and update under the profiler; the
+memory learning proof of tests/test_transformer.py (best score > 0.9
+within 60 epochs); PolicyPool on the card (forced heads routed by the
+cycle map, a TransformerPolicy pool against each policy alone); and
+examples/selfplay_torch.py.
 
 Prints one line per phase, a `{"profiler_lost": [...]}` JSON line naming
 the kernels whose second, profiler reading was lost (their device_ms is
@@ -839,18 +852,22 @@ def cudnn_lstm_ms(torch, flush, args, g_outs):
 def make_trainer(torch, num_envs=8192, horizon=64, hidden=128,
         dtype_name='bfloat16', use_kernel=False, minibatch_size=131072,
         seed=0, device='cuda', lstm_kernel=None, lstm_use_kernel=None,
-        lstm_input=None, lstm_layers=1, mesh=None, **overrides):
+        lstm_input=None, lstm_layers=1, mesh=None, transformer_window=None,
+        **overrides):
     """bench.py's `_8k_lanes` configuration (bench.py:33-81), on the port;
     with lstm_kernel ('enc5', 'cat' or 'off') its LSTM line instead
     (bench.py:53-57, 66): RecurrentPolicy(LSTMWrapper(Default)) with
     hidden size `hidden`, input size lstm_input (`hidden` when None:
     Default's encoder emits it, its head reads the LSTM's `hidden`) and
     lstm_layers layers, minibatch batch_size // 4 by the caller's choice
-    of minibatch_size. mesh: ppo.create's (phase 18); overrides: more
-    config fields."""
+    of minibatch_size; with transformer_window its transformer line
+    (bench.py:166-220, phase 19): TransformerPolicy(TransformerWrapper(
+    Default)) of `hidden`, that window, 4 heads, ffn_mult 2. mesh:
+    ppo.create's (phase 18); overrides: more config fields."""
     import pufferlib_tpu_torch.vector as vector
     from pufferlib_tpu_torch.models import (
-        Default, LSTMWrapper, Policy, RecurrentPolicy)
+        Default, LSTMWrapper, Policy, RecurrentPolicy, TransformerPolicy,
+        TransformerWrapper)
     from pufferlib_tpu_torch.ocean import env_creator
     from pufferlib_tpu_torch.training import ppo
     dtype = getattr(torch, dtype_name)
@@ -866,7 +883,12 @@ def make_trainer(torch, num_envs=8192, horizon=64, hidden=128,
         dtype=dtype, use_kernel=use_kernel,
         generator=torch.Generator().manual_seed(seed),
         decoder_input_size=hidden)
-    if lstm_kernel is None:
+    if transformer_window is not None:
+        policy = TransformerPolicy(TransformerWrapper(module,
+            obs_shape=obs_shape, input_size=hidden, hidden_size=hidden,
+            window=transformer_window, num_heads=4, ffn_mult=2, dtype=dtype,
+            generator=torch.Generator().manual_seed(seed + 1)))
+    elif lstm_kernel is None:
         policy = Policy(module)
     else:
         policy = RecurrentPolicy(LSTMWrapper(module, obs_shape=obs_shape,
@@ -1903,6 +1925,11 @@ def main():
     # against no mesh, then two gloo ranks sharing the card
     dp_launches, dp2_launches = run_dp_phase(torch, card)
 
+    # phase 19: the transformer family (the wrapper at the bench width on
+    # the card, the bench line's trainer, the memory learning proof) and
+    # self-play (PolicyPool, examples/selfplay_torch.py)
+    xf_launches, xf_proof_launches = run_transformer_phase(torch, card)
+
     mlp_big, mlp_small = (mlp_runs[B, 'bfloat16'] for B in (131072, 8192))
     kernels = [
         dict(name='gae', route='cuda',
@@ -2009,6 +2036,9 @@ def main():
             ('lstm_enc5_backward', 1, 'lstm_enc_backward')):
         rows[row]['dp_launches'] = dp_launches[leg, 'bfloat16'][fn]
         rows[row]['dp_rank_launches'] = dp2_launches[leg, 'bfloat16'][fn]
+    # phase 19: the transformer line's counted epochs and the memory proof
+    rows['gae']['transformer_launches'] = xf_launches
+    rows['gae']['transformer_proof_launches'] = xf_proof_launches
     # cat's streamed design (csrc/lstm_cat_stream.cu): the Atari update's
     # shape in f32, as phase 14 runs it; enc5's at the default route's
     # hidden 256 in bf16, as phase 9 runs it, and in f32 (the same C
@@ -2468,6 +2498,327 @@ def check_lstm_card_against_cpu(torch, np):
         log(f'recurrent update card vs CPU, f32, kernel={kernel}, hidden '
             f'{hidden} ({fn}): params max abs diff {err:.3g} (tol 1e-4), '
             f'stats max abs diff {stat_err:.3g}')
+
+
+# phase 19: the transformer family and self-play. The wrapper at the bench
+# line's width; its stepwise calls against one segment within XF_TOL
+# (rtol, atol): in f32 1e-5 (the same f32 math, cuBLAS choosing other
+# algorithms for B and T * B rows); in bf16 the window within one bf16
+# ulp (2^-7 relative: an encoder row summed in another order may round the
+# other way), logits and values within 0.05 absolute + 2% (such an ulp
+# carried through the attention, the FFN and the head)
+XF_WIDTH = dict(hidden=128, window=16, B=8192)
+XF_TOL = {'float32': dict(window=(1e-5, 1e-5), out=(1e-5, 1e-5)),
+    'bfloat16': dict(window=(2.0 ** -7, 0.0), out=(0.02, 0.05))}
+# tests/test_transformer.py:105-153's memory learning test (mem_length 2,
+# mem_delay 0; bptt 4, lr 0.01, ent_coef 0.01, f32)
+XF_PROOF = dict(lanes=128, hidden=64, window=8, epochs=60, goal=0.9)
+XF_OBS = (7, 7)
+
+
+def make_transformer_module(torch, hidden, window, dtype, device, seed=0):
+    """TransformerWrapper(Default) on squared's observation shape with
+    five actions, 4 heads, its recency bias drawn from a normal (the init's
+    zeros would hide it), on `device`."""
+    from pufferlib_tpu_torch import spaces
+    from pufferlib_tpu_torch.models import Default, TransformerWrapper
+    module = TransformerWrapper(Default(obs_shape=XF_OBS,
+        action_space=spaces.Discrete(5), hidden_size=hidden, dtype=dtype,
+        generator=torch.Generator().manual_seed(seed)), obs_shape=XF_OBS,
+        input_size=hidden, hidden_size=hidden, window=window, num_heads=4,
+        dtype=dtype, generator=torch.Generator().manual_seed(seed + 1))
+    with torch.no_grad():
+        module.rel_bias.normal_(generator=torch.Generator().manual_seed(
+            seed + 2))
+    return module.to(device)
+
+
+def _within(got, want, rtol, atol):
+    """(max abs difference, every element within atol + rtol * |want|)."""
+    diff = (got.float() - want.float()).abs()
+    return diff.max().item(), bool((diff <= atol + rtol
+        * want.float().abs()).all())
+
+
+def check_transformer_steps(torch, dtype_name, device='cuda', hidden=128,
+        window=16, B=8192):
+    """T stepwise calls against one T-step segment from a random window,
+    T = 16 (the bench's bptt; batch-major) and 20 (past the window;
+    time-major): logits, values and the final window within XF_TOL; the
+    window comes back in f32, the state's dtype."""
+    dtype = getattr(torch, dtype_name)
+    module = make_transformer_module(torch, hidden, window, dtype, device)
+    gen = torch.Generator(device=device).manual_seed(5)
+    tol = XF_TOL[dtype_name]
+    errs = {}
+    for T, time_major in ((16, False), (20, True)):
+        obs = torch.randn((T, B) + XF_OBS, generator=gen, device=device)
+        state = (torch.randn((window, B, hidden), generator=gen,
+            device=device), torch.zeros((1, B, hidden), device=device))
+        with torch.no_grad():
+            st, logits, values = state, [], []
+            for t in range(T):
+                lg, vl, st = module(obs[t], st)
+                logits.append(lg)
+                values.append(vl)
+            x = obs if time_major else obs.transpose(0, 1)
+            lg, vl, seg = module(x, state, time_major=time_major)
+        lead = (T, B) if time_major else (B, T)
+        lg, vl = lg.reshape(lead + (-1,)), vl.reshape(lead + (-1,))
+        if not time_major:
+            lg, vl = lg.transpose(0, 1), vl.transpose(0, 1)
+        if st[0].dtype != torch.float32 or seg[0].dtype != torch.float32:
+            raise AssertionError(f'transformer {dtype_name}: the window '
+                f'came back in {st[0].dtype} / {seg[0].dtype}, not f32')
+        for name, a, b, key in (('logits', torch.stack(logits), lg, 'out'),
+                ('values', torch.stack(values), vl, 'out'),
+                ('window', st[0], seg[0], 'window')):
+            err, ok = _within(a, b, *tol[key])
+            errs[f'T={T} {name}'] = err
+            if not ok:
+                raise AssertionError(f'transformer {dtype_name} steps vs '
+                    f'segment, T = {T}: {name} differ by {err} (rtol, atol '
+                    f'{tol[key]})')
+    log(f'transformer steps vs segment, {dtype_name}, B {B}, hidden '
+        f'{hidden}, window {window}, 4 heads (T 16 batch-major, 20 '
+        f'time-major): max abs differences {json.dumps(errs)} within '
+        f'(rtol, atol) {json.dumps(tol)}')
+
+
+def check_transformer_card_against_cpu(torch):
+    """The same weights on the CPU and the card, f32, B 64, hidden 32,
+    window 8: a 20-step time-major segment from a random window and one
+    step after it; logits, values and window within 1e-5 (sums in other
+    orders)."""
+    import copy
+    B, T, hidden, window = 64, 20, 32, 8
+    cpu = make_transformer_module(torch, hidden, window, torch.float32,
+        'cpu', seed=3)
+    card = copy.deepcopy(cpu).to('cuda')
+    gen = torch.Generator().manual_seed(6)
+    obs = torch.randn((T + 1, B) + XF_OBS, generator=gen)
+    state = (torch.randn((window, B, hidden), generator=gen),
+        torch.zeros((1, B, hidden)))
+    outs = []
+    for module, device in ((cpu, 'cpu'), (card, 'cuda')):
+        st = tuple(s.to(device) for s in state)
+        with torch.no_grad():
+            lg, vl, st = module(obs[:T].to(device), st, time_major=True)
+            lg1, vl1, st = module(obs[T].to(device), st)
+        outs.append([v.cpu() for v in (lg, vl, lg1, vl1, st[0])])
+    err = max(_within(a, b, 0, 0)[0] for a, b in zip(*outs))
+    if not err <= 1e-5:
+        raise AssertionError(f'transformer card vs CPU: differ by {err}')
+    log(f'transformer card vs CPU, f32, B {B}, T {T} + 1, hidden {hidden}, '
+        f'window {window}: max abs diff {err:.3g} (tol 1e-5)')
+
+
+def run_transformer_trainer(torch, card, epochs=2):
+    """bench_torch.py's transformer line (8192 lanes x 64, Default +
+    TransformerWrapper h128 bf16, window 16, minibatch batch / 4): a
+    warm-up epoch, then `epochs` calls of ppo.step with every launch count
+    set to 0 just before and read just after (GAE once an epoch, no other
+    kernel: the attention is plain torch), then the rollout and the update
+    of an epoch each timed and under the profiler (device time, idle
+    share, launches). Returns GAE's launches."""
+    from pufferlib_tpu_torch.ops.cuda import KERNELS
+    torch.cuda.reset_peak_memory_stats()
+    num_envs, horizon = 8192, 64
+    ppo, data = make_trainer(torch, num_envs=num_envs, horizon=horizon,
+        hidden=XF_WIDTH['hidden'], minibatch_size=num_envs * horizon // 4,
+        transformer_window=XF_WIDTH['window'])
+    ppo.step(data)  # warm-up epoch
+    torch.cuda.synchronize()
+    for k in KERNELS:
+        k.reset_counts()
+    start = time.perf_counter()
+    for _ in range(epochs):
+        ppo.step(data)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - start
+    launches = {fn: n for k in KERNELS for fn, n in k.fn_launches.items()}
+    want = dict.fromkeys(launches, 0)
+    want['gae_forward'] = epochs
+    if launches != want:
+        raise AssertionError(f'transformer trainer: launches {launches} in '
+            f'{epochs} epochs, expected {want}')
+    losses = check_losses(data, 'transformer trainer')
+    sps = epochs * data.config.batch_size / elapsed
+    profile_phase = load_tool('profile_torch_trainer').profile_phase
+
+    def rollout_fn():
+        data.carry, batch, _, _ = data.rollout_fn(data.carry)
+        return batch
+    batch, rollout = profile_phase(torch, rollout_fn)
+    _, update = profile_phase(torch,
+        lambda: data.update_fn(batch, data.config.learning_rate))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f'transformer trainer 8192 lanes x 64, Default + TransformerWrapper '
+        f'h128 bf16 (window 16, 4 heads), minibatch 131072: {sps:.1f} '
+        f'steps/s over {epochs} epochs after a warm-up epoch '
+        f'({elapsed / epochs * 1e3:.2f} ms/epoch) on {card}; launches an '
+        f'epoch: GAE {launches["gae_forward"] // epochs}; losses '
+        f'{json.dumps(losses)}; peak memory {peak:.2f} GiB')
+    for name, r in (('rollout', rollout), ('update', update)):
+        log(f'transformer trainer {name}: wall {r["wall_ms"]:.2f} ms, '
+            f'kernels {r["device_ms"]:.2f} ms, idle {r["idle_share"]:.3f}, '
+            f'{r["launches"]} launches; top {r["top"]}')
+    del data
+    return launches['gae_forward']
+
+
+def run_transformer_proof(torch, card):
+    """tests/test_transformer.py's memory learning test on the card: the
+    best score must pass XF_PROOF's goal within its epochs (stopping
+    there); GAE once an epoch, no other kernel. Returns GAE's launches."""
+    import pufferlib_tpu_torch.vector as vector
+    from pufferlib_tpu_torch.models import (
+        Default, TransformerPolicy, TransformerWrapper)
+    from pufferlib_tpu_torch.ocean import env_creator
+    from pufferlib_tpu_torch.ops.cuda import KERNELS
+    from pufferlib_tpu_torch.training import ppo
+    p = XF_PROOF
+    lanes, hidden = p['lanes'], p['hidden']
+    vecenv = vector.make(env_creator('memory'),
+        env_kwargs=dict(mem_length=2, mem_delay=0), num_envs=lanes,
+        device='cuda')
+    shape = vecenv.single_observation_space.shape
+    policy = TransformerPolicy(TransformerWrapper(Default(obs_shape=shape,
+        action_space=vecenv.single_action_space, hidden_size=hidden,
+        generator=torch.Generator().manual_seed(0)), obs_shape=shape,
+        input_size=hidden, hidden_size=hidden, window=p['window'],
+        num_heads=4, generator=torch.Generator().manual_seed(1)))
+    batch = lanes * 32
+    total = batch * p['epochs']
+    data = ppo.create(ppo.default_config(env='memory', batch_size=batch,
+        minibatch_size=lanes * 8, bptt_horizon=4, total_timesteps=total,
+        learning_rate=0.01, ent_coef=0.01, verbose=False,
+        data_dir=os.path.join(REPO, 'experiments', 'chip_smoke'),
+        checkpoint_interval=10 ** 6, device='cuda'), vecenv, policy)
+    for k in KERNELS:
+        k.reset_counts()
+    start = time.perf_counter()
+    best, epochs = 0.0, 0
+    while data.global_step < total:
+        stats, _ = ppo.evaluate(data)
+        ppo.train(data)
+        epochs += 1
+        best = max(best, stats.get('score', 0.0))
+        if best > p['goal']:
+            break
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - start
+    launches = {fn: n for k in KERNELS for fn, n in k.fn_launches.items()
+        if n}
+    if launches != {'gae_forward': epochs}:
+        raise AssertionError(f'transformer proof: launches {launches} in '
+            f'{epochs} epochs')
+    if not best > p['goal']:
+        raise AssertionError(f'transformer proof: best score {best} after '
+            f'{epochs} epochs')
+    check_losses(data, 'transformer proof')
+    log(f'learning proof memory through TransformerWrapper (mem_length 2, '
+        f'{lanes} lanes, h{hidden} f32, window {p["window"]}): best score '
+        f'{best:.4f} after {epochs} epochs in {elapsed:.1f} s; launches '
+        f'{json.dumps(launches)} on {card}')
+    return epochs
+
+
+def check_policy_pool(torch):
+    """PolicyPool on the card: two Default policies whose heads force
+    actions 0 and 1 route each agent by the cycle selector; a pool of two
+    TransformerPolicy state_dicts (the bench width, 8192 agents) gives
+    each agent its own policy's row: actions exact, logprobs, values and
+    the routed window and aux within 1e-6 of each policy run alone on the
+    same uniforms."""
+    from pufferlib_tpu_torch import spaces
+    from pufferlib_tpu_torch.models import Default, Policy, TransformerPolicy
+    from pufferlib_tpu_torch.policy_pool import PolicyPool
+    B = XF_WIDTH['B']
+    policy = Policy(Default(obs_shape=(4,), action_space=spaces.Discrete(2),
+        hidden_size=8, generator=torch.Generator().manual_seed(0))).cuda()
+    forced = []
+    for logit0 in (50.0, -50.0):
+        state = {k: v.clone() for k, v in policy.state_dict().items()}
+        state['module.head.weight'].zero_()
+        state['module.head.bias'].copy_(torch.tensor([logit0, -logit0, 0.0]))
+        forced.append(state)
+    pool = PolicyPool(policy, forced, learner_mask=[True, False],
+        num_agents=B)
+    gen = torch.Generator(device='cuda').manual_seed(7)
+    with torch.no_grad():
+        actions = pool.forward(torch.zeros((B, 4), device='cuda'),
+            generator=gen)[0]
+    if not torch.equal(actions, pool.policy_map):
+        raise AssertionError('policy pool: actions do not follow the map')
+
+    hidden, window = XF_WIDTH['hidden'], XF_WIDTH['window']
+    members = [TransformerPolicy(make_transformer_module(torch, hidden,
+        window, torch.float32, 'cuda', seed=seed)) for seed in (10, 20)]
+    pool = PolicyPool(members[0], [m.state_dict() for m in members],
+        learner_mask=[True, False], num_agents=B)
+    obs = torch.randn((B,) + XF_OBS, generator=gen, device='cuda')
+    state = (torch.randn((window, B, hidden), generator=gen, device='cuda'),
+        torch.zeros((1, B, hidden), device='cuda'))
+    u = [torch.rand((B,), generator=gen, device='cuda') for _ in members]
+    with torch.no_grad():
+        got = pool.forward(obs, state, u=u)
+        alone = [m(obs, state, u=u[i]) for i, m in enumerate(members)]
+    pick = pool.policy_map
+    err = 0.0
+    for i in range(4):
+        want = torch.where(pick.reshape((B,) + (1,) * (alone[0][i].dim()
+            - 1)) == 0, alone[0][i], alone[1][i])
+        if i == 0:
+            if not torch.equal(got[0], want):
+                raise AssertionError('transformer pool: actions differ')
+        else:
+            err = max(err, _within(got[i].reshape(want.shape), want, 0,
+                0)[0])
+    for j in range(2):
+        want = torch.where(pick[None, :, None] == 0, alone[0][4][j],
+            alone[1][4][j])
+        err = max(err, _within(got[4][j], want, 0, 0)[0])
+    if not err <= 1e-6:
+        raise AssertionError(f'transformer pool: rows differ by {err}')
+    log(f'policy pool on the card: forced heads follow the cycle map over '
+        f'{B} agents; TransformerPolicy pool (h{hidden}, window {window}) '
+        f'against each policy alone: actions equal, max abs diff {err:.3g} '
+        f'(tol 1e-6)')
+
+
+def run_selfplay_example(torch, card):
+    """examples/selfplay_torch.py on the card (its main, in this
+    process): the store, the pool and the ranker over 16 steps."""
+    import importlib.util
+    import math
+    spec = importlib.util.spec_from_file_location('selfplay_torch',
+        os.path.join(REPO, 'examples', 'selfplay_torch.py'))
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    result = example.main(['--device', 'cuda', '--store',
+        os.path.join(REPO, 'experiments', 'chip_smoke_selfplay')])
+    values = list(result['scores'].values()) + list(
+        result['ratings'].values())
+    if sorted(result['ratings']) != ['learner', 'model_000000'] or not all(
+            math.isfinite(v) for v in values):
+        raise AssertionError(f'selfplay example: {result}')
+    log(f'examples/selfplay_torch.py on {card}: scores '
+        f'{json.dumps(result["scores"])}, ratings '
+        f'{json.dumps(result["ratings"])}')
+
+
+def run_transformer_phase(torch, card):
+    """Phase 19. Returns (GAE launches in the bench-width trainer's
+    counted epochs, GAE launches in the memory proof)."""
+    for dtype_name in ('float32', 'bfloat16'):
+        check_transformer_steps(torch, dtype_name)
+    check_transformer_card_against_cpu(torch)
+    gae_launches = run_transformer_trainer(torch, card)
+    proof_launches = run_transformer_proof(torch, card)
+    check_policy_pool(torch)
+    run_selfplay_example(torch, card)
+    return gae_launches, proof_launches
 
 
 if __name__ == '__main__':

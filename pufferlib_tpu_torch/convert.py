@@ -1,5 +1,5 @@
-"""Carry `Default`, `Convolutional`, `ProcgenResnet` and `LSTMWrapper`
-weights between the JAX package and this one.
+"""Carry `Default`, `Convolutional`, `ProcgenResnet`, `LSTMWrapper` and
+`TransformerWrapper` weights between the JAX package and this one.
 
 The JAX `Policy(Default)` params are a pytree
 {'params': {'encoder': {'kernel', 'bias'}, 'head': {'kernel', 'bias'}}}
@@ -129,4 +129,47 @@ def lstm_params(state_dict):
     for k, v in state_dict.items():
         if not k.startswith('policy.'):
             params[k] = v.detach().cpu().float().numpy().copy()
+    return {'params': params}
+
+
+# TransformerWrapper's FFN, flax Dense layers as nn.Linear
+_FFN_LAYERS = [(('ffn_in',), 'ffn_in', 'dense'),
+    (('ffn_out',), 'ffn_out', 'dense')]
+_ATTENTION = ('wq', 'wk', 'wv', 'wo', 'rel_bias')
+
+
+def transformer_state_dict(params, policy_state_dict=default_state_dict):
+    """JAX TransformerWrapper params (numpy pytree) -> the port's
+    TransformerWrapper state_dict. The nested policy goes through
+    policy_state_dict (Default's by default); wq, wk, wv, wo (in, out in
+    both packages) and rel_bias copy as they are; LayerNorm scale is
+    weight; the FFN kernels transpose."""
+    p = params['params'] if 'params' in params else params
+    out = {f'policy.{k}': v for k, v in policy_state_dict(
+        p['policy']).items()}
+    for name in _ATTENTION:
+        out[name] = torch.from_numpy(np.array(p[name], np.float32))
+    for name in ('ln_kv', 'ln_ffn'):
+        out[f'{name}.weight'] = torch.from_numpy(np.array(
+            p[name]['scale'], np.float32))
+        out[f'{name}.bias'] = torch.from_numpy(np.array(p[name]['bias'],
+            np.float32))
+    out.update(layers_state_dict(p, _FFN_LAYERS))
+    return out
+
+
+def transformer_params(state_dict):
+    """The port's TransformerWrapper state_dict -> JAX
+    TransformerWrapper(Default) params (numpy)."""
+    def numpy(name):
+        return state_dict[name].detach().cpu().float().numpy().copy()
+    inner = {k[len('policy.'):]: v for k, v in state_dict.items()
+        if k.startswith('policy.')}
+    params = {'policy': default_params(inner)['params']}
+    for name in _ATTENTION:
+        params[name] = numpy(name)
+    for name in ('ln_kv', 'ln_ffn'):
+        params[name] = {'scale': numpy(f'{name}.weight'),
+            'bias': numpy(f'{name}.bias')}
+    params.update(layers_params(state_dict, _FFN_LAYERS)['params'])
     return {'params': params}

@@ -1,11 +1,13 @@
 """Model zoo in torch.nn, counterpart of pufferlib_tpu/models/__init__.py.
 
 This port has `Default` (models/__init__.py:118-233), `LSTMWrapper`
-(:236-445) and the conv family, `Convolutional` and `ProcgenResnet`
-(:448-563). `Default` takes structured observations through `emulated`,
-as the JAX module does. Params are float32; `dtype` is the compute
-dtype, as flax `Dense(dtype=cdt, param_dtype=f32)`: each layer casts its
-input, weight and bias to `dtype`.
+(:236-445), the conv family, `Convolutional` and `ProcgenResnet`
+(:448-563), and the attention family, `TransformerWrapper` and
+`TransformerPolicy` (models/transformer.py). `Default` takes structured
+observations through `emulated`, as the JAX module does. Params are
+float32; `dtype` is the compute dtype, as flax `Dense(dtype=cdt,
+param_dtype=f32)`: each layer casts its input, weight and bias to
+`dtype`.
 
 The convolutions run in torch's NCHW layout (F.conv2d) and flatten their
 features in the JAX modules' NHWC order, so that a weight carried by
@@ -16,7 +18,6 @@ False. This package sets no global flag; a caller who wants full float32
 convolutions turns TF32 off (chip_smoke.py does).
 """
 import math
-import sys
 
 import numpy as np
 import torch
@@ -25,9 +26,12 @@ from torch import nn
 
 from pufferlib_tpu_torch import emulation, spaces
 from pufferlib_tpu_torch.environment import tree_leaves
+from pufferlib_tpu_torch.models._layers import _linear, _orthogonal_dense
 from pufferlib_tpu_torch.models.distributions import sample_logits
 from pufferlib_tpu_torch.models.policy import (
     Policy, RecurrentPolicy, count_params)
+from pufferlib_tpu_torch.models.transformer import (
+    TransformerPolicy, TransformerWrapper)
 from pufferlib_tpu_torch.ops.cuda.lstm_cat import lstm_scan_cat
 from pufferlib_tpu_torch.ops.cuda.lstm_common import (
     cat_shape_error, enc5_shape_error, gate_activations, round_to)
@@ -35,8 +39,8 @@ from pufferlib_tpu_torch.ops.cuda.lstm_enc import lstm_scan_enc5
 from pufferlib_tpu_torch.ops.cuda.mlp import mlp_head
 
 __all__ = ['Default', 'LSTMWrapper', 'Convolutional', 'ProcgenResnet',
-    'lstm_route', 'sample_logits', 'Policy', 'RecurrentPolicy',
-    'count_params']
+    'TransformerWrapper', 'TransformerPolicy', 'lstm_route', 'sample_logits',
+    'Policy', 'RecurrentPolicy', 'count_params']
 
 LSTM_KERNELS = ('enc5', 'cat', 'off')
 
@@ -93,19 +97,6 @@ def _action_info(action_space):
     if isinstance(action_space, spaces.Discrete):
         return False, [int(action_space.n)]
     raise ValueError(f'Policies take flat action spaces, got {action_space}')
-
-
-def _linear(layer, x, dtype):
-    """nn.Linear `layer` on x in the compute dtype, as flax
-    Dense(dtype=cdt): input, weight and bias cast. A layer sharded over a
-    model axis (parallel.param_shardings: its weight a DTensor) takes x
-    whole and gives its output whole (parallel.mesh.sharded_linear)."""
-    weight, bias = layer.weight.to(dtype), layer.bias.to(dtype)
-    dtensor = sys.modules.get('torch.distributed.tensor')
-    if dtensor is not None and isinstance(weight, dtensor.DTensor):
-        from pufferlib_tpu_torch.parallel.mesh import sharded_linear
-        return sharded_linear(x.to(dtype), weight, bias)
-    return F.linear(x.to(dtype), weight, bias)
 
 
 def _uniform_(t, bound, generator):
@@ -429,16 +420,6 @@ class LSTMWrapper(nn.Module):
             h = o * torch.tanh(c)
             outs.append(h)
         return torch.stack(outs), h, c
-
-
-def _orthogonal_dense(in_features, out_features, std, generator):
-    """nn.Linear with an orthogonal weight of gain std and a zero bias
-    (the JAX layer_init_dense)."""
-    layer = nn.Linear(in_features, out_features)
-    with torch.no_grad():
-        nn.init.orthogonal_(layer.weight, std, generator=generator)
-        layer.bias.zero_()
-    return layer
 
 
 def _nhwc_flat(x):

@@ -1,7 +1,8 @@
 """PuffeRL in PyTorch: the fused PPO trainer on one CUDA device.
 
-Counterpart of pufferlib_tpu/training/ppo.py, with `Policy` or with
-`RecurrentPolicy(LSTMWrapper(...))`. Everything stays on the device: the
+Counterpart of pufferlib_tpu/training/ppo.py, with `Policy`,
+`RecurrentPolicy(LSTMWrapper(...))` or
+`TransformerPolicy(TransformerWrapper(...))`. Everything stays on the device: the
 rollout steps the policy and the env lanes as batched tensors and writes
 the batch into buffers on the card;
 GAE runs as one CUDA kernel (ops/cuda/gae.py); the update runs
@@ -26,10 +27,12 @@ Where the two differ:
 - The rollout buffers are allocated once and reused: a batch returned
   by evaluate() is overwritten by the next rollout.
 
-Recurrent policies follow the JAX trainer: the rollout carries the LSTM
+Recurrent policies follow the JAX trainer: the rollout carries the
 state through episode ends (no reset at `done`, ppo.py:390-427) and
 stores it at each BPTT segment start (`lstm0`); every minibatch starts
-from those stored states. With num_minibatches == T // bptt_horizon (and
+from those stored states. The state is a pair of (lead, N, H) tensors,
+each with its own leading size: the LSTM's layers for both, the
+transformer's window and 1; every step below keeps the two apart. With num_minibatches == T // bptt_horizon (and
 lstm_time_slab_minibatches on) a minibatch is one time slab of all
 agents, fed time-major; otherwise it is a group of agent-major segments.
 
@@ -56,7 +59,8 @@ order of float sums (the JAX mesh's contract):
   collective;
 - under a 'model' axis the Linear layers shard (parallel.param_shardings)
   and each grad's sum of squares is reduced over it before the global
-  norm; the CUDA kernels are refused there (a DTensor cannot enter them);
+  norm; the LSTM cell's and the attention's matrices replicate; the CUDA
+  kernels are refused there (a DTensor cannot enter them);
 - checkpoint files, the progress line, the dashboard and wandb are rank
   0's; a collective they need is called by every rank.
 """
@@ -361,7 +365,9 @@ def make_rollout_fn(policy, env, step_batch, config, T, generator,
     N agent rows (lanes x agents, agent-major within a lane), obs
     flattened to (T, N, numel) in config.obs_store_dtype. With a
     recurrent policy the batch also holds `lstm0`, the state at each BPTT
-    segment start, (h, c) each (T // bptt_horizon, layers, N, H). With
+    segment start, its two tensors each (T // bptt_horizon, lead, N, H)
+    with its own leading size (the LSTM's layers; the transformer's window
+    and 1). With
     mask_fn (vector.make_mask_fn) it holds `mask` (T, N) float32, the
     validity of each row in the state its action was computed from
     (ppo.py:422-425). The buffers are allocated at the first call and
@@ -466,7 +472,7 @@ def make_minibatch_update(policy, optimizer, config, seg_rows, obs_shape,
     ...) tensors, or with time_major (the recurrent time-slab layout)
     (h, rows, ...); obs rows flat or native-shaped, both reshaped to
     obs_shape here; a recurrent policy's state in lstm_h / lstm_c,
-    (layers, rows, H) time-major, else (rows, layers, H). With `stop`
+    each (lead, rows, H) time-major, else (rows, lead, H). With `stop`
     (target_kl's early stop) the stats are computed and the step skipped,
     as the JAX select keeps the old params. Shared by make_epoch_runner
     and the host trainer's cpu_offload path.
@@ -599,7 +605,7 @@ def make_epoch_runner(policy, optimizer, config, seg_rows, num_minibatches,
     (ppo.py:535-595): run_epochs(seg_batch, lr, perms=None) -> mean
     stats.
 
-    seg_batch: dict of (S, h, ...) tensors [+ lstm_h / lstm_c (S, layers,
+    seg_batch: dict of (S, h, ...) tensors [+ lstm_h / lstm_c (S, lead,
     H)], or with prestacked (the recurrent time-slab layout) already
     (num_minibatches, ...) per minibatch. With shuffle_minibatches,
     minibatch i of epoch e is segments perms[e][i * seg_rows:(i + 1) *
@@ -706,7 +712,7 @@ def make_update_fn(policy, optimizer, config, T, total_agents,
         return x.reshape((agents * n_seg, h) + rest)
 
     def segment_lstm(x):
-        """(n_seg, layers, N, H) -> (N * n_seg, layers, H), segment-major."""
+        """(n_seg, lead, N, H) -> (N * n_seg, lead, H), segment-major."""
         x = x.movedim(2, 0)
         return x.reshape((x.shape[0] * x.shape[1],) + tuple(x.shape[2:]))
 
@@ -734,7 +740,7 @@ def make_update_fn(policy, optimizer, config, T, total_agents,
                 lstm0 = tuple(whole[len(names):])
         seg_batch = {name: segment(v) for name, v in fields.items()}
         if recurrent:
-            # time slabs: (n_seg, layers, N, H), minibatch-leading as is
+            # time slabs: (n_seg, lead, N, H), minibatch-leading as is
             if not time_slab:
                 lstm0 = tuple(segment_lstm(s) for s in lstm0)
             seg_batch['lstm_h'], seg_batch['lstm_c'] = lstm0

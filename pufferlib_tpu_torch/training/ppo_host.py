@@ -25,7 +25,7 @@ import torch
 
 from pufferlib_tpu_torch import resolve_device
 from pufferlib_tpu_torch.exceptions import APIUsageError
-from pufferlib_tpu_torch.models import count_params
+from pufferlib_tpu_torch.models import TransformerWrapper, count_params
 from pufferlib_tpu_torch.namespace import namespace
 from pufferlib_tpu_torch.ops.cuda.gae import compute_gae_flat_cuda
 from pufferlib_tpu_torch.training import checkpoint as ckpt
@@ -145,6 +145,12 @@ def create(config, vecenv, policy, device=None, wandb=None):
     of the metrics and of the model artifact at close(), as in
     training.ppo.create."""
     device = resolve_device(config.device if device is None else device)
+    if isinstance(getattr(policy, 'lstm', None), TransformerWrapper):
+        # the per-env state here is the LSTM's (layers, agents, H) pair,
+        # as in the JAX host trainer (ppo_host.py:145-146)
+        raise APIUsageError('the host trainer keeps LSTM state only and '
+            'takes no TransformerPolicy: train it with the device trainer, '
+            'training.ppo.create')
     vecenv.async_reset(config.seed)
     obs_space = vecenv.single_observation_space
     atn_space = vecenv.single_action_space

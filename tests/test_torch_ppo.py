@@ -265,7 +265,10 @@ def test_package_imports_no_jax():
         'pufferlib_tpu_torch.environments.test.environment, '
         'pufferlib_tpu_torch.config.cli, pufferlib_tpu_torch.vector_host, '
         'pufferlib_tpu_torch.training.dashboard, '
-        'pufferlib_tpu_torch.training.ppo_host, demo_torch, bench_torch; '
+        'pufferlib_tpu_torch.training.ppo_host, '
+        'pufferlib_tpu_torch.models.transformer, '
+        'pufferlib_tpu_torch.policy_pool, pufferlib_tpu_torch.policy_store, '
+        'pufferlib_tpu_torch.policy_ranker, demo_torch, bench_torch; '
         'bad = [m for m in sys.modules if m in ("jax", "flax", "optax", '
         '"pufferlib_tpu") or m.startswith(("jax.", "flax.", "optax.", '
         '"pufferlib_tpu."))]; '

@@ -26,13 +26,16 @@ def build(spec, mesh=None):
     """The trainer of `spec` on the CPU: spec['env'] (squared by default)
     at spec['num_envs'] lanes (env_kwargs optional), Default(hidden) as
     Policy, or with
-    policy='lstm' inside LSTMWrapper(hidden, hidden); use_kernel on the
+    policy='lstm' inside LSTMWrapper(hidden, hidden), with
+    policy='transformer' inside TransformerWrapper(hidden, hidden,
+    spec['window'], 4 heads); use_kernel on the
     module that takes it; weights from spec['weights'] (a state_dict
     npz) else a seeded init; config overrides in spec['config']."""
     import torch
     import pufferlib_tpu_torch.vector as vector
     from pufferlib_tpu_torch.models import (
-        Default, LSTMWrapper, Policy, RecurrentPolicy)
+        Default, LSTMWrapper, Policy, RecurrentPolicy, TransformerPolicy,
+        TransformerWrapper)
     from pufferlib_tpu_torch.ocean import env_creator
     from pufferlib_tpu_torch.training import ppo
     torch.set_num_threads(1)
@@ -42,21 +45,29 @@ def build(spec, mesh=None):
     shape = vecenv.single_observation_space.shape
     hidden = spec.get('hidden', 32)
     lstm = spec.get('policy') == 'lstm'
+    transformer = spec.get('policy') == 'transformer'
     module = Default(obs_shape=shape,
         action_space=vecenv.single_action_space, hidden_size=hidden,
         emulated=vecenv.emulated,
-        use_kernel=False if lstm else spec.get('use_kernel', False),
+        use_kernel=False if lstm or transformer
+            else spec.get('use_kernel', False),
         generator=torch.Generator().manual_seed(spec.get('init_seed', 0)))
     if lstm:
         module = LSTMWrapper(module, obs_shape=shape, input_size=hidden,
             hidden_size=hidden, use_kernel=spec.get('use_kernel', False),
             generator=torch.Generator().manual_seed(
                 spec.get('init_seed', 0) + 1))
+    if transformer:
+        module = TransformerWrapper(module, obs_shape=shape,
+            input_size=hidden, hidden_size=hidden, window=spec['window'],
+            num_heads=4, generator=torch.Generator().manual_seed(
+                spec.get('init_seed', 0) + 1))
     if spec.get('weights'):
         with np.load(spec['weights']) as f:
             module.load_state_dict({k: torch.from_numpy(f[k].copy())
                 for k in f.files})
-    policy = RecurrentPolicy(module) if lstm else Policy(module)
+    policy = (RecurrentPolicy(module) if lstm else TransformerPolicy(module)
+        if transformer else Policy(module))
     config = ppo.default_config(device='cpu', verbose=False,
         data_dir=spec.get('data_dir', 'experiments'),
         checkpoint_interval=10 ** 6, **spec['config'])
