@@ -90,7 +90,7 @@ trains config.yaml's squared and memory sections for 3 epochs each on the
 card (GAE once an epoch; enc5's pair 16 times an epoch each way in
 memory, f32, as config.yaml names no dtype: that shape is held to its
 plain version first), runs --mode autotune over 8192 and 32768 lanes,
-then bench_torch.py in a child process at 20 epochs, whose JSON lines it
+then bench_torch.py in a child process at 10 epochs, whose JSON lines it
 prints as they came.
 
 The data-parallel phase (phase 18): ppo.create(..., mesh=) on the
@@ -102,7 +102,7 @@ ranks share the card (NCCL takes one rank a device) and hold their
 losses and launches to that. Tensor parallelism and the scaling lines
 need two or more cards and are held on the CPU only.
 
-The transformer and self-play phase (phase 19, last): TransformerWrapper
+The transformer and self-play phase (phase 19): TransformerWrapper
 at the bench line's width (hidden 128, window 16, 4 heads, B 8192), its
 stepwise calls against one 16-step and one 20-step segment (past the
 window) in f32 (within 1e-5) and bf16 (XF_TOL), and on the card against
@@ -114,6 +114,22 @@ memory learning proof of tests/test_transformer.py (best score > 0.9
 within 60 epochs); PolicyPool on the card (forced heads routed by the
 cycle map, a TransformerPolicy pool against each policy alone); and
 examples/selfplay_torch.py.
+
+The zoo and frameworks phase (phase 20, last): cat's streamed pair
+against its plain version in f32 at the zoo updates' shapes (T 16; B 512
+and D = H = 256, B 1024 and 256, B 512 and 512), timed beside its bound,
+the plain version and cuDNN's nn.LSTM; config.yaml's nethack section at
+full width (nethack.Policy h256 + LSTM 256, 128 fake NLE envs through
+the binding's own wrappers in HostMultiprocessing, ppo_host) for 2
+counted epochs after a warm-up, launches asserted (cat's pair 16 times
+an epoch, GAE once, nothing else), peak memory; one counted epoch each
+of nmmo, nmmo3 and pokemon_red on their fakes (ZOO_OTHERS names the
+cuts); a reference LSTMWrapper(Default) checkpoint (h128 on squared,
+the reference's key layout, from a seed) through torch_import.convert,
+held through enc5 and the plain scan to nn.Linear + nn.LSTM + split
+heads on (8192, 16) segments, forward and gradients; demo_torch.py
+--mode eval playing it. stable_baselines3 and ray are not installed on
+the card's machine: their bridges are held on the CPU only.
 
 Prints one line per phase, a `{"profiler_lost": [...]}` JSON line naming
 the kernels whose second, profiler reading was lost (their device_ms is
@@ -1930,6 +1946,14 @@ def main():
     # self-play (PolicyPool, examples/selfplay_torch.py)
     xf_launches, xf_proof_launches = run_transformer_phase(torch, card)
 
+    # phase 20: the zoo policies that reach an LSTM kernel (nethack at its
+    # config.yaml widths, then one epoch each of nmmo, nmmo3 and
+    # pokemon_red) and the frameworks bridge (a reference checkpoint
+    # through torch_import, held to the reference math, then played by
+    # demo_torch's eval)
+    zoo_runs, zoo_launches, import_launches, zoo_peak = run_zoo_phase(torch,
+        card, l2_flush_buffer(), rng)
+
     mlp_big, mlp_small = (mlp_runs[B, 'bfloat16'] for B in (131072, 8192))
     kernels = [
         dict(name='gae', route='cuda',
@@ -2077,6 +2101,35 @@ def main():
             library_ms=main[f'{part}_lib'], shape=main['shape']))
     kernels[-6]['kernels_per_call'] = stream_per_call['float32'][16][0]
     kernels[-5]['kernels_per_call'] = stream_per_call['float32'][16][1]
+    # phase 20: the zoo trainers' flat GAE; enc5's launches in the
+    # reference checkpoint's check; cat's streamed pair at the nethack
+    # update's shape (rows named _zoo; launches: the nethack trainer's
+    # counted epochs), its launches in each zoo trainer and its times at
+    # the other zoo shapes
+    rows['gae']['zoo_launches'] = {name: n['gae_forward'] for name, n in
+        zoo_launches.items()}
+    for part in ('forward', 'backward'):
+        rows[f'lstm_enc5_{part}']['import_launches'] = \
+            import_launches[f'lstm_enc_{part}']
+    nethack = zoo_runs[ZOO_CAT_SHAPES[0]]
+    for fn, part, replaces in (
+            ('lstm_cat_stream_forward', 'fwd', 'lstm_cat.py:131'),
+            ('lstm_cat_stream_backward', 'bwd', 'lstm_cat.py:185')):
+        kernels.append(dict(name=f'{fn}_zoo', route='cuda',
+            source='pufferlib_tpu_torch/csrc/lstm_cat_stream.cu',
+            replaces=f'pufferlib_tpu/ops/pallas/{replaces}',
+            launches=zoo_launches['nethack'][fn],
+            max_abs_err=max(r[f'{part}_err'] for r in zoo_runs.values()),
+            ms=nethack[f'{part}_ms'], plain_ms=nethack[f'{part}_plain_ms'],
+            bound_ms=nethack[f'{part}_bound'], bound_by=nethack[f'{part}_by'],
+            library_ms=nethack[f'{part}_lib'], shape=nethack['shape'],
+            zoo_launches={name: n[fn] for name, n in zoo_launches.items()},
+            other_shapes={r['shape']: dict(ms=r[f'{part}_ms'],
+                plain_ms=r[f'{part}_plain_ms'],
+                bound_ms=r[f'{part}_bound'],
+                library_ms=r[f'{part}_lib']) for shape, r in
+                zoo_runs.items() if shape != ZOO_CAT_SHAPES[0]},
+            nethack_peak_memory_bytes=zoo_peak))
     print(json.dumps({'profiler_lost': PROFILER_LOST}), flush=True)
     print(json.dumps({'kernels': kernels}), flush=True)
     print(card, flush=True)
@@ -2090,7 +2143,9 @@ def main():
 # autotune ladder, and the bench's window
 CLI_EPOCHS = 3
 CLI_AUTOTUNE_LANES = (8192, 32768)
-CLI_BENCH_ENV = {'BENCH_EPOCHS': '20', 'BENCH_CHUNK': '10'}
+# 10 epochs after the warm-up chunk, so that the whole smoke stays near
+# 480 s
+CLI_BENCH_ENV = {'BENCH_EPOCHS': '10', 'BENCH_CHUNK': '10'}
 CLI_BENCH_METRICS = ['ocean_squared_ppo_sps_8k_lanes',
     'ocean_squared_ppo_lstm_sps', 'ocean_squared_ppo_sps']
 
@@ -2819,6 +2874,376 @@ def run_transformer_phase(torch, card):
     check_policy_pool(torch)
     run_selfplay_example(torch, card)
     return gae_launches, proof_launches
+
+
+# phase 20: the zoo policies that reach an LSTM kernel, and the frameworks
+# bridge. NETHACK is config.yaml's nethack section (config.yaml:320-332)
+# at its own widths: nethack.Policy h256 in LSTMWrapper(256, 256), f32,
+# 128 envs, batch 32768, minibatch 8192, bptt 16, lr 2.5e-4, through
+# HostMultiprocessing (8 workers, the card machine's cores, 64 envs a
+# recv: two groups in flight) and ppo_host. The update runs cat's streamed
+# design at T 16, B 512 (8192 / 16), D = H = 256 in f32; the flat GAE once
+# an epoch.
+NETHACK = dict(num_envs=128, num_workers=8, env_batch=64, batch_size=32768,
+    minibatch_size=8192, bptt=16, lr=2.5e-4, hidden=256)
+# the other zoo sections, one counted epoch each (after a warm-up epoch)
+# through ppo_host on HostSerial over the fakes of
+# environments/test/host_fixtures.py, at each section's batch, minibatch,
+# learning rate and widths; the cuts: nmmo 128 agents an env and nmmo3 64
+# (the fakes'); pokemon_red 64 envs in one process (the section's 48 do
+# not tile its batch of 32768, and its 24 workers are past the machine's
+# 8 cores)
+ZOO_OTHERS = {
+    'nmmo': dict(num_envs=4, agents=128, batch_size=32768,
+        minibatch_size=8192, lr=1.5e-4, hidden=256),
+    'nmmo3': dict(num_envs=8, agents=64, batch_size=65536,
+        minibatch_size=16384, lr=1.5e-4, hidden=256),
+    'pokemon_red': dict(num_envs=64, batch_size=32768, minibatch_size=8192,
+        lr=2.5e-4, hidden=512),
+}
+# cat's streamed pair at the shapes of those updates, in f32: (T, B, D, H)
+ZOO_CAT_SHAPES = ((16, 512, 256, 256), (16, 1024, 256, 256),
+    (16, 512, 512, 512))
+# the frameworks check: a reference LSTMWrapper(Default) checkpoint at h128
+# on squared (49 features, 8 actions), on an (8192, 16) segment batch
+IMPORT_CHECK = dict(B=8192, T=16, hidden=128, features=49, actions=8)
+
+
+def reference_checkpoint(torch, features, actions, hidden, seed=0):
+    """A reference PufferLib LSTMWrapper(Default) state_dict in the
+    reference's own key layout (policy.encoder / decoder / value_head,
+    recurrent.* of nn.LSTM with its two biases), drawn from a numpy seed;
+    float32 CPU tensors."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+
+    def draw(*shape, scale):
+        return torch.from_numpy((rng.randn(*shape) * scale).astype(
+            np.float32))
+    H = hidden
+    return {
+        'policy.encoder.weight': draw(H, features, scale=features ** -0.5),
+        'policy.encoder.bias': draw(H, scale=0.1),
+        'policy.decoder.weight': draw(actions, H, scale=H ** -0.5),
+        'policy.decoder.bias': draw(actions, scale=0.1),
+        'policy.value_head.weight': draw(1, H, scale=H ** -0.5),
+        'policy.value_head.bias': draw(1, scale=0.1),
+        'recurrent.weight_ih_l0': draw(4 * H, H, scale=H ** -0.5),
+        'recurrent.weight_hh_l0': draw(4 * H, H, scale=H ** -0.5),
+        'recurrent.bias_ih_l0': draw(4 * H, scale=0.1),
+        'recurrent.bias_hh_l0': draw(4 * H, scale=0.1),
+    }
+
+
+def reference_modules(torch, state_dict, device):
+    """The reference LSTMWrapper(Default)'s math as torch modules loaded
+    from its state_dict: nn.Linear encoder + relu, nn.LSTM (batch first),
+    nn.Linear decoder and value head. {name: module}."""
+    nn = torch.nn
+    sd = state_dict
+    H, F = sd['policy.encoder.weight'].shape
+    mods = dict(encoder=nn.Linear(F, H), lstm=nn.LSTM(H, H, batch_first=True),
+        decoder=nn.Linear(H, sd['policy.decoder.weight'].shape[0]),
+        value_head=nn.Linear(H, 1))
+    with torch.no_grad():
+        for name in ('encoder', 'decoder', 'value_head'):
+            mods[name].weight.copy_(sd[f'policy.{name}.weight'])
+            mods[name].bias.copy_(sd[f'policy.{name}.bias'])
+        for k, v in mods['lstm'].named_parameters():
+            v.copy_(sd[f'recurrent.{k}'])
+    return {k: m.to(device) for k, m in mods.items()}
+
+
+def reference_math(mods, x, state):
+    """The reference policy on x (B, T, features) from state (h, c), each
+    (1, B, H): (logits (B * T, actions), value (B * T, 1), (h, c))."""
+    B, T = x.shape[:2]
+    hidden = mods['encoder'](x.reshape(B * T, -1)).relu()
+    outs, (h, c) = mods['lstm'](hidden.reshape(B, T, -1), state)
+    flat = outs.reshape(B * T, -1)
+    return mods['decoder'](flat), mods['value_head'](flat), (h, c)
+
+
+def reference_grads(mods):
+    """The reference modules' parameter gradients in the reference's key
+    layout, bias_hh's zeroed: convert sums the two biases, whose gradients
+    are equal, so that the converted gradients are the port's."""
+    out = {f'policy.{name}.{k}': v.grad for name in ('encoder', 'decoder',
+        'value_head') for k, v in mods[name].named_parameters()}
+    for k, v in mods['lstm'].named_parameters():
+        out[f'recurrent.{k}'] = v.grad.new_zeros(v.grad.shape) if \
+            k.startswith('bias_hh') else v.grad
+    return out
+
+
+def check_reference_import(torch, card, device='cuda', B=None, T=None,
+        hidden=None):
+    """A seeded reference checkpoint converted by torch_import.convert into
+    the port's LSTMWrapper(Default) and held, on (B, T) segments, through
+    the port's kernel route (enc5) and its plain route (use_kernel=False),
+    to the reference math: logits, values, h, c and every weight gradient
+    (through autograd) within IMPORT_TOL of their scale. Returns the
+    kernel route's launches by C function."""
+    import numpy as np
+    from pufferlib_tpu_torch import spaces
+    from pufferlib_tpu_torch.frameworks import torch_import
+    from pufferlib_tpu_torch.models import Default, LSTMWrapper
+    from pufferlib_tpu_torch.ops.cuda import KERNELS
+    c = IMPORT_CHECK
+    B, T, H = B or c['B'], T or c['T'], hidden or c['hidden']
+    F, A = c['features'], c['actions']
+    ref_sd = reference_checkpoint(torch, F, A, H)
+    mods = reference_modules(torch, ref_sd, device)
+    lstm = LSTMWrapper(Default((7, 7), spaces.Discrete(A), hidden_size=H,
+        decoder_input_size=H), obs_shape=(7, 7), input_size=H,
+        hidden_size=H).to(device)
+    lstm.load_state_dict(torch_import.convert(ref_sd))
+    rng = np.random.RandomState(7)
+    x = torch.as_tensor(rng.randn(B, T, 7, 7).astype(np.float32),
+        device=device)
+    state = tuple(torch.as_tensor((rng.randn(1, B, H) * 0.5).astype(
+        np.float32), device=device) for _ in range(2))
+    g_logits = torch.as_tensor(rng.randn(B * T, A).astype(np.float32),
+        device=device)
+    g_value = torch.as_tensor(rng.randn(B * T, 1).astype(np.float32),
+        device=device)
+
+    def loss(logits, value, h, c):
+        return (logits * g_logits).sum() + (value * g_value).sum() + \
+            h.sum() + c.sum()
+    logits, value, (h, c) = reference_math(mods, x.reshape(B, T, F), state)
+    loss(logits, value, h, c).backward()
+    want = [logits.detach(), value.detach(), h.detach(), c.detach()]
+    want_grads = {k: v.to(device) for k, v in torch_import.convert(
+        reference_grads(mods)).items()}
+    errs, launches = {}, None
+    # the card's default route, use_kernel=None; on the CPU (a rehearsal)
+    # True runs enc5's plain version
+    for route, use_kernel in (('enc5', None if device == 'cuda' else True),
+            ('off', False)):
+        lstm.use_kernel = use_kernel
+        if device == 'cuda' and lstm.route(T, x.device) != route:
+            raise AssertionError(f'reference import: route '
+                f'{lstm.route(T, x.device)}, expected {route}')
+        lstm.zero_grad()
+        for k in KERNELS:
+            k.reset_counts()
+        logits, value, (h, c) = lstm(x, state)
+        loss(logits, value, h, c).backward()
+        if device == 'cuda':
+            torch.cuda.synchronize()
+        if route == 'enc5':
+            launches = {fn: n for k in KERNELS for fn, n in
+                k.fn_launches.items() if n}
+            want_launches = {'lstm_enc_forward': 1, 'lstm_enc_backward': 1}
+            if device == 'cuda' and launches != want_launches:
+                raise AssertionError(f'reference import: launches '
+                    f'{launches}, expected {want_launches}')
+        got = [logits, value, h, c]
+        got_grads = {k: v.grad for k, v in lstm.named_parameters()}
+        for name, a, w in list(zip(FORWARD, got, want)) + [(k, got_grads[k], want_grads[k]) for k in
+                sorted(want_grads)]:
+            err = (a.detach() - w).abs().max().item()
+            scale = max(1.0, w.abs().max().item())
+            if not (torch.isfinite(a).all() and err <= IMPORT_TOL * scale):
+                raise AssertionError(f'reference import, {route} route, '
+                    f'{name}: max abs err {err} > {IMPORT_TOL} x {scale:.4g}')
+            errs[route, name] = err / scale
+    log(f'reference LSTMWrapper(Default) h{H} through torch_import.convert, '
+        f'(B {B}, T {T}) f32, against nn.Linear + nn.LSTM + split heads '
+        f'on {device}, outputs and gradients: max abs err / max(1, max '
+        f'|reference|) enc5 route '
+        f'{max(v for (r, _), v in errs.items() if r == "enc5"):.3g}, plain '
+        f'route {max(v for (r, _), v in errs.items() if r == "off"):.3g} '
+        f'(tol {IMPORT_TOL}); forward alone (logits, value, h, c) '
+        f'{max(v for (r, n), v in errs.items() if n in FORWARD):.3g}; enc5 '
+        f'launches {json.dumps(launches)} on {card}')
+    return launches, ref_sd
+
+
+# the converted checkpoint against the reference math in f32: the port's
+# scans and cuDNN's sum in other orders over 16 steps (and the weight
+# gradients over 131072 rows)
+IMPORT_TOL = 1e-4
+FORWARD = ('logits', 'value', 'h', 'c')
+
+
+def run_reference_eval(torch, card, ref_sd, steps=3):
+    """demo_torch.py --mode eval plays the reference checkpoint (saved in
+    the reference's layout) on squared with the LSTM (config.cli's
+    default hidden size, 128) for a few steps."""
+    import contextlib
+    import io
+    sys.path.insert(0, REPO)
+    import demo_torch
+    path = os.path.join(REPO, 'experiments', 'chip_smoke',
+        'reference_lstm_h128.pt')
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    torch.save(ref_sd, path)
+    os.environ['PUFFER_EVAL_STEPS'] = str(steps)
+    os.environ['PUFFER_EVAL_DELAY'] = '0'
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        demo_torch.main(['--env', 'squared', '--mode', 'eval',
+            '--model-path', path, '--use-rnn', 'True'])
+    rewards = [line for line in out.getvalue().splitlines()
+        if line.startswith('Reward:')]
+    if len(rewards) != steps:
+        raise AssertionError(f'demo_torch eval of the reference checkpoint:'
+            f' {out.getvalue()[-500:]}')
+    log(f'demo_torch.py --mode eval --model-path (a reference-layout '
+        f'LSTMWrapper(Default) h128 state_dict) on squared: {steps} steps, '
+        f'{rewards} on {card}')
+
+
+def _zoo_lstm(torch, policy, shape, hidden):
+    from pufferlib_tpu_torch.models import LSTMWrapper, RecurrentPolicy
+    lstm = LSTMWrapper(policy, obs_shape=shape, input_size=hidden,
+        hidden_size=hidden, generator=torch.Generator().manual_seed(1))
+    route = lstm.route(16, torch.device('cuda'))
+    if route != 'cat':
+        raise AssertionError(f'zoo: LSTM route {route}, expected cat')
+    return RecurrentPolicy(lstm)
+
+
+def _zoo_config(name, batch_size, minibatch_size, lr):
+    from pufferlib_tpu_torch.training import ppo_host
+    return ppo_host.default_config(env=name, batch_size=batch_size,
+        minibatch_size=minibatch_size, bptt_horizon=16, learning_rate=lr,
+        total_timesteps=batch_size * 1000, verbose=False,
+        data_dir=os.path.join(REPO, 'experiments', 'chip_smoke'),
+        checkpoint_interval=10 ** 6, seed=0)
+
+
+def _zoo_want(config, launches, epochs):
+    """The launches an epoch of a zoo trainer must make: the flat GAE once,
+    cat's streamed pair once a minibatch, nothing else."""
+    minibatches = config.update_epochs * (config.batch_size
+        // config.minibatch_size)
+    want = dict.fromkeys(launches, 0)
+    want['gae_forward'] = epochs
+    want['lstm_cat_stream_forward'] = want['lstm_cat_stream_backward'] = \
+        minibatches * epochs
+    return want
+
+
+def run_nethack_trainer(torch, card, epochs=2):
+    """NETHACK through HostMultiprocessing and ppo_host: a warm-up epoch,
+    then `epochs` counted. Returns (launches by C function, peak memory
+    bytes)."""
+    from pufferlib_tpu_torch import vector_host
+    from pufferlib_tpu_torch.environments.nethack.policy import Policy
+    from pufferlib_tpu_torch.environments.test.host_fixtures import (
+        make_fake_nethack)
+    from pufferlib_tpu_torch.ops.cuda.lstm_common import cat_design
+    from pufferlib_tpu_torch.training import ppo_host
+    n, H = NETHACK, NETHACK['hidden']
+    vec = vector_host.make(make_fake_nethack,
+        backend=vector_host.HostMultiprocessing, num_envs=n['num_envs'],
+        num_workers=n['num_workers'], batch_size=n['env_batch'])
+    shape = vec.single_observation_space.shape
+    policy = _zoo_lstm(torch, Policy(shape, vec.single_action_space,
+        emulated=vec.emulated, hidden_size=H,
+        generator=torch.Generator().manual_seed(0)), shape, H)
+    config = _zoo_config('nethack', n['batch_size'], n['minibatch_size'],
+        n['lr'])
+    torch.cuda.reset_peak_memory_stats()
+    data = ppo_host.create(config, vec, policy)
+    try:
+        elapsed, launches = _host_epochs(torch, ppo_host, data, epochs)
+    finally:
+        ppo_host.close(data)
+    peak = torch.cuda.max_memory_allocated()
+    want = _zoo_want(config, launches, epochs)
+    if launches != want:
+        raise AssertionError(f'nethack: launches {launches}, expected {want}')
+    if 'episode_return' not in data.stats:
+        raise AssertionError(f'nethack: no episode stats ({data.stats})')
+    design = cat_design(H, H, torch.float32)
+    _host_line(data, f'nethack host trainer ({n["num_envs"]} fake NLE envs '
+        f'in {n["num_workers"]} workers, {n["env_batch"]} a recv; '
+        f'nethack.Policy h{H} + LSTM {H} f32 (cat, {design} design), batch '
+        f'{n["batch_size"]}, minibatch {n["minibatch_size"]}, bptt '
+        f'{n["bptt"]}, lr {n["lr"]}; peak memory {peak / 2 ** 30:.2f} GiB)',
+        elapsed, epochs, launches, card)
+    return launches, peak
+
+
+def run_zoo_other(torch, card, name):
+    """A ZOO_OTHERS section through HostSerial and ppo_host over its
+    fake: a warm-up epoch, then one counted. Returns the launches by C
+    function."""
+    import functools
+    from pufferlib_tpu_torch import vector_host
+    from pufferlib_tpu_torch.environments.test import host_fixtures
+    from pufferlib_tpu_torch.training import ppo_host
+    z = ZOO_OTHERS[name]
+    H = z['hidden']
+    g = torch.Generator().manual_seed(0)
+    if name == 'nmmo':
+        from pufferlib_tpu_torch.environments.nmmo.policy import Policy
+        creator = functools.partial(host_fixtures.make_fake_nmmo,
+            z['agents'])
+    elif name == 'nmmo3':
+        from pufferlib_tpu_torch.environments.nmmo3.policy import Policy
+        creator = functools.partial(host_fixtures.make_fake_nmmo3,
+            z['agents'])
+    else:
+        from pufferlib_tpu_torch.environments.pokemon_red import Policy
+        creator = host_fixtures.make_fake_pokemon_red
+    vec = vector_host.make(creator, backend=vector_host.HostSerial,
+        num_envs=z['num_envs'])
+    shape = vec.single_observation_space.shape
+    kwargs = dict(generator=g, hidden_size=H)
+    if name != 'pokemon_red':
+        kwargs['emulated'] = vec.emulated
+    policy = _zoo_lstm(torch, Policy(shape, vec.single_action_space,
+        **kwargs), shape, H)
+    config = _zoo_config(name, z['batch_size'], z['minibatch_size'],
+        z['lr'])
+    data = ppo_host.create(config, vec, policy)
+    try:
+        elapsed, launches = _host_epochs(torch, ppo_host, data, 1)
+    finally:
+        ppo_host.close(data)
+    want = _zoo_want(config, launches, 1)
+    if launches != want:
+        raise AssertionError(f'{name}: launches {launches}, expected {want}')
+    agents = f' of {z["agents"]} agents' if 'agents' in z else ''
+    _host_line(data, f'{name} host trainer ({z["num_envs"]} fake envs'
+        f'{agents}, HostSerial; {name}.Policy h{H} + LSTM '
+        f'{H} f32 (cat), batch {z["batch_size"]}, minibatch '
+        f'{z["minibatch_size"]}, bptt 16, lr {z["lr"]})', elapsed, 1,
+        launches, card)
+    return launches
+
+
+def run_zoo_phase(torch, card, flush, rng):
+    """Phase 20. cat's streamed pair against its plain version at the zoo
+    updates' shapes (timed beside its bound, the plain version and cuDNN's
+    nn.LSTM), then the nethack trainer, one epoch of nmmo, nmmo3 and
+    pokemon_red, the reference checkpoint through torch_import (enc5 and
+    plain routes against the reference math) and demo_torch's eval of it.
+    stable_baselines3 and ray are not installed on the card's machine:
+    their bridges are held on the CPU only (tests/test_torch_frameworks.py).
+    Returns ({shape: check_lstm's result}, {trainer: launches}, import
+    launches, nethack peak memory)."""
+    import importlib.util
+    for package in ('stable_baselines3', 'ray'):
+        log(f'{package}: ' + ('installed, not run here' if
+            importlib.util.find_spec(package) else 'not installed; its '
+            'bridge is held on the CPU only'))
+    runs = {}
+    for T, B, D, H in ZOO_CAT_SHAPES:
+        runs[T, B, D, H] = check_lstm(torch, flush, rng, 'cat_stream', B,
+            'float32', T=T, H=H, D=D, timed=True)
+    launches = {}
+    launches['nethack'], peak = run_nethack_trainer(torch, card)
+    for name in ZOO_OTHERS:
+        launches[name] = run_zoo_other(torch, card, name)
+    import_launches, ref_sd = check_reference_import(torch, card)
+    run_reference_eval(torch, card, ref_sd)
+    return runs, launches, import_launches, peak
 
 
 if __name__ == '__main__':

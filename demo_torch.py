@@ -191,22 +191,22 @@ def _show_frame(frame, step, save_dir=None):
 
 
 def load_model(policy, path, device):
-    """Load the port's own model_*.pt (a state_dict of this policy). Any
-    other file, a reference PufferLib checkpoint among them, raises."""
-    import pickle
-    import torch
+    """Load a model_*.pt into the policy: the port's own state_dict of
+    this policy, or a reference PufferLib checkpoint of the same
+    architecture (its Default or LSTMWrapper(Default), a state_dict or a
+    pickled module, which is unpickled: the user named the file),
+    converted through frameworks.torch_import (policy_store.read_policy).
+    Any other file raises APIUsageError, a pickle of no reference module
+    unread."""
     from pufferlib_tpu_torch.exceptions import APIUsageError
-    refusal = (f'{path} is not a pufferlib_tpu_torch model_*.pt state_dict '
-        'of this policy; loading a reference PufferLib checkpoint is '
-        'ROADMAP queue 1 item 6 (frameworks)')
-    try:
-        state = torch.load(path, map_location=device, weights_only=True)
-    except (pickle.UnpicklingError, RuntimeError) as e:
-        # a pickled module, or not a torch file at all
-        raise APIUsageError(refusal) from e
-    if not isinstance(state, dict) or set(state) != set(policy.state_dict()):
-        raise APIUsageError(refusal)
-    policy.load_state_dict(state)
+    from pufferlib_tpu_torch.policy_store import read_policy
+    state = read_policy(path, unpickle_reference=True)
+    want = policy.state_dict()
+    if set(state) != set(want) or any(state[k].shape != want[k].shape
+            for k in want):
+        raise APIUsageError(f'{path} is not a state_dict of this policy '
+            f'(its keys and shapes differ from {type(policy).__name__}\'s)')
+    policy.load_state_dict({k: v.to(device) for k, v in state.items()})
 
 
 def evaluate(args, env_module, creator):
@@ -471,11 +471,18 @@ def baseline(args, env_module, creator):
 
 
 def train_sb3(args, env_module, creator):
-    """The SB3 backend (reference demo.py:203-218) waits for the
-    frameworks bridge."""
-    from pufferlib_tpu_torch.exceptions import APIUsageError
-    raise APIUsageError('--backend sb3 needs the frameworks bridge, '
-        'ROADMAP queue 1 item 6, which pufferlib_tpu_torch has not yet')
+    """The SB3 backend (reference demo.py:203-218): host envs adapted to
+    gymnasium.Env and handed to stable_baselines3 (frameworks/sb3.py),
+    which raises ImportError where it is not installed."""
+    from pufferlib_tpu_torch.frameworks.sb3 import train_sb3 as sb3_train
+    # SB3's DummyVecEnv is a Python loop: keep the env count modest rather
+    # than take the native trainer's lane counts
+    n_envs = min(int(args.train.get('num_envs', 4) or 4), 8)
+    return sb3_train(creator, env_kwargs=dict(args.env_kwargs),
+        n_envs=n_envs, seed=args.train.get('seed', 0),
+        total_timesteps=args.train.get('total_timesteps', 10000),
+        update_epochs=args.train.get('update_epochs', 4),
+        gamma=args.train.get('gamma', 0.99))
 
 
 def bench():

@@ -369,3 +369,201 @@ def make_fake_procgen():
     from pufferlib_tpu_torch.host_env import GymnasiumPufferEnv
     from pufferlib_tpu_torch.postprocess import EpisodeStats
     return GymnasiumPufferEnv(env=EpisodeStats(FakeProcgen()))
+
+
+# --------------------------------------------------------------------------
+# The zoo's backends at their observation layouts, on the port's spaces
+# (no gymnasium): nle, nmmo, nmmo3 and pokegym are not installed here or on
+# the card. Each draws a bank of observations from its seed once and
+# cycles through it, so that a step costs little beside the wrappers.
+
+class FakeNLE:
+    """NetHack's Dict observation (blstats int32 (27,), chars, colors
+    uint8 (21, 79), glyphs int16 (21, 79), the space of
+    tests/test_zoo_fake_backends.py), 23 actions, reward 1 a step,
+    episodes of `episode_length` steps."""
+
+    def __init__(self, episode_length=64, seed=0, bank=16):
+        self.observation_space = spaces.Dict({
+            'blstats': spaces.Box(-2**15, 2**15 - 1, (27,), np.int32),
+            'chars': spaces.Box(0, 255, (21, 79), np.uint8),
+            'colors': spaces.Box(0, 15, (21, 79), np.uint8),
+            'glyphs': spaces.Box(0, 5976, (21, 79), np.int16),
+        })
+        self.action_space = spaces.Discrete(23)
+        self.render_mode = None
+        self.episode_length = episode_length
+        rng = np.random.RandomState(seed)
+        self._bank = [{k: rng.randint(0, 100, s.shape).astype(s.dtype)
+            for k, s in self.observation_space.items()} for _ in range(bank)]
+        self.t = 0
+
+    def _obs(self):
+        return self._bank[self.t % len(self._bank)]
+
+    def reset(self, seed=None, options=None):
+        self.t = 0
+        return self._obs(), {}
+
+    def step(self, action):
+        self.t += 1
+        return self._obs(), 1.0, self.t >= self.episode_length, False, {}
+
+    def close(self):
+        pass
+
+
+def make_fake_nethack(episode_length=64):
+    """FakeNLE behind environments.nethack's own wrapper stack
+    (EpisodeStats, GymnasiumPufferEnv)."""
+    from pufferlib_tpu_torch.environments.nethack import wrap
+    return wrap(FakeNLE(episode_length))
+
+
+class FakeNMMO:
+    """A Neural MMO parallel env (old pettingzoo: reset gives obs, step a
+    4-tuple) of `num_agents` agents with nmmo's observation layout:
+    AgentId int16 (1,), Entity int16 (rows, 31) whose column 0 is the id
+    (the agent's own row among them, but for agent 1, which has none),
+    Tile int16 (225, 3). 5 x 4 x 3 multi-discrete actions; reward 0.1 a
+    step; episodes of `episode_length` steps."""
+
+    def __init__(self, num_agents=128, rows=100, episode_length=64,
+            seed=0, bank=8):
+        self.possible_agents = list(range(1, num_agents + 1))
+        self.agents = []
+        self.render_mode = None
+        self.rows = rows
+        self.episode_length = episode_length
+        self._space = spaces.Dict({
+            'AgentId': spaces.Box(0, 2**15 - 1, (1,), np.int16),
+            'Entity': spaces.Box(-2**15, 2**15 - 1, (rows, 31), np.int16),
+            'Tile': spaces.Box(0, 255, (225, 3), np.int16),
+        })
+        self._atn = spaces.MultiDiscrete([5, 4, 3])
+        rng = np.random.RandomState(seed)
+        self._bank = []
+        for _ in range(bank):
+            entity = rng.randint(-8, 300, (rows, 31)).astype(np.int16)
+            entity[:, 0] = rng.randint(0, num_agents + 1, rows)
+            tile = rng.randint(0, 200, (225, 3)).astype(np.int16)
+            self._bank.append((entity, tile))
+        self.t = 0
+
+    def observation_space(self, agent):
+        return self._space
+
+    def action_space(self, agent):
+        return self._atn
+
+    def _obs(self, agent):
+        entity, tile = self._bank[(self.t + agent) % len(self._bank)]
+        entity = entity.copy()
+        if agent != 1:
+            entity[agent % self.rows, 0] = agent
+        else:
+            entity[entity[:, 0] == 1, 0] = 0
+        return {'AgentId': np.array([agent], np.int16), 'Entity': entity,
+            'Tile': tile}
+
+    def reset(self, seed=None):
+        self.t = 0
+        self.agents = list(self.possible_agents)
+        return {a: self._obs(a) for a in self.agents}
+
+    def step(self, actions):
+        self.t += 1
+        done = self.t >= self.episode_length
+        obs = {a: self._obs(a) for a in self.agents}
+        rewards = {a: 0.1 for a in self.agents}
+        dones = {a: done for a in self.agents}
+        infos = {a: {} for a in self.agents}
+        if done:
+            self.agents = []
+        return obs, rewards, dones, infos
+
+    def close(self):
+        pass
+
+
+def make_fake_nmmo(num_agents=128, episode_length=64):
+    """FakeNMMO behind environments.nmmo's own wrapper stack."""
+    from pufferlib_tpu_torch.environments.nmmo import wrap
+    return wrap(FakeNMMO(num_agents, episode_length=episode_length))
+
+
+class FakePuffEnv:
+    """An nmmo3 native PufferEnv: `num_agents` agents, each a flat uint8
+    observation of 11 * 15 map codes then 44 player features, 26
+    actions, reward 0.1 a step; every agent done after
+    `episode_length` steps."""
+
+    def __init__(self, width=1024, height=1024, num_envs=1, num_agents=64,
+            episode_length=64, seed=0, bank=8):
+        self.num_agents = num_agents
+        self.single_observation_space = spaces.Box(0, 255, (11 * 15 + 44,),
+            np.uint8)
+        self.single_action_space = spaces.Discrete(26)
+        self.observation_space = self.single_observation_space
+        self.action_space = self.single_action_space
+        self.render_mode = None
+        self.episode_length = episode_length
+        rng = np.random.RandomState(seed)
+        self._bank = rng.randint(0, 256, (bank, num_agents, 209)).astype(
+            np.uint8)
+        self.t = 0
+
+    def reset(self, seed=None):
+        self.t = 0
+        return self._bank[0], {}
+
+    def step(self, actions):
+        self.t += 1
+        n = self.num_agents
+        done = np.full(n, self.t >= self.episode_length)
+        return (self._bank[self.t % len(self._bank)],
+            np.full(n, 0.1, np.float32), done, np.zeros(n, bool), {})
+
+    def close(self):
+        pass
+
+
+def make_fake_nmmo3(num_agents=64, episode_length=64):
+    """FakePuffEnv through host_env.NativePufferEnv, as
+    environments.nmmo3.make takes the real one."""
+    from pufferlib_tpu_torch.host_env import NativePufferEnv
+    return NativePufferEnv(env=FakePuffEnv(num_agents=num_agents,
+        episode_length=episode_length))
+
+
+class FakePokegym:
+    """pokegym's screen: 72 x 80 x 4 uint8 (channels last), 7 actions,
+    reward 0.1 a step, episodes of `episode_length` steps."""
+
+    def __init__(self, headless=True, state_path=None, episode_length=64,
+            seed=0, bank=8):
+        self.observation_space = spaces.Box(0, 255, (72, 80, 4), np.uint8)
+        self.action_space = spaces.Discrete(7)
+        self.render_mode = None
+        self.episode_length = episode_length
+        rng = np.random.RandomState(seed)
+        self._bank = rng.randint(0, 256, (bank, 72, 80, 4)).astype(np.uint8)
+        self.t = 0
+
+    def reset(self, seed=None, options=None):
+        self.t = 0
+        return self._bank[0], {}
+
+    def step(self, action):
+        self.t += 1
+        return (self._bank[self.t % len(self._bank)], 0.1,
+            self.t >= self.episode_length, False, {})
+
+    def close(self):
+        pass
+
+
+def make_fake_pokemon_red(episode_length=64):
+    """FakePokegym behind environments.pokemon_red's own wrapper stack."""
+    from pufferlib_tpu_torch.environments.pokemon_red import wrap
+    return wrap(FakePokegym(episode_length=episode_length))

@@ -26,7 +26,8 @@ from torch import nn
 
 from pufferlib_tpu_torch import emulation, spaces
 from pufferlib_tpu_torch.environment import tree_leaves
-from pufferlib_tpu_torch.models._layers import _linear, _orthogonal_dense
+from pufferlib_tpu_torch.models._layers import (
+    _conv_relu, _linear, _orthogonal_conv, _orthogonal_dense)
 from pufferlib_tpu_torch.models.distributions import sample_logits
 from pufferlib_tpu_torch.models.policy import (
     Policy, RecurrentPolicy, count_params)
@@ -467,12 +468,8 @@ class Convolutional(nn.Module):
         self.convs = nn.ModuleList()
         for cin, cout, k, stride in ((framestack, 32, 8, 4), (32, 64, 4, 2),
                 (64, 64, 3, 1)):
-            conv = nn.Conv2d(cin, cout, k, stride=stride)
-            with torch.no_grad():
-                nn.init.orthogonal_(conv.weight, math.sqrt(2),
-                    generator=generator)
-                conv.bias.zero_()
-            self.convs.append(conv)
+            self.convs.append(_orthogonal_conv(cin, cout, k, stride,
+                generator))
         self.fc = _orthogonal_dense(flat_size, hidden_size, math.sqrt(2),
             generator)
         self.heads = _Heads(action_space, hidden_size, generator)
@@ -488,8 +485,7 @@ class Convolutional(nn.Module):
         if self.downsample > 1:
             x = x[:, :, ::self.downsample, ::self.downsample]
         for conv in self.convs:
-            x = torch.relu(F.conv2d(x, conv.weight.to(cdt),
-                conv.bias.to(cdt), stride=conv.stride))
+            x = _conv_relu(conv, x, cdt)
         return torch.relu(self._dense(self.fc, _nhwc_flat(x))), None
 
     def decode_actions(self, hidden, lookup=None):

@@ -1,4 +1,13 @@
-"""The Linear layer helpers that the model families share."""
+"""The layer helpers that the model families and the zoo policies share.
+
+A flax layer with dtype=cdt, param_dtype=f32 casts its input, weight and
+bias to cdt; nn.Embed looks its f32 table up. The initialisers draw from
+an explicit torch.Generator: orthogonal Dense and (gain sqrt 2)
+convolutions, as the JAX layer_init helpers; lecun-normal Dense layers
+and normal embeddings, as flax's defaults. The JAX draws themselves are
+not reproduced: tests carry the weights through convert.py.
+"""
+import math
 import sys
 
 import torch
@@ -26,4 +35,44 @@ def _orthogonal_dense(in_features, out_features, std, generator):
     with torch.no_grad():
         nn.init.orthogonal_(layer.weight, std, generator=generator)
         layer.bias.zero_()
+    return layer
+
+
+def _orthogonal_conv(cin, cout, k, stride, generator):
+    """VALID nn.Conv2d with an orthogonal weight of gain sqrt 2 and a zero
+    bias (the JAX layer_init)."""
+    layer = nn.Conv2d(cin, cout, k, stride=stride)
+    with torch.no_grad():
+        nn.init.orthogonal_(layer.weight, math.sqrt(2), generator=generator)
+        layer.bias.zero_()
+    return layer
+
+
+def _conv_relu(layer, x, dtype):
+    """relu of the convolution `layer` on x (NCHW) in the compute dtype."""
+    return torch.relu(F.conv2d(x.to(dtype), layer.weight.to(dtype),
+        layer.bias.to(dtype), stride=layer.stride))
+
+
+def _lecun_dense(in_features, out_features, generator):
+    """nn.Linear as flax's default Dense: lecun normal (a normal truncated
+    at two standard deviations, scaled to variance 1 / in_features), zero
+    bias."""
+    layer = nn.Linear(in_features, out_features)
+    # the standard deviation of a unit normal truncated to (-2, 2)
+    std = 1.0 / math.sqrt(in_features) / .87962566103423978
+    with torch.no_grad():
+        nn.init.trunc_normal_(layer.weight, 0.0, std, -2 * std, 2 * std,
+            generator=generator)
+        layer.bias.zero_()
+    return layer
+
+
+def _embedding(num, features, generator):
+    """nn.Embedding as flax's default Embed: normal, std
+    1 / sqrt(features)."""
+    layer = nn.Embedding(num, features)
+    with torch.no_grad():
+        layer.weight.normal_(0.0, 1.0 / math.sqrt(features),
+            generator=generator)
     return layer

@@ -38,7 +38,8 @@ torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 with open(os.path.join(REPO, 'config.yaml')) as f:
     SECTIONS = yaml.safe_load(f)
-PORT_PACKAGES = ('ocean', 'atari', 'test')
+PORT_PACKAGES = ('ocean', 'atari', 'test', 'nethack', 'minihack', 'nmmo',
+    'nmmo3', 'pokemon_red', 'procgen')
 
 
 def _package(name):

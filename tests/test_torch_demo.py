@@ -5,13 +5,14 @@ demo.py where both compute the same thing:
   host creator to vector_host and ppo_host;
 - train squared for a few epochs, write a checkpoint, resume it by
   --exp-id, and --mode eval loads the model_*.pt (PUFFER_EVAL_STEPS=2);
-  a file that is not the port's state_dict is refused, naming queue 1
-  item 6;
+  a file that is neither this policy's state_dict nor a reference
+  checkpoint is refused (a reference one plays:
+  tests/test_torch_frameworks.py);
 - sample_sweep_params from RandomState(0) and sweep_objective equal the
   JAX package's exactly; the local sweep reads each run's stats series;
 - autotune, profile (with a torch.profiler trace), memory through the
   LSTM; --mode bench propagates bench_torch.py's exit code; --backend
-  sb3 names queue 1 item 6.
+  sb3 reaches frameworks.sb3, whose ImportError names stable_baselines3.
 """
 import os
 import sys
@@ -123,12 +124,14 @@ def test_train_resume_and_eval(tmp_path, monkeypatch, capsys):
         str(run / 'model_000004.pt')])
     assert capsys.readouterr().out.count('Reward:') == 2
 
-    # a state_dict of another layout, and a pickled module (how the
-    # reference PufferLib saves its policies)
+    # a state_dict of another layout, and a pickled module that is no
+    # reference policy
     other = tmp_path / 'reference.pt'
-    for obj in ({'policy.weight': torch.zeros(1)}, torch.nn.Linear(2, 2)):
+    for obj, refusal in (({'policy.weight': torch.zeros(1)},
+            'not a state_dict of this policy'),
+            (torch.nn.Linear(2, 2), 'holds no policy state_dict')):
         torch.save(obj, other)
-        with pytest.raises(APIUsageError, match='queue 1 item 6'):
+        with pytest.raises(APIUsageError, match=refusal):
             demo_torch.main(['--env', 'squared', '--mode', 'eval',
                 '--train.device', 'cpu', '--model-path', str(other)])
 
@@ -255,7 +258,10 @@ def test_bench_mode_propagates_the_exit_code(monkeypatch):
     assert calls[0][-1].endswith('bench_torch.py')
 
 
-def test_sb3_backend_names_the_frameworks_item():
-    with pytest.raises(APIUsageError, match='queue 1 item 6'):
+def test_sb3_backend_names_the_frameworks_item(monkeypatch):
+    # --backend sb3 reaches frameworks.sb3.train_sb3, which names the
+    # package it needs (with a fake one: tests/test_torch_frameworks.py)
+    monkeypatch.setitem(sys.modules, 'stable_baselines3', None)
+    with pytest.raises(ImportError, match='stable_baselines3'):
         demo_torch.main(['--env', 'squared', '--backend', 'sb3',
             '--train.device', 'cpu'])

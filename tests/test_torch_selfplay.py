@@ -190,7 +190,8 @@ def test_store_lists_and_loads_checkpoints(tmp_path):
     """PolicyStore over a trainer's checkpoint directory: the model_*.pt
     files training/checkpoint.py writes (not trainer_state.pt), each the
     policy's state_dict; a pickled module or a dict of other objects is
-    refused with an APIUsageError naming the frameworks item."""
+    refused with an APIUsageError (a reference checkpoint comes back
+    converted: tests/test_torch_frameworks.py)."""
     vecenv = vector.make(env_creator('squared'), num_envs=4, device='cpu')
     policy = Policy(Default(obs_shape=vecenv.single_observation_space.shape,
         action_space=vecenv.single_action_space, hidden_size=8))
@@ -213,7 +214,7 @@ def test_store_lists_and_loads_checkpoints(tmp_path):
     other = PolicyStore(str(tmp_path))
     assert other.policy_names() == ['model_000009', 'model_000010']
     for name in other.policy_names():
-        with pytest.raises(APIUsageError, match='queue 1 item 6'):
+        with pytest.raises(APIUsageError, match='holds no policy state_dict'):
             other.get_policy(name)
 
 
