@@ -115,7 +115,7 @@ within 60 epochs); PolicyPool on the card (forced heads routed by the
 cycle map, a TransformerPolicy pool against each policy alone); and
 examples/selfplay_torch.py.
 
-The zoo and frameworks phase (phase 20, last): cat's streamed pair
+The zoo and frameworks phase (phase 20): cat's streamed pair
 against its plain version in f32 at the zoo updates' shapes (T 16; B 512
 and D = H = 256, B 1024 and 256, B 512 and 512), timed beside its bound,
 the plain version and cuDNN's nn.LSTM; config.yaml's nethack section at
@@ -130,6 +130,22 @@ held through enc5 and the plain scan to nn.Linear + nn.LSTM + split
 heads on (8192, 16) segments, forward and gradients; demo_torch.py
 --mode eval playing it. stable_baselines3 and ray are not installed on
 the card's machine: their bridges are held on the CPU only.
+
+The last zoo phase (phase 21, last): enc5's streamed pair against its
+plain version in f32 at minigrid's update shape (T 16, B 256, F 147, D =
+H = 128), timed beside its bound and the plain version, and run twice
+bit for bit; config.yaml's minigrid section at full width through
+config.cli (Default + LSTM 128, 128 fake MiniGrid envs behind the
+binding's own wrap in HostMultiprocessing, ppo_host) for 2 counted epochs
+after a warm-up, launches asserted (enc5's streamed pair 16 times an
+epoch, GAE once, nothing else), then one epoch under the profiler for
+the card's idle share, and peak memory; one counted epoch (no warm-up)
+of every other section of the last zoo slice whose binding's wrap needs
+no gymnasium, on host_fixtures.ZOO2_FAKES in HostSerial at the section's
+widths (ZOO2_BATCH_CUTS names the batches cut), GAE once and nothing
+else; examples/cleanrl_style_ppo_torch.py in a child process (30 finite
+scores, 30 GAE launches). links_awaken's wrap needs gymnasium: it is held
+on the CPU only.
 
 Prints one line per phase, a `{"profiler_lost": [...]}` JSON line naming
 the kernels whose second, profiler reading was lost (their device_ms is
@@ -1510,13 +1526,14 @@ VISUAL = dict(num_envs=64, batch_size=4096, minibatch_size=1024, bptt=16,
     lr=1e-3, steps=131072, goal=0.6)
 
 
-def _host_epochs(torch, ppo_host, data, epochs):
-    """A warm-up epoch, then `epochs` epochs with every launch count set
-    to 0 just before and read just after: (elapsed s, launches by C
-    function)."""
+def _host_epochs(torch, ppo_host, data, epochs, warmup=True):
+    """A warm-up epoch (unless warmup is False), then `epochs` epochs with
+    every launch count set to 0 just before and read just after: (elapsed
+    s, launches by C function)."""
     from pufferlib_tpu_torch.ops.cuda import KERNELS
-    ppo_host.evaluate(data)
-    ppo_host.train(data)
+    if warmup:
+        ppo_host.evaluate(data)
+        ppo_host.train(data)
     torch.cuda.synchronize()
     for k in KERNELS:
         k.reset_counts()
@@ -1530,15 +1547,17 @@ def _host_epochs(torch, ppo_host, data, epochs):
         k.fn_launches.items()}
 
 
-def _host_line(data, what, elapsed, epochs, launches, card, split=None):
+def _host_line(data, what, elapsed, epochs, launches, card, split=None,
+        warmup=True):
     """split: the last timed epoch's (evaluate, train) seconds, where the
-    trainer ran more since"""
+    trainer ran more since; warmup: whether a warm-up epoch came first"""
     timers, profile = data._timers, data.profile
     split = split or (timers['evaluate'].prev, timers['train'].prev)
     losses = check_losses(data, what)
     per_epoch = {k: v // epochs for k, v in launches.items() if v}
     log(f'{what}: {epochs * data.config.batch_size / elapsed:.1f} steps/s '
-        f'over {epochs} epochs after a warm-up epoch '
+        f'over {epochs} epochs ' + ('after a warm-up epoch ' if warmup
+        else '(no warm-up) ') +
         f'({elapsed / epochs * 1e3:.2f} ms/epoch; {os.cpu_count()} host '
         f'cores); last epoch: evaluate {split[0] * 1e3:.2f} '
         f'ms, train {split[1] * 1e3:.2f} ms; totals: env '
@@ -1954,6 +1973,13 @@ def main():
     zoo_runs, zoo_launches, import_launches, zoo_peak = run_zoo_phase(torch,
         card, l2_flush_buffer(), rng)
 
+    # phase 21: the last zoo bindings (config.yaml's minigrid section
+    # through enc5's streamed design, one epoch of each other section on
+    # its fake) and examples/cleanrl_style_ppo_torch.py
+    (minigrid_enc5, zoo2_launches, minigrid_peak, minigrid_idle,
+        example_launches) = run_zoo2_phase(torch, card, l2_flush_buffer(),
+        rng)
+
     mlp_big, mlp_small = (mlp_runs[B, 'bfloat16'] for B in (131072, 8192))
     kernels = [
         dict(name='gae', route='cuda',
@@ -2130,6 +2156,34 @@ def main():
                 library_ms=r[f'{part}_lib']) for shape, r in
                 zoo_runs.items() if shape != ZOO_CAT_SHAPES[0]},
             nethack_peak_memory_bytes=zoo_peak))
+    # phase 21: the flat GAE of each section's trainer and the cleanrl
+    # example's GAE; enc5's streamed pair at minigrid's update shape (rows
+    # named _minigrid; launches: its trainer's counted epochs), and its
+    # launches beside the other enc5 streamed rows
+    rows = {row['name']: row for row in kernels}
+    rows['gae']['zoo2_launches'] = {name: n['gae_forward'] for name, n in
+        zoo2_launches.items()}
+    rows['gae']['zoo2_launches']['cleanrl_example'] = \
+        example_launches['gae_forward']
+    for fn, part, replaces in (
+            ('lstm_enc_stream_forward', 'fwd', 'lstm_enc.py:170'),
+            ('lstm_enc_stream_backward', 'bwd', 'lstm_enc5.py:147')):
+        minigrid_n = zoo2_launches['minigrid'][fn]
+        for name in (fn, f'{fn}_f32'):
+            rows[name]['zoo2_launches'] = {'minigrid': minigrid_n}
+        kernels.append(dict(name=f'{fn}_minigrid', route='cuda',
+            source='pufferlib_tpu_torch/csrc/lstm_cat_stream.cu',
+            replaces=f'pufferlib_tpu/ops/pallas/{replaces}',
+            launches=minigrid_n, max_abs_err=minigrid_enc5[f'{part}_err'],
+            ms=minigrid_enc5[f'{part}_ms'],
+            plain_ms=minigrid_enc5[f'{part}_plain_ms'],
+            bound_ms=minigrid_enc5[f'{part}_bound'],
+            bound_by=minigrid_enc5[f'{part}_by'],
+            library_ms=minigrid_enc5[f'{part}_lib'],
+            shape=minigrid_enc5['shape'],
+            zoo2_launches={'minigrid': minigrid_n},
+            minigrid_peak_memory_bytes=minigrid_peak,
+            minigrid_idle_share=minigrid_idle))
     print(json.dumps({'profiler_lost': PROFILER_LOST}), flush=True)
     print(json.dumps({'kernels': kernels}), flush=True)
     print(card, flush=True)
@@ -3244,6 +3298,210 @@ def run_zoo_phase(torch, card, flush, rng):
     import_launches, ref_sd = check_reference_import(torch, card)
     run_reference_eval(torch, card, ref_sd)
     return runs, launches, import_launches, peak
+
+
+# phase 21: the last zoo bindings. MINIGRID is config.yaml's minigrid
+# section (config.yaml:172-182) at its own widths, read by config.cli:
+# Default over the 7 x 7 x 3 uint8 image (147 features) inside
+# LSTMWrapper(128, 128), f32, 128 envs, batch 16384, minibatch 4096, bptt
+# 16, lr 2.5e-4; HostMultiprocessing with 8 workers (the card machine's
+# cores, 64 envs a recv: two groups in flight) over the fake MiniGrid
+# behind environments.minigrid.wrap, and ppo_host. F 147 is past the
+# resident enc5 kernels' 128 features in f32, so the update runs enc5's
+# streamed design at T 16, B 256 (4096 / 16), F 147, D = H = 128.
+MINIGRID = dict(num_workers=8, env_batch=64)
+MINIGRID_ENC5 = (16, 256, 147, 128, 128)
+# the other sections run one counted epoch each (no warm-up) in HostSerial
+# over host_fixtures.ZOO2_FAKES at their own envs, batch, minibatch and
+# widths, but these batches: at 32768 rows the frames of
+# cooperative_pong (280 x 480 x 3), a Genesis screen (224 x 320 x 3) and
+# ViZDoom's (240 x 320 x 3) hold 7-13 GB on the host, and as much again in
+# f32 in each 8192-row minibatch on the card. The fakes' own cuts: magent
+# 128 agents an env (battle_v4 has 162), nocturne 8 vehicles.
+ZOO2_BATCH_CUTS = {'butterfly': (2048, 1024), 'stable_retro': (4096, 1024),
+    'vizdoom': (4096, 1024)}
+# examples/cleanrl_style_ppo_torch.py: 30 epochs, one GAE launch each
+CLEANRL_EPOCHS = 30
+
+
+def _section_config(args, name, cut=None):
+    """ppo_host's config from a config.yaml section's train namespace,
+    as demo_torch.train builds it; cut: (batch, minibatch)."""
+    from pufferlib_tpu_torch.training import ppo_host
+    train = dict(args.train)
+    for k in ('num_envs', 'num_workers', 'env_batch_size', 'restart_workers'):
+        train.pop(k, None)
+    train.update(verbose=False, checkpoint_interval=10 ** 6,
+        data_dir=os.path.join(REPO, 'experiments', 'chip_smoke'))
+    if cut is not None:
+        train['batch_size'], train['minibatch_size'] = cut
+    return ppo_host.default_config(env=name, **train)
+
+
+def run_minigrid_trainer(torch, card, epochs=2):
+    """MINIGRID through config.cli, HostMultiprocessing and ppo_host: the
+    route must be enc5's streamed design; a warm-up epoch, then `epochs`
+    counted (the flat GAE once and each enc5 streamed C function 16 times
+    an epoch, nothing else), then one more epoch under the profiler for
+    the card's idle share. Returns (launches by C function, peak memory
+    bytes)."""
+    from pufferlib_tpu_torch import vector_host
+    from pufferlib_tpu_torch.config import cli
+    from pufferlib_tpu_torch.environments.test.host_fixtures import (
+        make_fake_minigrid)
+    from pufferlib_tpu_torch.ops.cuda.lstm_common import enc5_design
+    from pufferlib_tpu_torch.training import ppo_host
+    args, module, _ = cli.load_config(argv=['--env', 'minigrid'])
+    m, (T, B, F, D, H) = MINIGRID, MINIGRID_ENC5
+    vec = vector_host.make(make_fake_minigrid,
+        backend=vector_host.HostMultiprocessing,
+        num_envs=args.train.num_envs, num_workers=m['num_workers'],
+        batch_size=m['env_batch'])
+    policy = cli.make_policy(vec, module, args)
+    lstm = policy.module
+    route = lstm.route(args.train.bptt_horizon, torch.device('cuda'))
+    design = enc5_design(F, D, H, torch.float32)
+    got = (route, design, lstm.policy.encoder.in_features, lstm.input_size,
+        lstm.hidden_size, args.train.minibatch_size // args.train.bptt_horizon)
+    if got != ('enc5', 'stream', F, D, H, B):
+        vec.close()
+        raise AssertionError(f'minigrid: route, design, F, D, H, B {got}, '
+            f'expected enc5 streamed at F {F}, D {D}, H {H}, B {B}')
+    config = _section_config(args, 'minigrid')
+    torch.cuda.reset_peak_memory_stats()
+    data = ppo_host.create(config, vec, policy)
+    try:
+        elapsed, launches = _host_epochs(torch, ppo_host, data, epochs)
+        split = (data._timers['evaluate'].prev, data._timers['train'].prev)
+
+        def epoch():
+            ppo_host.evaluate(data)
+            ppo_host.train(data)
+        prof = load_tool('profile_torch_trainer').profile_phase(torch, epoch,
+            elapsed / epochs * 1e3)[1]
+    finally:
+        ppo_host.close(data)
+    peak = torch.cuda.max_memory_allocated()
+    minibatches = config.update_epochs * (config.batch_size
+        // config.minibatch_size)
+    want = dict.fromkeys(launches, 0)
+    want['gae_forward'] = epochs
+    want['lstm_enc_stream_forward'] = want['lstm_enc_stream_backward'] = \
+        minibatches * epochs
+    if launches != want:
+        raise AssertionError(f'minigrid: launches {launches}, expected {want}')
+    if 'episode_return' not in data.stats:
+        raise AssertionError(f'minigrid: no episode stats ({data.stats})')
+    log(f'minigrid epoch under the profiler: kernels {prof["device_ms"]:.2f}'
+        f' ms of a {prof["wall_ms"]:.2f} ms epoch (the counted epochs\' '
+        f'mean wall), idle {prof["idle_share"]:.3f}, {prof["launches"]} '
+        f'launches; top {prof["top"]} on {card}')
+    _host_line(data, f'minigrid host trainer ({args.train.num_envs} fake '
+        f'MiniGrid envs in {m["num_workers"]} workers, {m["env_batch"]} a '
+        f'recv; config.cli\'s Default h{D} + LSTM {H} f32 (enc5, {design} '
+        f'design, F {F}), batch {config.batch_size}, minibatch '
+        f'{config.minibatch_size}, bptt {config.bptt_horizon}, lr '
+        f'{config.learning_rate}; peak memory {peak / 2 ** 30:.2f} GiB)',
+        elapsed, epochs, launches, card, split)
+    return launches, peak, prof['idle_share']
+
+
+def run_zoo2_other(torch, card, name):
+    """config.yaml's `name` section through config.cli (Default, as the
+    section asks no LSTM), HostSerial over its fake and ppo_host: one
+    counted epoch, no warm-up; the flat GAE once, nothing else. Returns
+    the launches by C function."""
+    from pufferlib_tpu_torch import vector_host
+    from pufferlib_tpu_torch.config import cli
+    from pufferlib_tpu_torch.environments.test import host_fixtures
+    from pufferlib_tpu_torch.training import ppo_host
+    args, module, _ = cli.load_config(argv=['--env', name])
+    vec = vector_host.make(host_fixtures.ZOO2_FAKES[name],
+        backend=vector_host.HostSerial, num_envs=args.train.num_envs)
+    policy = cli.make_policy(vec, module, args)
+    config = _section_config(args, name, ZOO2_BATCH_CUTS.get(name))
+    data = ppo_host.create(config, vec, policy)
+    try:
+        elapsed, launches = _host_epochs(torch, ppo_host, data, 1,
+            warmup=False)
+    finally:
+        ppo_host.close(data)
+    want = dict.fromkeys(launches, 0)
+    want['gae_forward'] = 1
+    if launches != want:
+        raise AssertionError(f'{name}: launches {launches}, expected {want}')
+    cut = ' (batch cut)' if name in ZOO2_BATCH_CUTS else ''
+    _host_line(data, f'{name} host trainer ({args.train.num_envs} fake envs'
+        f' of {vec.num_agents // args.train.num_envs} agents, HostSerial; '
+        f'obs {tuple(vec.single_observation_space.shape)} '
+        f'{vec.single_observation_space.dtype}; Default h'
+        f'{policy.module.hidden_size} f32, batch {config.batch_size}'
+        f'{cut}, minibatch {config.minibatch_size}, bptt '
+        f'{config.bptt_horizon})', elapsed, 1, launches, card, warmup=False)
+    return launches
+
+
+def run_cleanrl_example(card):
+    """examples/cleanrl_style_ppo_torch.py in a child process on the card:
+    it must exit 0 and print CLEANRL_EPOCHS finite scores; the child then
+    prints its launches by C function (the GAE kernel once an epoch,
+    nothing else). Returns them."""
+    import math
+    import subprocess
+    code = ("import json, runpy, sys; "
+        "sys.argv = ['examples/cleanrl_style_ppo_torch.py']; "
+        "runpy.run_path(sys.argv[0], run_name='__main__'); "
+        "from pufferlib_tpu_torch.ops.cuda import KERNELS; "
+        "print(json.dumps({fn: n for k in KERNELS for fn, n in "
+        "k.fn_launches.items() if n}))")
+    start = time.perf_counter()
+    out = subprocess.run([sys.executable, '-c', code], cwd=REPO,
+        capture_output=True, text=True, timeout=600)
+    elapsed = time.perf_counter() - start
+    if out.returncode != 0:
+        raise AssertionError(f'cleanrl example: exit {out.returncode}: '
+            f'{out.stdout[-1000:]} {out.stderr[-2000:]}')
+    lines = out.stdout.strip().splitlines()
+    scores = [float(line.split()[3]) for line in lines[:-1]
+        if line.startswith('epoch')]
+    launches = json.loads(lines[-1])
+    if len(scores) != CLEANRL_EPOCHS or not all(map(math.isfinite, scores)):
+        raise AssertionError(f'cleanrl example: scores {scores}')
+    if launches != {'gae_forward': CLEANRL_EPOCHS}:
+        raise AssertionError(f'cleanrl example: launches {launches}, '
+            f'expected {{"gae_forward": {CLEANRL_EPOCHS}}}')
+    log(f'examples/cleanrl_style_ppo_torch.py on the card (child process, '
+        f'{elapsed:.1f} s wall with its start): {CLEANRL_EPOCHS} finite '
+        f'scores, first {scores[0]:.3f}, last {scores[-1]:.3f}, best '
+        f'{max(scores):.3f}; launches {json.dumps(launches)} on {card}')
+    return launches
+
+
+def run_zoo2_phase(torch, card, flush, rng):
+    """Phase 21. enc5's streamed pair against its plain version at
+    minigrid's update shape (timed beside its bound and the plain
+    version, run twice bit for bit), config.yaml's minigrid section
+    through ppo_host, one epoch of each other section whose binding's
+    wrap needs no gymnasium, and the cleanrl example. links_awaken's wrap
+    resizes with gymnasium's ResizeObservation: it is held on the CPU
+    only (tests/test_torch_zoo2.py). Returns (check_lstm's result,
+    {section: launches}, minigrid peak memory, minigrid idle share,
+    the example's launches)."""
+    from pufferlib_tpu_torch.environments.test import host_fixtures
+    T, B, F, D, H = MINIGRID_ENC5
+    enc5 = check_lstm(torch, flush, rng, 'enc5_stream', B, 'float32', T=T,
+        H=H, D=D, F=F, timed=True)
+    check_bit_equal(torch, rng, 'enc5_stream', B, T=T, D=D, F=F, H=H,
+        dtype_name='float32')
+    launches = {}
+    launches['minigrid'], peak, idle = run_minigrid_trainer(torch, card)
+    for name in sorted(host_fixtures.ZOO2_FAKES):
+        if name != 'minigrid':
+            launches[name] = run_zoo2_other(torch, card, name)
+    log('links_awaken: its wrap needs gymnasium (ResizeObservation); held '
+        'on the CPU only')
+    example = run_cleanrl_example(card)
+    return enc5, launches, peak, idle, example
 
 
 if __name__ == '__main__':

@@ -66,8 +66,8 @@ def load_yaml_config(env_name, path=None):
 
 def resolve_env_module(package):
     """The env package: ocean is pufferlib_tpu_torch.ocean, any other
-    pufferlib_tpu_torch.environments.<package>. A package the port does
-    not have yet (or has without its env_creator) raises."""
+    pufferlib_tpu_torch.environments.<package>. A package that does not
+    exist (or has no env_creator) raises."""
     name = 'pufferlib_tpu_torch.ocean' if package == 'ocean' else \
         f'pufferlib_tpu_torch.environments.{package}'
     try:
@@ -78,8 +78,8 @@ def resolve_env_module(package):
         module = None
     if module is None or not hasattr(module, 'env_creator'):
         raise APIUsageError(
-            f'env package {package!r} is not in pufferlib_tpu_torch yet: '
-            'the env zoo is ROADMAP queue 1 item 7')
+            f'unknown env package {package!r}: no {name} with an '
+            'env_creator')
     return module
 
 

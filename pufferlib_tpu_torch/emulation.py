@@ -252,7 +252,9 @@ def nativize_tensor(observation, native_dtype):
     neither a contiguous row nor an aligned start. Little-endian, as the
     JAX package's bitcast. A 64-bit integer leaf comes back as its low
     32-bit word (int32 / uint32), as the JAX package gives it without
-    x64: the values must fit 32 bits."""
+    x64: the values must fit 32 bits. A float64 leaf (dm_control's
+    observations) comes back as float64, which the JAX package refuses
+    without x64."""
     import torch
     if not isinstance(native_dtype, tuple):
         return {name: nativize_tensor(observation, sub)
@@ -261,9 +263,7 @@ def nativize_tensor(observation, native_dtype):
     dtype = np.dtype(dtype)
     B = observation.shape[0]
     chunk = observation[:, offset:offset + delta]
-    if dtype.itemsize == 8:
-        if dtype.kind not in 'iu':
-            raise ValueError(f'float64 obs leaf is not supported ({dtype})')
+    if dtype.itemsize == 8 and dtype.kind in 'iu':
         low = torch.int32 if dtype.kind == 'i' else torch.uint32
         if observation.element_size() == 1:
             words = chunk.contiguous().view(B, delta // 8, 2, 4).view(low)

@@ -15,3 +15,13 @@ class InvalidAgentError(ValueError):
     def __init__(self, agent_id, agents):
         super().__init__(
             f'Invalid agent {agent_id}. Valid agents: {list(agents)}')
+
+
+class EpisodeLimitExceeded(RuntimeError):
+    """Raised by env wrappers whose episode budget is exhausted (e.g.
+    bsuite mandates exactly bsuite_num_episodes episodes). In HostSerial
+    it propagates to the caller; in HostMultiprocessing the worker exits
+    and the envpool's worker-death watchdog surfaces the failure."""
+
+    def __init__(self, message='episode limit exceeded'):
+        super().__init__(message)

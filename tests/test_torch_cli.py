@@ -5,8 +5,8 @@ it needs, against the JAX package's.
   env_kwargs, policy and rnn sections (and the same top-level fields),
   exactly, for every config.yaml section whose env package the port has;
   the one difference is train.device: config.yaml's 'tpu' is the card,
-  'cuda'. A section whose package the port lacks raises the port's
-  APIUsageError naming ROADMAP queue 1 item 7.
+  'cuda'. Every section's package is in the port; one renamed to a
+  package that does not exist raises the port's APIUsageError naming it.
 - make_policy builds the same architecture: with the JAX parameters
   carried across by convert.py the forward outputs agree to 1e-5 in f32
   for squared (Default) and memory (LSTMWrapper, the plain scan on the
@@ -14,6 +14,7 @@ it needs, against the JAX package's.
 - get_init_args, compare_space_samples and Suppress behave as the JAX
   package's.
 """
+import copy
 import os
 
 import numpy as np
@@ -38,8 +39,13 @@ torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 with open(os.path.join(REPO, 'config.yaml')) as f:
     SECTIONS = yaml.safe_load(f)
+# the last zoo slice: the packages of the bindings without an LSTM policy
+ZOO2_PACKAGES = ('bsuite', 'butterfly', 'classic_control', 'crafter',
+    'dm_control', 'dm_lab', 'griddly', 'links_awaken', 'magent', 'microrts',
+    'minerl', 'minigrid', 'nocturne', 'open_spiel', 'slimevolley', 'smac',
+    'stable_retro', 'vizdoom')
 PORT_PACKAGES = ('ocean', 'atari', 'test', 'nethack', 'minihack', 'nmmo',
-    'nmmo3', 'pokemon_red', 'procgen')
+    'nmmo3', 'pokemon_red', 'procgen') + ZOO2_PACKAGES
 
 
 def _package(name):
@@ -50,6 +56,8 @@ PORTED = sorted(n for n in SECTIONS
     if n != 'default' and _package(n) in PORT_PACKAGES)
 NOT_PORTED = sorted(n for n in SECTIONS
     if n != 'default' and _package(n) not in PORT_PACKAGES)
+ZOO2 = sorted(n for n in SECTIONS
+    if n != 'default' and _package(n) in ZOO2_PACKAGES)
 
 
 def _top(args):
@@ -100,10 +108,24 @@ def test_flags_match_jax(argv):
     assert _top(args) == _top(jargs)
 
 
-@pytest.mark.parametrize('section', NOT_PORTED)
-def test_missing_package_raises_named_error(section):
-    with pytest.raises(APIUsageError, match='queue 1 item 7'):
-        cli.load_config(argv=['--env', section])
+def test_every_section_is_ported():
+    assert NOT_PORTED == []
+    assert set(ZOO2_PACKAGES) <= {_package(n) for n in PORTED}
+
+
+@pytest.mark.parametrize('section', ZOO2)
+def test_missing_package_raises_named_error(section, tmp_path):
+    """A section whose package does not exist raises the port's
+    APIUsageError naming it: each of the last zoo slice's sections, its
+    package renamed in a copy of config.yaml."""
+    config = copy.deepcopy(SECTIONS)
+    missing = f'no_such_{_package(section)}'
+    config[section]['package'] = missing
+    path = tmp_path / 'config.yaml'
+    path.write_text(yaml.safe_dump(config))
+    with pytest.raises(APIUsageError,
+            match=f"unknown env package '{missing}'"):
+        cli.load_config(argv=['--env', section, '--config', str(path)])
 
 
 def test_device_names():

@@ -301,7 +301,9 @@ def test_native_driver_builds_and_gathers():
 
 def test_host_modules_import_neither_torch_nor_gymnasium():
     """What a spawned envpool worker imports: the host modules, the
-    wrappers and the fixtures. torch and gymnasium stay out."""
+    wrappers and the fixtures, every zoo binding's module, and each fake
+    the card runs through its binding's wrap (links_awaken's wrap alone
+    needs gymnasium). torch and gymnasium stay out."""
     code = ('import sys\n'
         'import pufferlib_tpu_torch.vector_host, pufferlib_tpu_torch.host_env\n'
         'import pufferlib_tpu_torch.wrappers, pufferlib_tpu_torch.postprocess\n'
@@ -309,6 +311,16 @@ def test_host_modules_import_neither_torch_nor_gymnasium():
         'from pufferlib_tpu_torch.environments.test import host_fixtures\n'
         'host_fixtures.make_fake_atari().reset(seed=0)\n'
         'host_fixtures.make_fake_procgen().reset(seed=0)\n'
+        'import importlib\n'
+        'for name in ("bsuite", "butterfly", "classic_control", "crafter", '
+        '"dm_control", "dm_lab", "griddly", "links_awaken", "magent", '
+        '"microrts", "minerl", "minigrid", "nocturne", "open_spiel", '
+        '"open_spiel.adapters", "slimevolley", "smac", "stable_retro", '
+        '"vizdoom"):\n'
+        '    importlib.import_module("pufferlib_tpu_torch.environments." '
+        '+ name)\n'
+        'for make in host_fixtures.ZOO2_FAKES.values():\n'
+        '    make().reset(seed=0)\n'
         'print(sorted(m for m in ("torch", "gymnasium", "jax") '
         'if m in sys.modules))\n')
     out = subprocess.run([sys.executable, '-c', code], capture_output=True,

@@ -255,7 +255,8 @@ def test_cuda_is_the_default_and_absence_raises(tmp_path):
 
 def test_package_imports_no_jax():
     """The port imports torch, never jax or any module of pufferlib_tpu
-    (checked in a fresh interpreter: this test process has both)."""
+    (checked in a fresh interpreter: this test process has both): its
+    modules, every zoo binding and both torch examples' modules."""
     code = ('import sys, pufferlib_tpu_torch, '
         'pufferlib_tpu_torch.training.ppo, pufferlib_tpu_torch.convert, '
         'pufferlib_tpu_torch.ops.cuda, pufferlib_tpu_torch.ops.cuda.lstm_enc, '
@@ -268,7 +269,16 @@ def test_package_imports_no_jax():
         'pufferlib_tpu_torch.training.ppo_host, '
         'pufferlib_tpu_torch.models.transformer, '
         'pufferlib_tpu_torch.policy_pool, pufferlib_tpu_torch.policy_store, '
-        'pufferlib_tpu_torch.policy_ranker, demo_torch, bench_torch; '
+        'pufferlib_tpu_torch.policy_ranker, demo_torch, bench_torch, '
+        'importlib, runpy; '
+        '[importlib.import_module("pufferlib_tpu_torch.environments." + n) '
+        'for n in ("bsuite", "butterfly", "classic_control", "crafter", '
+        '"dm_control", "dm_lab", "griddly", "links_awaken", "magent", '
+        '"microrts", "minerl", "minigrid", "nocturne", "open_spiel", '
+        '"open_spiel.adapters", "slimevolley", "smac", "stable_retro", '
+        '"vizdoom")]; '
+        'runpy.run_path("examples/cleanrl_style_ppo_torch.py"); '
+        'runpy.run_path("examples/wrap_one_env_torch.py"); '
         'bad = [m for m in sys.modules if m in ("jax", "flax", "optax", '
         '"pufferlib_tpu") or m.startswith(("jax.", "flax.", "optax.", '
         '"pufferlib_tpu."))]; '

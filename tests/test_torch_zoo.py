@@ -14,8 +14,8 @@ JAX package's, on the CPU.
 - Each binding's make on the same fake backends as
   tests/test_zoo_fake_backends{,2,3}.py beside the JAX binding's: spaces,
   dtypes, observation bytes, rewards, dones and episode stats equal.
-- config.cli.resolve_env_module finds the new packages and still refuses
-  one the port lacks (bsuite).
+- config.cli.resolve_env_module finds the new packages and refuses one
+  that does not exist.
 - One ppo_host epoch of nethack's Policy in LSTMWrapper on its fake env
   (environments.test.host_fixtures.make_fake_nethack), finite losses.
 """
@@ -420,8 +420,9 @@ def test_resolve_env_module_finds_the_zoo(package):
 
 
 def test_resolve_env_module_refuses_a_missing_package():
-    with pytest.raises(APIUsageError, match='queue 1 item 7'):
-        cli.resolve_env_module('bsuite')
+    with pytest.raises(APIUsageError,
+            match="unknown env package 'no_such_package'"):
+        cli.resolve_env_module('no_such_package')
 
 
 def test_make_policy_builds_the_zoo_lstm():
