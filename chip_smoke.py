@@ -23,15 +23,19 @@ enc3, enc4, enc6 and tm among them). Last, small trainer updates and
 CPU (the recurrent update also at hidden 256, through enc5's streamed
 design). For the bf16
 tensor-core kernels of lstm_scan, lstm_scan_cat, lstm_scan_fused, the
-enc5 pair and the archived enc2, enc3, enc4 and enc6 backwards
+enc5 pair, lstm_scan_enc's step backward, the archived enc2 pair and the
+archived enc3, enc4 and enc6 backwards
 (csrc/lstm_tc.cuh) it also prints each kernel's registers and spilled bytes after the build,
 and the time of each phase at the main shape (pre-pass, loop, dx, dW +
 db; enc5's encoder runs in both pre-pass phases, dpre takes dx's place
-and dW_enc joins the last, and the archived backwards have enc5's
-backward phases; lstm_scan's forward is its loop alone, its backward
-loop and dW); cat,
+and dW_enc joins the last, and lstm_scan_enc's and the archived
+backwards have enc5's backward phases, enc2's forward its encoder and
+projection, then its loop; lstm_scan's forward is its loop alone, its
+backward loop and dW); cat,
 fused and enc5 are also held to their plain versions at input width 96
-(enc5 with 200 features), and the bf16 kernels of every pair whose
+(enc5, lstm_scan_enc and the archived enc2 with 200 features, at B 8192
+and a ragged 1000, and each of the last three twice, bit for bit), and
+the bf16 kernels of every pair whose
 backward runs the split-K of csrc/lstm_common.cuh (enc5, scan, fused,
 cat, enc and the archived enc2-enc6) run twice and must agree bit for
 bit; the archived enc6's bf16 outputs and gradients must equal enc5's bit
@@ -376,8 +380,9 @@ CELL_GRADS = ('dx', 'dh0', 'dc0', 'dw_ih', 'dw_hh', 'db')
 def lstm_kinds():
     """kind -> (kernel forward, kernel backward, plain forward, plain
     backward, gradient names). 'enc' is lstm_scan_enc: enc5's forward
-    kernel with the step-by-step backward; enc3, enc4 and enc6 have that
-    forward too, under their own backwards."""
+    kernel with the step-by-step backward, at enc5's reach; enc3, enc4 and
+    enc6 have that forward too, under their own backwards, at their FMA
+    backwards' reach."""
     import importlib
     from pufferlib_tpu_torch.ops.cuda import lstm_cat, lstm_enc, lstm_scan
     from pufferlib_tpu_torch.ops.cuda.archive import lstm_tm
@@ -396,7 +401,7 @@ def lstm_kinds():
         'enc5': (lstm_enc._launch_forward, lstm_enc._launch_backward,
             lstm_enc.lstm_enc_reference,
             lstm_enc.lstm_enc_backward_reference, ENC_GRADS),
-        'enc': (lstm_enc._launch_enc_forward, lstm_enc._launch_step_backward,
+        'enc': (lstm_enc._launch_forward, lstm_enc._launch_step_backward,
             lstm_enc.lstm_enc_reference,
             lstm_enc.lstm_scan_enc_backward_reference, ENC_GRADS),
         'cat': (lstm_cat._launch_forward, lstm_cat._launch_backward,
@@ -588,17 +593,20 @@ def check_lstm(torch, flush, rng, kind, B, dtype_name, T=16, H=128,
 TC_KERNELS = ('forward pre-pass', 'forward loop', 'backward pre-pass',
     'backward loop', 'dx')
 ENC5_TC_KERNELS = ('encoder', 'forward pre-pass', 'forward loop',
-    'backward pre-pass', 'backward loop', 'dpre')
+    'backward pre-pass', 'backward loop', 'dpre',
+    'lstm_scan_enc backward loop (f32 activations, db from the unrounded '
+    'dgates)')
 # lstm_scan's (mode XP), in the order of lstm_scan_tc_usage's output
 SCAN_TC_KERNELS = ('forward loop (bf16 x_proj)', 'forward loop (f32 x_proj)',
     'backward loop (bf16 x_proj)', 'backward loop (f32 x_proj)',
     'dW split-K (ring)')
-# the archived backwards' own, in the order of lstm_archive_tc_usage's
-# output (their encoder, dpre and split-K, the other pre-pass and enc6's
-# loop are enc5's)
+# the archive's own, in the order of lstm_archive_tc_usage's output
+# (their encoder, dpre and split-K, the other pre-pass and enc6's loop are
+# enc5's)
 ARCHIVE_TC_KERNELS = ('enc2 backward pre-pass',
     'enc2 / enc4 backward loop (f32 activations)',
-    'enc3 backward loop (db from the unrounded dgates)')
+    'enc3 backward loop (db from the unrounded dgates)',
+    'enc2 forward projection', 'enc2 forward loop (mode XP, bf16 xp)')
 # the phases a launch with phases=k runs the first k of
 TC_PHASES = {
     'forward': ('pre-pass', 'loop'),
@@ -614,17 +622,23 @@ SCAN_PHASES = {
     'forward': ('loop',),
     'backward': ('loop', 'dW'),
 }
-# the archived bf16 backwards, enc5's phases (their forwards take no
-# phases: enc2's runs on FMA, enc3's, enc4's and enc6's is enc5's)
+# lstm_scan_enc's and the archived bf16 backwards, enc5's phases (the
+# forward of lstm_scan_enc, enc3, enc4 and enc6 is enc5's, timed there);
+# the archived enc2's forward: the encoder and its projection, then mode
+# XP's loop
 ARCHIVE_PHASES = {'forward': (), 'backward': ENC5_PHASES['backward']}
-PHASES = {'enc5': ENC5_PHASES, 'scan': SCAN_PHASES, 'enc2': ARCHIVE_PHASES,
-    'enc3': ARCHIVE_PHASES, 'enc4': ARCHIVE_PHASES, 'enc6': ARCHIVE_PHASES}
+ENC2_PHASES = {'forward': ('encoder + projection', 'loop'),
+    'backward': ENC5_PHASES['backward']}
+PHASES = {'enc5': ENC5_PHASES, 'scan': SCAN_PHASES, 'enc': ARCHIVE_PHASES,
+    'enc2': ENC2_PHASES, 'enc3': ARCHIVE_PHASES, 'enc4': ARCHIVE_PHASES,
+    'enc6': ARCHIVE_PHASES}
 
 
 def log_tc_usage():
     """Registers and spilled bytes per thread of the bf16 kernels of
-    lstm_scan, lstm_scan_fused, lstm_scan_cat, enc5 and the archived enc2,
-    enc3, enc4 and enc6 backwards at each hidden size
+    lstm_scan, lstm_scan_fused, lstm_scan_cat, enc5, lstm_scan_enc's step
+    backward, the archived enc2 pair and the archived enc3, enc4 and enc6
+    backwards at each hidden size
     (cudaFuncGetAttributes), and the widest input and feature width they
     take, held against the wrappers' checks."""
     import ctypes
@@ -639,7 +653,8 @@ def log_tc_usage():
                 TC_KERNELS),
             ('lstm_scan_cat', lstm_cat.KERNEL, 'lstm_cat_tc_usage',
                 TC_KERNELS),
-            ('enc5', lstm_enc.KERNEL, 'lstm_enc_tc_usage', ENC5_TC_KERNELS),
+            ('enc5 and lstm_scan_enc', lstm_enc.KERNEL, 'lstm_enc_tc_usage',
+                ENC5_TC_KERNELS),
             ('archive', archive.KERNEL, 'lstm_archive_tc_usage',
                 ARCHIVE_TC_KERNELS)):
         for H in (32, 64, 128):
@@ -673,8 +688,9 @@ def log_tc_usage():
 def time_tc_phases(torch, flush, rng, kind='fused', T=16, B=8192):
     """Device ms of each phase of the bf16 tensor-core kernels of `kind`
     ('fused': lstm_scan_fused, 'cat': lstm_scan_cat, 'enc5', 'scan':
-    lstm_scan with bf16 x_proj, and the backwards of the archived 'enc2',
-    'enc3', 'enc4' and 'enc6') at the main shape: a launch runs the first k phases, so a
+    lstm_scan with bf16 x_proj, 'enc': lstm_scan_enc's step backward, the
+    archived 'enc2' pair and the backwards of the archived 'enc3', 'enc4'
+    and 'enc6') at the main shape: a launch runs the first k phases, so a
     phase's time is the difference of two such means (cold L2 each)."""
     launch_fwd, launch_bwd = lstm_kinds()[kind][:2]
     args, grads, cdt = lstm_case(torch, rng, kind, T, B, 'bfloat16')
@@ -1840,9 +1856,10 @@ def main():
     for kind in ('cat', 'fused'):
         lstm_runs[kind, 8192, 'bfloat16 D=96'] = check_lstm(torch, flush,
             rng, kind, 8192, 'bfloat16', D=96)
-    for B in (8192, 1000):
-        lstm_runs['enc5', B, 'bfloat16 D=96 F=200'] = check_lstm(torch, flush,
-            rng, 'enc5', B, 'bfloat16', D=96, F=200)
+    for kind in ('enc5', 'enc', 'enc2'):
+        for B in (8192, 1000):
+            lstm_runs[kind, B, 'bfloat16 D=96 F=200'] = check_lstm(torch,
+                flush, rng, kind, B, 'bfloat16', D=96, F=200)
     # memory's one feature at the Ocean trainer's minibatch and the
     # learning proof's
     for T, B, H, F in ocean_enc5:
@@ -1857,7 +1874,8 @@ def main():
     check_burn(torch, flush, rng)
     # enc5's bf16 kernels add every partial sum in a fixed order
     check_bit_equal(torch, rng, 'enc5', 8192)
-    check_bit_equal(torch, rng, 'enc5', 1000, D=96, F=200)
+    for kind in ('enc5', 'enc', 'enc2'):
+        check_bit_equal(torch, rng, kind, 1000, D=96, F=200)
     # x_proj and the compute dtype apart, both ways
     for kind in XP_KINDS:
         for B in (8192, 1000):
@@ -1865,12 +1883,12 @@ def main():
                 flush, rng, kind, B, 'bfloat16', xp_dtype_name='float32')
             lstm_runs[kind, B, 'float32/bf16 x_proj'] = check_lstm(torch,
                 flush, rng, kind, B, 'float32', xp_dtype_name='bfloat16')
-    for kind in ('scan', 'fused', 'cat', 'enc5') + ARCHIVED_ENC_KINDS:
+    for kind in ('scan', 'fused', 'cat', 'enc5', 'enc') + ARCHIVED_ENC_KINDS:
         time_tc_phases(torch, flush, rng, kind)
     # every other bf16 backward whose weight gradients run the split-K
     # (lstm_common.cuh: the ring, or the register-staged kernel for
     # sources it cannot copy) repeats bit for bit too
-    for kind in ('scan', 'fused', 'cat') + ARCHIVED_ENC_KINDS:
+    for kind in ('scan', 'fused', 'cat', 'enc') + ARCHIVED_ENC_KINDS:
         check_bit_equal(torch, rng, kind, 8192)
     check_enc6_is_enc5(torch, rng, 8192)
     check_enc6_is_enc5(torch, rng, 980, H=64)

@@ -33,7 +33,8 @@
 //   the grid with time outermost: one step of the whole batch per launch,
 //   gates = x_proj_t + h @ W_hh, h and c (backward: dh and dc) carried in
 //   f32 device buffers between launches.
-// enc3, enc4 and enc6 share the forward of lstm_enc.cu. Same functions as
+// enc3, enc4 and enc6 share the forward of lstm_enc.cu, and enc2's takes
+// its arguments. Same functions as
 // the plain versions of pufferlib_tpu_torch.ops.cuda.archive.
 //
 // Bound: the functions are those of lstm_enc.cu (enc2, 3, 4, 6: bound by
@@ -59,12 +60,18 @@
 //   there: [W_ih; W_hh] in bf16 fits no block here, so the pre-pass
 //   recomputes the gates, dx is a GEMM after the loop and dW the split-K.
 //   enc6's two independent half-tile chains are the tensor-core loop's
-//   two halves, each with a barrier of its own. All four take the reach
-//   of the FMA kernels below (D == H, F <= 128), inside the tensor-core
-//   kernels'.
+//   two halves, each with a barrier of its own. enc3, enc4 and enc6 take
+//   the reach of their FMA forward (D == H, F <= 128), enc2 the
+//   tensor-core kernels' (any D % 8 == 0 up to lstm_tc_max_input, F up to
+//   lstm_enc_tc_max_features).
+// * bf16 enc2 forward: csrc/lstm_tc.cuh's enc2_forward: the encoder GEMM,
+//   the projection xp = bf16(x @ W_ih + b) as a GEMM that writes it in
+//   bf16 in its natural (T, B, 4H) order (the TPU kernel's xp slab), then
+//   mode XP's forward loop (lstm_scan's) on it, the recurrent product its
+//   own f32 sum, added to xp_t after it.
 // * everything else: plain f32 FMA from weights streamed out of L2 in
-//   chunks, far above the bounds above: the f32 backwards (f32 is the
-//   exact test mode), enc2's forward in both dtypes, tm.
+//   chunks, far above the bounds above: the f32 kernels (f32 is the exact
+//   test mode) and tm.
 //
 // FMA design (csrc/lstm_common.cuh): one backward kernel, archive_backward
 // (f32 only), whose MODE picks the rounding points and the schedule. The
@@ -371,7 +378,9 @@ cudaError_t run_archive_backward(const void* feats, const float* h0, const float
 }
 
 // The encoder-fused backwards: bf16 on the tensor cores (tc::backward in
-// mode MODE), f32 on archive_backward. D == H. pre: in bf16 the P slab
+// mode MODE; enc2 at any encoder width D the tensor-core kernels take, the
+// others at D == H, their forward's reach), f32 on archive_backward, D ==
+// H. pre: in bf16 the P slab
 // (lstm_tc.cuh slab_index) f32; in f32 the activations slab (T, B, 4H)
 // of the modes that keep one (gates_before_loop: enc3, enc6), else null.
 template <int MODE>
@@ -385,20 +394,20 @@ struct TcBackward {
                                const float* g_cT, float* dh0, float* dc0, float* dwe, float* dw,
                                float* db, void* xs, void* dpre, void* dg, float* dw_part,
                                float* db_part, float* dwe_part, float* dbe_part, void* pre,
-                               void* w16, int T, int B, int F, int splits_w, int splits_e,
+                               void* w16, int T, int B, int F, int D, int splits_w, int splits_e,
                                int part_rows, int phases, cudaStream_t stream) {
             if constexpr (std::is_same<E, bf16>::value) {
-                if (!pre || !w16) return cudaErrorInvalidValue;
+                if (!pre || !w16 || (MODE != ENC2 && D != H)) return cudaErrorInvalidValue;
                 const tc::Encoder enc = tc::backward_encoder(feats, w_enc, b_enc, xs, dpre, w16,
-                                                             dwe, dwe_part, splits_e, F, H, H, B);
+                                                             dwe, dwe_part, splits_e, F, D, H, B);
                 return tc::backward<H, MODE>(
                     enc.xs, h0, c0, w_ih, w_hh, b, static_cast<const E*>(outs),
                     static_cast<const E*>(cseq), static_cast<const E*>(g_outs), g_hT, g_cT,
                     nullptr, dh0, dc0, dw, db, static_cast<E*>(dg), dw_part, db_part,
-                    static_cast<float*>(pre), static_cast<E*>(w16), T, B, H, splits_w, part_rows,
+                    static_cast<float*>(pre), static_cast<E*>(w16), T, B, D, splits_w, part_rows,
                     phases, stream, enc);
             } else {
-                if (phases != tc::BACKWARD_PHASES) return cudaErrorInvalidValue;
+                if (phases != tc::BACKWARD_PHASES || D != H) return cudaErrorInvalidValue;
                 return run_archive_backward<H, E, MODE>(
                     feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b, outs, cseq, g_outs, g_hT, g_cT,
                     dh0, dc0, dwe, dwe + (size_t)F * H, dw, db, xs, dpre, dg,
@@ -413,8 +422,10 @@ struct TcBackward {
 // at hidden size H, as out[2i], out[2i + 1]: enc2's pre-pass (its
 // epilogue rounds the projection), the reverse loop of enc2 and enc4 (f32
 // activations, db from the rounded dgates) and enc3's (rounded
-// activations, db from the unrounded dgates). The encoder, the other
-// pre-pass, dpre, the split-K and enc6's loop are enc5's.
+// activations, db from the unrounded dgates), then enc2's forward: its
+// projection GEMM (bias and rounding in the epilogue) and its loop (mode
+// XP's on bf16 x_proj, lstm_scan.cu's). The encoder, the other pre-pass,
+// dpre, the split-K and enc6's loop are enc5's.
 template <int H>
 cudaError_t tc_usage(int* out) {
     static_assert(rounded_acts(ENC2) == rounded_acts(ENC4) &&
@@ -430,18 +441,40 @@ cudaError_t tc_usage(int* out) {
         reinterpret_cast<const void*>(
             tc::backward_loop<H, rounded_acts(ENC4), rounded_db(ENC4)>),
         reinterpret_cast<const void*>(
-            tc::backward_loop<H, rounded_acts(ENC3), rounded_db(ENC3)>)};
-    return tc::attributes(fns, 3, out);
+            tc::backward_loop<H, rounded_acts(ENC3), rounded_db(ENC3)>),
+        reinterpret_cast<const void*>(
+            tc::rows_gemm_kernel<tc::BRows, tc::BRows, tc::BRows, tc::BRows, tc::ProjOut>),
+        reinterpret_cast<const void*>(tc::forward_loop<H, XP, bf16>)};
+    return tc::attributes(fns, 5, out);
 }
 
+// enc2's forward: bf16 on the tensor cores (tc::enc2_forward), f32 on
+// lstm_common.cuh's FMA cell in mode ENC2, D == H
 template <int H, typename E>
 struct Enc2Forward {
     static cudaError_t run(const void* feats, const float* h0, const float* c0,
                            const float* w_enc, const float* b_enc, const float* w_ih,
                            const float* w_hh, const float* b, void* outs, void* cseq,
-                           float* hT, float* cT, int T, int B, int F, cudaStream_t stream) {
-        return run_forward<H, E, E, ENC2>(feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b, outs,
-                                          cseq, hT, cT, T, B, F, stream);
+                           float* hT, float* cT, void* xs, void* xp, void* w16, int T, int B,
+                           int F, int D, int phases, cudaStream_t stream) {
+        if constexpr (std::is_same<E, bf16>::value) {
+            if (!xs || !xp || !w16) return cudaErrorInvalidValue;
+            tc::Encoder enc;
+            enc.feats = static_cast<const E*>(feats);
+            enc.w_enc = w_enc;
+            enc.b_enc = b_enc;
+            enc.xs = static_cast<E*>(xs);
+            // w16: [W_ih; W_hh] (D + H, 4H), then W_enc (F, D)
+            enc.we16 = static_cast<E*>(w16) + (size_t)(D + H) * 4 * H;
+            enc.F = F;
+            return tc::enc2_forward<H>(enc, h0, c0, w_ih, w_hh, b, static_cast<E*>(outs),
+                                       static_cast<E*>(cseq), hT, cT, static_cast<E*>(xp),
+                                       static_cast<E*>(w16), T, B, D, phases, stream);
+        } else {
+            if (phases != tc::FORWARD_PHASES || D != H) return cudaErrorInvalidValue;
+            return run_forward<H, E, E, ENC2>(feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b, outs,
+                                              cseq, hT, cT, T, B, F, stream);
+        }
     }
 };
 
@@ -486,23 +519,29 @@ struct TmStepBackward {
 
 extern "C" {
 
-// feats: (T, B, F) in the compute dtype (bf16 when cdt_bf16, else f32);
-// h0, c0: (B, H); w_enc: (F, H); b_enc: (H,); w_ih, w_hh: (H, 4H); b:
-// (4H,), all f32. Writes outs and, unless it is null, cseq (T, B, H) in
-// the compute dtype, hT and cT (B, H) f32.
+// The arguments of lstm_enc.cu's lstm_enc_forward. feats: (T, B, F) in
+// the compute dtype (bf16 when cdt_bf16, else f32); h0, c0: (B, H); w_enc:
+// (F, D); b_enc: (D,); w_ih: (D, 4H), w_hh: (H, 4H); b: (4H,), all f32.
+// Writes outs and, unless it is null, cseq (T, B, H) in the compute dtype,
+// hT and cT (B, H) f32. Scratch, bf16 only (null in f32): xs (T, B, D)
+// bf16, the encoded inputs; xp (T, B, 4H) bf16, the projection; w16 ((D +
+// H) * 4H + F * D) bf16. f32 takes D == H. phases: 2 runs the whole
+// forward; in bf16, 1 stops after the encoder and the projection (to time
+// them).
 int lstm_enc2_forward(const void* feats, const float* h0, const float* c0,
                       const float* w_enc, const float* b_enc, const float* w_ih,
                       const float* w_hh, const float* b, void* outs, void* cseq, float* hT,
-                      float* cT, int T, int B, int F, int H, int cdt_bf16,
-                      cudaStream_t stream) {
+                      float* cT, void* xs, void* xp, void* w16, int T, int B, int F, int D,
+                      int H, int cdt_bf16, int phases, cudaStream_t stream) {
     if (T <= 0 || B <= 0 || F <= 0) return (int)cudaErrorInvalidValue;
     if (!aligned16(w_ih) || !aligned16(w_hh)) return (int)cudaErrorMisalignedAddress;
     return dispatch<Enc2Forward>(H, cdt_bf16, feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b,
-                                 outs, cseq, hT, cT, T, B, F, stream);
+                                 outs, cseq, hT, cT, xs, xp, w16, T, B, F, D, phases, stream);
 }
 
 // The four encoder-fused backwards (enc2, enc3, enc4, enc6): the arguments
-// of lstm_enc.cu's lstm_enc_backward, with D == H. Inputs as the
+// of lstm_enc.cu's lstm_enc_backward; D == H but in enc2's bf16 backward,
+// which takes the widths of lstm_enc_backward's. Inputs as the
 // forward's plus its outs and cseq and the gradients g_outs (T, B, H,
 // compute dtype), g_hT and g_cT (B, H, f32). Writes dh0, dc0 (B, H), dwe
 // (F + 1, H): dW_enc, then db_enc, dw = [dW_ih; dW_hh] (2H, 4H) and db
@@ -526,12 +565,12 @@ int lstm_enc2_forward(const void* feats, const float* h0, const float* c0,
              float* dwe_part, float* dbe_part, void* pre, void* w16, int T, int B, int F,   \
              int D, int H, int cdt_bf16, int splits_w, int splits_e, int part_rows,         \
              int phases, cudaStream_t stream) {                                             \
-        if (T <= 0 || B <= 0 || F <= 0 || D != H) return (int)cudaErrorInvalidValue;        \
+        if (T <= 0 || B <= 0 || F <= 0) return (int)cudaErrorInvalidValue;                  \
         if (!aligned16(w_ih) || !aligned16(w_hh)) return (int)cudaErrorMisalignedAddress;   \
         return dispatch<TcBackward<MODE>::Of>(                                              \
             H, cdt_bf16, feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b, outs, cseq, g_outs,    \
             g_hT, g_cT, dh0, dc0, dwe, dw, db, xs, dpre, dg, dw_part, db_part, dwe_part,    \
-            dbe_part, pre, w16, T, B, F, splits_w, splits_e, part_rows, phases, stream);    \
+            dbe_part, pre, w16, T, B, F, D, splits_w, splits_e, part_rows, phases, stream); \
     }
 
 TC_BACKWARD(lstm_enc2_backward, ENC2)
@@ -541,7 +580,7 @@ TC_BACKWARD(lstm_enc6_backward, ENC6)
 #undef TC_BACKWARD
 
 // Registers and spilled bytes per thread of the archive's own bf16
-// kernels at hidden size H (tc_usage): six ints into out.
+// kernels at hidden size H (tc_usage): ten ints into out.
 int lstm_archive_tc_usage(int H, int* out) {
     switch (H) {
         case 32: return (int)tc_usage<32>(out);

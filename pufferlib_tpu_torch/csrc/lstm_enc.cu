@@ -25,26 +25,32 @@
 // on the bf16 tensor cores (0.036 ms and 0.108 ms).
 //
 // Design, chosen by the compute dtype:
-// * bf16, enc5 (lstm_enc_forward, lstm_enc_backward): csrc/lstm_tc.cuh in
-//   mode ENC5, every product on the tensor cores. The encoder runs as one
-//   GEMM over all T*B rows into a (T, B, D) bf16 buffer, then cat's
-//   tensor-core forward runs on it (an x @ W_ih slab, a loop that keeps
-//   W_hh in shared memory); the backward recomputes the encoder with the
-//   same routine, runs cat's hoisted gate recompute, a reverse loop with
-//   the activations rounded to bf16 and db from the rounded dgates, dpre
-//   (the relu-masked dx, rounded) as a GEMM epilogue, and the weight
-//   gradients as split-K contractions. D is any multiple of 8 that a GEMM
-//   block's weight column holds, F up to what the encoder GEMM's block
-//   holds (lstm_enc_tc_max_features).
-// * f32, and every backward but enc5's bf16 one (lstm_scan_enc's step
-//   backward here, the archived variants in csrc/lstm_archive.cu):
+// * bf16 (lstm_enc_forward, lstm_enc_backward, lstm_enc_step_backward):
+//   csrc/lstm_tc.cuh, every product on the tensor cores; the forward in
+//   mode ENC5, enc5's backward in mode ENC5 and the step backward in mode
+//   ENC, which differ only in the reverse loop's two roundings. The
+//   encoder runs as one GEMM over all T*B rows into a (T, B, D) bf16
+//   buffer, then cat's tensor-core forward runs on it (an x @ W_ih slab, a
+//   loop that keeps W_hh in shared memory); a backward recomputes the
+//   encoder with the same routine, runs cat's hoisted gate recompute, a
+//   reverse loop (ENC5: the activations rounded to bf16 and db from the
+//   rounded dgates; ENC: f32 activations and db from the unrounded
+//   dgates), dpre (the relu-masked dx, rounded) as a GEMM epilogue, and
+//   the weight gradients as split-K contractions. The step backward's TPU
+//   kernel recomputes each step's gates and adds x^T dg, h_prev^T dg into
+//   dW inside its loop: here the pre-pass recomputes them (no block holds
+//   [W_ih; W_hh] in bf16 beside its loop's state) and the split-K sums the
+//   same products in another fixed order. D is any multiple of 8 that a
+//   GEMM block's weight column holds, F up to what the encoder GEMM's
+//   block holds (lstm_enc_tc_max_features).
+// * f32 (the exact test mode: the tensor cores have no exact f32 product)
+//   and the archived variants' f32 backwards in csrc/lstm_archive.cu:
 //   csrc/lstm_common.cuh on FMA, D == H. The encoder runs inside the time
 //   loop of each block from a W_enc held in shared memory (F <= 128); the
 //   TPU kernel's tall pre-pass becomes a per-step recompute inside the
 //   backward's loop; the post-loop contractions dW_ih, dW_hh and dW_enc
 //   are split-K over the T*B rows with partial sums added in a fixed
-//   order. f32 is the exact test mode: the tensor cores have no exact f32
-//   product.
+//   order.
 #include "lstm_common.cuh"
 #include "lstm_tc.cuh"
 
@@ -79,53 +85,54 @@ struct Forward {
     }
 };
 
-template <int H, typename E>
-struct Backward {
-    static cudaError_t run(const void* feats, const float* h0, const float* c0,
-                           const float* w_enc, const float* b_enc, const float* w_ih,
-                           const float* w_hh, const float* b, const void* outs,
-                           const void* cseq, const void* g_outs, const float* g_hT,
-                           const float* g_cT, float* dh0, float* dc0, float* dwe, float* dw,
-                           float* db, void* xs, void* dpre, void* dg, float* dw_part,
-                           float* db_part, float* dwe_part, float* dbe_part, float* pre,
-                           void* w16, int T, int B, int F, int D, int splits_w, int splits_e,
-                           int part_rows, int phases, cudaStream_t stream) {
-        if constexpr (std::is_same<E, lstm::bf16>::value) {
-            if (!pre || !w16) return cudaErrorInvalidValue;
-            const lstm::tc::Encoder enc = lstm::tc::backward_encoder(
-                feats, w_enc, b_enc, xs, dpre, w16, dwe, dwe_part, splits_e, F, D, H, B);
-            return lstm::tc::backward<H, lstm::ENC5>(
-                enc.xs, h0, c0, w_ih, w_hh, b, static_cast<const E*>(outs),
-                static_cast<const E*>(cseq), static_cast<const E*>(g_outs), g_hT, g_cT, nullptr,
-                dh0, dc0, dw, db, static_cast<E*>(dg), dw_part, db_part, pre,
-                static_cast<E*>(w16), T, B, D, splits_w, part_rows, phases, stream, enc);
-        } else {
-            if (phases != lstm::tc::BACKWARD_PHASES || D != H) return cudaErrorInvalidValue;
-            return lstm::run_backward<H, E, E, lstm::ENC5>(
-                feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b, outs, cseq, g_outs, g_hT, g_cT, dh0,
-                dc0, dwe, dwe + (size_t)F * D, dw, db, xs, dpre, dg, dw_part, db_part, dwe_part,
-                dbe_part, T, B, F, splits_w, splits_e, part_rows, stream);
+// The encoder-fused backwards in mode MODE: ENC5 (enc5's) or ENC
+// (lstm_scan_enc's step backward). bf16 on the tensor cores
+// (tc::backward), f32 on lstm_common.cuh's FMA kernels, D == H.
+template <int MODE>
+struct EncBackward {
+    template <int H, typename E>
+    struct Of {
+        static cudaError_t run(const void* feats, const float* h0, const float* c0,
+                               const float* w_enc, const float* b_enc, const float* w_ih,
+                               const float* w_hh, const float* b, const void* outs,
+                               const void* cseq, const void* g_outs, const float* g_hT,
+                               const float* g_cT, float* dh0, float* dc0, float* dwe, float* dw,
+                               float* db, void* xs, void* dpre, void* dg, float* dw_part,
+                               float* db_part, float* dwe_part, float* dbe_part, float* pre,
+                               void* w16, int T, int B, int F, int D, int splits_w, int splits_e,
+                               int part_rows, int phases, cudaStream_t stream) {
+            if constexpr (std::is_same<E, lstm::bf16>::value) {
+                if (!pre || !w16) return cudaErrorInvalidValue;
+                const lstm::tc::Encoder enc = lstm::tc::backward_encoder(
+                    feats, w_enc, b_enc, xs, dpre, w16, dwe, dwe_part, splits_e, F, D, H, B);
+                return lstm::tc::backward<H, MODE>(
+                    enc.xs, h0, c0, w_ih, w_hh, b, static_cast<const E*>(outs),
+                    static_cast<const E*>(cseq), static_cast<const E*>(g_outs), g_hT, g_cT,
+                    nullptr, dh0, dc0, dw, db, static_cast<E*>(dg), dw_part, db_part, pre,
+                    static_cast<E*>(w16), T, B, D, splits_w, part_rows, phases, stream, enc);
+            } else {
+                if (phases != lstm::tc::BACKWARD_PHASES || D != H) return cudaErrorInvalidValue;
+                return lstm::run_backward<H, E, E, MODE>(
+                    feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b, outs, cseq, g_outs, g_hT, g_cT,
+                    dh0, dc0, dwe, dwe + (size_t)F * D, dw, db, xs, dpre, dg, dw_part, db_part,
+                    dwe_part, dbe_part, T, B, F, splits_w, splits_e, part_rows, stream);
+            }
         }
-    }
+    };
 };
 
-template <int H, typename E>
-struct StepBackward {
-    static cudaError_t run(const void* feats, const float* h0, const float* c0,
-                           const float* w_enc, const float* b_enc, const float* w_ih,
-                           const float* w_hh, const float* b, const void* outs,
-                           const void* cseq, const void* g_outs, const float* g_hT,
-                           const float* g_cT, float* dh0, float* dc0, float* dw_enc,
-                           float* db_enc, float* dw, float* db, void* xs, void* dpre, void* dg,
-                           float* dw_part, float* db_part, float* dwe_part, float* dbe_part,
-                           int T, int B, int F, int splits_w, int splits_e, int part_rows,
-                           cudaStream_t stream) {
-        return lstm::run_backward<H, E, E, lstm::ENC>(
-            feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b, outs, cseq, g_outs, g_hT, g_cT, dh0,
-            dc0, dw_enc, db_enc, dw, db, xs, dpre, dg, dw_part, db_part, dwe_part, dbe_part, T,
-            B, F, splits_w, splits_e, part_rows, stream);
-    }
-};
+// Registers and spilled bytes per thread of the bf16 kernels of both
+// backwards at hidden size H: enc5's six (lstm::tc::usage in mode ENC5),
+// then the reverse loop of mode ENC (f32 activations, db from the
+// unrounded dgates); its other kernels are enc5's
+template <int H>
+cudaError_t enc_usage(int* out) {
+    const cudaError_t err = lstm::tc::usage<H, lstm::ENC5>(out);
+    if (err != cudaSuccess) return err;
+    const void* fns[] = {reinterpret_cast<const void*>(
+        lstm::tc::backward_loop<H, lstm::rounded_acts(lstm::ENC), lstm::rounded_db(lstm::ENC)>)};
+    return lstm::tc::attributes(fns, 1, out + 12);
+}
 
 }  // namespace
 
@@ -164,52 +171,42 @@ int lstm_enc_forward(const void* feats, const float* h0, const float* c0,
 // + 4H * D + B * H + F * D) bf16. f32 takes D == H. phases: 4 runs the
 // whole backward; in bf16, 1 .. 3 stop after the encoder and the
 // pre-pass, the loop or dpre (to time them).
-int lstm_enc_backward(const void* feats, const float* h0, const float* c0,
-                      const float* w_enc, const float* b_enc, const float* w_ih,
-                      const float* w_hh, const float* b, const void* outs, const void* cseq,
-                      const void* g_outs, const float* g_hT, const float* g_cT, float* dh0,
-                      float* dc0, float* dwe, float* dw, float* db, void* xs, void* dpre,
-                      void* dg, float* dw_part, float* db_part, float* dwe_part,
-                      float* dbe_part, float* pre, void* w16, int T, int B, int F, int D,
-                      int H, int cdt_bf16, int splits_w, int splits_e, int part_rows,
-                      int phases, cudaStream_t stream) {
-    if (T <= 0 || B <= 0 || F <= 0) return (int)cudaErrorInvalidValue;
-    if (!lstm::aligned16(w_ih) || !lstm::aligned16(w_hh))
-        return (int)cudaErrorMisalignedAddress;
-    return lstm::dispatch<Backward>(H, cdt_bf16, feats, h0, c0, w_enc, b_enc, w_ih, w_hh,
-                                    b, outs, cseq, g_outs, g_hT, g_cT, dh0, dc0, dwe, dw, db,
-                                    xs, dpre, dg, dw_part, db_part, dwe_part, dbe_part, pre,
-                                    w16, T, B, F, D, splits_w, splits_e, part_rows, phases,
-                                    stream);
-}
+#define ENC_BACKWARD(NAME, MODE)                                                            \
+    int NAME(const void* feats, const float* h0, const float* c0, const float* w_enc,       \
+             const float* b_enc, const float* w_ih, const float* w_hh, const float* b,      \
+             const void* outs, const void* cseq, const void* g_outs, const float* g_hT,     \
+             const float* g_cT, float* dh0, float* dc0, float* dwe, float* dw, float* db,   \
+             void* xs, void* dpre, void* dg, float* dw_part, float* db_part,                \
+             float* dwe_part, float* dbe_part, float* pre, void* w16, int T, int B, int F,  \
+             int D, int H, int cdt_bf16, int splits_w, int splits_e, int part_rows,         \
+             int phases, cudaStream_t stream) {                                             \
+        if (T <= 0 || B <= 0 || F <= 0) return (int)cudaErrorInvalidValue;                 \
+        if (!lstm::aligned16(w_ih) || !lstm::aligned16(w_hh))                               \
+            return (int)cudaErrorMisalignedAddress;                                         \
+        return lstm::dispatch<EncBackward<MODE>::Of>(                                       \
+            H, cdt_bf16, feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b, outs, cseq, g_outs,    \
+            g_hT, g_cT, dh0, dc0, dwe, dw, db, xs, dpre, dg, dw_part, db_part, dwe_part,    \
+            dbe_part, pre, w16, T, B, F, D, splits_w, splits_e, part_rows, phases, stream); \
+    }
 
-// The un-hoisted backward of lstm_scan_enc, on FMA in both dtypes (D ==
-// H): inputs as lstm_enc_backward's; writes dh0, dc0, dw_enc (F, H),
-// db_enc (H,), dw (2H, 4H) and db (4H,); scratch xs, dpre, dg, dw_part,
-// db_part, dwe_part (splits_e, F, H) and dbe_part as its f32 path's.
-int lstm_enc_step_backward(const void* feats, const float* h0, const float* c0,
-                           const float* w_enc, const float* b_enc, const float* w_ih,
-                           const float* w_hh, const float* b, const void* outs,
-                           const void* cseq, const void* g_outs, const float* g_hT,
-                           const float* g_cT, float* dh0, float* dc0, float* dw_enc,
-                           float* db_enc, float* dw, float* db, void* xs, void* dpre,
-                           void* dg, float* dw_part, float* db_part, float* dwe_part,
-                           float* dbe_part, int T, int B, int F, int H, int cdt_bf16,
-                           int splits_w, int splits_e, int part_rows,
-                           cudaStream_t stream) {
-    if (T <= 0 || B <= 0 || F <= 0) return (int)cudaErrorInvalidValue;
-    if (!lstm::aligned16(w_ih) || !lstm::aligned16(w_hh))
-        return (int)cudaErrorMisalignedAddress;
-    return lstm::dispatch<StepBackward>(H, cdt_bf16, feats, h0, c0, w_enc, b_enc, w_ih,
-                                        w_hh, b, outs, cseq, g_outs, g_hT, g_cT, dh0, dc0,
-                                        dw_enc, db_enc, dw, db, xs, dpre, dg, dw_part,
-                                        db_part, dwe_part, dbe_part, T, B, F, splits_w,
-                                        splits_e, part_rows, stream);
-}
+ENC_BACKWARD(lstm_enc_backward, lstm::ENC5)
 
-// Registers and spilled bytes per thread of enc5's bf16 kernels at hidden
-// size H (lstm::tc::usage in mode ENC5): twelve ints into out.
-int lstm_enc_tc_usage(int H, int* out) { return lstm::tc::usage_at<lstm::ENC5>(H, out); }
+// The un-hoisted backward of lstm_scan_enc: lstm_enc_backward's arguments,
+// scratch and phases, in mode ENC (f32 activations, db from the unrounded
+// dgates); bf16 on the tensor cores, f32 on FMA with D == H.
+ENC_BACKWARD(lstm_enc_step_backward, lstm::ENC)
+#undef ENC_BACKWARD
+
+// Registers and spilled bytes per thread of the bf16 kernels of both
+// backwards at hidden size H (enc_usage): fourteen ints into out.
+int lstm_enc_tc_usage(int H, int* out) {
+    switch (H) {
+        case 32: return (int)enc_usage<32>(out);
+        case 64: return (int)enc_usage<64>(out);
+        case 128: return (int)enc_usage<128>(out);
+    }
+    return (int)cudaErrorInvalidValue;
+}
 
 // The widest feature width enc5's bf16 encoder takes
 // (lstm::tc::serves_features), into *out: the limit that

@@ -3,11 +3,15 @@
 // lstm_fused_backward (mode FUSED) and lstm_scan_forward /
 // lstm_scan_backward (mode XP), csrc/lstm_cat.cu's lstm_cat_forward /
 // lstm_cat_backward (mode CAT) and csrc/lstm_enc.cu's lstm_enc_forward /
-// lstm_enc_backward (mode ENC5) run when the compute dtype is bf16, and
+// lstm_enc_backward (mode ENC5) and lstm_enc_step_backward (mode ENC, the
+// backward of lstm_scan_enc: ENC5's with f32 activations and db from the
+// unrounded dgates) run when the compute dtype is bf16, and
 // csrc/lstm_archive.cu's four encoder-fused backwards (the archived modes
 // ENC2, ENC3, ENC4 and ENC6: ENC5's backward with other roundings, ENC6
-// with ENC5's own). In f32 they keep lstm_common.cuh's cell kernels: the
-// tensor cores have no exact f32 product, and f32 is the exact test mode.
+// with ENC5's own) and the archived enc2's forward (enc2_forward: the
+// encoder, a projection GEMM, mode XP's loop). In f32 they keep
+// lstm_common.cuh's cell kernels: the tensor cores have no exact f32
+// product, and f32 is the exact test mode.
 //
 // Mode XP (lstm.py's lstm_scan: `_lstm_fwd_impl` / `_fwd_kernel` and
 // `_noresid`, `_lstm_scan_bwd` / `_bwd_kernel`) is FUSED without the input
@@ -43,12 +47,15 @@
 //      (lstm_cat.py:48-51); the cell update, outs and (unless cseq is
 //      null) cseq.
 // * backward (FUSED: `_lstm_fused_bwd`, `_bwd_fused_kernel`; CAT: `_bwd`,
-//   `_bwd_kernel`; ENC5: lstm_enc5.py `_hoisted_bwd`, `_bwd_kernel`):
+//   `_bwd_kernel`; ENC5: lstm_enc5.py `_hoisted_bwd`, `_bwd_kernel`; ENC:
+//   lstm_enc.py `_bwd`, `_bwd_kernel`, whose gates are recomputed and
+//   whose dW is carried inside its loop, here the P pre-pass and the
+//   split-K as ENC5's):
 //   0. ENC5 only: xs recomputed by the forward's encoder, bit for bit;
 //   1. pre-pass P over all T*B rows (h_prev: h0 rounded, then the stored
 //      outs): the gate recompute, which needs no carried state, as an f32
-//      slab; FUSED (x @ W_ih + b) + h_prev @ W_hh, CAT, ENC5, ENC3, ENC4
-//      and ENC6 (x @ W_ih + h_prev @ W_hh) + b, ENC2 bf16(x @ W_ih + b) +
+//      slab; FUSED (x @ W_ih + b) + h_prev @ W_hh, CAT, ENC, ENC5, ENC3,
+//      ENC4 and ENC6 (x @ W_ih + h_prev @ W_hh) + b, ENC2 bf16(x @ W_ih + b) +
 //      h_prev @ W_hh (its projection slab, lstm_enc2.py:103-105, rounded
 //      in the epilogue);
 //   2. reverse loop: the activations from P_t (ENC5 rounds them to bf16,
@@ -66,8 +73,8 @@
 //      contraction over [feats | 1] (98-byte rows at F = 49: the
 //      register-staged kernel).
 // The functions are the TPU kernels': f32 sums on bf16 operands, in each
-// mode's order; FUSED and CAT keep f32 activations and sum db from the
-// unrounded dgates, ENC5 and ENC6 round the activations and sum db (and
+// mode's order; FUSED, CAT and ENC keep f32 activations and sum db from
+// the unrounded dgates, ENC5 and ENC6 round the activations and sum db (and
 // db_enc) from the rounded values, ENC4 and ENC2 keep f32 activations and
 // sum db from the rounded dgates, ENC3 rounds the activations and sums db
 // from the unrounded dgates. The modes differ only in where the bias and
@@ -596,7 +603,7 @@ __global__ void __launch_bounds__(NTC, 1) forward_loop(
 // shared activation/dgates slab does; ROUND_DB, db sums the dgates as
 // stored in bf16 rather than the unrounded ones. ENC5 and the archived
 // ENC6 take both, the archived ENC4 and ENC2 ROUND_DB alone, the archived
-// ENC3 ROUND_ACTS alone, CAT and FUSED neither.
+// ENC3 ROUND_ACTS alone, CAT, FUSED and ENC neither.
 template <int H, bool ROUND_ACTS, bool ROUND_DB>
 __global__ void __launch_bounds__(NTC, 1) backward_loop(
         const float* __restrict__ pre, const float* __restrict__ c0,
@@ -1166,6 +1173,25 @@ struct Bf16Out {
     }
 };
 
+// bf16(s1 + b) into a row-major (M, N) array: the archived ENC2's
+// projection xp (lstm_enc2._pre, stored in its compute dtype), in the
+// natural (T, B, 4H) order that mode XP's forward loop reads
+struct ProjOut {
+    bf16* out;
+    const float* b;
+    int N;
+    __device__ __forceinline__ void operator()(long long mb, int nb, int lane, long long M,
+                                               const float (&s1)[4], const float (&)[4]) const {
+        const int n = nb + lane % 4 * 2;
+        const float b0 = __ldg(b + n), b1 = __ldg(b + n + 1);
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+            const long long m = mb + lane / 4 + 8 * half;
+            if (m < M) st2(out + m * N + n, s1[2 * half] + b0, s1[2 * half + 1] + b1);
+        }
+    }
+};
+
 // relu that keeps a NaN, as jnp.maximum(v, 0)
 __device__ __forceinline__ float relu(float v) { return v < 0.f ? 0.f : v; }
 
@@ -1397,12 +1423,45 @@ cudaError_t enc5_forward(const Encoder& enc, const float* h0, const float* c0,
                            phases, stream);
 }
 
+// The archived ENC2's forward (lstm_enc2.py `_pre`, `_fwd_kernel`): the
+// encoder into enc.xs; the projection xp = bf16(xs @ W_ih + b) as a GEMM
+// into the scratch xp, (T, B, 4H) bf16 in its natural order (ProjOut, the
+// TPU kernel's rounded xp slab); then mode XP's forward loop on xp: gates
+// = xp_t + h @ W_hh, the recurrent product its own f32 sum, added after
+// it. w16: (D + H) * 4H bf16 scratch, as the forward's. The other design,
+// an f32 slab in the loops' fragment order (GatesOut<ENC2>) read by
+// FUSED's loop, gives the same values from twice the bytes:
+// tools/ablate_lstm_tc_torch.py's variant enc2-fused-slab. Phases: 1, the
+// encoder and the projection; 2, all.
+template <int H>
+cudaError_t enc2_forward(const Encoder& enc, const float* h0, const float* c0,
+                         const float* w_ih, const float* w_hh, const float* b, bf16* outs,
+                         bf16* cseq, float* hT, float* cT, bf16* xp, bf16* w16, int T, int B,
+                         int D, int phases, cudaStream_t stream) {
+    constexpr int G = 4 * H;
+    if (phases < 1 || phases > FORWARD_PHASES || !serves(D, H) || !serves_features(enc.F))
+        return cudaErrorInvalidValue;
+    if (!aligned16(enc.xs)) return cudaErrorMisalignedAddress;
+    const long long M = (long long)T * B;
+    cudaError_t err = round_into(w_ih, w_hh, nullptr, w16, nullptr, nullptr, D, H, B, stream);
+    if (err != cudaSuccess || (err = encode(enc, D, M, stream)) != cudaSuccess) return err;
+    const BRows xs{enc.xs, D}, wi{w16, G};
+    if ((err = rows_gemm(xs, wi, D, xs, wi, 0, ProjOut{xp, b, G}, M, G, stream)) != cudaSuccess ||
+        phases < 2)
+        return err;
+    auto kernel = forward_loop<H, XP, bf16>;
+    if ((err = prepare(kernel, Geo<H>::FWD_SMEM)) != cudaSuccess) return err;
+    kernel<<<(B + BR - 1) / BR, NTC, Geo<H>::FWD_SMEM, stream>>>(
+        xp, nullptr, h0, c0, w16 + (size_t)D * G, outs, cseq, hT, cT, T, B);
+    return cudaGetLastError();
+}
+
 // The backward: scratch pre (as the forward's xw) f32, w16 ((D + H) * 4H +
 // 4H * D + B * H) bf16 (the rounded [W_ih; W_hh], W_ih^T and h0), dg
 // (T, B, 4H) bf16, dw_part (splits, D + H, 4H) and db_part (ceil(B / BR),
 // 4H) f32. phases: the first 1 .. 4 of pre-pass, loop, dx, dW + db.
-// ENC5 and the archived ENC2, ENC3, ENC4 and ENC6: x is enc.xs, which the
-// encoder writes first (the pre-pass phase); dx is not written, dpre in
+// ENC, ENC5 and the archived ENC2, ENC3, ENC4 and ENC6: x is enc.xs, which
+// the encoder writes first (the pre-pass phase); dx is not written, dpre in
 // its place; the last phase adds dW_enc and db_enc.
 template <int H, int MODE>
 cudaError_t backward(const bf16* x, const float* h0, const float* c0, const float* w_ih,
@@ -1414,8 +1473,8 @@ cudaError_t backward(const bf16* x, const float* h0, const float* c0, const floa
                      const Encoder& enc = Encoder{}) {
     constexpr int G = 4 * H;
     constexpr bool ENCODER = has_encoder(MODE);
-    // where the bias enters the gate sum: ENC5's, ENC3's, ENC4's and
-    // ENC6's cell is CAT's, ENC2 rounds its projection before adding the
+    // where the bias enters the gate sum: ENC's, ENC5's, ENC3's, ENC4's
+    // and ENC6's cell is CAT's, ENC2 rounds its projection before adding the
     // recurrent sum
     constexpr int SUM = MODE == ENC2 ? ENC2 : ENCODER ? CAT : MODE;
     const int nblk = (B + BR - 1) / BR;

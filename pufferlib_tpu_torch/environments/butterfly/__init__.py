@@ -19,6 +19,10 @@ def wrap(env):
 
 
 def make(name='cooperative_pong_v5', render_mode=None):
+    """The parallel env `name`, wrapped. pettingzoo 1.25 and later keep
+    cooperative_pong_v5 only to raise DeprecatedEnv (an ImportError) on
+    use: the default then builds cooperative_pong_v6, which the JAX binding
+    does not (a divergence kept on purpose, ROADMAP.md)."""
     try:
         from pettingzoo.butterfly import (
             cooperative_pong_v5, knights_archers_zombies_v10)
@@ -28,4 +32,14 @@ def make(name='cooperative_pong_v5', render_mode=None):
         'cooperative_pong_v5': cooperative_pong_v5,
         'knights_archers_zombies_v10': knights_archers_zombies_v10,
     }
-    return wrap(mods[name].parallel_env(render_mode=render_mode))
+    try:
+        env = mods[name].parallel_env(render_mode=render_mode)
+    except ImportError as deprecated:
+        if name != 'cooperative_pong_v5':
+            raise
+        try:
+            from pettingzoo.butterfly import cooperative_pong_v6
+        except ImportError:
+            raise deprecated from None
+        env = cooperative_pong_v6.parallel_env(render_mode=render_mode)
+    return wrap(env)

@@ -11,16 +11,19 @@ kernel launch for CUDA tensors, no way from one to the other), the
 backwards' launchers and the design each backward runs. Each variant's
 module gives its plain versions, its launchers and its public function.
 
-In bf16 the four backwards run the tensor-core kernels of
-csrc/lstm_tc.cuh (backward_design): mode ENC5's path (the encoder, the P
-pre-pass, a reverse loop with W_hh in shared memory, dpre and the
-split-K) with each variant's roundings: enc2 and enc4 f32 activations and
-db from the rounded dgates (enc2's pre-pass rounding its projection),
-enc3 rounded activations and db from the unrounded dgates, enc6 enc5's
-own. In f32 they run lstm_archive.cu's FMA kernel. Both designs take the
-same shapes (D == H, at most 128 features, hidden sizes 32, 64 and 128;
-enc6's f32 block, two tiles of dgates, also a feature width its shared
-memory holds), refused before any launch.
+In bf16 the four backwards and enc2's forward run the tensor-core
+kernels of csrc/lstm_tc.cuh (design): the backwards mode ENC5's path (the
+encoder, the P pre-pass, a reverse loop with W_hh in shared memory, dpre
+and the split-K) with each variant's roundings: enc2 and enc4 f32
+activations and db from the rounded dgates (enc2's pre-pass rounding its
+projection), enc3 rounded activations and db from the unrounded dgates,
+enc6 enc5's own; enc2's forward the encoder, its projection as a GEMM and
+mode XP's loop. In f32 they run lstm_archive.cu's FMA kernels. enc3, enc4
+and enc6 take the shapes of their FMA forward (D == H, at most 128
+features, hidden sizes 32, 64 and 128; enc6's f32 block, two tiles of
+dgates, also a feature width its shared memory holds) in both dtypes;
+enc2 in bf16 the tensor-core kernels' (lstm_common.encoder_shape_error).
+Each is refused before any launch.
 """
 import collections
 
@@ -30,11 +33,12 @@ from pufferlib_tpu_torch.ops.cuda import lstm_enc
 from pufferlib_tpu_torch.ops.cuda._build import CudaKernel, I, P
 from pufferlib_tpu_torch.ops.cuda.lstm_common import (
     BACKWARD_PHASES, ROWS_PER_BLOCK, backward_inputs, check_encoder_inputs,
-    check_fma_encoder_kernel_shape, needs_cseq)
+    check_encoder_kernel_shape, check_fma_encoder_kernel_shape, needs_cseq)
 
 _TC_BACKWARD = lstm_enc.KERNEL.functions['lstm_enc_backward']
 KERNEL = CudaKernel('lstm_archive.cu', {
-    'lstm_enc2_forward': [P] * 12 + [I] * 5 + [P],
+    # enc2's forward takes lstm_enc_forward's arguments
+    'lstm_enc2_forward': lstm_enc.KERNEL.functions['lstm_enc_forward'],
     'lstm_enc2_backward': _TC_BACKWARD,
     'lstm_enc3_backward': _TC_BACKWARD,
     'lstm_enc4_backward': _TC_BACKWARD,
@@ -45,16 +49,19 @@ KERNEL = CudaKernel('lstm_archive.cu', {
     'lstm_archive_tc_usage': [I, P],
 })
 
-# the backwards with a tensor-core design in bf16
-TC_BACKWARDS = ('lstm_enc2_backward', 'lstm_enc3_backward',
-    'lstm_enc4_backward', 'lstm_enc6_backward')
+# the C functions with a tensor-core design in bf16
+TC_FUNCTIONS = ('lstm_enc2_forward', 'lstm_enc2_backward',
+    'lstm_enc3_backward', 'lstm_enc4_backward', 'lstm_enc6_backward')
 
 
-def backward_design(fn, cdt):
-    """The design the backward C function `fn` runs in cdt: 'tc'
-    (lstm_tc.cuh's tensor-core kernels: TC_BACKWARDS in bf16) or 'fma'
-    (lstm_archive.cu's archive_backward)."""
-    return 'tc' if fn in TC_BACKWARDS and cdt == torch.bfloat16 else 'fma'
+def design(fn, cdt):
+    """The design the C function `fn` of KERNEL runs in cdt: 'tc'
+    (lstm_tc.cuh's tensor-core kernels: TC_FUNCTIONS in bf16) or 'fma'
+    (lstm_archive.cu's and lstm_common.cuh's FMA kernels: every function
+    in f32, and tm's)."""
+    if fn not in KERNEL.functions:
+        raise ValueError(f'{fn} is not a C function of {KERNEL.source}')
+    return 'tc' if fn in TC_FUNCTIONS and cdt == torch.bfloat16 else 'fma'
 
 # shared memory a block may use (lstm_common.cuh MAX_SMEM)
 MAX_SHARED_BYTES = 227 * 1024
@@ -72,14 +79,17 @@ def launch_tc_backward(fn, feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b, outs,
         acts_slab=False):
     """Launch the encoder-fused backward `fn` of lstm_archive.cu, whose
     arguments are lstm_enc_backward's: (dh0, dc0, dW_enc, db_enc, dW_ih,
-    dW_hh, db). In bf16 the tensor-core kernels (backward_design) with
+    dW_hh, db). In bf16 the tensor-core kernels (design) with
     their scratch, the f32 P slab and the bf16 weights; phases < 4 stops a
     bf16 call early, to time a phase. In f32 the FMA kernel, whose block
     takes row_tiles tiles of 32 rows and, with acts_slab, keeps every
     step's gate activations in a (T, B, 4H) slab."""
     F, H = feats.shape[2], h0.shape[1]
-    check_fma_encoder_kernel_shape(feats, w_enc, H)
-    tc = backward_design(fn, cdt) == 'tc'
+    if fn == 'lstm_enc2_backward':
+        check_encoder_kernel_shape(feats, w_enc, H, cdt)
+    else:
+        check_fma_encoder_kernel_shape(feats, w_enc, H)
+    tc = design(fn, cdt) == 'tc'
     # lstm_archive.cu archive_smem: dgates tiles, a weight chunk, W_enc,
     # feats_t
     shared = 4 * (row_tiles * 4 * H * ROWS_PER_BLOCK + 16 * 4 * H

@@ -21,24 +21,28 @@ unrounded, the relu mask, dpre rounded to cdt, dW_enc and db_enc.
 
 feats (T, B, F) is in cdt; its cotangent is zero by contract.
 
-On the card the forward runs on FMA in both dtypes; the backward in bf16
-runs csrc/lstm_tc.cuh's tensor-core kernels on enc4's path: the encoder as
-a GEMM over all T*B rows, the gate recompute as the P pre-pass
-cdt(x @ W_ih + b) + h_prev @ W_hh (the projection rounded in its
-epilogue), a reverse loop with W_hh in shared memory, f32 activations and
-db from the rounded dgates, then dpre and the weight gradients as enc5's
-backward runs them. In f32 the backward runs on FMA.
+On the card both run csrc/lstm_tc.cuh's tensor-core kernels in bf16. The
+forward: the encoder as a GEMM over all T*B rows, the projection xp as a
+GEMM whose epilogue adds b and rounds, written in bf16 in its natural
+(T, B, 4H) order, then mode XP's forward loop (lstm_scan's) on it, W_hh in
+shared memory. The backward on enc4's path: the encoder, the gate
+recompute as the P pre-pass cdt(x @ W_ih + b) + h_prev @ W_hh (the
+projection rounded in its epilogue), a reverse loop with W_hh in shared
+memory, f32 activations and db from the rounded dgates, then dpre and the
+weight gradients as enc5's backward runs them. Both take enc5's reach in
+bf16: any encoder width D that is a multiple of 8 up to
+lstm_common.tc_max_input(H), up to tc_max_features() features. In f32
+both run on FMA, D == H.
 """
 import torch
 
-from pufferlib_tpu_torch.ops.cuda._build import (
-    ptr, ptr_or_null, stream_handle)
+from pufferlib_tpu_torch.ops.cuda import lstm_enc
 from pufferlib_tpu_torch.ops.cuda.archive import (
     KERNEL, EncVariant, launch_tc_backward, scan_enc_variant)
 from pufferlib_tpu_torch.ops.cuda.lstm_common import (
-    BACKWARD_PHASES, cell_backward_step, check_fma_encoder_kernel_shape,
-    encode, forward_outputs, gate_activations, h_prev_rows, round_to,
-    scan_cells)
+    BACKWARD_PHASES, FORWARD_PHASES, cell_backward_step,
+    check_encoder_kernel_shape, encode, gate_activations, h_prev_rows,
+    round_to, scan_cells)
 
 __all__ = ['lstm_scan_enc2', 'lstm_enc2_reference',
     'lstm_enc2_backward_reference', 'VARIANT']
@@ -93,19 +97,20 @@ def lstm_enc2_backward_reference(feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b,
     return dh, dc, dw_enc, db_enc, dw_ih, dw_hh, db
 
 
+def _projection_scratch(T, B, H, device):
+    """The bf16 forward's xp, (T, B, 4H) bf16 in its natural order."""
+    return torch.empty((T, B, 4 * H), dtype=torch.bfloat16, device=device)
+
+
 def _launch_forward(feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b, cdt,
-        save_cseq=True):
-    """lstm_enc2_forward, on FMA in both dtypes: (outs, hT, cT, cseq)."""
-    T, B, F = feats.shape
-    H = h0.shape[1]
-    check_fma_encoder_kernel_shape(feats, w_enc, H)
-    outs, hT, cT, cseq = forward_outputs(T, h0, c0, cdt, save_cseq)
-    if B > 0:
-        KERNEL.launch('lstm_enc2_forward', ptr(feats), ptr(h0), ptr(c0),
-            ptr(w_enc), ptr(b_enc), ptr(w_ih), ptr(w_hh), ptr(b), ptr(outs),
-            ptr_or_null(cseq), ptr(hT), ptr(cT), T, B, F, H,
-            int(cdt == torch.bfloat16), stream_handle(feats))
-    return outs, hT, cT, cseq
+        save_cseq=True, phases=FORWARD_PHASES):
+    """lstm_enc2_forward: on the tensor cores in bf16 (phases < 2 stops
+    after the encoder and the projection, to time them), on FMA in f32:
+    (outs, hT, cT, cseq)."""
+    check_encoder_kernel_shape(feats, w_enc, h0.shape[1], cdt)
+    return lstm_enc.launch_forward(KERNEL, 'lstm_enc2_forward', feats, h0,
+        c0, w_enc, b_enc, w_ih, w_hh, b, cdt, save_cseq, phases,
+        _projection_scratch)
 
 
 def _launch_backward(*args, phases=BACKWARD_PHASES):

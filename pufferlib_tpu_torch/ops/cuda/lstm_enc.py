@@ -30,12 +30,14 @@ the encoder as one GEMM over all T*B rows into a (T, B, D) bf16 buffer,
 then cat's tensor-core forward on it; the backward recomputes that buffer
 with the same encoder, runs the gate recompute, dpre and the weight
 gradients as GEMMs around a reverse loop that keeps only dg_t @ W_hh^T.
-It takes any encoder width D that is a multiple of 8 up to
-lstm_common.tc_max_input(H), and up to lstm_common.tc_max_features()
-features. In f32, the exact test mode, and for lstm_scan_enc's step
-backward in both dtypes, the FMA kernels of csrc/lstm_common.cuh run,
-with D == H and at most KERNEL_MAX_FEATURES features; lstm_scan_enc's
-forward shares enc5's C function but keeps its backward's reach.
+lstm_scan_enc's step backward runs the same kernels in mode ENC, whose
+reverse loop keeps the activations in f32 and sums db from the unrounded
+dgates (its TPU kernel's recompute and dW inside the loop become the
+pre-pass and the split-K). Both take any encoder width D that is a
+multiple of 8 up to lstm_common.tc_max_input(H), and up to
+lstm_common.tc_max_features() features. In f32, the exact test mode, the
+FMA kernels of csrc/lstm_common.cuh run, with D == H and at most
+KERNEL_MAX_FEATURES features (design says which a C function runs).
 
 Every other enc5 shape with a hidden size up to
 lstm_common.STREAM_MAX_HIDDEN (padded to a multiple of 32 with zero
@@ -62,7 +64,7 @@ from pufferlib_tpu_torch.ops.cuda._build import (
     CudaKernel, I, P, ptr, ptr_or_null, stream_handle)
 from pufferlib_tpu_torch.ops.cuda.lstm_common import (
     BACKWARD_PHASES, FORWARD_PHASES, KERNEL_MAX_FEATURES, ROWS_PER_BLOCK,
-    TC_ROWS_PER_BLOCK, backward_inputs, blocks, cell_backward_step,
+    TC_ROWS_PER_BLOCK, backward_inputs, cell_backward_step,
     check_encoder_inputs, check_encoder_kernel_shape,
     check_fma_encoder_kernel_shape, encode, enc5_design, enc5_shape_error,
     forward_outputs, gate_activations, h_prev_rows, needs_cseq, pad_cell,
@@ -76,15 +78,27 @@ __all__ = ['lstm_scan_enc5', 'lstm_scan_enc', 'lstm_enc_reference',
     'lstm_enc_backward_reference', 'lstm_scan_enc_backward_reference',
     'encode', 'KERNEL', 'KERNEL_MAX_FEATURES']
 
+_BACKWARD = [P] * 27 + [I] * 10 + [P]
 KERNEL = CudaKernel('lstm_enc.cu', {
     'lstm_enc_forward': [P] * 15 + [I] * 7 + [P],
-    'lstm_enc_backward': [P] * 27 + [I] * 10 + [P],
-    'lstm_enc_step_backward': [P] * 26 + [I] * 8 + [P],
-    # not a launch: enc5's bf16 kernels' registers and spills
+    'lstm_enc_backward': _BACKWARD,
+    # lstm_scan_enc's step backward takes enc5's backward's arguments
+    'lstm_enc_step_backward': _BACKWARD,
+    # not a launch: the bf16 kernels' registers and spills
     'lstm_enc_tc_usage': [I, P],
     # not a launch: the widest feature width enc5's bf16 encoder takes
     'lstm_enc_tc_max_features': [P],
 })
+
+
+def design(fn, cdt):
+    """The design the C function `fn` of KERNEL runs in cdt: 'tc'
+    (csrc/lstm_tc.cuh's tensor-core kernels, every launch in bf16) or
+    'fma' (csrc/lstm_common.cuh's, in f32)."""
+    if fn not in KERNEL.functions:
+        raise ValueError(f'{fn} is not a C function of {KERNEL.source}')
+    return 'tc' if cdt == torch.bfloat16 else 'fma'
+
 
 def lstm_enc_reference(feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b,
         cdt=torch.bfloat16, save_cseq=True):
@@ -168,23 +182,33 @@ def lstm_scan_enc_backward_reference(feats, h0, c0, w_enc, b_enc, w_ih,
 
 def _launch_forward(feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b, cdt,
         save_cseq=True, phases=FORWARD_PHASES):
-    """lstm_enc_forward at enc5's reach: (outs, hT, cT, cseq). In bf16 its
-    scratch is the encoded inputs, the slab and the bf16 weights; in f32
-    none."""
+    """lstm_enc_forward at enc5's reach (enc5's forward and
+    lstm_scan_enc's): (outs, hT, cT, cseq)."""
+    check_encoder_kernel_shape(feats, w_enc, h0.shape[1], cdt)
+    return launch_forward(KERNEL, 'lstm_enc_forward', feats, h0, c0, w_enc,
+        b_enc, w_ih, w_hh, b, cdt, save_cseq, phases, tc_slab)
+
+
+def launch_forward(kernel, fn, feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b,
+        cdt, save_cseq, phases, slab):
+    """The forward C function `fn` of `kernel` that takes
+    lstm_enc_forward's arguments (enc5's, and the archived enc2's), on a
+    shape the caller has checked: (outs, hT, cT, cseq). In bf16 its scratch
+    is the encoded inputs, slab(T, B, H, device) (the gate slab the loop
+    reads) and the bf16 weights; in f32 none."""
     T, B, F = feats.shape
     H = h0.shape[1]
     D = w_enc.shape[1]
-    check_encoder_kernel_shape(feats, w_enc, H, cdt)
     outs, hT, cT, cseq = forward_outputs(T, h0, c0, cdt, save_cseq)
     if B > 0:
         tc = cdt == torch.bfloat16
         dev = feats.device
         xs = torch.empty((T, B, D), dtype=cdt, device=dev) if tc else None
-        xw = tc_slab(T, B, H, dev) if tc else None
+        xw = slab(T, B, H, dev) if tc else None
         # [W_ih; W_hh], then W_enc, in bf16
         w16 = torch.empty(((D + H) * 4 * H + F * D,), dtype=torch.bfloat16,
             device=dev) if tc else None
-        KERNEL.launch('lstm_enc_forward', ptr(feats), ptr(h0), ptr(c0),
+        kernel.launch(fn, ptr(feats), ptr(h0), ptr(c0),
             ptr(w_enc), ptr(b_enc), ptr(w_ih), ptr(w_hh), ptr(b), ptr(outs),
             ptr_or_null(cseq), ptr(hT), ptr(cT), ptr_or_null(xs),
             ptr_or_null(xw), ptr_or_null(w16), T, B, F, D, H, int(tc), phases,
@@ -194,9 +218,9 @@ def _launch_forward(feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b, cdt,
 
 def _launch_enc_forward(feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b, cdt,
         save_cseq=True):
-    """The same forward for the kernel pairs whose backward runs on FMA
-    (lstm_scan_enc; the archived enc3, enc4 and enc6), which take only
-    their backward's shapes."""
+    """The same forward for the archived enc3, enc4 and enc6, which take
+    only their backwards' shapes (D == H, at most KERNEL_MAX_FEATURES
+    features) in both dtypes."""
     check_fma_encoder_kernel_shape(feats, w_enc, h0.shape[1])
     return _launch_forward(feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b, cdt,
         save_cseq)
@@ -216,8 +240,9 @@ def launch_backward(kernel, fn, feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b,
         outs, cseq, g_outs, g_hT, g_cT, cdt, tc, phases=BACKWARD_PHASES,
         fma_rows=ROWS_PER_BLOCK, acts_slab=False):
     """The backward C function `fn` of `kernel` that takes
-    lstm_enc_backward's arguments (enc5's, and the archived enc2's, enc3's,
-    enc4's and enc6's), on a shape the caller has checked: (dh0, dc0,
+    lstm_enc_backward's arguments (enc5's, lstm_scan_enc's step backward,
+    and the archived enc2's, enc3's, enc4's and enc6's), on a shape the
+    caller has checked: (dh0, dc0,
     dW_enc, db_enc, dW_ih, dW_hh, db). tc: the bf16 tensor-core kernels
     run (with their scratch), else the FMA ones, whose block takes
     fma_rows batch rows and, with acts_slab (the archived enc3 and enc6),
@@ -270,40 +295,15 @@ def launch_backward(kernel, fn, feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b,
 
 
 def _launch_step_backward(feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b, outs,
-        cseq, g_outs, g_hT, g_cT, cdt):
-    """The un-hoisted backward of lstm_scan_enc, on FMA in both dtypes."""
-    T, B, F = feats.shape
-    H = h0.shape[1]
-    D, G = H, 4 * H
-    check_fma_encoder_kernel_shape(feats, w_enc, H)
-    dev = feats.device
-    f32 = dict(dtype=torch.float32, device=dev)
-    dh0 = torch.empty_like(h0)
-    dc0 = torch.empty_like(c0)
-    dw_enc = torch.empty((F, D), **f32)
-    db_enc = torch.empty((D,), **f32)
-    dw = torch.empty((D + H, G), **f32)
-    db = torch.empty((G,), **f32)
-    if B == 0:
-        return (dh0, dc0, dw_enc.zero_(), db_enc.zero_(), dw[:D].zero_(),
-            dw[D:].zero_(), db.zero_())
-    splits_w = splitk_splits(D + H, G, T * B, dev)
-    splits_e = splitk_splits(F, D, T * B, dev)
-    xs = torch.empty((T, B, D), dtype=cdt, device=dev)
-    dpre = torch.empty_like(xs)
-    dg = torch.empty((T, B, G), dtype=cdt, device=dev)
-    dw_part = torch.empty((splits_w, D + H, G), **f32)
-    db_part = torch.empty((blocks(B), G), **f32)
-    dwe_part = torch.empty((splits_e, F, D), **f32)
-    dbe_part = torch.empty((blocks(B), D), **f32)
-    KERNEL.launch('lstm_enc_step_backward', ptr(feats), ptr(h0), ptr(c0),
-        ptr(w_enc), ptr(b_enc), ptr(w_ih), ptr(w_hh), ptr(b), ptr(outs),
-        ptr(cseq), ptr(g_outs), ptr(g_hT), ptr(g_cT), ptr(dh0), ptr(dc0),
-        ptr(dw_enc), ptr(db_enc), ptr(dw), ptr(db), ptr(xs), ptr(dpre),
-        ptr(dg), ptr(dw_part), ptr(db_part), ptr(dwe_part), ptr(dbe_part),
-        T, B, F, H, int(cdt == torch.bfloat16), splits_w, splits_e,
-        blocks(B), stream_handle(feats))
-    return dh0, dc0, dw_enc, db_enc, dw[:D], dw[D:], db
+        cseq, g_outs, g_hT, g_cT, cdt, phases=BACKWARD_PHASES):
+    """lstm_enc_step_backward, the un-hoisted backward of lstm_scan_enc, at
+    enc5's reach: (dh0, dc0, dW_enc, db_enc, dW_ih, dW_hh, db). phases < 4
+    stops a bf16 call early, to time a phase."""
+    check_encoder_kernel_shape(feats, w_enc, h0.shape[1], cdt)
+    fn = 'lstm_enc_step_backward'
+    return launch_backward(KERNEL, fn, feats, h0, c0, w_enc, b_enc, w_ih,
+        w_hh, b, outs, cseq, g_outs, g_hT, g_cT, cdt,
+        design(fn, cdt) == 'tc', phases)
 
 
 def _launch_stream_forward(feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b, cdt,
@@ -440,7 +440,7 @@ class _LSTMEnc(torch.autograd.Function):
             save_cseq):
         check_encoder_inputs(feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b, cdt)
         fn = lstm_enc_reference if feats.device.type == 'cpu' \
-            else _launch_enc_forward
+            else _launch_forward
         outs, hT, cT, cseq = fn(feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b,
             cdt, save_cseq)
         ctx.save_for_backward(feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b,

@@ -232,7 +232,7 @@ def _lstm_kinds():
             lstm_enc._launch_backward, lstm_enc.lstm_enc_reference,
             lstm_enc.lstm_enc_backward_reference,
             ('lstm_enc_forward', 'lstm_enc_backward')),
-        'enc': (lstm_enc._launch_enc_forward,
+        'enc': (lstm_enc._launch_forward,
             lstm_enc._launch_step_backward, lstm_enc.lstm_enc_reference,
             lstm_enc.lstm_scan_enc_backward_reference,
             ('lstm_enc_forward', 'lstm_enc_step_backward')),
@@ -740,8 +740,9 @@ def test_enc5_tensor_core_kernels_take_other_widths(cuda, T, B, D, H, F):
 def test_enc5_launchers_refuse_what_the_kernels_do_not_serve(cuda):
     """enc5: in bf16 a feature width past tc_max_features, an encoder width
     that is no multiple of 8 or too wide, a hidden size off {32, 64, 128};
-    in f32 (FMA) D != H and more than 128 features. lstm_scan_enc, whose
-    backward runs on FMA, keeps FMA's reach in bf16 too. ValueError, and
+    in f32 (FMA) D != H and more than 128 features. The forward of the
+    archived enc3, enc4 and enc6 (_launch_enc_forward), whose backwards
+    run on FMA at D == H, keeps FMA's reach in bf16 too. ValueError, and
     no launch."""
     from pufferlib_tpu_torch.ops.cuda import lstm_common, lstm_enc
     limit = lstm_common.tc_max_features()
@@ -966,19 +967,115 @@ def test_archive_tc_usage(cuda):
     """Registers and spills of the archive's own bf16 kernels (enc2's
     pre-pass, whose epilogue rounds the projection, the reverse loop of
     enc2 and enc4, ENC5's with f32 activations, and enc3's, ENC5's with db
-    from the unrounded dgates) at every hidden size: the loops' 512
-    threads may hold 128 registers each (one block an SM), the GEMM's 256
-    threads 128 (two blocks an SM). The loops spill nothing, the GEMM at
-    most the 16 bytes that enc5's backward pre-pass spills (as on the H100
-    when this test was written)."""
+    from the unrounded dgates; enc2's forward projection GEMM and its
+    forward loop, mode XP's on bf16 x_proj) at every hidden size: the
+    loops' 512 threads may hold 128 registers each (one block an SM), the
+    GEMMs' 256 threads 128 (two blocks an SM). The reverse loops and the
+    projection GEMM spill nothing, the pre-pass at most the 16 bytes that
+    enc5's backward pre-pass spills (as on the H100 when this test was
+    written), the forward loop at most what lstm_scan's spills
+    (test_lstm_scan_tc_usage)."""
     import ctypes
     from pufferlib_tpu_torch.ops.cuda import archive
     for H in (32, 64, 128):
-        out = (ctypes.c_int * 6)()
+        out = (ctypes.c_int * 10)()
         assert archive.KERNEL.lib().lstm_archive_tc_usage(H, out) == 0
         regs, spilled = list(out)[::2], list(out)[1::2]
         assert all(0 < r <= 128 for r in regs), (H, regs)
-        assert spilled[0] <= 16 and spilled[1:] == [0, 0], (H, spilled)
+        assert spilled[0] <= 16 and spilled[1:4] == [0, 0, 0], (H, spilled)
+        assert spilled[4] <= (8 if H == 128 else 0), (H, spilled)
+
+
+def test_enc_tc_usage(cuda):
+    """Registers and spills of lstm_enc.cu's bf16 kernels: enc5's six
+    (the encoder, both pre-passes, both loops, dpre), then the reverse
+    loop of lstm_scan_enc's step backward (mode ENC: f32 activations, db
+    from the unrounded dgates; CAT's and FUSED's loop) at every hidden
+    size, within the launch bounds' 128 registers; that loop spills
+    nothing, as the archived enc3's and enc4's do not."""
+    import ctypes
+    from pufferlib_tpu_torch.ops.cuda import lstm_enc
+    for H in (32, 64, 128):
+        out = (ctypes.c_int * 14)()
+        assert lstm_enc.KERNEL.lib().lstm_enc_tc_usage(H, out) == 0
+        regs, spilled = list(out)[::2], list(out)[1::2]
+        assert all(0 < r <= 128 for r in regs), (H, regs)
+        assert spilled[6] == 0, (H, spilled)
+
+
+@pytest.mark.parametrize('kind', ['enc', 'enc2'])
+@pytest.mark.parametrize('T,B,D,H,F', [(16, 8192, 96, 128, 200),
+    (16, 1000, 96, 128, 200), (5, 65, 40, 32, 49), (3, 100, 200, 64, 768),
+    (2, 64, 640, 128, 49), (8, 512, 128, 128, 1)])
+def test_enc_and_enc2_tensor_core_kernels_take_other_widths(cuda, kind, T,
+        B, D, H, F):
+    """lstm_scan_enc's and the archived enc2's bf16 kernels at enc5's
+    reach (encoder widths D != H up to 640 at H = 128, feature widths past
+    the FMA kernels' 128, one feature) against the plain versions, and
+    twice bit for bit."""
+    _check_lstm_pair(cuda, kind, T, B, H, torch.bfloat16, D=D, F=F)
+    _check_deterministic(cuda, kind, T, B, H, D=D, F=F)
+
+
+def test_enc_step_backward_and_enc2_forward_run_the_tensor_core_path(cuda):
+    """In bf16 lstm_enc_step_backward and lstm_enc2_forward run
+    lstm_tc.cuh's path, which needs its scratch (the backward's P slab and
+    bf16 weights; the forward's encoded inputs, projection and bf16
+    weights): handed none, they refuse. Their f32 FMA kernels take only
+    the whole call (all phases); the bf16 launchers' phases stop early
+    without an error."""
+    from pufferlib_tpu_torch.ops.cuda import archive, lstm_enc
+    T, B, H, F = 3, 70, 64, 49
+    for kind, kernel, fn, nulls in (
+            ('enc', lstm_enc.KERNEL, 'lstm_enc_step_backward', (25, 26)),
+            ('enc2', archive.KERNEL, 'lstm_enc2_forward', (12, 13, 14))):
+        fwd, bwd = _lstm_kinds()[kind][:2]
+        args = _lstm_case(kind, T, B, H, F, torch.bfloat16, cuda)
+        g = (torch.zeros(T, B, H, device=cuda, dtype=torch.bfloat16),
+            torch.zeros(B, H, device=cuda), torch.zeros(B, H, device=cuda))
+        with torch.no_grad():
+            outs, _, _, cseq = fwd(*args, torch.bfloat16)
+        real = kernel.lib()
+
+        class NoScratch:
+            """The library, with null tensor-core scratch in fn's calls."""
+
+            def __getattr__(self, name):
+                f = getattr(real, name)
+                if name != fn:
+                    return f
+
+                def call(*a):
+                    a = list(a)
+                    for i in nulls:
+                        a[i] = None
+                    return f(*a)
+                return call
+        kernel._lib = NoScratch()
+        try:
+            with pytest.raises(RuntimeError), torch.no_grad():
+                if kind == 'enc':
+                    bwd(*args, outs, cseq, *g, torch.bfloat16)
+                else:
+                    fwd(*args, torch.bfloat16)
+        finally:
+            kernel._lib = real
+        with torch.no_grad():
+            if kind == 'enc':
+                for phases in (1, 2, 3):
+                    bwd(*args, outs, cseq, *g, torch.bfloat16, phases=phases)
+            else:
+                fwd(*args, torch.bfloat16, phases=1)
+        f32 = _lstm_case(kind, T, B, H, F, torch.float32, cuda)
+        with torch.no_grad():
+            outs, _, _, cseq = fwd(*f32, torch.float32)
+            with pytest.raises(RuntimeError):
+                if kind == 'enc':
+                    bwd(*f32, outs, cseq, *(t.float() for t in g),
+                        torch.float32, phases=2)
+                else:
+                    fwd(*f32, torch.float32, phases=1)
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize('T,B,H', [(16, 8192, 128), (16, 1000, 128),

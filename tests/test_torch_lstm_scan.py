@@ -1,7 +1,7 @@
 """lstm_scan, lstm_scan_fused and lstm_scan_enc of the PyTorch port, and the
-tensor-core schedules of every resident bf16 kernel pair (the archived
-enc2, enc3, enc4 and enc6 backwards among them), against the JAX package,
-on the CPU.
+tensor-core schedules of every resident bf16 kernel pair (lstm_scan_enc's
+step backward, the archived enc2 pair and the archived enc3, enc4 and
+enc6 backwards among them), against the JAX package, on the CPU.
 
 The port's side runs the kernels' plain versions (explicit forward and
 backward in PyTorch, what the autograd.Functions run for CPU tensors).
@@ -678,11 +678,13 @@ def enc4_tc_schedule(*args, splits=3):
 
 
 def enc2_tc_schedule(*args, splits=3):
-    """What the archived enc2's bf16 backward (csrc/lstm_tc.cuh
-    tc::backward in mode ENC2) computes, in its order, with the forward's
-    function (its FMA kernel's): enc4_tc_schedule with FUSED's bias order
-    and the projection rounded, the forward's gates cdt(x_t @ W_ih + b) +
-    h @ W_hh and the P slab's cdt(x @ W_ih + b) + h_prev @ W_hh."""
+    """What the archived enc2's bf16 pair (csrc/lstm_tc.cuh
+    tc::enc2_forward, tc::backward in mode ENC2) computes, in its order:
+    enc4_tc_schedule with FUSED's bias order and the projection rounded.
+    The forward's gates cdt(x_t @ W_ih + b) + h @ W_hh: the projection
+    GEMM's epilogue adds b and rounds, mode XP's loop adds the recurrent
+    product's own f32 sum to it (the order of its FMA kernel and its TPU
+    kernel); the P slab's cdt(x @ W_ih + b) + h_prev @ W_hh."""
     return enc5_tc_schedule(*args, cat=False, round_xw=True, round_acts=False,
         splits=splits)
 
@@ -774,22 +776,167 @@ def test_archived_tensor_core_schedule_keeps_the_function(kind, B, F, H,
                 'against JAX')
 
 
+def enc_tc_schedule(*args, splits=3):
+    """What lstm_scan_enc's bf16 step backward (csrc/lstm_tc.cuh
+    tc::backward in mode ENC) computes, in its order, with the forward it
+    shares with enc5: enc5_tc_schedule with the reverse loop's activations
+    in f32 and db summed from the unrounded dgates (its TPU kernel's
+    per-step recompute as the P pre-pass, its per-step dW as the split-K,
+    `splits` ways in the ring's partition)."""
+    return enc5_tc_schedule(*args, round_acts=False, round_db=False,
+        splits=splits)
+
+
+# kind -> (its tensor-core schedule, plain forward, plain backward, the JAX
+# kernel), for lstm_scan_enc and the archived enc2 at widths past the FMA
+# kernels' (D != H, F > 128)
+WIDE_SCHEDULES = {
+    'enc': (enc_tc_schedule, lstm_enc.lstm_enc_reference,
+        lstm_enc.lstm_scan_enc_backward_reference,
+        jax_lstm_enc.lstm_scan_enc),
+    'enc2': (enc2_tc_schedule, lstm_enc2.lstm_enc2_reference,
+        lstm_enc2.lstm_enc2_backward_reference,
+        jax_archive_enc2.lstm_scan_enc2),
+}
+
+
+@pytest.mark.parametrize('cdt', sorted(TD))
+@pytest.mark.parametrize('kind,B,F,D,H', [('enc', 8, 49, 128, 128),
+    ('enc', 16, 200, 96, 128), ('enc', 65, 49, 32, 32),
+    ('enc', 33, 200, 48, 64), ('enc2', 16, 200, 96, 128),
+    ('enc2', 33, 200, 48, 64)])
+def test_enc_tensor_core_schedule_keeps_the_function(kind, B, F, D, H, cdt):
+    """lstm_scan_enc's bf16 step backward on the tensor cores
+    (enc_tc_schedule), and the archived enc2's pair (enc2_tc_schedule) at
+    the widths the tensor-core kernels open to it (D != H, F = 200), against
+    the port's plain versions on the same inputs (1e-5 in f32, 2e-2 in
+    bf16, of max(1, max |plain|) per tensor), and against the JAX package
+    under the loss sum(outs ** 2) + sum(hT * cT): at B % 8 == 0 its Pallas
+    kernel in interpret mode (1e-5 in f32, 2e-2 in bf16, of max(1, max
+    |JAX|): at F = 200 dW_enc reaches tens, where the same f32 products
+    summed in another order differ by more than 1e-5 absolute); at the
+    ragged B = 65 and 33 (a second 64-row block of one row; one block of
+    33), which no Pallas LSTM kernel tiles, its pure reference
+    lstm_scan_enc_reference (f32 only, 1e-5 on outputs and 1e-4 on
+    gradients, of max(1, max |reference|): in bf16 that reference rounds
+    as neither kernel's backward)."""
+    schedule, fwd_plain, bwd_plain, jax_fn = WIDE_SCHEDULES[kind]
+    rng = np.random.default_rng(18)
+    arrays = [(rng.standard_normal(shape) * k).astype(np.float32)
+        for shape, k in (((T, B, F), 0.9), ((B, H), 0.3), ((B, H), 0.3),
+            ((F, D), 0.3), ((D,), 0.3), ((D, 4 * H), 0.3), ((H, 4 * H), 0.3),
+            ((4 * H,), 0.3))]
+    arrays[0] = np.array(jnp.asarray(arrays[0]).astype(JD[cdt]).astype(
+        jnp.float32))
+    feats = torch.from_numpy(arrays[0]).to(TD[cdt])
+    rest = [torch.from_numpy(a) for a in arrays[1:]]
+    bf16 = cdt == 'bfloat16'
+    tol = 2e-2 if bf16 else 1e-5
+    fwd, backward = schedule(feats, *rest, TD[cdt])
+    plain = fwd_plain(feats, *rest, TD[cdt])
+    for name, a, w in zip(('outs', 'hT', 'cT', 'cseq'), fwd, plain):
+        assert a.dtype == w.dtype
+        assert_close(a, w, tol, True, f'{kind} schedule {name}')
+    cot = (torch.from_numpy(rng.standard_normal((T, B, H)).astype(
+        np.float32)).to(TD[cdt]), *(torch.from_numpy(rng.standard_normal(
+        (B, H)).astype(np.float32)) for _ in range(2)))
+    grads = backward(*cot)
+    want = bwd_plain(feats, *rest, plain[0], plain[3], *cot, TD[cdt])
+    for name, a, w in zip(KINDS['enc'][5], grads, want):
+        assert a.dtype == w.dtype and a.shape == w.shape
+        assert_close(a, w, tol, True, f'{kind} schedule {name}')
+    outs, hT, cT, _ = fwd
+    loss_grads = backward((2 * outs.float()).to(TD[cdt]), cT, hT)
+    if B % 8 == 0:
+        with pltpu.force_tpu_interpret_mode():
+            jouts, jgrads = jax_run(jax_fn, arrays, cdt, cdt, 1)
+        out_tol = grad_tol = tol
+    elif not bf16:
+        jouts, jgrads = jax_run(jax_lstm_enc.lstm_scan_enc_reference, arrays,
+            cdt, cdt, 1)
+        out_tol, grad_tol = 1e-5, 1e-4
+    else:
+        return
+    for name, a, w in zip(('outs', 'hT', 'cT'), fwd, jouts):
+        assert_close(a, w, out_tol, True, f'{kind} schedule {name} against '
+            'JAX')
+    for name, a, w in zip(KINDS['enc'][5], loss_grads, jgrads):
+        assert a.shape == tuple(w.shape), name
+        assert_close(a, w, grad_tol, True, f'{kind} schedule {name} against '
+            'JAX')
+
+
+@pytest.mark.parametrize('cdt', sorted(TD))
+@pytest.mark.parametrize('kind', ['enc', 'enc2'])
+def test_encoder_scans_at_other_widths_match_pallas_kernel(kind, cdt):
+    """lstm_scan_enc and the archived lstm_scan_enc2 at an encoder width
+    apart from the hidden size and 200 features, the shapes their bf16
+    kernels take on the card, through the wrappers (the plain versions on
+    the CPU) against the JAX kernel in interpret mode under the loss
+    sum(outs ** 2) + sum(hT * cT): 1e-5 in f32, 2e-2 in bf16, of max(1,
+    max |JAX|) per tensor."""
+    fn, jax_fn = {'enc': (lstm_enc.lstm_scan_enc, jax_lstm_enc.lstm_scan_enc),
+        'enc2': (lstm_enc2.lstm_scan_enc2, jax_archive_enc2.lstm_scan_enc2)
+        }[kind]
+    B, F, D, H = 16, 200, 96, 64
+    rng = np.random.default_rng(19)
+    arrays = [(rng.standard_normal(shape) * k).astype(np.float32)
+        for shape, k in (((T, B, F), 0.9), ((B, H), 0.3), ((B, H), 0.3),
+            ((F, D), 0.3), ((D,), 0.3), ((D, 4 * H), 0.3), ((H, 4 * H), 0.3),
+            ((4 * H,), 0.3))]
+    arrays[0] = np.array(jnp.asarray(arrays[0]).astype(JD[cdt]).astype(
+        jnp.float32))
+    with pltpu.force_tpu_interpret_mode():
+        jouts, jgrads = jax_run(jax_fn, arrays, cdt, cdt, 1)
+    outs, grads = torch_run(fn, arrays, cdt, cdt, 1)
+    tol = 2e-2 if cdt == 'bfloat16' else 1e-5
+    for name, a, w in zip(('outs', 'hT', 'cT'), outs, jouts):
+        assert_close(a, w, tol, True, f'{kind} {name}')
+    for name, a, w in zip(KINDS['enc'][5], grads, jgrads):
+        assert a.shape == tuple(w.shape), name
+        assert_close(a, w, tol, True, f'{kind} {name}')
+
+
 @pytest.mark.parametrize('cdt', sorted(TD))
 @pytest.mark.parametrize('kind', ['enc2', 'enc3', 'enc4', 'enc6'])
 def test_archived_backward_design(kind, cdt):
-    """Which design each archived backward runs (archive.backward_design):
-    in bf16 all four the tensor-core kernels of lstm_tc.cuh ('tc'); in f32
+    """Which design each archived backward runs (archive.design): in bf16
+    all four the tensor-core kernels of lstm_tc.cuh ('tc'); in f32
     lstm_archive.cu's FMA kernel ('fma'). The C functions' argument lists
     follow it: the tensor-core ones take lstm_enc_backward's (the P slab,
     the bf16 weights, the phases), which also carry the FMA kernel's f32
     scratch (enc3's and enc6's activations slab in the P slab's place)."""
     fn = f'lstm_{kind}_backward'
-    design = archive.backward_design(fn, TD[cdt])
+    design = archive.design(fn, TD[cdt])
     assert design == ('tc' if cdt == 'bfloat16' else 'fma')
     args = archive.KERNEL.functions[fn]
     enc_backward = lstm_enc.KERNEL.functions['lstm_enc_backward']
     assert args == enc_backward and len(args) == 38
-    assert fn in archive.TC_BACKWARDS
+    assert fn in archive.TC_FUNCTIONS
+
+
+@pytest.mark.parametrize('cdt', sorted(TD))
+def test_step_backward_and_enc2_forward_designs(cdt):
+    """lstm_scan_enc's step backward (lstm_enc.design) and the archived
+    enc2's forward (archive.design) run the tensor-core kernels of
+    lstm_tc.cuh in bf16 ('tc') and the FMA kernels in f32 ('fma'), as
+    every other encoder-fused kernel does; tm stays on FMA in both. Their C
+    functions take enc5's argument lists: lstm_enc_backward's 38 (the P
+    slab, the bf16 weights, the phases) and lstm_enc_forward's 23 (the
+    encoded inputs, the slab, the bf16 weights, the phases)."""
+    want = 'tc' if cdt == 'bfloat16' else 'fma'
+    assert lstm_enc.design('lstm_enc_step_backward', TD[cdt]) == want
+    assert archive.design('lstm_enc2_forward', TD[cdt]) == want
+    for fn in ('lstm_tm_step_forward', 'lstm_tm_step_backward'):
+        assert archive.design(fn, TD[cdt]) == 'fma'
+    step = lstm_enc.KERNEL.functions['lstm_enc_step_backward']
+    assert step == lstm_enc.KERNEL.functions['lstm_enc_backward']
+    assert len(step) == 38
+    enc2 = archive.KERNEL.functions['lstm_enc2_forward']
+    assert enc2 == lstm_enc.KERNEL.functions['lstm_enc_forward']
+    assert len(enc2) == 23
+    with pytest.raises(ValueError, match='not a C function'):
+        archive.design('lstm_enc_step_backward', TD[cdt])
 
 
 @pytest.mark.parametrize('K,splits', [(131072, 66), (131072, 33), (1000, 1),

@@ -423,6 +423,36 @@ def test_binding_matches_jax(name, fake_module, monkeypatch):
         functools.partial(tmod.make, **kwargs), steps)
 
 
+def test_butterfly_default_steps_on_the_installed_pettingzoo():
+    """The port's butterfly.make() with its default name on the installed
+    pettingzoo, which keeps cooperative_pong_v5 only to raise
+    DeprecatedEnv: the port builds cooperative_pong_v6 in its place
+    (ROADMAP fault 11, repaired on the port's side only), and the env
+    resets and steps through an episode end. The JAX binding still raises
+    (the divergence is kept); its v6 env under v5's name is held equal to
+    the port's step by step above."""
+    pytest.importorskip('pettingzoo.butterfly')
+    jmod, tmod = _modules('butterfly')
+    with pytest.raises(ImportError, match='deprecated'):
+        jmod.make()
+    env = tmod.make()
+    obs, _ = env.reset(seed=3)
+    shape = env.single_observation_space.shape
+    assert sorted(obs) == sorted(env.agents) and env.num_agents == 2
+    assert all(o.shape == shape for o in obs.values())
+    rng = np.random.RandomState(3)
+    steps, ended = 0, False
+    while not ended and steps < 2000:
+        obs, rewards, terminals, truncations, _ = env.step({a: rng.randint(
+            0, env.single_action_space.n) for a in obs})
+        assert all(o.shape == shape for o in obs.values())
+        assert np.isfinite(list(rewards.values())).all()
+        ended = any(terminals.values()) or any(truncations.values())
+        steps += 1
+    assert steps > 1 and ended
+    env.close()
+
+
 def test_open_spiel_multiplayer_matches_jax(fake_module):
     spiel_fakes._install_spiel(fake_module)
     jmod, tmod = _modules('open_spiel')

@@ -1,17 +1,18 @@
 """Where the time of the bf16 tensor-core kernels of lstm_scan,
-lstm_scan_fused, lstm_scan_cat, enc5 or the archived enc2, enc3, enc4 and
-enc6 backwards goes, by ablation, on one NVIDIA GPU.
+lstm_scan_fused, lstm_scan_cat, enc5, lstm_scan_enc's step backward, the
+archived enc2 pair or the archived enc3, enc4 and enc6 backwards goes, by
+ablation, on one NVIDIA GPU.
 
     python3 tools/ablate_lstm_tc_torch.py
-        [--kind fused|cat|enc5|scan|enc2|enc3|enc4|enc6]
+        [--kind fused|cat|enc5|enc|scan|enc2|enc3|enc4|enc6]
         [--baseline CSRC_DIR] [--only NAME ...]
 
 The machines the port is measured on run no stall profiler, so this tool
 removes one part of the recurrent loops of csrc/lstm_tc.cuh at a time and
 times what is left. It builds the kind's source
 (pufferlib_tpu_torch/csrc/lstm_scan.cu for fused, the default, and scan,
-lstm_cat.cu for cat, lstm_enc.cu for enc5, lstm_archive.cu for the
-archived kinds) as it is and in these variants, each a copy of the sources with one
+lstm_cat.cu for cat, lstm_enc.cu for enc5 and enc, lstm_archive.cu for
+the archived kinds) as it is and in these variants, each a copy of the sources with one
 edit, built by nvcc into a library of its own (under
 pufferlib_tpu_torch/_build/):
 
@@ -48,6 +49,12 @@ pufferlib_tpu_torch/_build/):
   + b) as a bf16 (T, B, 4H) slab, and mode XP's reverse loop reads it,
   recomputes xp_t + h_prev @ W_hh each step and sums db from the rounded
   dgates (per step, into a table in shared memory);
+- enc2-fused-slab (enc2; not an ablation but the other design of its
+  forward): the projection bf16(x @ W_ih + b) goes into an f32 slab in
+  the loops' fragment order (GatesOut<ENC2>, in scratch from the stream's
+  memory pool, kept between calls), which FUSED's forward loop reads,
+  instead of a bf16 (T, B, 4H) projection in its natural order read by
+  mode XP's loop: the same values from twice the bytes;
 - one-chain (every kind but scan, whose reverse loop is another; not an
   ablation but the schedule that the archived enc6 set out to beat, its
   TPU kernel's enc5): the reverse loop's two barriers a step, each over
@@ -64,7 +71,8 @@ in turns, forward and back, each twice, at T = 16, B = 8192, D = H = 128
 phases of the forward and the backward (chip_smoke.time_tc_phases:
 pre-pass, loop, dx, dW + db; enc5's encoder in both pre-passes, dpre for
 dx; scan's forward loop alone and its backward loop and dW; the archived
-kinds' backward alone, enc2-xp's projection in place of the pre-pass;
+kinds' and enc's backward alone, enc2-xp's projection in place of the
+pre-pass, enc2's forward encoder + projection, then its loop;
 cold L2), and the reverse loop's kernel alone in one whole backward call
 as torch.profiler reports its device time ('backward loop kernel': a
 phase is the difference of two means, and reads up to 0.1 ms apart run
@@ -129,10 +137,56 @@ XP_SLAB_LAUNCH = """    const int nblk = (B + BR - 1) / BR;
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
     return cudaFreeAsync(slab, stream);"""
 
+# the other design of enc2's forward: the projection bf16(x @ W_ih + b)
+# into an f32 slab in the loops' fragment order (GatesOut<ENC2>, the
+# epilogue enc2's backward pre-pass runs, here with no recurrent sum; in
+# scratch from the stream's memory pool, kept between calls), read by
+# FUSED's forward loop, instead of a bf16 (T, B, 4H) projection in its
+# natural order read by mode XP's loop. The same values, twice the bytes
+ENC2_XP_FORWARD = """    const BRows xs{enc.xs, D}, wi{w16, G};
+    if ((err = rows_gemm(xs, wi, D, xs, wi, 0, ProjOut{xp, b, G}, M, G, stream)) != cudaSuccess ||
+        phases < 2)
+        return err;
+    auto kernel = forward_loop<H, XP, bf16>;
+    if ((err = prepare(kernel, Geo<H>::FWD_SMEM)) != cudaSuccess) return err;
+    kernel<<<(B + BR - 1) / BR, NTC, Geo<H>::FWD_SMEM, stream>>>(
+        xp, nullptr, h0, c0, w16 + (size_t)D * G, outs, cseq, hT, cT, T, B);
+    return cudaGetLastError();"""
+ENC2_SLAB_FORWARD = """    const BRows xs{enc.xs, D};
+    const GateRows wi{w16, H};
+    const int nblk = (B + BR - 1) / BR;
+    int dev = 0;
+    cudaMemPool_t pool;
+    unsigned long long keep = ~0ull;
+    if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+        (err = cudaDeviceGetDefaultMemPool(&pool, dev)) != cudaSuccess ||
+        (err = cudaMemPoolSetAttribute(pool, cudaMemPoolAttrReleaseThreshold, &keep)) !=
+            cudaSuccess)
+        return err;
+    float* slab = nullptr;
+    if ((err = cudaMallocAsync(reinterpret_cast<void**>(&slab),
+                               sizeof(float) * (size_t)T * nblk * BR * G, stream)) !=
+        cudaSuccess)
+        return err;
+    const GatesOut<ENC2> out{slab, b, B, H, 4 * nblk};
+    if ((err = rows_gemm(xs, wi, D, xs, wi, 0, out, M, G, stream)) == cudaSuccess &&
+        phases >= 2) {
+        auto kernel = forward_loop<H, FUSED>;
+        if ((err = prepare(kernel, Geo<H>::FWD_SMEM)) == cudaSuccess) {
+            kernel<<<nblk, NTC, Geo<H>::FWD_SMEM, stream>>>(slab, nullptr, h0, c0,
+                                                            w16 + (size_t)D * G, outs, cseq,
+                                                            hT, cT, T, B);
+            err = cudaGetLastError();
+        }
+    }
+    const cudaError_t freed = cudaFreeAsync(slab, stream);
+    return err != cudaSuccess ? err : freed;"""
+
 # the other design of enc2's backward, which the H100 measured no faster
 # than the P pre-pass (PERF.md): no P pre-pass, but the
 # projection xp = bf16(x @ W_ih + b) as a GEMM into a (T, B, 4H) bf16 slab
-# (in the P slab's memory, which holds it), and mode XP's reverse loop on
+# (in the P slab's memory, which holds it; lstm_tc.cuh's ProjOut, the
+# epilogue of enc2's forward), and mode XP's reverse loop on
 # it, which recomputes xp_t + h_prev @ W_hh each step and sums db from the
 # rounded dgates: each step's sum over a warp's rows into the warp's row of
 # a table in shared memory (held in registers, sixteen more values a
@@ -207,25 +261,6 @@ __global__ void __launch_bounds__(NTC, 1) xp_backward_loop("""),
 // The GEMMs over all T*B rows"""),
     ("""        F32 ? reinterpret_cast<float*>(dxp) : nullptr, T, B);""",
      """        F32 ? reinterpret_cast<float*>(dxp) : nullptr, nullptr, T, B);"""),
-    ("""// relu that keeps a NaN""",
-     """// bf16(s1 + b) into a row-major (M, N) array: the projection slab xp
-struct ProjOut {
-    bf16* out;
-    const float* b;
-    int N;
-    __device__ __forceinline__ void operator()(long long mb, int nb, int lane, long long M,
-                                               const float (&s1)[4], const float (&)[4]) const {
-        const int n = nb + lane % 4 * 2;
-        const float b0 = __ldg(b + n), b1 = __ldg(b + n + 1);
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-            const long long m = mb + lane / 4 + 8 * half;
-            if (m < M) st2(out + m * N + n, s1[2 * half] + b0, s1[2 * half + 1] + b1);
-        }
-    }
-};
-
-// relu that keeps a NaN"""),
     ("""    const GatesOut<SUM> slab{pre, b, B, H, 4 * nblk};
     if ((err = rows_gemm(xs, wi, D, h_prev, wh, H, slab, M, G, stream)) != cudaSuccess ||
         phases < 2)
@@ -300,6 +335,7 @@ ABLATIONS = {
             'if (M % 8 == 0 && N % 8 == 0 && ring_serves(a) && ring_serves(bm)) {',
             'if (false) {'),), ()),
     'enc2-xp': (XP_DB_LOOP, ()),
+    'enc2-fused-slab': (((ENC2_XP_FORWARD, ENC2_SLAB_FORWARD),), ()),
     'one-chain': ((
         ('        half_sync(side);\n        dh_mma<H>(dh, d_s, w_s, mt0, ug0, lane);\n'
             '        half_sync(side);',
@@ -309,9 +345,10 @@ ABLATIONS = {
 # variants that change only some kinds' code
 ARCHIVED = ('enc2', 'enc3', 'enc4', 'enc6')
 ONLY_FOR = {'late-slab-load': ('cat', 'enc5'), 'xp-reorder-slab': ('scan',),
-    'enc2-xp': ('enc2',), 'one-chain': ('fused', 'cat', 'enc5') + ARCHIVED}
+    'enc2-xp': ('enc2',), 'enc2-fused-slab': ('enc2',),
+    'one-chain': ('fused', 'cat', 'enc5', 'enc') + ARCHIVED}
 SOURCES = {'fused': 'lstm_scan.cu', 'cat': 'lstm_cat.cu',
-    'enc5': 'lstm_enc.cu', 'scan': 'lstm_scan.cu',
+    'enc5': 'lstm_enc.cu', 'enc': 'lstm_enc.cu', 'scan': 'lstm_scan.cu',
     **{kind: 'lstm_archive.cu' for kind in ARCHIVED}}
 
 
@@ -379,7 +416,8 @@ def main(argv=None):
     from pufferlib_tpu_torch.ops.cuda import (
         _build, archive, lstm_cat, lstm_enc, lstm_scan)
     kernel = {'fused': lstm_scan, 'cat': lstm_cat, 'enc5': lstm_enc,
-        'scan': lstm_scan, **{kind: archive for kind in ARCHIVED}}[
+        'enc': lstm_enc, 'scan': lstm_scan,
+        **{kind: archive for kind in ARCHIVED}}[
         args.kind].KERNEL
     source = SOURCES[args.kind]
     from pufferlib_tpu_torch.ops.cuda.timing import card_line, l2_flush_buffer
@@ -423,7 +461,7 @@ def main(argv=None):
         for n, rs in runs.items()}
     print(json.dumps({'card': card, 'kind': args.kind,
         'shape': 'T=16 B=8192 D=H=128' + (' F=49' if args.kind in
-            ('enc5',) + ARCHIVED else '') + ' bf16',
+            ('enc5', 'enc') + ARCHIVED else '') + ' bf16',
         'phases_ms': means}), flush=True)
     return means
 

@@ -10,16 +10,20 @@ A, B, B, A), on one card: two builds are compared only within one run
 as a child process in the tree, that tree's own chip_smoke.check_lstm
 (timed: CUDA events, cold L2, mean of 20) on the bf16 kernel pairs of
 lstm_scan (row 6), lstm_scan_fused (7), lstm_scan_cat (5), enc5 (3 fwd /
-4) and the archived enc2 (8), enc3 (3 fwd / 9), enc4 (3 fwd / 10) and
-enc6 (3 fwd / 11) at T 16, B 8192, D = H = 128 (the encoder kinds: F
-49), and its own chip_smoke.time_tc_phases for the kinds it has phases
-of: the last backward phase of fused, cat, enc5 and the archived kinds
-is their weight gradients (the split-K and db's ordered sum), scan's is
-dW_hh alone. An older tree whose archived backwards run on FMA has no
-phases of them: its whole backward is timed alone. Each turn also prints, for each kind, the SHA-256 of every output
+4), lstm_scan_enc (3 fwd / 3 bwd) and the archived enc2 (8), enc3 (3 fwd
+/ 9), enc4 (3 fwd / 10) and enc6 (3 fwd / 11) at T 16, B 8192, D = H =
+128 (the encoder kinds: F 49), and its own chip_smoke.time_tc_phases for
+the kinds it has phases of: the last backward phase of fused, cat, enc5,
+enc and the archived kinds is their weight gradients (the split-K and
+db's ordered sum), scan's is dW_hh alone. An older tree whose kind runs
+on FMA (the archived backwards before their redesign, enc's step
+backward and enc2's forward before theirs) has no phases of it: its
+whole call is timed alone. Each turn also prints, for each kind, the SHA-256 of every output
 and gradient of one forward and backward call on inputs from a fixed
-seed: two trees whose digests of a kind agree compute it bit for bit
-alike. Each tree builds
+seed, and that of the backward's gradients alone, the backward fed the
+plain forward's outputs: two trees whose digests of a kind agree compute
+it bit for bit alike, and two whose backward digests agree compute its
+backward so, whatever their forwards do. Each tree builds
 its kernels from its own sources at its first turn. Prints a line per
 reading and, last, one JSON object with every reading and the card's name
 and power limit.
@@ -30,7 +34,8 @@ import os
 import subprocess
 import sys
 
-KINDS = ('scan', 'fused', 'cat', 'enc5', 'enc2', 'enc3', 'enc4', 'enc6')
+KINDS = ('scan', 'fused', 'cat', 'enc5', 'enc', 'enc2', 'enc3', 'enc4',
+    'enc6')
 
 # run inside a tree: its own chip_smoke, its own kernels
 CHILD = r'''
@@ -41,17 +46,23 @@ sys.path.insert(0, '.')
 import chip_smoke
 
 
-def digest(kind):
-    fwd, bwd = chip_smoke.lstm_kinds()[kind][:2]
+def sha(tensors):
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def digests(kind):
+    fwd, bwd, fwd_plain = chip_smoke.lstm_kinds()[kind][:3]
     args, grads, cdt = chip_smoke.lstm_case(torch, np.random.RandomState(1),
         kind, 16, 8192, 'bfloat16')
     with torch.no_grad():
         outs = fwd(*args, cdt)
-        outs = tuple(outs) + tuple(bwd(*args, outs[0], outs[3], *grads, cdt))
-    h = hashlib.sha256()
-    for t in outs:
-        h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
-    return h.hexdigest()[:16]
+        both = tuple(outs) + tuple(bwd(*args, outs[0], outs[3], *grads, cdt))
+        plain = fwd_plain(*args, cdt)
+        alone = bwd(*args, plain[0], plain[3], *grads, cdt)
+    return sha(both), sha(alone)
 
 
 flush = chip_smoke.l2_flush_buffer()
@@ -59,8 +70,9 @@ out = {}
 for kind in KINDS:
     r = chip_smoke.check_lstm(torch, flush, np.random.RandomState(0), kind,
         8192, 'bfloat16', timed=True)
+    digest, backward_digest = digests(kind)
     out[kind] = {'forward': r['fwd_ms'], 'backward': r['bwd_ms'],
-        'digest': digest(kind)}
+        'digest': digest, 'backward digest': backward_digest}
     try:
         phases = chip_smoke.time_tc_phases(torch, flush,
             np.random.RandomState(0), kind)
@@ -91,13 +103,15 @@ def main():
             for part in ('forward', 'backward'):
                 readings.append(dict(turn=turn, tree=tree, kind=kind,
                     part=part, ms=r[part]))
-            readings.append(dict(turn=turn, tree=tree, kind=kind,
-                part='digest', digest=r['digest']))
+            for part in ('digest', 'backward digest'):
+                readings.append(dict(turn=turn, tree=tree, kind=kind,
+                    part=part, digest=r[part]))
             for name, ms in (r['phases'] or {}).items():
                 readings.append(dict(turn=turn, tree=tree, kind=kind,
                     part=name, ms=ms))
             print(f'turn {turn} {tree}: {kind} forward {r["forward"]:.4f} '
-                f'ms, backward {r["backward"]:.4f} ms; digest {r["digest"]}; '
+                f'ms, backward {r["backward"]:.4f} ms; digest {r["digest"]}, '
+                f'backward digest {r["backward digest"]}; '
                 'phases ' + json.dumps(r['phases']), flush=True)
     print(json.dumps(dict(card=card, shape='T=16 B=8192 D=H=128 (encoder '
         'kinds F=49) bf16', readings=readings)), flush=True)
