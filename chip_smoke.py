@@ -23,23 +23,26 @@ enc3, enc4, enc6 and tm among them). Last, small trainer updates and
 CPU (the recurrent update also at hidden 256, through enc5's streamed
 design). For the bf16
 tensor-core kernels of lstm_scan, lstm_scan_cat, lstm_scan_fused, the
-enc5 pair, lstm_scan_enc's step backward, the archived enc2 pair and the
-archived enc3, enc4 and enc6 backwards
+enc5 pair, lstm_scan_enc's step backward, the archived enc2 pair, the
+archived enc3, enc4 and enc6 backwards and the archived tm's step kernels
 (csrc/lstm_tc.cuh) it also prints each kernel's registers and spilled bytes after the build,
 and the time of each phase at the main shape (pre-pass, loop, dx, dW +
 db; enc5's encoder runs in both pre-pass phases, dpre takes dx's place
 and dW_enc joins the last, and lstm_scan_enc's and the archived
 backwards have enc5's backward phases, enc2's forward its encoder and
 projection, then its loop; lstm_scan's forward is its loop alone, its
-backward loop and dW); cat,
+backward loop and dW; the archived tm's backward its T step launches and
+dW); cat,
 fused and enc5 are also held to their plain versions at input width 96
 (enc5, lstm_scan_enc and the archived enc2 with 200 features, at B 8192
 and a ragged 1000, and each of the last three twice, bit for bit), and
 the bf16 kernels of every pair whose
 backward runs the split-K of csrc/lstm_common.cuh (enc5, scan, fused,
-cat, enc and the archived enc2-enc6) run twice and must agree bit for
-bit; the archived enc6's bf16 outputs and gradients must equal enc5's bit
-for bit (its backward is enc5's tensor-core backward). GAE must equal its plain version bit for bit. The MLP head is held
+cat, enc and the archived enc2-enc6 and tm) run twice and must agree bit
+for bit; the archived enc6's bf16 outputs and gradients must equal enc5's
+bit for bit (its backward is enc5's tensor-core backward), and the
+archived tm's lstm_scan's (its step kernels are lstm_scan's loops one
+step a launch), whose times it prints beside tm's. GAE must equal its plain version bit for bit. The MLP head is held
 to its plain version in bf16 (the tensor-core kernel, at the trainer's
 two shapes, at F = 200 with H = 256 and 512 and O = 17, and with f32 x)
 and in f32 (the FMA kernel); its bf16 kernel runs twice and must agree
@@ -185,14 +188,14 @@ def l2_flush_buffer():
 PROFILER_LOST = []
 
 
-def profiled_ms(fn, flush, name):
+def profiled_ms(fn, flush, name, per_call=1):
     """timing.profiled_ms, or None where the profiler lost the kernels'
     records in every window (CUPTI on the card's machine drops some): the
     profiler's time is a second reading beside the events' and decides
     nothing, but a lost one is logged and named on a line of its own."""
     from pufferlib_tpu_torch.ops.cuda import timing
     try:
-        return timing.profiled_ms(fn, flush, name)
+        return timing.profiled_ms(fn, flush, name, per_call=per_call)
     except RuntimeError as e:
         log(f'profiler reading lost: {e}')
         PROFILER_LOST.append(name)
@@ -627,11 +630,14 @@ SCAN_PHASES = {
 # the archived enc2's forward: the encoder and its projection, then mode
 # XP's loop
 ARCHIVE_PHASES = {'forward': (), 'backward': ENC5_PHASES['backward']}
+# the archived tm's backward: its T step launches, then dW_hh (the split-K
+# after step 0); its forward is its T step launches alone, timed whole
+TM_PHASES = {'forward': (), 'backward': ('steps', 'dW')}
 ENC2_PHASES = {'forward': ('encoder + projection', 'loop'),
     'backward': ENC5_PHASES['backward']}
 PHASES = {'enc5': ENC5_PHASES, 'scan': SCAN_PHASES, 'enc': ARCHIVE_PHASES,
     'enc2': ENC2_PHASES, 'enc3': ARCHIVE_PHASES, 'enc4': ARCHIVE_PHASES,
-    'enc6': ARCHIVE_PHASES}
+    'enc6': ARCHIVE_PHASES, 'tm': TM_PHASES}
 
 
 def log_tc_usage():
@@ -656,7 +662,11 @@ def log_tc_usage():
             ('enc5 and lstm_scan_enc', lstm_enc.KERNEL, 'lstm_enc_tc_usage',
                 ENC5_TC_KERNELS),
             ('archive', archive.KERNEL, 'lstm_archive_tc_usage',
-                ARCHIVE_TC_KERNELS)):
+                ARCHIVE_TC_KERNELS),
+            # the archived tm's step kernels: lstm_scan's templates, built
+            # into the archive's library
+            ('archived tm', archive.KERNEL, 'lstm_tm_tc_usage',
+                SCAN_TC_KERNELS)):
         for H in (32, 64, 128):
             out = (ctypes.c_int * (2 * len(names)))()
             err = getattr(kernel.lib(), fn)(H, out)
@@ -689,8 +699,8 @@ def time_tc_phases(torch, flush, rng, kind='fused', T=16, B=8192):
     """Device ms of each phase of the bf16 tensor-core kernels of `kind`
     ('fused': lstm_scan_fused, 'cat': lstm_scan_cat, 'enc5', 'scan':
     lstm_scan with bf16 x_proj, 'enc': lstm_scan_enc's step backward, the
-    archived 'enc2' pair and the backwards of the archived 'enc3', 'enc4'
-    and 'enc6') at the main shape: a launch runs the first k phases, so a
+    archived 'enc2' pair and the backwards of the archived 'enc3', 'enc4',
+    'enc6' and 'tm') at the main shape: a launch runs the first k phases, so a
     phase's time is the difference of two such means (cold L2 each)."""
     launch_fwd, launch_bwd = lstm_kinds()[kind][:2]
     args, grads, cdt = lstm_case(torch, rng, kind, T, B, 'bfloat16')
@@ -708,7 +718,7 @@ def time_tc_phases(torch, flush, rng, kind='fused', T=16, B=8192):
             phases[f'{part} {name}'] = cumulative[k] - (cumulative[k - 1]
                 if k else 0.0)
     title = {'enc5': 'enc5', 'scan': 'lstm_scan'}.get(kind,
-        f'archived {kind}' if kind in ARCHIVED_ENC_KINDS
+        f'archived {kind}' if kind in ARCHIVED_ENC_KINDS + ('tm',)
         else f'lstm_scan_{kind}')
     log(f'{title} bf16 phases T={T} B={B} H=128, ms: ' + ', '.join(
         f'{k} {v:.4f}' for k, v in phases.items())
@@ -740,6 +750,71 @@ def check_bit_equal(torch, rng, kind, B, T=16, D=None, F=49, H=128,
         raise AssertionError(f'{what}: two runs differ in {unequal}')
     log(f'{what}: two runs equal bit for bit in {len(names)} outputs and '
         f'gradients')
+
+
+def check_tm_is_scan(torch, rng, B, xp_dtype_name, T=16, H=128):
+    """The archived tm and lstm_scan in bf16 on the same inputs, x_proj in
+    xp_dtype_name: tm's step kernels are lstm_scan's loops one step a
+    launch, the carries in f32 buffers between launches, so every output
+    and gradient must be equal bit for bit."""
+    kinds = lstm_kinds()
+    args, grads, cdt = lstm_case(torch, rng, 'tm', T, B, 'bfloat16', H=H,
+        xp_dtype_name=xp_dtype_name)
+    runs = []
+    with torch.no_grad():
+        for kind in ('scan', 'tm'):
+            fwd, bwd = kinds[kind][:2]
+            outs, hT, cT, cseq = fwd(*args, cdt)
+            runs.append((outs, hT, cT, cseq) + bwd(*args, outs, cseq,
+                *grads, cdt))
+    torch.cuda.synchronize()
+    names = LSTM_OUTS + kinds['tm'][4]
+    unequal = [n for n, a, w in zip(names, *runs) if not torch.equal(a, w)]
+    what = f'tm against lstm_scan, bf16 T={T} B={B} H={H} x_proj ' \
+        f'{xp_dtype_name}'
+    if unequal:
+        raise AssertionError(f'{what}: they differ in {unequal}')
+    log(f'{what}: equal bit for bit in {len(names)} outputs and gradients')
+
+
+def time_tm_launches(torch, flush, rng, T=16, B=8192, H=128):
+    """Where the archived tm's one launch a step goes, bf16 at the main
+    shape, beside lstm_scan's one launch a call on the same inputs: for
+    each call, its device time (CUDA events, timed_ms), the device time
+    of its loop kernels alone (torch.profiler, summed over tm's T
+    launches: W_hh's staging and each launch's prologue are inside
+    them; None where the profiler lost them), and the host's time to
+    issue it (issue_ms). Returns {(kind, part): (event ms, kernel ms,
+    issue ms)}."""
+    from pufferlib_tpu_torch.ops.cuda.timing import issue_ms
+    kinds = lstm_kinds()
+    args, grads, cdt = lstm_case(torch, rng, 'tm', T, B, 'bfloat16', H=H)
+    out = {}
+    with torch.no_grad():
+        outs, _, _, cseq = kinds['tm'][0](*args, cdt)
+        bargs = (*args, outs, cseq, *grads, cdt)
+        for kind in ('scan', 'tm'):
+            fwd, bwd = kinds[kind][:2]
+            for part, fn, name in (
+                    ('forward', lambda f=fwd: f(*args, cdt), 'forward_loop'),
+                    ('backward', lambda b=bwd: b(*bargs), 'xp_backward_loop')):
+                out[kind, part] = (timed_ms(fn, flush),
+                    profiled_ms(fn, flush, name,
+                        per_call=T if kind == 'tm' else 1),
+                    issue_ms(fn, flush))
+
+    def per_step(a, b):
+        return 'not measured' if None in (a, b) else \
+            f'{(a - b) / T * 1e3:.2f}'
+    log(f'tm against lstm_scan, bf16 T={T} B={B} H={H}, ms a call (events '
+        '/ loop kernels by the profiler / host issue): ' + '; '.join(
+        f'{kind} {part} ' + ' / '.join(fmt_ms(v) for v in readings)
+        for (kind, part), readings in out.items()) + '; tm over lstm_scan '
+        'a step, us (events / kernels / issue): ' + '; '.join(
+        f'{part} ' + ' / '.join(per_step(a, b) for a, b in
+            zip(out['tm', part], out['scan', part]))
+        for part in ('forward', 'backward')) + f' on {card_line()}')
+    return out
 
 
 def check_enc6_is_enc5(torch, rng, B, T=16, F=49, H=128):
@@ -1883,14 +1958,21 @@ def main():
                 flush, rng, kind, B, 'bfloat16', xp_dtype_name='float32')
             lstm_runs[kind, B, 'float32/bf16 x_proj'] = check_lstm(torch,
                 flush, rng, kind, B, 'float32', xp_dtype_name='bfloat16')
-    for kind in ('scan', 'fused', 'cat', 'enc5', 'enc') + ARCHIVED_ENC_KINDS:
+    for kind in ('scan', 'fused', 'cat', 'enc5', 'enc') + ARCHIVED_ENC_KINDS \
+            + ('tm',):
         time_tc_phases(torch, flush, rng, kind)
     # every other bf16 backward whose weight gradients run the split-K
     # (lstm_common.cuh: the ring, or the register-staged kernel for
     # sources it cannot copy) repeats bit for bit too
-    for kind in ('scan', 'fused', 'cat', 'enc') + ARCHIVED_ENC_KINDS:
+    for kind in ('scan', 'fused', 'cat', 'enc', 'tm') + ARCHIVED_ENC_KINDS:
         check_bit_equal(torch, rng, kind, 8192)
     check_enc6_is_enc5(torch, rng, 8192)
+    # the archived tm's bf16 kernels are lstm_scan's one step a launch;
+    # then what one launch a step costs against lstm_scan's one a call
+    for B in (8192, 1000):
+        for xp_dtype_name in ('bfloat16', 'float32'):
+            check_tm_is_scan(torch, rng, B, xp_dtype_name)
+    tm_launches = time_tm_launches(torch, flush, rng)
     check_enc6_is_enc5(torch, rng, 980, H=64)
     for kind in ('enc',) + ARCHIVED_ENC_KINDS:
         check_bit_equal(torch, rng, kind, 1000)
@@ -2091,6 +2173,16 @@ def main():
             ms=main[f'{part}_ms'], plain_ms=main[f'{part}_plain_ms'],
             bound_ms=main[f'{part}_bound'], bound_by=main[f'{part}_by'],
             library_ms=main[f'{part}_lib'], shape=main['shape']))
+        if kind == 'tm':
+            # lstm_scan's call on the same inputs in the same run, the
+            # resident loop that tm's one launch a step is held against,
+            # and both calls' loop kernels alone and host issue
+            whole = 'forward' if part == 'fwd' else 'backward'
+            kernels[-1].update(
+                lstm_scan_ms=tm_launches['scan', whole][0],
+                kernel_ms=tm_launches['tm', whole][1],
+                lstm_scan_kernel_ms=tm_launches['scan', whole][1],
+                issue_ms=tm_launches['tm', whole][2])
     # enc5's launches in demo_torch's memory run (phase 17, f32)
     rows = {row['name']: row for row in kernels}
     for part in ('forward', 'backward'):

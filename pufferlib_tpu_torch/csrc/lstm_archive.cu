@@ -64,6 +64,21 @@
 //   the reach of their FMA forward (D == H, F <= 128), enc2 the
 //   tensor-core kernels' (any D % 8 == 0 up to lstm_tc_max_input, F up to
 //   lstm_enc_tc_max_features).
+// * bf16 tm: csrc/lstm_tc.cuh's mode XP loops (lstm_scan's) over one step
+//   a launch (xp_forward_step, xp_backward_steps over [t, t + 1)): every
+//   launch stages W_hh, rounded to bf16 once per call by the first step,
+//   into each block's shared memory; the forward step loads the f32 h
+//   carry into the block's rounded h tile, runs h @ W_hh on mma.sync, adds
+//   x_proj_t after it and runs the cell, writing row t of outs and cseq
+//   and the f32 carry; the backward step recomputes the gates from x_proj_t
+//   and h_prev (h0 rounded at t = 0, else outs[t - 1]), runs the cell
+//   backward with c_prev from cseq[t - 1] (c0 at t = 0), writes row t of
+//   dx_proj (with bf16 x_proj the rounded dgates slab) and dh_prev = dg_t
+//   @ W_hh^T through the dgates tile in shared memory; after step 0 dW_hh
+//   is the ring split-K over all T*B rows. The carries are the values
+//   lstm_scan's loops keep in registers, so tm's outputs and gradients are
+//   lstm_scan's bit for bit; the launch a step (its W_hh staging and its
+//   gap) is what tm costs over lstm_scan.
 // * bf16 enc2 forward: csrc/lstm_tc.cuh's enc2_forward: the encoder GEMM,
 //   the projection xp = bf16(x @ W_ih + b) as a GEMM that writes it in
 //   bf16 in its natural (T, B, 4H) order (the TPU kernel's xp slab), then
@@ -71,7 +86,7 @@
 //   own f32 sum, added to xp_t after it.
 // * everything else: plain f32 FMA from weights streamed out of L2 in
 //   chunks, far above the bounds above: the f32 kernels (f32 is the exact
-//   test mode) and tm.
+//   test mode).
 //
 // FMA design (csrc/lstm_common.cuh): one backward kernel, archive_backward
 // (f32 only), whose MODE picks the rounding points and the schedule. The
@@ -83,8 +98,8 @@
 // the same block. enc6 gives a block 64 rows as two tiles of 32: both
 // chains' element-wise steps, then one stream of W_hh^T whose every staged
 // chunk serves both tiles; a ragged batch may leave the second tile short
-// or empty, and its rows are masked. tm is the cell kernels of mode XP
-// walking one step per launch: stream order is the only synchronisation a
+// or empty, and its rows are masked. tm in f32 is the cell kernels of
+// mode XP walking one step per launch: stream order is the only synchronisation a
 // timestep needs, since batch tiles do not talk to each other; dW_hh is
 // the split-K contraction over the dgates slab once step 0 is done. The
 // weight gradients are split-K with partials added in a fixed order, as in
@@ -478,15 +493,26 @@ struct Enc2Forward {
     }
 };
 
+// tm's steps: bf16 on lstm_tc.cuh's mode XP loops (xp_forward_step,
+// xp_backward_steps over [t, t + 1)), f32 on lstm_common.cuh's FMA cell;
+// x_proj in S (bf16 when xp_bf16, else f32)
 template <int H, typename E>
 struct TmStepForward {
     template <typename S>
     static cudaError_t run_as(const void* x_proj, const float* h_in, const float* c_in,
                               const float* w_hh, void* outs, void* cseq, float* h_out,
-                              float* c_out, int t, int B, cudaStream_t stream) {
-        return run_forward_steps<H, E, S, XP>(x_proj, h_in, c_in, nullptr, nullptr, nullptr,
-                                              w_hh, nullptr, outs, cseq, h_out, c_out, t,
-                                              t + 1, B, 0, stream);
+                              float* c_out, void* w16, int t, int T, int B,
+                              cudaStream_t stream) {
+        if constexpr (std::is_same<E, bf16>::value) {
+            return tc::xp_forward_step<H, S>(static_cast<const S*>(x_proj), h_in, c_in, w_hh,
+                                             static_cast<E*>(outs), static_cast<E*>(cseq), h_out,
+                                             c_out, static_cast<E*>(w16), t, T, B, stream);
+        } else {
+            if (w16) return cudaErrorInvalidValue;
+            return run_forward_steps<H, E, S, XP>(x_proj, h_in, c_in, nullptr, nullptr, nullptr,
+                                                  w_hh, nullptr, outs, cseq, h_out, c_out, t,
+                                                  t + 1, B, 0, stream);
+        }
     }
     template <typename... Args>
     static cudaError_t run(int xp_bf16, Args... args) {
@@ -501,13 +527,22 @@ struct TmStepBackward {
                               const float* w_hh, const void* outs, const void* cseq,
                               const void* g_outs, const float* dh_in, const float* dc_in,
                               void* dx_proj, float* dh_out, float* dc_out, float* dw_hh,
-                              void* dg, float* dw_part, int t, int T, int B, int splits,
-                              cudaStream_t stream) {
-        return run_backward_steps<H, E, S, XP>(
-            x_proj, h0, c0, nullptr, nullptr, nullptr, w_hh, nullptr, outs, cseq, g_outs,
-            dh_in, dc_in, dh_out, dc_out, nullptr, nullptr, dw_hh, nullptr, dx_proj, nullptr,
-            dg, dw_part, nullptr, nullptr, nullptr, t, t + 1, T, B, 0, splits, 0,
-            (B + BT - 1) / BT, stream);
+                              void* dg, float* dw_part, void* w16, int t, int T, int B,
+                              int splits, int phases, cudaStream_t stream) {
+        if constexpr (std::is_same<E, bf16>::value) {
+            return tc::xp_backward_steps<H, S>(
+                static_cast<const S*>(x_proj), h0, c0, w_hh, static_cast<const E*>(outs),
+                static_cast<const E*>(cseq), static_cast<const E*>(g_outs), dh_in, dc_in,
+                static_cast<S*>(dx_proj), dh_out, dc_out, dw_hh, static_cast<E*>(dg), dw_part,
+                static_cast<E*>(w16), t, t + 1, T, B, splits, phases, stream);
+        } else {
+            if (w16 || phases != tc::XP_BACKWARD_PHASES) return cudaErrorInvalidValue;
+            return run_backward_steps<H, E, S, XP>(
+                x_proj, h0, c0, nullptr, nullptr, nullptr, w_hh, nullptr, outs, cseq, g_outs,
+                dh_in, dc_in, dh_out, dc_out, nullptr, nullptr, dw_hh, nullptr, dx_proj,
+                nullptr, dg, dw_part, nullptr, nullptr, nullptr, t, t + 1, T, B, 0, splits, 0,
+                (B + BT - 1) / BT, stream);
+        }
     }
     template <typename... Args>
     static cudaError_t run(int xp_bf16, Args... args) {
@@ -594,16 +629,18 @@ int lstm_archive_tc_usage(int H, int* out) {
 // (T, B, 4H), bf16 when xp_bf16, else f32; h_in, c_in: the state before
 // step t (h0, c0 at t = 0), h_out, c_out: the state after it, other
 // buffers than h_in, c_in, all (B, H) f32; w_hh: (H, 4H) f32. Writes row t
-// of outs and cseq (T, B, H) in the compute dtype.
+// of outs and cseq (T, B, H) in the compute dtype. Scratch, bf16 only
+// (null in f32): w16 (H * 4H bf16), W_hh rounded by the call at t = 0 and
+// read by every later step of the same walk.
 int lstm_tm_step_forward(const void* x_proj, const float* h_in, const float* c_in,
                          const float* w_hh, void* outs, void* cseq, float* h_out,
-                         float* c_out, int t, int T, int B, int H, int cdt_bf16,
+                         float* c_out, void* w16, int t, int T, int B, int H, int cdt_bf16,
                          int xp_bf16, cudaStream_t stream) {
     if (B <= 0 || t < 0 || t >= T || !cseq || h_in == h_out || c_in == c_out)
         return (int)cudaErrorInvalidValue;
     if (!aligned16(w_hh)) return (int)cudaErrorMisalignedAddress;
     return dispatch<TmStepForward>(H, cdt_bf16, xp_bf16, x_proj, h_in, c_in, w_hh, outs,
-                                   cseq, h_out, c_out, t, B, stream);
+                                   cseq, h_out, c_out, w16, t, T, B, stream);
 }
 
 // Step t of the time-major backward, over the whole batch. x_proj, h0, c0,
@@ -613,20 +650,38 @@ int lstm_tm_step_forward(const void* x_proj, const float* h_in, const float* c_i
 // other buffers than dh_in, dc_in, all (B, H) f32. Writes row t of dx_proj
 // (T, B, 4H, x_proj's dtype) and, at t = 0, dw_hh (H, 4H) from the dgates
 // of every step. Scratch: dw_part (splits, H, 4H) f32, and dg (T, B, 4H)
-// in the compute dtype, which is null unless x_proj is bf16 and the
-// compute dtype f32.
+// in the compute dtype, which is null where x_proj is in the compute
+// dtype (dx_proj is then the slab dW_hh reads); bf16 only (null in f32):
+// w16 (H * 4H + B * H bf16), W_hh and h0 rounded by the call at t = T - 1
+// and read by every later step of the same walk. phases: 2 runs the whole
+// step; in bf16, 1 leaves out dW_hh at t = 0 (to time the steps alone).
 int lstm_tm_step_backward(const void* x_proj, const float* h0, const float* c0,
                           const float* w_hh, const void* outs, const void* cseq,
                           const void* g_outs, const float* dh_in, const float* dc_in,
                           void* dx_proj, float* dh_out, float* dc_out, float* dw_hh,
-                          void* dg, float* dw_part, int t, int T, int B, int H,
-                          int cdt_bf16, int xp_bf16, int splits, cudaStream_t stream) {
+                          void* dg, float* dw_part, void* w16, int t, int T, int B, int H,
+                          int cdt_bf16, int xp_bf16, int splits, int phases,
+                          cudaStream_t stream) {
     if (B <= 0 || t < 0 || t >= T || dh_in == dh_out || dc_in == dc_out)
         return (int)cudaErrorInvalidValue;
     if (!aligned16(w_hh)) return (int)cudaErrorMisalignedAddress;
     return dispatch<TmStepBackward>(H, cdt_bf16, xp_bf16, x_proj, h0, c0, w_hh, outs, cseq,
                                     g_outs, dh_in, dc_in, dx_proj, dh_out, dc_out, dw_hh,
-                                    dg, dw_part, t, T, B, splits, stream);
+                                    dg, dw_part, w16, t, T, B, splits, phases, stream);
+}
+
+// Registers and spilled bytes per thread of tm's bf16 kernels at hidden
+// size H, as out[2i], out[2i + 1]: the step forward (mode XP's forward
+// loop at one step) with bf16 and with f32 x_proj, the step backward (mode
+// XP's reverse loop over one step) likewise, and the ring split-K of dW_hh
+// at step 0; lstm_scan.cu's templates, built into this library: ten ints.
+int lstm_tm_tc_usage(int H, int* out) {
+    switch (H) {
+        case 32: return (int)tc::xp_usage<32>(out);
+        case 64: return (int)tc::xp_usage<64>(out);
+        case 128: return (int)tc::xp_usage<128>(out);
+    }
+    return (int)cudaErrorInvalidValue;
 }
 
 const char* cuda_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

@@ -777,7 +777,10 @@ __device__ __forceinline__ void stage_h_prev(bf16* h_s, const bf16* __restrict__
 // dg_t @ W_hh^T. The h_prev tile of the next step (t - 1) loads while the
 // half runs its dh_prev product: a half's warps are past their gates
 // product once they have written the dgates tile. Writes dh0, dc0, the
-// rounded dgates dg and, unless null, the f32 dgates dgf; no db.
+// rounded dgates dg and, unless null, the f32 dgates dgf; no db. The loop
+// walks steps t1 - 1 down to t0 of the whole (T, B) arrays: g_hT, g_cT
+// are the gradients that enter step t1 - 1, dh0, dc0 those that leave
+// step t0 (lstm_scan: 0 and T; the archived tm one step a launch).
 template <int H, typename S>
 __global__ void __launch_bounds__(NTC, 1) xp_backward_loop(
         const S* __restrict__ xp, const bf16* __restrict__ h16, const float* __restrict__ c0,
@@ -785,7 +788,7 @@ __global__ void __launch_bounds__(NTC, 1) xp_backward_loop(
         const bf16* __restrict__ cseq, const bf16* __restrict__ g_outs,
         const float* __restrict__ g_hT, const float* __restrict__ g_cT,
         float* __restrict__ dh0, float* __restrict__ dc0, bf16* __restrict__ dg,
-        float* __restrict__ dgf, int T, int B) {
+        float* __restrict__ dgf, int t0, int t1, int B) {
     using GE = Geo<H>;
     constexpr int G = GE::G, MT = GE::MT, UPW = GE::UPW, WS = GE::WS;
     extern __shared__ __align__(16) unsigned char smem_tc[];
@@ -799,7 +802,7 @@ __global__ void __launch_bounds__(NTC, 1) xp_backward_loop(
     const int row0 = blockIdx.x * BR, nrows = min(BR, B - row0);
 
     stage_w_hh<H>(w_s, w_hh16);
-    stage_h_prev<H>(h_s, h16, outs, T - 1, B, row0, nrows, 0, BR, 0, NTC);
+    stage_h_prev<H>(h_s, h16, outs, t1 - 1, B, row0, nrows, 0, BR, 0, NTC);
     cp_async_commit();
     float dh[UPW][MT][4], dc[UPW][MT][4];
 #pragma unroll
@@ -823,7 +826,7 @@ __global__ void __launch_bounds__(NTC, 1) xp_backward_loop(
     cp_async_wait_all();
     __syncthreads();
 
-    for (int t = T - 1; t >= 0; --t) {
+    for (int t = t1 - 1; t >= t0; --t) {
         const size_t base = (size_t)t * B + row0;
 #pragma unroll
         for (int ug = 0; ug < UPW; ++ug) {
@@ -895,7 +898,7 @@ __global__ void __launch_bounds__(NTC, 1) xp_backward_loop(
         // the half's dgates are in d_s, and its warps are past their gates
         // product: its rows of h_s take h_prev of step t - 1
         half_sync(side);
-        if (t > 0) {
+        if (t > t0) {
             stage_h_prev<H>(h_s, h16, outs, t - 1, B, row0, nrows, side * (BR / 2), BR / 2,
                             side * HW * 32, HW * 32);
             cp_async_commit();
@@ -1551,30 +1554,76 @@ cudaError_t xp_forward(const S* xp, const float* h0, const float* c0, const floa
 // B, 4H) bf16, else unused). Scratch: w16 (H * 4H + B * H bf16: W_hh and
 // h0 rounded), dw_part (splits, H, 4H) f32. phases: the first 1 .. 2 of
 // loop, dW.
+//
+// xp_backward_steps runs steps t1 - 1 down to t0 of the same backward (the
+// archived time-major scan: one step a call, the dh/dc carry in the f32
+// buffers g_hT, g_cT in and dh0, dc0 out between calls). The call that
+// starts the walk (t1 == T) rounds W_hh and h0 into w16, which the later
+// calls read; the one that ends it (t0 == 0) runs dW over all T*B rows.
+template <int H, typename S>
+cudaError_t xp_backward_steps(const S* xp, const float* h0, const float* c0,
+                              const float* w_hh, const bf16* outs, const bf16* cseq,
+                              const bf16* g_outs, const float* g_hT, const float* g_cT, S* dxp,
+                              float* dh0, float* dc0, float* dw, bf16* dg, float* dw_part,
+                              bf16* w16, int t0, int t1, int T, int B, int splits, int phases,
+                              cudaStream_t stream) {
+    constexpr int G = 4 * H;
+    constexpr bool F32 = std::is_same<S, float>::value;
+    if (phases < 1 || phases > XP_BACKWARD_PHASES || splits < 1 || !w16 || (F32 && !dg) ||
+        t0 < 0 || t0 >= t1 || t1 > T)
+        return cudaErrorInvalidValue;
+    if (!aligned16(outs) || !aligned16(w16)) return cudaErrorMisalignedAddress;
+    bf16* h16 = w16 + (size_t)H * G;
+    cudaError_t err = cudaSuccess;
+    if (t1 == T &&
+        (err = round_into(nullptr, w_hh, h0, w16, nullptr, h16, 0, H, B, stream)) != cudaSuccess)
+        return err;
+    bf16* dgs = F32 ? dg : reinterpret_cast<bf16*>(dxp);
+    auto kernel = xp_backward_loop<H, S>;
+    if ((err = prepare(kernel, Geo<H>::XP_BWD_SMEM)) != cudaSuccess) return err;
+    kernel<<<(B + BR - 1) / BR, NTC, Geo<H>::XP_BWD_SMEM, stream>>>(
+        xp, h16, c0, w16, outs, cseq, g_outs, g_hT, g_cT, dh0, dc0, dgs,
+        F32 ? reinterpret_cast<float*>(dxp) : nullptr, t0, t1, B);
+    if ((err = cudaGetLastError()) != cudaSuccess || phases < 2 || t0 > 0) return err;
+    const XHRows<bf16> hp{nullptr, h0, outs, B, 0, H, h16};
+    return splitk<bf16>(hp, Rows<bf16>{dgs, G}, dw_part, dw, H, G, (long long)T * B, splits,
+                        stream);
+}
+
 template <int H, typename S>
 cudaError_t xp_backward(const S* xp, const float* h0, const float* c0, const float* w_hh,
                         const bf16* outs, const bf16* cseq, const bf16* g_outs,
                         const float* g_hT, const float* g_cT, S* dxp, float* dh0, float* dc0,
                         float* dw, bf16* dg, float* dw_part, bf16* w16, int T, int B,
                         int splits, int phases, cudaStream_t stream) {
-    constexpr int G = 4 * H;
-    constexpr bool F32 = std::is_same<S, float>::value;
-    if (phases < 1 || phases > XP_BACKWARD_PHASES || splits < 1 || !w16 || (F32 && !dg))
-        return cudaErrorInvalidValue;
-    if (!aligned16(outs) || !aligned16(w16)) return cudaErrorMisalignedAddress;
-    bf16* h16 = w16 + (size_t)H * G;
-    cudaError_t err = round_into(nullptr, w_hh, h0, w16, nullptr, h16, 0, H, B, stream);
-    if (err != cudaSuccess) return err;
-    bf16* dgs = F32 ? dg : reinterpret_cast<bf16*>(dxp);
-    auto kernel = xp_backward_loop<H, S>;
-    if ((err = prepare(kernel, Geo<H>::XP_BWD_SMEM)) != cudaSuccess) return err;
-    kernel<<<(B + BR - 1) / BR, NTC, Geo<H>::XP_BWD_SMEM, stream>>>(
-        xp, h16, c0, w16, outs, cseq, g_outs, g_hT, g_cT, dh0, dc0, dgs,
-        F32 ? reinterpret_cast<float*>(dxp) : nullptr, T, B);
-    if ((err = cudaGetLastError()) != cudaSuccess || phases < 2) return err;
-    const XHRows<bf16> hp{nullptr, h0, outs, B, 0, H, h16};
-    return splitk<bf16>(hp, Rows<bf16>{dgs, G}, dw_part, dw, H, G, (long long)T * B, splits,
-                        stream);
+    return xp_backward_steps<H, S>(xp, h0, c0, w_hh, outs, cseq, g_outs, g_hT, g_cT, dxp, dh0,
+                                   dc0, dw, dg, dw_part, w16, 0, T, T, B, splits, phases,
+                                   stream);
+}
+
+// Step t of mode XP's forward alone, for the archived time-major scan:
+// forward_loop at one step on row t of x_proj, outs and cseq (T, B, ...),
+// from the f32 state h_in, c_in to h_out, c_out (B, H), which the loop
+// writes as its hT and cT: the carry between calls is what the loop keeps
+// (c in f32, h in f32 rounded to bf16 as it enters the product), so T
+// calls give xp_forward's outputs bit for bit. The call at t == 0 rounds
+// W_hh into w16 (H * 4H bf16), which the later calls read.
+template <int H, typename S>
+cudaError_t xp_forward_step(const S* xp, const float* h_in, const float* c_in,
+                            const float* w_hh, bf16* outs, bf16* cseq, float* h_out,
+                            float* c_out, bf16* w16, int t, int T, int B, cudaStream_t stream) {
+    if (!w16 || !cseq || t < 0 || t >= T) return cudaErrorInvalidValue;
+    cudaError_t err = cudaSuccess;
+    if (t == 0 && (err = round_into(nullptr, w_hh, nullptr, w16, nullptr, nullptr, 0, H, B,
+                                    stream)) != cudaSuccess)
+        return err;
+    auto kernel = forward_loop<H, XP, S>;
+    if ((err = prepare(kernel, Geo<H>::FWD_SMEM)) != cudaSuccess) return err;
+    const size_t row = (size_t)t * B;
+    kernel<<<(B + BR - 1) / BR, NTC, Geo<H>::FWD_SMEM, stream>>>(
+        xp + row * 4 * H, nullptr, h_in, c_in, w16, outs + row * H, cseq + row * H, h_out, c_out,
+        1, B);
+    return cudaGetLastError();
 }
 
 // Registers and local (spilled) bytes per thread of n kernels, as

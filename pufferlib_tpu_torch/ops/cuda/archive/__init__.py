@@ -11,8 +11,9 @@ kernel launch for CUDA tensors, no way from one to the other), the
 backwards' launchers and the design each backward runs. Each variant's
 module gives its plain versions, its launchers and its public function.
 
-In bf16 the four backwards and enc2's forward run the tensor-core
-kernels of csrc/lstm_tc.cuh (design): the backwards mode ENC5's path (the
+In bf16 the four backwards, enc2's forward and tm's two step kernels run
+the tensor-core kernels of csrc/lstm_tc.cuh (design): tm mode XP's loops
+(lstm_scan's) one step a launch; the backwards mode ENC5's path (the
 encoder, the P pre-pass, a reverse loop with W_hh in shared memory, dpre
 and the split-K) with each variant's roundings: enc2 and enc4 f32
 activations and db from the rounded dgates (enc2's pre-pass rounding its
@@ -43,22 +44,25 @@ KERNEL = CudaKernel('lstm_archive.cu', {
     'lstm_enc3_backward': _TC_BACKWARD,
     'lstm_enc4_backward': _TC_BACKWARD,
     'lstm_enc6_backward': _TC_BACKWARD,
-    'lstm_tm_step_forward': [P] * 8 + [I] * 6 + [P],
-    'lstm_tm_step_backward': [P] * 15 + [I] * 7 + [P],
-    # not a launch: the archive's own bf16 kernels' registers and spills
+    'lstm_tm_step_forward': [P] * 9 + [I] * 6 + [P],
+    'lstm_tm_step_backward': [P] * 16 + [I] * 8 + [P],
+    # not launches: the registers and spills of the archive's own bf16
+    # kernels and of tm's (mode XP's loops, lstm_scan's templates)
     'lstm_archive_tc_usage': [I, P],
+    'lstm_tm_tc_usage': [I, P],
 })
 
 # the C functions with a tensor-core design in bf16
 TC_FUNCTIONS = ('lstm_enc2_forward', 'lstm_enc2_backward',
-    'lstm_enc3_backward', 'lstm_enc4_backward', 'lstm_enc6_backward')
+    'lstm_enc3_backward', 'lstm_enc4_backward', 'lstm_enc6_backward',
+    'lstm_tm_step_forward', 'lstm_tm_step_backward')
 
 
 def design(fn, cdt):
     """The design the C function `fn` of KERNEL runs in cdt: 'tc'
     (lstm_tc.cuh's tensor-core kernels: TC_FUNCTIONS in bf16) or 'fma'
     (lstm_archive.cu's and lstm_common.cuh's FMA kernels: every function
-    in f32, and tm's)."""
+    in f32)."""
     if fn not in KERNEL.functions:
         raise ValueError(f'{fn} is not a C function of {KERNEL.source}')
     return 'tc' if fn in TC_FUNCTIONS and cdt == torch.bfloat16 else 'fma'

@@ -17,15 +17,26 @@ always written. The backward writes dx_proj = dgates in x_proj's dtype
 and contracts dgates rounded to cdt: dh_prev = dg @ W_hh^T per step,
 dW_hh = h_prev^T dg over every step once step 0 is done.
 
+In bf16 (archive.design) a step runs lstm_scan's tensor-core loops
+(csrc/lstm_tc.cuh mode XP) over that one step: W_hh rounded once per call
+(by the first step) into a bf16 scratch and staged into every block's
+shared memory by every launch, h @ W_hh and dg_t @ W_hh^T on mma.sync,
+and, after step 0, dW_hh by the ring split-K over all T*B rows. The carry
+is what lstm_scan's loops keep in registers (c and dh/dc in f32, h in f32
+rounded as it enters the product), so the outputs and gradients equal
+lstm_scan's bf16 kernels' bit for bit. In f32, the exact test mode, a
+step runs lstm_common.cuh's FMA cell.
+
 x_proj (T, B, 4H) is float32 or bfloat16 whatever the compute dtype cdt.
 """
 import torch
 
 from pufferlib_tpu_torch.ops.cuda._build import ptr, ptr_or_null, stream_handle
-from pufferlib_tpu_torch.ops.cuda.archive import KERNEL
+from pufferlib_tpu_torch.ops.cuda.archive import KERNEL, design
 from pufferlib_tpu_torch.ops.cuda.lstm_common import (
-    backward_inputs, cell_backward_step, check_kernel_shape,
-    check_scan_inputs, gate_activations, round_to, splitk_splits)
+    SCAN_BACKWARD_PHASES, backward_inputs, cell_backward_step,
+    check_kernel_shape, check_scan_inputs, gate_activations, round_to,
+    splitk_splits)
 
 __all__ = ['lstm_scan_tm', 'lstm_tm_reference', 'lstm_tm_backward_reference']
 
@@ -80,23 +91,33 @@ def _launch_forward(x_proj, h0, c0, w_hh, cdt):
     cseq = torch.empty_like(outs)
     if B == 0:
         return outs, h0.clone(), c0.clone(), cseq
+    tc = design('lstm_tm_step_forward', cdt) == 'tc'
+    # bf16 scratch: W_hh rounded by the step at t = 0
+    w16 = torch.empty((H * 4 * H,), dtype=torch.bfloat16,
+        device=x_proj.device) if tc else None
     # the carried state: step t reads what step t - 1 wrote and writes the
-    # other pair; the last one written is hT, cT
+    # other pair; the last one written is hT, cT. The pointers that stay
+    # the same from step to step are made once, so that the host issues a
+    # step faster than the card runs it
     pairs = ((torch.empty_like(h0), torch.empty_like(c0)),
         (torch.empty_like(h0), torch.empty_like(c0)))
-    state = (h0, c0)
+    pair_ptrs = [(ptr(h), ptr(c)) for h, c in pairs]
+    xp, w, o, cs = ptr(x_proj), ptr(w_hh), ptr(outs), ptr(cseq)
+    w16p = ptr_or_null(w16)
+    flags = (T, B, H, int(cdt == torch.bfloat16),
+        int(x_proj.dtype == torch.bfloat16), stream_handle(x_proj))
+    state = (ptr(h0), ptr(c0))
     for t in range(T):
-        nxt = pairs[t % 2]
-        KERNEL.launch('lstm_tm_step_forward', ptr(x_proj), ptr(state[0]),
-            ptr(state[1]), ptr(w_hh), ptr(outs), ptr(cseq), ptr(nxt[0]),
-            ptr(nxt[1]), t, T, B, H, int(cdt == torch.bfloat16),
-            int(x_proj.dtype == torch.bfloat16), stream_handle(x_proj))
+        nxt = pair_ptrs[t % 2]
+        KERNEL.launch('lstm_tm_step_forward', xp, *state, w, o, cs, *nxt,
+            w16p, t, *flags)
         state = nxt
-    return outs, state[0], state[1], cseq
+    hT, cT = pairs[(T - 1) % 2]
+    return outs, hT, cT, cseq
 
 
 def _launch_backward(x_proj, h0, c0, w_hh, outs, cseq, g_outs, g_hT, g_cT,
-        cdt):
+        cdt, phases=SCAN_BACKWARD_PHASES):
     T, B, G = x_proj.shape
     H = h0.shape[1]
     check_kernel_shape(H, H, x_proj.device)
@@ -105,26 +126,34 @@ def _launch_backward(x_proj, h0, c0, w_hh, outs, cseq, g_outs, g_hT, g_cT,
     dw = torch.empty((H, G), dtype=torch.float32, device=dev)
     if B == 0:
         return dxp, torch.empty_like(h0), torch.empty_like(c0), dw.zero_()
+    tc = design('lstm_tm_step_backward', cdt) == 'tc'
     splits = splitk_splits(H, G, T * B, dev)
-    # dx_proj is also the slab of dgates that dW_hh = h_prev^T dg reads,
-    # rounded to cdt as it is loaded; bf16 cannot feed an f32 contraction
-    separate = x_proj.dtype == torch.bfloat16 and cdt == torch.float32
-    dg = torch.empty((T, B, G), dtype=cdt, device=dev) if separate else None
+    # dx_proj is also the slab of dgates that dW_hh = h_prev^T dg reads
+    # where it is in cdt; else the dgates rounded to cdt go to a slab of
+    # their own
+    dg = torch.empty((T, B, G), dtype=cdt, device=dev) \
+        if x_proj.dtype != cdt else None
     dw_part = torch.empty((splits, H, G), dtype=torch.float32, device=dev)
+    # bf16 scratch: W_hh and h0 rounded by the step at t = T - 1
+    w16 = torch.empty((H * G + B * H,), dtype=torch.bfloat16, device=dev) \
+        if tc else None
     # the carried gradients, written in turns as the forward's state
     pairs = ((torch.empty_like(h0), torch.empty_like(c0)),
         (torch.empty_like(h0), torch.empty_like(c0)))
-    grad = (g_hT, g_cT)
+    pair_ptrs = [(ptr(dh), ptr(dc)) for dh, dc in pairs]
+    inputs = [ptr(a) for a in (x_proj, h0, c0, w_hh, outs, cseq, g_outs)]
+    dxp_p = ptr(dxp)
+    rest = (ptr(dw), ptr_or_null(dg), ptr(dw_part), ptr_or_null(w16))
+    flags = (T, B, H, int(cdt == torch.bfloat16),
+        int(x_proj.dtype == torch.bfloat16), splits, phases,
+        stream_handle(x_proj))
+    grad = (ptr(g_hT), ptr(g_cT))
     for t in reversed(range(T)):
-        nxt = pairs[t % 2]
-        KERNEL.launch('lstm_tm_step_backward', ptr(x_proj), ptr(h0), ptr(c0),
-            ptr(w_hh), ptr(outs), ptr(cseq), ptr(g_outs), ptr(grad[0]),
-            ptr(grad[1]), ptr(dxp), ptr(nxt[0]), ptr(nxt[1]), ptr(dw),
-            ptr_or_null(dg), ptr(dw_part), t, T, B, H,
-            int(cdt == torch.bfloat16), int(x_proj.dtype == torch.bfloat16),
-            splits, stream_handle(x_proj))
+        nxt = pair_ptrs[t % 2]
+        KERNEL.launch('lstm_tm_step_backward', *inputs, *grad, dxp_p, *nxt,
+            *rest, t, *flags)
         grad = nxt
-    return dxp, grad[0], grad[1], dw
+    return dxp, pairs[0][0], pairs[0][1], dw
 
 
 class _LSTMScanTM(torch.autograd.Function):

@@ -25,6 +25,27 @@ def l2_flush_buffer(device='cuda'):
     return torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=device)
 
 
+def issue_ms(fn, flush, reps=20):
+    """Mean host ms that fn() takes to return, over reps calls, each
+    started on an idle card after a write of `flush`: the time the host
+    needs to issue the call's launches (they run asynchronously), which
+    is a floor under timed_ms's reading wherever it exceeds the card's
+    own time."""
+    import time
+    import torch
+    for _ in range(3):
+        fn()
+    total = 0.0
+    for _ in range(reps):
+        flush.zero_()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        fn()
+        total += time.perf_counter() - start
+    torch.cuda.synchronize()
+    return total / reps * 1e3
+
+
 def timed_ms(fn, flush, reps=20):
     """Mean device ms of fn() over reps calls, each after a write of
     `flush` that evicts the L2 (a trainer's batch is not resident when a
@@ -46,16 +67,16 @@ def timed_ms(fn, flush, reps=20):
     return total / reps
 
 
-def profiled_ms(fn, flush, name, reps=20):
-    """Mean device ms of the kernels whose name holds `name`, over reps
-    calls of fn(), each after a write of `flush` that evicts the L2, as
-    torch.profiler (CUPTI) reports their durations: the kernel alone,
+def profiled_ms(fn, flush, name, reps=20, per_call=1):
+    """Mean device ms a call of the kernels whose name holds `name`, over
+    reps calls of fn(), each after a write of `flush` that evicts the L2,
+    as torch.profiler (CUPTI) reports their durations: the kernels alone,
     without the launch and host gaps that timed_ms's events may take in
-    for a kernel of a few microseconds. Every call must show exactly one
-    such kernel. A window that lost records (CUPTI may drop the first
-    kernels of a process's first profiling session) is printed and
-    profiled again, at most PROFILE_WINDOWS windows in all; too many
-    kernels raise at once."""
+    for a kernel of a few microseconds. Every call must show exactly
+    per_call such kernels (their durations are summed). A window that
+    lost records (CUPTI may drop the first kernels of a process's first
+    profiling session) is printed and profiled again, at most
+    PROFILE_WINDOWS windows in all; too many kernels raise at once."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
@@ -70,12 +91,12 @@ def profiled_ms(fn, flush, name, reps=20):
         kernels = [e for e in prof.events()
             if e.device_type == torch.autograd.DeviceType.CUDA
             and name in e.name]
-        if len(kernels) >= reps:
+        if len(kernels) >= reps * per_call:
             break
         print(f'profiled_ms: window {window} of {PROFILE_WINDOWS} recorded '
             f'{len(kernels)} kernels named {name!r} in {reps} calls',
             flush=True)
-    if len(kernels) != reps:
+    if len(kernels) != reps * per_call:
         raise RuntimeError(f'profiled_ms: {len(kernels)} kernels named '
-            f'{name!r} in {reps} calls')
+            f'{name!r} in {reps} calls of {per_call}')
     return sum(e.device_time_total for e in kernels) / reps / 1e3

@@ -16,7 +16,9 @@ and gradient (sums in another order; in bf16 a value that rounds one ulp
 the other way inside the recurrence). lstm_scan, lstm_scan_cat,
 lstm_scan_fused and the enc5 pair run their tensor-core kernels in bf16
 (also at input widths other than the hidden size, and enc5 at feature
-widths up to the encoder's limit) and their FMA kernels in f32.
+widths up to the encoder's limit) and their FMA kernels in f32; the
+archived tm's step kernels run lstm_scan's bf16 loops one step a launch
+and must equal lstm_scan's bf16 kernels bit for bit.
 """
 import importlib
 
@@ -1090,6 +1092,121 @@ def test_archived_tm_kernels_match_plain(cuda, T, B, H, cdt, xp_dtype):
     _check_lstm_pair(cuda, 'tm', T, B, H, cdt, xp_dtype)
 
 
+# tm's bf16 kernels against lstm_scan's: the bench shape, a ragged batch,
+# another hidden size, and one step of one row past a 32-row half block
+TM_SCAN_SHAPES = [(16, 8192, 128), (16, 1000, 128), (5, 100, 64), (1, 33, 32)]
+
+
+@pytest.mark.parametrize('T,B,H', TM_SCAN_SHAPES)
+@pytest.mark.parametrize('xp_dtype', [torch.bfloat16, torch.float32])
+def test_archived_tm_bf16_is_lstm_scan_bit_for_bit(cuda, T, B, H, xp_dtype):
+    """tm's bf16 kernels (mode XP's loops one step a launch, the carries
+    in f32 buffers between launches, dW_hh on the ring split-K after step
+    0) on lstm_scan's inputs: every output and gradient equal to
+    lstm_scan's bf16 kernels' bit for bit, x_proj in bf16 and in f32. The
+    carries are the values lstm_scan's loops keep in registers and every
+    sum runs in the same order, so nothing may differ."""
+    kinds = _lstm_kinds()
+    cdt = torch.bfloat16
+    args = _lstm_case('tm', T, B, H, 49, cdt, cuda, xp_dtype)
+    g = (torch.randn(T, B, H, device=cuda).to(cdt),
+        torch.randn(B, H, device=cuda), torch.randn(B, H, device=cuda))
+    runs = []
+    with torch.no_grad():
+        for kind in ('scan', 'tm'):
+            fwd, bwd = kinds[kind][:2]
+            outs, hT, cT, cseq = fwd(*args, cdt)
+            runs.append((outs, hT, cT, cseq) + bwd(*args, outs, cseq, *g,
+                cdt))
+    torch.cuda.synchronize()
+    for a, w in zip(*runs):
+        assert a.dtype == w.dtype and torch.equal(a, w)
+
+
+@pytest.mark.parametrize('T,B,H', [(16, 8192, 128), (16, 1000, 128),
+    (5, 65, 32)])
+def test_archived_tm_bf16_is_deterministic(cuda, T, B, H):
+    """tm's bf16 kernels add every partial sum in a fixed order (no
+    atomics): the same inputs twice give the same outputs and gradients
+    bit for bit."""
+    _check_deterministic(cuda, 'tm', T, B, H)
+
+
+def test_archived_tm_runs_the_tensor_core_path_in_bf16(cuda):
+    """archive.design and TC_FUNCTIONS name tm's step kernels in bf16
+    ('tc'; 'fma' in f32). The bf16 C functions need their scratch (W_hh,
+    and in the backward h0, rounded to bf16): handed none, they refuse
+    before any launch; the f32 ones refuse scratch they do not use. The
+    backward's phases 1 leaves dW_hh out in bf16 and is refused in f32."""
+    from pufferlib_tpu_torch.ops.cuda import archive
+    fwd, bwd = _lstm_kinds()['tm'][:2]
+    T, B, H = 3, 70, 64
+    scratch = {'lstm_tm_step_forward': 8, 'lstm_tm_step_backward': 15}
+    for cdt in (torch.bfloat16, torch.float32):
+        for fn in scratch:
+            assert archive.design(fn, cdt) == (
+                'tc' if cdt == torch.bfloat16 else 'fma')
+            assert fn in archive.TC_FUNCTIONS
+        args = _lstm_case('tm', T, B, H, 49, cdt, cuda)
+        with torch.no_grad():
+            outs, _, _, cseq = fwd(*args, cdt)
+        g = (torch.zeros(T, B, H, device=cuda, dtype=cdt),
+            torch.zeros(B, H, device=cuda), torch.zeros(B, H, device=cuda))
+        real = archive.KERNEL.lib()
+        spare = torch.empty(H * 4 * H + B * H, dtype=torch.bfloat16,
+            device=cuda)
+
+        class Swapped:
+            """The library, with the scratch of tm's calls swapped: null
+            for bf16, a spare buffer for f32."""
+
+            def __getattr__(self, name):
+                f = getattr(real, name)
+                if name not in scratch:
+                    return f
+
+                def call(*a):
+                    a = list(a)
+                    i = scratch[name]
+                    assert (a[i] is not None) == (cdt == torch.bfloat16)
+                    a[i] = None if cdt == torch.bfloat16 else \
+                        spare.data_ptr()
+                    return f(*a)
+                return call
+        before = _launches()
+        archive.KERNEL._lib = Swapped()
+        try:
+            with pytest.raises(RuntimeError, match='lstm_tm_step_forward'):
+                fwd(*args, cdt)
+            with pytest.raises(RuntimeError, match='lstm_tm_step_backward'):
+                bwd(*args, outs, cseq, *g, cdt)
+        finally:
+            archive.KERNEL._lib = real
+        assert _launches() == before
+        with torch.no_grad():
+            if cdt == torch.bfloat16:
+                bwd(*args, outs, cseq, *g, cdt, phases=1)
+            else:
+                with pytest.raises(RuntimeError):
+                    bwd(*args, outs, cseq, *g, cdt, phases=1)
+    torch.cuda.synchronize()
+
+
+def test_archived_tm_tc_usage(cuda):
+    """Registers and spills of tm's bf16 kernels (lstm_tm_tc_usage: mode
+    XP's forward and reverse loops with bf16 and f32 x_proj, and the ring
+    split-K), built into the archive's library from lstm_scan's
+    templates: equal to lstm_scan_tc_usage's at every hidden size."""
+    import ctypes
+    from pufferlib_tpu_torch.ops.cuda import archive, lstm_scan
+    for H in (32, 64, 128):
+        tm = (ctypes.c_int * 10)()
+        scan = (ctypes.c_int * 10)()
+        assert archive.KERNEL.lib().lstm_tm_tc_usage(H, tm) == 0
+        assert lstm_scan.KERNEL.lib().lstm_scan_tc_usage(H, scan) == 0
+        assert list(tm) == list(scan), (H, list(tm), list(scan))
+
+
 def _check_pair_and_primal(cuda, kind, T, B, H, cdt):
     fwd = _lstm_kinds()[kind][0]
     args, got = _check_lstm_pair(cuda, kind, T, B, H, cdt)
@@ -1125,10 +1242,10 @@ def test_lstm_scan_bf16_is_deterministic(cuda, T, B, H):
 
 
 # every kind whose bf16 backward runs the split-K of lstm_common.cuh: the
-# ring where its sources are bf16 rows (cat, fused, scan, enc5's [x |
+# ring where its sources are bf16 rows (cat, fused, scan, tm, enc5's [x |
 # h_prev], the FMA backwards' [xs | h_prev]), the register-staged kernel
 # for the rest (enc5's [feats | 1], the feature rows of odd width)
-SPLITK_KINDS = ('enc5', 'enc', 'cat', 'fused', 'scan') + ARCHIVED_ENC
+SPLITK_KINDS = ('enc5', 'enc', 'cat', 'fused', 'scan', 'tm') + ARCHIVED_ENC
 
 
 @pytest.mark.parametrize('kind', SPLITK_KINDS)

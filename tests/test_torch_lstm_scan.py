@@ -1,7 +1,8 @@
 """lstm_scan, lstm_scan_fused and lstm_scan_enc of the PyTorch port, and the
 tensor-core schedules of every resident bf16 kernel pair (lstm_scan_enc's
-step backward, the archived enc2 pair and the archived enc3, enc4 and
-enc6 backwards among them), against the JAX package, on the CPU.
+step backward, the archived enc2 pair, the archived enc3, enc4 and enc6
+backwards and the archived tm's step kernels among them), against the JAX
+package, on the CPU.
 
 The port's side runs the kernels' plain versions (explicit forward and
 backward in PyTorch, what the autograd.Functions run for CPU tensors).
@@ -32,11 +33,12 @@ from pufferlib_tpu.ops.pallas.archive import lstm_enc2 as jax_archive_enc2
 from pufferlib_tpu.ops.pallas.archive import lstm_enc3 as jax_archive_enc3
 from pufferlib_tpu.ops.pallas.archive import lstm_enc4 as jax_archive_enc4
 from pufferlib_tpu.ops.pallas.archive import lstm_enc6 as jax_archive_enc6
+from pufferlib_tpu.ops.pallas.archive import lstm_tm as jax_lstm_tm
 
 from pufferlib_tpu_torch.ops.cuda import (
     archive, lstm_cat, lstm_common, lstm_enc, lstm_scan)
 from pufferlib_tpu_torch.ops.cuda.archive import (
-    lstm_enc2, lstm_enc3, lstm_enc4, lstm_enc6)
+    lstm_enc2, lstm_enc3, lstm_enc4, lstm_enc6, lstm_tm)
 
 torch.set_num_threads(1)
 
@@ -668,6 +670,125 @@ def test_xp_tensor_core_schedule_keeps_the_function(H, B, seq):
     compare('scan', (fwd[:3], loss_grads), jax_want, True)
 
 
+def tm_tc_schedule(x_proj, h0, c0, w_hh, cdt, splits):
+    """What the archived tm's bf16 kernels (csrc/lstm_archive.cu: mode
+    XP's loops of csrc/lstm_tc.cuh one step a launch) compute, in their
+    order, in plain torch: xp_tc_schedule's steps, one step a call, the
+    f32 carries (h and c forward, dh and dc backward) handed from call to
+    call as the (B, H) device buffers hand them, W_hh rounded once for
+    every step, and after step 0 dW_hh = h_prev^T dg over the rounded
+    dgates of every step by the split-K (lstm_common.splitk_reference).
+    Returns xp_tc_schedule's (outs, hT, cT, cseq) and backward."""
+    T, B, G = x_proj.shape
+    H = h0.shape[1]
+
+    def rd(t):
+        return t.to(cdt).float()
+    wh = rd(w_hh)
+    outs = torch.empty((T, B, H), dtype=cdt)
+    cseq = torch.empty_like(outs)
+
+    def step_forward(t, h_in, c_in):
+        # h_in enters the product rounded, as the loop's h tile holds it
+        gates = x_proj[t].float() + rd(h_in) @ wh
+        i, f, g, o = lstm_common.gate_activations(gates, H)
+        c_out = f * c_in + i * g
+        h_out = o * torch.tanh(c_out)
+        outs[t] = h_out.to(cdt)
+        cseq[t] = c_out.to(cdt)
+        return h_out, c_out
+    h, c = h0.float(), c0.float()
+    for t in range(T):
+        h, c = step_forward(t, h, c)
+
+    def backward(g_outs, g_hT, g_cT):
+        dxp = torch.empty_like(x_proj)
+        dg = torch.empty((T, B, G), dtype=cdt)
+
+        def h_prev(t):
+            return rd(h0) if t == 0 else outs[t - 1].float()
+
+        def step_backward(t, dh_in, dc_in):
+            acts = lstm_common.gate_activations(
+                x_proj[t].float() + h_prev(t) @ wh, H)
+            c_prev = c0.float() if t == 0 else cseq[t - 1].float()
+            dgates, dc_out = lstm_common.cell_backward_step(acts,
+                dh_in + g_outs[t].float(), dc_in, cseq[t].float(), c_prev)
+            dxp[t] = dgates.to(x_proj.dtype)
+            dg[t] = dgates.to(cdt)
+            return dg[t].float() @ wh.t(), dc_out
+        dh, dc = g_hT.float(), g_cT.float()
+        for t in reversed(range(T)):
+            dh, dc = step_backward(t, dh, dc)
+        rows = torch.cat([h_prev(t) for t in range(T)])
+        dw = lstm_common.splitk_reference(rows, dg.float().reshape(T * B, G),
+            splits)
+        return dxp, dh, dc, dw
+    return (outs, h, c, cseq), backward
+
+
+@pytest.mark.parametrize('seq', ['bfloat16', 'float32'])
+@pytest.mark.parametrize('B', [8, 65])
+@pytest.mark.parametrize('H', [32, 64, 128])
+def test_tm_tensor_core_schedule_keeps_the_function(H, B, seq):
+    """The archived tm's bf16 schedule (tm_tc_schedule: one step a call,
+    the carries in f32 between calls, x_proj in bf16 and in f32 under bf16
+    compute) equal to lstm_scan's (xp_tc_schedule) bit for bit in every
+    output and gradient: the carries are the values lstm_scan's loops keep
+    in registers, so the card's tm kernels equal lstm_scan's. Against the
+    plain tm on the same inputs, 2e-2 of max(1, max |plain|) per tensor;
+    at B = 8 also against the JAX package's lstm_scan_tm in interpret mode
+    under tests/test_torch_archive.py's loss (the tolerances of its tm
+    test in bf16). dW_hh is split three ways, so that the partition is
+    exercised at this size."""
+    cdt = 'bfloat16'
+    arrays = make_inputs('scan', B, H, 23, seq)
+    x_proj = torch.from_numpy(arrays[0]).to(TD[seq])
+    rest = [torch.from_numpy(a) for a in arrays[1:]]
+    fwd, backward = tm_tc_schedule(x_proj, *rest, TD[cdt], splits=3)
+    xp_fwd, xp_backward = xp_tc_schedule(x_proj, *rest, TD[cdt], splits=3)
+    for name, a, w in zip(('outs', 'hT', 'cT', 'cseq'), fwd, xp_fwd):
+        assert a.dtype == w.dtype and torch.equal(a, w), f'tm {name}'
+    plain = lstm_tm.lstm_tm_reference(x_proj, *rest, TD[cdt])
+    for name, a, w in zip(('outs', 'hT', 'cT', 'cseq'), fwd, plain):
+        assert a.dtype == w.dtype
+        assert_close(a, w, 2e-2, True, f'tm schedule {name}')
+    rng = np.random.default_rng(24)
+    cot = (torch.from_numpy(rng.standard_normal((T, B, H)).astype(
+        np.float32)).to(TD[cdt]), *(torch.from_numpy(rng.standard_normal(
+        (B, H)).astype(np.float32)) for _ in range(2)))
+    grads = backward(*cot)
+    for name, a, w in zip(KINDS['scan'][5], grads, xp_backward(*cot)):
+        assert a.dtype == w.dtype and torch.equal(a, w), f'tm {name}'
+    want = lstm_tm.lstm_tm_backward_reference(x_proj, *rest, plain[0],
+        plain[3], *cot, TD[cdt])
+    for name, a, w in zip(KINDS['scan'][5], grads, want):
+        assert a.dtype == w.dtype and a.shape == w.shape
+        assert_close(a, w, 2e-2, True, f'tm schedule {name}')
+    if B % 8:
+        return
+    outs, hT, cT, _ = fwd
+    # test_torch_archive's tm loss: 0.7 sum(outs) + 1.3 sum(hT) + 0.5
+    # sum(cT)
+    loss_grads = backward(torch.full_like(outs, 0.7, dtype=torch.float32)
+        .to(TD[cdt]), torch.full_like(hT, 1.3), torch.full_like(cT, 0.5))
+    args = [jnp.asarray(arrays[0]).astype(JD[seq])] + [
+        jnp.asarray(a) for a in arrays[1:]]
+
+    def loss(*a):
+        o, h, c = jax_lstm_tm.lstm_scan_tm(*a, JD[cdt])
+        return ((o.astype(jnp.float32) * 0.7).sum() + (h * 1.3).sum()
+            + (c * 0.5).sum())
+    with pltpu.force_tpu_interpret_mode():
+        jouts = jax_lstm_tm.lstm_scan_tm(*args, JD[cdt])
+        jgrads = jax.grad(loss, argnums=(0, 1, 2, 3))(*args)
+    for name, a, w in zip(('outs', 'hT', 'cT'), fwd, jouts):
+        assert_close(a, w, 2e-2, True, f'tm schedule {name} against JAX')
+    for name, a, w in zip(KINDS['scan'][5], loss_grads, jgrads):
+        assert a.shape == tuple(w.shape), name
+        assert_close(a, w, 2e-2, True, f'tm schedule {name} against JAX')
+
+
 def enc4_tc_schedule(*args, splits=3):
     """What the archived enc4's bf16 backward (csrc/lstm_tc.cuh
     tc::backward in mode ENC4) computes, in its order, with the forward
@@ -920,15 +1041,17 @@ def test_step_backward_and_enc2_forward_designs(cdt):
     """lstm_scan_enc's step backward (lstm_enc.design) and the archived
     enc2's forward (archive.design) run the tensor-core kernels of
     lstm_tc.cuh in bf16 ('tc') and the FMA kernels in f32 ('fma'), as
-    every other encoder-fused kernel does; tm stays on FMA in both. Their C
-    functions take enc5's argument lists: lstm_enc_backward's 38 (the P
-    slab, the bf16 weights, the phases) and lstm_enc_forward's 23 (the
-    encoded inputs, the slab, the bf16 weights, the phases)."""
+    every other encoder-fused kernel does, and so do tm's step kernels
+    (mode XP's loops one step a launch). Their C functions take enc5's
+    argument lists: lstm_enc_backward's 38 (the P slab, the bf16 weights,
+    the phases) and lstm_enc_forward's 23 (the encoded inputs, the slab,
+    the bf16 weights, the phases)."""
     want = 'tc' if cdt == 'bfloat16' else 'fma'
     assert lstm_enc.design('lstm_enc_step_backward', TD[cdt]) == want
     assert archive.design('lstm_enc2_forward', TD[cdt]) == want
     for fn in ('lstm_tm_step_forward', 'lstm_tm_step_backward'):
-        assert archive.design(fn, TD[cdt]) == 'fma'
+        assert archive.design(fn, TD[cdt]) == want
+        assert fn in archive.TC_FUNCTIONS
     step = lstm_enc.KERNEL.functions['lstm_enc_step_backward']
     assert step == lstm_enc.KERNEL.functions['lstm_enc_backward']
     assert len(step) == 38

@@ -1,10 +1,10 @@
 """Where the time of the bf16 tensor-core kernels of lstm_scan,
 lstm_scan_fused, lstm_scan_cat, enc5, lstm_scan_enc's step backward, the
-archived enc2 pair or the archived enc3, enc4 and enc6 backwards goes, by
-ablation, on one NVIDIA GPU.
+archived enc2 pair, the archived enc3, enc4 and enc6 backwards or the
+archived tm's step kernels goes, by ablation, on one NVIDIA GPU.
 
     python3 tools/ablate_lstm_tc_torch.py
-        [--kind fused|cat|enc5|enc|scan|enc2|enc3|enc4|enc6]
+        [--kind fused|cat|enc5|enc|scan|enc2|enc3|enc4|enc6|tm]
         [--baseline CSRC_DIR] [--only NAME ...]
 
 The machines the port is measured on run no stall profiler, so this tool
@@ -12,7 +12,7 @@ removes one part of the recurrent loops of csrc/lstm_tc.cuh at a time and
 times what is left. It builds the kind's source
 (pufferlib_tpu_torch/csrc/lstm_scan.cu for fused, the default, and scan,
 lstm_cat.cu for cat, lstm_enc.cu for enc5 and enc, lstm_archive.cu for
-the archived kinds) as it is and in these variants, each a copy of the sources with one
+the archived kinds and tm) as it is and in these variants, each a copy of the sources with one
 edit, built by nvcc into a library of its own (under
 pufferlib_tpu_torch/_build/):
 
@@ -20,6 +20,10 @@ pufferlib_tpu_torch/_build/):
   (zeros in their place; in the backward the activations of those zeros
   then fold to constants);
 - no-mma: the loops run no recurrent product (h @ W_hh, dg @ W_hh^T);
+- no-w-stage (scan and tm): the loops copy no W_hh into shared memory
+  (their products read whatever it holds), so that tm's one launch a
+  step shows what staging W_hh in every launch costs against lstm_scan's
+  once a call;
 - exact-math: the forward loop's cell math through expf, tanhf and IEEE
   division instead of the special function unit (the backward's already
   is);
@@ -76,7 +80,8 @@ pre-pass, enc2's forward encoder + projection, then its loop;
 cold L2), and the reverse loop's kernel alone in one whole backward call
 as torch.profiler reports its device time ('backward loop kernel': a
 phase is the difference of two means, and reads up to 0.1 ms apart run
-to run where the kernel alone does not). An
+to run where the kernel alone does not; tm's T launches summed, and its
+forward's T launches too, 'forward loop kernel'). An
 ablated variant computes wrong numbers by design: only its times mean
 anything. The last line is one JSON object: the mean ms of each phase by
 variant, and the card's name and power limit.
@@ -200,12 +205,12 @@ XP_DB_LOOP = (
 __global__ void __launch_bounds__(NTC, 1) xp_backward_loop(""",
      """template <int H, typename S, bool DB = false>
 __global__ void __launch_bounds__(NTC, 1) xp_backward_loop("""),
-    ("""        float* __restrict__ dgf, int T, int B) {""",
-     """        float* __restrict__ dgf, float* __restrict__ db_part, int T, int B) {"""),
-    ("""    stage_h_prev<H>(h_s, h16, outs, T - 1, B, row0, nrows, 0, BR, 0, NTC);
+    ("""        float* __restrict__ dgf, int t0, int t1, int B) {""",
+     """        float* __restrict__ dgf, float* __restrict__ db_part, int t0, int t1, int B) {"""),
+    ("""    stage_h_prev<H>(h_s, h16, outs, t1 - 1, B, row0, nrows, 0, BR, 0, NTC);
     cp_async_commit();
     float dh[UPW][MT][4], dc[UPW][MT][4];""",
-     """    stage_h_prev<H>(h_s, h16, outs, T - 1, B, row0, nrows, 0, BR, 0, NTC);
+     """    stage_h_prev<H>(h_s, h16, outs, t1 - 1, B, row0, nrows, 0, BR, 0, NTC);
     cp_async_commit();
     float* db_s = reinterpret_cast<float*>(h_s + BR * GE::HS);
     float* db_w = db_s + (side * GE::WPU + wl % GE::WPU) * G;
@@ -259,8 +264,8 @@ __global__ void __launch_bounds__(NTC, 1) xp_backward_loop("""),
 }
 
 // The GEMMs over all T*B rows"""),
-    ("""        F32 ? reinterpret_cast<float*>(dxp) : nullptr, T, B);""",
-     """        F32 ? reinterpret_cast<float*>(dxp) : nullptr, nullptr, T, B);"""),
+    ("""        F32 ? reinterpret_cast<float*>(dxp) : nullptr, t0, t1, B);""",
+     """        F32 ? reinterpret_cast<float*>(dxp) : nullptr, nullptr, t0, t1, B);"""),
     ("""    const GatesOut<SUM> slab{pre, b, B, H, 4 * nblk};
     if ((err = rows_gemm(xs, wi, D, h_prev, wh, H, slab, M, G, stream)) != cudaSuccess ||
         phases < 2)
@@ -280,7 +285,7 @@ __global__ void __launch_bounds__(NTC, 1) xp_backward_loop("""),
         if ((err = prepare(kernel, Geo<H>::XP_DB_SMEM)) != cudaSuccess) return err;
         kernel<<<nblk, NTC, Geo<H>::XP_DB_SMEM, stream>>>(xp, h16, c0, w16 + (size_t)D * G, outs,
                                                           cseq, g_outs, g_hT, g_cT, dh0, dc0, dg,
-                                                          nullptr, db_part, T, B);
+                                                          nullptr, db_part, 0, T, B);
     } else {
         const GatesOut<SUM> slab{pre, b, B, H, 4 * nblk};
         if ((err = rows_gemm(xs, wi, D, h_prev, wh, H, slab, M, G, stream)) != cudaSuccess ||
@@ -308,6 +313,9 @@ ABLATIONS = {
             'memset(acc, 0, sizeof acc);'),
         ('gates_mma<H>(acc, h_s, w_s, mt0, (ug0 + ug) * 8, lane);', ''),
         ('dh_mma<H>(dh, d_s, w_s, mt0, ug0, lane);', '')), ()),
+    'no-w-stage': ((
+        ('cp_async16(w_s + k * Geo<H>::WS + c * 8, w_hh16 + (size_t)k * G + c * 8);',
+            ''),), ()),
     'exact-math': ((
         ('return __fdividef(1.f, 1.f + __expf(-x));',
             'return 1.f / (1.f + expf(-x));'),
@@ -345,11 +353,12 @@ ABLATIONS = {
 # variants that change only some kinds' code
 ARCHIVED = ('enc2', 'enc3', 'enc4', 'enc6')
 ONLY_FOR = {'late-slab-load': ('cat', 'enc5'), 'xp-reorder-slab': ('scan',),
+    'no-w-stage': ('scan', 'tm'),
     'enc2-xp': ('enc2',), 'enc2-fused-slab': ('enc2',),
     'one-chain': ('fused', 'cat', 'enc5', 'enc') + ARCHIVED}
 SOURCES = {'fused': 'lstm_scan.cu', 'cat': 'lstm_cat.cu',
     'enc5': 'lstm_enc.cu', 'enc': 'lstm_enc.cu', 'scan': 'lstm_scan.cu',
-    **{kind: 'lstm_archive.cu' for kind in ARCHIVED}}
+    **{kind: 'lstm_archive.cu' for kind in ARCHIVED + ('tm',)}}
 
 
 def start_build(name, csrc, edits, flags, build_dir, source):
@@ -386,19 +395,24 @@ def load(lib_path, kernel):
     return lib
 
 
-def loop_kernel_ms(torch, np, flush, kind, T=16, B=8192):
-    """Device ms of the reverse loop's kernel (every kind's backward runs
-    one whose name holds 'backward_loop') in a whole bf16 backward call
-    of kind at the main shape, by torch.profiler, cold L2."""
+def loop_kernel_ms(torch, np, flush, kind, T=16, B=8192, part='backward'):
+    """Device ms of the loop's kernels (every kind's backward runs one
+    whose name holds 'backward_loop', its forward one whose name holds
+    'forward_loop') in a whole bf16 call of kind's `part` at the main
+    shape, by torch.profiler, cold L2: tm's T launches summed."""
     import chip_smoke
     from pufferlib_tpu_torch.ops.cuda.timing import profiled_ms
     launch_fwd, launch_bwd = chip_smoke.lstm_kinds()[kind][:2]
     args, grads, cdt = chip_smoke.lstm_case(torch, np.random.RandomState(0),
         kind, T, B, 'bfloat16')
+    per_call = T if kind == 'tm' else 1
     with torch.no_grad():
         outs, _, _, cseq = launch_fwd(*args, cdt)
+        if part == 'forward':
+            return profiled_ms(lambda: launch_fwd(*args, cdt), flush,
+                'forward_loop', per_call=per_call)
         return profiled_ms(lambda: launch_bwd(*args, outs, cseq, *grads,
-            cdt), flush, 'backward_loop')
+            cdt), flush, 'backward_loop', per_call=per_call)
 
 
 def main(argv=None):
@@ -417,7 +431,7 @@ def main(argv=None):
         _build, archive, lstm_cat, lstm_enc, lstm_scan)
     kernel = {'fused': lstm_scan, 'cat': lstm_cat, 'enc5': lstm_enc,
         'enc': lstm_enc, 'scan': lstm_scan,
-        **{kind: archive for kind in ARCHIVED}}[
+        **{kind: archive for kind in ARCHIVED + ('tm',)}}[
         args.kind].KERNEL
     source = SOURCES[args.kind]
     from pufferlib_tpu_torch.ops.cuda.timing import card_line, l2_flush_buffer
@@ -453,8 +467,12 @@ def main(argv=None):
             np.random.RandomState(0), args.kind)
         phases['backward loop kernel'] = loop_kernel_ms(torch, np, flush,
             args.kind)
-        print(f'  backward loop kernel {phases["backward loop kernel"]:.4f} '
-            'ms (profiler)', flush=True)
+        if args.kind == 'tm':
+            # tm's forward has no phases to time: its T loop kernels
+            phases['forward loop kernel'] = loop_kernel_ms(torch, np,
+                flush, args.kind, part='forward')
+        print('  ' + ', '.join(f'{k} {phases[k]:.4f}' for k in phases
+            if k.endswith('loop kernel')) + ' ms (profiler)', flush=True)
         runs[name].append(phases)
     kernel._lib = None
     means = {n: {k: sum(r[k] for r in rs) / len(rs) for k in rs[0]}

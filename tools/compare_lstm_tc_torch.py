@@ -10,15 +10,16 @@ A, B, B, A), on one card: two builds are compared only within one run
 as a child process in the tree, that tree's own chip_smoke.check_lstm
 (timed: CUDA events, cold L2, mean of 20) on the bf16 kernel pairs of
 lstm_scan (row 6), lstm_scan_fused (7), lstm_scan_cat (5), enc5 (3 fwd /
-4), lstm_scan_enc (3 fwd / 3 bwd) and the archived enc2 (8), enc3 (3 fwd
-/ 9), enc4 (3 fwd / 10) and enc6 (3 fwd / 11) at T 16, B 8192, D = H =
-128 (the encoder kinds: F 49), and its own chip_smoke.time_tc_phases for
-the kinds it has phases of: the last backward phase of fused, cat, enc5,
-enc and the archived kinds is their weight gradients (the split-K and
-db's ordered sum), scan's is dW_hh alone. An older tree whose kind runs
+4), lstm_scan_enc (3 fwd / 3 bwd), the archived enc2 (8), enc3 (3 fwd
+/ 9), enc4 (3 fwd / 10) and enc6 (3 fwd / 11) and the archived tm (12:
+one call, T launches each way) at T 16, B 8192, D = H = 128 (the encoder
+kinds: F 49), and its own chip_smoke.time_tc_phases for the kinds it has
+phases of: the last backward phase of fused, cat, enc5, enc and the
+archived encoder kinds is their weight gradients (the split-K and db's
+ordered sum), scan's and tm's dW_hh alone. An older tree whose kind runs
 on FMA (the archived backwards before their redesign, enc's step
-backward and enc2's forward before theirs) has no phases of it: its
-whole call is timed alone. Each turn also prints, for each kind, the SHA-256 of every output
+backward and enc2's forward before theirs, tm before its) has no phases
+of it: its whole call is timed alone. Each turn also prints, for each kind, the SHA-256 of every output
 and gradient of one forward and backward call on inputs from a fixed
 seed, and that of the backward's gradients alone, the backward fed the
 plain forward's outputs: two trees whose digests of a kind agree compute
@@ -35,7 +36,7 @@ import subprocess
 import sys
 
 KINDS = ('scan', 'fused', 'cat', 'enc5', 'enc', 'enc2', 'enc3', 'enc4',
-    'enc6')
+    'enc6', 'tm')
 
 # run inside a tree: its own chip_smoke, its own kernels
 CHILD = r'''

@@ -9,10 +9,11 @@ Variants: fused, fused-fwd (lstm_scan_fused), xp (lstm_scan), cat
 (lstm_scan_enc5), and the archived schedules of ops/cuda/archive: enc2,
 enc3, enc4, enc6 (lstm_scan_enc2 ... lstm_scan_enc6) and tm
 (lstm_scan_tm, one launch per timestep; the JAX lab has no such line).
-In bf16 every one but tm runs csrc/lstm_tc.cuh's tensor-core kernels:
+In bf16 every one runs csrc/lstm_tc.cuh's tensor-core kernels:
 enc's step backward in mode ENC (enc5's backward with f32 activations
 and db from the unrounded dgates), enc2's forward as the encoder, a
-projection GEMM and lstm_scan's loop; tm runs on FMA.
+projection GEMM and lstm_scan's loop; tm lstm_scan's loops one step a
+launch.
 Default: fused fused-fwd. Each line is the mean device time of one call
 (CUDA events, the L2 flushed before every call) of the forward alone (no
 gradient needed: no cell sequence is written, except by tm) or of
