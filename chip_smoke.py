@@ -98,7 +98,8 @@ card (GAE once an epoch; enc5's pair 16 times an epoch each way in
 memory, f32, as config.yaml names no dtype: that shape is held to its
 plain version first), runs --mode autotune over 8192 and 32768 lanes,
 then bench_torch.py in a child process at 10 epochs, whose JSON lines it
-prints as they came.
+prints as they came, and simple_demo_torch.py in a child process (15
+epochs of squared), whose finite score it prints.
 
 The data-parallel phase (phase 18): ppo.create(..., mesh=) on the
 card. A world-size-1 NCCL mesh, joined in this process through a file
@@ -106,8 +107,16 @@ store, trains bench.py's MLP (fused head) and LSTM (enc5) lines and the
 layouts that gather the batch, in bf16 and f32, each against the same
 trainer with no mesh (losses, launches, steps/s); then two spawned gloo
 ranks share the card (NCCL takes one rank a device) and hold their
-losses and launches to that. Tensor parallelism and the scaling lines
-need two or more cards and are held on the CPU only.
+losses and launches to that. Then the model axis: two gloo ranks share
+the card as a make_mesh_2d(1, 2) mesh, every lane on both and the params
+split between them by the JAX rule (the Linear, LSTM cell, attention and
+conv weights), and train bench.py's MLP and plain-scan LSTM lines (f32
+and bf16), its transformer line and its conv line (bf16), at their lanes
+and minibatch shapes with a rollout of 16 steps, for a warm-up epoch and
+a counted one: each rank's warm-up losses within DP_TOL of no mesh, GAE
+once an epoch and no other launch, both ranks' whole params equal, each
+rank's share of the param and Adam bytes printed. The scaling lines need
+two or more cards and are held on the CPU only.
 
 The transformer and self-play phase (phase 19): TransformerWrapper
 at the bench line's width (hidden 128, window 16, 4 heads, B 8192), its
@@ -976,7 +985,7 @@ def make_trainer(torch, num_envs=8192, horizon=64, hidden=128,
         dtype_name='bfloat16', use_kernel=False, minibatch_size=131072,
         seed=0, device='cuda', lstm_kernel=None, lstm_use_kernel=None,
         lstm_input=None, lstm_layers=1, mesh=None, transformer_window=None,
-        **overrides):
+        conv=False, **overrides):
     """bench.py's `_8k_lanes` configuration (bench.py:33-81), on the port;
     with lstm_kernel ('enc5', 'cat' or 'off') its LSTM line instead
     (bench.py:53-57, 66): RecurrentPolicy(LSTMWrapper(Default)) with
@@ -985,27 +994,35 @@ def make_trainer(torch, num_envs=8192, horizon=64, hidden=128,
     lstm_layers layers, minibatch batch_size // 4 by the caller's choice
     of minibatch_size; with transformer_window its transformer line
     (bench.py:166-220, phase 19): TransformerPolicy(TransformerWrapper(
-    Default)) of `hidden`, that window, 4 heads, ffn_mult 2. mesh:
-    ppo.create's (phase 18); overrides: more config fields."""
+    Default)) of `hidden`, that window, 4 heads, ffn_mult 2; with conv its
+    conv line (bench.py:111-164): VisualTarget frames through
+    Convolutional(2, 64, hidden) and the LSTM (lstm_kernel, obs kept in
+    uint8). mesh: ppo.create's (phase 18); overrides: more config
+    fields."""
     import pufferlib_tpu_torch.vector as vector
     from pufferlib_tpu_torch.models import (
-        Default, LSTMWrapper, Policy, RecurrentPolicy, TransformerPolicy,
-        TransformerWrapper)
+        Convolutional, Default, LSTMWrapper, Policy, RecurrentPolicy,
+        TransformerPolicy, TransformerWrapper)
     from pufferlib_tpu_torch.ocean import env_creator
     from pufferlib_tpu_torch.training import ppo
     dtype = getattr(torch, dtype_name)
     batch_size = num_envs * horizon
-    vecenv = vector.make(env_creator('squared'),
-        env_kwargs=dict(distance_to_target=3, num_targets=1),
-        num_envs=num_envs, device=device)
+    vecenv = vector.make(env_creator('visual' if conv else 'squared'),
+        env_kwargs={} if conv else dict(distance_to_target=3,
+            num_targets=1), num_envs=num_envs, device=device)
     obs_shape = vecenv.single_observation_space.shape
     lstm_input = lstm_input or hidden
-    module = Default(obs_shape=obs_shape,
-        action_space=vecenv.single_action_space,
-        hidden_size=hidden if lstm_kernel is None else lstm_input,
-        dtype=dtype, use_kernel=use_kernel,
-        generator=torch.Generator().manual_seed(seed),
-        decoder_input_size=hidden)
+    if conv:
+        module = Convolutional(vecenv.single_action_space, 2, 64,
+            hidden_size=lstm_input, dtype=dtype,
+            generator=torch.Generator().manual_seed(seed))
+    else:
+        module = Default(obs_shape=obs_shape,
+            action_space=vecenv.single_action_space,
+            hidden_size=hidden if lstm_kernel is None else lstm_input,
+            dtype=dtype, use_kernel=use_kernel,
+            generator=torch.Generator().manual_seed(seed),
+            decoder_input_size=hidden)
     if transformer_window is not None:
         policy = TransformerPolicy(TransformerWrapper(module,
             obs_shape=obs_shape, input_size=hidden, hidden_size=hidden,
@@ -1019,13 +1036,14 @@ def make_trainer(torch, num_envs=8192, horizon=64, hidden=128,
             dtype=dtype, kernel=lstm_kernel, use_kernel=lstm_use_kernel,
             generator=torch.Generator().manual_seed(seed + 1)))
     config = ppo.default_config(
-        env='squared',
+        env='visual' if conv else 'squared',
         batch_size=batch_size,
         minibatch_size=minibatch_size,
         bptt_horizon=16,
         total_timesteps=batch_size * 1_000_000,
         anneal_lr=False,
-        obs_store_dtype='bfloat16' if dtype_name == 'bfloat16' else None,
+        obs_store_dtype='bfloat16' if dtype_name == 'bfloat16'
+            and not conv else None,
         verbose=False,
         data_dir=os.path.join(REPO, 'experiments', 'chip_smoke'),
         checkpoint_interval=1_000_000,
@@ -2058,7 +2076,10 @@ def main():
 
     # phase 18: data parallel on the card: a world-size-1 NCCL mesh
     # against no mesh, then two gloo ranks sharing the card
-    dp_launches, dp2_launches = run_dp_phase(torch, card)
+    start = time.perf_counter()
+    dp_launches, dp2_launches, tp_launches = run_dp_phase(torch, card)
+    log(f'phase 18 (data parallel and the model axis): '
+        f'{time.perf_counter() - start:.1f} s')
 
     # phase 19: the transformer family (the wrapper at the bench width on
     # the card, the bench line's trainer, the memory learning proof) and
@@ -2196,6 +2217,9 @@ def main():
             ('lstm_enc5_backward', 1, 'lstm_enc_backward')):
         rows[row]['dp_launches'] = dp_launches[leg, 'bfloat16'][fn]
         rows[row]['dp_rank_launches'] = dp2_launches[leg, 'bfloat16'][fn]
+    # phase 18's model axis: GAE on one rank, by leg and dtype
+    rows['gae']['tp_rank_launches'] = {f'{TP_LEGS[i][0]} {d}':
+        launches['gae_forward'] for (i, d), launches in tp_launches.items()}
     # phase 19: the transformer line's counted epochs and the memory proof
     rows['gae']['transformer_launches'] = xf_launches
     rows['gae']['transformer_proof_launches'] = xf_proof_launches
@@ -2325,7 +2349,9 @@ def run_cli_phase(torch, card):
     --mode autotune over CLI_AUTOTUNE_LANES (GAE once an epoch of each
     rung: a warm-up and 8 timed), and bench_torch.py in a child process
     at CLI_BENCH_ENV, its lines printed as they came, each value finite
-    and positive. Returns the launches of each training run by env."""
+    and positive; last simple_demo_torch.py in a child process on the
+    card, whose finite score it prints. Returns the launches of each
+    training run by env."""
     import gc
     import math
     import subprocess
@@ -2407,6 +2433,20 @@ def run_cli_phase(torch, card):
         raise AssertionError(f'bench_torch.py: lines {records}, expected '
             f'{CLI_BENCH_METRICS} with finite positive values')
     log(f'cli: bench_torch.py ({CLI_BENCH_ENV}) ok in {elapsed:.1f} s')
+
+    start = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.join(REPO,
+        'simple_demo_torch.py')], cwd=REPO, capture_output=True, text=True,
+        timeout=300)
+    elapsed = time.perf_counter() - start
+    last = (proc.stdout.strip().splitlines() or [''])[-1]
+    if proc.returncode or not last.startswith('score: ') or \
+            not math.isfinite(float(last.split()[-1])):
+        raise AssertionError(f'simple_demo_torch.py exited {proc.returncode}'
+            f', last line {last!r}: {proc.stderr[-2000:]}')
+    log(f'cli: simple_demo_torch.py (squared, 256 lanes, 15 epochs of '
+        f'16384, Default h128 f32, on the card) {last} in {elapsed:.1f} s '
+        f'of child wall on {card}')
     return train_launches
 
 
@@ -2449,10 +2489,12 @@ def _dp_compare(got, want, dtype_name, what):
     return max(abs(got[k] - v) for k, v in want.items())
 
 
-def _dp_leg(torch, mesh, kwargs, per_epoch, dtype_name, what):
-    """A warm-up epoch (its losses returned), then DP_EPOCHS epochs with
+def _dp_leg(torch, mesh, kwargs, per_epoch, dtype_name, what,
+        epochs=DP_EPOCHS, inspect=None):
+    """A warm-up epoch (its losses returned), then `epochs` epochs with
     every launch count set to 0 just before and read just after, checked
-    against per_epoch. Returns (warm-up losses, steps/s, launches)."""
+    against per_epoch. Returns (warm-up losses, steps/s, launches, lanes)
+    and, with inspect, what inspect(data) returns after them."""
     from pufferlib_tpu_torch.ops.cuda import KERNELS
     ppo, data = make_trainer(torch, dtype_name=dtype_name, mesh=mesh,
         **kwargs)
@@ -2462,21 +2504,135 @@ def _dp_leg(torch, mesh, kwargs, per_epoch, dtype_name, what):
     for k in KERNELS:
         k.reset_counts()
     start = time.perf_counter()
-    for _ in range(DP_EPOCHS):
+    for _ in range(epochs):
         ppo.step(data)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - start
     launches = {fn: n for k in KERNELS for fn, n in k.fn_launches.items()}
     want = dict.fromkeys(launches, 0)
     for fn, n in per_epoch.items():
-        want[fn] = n * DP_EPOCHS
+        want[fn] = n * epochs
     if launches != want:
         raise AssertionError(f'{what}: launches {launches}, expected {want}')
     check_losses(data, what)
     lanes = data.carry['done'].shape[0]
-    sps = DP_EPOCHS * data.config.batch_size / elapsed
+    sps = epochs * data.config.batch_size / elapsed
+    out = (first, sps, {k: v for k, v in launches.items() if v}, lanes)
+    if inspect is not None:
+        out += (inspect(data),)
     del data
-    return first, sps, {k: v for k, v in launches.items() if v}, lanes
+    return out
+
+
+# phase 18's model axis: two gloo ranks share the card as
+# make_mesh_2d(1, 2), every lane on both ranks and the params split
+# between them by the JAX rule (Linear, LSTM cell, attention and conv
+# weights), on the plain paths (the kernels are refused under a model
+# axis; GAE runs once an epoch). Each leg: (name, make_trainer's
+# arguments, dtypes): bench.py's lines at its lanes, widths and
+# minibatch shapes (lanes x 16), its rollout of 64 steps cut to one BPTT
+# segment of 16, so an epoch is one minibatch an update epoch, not four:
+# every activation the model axis gathers crosses gloo through the host,
+# and at 64 steps the legs took 166-331 s of the smoke's 1200 s
+TP_LEGS = (
+    ('mlp', dict(horizon=16), ('float32', 'bfloat16')),
+    ('lstm', dict(horizon=16, lstm_kernel='enc5', lstm_use_kernel=False),
+        ('float32', 'bfloat16')),
+    ('transformer', dict(horizon=16, transformer_window=16), ('bfloat16',)),
+    ('conv', dict(horizon=16, conv=True, num_envs=4096,
+        minibatch_size=65536, lstm_kernel='cat', lstm_use_kernel=False),
+        ('bfloat16',)),
+)
+TP_EPOCHS = 1
+
+
+def _tp_inspect(data):
+    """What a model-axis rank holds: its split params' count, its bytes
+    of params and of Adam's moments against the whole, and a digest of
+    the whole params (gathered: every rank calls it)."""
+    import hashlib
+    import torch
+    from pufferlib_tpu_torch.parallel.mesh import full, local, split_of
+    params = list(data.policy.parameters())
+    moments = [data.optimizer.state[p][slot] for p in params
+        for slot in ('exp_avg', 'exp_avg_sq')]
+
+    def size(tensors, part):
+        return sum((local(t) if part else t).numel() * t.element_size()
+            for t in tensors)
+    flat = torch.cat([full(p.detach()).reshape(-1).view(torch.uint8)
+        for p in params])
+    return dict(split=sum(split_of(p) is not None for p in params),
+        params=len(params), param_bytes=(size(params, True),
+            size(params, False)), adam_bytes=(size(moments, True),
+            size(moments, False)),
+        digest=hashlib.sha256(flat.cpu().numpy().tobytes()).hexdigest())
+
+
+def _tp_rank():
+    """One of the two model-axis ranks that share the card: each leg of
+    TP_LEGS in each of its dtypes, as _dp_leg with TP_EPOCHS counted
+    epochs. Runs in a spawned process."""
+    import torch
+    from pufferlib_tpu_torch.ops.cuda import KERNELS
+    from pufferlib_tpu_torch.ops.cuda._build import build_all
+    from pufferlib_tpu_torch.parallel import make_mesh_2d
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build_all(KERNELS)  # the parent's libraries: loaded, not rebuilt
+    mesh = make_mesh_2d(1, 2)
+    out = []
+    for i, (name, kwargs, dtype_names) in enumerate(TP_LEGS):
+        for dtype_name in dtype_names:
+            out.append((i, dtype_name) + _dp_leg(torch, mesh, kwargs,
+                {'gae_forward': 1}, dtype_name, f'rank {mesh.get_rank()}: '
+                f'model axis {name} {dtype_name}', epochs=TP_EPOCHS,
+                inspect=_tp_inspect))
+    return out
+
+
+def run_tp_legs(torch, card):
+    """Phase 18's model axis on the card: each leg of TP_LEGS with no mesh
+    in this process (a warm-up epoch, then TP_EPOCHS counted), then on
+    two spawned gloo ranks sharing the card as a (1, 2) mesh. Each rank's
+    warm-up losses are held to no mesh (DP_TOL), GAE launches once a
+    counted epoch and nothing else, both ranks end with the same whole
+    params (a digest of them). Returns one rank's launches by leg."""
+    from pufferlib_tpu_torch.parallel.multihost import spawn
+    alone = {}
+    for i, (name, kwargs, dtype_names) in enumerate(TP_LEGS):
+        for dtype_name in dtype_names:
+            alone[i, dtype_name] = _dp_leg(torch, None, kwargs,
+                {'gae_forward': 1}, dtype_name, f'model axis {name} '
+                f'{dtype_name}, no mesh', epochs=TP_EPOCHS)
+    start = time.perf_counter()
+    ranks = spawn(_tp_rank, 2, device='cuda', backend='gloo', timeout=900)
+    elapsed = time.perf_counter() - start
+    for legs in zip(*ranks):
+        digests = {leg[-1]['digest'] for leg in legs}
+        i, dtype_name = legs[0][:2]
+        name = TP_LEGS[i][0]
+        if len(digests) != 1:
+            raise AssertionError(f'model axis {name} {dtype_name}: the two '
+                'ranks end with different params')
+        want, base = alone[i, dtype_name][:2]
+        for r, (_, _, first, sps, launches, lanes, held) in enumerate(legs):
+            what = f'model axis (1, 2) on one card (gloo), rank {r}: ' \
+                f'{name} {dtype_name}'
+            err = _dp_compare(first, want, dtype_name, what)
+            p_held, p_whole = held['param_bytes']
+            a_held, a_whole = held['adam_bytes']
+            log(f'{what}: {lanes} lanes, {held["split"]} of '
+                f'{held["params"]} params split; params {p_held} of '
+                f'{p_whole} bytes ({p_held / p_whole:.3f}), Adam moments '
+                f'{a_held} of {a_whole} ({a_held / a_whole:.3f}); '
+                f'{sps:.1f} steps/s over {TP_EPOCHS} epoch after a warm-up '
+                f'(no mesh: {base:.1f}), the card shared by both ranks, on '
+                f'{card}; launches {json.dumps(launches)}; warm-up losses '
+                f'within {err:.3g} of no mesh; params equal on both ranks')
+    log(f'model axis: both ranks ran every leg in {elapsed:.1f} s, the '
+        'spawn and the build load included')
+    return {(i, d): launches for i, d, _, _, launches, _, _ in ranks[0]}
 
 
 def _dp_rank(legs, dtype_names):
@@ -2513,7 +2669,15 @@ def run_dp_phase(torch, card):
     gather path is a zero-padded all-reduce), spawned, each stepping 4096
     of the lanes through DP2_LEGS: each rank's warm-up losses held to
     (a)'s, its own launches counted as in (a). Returns (a)'s and one
-    rank's launches by leg."""
+    rank's launches by leg, and (c)'s.
+
+    (c) The model axis (run_tp_legs): two gloo ranks share the card as a
+    make_mesh_2d(1, 2) mesh, every lane on both and the params split by
+    the JAX rule, through the helpers of parallel/mesh.py, whose
+    collectives are all_reduce alone (gloo's on CUDA tensors): the MLP
+    and the plain-scan LSTM in f32 and bf16, the transformer and the conv
+    line in bf16, at bench.py's lanes and minibatch shapes, 16 steps a
+    rollout (TP_LEGS)."""
     import tempfile
     import torch.distributed as dist
     from pufferlib_tpu_torch.parallel import init_distributed, make_mesh
@@ -2554,12 +2718,12 @@ def run_dp_phase(torch, card):
                 f'card shared by both ranks, on {card}; launches '
                 f'{json.dumps(launches)}; warm-up losses within {err:.3g} '
                 'of world size 1')
-    log('dp: tensor parallelism (a model axis) and the scaling lines need '
-        'two or more cards; on this one card they were not run, and are '
-        'held on the CPU only (gloo ranks: tests/test_torch_parallel.py, '
-        'tests/test_torch_multihost.py)')
+    tp_launches = run_tp_legs(torch, card)
+    log('dp: the scaling lines need two or more cards; on this one card '
+        'they were not run (tools/bench_scaling_torch.py --cpu holds them '
+        'on gloo CPU ranks)')
     return launches_one, {(i, d): launches for i, d, _, _, launches, _
-        in ranks[0]}
+        in ranks[0]}, tp_launches
 
 
 def load_tool(name):

@@ -16,7 +16,8 @@ from torch import nn
 from pufferlib_tpu_torch import emulation
 from pufferlib_tpu_torch.models import _Heads, _nhwc_flat
 from pufferlib_tpu_torch.models._layers import (
-    _conv_relu, _embedding, _lecun_dense, _linear, _orthogonal_conv)
+    _conv_relu, _embed, _embedding, _lecun_dense, _linear,
+    _orthogonal_conv)
 
 BLSTATS = 27
 ROWS, COLS = 21, 79
@@ -59,9 +60,10 @@ class Policy(nn.Module):
             chars = flat[:, BLSTATS:BLSTATS + ROWS * COLS].reshape(batch,
                 ROWS, COLS)
         blstats = torch.clamp(blstats.to(torch.int64) + 1, 0, 255)
-        bl_flat = self.blstats_embed(blstats).reshape(batch, -1)
+        bl_flat = _embed(self.blstats_embed, blstats).reshape(batch, -1)
         # (B, 21, 79, 32) NHWC -> NCHW
-        ch = self.char_embed(chars.to(torch.int64)).permute(0, 3, 1, 2)
+        ch = _embed(self.char_embed, chars.to(torch.int64)).permute(
+            0, 3, 1, 2)
         for layer in (self.conv1, self.conv2, self.conv3):
             ch = _conv_relu(layer, ch, self.dtype)
         concat = torch.cat([bl_flat.to(self.dtype), _nhwc_flat(ch)], dim=1)

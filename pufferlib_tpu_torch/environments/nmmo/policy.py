@@ -21,7 +21,8 @@ from torch import nn
 from pufferlib_tpu_torch import emulation
 from pufferlib_tpu_torch.models import _Heads, _nhwc_flat
 from pufferlib_tpu_torch.models._layers import (
-    _conv_relu, _embedding, _lecun_dense, _linear, _orthogonal_conv)
+    _conv_relu, _embed, _embedding, _lecun_dense, _linear,
+    _orthogonal_conv)
 
 NUM_ATTRS = 34
 TILE_FEATS = 3
@@ -84,7 +85,7 @@ class Policy(nn.Module):
         tile = torch.cat([tile[:, :, :2] + 7 - center, tile[:, :, 2:]],
             dim=2)
         offsets = torch.arange(TILE_FEATS, device=tile.device) * 256
-        tile = self.embedding(torch.clamp(tile, 0, 255) + offsets)
+        tile = _embed(self.embedding, torch.clamp(tile, 0, 255) + offsets)
         # (B, 225, 3, 32) -> (B, 15, 15, 96) NHWC -> NCHW
         tile = tile.reshape(batch, 15, 15, TILE_FEATS * 32).permute(
             0, 3, 1, 2)
@@ -95,7 +96,7 @@ class Policy(nn.Module):
         ent = self.own_entity(entity, my_id)
         ent_offsets = (torch.arange(ENTITY_FEATS, device=ent.device)
             + TILE_FEATS) * 256
-        ent = self.embedding(torch.clamp(ent, 0, 255) + ent_offsets)
+        ent = _embed(self.embedding, torch.clamp(ent, 0, 255) + ent_offsets)
         ent = torch.relu(self._dense(self.entity_fc, ent.reshape(batch,
             -1)))
 

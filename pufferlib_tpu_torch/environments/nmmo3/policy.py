@@ -17,8 +17,8 @@ from torch import nn
 
 from pufferlib_tpu_torch.models import _Heads, _nhwc_flat
 from pufferlib_tpu_torch.models._layers import (
-    _conv_relu, _embedding, _lecun_dense, _linear, _orthogonal_conv,
-    _orthogonal_dense)
+    _conv_relu, _embed, _embedding, _lecun_dense, _linear, _orthogonal_conv,
+    layer_init_dense)
 
 FACTORS = (4, 4, 16, 5, 3, 5, 5, 6, 7, 4)
 N_CHANNELS = sum(FACTORS)  # 59
@@ -51,10 +51,10 @@ class Policy(nn.Module):
         half = hidden_size // 2
         self.map_conv_1 = _orthogonal_conv(N_CHANNELS, 64, 5, 3, generator)
         self.map_conv_2 = _orthogonal_conv(64, 64, 3, 1, generator)
-        self.map_fc = _orthogonal_dense(1 * 2 * 64, half, math.sqrt(2),
+        self.map_fc = layer_init_dense(1 * 2 * 64, half, math.sqrt(2),
             generator)
         self.player_embed = _embedding(128, 32, generator)
-        self.player_fc = _orthogonal_dense(PLAYER_FEATS * 32, half,
+        self.player_fc = layer_init_dense(PLAYER_FEATS * 32, half,
             math.sqrt(2), generator)
         self.proj = _lecun_dense(2 * half, hidden_size, generator)
         self.heads = _Heads(action_space, hidden_size, generator)
@@ -73,7 +73,8 @@ class Policy(nn.Module):
         ob_map = _conv_relu(self.map_conv_2, ob_map, self.dtype)
         ob_map = torch.relu(self._dense(self.map_fc, _nhwc_flat(ob_map)))
 
-        ob_player = self.player_embed(torch.clamp(player, 0, 127))
+        ob_player = _embed(self.player_embed, torch.clamp(player, 0,
+            127))
         ob_player = torch.relu(self._dense(self.player_fc,
             ob_player.reshape(batch, -1)))
 

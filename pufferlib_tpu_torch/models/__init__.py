@@ -27,7 +27,8 @@ from torch import nn
 from pufferlib_tpu_torch import emulation, spaces
 from pufferlib_tpu_torch.environment import tree_leaves
 from pufferlib_tpu_torch.models._layers import (
-    _conv_relu, _linear, _orthogonal_conv, _orthogonal_dense)
+    _columns, _conv, _conv_relu, _linear, _orthogonal_conv,
+    layer_init_dense, orthogonal_init)
 from pufferlib_tpu_torch.models.distributions import sample_logits
 from pufferlib_tpu_torch.models.policy import (
     Policy, RecurrentPolicy, count_params)
@@ -41,7 +42,8 @@ from pufferlib_tpu_torch.ops.cuda.mlp import mlp_head
 
 __all__ = ['Default', 'LSTMWrapper', 'Convolutional', 'ProcgenResnet',
     'TransformerWrapper', 'TransformerPolicy', 'lstm_route', 'sample_logits',
-    'Policy', 'RecurrentPolicy', 'count_params']
+    'Policy', 'RecurrentPolicy', 'count_params', 'layer_init_dense',
+    'orthogonal_init']
 
 LSTM_KERNELS = ('enc5', 'cat', 'off')
 
@@ -399,10 +401,11 @@ class LSTMWrapper(nn.Module):
         """One cell step, [x | h] @ [W_ih; W_hh] on cdt-rounded operands
         with f32 accumulation and f32 gates (models/__init__.py:354-379)."""
         cdt = self.dtype
-        xh = torch.cat([round_to(x, cdt), round_to(h, cdt)], dim=-1)
-        w_cat = round_to(torch.cat([w_ih, w_hh], dim=0), cdt)
-        i, f, g, o = gate_activations(xh @ w_cat + b.float(),
-            self.hidden_size)
+        # under a model axis: this rank's gate columns, gathered whole
+        w_cat, enter, gather = _columns(w_ih, w_hh)
+        xh = enter(torch.cat([round_to(x, cdt), round_to(h, cdt)], dim=-1))
+        i, f, g, o = gate_activations(
+            gather(xh @ round_to(w_cat, cdt)) + b.float(), self.hidden_size)
         c = f * c + i * g
         return o * torch.tanh(c), c
 
@@ -411,11 +414,16 @@ class LSTMWrapper(nn.Module):
         points (models/__init__.py:416-433): the input projection plus
         bias, and h @ W_hh, each rounded to cdt before the f32 add."""
         cdt, H = self.dtype, self.hidden_size
-        xp = (round_to(x, cdt) @ round_to(w_ih, cdt)).to(cdt) + b.to(cdt)
+        # under a model axis: this rank's gate columns, gathered whole
+        w_ih, enter_x, gather_x = _columns(w_ih)
+        w_hh, enter_h, gather_h = _columns(w_hh)
+        xp = gather_x((enter_x(round_to(x, cdt)) @ round_to(w_ih, cdt)).to(
+            cdt)) + b.to(cdt)
         w_hh_c = round_to(w_hh, cdt)
         outs = []
         for t in range(x.shape[0]):
-            gates = xp[t].float() + (round_to(h, cdt) @ w_hh_c).to(cdt).float()
+            gates = xp[t].float() + gather_h((enter_h(round_to(h, cdt))
+                @ w_hh_c).to(cdt)).float()
             i, f, g, o = gate_activations(gates, H)
             c = f * c + i * g
             h = o * torch.tanh(c)
@@ -435,9 +443,9 @@ class _Heads(nn.Module):
     def __init__(self, action_space, hidden, generator):
         super().__init__()
         self.is_multidiscrete, self.nvec = _action_info(action_space)
-        self.actors = nn.ModuleList(_orthogonal_dense(hidden, n, 0.01,
+        self.actors = nn.ModuleList(layer_init_dense(hidden, n, 0.01,
             generator) for n in self.nvec)
-        self.value = _orthogonal_dense(hidden, 1, 1.0, generator)
+        self.value = layer_init_dense(hidden, 1, 1.0, generator)
 
     def forward(self, hidden, dense):
         value = dense(self.value, hidden).float()
@@ -470,7 +478,7 @@ class Convolutional(nn.Module):
                 (64, 64, 3, 1)):
             self.convs.append(_orthogonal_conv(cin, cout, k, stride,
                 generator))
-        self.fc = _orthogonal_dense(flat_size, hidden_size, math.sqrt(2),
+        self.fc = layer_init_dense(flat_size, hidden_size, math.sqrt(2),
             generator)
         self.heads = _Heads(action_space, hidden_size, generator)
 
@@ -516,8 +524,8 @@ class _ResidualBlock(nn.Module):
         self.conv1 = nn.Conv2d(channels, channels, 3, padding=1)
 
     def forward(self, x):
-        y = self.conv0(torch.relu(x))
-        return x + self.conv1(torch.relu(y))
+        y = _conv(self.conv0, torch.relu(x), torch.float32)
+        return x + _conv(self.conv1, torch.relu(y), torch.float32)
 
 
 class _ConvSequence(nn.Module):
@@ -530,7 +538,7 @@ class _ConvSequence(nn.Module):
             for _ in range(2))
 
     def forward(self, x):
-        x = _max_pool_same(self.conv(x))
+        x = _max_pool_same(_conv(self.conv, x, torch.float32))
         for block in self.res:
             x = block(x)
         return x
@@ -562,14 +570,14 @@ class ProcgenResnet(nn.Module):
 
     @staticmethod
     def _dense(layer, x):
-        return layer(x.float())
+        return _linear(layer, x, torch.float32)
 
     def encode_observations(self, observations):
         x = (observations.float() / 255.0).permute(0, 3, 1, 2)
         for seq in self.sequences:
             x = seq(x)
         x = torch.relu(_nhwc_flat(x))
-        return torch.relu(self.fc(x)), None
+        return torch.relu(self._dense(self.fc, x)), None
 
     def decode_actions(self, hidden, lookup=None):
         return self.heads(hidden, self._dense)

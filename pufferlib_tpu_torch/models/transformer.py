@@ -37,7 +37,8 @@ import math
 import torch
 from torch import nn
 
-from pufferlib_tpu_torch.models._layers import _linear, _orthogonal_dense
+from pufferlib_tpu_torch.models._layers import (
+    _columns, _linear, _whole, layer_init_dense)
 from pufferlib_tpu_torch.models.policy import RecurrentPolicy
 
 __all__ = ['TransformerWrapper', 'TransformerPolicy']
@@ -82,9 +83,9 @@ class TransformerWrapper(nn.Module):
             setattr(self, name, w)
         self.rel_bias = nn.Parameter(torch.zeros(num_heads, window + 1))
         self.ln_ffn = nn.LayerNorm(H, eps=1e-6)
-        self.ffn_in = _orthogonal_dense(H, ffn_mult * H, math.sqrt(2),
+        self.ffn_in = layer_init_dense(H, ffn_mult * H, math.sqrt(2),
             generator)
-        self.ffn_out = _orthogonal_dense(ffn_mult * H, H, math.sqrt(2),
+        self.ffn_out = layer_init_dense(ffn_mult * H, H, math.sqrt(2),
             generator)
         self._bands = {}
 
@@ -143,7 +144,9 @@ class TransformerWrapper(nn.Module):
         normed = self.ln_kv(kv_src.float())
 
         def proj(v, w):
-            return v.to(cdt) @ w.to(cdt)
+            # under a model axis: this rank's columns, gathered whole
+            w, enter, gather = _columns(w)
+            return gather(enter(v.to(cdt)) @ w.to(cdt))
 
         def heads(v):                                        # (B, nh, S, dh)
             return v.reshape(v.shape[0], B, nh, dh).permute(1, 2, 0, 3)
@@ -153,7 +156,7 @@ class TransformerWrapper(nn.Module):
         v = heads(proj(normed, self.wv))
         scores = (q @ k.transpose(-1, -2)).float() / math.sqrt(dh)
         index, allowed = self._band(T, x.device)
-        scores = scores + self.rel_bias[:, index][None]
+        scores = scores + _whole(self.rel_bias)[:, index][None]
         scores = scores.masked_fill(~allowed, -math.inf)
         attn = torch.softmax(scores, dim=-1)
         ctx = attn.to(cdt) @ v                               # (B, nh, T, dh)

@@ -6,12 +6,17 @@ axis 'env', replicates the params, and lets GSPMD insert the gradient
 psum; an optional 'model' axis shards the params (tensor parallelism).
 
 Here one process runs each rank (NCCL on the card, gloo where the caller
-asks for the CPU), and the trainer (training/ppo.py) does what GSPMD did:
-each rank steps its own block of lanes and launches its own kernels, and
-one all-reduce over the env axis's group sums the gradient. The model
-axis is a `parallelize_module` plan (param_shardings): the sharded
-weights are DTensors, and `sharded_linear` runs a layer on them with its
-input and output whole on every rank of the axis.
+asks for the CPU, or for ranks that share a card), and the trainer
+(training/ppo.py) does what GSPMD did: each rank steps its own block of
+lanes and launches its own kernels, and one all-reduce over the env
+axis's group sums the gradient. On the model axis param_shardings is the
+JAX rule, every parameter of two or more dims in its JAX layout:
+shard_params makes each one it splits a DTensor of this rank's block,
+and the layers use them through sharded_linear, sharded_matmul,
+sharded_conv2d, sharded_embedding and whole, which take their
+activations whole on every rank of the axis and give them whole. Their
+collectives are dist.all_reduce alone (the GSPMD activation collectives
+of the JAX package).
 
 The placement helpers (replicated, env_sharded, carry_shardings,
 batch_shardings) return what JAX's NamedShardings say, as DTensor
@@ -80,44 +85,295 @@ def axis_size(mesh, axis):
     return mesh.size(names.index(axis)) if axis in names else 1
 
 
+class ShardingPlan(dict):
+    """What param_shardings gives: `dims`, {parameter name: the torch dim
+    it splits on over the model axis}, for every parameter the JAX rule
+    shards; and, as a dict, {name of an nn.Linear whose weight is among
+    them: its style}, in torch.distributed.tensor.parallel's words for
+    what sharded_linear does (ColwiseParallel: the weight split on its
+    outputs, the output gathered whole; RowwiseParallel: split on its
+    inputs, the input taken whole). shard_params applies it."""
+
+    def __init__(self, styles=(), dims=None):
+        super().__init__(styles)
+        self.dims = dict(dims or {})
+
+
+def _jax_dims(layer, name, param):
+    """(the JAX layout's last dim, its first) of a parameter, as torch
+    dims (convert.py's layouts): an nn.Linear weight (out, in) is flax's
+    (in, out); a convolution's (out, in, kh[, kw]) is (kh[, kw], in,
+    out); every other parameter (an nn.Embedding's (n, d), the LSTM's
+    and the attention's matrices) is stored in the JAX layout."""
+    if name == 'weight' and isinstance(layer, nn.Linear):
+        return 0, 1
+    if name == 'weight' and isinstance(layer, nn.modules.conv._ConvNd):
+        return 0, 2
+    return param.ndim - 1, 0
+
+
 def param_shardings(mesh, module, axis='model'):
-    """Tensor-parallel plan for `module`, the JAX rule (a flax kernel
-    (in, out) is torch's nn.Linear.weight (out, in)): each nn.Linear
-    shards its outputs over `axis` where they divide (ColwiseParallel),
-    else its inputs (RowwiseParallel), else replicates (no entry); 1-D
-    leaves (biases) follow their layer's style, other parameters
-    replicate. Every style takes its input whole and gives its output
-    whole, so a layer's neighbours see plain tensors. A mesh with no
-    `axis`, or an axis of 1, replicates everything: the plan is empty.
-    Apply it with torch.distributed.tensor.parallel.parallelize_module(
-    module, mesh[axis], plan)."""
+    """Tensor-parallel plan for `module`, the JAX rule
+    (pufferlib_tpu/parallel/mesh.py:41-69) read in each parameter's JAX
+    layout: a parameter of two or more dims shards over `axis` on the
+    JAX last dim where it divides (>= k), else on the first, else
+    replicates; 1-D and 0-D parameters (biases, LayerNorm) replicate. A
+    mesh with no `axis`, or an axis of 1, replicates everything: the plan
+    is empty. Returns a ShardingPlan; apply it with shard_params(module,
+    plan, mesh[axis]). Adam's moments then take each parameter's
+    placement, as JAX's param_shardings(mesh, opt_state) gives them."""
     k = axis_size(mesh, axis)
     if k == 1:
-        return {}
-    plan = {}
-    for name, layer in module.named_modules():
-        if not isinstance(layer, nn.Linear):
-            continue
-        out_features, in_features = layer.weight.shape
-        if out_features % k == 0 and out_features >= k:
-            plan[name] = ColwiseParallel(output_layouts=Replicate())
-        elif in_features % k == 0 and in_features >= k:
-            plan[name] = RowwiseParallel(input_layouts=Replicate())
-    return plan
+        return ShardingPlan()
+    styles, dims = {}, {}
+    for prefix, layer in module.named_modules():
+        for name, param in layer.named_parameters(recurse=False):
+            if param.ndim < 2:
+                continue
+            for dim in _jax_dims(layer, name, param):
+                if param.shape[dim] % k == 0 and param.shape[dim] >= k:
+                    dims[f'{prefix}.{name}' if prefix else name] = dim
+                    break
+            else:
+                continue
+            if name == 'weight' and isinstance(layer, nn.Linear):
+                styles[prefix] = ColwiseParallel(
+                    output_layouts=Replicate()) if dim == 0 else \
+                    RowwiseParallel(input_layouts=Replicate())
+    return ShardingPlan(styles, dims)
+
+
+def shard(tensor, mesh, dim):
+    """This rank's block of `tensor` (whole on every rank) along `dim` of
+    the 1-D mesh, as a DTensor placed Shard(dim): no communication."""
+    k, r = mesh.size(), mesh.get_local_rank()
+    n = tensor.shape[dim] // k
+    return DTensor.from_local(tensor.narrow(dim, r * n, n).contiguous(),
+        mesh, [Shard(dim)], run_check=False)
+
+
+def shard_params(module, plan, mesh):
+    """Replace each parameter of plan.dims by its block on `mesh` (the
+    model axis's 1-D submesh), a DTensor Parameter. Every rank must hold
+    the same whole parameters first (ppo.create checks it)."""
+    for name, dim in plan.dims.items():
+        owner, _, attr = name.rpartition('.')
+        layer = module.get_submodule(owner)
+        param = getattr(layer, attr)
+        setattr(layer, attr, nn.Parameter(shard(param.detach(), mesh, dim),
+            requires_grad=param.requires_grad))
+
+
+# The model axis's collectives. Every sharded weight is used through the
+# helpers below: each takes its activations whole on every rank of the
+# axis and gives them whole, and compute runs on the rank's own block.
+# They are the four conjugate pairs of Megatron-style tensor parallelism,
+# on dist.all_reduce alone (a gather is each rank's bytes written into
+# zeros and summed), so the same code runs over NCCL and over gloo on
+# CUDA tensors (two ranks that share a card).
+
+def split_of(weight):
+    """(group, k, r, dim) of a parameter that shard_params split: the
+    model axis's process group, its size, this rank's index and the dim;
+    None for a plain tensor."""
+    if not isinstance(weight, DTensor):
+        return None
+    mesh = weight.device_mesh
+    (placement,) = weight.placements
+    return mesh.get_group(), mesh.size(), mesh.get_local_rank(), \
+        placement.dim
+
+
+def gather_blocks(x, dim, group, k, r):
+    """Every rank's block of x along dim, concatenated in rank order, on
+    every rank: one all-reduce of a zero-padded byte buffer, so the bits
+    are each rank's own (not differentiable; see gather)."""
+    part = x.movedim(dim, 0).contiguous()
+    raw = part.reshape(-1).view(torch.uint8)
+    buf = torch.zeros((k, raw.numel()), dtype=torch.uint8, device=x.device)
+    buf[r] = raw
+    dist.all_reduce(buf, group=group)
+    return buf.view(x.dtype).reshape((k * part.shape[0],)
+        + tuple(part.shape[1:])).movedim(0, dim)
+
+
+def _own_block(x, dim, k, r):
+    n = x.shape[dim] // k
+    return x.narrow(dim, r * n, n)
+
+
+class _Enter(torch.autograd.Function):
+    """Identity forward; the gradient summed over the axis backward (each
+    rank's block gives only its part of dx)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        # summed in f32 (a bf16 dx is rounded once, as one GEMM's is)
+        total = grad.float().contiguous()
+        if total is grad:
+            total = total.clone()
+        dist.all_reduce(total, group=ctx.group)
+        return total.to(grad.dtype), None
+
+
+class _Sum(torch.autograd.Function):
+    """The ranks' partial results summed forward; identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        x = x.contiguous().clone()
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _Gather(torch.autograd.Function):
+    """The blocks along dim gathered forward; this rank's block of the
+    gradient backward."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group, k, r):
+        ctx.split = dim, k, r
+        return gather_blocks(x, dim, group, k, r)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _own_block(grad, *ctx.split), None, None, None, None
+
+
+class _Slice(torch.autograd.Function):
+    """This rank's block along dim forward; the gradient's blocks gathered
+    backward."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group, k, r):
+        ctx.split = dim, group, k, r
+        return _own_block(x, dim, k, r)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return gather_blocks(grad, *ctx.split), None, None, None, None
+
+
+def enter(x, group):
+    return _Enter.apply(x, group)
+
+
+def reduce_sum(x, group):
+    return _Sum.apply(x, group)
+
+
+def gather(x, dim, group, k, r):
+    return _Gather.apply(x, dim % x.ndim, group, k, r)
+
+
+def slice_block(x, dim, group, k, r):
+    return _Slice.apply(x, dim % x.ndim, group, k, r)
+
+
+def whole(weight):
+    """A parameter whole on every rank, differentiable (each rank's
+    gradient lands on its block); a plain tensor as it is."""
+    split = split_of(weight)
+    if split is None:
+        return weight
+    group, k, r, dim = split
+    return gather(weight.to_local(), dim, group, k, r)
+
+
+def split_columns(*weights):
+    """(group, k, r) where every weight of (in, out) layout shards on its
+    last dim (its columns: the JAX rule's column-parallel case), else
+    None."""
+    splits = [split_of(w) for w in weights]
+    if any(s is None or s[3] != w.ndim - 1 for s, w in zip(splits,
+            weights)):
+        return None
+    return splits[0][:3]
+
+
+def column_product(weights):
+    """(w, enter_fn, gather_fn) for a product x @ cat(weights) (rows
+    stacked) of (in, out) weights (the LSTM's, the attention's), x whole
+    on every rank of the model axis: where every weight splits on its
+    last dim (the JAX rule's column-parallel case), w is this rank's
+    column blocks stacked, enter_fn(x) enters x into the axis and
+    gather_fn(y) gathers the product's columns whole; otherwise w is the
+    whole weights stacked and both are the identity. Any elementwise
+    rounding of w, or cast of the product before gather_fn, gives the
+    bits it gives the whole product."""
+    split = split_columns(*weights)
+    if split is None:
+        w = [whole(w) for w in weights]
+        return (torch.cat(w) if len(w) > 1 else w[0]), _same, _same
+    group, k, r = split
+    w = [w.to_local() for w in weights]
+    return (torch.cat(w) if len(w) > 1 else w[0]), \
+        (lambda x: enter(x, group)), (lambda y: gather(y, -1, group, k, r))
+
+
+def _same(x):
+    return x
 
 
 def sharded_linear(x, weight, bias):
-    """F.linear on a weight that param_shardings' plan sharded (a
+    """F.linear in x's dtype on a weight that shard_params split (a
     DTensor): x whole on every rank of the model axis, the output whole
-    too (a column-parallel layer gathers its outputs, a row-parallel one
-    sums its partial products), differentiable."""
-    mesh = weight.device_mesh
-    x = DTensor.from_local(x, mesh, [Replicate()], run_check=False)
-    if weight.placements[0] == Shard(1):
-        # row-parallel: each rank multiplies its slice of the inputs
-        x = x.redistribute(mesh, [Shard(-1)])
-    out = F.linear(x, weight, bias)
-    return out.redistribute(mesh, [Replicate()]).to_local()
+    too, differentiable. Column-parallel (outputs split): each rank its
+    outputs with its block of the bias, then gathered. Row-parallel
+    (inputs split): each rank's partial product of its inputs in f32,
+    summed, plus the bias, rounded to x's dtype once."""
+    group, k, r, dim = split_of(weight)
+    w = weight.to_local().to(x.dtype)
+    b = None if bias is None else bias.to(x.dtype)
+    if dim == 0:
+        if b is not None:
+            b = slice_block(b, 0, group, k, r)
+        return gather(F.linear(enter(x, group), w, b), -1, group, k, r)
+    part = F.linear(slice_block(x, -1, group, k, r).float(), w.float())
+    out = reduce_sum(part, group)
+    if b is not None:
+        out = out + b.float()
+    return out.to(x.dtype)
+
+
+def sharded_conv2d(x, weight, bias, stride, padding):
+    """F.conv2d in x's dtype on a weight that shard_params split: on out
+    channels, each rank its channels with its block of the bias, then
+    the channels gathered; on kh, the weight gathered whole at use."""
+    group, k, r, dim = split_of(weight)
+    b = None if bias is None else bias.to(x.dtype)
+    if dim != 0:
+        return F.conv2d(x, whole(weight).to(x.dtype), b, stride=stride,
+            padding=padding)
+    if b is not None:
+        b = slice_block(b, 0, group, k, r)
+    out = F.conv2d(enter(x, group), weight.to_local().to(x.dtype), b,
+        stride=stride, padding=padding)
+    return gather(out, 1, group, k, r)
+
+
+def sharded_embedding(index, weight):
+    """F.embedding on a table that shard_params split: on its features,
+    each rank looks up its columns, then they are gathered; on its rows,
+    each rank looks up the indices it holds (zeros elsewhere), and the
+    lookups are summed."""
+    group, k, r, dim = split_of(weight)
+    table = weight.to_local()
+    if dim == 1:
+        return gather(F.embedding(index, table), -1, group, k, r)
+    n = table.shape[0]
+    held = (index >= r * n) & (index < (r + 1) * n)
+    rows = F.embedding((index - r * n).clamp(0, n - 1), table)
+    return reduce_sum(torch.where(held[..., None], rows, 0.0), group)
 
 
 def local(tensor):
@@ -127,8 +383,15 @@ def local(tensor):
 
 def full(tensor):
     """The whole of a DTensor on every rank of its mesh (a collective:
-    every rank calls it); a plain tensor as it is."""
-    return tensor.full_tensor() if isinstance(tensor, DTensor) else tensor
+    every rank calls it; a split parameter's blocks by gather_blocks, bit
+    for bit); a plain tensor as it is."""
+    if not isinstance(tensor, DTensor):
+        return tensor
+    split = split_of(tensor) if len(tensor.placements) == 1 and \
+        tensor.placements[0].is_shard() else None
+    if split is None:
+        return tensor.full_tensor()
+    return gather_blocks(tensor.to_local(), split[3], *split[:3])
 
 
 def env_axis(mesh, axis='env'):

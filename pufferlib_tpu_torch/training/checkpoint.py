@@ -6,15 +6,48 @@ optimizer's state_dict and the counters, each written to a temporary
 file and renamed, under {data_dir}/{exp_id}.
 
 Under a mesh (training/ppo.py) rank 0 writes the files and every rank
-loads them. Params sharded over a model axis are saved whole (every
-rank gathers them: call save_checkpoint on every rank) and loaded back
-into each rank's shards.
+loads them. Params sharded over a model axis, and their Adam moments,
+are saved whole (every rank gathers them: call save_checkpoint on every
+rank) and loaded back into each rank's shards, so a checkpoint written
+under a model axis loads with none, and the other way round.
+
+save_pytree / load_pytree are the JAX package's format (a pickle of a
+nested dict of numpy arrays, written atomically), which needs neither
+JAX nor torch to read: convert.py turns such a params tree into a
+state_dict.
 """
 import os
+import pickle
 import sys
 
+import numpy as np
 import torch
 import torch.distributed
+
+
+def _to_numpy(tree):
+    if isinstance(tree, dict):
+        return {k: _to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_numpy(v) for v in tree)
+    if torch.is_tensor(tree):
+        return tree.detach().cpu().numpy()
+    return np.asarray(tree)
+
+
+def save_pytree(tree, path):
+    """Pickle `tree` (nested dicts, lists and tuples of arrays or
+    tensors, each saved as a numpy array) to path, atomically."""
+    with open(path + '.tmp', 'wb') as f:
+        pickle.dump(_to_numpy(tree), f)
+    os.replace(path + '.tmp', path)
+
+
+def load_pytree(path):
+    """The tree save_pytree (this package's or the JAX package's)
+    wrote."""
+    with open(path, 'rb') as f:
+        return pickle.load(f)
 
 
 def _atomic_save(obj, path):
@@ -35,7 +68,8 @@ def _whole(obj):
     if dtensor is None:
         return obj
     if isinstance(obj, dtensor.DTensor):
-        return obj.full_tensor()
+        from pufferlib_tpu_torch.parallel.mesh import full
+        return full(obj)
     if isinstance(obj, dict):
         out = {k: _whole(v) for k, v in obj.items()}
     elif isinstance(obj, (list, tuple)):
@@ -54,8 +88,8 @@ def _shard_like(value, like):
     dtensor = _dtensor()
     if dtensor is None or not isinstance(like, dtensor.DTensor):
         return value
-    return dtensor.distribute_tensor(value.to(like.dtype),
-        like.device_mesh, like.placements, src_data_rank=None)
+    from pufferlib_tpu_torch.parallel.mesh import shard, split_of
+    return shard(value.to(like.dtype), like.device_mesh, split_of(like)[3])
 
 
 def save_checkpoint(data):

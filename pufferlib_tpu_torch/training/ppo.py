@@ -57,9 +57,13 @@ order of float sums (the JAX mesh's contract):
   rank takes the same target_kl decision;
 - GAE runs on each rank's own lanes (the JAX shard_map), with no
   collective;
-- under a 'model' axis the Linear layers shard (parallel.param_shardings)
-  and each grad's sum of squares is reduced over it before the global
-  norm; the LSTM cell's and the attention's matrices replicate; the CUDA
+- under a 'model' axis the params shard by the JAX rule
+  (parallel.param_shardings: every parameter of two or more dims, Linear
+  and conv weights, the LSTM cell's and the attention's matrices,
+  embedding tables), each split one a DTensor of this rank's block, and
+  Adam's moments follow it (Adam runs its per-tensor loop there: one
+  foreach call cannot mix DTensors and tensors); the split grads' sums
+  of squares are summed over the axis before the global norm; the CUDA
   kernels are refused there (a DTensor cannot enter them);
 - checkpoint files, the progress line, the dashboard and wandb are rank
   0's; a collective they need is called by every rank.
@@ -244,14 +248,16 @@ def create(config, vecenv, policy, device=None, wandb=None, mesh=None):
         exp_id = [config.exp_id]
         dist.broadcast_object_list(exp_id, src=0)
         config.exp_id = exp_id[0]
-        if axis.plan:
-            from torch.distributed.tensor.parallel import parallelize_module
-            parallelize_module(policy, axis.model, axis.plan)
+        if axis.plan.dims:
+            from pufferlib_tpu_torch.parallel.mesh import shard_params
+            shard_params(policy, axis.plan, axis.model)
     rows = total_agents if axis is None else total_agents // axis.k
     lstm_state = policy.initial_state(rows, device=device) \
         if recurrent else None
+    split = axis is not None and bool(axis.plan.dims)
     optimizer = torch.optim.Adam(policy.parameters(),
-        lr=config.learning_rate, betas=(0.9, 0.999), eps=1e-5)
+        lr=config.learning_rate, betas=(0.9, 0.999), eps=1e-5,
+        foreach=False if split else None)
 
     obs_shape = tuple(vecenv.single_observation_space.shape)
     rollout_fn = make_rollout_fn(policy, env, step_batch, config, T,
@@ -296,7 +302,8 @@ def _mesh_axis(mesh, policy, device, recurrent, num_envs, total_agents,
     parallel.mesh.env_axis's record, plus this rank's `lanes` and `rows`
     slices, the global `num_envs` and agent rows (`width`), the sampler's
     uniforms a row (`components`) and the tensor-parallel `plan`."""
-    from pufferlib_tpu_torch.parallel.mesh import env_axis, param_shardings
+    from pufferlib_tpu_torch.parallel.mesh import (
+        ShardingPlan, env_axis, param_shardings)
     if torch.device(mesh.device_type).type != device.type:
         raise APIUsageError(f'the mesh is on {mesh.device_type}, the '
             f'trainer on {device}')
@@ -308,7 +315,7 @@ def _mesh_axis(mesh, policy, device, recurrent, num_envs, total_agents,
         if n % k:
             raise APIUsageError(f'{n} {what} do not divide over the env '
                 f'axis of {k} ranks')
-    axis.plan = {}
+    axis.plan = ShardingPlan()
     if axis.model is not None:
         module = policy.module
         inner = getattr(module, 'policy', None)
@@ -335,7 +342,8 @@ def _check_same_params(policy):
     """Every rank must start from rank 0's params (each builds them from
     the same seed): broadcast rank 0's and compare, raising on every rank
     together when one differs."""
-    flat = torch.cat([p.detach().reshape(-1).float()
+    from pufferlib_tpu_torch.parallel.mesh import full
+    flat = torch.cat([full(p.detach()).reshape(-1).float()
         for p in policy.parameters()])
     ref = flat.clone()
     dist.broadcast(ref, src=0)
@@ -480,15 +488,16 @@ def make_minibatch_update(policy, optimizer, config, seg_rows, obs_shape,
     axis (create's, under a mesh): mb is this rank's share of the
     minibatch (seg_rows its segments); the loss's means are over the
     whole minibatch, one all-reduce of a flat buffer sums the ranks'
-    gradients over the env axis, and a grad sharded over the model axis
-    has its sum of squares reduced over it before the global norm."""
+    gradients over the env axis, and the grads split over the model axis
+    have their sums of squares summed over it before the global norm."""
     h = config.bptt_horizon
     params = list(policy.parameters())
     recurrent = getattr(policy, 'lstm', None) is not None
     obs_shape = tuple(obs_shape)
     env_group = None if axis is None else axis.group
     if axis is not None:
-        from pufferlib_tpu_torch.parallel.mesh import full, local
+        from pufferlib_tpu_torch.parallel.mesh import local, split_of
+        split = [split_of(p) is not None for p in params]
 
     def update(mb, lr, stop=False):
         lead = (h, seg_rows) if time_major else (seg_rows, h)
@@ -531,8 +540,15 @@ def make_minibatch_update(policy, optimizer, config, seg_rows, obs_shape,
         else:
             grads = [local(g) for g in grads]
             _sum_over(grads, env_group)
-            gnorm = torch.stack([full(p.grad.square().sum())
-                for p in params]).sum().sqrt()
+            squares = [g.square().sum() for g in grads]
+            gnorm = torch.stack([q for q, s in zip(squares, split)
+                if not s]).sum()
+            if any(split):
+                part = torch.stack([q for q, s in zip(squares, split)
+                    if s]).sum().reshape(1)
+                dist.all_reduce(part, group=axis.model.get_group())
+                gnorm = gnorm + part[0]
+            gnorm = gnorm.sqrt()
         stats['grad_norm'] = gnorm
         if not stop:
             scale = (config.max_grad_norm / (gnorm + 1e-12)).clamp(max=1.0)

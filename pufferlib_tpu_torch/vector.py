@@ -204,6 +204,15 @@ def make_mask_fn(env):
     return mask_batch
 
 
+def check_envs(envs, driver):
+    """Raise APIUsageError unless every env's observation space equals
+    the second argument's (or prints the same), as the JAX check_envs."""
+    for env in envs:
+        if env.observation_space != driver.observation_space and not (
+                repr(env.observation_space) == repr(driver.observation_space)):
+            raise APIUsageError('Observation spaces do not match')
+
+
 class _Vector:
     """What both backends share: the env, its emulated spaces, the device,
     the flag state machine and the sync API over the async one."""

@@ -28,30 +28,36 @@ def build(spec, mesh=None):
     Policy, or with
     policy='lstm' inside LSTMWrapper(hidden, hidden), with
     policy='transformer' inside TransformerWrapper(hidden, hidden,
-    spec['window'], 4 heads); use_kernel on the
+    spec['window'], 4 heads); policy='conv' is Convolutional(framestack
+    2, flat 64, hidden) on the visual env; use_kernel on the
     module that takes it; weights from spec['weights'] (a state_dict
     npz) else a seeded init; config overrides in spec['config']."""
     import torch
     import pufferlib_tpu_torch.vector as vector
     from pufferlib_tpu_torch.models import (
-        Default, LSTMWrapper, Policy, RecurrentPolicy, TransformerPolicy,
-        TransformerWrapper)
+        Convolutional, Default, LSTMWrapper, Policy, RecurrentPolicy,
+        TransformerPolicy, TransformerWrapper)
     from pufferlib_tpu_torch.ocean import env_creator
     from pufferlib_tpu_torch.training import ppo
     torch.set_num_threads(1)
-    vecenv = vector.make(env_creator(spec.get('env', 'squared')),
-        env_kwargs=spec.get('env_kwargs', {}), num_envs=spec['num_envs'],
-        device='cpu')
+    conv = spec.get('policy') == 'conv'
+    vecenv = vector.make(env_creator('visual' if conv else
+        spec.get('env', 'squared')), env_kwargs=spec.get('env_kwargs', {}),
+        num_envs=spec['num_envs'], device='cpu')
     shape = vecenv.single_observation_space.shape
     hidden = spec.get('hidden', 32)
     lstm = spec.get('policy') == 'lstm'
     transformer = spec.get('policy') == 'transformer'
-    module = Default(obs_shape=shape,
-        action_space=vecenv.single_action_space, hidden_size=hidden,
-        emulated=vecenv.emulated,
-        use_kernel=False if lstm or transformer
-            else spec.get('use_kernel', False),
-        generator=torch.Generator().manual_seed(spec.get('init_seed', 0)))
+    generator = torch.Generator().manual_seed(spec.get('init_seed', 0))
+    if conv:
+        module = Convolutional(vecenv.single_action_space, 2, 64,
+            hidden_size=hidden, generator=generator)
+    else:
+        module = Default(obs_shape=shape,
+            action_space=vecenv.single_action_space, hidden_size=hidden,
+            emulated=vecenv.emulated,
+            use_kernel=False if lstm or transformer
+                else spec.get('use_kernel', False), generator=generator)
     if lstm:
         module = LSTMWrapper(module, obs_shape=shape, input_size=hidden,
             hidden_size=hidden, use_kernel=spec.get('use_kernel', False),
@@ -128,6 +134,19 @@ def train(spec, mesh=None):
                 if os.path.isdir(os.path.dirname(path)) else [],
             equal=all(np.array_equal(same[k], result['params'][k])
                 for k in same),
+            adam_steps=int(again.optimizer.state_dict()['state'][0]['step']))
+    if spec.get('resume'):
+        # another trainer's checkpoint (written with no mesh), loaded
+        # into this mesh's shards
+        resume = spec['resume']
+        again = build(dict(spec, weights=None, init_seed=99,
+            data_dir=resume['data_dir']), mesh)
+        again.config.exp_id = resume['exp_id']
+        loaded = checkpoint.try_load_checkpoint(again)
+        with np.load(resume['params']) as f:
+            differ = max(float(np.abs(v - f[k]).max())
+                for k, v in _whole_params(again).items())
+        result['resumed'] = dict(loaded=loaded, differ=differ,
             adam_steps=int(again.optimizer.state_dict()['state'][0]['step']))
     return result
 
