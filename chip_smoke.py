@@ -48,7 +48,13 @@ two shapes, at F = 200 with H = 256 and 512 and O = 17, and with f32 x)
 and in f32 (the FMA kernel); its bf16 kernel runs twice and must agree
 bit for bit, and is timed beside cuBLAS's three-call bf16 composition.
 Both MLP trainers run a warm-up epoch, three timed ones and the
-rollout/update split.
+rollout/update split. enc5's f32 pair (csrc/lstm_f32.cuh: FMA SGEMMs
+around time loops on thread block clusters; f32 is what config.yaml's
+LSTM sections train in) is held to its plain versions at memory's CLI
+shape (T 8, B 512, F 1), at T 16 with B 8192 and 1000, and at hidden 32
+and 64, timed at the first two (and each of its phases at B 8192) beside
+its f32 bound and cat's f32 pair beside cuDNN's f32 nn.LSTM, run twice
+bit-equal, and its loops' registers and tilings printed.
 
 The Ocean phase: the MLP head is also held to its plain version at the
 Ocean envs' shapes (F = 1, 5 and 30 features; O = 3, 5 and 11 outputs;
@@ -698,21 +704,33 @@ def log_tc_usage():
     if out[0] != tc_max_features():
         raise AssertionError(f'lstm_enc_tc_max_features = {out[0]}, but '
             f'lstm_common.tc_max_features() = {tc_max_features()}')
+    # enc5's f32 kernels (csrc/lstm_f32.cuh) and the tilings their loops
+    # take at memory's, a ragged and the bench's batch
+    for H in (32, 64, 128):
+        log(f'  enc5 f32 kernels, H={H}: ' + ', '.join(
+            f'{name} {regs} registers, {spill} bytes spilled'
+            for name, (regs, spill) in lstm_enc.f32_usage(H).items()))
+        log(f'  enc5 f32 loop tilings, H={H} (units a block, rows a thread, '
+            'clusters the card holds): ' + '; '.join(
+                f'B={B} {lstm_enc.f32_plan(H, B)}' for B in (512, 1000, 8192)))
     log('  bf16 tensor-core widest input by hidden size: ' + ', '.join(
         f'H={H}: {tc_max_input(H)}' for H in (32, 64, 128))
         + f'; enc5 widest feature width {tc_max_features()} (C and Python '
         'agree)')
 
 
-def time_tc_phases(torch, flush, rng, kind='fused', T=16, B=8192):
+def time_tc_phases(torch, flush, rng, kind='fused', T=16, B=8192,
+        dtype_name='bfloat16', F=49):
     """Device ms of each phase of the bf16 tensor-core kernels of `kind`
     ('fused': lstm_scan_fused, 'cat': lstm_scan_cat, 'enc5', 'scan':
     lstm_scan with bf16 x_proj, 'enc': lstm_scan_enc's step backward, the
     archived 'enc2' pair and the backwards of the archived 'enc3', 'enc4',
-    'enc6' and 'tm') at the main shape: a launch runs the first k phases, so a
-    phase's time is the difference of two such means (cold L2 each)."""
+    'enc6' and 'tm') at the main shape, or of enc5's f32 kernels
+    (csrc/lstm_f32.cuh, the same phases) with dtype_name float32: a launch
+    runs the first k phases, so a phase's time is the difference of two
+    such means (cold L2 each)."""
     launch_fwd, launch_bwd = lstm_kinds()[kind][:2]
-    args, grads, cdt = lstm_case(torch, rng, kind, T, B, 'bfloat16')
+    args, grads, cdt = lstm_case(torch, rng, kind, T, B, dtype_name, F=F)
     names = PHASES.get(kind, TC_PHASES)
     with torch.no_grad():
         outs, _, _, cseq = launch_fwd(*args, cdt)
@@ -729,7 +747,7 @@ def time_tc_phases(torch, flush, rng, kind='fused', T=16, B=8192):
     title = {'enc5': 'enc5', 'scan': 'lstm_scan'}.get(kind,
         f'archived {kind}' if kind in ARCHIVED_ENC_KINDS + ('tm',)
         else f'lstm_scan_{kind}')
-    log(f'{title} bf16 phases T={T} B={B} H=128, ms: ' + ', '.join(
+    log(f'{title} {dtype_name} phases T={T} B={B} F={F} H=128, ms: ' + ', '.join(
         f'{k} {v:.4f}' for k, v in phases.items())
         + (f'; whole forward {fwd[-1]:.4f}' if fwd else '')
         + f'; whole backward {bwd[-1]:.4f} on {card_line()}')
@@ -1939,8 +1957,11 @@ def main():
         if key not in mlp_runs:
             mlp_runs[key] = check_mlp(torch, mlp, flush, rng, B, 'bfloat16',
                 F=F, H=H, O=O)
+    # f32: enc5's pair (csrc/lstm_f32.cuh) and cat's, beside cuDNN's f32
+    # nn.LSTM, also timed at the main shape
     lstm_runs = {(kind, B, d): check_lstm(torch, flush, rng, kind, B, d,
-            timed=(B, d) == (8192, 'bfloat16'))
+            timed=(B, d) == (8192, 'bfloat16') or (kind in ('enc5', 'cat')
+                and (B, d) == (8192, 'float32')))
         for kind in ('enc5', 'cat', 'scan', 'fused', 'enc')
             + ARCHIVED_ENC_KINDS + ('tm',)
         for B in (8192, 1000) for d in ('bfloat16', 'float32')}
@@ -1963,10 +1984,22 @@ def main():
     # memory run launches it: config.yaml names no dtype
     _, _, mb, bptt, _ = OCEAN_CONFIGS['memory']
     lstm_runs['enc5', mb // bptt, 'float32 F=1 H=128 T=8'] = check_lstm(
-        torch, flush, rng, 'enc5', mb // bptt, 'float32', T=bptt, F=1)
+        torch, flush, rng, 'enc5', mb // bptt, 'float32', T=bptt, F=1,
+        timed=True)
+    # enc5's f32 design at the other hidden sizes, both loop tilings
+    for H in (32, 64):
+        for B in (8192, 1000):
+            lstm_runs['enc5', B, f'float32 H={H}'] = check_lstm(torch, flush,
+                rng, 'enc5', B, 'float32', H=H)
+    enc5_f32_phases = time_tc_phases(torch, flush, rng, 'enc5',
+        dtype_name='float32')
     check_burn(torch, flush, rng)
-    # enc5's bf16 kernels add every partial sum in a fixed order
+    # enc5's bf16 kernels add every partial sum in a fixed order, and so
+    # do its f32 ones, whose loops' clusters meet at barriers each step
     check_bit_equal(torch, rng, 'enc5', 8192)
+    check_bit_equal(torch, rng, 'enc5', 8192, dtype_name='float32')
+    check_bit_equal(torch, rng, 'enc5', mb // bptt, T=bptt, F=1,
+        dtype_name='float32')
     for kind in ('enc5', 'enc', 'enc2'):
         check_bit_equal(torch, rng, kind, 1000, D=96, F=200)
     # x_proj and the compute dtype apart, both ways
@@ -2204,8 +2237,37 @@ def main():
                 kernel_ms=tm_launches['tm', whole][1],
                 lstm_scan_kernel_ms=tm_launches['scan', whole][1],
                 issue_ms=tm_launches['tm', whole][2])
-    # enc5's launches in demo_torch's memory run (phase 17, f32)
+    # enc5's f32 pair (csrc/lstm_f32.cuh), which demo_torch's memory run
+    # (phase 17) launches: config.yaml names no dtype. Its times at the
+    # main shape and at memory's, its phases at the main shape
+    enc5_f32 = lstm_runs['enc5', 8192, 'float32']
+    memory_f32 = lstm_runs['enc5', mb // bptt, 'float32 F=1 H=128 T=8']
+    for part, fn, replaces in (('fwd', 'forward', 'lstm_enc.py:170'),
+            ('bwd', 'backward', 'lstm_enc5.py:147')):
+        kernels.append(dict(name=f'lstm_enc5_{fn}_f32', route='cuda',
+            source='pufferlib_tpu_torch/csrc/lstm_f32.cuh',
+            replaces=f'pufferlib_tpu/ops/pallas/{replaces}',
+            launches=cli_launches['memory'][f'lstm_enc_{fn}'],
+            max_abs_err=max(r[f'{part}_err'] for (k, _, d), r in
+                lstm_runs.items() if k == 'enc5' and d.startswith('float32')),
+            ms=enc5_f32[f'{part}_ms'], plain_ms=enc5_f32[f'{part}_plain_ms'],
+            bound_ms=enc5_f32[f'{part}_bound'],
+            bound_by=enc5_f32[f'{part}_by'], library_ms=None,
+            shape=enc5_f32['shape'], memory_ms=memory_f32[f'{part}_ms'],
+            memory_plain_ms=memory_f32[f'{part}_plain_ms'],
+            memory_bound_ms=memory_f32[f'{part}_bound'],
+            memory_shape=memory_f32['shape'],
+            phases={k: v for k, v in enc5_f32_phases.items()
+                if k.startswith(fn)}))
+    # cat's resident pair in f32 beside cuDNN's f32 nn.LSTM
+    cat_f32 = lstm_runs['cat', 8192, 'float32']
     rows = {row['name']: row for row in kernels}
+    for part, fn in (('fwd', 'forward'), ('bwd', 'backward')):
+        rows[f'lstm_cat_{fn}'].update(f32_ms=cat_f32[f'{part}_ms'],
+            f32_plain_ms=cat_f32[f'{part}_plain_ms'],
+            f32_bound_ms=cat_f32[f'{part}_bound'],
+            f32_library_ms=cat_f32[f'{part}_lib'])
+    # enc5's launches in demo_torch's memory run (phase 17, f32)
     for part in ('forward', 'backward'):
         rows[f'lstm_enc5_{part}']['cli_launches'] = \
             cli_launches['memory'][f'lstm_enc_{part}']

@@ -43,15 +43,24 @@
 //   same products in another fixed order. D is any multiple of 8 that a
 //   GEMM block's weight column holds, F up to what the encoder GEMM's
 //   block holds (lstm_enc_tc_max_features).
-// * f32 (the exact test mode: the tensor cores have no exact f32 product)
-//   and the archived variants' f32 backwards in csrc/lstm_archive.cu:
-//   csrc/lstm_common.cuh on FMA, D == H. The encoder runs inside the time
+// * f32, the default compute dtype of both packages (exact: no TF32, the
+//   tensor cores have no exact f32 product): lstm_enc_forward and
+//   lstm_enc_backward run csrc/lstm_f32.cuh, D == H. The encoder, x @ W_ih
+//   and the backward's gate recompute, dpre and weight gradients are FMA
+//   SGEMMs over all T*B rows; the time loops keep W_hh on chip for all T
+//   steps in a thread block cluster, whose blocks exchange h (forward) or
+//   the partial dh_prev (backward) through distributed shared memory. The
+//   forward's sums keep the order of the FMA cell (x over k < D, then h,
+//   then b), so its outputs are that kernel's bits. lstm_enc_step_backward
+//   and the archived variants' f32 backwards in csrc/lstm_archive.cu keep
+//   csrc/lstm_common.cuh's FMA kernels: the encoder runs inside the time
 //   loop of each block from a W_enc held in shared memory (F <= 128); the
 //   TPU kernel's tall pre-pass becomes a per-step recompute inside the
 //   backward's loop; the post-loop contractions dW_ih, dW_hh and dW_enc
 //   are split-K over the T*B rows with partial sums added in a fixed
 //   order.
 #include "lstm_common.cuh"
+#include "lstm_f32.cuh"
 #include "lstm_tc.cuh"
 
 namespace {
@@ -77,17 +86,20 @@ struct Forward {
                                              static_cast<E*>(cseq), hT, cT, xw,
                                              static_cast<E*>(w16), T, B, D, phases, stream);
         } else {
-            if (phases != lstm::tc::FORWARD_PHASES || D != H) return cudaErrorInvalidValue;
-            return lstm::run_forward<H, E, E, lstm::ENC>(feats, h0, c0, w_enc, b_enc, w_ih,
-                                                         w_hh, b, outs, cseq, hT, cT, T, B, F,
-                                                         stream);
+            if (D != H) return cudaErrorInvalidValue;
+            return lstm::f32::enc5_forward<H>(static_cast<const float*>(feats), h0, c0, w_enc,
+                                              b_enc, w_ih, w_hh, b, static_cast<float*>(outs),
+                                              static_cast<float*>(cseq), hT, cT,
+                                              static_cast<float*>(xs), xw, T, B, F, phases,
+                                              stream);
         }
     }
 };
 
 // The encoder-fused backwards in mode MODE: ENC5 (enc5's) or ENC
 // (lstm_scan_enc's step backward). bf16 on the tensor cores
-// (tc::backward), f32 on lstm_common.cuh's FMA kernels, D == H.
+// (tc::backward); f32 with D == H, enc5's on lstm_f32.cuh, the step
+// backward on lstm_common.cuh's FMA kernels.
 template <int MODE>
 struct EncBackward {
     template <int H, typename E>
@@ -110,6 +122,15 @@ struct EncBackward {
                     static_cast<const E*>(cseq), static_cast<const E*>(g_outs), g_hT, g_cT,
                     nullptr, dh0, dc0, dw, db, static_cast<E*>(dg), dw_part, db_part, pre,
                     static_cast<E*>(w16), T, B, D, splits_w, part_rows, phases, stream, enc);
+            } else if constexpr (MODE == lstm::ENC5) {
+                if (D != H) return cudaErrorInvalidValue;
+                return lstm::f32::enc5_backward<H>(
+                    static_cast<const float*>(feats), h0, c0, w_enc, b_enc, w_ih, w_hh, b,
+                    static_cast<const float*>(outs), static_cast<const float*>(cseq),
+                    static_cast<const float*>(g_outs), g_hT, g_cT, dh0, dc0, dwe, dw, db,
+                    static_cast<float*>(xs), static_cast<float*>(dpre), static_cast<float*>(dg),
+                    dw_part, db_part, dwe_part, pre, T, B, F, splits_w, splits_e, part_rows,
+                    phases, stream);
             } else {
                 if (phases != lstm::tc::BACKWARD_PHASES || D != H) return cudaErrorInvalidValue;
                 return lstm::run_backward<H, E, E, MODE>(
@@ -141,11 +162,12 @@ extern "C" {
 // feats: (T, B, F) in the compute dtype (bf16 when cdt_bf16, else f32);
 // h0, c0: (B, H); w_enc: (F, D); b_enc: (D,); w_ih: (D, 4H), w_hh: (H,
 // 4H); b: (4H,), all f32. Writes outs and, unless it is null, cseq (T, B,
-// H) in the compute dtype, hT and cT (B, H) f32. Scratch, bf16 only (null
-// in f32): xs (T, B, D) bf16, the encoded inputs; xw (T * 64 ceil(B / 64)
-// * 4H) f32, the slab of lstm_tc.cuh; w16 ((D + H) * 4H + F * D) bf16.
-// f32 takes D == H. phases: 2 runs the whole forward; in bf16, 1 stops
-// after the encoder and the pre-pass (to time them).
+// H) in the compute dtype, hT and cT (B, H) f32. Scratch: xs (T, B, D) in
+// the compute dtype, the encoded inputs; bf16: xw (T * 64 ceil(B / 64) *
+// 4H) f32, the slab of lstm_tc.cuh, and w16 ((D + H) * 4H + F * D) bf16;
+// f32 (lstm_f32.cuh, D == H): xw (T * B * 4H) f32, x @ W_ih, and a null
+// w16. phases: 2 runs the whole forward, 1 stops after the encoder and
+// the pre-pass (to time them).
 int lstm_enc_forward(const void* feats, const float* h0, const float* c0,
                      const float* w_enc, const float* b_enc, const float* w_ih,
                      const float* w_hh, const float* b, void* outs, void* cseq, float* hT,
@@ -165,12 +187,14 @@ int lstm_enc_forward(const void* feats, const float* h0, const float* c0,
 // dW_hh] (D + H, 4H) and db (4H,), f32. Scratch: xs and dpre (T, B, D)
 // and dg (T, B, 4H) in the compute dtype; dw_part (splits_w, D + H, 4H)
 // and db_part (part_rows, 4H) f32, part_rows = ceil(B / 64) in bf16 and
-// ceil(B / 32) in f32; dwe_part (splits_e, F + 1, D) in bf16, (splits_e,
-// F, D) in f32; f32 only (null in bf16): dbe_part (part_rows, D); bf16
-// only (null in f32): pre (as the forward's xw) f32 and w16 ((D + H) * 4H
-// + 4H * D + B * H + F * D) bf16. f32 takes D == H. phases: 4 runs the
-// whole backward; in bf16, 1 .. 3 stop after the encoder and the
-// pre-pass, the loop or dpre (to time them).
+// ceil(B / 32) in f32; dwe_part (splits_e, F + 1, D), but (splits_e, F,
+// D) in the f32 step backward, which alone takes dbe_part (part_rows, D)
+// (null elsewhere); pre: bf16 as the forward's xw, f32 enc5 (lstm_f32.cuh)
+// the activations (T * B * 4H) then W_ih^T and W_hh^T (4H * (D + H)),
+// null in the f32 step backward; w16 bf16 only ((D + H) * 4H + 4H * D +
+// B * H + F * D). f32 takes D == H. phases: 4 runs the whole backward; in
+// bf16 and f32 enc5, 1 .. 3 stop after the encoder and the pre-pass, the
+// loop or dpre (to time them).
 #define ENC_BACKWARD(NAME, MODE)                                                            \
     int NAME(const void* feats, const float* h0, const float* c0, const float* w_enc,       \
              const float* b_enc, const float* w_ih, const float* w_hh, const float* b,      \
@@ -204,6 +228,29 @@ int lstm_enc_tc_usage(int H, int* out) {
         case 32: return (int)enc_usage<32>(out);
         case 64: return (int)enc_usage<64>(out);
         case 128: return (int)enc_usage<128>(out);
+    }
+    return (int)cudaErrorInvalidValue;
+}
+
+// Registers and spilled bytes per thread of enc5's f32 kernels at hidden
+// size H (lstm::f32::usage): twenty ints into out.
+int lstm_enc_f32_usage(int H, int* out) {
+    switch (H) {
+        case 32: return (int)lstm::f32::usage<32>(out);
+        case 64: return (int)lstm::f32::usage<64>(out);
+        case 128: return (int)lstm::f32::usage<128>(out);
+    }
+    return (int)cudaErrorInvalidValue;
+}
+
+// The tilings enc5's f32 loops take at B batch rows (lstm::f32::loop_plan):
+// forward then backward, each (units a block, rows a thread, clusters the
+// card holds at once); six ints into out.
+int lstm_enc_f32_plan(int H, int B, int* out) {
+    switch (H) {
+        case 32: return (int)lstm::f32::loop_plan<32>(B, out);
+        case 64: return (int)lstm::f32::loop_plan<64>(B, out);
+        case 128: return (int)lstm::f32::loop_plan<128>(B, out);
     }
     return (int)cudaErrorInvalidValue;
 }

@@ -1,0 +1,990 @@
+// enc5's resident pair in f32 (csrc/lstm_enc.cu with an f32 compute dtype)
+// for Hopper (sm_90a): the products that do not depend on h run as FMA
+// SGEMMs over all T*B rows outside the time loop, and the loop keeps W_hh
+// on chip for all T steps in a thread block cluster. Replaces, in f32, the
+// same TPU kernels as lstm_enc.cu: lstm_enc._impl (the forward of enc5 and
+// lstm_scan_enc) and lstm_enc5._hoisted_bwd. Products are f32 FMAs only (no
+// TF32): the tensor cores have no exact f32 product.
+//
+// Bound: at T = 16, B = 8192, F = 49, D = H = 128 the forward does 36.0
+// GFLOP and the backward 106.4, against 0.1-0.3 GB of device memory: bound
+// by operations at 67 TFLOP/s (0.537 and 1.588 ms). At memory's shape (T 8,
+// B 512, F 1) the bounds are 0.016 and 0.048 ms, and a step of the loop's
+// latency (a barrier, the cell math) sets the time.
+//
+// Forward (enc5_forward):
+// 1. the encoder xs = relu(feats @ W_enc + b_enc), one SGEMM over T*B rows;
+// 2. xw = xs @ W_ih, an SGEMM into a (T*B, 4H) f32 slab;
+// 3. forward_loop: a cluster of CS = H / U blocks owns R batch rows (U =
+//    32 or 64 units a block and RT = 4 or 16 rows a thread, picked from B:
+//    plan); block `rank` holds the four gate columns of units rank*U ..
+//    rank*U+U-1 of W_hh in shared memory (4 U H floats: 128 KiB at U 64,
+//    H 128) for all T steps, and every block holds the whole h_t of its R
+//    rows. Each step a
+//    thread starts its sums from the slab, adds h @ W_hh and b, updates
+//    c and h of its unit for RT rows, and writes h into every block of the
+//    cluster through distributed shared memory; one cluster barrier a
+//    step orders those writes before the next step's reads (h is double
+//    buffered). Each sum is the old one-sum-over-K order: x over k < D from
+//    zero (the slab), then h over k < H, then the bias, so the forward is
+//    the bits of the per-step FMA kernel of lstm_common.cuh.
+// Backward (enc5_backward), tc::backward's hoisted schedule on FMA:
+// 1. the encoder recomputed into xs;
+// 2. a pre-pass: acts = act([xs | h_prev] @ [W_ih; W_hh] + b), one SGEMM
+//    whose epilogue applies the sigmoids and tanh, into a (T*B, 4H) slab;
+// 3. backward_loop: the same clusters walk t = T-1 .. 0; a thread makes
+//    the dgates of its unit and RT rows from the activations (dgates_chain)
+//    and sums db, then each block forms the partial dh_prev of every unit
+//    over its own 4 U gate columns (W_hh^T's slice held for all T steps)
+//    and writes each unit's partial into the block that owns the unit;
+//    that block adds the CS partials in rank order. Two cluster barriers a
+//    step: the dgates complete and every partial read, then the partials
+//    written;
+// 4. dpre = relu-mask(dg @ W_ih^T), an SGEMM with the mask as its epilogue
+//    (at few row tiles split over K, the partials added under the mask);
+// 5. [dW_ih; dW_hh] = [xs | h_prev]^T dg and [dW_enc; db_enc] =
+//    [feats | 1]^T dpre, split-K SGEMMs whose partials are added in split
+//    order; db the ordered sum of the loop blocks' partials. No atomics:
+//    two runs give the same bits.
+//
+// The SGEMM (sgemm): 128 x 128 outputs a block, 256 threads of 8 x 8,
+// two blocks an SM (128 registers a thread; a few bytes spill), K in
+// stages of 16 through a four-stage cp.async ring (feats, whose rows are
+// not 16-byte chunks, four bytes a copy). Each output is one f32 FMA
+// chain over K in order.
+#pragma once
+
+#include <cooperative_groups.h>
+
+#include <algorithm>
+#include <initializer_list>
+
+#include "lstm_common.cuh"
+
+namespace lstm {
+namespace f32 {
+
+namespace cg = cooperative_groups;
+
+// SMs of the current device
+inline int sm_count() {
+    static int n = 0;
+    if (!n) {
+        int dev = 0;
+        cudaGetDevice(&dev);
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    }
+    return n;
+}
+
+// ---------------------------------------------------------------- SGEMM
+
+constexpr int SBM = 128, SBN = 128, SBK = 16, SSTAGES = 4, STHREADS = 256;
+constexpr int SAP = SBK + 4;             // row stride of an A tile staged [m][k]
+constexpr int S_A = SBM * SAP;           // floats of an A stage ([m][k], or [k][m]: 2048)
+constexpr int S_B = SBK * SBN;           // floats of a B stage ([k][n])
+constexpr size_t SGEMM_SMEM = sizeof(float) * SSTAGES * (S_A + S_B);
+static_assert(SBK * SBM <= S_A, "a [k][m] stage fits an A slot");
+
+// four bytes from global to shared memory, asynchronously (cp.async's
+// group, as the 16-byte copies)
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+    const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+
+// A row-major f32 matrix whose rows are whole 16-byte chunks (width a
+// multiple of 4, 16-byte aligned rows): staged by cp.async
+struct Mat {
+    static constexpr bool ASYNC = true;
+    const float* p;
+    int ld;
+    __device__ __forceinline__ const float* chunk(long long r, int c) const {
+        return p + r * ld + c;
+    }
+};
+
+// [x | h_prev] of every step: row r is x row r (D wide), then h0 row r
+// for r < B, else outs row r - B (H wide)
+struct XH {
+    static constexpr bool ASYNC = true;
+    const float* x;
+    const float* h0;
+    const float* outs;
+    int B, D, H;
+    __device__ __forceinline__ const float* chunk(long long r, int c) const {
+        if (c < D) return x + r * D + c;
+        c -= D;
+        return r < B ? h0 + r * H + c : outs + (r - B) * H + c;
+    }
+};
+
+// [W_ih; W_hh] (D + H, G): row r < D of W_ih, else of W_hh
+struct WCat {
+    static constexpr bool ASYNC = true;
+    const float* w_ih;
+    const float* w_hh;
+    int D, G;
+    __device__ __forceinline__ const float* chunk(long long r, int c) const {
+        return r < D ? w_ih + r * G + c : w_hh + (r - D) * G + c;
+    }
+};
+
+// feats (rows, F) of any width and alignment, and with ONES a column of
+// ones at F: staged four bytes at a time
+template <bool ONES>
+struct Feats {
+    static constexpr bool ASYNC = false;
+    const float* p;
+    int F;
+    __device__ __forceinline__ void stage(float* dst, long long r, int c, bool ok) const {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+            if (ok && c + q < F)
+                cp_async4(dst + q, p + r * F + c + q);
+            else
+                dst[q] = ok && ONES && c + q == F ? 1.f : 0.f;
+        }
+    }
+};
+
+// columns c .. c+3 of row r of src into dst (16-byte aligned shared
+// memory) by cp.async, or zeros when !ok
+template <class S>
+__device__ __forceinline__ void stage4(float* dst, const S& src, long long r, int c, bool ok,
+                                       const float* any) {
+    if constexpr (S::ASYNC)
+        cp_async16_zfill(dst, ok ? src.chunk(r, c) : any, ok);
+    else
+        src.stage(dst, r, c, ok);
+}
+
+// out[m][n] = epi(sum_k A(m, k) B(k, n)) over the split blockIdx.z of K:
+// rows k0 = z * per_split .. min(K, k0 + per_split). A_KMAJOR: A's source
+// holds A^T (row k, column m; the weight gradients' [x | h_prev]^T dg),
+// else A itself (row m, column k). B's source holds B (row k, column n),
+// N a multiple of 4. Tiles of 128 x 128 on blockIdx.x (m) and .y (n).
+template <class SA, class SB, bool A_KMAJOR, class Epi>
+__global__ void __launch_bounds__(STHREADS, 2)
+    sgemm(SA a, SB bm, Epi epi, int M, int N, long long K, long long per_split,
+          const float* any) {
+    extern __shared__ __align__(16) float smem_sgemm[];
+    const int m0 = blockIdx.x * SBM, n0 = blockIdx.y * SBN;
+    const long long kb = (long long)blockIdx.z * per_split;
+    const long long ke = kb + per_split < K ? kb + per_split : K;
+    const int steps = kb < ke ? (int)((ke - kb + SBK - 1) / SBK) : 0;
+    const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+    float acc[8][8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+    // every call commits a group, empty past the last step
+    auto load = [&](int step) {
+        if (step < steps) {
+            float* as = smem_sgemm + (size_t)(step % SSTAGES) * (S_A + S_B);
+            float* bs = as + S_A;
+            const long long k0 = kb + (long long)step * SBK;
+#pragma unroll
+            for (int q = 0; q < 2; ++q) {
+                const int idx = threadIdx.x + q * STHREADS;
+                if constexpr (A_KMAJOR) {
+                    const int kk = idx / (SBM / 4), c = idx % (SBM / 4) * 4;
+                    stage4(as + kk * SBM + c, a, k0 + kk, m0 + c, k0 + kk < ke && m0 + c < M, any);
+                } else {
+                    const int mm = idx / (SBK / 4), c = idx % (SBK / 4) * 4;
+                    stage4(as + mm * SAP + c, a, m0 + mm, (int)(k0 + c),
+                           m0 + mm < M && k0 + c < ke, any);
+                }
+                const int kk = idx / (SBN / 4), c = idx % (SBN / 4) * 4;
+                stage4(bs + kk * SBN + c, bm, k0 + kk, n0 + c, k0 + kk < ke && n0 + c < N, any);
+            }
+        }
+        cp_async_commit();
+    };
+#pragma unroll
+    for (int s = 0; s < SSTAGES - 1; ++s) load(s);
+    for (int step = 0; step < steps; ++step) {
+        cp_async_wait<SSTAGES - 2>();
+        // every thread is past the stage before: its slot may be filled again
+        __syncthreads();
+        load(step + SSTAGES - 1);
+        const float* as = smem_sgemm + (size_t)(step % SSTAGES) * (S_A + S_B);
+        const float* bs = as + S_A;
+#pragma unroll
+        for (int k4 = 0; k4 < SBK; k4 += 4) {
+            float av[8][4];
+            if constexpr (A_KMAJOR) {
+#pragma unroll
+                for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+                    for (int h = 0; h < 2; ++h) {
+                        const float4 v = *reinterpret_cast<const float4*>(
+                            as + (k4 + kk) * SBM + h * 64 + ty * 4);
+                        av[4 * h][kk] = v.x;
+                        av[4 * h + 1][kk] = v.y;
+                        av[4 * h + 2][kk] = v.z;
+                        av[4 * h + 3][kk] = v.w;
+                    }
+            } else {
+#pragma unroll
+                for (int i = 0; i < 8; ++i) {
+                    const float4 v = *reinterpret_cast<const float4*>(
+                        as + ((i / 4) * 64 + ty * 4 + i % 4) * SAP + k4);
+                    av[i][0] = v.x;
+                    av[i][1] = v.y;
+                    av[i][2] = v.z;
+                    av[i][3] = v.w;
+                }
+            }
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk) {
+                const float4 b0 = *reinterpret_cast<const float4*>(bs + (k4 + kk) * SBN + tx * 4);
+                const float4 b1 =
+                    *reinterpret_cast<const float4*>(bs + (k4 + kk) * SBN + 64 + tx * 4);
+                const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+                for (int i = 0; i < 8; ++i)
+#pragma unroll
+                    for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i][kk], bv[j], acc[i][j]);
+            }
+        }
+    }
+    cp_async_wait<0>();
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+        const int m = m0 + (i / 4) * 64 + ty * 4 + i % 4;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            const int n = n0 + h * 64 + tx * 4;
+            if (m < M && n < N)
+                epi(m, n, make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2],
+                                      acc[i][4 * h + 3]),
+                    blockIdx.z);
+        }
+    }
+}
+
+// the encoder: relu(v + b_enc), as cell_forward's encode_rows
+struct EpiEncoder {
+    float* xs;
+    const float* b_enc;
+    int D;
+    __device__ __forceinline__ void operator()(int m, int n, float4 v, int) const {
+        float r[4] = {v.x + b_enc[n], v.y + b_enc[n + 1], v.z + b_enc[n + 2], v.w + b_enc[n + 3]};
+#pragma unroll
+        for (int q = 0; q < 4; ++q) r[q] = r[q] < 0.f ? 0.f : r[q];  // keeps a NaN
+        *reinterpret_cast<float4*>(xs + (size_t)m * D + n) = make_float4(r[0], r[1], r[2], r[3]);
+    }
+};
+
+struct EpiStore {
+    float* out;
+    int ld;
+    __device__ __forceinline__ void operator()(int m, int n, float4 v, int) const {
+        *reinterpret_cast<float4*>(out + (size_t)m * ld + n) = v;
+    }
+};
+
+// the split z's partial sums, (splits, M, N)
+struct EpiPartial {
+    float* part;
+    int M, N;
+    __device__ __forceinline__ void operator()(int m, int n, float4 v, int z) const {
+        *reinterpret_cast<float4*>(part + ((size_t)z * M + m) * N + n) = v;
+    }
+};
+
+// the gate activations i, f, g, o of v + b (cell_backward's recompute)
+struct EpiActs {
+    float* acts;
+    const float* b;
+    int H;
+    __device__ __forceinline__ void operator()(int m, int n, float4 v, int) const {
+        float r[4] = {v.x, v.y, v.z, v.w};
+        const bool cell = n / H == 2;  // H % 4 == 0: the four share a gate
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+            r[q] += b[n + q];
+            r[q] = cell ? tanhf(r[q]) : sigm(r[q]);
+        }
+        *reinterpret_cast<float4*>(acts + (size_t)m * 4 * H + n) =
+            make_float4(r[0], r[1], r[2], r[3]);
+    }
+};
+
+// dpre = dx where the encoded input is positive, else 0
+struct EpiDpre {
+    float* dpre;
+    const float* xs;
+    int D;
+    __device__ __forceinline__ void operator()(int m, int n, float4 v, int) const {
+        const float4 x = *reinterpret_cast<const float4*>(xs + (size_t)m * D + n);
+        *reinterpret_cast<float4*>(dpre + (size_t)m * D + n) =
+            make_float4(x.x > 0.f ? v.x : 0.f, x.y > 0.f ? v.y : 0.f, x.z > 0.f ? v.z : 0.f,
+                        x.w > 0.f ? v.w : 0.f);
+    }
+};
+
+template <bool A_KMAJOR, class SA, class SB, class Epi>
+cudaError_t gemm(SA a, SB bm, Epi epi, long long M, int N, long long K, int splits,
+                 const float* any, cudaStream_t stream) {
+    auto kernel = sgemm<SA, SB, A_KMAJOR, Epi>;
+    cudaError_t err = prepare(kernel, SGEMM_SMEM);
+    if (err != cudaSuccess) return err;
+    const long long mt = (M + SBM - 1) / SBM;
+    if (splits < 1 || mt > 0x7fffffff) return cudaErrorInvalidValue;
+    const long long per_split = splits == 1 ? K : ring_per_split(K, splits);
+    const dim3 grid((unsigned)mt, (N + SBN - 1) / SBN, splits);
+    kernel<<<grid, STHREADS, SGEMM_SMEM, stream>>>(a, bm, epi, (int)M, N, K, per_split, any);
+    return cudaGetLastError();
+}
+
+// dpre[i] = dx[i] where xs[i] > 0, else 0, dx the split-K partials
+// (S, n) added in split order (as reduce_partials)
+__global__ void masked_sum(const float* __restrict__ part, const float* __restrict__ xs,
+                           float* __restrict__ dpre, int S, long long n) {
+    for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+         i += (long long)gridDim.x * blockDim.x) {
+        float s = 0.f;
+        for (int p = 0; p < S; ++p) s += part[(size_t)p * n + i];
+        dpre[i] = xs[i] > 0.f ? s : 0.f;
+    }
+}
+
+// dst (cols, rows) = src (rows, cols)^T
+__global__ void transpose(const float* __restrict__ src, float* __restrict__ dst, int rows,
+                          int cols) {
+    __shared__ float tile[32][33];
+    const int c0 = blockIdx.x * 32, r0 = blockIdx.y * 32;
+    for (int i = threadIdx.y; i < 32; i += 8) {
+        const int r = r0 + i, c = c0 + threadIdx.x;
+        if (r < rows && c < cols) tile[i][threadIdx.x] = src[(size_t)r * cols + c];
+    }
+    __syncthreads();
+    for (int i = threadIdx.y; i < 32; i += 8) {
+        const int c = c0 + i, r = r0 + threadIdx.x;
+        if (r < rows && c < cols) dst[(size_t)c * rows + r] = tile[threadIdx.x][i];
+    }
+}
+
+// ---------------------------------------------------------------- loops
+
+constexpr int LTHREADS = 256;
+
+// A loop block owns U units (all four gate columns of each) of the
+// cluster's R = (256 / U) * RT batch rows; thread t owns unit t % U and RT
+// rows of row group t / U. A warp shares its rows (broadcast reads of h
+// and dgates) and reads consecutive units' weights.
+template <int H, int U, int RT>
+struct Loop {
+    static_assert(H % U == 0 && LTHREADS % U == 0 && RT % 4 == 0, "the loop's tiling");
+    static_assert(H / U <= 4, "a thread's partials of at most four ranks");
+    static constexpr int CS = H / U;               // blocks of a cluster
+    static constexpr int RG = LTHREADS / U;        // row groups
+    static constexpr int R = RG * RT;              // rows of a cluster
+    static constexpr int G = 4 * H;
+    static constexpr int HP = H + 4;               // row stride of an h buffer
+    static constexpr int KL = 4 * U;               // a block's gate columns
+    static constexpr int KP = KL + 4;              // row stride of its dgates tile
+    // forward: W_hh's columns of the block's units (H, U, 4 gates), two
+    // (R, HP) h buffers
+    static constexpr int FWD_W = H * U * 4, FWD_H = R * HP;
+    static constexpr size_t FWD_SMEM = sizeof(float) * (FWD_W + 2 * FWD_H);
+    // backward: W_hh^T's rows of the block's gate columns (KL, U, CS), the
+    // dgates (R, KP), a partial dh_prev from each rank (CS, R, U)
+    static constexpr int BWD_W = KL * U * CS, BWD_DG = R * KP, BWD_P = CS * R * U;
+    static constexpr size_t BWD_SMEM = sizeof(float) * (BWD_W + BWD_DG + BWD_P);
+    static_assert(FWD_SMEM <= (size_t)MAX_SMEM && BWD_SMEM <= (size_t)MAX_SMEM, "shared memory");
+};
+
+// v[g][i] = slab[t][row0 + r0 + i][g * H + u], zero past the batch edge
+template <int H, int RT>
+__device__ __forceinline__ void load_gates(float (&v)[4][RT], const float* __restrict__ slab,
+                                           int t, int B, int row0, int r0, int nrows, int u) {
+#pragma unroll
+    for (int i = 0; i < RT; ++i) {
+        const bool ok = r0 + i < nrows;
+        const float* p = slab + ((size_t)t * B + row0 + r0 + i) * 4 * H + u;
+#pragma unroll
+        for (int g = 0; g < 4; ++g) v[g][i] = ok ? p[g * H] : 0.f;
+    }
+}
+
+// xw: (T*B, 4H) f32, x_t @ W_ih of every step (the sums over k < D); a
+// null cseq skips its store. The grid is whole clusters of CS blocks along
+// x, cluster blockIdx.x / CS taking rows R * (blockIdx.x / CS) onwards.
+template <int H, int U, int RT>
+__global__ void __launch_bounds__(LTHREADS, 1)
+    forward_loop(const float* __restrict__ xw, const float* __restrict__ h0,
+                 const float* __restrict__ c0, const float* __restrict__ w_hh,
+                 const float* __restrict__ b, float* __restrict__ outs, float* __restrict__ cseq,
+                 float* __restrict__ hT, float* __restrict__ cT, int T, int B) {
+    using L = Loop<H, U, RT>;
+    constexpr int CS = L::CS, R = L::R, G = L::G, HP = L::HP;
+    extern __shared__ __align__(16) float smem_loop[];
+    float* w_s = smem_loop;           // (H, U) float4s: the four gates of (k, unit)
+    float* hb = w_s + L::FWD_W;       // two (R, HP): h of the cluster's rows
+    cg::cluster_group cluster = cg::this_cluster();
+    const int rank = (int)cluster.block_rank();
+    const int row0 = (int)(blockIdx.x / CS) * R;
+    const int nrows = min(R, B - row0);
+    const int j = threadIdx.x % U, r0 = threadIdx.x / U * RT, u = rank * U + j;
+    for (int i = threadIdx.x; i < H * U; i += LTHREADS) {
+        const float* w = w_hh + (size_t)(i / U) * G + rank * U + i % U;
+        *reinterpret_cast<float4*>(w_s + 4 * i) = make_float4(w[0], w[H], w[2 * H], w[3 * H]);
+    }
+    for (int i = threadIdx.x; i < R * H; i += LTHREADS) {
+        const int r = i / H, k = i % H;
+        hb[r * HP + k] = r < nrows ? h0[(size_t)(row0 + r) * H + k] : 0.f;
+    }
+    float bias[4], h[RT], c[RT], nx[4][RT];
+#pragma unroll
+    for (int g = 0; g < 4; ++g) bias[g] = b[g * H + u];
+#pragma unroll
+    for (int i = 0; i < RT; ++i)
+        c[i] = r0 + i < nrows ? c0[(size_t)(row0 + r0 + i) * H + u] : 0.f;
+    load_gates<H, RT>(nx, xw, 0, B, row0, r0, nrows, u);
+    // every block of the cluster runs, with its h0 staged, before any
+    // block writes into another's shared memory
+    cluster.sync();
+    for (int t = 0; t < T; ++t) {
+        float acc[4][RT];
+#pragma unroll
+        for (int g = 0; g < 4; ++g)
+#pragma unroll
+            for (int i = 0; i < RT; ++i) acc[g][i] = nx[g][i];
+        if (t + 1 < T) load_gates<H, RT>(nx, xw, t + 1, B, row0, r0, nrows, u);
+        const float* hc = hb + (t & 1) * L::FWD_H + r0 * HP;
+        // the sums over k < H continue the slab's over k < D, k in order
+#pragma unroll 2
+        for (int k = 0; k < H; k += 4) {
+            float4 w[4];
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk)
+                w[kk] = *reinterpret_cast<const float4*>(w_s + ((k + kk) * U + j) * 4);
+#pragma unroll
+            for (int i = 0; i < RT; ++i) {
+                const float4 hv = *reinterpret_cast<const float4*>(hc + i * HP + k);
+                const float hk[4] = {hv.x, hv.y, hv.z, hv.w};
+#pragma unroll
+                for (int kk = 0; kk < 4; ++kk) {
+                    acc[0][i] = fmaf(hk[kk], w[kk].x, acc[0][i]);
+                    acc[1][i] = fmaf(hk[kk], w[kk].y, acc[1][i]);
+                    acc[2][i] = fmaf(hk[kk], w[kk].z, acc[2][i]);
+                    acc[3][i] = fmaf(hk[kk], w[kk].w, acc[3][i]);
+                }
+            }
+        }
+#pragma unroll
+        for (int i = 0; i < RT; ++i) {
+#pragma unroll
+            for (int g = 0; g < 4; ++g) acc[g][i] += bias[g];
+            const float ig = sigm(acc[0][i]);
+            const float fg = sigm(acc[1][i]);
+            const float gg = tanhf(acc[2][i]);
+            const float og = sigm(acc[3][i]);
+            c[i] = fg * c[i] + ig * gg;
+            h[i] = og * tanhf(c[i]);
+            if (r0 + i < nrows) {
+                const size_t idx = ((size_t)t * B + row0 + r0 + i) * H + u;
+                outs[idx] = h[i];
+                if (cseq) cseq[idx] = c[i];
+            }
+        }
+        if (t + 1 < T) {
+            // h_t into every block's next buffer: a warp writes 32
+            // consecutive units of a row
+            float* nxt = hb + ((t + 1) & 1) * L::FWD_H + r0 * HP + u;
+#pragma unroll
+            for (int m = 0; m < CS; ++m) {
+                float* dst = cluster.map_shared_rank(nxt, m);
+#pragma unroll
+                for (int i = 0; i < RT; ++i) dst[i * HP] = h[i];
+            }
+            // the writes visible, and every read of the buffer they
+            // overwrite next step done
+            cluster.sync();
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < RT; ++i) {
+        if (r0 + i < nrows) {
+            const size_t idx = (size_t)(row0 + r0 + i) * H + u;
+            hT[idx] = h[i];
+            cT[idx] = c[i];
+        }
+    }
+}
+
+// The inputs of reverse step t for rows r0 .. r0+RT-1 of unit u: the
+// activations, g_outs_t, c_t and c_{t-1} (c0 at t = 0), zero past the
+// batch edge
+template <int H, int RT>
+__device__ __forceinline__ void load_step(float (&a)[4][RT], float (&gout)[RT], float (&ct)[RT],
+                                          float (&cp)[RT], const float* __restrict__ acts,
+                                          const float* __restrict__ g_outs,
+                                          const float* __restrict__ cseq,
+                                          const float* __restrict__ c0, int t, int B, int row0,
+                                          int r0, int nrows, int u) {
+    load_gates<H, RT>(a, acts, t, B, row0, r0, nrows, u);
+#pragma unroll
+    for (int i = 0; i < RT; ++i) {
+        const bool ok = r0 + i < nrows;
+        const size_t idx = ((size_t)t * B + row0 + r0 + i) * H + u;
+        gout[i] = ok ? g_outs[idx] : 0.f;
+        ct[i] = ok ? cseq[idx] : 0.f;
+        cp[i] = !ok ? 0.f : t == 0 ? c0[(size_t)(row0 + r0 + i) * H + u] : cseq[idx - (size_t)B * H];
+    }
+}
+
+// acts: (T*B, 4H) f32, the gate activations of every step (the pre-pass);
+// w_hh_t: W_hh^T (4H, H). Writes dg (T*B, 4H) f32, dh0, dc0 (B, H) and
+// db_part row blockIdx.x / CS: the block's sums of its gate columns'
+// dgates, added over the row groups in order. Clusters as forward_loop's.
+template <int H, int U, int RT>
+__global__ void __launch_bounds__(LTHREADS, 1)
+    backward_loop(const float* __restrict__ acts, const float* __restrict__ w_hh_t,
+                  const float* __restrict__ c0, const float* __restrict__ cseq,
+                  const float* __restrict__ g_outs, const float* __restrict__ g_hT,
+                  const float* __restrict__ g_cT, float* __restrict__ dg,
+                  float* __restrict__ dh0, float* __restrict__ dc0,
+                  float* __restrict__ db_part, int T, int B) {
+    using L = Loop<H, U, RT>;
+    constexpr int CS = L::CS, R = L::R, G = L::G, KL = L::KL, KP = L::KP, RG = L::RG;
+    extern __shared__ __align__(16) float smem_loop[];
+    float* wt_s = smem_loop;          // (KL, U, CS): W_hh[m * U + l][column kl]
+    float* dg_s = wt_s + L::BWD_W;    // (R, KP): the step's dgates of the block's columns
+    float* part = dg_s + L::BWD_DG;   // (CS, R, U): rank s's partial dh_prev of my units
+    cg::cluster_group cluster = cg::this_cluster();
+    const int rank = (int)cluster.block_rank();
+    const int row0 = (int)(blockIdx.x / CS) * R;
+    const int nrows = min(R, B - row0);
+    const int j = threadIdx.x % U, rg = threadIdx.x / U, r0 = rg * RT, u = rank * U + j;
+    // local column kl = g * U + jj is gate g of unit rank * U + jj
+    for (int i = threadIdx.x; i < KL * U; i += LTHREADS) {
+        const int kl = i / U, l = i % U;
+        const float* w = w_hh_t + (size_t)((kl / U) * H + rank * U + kl % U) * H + l;
+        float v[4];
+#pragma unroll
+        for (int m = 0; m < CS; ++m) v[m] = w[m * U];
+        float* dst = wt_s + (size_t)i * CS;
+        if constexpr (CS == 4) {
+            *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+        } else if constexpr (CS == 2) {
+            *reinterpret_cast<float2*>(dst) = make_float2(v[0], v[1]);
+        } else {
+#pragma unroll
+            for (int m = 0; m < CS; ++m) dst[m] = v[m];
+        }
+    }
+    // a step's inputs, loaded during the step before it (its product)
+    float a[4][RT], gout[RT], ct[RT], cp[RT];
+    float dh[RT], dc[RT];
+    float db_acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < RT; ++i) {
+        const bool ok = r0 + i < nrows;
+        const size_t idx = (size_t)(row0 + r0 + i) * H + u;
+        dh[i] = ok ? g_hT[idx] : 0.f;
+        dc[i] = ok ? g_cT[idx] : 0.f;
+    }
+    load_step<H, RT>(a, gout, ct, cp, acts, g_outs, cseq, c0, T - 1, B, row0, r0, nrows, u);
+    cluster.sync();
+    for (int t = T - 1; t >= 0; --t) {
+        // dh entering step t: the ranks' partials, added in rank order
+        if (t < T - 1) {
+#pragma unroll
+            for (int i = 0; i < RT; ++i) {
+                float s = part[(r0 + i) * U + j];
+#pragma unroll
+                for (int m = 1; m < CS; ++m) s += part[(m * R + r0 + i) * U + j];
+                dh[i] = s;
+            }
+        }
+#pragma unroll
+        for (int i = 0; i < RT; ++i) {
+            const int r = r0 + i;
+            float d[4];
+            dgates_chain(d, dc[i], dh[i] + gout[i], a[0][i], a[1][i], a[2][i], a[3][i], ct[i],
+                         cp[i]);
+#pragma unroll
+            for (int g = 0; g < 4; ++g) {
+                dg_s[r * KP + g * U + j] = d[g];
+                if (r < nrows) {
+                    dg[((size_t)t * B + row0 + r) * G + g * H + u] = d[g];
+                    db_acc[g] += d[g];
+                }
+            }
+        }
+        // the dgates tile whole, and every block past its reads of part
+        cluster.sync();
+        if (t > 0)
+            load_step<H, RT>(a, gout, ct, cp, acts, g_outs, cseq, c0, t - 1, B, row0, r0, nrows,
+                             u);
+        // partial dh_prev of unit m * U + j of each rank m, over this
+        // block's columns in order
+        float acc[CS][RT];
+#pragma unroll
+        for (int m = 0; m < CS; ++m)
+#pragma unroll
+            for (int i = 0; i < RT; ++i) acc[m][i] = 0.f;
+#pragma unroll 2
+        for (int kl = 0; kl < KL; kl += 4) {
+            float w[4][CS];
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk) {
+                const float* p = wt_s + ((kl + kk) * U + j) * CS;
+                if constexpr (CS == 4) {
+                    const float4 v = *reinterpret_cast<const float4*>(p);
+                    w[kk][0] = v.x;
+                    w[kk][1] = v.y;
+                    w[kk][2] = v.z;
+                    w[kk][3] = v.w;
+                } else if constexpr (CS == 2) {
+                    const float2 v = *reinterpret_cast<const float2*>(p);
+                    w[kk][0] = v.x;
+                    w[kk][1] = v.y;
+                } else {
+#pragma unroll
+                    for (int m = 0; m < CS; ++m) w[kk][m] = p[m];
+                }
+            }
+#pragma unroll
+            for (int i = 0; i < RT; ++i) {
+                const float4 dv = *reinterpret_cast<const float4*>(dg_s + (r0 + i) * KP + kl);
+                const float dk[4] = {dv.x, dv.y, dv.z, dv.w};
+#pragma unroll
+                for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+                    for (int m = 0; m < CS; ++m) acc[m][i] = fmaf(dk[kk], w[kk][m], acc[m][i]);
+            }
+        }
+#pragma unroll
+        for (int m = 0; m < CS; ++m) {
+            float* dst = cluster.map_shared_rank(part, m) + (rank * R + r0) * U + j;
+#pragma unroll
+            for (int i = 0; i < RT; ++i) dst[i * U] = acc[m][i];
+        }
+        // the partials visible
+        cluster.sync();
+    }
+#pragma unroll
+    for (int i = 0; i < RT; ++i) {
+        float s = part[(r0 + i) * U + j];
+#pragma unroll
+        for (int m = 1; m < CS; ++m) s += part[(m * R + r0 + i) * U + j];
+        if (r0 + i < nrows) {
+            const size_t idx = (size_t)(row0 + r0 + i) * H + u;
+            dh0[idx] = s;
+            dc0[idx] = dc[i];
+        }
+    }
+    // db: dg_s is free (the loop ended on a barrier after its last read)
+    float* red = dg_s;  // (RG, KL)
+#pragma unroll
+    for (int g = 0; g < 4; ++g) red[rg * KL + g * U + j] = db_acc[g];
+    __syncthreads();
+    for (int n = threadIdx.x; n < KL; n += LTHREADS) {
+        float s = 0.f;
+        for (int q = 0; q < RG; ++q) s += red[q * KL + n];
+        db_part[(size_t)(blockIdx.x / CS) * G + (n / U) * H + rank * U + n % U] = s;
+    }
+}
+
+// ---------------------------------------------------------------- host
+
+constexpr int FORWARD_PHASES = 2;   // encoder + projection, loop
+constexpr int DX_MAX_SPLITS = 4;    // dx's partials fit the (T*B, 4H) activations slab
+constexpr int BACKWARD_PHASES = 4;  // encoder + pre-pass, loop, dpre, dW + db
+
+// A loop's tiling: U units a block (clusters of H / U blocks), RT rows a
+// thread. Each hidden size has two: BIG, many rows a thread for large
+// batches (the FMAs of a thread's 4 x RT sums outweigh its shared loads),
+// and SMALL, few, for small ones (more clusters on the card). plan()
+// picks by the model of loop_cycles.
+struct LoopConfig {
+    int U, RT;
+};
+template <int H>
+struct LoopConfigs {
+    static constexpr int BIG_U = H == 32 ? 32 : 64, BIG_RT = 16, SMALL_U = 32, SMALL_RT = 4;
+};
+
+inline cudaLaunchConfig_t cluster_config(cudaLaunchAttribute& attr, int cs, int clusters,
+                                         size_t smem, cudaStream_t stream) {
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = cs;
+    attr.val.clusterDim.y = 1;
+    attr.val.clusterDim.z = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(cs * clusters);
+    cfg.blockDim = dim3(LTHREADS);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+    return cfg;
+}
+
+// clusters of the kernel the card holds at once (0 if none fits)
+template <typename Kernel>
+int max_active_clusters(Kernel kernel, int cs, size_t smem) {
+    if (prepare(kernel, smem) != cudaSuccess) return 0;
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg = cluster_config(attr, cs, 1, smem, 0);
+    int n = 0;
+    return cudaOccupancyMaxActiveClusters(&n, kernel, &cfg) == cudaSuccess ? n : 0;
+}
+
+// The model's cycles of a loop over B rows and one step: whole waves of
+// the clusters the card holds at once, each step of a block the larger of
+// its eight warps' FMA issue (8 RT cycles a k) and shared-memory
+// wavefronts (2 RT + 32 a k: h broadcast, W 512 bytes a warp) over H,
+// plus the cluster barrier, the exchange and the cell math (estimated at
+// 1500, 2500 and 4500 cycles for clusters of 1, 2 and 4 blocks); blocks
+// that share an SM share its rate. It only ranks the two tilings.
+inline double loop_cycles(int H, LoopConfig c, long long B, int maxc, int sms) {
+    const int cs = H / c.U, rows = LTHREADS / c.U * c.RT;
+    const long long tiles = (B + rows - 1) / rows;
+    const long long waves = (tiles + maxc - 1) / maxc;
+    const double share = (double)(tiles < maxc ? tiles : maxc) * cs / sms;
+    const double step = (double)H * (8 * c.RT > 2 * c.RT + 32 ? 8 * c.RT : 2 * c.RT + 32) +
+                        (cs == 1 ? 1500 : cs == 2 ? 2500 : 4500);
+    return (double)waves * (share > 1.0 ? share : 1.0) * step;
+}
+
+// The tiling of the forward or backward loop at B rows: BIG or SMALL, the
+// one of fewer modelled cycles, with the clusters it may hold at once
+// (cudaOccupancyMaxActiveClusters, kept per kernel).
+struct Plan {
+    LoopConfig config;
+    int max_clusters;
+    bool big;
+};
+template <int H>
+Plan plan(long long B, bool backward) {
+    using C = LoopConfigs<H>;
+    using Big = Loop<H, C::BIG_U, C::BIG_RT>;
+    using Small = Loop<H, C::SMALL_U, C::SMALL_RT>;
+    static int maxc[2][2] = {{-1, -1}, {-1, -1}};  // [backward][big]
+    int* m = maxc[backward ? 1 : 0];
+    if (m[1] < 0)
+        m[1] = backward ? max_active_clusters(backward_loop<H, C::BIG_U, C::BIG_RT>, Big::CS,
+                                              Big::BWD_SMEM)
+                        : max_active_clusters(forward_loop<H, C::BIG_U, C::BIG_RT>, Big::CS,
+                                              Big::FWD_SMEM);
+    if (m[0] < 0)
+        m[0] = backward ? max_active_clusters(backward_loop<H, C::SMALL_U, C::SMALL_RT>,
+                                              Small::CS, Small::BWD_SMEM)
+                        : max_active_clusters(forward_loop<H, C::SMALL_U, C::SMALL_RT>,
+                                              Small::CS, Small::FWD_SMEM);
+    const int sms = sm_count();
+    const LoopConfig big{C::BIG_U, C::BIG_RT}, small{C::SMALL_U, C::SMALL_RT};
+    bool use_big = m[1] > 0;
+    if (m[1] > 0 && m[0] > 0)
+        use_big = loop_cycles(H, big, B, m[1], sms) <= loop_cycles(H, small, B, m[0], sms);
+    return {use_big ? big : small, use_big ? m[1] : m[0], use_big};
+}
+
+template <typename Kernel, typename... Args>
+cudaError_t launch_loop(Kernel kernel, int cs, long long tiles, size_t smem,
+                        cudaStream_t stream, Args... args) {
+    cudaError_t err = prepare(kernel, smem);
+    if (err != cudaSuccess) return err;
+    if (tiles > 0x7fffffff / cs) return cudaErrorInvalidValue;
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg = cluster_config(attr, cs, (int)tiles, smem, stream);
+    if ((err = cudaLaunchKernelEx(&cfg, kernel, args...)) != cudaSuccess) return err;
+    return cudaGetLastError();
+}
+
+template <int H, int U, int RT>
+cudaError_t run_forward_loop(const float* xw, const float* h0, const float* c0,
+                             const float* w_hh, const float* b, float* outs, float* cseq,
+                             float* hT, float* cT, int T, int B, cudaStream_t stream) {
+    using L = Loop<H, U, RT>;
+    const long long tiles = (B + L::R - 1) / L::R;
+    return launch_loop(forward_loop<H, U, RT>, L::CS, tiles, L::FWD_SMEM, stream, xw, h0, c0,
+                       w_hh, b, outs, cseq, hT, cT, T, B);
+}
+
+template <int H, int U, int RT>
+cudaError_t run_backward_loop(const float* acts, const float* w_hh_t, const float* c0,
+                              const float* cseq, const float* g_outs, const float* g_hT,
+                              const float* g_cT, float* dg, float* dh0, float* dc0,
+                              float* db_part, int T, int B, int part_rows, long long* tiles_out,
+                              cudaStream_t stream) {
+    using L = Loop<H, U, RT>;
+    const long long tiles = (B + L::R - 1) / L::R;
+    if (tiles > part_rows) return cudaErrorInvalidValue;
+    *tiles_out = tiles;
+    return launch_loop(backward_loop<H, U, RT>, L::CS, tiles, L::BWD_SMEM, stream, acts, w_hh_t,
+                       c0, cseq, g_outs, g_hT, g_cT, dg, dh0, dc0, db_part, T, B);
+}
+
+inline cudaError_t transpose_into(const float* src, float* dst, int rows, int cols,
+                                  cudaStream_t stream) {
+    transpose<<<dim3((cols + 31) / 32, (rows + 31) / 32), dim3(32, 8), 0, stream>>>(src, dst, rows,
+                                                                                   cols);
+    return cudaGetLastError();
+}
+
+// feats (T, B, F), h0, c0 (B, H), w_enc (F, D), b_enc (D,), w_ih (D, 4H),
+// w_hh (H, 4H), b (4H,), all f32, D == H. Writes outs and, unless null,
+// cseq (T, B, H), hT, cT (B, H). Scratch: xs (T * B * D) and xw (T * B
+// * 4H). phases: FORWARD_PHASES runs the whole forward, 1 stops after the
+// encoder and the projection (to time them).
+template <int H>
+cudaError_t enc5_forward(const float* feats, const float* h0, const float* c0,
+                         const float* w_enc, const float* b_enc, const float* w_ih,
+                         const float* w_hh, const float* b, float* outs, float* cseq, float* hT,
+                         float* cT, float* xs, float* xw, int T, int B, int F, int phases,
+                         cudaStream_t stream) {
+    constexpr int D = H, G = 4 * H;
+    if (!xs || !xw || phases < 1 || phases > FORWARD_PHASES) return cudaErrorInvalidValue;
+    // the SGEMMs copy these rows 16 bytes at a time
+    if (!aligned16(w_enc) || !aligned16(xs) || !aligned16(xw)) return cudaErrorMisalignedAddress;
+    const long long M = (long long)T * B;
+    cudaError_t err = gemm<false>(Feats<false>{feats, F}, Mat{w_enc, D},
+                                  EpiEncoder{xs, b_enc, D}, M, D, F, 1, w_enc, stream);
+    if (err != cudaSuccess) return err;
+    if ((err = gemm<false>(Mat{xs, D}, Mat{w_ih, G}, EpiStore{xw, G}, M, G, D, 1, w_ih,
+                           stream)) != cudaSuccess)
+        return err;
+    if (phases == 1) return cudaSuccess;
+    using C = LoopConfigs<H>;
+    if (plan<H>(B, false).big)
+        return run_forward_loop<H, C::BIG_U, C::BIG_RT>(xw, h0, c0, w_hh, b, outs, cseq, hT, cT,
+                                                        T, B, stream);
+    return run_forward_loop<H, C::SMALL_U, C::SMALL_RT>(xw, h0, c0, w_hh, b, outs, cseq, hT, cT,
+                                                        T, B, stream);
+}
+
+// Inputs as enc5_forward's, its outs and cseq, and the gradients g_outs
+// (T, B, H), g_hT, g_cT (B, H). Writes dh0, dc0 (B, H), dwe (F + 1, D):
+// dW_enc then db_enc, dw = [dW_ih; dW_hh] (D + H, 4H), db (4H,). Scratch:
+// xs, dpre (T * B * D), dg (T * B * 4H), dw_part (splits_w, D + H, 4H),
+// db_part (part_rows, 4H) with part_rows at least ceil(B / 32),
+// dwe_part (splits_e, F + 1, D), and `work`: the activations (T * B *
+// 4H), then W_ih^T (4H * D) and W_hh^T (4H * H). phases:
+// BACKWARD_PHASES runs it all; 1 .. 3 stop after the encoder and the
+// pre-pass, the loop or dpre.
+template <int H>
+cudaError_t enc5_backward(const float* feats, const float* h0, const float* c0,
+                          const float* w_enc, const float* b_enc, const float* w_ih,
+                          const float* w_hh, const float* b, const float* outs,
+                          const float* cseq, const float* g_outs, const float* g_hT,
+                          const float* g_cT, float* dh0, float* dc0, float* dwe, float* dw,
+                          float* db, float* xs, float* dpre, float* dg, float* dw_part,
+                          float* db_part, float* dwe_part, float* work, int T, int B, int F,
+                          int splits_w, int splits_e, int part_rows, int phases,
+                          cudaStream_t stream) {
+    constexpr int D = H, G = 4 * H;
+    if (!work || phases < 1 || phases > BACKWARD_PHASES || splits_w < 1 || splits_e < 1)
+        return cudaErrorInvalidValue;
+    // the SGEMMs copy these rows 16 bytes at a time
+    for (const void* p : {(const void*)w_enc, (const void*)h0, (const void*)outs,
+                          (const void*)xs, (const void*)dpre, (const void*)dg,
+                          (const void*)dw_part, (const void*)dwe_part, (const void*)work})
+        if (!aligned16(p)) return cudaErrorMisalignedAddress;
+    const long long M = (long long)T * B;
+    float* acts = work;
+    float* w_ih_t = acts + M * G;
+    float* w_hh_t = w_ih_t + (size_t)G * D;
+    cudaError_t err = gemm<false>(Feats<false>{feats, F}, Mat{w_enc, D},
+                                  EpiEncoder{xs, b_enc, D}, M, D, F, 1, w_enc, stream);
+    if (err != cudaSuccess) return err;
+    const XH xh{xs, h0, outs, B, D, H};
+    if ((err = gemm<false>(xh, WCat{w_ih, w_hh, D, G}, EpiActs{acts, b, H}, M, G, D + H, 1,
+                           w_ih, stream)) != cudaSuccess)
+        return err;
+    if (phases == 1) return cudaSuccess;
+    if ((err = transpose_into(w_hh, w_hh_t, H, G, stream)) != cudaSuccess) return err;
+    using C = LoopConfigs<H>;
+    long long tiles = 0;
+    err = plan<H>(B, true).big
+        ? run_backward_loop<H, C::BIG_U, C::BIG_RT>(acts, w_hh_t, c0, cseq, g_outs, g_hT, g_cT,
+                                                    dg, dh0, dc0, db_part, T, B, part_rows,
+                                                    &tiles, stream)
+        : run_backward_loop<H, C::SMALL_U, C::SMALL_RT>(acts, w_hh_t, c0, cseq, g_outs, g_hT,
+                                                        g_cT, dg, dh0, dc0, db_part, T, B,
+                                                        part_rows, &tiles, stream);
+    if (err != cudaSuccess) return err;
+    if (phases == 2) return cudaSuccess;
+    if ((err = transpose_into(w_ih, w_ih_t, D, G, stream)) != cudaSuccess) return err;
+    // dx = dg @ W_ih^T under the relu mask; where its tiles leave half the
+    // SMs idle (memory's 4096 rows: 32 tiles), split over K up to four ways into
+    // the activations' slab (read by nothing after the loop), the partials
+    // added in split order under the mask
+    const long long dx_tiles = (M + SBM - 1) / SBM;
+    const int dx_splits = 2 * dx_tiles > sm_count() ? 1
+        : (int)std::min<long long>(DX_MAX_SPLITS, (sm_count() + dx_tiles - 1) / dx_tiles);
+    if (dx_splits == 1) {
+        err = gemm<false>(Mat{dg, G}, Mat{w_ih_t, D}, EpiDpre{dpre, xs, D}, M, D, G, 1, w_ih,
+                          stream);
+    } else if ((err = gemm<false>(Mat{dg, G}, Mat{w_ih_t, D}, EpiPartial{acts, (int)M, D}, M, D,
+                                  G, dx_splits, w_ih, stream)) == cudaSuccess) {
+        masked_sum<<<(int)std::min<long long>((M * D + 255) / 256, 1024), 256, 0, stream>>>(
+            acts, xs, dpre, dx_splits, M * D);
+        err = cudaGetLastError();
+    }
+    if (err != cudaSuccess) return err;
+    if (phases == 3) return cudaSuccess;
+    if ((err = gemm<true>(xh, Mat{dg, G}, EpiPartial{dw_part, D + H, G}, D + H, G, M, splits_w,
+                          w_ih, stream)) != cudaSuccess)
+        return err;
+    if ((err = reduce(dw_part, dw, splits_w, (long long)(D + H) * G, stream)) != cudaSuccess)
+        return err;
+    if ((err = reduce(db_part, db, (int)tiles, G, stream)) != cudaSuccess) return err;
+    if ((err = gemm<true>(Feats<true>{feats, F}, Mat{dpre, D}, EpiPartial{dwe_part, F + 1, D},
+                          F + 1, D, M, splits_e, w_ih, stream)) != cudaSuccess)
+        return err;
+    return reduce(dwe_part, dwe, splits_e, (long long)(F + 1) * D, stream);
+}
+
+// Registers and local (spilled) bytes per thread of the f32 kernels at
+// hidden size H: the forward and backward loops at both tilings (big,
+// small), then the SGEMMs: the encoder, the projection, the pre-pass,
+// dpre, dW and [dW_enc; db_enc]; twenty ints
+template <int H>
+cudaError_t usage(int* out) {
+    using C = LoopConfigs<H>;
+    const void* fns[] = {
+        reinterpret_cast<const void*>(forward_loop<H, C::BIG_U, C::BIG_RT>),
+        reinterpret_cast<const void*>(forward_loop<H, C::SMALL_U, C::SMALL_RT>),
+        reinterpret_cast<const void*>(backward_loop<H, C::BIG_U, C::BIG_RT>),
+        reinterpret_cast<const void*>(backward_loop<H, C::SMALL_U, C::SMALL_RT>),
+        reinterpret_cast<const void*>(sgemm<Feats<false>, Mat, false, EpiEncoder>),
+        reinterpret_cast<const void*>(sgemm<Mat, Mat, false, EpiStore>),
+        reinterpret_cast<const void*>(sgemm<XH, WCat, false, EpiActs>),
+        reinterpret_cast<const void*>(sgemm<Mat, Mat, false, EpiDpre>),
+        reinterpret_cast<const void*>(sgemm<XH, Mat, true, EpiPartial>),
+        reinterpret_cast<const void*>(sgemm<Feats<true>, Mat, true, EpiPartial>),
+    };
+    for (int i = 0; i < 10; ++i) {
+        cudaFuncAttributes a;
+        const cudaError_t err = cudaFuncGetAttributes(&a, fns[i]);
+        if (err != cudaSuccess) return err;
+        out[2 * i] = a.numRegs;
+        out[2 * i + 1] = (int)a.localSizeBytes;
+    }
+    return cudaSuccess;
+}
+
+// The loops' tilings at B rows: forward then backward, each (units a
+// block, rows a thread, clusters the card holds at once); six ints
+template <int H>
+cudaError_t loop_plan(long long B, int* out) {
+    for (int backward = 0; backward < 2; ++backward) {
+        const Plan p = plan<H>(B, backward);
+        if (p.max_clusters <= 0) return cudaErrorInvalidConfiguration;
+        out[3 * backward] = p.config.U;
+        out[3 * backward + 1] = p.config.RT;
+        out[3 * backward + 2] = p.max_clusters;
+    }
+    return cudaSuccess;
+}
+
+}  // namespace f32
+}  // namespace lstm

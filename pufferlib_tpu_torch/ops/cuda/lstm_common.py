@@ -22,8 +22,9 @@ KERNEL_HIDDEN = (32, 64, 128)
 # batch rows per block of the recurrent kernels (lstm_common.cuh BT)
 ROWS_PER_BLOCK = 32
 # feature widths whose W_enc the encoder-fused FMA kernels hold in shared
-# memory (lstm_common.cuh forward_smem / backward_smem); enc5's bf16
-# kernels take up to tc_max_features()
+# memory (lstm_common.cuh forward_smem / backward_smem), and the reach
+# enc5's f32 kernels (lstm_f32.cuh) keep; enc5's bf16 kernels take up to
+# tc_max_features()
 KERNEL_MAX_FEATURES = 128
 # batch rows per block of the tensor-core loops (lstm_tc.cuh BR)
 TC_ROWS_PER_BLOCK = 64
@@ -352,9 +353,10 @@ def cat_design(D, H, cdt):
 
 
 def fma_encoder_shape_error(F, D, H):
-    """Why the encoder-fused FMA kernels (enc5 in f32; lstm_scan_enc and
-    the archived variants in both dtypes) refuse F features, encoder width
-    D and hidden size H, or None."""
+    """Why the encoder-fused FMA kernels (lstm_scan_enc's step backward and
+    the archived variants in both dtypes) and enc5's f32 kernels, which
+    keep their reach, refuse F features, encoder width D and hidden size
+    H, or None."""
     err = fma_shape_error(D, H)
     if err is None and F > KERNEL_MAX_FEATURES:
         err = (f'the CUDA encoder-fused LSTM kernels on FMA take at most '
@@ -375,7 +377,8 @@ def tc_encoder_shape_error(F, D, H):
 
 def encoder_shape_error(F, D, H, cdt):
     """Why the enc5 kernels refuse (F, D, H) in cdt, or None: their bf16
-    kernels run on the tensor cores, their f32 ones on FMA."""
+    kernels run on the tensor cores, their f32 ones (lstm_f32.cuh) take
+    the FMA kernels' reach."""
     return tc_encoder_shape_error(F, D, H) if cdt == torch.bfloat16 \
         else fma_encoder_shape_error(F, D, H)
 
@@ -441,22 +444,29 @@ SPLITK_TILE = 128
 SPLITK_STAGE = 32
 
 
-def splitk_splits(M, N, K, device):
+# rows a split of enc5's f32 split-K takes at least (csrc/lstm_f32.cuh):
+# memory's 4096 rows (T 8, B 512) still spread over the card
+F32_SPLIT_ROWS = 256
+
+
+def splitk_splits(M, N, K, device, min_rows=1024):
     """K-splits of a post-loop (M, N) weight-gradient contraction over
     K = T*B rows: one wave of the ring's 128 x 128 tiles at two blocks an
     SM (2 x 132 / tiles: 66 splits for lstm_scan's 128 x 512 dW_hh, 33
-    for the 256 x 512 [dW_ih; dW_hh] of cat, fused and enc5), at least 1024
-    rows each. The register-staged and f32 kernels that serve the other
-    sources take the same count. The partial sums are added in split order
-    by a second pass, so the result does not depend on the schedule."""
+    for the 256 x 512 [dW_ih; dW_hh] of cat, fused and enc5), at least
+    min_rows rows each (enc5's f32 SGEMMs: F32_SPLIT_ROWS). The
+    register-staged and f32 kernels that serve the other sources take the
+    same count. The partial sums are added in split order by a second
+    pass, so the result does not depend on the schedule."""
     return splitk_count(M, N, K,
-        torch.cuda.get_device_properties(device).multi_processor_count)
+        torch.cuda.get_device_properties(device).multi_processor_count,
+        min_rows)
 
 
-def splitk_count(M, N, K, sms):
+def splitk_count(M, N, K, sms, min_rows=1024):
     """splitk_splits on a card of `sms` SMs."""
     tiles = math.ceil(M / SPLITK_TILE) * math.ceil(N / SPLITK_TILE)
-    return max(1, min(math.ceil(2 * sms / tiles), math.ceil(K / 1024)))
+    return max(1, min(math.ceil(2 * sms / tiles), math.ceil(K / min_rows)))
 
 
 def splitk_ranges(K, splits):

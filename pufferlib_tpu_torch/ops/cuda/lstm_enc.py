@@ -35,9 +35,19 @@ reverse loop keeps the activations in f32 and sums db from the unrounded
 dgates (its TPU kernel's recompute and dW inside the loop become the
 pre-pass and the split-K). Both take any encoder width D that is a
 multiple of 8 up to lstm_common.tc_max_input(H), and up to
-lstm_common.tc_max_features() features. In f32, the exact test mode, the
-FMA kernels of csrc/lstm_common.cuh run, with D == H and at most
-KERNEL_MAX_FEATURES features (design says which a C function runs).
+lstm_common.tc_max_features() features.
+
+In f32, the default compute dtype of both packages and of every
+config.yaml section, the enc5 pair runs csrc/lstm_f32.cuh (design
+'cluster'): the encoder, x @ W_ih, the backward's gate recompute, dpre
+and the weight gradients as FMA SGEMMs over all T*B rows, and time loops
+that keep W_hh on chip for all T steps in a thread block cluster (no
+TF32: every product is an f32 FMA). The forward keeps the sums of the
+FMA cell in their order, so lstm_scan_enc's forward and the archived
+enc3, enc4 and enc6 forwards, which run the same C function, keep their
+bits. lstm_scan_enc's step backward keeps the FMA kernels of
+csrc/lstm_common.cuh ('fma'). Both take D == H and at most
+KERNEL_MAX_FEATURES features.
 
 Every other enc5 shape with a hidden size up to
 lstm_common.STREAM_MAX_HIDDEN (padded to a multiple of 32 with zero
@@ -63,8 +73,8 @@ import torch
 from pufferlib_tpu_torch.ops.cuda._build import (
     CudaKernel, I, P, ptr, ptr_or_null, stream_handle)
 from pufferlib_tpu_torch.ops.cuda.lstm_common import (
-    BACKWARD_PHASES, FORWARD_PHASES, KERNEL_MAX_FEATURES, ROWS_PER_BLOCK,
-    TC_ROWS_PER_BLOCK, backward_inputs, cell_backward_step,
+    BACKWARD_PHASES, F32_SPLIT_ROWS, FORWARD_PHASES, KERNEL_MAX_FEATURES,
+    ROWS_PER_BLOCK, TC_ROWS_PER_BLOCK, backward_inputs, cell_backward_step,
     check_encoder_inputs, check_encoder_kernel_shape,
     check_fma_encoder_kernel_shape, encode, enc5_design, enc5_shape_error,
     forward_outputs, gate_activations, h_prev_rows, needs_cseq, pad_cell,
@@ -88,16 +98,54 @@ KERNEL = CudaKernel('lstm_enc.cu', {
     'lstm_enc_tc_usage': [I, P],
     # not a launch: the widest feature width enc5's bf16 encoder takes
     'lstm_enc_tc_max_features': [P],
+    # not launches: enc5's f32 kernels' registers and spills, and the
+    # tilings its f32 loops take at a batch size
+    'lstm_enc_f32_usage': [I, P],
+    'lstm_enc_f32_plan': [I, I, P],
 })
+# the C functions that run csrc/lstm_f32.cuh in f32
+F32_FUNCTIONS = ('lstm_enc_forward', 'lstm_enc_backward')
 
 
 def design(fn, cdt):
     """The design the C function `fn` of KERNEL runs in cdt: 'tc'
-    (csrc/lstm_tc.cuh's tensor-core kernels, every launch in bf16) or
-    'fma' (csrc/lstm_common.cuh's, in f32)."""
+    (csrc/lstm_tc.cuh's tensor-core kernels, every launch in bf16),
+    'cluster' (csrc/lstm_f32.cuh: enc5's pair in f32) or 'fma'
+    (csrc/lstm_common.cuh's: the step backward in f32)."""
     if fn not in KERNEL.functions:
         raise ValueError(f'{fn} is not a C function of {KERNEL.source}')
-    return 'tc' if cdt == torch.bfloat16 else 'fma'
+    if cdt == torch.bfloat16:
+        return 'tc'
+    return 'cluster' if fn in F32_FUNCTIONS else 'fma'
+
+
+def _query(fn, *args, n):
+    """n ints from the C function fn of KERNEL, which launches nothing
+    (the launch counts stay); raises on its error."""
+    import ctypes
+    out = (ctypes.c_int * n)()
+    err = getattr(KERNEL.lib(), fn)(*args, out)
+    if err:
+        raise RuntimeError(f'{fn}{args}: cudaError {err}')
+    return list(out)
+
+
+def f32_usage(H):
+    """Registers and spilled bytes per thread of enc5's f32 kernels at
+    hidden size H: {kernel: (registers, bytes)} (the card only)."""
+    out = _query('lstm_enc_f32_usage', H, n=20)
+    names = ('forward loop (big)', 'forward loop (small)',
+        'backward loop (big)', 'backward loop (small)', 'encoder',
+        'projection', 'pre-pass', 'dpre', 'dW', 'dW_enc')
+    return {n: (out[2 * i], out[2 * i + 1]) for i, n in enumerate(names)}
+
+
+def f32_plan(H, B):
+    """The tilings enc5's f32 loops take at B rows on this card:
+    {'forward' | 'backward': (units a block, rows a thread, clusters the
+    card holds at once)} (the card only)."""
+    out = _query('lstm_enc_f32_plan', H, B, n=6)
+    return {'forward': tuple(out[:3]), 'backward': tuple(out[3:])}
 
 
 def lstm_enc_reference(feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b,
@@ -186,16 +234,18 @@ def _launch_forward(feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b, cdt,
     lstm_scan_enc's): (outs, hT, cT, cseq)."""
     check_encoder_kernel_shape(feats, w_enc, h0.shape[1], cdt)
     return launch_forward(KERNEL, 'lstm_enc_forward', feats, h0, c0, w_enc,
-        b_enc, w_ih, w_hh, b, cdt, save_cseq, phases, tc_slab)
+        b_enc, w_ih, w_hh, b, cdt, save_cseq, phases, tc_slab,
+        f32_scratch=True)
 
 
 def launch_forward(kernel, fn, feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b,
-        cdt, save_cseq, phases, slab):
+        cdt, save_cseq, phases, slab, f32_scratch=False):
     """The forward C function `fn` of `kernel` that takes
     lstm_enc_forward's arguments (enc5's, and the archived enc2's), on a
     shape the caller has checked: (outs, hT, cT, cseq). In bf16 its scratch
     is the encoded inputs, slab(T, B, H, device) (the gate slab the loop
-    reads) and the bf16 weights; in f32 none."""
+    reads) and the bf16 weights; in f32 with f32_scratch (lstm_f32.cuh's
+    forward) the encoded inputs and x @ W_ih, (T * B * 4H), else none."""
     T, B, F = feats.shape
     H = h0.shape[1]
     D = w_enc.shape[1]
@@ -203,8 +253,10 @@ def launch_forward(kernel, fn, feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b,
     if B > 0:
         tc = cdt == torch.bfloat16
         dev = feats.device
-        xs = torch.empty((T, B, D), dtype=cdt, device=dev) if tc else None
-        xw = slab(T, B, H, dev) if tc else None
+        xs = torch.empty((T, B, D), dtype=cdt, device=dev) \
+            if tc or f32_scratch else None
+        xw = slab(T, B, H, dev) if tc else torch.empty((T * B * 4 * H,),
+            dtype=torch.float32, device=dev) if f32_scratch else None
         # [W_ih; W_hh], then W_enc, in bf16
         w16 = torch.empty(((D + H) * 4 * H + F * D,), dtype=torch.bfloat16,
             device=dev) if tc else None
@@ -231,23 +283,26 @@ def _launch_backward(feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b, outs,
     """lstm_enc_backward, enc5's: (dh0, dc0, dW_enc, db_enc, dW_ih, dW_hh,
     db)."""
     check_encoder_kernel_shape(feats, w_enc, h0.shape[1], cdt)
-    return launch_backward(KERNEL, 'lstm_enc_backward', feats, h0, c0, w_enc,
-        b_enc, w_ih, w_hh, b, outs, cseq, g_outs, g_hT, g_cT, cdt,
-        cdt == torch.bfloat16, phases)
+    fn = 'lstm_enc_backward'
+    return launch_backward(KERNEL, fn, feats, h0, c0, w_enc, b_enc, w_ih,
+        w_hh, b, outs, cseq, g_outs, g_hT, g_cT, cdt, cdt == torch.bfloat16,
+        phases, cluster=design(fn, cdt) == 'cluster')
 
 
 def launch_backward(kernel, fn, feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b,
         outs, cseq, g_outs, g_hT, g_cT, cdt, tc, phases=BACKWARD_PHASES,
-        fma_rows=ROWS_PER_BLOCK, acts_slab=False):
+        fma_rows=ROWS_PER_BLOCK, acts_slab=False, cluster=False):
     """The backward C function `fn` of `kernel` that takes
     lstm_enc_backward's arguments (enc5's, lstm_scan_enc's step backward,
     and the archived enc2's, enc3's, enc4's and enc6's), on a shape the
     caller has checked: (dh0, dc0,
     dW_enc, db_enc, dW_ih, dW_hh, db). tc: the bf16 tensor-core kernels
-    run (with their scratch), else the FMA ones, whose block takes
-    fma_rows batch rows and, with acts_slab (the archived enc3 and enc6),
-    keeps every step's gate activations in a (T, B, 4H) slab handed over
-    in the P slab's place."""
+    run (with their scratch); cluster: enc5's f32 kernels of
+    lstm_f32.cuh (their scratch: the activations and the transposed
+    weights in the P slab's place, [feats | 1]'s partials); else the FMA
+    ones, whose block takes fma_rows batch rows and, with acts_slab (the
+    archived enc3 and enc6), keeps every step's gate activations in a (T,
+    B, 4H) slab handed over in the P slab's place."""
     T, B, F = feats.shape
     H = h0.shape[1]
     D = w_enc.shape[1]
@@ -264,10 +319,12 @@ def launch_backward(kernel, fn, feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b,
         dwe.zero_()
         return dh0, dc0, dwe[:F], dwe[F], dw[:D].zero_(), dw[D:].zero_(), \
             db.zero_()
-    # bf16 sums db_enc as row F of [feats | 1]^T dpre, f32 from partials
-    enc_rows = F + 1 if tc else F
-    splits_w = splitk_splits(D + H, G, T * B, dev)
-    splits_e = splitk_splits(enc_rows, D, T * B, dev)
+    # bf16 and enc5's f32 sum db_enc as row F of [feats | 1]^T dpre, the
+    # FMA kernels from partials
+    enc_rows = F + 1 if tc or cluster else F
+    min_rows = F32_SPLIT_ROWS if cluster else 1024
+    splits_w = splitk_splits(D + H, G, T * B, dev, min_rows)
+    splits_e = splitk_splits(enc_rows, D, T * B, dev, min_rows)
     xs = torch.empty((T, B, D), dtype=cdt, device=dev)
     dpre = torch.empty_like(xs)
     dg = torch.empty((T, B, G), dtype=cdt, device=dev)
@@ -277,11 +334,17 @@ def launch_backward(kernel, fn, feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b,
     part_rows = math.ceil(B / (TC_ROWS_PER_BLOCK if tc else fma_rows))
     db_part = torch.empty((part_rows, G), **f32)
     dwe_part = torch.empty((splits_e, enc_rows, D), **f32)
-    dbe_part = None if tc else torch.empty((part_rows, D), **f32)
-    # bf16: the P slab; [W_ih; W_hh], W_ih^T, h0 and W_enc in bf16. FMA
-    # with acts_slab: the activations
-    pre = tc_slab(T, B, H, dev) if tc else torch.empty((T * B * G,),
-        dtype=cdt, device=dev) if acts_slab else None
+    dbe_part = None if tc or cluster else torch.empty((part_rows, D), **f32)
+    # bf16: the P slab; [W_ih; W_hh], W_ih^T, h0 and W_enc in bf16. enc5's
+    # f32: the activations, W_ih^T and W_hh^T. FMA with acts_slab: the
+    # activations
+    if tc:
+        pre = tc_slab(T, B, H, dev)
+    elif cluster:
+        pre = torch.empty((T * B * G + G * (D + H),), **f32)
+    else:
+        pre = torch.empty((T * B * G,), dtype=cdt, device=dev) \
+            if acts_slab else None
     w16 = torch.empty(((D + H) * G + G * D + B * H + F * D,),
         dtype=torch.bfloat16, device=dev) if tc else None
     kernel.launch(fn, ptr(feats), ptr(h0), ptr(c0),

@@ -798,6 +798,89 @@ def test_tc_max_features_is_the_encoders_limit(cuda):
     assert out[0] == lstm_common.tc_max_features()
 
 
+# enc5's f32 pair (csrc/lstm_f32.cuh) over its reach: memory's CLI shape
+# (T 8, B 512, F 1), the bench's and a ragged batch at H 128, H 64 and 32
+# at both loop tilings, one row, the widest features (128), odd ones
+ENC5_F32_SHAPES = [(8, 512, 128, 1), (16, 8192, 128, 49), (16, 1000, 128, 49),
+    (16, 8192, 64, 49), (5, 65, 64, 49), (16, 8192, 32, 49), (5, 65, 32, 7),
+    (3, 45, 128, 128), (1, 1, 128, 49), (4, 200, 32, 128)]
+
+
+@pytest.mark.parametrize('T,B,H,F', ENC5_F32_SHAPES)
+def test_enc5_f32_matches_plain(cuda, T, B, H, F):
+    _check_lstm_pair(cuda, 'enc5', T, B, H, torch.float32, F=F)
+
+
+@pytest.mark.parametrize('T,B,H,F', [(16, 8192, 128, 49), (8, 512, 128, 1),
+    (16, 1000, 128, 49), (5, 65, 64, 49), (4, 200, 32, 128)])
+def test_enc5_f32_repeats_bit_for_bit(cuda, T, B, H, F):
+    """The f32 loops' cluster blocks exchange h and the partial dh_prev
+    through distributed shared memory behind a cluster barrier each step;
+    a block that read them before they were written would read stale
+    values, and runs would differ by timing. The split-K adds its partials
+    in split order, db its tiles' in tile order: twenty runs are equal bit
+    for bit."""
+    _check_deterministic(cuda, 'enc5', T, B, H, F=F, cdt=torch.float32,
+        runs=20)
+
+
+@pytest.mark.parametrize('T,B,H,F', [(3, 45, 128, 5), (8, 512, 128, 1),
+    (16, 1000, 64, 49), (4, 200, 32, 128), (3, 65, 128, 49)])
+def test_enc5_f32_writes_only_its_buffers(cuda, monkeypatch, T, B, H, F):
+    """Every input, output and scratch buffer of an f32 enc5 forward and
+    backward call sits between guards; after both calls no guard has
+    changed, at ragged batches (a last loop tile of 13, 8 or 1 rows),
+    feature widths that are no multiple of 4 and the widest, and the
+    results still match the plain versions within LSTM_TOL."""
+    from pufferlib_tpu_torch.ops.cuda import lstm_common, lstm_enc
+    fwd, bwd, fwd_plain, bwd_plain, _ = _lstm_kinds()['enc5']
+    cdt = torch.float32
+    guarded = _GuardedTorch()
+    args = tuple(guarded.guarded(t.shape, t.dtype, t.device).copy_(t)
+        for t in _lstm_case('enc5', T, B, H, F, cdt, cuda))
+    g = tuple(guarded.guarded(t.shape, t.dtype, t.device).copy_(t) for t in (
+        torch.randn(T, B, H, device=cuda), torch.randn(B, H, device=cuda),
+        torch.randn(B, H, device=cuda)))
+    with torch.no_grad():
+        want = fwd_plain(*args, cdt)
+        bargs = (*args, want[0], want[3], *g, cdt)
+        want += bwd_plain(*bargs)
+        for module in (lstm_common, lstm_enc):
+            monkeypatch.setattr(module, 'torch', guarded)
+        inputs = len(guarded.buffers)
+        got = fwd(*args, cdt)
+        got += bwd(*bargs)
+    assert guarded.overwritten() == []
+    assert len(guarded.buffers) > inputs + len(got)
+    for a, w in zip(got, want):
+        scale = max(1.0, w.float().abs().max().item())
+        torch.testing.assert_close(a.float(), w.float(), rtol=0,
+            atol=LSTM_TOL[cdt] * scale)
+
+
+def test_enc5_f32_plan_and_usage(cuda):
+    """The f32 loops' tilings (lstm_enc.f32_plan): at H 128 memory's 512
+    rows take the small one (32 units a block, 4 rows a thread: clusters
+    of four blocks), the bench's 8192 the big one (64 units, 16 rows a
+    thread: clusters of two); every tiling a hidden size takes has a
+    cluster the card holds; every f32 kernel reports its registers
+    (lstm_enc.f32_usage) without a launch."""
+    from pufferlib_tpu_torch.ops.cuda import lstm_enc
+    before = _launches()
+    for H in (32, 64, 128):
+        usage = lstm_enc.f32_usage(H)
+        assert len(usage) == 10 and all(r > 0 for r, _ in usage.values())
+        for B in (512, 1000, 8192):
+            plan = lstm_enc.f32_plan(H, B)
+            for part in ('forward', 'backward'):
+                units, rt, clusters = plan[part]
+                assert rt in (4, 16) and H % units == 0 and clusters > 0, (
+                    H, B, part, plan)
+                if H == 128 and B in (512, 8192):
+                    assert (units, rt) == ((32, 4) if B == 512 else (64, 16))
+    assert _launches() == before
+
+
 @pytest.mark.parametrize('kind', ARCHIVED_ENC)
 @pytest.mark.parametrize('T,B,H', [(16, 8192, 128), (16, 1000, 128),
     (3, 45, 32), (5, 980, 64)])

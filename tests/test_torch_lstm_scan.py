@@ -18,6 +18,8 @@ max(1, max |reference|) per tensor: h, c and dgates round to bf16 inside
 the recurrence, so a sum on the other side of a rounding boundary rounds
 one ulp (2^-8) the other way and carries on.
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -573,6 +575,150 @@ def test_enc5_tensor_core_schedule_keeps_the_function(B, F, D, H, cdt):
             'JAX')
 
 
+def enc5_f32_schedule(feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b, splits=3,
+        units=32, rows=32):
+    """What the enc5 pair's f32 kernels (csrc/lstm_f32.cuh) compute, in
+    their order, in plain torch. Forward: the encoder over all T*B rows as
+    one product, xs = relu(feats @ W_enc + b_enc), then the slab xw = xs @
+    W_ih over all rows; the loop starts each step's sums from the slab,
+    adds h @ W_hh, then b. Backward: xs again; the pre-pass's activations
+    of [xs | h_prev] @ [W_ih; W_hh] + b as one slab; a reverse loop with
+    only the recurrent product in it: dh_prev the partials of the cluster's
+    blocks, each block's `units` units' four gate columns of dg times those
+    rows of W_hh^T, added in rank order, and db summed per tile of `rows`
+    batch rows over the steps, the tiles added in order; dx = dg @ W_ih^T
+    after the loop, masked by xs > 0 into dpre; [dW_ih; dW_hh] = [xs |
+    h_prev]^T dg and [dW_enc; db_enc] = [feats | 1]^T dpre as the split-K
+    over `splits` splits, partials added in split order
+    (lstm_common.splitk_reference, the kernel's split boundaries)."""
+    T, B, F = feats.shape
+    H = h0.shape[1]
+    D = w_enc.shape[1]
+    f2 = feats.float().reshape(T * B, F)
+    xs = torch.relu(f2 @ w_enc + b_enc)
+    xw = (xs @ w_ih).reshape(T, B, 4 * H)
+    h, c = h0, c0
+    outs = torch.empty((T, B, H))
+    cseq = torch.empty((T, B, H))
+    for t in range(T):
+        i, f, g, o = lstm_common.gate_activations(xw[t] + h @ w_hh + b, H)
+        c = f * c + i * g
+        h = o * torch.tanh(c)
+        outs[t], cseq[t] = h, c
+    # each block's gate columns: gates g of units s * units .. + units
+    cols = [torch.cat([torch.arange(g * H + s * units, g * H + (s + 1) * units)
+        for g in range(4)]) for s in range(H // units)]
+
+    def backward(g_outs, g_hT, g_cT):
+        xh = torch.cat([xs, lstm_common.h_prev_rows(h0, outs,
+            torch.float32)], dim=1)
+        acts = lstm_common.gate_activations(
+            xh @ torch.cat([w_ih, w_hh], dim=0) + b, H)
+        dg = torch.empty((T * B, 4 * H))
+        db_tiles = torch.zeros((math.ceil(B / rows), 4 * H))
+        dh, dc = g_hT, g_cT
+        for t in reversed(range(T)):
+            r = slice(t * B, (t + 1) * B)
+            c_prev = c0 if t == 0 else cseq[t - 1]
+            d, dc = lstm_common.cell_backward_step([a[r] for a in acts],
+                dh + g_outs[t].float(), dc, cseq[t], c_prev)
+            dg[r] = d
+            for k in range(db_tiles.shape[0]):
+                db_tiles[k] += d[k * rows:(k + 1) * rows].sum(dim=0)
+            dh = d[:, cols[0]] @ w_hh[:, cols[0]].t()
+            for s in cols[1:]:
+                dh = dh + d[:, s] @ w_hh[:, s].t()
+        db = db_tiles[0].clone()
+        for k in range(1, db_tiles.shape[0]):
+            db += db_tiles[k]
+        dpre = torch.where(xs > 0, dg @ w_ih.t(), 0.0)
+        dw = lstm_common.splitk_reference(xh, dg, splits)
+        dwe = lstm_common.splitk_reference(torch.cat([f2, torch.ones(T * B,
+            1)], dim=1), dpre, splits)
+        return dh, dc, dwe[:F], dwe[F], dw[:D], dw[D:], db
+    return (outs, h, c, cseq), backward
+
+
+# (T, B, F, H, units a loop block, rows a cluster): both tilings of each
+# hidden size (lstm_f32.cuh LoopConfigs), memory's CLI shape (T 8, B 512,
+# F 1), ragged batches whose last tile is short
+ENC5_F32_SCHEDULES = [(8, 512, 1, 128, 32, 32), (3, 65, 49, 128, 64, 64),
+    (3, 16, 49, 64, 64, 64), (3, 33, 20, 64, 32, 32), (3, 24, 7, 32, 32, 128),
+    (4, 45, 128, 32, 32, 32)]
+
+
+@pytest.mark.parametrize('T,B,F,H,units,rows', ENC5_F32_SCHEDULES)
+def test_enc5_f32_schedule_keeps_the_function(T, B, F, H, units, rows):
+    """The enc5 pair's f32 schedule (enc5_f32_schedule) against the plain
+    enc5 versions on the same inputs, and against the JAX package's enc5
+    in f32 under the loss of its tests: at B % 8 == 0 its Pallas kernel in
+    interpret mode, else its pure reference lstm_scan_enc_reference (the
+    same function in f32). Tolerances, each of max(1, max |reference|) per
+    tensor: 1e-5 (the same f32 products summed in another order), 1e-4 on
+    gradients against the pure reference (the enc5 parity test's)."""
+    rng = np.random.default_rng(24)
+    D = H
+    arrays = [(rng.standard_normal(shape) * k).astype(np.float32)
+        for shape, k in (((T, B, F), 0.9), ((B, H), 0.3), ((B, H), 0.3),
+            ((F, D), 0.3), ((D,), 0.3), ((D, 4 * H), 0.3), ((H, 4 * H), 0.3),
+            ((4 * H,), 0.3))]
+    feats, *rest = [torch.from_numpy(a) for a in arrays]
+    tol = 1e-5
+    fwd, backward = enc5_f32_schedule(feats, *rest, units=units, rows=rows)
+    plain = lstm_enc.lstm_enc_reference(feats, *rest, torch.float32)
+    for name, a, w in zip(('outs', 'hT', 'cT', 'cseq'), fwd, plain):
+        assert a.dtype == w.dtype == torch.float32
+        assert_close(a, w, tol, True, f'enc5 f32 schedule {name}')
+    cot = tuple(torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+        for s in ((T, B, H), (B, H), (B, H)))
+    grads = backward(*cot)
+    want = lstm_enc.lstm_enc_backward_reference(feats, *rest, plain[0],
+        plain[3], *cot, torch.float32)
+    for name, a, w in zip(KINDS['enc'][5], grads, want):
+        assert a.dtype == w.dtype and a.shape == w.shape
+        assert_close(a, w, tol, True, f'enc5 f32 schedule {name}')
+    # the loss of the JAX tests: g_outs = 2 outs, g_hT = cT, g_cT = hT
+    outs, hT, cT, _ = fwd
+    loss_grads = backward(2 * outs, cT, hT)
+    if B % 8 == 0:
+        with pltpu.force_tpu_interpret_mode():
+            jouts, jgrads = jax_run(jax_scan_enc5, arrays, 'float32',
+                'float32', 1)
+        grad_tol = tol
+    else:
+        jouts, jgrads = jax_run(jax_lstm_enc.lstm_scan_enc_reference, arrays,
+            'float32', 'float32', 1)
+        grad_tol = 1e-4
+    for name, a, w in zip(('outs', 'hT', 'cT'), fwd, jouts):
+        assert_close(a, w, tol, True, f'enc5 f32 schedule {name} against JAX')
+    for name, a, w in zip(KINDS['enc'][5], loss_grads, jgrads):
+        assert a.shape == tuple(w.shape), name
+        assert_close(a, w, grad_tol, True, f'enc5 f32 schedule {name} '
+            'against JAX')
+
+
+def test_enc5_f32_design():
+    """enc5's f32 C functions run csrc/lstm_f32.cuh ('cluster'), with the
+    argument lists of the bf16 ones: lstm_enc_forward's 23 (the encoded
+    inputs and the x @ W_ih slab in the bf16 scratch's places) and
+    lstm_enc_backward's 38 (the activations and transposed weights in
+    the P slab's place); lstm_scan_enc's step backward keeps the FMA
+    kernels ('fma'), the bf16 ones the tensor cores ('tc')."""
+    for fn in ('lstm_enc_forward', 'lstm_enc_backward'):
+        assert lstm_enc.design(fn, torch.float32) == 'cluster'
+        assert lstm_enc.design(fn, torch.bfloat16) == 'tc'
+    assert lstm_enc.design('lstm_enc_step_backward', torch.float32) == 'fma'
+    assert len(lstm_enc.KERNEL.functions['lstm_enc_forward']) == 23
+    assert len(lstm_enc.KERNEL.functions['lstm_enc_backward']) == 38
+    # the same reach as the FMA pair's: D == H in 32, 64, 128 and at most
+    # 128 features, the rest to the streamed pair
+    for F, D, H in ((1, 128, 128), (49, 128, 128), (128, 32, 32),
+            (49, 64, 64)):
+        assert lstm_common.enc5_design(F, D, H, torch.float32) == 'resident'
+    for F, D, H in ((129, 128, 128), (49, 96, 128), (49, 256, 256)):
+        assert lstm_common.enc5_design(F, D, H, torch.float32) == 'stream'
+
+
 def xp_tc_schedule(x_proj, h0, c0, w_hh, cdt, splits):
     """What lstm_scan's bf16 kernels (csrc/lstm_tc.cuh, mode XP) compute,
     in their order, in plain torch. Forward: no pre-pass; the loop reads
@@ -1097,6 +1243,21 @@ def test_splitk_splits_contract(M, N, K, sms):
         assert n == 66
     if (M, N, K, sms) == (256, 512, 131072, 132):
         assert n == 33
+
+
+@pytest.mark.parametrize('M,N,K', [(256, 512, 4096), (50, 128, 4096),
+    (256, 512, 16000), (50, 128, 131072), (256, 512, 131072), (129, 128, 100)])
+def test_f32_splitk_splits_contract(M, N, K):
+    """enc5's f32 split-K (csrc/lstm_f32.cuh) takes splitk_splits' count
+    with a floor of F32_SPLIT_ROWS = 256 rows a split in place of 1024:
+    one wave of 128 x 128 tiles at two blocks an SM where K allows, so
+    that memory's 4096 rows (T 8, B 512) give its dW 16 splits, not 4."""
+    n = lstm_common.splitk_count(M, N, K, 132, lstm_common.F32_SPLIT_ROWS)
+    tiles = -(-M // 128) * -(-N // 128)
+    assert n == max(1, min(-(-264 // tiles), -(-K // 256)))
+    assert lstm_common.splitk_count(M, N, K, 132) <= n
+    if (M, N, K) == (256, 512, 4096):
+        assert n == 16
 
 
 @pytest.mark.parametrize('M,N,K', [(32, 128, 3000), (50, 128, 777),

@@ -1,33 +1,38 @@
-"""Builds of the resident tensor-core LSTM kernels timed in turns on one
-NVIDIA GPU.
+"""Builds of the resident LSTM kernels timed in turns on one NVIDIA GPU.
 
-    python3 tools/compare_lstm_tc_torch.py TREE [TREE ...]
+    python3 tools/compare_lstm_tc_torch.py [--dtype bfloat16|float32]...
+        TREE [TREE ...]
 
 Each TREE is the root of a checkout of this repository (`.` for this
 one). The trees run in turns, first to last and back again (for two:
 A, B, B, A), on one card: two builds are compared only within one run
 (two runs may land on two cards with other power limits). Each turn runs,
 as a child process in the tree, that tree's own chip_smoke.check_lstm
-(timed: CUDA events, cold L2, mean of 20) on the bf16 kernel pairs of
+(timed: CUDA events, cold L2, mean of 20) on the kernel pairs of
 lstm_scan (row 6), lstm_scan_fused (7), lstm_scan_cat (5), enc5 (3 fwd /
 4), lstm_scan_enc (3 fwd / 3 bwd), the archived enc2 (8), enc3 (3 fwd
 / 9), enc4 (3 fwd / 10) and enc6 (3 fwd / 11) and the archived tm (12:
 one call, T launches each way) at T 16, B 8192, D = H = 128 (the encoder
-kinds: F 49), and its own chip_smoke.time_tc_phases for the kinds it has
-phases of: the last backward phase of fused, cat, enc5, enc and the
-archived encoder kinds is their weight gradients (the split-K and db's
-ordered sum), scan's and tm's dW_hh alone. An older tree whose kind runs
-on FMA (the archived backwards before their redesign, enc's step
+kinds: F 49), once for each dtype given (bfloat16 by default). In
+bfloat16 it also runs the tree's own chip_smoke.time_tc_phases for the
+kinds it has phases of: the last backward phase of fused, cat, enc5, enc
+and the archived encoder kinds is their weight gradients (the split-K and
+db's ordered sum), scan's and tm's dW_hh alone. An older tree whose kind
+runs on FMA (the archived backwards before their redesign, enc's step
 backward and enc2's forward before theirs, tm before its) has no phases
-of it: its whole call is timed alone. Each turn also prints, for each kind, the SHA-256 of every output
-and gradient of one forward and backward call on inputs from a fixed
-seed, and that of the backward's gradients alone, the backward fed the
-plain forward's outputs: two trees whose digests of a kind agree compute
-it bit for bit alike, and two whose backward digests agree compute its
-backward so, whatever their forwards do. Each tree builds
-its kernels from its own sources at its first turn. Prints a line per
-reading and, last, one JSON object with every reading and the card's name
-and power limit.
+of it: its whole call is timed alone. In float32 it also times enc5 at
+memory's shape (config.yaml's memory section: T 8, B 512, F 1) and at
+T 16, B 1000, and enc5's streamed pair (lstm_enc_stream_*, called
+directly) at T 16 with B 8192 and 1000; cat's reading carries cuDNN's f32
+nn.LSTM beside it. Each turn also prints, for each kind and dtype, the
+SHA-256 of every output and gradient of one forward and backward call on
+inputs from a fixed seed, and that of the backward's gradients alone,
+the backward fed the plain forward's outputs: two trees whose digests of
+a kind agree compute it bit for bit alike, and two whose backward
+digests agree compute its backward so, whatever their forwards do. Each
+tree builds its kernels from its own sources at its first turn. Prints a
+line per reading and, last, one JSON object with every reading and the
+card's name and power limit.
 """
 import argparse
 import json
@@ -37,6 +42,11 @@ import sys
 
 KINDS = ('scan', 'fused', 'cat', 'enc5', 'enc', 'enc2', 'enc3', 'enc4',
     'enc6', 'tm')
+# float32 only: (label, kind, T, B, F) of the enc5 pair's other shapes
+F32_EXTRA = (('enc5 memory', 'enc5', 8, 512, 1),
+    ('enc5 B=1000', 'enc5', 16, 1000, 49),
+    ('enc5_stream', 'enc5_stream', 16, 8192, 49),
+    ('enc5_stream B=1000', 'enc5_stream', 16, 1000, 49))
 
 # run inside a tree: its own chip_smoke, its own kernels
 CHILD = r'''
@@ -57,7 +67,7 @@ def sha(tensors):
 def digests(kind):
     fwd, bwd, fwd_plain = chip_smoke.lstm_kinds()[kind][:3]
     args, grads, cdt = chip_smoke.lstm_case(torch, np.random.RandomState(1),
-        kind, 16, 8192, 'bfloat16')
+        kind, 16, 8192, DTYPE)
     with torch.no_grad():
         outs = fwd(*args, cdt)
         both = tuple(outs) + tuple(bwd(*args, outs[0], outs[3], *grads, cdt))
@@ -66,27 +76,47 @@ def digests(kind):
     return sha(both), sha(alone)
 
 
+def reading(r):
+    return {'forward': r['fwd_ms'], 'backward': r['bwd_ms'],
+        'forward plain': r['fwd_plain_ms'], 'backward plain':
+        r['bwd_plain_ms'], 'forward bound': r['fwd_bound'],
+        'backward bound': r['bwd_bound'], 'forward library': r['fwd_lib'],
+        'backward library': r['bwd_lib'], 'shape': r['shape']}
+
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
 flush = chip_smoke.l2_flush_buffer()
 out = {}
 for kind in KINDS:
     r = chip_smoke.check_lstm(torch, flush, np.random.RandomState(0), kind,
-        8192, 'bfloat16', timed=True)
+        8192, DTYPE, timed=True)
     digest, backward_digest = digests(kind)
-    out[kind] = {'forward': r['fwd_ms'], 'backward': r['bwd_ms'],
-        'digest': digest, 'backward digest': backward_digest}
-    try:
-        phases = chip_smoke.time_tc_phases(torch, flush,
-            np.random.RandomState(0), kind)
-    except (KeyError, TypeError, IndexError):
-        # an older tree whose kind has no phases
-        phases = None
+    out[kind] = {**reading(r), 'digest': digest,
+        'backward digest': backward_digest}
+    phases = None
+    if DTYPE == 'bfloat16':
+        try:
+            phases = chip_smoke.time_tc_phases(torch, flush,
+                np.random.RandomState(0), kind)
+        except (KeyError, TypeError, IndexError):
+            # an older tree whose kind has no phases
+            pass
     out[kind]['phases'] = phases
+if DTYPE == 'float32':
+    for label, kind, T, B, F in F32_EXTRA:
+        r = chip_smoke.check_lstm(torch, flush, np.random.RandomState(0),
+            kind, B, DTYPE, T=T, F=F, timed=True)
+        out[label] = {**reading(r), 'phases': None}
 print(json.dumps(out))
 '''
 
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
+    parser.add_argument('--dtype', action='append',
+        choices=('bfloat16', 'float32'),
+        help='a compute dtype to run (repeat for both; bfloat16 if none)')
     parser.add_argument('trees', nargs='+')
     args = parser.parse_args()
     trees = [os.path.abspath(t) for t in args.trees]
@@ -94,28 +124,45 @@ def main():
     card = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
         '--format=csv,noheader'], stdout=subprocess.PIPE, text=True,
         check=True).stdout.strip().splitlines()[0]
-    code = f'KINDS = {KINDS!r}\n' + CHILD
+    dtypes = args.dtype or ['bfloat16']
     readings = []
-    for turn, tree in enumerate(order):
-        out = subprocess.run([sys.executable, '-c', code], cwd=tree,
-            check=True, stdout=subprocess.PIPE, text=True).stdout
-        result = json.loads(out.strip().splitlines()[-1])
-        for kind, r in result.items():
-            for part in ('forward', 'backward'):
-                readings.append(dict(turn=turn, tree=tree, kind=kind,
-                    part=part, ms=r[part]))
-            for part in ('digest', 'backward digest'):
-                readings.append(dict(turn=turn, tree=tree, kind=kind,
-                    part=part, digest=r[part]))
-            for name, ms in (r['phases'] or {}).items():
-                readings.append(dict(turn=turn, tree=tree, kind=kind,
-                    part=name, ms=ms))
-            print(f'turn {turn} {tree}: {kind} forward {r["forward"]:.4f} '
-                f'ms, backward {r["backward"]:.4f} ms; digest {r["digest"]}, '
-                f'backward digest {r["backward digest"]}; '
-                'phases ' + json.dumps(r['phases']), flush=True)
+    for dtype in dtypes:
+        code = (f'KINDS = {KINDS!r}\nF32_EXTRA = {F32_EXTRA!r}\n'
+            f'DTYPE = {dtype!r}\n' + CHILD)
+        for turn, tree in enumerate(order):
+            out = subprocess.run([sys.executable, '-c', code], cwd=tree,
+                check=True, stdout=subprocess.PIPE, text=True).stdout
+            result = json.loads(out.strip().splitlines()[-1])
+            for kind, r in result.items():
+                for part in ('forward', 'backward'):
+                    readings.append(dict(turn=turn, tree=tree, dtype=dtype,
+                        kind=kind, part=part, ms=r[part],
+                        plain_ms=r[f'{part} plain'],
+                        bound_ms=r[f'{part} bound'],
+                        library_ms=r[f'{part} library'], shape=r['shape']))
+                for part in ('digest', 'backward digest'):
+                    if part in r:
+                        readings.append(dict(turn=turn, tree=tree,
+                            dtype=dtype, kind=kind, part=part,
+                            digest=r[part]))
+                for name, ms in (r['phases'] or {}).items():
+                    readings.append(dict(turn=turn, tree=tree, dtype=dtype,
+                        kind=kind, part=name, ms=ms))
+                print(f'turn {turn} {tree} {dtype}: {kind} ({r["shape"]}) '
+                    f'forward {r["forward"]:.4f} ms (plain '
+                    f'{r["forward plain"]:.4f}, bound '
+                    f'{r["forward bound"]:.4f}, library '
+                    f'{r["forward library"]}), backward '
+                    f'{r["backward"]:.4f} ms (plain '
+                    f'{r["backward plain"]:.4f}, bound '
+                    f'{r["backward bound"]:.4f}, library '
+                    f'{r["backward library"]}); digest '
+                    f'{r.get("digest")}, backward digest '
+                    f'{r.get("backward digest")}; phases '
+                    + json.dumps(r['phases']), flush=True)
     print(json.dumps(dict(card=card, shape='T=16 B=8192 D=H=128 (encoder '
-        'kinds F=49) bf16', readings=readings)), flush=True)
+        'kinds F=49) unless a reading names its own', dtypes=dtypes,
+        readings=readings)), flush=True)
     return 0
 
 
