@@ -53,8 +53,11 @@ around time loops on thread block clusters; f32 is what config.yaml's
 LSTM sections train in) is held to its plain versions at memory's CLI
 shape (T 8, B 512, F 1), at T 16 with B 8192 and 1000, and at hidden 32
 and 64, timed at the first two (and each of its phases at B 8192) beside
-its f32 bound and cat's f32 pair beside cuDNN's f32 nn.LSTM, run twice
-bit-equal, and its loops' registers and tilings printed.
+its f32 bound, run twice bit-equal, and its loops' registers and tilings
+printed; cat's f32 pair (the same design without the encoder) likewise
+at T 16 with B 8192 and 1000 and hidden 32, 64 and 128, timed at hidden
+128 at both batches beside its f32 bound and cuDNN's f32 nn.LSTM, its
+phases at B 8192, twice bit-equal at both batches.
 
 The Ocean phase: the MLP head is also held to its plain version at the
 Ocean envs' shapes (F = 1, 5 and 30 features; O = 3, 5 and 11 outputs;
@@ -94,8 +97,9 @@ of each streamed cat function an epoch asserted; one more update under
 the profiler for its kernel time), ProcgenResnet(16, 256)
 through ppo_host on a fake procgen env, and Convolutional on VisualTarget
 through the device trainer, whose tail score must reach 0.6 in 131072
-steps, then two epochs of it in bf16 inside LSTMWrapper(128, 128) (the
-resident cat); no phase imports gymnasium. The spawned envpool workers
+steps, then two epochs of it inside LSTMWrapper(128, 128) in bf16 and
+in f32 (the resident cat: tensor cores, clusters; 32 launches each way
+asserted); no phase imports gymnasium. The spawned envpool workers
 import this script as their main module: its top level imports no torch.
 
 The CLI phase (phase 17): the port's entry point, demo_torch.main,
@@ -422,8 +426,10 @@ def lstm_kinds():
         'enc': (lstm_enc._launch_forward, lstm_enc._launch_step_backward,
             lstm_enc.lstm_enc_reference,
             lstm_enc.lstm_scan_enc_backward_reference, ENC_GRADS),
-        'cat': (lstm_cat._launch_forward, lstm_cat._launch_backward,
-            lstm_cat.lstm_cat_reference,
+        # the resident cat's f32 backward takes its forward's x @ W_ih
+        # slab, as the streamed kinds' take their gates
+        'cat': (*lstm_cat.kept_gates(lstm_cat._launch_forward,
+            lstm_cat._launch_backward), lstm_cat.lstm_cat_reference,
             lstm_cat.lstm_cat_backward_reference, CELL_GRADS),
         'enc5_stream': (*lstm_cat.kept_gates(
             lstm_enc._launch_stream_forward, lstm_enc._launch_stream_backward),
@@ -490,7 +496,9 @@ def lstm_bounds(kind, args, T, B, H, dtype_name):
     function's, whatever the schedule: enc2, enc3, enc4 and enc6 have
     enc5's, tm has scan's. The streamed kinds' forward also writes every
     step's f32 gates, and their backward takes them as an input in place
-    of recomputing them: it reads them and skips the gate product."""
+    of recomputing them: it reads them and skips the gate product. Cat's
+    f32 forward also writes its x @ W_ih slab, and its backward reads it
+    and skips that half of the gate product."""
     x = args[0]
     x_bytes = x.numel() * x.element_size()
     weights = sum(t.numel() for t in args[3:]) * 4
@@ -528,6 +536,11 @@ def lstm_bounds(kind, args, T, B, H, dtype_name):
         fwd_bytes += gates
         bwd_bytes += gates
         bwd_flops -= recompute
+    elif (kind, dtype_name) == ('cat', 'float32'):
+        slab = T * B * 4 * H * 4
+        fwd_bytes += slab
+        bwd_bytes += slab
+        bwd_flops -= 2 * T * B * x.shape[2] * 4 * H
     return (bound(fwd_bytes, fwd_flops, dtype_name),
         bound(bwd_bytes, bwd_flops, dtype_name))
 
@@ -704,15 +717,17 @@ def log_tc_usage():
     if out[0] != tc_max_features():
         raise AssertionError(f'lstm_enc_tc_max_features = {out[0]}, but '
             f'lstm_common.tc_max_features() = {tc_max_features()}')
-    # enc5's f32 kernels (csrc/lstm_f32.cuh) and the tilings their loops
-    # take at memory's, a ragged and the bench's batch
-    for H in (32, 64, 128):
-        log(f'  enc5 f32 kernels, H={H}: ' + ', '.join(
-            f'{name} {regs} registers, {spill} bytes spilled'
-            for name, (regs, spill) in lstm_enc.f32_usage(H).items()))
-        log(f'  enc5 f32 loop tilings, H={H} (units a block, rows a thread, '
-            'clusters the card holds): ' + '; '.join(
-                f'B={B} {lstm_enc.f32_plan(H, B)}' for B in (512, 1000, 8192)))
+    # enc5's and cat's f32 kernels (csrc/lstm_f32.cuh) and the tilings their
+    # loops take at memory's, a ragged and the bench's batch
+    for kind, module in (('enc5', lstm_enc), ('cat', lstm_cat)):
+        for H in (32, 64, 128):
+            log(f'  {kind} f32 kernels, H={H}: ' + ', '.join(
+                f'{name} {regs} registers, {spill} bytes spilled'
+                for name, (regs, spill) in module.f32_usage(H).items()))
+            log(f'  {kind} f32 loop tilings, H={H} (units a block, rows a '
+                'thread, clusters the card holds): ' + '; '.join(
+                    f'B={B} {module.f32_plan(H, B)}'
+                    for B in (512, 1000, 8192)))
     log('  bf16 tensor-core widest input by hidden size: ' + ', '.join(
         f'H={H}: {tc_max_input(H)}' for H in (32, 64, 128))
         + f'; enc5 widest feature width {tc_max_features()} (C and Python '
@@ -725,8 +740,9 @@ def time_tc_phases(torch, flush, rng, kind='fused', T=16, B=8192,
     ('fused': lstm_scan_fused, 'cat': lstm_scan_cat, 'enc5', 'scan':
     lstm_scan with bf16 x_proj, 'enc': lstm_scan_enc's step backward, the
     archived 'enc2' pair and the backwards of the archived 'enc3', 'enc4',
-    'enc6' and 'tm') at the main shape, or of enc5's f32 kernels
-    (csrc/lstm_f32.cuh, the same phases) with dtype_name float32: a launch
+    'enc6' and 'tm') at the main shape, or of enc5's or cat's f32 kernels
+    (csrc/lstm_f32.cuh, the same phases; the forward's pre-pass is x @
+    W_ih) with dtype_name float32: a launch
     runs the first k phases, so a phase's time is the difference of two
     such means (cold L2 each)."""
     launch_fwd, launch_bwd = lstm_kinds()[kind][:2]
@@ -1818,8 +1834,10 @@ def run_visual_phase(torch, card):
     through the device trainer at VISUAL's settings, the JAX package's
     conv learning proof: the tail score (the mean of the last fifth of the
     epochs' scores, tools/head_to_head.py tail_mean) must reach 0.6. Then
-    two epochs of the trained conv, in bf16, wrapped in LSTMWrapper(128,
-    128): the resident cat kernels, 16 launches of each an epoch."""
+    two epochs of the trained conv wrapped in LSTMWrapper(128, 128), in
+    bf16 and in f32: the resident cat kernels (tensor cores, clusters), 16
+    launches of each an epoch. Returns each run's launches by dtype
+    name."""
     import pufferlib_tpu_torch.vector as vector
     from pufferlib_tpu_torch.models import (
         Convolutional, LSTMWrapper, Policy, RecurrentPolicy)
@@ -1839,6 +1857,7 @@ def run_visual_phase(torch, card):
             checkpoint_interval=10 ** 6)
         return ppo.create(config, vecenv, policy)
 
+    runs = {}
     space = env_creator('visual')().action_space
     conv = Convolutional(space, 2, 64, hidden_size=128,
         generator=torch.Generator().manual_seed(1))
@@ -1861,34 +1880,43 @@ def run_visual_phase(torch, card):
         f'{tail_mean:.4f} (goal {v["goal"]}) over {len(scores)} epochs in '
         f'{elapsed:.1f} s; losses {json.dumps(dict(data.losses))} on {card}')
 
-    bf16 = Convolutional(space, 2, 64, hidden_size=128, dtype=torch.bfloat16)
-    bf16.load_state_dict(conv.state_dict())
-    lstm = LSTMWrapper(bf16, obs_shape=(2, 40, 40), input_size=128,
-        hidden_size=128, dtype=torch.bfloat16,
-        generator=torch.Generator().manual_seed(2))
-    data = trainer(RecurrentPolicy(lstm), v['batch_size'] * 1000, 2)
-    ppo.step(data)  # warm-up epoch
-    torch.cuda.synchronize()
-    for k in KERNELS:
-        k.reset_counts()
-    start = time.perf_counter()
-    for _ in range(2):
-        ppo.step(data)
-    torch.cuda.synchronize()
-    elapsed = time.perf_counter() - start
-    launches = {fn: n for k in KERNELS for fn, n in k.fn_launches.items()}
-    want = dict.fromkeys(launches, 0)
-    want['gae_forward'] = 2
-    want['lstm_cat_forward'] = want['lstm_cat_backward'] = 32
-    if launches != want:
-        raise AssertionError(f'visual + LSTM: launches {launches}, expected '
-            f'{want}')
-    losses = check_losses(data, 'visual + LSTM')
-    log(f'visual trainer, Convolutional + LSTMWrapper(128, 128) bf16 (resident'
-        f' cat): {2 * v["batch_size"] / elapsed:.1f} steps/s over 2 epochs '
-        f'after a warm-up epoch; launches '
-        f'{json.dumps({k: n for k, n in launches.items() if n})}; losses '
-        f'{json.dumps(losses)} on {card}')
+    # the trained conv inside LSTMWrapper(128, 128): bf16 (cat's tensor-core
+    # kernels), then f32, the default dtype (cat's cluster kernels)
+    for dtype, design in ((torch.bfloat16, 'tensor cores'),
+            (torch.float32, 'clusters')):
+        copy = Convolutional(space, 2, 64, hidden_size=128, dtype=dtype)
+        copy.load_state_dict(conv.state_dict())
+        lstm = LSTMWrapper(copy, obs_shape=(2, 40, 40), input_size=128,
+            hidden_size=128, dtype=dtype,
+            generator=torch.Generator().manual_seed(2))
+        data = trainer(RecurrentPolicy(lstm), v['batch_size'] * 1000, 2)
+        ppo.step(data)  # warm-up epoch
+        torch.cuda.synchronize()
+        for k in KERNELS:
+            k.reset_counts()
+        start = time.perf_counter()
+        for _ in range(2):
+            ppo.step(data)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - start
+        launches = {fn: n for k in KERNELS for fn, n in k.fn_launches.items()}
+        want = dict.fromkeys(launches, 0)
+        want['gae_forward'] = 2
+        want['lstm_cat_forward'] = want['lstm_cat_backward'] = 32
+        name = str(dtype).replace('torch.', '')
+        if launches != want:
+            raise AssertionError(f'visual + LSTM {name}: launches {launches}, '
+                f'expected {want}')
+        losses = check_losses(data, f'visual + LSTM {name}')
+        log(f'visual trainer, Convolutional + LSTMWrapper(128, 128) {name} '
+            f'(resident cat on the {design}): '
+            f'{2 * v["batch_size"] / elapsed:.1f} steps/s over 2 epochs '
+            f'after a warm-up epoch; launches '
+            f'{json.dumps({k: n for k, n in launches.items() if n})}; losses '
+            f'{json.dumps(losses)} on {card}')
+        runs[name] = launches
+        del data
+    return runs
 
 
 def main():
@@ -1957,11 +1985,11 @@ def main():
         if key not in mlp_runs:
             mlp_runs[key] = check_mlp(torch, mlp, flush, rng, B, 'bfloat16',
                 F=F, H=H, O=O)
-    # f32: enc5's pair (csrc/lstm_f32.cuh) and cat's, beside cuDNN's f32
-    # nn.LSTM, also timed at the main shape
+    # f32: enc5's pair (csrc/lstm_f32.cuh) also timed at the main shape,
+    # cat's (the same design) at both batches beside cuDNN's f32 nn.LSTM
     lstm_runs = {(kind, B, d): check_lstm(torch, flush, rng, kind, B, d,
-            timed=(B, d) == (8192, 'bfloat16') or (kind in ('enc5', 'cat')
-                and (B, d) == (8192, 'float32')))
+            timed=(B, d) == (8192, 'bfloat16') or (kind, d) == ('cat',
+                'float32') or (kind, B, d) == ('enc5', 8192, 'float32'))
         for kind in ('enc5', 'cat', 'scan', 'fused', 'enc')
             + ARCHIVED_ENC_KINDS + ('tm',)
         for B in (8192, 1000) for d in ('bfloat16', 'float32')}
@@ -1986,18 +2014,24 @@ def main():
     lstm_runs['enc5', mb // bptt, 'float32 F=1 H=128 T=8'] = check_lstm(
         torch, flush, rng, 'enc5', mb // bptt, 'float32', T=bptt, F=1,
         timed=True)
-    # enc5's f32 design at the other hidden sizes, both loop tilings
-    for H in (32, 64):
-        for B in (8192, 1000):
-            lstm_runs['enc5', B, f'float32 H={H}'] = check_lstm(torch, flush,
-                rng, 'enc5', B, 'float32', H=H)
+    # enc5's and cat's f32 design at the other hidden sizes, both loop
+    # tilings
+    for kind in ('enc5', 'cat'):
+        for H in (32, 64):
+            for B in (8192, 1000):
+                lstm_runs[kind, B, f'float32 H={H}'] = check_lstm(torch,
+                    flush, rng, kind, B, 'float32', H=H)
     enc5_f32_phases = time_tc_phases(torch, flush, rng, 'enc5',
+        dtype_name='float32')
+    cat_f32_phases = time_tc_phases(torch, flush, rng, 'cat',
         dtype_name='float32')
     check_burn(torch, flush, rng)
     # enc5's bf16 kernels add every partial sum in a fixed order, and so
     # do its f32 ones, whose loops' clusters meet at barriers each step
     check_bit_equal(torch, rng, 'enc5', 8192)
     check_bit_equal(torch, rng, 'enc5', 8192, dtype_name='float32')
+    for B in (8192, 1000):
+        check_bit_equal(torch, rng, 'cat', B, dtype_name='float32')
     check_bit_equal(torch, rng, 'enc5', mb // bptt, T=bptt, F=1,
         dtype_name='float32')
     for kind in ('enc5', 'enc', 'enc2'):
@@ -2100,8 +2134,9 @@ def main():
         raise AssertionError('the host phases imported gymnasium')
 
     # phase 16: Convolutional on the device trainer (the conv learning
-    # proof), then wrapped in the LSTM (the resident cat kernels)
-    run_visual_phase(torch, card)
+    # proof), then wrapped in the LSTM (the resident cat kernels, bf16 and
+    # f32)
+    visual_launches = run_visual_phase(torch, card)
 
     # phase 17: the command-line entry point (demo_torch.py) and its bench
     # (bench_torch.py)
@@ -2259,14 +2294,30 @@ def main():
             memory_shape=memory_f32['shape'],
             phases={k: v for k, v in enc5_f32_phases.items()
                 if k.startswith(fn)}))
-    # cat's resident pair in f32 beside cuDNN's f32 nn.LSTM
+    # cat's f32 pair (csrc/lstm_f32.cuh), which phase 16's f32 visual
+    # trainer launches, beside cuDNN's f32 nn.LSTM at the main shape and at
+    # B 1000, and its phases at the main shape
     cat_f32 = lstm_runs['cat', 8192, 'float32']
+    cat_f32_1000 = lstm_runs['cat', 1000, 'float32']
+    for part, fn, replaces in (('fwd', 'forward', 'lstm_cat.py:131'),
+            ('bwd', 'backward', 'lstm_cat.py:185')):
+        kernels.append(dict(name=f'lstm_cat_{fn}_f32', route='cuda',
+            source='pufferlib_tpu_torch/csrc/lstm_f32.cuh',
+            replaces=f'pufferlib_tpu/ops/pallas/{replaces}',
+            launches=visual_launches['float32'][f'lstm_cat_{fn}'],
+            max_abs_err=max(r[f'{part}_err'] for (k, _, d), r in
+                lstm_runs.items() if k == 'cat' and d.startswith('float32')),
+            ms=cat_f32[f'{part}_ms'], plain_ms=cat_f32[f'{part}_plain_ms'],
+            bound_ms=cat_f32[f'{part}_bound'],
+            bound_by=cat_f32[f'{part}_by'],
+            library_ms=cat_f32[f'{part}_lib'], shape=cat_f32['shape'],
+            ms_1000=cat_f32_1000[f'{part}_ms'],
+            plain_ms_1000=cat_f32_1000[f'{part}_plain_ms'],
+            bound_ms_1000=cat_f32_1000[f'{part}_bound'],
+            library_ms_1000=cat_f32_1000[f'{part}_lib'],
+            phases={k: v for k, v in cat_f32_phases.items()
+                if k.startswith(fn)}))
     rows = {row['name']: row for row in kernels}
-    for part, fn in (('fwd', 'forward'), ('bwd', 'backward')):
-        rows[f'lstm_cat_{fn}'].update(f32_ms=cat_f32[f'{part}_ms'],
-            f32_plain_ms=cat_f32[f'{part}_plain_ms'],
-            f32_bound_ms=cat_f32[f'{part}_bound'],
-            f32_library_ms=cat_f32[f'{part}_lib'])
     # enc5's launches in demo_torch's memory run (phase 17, f32)
     for part in ('forward', 'backward'):
         rows[f'lstm_enc5_{part}']['cli_launches'] = \
@@ -2890,8 +2941,9 @@ def check_card_against_cpu(torch, np):
 
 def check_lstm_card_against_cpu(torch, np):
     """One recurrent update (time slabs, T = 16 per minibatch, N = 256,
-    f32) through the enc5 and the cat kernels at hidden 32 and through
-    enc5's streamed design at hidden 256 on the card, and through their
+    f32) through the enc5 and the cat kernels at hidden 32, through cat's
+    at hidden 128 (the big loop tiling) and through enc5's streamed design
+    at hidden 256 on the card, and through their
     plain versions on the CPU, from the same weights and batch. Params
     within 1e-4, as the MLP update: the same f32 math with sums in other
     orders, through Adam."""
@@ -2909,9 +2961,11 @@ def check_lstm_card_against_cpu(torch, np):
     )
     lstm0 = {32: (rng.randn(2, T // h, 1, N, 32) * 0.5).astype(np.float32)}
     lstm0[256] = (rng.randn(2, T // h, 1, N, 256) * 0.5).astype(np.float32)
+    lstm0[128] = (rng.randn(2, T // h, 1, N, 128) * 0.5).astype(np.float32)
     from pufferlib_tpu_torch.ops.cuda import KERNELS
     for kernel, hidden, fn in (('enc5', 32, 'lstm_enc'),
-            ('cat', 32, 'lstm_cat'), ('enc5', 256, 'lstm_enc_stream')):
+            ('cat', 32, 'lstm_cat'), ('cat', 128, 'lstm_cat'),
+            ('enc5', 256, 'lstm_enc_stream')):
         results = []
         for device in ('cpu', 'cuda'):
             ppo, data = make_trainer(torch, num_envs=N, horizon=T,

@@ -233,12 +233,12 @@ int lstm_enc_tc_usage(int H, int* out) {
 }
 
 // Registers and spilled bytes per thread of enc5's f32 kernels at hidden
-// size H (lstm::f32::usage): twenty ints into out.
+// size H (lstm::f32::usage with the encoder's two): twenty ints into out.
 int lstm_enc_f32_usage(int H, int* out) {
     switch (H) {
-        case 32: return (int)lstm::f32::usage<32>(out);
-        case 64: return (int)lstm::f32::usage<64>(out);
-        case 128: return (int)lstm::f32::usage<128>(out);
+        case 32: return (int)lstm::f32::usage<32, true>(out);
+        case 64: return (int)lstm::f32::usage<64, true>(out);
+        case 128: return (int)lstm::f32::usage<128, true>(out);
     }
     return (int)cudaErrorInvalidValue;
 }

@@ -1,21 +1,27 @@
-// enc5's resident pair in f32 (csrc/lstm_enc.cu with an f32 compute dtype)
-// for Hopper (sm_90a): the products that do not depend on h run as FMA
-// SGEMMs over all T*B rows outside the time loop, and the loop keeps W_hh
-// on chip for all T steps in a thread block cluster. Replaces, in f32, the
-// same TPU kernels as lstm_enc.cu: lstm_enc._impl (the forward of enc5 and
-// lstm_scan_enc) and lstm_enc5._hoisted_bwd. Products are f32 FMAs only (no
-// TF32): the tensor cores have no exact f32 product.
+// The resident f32 pairs of enc5 (csrc/lstm_enc.cu) and cat
+// (csrc/lstm_cat.cu) for Hopper (sm_90a): the products that do not depend
+// on h run as FMA SGEMMs over all T*B rows outside the time loop, and the
+// loop keeps W_hh on chip for all T steps in a thread block cluster.
+// Replaces, in f32, the same TPU kernels as those two files: lstm_enc._impl
+// (the forward of enc5 and lstm_scan_enc) and lstm_enc5._hoisted_bwd, and
+// lstm_cat._impl and lstm_cat._bwd. Products are f32 FMAs only (no TF32):
+// the tensor cores have no exact f32 product. Cat is enc5 without the
+// encoder: both pairs run the pieces below (cell_forward, cell_backward),
+// enc5 behind its encoder SGEMM and with dx under the relu mask.
 //
-// Bound: at T = 16, B = 8192, F = 49, D = H = 128 the forward does 36.0
-// GFLOP and the backward 106.4, against 0.1-0.3 GB of device memory: bound
-// by operations at 67 TFLOP/s (0.537 and 1.588 ms). At memory's shape (T 8,
-// B 512, F 1) the bounds are 0.016 and 0.048 ms, and a step of the loop's
+// Bound: at T = 16, B = 8192, D = H = 128 the cat forward does 34.4 GFLOP
+// and its backward 103.1 (enc5 with F = 49: 36.0 and 106.4), against
+// 0.1-0.3 GB of device memory: bound by operations at 67 TFLOP/s (0.513
+// and 1.539 ms; enc5 0.537 and 1.588). Cat's backward from the kept slab
+// needs 85.9 GFLOP and 0.27 GB more read: 1.282 ms. At memory's shape (T 8, B 512, F
+// 1) enc5's bounds are 0.016 and 0.048 ms, and a step of the loop's
 // latency (a barrier, the cell math) sets the time.
 //
-// Forward (enc5_forward):
-// 1. the encoder xs = relu(feats @ W_enc + b_enc), one SGEMM over T*B rows;
-// 2. xw = xs @ W_ih, an SGEMM into a (T*B, 4H) f32 slab;
-// 3. forward_loop: a cluster of CS = H / U blocks owns R batch rows (U =
+// Forward (cell_forward; enc5_forward runs the encoder first):
+// 0. enc5 only: the encoder xs = relu(feats @ W_enc + b_enc), one SGEMM
+//    over T*B rows; x below is xs;
+// 1. xw = x @ W_ih, an SGEMM into a (T*B, 4H) f32 slab;
+// 2. forward_loop: a cluster of CS = H / U blocks owns R batch rows (U =
 //    32 or 64 units a block and RT = 4 or 16 rows a thread, picked from B:
 //    plan); block `rank` holds the four gate columns of units rank*U ..
 //    rank*U+U-1 of W_hh in shared memory (4 U H floats: 128 KiB at U 64,
@@ -28,11 +34,14 @@
 //    buffered). Each sum is the old one-sum-over-K order: x over k < D from
 //    zero (the slab), then h over k < H, then the bias, so the forward is
 //    the bits of the per-step FMA kernel of lstm_common.cuh.
-// Backward (enc5_backward), tc::backward's hoisted schedule on FMA:
-// 1. the encoder recomputed into xs;
-// 2. a pre-pass: acts = act([xs | h_prev] @ [W_ih; W_hh] + b), one SGEMM
+// Backward (cell_backward; enc5_backward recomputes the encoder first and
+// adds [dW_enc; db_enc] last), tc::backward's hoisted schedule on FMA:
+// 1. a pre-pass: acts = act([x | h_prev] @ [W_ih; W_hh] + b), one SGEMM
 //    whose epilogue applies the sigmoids and tanh, into a (T*B, 4H) slab;
-// 3. backward_loop: the same clusters walk t = T-1 .. 0; a thread makes
+//    cat keeps the forward's xw (autograd saves it) and starts each sum
+//    from it, continuing over h_prev @ W_hh alone: half the FMAs, the
+//    same chain of sums, the same bits;
+// 2. backward_loop: the same clusters walk t = T-1 .. 0; a thread makes
 //    the dgates of its unit and RT rows from the activations (dgates_chain)
 //    and sums db, then each block forms the partial dh_prev of every unit
 //    over its own 4 U gate columns (W_hh^T's slice held for all T steps)
@@ -40,10 +49,11 @@
 //    that block adds the CS partials in rank order. Two cluster barriers a
 //    step: the dgates complete and every partial read, then the partials
 //    written;
-// 4. dpre = relu-mask(dg @ W_ih^T), an SGEMM with the mask as its epilogue
-//    (at few row tiles split over K, the partials added under the mask);
-// 5. [dW_ih; dW_hh] = [xs | h_prev]^T dg and [dW_enc; db_enc] =
-//    [feats | 1]^T dpre, split-K SGEMMs whose partials are added in split
+// 3. dx = dg @ W_ih^T, an SGEMM (enc5: dpre, with the relu mask as its
+//    epilogue; at few row tiles split over K, the partials added in split
+//    order, under the mask for enc5);
+// 4. [dW_ih; dW_hh] = [x | h_prev]^T dg (and enc5's [dW_enc; db_enc] =
+//    [feats | 1]^T dpre), split-K SGEMMs whose partials are added in split
 //    order; db the ordered sum of the loop blocks' partials. No atomics:
 //    two runs give the same bits.
 //
@@ -164,10 +174,12 @@ __device__ __forceinline__ void stage4(float* dst, const S& src, long long r, in
 // holds A^T (row k, column m; the weight gradients' [x | h_prev]^T dg),
 // else A itself (row m, column k). B's source holds B (row k, column n),
 // N a multiple of 4. Tiles of 128 x 128 on blockIdx.x (m) and .y (n).
-template <class SA, class SB, bool A_KMAJOR, class Epi>
+// START: each sum starts from start[m][n] ((M, N) f32; cat's gate
+// recompute continuing the forward's x @ W_ih), else from zero.
+template <class SA, class SB, bool A_KMAJOR, class Epi, bool START = false>
 __global__ void __launch_bounds__(STHREADS, 2)
     sgemm(SA a, SB bm, Epi epi, int M, int N, long long K, long long per_split,
-          const float* any) {
+          const float* any, const float* __restrict__ start) {
     extern __shared__ __align__(16) float smem_sgemm[];
     const int m0 = blockIdx.x * SBM, n0 = blockIdx.y * SBN;
     const long long kb = (long long)blockIdx.z * per_split;
@@ -179,6 +191,23 @@ __global__ void __launch_bounds__(STHREADS, 2)
     for (int i = 0; i < 8; ++i)
 #pragma unroll
         for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+    if constexpr (START) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+            const int m = m0 + (i / 4) * 64 + ty * 4 + i % 4;
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                const int n = n0 + h * 64 + tx * 4;
+                if (m < M && n < N) {
+                    const float4 v = *reinterpret_cast<const float4*>(start + (size_t)m * N + n);
+                    acc[i][4 * h] = v.x;
+                    acc[i][4 * h + 1] = v.y;
+                    acc[i][4 * h + 2] = v.z;
+                    acc[i][4 * h + 3] = v.w;
+                }
+            }
+        }
+    }
     // every call commits a group, empty past the last step
     auto load = [&](int step) {
         if (step < steps) {
@@ -265,7 +294,7 @@ __global__ void __launch_bounds__(STHREADS, 2)
     }
 }
 
-// the encoder: relu(v + b_enc), as cell_forward's encode_rows
+// the encoder: relu(v + b_enc), as lstm_common.cuh's encode_rows
 struct EpiEncoder {
     float* xs;
     const float* b_enc;
@@ -295,7 +324,8 @@ struct EpiPartial {
     }
 };
 
-// the gate activations i, f, g, o of v + b (cell_backward's recompute)
+// the gate activations i, f, g, o of v + b (the recompute of
+// lstm_common.cuh's cell_backward)
 struct EpiActs {
     float* acts;
     const float* b;
@@ -313,42 +343,48 @@ struct EpiActs {
     }
 };
 
-// dpre = dx where the encoded input is positive, else 0
-struct EpiDpre {
-    float* dpre;
-    const float* xs;
+// dx, or with a mask (enc5's encoded inputs) dpre: dx where the mask is
+// positive, else 0
+struct EpiDx {
+    float* dx;
+    const float* mask;
     int D;
     __device__ __forceinline__ void operator()(int m, int n, float4 v, int) const {
-        const float4 x = *reinterpret_cast<const float4*>(xs + (size_t)m * D + n);
-        *reinterpret_cast<float4*>(dpre + (size_t)m * D + n) =
-            make_float4(x.x > 0.f ? v.x : 0.f, x.y > 0.f ? v.y : 0.f, x.z > 0.f ? v.z : 0.f,
-                        x.w > 0.f ? v.w : 0.f);
+        if (mask) {
+            const float4 x = *reinterpret_cast<const float4*>(mask + (size_t)m * D + n);
+            v = make_float4(x.x > 0.f ? v.x : 0.f, x.y > 0.f ? v.y : 0.f, x.z > 0.f ? v.z : 0.f,
+                            x.w > 0.f ? v.w : 0.f);
+        }
+        *reinterpret_cast<float4*>(dx + (size_t)m * D + n) = v;
     }
 };
 
-template <bool A_KMAJOR, class SA, class SB, class Epi>
+// START: the sums start from start (M, N), else from zero
+template <bool A_KMAJOR, bool START = false, class SA, class SB, class Epi>
 cudaError_t gemm(SA a, SB bm, Epi epi, long long M, int N, long long K, int splits,
-                 const float* any, cudaStream_t stream) {
-    auto kernel = sgemm<SA, SB, A_KMAJOR, Epi>;
+                 const float* any, cudaStream_t stream, const float* start = nullptr) {
+    auto kernel = sgemm<SA, SB, A_KMAJOR, Epi, START>;
+    if (START && !start) return cudaErrorInvalidValue;
     cudaError_t err = prepare(kernel, SGEMM_SMEM);
     if (err != cudaSuccess) return err;
     const long long mt = (M + SBM - 1) / SBM;
     if (splits < 1 || mt > 0x7fffffff) return cudaErrorInvalidValue;
     const long long per_split = splits == 1 ? K : ring_per_split(K, splits);
     const dim3 grid((unsigned)mt, (N + SBN - 1) / SBN, splits);
-    kernel<<<grid, STHREADS, SGEMM_SMEM, stream>>>(a, bm, epi, (int)M, N, K, per_split, any);
+    kernel<<<grid, STHREADS, SGEMM_SMEM, stream>>>(a, bm, epi, (int)M, N, K, per_split, any,
+                                                   start);
     return cudaGetLastError();
 }
 
-// dpre[i] = dx[i] where xs[i] > 0, else 0, dx the split-K partials
-// (S, n) added in split order (as reduce_partials)
-__global__ void masked_sum(const float* __restrict__ part, const float* __restrict__ xs,
-                           float* __restrict__ dpre, int S, long long n) {
+// dx[i] = the split-K partials (S, n) added in split order (as
+// reduce_partials), or 0 where a non-null mask[i] is not positive
+__global__ void dx_sum(const float* __restrict__ part, const float* __restrict__ mask,
+                       float* __restrict__ dx, int S, long long n) {
     for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
          i += (long long)gridDim.x * blockDim.x) {
         float s = 0.f;
         for (int p = 0; p < S; ++p) s += part[(size_t)p * n + i];
-        dpre[i] = xs[i] > 0.f ? s : 0.f;
+        dx[i] = !mask || mask[i] > 0.f ? s : 0.f;
     }
 }
 
@@ -694,9 +730,9 @@ __global__ void __launch_bounds__(LTHREADS, 1)
 
 // ---------------------------------------------------------------- host
 
-constexpr int FORWARD_PHASES = 2;   // encoder + projection, loop
+constexpr int FORWARD_PHASES = 2;   // (encoder +) projection, loop
 constexpr int DX_MAX_SPLITS = 4;    // dx's partials fit the (T*B, 4H) activations slab
-constexpr int BACKWARD_PHASES = 4;  // encoder + pre-pass, loop, dpre, dW + db
+constexpr int BACKWARD_PHASES = 4;  // (encoder +) pre-pass, loop, dx, dW + db
 
 // A loop's tiling: U units a block (clusters of H / U blocks), RT rows a
 // thread. Each hidden size has two: BIG, many rows a thread for large
@@ -830,6 +866,38 @@ inline cudaError_t transpose_into(const float* src, float* dst, int rows, int co
     return cudaGetLastError();
 }
 
+// What cell_forward checks before its first launch (enc5_forward before
+// its encoder's)
+inline cudaError_t cell_forward_check(const float* x, const float* xw, int phases) {
+    if (!xw || phases < 1 || phases > FORWARD_PHASES) return cudaErrorInvalidValue;
+    // the SGEMM copies these rows 16 bytes at a time
+    return aligned16(x) && aligned16(xw) ? cudaSuccess : cudaErrorMisalignedAddress;
+}
+
+// The cell's forward from x (T, B, D), f32, D == H (the caller checks):
+// the projection xw = x @ W_ih into the scratch xw (T * B * 4H), then the
+// loop. h0, c0 (B, H), w_ih (D, 4H), w_hh (H, 4H), b (4H,). Writes outs
+// and, unless null, cseq (T, B, H), hT, cT (B, H). phases:
+// FORWARD_PHASES runs it all, 1 stops after the projection.
+template <int H>
+cudaError_t cell_forward(const float* x, const float* h0, const float* c0, const float* w_ih,
+                         const float* w_hh, const float* b, float* outs, float* cseq, float* hT,
+                         float* cT, float* xw, int T, int B, int D, int phases,
+                         cudaStream_t stream) {
+    constexpr int G = 4 * H;
+    cudaError_t err = cell_forward_check(x, xw, phases);
+    if (err != cudaSuccess) return err;
+    const long long M = (long long)T * B;
+    err = gemm<false>(Mat{x, D}, Mat{w_ih, G}, EpiStore{xw, G}, M, G, D, 1, w_ih, stream);
+    if (err != cudaSuccess || phases == 1) return err;
+    using C = LoopConfigs<H>;
+    if (plan<H>(B, false).big)
+        return run_forward_loop<H, C::BIG_U, C::BIG_RT>(xw, h0, c0, w_hh, b, outs, cseq, hT, cT,
+                                                        T, B, stream);
+    return run_forward_loop<H, C::SMALL_U, C::SMALL_RT>(xw, h0, c0, w_hh, b, outs, cseq, hT, cT,
+                                                        T, B, stream);
+}
+
 // feats (T, B, F), h0, c0 (B, H), w_enc (F, D), b_enc (D,), w_ih (D, 4H),
 // w_hh (H, 4H), b (4H,), all f32, D == H. Writes outs and, unless null,
 // cseq (T, B, H), hT, cT (B, H). Scratch: xs (T * B * D) and xw (T * B
@@ -841,65 +909,67 @@ cudaError_t enc5_forward(const float* feats, const float* h0, const float* c0,
                          const float* w_hh, const float* b, float* outs, float* cseq, float* hT,
                          float* cT, float* xs, float* xw, int T, int B, int F, int phases,
                          cudaStream_t stream) {
-    constexpr int D = H, G = 4 * H;
-    if (!xs || !xw || phases < 1 || phases > FORWARD_PHASES) return cudaErrorInvalidValue;
-    // the SGEMMs copy these rows 16 bytes at a time
-    if (!aligned16(w_enc) || !aligned16(xs) || !aligned16(xw)) return cudaErrorMisalignedAddress;
-    const long long M = (long long)T * B;
-    cudaError_t err = gemm<false>(Feats<false>{feats, F}, Mat{w_enc, D},
-                                  EpiEncoder{xs, b_enc, D}, M, D, F, 1, w_enc, stream);
+    constexpr int D = H;
+    if (!xs) return cudaErrorInvalidValue;
+    if (!aligned16(w_enc)) return cudaErrorMisalignedAddress;
+    cudaError_t err = cell_forward_check(xs, xw, phases);
     if (err != cudaSuccess) return err;
-    if ((err = gemm<false>(Mat{xs, D}, Mat{w_ih, G}, EpiStore{xw, G}, M, G, D, 1, w_ih,
-                           stream)) != cudaSuccess)
+    if ((err = gemm<false>(Feats<false>{feats, F}, Mat{w_enc, D}, EpiEncoder{xs, b_enc, D},
+                           (long long)T * B, D, F, 1, w_enc, stream)) != cudaSuccess)
         return err;
-    if (phases == 1) return cudaSuccess;
-    using C = LoopConfigs<H>;
-    if (plan<H>(B, false).big)
-        return run_forward_loop<H, C::BIG_U, C::BIG_RT>(xw, h0, c0, w_hh, b, outs, cseq, hT, cT,
-                                                        T, B, stream);
-    return run_forward_loop<H, C::SMALL_U, C::SMALL_RT>(xw, h0, c0, w_hh, b, outs, cseq, hT, cT,
-                                                        T, B, stream);
+    return cell_forward<H>(xs, h0, c0, w_ih, w_hh, b, outs, cseq, hT, cT, xw, T, B, D, phases,
+                           stream);
 }
 
-// Inputs as enc5_forward's, its outs and cseq, and the gradients g_outs
-// (T, B, H), g_hT, g_cT (B, H). Writes dh0, dc0 (B, H), dwe (F + 1, D):
-// dW_enc then db_enc, dw = [dW_ih; dW_hh] (D + H, 4H), db (4H,). Scratch:
-// xs, dpre (T * B * D), dg (T * B * 4H), dw_part (splits_w, D + H, 4H),
-// db_part (part_rows, 4H) with part_rows at least ceil(B / 32),
-// dwe_part (splits_e, F + 1, D), and `work`: the activations (T * B *
-// 4H), then W_ih^T (4H * D) and W_hh^T (4H * H). phases:
-// BACKWARD_PHASES runs it all; 1 .. 3 stop after the encoder and the
-// pre-pass, the loop or dpre.
-template <int H>
-cudaError_t enc5_backward(const float* feats, const float* h0, const float* c0,
-                          const float* w_enc, const float* b_enc, const float* w_ih,
-                          const float* w_hh, const float* b, const float* outs,
-                          const float* cseq, const float* g_outs, const float* g_hT,
-                          const float* g_cT, float* dh0, float* dc0, float* dwe, float* dw,
-                          float* db, float* xs, float* dpre, float* dg, float* dw_part,
-                          float* db_part, float* dwe_part, float* work, int T, int B, int F,
-                          int splits_w, int splits_e, int part_rows, int phases,
-                          cudaStream_t stream) {
-    constexpr int D = H, G = 4 * H;
-    if (!work || phases < 1 || phases > BACKWARD_PHASES || splits_w < 1 || splits_e < 1)
+// What cell_backward checks before its first launch (enc5_backward before
+// its encoder's)
+inline cudaError_t cell_backward_check(const float* x, const float* h0, const float* outs,
+                                      const float* dx, const float* dg, const float* dw_part,
+                                      const float* work, int splits_w, int phases) {
+    if (!work || phases < 1 || phases > BACKWARD_PHASES || splits_w < 1)
         return cudaErrorInvalidValue;
     // the SGEMMs copy these rows 16 bytes at a time
-    for (const void* p : {(const void*)w_enc, (const void*)h0, (const void*)outs,
-                          (const void*)xs, (const void*)dpre, (const void*)dg,
-                          (const void*)dw_part, (const void*)dwe_part, (const void*)work})
+    for (const void* p : {(const void*)x, (const void*)h0, (const void*)outs, (const void*)dx,
+                          (const void*)dg, (const void*)dw_part, (const void*)work})
         if (!aligned16(p)) return cudaErrorMisalignedAddress;
+    return cudaSuccess;
+}
+
+// The cell's backward from x (T, B, D), f32, D == H (the caller checks),
+// the forward's inputs, outs and cseq, and the gradients g_outs (T, B,
+// H), g_hT, g_cT (B, H). xw: the forward's x @ W_ih (T * B * 4H), kept
+// (cat), or null to recompute it (enc5): the same sums in the same order.
+// Writes dx (T, B, D) (with a non-null mask, dpre: dx where the mask is
+// positive, else 0), dh0, dc0 (B, H), dw = [dW_ih; dW_hh] (D + H, 4H) and
+// db (4H,). Scratch: dg (T * B * 4H), dw_part (splits_w, D + H, 4H),
+// db_part (part_rows, 4H) with part_rows at least ceil(B / 32) (the
+// loops' smallest tile), and `work`: the activations (T * B * 4H), then
+// W_ih^T (4H * D) and W_hh^T (4H * H). phases: BACKWARD_PHASES runs it
+// all; 1 .. 3 stop after the pre-pass, the loop or dx (to time them).
+template <int H>
+cudaError_t cell_backward(const float* x, const float* xw, const float* h0, const float* c0,
+                          const float* w_ih, const float* w_hh, const float* b, const float* outs,
+                          const float* cseq, const float* g_outs, const float* g_hT,
+                          const float* g_cT, float* dx, const float* mask, float* dh0,
+                          float* dc0, float* dw, float* db, float* dg, float* dw_part,
+                          float* db_part, float* work, int T, int B, int D, int splits_w,
+                          int part_rows, int phases, cudaStream_t stream) {
+    constexpr int G = 4 * H;
+    cudaError_t err = cell_backward_check(x, h0, outs, dx, dg, dw_part, work, splits_w, phases);
+    if (err != cudaSuccess) return err;
+    if (!aligned16(xw)) return cudaErrorMisalignedAddress;
     const long long M = (long long)T * B;
     float* acts = work;
     float* w_ih_t = acts + M * G;
     float* w_hh_t = w_ih_t + (size_t)G * D;
-    cudaError_t err = gemm<false>(Feats<false>{feats, F}, Mat{w_enc, D},
-                                  EpiEncoder{xs, b_enc, D}, M, D, F, 1, w_enc, stream);
-    if (err != cudaSuccess) return err;
-    const XH xh{xs, h0, outs, B, D, H};
-    if ((err = gemm<false>(xh, WCat{w_ih, w_hh, D, G}, EpiActs{acts, b, H}, M, G, D + H, 1,
-                           w_ih, stream)) != cudaSuccess)
-        return err;
-    if (phases == 1) return cudaSuccess;
+    const XH xh{x, h0, outs, B, D, H};
+    // the gate recompute: each sum over k < D + H in order, then b; from
+    // the forward's xw, the sums over k < D, it continues over h_prev
+    err = xw ? gemm<false, true>(XH{x, h0, outs, B, 0, H}, Mat{w_hh, G}, EpiActs{acts, b, H},
+                                 M, G, H, 1, w_ih, stream, xw)
+             : gemm<false>(xh, WCat{w_ih, w_hh, D, G}, EpiActs{acts, b, H}, M, G, D + H, 1,
+                           w_ih, stream);
+    if (err != cudaSuccess || phases == 1) return err;
     if ((err = transpose_into(w_hh, w_hh_t, H, G, stream)) != cudaSuccess) return err;
     using C = LoopConfigs<H>;
     long long tiles = 0;
@@ -910,33 +980,64 @@ cudaError_t enc5_backward(const float* feats, const float* h0, const float* c0,
         : run_backward_loop<H, C::SMALL_U, C::SMALL_RT>(acts, w_hh_t, c0, cseq, g_outs, g_hT,
                                                         g_cT, dg, dh0, dc0, db_part, T, B,
                                                         part_rows, &tiles, stream);
-    if (err != cudaSuccess) return err;
-    if (phases == 2) return cudaSuccess;
+    if (err != cudaSuccess || phases == 2) return err;
     if ((err = transpose_into(w_ih, w_ih_t, D, G, stream)) != cudaSuccess) return err;
-    // dx = dg @ W_ih^T under the relu mask; where its tiles leave half the
-    // SMs idle (memory's 4096 rows: 32 tiles), split over K up to four ways into
-    // the activations' slab (read by nothing after the loop), the partials
-    // added in split order under the mask
+    // dx = dg @ W_ih^T; where its tiles leave half the SMs idle (memory's
+    // 4096 rows: 32 tiles), split over K up to four ways into the
+    // activations' slab (read by nothing after the loop), the partials
+    // added in split order (under the mask)
     const long long dx_tiles = (M + SBM - 1) / SBM;
     const int dx_splits = 2 * dx_tiles > sm_count() ? 1
         : (int)std::min<long long>(DX_MAX_SPLITS, (sm_count() + dx_tiles - 1) / dx_tiles);
     if (dx_splits == 1) {
-        err = gemm<false>(Mat{dg, G}, Mat{w_ih_t, D}, EpiDpre{dpre, xs, D}, M, D, G, 1, w_ih,
+        err = gemm<false>(Mat{dg, G}, Mat{w_ih_t, D}, EpiDx{dx, mask, D}, M, D, G, 1, w_ih,
                           stream);
     } else if ((err = gemm<false>(Mat{dg, G}, Mat{w_ih_t, D}, EpiPartial{acts, (int)M, D}, M, D,
                                   G, dx_splits, w_ih, stream)) == cudaSuccess) {
-        masked_sum<<<(int)std::min<long long>((M * D + 255) / 256, 1024), 256, 0, stream>>>(
-            acts, xs, dpre, dx_splits, M * D);
+        dx_sum<<<(int)std::min<long long>((M * D + 255) / 256, 1024), 256, 0, stream>>>(
+            acts, mask, dx, dx_splits, M * D);
         err = cudaGetLastError();
     }
-    if (err != cudaSuccess) return err;
-    if (phases == 3) return cudaSuccess;
+    if (err != cudaSuccess || phases == 3) return err;
     if ((err = gemm<true>(xh, Mat{dg, G}, EpiPartial{dw_part, D + H, G}, D + H, G, M, splits_w,
                           w_ih, stream)) != cudaSuccess)
         return err;
     if ((err = reduce(dw_part, dw, splits_w, (long long)(D + H) * G, stream)) != cudaSuccess)
         return err;
-    if ((err = reduce(db_part, db, (int)tiles, G, stream)) != cudaSuccess) return err;
+    return reduce(db_part, db, (int)tiles, G, stream);
+}
+
+// Inputs as enc5_forward's, its outs and cseq, and the gradients g_outs
+// (T, B, H), g_hT, g_cT (B, H). Writes dh0, dc0 (B, H), dwe (F + 1, D):
+// dW_enc then db_enc, dw = [dW_ih; dW_hh] (D + H, 4H), db (4H,). Scratch:
+// xs, dpre (T * B * D), dwe_part (splits_e, F + 1, D) and cell_backward's.
+// phases: BACKWARD_PHASES runs it all; 1 .. 3 stop after the encoder and
+// the pre-pass, the loop or dpre.
+template <int H>
+cudaError_t enc5_backward(const float* feats, const float* h0, const float* c0,
+                          const float* w_enc, const float* b_enc, const float* w_ih,
+                          const float* w_hh, const float* b, const float* outs,
+                          const float* cseq, const float* g_outs, const float* g_hT,
+                          const float* g_cT, float* dh0, float* dc0, float* dwe, float* dw,
+                          float* db, float* xs, float* dpre, float* dg, float* dw_part,
+                          float* db_part, float* dwe_part, float* work, int T, int B, int F,
+                          int splits_w, int splits_e, int part_rows, int phases,
+                          cudaStream_t stream) {
+    constexpr int D = H;
+    if (splits_e < 1) return cudaErrorInvalidValue;
+    if (!aligned16(w_enc) || !aligned16(dwe_part)) return cudaErrorMisalignedAddress;
+    cudaError_t err =
+        cell_backward_check(xs, h0, outs, dpre, dg, dw_part, work, splits_w, phases);
+    if (err != cudaSuccess) return err;
+    const long long M = (long long)T * B;
+    err = gemm<false>(Feats<false>{feats, F}, Mat{w_enc, D},
+                                  EpiEncoder{xs, b_enc, D}, M, D, F, 1, w_enc, stream);
+    if (err != cudaSuccess) return err;
+    if ((err = cell_backward<H>(xs, nullptr, h0, c0, w_ih, w_hh, b, outs, cseq, g_outs, g_hT,
+                                g_cT, dpre, xs, dh0, dc0, dw, db, dg, dw_part, db_part, work,
+                                T, B, D, splits_w, part_rows, phases, stream)) != cudaSuccess ||
+        phases < BACKWARD_PHASES)
+        return err;
     if ((err = gemm<true>(Feats<true>{feats, F}, Mat{dpre, D}, EpiPartial{dwe_part, F + 1, D},
                           F + 1, D, M, splits_e, w_ih, stream)) != cudaSuccess)
         return err;
@@ -945,9 +1046,12 @@ cudaError_t enc5_backward(const float* feats, const float* h0, const float* c0,
 
 // Registers and local (spilled) bytes per thread of the f32 kernels at
 // hidden size H: the forward and backward loops at both tilings (big,
-// small), then the SGEMMs: the encoder, the projection, the pre-pass,
-// dpre, dW and [dW_enc; db_enc]; twenty ints
-template <int H>
+// small), then the cell's SGEMMs: the projection, the pre-pass (enc5's
+// over [xs | h_prev]; without ENCODER cat's, over h_prev from the kept
+// slab), dx (with or without the mask: one kernel) and dW; with ENCODER
+// also enc5's encoder and [dW_enc; db_enc]. Two ints a kernel: sixteen,
+// or twenty
+template <int H, bool ENCODER>
 cudaError_t usage(int* out) {
     using C = LoopConfigs<H>;
     const void* fns[] = {
@@ -955,14 +1059,17 @@ cudaError_t usage(int* out) {
         reinterpret_cast<const void*>(forward_loop<H, C::SMALL_U, C::SMALL_RT>),
         reinterpret_cast<const void*>(backward_loop<H, C::BIG_U, C::BIG_RT>),
         reinterpret_cast<const void*>(backward_loop<H, C::SMALL_U, C::SMALL_RT>),
-        reinterpret_cast<const void*>(sgemm<Feats<false>, Mat, false, EpiEncoder>),
         reinterpret_cast<const void*>(sgemm<Mat, Mat, false, EpiStore>),
-        reinterpret_cast<const void*>(sgemm<XH, WCat, false, EpiActs>),
-        reinterpret_cast<const void*>(sgemm<Mat, Mat, false, EpiDpre>),
+        ENCODER ? reinterpret_cast<const void*>(sgemm<XH, WCat, false, EpiActs>)
+                : reinterpret_cast<const void*>(sgemm<XH, Mat, false, EpiActs, true>),
+        reinterpret_cast<const void*>(sgemm<Mat, Mat, false, EpiDx>),
         reinterpret_cast<const void*>(sgemm<XH, Mat, true, EpiPartial>),
-        reinterpret_cast<const void*>(sgemm<Feats<true>, Mat, true, EpiPartial>),
+        ENCODER ? reinterpret_cast<const void*>(sgemm<Feats<false>, Mat, false, EpiEncoder>)
+                : nullptr,
+        ENCODER ? reinterpret_cast<const void*>(sgemm<Feats<true>, Mat, true, EpiPartial>)
+                : nullptr,
     };
-    for (int i = 0; i < 10; ++i) {
+    for (int i = 0; i < (ENCODER ? 10 : 8); ++i) {
         cudaFuncAttributes a;
         const cudaError_t err = cudaFuncGetAttributes(&a, fns[i]);
         if (err != cudaSuccess) return err;

@@ -9,9 +9,11 @@
 // csrc/lstm_archive.cu's four encoder-fused backwards (the archived modes
 // ENC2, ENC3, ENC4 and ENC6: ENC5's backward with other roundings, ENC6
 // with ENC5's own) and the archived enc2's forward (enc2_forward: the
-// encoder, a projection GEMM, mode XP's loop). In f32 they keep
+// encoder, a projection GEMM, mode XP's loop). In f32, the default
+// compute dtype, the enc5 and cat pairs run csrc/lstm_f32.cuh (FMA SGEMMs
+// around loops on thread block clusters) and the others keep
 // lstm_common.cuh's cell kernels: the tensor cores have no exact f32
-// product, and f32 is the exact test mode.
+// product.
 //
 // Mode XP (lstm.py's lstm_scan: `_lstm_fwd_impl` / `_fwd_kernel` and
 // `_noresid`, `_lstm_scan_bwd` / `_bwd_kernel`) is FUSED without the input
@@ -1705,10 +1707,11 @@ int usage_at(int H, int* out) {
     return (int)cudaErrorInvalidValue;
 }
 
-// The bodies of the C functions of both cells (lstm_scan.cu's fused pair,
-// lstm_cat.cu's cat pair), for lstm::dispatch: the compute dtype is the
-// only branch. bf16 runs the kernels above; f32 lstm_common.cuh's cell
-// kernels, which take D == H and no scratch and run every phase.
+// The bodies of the C functions of both cells (lstm_scan.cu's fused pair;
+// lstm_cat.cu's cat pair in bf16), for lstm::dispatch: the compute dtype
+// is the only branch. bf16 runs the kernels above; f32 (the fused pair's:
+// cat's runs lstm_f32.cuh) lstm_common.cuh's cell kernels, which take
+// D == H and no scratch and run every phase.
 template <int MODE, int H, typename E>
 struct CellForward {
     static cudaError_t run(const void* x, const float* h0, const float* c0,

@@ -18,13 +18,26 @@ stored outs and cseq), rounds dgates to cdt for the two contractions
 from the unrounded dgates.
 
 On the card the kernels of csrc/lstm_cat.cu run: in bf16 csrc/lstm_tc.cuh's
-tensor-core kernels in mode CAT (x @ W_ih as a GEMM over all T*B rows
-into an f32 slab, the loop's accumulators starting from it, h @ W_hh
-onto them with W_hh held in shared memory, then + b; the gate recompute,
-dx and dW as GEMMs around a reverse loop), at any input width D that is
-a multiple of 8 up to lstm_common.tc_max_input(H); in f32, the exact test
-mode, lstm_common.cuh's FMA cell kernels, which take D == H. These hold
-the weights in shared memory and take hidden sizes 32, 64 and 128. Every
+tensor-core kernels in mode CAT (design 'tc': x @ W_ih as a GEMM over all
+T*B rows into an f32 slab, the loop's accumulators starting from it,
+h @ W_hh onto them with W_hh held in shared memory, then + b; the gate
+recompute, dx and dW as GEMMs around a reverse loop), at any input width
+D that is a multiple of 8 up to lstm_common.tc_max_input(H). In f32, the
+default compute dtype of both packages and of every config.yaml section
+(exact: every product an f32 FMA, no TF32), csrc/lstm_f32.cuh (design
+'cluster', enc5's f32 design without the encoder), which takes D == H:
+x @ W_ih, the backward's gate recompute, dx = dg @ W_ih^T and the weight
+gradients as FMA SGEMMs over all T*B rows, and time loops that keep W_hh
+on chip for all T steps in a thread block cluster. The forward keeps the
+sums of the FMA cell it replaced in their order, so its outputs are that
+kernel's bits, and returns its x @ W_ih slab (T * B * 4H f32, 268 MB at
+T 16, B 8192, H 128), which the autograd Function keeps: the backward's
+gate recompute starts each sum from it and continues over h_prev @ W_hh
+alone, with the activations as its epilogue (half the products of
+recomputing [x | h_prev] @ [W_ih; W_hh], the same bits). design(fn, cdt)
+says which runs; f32_plan and f32_usage give the f32 loops' tilings and
+the kernels' registers. These resident designs take hidden sizes 32, 64
+and 128. Every
 other shape, at any input width and any hidden size up to
 lstm_common.STREAM_MAX_HIDDEN, runs the second design,
 csrc/lstm_cat_stream.cu (STREAM_KERNEL), in both dtypes (bf16 on the
@@ -54,12 +67,12 @@ import torch
 from pufferlib_tpu_torch.ops.cuda._build import CudaKernel, I, P
 from pufferlib_tpu_torch.ops.cuda._build import ptr, ptr_or_null, stream_handle
 from pufferlib_tpu_torch.ops.cuda.lstm_common import (
-    BACKWARD_PHASES, FORWARD_PHASES, STREAM_ROWS, backward_inputs,
-    cat_design, cat_shape_error, cell_backward_step, check_cell_inputs,
-    forward_outputs, gate_activations, launch_cell_backward,
-    launch_cell_forward, pad_cell, pad_units, round_to, scan_forward,
-    stream_hidden, stream_shape_error, stream_splits, unpad_cell_grads,
-    unpad_units)
+    BACKWARD_PHASES, F32_KERNELS, FORWARD_PHASES, STREAM_ROWS,
+    backward_inputs, cat_design, cat_shape_error, cell_backward_step,
+    check_cell_inputs, f32_plan_of, f32_usage_of, forward_outputs,
+    gate_activations, launch_cell_backward, launch_cell_forward, pad_cell,
+    pad_units, round_to, scan_forward, stream_hidden, stream_shape_error,
+    stream_splits, unpad_cell_grads, unpad_units)
 
 __all__ = ['lstm_scan_cat', 'lstm_cat_reference',
     'lstm_cat_backward_reference', 'KERNEL', 'STREAM_KERNEL']
@@ -71,7 +84,13 @@ KERNEL = CudaKernel('lstm_cat.cu', {
     'lstm_cat_tc_usage': [I, P],
     # not a launch: the widest input lstm_tc.cuh serves at a hidden size
     'lstm_tc_max_input': [I, P],
+    # not launches: the f32 kernels' registers and spills, and the tilings
+    # the f32 loops take at a batch size
+    'lstm_cat_f32_usage': [I, P],
+    'lstm_cat_f32_plan': [I, I, P],
 })
+# the C functions that run csrc/lstm_f32.cuh in f32
+F32_FUNCTIONS = ('lstm_cat_forward', 'lstm_cat_backward')
 # the second design, for the shapes KERNEL refuses, and enc5's (lstm_enc.py)
 STREAM_KERNEL = CudaKernel('lstm_cat_stream.cu', {
     'lstm_cat_stream_forward': [P] * 14 + [I] * 5 + [P],
@@ -86,6 +105,28 @@ STREAM_KERNEL = CudaKernel('lstm_cat_stream.cu', {
     # not a launch: the kernels the library has launched so far
     'lstm_stream_kernels': [P],
 })
+
+
+def design(fn, cdt):
+    """The design the C function `fn` of KERNEL runs in cdt: 'tc'
+    (csrc/lstm_tc.cuh's tensor-core kernels, in bf16) or 'cluster'
+    (csrc/lstm_f32.cuh, the pair in f32)."""
+    if fn not in F32_FUNCTIONS:
+        raise ValueError(f'{fn} is not a launch of {KERNEL.source}')
+    return 'tc' if cdt == torch.bfloat16 else 'cluster'
+
+
+def f32_usage(H):
+    """Registers and spilled bytes per thread of the pair's f32 kernels at
+    hidden size H: {kernel: (registers, bytes)} (the card only)."""
+    return f32_usage_of(KERNEL, 'lstm_cat_f32_usage', H, F32_KERNELS)
+
+
+def f32_plan(H, B):
+    """The tilings the pair's f32 loops take at B rows on this card:
+    {'forward' | 'backward': (units a block, rows a thread, clusters the
+    card holds at once)} (the card only)."""
+    return f32_plan_of(KERNEL, 'lstm_cat_f32_plan', H, B)
 
 
 def lstm_cat_reference(x, h0, c0, w_ih, w_hh, b, cdt=torch.bfloat16):
@@ -123,14 +164,25 @@ def lstm_cat_backward_reference(x, h0, c0, w_ih, w_hh, b, outs, cseq,
 
 
 def _launch_forward(x, h0, c0, w_ih, w_hh, b, cdt, phases=FORWARD_PHASES):
-    return launch_cell_forward(KERNEL, 'lstm_cat_forward', x, h0, c0, w_ih,
-        w_hh, b, cdt, True, phases)
+    """lstm_cat_forward: (outs, hT, cT, cseq, xw), xw in f32 the x @ W_ih
+    slab that _launch_backward takes (None in bf16)."""
+    T, B, _ = x.shape
+    xw = torch.empty((T * B * 4 * h0.shape[1],), dtype=torch.float32,
+        device=x.device) if design('lstm_cat_forward', cdt) == 'cluster' \
+        else None
+    return (*launch_cell_forward(KERNEL, 'lstm_cat_forward', x, h0, c0,
+        w_ih, w_hh, b, cdt, True, phases, xw), xw)
 
 
 def _launch_backward(x, h0, c0, w_ih, w_hh, b, outs, cseq, g_outs, g_hT,
-        g_cT, cdt, phases=BACKWARD_PHASES):
+        g_cT, cdt, xw=None, phases=BACKWARD_PHASES):
+    """lstm_cat_backward from its forward's outs, cseq and, in f32, xw:
+    (dx, dh0, dc0, dW_ih, dW_hh, db)."""
+    if design('lstm_cat_backward', cdt) == 'cluster' and xw is None:
+        raise ValueError("lstm_cat_backward in float32 takes its forward's "
+            'x @ W_ih slab (the fifth output of _launch_forward)')
     return launch_cell_backward(KERNEL, 'lstm_cat_backward', x, h0, c0, w_ih,
-        w_hh, b, outs, cseq, g_outs, g_hT, g_cT, cdt, phases)
+        w_hh, b, outs, cseq, g_outs, g_hT, g_cT, cdt, phases, xw)
 
 
 def check_stream(device, D, H, cdt):
@@ -264,17 +316,19 @@ def stream_limits(cdt):
 
 
 def kept_gates(forward, backward):
-    """A streamed pair's launchers (this module's or lstm_enc's) with the
-    other designs' signatures: the forward's gates (its fifth output) go
-    to the next backward call, as the autograd Functions pass them."""
+    """A pair's launchers whose forward returns a fifth output that the
+    backward takes after the compute dtype (the streamed pairs' gates,
+    this module's and lstm_enc's; the resident cat's f32 x @ W_ih slab),
+    with the other designs' signatures: the forward's fifth output goes to
+    the next backward call, as the autograd Functions pass it."""
     last = {}
 
-    def fwd(*args):
-        *out, last['gates'] = forward(*args)
+    def fwd(*args, **kwargs):
+        *out, last['gates'] = forward(*args, **kwargs)
         return tuple(out)
 
-    def bwd(*args):
-        return backward(*args, last['gates'])
+    def bwd(*args, **kwargs):
+        return backward(*args, last['gates'], **kwargs)
     return fwd, bwd
 
 
@@ -299,7 +353,8 @@ class _LSTMCat(torch.autograd.Function):
             outs, hT, cT, cseq = lstm_cat_reference(*args)
             ctx.launch_backward = lstm_cat_backward_reference
         elif _design(x, h0, cdt) == 'resident':
-            outs, hT, cT, cseq = _launch_forward(*args)
+            # in f32 the backward takes the x @ W_ih slab its forward kept
+            outs, hT, cT, cseq, gates = _launch_forward(*args)
             ctx.launch_backward = _launch_backward
         else:
             # the streamed backward takes the gates its forward kept

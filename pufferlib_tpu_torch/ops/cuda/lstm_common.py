@@ -542,17 +542,19 @@ def tc_slab(T, B, H, device):
 
 
 def launch_cell_forward(kernel, fn, x, h0, c0, w_ih, w_hh, b, cdt,
-        save_cseq=True, phases=FORWARD_PHASES):
+        save_cseq=True, phases=FORWARD_PHASES, xw=None):
     """The forward C function `fn` of a cell pair (lstm_cat_forward,
     lstm_fused_forward): (outs, hT, cT, cseq). In bf16 its scratch is the
-    slab and the bf16 [W_ih; W_hh]; in f32 none."""
+    slab and the bf16 [W_ih; W_hh]; in f32, xw, cat's x @ W_ih slab (T * B
+    * 4H f32, which the caller keeps for the backward), or none (fused)."""
     T, B, D = x.shape
     H = h0.shape[1]
     check_cell_kernel_shape(D, H, cdt, x.device)
     outs, hT, cT, cseq = forward_outputs(T, h0, c0, cdt, save_cseq)
     if B > 0:
         tc = cdt == torch.bfloat16
-        xw = tc_slab(T, B, H, x.device) if tc else None
+        if tc:
+            xw = tc_slab(T, B, H, x.device)
         w16 = torch.empty(((D + H) * 4 * H,), dtype=torch.bfloat16,
             device=x.device) if tc else None
         kernel.launch(fn, ptr(x), ptr(h0), ptr(c0), ptr(w_ih), ptr(w_hh),
@@ -563,9 +565,13 @@ def launch_cell_forward(kernel, fn, x, h0, c0, w_ih, w_hh, b, cdt,
 
 
 def launch_cell_backward(kernel, fn, x, h0, c0, w_ih, w_hh, b, outs, cseq,
-        g_outs, g_hT, g_cT, cdt, phases=BACKWARD_PHASES):
+        g_outs, g_hT, g_cT, cdt, phases=BACKWARD_PHASES, xw=None):
     """The backward C function `fn` of a cell pair (lstm_cat_backward,
-    lstm_fused_backward): (dx, dh0, dc0, dW_ih, dW_hh, db)."""
+    lstm_fused_backward): (dx, dh0, dc0, dW_ih, dW_hh, db). xw: in f32,
+    the slab cat's forward wrote (csrc/lstm_f32.cuh's kernels run: their
+    scratch the activations and the transposed weights in the P slab's
+    place, the split-K's partials at F32_SPLIT_ROWS rows a split at
+    least); None for fused's FMA kernels."""
     T, B, D = x.shape
     H = h0.shape[1]
     G = 4 * H
@@ -579,20 +585,65 @@ def launch_cell_backward(kernel, fn, x, h0, c0, w_ih, w_hh, b, outs, cseq,
     if B == 0:
         return dx, dh0, dc0, dw[:D].zero_(), dw[D:].zero_(), db.zero_()
     tc = cdt == torch.bfloat16
-    splits = splitk_splits(D + H, G, T * B, dev)
+    cluster = not tc and xw is not None
+    splits = splitk_splits(D + H, G, T * B, dev,
+        F32_SPLIT_ROWS if cluster else 1024)
     dg = torch.empty((T, B, G), dtype=cdt, device=dev)
     dw_part = torch.empty((splits, D + H, G), dtype=torch.float32,
         device=dev)
     # db partials, a row per block: of 64 batch rows in bf16, 32 in f32
+    # (the FMA cell's block; the cluster loops' smallest tile)
     part_rows = math.ceil(B / TC_ROWS_PER_BLOCK) if tc else blocks(B)
     db_part = torch.empty((part_rows, G), dtype=torch.float32, device=dev)
     # bf16 scratch: the P slab, and [W_ih; W_hh], W_ih^T and h0 in bf16
-    pre = tc_slab(T, B, H, dev) if tc else None
-    w16 = torch.empty(((D + H) * G + G * D + B * H,), dtype=torch.bfloat16,
-        device=dev) if tc else None
+    # (aux); cluster: the activations, then W_ih^T and W_hh^T (and xw in
+    # aux's place)
+    pre = tc_slab(T, B, H, dev) if tc else torch.empty(
+        (T * B * G + G * (D + H),), dtype=torch.float32, device=dev) \
+        if cluster else None
+    aux = torch.empty(((D + H) * G + G * D + B * H,), dtype=torch.bfloat16,
+        device=dev) if tc else xw
     kernel.launch(fn, ptr(x), ptr(h0), ptr(c0), ptr(w_ih), ptr(w_hh), ptr(b),
         ptr(outs), ptr(cseq), ptr(g_outs), ptr(g_hT), ptr(g_cT), ptr(dx),
         ptr(dh0), ptr(dc0), ptr(dw), ptr(db), ptr(dg), ptr(dw_part),
-        ptr(db_part), ptr_or_null(pre), ptr_or_null(w16), T, B, D, H, int(tc),
+        ptr(db_part), ptr_or_null(pre), ptr_or_null(aux), T, B, D, H, int(tc),
         splits, part_rows, phases, stream_handle(x))
     return dx, dh0, dc0, dw[:D], dw[D:], db
+
+
+# the f32 cluster kernels (csrc/lstm_f32.cuh) of cat's and enc5's
+# libraries, in the order of lstm_cat_f32_usage's and lstm_enc_f32_usage's
+# output: the loops, the cell's SGEMMs, then enc5's encoder SGEMMs
+F32_KERNELS = ('forward loop (big)', 'forward loop (small)',
+    'backward loop (big)', 'backward loop (small)', 'projection',
+    'pre-pass', 'dx', 'dW')
+F32_ENCODER_KERNELS = ('encoder', 'dW_enc')
+
+
+def query_ints(kernel, fn, *args, n):
+    """n ints from the C function fn of `kernel`, which launches nothing
+    (the launch counts stay); raises on its error."""
+    import ctypes
+    out = (ctypes.c_int * n)()
+    err = getattr(kernel.lib(), fn)(*args, out)
+    if err:
+        raise RuntimeError(f'{fn}{args}: cudaError {err}')
+    return list(out)
+
+
+def f32_usage_of(kernel, fn, H, names):
+    """Registers and spilled bytes per thread of the f32 cluster kernels
+    `names` that the C function fn reports at hidden size H: {kernel:
+    (registers, bytes)} (the card only)."""
+    out = query_ints(kernel, fn, H, n=2 * len(names))
+    return {name: (out[2 * i], out[2 * i + 1])
+        for i, name in enumerate(names)}
+
+
+def f32_plan_of(kernel, fn, H, B):
+    """The tilings the f32 cluster loops take at B rows on this card, as
+    the C function fn reports them: {'forward' | 'backward': (units a
+    block, rows a thread, clusters the card holds at once)} (the card
+    only)."""
+    out = query_ints(kernel, fn, H, B, n=6)
+    return {'forward': tuple(out[:3]), 'backward': tuple(out[3:])}

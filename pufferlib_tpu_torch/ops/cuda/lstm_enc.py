@@ -73,10 +73,11 @@ import torch
 from pufferlib_tpu_torch.ops.cuda._build import (
     CudaKernel, I, P, ptr, ptr_or_null, stream_handle)
 from pufferlib_tpu_torch.ops.cuda.lstm_common import (
-    BACKWARD_PHASES, F32_SPLIT_ROWS, FORWARD_PHASES, KERNEL_MAX_FEATURES,
-    ROWS_PER_BLOCK, TC_ROWS_PER_BLOCK, backward_inputs, cell_backward_step,
-    check_encoder_inputs, check_encoder_kernel_shape,
-    check_fma_encoder_kernel_shape, encode, enc5_design, enc5_shape_error,
+    BACKWARD_PHASES, F32_ENCODER_KERNELS, F32_KERNELS, F32_SPLIT_ROWS,
+    FORWARD_PHASES, KERNEL_MAX_FEATURES, ROWS_PER_BLOCK, TC_ROWS_PER_BLOCK,
+    backward_inputs, cell_backward_step, check_encoder_inputs,
+    check_encoder_kernel_shape, check_fma_encoder_kernel_shape, encode,
+    enc5_design, enc5_shape_error, f32_plan_of, f32_usage_of,
     forward_outputs, gate_activations, h_prev_rows, needs_cseq, pad_cell,
     pad_units, round_to, scan_forward, splitk_splits, stream_hidden,
     stream_splits, tc_slab, unpad_cell_grads)
@@ -119,33 +120,18 @@ def design(fn, cdt):
     return 'cluster' if fn in F32_FUNCTIONS else 'fma'
 
 
-def _query(fn, *args, n):
-    """n ints from the C function fn of KERNEL, which launches nothing
-    (the launch counts stay); raises on its error."""
-    import ctypes
-    out = (ctypes.c_int * n)()
-    err = getattr(KERNEL.lib(), fn)(*args, out)
-    if err:
-        raise RuntimeError(f'{fn}{args}: cudaError {err}')
-    return list(out)
-
-
 def f32_usage(H):
     """Registers and spilled bytes per thread of enc5's f32 kernels at
     hidden size H: {kernel: (registers, bytes)} (the card only)."""
-    out = _query('lstm_enc_f32_usage', H, n=20)
-    names = ('forward loop (big)', 'forward loop (small)',
-        'backward loop (big)', 'backward loop (small)', 'encoder',
-        'projection', 'pre-pass', 'dpre', 'dW', 'dW_enc')
-    return {n: (out[2 * i], out[2 * i + 1]) for i, n in enumerate(names)}
+    return f32_usage_of(KERNEL, 'lstm_enc_f32_usage', H,
+        F32_KERNELS + F32_ENCODER_KERNELS)
 
 
 def f32_plan(H, B):
     """The tilings enc5's f32 loops take at B rows on this card:
     {'forward' | 'backward': (units a block, rows a thread, clusters the
     card holds at once)} (the card only)."""
-    out = _query('lstm_enc_f32_plan', H, B, n=6)
-    return {'forward': tuple(out[:3]), 'backward': tuple(out[3:])}
+    return f32_plan_of(KERNEL, 'lstm_enc_f32_plan', H, B)
 
 
 def lstm_enc_reference(feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b,

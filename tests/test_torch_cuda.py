@@ -16,7 +16,9 @@ and gradient (sums in another order; in bf16 a value that rounds one ulp
 the other way inside the recurrence). lstm_scan, lstm_scan_cat,
 lstm_scan_fused and the enc5 pair run their tensor-core kernels in bf16
 (also at input widths other than the hidden size, and enc5 at feature
-widths up to the encoder's limit) and their FMA kernels in f32; the
+widths up to the encoder's limit); in f32 the enc5 and cat pairs run
+csrc/lstm_f32.cuh's cluster kernels, lstm_scan and lstm_scan_fused their
+FMA kernels; the
 archived tm's step kernels run lstm_scan's bf16 loops one step a launch
 and must equal lstm_scan's bf16 kernels bit for bit.
 """
@@ -238,8 +240,9 @@ def _lstm_kinds():
             lstm_enc._launch_step_backward, lstm_enc.lstm_enc_reference,
             lstm_enc.lstm_scan_enc_backward_reference,
             ('lstm_enc_forward', 'lstm_enc_step_backward')),
-        'cat': (lstm_cat._launch_forward,
-            lstm_cat._launch_backward, lstm_cat.lstm_cat_reference,
+        # the resident cat's f32 backward takes its forward's x @ W_ih slab
+        'cat': (*lstm_cat.kept_gates(lstm_cat._launch_forward,
+            lstm_cat._launch_backward), lstm_cat.lstm_cat_reference,
             lstm_cat.lstm_cat_backward_reference,
             ('lstm_cat_forward', 'lstm_cat_backward')),
         'cat_stream': (*lstm_cat.kept_gates(
@@ -878,6 +881,124 @@ def test_enc5_f32_plan_and_usage(cuda):
                     H, B, part, plan)
                 if H == 128 and B in (512, 8192):
                     assert (units, rt) == ((32, 4) if B == 512 else (64, 16))
+    assert _launches() == before
+
+
+# cat's f32 pair (csrc/lstm_f32.cuh, enc5's design without the encoder)
+# over its reach: the bench's and a ragged batch at each hidden size, both
+# loop tilings, a short last tile, one row, one step
+CAT_F32_SHAPES = [(16, 8192, 128), (16, 1000, 128), (16, 8192, 64),
+    (16, 1000, 64), (16, 8192, 32), (16, 1000, 32), (5, 65, 128), (3, 45, 32),
+    (8, 512, 128), (1, 1, 64)]
+
+
+@pytest.mark.parametrize('T,B,H', CAT_F32_SHAPES)
+def test_cat_f32_matches_plain(cuda, T, B, H):
+    _check_lstm_pair(cuda, 'cat', T, B, H, torch.float32)
+
+
+@pytest.mark.parametrize('T,B,H', [(16, 8192, 128), (16, 1000, 128),
+    (5, 65, 64), (4, 200, 32), (8, 512, 128)])
+def test_cat_f32_repeats_bit_for_bit(cuda, T, B, H):
+    """Cat's f32 loops exchange h and the partial dh_prev through
+    distributed shared memory behind cluster barriers, the split-K and dx's
+    split add their partials in split order, db its tiles' in tile order:
+    twenty runs are equal bit for bit."""
+    _check_deterministic(cuda, 'cat', T, B, H, cdt=torch.float32, runs=20)
+
+
+@pytest.mark.parametrize('T,B,H', [(3, 45, 128), (8, 512, 128),
+    (16, 1000, 64), (4, 200, 32), (3, 65, 128), (2, 8000, 128)])
+def test_cat_f32_writes_only_its_buffers(cuda, monkeypatch, T, B, H):
+    """Every input, output and scratch buffer of an f32 cat forward and
+    backward call sits between guards; after both calls no guard has
+    changed, at ragged batches (a last loop tile of 13, 8 or 1 rows), dx
+    split over K (few row tiles) and whole, and the results still match
+    the plain versions within LSTM_TOL."""
+    from pufferlib_tpu_torch.ops.cuda import lstm_cat, lstm_common
+    fwd, bwd, fwd_plain, bwd_plain, _ = _lstm_kinds()['cat']
+    cdt = torch.float32
+    guarded = _GuardedTorch()
+    args = tuple(guarded.guarded(t.shape, t.dtype, t.device).copy_(t)
+        for t in _lstm_case('cat', T, B, H, 49, cdt, cuda))
+    g = tuple(guarded.guarded(t.shape, t.dtype, t.device).copy_(t) for t in (
+        torch.randn(T, B, H, device=cuda), torch.randn(B, H, device=cuda),
+        torch.randn(B, H, device=cuda)))
+    with torch.no_grad():
+        want = fwd_plain(*args, cdt)
+        bargs = (*args, want[0], want[3], *g, cdt)
+        want += bwd_plain(*bargs)
+        for module in (lstm_common, lstm_cat):
+            monkeypatch.setattr(module, 'torch', guarded)
+        inputs = len(guarded.buffers)
+        got = fwd(*args, cdt)
+        got += bwd(*bargs)
+    assert guarded.overwritten() == []
+    assert len(guarded.buffers) > inputs + len(got)
+    for a, w in zip(got, want):
+        scale = max(1.0, w.float().abs().max().item())
+        torch.testing.assert_close(a.float(), w.float(), rtol=0,
+            atol=LSTM_TOL[cdt] * scale)
+
+
+@pytest.mark.parametrize('T,B,H', [(16, 1000, 128), (5, 65, 32)])
+def test_cat_f32_autograd_keeps_the_slab(cuda, T, B, H):
+    """lstm_scan_cat in f32 through autograd: one forward and one backward
+    launch, the forward's x @ W_ih slab kept for the backward, and the
+    gradients equal to the launchers' called directly (the slab handed
+    over by kept_gates) bit for bit; the backward launcher refuses a call
+    without the slab before any launch."""
+    from pufferlib_tpu_torch.ops.cuda import lstm_cat
+    cdt = torch.float32
+    fwd, bwd = _lstm_kinds()['cat'][:2]
+    args = _lstm_case('cat', T, B, H, 49, cdt, cuda)
+    g = (torch.randn(T, B, H, device=cuda), torch.randn(B, H, device=cuda),
+        torch.randn(B, H, device=cuda))
+    with torch.no_grad():
+        outs, hT, cT, cseq = fwd(*args, cdt)
+        want = bwd(*args, outs, cseq, *g, cdt)
+        before = _launches()
+        with pytest.raises(ValueError, match='x @ W_ih slab'):
+            lstm_cat._launch_backward(*args, outs, cseq, *g, cdt)
+        assert _launches() == before
+    leaves = [t.clone().requires_grad_() for t in args]
+    got = lstm_cat.lstm_scan_cat(*leaves, cdt)
+    torch.autograd.backward(got, g)
+    torch.cuda.synchronize()
+    after = _launches()
+    assert after['lstm_cat_forward'] == before['lstm_cat_forward'] + 1
+    assert after['lstm_cat_backward'] == before['lstm_cat_backward'] + 1
+    for a, w in zip(got, (outs, hT, cT)):
+        assert torch.equal(a, w)
+    for t, w in zip(leaves, want):
+        assert torch.equal(t.grad, w)
+
+
+def test_cat_f32_plan_and_usage(cuda):
+    """Cat's f32 loops take enc5's tilings (lstm_cat.f32_plan equal to
+    lstm_enc.f32_plan at every shape: the same loops, built into another
+    library); their smallest tile is 32 rows, so the db partials sized
+    ceil(B / 32) hold every tile; every f32 kernel of cat's library
+    reports its registers (lstm_cat.f32_usage) without a launch, those of
+    the templates enc5's library builds too (all but cat's pre-pass, which
+    continues the kept slab) as many as enc5's."""
+    from pufferlib_tpu_torch.ops.cuda import lstm_cat, lstm_enc
+    before = _launches()
+    for H in (32, 64, 128):
+        usage = lstm_cat.f32_usage(H)
+        assert len(usage) == 8 and all(r > 0 for r, _ in usage.values())
+        enc_usage = lstm_enc.f32_usage(H)
+        for name in usage:
+            if name != 'pre-pass':
+                assert usage[name][0] == enc_usage[name][0], (H, name)
+        for B in (1, 512, 1000, 8192):
+            plan = lstm_cat.f32_plan(H, B)
+            assert plan == lstm_enc.f32_plan(H, B), (H, B)
+            for part in ('forward', 'backward'):
+                units, rt, clusters = plan[part]
+                rows = 256 // units * rt
+                assert rows >= 32 and H % units == 0 and clusters > 0, (
+                    H, B, part, plan)
     assert _launches() == before
 
 

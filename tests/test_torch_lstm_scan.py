@@ -575,27 +575,39 @@ def test_enc5_tensor_core_schedule_keeps_the_function(B, F, D, H, cdt):
             'JAX')
 
 
-def enc5_f32_schedule(feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b, splits=3,
-        units=32, rows=32):
-    """What the enc5 pair's f32 kernels (csrc/lstm_f32.cuh) compute, in
-    their order, in plain torch. Forward: the encoder over all T*B rows as
-    one product, xs = relu(feats @ W_enc + b_enc), then the slab xw = xs @
-    W_ih over all rows; the loop starts each step's sums from the slab,
-    adds h @ W_hh, then b. Backward: xs again; the pre-pass's activations
-    of [xs | h_prev] @ [W_ih; W_hh] + b as one slab; a reverse loop with
-    only the recurrent product in it: dh_prev the partials of the cluster's
-    blocks, each block's `units` units' four gate columns of dg times those
-    rows of W_hh^T, added in rank order, and db summed per tile of `rows`
-    batch rows over the steps, the tiles added in order; dx = dg @ W_ih^T
-    after the loop, masked by xs > 0 into dpre; [dW_ih; dW_hh] = [xs |
-    h_prev]^T dg and [dW_enc; db_enc] = [feats | 1]^T dpre as the split-K
-    over `splits` splits, partials added in split order
-    (lstm_common.splitk_reference, the kernel's split boundaries)."""
-    T, B, F = feats.shape
+def enc5_f32_schedule(*inputs, encoder=True, splits=3, units=32, rows=32):
+    """What the f32 kernels of csrc/lstm_f32.cuh compute, in their order,
+    in plain torch: enc5's pair on (feats, h0, c0, w_enc, b_enc, w_ih,
+    w_hh, b), or with encoder=False cat's, which is enc5's without the
+    encoder, on (x, h0, c0, w_ih, w_hh, b). Forward: enc5's encoder over
+    all T*B rows as one product, xs = relu(feats @ W_enc + b_enc) (cat: xs
+    = x), then the slab xw = xs @ W_ih over all rows; the loop starts each
+    step's sums from the slab, adds h @ W_hh, then b. Backward: xs again;
+    the pre-pass's activations of [xs | h_prev] @ [W_ih; W_hh] + b as one
+    slab (cat: the forward's slab kept, plus h_prev @ W_hh, then b, each
+    sum the forward's); a reverse loop with only the recurrent product in
+    it: dh_prev
+    the partials of the cluster's blocks, each block's `units` units' four
+    gate columns of dg times those rows of W_hh^T, added in rank order,
+    and db summed per tile of `rows` batch rows over the steps, the tiles
+    added in order; dx = dg @ W_ih^T after the loop (enc5: masked by xs > 0
+    into dpre); [dW_ih; dW_hh] = [xs | h_prev]^T dg (and enc5's [dW_enc;
+    db_enc] = [feats | 1]^T dpre) as the split-K over `splits` splits,
+    partials added in split order (lstm_common.splitk_reference, the
+    kernel's split boundaries). The backward returns the plain versions'
+    gradients: enc5's (dh0, dc0, dW_enc, db_enc, dW_ih, dW_hh, db), cat's
+    (dx, dh0, dc0, dW_ih, dW_hh, db)."""
+    if encoder:
+        feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b = inputs
+        T, B, F = feats.shape
+        f2 = feats.float().reshape(T * B, F)
+        xs = torch.relu(f2 @ w_enc + b_enc)
+    else:
+        x, h0, c0, w_ih, w_hh, b = inputs
+        T, B, _ = x.shape
+        xs = x.reshape(T * B, -1)
     H = h0.shape[1]
-    D = w_enc.shape[1]
-    f2 = feats.float().reshape(T * B, F)
-    xs = torch.relu(f2 @ w_enc + b_enc)
+    D = xs.shape[1]
     xw = (xs @ w_ih).reshape(T, B, 4 * H)
     h, c = h0, c0
     outs = torch.empty((T, B, H))
@@ -610,10 +622,11 @@ def enc5_f32_schedule(feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b, splits=3,
         for g in range(4)]) for s in range(H // units)]
 
     def backward(g_outs, g_hT, g_cT):
-        xh = torch.cat([xs, lstm_common.h_prev_rows(h0, outs,
-            torch.float32)], dim=1)
-        acts = lstm_common.gate_activations(
-            xh @ torch.cat([w_ih, w_hh], dim=0) + b, H)
+        h_prev = lstm_common.h_prev_rows(h0, outs, torch.float32)
+        xh = torch.cat([xs, h_prev], dim=1)
+        gates = xh @ torch.cat([w_ih, w_hh], dim=0) if encoder else \
+            xw.reshape(T * B, 4 * H) + h_prev @ w_hh
+        acts = lstm_common.gate_activations(gates + b, H)
         dg = torch.empty((T * B, 4 * H))
         db_tiles = torch.zeros((math.ceil(B / rows), 4 * H))
         dh, dc = g_hT, g_cT
@@ -631,8 +644,11 @@ def enc5_f32_schedule(feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b, splits=3,
         db = db_tiles[0].clone()
         for k in range(1, db_tiles.shape[0]):
             db += db_tiles[k]
-        dpre = torch.where(xs > 0, dg @ w_ih.t(), 0.0)
+        dx = dg @ w_ih.t()
         dw = lstm_common.splitk_reference(xh, dg, splits)
+        if not encoder:
+            return dx.reshape(T, B, D), dh, dc, dw[:D], dw[D:], db
+        dpre = torch.where(xs > 0, dx, 0.0)
         dwe = lstm_common.splitk_reference(torch.cat([f2, torch.ones(T * B,
             1)], dim=1), dpre, splits)
         return dh, dc, dwe[:F], dwe[F], dw[:D], dw[D:], db
@@ -717,6 +733,81 @@ def test_enc5_f32_design():
         assert lstm_common.enc5_design(F, D, H, torch.float32) == 'resident'
     for F, D, H in ((129, 128, 128), (49, 96, 128), (49, 256, 256)):
         assert lstm_common.enc5_design(F, D, H, torch.float32) == 'stream'
+
+
+# (T, B, H, units a loop block, rows a cluster): cat's f32 pair at both
+# loop tilings of each hidden size (lstm_f32.cuh LoopConfigs: big 64 units
+# and 64 rows at H 64 and 128, 32 and 128 at H 32; small 32 and 32), at
+# batches that are whole tiles, short last tiles, and ragged (B % 8 != 0)
+CAT_F32_SCHEDULES = [(3, 64, 128, 64, 64), (3, 65, 128, 32, 32),
+    (3, 40, 64, 64, 64), (3, 33, 64, 32, 32), (3, 136, 32, 32, 128),
+    (4, 45, 32, 32, 32)]
+
+
+@pytest.mark.parametrize('T,B,H,units,rows', CAT_F32_SCHEDULES)
+def test_cat_f32_schedule_keeps_the_function(T, B, H, units, rows):
+    """Cat's f32 schedule (enc5_f32_schedule without the encoder) against
+    the plain cat versions on the same inputs, and at B % 8 == 0 against
+    the JAX package's lstm_scan_cat in f32, its Pallas kernel in
+    interpret mode, under the loss of its tests. Tolerance 1e-5 of max(1,
+    max |reference|) per tensor: the same f32 products summed in another
+    order."""
+    rng = np.random.default_rng(25)
+    D = H
+    arrays = [(rng.standard_normal(shape) * k).astype(np.float32)
+        for shape, k in (((T, B, D), 0.5), ((B, H), 0.3), ((B, H), 0.3),
+            ((D, 4 * H), 0.3), ((H, 4 * H), 0.3), ((4 * H,), 0.3))]
+    x, *rest = [torch.from_numpy(a) for a in arrays]
+    tol = 1e-5
+    fwd, backward = enc5_f32_schedule(x, *rest, encoder=False, units=units,
+        rows=rows)
+    plain = lstm_cat.lstm_cat_reference(x, *rest, torch.float32)
+    for name, a, w in zip(('outs', 'hT', 'cT', 'cseq'), fwd, plain):
+        assert a.dtype == w.dtype == torch.float32
+        assert_close(a, w, tol, True, f'cat f32 schedule {name}')
+    cot = tuple(torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+        for s in ((T, B, H), (B, H), (B, H)))
+    grads = backward(*cot)
+    want = lstm_cat.lstm_cat_backward_reference(x, *rest, plain[0], plain[3],
+        *cot, torch.float32)
+    for name, a, w in zip(KINDS['fused'][5], grads, want):
+        assert a.dtype == w.dtype and a.shape == w.shape
+        assert_close(a, w, tol, True, f'cat f32 schedule {name}')
+    if B % 8:
+        return
+    # the loss of the JAX tests: g_outs = 2 outs, g_hT = cT, g_cT = hT
+    outs, hT, cT, _ = fwd
+    loss_grads = backward(2 * outs, cT, hT)
+    with pltpu.force_tpu_interpret_mode():
+        jouts, jgrads = jax_run(jax_scan_cat, arrays, 'float32', 'float32',
+            0)
+    for name, a, w in zip(('outs', 'hT', 'cT'), fwd, jouts):
+        assert_close(a, w, tol, True, f'cat f32 schedule {name} against JAX')
+    for name, a, w in zip(KINDS['fused'][5], loss_grads, jgrads):
+        assert a.shape == tuple(w.shape), name
+        assert_close(a, w, tol, True, f'cat f32 schedule {name} against JAX')
+
+
+def test_cat_f32_design():
+    """Cat's f32 C functions run csrc/lstm_f32.cuh ('cluster') with the
+    argument lists of the bf16 ones: lstm_cat_forward's 19 (the x @ W_ih
+    slab in the bf16 slab's place) and lstm_cat_backward's 30 (the
+    activations and transposed weights in the P slab's place); the bf16
+    ones run the tensor cores ('tc'). The reach is the FMA cell's it
+    replaced: D == H in 32, 64, 128 resident, the rest streamed."""
+    for fn in ('lstm_cat_forward', 'lstm_cat_backward'):
+        assert lstm_cat.design(fn, torch.float32) == 'cluster'
+        assert lstm_cat.design(fn, torch.bfloat16) == 'tc'
+    with pytest.raises(ValueError, match='not a launch'):
+        lstm_cat.design('lstm_cat_f32_plan', torch.float32)
+    assert len(lstm_cat.KERNEL.functions['lstm_cat_forward']) == 19
+    assert len(lstm_cat.KERNEL.functions['lstm_cat_backward']) == 30
+    f32 = torch.float32
+    for H in (32, 64, 128):
+        assert lstm_common.cat_design(H, H, f32) == 'resident'
+    for D, H in ((96, 128), (128, 64), (256, 256), (200, 128), (512, 512)):
+        assert lstm_common.cat_design(D, H, f32) == 'stream'
+    assert lstm_common.cat_design(96, 128, torch.bfloat16) == 'resident'
 
 
 def xp_tc_schedule(x_proj, h0, c0, w_hh, cdt, splits):

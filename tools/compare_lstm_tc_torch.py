@@ -1,7 +1,7 @@
 """Builds of the resident LSTM kernels timed in turns on one NVIDIA GPU.
 
     python3 tools/compare_lstm_tc_torch.py [--dtype bfloat16|float32]...
-        TREE [TREE ...]
+        [--kind KIND]... TREE [TREE ...]
 
 Each TREE is the root of a checkout of this repository (`.` for this
 one). The trees run in turns, first to last and back again (for two:
@@ -13,23 +13,28 @@ lstm_scan (row 6), lstm_scan_fused (7), lstm_scan_cat (5), enc5 (3 fwd /
 4), lstm_scan_enc (3 fwd / 3 bwd), the archived enc2 (8), enc3 (3 fwd
 / 9), enc4 (3 fwd / 10) and enc6 (3 fwd / 11) and the archived tm (12:
 one call, T launches each way) at T 16, B 8192, D = H = 128 (the encoder
-kinds: F 49), once for each dtype given (bfloat16 by default). In
+kinds: F 49), once for each dtype given (bfloat16 by default); --kind
+keeps only the kinds named (and their extra readings). In
 bfloat16 it also runs the tree's own chip_smoke.time_tc_phases for the
-kinds it has phases of: the last backward phase of fused, cat, enc5, enc
+kinds it has phases of (in float32 enc5's and cat's, where the tree's
+f32 kernels run phases): the last backward phase of fused, cat, enc5, enc
 and the archived encoder kinds is their weight gradients (the split-K and
 db's ordered sum), scan's and tm's dW_hh alone. An older tree whose kind
 runs on FMA (the archived backwards before their redesign, enc's step
 backward and enc2's forward before theirs, tm before its) has no phases
 of it: its whole call is timed alone. In float32 it also times enc5 at
 memory's shape (config.yaml's memory section: T 8, B 512, F 1) and at
-T 16, B 1000, and enc5's streamed pair (lstm_enc_stream_*, called
-directly) at T 16 with B 8192 and 1000; cat's reading carries cuDNN's f32
-nn.LSTM beside it. Each turn also prints, for each kind and dtype, the
-SHA-256 of every output and gradient of one forward and backward call on
-inputs from a fixed seed, and that of the backward's gradients alone,
-the backward fed the plain forward's outputs: two trees whose digests of
-a kind agree compute it bit for bit alike, and two whose backward
-digests agree compute its backward so, whatever their forwards do. Each
+T 16, B 1000, enc5's streamed pair (lstm_enc_stream_*, called directly)
+at T 16 with B 8192 and 1000, and cat at T 16, B 1000; cat's readings
+carry cuDNN's f32 nn.LSTM beside them. Each turn also prints, for each
+kind and dtype, the SHA-256 of every output and gradient of one forward
+and backward call on inputs from a fixed seed, that of the forward's
+outputs alone, and that of the backward's gradients alone, the backward
+fed the plain forward's outputs (and cat's device memory through
+autograd: the bytes held from its forward to its backward and the peak
+over both): two trees whose digests of a kind agree
+compute it bit for bit alike, and two whose forward (backward) digests
+agree compute its forward (backward) so, whatever the other part does. Each
 tree builds its kernels from its own sources at its first turn. Prints a
 line per reading and, last, one JSON object with every reading and the
 card's name and power limit.
@@ -46,7 +51,8 @@ KINDS = ('scan', 'fused', 'cat', 'enc5', 'enc', 'enc2', 'enc3', 'enc4',
 F32_EXTRA = (('enc5 memory', 'enc5', 8, 512, 1),
     ('enc5 B=1000', 'enc5', 16, 1000, 49),
     ('enc5_stream', 'enc5_stream', 16, 8192, 49),
-    ('enc5_stream B=1000', 'enc5_stream', 16, 1000, 49))
+    ('enc5_stream B=1000', 'enc5_stream', 16, 1000, 49),
+    ('cat B=1000', 'cat', 16, 1000, 49))
 
 # run inside a tree: its own chip_smoke, its own kernels
 CHILD = r'''
@@ -55,6 +61,7 @@ import numpy as np
 import torch
 sys.path.insert(0, '.')
 import chip_smoke
+from pufferlib_tpu_torch.ops.cuda.lstm_cat import lstm_scan_cat
 
 
 def sha(tensors):
@@ -73,7 +80,32 @@ def digests(kind):
         both = tuple(outs) + tuple(bwd(*args, outs[0], outs[3], *grads, cdt))
         plain = fwd_plain(*args, cdt)
         alone = bwd(*args, plain[0], plain[3], *grads, cdt)
-    return sha(both), sha(alone)
+    return sha(both), sha(outs), sha(alone)
+
+
+def cat_memory(B, T=16, H=128):
+    """Device bytes of one lstm_scan_cat call through autograd at T, B,
+    D = H: held from the end of its forward to its backward (what autograd
+    keeps: outs, cseq, hT, cT and whatever slab the tree's design keeps)
+    and the peak over the forward and backward, both above the inputs."""
+    g = torch.Generator(device='cuda').manual_seed(0)
+    cdt = getattr(torch, DTYPE)
+
+    def leaf(*shape, dtype=torch.float32):
+        return (torch.randn(*shape, device='cuda', generator=g)
+            * 0.3).to(dtype).requires_grad_()
+    args = (leaf(T, B, H, dtype=cdt), leaf(B, H), leaf(B, H),
+        leaf(H, 4 * H), leaf(H, 4 * H), leaf(4 * H))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    outs, hT, cT = lstm_scan_cat(*args, cdt)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - base
+    ((outs.float() ** 2).sum() + (hT * cT).sum()).backward()
+    torch.cuda.synchronize()
+    return {'held bytes': held,
+        'peak bytes': torch.cuda.max_memory_allocated() - base}
 
 
 def reading(r):
@@ -91,23 +123,28 @@ out = {}
 for kind in KINDS:
     r = chip_smoke.check_lstm(torch, flush, np.random.RandomState(0), kind,
         8192, DTYPE, timed=True)
-    digest, backward_digest = digests(kind)
+    digest, forward_digest, backward_digest = digests(kind)
     out[kind] = {**reading(r), 'digest': digest,
-        'backward digest': backward_digest}
+        'forward digest': forward_digest, 'backward digest': backward_digest}
     phases = None
-    if DTYPE == 'bfloat16':
+    if DTYPE == 'bfloat16' or kind in ('enc5', 'cat'):
         try:
             phases = chip_smoke.time_tc_phases(torch, flush,
-                np.random.RandomState(0), kind)
-        except (KeyError, TypeError, IndexError):
-            # an older tree whose kind has no phases
+                np.random.RandomState(0), kind, dtype_name=DTYPE)
+        except (KeyError, TypeError, IndexError, RuntimeError):
+            # an older tree whose kind has no phases (in f32: whose C
+            # function runs only whole calls)
             pass
     out[kind]['phases'] = phases
+    if kind == 'cat':
+        out[kind]['memory'] = cat_memory(8192)
 if DTYPE == 'float32':
     for label, kind, T, B, F in F32_EXTRA:
         r = chip_smoke.check_lstm(torch, flush, np.random.RandomState(0),
             kind, B, DTYPE, T=T, F=F, timed=True)
         out[label] = {**reading(r), 'phases': None}
+        if kind == 'cat':
+            out[label]['memory'] = cat_memory(B, T)
 print(json.dumps(out))
 '''
 
@@ -117,6 +154,8 @@ def main():
     parser.add_argument('--dtype', action='append',
         choices=('bfloat16', 'float32'),
         help='a compute dtype to run (repeat for both; bfloat16 if none)')
+    parser.add_argument('--kind', action='append', choices=KINDS,
+        help='a kind to run (repeat for more; every kind if none)')
     parser.add_argument('trees', nargs='+')
     args = parser.parse_args()
     trees = [os.path.abspath(t) for t in args.trees]
@@ -127,7 +166,10 @@ def main():
     dtypes = args.dtype or ['bfloat16']
     readings = []
     for dtype in dtypes:
-        code = (f'KINDS = {KINDS!r}\nF32_EXTRA = {F32_EXTRA!r}\n'
+        kinds = tuple(k for k in KINDS if not args.kind or k in args.kind)
+        extra = tuple(e for e in F32_EXTRA
+            if not args.kind or e[1] in args.kind)
+        code = (f'KINDS = {kinds!r}\nF32_EXTRA = {extra!r}\n'
             f'DTYPE = {dtype!r}\n' + CHILD)
         for turn, tree in enumerate(order):
             out = subprocess.run([sys.executable, '-c', code], cwd=tree,
@@ -140,11 +182,14 @@ def main():
                         plain_ms=r[f'{part} plain'],
                         bound_ms=r[f'{part} bound'],
                         library_ms=r[f'{part} library'], shape=r['shape']))
-                for part in ('digest', 'backward digest'):
+                for part in ('digest', 'forward digest', 'backward digest'):
                     if part in r:
                         readings.append(dict(turn=turn, tree=tree,
                             dtype=dtype, kind=kind, part=part,
                             digest=r[part]))
+                if 'memory' in r:
+                    readings.append(dict(turn=turn, tree=tree, dtype=dtype,
+                        kind=kind, part='memory', **r['memory']))
                 for name, ms in (r['phases'] or {}).items():
                     readings.append(dict(turn=turn, tree=tree, dtype=dtype,
                         kind=kind, part=name, ms=ms))
@@ -157,9 +202,12 @@ def main():
                     f'{r["backward plain"]:.4f}, bound '
                     f'{r["backward bound"]:.4f}, library '
                     f'{r["backward library"]}); digest '
-                    f'{r.get("digest")}, backward digest '
+                    f'{r.get("digest")}, forward digest '
+                    f'{r.get("forward digest")}, backward digest '
                     f'{r.get("backward digest")}; phases '
-                    + json.dumps(r['phases']), flush=True)
+                    + json.dumps(r['phases']) + (f'; memory '
+                    f'{json.dumps(r["memory"])}' if 'memory' in r else ''),
+                    flush=True)
     print(json.dumps(dict(card=card, shape='T=16 B=8192 D=H=128 (encoder '
         'kinds F=49) unless a reading names its own', dtypes=dtypes,
         readings=readings)), flush=True)
