@@ -57,7 +57,12 @@ its f32 bound, run twice bit-equal, and its loops' registers and tilings
 printed; cat's f32 pair (the same design without the encoder) likewise
 at T 16 with B 8192 and 1000 and hidden 32, 64 and 128, timed at hidden
 128 at both batches beside its f32 bound and cuDNN's f32 nn.LSTM, its
-phases at B 8192, twice bit-equal at both batches.
+phases at B 8192, twice bit-equal at both batches; lstm_scan_fused's f32
+pair (the same design with fused's two sums: the bias in the projection
+SGEMM's epilogue, the recurrent sum from zero with the slab added after
+it) the same way as cat's, and driven through its entry point by the
+kernel lab in f32 (tools/kernel_lab_torch.py --dtype float32 fused
+fused-fwd) within the validation path's phase.
 
 The Ocean phase: the MLP head is also held to its plain version at the
 Ocean envs' shapes (F = 1, 5 and 30 features; O = 3, 5 and 11 outputs;
@@ -426,21 +431,22 @@ def lstm_kinds():
         'enc': (lstm_enc._launch_forward, lstm_enc._launch_step_backward,
             lstm_enc.lstm_enc_reference,
             lstm_enc.lstm_scan_enc_backward_reference, ENC_GRADS),
-        # the resident cat's f32 backward takes its forward's x @ W_ih
-        # slab, as the streamed kinds' take their gates
-        'cat': (*lstm_cat.kept_gates(lstm_cat._launch_forward,
+        # the resident cat's and fused's f32 backwards take their
+        # forward's x @ W_ih (+ b) slab, as the streamed kinds' take their
+        # gates
+        'cat': (*lstm_cat.kept_for_backward(lstm_cat._launch_forward,
             lstm_cat._launch_backward), lstm_cat.lstm_cat_reference,
             lstm_cat.lstm_cat_backward_reference, CELL_GRADS),
-        'enc5_stream': (*lstm_cat.kept_gates(
+        'enc5_stream': (*lstm_cat.kept_for_backward(
             lstm_enc._launch_stream_forward, lstm_enc._launch_stream_backward),
             lstm_enc.lstm_enc_reference,
             lstm_enc.lstm_enc_backward_reference, ENC_GRADS),
-        'cat_stream': (*lstm_cat.kept_gates(
+        'cat_stream': (*lstm_cat.kept_for_backward(
             lstm_cat._launch_stream_forward, lstm_cat._launch_stream_backward),
             lstm_cat.lstm_cat_reference,
             lstm_cat.lstm_cat_backward_reference, CELL_GRADS),
-        'fused': (lstm_scan._launch_fused_forward,
-            lstm_scan._launch_fused_backward,
+        'fused': (*lstm_cat.kept_for_backward(lstm_scan._launch_fused_forward,
+            lstm_scan._launch_fused_backward),
             lstm_scan.lstm_scan_fused_reference,
             lstm_scan.lstm_scan_fused_backward_reference, CELL_GRADS),
         'scan': (lstm_scan._launch_scan_forward,
@@ -497,8 +503,8 @@ def lstm_bounds(kind, args, T, B, H, dtype_name):
     enc5's, tm has scan's. The streamed kinds' forward also writes every
     step's f32 gates, and their backward takes them as an input in place
     of recomputing them: it reads them and skips the gate product. Cat's
-    f32 forward also writes its x @ W_ih slab, and its backward reads it
-    and skips that half of the gate product."""
+    and fused's f32 forwards also write their x @ W_ih (+ b) slab, and
+    their backwards read it and skip that half of the gate product."""
     x = args[0]
     x_bytes = x.numel() * x.element_size()
     weights = sum(t.numel() for t in args[3:]) * 4
@@ -536,7 +542,7 @@ def lstm_bounds(kind, args, T, B, H, dtype_name):
         fwd_bytes += gates
         bwd_bytes += gates
         bwd_flops -= recompute
-    elif (kind, dtype_name) == ('cat', 'float32'):
+    elif kind in ('cat', 'fused') and dtype_name == 'float32':
         slab = T * B * 4 * H * 4
         fwd_bytes += slab
         bwd_bytes += slab
@@ -717,9 +723,10 @@ def log_tc_usage():
     if out[0] != tc_max_features():
         raise AssertionError(f'lstm_enc_tc_max_features = {out[0]}, but '
             f'lstm_common.tc_max_features() = {tc_max_features()}')
-    # enc5's and cat's f32 kernels (csrc/lstm_f32.cuh) and the tilings their
-    # loops take at memory's, a ragged and the bench's batch
-    for kind, module in (('enc5', lstm_enc), ('cat', lstm_cat)):
+    # enc5's, cat's and fused's f32 kernels (csrc/lstm_f32.cuh) and the
+    # tilings their loops take at memory's, a ragged and the bench's batch
+    for kind, module in (('enc5', lstm_enc), ('cat', lstm_cat),
+            ('fused', lstm_scan)):
         for H in (32, 64, 128):
             log(f'  {kind} f32 kernels, H={H}: ' + ', '.join(
                 f'{name} {regs} registers, {spill} bytes spilled'
@@ -740,9 +747,9 @@ def time_tc_phases(torch, flush, rng, kind='fused', T=16, B=8192,
     ('fused': lstm_scan_fused, 'cat': lstm_scan_cat, 'enc5', 'scan':
     lstm_scan with bf16 x_proj, 'enc': lstm_scan_enc's step backward, the
     archived 'enc2' pair and the backwards of the archived 'enc3', 'enc4',
-    'enc6' and 'tm') at the main shape, or of enc5's or cat's f32 kernels
-    (csrc/lstm_f32.cuh, the same phases; the forward's pre-pass is x @
-    W_ih) with dtype_name float32: a launch
+    'enc6' and 'tm') at the main shape, or of enc5's, cat's or fused's f32
+    kernels (csrc/lstm_f32.cuh, the same phases; the forward's pre-pass is
+    x @ W_ih, fused's x @ W_ih + b) with dtype_name float32: a launch
     runs the first k phases, so a phase's time is the difference of two
     such means (cold L2 each)."""
     launch_fwd, launch_bwd = lstm_kinds()[kind][:2]
@@ -1986,10 +1993,12 @@ def main():
             mlp_runs[key] = check_mlp(torch, mlp, flush, rng, B, 'bfloat16',
                 F=F, H=H, O=O)
     # f32: enc5's pair (csrc/lstm_f32.cuh) also timed at the main shape,
-    # cat's (the same design) at both batches beside cuDNN's f32 nn.LSTM
+    # cat's and fused's (the same design) at both batches beside cuDNN's
+    # f32 nn.LSTM
     lstm_runs = {(kind, B, d): check_lstm(torch, flush, rng, kind, B, d,
-            timed=(B, d) == (8192, 'bfloat16') or (kind, d) == ('cat',
-                'float32') or (kind, B, d) == ('enc5', 8192, 'float32'))
+            timed=(B, d) == (8192, 'bfloat16') or (kind in ('cat', 'fused')
+                and d == 'float32') or (kind, B, d) == ('enc5', 8192,
+                'float32'))
         for kind in ('enc5', 'cat', 'scan', 'fused', 'enc')
             + ARCHIVED_ENC_KINDS + ('tm',)
         for B in (8192, 1000) for d in ('bfloat16', 'float32')}
@@ -2014,9 +2023,9 @@ def main():
     lstm_runs['enc5', mb // bptt, 'float32 F=1 H=128 T=8'] = check_lstm(
         torch, flush, rng, 'enc5', mb // bptt, 'float32', T=bptt, F=1,
         timed=True)
-    # enc5's and cat's f32 design at the other hidden sizes, both loop
-    # tilings
-    for kind in ('enc5', 'cat'):
+    # enc5's, cat's and fused's f32 design at the other hidden sizes, both
+    # loop tilings
+    for kind in ('enc5', 'cat', 'fused'):
         for H in (32, 64):
             for B in (8192, 1000):
                 lstm_runs[kind, B, f'float32 H={H}'] = check_lstm(torch,
@@ -2025,13 +2034,16 @@ def main():
         dtype_name='float32')
     cat_f32_phases = time_tc_phases(torch, flush, rng, 'cat',
         dtype_name='float32')
+    fused_f32_phases = time_tc_phases(torch, flush, rng, 'fused',
+        dtype_name='float32')
     check_burn(torch, flush, rng)
     # enc5's bf16 kernels add every partial sum in a fixed order, and so
     # do its f32 ones, whose loops' clusters meet at barriers each step
     check_bit_equal(torch, rng, 'enc5', 8192)
     check_bit_equal(torch, rng, 'enc5', 8192, dtype_name='float32')
     for B in (8192, 1000):
-        check_bit_equal(torch, rng, 'cat', B, dtype_name='float32')
+        for kind in ('cat', 'fused'):
+            check_bit_equal(torch, rng, kind, B, dtype_name='float32')
     check_bit_equal(torch, rng, 'enc5', mb // bptt, T=bptt, F=1,
         dtype_name='float32')
     for kind in ('enc5', 'enc', 'enc2'):
@@ -2108,7 +2120,7 @@ def main():
     route_launches = run_default_routes(torch, card)
 
     # phase 10: the LSTM validation path, at its full settings
-    validation_launches = run_validation_path(torch)
+    validation_launches, lab_f32_launches = run_validation_path(torch)
 
     # phase 11: the card against the CPU, at a small size in f32
     check_card_against_cpu(torch, np)
@@ -2316,6 +2328,32 @@ def main():
             bound_ms_1000=cat_f32_1000[f'{part}_bound'],
             library_ms_1000=cat_f32_1000[f'{part}_lib'],
             phases={k: v for k, v in cat_f32_phases.items()
+                if k.startswith(fn)}))
+    # lstm_scan_fused's f32 pair (csrc/lstm_f32.cuh with two sums), which
+    # the kernel lab launches in f32 (phase 10), beside cuDNN's f32
+    # nn.LSTM at the main shape and at B 1000, and its phases at the main
+    # shape
+    fused_f32 = lstm_runs['fused', 8192, 'float32']
+    fused_f32_1000 = lstm_runs['fused', 1000, 'float32']
+    for part, fn, replaces in (('fwd', 'forward', 'lstm.py:407'),
+            ('bwd', 'backward', 'lstm.py:464')):
+        kernels.append(dict(name=f'lstm_fused_{fn}_f32', route='cuda',
+            source='pufferlib_tpu_torch/csrc/lstm_f32.cuh',
+            replaces=f'pufferlib_tpu/ops/pallas/{replaces}',
+            launches=lab_f32_launches[f'lstm_fused_{fn}'],
+            max_abs_err=max(r[f'{part}_err'] for (k, _, d), r in
+                lstm_runs.items() if k == 'fused'
+                and d.startswith('float32')),
+            ms=fused_f32[f'{part}_ms'],
+            plain_ms=fused_f32[f'{part}_plain_ms'],
+            bound_ms=fused_f32[f'{part}_bound'],
+            bound_by=fused_f32[f'{part}_by'],
+            library_ms=fused_f32[f'{part}_lib'], shape=fused_f32['shape'],
+            ms_1000=fused_f32_1000[f'{part}_ms'],
+            plain_ms_1000=fused_f32_1000[f'{part}_plain_ms'],
+            bound_ms_1000=fused_f32_1000[f'{part}_bound'],
+            library_ms_1000=fused_f32_1000[f'{part}_lib'],
+            phases={k: v for k, v in fused_f32_phases.items()
                 if k.startswith(fn)}))
     rows = {row['name']: row for row in kernels}
     # enc5's launches in demo_torch's memory run (phase 17, f32)
@@ -2860,7 +2898,10 @@ def run_validation_path(torch):
     1024-lane recurrent trainer through the enc5 kernels, which must reach
     score 0.9) and tools/kernel_lab_torch.main over every variant, which
     is the path that launches the archived kernels. Returns the launches
-    by C function."""
+    by C function, and those of the lab's fused variants in f32
+    (kernel_lab_torch.main(('fused', 'fused-fwd'), dtype='float32'), with
+    every count set to 0 again just before: the path that launches
+    lstm_scan_fused's f32 pair, csrc/lstm_f32.cuh)."""
     from pufferlib_tpu_torch.ops.cuda import KERNELS
     validate = load_tool('validate_lstm_torch')
     lab = load_tool('kernel_lab_torch')
@@ -2894,7 +2935,18 @@ def run_validation_path(torch):
         f'{json.dumps({" ".join(k): v for k, v in lab_ms.items()})}; '
         f'{elapsed:.1f} s in all on {result["card"]}; launches '
         f'{json.dumps({k: v for k, v in launches.items() if v})}')
-    return launches
+    for k in KERNELS:
+        k.reset_counts()
+    f32_ms = lab.main(('fused', 'fused-fwd'), dtype='float32')
+    torch.cuda.synchronize()
+    f32_launches = {fn: n for k in KERNELS for fn, n in k.fn_launches.items()
+        if n}
+    if set(f32_launches) != {'lstm_fused_forward', 'lstm_fused_backward'}:
+        raise AssertionError(f'the lab in f32: launches {f32_launches}')
+    log(f'the lab in f32: lstm_scan_fused '
+        f'{json.dumps({" ".join(k): v for k, v in f32_ms.items()})} ms; '
+        f'launches {json.dumps(f32_launches)}')
+    return launches, f32_launches
 
 
 def check_card_against_cpu(torch, np):

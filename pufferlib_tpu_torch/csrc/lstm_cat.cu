@@ -47,51 +47,17 @@
 
 namespace {
 
+// The compute dtype is the only branch: bf16 on lstm_tc.cuh, f32 on
+// lstm_f32.cuh (D == H)
 template <int H, typename E>
-struct Forward {
-    static cudaError_t run(const void* x, const float* h0, const float* c0,
-                           const float* w_ih, const float* w_hh, const float* b, void* outs,
-                           void* cseq, float* hT, float* cT, float* xw, void* w16, int T, int B,
-                           int D, int phases, cudaStream_t stream) {
-        if constexpr (std::is_same<E, lstm::bf16>::value) {
-            return lstm::tc::CellForward<lstm::CAT, H, E>::run(x, h0, c0, w_ih, w_hh, b, outs,
-                                                              cseq, hT, cT, xw, w16, T, B, D,
-                                                              phases, stream);
-        } else {
-            if (D != H) return cudaErrorInvalidValue;
-            return lstm::f32::cell_forward<H>(static_cast<const float*>(x), h0, c0, w_ih, w_hh,
-                                              b, static_cast<float*>(outs),
-                                              static_cast<float*>(cseq), hT, cT, xw, T, B, D,
-                                              phases, stream);
-        }
-    }
-};
+struct Forward : std::conditional_t<std::is_same<E, lstm::bf16>::value,
+                                    lstm::tc::CellForward<lstm::CAT, H>,
+                                    lstm::f32::CellForward<H, false>> {};
 
 template <int H, typename E>
-struct Backward {
-    static cudaError_t run(const void* x, const float* h0, const float* c0,
-                           const float* w_ih, const float* w_hh, const float* b,
-                           const void* outs, const void* cseq, const void* g_outs,
-                           const float* g_hT, const float* g_cT, void* dx, float* dh0,
-                           float* dc0, float* dw, float* db, void* dg, float* dw_part,
-                           float* db_part, float* pre, void* aux, int T, int B, int D,
-                           int splits, int part_rows, int phases, cudaStream_t stream) {
-        if constexpr (std::is_same<E, lstm::bf16>::value) {
-            return lstm::tc::CellBackward<lstm::CAT, H, E>::run(
-                x, h0, c0, w_ih, w_hh, b, outs, cseq, g_outs, g_hT, g_cT, dx, dh0, dc0, dw, db,
-                dg, dw_part, db_part, pre, aux, T, B, D, splits, part_rows, phases, stream);
-        } else {
-            if (D != H) return cudaErrorInvalidValue;
-            return lstm::f32::cell_backward<H>(
-                static_cast<const float*>(x), static_cast<const float*>(aux), h0, c0, w_ih,
-                w_hh, b,
-                static_cast<const float*>(outs), static_cast<const float*>(cseq),
-                static_cast<const float*>(g_outs), g_hT, g_cT, static_cast<float*>(dx), nullptr,
-                dh0, dc0, dw, db, static_cast<float*>(dg), dw_part, db_part, pre, T, B, D,
-                splits, part_rows, phases, stream);
-        }
-    }
-};
+struct Backward : std::conditional_t<std::is_same<E, lstm::bf16>::value,
+                                     lstm::tc::CellBackward<lstm::CAT, H>,
+                                     lstm::f32::CellBackward<H, false>> {};
 
 }  // namespace
 

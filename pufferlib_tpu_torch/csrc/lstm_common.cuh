@@ -2,8 +2,12 @@
 // csrc/lstm_scan.cu and csrc/lstm_archive.cu, for Hopper (sm_90a). See
 // those files for which TPU kernel each replaces and what bounds it.
 //
-// One design serves them all; a Mode (below) says which function a cell
-// kernel computes per step:
+// The FMA cell kernels below (cell_forward, cell_backward) run in f32
+// what has no other f32 design: lstm_scan (mode XP), lstm_scan_enc's step
+// backward (ENC) and the archived enc2 forward (ENC2) and tm (XP); the
+// f32 pairs of cat and fused (modes CAT and FUSED) and enc5 run
+// csrc/lstm_f32.cuh. A Mode (below) says which function a cell kernel
+// computes per step:
 //
 // * cell_forward: one block per BT = 32 batch rows walks t = 0..T-1. Per
 //   step it builds the operand [x_t | h] (rounded to the compute dtype)
@@ -15,7 +19,7 @@
 //   rounded to the compute dtype as it is staged. With ENC the step first
 //   computes x_t = relu(feats_t @ W_enc + b_enc) from a W_enc held in
 //   shared memory, so no encoded sequence ever reaches device memory.
-//   The modes XP and FUSED keep two f32 sums apart, as their TPU kernels
+//   The modes XP and ENC2 keep two f32 sums apart, as their TPU kernels
 //   do: the recurrent h @ W_hh, and the term it is added to (x_proj_t
 //   read from device memory, or x_t @ W_ih + b computed first).
 // * cell_backward: the same blocks walk t = T-1..0. Per step they
@@ -331,25 +335,21 @@ __device__ __forceinline__ void load_x_proj(float (&pre)[4][Tile<H>::RPT], const
 }
 
 // The gate pre-activations of one step, into acc, from the operand
-// [x_t | h] in op_s. CAT, ENC, ENC3-6: one sum over K = D + H, plus b.
-// FUSED: (x_t @ W_ih + b) + h @ W_hh; ENC2: the same with the first sum
-// rounded to the compute dtype. XP: pre (x_proj_t, loaded by the caller)
-// + h @ W_hh.
+// [x_t | h] in op_s. ENC, ENC3-6: one sum over K = D + H, plus b. ENC2:
+// (x_t @ W_ih + b), rounded to the compute dtype, + h @ W_hh. XP: pre
+// (x_proj_t, loaded by the caller) + h @ W_hh.
 template <int H, typename E, int MODE, bool PREFETCH>
 __device__ __forceinline__ void gate_sums(float (&acc)[4][Tile<H>::RPT],
                                           float (&pre)[4][Tile<H>::RPT], const float* op_s,
                                           float* w_s, const float* w_ih, const float* w_hh,
                                           const float (&bias)[4], int r0, int j) {
     constexpr int D = Tile<H>::D, K = Tile<H>::K, RPT = Tile<H>::RPT;
-    if constexpr (MODE == FUSED || MODE == ENC2) {
+    if constexpr (MODE == ENC2) {
         gates_gemm<H, E, PREFETCH, 0, D>(acc, op_s, w_s, w_ih, w_hh, r0, j);
 #pragma unroll
         for (int g = 0; g < 4; ++g)
 #pragma unroll
-            for (int i = 0; i < RPT; ++i) {
-                pre[g][i] = acc[g][i] + bias[g];
-                if constexpr (MODE == ENC2) pre[g][i] = to_cdt<E>(pre[g][i]);
-            }
+            for (int i = 0; i < RPT; ++i) pre[g][i] = to_cdt<E>(acc[g][i] + bias[g]);
     }
     if constexpr (two_sums(MODE)) {
         gates_gemm<H, E, PREFETCH, D, K>(acc, op_s, w_s, w_ih, w_hh, r0, j);
@@ -469,8 +469,9 @@ __device__ __forceinline__ void store_bias_partials(float* red, const float (&db
     }
 }
 
-// xin: CAT and FUSED, x (T, B, D); ENC and ENC2, feats (T, B, F); XP,
-// x_proj (T, B, 4H) in its own dtype S (S is E in the other modes). A null
+// xin: ENC and ENC2, feats (T, B, F); XP, x_proj (T, B, 4H) in its own
+// dtype S (S is E in the other modes): the modes without an encoder but
+// XP (CAT, FUSED) run lstm_f32.cuh in f32 and have no FMA cell. A null
 // cseq skips its store: the forward of a call that needs no gradient. The
 // block walks steps t_lo .. t_hi-1 of the sequence, from the state h0, c0
 // before step t_lo to hT, cT after step t_hi-1: the whole sequence in one
@@ -486,6 +487,7 @@ __global__ void __launch_bounds__(NT) cell_forward(
     using TL = Tile<H>;
     constexpr int D = TL::D, K = TL::K, G = TL::G, RPT = TL::RPT;
     constexpr bool ENCODER = has_encoder(MODE);
+    static_assert(ENCODER || MODE == XP, "CAT and FUSED run lstm_f32.cuh in f32");
     extern __shared__ __align__(16) float smem[];
     float* xh_s = smem;               // (K, BT): [x_t | h], rounded
     float* w_s = xh_s + K * BT;       // (KC, G): staged weight rows
@@ -525,10 +527,8 @@ __global__ void __launch_bounds__(NT) cell_forward(
             encode_rows<H>(x, f_s, we_s, be, F, r0, j);
 #pragma unroll
             for (int i = 0; i < RPT; ++i) xh_s[j * BT + r0 + i] = to_cdt<E>(x[i]);
-        } else if constexpr (MODE == XP) {
-            load_x_proj<H>(pre, xin, base, nrows, r0, j);
         } else {
-            load_rows<E>(xh_s, xin, base, D, nrows);
+            load_x_proj<H>(pre, xin, base, nrows, r0, j);
         }
         __syncthreads();
         gate_sums<H, E, MODE, false>(acc, pre, xh_s, w_s, w_ih, w_hh, bias, r0, j);
@@ -560,8 +560,8 @@ __global__ void __launch_bounds__(NT) cell_forward(
     }
 }
 
-// xin as the forward's. xo: CAT and FUSED, the x gradient (T, B, D); ENC
-// and ENC5, the x slab (T, B, D) that the dW_ih contraction reads; XP,
+// xin as the forward's. xo: ENC and ENC5, the x slab (T, B, D) that the
+// dW_ih contraction reads; XP,
 // dx_proj (T, B, 4H), the f32 dgates stored in x_proj's dtype S. dg is the
 // slab of dgates rounded to the compute dtype that the weight-gradient
 // contractions read; XP passes a null dg where dx_proj serves as that
@@ -585,6 +585,7 @@ __global__ void __launch_bounds__(NT) cell_backward(
     using TL = Tile<H>;
     constexpr int D = TL::D, K = TL::K, G = TL::G, RPT = TL::RPT;
     constexpr bool ENCODER = has_encoder(MODE);
+    static_assert(ENCODER || MODE == XP, "CAT and FUSED run lstm_f32.cuh in f32");
     extern __shared__ __align__(16) float smem[];
     float* buf = smem;                // (K, BT) [x_t | h_prev], then (G, BT) dgates
     float* w_s = buf + G * BT;        // (KC, G) weight rows / (KC, KS) columns
@@ -630,10 +631,8 @@ __global__ void __launch_bounds__(NT) cell_backward(
                 buf[j * BT + r] = x[i];
                 if (r < nrows) st(xo, (base + r) * D + j, x[i]);
             }
-        } else if constexpr (MODE == XP) {
-            load_x_proj<H>(pre, xin, base, nrows, r0, j);
         } else {
-            load_rows<E>(buf, xin, base, D, nrows);
+            load_x_proj<H>(pre, xin, base, nrows, r0, j);
         }
         // h_prev: h0 at t = 0, else the stored outs of t - 1
         if (t == 0)
@@ -641,7 +640,7 @@ __global__ void __launch_bounds__(NT) cell_backward(
         else
             load_rows<E>(buf + D * BT, outs, base - B, H, nrows);
         __syncthreads();
-        // the second accumulator of XP and FUSED takes the registers of
+        // the second accumulator of XP takes the registers of
         // the prefetched chunk
         gate_sums<H, E, MODE, !two_sums(MODE)>(acc, pre, buf, w_s, w_ih, w_hh, bias, r0, j);
 
@@ -701,8 +700,6 @@ __global__ void __launch_bounds__(NT) cell_backward(
                 const float p = to_cdt<E>(x[i] > 0.f ? ax[0][i] : 0.f);
                 st(dpre, idx, p);
                 dbe_acc += p;
-            } else if constexpr (MODE != XP) {
-                st(xo, idx, ax[0][i]);
             }
         }
     }
@@ -1237,7 +1234,7 @@ cudaError_t run_backward_steps(const void* xin, const float* h0, const float* c0
                                float* dbe_part, int t_lo, int t_hi, int T, int B, int F,
                                int splits_w, int splits_e, int part_rows,
                                cudaStream_t stream) {
-    constexpr int D = H, G = 4 * H;
+    constexpr int G = 4 * H;
     constexpr bool ENCODER = has_encoder(MODE);
     const int nblk = (B + BT - 1) / BT;
     if (part_rows != nblk || splits_w < 1 || (ENCODER && splits_e < 1))
@@ -1267,17 +1264,10 @@ cudaError_t run_backward_steps(const void* xin, const float* h0, const float* c0
         }
         Rows<E, S> dgates{static_cast<const S*>(xo), G};
         return splitk<E>(h_prev, dgates, dw_part, dw, H, G, K, splits_w, stream);
-    } else if constexpr (ENCODER) {
+    } else {
         return encoder_weight_grads<H, E>(xin, h0, outs, xo, dpre, dg, dw_enc, db_enc, dw,
                                           db, dw_part, db_part, dwe_part, dbe_part, T, B, F,
                                           splits_w, splits_e, nblk, stream);
-    } else {
-        XHRows<E> xh{static_cast<const E*>(xin), h0, static_cast<const E*>(outs), B, D, H};
-        Rows<E> dgates{static_cast<const E*>(dg), G};
-        if ((err = splitk<E>(xh, dgates, dw_part, dw, D + H, G, K, splits_w, stream)) !=
-            cudaSuccess)
-            return err;
-        return reduce(db_part, db, nblk, G, stream);
     }
 }
 

@@ -1,26 +1,30 @@
-// The resident f32 pairs of enc5 (csrc/lstm_enc.cu) and cat
-// (csrc/lstm_cat.cu) for Hopper (sm_90a): the products that do not depend
-// on h run as FMA SGEMMs over all T*B rows outside the time loop, and the
-// loop keeps W_hh on chip for all T steps in a thread block cluster.
-// Replaces, in f32, the same TPU kernels as those two files: lstm_enc._impl
-// (the forward of enc5 and lstm_scan_enc) and lstm_enc5._hoisted_bwd, and
-// lstm_cat._impl and lstm_cat._bwd. Products are f32 FMAs only (no TF32):
-// the tensor cores have no exact f32 product. Cat is enc5 without the
-// encoder: both pairs run the pieces below (cell_forward, cell_backward),
-// enc5 behind its encoder SGEMM and with dx under the relu mask.
+// The resident f32 pairs of enc5 (csrc/lstm_enc.cu), cat (csrc/lstm_cat.cu)
+// and lstm_scan_fused (csrc/lstm_scan.cu) for Hopper (sm_90a): the products
+// that do not depend on h run as FMA SGEMMs over all T*B rows outside the
+// time loop, and the loop keeps W_hh on chip for all T steps in a thread
+// block cluster. Replaces, in f32, the same TPU kernels as those files:
+// lstm_enc._impl (the forward of enc5 and lstm_scan_enc) and
+// lstm_enc5._hoisted_bwd, lstm_cat._impl and lstm_cat._bwd, and lstm.py's
+// _lstm_fused_impl and _lstm_fused_bwd. Products are f32 FMAs only (no
+// TF32): the tensor cores have no exact f32 product. Cat is enc5 without
+// the encoder, fused is cat with its sums split in two (TWO_SUMS below):
+// all three pairs run the pieces below (cell_forward, cell_backward), enc5
+// behind its encoder SGEMM and with dx under the relu mask.
 //
 // Bound: at T = 16, B = 8192, D = H = 128 the cat forward does 34.4 GFLOP
 // and its backward 103.1 (enc5 with F = 49: 36.0 and 106.4), against
 // 0.1-0.3 GB of device memory: bound by operations at 67 TFLOP/s (0.513
 // and 1.539 ms; enc5 0.537 and 1.588). Cat's backward from the kept slab
-// needs 85.9 GFLOP and 0.27 GB more read: 1.282 ms. At memory's shape (T 8, B 512, F
-// 1) enc5's bounds are 0.016 and 0.048 ms, and a step of the loop's
-// latency (a barrier, the cell math) sets the time.
+// needs 85.9 GFLOP and 0.27 GB more read: 1.282 ms; fused's function has
+// cat's bounds (0.513 and 1.539 ms; 1.282 from its kept slab). At memory's
+// shape (T 8, B 512, F 1) enc5's bounds are 0.016 and 0.048 ms, and a
+// step of the loop's latency (a barrier, the cell math) sets the time.
 //
 // Forward (cell_forward; enc5_forward runs the encoder first):
 // 0. enc5 only: the encoder xs = relu(feats @ W_enc + b_enc), one SGEMM
 //    over T*B rows; x below is xs;
-// 1. xw = x @ W_ih, an SGEMM into a (T*B, 4H) f32 slab;
+// 1. xw = x @ W_ih, an SGEMM into a (T*B, 4H) f32 slab (TWO_SUMS, fused:
+//    xw = x @ W_ih + b, the bias added in the SGEMM's epilogue);
 // 2. forward_loop: a cluster of CS = H / U blocks owns R batch rows (U =
 //    32 or 64 units a block and RT = 4 or 16 rows a thread, picked from B:
 //    plan); block `rank` holds the four gate columns of units rank*U ..
@@ -33,14 +37,20 @@
 //    step orders those writes before the next step's reads (h is double
 //    buffered). Each sum is the old one-sum-over-K order: x over k < D from
 //    zero (the slab), then h over k < H, then the bias, so the forward is
-//    the bits of the per-step FMA kernel of lstm_common.cuh.
+//    the bits of the per-step FMA kernel of lstm_common.cuh. TWO_SUMS
+//    keeps fused's two sums, as its FMA kernel did: h @ W_hh from zero,
+//    then the slab (x @ W_ih + b) added to it, so its forward is that
+//    kernel's bits too; the next step's slab is then read during the cell
+//    math and the exchange, not during the product;
 // Backward (cell_backward; enc5_backward recomputes the encoder first and
 // adds [dW_enc; db_enc] last), tc::backward's hoisted schedule on FMA:
 // 1. a pre-pass: acts = act([x | h_prev] @ [W_ih; W_hh] + b), one SGEMM
 //    whose epilogue applies the sigmoids and tanh, into a (T*B, 4H) slab;
 //    cat keeps the forward's xw (autograd saves it) and starts each sum
 //    from it, continuing over h_prev @ W_hh alone: half the FMAs, the
-//    same chain of sums, the same bits;
+//    same chain of sums, the same bits; fused (TWO_SUMS) keeps its xw too
+//    and sums h_prev @ W_hh from zero, the epilogue adding the slab before
+//    the activations: the forward loop's sums, the same bits;
 // 2. backward_loop: the same clusters walk t = T-1 .. 0; a thread makes
 //    the dgates of its unit and RT rows from the activations (dgates_chain)
 //    and sums db, then each block forms the partial dh_prev of every unit
@@ -307,10 +317,13 @@ struct EpiEncoder {
     }
 };
 
+// v, or with a non-null b (fused's projection) v + b
 struct EpiStore {
     float* out;
     int ld;
+    const float* b;
     __device__ __forceinline__ void operator()(int m, int n, float4 v, int) const {
+        if (b) v = make_float4(v.x + b[n], v.y + b[n + 1], v.z + b[n + 2], v.w + b[n + 3]);
         *reinterpret_cast<float4*>(out + (size_t)m * ld + n) = v;
     }
 };
@@ -325,17 +338,28 @@ struct EpiPartial {
 };
 
 // the gate activations i, f, g, o of v + b (the recompute of
-// lstm_common.cuh's cell_backward)
+// lstm_common.cuh's cell_backward), or with a non-null slab (fused's kept
+// x @ W_ih + b, (M, 4H)) of slab + v, as the TWO_SUMS forward loop adds
+// them
 struct EpiActs {
     float* acts;
     const float* b;
     int H;
+    const float* slab;
     __device__ __forceinline__ void operator()(int m, int n, float4 v, int) const {
         float r[4] = {v.x, v.y, v.z, v.w};
+        float s[4] = {0.f, 0.f, 0.f, 0.f};
+        if (slab) {
+            const float4 p = *reinterpret_cast<const float4*>(slab + (size_t)m * 4 * H + n);
+            s[0] = p.x;
+            s[1] = p.y;
+            s[2] = p.z;
+            s[3] = p.w;
+        }
         const bool cell = n / H == 2;  // H % 4 == 0: the four share a gate
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
-            r[q] += b[n + q];
+            r[q] = slab ? s[q] + r[q] : r[q] + b[n + q];
             r[q] = cell ? tanhf(r[q]) : sigm(r[q]);
         }
         *reinterpret_cast<float4*>(acts + (size_t)m * 4 * H + n) =
@@ -447,10 +471,12 @@ __device__ __forceinline__ void load_gates(float (&v)[4][RT], const float* __res
     }
 }
 
-// xw: (T*B, 4H) f32, x_t @ W_ih of every step (the sums over k < D); a
-// null cseq skips its store. The grid is whole clusters of CS blocks along
-// x, cluster blockIdx.x / CS taking rows R * (blockIdx.x / CS) onwards.
-template <int H, int U, int RT>
+// xw: (T*B, 4H) f32, x_t @ W_ih of every step (the sums over k < D),
+// which each step's sums continue over h, then b; TWO_SUMS: x_t @ W_ih + b,
+// added to h @ W_hh summed from zero (b unused). A null cseq skips its
+// store. The grid is whole clusters of CS blocks along x, cluster
+// blockIdx.x / CS taking rows R * (blockIdx.x / CS) onwards.
+template <int H, int U, int RT, bool TWO_SUMS = false>
 __global__ void __launch_bounds__(LTHREADS, 1)
     forward_loop(const float* __restrict__ xw, const float* __restrict__ h0,
                  const float* __restrict__ c0, const float* __restrict__ w_hh,
@@ -474,9 +500,11 @@ __global__ void __launch_bounds__(LTHREADS, 1)
         const int r = i / H, k = i % H;
         hb[r * HP + k] = r < nrows ? h0[(size_t)(row0 + r) * H + k] : 0.f;
     }
-    float bias[4], h[RT], c[RT], nx[4][RT];
+    float bias[4] = {0.f, 0.f, 0.f, 0.f}, h[RT], c[RT], nx[4][RT];
+    if constexpr (!TWO_SUMS) {
 #pragma unroll
-    for (int g = 0; g < 4; ++g) bias[g] = b[g * H + u];
+        for (int g = 0; g < 4; ++g) bias[g] = b[g * H + u];
+    }
 #pragma unroll
     for (int i = 0; i < RT; ++i)
         c[i] = r0 + i < nrows ? c0[(size_t)(row0 + r0 + i) * H + u] : 0.f;
@@ -489,10 +517,11 @@ __global__ void __launch_bounds__(LTHREADS, 1)
 #pragma unroll
         for (int g = 0; g < 4; ++g)
 #pragma unroll
-            for (int i = 0; i < RT; ++i) acc[g][i] = nx[g][i];
-        if (t + 1 < T) load_gates<H, RT>(nx, xw, t + 1, B, row0, r0, nrows, u);
+            for (int i = 0; i < RT; ++i) acc[g][i] = TWO_SUMS ? 0.f : nx[g][i];
+        if (!TWO_SUMS && t + 1 < T) load_gates<H, RT>(nx, xw, t + 1, B, row0, r0, nrows, u);
         const float* hc = hb + (t & 1) * L::FWD_H + r0 * HP;
-        // the sums over k < H continue the slab's over k < D, k in order
+        // the sums over k < H continue the slab's over k < D (TWO_SUMS:
+        // start from zero), k in order
 #pragma unroll 2
         for (int k = 0; k < H; k += 4) {
             float4 w[4];
@@ -513,9 +542,15 @@ __global__ void __launch_bounds__(LTHREADS, 1)
             }
         }
 #pragma unroll
-        for (int i = 0; i < RT; ++i) {
+        for (int g = 0; g < 4; ++g)
 #pragma unroll
-            for (int g = 0; g < 4; ++g) acc[g][i] += bias[g];
+            for (int i = 0; i < RT; ++i)
+                acc[g][i] = TWO_SUMS ? nx[g][i] + acc[g][i] : acc[g][i] + bias[g];
+        // TWO_SUMS: the next step's slab, read during the cell math, the
+        // exchange and the barrier
+        if (TWO_SUMS && t + 1 < T) load_gates<H, RT>(nx, xw, t + 1, B, row0, r0, nrows, u);
+#pragma unroll
+        for (int i = 0; i < RT; ++i) {
             const float ig = sigm(acc[0][i]);
             const float fg = sigm(acc[1][i]);
             const float gg = tanhf(acc[2][i]);
@@ -798,7 +833,7 @@ struct Plan {
     int max_clusters;
     bool big;
 };
-template <int H>
+template <int H, bool TWO_SUMS = false>
 Plan plan(long long B, bool backward) {
     using C = LoopConfigs<H>;
     using Big = Loop<H, C::BIG_U, C::BIG_RT>;
@@ -808,13 +843,14 @@ Plan plan(long long B, bool backward) {
     if (m[1] < 0)
         m[1] = backward ? max_active_clusters(backward_loop<H, C::BIG_U, C::BIG_RT>, Big::CS,
                                               Big::BWD_SMEM)
-                        : max_active_clusters(forward_loop<H, C::BIG_U, C::BIG_RT>, Big::CS,
-                                              Big::FWD_SMEM);
+                        : max_active_clusters(forward_loop<H, C::BIG_U, C::BIG_RT, TWO_SUMS>,
+                                              Big::CS, Big::FWD_SMEM);
     if (m[0] < 0)
         m[0] = backward ? max_active_clusters(backward_loop<H, C::SMALL_U, C::SMALL_RT>,
                                               Small::CS, Small::BWD_SMEM)
-                        : max_active_clusters(forward_loop<H, C::SMALL_U, C::SMALL_RT>,
-                                              Small::CS, Small::FWD_SMEM);
+                        : max_active_clusters(
+                              forward_loop<H, C::SMALL_U, C::SMALL_RT, TWO_SUMS>, Small::CS,
+                              Small::FWD_SMEM);
     const int sms = sm_count();
     const LoopConfig big{C::BIG_U, C::BIG_RT}, small{C::SMALL_U, C::SMALL_RT};
     bool use_big = m[1] > 0;
@@ -835,14 +871,14 @@ cudaError_t launch_loop(Kernel kernel, int cs, long long tiles, size_t smem,
     return cudaGetLastError();
 }
 
-template <int H, int U, int RT>
+template <int H, int U, int RT, bool TWO_SUMS>
 cudaError_t run_forward_loop(const float* xw, const float* h0, const float* c0,
                              const float* w_hh, const float* b, float* outs, float* cseq,
                              float* hT, float* cT, int T, int B, cudaStream_t stream) {
     using L = Loop<H, U, RT>;
     const long long tiles = (B + L::R - 1) / L::R;
-    return launch_loop(forward_loop<H, U, RT>, L::CS, tiles, L::FWD_SMEM, stream, xw, h0, c0,
-                       w_hh, b, outs, cseq, hT, cT, T, B);
+    return launch_loop(forward_loop<H, U, RT, TWO_SUMS>, L::CS, tiles, L::FWD_SMEM, stream, xw,
+                       h0, c0, w_hh, b, outs, cseq, hT, cT, T, B);
 }
 
 template <int H, int U, int RT>
@@ -875,11 +911,11 @@ inline cudaError_t cell_forward_check(const float* x, const float* xw, int phase
 }
 
 // The cell's forward from x (T, B, D), f32, D == H (the caller checks):
-// the projection xw = x @ W_ih into the scratch xw (T * B * 4H), then the
-// loop. h0, c0 (B, H), w_ih (D, 4H), w_hh (H, 4H), b (4H,). Writes outs
-// and, unless null, cseq (T, B, H), hT, cT (B, H). phases:
-// FORWARD_PHASES runs it all, 1 stops after the projection.
-template <int H>
+// the projection xw = x @ W_ih (TWO_SUMS: x @ W_ih + b) into the scratch
+// xw (T * B * 4H), then the loop. h0, c0 (B, H), w_ih (D, 4H), w_hh (H,
+// 4H), b (4H,). Writes outs and, unless null, cseq (T, B, H), hT, cT (B,
+// H). phases: FORWARD_PHASES runs it all, 1 stops after the projection.
+template <int H, bool TWO_SUMS = false>
 cudaError_t cell_forward(const float* x, const float* h0, const float* c0, const float* w_ih,
                          const float* w_hh, const float* b, float* outs, float* cseq, float* hT,
                          float* cT, float* xw, int T, int B, int D, int phases,
@@ -888,14 +924,15 @@ cudaError_t cell_forward(const float* x, const float* h0, const float* c0, const
     cudaError_t err = cell_forward_check(x, xw, phases);
     if (err != cudaSuccess) return err;
     const long long M = (long long)T * B;
-    err = gemm<false>(Mat{x, D}, Mat{w_ih, G}, EpiStore{xw, G}, M, G, D, 1, w_ih, stream);
+    err = gemm<false>(Mat{x, D}, Mat{w_ih, G}, EpiStore{xw, G, TWO_SUMS ? b : nullptr}, M, G, D,
+                      1, w_ih, stream);
     if (err != cudaSuccess || phases == 1) return err;
     using C = LoopConfigs<H>;
-    if (plan<H>(B, false).big)
-        return run_forward_loop<H, C::BIG_U, C::BIG_RT>(xw, h0, c0, w_hh, b, outs, cseq, hT, cT,
-                                                        T, B, stream);
-    return run_forward_loop<H, C::SMALL_U, C::SMALL_RT>(xw, h0, c0, w_hh, b, outs, cseq, hT, cT,
-                                                        T, B, stream);
+    if (plan<H, TWO_SUMS>(B, false).big)
+        return run_forward_loop<H, C::BIG_U, C::BIG_RT, TWO_SUMS>(xw, h0, c0, w_hh, b, outs,
+                                                                  cseq, hT, cT, T, B, stream);
+    return run_forward_loop<H, C::SMALL_U, C::SMALL_RT, TWO_SUMS>(xw, h0, c0, w_hh, b, outs,
+                                                                  cseq, hT, cT, T, B, stream);
 }
 
 // feats (T, B, F), h0, c0 (B, H), w_enc (F, D), b_enc (D,), w_ih (D, 4H),
@@ -938,7 +975,8 @@ inline cudaError_t cell_backward_check(const float* x, const float* h0, const fl
 // The cell's backward from x (T, B, D), f32, D == H (the caller checks),
 // the forward's inputs, outs and cseq, and the gradients g_outs (T, B,
 // H), g_hT, g_cT (B, H). xw: the forward's x @ W_ih (T * B * 4H), kept
-// (cat), or null to recompute it (enc5): the same sums in the same order.
+// (cat), or null to recompute it (enc5): the same sums in the same order;
+// TWO_SUMS (fused): the forward's x @ W_ih + b, which it needs.
 // Writes dx (T, B, D) (with a non-null mask, dpre: dx where the mask is
 // positive, else 0), dh0, dc0 (B, H), dw = [dW_ih; dW_hh] (D + H, 4H) and
 // db (4H,). Scratch: dg (T * B * 4H), dw_part (splits_w, D + H, 4H),
@@ -946,7 +984,7 @@ inline cudaError_t cell_backward_check(const float* x, const float* h0, const fl
 // loops' smallest tile), and `work`: the activations (T * B * 4H), then
 // W_ih^T (4H * D) and W_hh^T (4H * H). phases: BACKWARD_PHASES runs it
 // all; 1 .. 3 stop after the pre-pass, the loop or dx (to time them).
-template <int H>
+template <int H, bool TWO_SUMS = false>
 cudaError_t cell_backward(const float* x, const float* xw, const float* h0, const float* c0,
                           const float* w_ih, const float* w_hh, const float* b, const float* outs,
                           const float* cseq, const float* g_outs, const float* g_hT,
@@ -957,18 +995,28 @@ cudaError_t cell_backward(const float* x, const float* xw, const float* h0, cons
     constexpr int G = 4 * H;
     cudaError_t err = cell_backward_check(x, h0, outs, dx, dg, dw_part, work, splits_w, phases);
     if (err != cudaSuccess) return err;
+    if (TWO_SUMS && !xw) return cudaErrorInvalidValue;
     if (!aligned16(xw)) return cudaErrorMisalignedAddress;
     const long long M = (long long)T * B;
     float* acts = work;
     float* w_ih_t = acts + M * G;
     float* w_hh_t = w_ih_t + (size_t)G * D;
     const XH xh{x, h0, outs, B, D, H};
-    // the gate recompute: each sum over k < D + H in order, then b; from
-    // the forward's xw, the sums over k < D, it continues over h_prev
-    err = xw ? gemm<false, true>(XH{x, h0, outs, B, 0, H}, Mat{w_hh, G}, EpiActs{acts, b, H},
-                                 M, G, H, 1, w_ih, stream, xw)
-             : gemm<false>(xh, WCat{w_ih, w_hh, D, G}, EpiActs{acts, b, H}, M, G, D + H, 1,
-                           w_ih, stream);
+    const XH h_prev{x, h0, outs, B, 0, H};
+    if constexpr (TWO_SUMS) {
+        // fused's gates: h_prev @ W_hh from zero, then the kept xw (x @
+        // W_ih + b) added to it in the epilogue, as the forward loop did
+        err = gemm<false>(h_prev, Mat{w_hh, G}, EpiActs{acts, b, H, xw}, M, G, H, 1, w_ih,
+                          stream);
+    } else {
+        // the gate recompute: each sum over k < D + H in order, then b;
+        // from the forward's xw, the sums over k < D, it continues over
+        // h_prev
+        err = xw ? gemm<false, true>(h_prev, Mat{w_hh, G}, EpiActs{acts, b, H}, M, G, H, 1,
+                                     w_ih, stream, xw)
+                 : gemm<false>(xh, WCat{w_ih, w_hh, D, G}, EpiActs{acts, b, H}, M, G, D + H,
+                               1, w_ih, stream);
+    }
     if (err != cudaSuccess || phases == 1) return err;
     if ((err = transpose_into(w_hh, w_hh_t, H, G, stream)) != cudaSuccess) return err;
     using C = LoopConfigs<H>;
@@ -1048,20 +1096,27 @@ cudaError_t enc5_backward(const float* feats, const float* h0, const float* c0,
 // hidden size H: the forward and backward loops at both tilings (big,
 // small), then the cell's SGEMMs: the projection, the pre-pass (enc5's
 // over [xs | h_prev]; without ENCODER cat's, over h_prev from the kept
-// slab), dx (with or without the mask: one kernel) and dW; with ENCODER
-// also enc5's encoder and [dW_enc; db_enc]. Two ints a kernel: sixteen,
-// or twenty
-template <int H, bool ENCODER>
+// slab, or with TWO_SUMS fused's, over h_prev from zero, the kept slab
+// added after), dx (with or without the mask: one kernel) and dW; with
+// ENCODER also enc5's encoder and [dW_enc; db_enc]. Two ints a kernel:
+// sixteen, or twenty
+template <int H, bool ENCODER, bool TWO_SUMS = false>
 cudaError_t usage(int* out) {
     using C = LoopConfigs<H>;
+    const void* pre_pass;
+    if constexpr (ENCODER)
+        pre_pass = reinterpret_cast<const void*>(sgemm<XH, WCat, false, EpiActs>);
+    else if constexpr (TWO_SUMS)
+        pre_pass = reinterpret_cast<const void*>(sgemm<XH, Mat, false, EpiActs>);
+    else
+        pre_pass = reinterpret_cast<const void*>(sgemm<XH, Mat, false, EpiActs, true>);
     const void* fns[] = {
-        reinterpret_cast<const void*>(forward_loop<H, C::BIG_U, C::BIG_RT>),
-        reinterpret_cast<const void*>(forward_loop<H, C::SMALL_U, C::SMALL_RT>),
+        reinterpret_cast<const void*>(forward_loop<H, C::BIG_U, C::BIG_RT, TWO_SUMS>),
+        reinterpret_cast<const void*>(forward_loop<H, C::SMALL_U, C::SMALL_RT, TWO_SUMS>),
         reinterpret_cast<const void*>(backward_loop<H, C::BIG_U, C::BIG_RT>),
         reinterpret_cast<const void*>(backward_loop<H, C::SMALL_U, C::SMALL_RT>),
         reinterpret_cast<const void*>(sgemm<Mat, Mat, false, EpiStore>),
-        ENCODER ? reinterpret_cast<const void*>(sgemm<XH, WCat, false, EpiActs>)
-                : reinterpret_cast<const void*>(sgemm<XH, Mat, false, EpiActs, true>),
+        pre_pass,
         reinterpret_cast<const void*>(sgemm<Mat, Mat, false, EpiDx>),
         reinterpret_cast<const void*>(sgemm<XH, Mat, true, EpiPartial>),
         ENCODER ? reinterpret_cast<const void*>(sgemm<Feats<false>, Mat, false, EpiEncoder>)
@@ -1081,10 +1136,10 @@ cudaError_t usage(int* out) {
 
 // The loops' tilings at B rows: forward then backward, each (units a
 // block, rows a thread, clusters the card holds at once); six ints
-template <int H>
+template <int H, bool TWO_SUMS = false>
 cudaError_t loop_plan(long long B, int* out) {
     for (int backward = 0; backward < 2; ++backward) {
-        const Plan p = plan<H>(B, backward);
+        const Plan p = plan<H, TWO_SUMS>(B, backward);
         if (p.max_clusters <= 0) return cudaErrorInvalidConfiguration;
         out[3 * backward] = p.config.U;
         out[3 * backward + 1] = p.config.RT;
@@ -1092,6 +1147,44 @@ cudaError_t loop_plan(long long B, int* out) {
     }
     return cudaSuccess;
 }
+
+// The bodies of the f32 C functions of the two cell pairs, cat's
+// (csrc/lstm_cat.cu) and, with TWO_SUMS, fused's (csrc/lstm_scan.cu), with
+// the arguments of their bf16 bodies (tc::CellForward, tc::CellBackward)
+// for lstm::dispatch: D == H. The forward's scratch xw is the slab it
+// returns, which the backward takes again in `aux`; the backward's `pre`
+// is `work` (the activations, then W_ih^T and W_hh^T).
+template <int H, bool TWO_SUMS>
+struct CellForward {
+    static cudaError_t run(const void* x, const float* h0, const float* c0, const float* w_ih,
+                           const float* w_hh, const float* b, void* outs, void* cseq, float* hT,
+                           float* cT, float* xw, void*, int T, int B, int D, int phases,
+                           cudaStream_t stream) {
+        if (D != H) return cudaErrorInvalidValue;
+        return cell_forward<H, TWO_SUMS>(static_cast<const float*>(x), h0, c0, w_ih, w_hh, b,
+                                         static_cast<float*>(outs), static_cast<float*>(cseq),
+                                         hT, cT, xw, T, B, D, phases, stream);
+    }
+};
+
+template <int H, bool TWO_SUMS>
+struct CellBackward {
+    static cudaError_t run(const void* x, const float* h0, const float* c0, const float* w_ih,
+                           const float* w_hh, const float* b, const void* outs,
+                           const void* cseq, const void* g_outs, const float* g_hT,
+                           const float* g_cT, void* dx, float* dh0, float* dc0, float* dw,
+                           float* db, void* dg, float* dw_part, float* db_part, float* pre,
+                           void* aux, int T, int B, int D, int splits, int part_rows,
+                           int phases, cudaStream_t stream) {
+        if (D != H) return cudaErrorInvalidValue;
+        return cell_backward<H, TWO_SUMS>(
+            static_cast<const float*>(x), static_cast<const float*>(aux), h0, c0, w_ih, w_hh, b,
+            static_cast<const float*>(outs), static_cast<const float*>(cseq),
+            static_cast<const float*>(g_outs), g_hT, g_cT, static_cast<float*>(dx), nullptr,
+            dh0, dc0, dw, db, static_cast<float*>(dg), dw_part, db_part, pre, T, B, D, splits,
+            part_rows, phases, stream);
+    }
+};
 
 }  // namespace f32
 }  // namespace lstm

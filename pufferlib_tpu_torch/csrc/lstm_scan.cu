@@ -29,7 +29,8 @@
 // both bound by bytes (about 0.065 and 0.12 ms). lstm_scan_fused moves
 // and computes what the cat kernel does: the forward at the crossover of
 // bytes and bf16 tensor-core operations (about 0.035 ms), the backward
-// bound by operations (about 0.10 ms).
+// bound by operations (about 0.10 ms); in f32, on FMA at 67 TFLOP/s, both
+// bound by operations (0.513 and 1.539 ms; 1.282 from the kept slab).
 //
 // Both pairs choose by the compute dtype, the only branch:
 // * bf16: csrc/lstm_tc.cuh, every product on the tensor cores, loops that
@@ -47,12 +48,26 @@
 //   f32 slab of the projections (XW or P) and the bf16 weights. The input
 //   width D is free (a multiple of 8, up to what a GEMM block's shared
 //   memory holds).
-// * f32: csrc/lstm_common.cuh's cell kernels on FMA, modes XP (the cat
-//   kernels' design streaming only W_hh, x_proj_t read into registers
-//   before the recurrent product and added after it) and FUSED (a second
-//   accumulator), D == H: f32 is the exact test mode, and the tensor cores
-//   have no exact f32 product. Their scratch pointers are null.
+// * f32 (exact: no TF32, the tensor cores have no exact f32 product),
+//   D == H. lstm_scan runs csrc/lstm_common.cuh's cell kernels on FMA in
+//   mode XP (a block of 32 rows streams W_hh from L2 each step, x_proj_t
+//   read into registers before the recurrent product and added after
+//   it); its scratch pointers are null. lstm_scan_fused runs
+//   csrc/lstm_f32.cuh, cat's f32 design with fused's two sums (TWO_SUMS):
+//   xw = x @ W_ih + b as one FMA SGEMM over all T*B rows (the bias in its
+//   epilogue) into a slab that the caller keeps for the backward (T * B *
+//   4H f32, 268 MB at the bench shape), then a loop on thread block
+//   clusters that hold W_hh on chip for all T steps, h crossing the
+//   cluster through distributed shared memory; each step's h @ W_hh is
+//   summed from zero and the slab added after it, the old FMA cell's two
+//   sums in their order, so the outputs are that kernel's bits. The
+//   backward's gates are h_prev @ W_hh from zero plus the kept slab, the
+//   activations in the SGEMM's epilogue; a reverse loop on the clusters
+//   (the partial dh_prev of each block's gate columns added in rank
+//   order), dx and the split-K weight gradients as SGEMMs, db the ordered
+//   sum of the loop blocks' partials: no atomics.
 #include "lstm_common.cuh"
+#include "lstm_f32.cuh"
 #include "lstm_tc.cuh"
 
 namespace {
@@ -113,11 +128,16 @@ struct ScanBackward {
     }
 };
 
+// lstm_scan_fused: bf16 on lstm_tc.cuh's mode FUSED, f32 on lstm_f32.cuh
 template <int H, typename E>
-struct FusedForward : lstm::tc::CellForward<lstm::FUSED, H, E> {};
+struct FusedForward : std::conditional_t<std::is_same<E, lstm::bf16>::value,
+                                         lstm::tc::CellForward<lstm::FUSED, H>,
+                                         lstm::f32::CellForward<H, true>> {};
 
 template <int H, typename E>
-struct FusedBackward : lstm::tc::CellBackward<lstm::FUSED, H, E> {};
+struct FusedBackward : std::conditional_t<std::is_same<E, lstm::bf16>::value,
+                                          lstm::tc::CellBackward<lstm::FUSED, H>,
+                                          lstm::f32::CellBackward<H, true>> {};
 
 }  // namespace
 
@@ -160,10 +180,12 @@ int lstm_scan_backward(const void* x_proj, const float* h0, const float* c0,
 }
 
 // x: (T, B, D) in the compute dtype; h0, c0: (B, H); w_ih: (D, 4H), w_hh:
-// (H, 4H); b: (4H,), all f32. Outputs as lstm_scan_forward's. Scratch,
-// bf16 only (null in f32): xw (T * 64 ceil(B / 64) * 4H) f32, the slab of
-// lstm_tc.cuh, and w16 ((D + H) * 4H) bf16. f32 takes D == H. phases: 2
-// runs the whole forward; in bf16, 1 stops after the pre-pass (to time it).
+// (H, 4H); b: (4H,), all f32. Outputs as lstm_scan_forward's. Scratch:
+// bf16, xw (T * 64 ceil(B / 64) * 4H) f32, the slab of lstm_tc.cuh, and
+// w16 ((D + H) * 4H) bf16; f32 (lstm_f32.cuh, D == H), xw (T * B * 4H)
+// f32, x @ W_ih + b, which the backward takes again, and a null w16.
+// phases: 2 runs the whole forward, 1 stops after the pre-pass (to time
+// it).
 int lstm_fused_forward(const void* x, const float* h0, const float* c0,
                        const float* w_ih, const float* w_hh, const float* b, void* outs,
                        void* cseq, float* hT, float* cT, float* xw, void* w16, int T, int B,
@@ -171,7 +193,7 @@ int lstm_fused_forward(const void* x, const float* h0, const float* c0,
     if (T <= 0 || B <= 0) return (int)cudaErrorInvalidValue;
     if (!lstm::aligned16(w_ih) || !lstm::aligned16(w_hh))
         return (int)cudaErrorMisalignedAddress;
-    if (cdt_bf16 && (!xw || !w16)) return (int)cudaErrorInvalidValue;
+    if (!xw || (cdt_bf16 && !w16)) return (int)cudaErrorInvalidValue;
     return lstm::dispatch<FusedForward>(H, cdt_bf16, x, h0, c0, w_ih, w_hh, b, outs, cseq,
                                         hT, cT, xw, w16, T, B, D, phases, stream);
 }
@@ -179,25 +201,28 @@ int lstm_fused_forward(const void* x, const float* h0, const float* c0,
 // Writes dx (T, B, D, compute dtype), dh0, dc0 (B, H), dw = [dW_ih; dW_hh]
 // (D + H, 4H) and db (4H,), f32. Scratch: dg (T, B, 4H) compute dtype,
 // dw_part (splits, D + H, 4H) and db_part (part_rows, 4H) f32, part_rows =
-// ceil(B / 64) in bf16 and ceil(B / 32) in f32; bf16 only (null in f32):
-// pre (as the forward's xw) f32 and w16 ((D + H) * 4H + 4H * D + B * H)
-// bf16. phases: 4 runs the whole backward; in bf16, 1 .. 3 stop after the
-// pre-pass, the loop or dx (to time them).
+// ceil(B / 64) in bf16 and ceil(B / 32) in f32 (the f32 loops' smallest
+// tile); pre: bf16 as the forward's xw, f32 the activations (T * B * 4H)
+// then W_ih^T and W_hh^T (4H * (D + H)). aux: bf16, scratch for the
+// weights and h0 in bf16 ((D + H) * 4H + 4H * D + B * H); f32, the
+// forward's xw, x @ W_ih + b, an input (the gates are h_prev @ W_hh plus
+// it). phases: 4 runs the whole backward; 1 .. 3 stop after the pre-pass,
+// the loop or dx (to time them).
 int lstm_fused_backward(const void* x, const float* h0, const float* c0,
                         const float* w_ih, const float* w_hh, const float* b,
                         const void* outs, const void* cseq, const void* g_outs,
                         const float* g_hT, const float* g_cT, void* dx, float* dh0,
                         float* dc0, float* dw, float* db, void* dg, float* dw_part,
-                        float* db_part, float* pre, void* w16, int T, int B, int D, int H,
+                        float* db_part, float* pre, void* aux, int T, int B, int D, int H,
                         int cdt_bf16, int splits, int part_rows, int phases,
                         cudaStream_t stream) {
     if (T <= 0 || B <= 0) return (int)cudaErrorInvalidValue;
     if (!lstm::aligned16(w_ih) || !lstm::aligned16(w_hh))
         return (int)cudaErrorMisalignedAddress;
-    if (cdt_bf16 && (!pre || !w16)) return (int)cudaErrorInvalidValue;
+    if (!pre || !aux) return (int)cudaErrorInvalidValue;
     return lstm::dispatch<FusedBackward>(H, cdt_bf16, x, h0, c0, w_ih, w_hh, b, outs, cseq,
                                          g_outs, g_hT, g_cT, dx, dh0, dc0, dw, db, dg,
-                                         dw_part, db_part, pre, w16, T, B, D, splits,
+                                         dw_part, db_part, pre, aux, T, B, D, splits,
                                          part_rows, phases, stream);
 }
 
@@ -207,6 +232,30 @@ int lstm_fused_tc_usage(int H, int* out) { return lstm::tc::usage_at<lstm::FUSED
 
 // Those of lstm_scan's bf16 kernels (lstm::tc::xp_usage): ten ints
 int lstm_scan_tc_usage(int H, int* out) { return lstm::tc::usage_at<lstm::XP>(H, out); }
+
+// Registers and spilled bytes per thread of lstm_scan_fused's f32 kernels
+// at hidden size H (lstm::f32::usage with two sums): sixteen ints into out.
+int lstm_fused_f32_usage(int H, int* out) {
+    switch (H) {
+        case 32: return (int)lstm::f32::usage<32, false, true>(out);
+        case 64: return (int)lstm::f32::usage<64, false, true>(out);
+        case 128: return (int)lstm::f32::usage<128, false, true>(out);
+    }
+    return (int)cudaErrorInvalidValue;
+}
+
+// The tilings lstm_scan_fused's f32 loops take at B batch rows
+// (lstm::f32::loop_plan with two sums): forward then backward, each
+// (units a block, rows a thread, clusters the card holds at once); six
+// ints into out.
+int lstm_fused_f32_plan(int H, int B, int* out) {
+    switch (H) {
+        case 32: return (int)lstm::f32::loop_plan<32, true>(B, out);
+        case 64: return (int)lstm::f32::loop_plan<64, true>(B, out);
+        case 128: return (int)lstm::f32::loop_plan<128, true>(B, out);
+    }
+    return (int)cudaErrorInvalidValue;
+}
 
 const char* cuda_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 

@@ -10,8 +10,8 @@
 // ENC2, ENC3, ENC4 and ENC6: ENC5's backward with other roundings, ENC6
 // with ENC5's own) and the archived enc2's forward (enc2_forward: the
 // encoder, a projection GEMM, mode XP's loop). In f32, the default
-// compute dtype, the enc5 and cat pairs run csrc/lstm_f32.cuh (FMA SGEMMs
-// around loops on thread block clusters) and the others keep
+// compute dtype, the enc5, cat and fused pairs run csrc/lstm_f32.cuh (FMA
+// SGEMMs around loops on thread block clusters) and the others keep
 // lstm_common.cuh's cell kernels: the tensor cores have no exact f32
 // product.
 //
@@ -1707,30 +1707,23 @@ int usage_at(int H, int* out) {
     return (int)cudaErrorInvalidValue;
 }
 
-// The bodies of the C functions of both cells (lstm_scan.cu's fused pair;
-// lstm_cat.cu's cat pair in bf16), for lstm::dispatch: the compute dtype
-// is the only branch. bf16 runs the kernels above; f32 (the fused pair's:
-// cat's runs lstm_f32.cuh) lstm_common.cuh's cell kernels, which take
-// D == H and no scratch and run every phase.
-template <int MODE, int H, typename E>
+// The bf16 bodies of the C functions of both cells (lstm_scan.cu's fused
+// pair, lstm_cat.cu's cat pair), for lstm::dispatch: the kernels above.
+// Their f32 bodies are lstm_f32.cuh's f32::CellForward / CellBackward;
+// the f32 branch that ran lstm_common.cuh's FMA cell kernels is gone.
+template <int MODE, int H>
 struct CellForward {
     static cudaError_t run(const void* x, const float* h0, const float* c0,
                            const float* w_ih, const float* w_hh, const float* b,
                            void* outs, void* cseq, float* hT, float* cT, float* xw, void* w16,
                            int T, int B, int D, int phases, cudaStream_t stream) {
-        if constexpr (std::is_same<E, bf16>::value) {
-            return forward<H, MODE>(static_cast<const E*>(x), h0, c0, w_ih, w_hh, b,
-                                    static_cast<E*>(outs), static_cast<E*>(cseq), hT, cT, xw,
-                                    static_cast<E*>(w16), T, B, D, phases, stream);
-        } else {
-            if (phases != FORWARD_PHASES || D != H) return cudaErrorInvalidValue;
-            return run_forward<H, E, E, MODE>(x, h0, c0, nullptr, nullptr, w_ih, w_hh, b,
-                                              outs, cseq, hT, cT, T, B, 0, stream);
-        }
+        return forward<H, MODE>(static_cast<const bf16*>(x), h0, c0, w_ih, w_hh, b,
+                                static_cast<bf16*>(outs), static_cast<bf16*>(cseq), hT, cT, xw,
+                                static_cast<bf16*>(w16), T, B, D, phases, stream);
     }
 };
 
-template <int MODE, int H, typename E>
+template <int MODE, int H>
 struct CellBackward {
     static cudaError_t run(const void* x, const float* h0, const float* c0,
                            const float* w_ih, const float* w_hh, const float* b,
@@ -1739,19 +1732,11 @@ struct CellBackward {
                            float* dc0, float* dw, float* db, void* dg, float* dw_part,
                            float* db_part, float* pre, void* w16, int T, int B, int D,
                            int splits, int part_rows, int phases, cudaStream_t stream) {
-        if constexpr (std::is_same<E, bf16>::value) {
-            return backward<H, MODE>(
-                static_cast<const E*>(x), h0, c0, w_ih, w_hh, b, static_cast<const E*>(outs),
-                static_cast<const E*>(cseq), static_cast<const E*>(g_outs), g_hT, g_cT,
-                static_cast<E*>(dx), dh0, dc0, dw, db, static_cast<E*>(dg), dw_part, db_part,
-                pre, static_cast<E*>(w16), T, B, D, splits, part_rows, phases, stream);
-        } else {
-            if (phases != BACKWARD_PHASES || D != H) return cudaErrorInvalidValue;
-            return run_backward<H, E, E, MODE>(
-                x, h0, c0, nullptr, nullptr, w_ih, w_hh, b, outs, cseq, g_outs, g_hT, g_cT,
-                dh0, dc0, nullptr, nullptr, dw, db, dx, nullptr, dg, dw_part, db_part,
-                nullptr, nullptr, T, B, 0, splits, 0, part_rows, stream);
-        }
+        return backward<H, MODE>(
+            static_cast<const bf16*>(x), h0, c0, w_ih, w_hh, b, static_cast<const bf16*>(outs),
+            static_cast<const bf16*>(cseq), static_cast<const bf16*>(g_outs), g_hT, g_cT,
+            static_cast<bf16*>(dx), dh0, dc0, dw, db, static_cast<bf16*>(dg), dw_part, db_part,
+            pre, static_cast<bf16*>(w16), T, B, D, splits, part_rows, phases, stream);
     }
 };
 

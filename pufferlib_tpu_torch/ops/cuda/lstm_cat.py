@@ -315,20 +315,22 @@ def stream_limits(cdt):
     return out[0], out[1]
 
 
-def kept_gates(forward, backward):
-    """A pair's launchers whose forward returns a fifth output that the
-    backward takes after the compute dtype (the streamed pairs' gates,
-    this module's and lstm_enc's; the resident cat's f32 x @ W_ih slab),
-    with the other designs' signatures: the forward's fifth output goes to
-    the next backward call, as the autograd Functions pass it."""
+def kept_for_backward(forward, backward):
+    """A pair's launchers whose forward returns a fifth output, what it
+    keeps for its backward, which the backward takes after the compute
+    dtype (the streamed pairs' gates, this module's and lstm_enc's; the
+    f32 slab of the resident cat, x @ W_ih, and of lstm_scan_fused, x @
+    W_ih + b), with the other designs' signatures: the forward's fifth
+    output goes to the next backward call, as the autograd Functions pass
+    it."""
     last = {}
 
     def fwd(*args, **kwargs):
-        *out, last['gates'] = forward(*args, **kwargs)
+        *out, last['kept'] = forward(*args, **kwargs)
         return tuple(out)
 
     def bwd(*args, **kwargs):
-        return backward(*args, last['gates'], **kwargs)
+        return backward(*args, last['kept'], **kwargs)
     return fwd, bwd
 
 

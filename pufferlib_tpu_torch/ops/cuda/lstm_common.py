@@ -215,9 +215,9 @@ def tc_max_features():
 
 
 def fma_shape_error(D, H):
-    """Why the FMA kernels (lstm_common.cuh; every LSTM kernel but the
-    bf16 cat and fused ones) refuse input width D and hidden size H, or
-    None."""
+    """Why the f32 FMA kernels (lstm_common.cuh's cell, lstm_f32.cuh's
+    cluster design; every LSTM kernel but the bf16 tensor-core ones and
+    the streamed pairs) refuse input width D and hidden size H, or None."""
     if H not in KERNEL_HIDDEN or D != H:
         return (f'the CUDA LSTM kernels on FMA take hidden sizes '
             f'{KERNEL_HIDDEN} with input width equal to the hidden size; '
@@ -241,7 +241,8 @@ def tc_shape_error(D, H):
 
 def cell_shape_error(D, H, cdt):
     """Why the cat and fused kernels refuse (D, H) in cdt, or None: their
-    bf16 kernels run on the tensor cores, their f32 ones on FMA."""
+    bf16 kernels run on the tensor cores, their f32 ones (lstm_f32.cuh)
+    on FMA."""
     return tc_shape_error(D, H) if cdt == torch.bfloat16 \
         else fma_shape_error(D, H)
 
@@ -545,8 +546,9 @@ def launch_cell_forward(kernel, fn, x, h0, c0, w_ih, w_hh, b, cdt,
         save_cseq=True, phases=FORWARD_PHASES, xw=None):
     """The forward C function `fn` of a cell pair (lstm_cat_forward,
     lstm_fused_forward): (outs, hT, cT, cseq). In bf16 its scratch is the
-    slab and the bf16 [W_ih; W_hh]; in f32, xw, cat's x @ W_ih slab (T * B
-    * 4H f32, which the caller keeps for the backward), or none (fused)."""
+    slab and the bf16 [W_ih; W_hh]; in f32, xw, the slab csrc/lstm_f32.cuh
+    writes (cat's x @ W_ih, fused's x @ W_ih + b: T * B * 4H f32, which
+    the caller allocates and keeps for the backward)."""
     T, B, D = x.shape
     H = h0.shape[1]
     check_cell_kernel_shape(D, H, cdt, x.device)
@@ -568,10 +570,11 @@ def launch_cell_backward(kernel, fn, x, h0, c0, w_ih, w_hh, b, outs, cseq,
         g_outs, g_hT, g_cT, cdt, phases=BACKWARD_PHASES, xw=None):
     """The backward C function `fn` of a cell pair (lstm_cat_backward,
     lstm_fused_backward): (dx, dh0, dc0, dW_ih, dW_hh, db). xw: in f32,
-    the slab cat's forward wrote (csrc/lstm_f32.cuh's kernels run: their
-    scratch the activations and the transposed weights in the P slab's
-    place, the split-K's partials at F32_SPLIT_ROWS rows a split at
-    least); None for fused's FMA kernels."""
+    the slab the pair's forward wrote, which csrc/lstm_f32.cuh's kernels
+    take in bf16's aux slot (their scratch the activations and the
+    transposed weights in the P slab's place, the split-K's partials at
+    F32_SPLIT_ROWS rows a split at least); the caller checks it is
+    there."""
     T, B, D = x.shape
     H = h0.shape[1]
     G = 4 * H
@@ -585,22 +588,20 @@ def launch_cell_backward(kernel, fn, x, h0, c0, w_ih, w_hh, b, outs, cseq,
     if B == 0:
         return dx, dh0, dc0, dw[:D].zero_(), dw[D:].zero_(), db.zero_()
     tc = cdt == torch.bfloat16
-    cluster = not tc and xw is not None
     splits = splitk_splits(D + H, G, T * B, dev,
-        F32_SPLIT_ROWS if cluster else 1024)
+        1024 if tc else F32_SPLIT_ROWS)
     dg = torch.empty((T, B, G), dtype=cdt, device=dev)
     dw_part = torch.empty((splits, D + H, G), dtype=torch.float32,
         device=dev)
     # db partials, a row per block: of 64 batch rows in bf16, 32 in f32
-    # (the FMA cell's block; the cluster loops' smallest tile)
+    # (the cluster loops' smallest tile)
     part_rows = math.ceil(B / TC_ROWS_PER_BLOCK) if tc else blocks(B)
     db_part = torch.empty((part_rows, G), dtype=torch.float32, device=dev)
     # bf16 scratch: the P slab, and [W_ih; W_hh], W_ih^T and h0 in bf16
-    # (aux); cluster: the activations, then W_ih^T and W_hh^T (and xw in
-    # aux's place)
+    # (aux); f32: the activations, then W_ih^T and W_hh^T (and xw in aux's
+    # place)
     pre = tc_slab(T, B, H, dev) if tc else torch.empty(
-        (T * B * G + G * (D + H),), dtype=torch.float32, device=dev) \
-        if cluster else None
+        (T * B * G + G * (D + H),), dtype=torch.float32, device=dev)
     aux = torch.empty(((D + H) * G + G * D + B * H,), dtype=torch.bfloat16,
         device=dev) if tc else xw
     kernel.launch(fn, ptr(x), ptr(h0), ptr(c0), ptr(w_ih), ptr(w_hh), ptr(b),
@@ -611,9 +612,10 @@ def launch_cell_backward(kernel, fn, x, h0, c0, w_ih, w_hh, b, outs, cseq,
     return dx, dh0, dc0, dw[:D], dw[D:], db
 
 
-# the f32 cluster kernels (csrc/lstm_f32.cuh) of cat's and enc5's
-# libraries, in the order of lstm_cat_f32_usage's and lstm_enc_f32_usage's
-# output: the loops, the cell's SGEMMs, then enc5's encoder SGEMMs
+# the f32 cluster kernels (csrc/lstm_f32.cuh) of cat's, fused's and
+# enc5's libraries, in the order of lstm_cat_f32_usage's,
+# lstm_fused_f32_usage's and lstm_enc_f32_usage's output: the loops, the
+# cell's SGEMMs, then enc5's encoder SGEMMs
 F32_KERNELS = ('forward loop (big)', 'forward loop (small)',
     'backward loop (big)', 'backward loop (small)', 'projection',
     'pre-pass', 'dx', 'dW')

@@ -33,8 +33,21 @@ recomputes each step's gates from x_proj and the stored outs, so that
 neither writes a slab (SCAN_FORWARD_PHASES, SCAN_BACKWARD_PHASES);
 lstm_scan_fused (mode FUSED) the projections as GEMMs over all T*B rows
 with f32 scratch slabs, at any input width D that is a multiple of 8 up
-to lstm_common.tc_max_input(H). In f32, the exact test mode, both run the
-FMA cell kernels of lstm_common.cuh, which take D == H.
+to lstm_common.tc_max_input(H). In f32 (exact: every product an f32 FMA,
+no TF32), which takes D == H, lstm_scan runs the FMA cell kernels of
+lstm_common.cuh (design 'fma') and lstm_scan_fused csrc/lstm_f32.cuh
+(design 'cluster'), lstm_scan_cat's f32 design with fused's two sums:
+xw = x @ W_ih + b as one FMA SGEMM over all T*B rows, the bias in its
+epilogue, then time loops that keep W_hh on chip for all T steps in a
+thread block cluster, each step's h @ W_hh summed from zero and the slab
+added after it (the FMA cell's sums in their order: its bits). The
+forward returns its slab (T * B * 4H f32, 268 MB at T 16, B 8192, H 128),
+which the autograd Function keeps for the backward: the backward's gates
+are h_prev @ W_hh plus the slab, the activations in that SGEMM's
+epilogue, then a reverse loop on the clusters, dx and the split-K weight
+gradients as SGEMMs. design(fn, cdt) says which design a C function runs;
+f32_plan and f32_usage give the f32 loops' tilings and the kernels'
+registers.
 A call none of whose inputs requires a gradient writes no cell sequence
 (the TPU package's `_noresid` kernels); on the card the forward kernel is
 then handed a null cseq.
@@ -49,11 +62,12 @@ import torch
 from pufferlib_tpu_torch.ops.cuda._build import (
     CudaKernel, I, P, ptr, ptr_or_null, stream_handle)
 from pufferlib_tpu_torch.ops.cuda.lstm_common import (
-    BACKWARD_PHASES, FORWARD_PHASES, SCAN_BACKWARD_PHASES,
+    BACKWARD_PHASES, F32_KERNELS, FORWARD_PHASES, SCAN_BACKWARD_PHASES,
     SCAN_FORWARD_PHASES, backward_inputs, cell_backward_step,
     check_cell_inputs, check_cell_kernel_shape, check_scan_inputs,
-    forward_outputs, gate_activations, launch_cell_backward,
-    launch_cell_forward, needs_cseq, round_to, scan_cells, splitk_splits)
+    f32_plan_of, f32_usage_of, forward_outputs, gate_activations,
+    launch_cell_backward, launch_cell_forward, needs_cseq, round_to,
+    scan_cells, splitk_splits)
 
 __all__ = ['lstm_scan', 'lstm_scan_fused', 'lstm_scan_reference',
     'lstm_scan_backward_reference', 'lstm_scan_fused_reference',
@@ -67,7 +81,42 @@ KERNEL = CudaKernel('lstm_scan.cu', {
     # not a launch: the bf16 kernels' registers and spills
     'lstm_fused_tc_usage': [I, P],
     'lstm_scan_tc_usage': [I, P],
+    # not launches: fused's f32 kernels' registers and spills, and the
+    # tilings its f32 loops take at a batch size
+    'lstm_fused_f32_usage': [I, P],
+    'lstm_fused_f32_plan': [I, I, P],
 })
+# the C functions that launch kernels, and those of them that run
+# csrc/lstm_f32.cuh in f32
+LAUNCHES = ('lstm_scan_forward', 'lstm_scan_backward', 'lstm_fused_forward',
+    'lstm_fused_backward')
+F32_FUNCTIONS = ('lstm_fused_forward', 'lstm_fused_backward')
+
+
+def design(fn, cdt):
+    """The design the C function `fn` of KERNEL runs in cdt: 'tc'
+    (csrc/lstm_tc.cuh's tensor-core kernels, every one in bf16), 'cluster'
+    (csrc/lstm_f32.cuh, lstm_scan_fused's pair in f32) or 'fma'
+    (lstm_common.cuh's cell kernels, lstm_scan's pair in f32)."""
+    if fn not in LAUNCHES:
+        raise ValueError(f'{fn} is not a launch of {KERNEL.source}')
+    if cdt == torch.bfloat16:
+        return 'tc'
+    return 'cluster' if fn in F32_FUNCTIONS else 'fma'
+
+
+def f32_usage(H):
+    """Registers and spilled bytes per thread of lstm_scan_fused's f32
+    kernels at hidden size H: {kernel: (registers, bytes)} (the card
+    only)."""
+    return f32_usage_of(KERNEL, 'lstm_fused_f32_usage', H, F32_KERNELS)
+
+
+def f32_plan(H, B):
+    """The tilings lstm_scan_fused's f32 loops take at B rows on this
+    card: {'forward' | 'backward': (units a block, rows a thread, clusters
+    the card holds at once)} (the card only)."""
+    return f32_plan_of(KERNEL, 'lstm_fused_f32_plan', H, B)
 
 
 def lstm_scan_reference(x_proj, h0, c0, w_hh, cdt=torch.bfloat16,
@@ -192,14 +241,26 @@ def _launch_scan_backward(x_proj, h0, c0, w_hh, outs, cseq, g_outs, g_hT,
 
 def _launch_fused_forward(x, h0, c0, w_ih, w_hh, b, cdt, save_cseq=True,
         phases=FORWARD_PHASES):
-    return launch_cell_forward(KERNEL, 'lstm_fused_forward', x, h0, c0, w_ih,
-        w_hh, b, cdt, save_cseq, phases)
+    """lstm_fused_forward: (outs, hT, cT, cseq, xw), xw in f32 the x @ W_ih
+    + b slab that _launch_fused_backward takes (None in bf16)."""
+    T, B, _ = x.shape
+    xw = torch.empty((T * B * 4 * h0.shape[1],), dtype=torch.float32,
+        device=x.device) \
+        if design('lstm_fused_forward', cdt) == 'cluster' else None
+    return (*launch_cell_forward(KERNEL, 'lstm_fused_forward', x, h0, c0,
+        w_ih, w_hh, b, cdt, save_cseq, phases, xw), xw)
 
 
 def _launch_fused_backward(x, h0, c0, w_ih, w_hh, b, outs, cseq, g_outs,
-        g_hT, g_cT, cdt, phases=BACKWARD_PHASES):
+        g_hT, g_cT, cdt, xw=None, phases=BACKWARD_PHASES):
+    """lstm_fused_backward from its forward's outs, cseq and, in f32, xw:
+    (dx, dh0, dc0, dW_ih, dW_hh, db)."""
+    if design('lstm_fused_backward', cdt) == 'cluster' and xw is None:
+        raise ValueError("lstm_fused_backward in float32 takes its "
+            'forward\'s x @ W_ih + b slab (the fifth output of '
+            '_launch_fused_forward)')
     return launch_cell_backward(KERNEL, 'lstm_fused_backward', x, h0, c0,
-        w_ih, w_hh, b, outs, cseq, g_outs, g_hT, g_cT, cdt, phases)
+        w_ih, w_hh, b, outs, cseq, g_outs, g_hT, g_cT, cdt, phases, xw)
 
 
 class _LSTMScan(torch.autograd.Function):
@@ -231,22 +292,27 @@ class _LSTMScanFused(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, h0, c0, w_ih, w_hh, b, cdt, save_cseq):
         check_cell_inputs(x, h0, c0, w_ih, w_hh, b, cdt)
-        fn = lstm_scan_fused_reference if x.device.type == 'cpu' \
-            else _launch_fused_forward
-        outs, hT, cT, cseq = fn(x, h0, c0, w_ih, w_hh, b, cdt, save_cseq)
-        ctx.save_for_backward(x, h0, c0, w_ih, w_hh, b, outs, cseq)
+        args = (x, h0, c0, w_ih, w_hh, b, cdt, save_cseq)
+        xw = None
+        if x.device.type == 'cpu':
+            outs, hT, cT, cseq = lstm_scan_fused_reference(*args)
+        else:
+            # in f32 the backward takes the x @ W_ih + b slab its forward
+            # kept
+            outs, hT, cT, cseq, xw = _launch_fused_forward(*args)
+        ctx.save_for_backward(x, h0, c0, w_ih, w_hh, b, outs, cseq, xw)
         ctx.cdt = cdt
         return outs, hT, cT
 
     @staticmethod
     def backward(ctx, g_outs, g_hT, g_cT):
-        x, h0, c0, w_ih, w_hh, b, outs, cseq = ctx.saved_tensors
+        x, h0, c0, w_ih, w_hh, b, outs, cseq, xw = ctx.saved_tensors
         args = (x, h0, c0, w_ih, w_hh, b, outs, cseq,
             *backward_inputs(outs, g_outs, g_hT, g_cT), ctx.cdt)
         if x.device.type == 'cpu':
             grads = lstm_scan_fused_backward_reference(*args)
         else:
-            grads = _launch_fused_backward(*args)
+            grads = _launch_fused_backward(*args, xw)
         return (*grads, None, None)
 
 

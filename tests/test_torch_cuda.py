@@ -16,9 +16,8 @@ and gradient (sums in another order; in bf16 a value that rounds one ulp
 the other way inside the recurrence). lstm_scan, lstm_scan_cat,
 lstm_scan_fused and the enc5 pair run their tensor-core kernels in bf16
 (also at input widths other than the hidden size, and enc5 at feature
-widths up to the encoder's limit); in f32 the enc5 and cat pairs run
-csrc/lstm_f32.cuh's cluster kernels, lstm_scan and lstm_scan_fused their
-FMA kernels; the
+widths up to the encoder's limit); in f32 the enc5, cat and fused pairs
+run csrc/lstm_f32.cuh's cluster kernels, lstm_scan its FMA kernels; the
 archived tm's step kernels run lstm_scan's bf16 loops one step a launch
 and must equal lstm_scan's bf16 kernels bit for bit.
 """
@@ -240,23 +239,24 @@ def _lstm_kinds():
             lstm_enc._launch_step_backward, lstm_enc.lstm_enc_reference,
             lstm_enc.lstm_scan_enc_backward_reference,
             ('lstm_enc_forward', 'lstm_enc_step_backward')),
-        # the resident cat's f32 backward takes its forward's x @ W_ih slab
-        'cat': (*lstm_cat.kept_gates(lstm_cat._launch_forward,
+        # the resident cat's and fused's f32 backwards take their
+        # forward's x @ W_ih (+ b) slab
+        'cat': (*lstm_cat.kept_for_backward(lstm_cat._launch_forward,
             lstm_cat._launch_backward), lstm_cat.lstm_cat_reference,
             lstm_cat.lstm_cat_backward_reference,
             ('lstm_cat_forward', 'lstm_cat_backward')),
-        'cat_stream': (*lstm_cat.kept_gates(
+        'cat_stream': (*lstm_cat.kept_for_backward(
             lstm_cat._launch_stream_forward, lstm_cat._launch_stream_backward),
             lstm_cat.lstm_cat_reference,
             lstm_cat.lstm_cat_backward_reference,
             ('lstm_cat_stream_forward', 'lstm_cat_stream_backward')),
-        'enc5_stream': (*lstm_cat.kept_gates(
+        'enc5_stream': (*lstm_cat.kept_for_backward(
             lstm_enc._launch_stream_forward, lstm_enc._launch_stream_backward),
             lstm_enc.lstm_enc_reference,
             lstm_enc.lstm_enc_backward_reference,
             ('lstm_enc_stream_forward', 'lstm_enc_stream_backward')),
-        'fused': (lstm_scan._launch_fused_forward,
-            lstm_scan._launch_fused_backward,
+        'fused': (*lstm_cat.kept_for_backward(lstm_scan._launch_fused_forward,
+            lstm_scan._launch_fused_backward),
             lstm_scan.lstm_scan_fused_reference,
             lstm_scan.lstm_scan_fused_backward_reference,
             ('lstm_fused_forward', 'lstm_fused_backward')),
@@ -827,20 +827,20 @@ def test_enc5_f32_repeats_bit_for_bit(cuda, T, B, H, F):
         runs=20)
 
 
-@pytest.mark.parametrize('T,B,H,F', [(3, 45, 128, 5), (8, 512, 128, 1),
-    (16, 1000, 64, 49), (4, 200, 32, 128), (3, 65, 128, 49)])
-def test_enc5_f32_writes_only_its_buffers(cuda, monkeypatch, T, B, H, F):
-    """Every input, output and scratch buffer of an f32 enc5 forward and
-    backward call sits between guards; after both calls no guard has
-    changed, at ragged batches (a last loop tile of 13, 8 or 1 rows),
-    feature widths that are no multiple of 4 and the widest, and the
-    results still match the plain versions within LSTM_TOL."""
-    from pufferlib_tpu_torch.ops.cuda import lstm_common, lstm_enc
-    fwd, bwd, fwd_plain, bwd_plain, _ = _lstm_kinds()['enc5']
+def _check_f32_guards(cuda, monkeypatch, kind, T, B, H, F=49):
+    """Every input, output and scratch buffer of one f32 forward and
+    backward call of the resident pair `kind` (enc5, cat, fused: the
+    launchers of lstm_enc, lstm_cat, lstm_scan, their scratch through
+    lstm_common) sits between guards; after both calls no guard has
+    changed, and the results still match the plain versions within
+    LSTM_TOL."""
+    from pufferlib_tpu_torch.ops.cuda import (
+        lstm_cat, lstm_common, lstm_enc, lstm_scan)
+    fwd, bwd, fwd_plain, bwd_plain, _ = _lstm_kinds()[kind]
     cdt = torch.float32
     guarded = _GuardedTorch()
     args = tuple(guarded.guarded(t.shape, t.dtype, t.device).copy_(t)
-        for t in _lstm_case('enc5', T, B, H, F, cdt, cuda))
+        for t in _lstm_case(kind, T, B, H, F, cdt, cuda))
     g = tuple(guarded.guarded(t.shape, t.dtype, t.device).copy_(t) for t in (
         torch.randn(T, B, H, device=cuda), torch.randn(B, H, device=cuda),
         torch.randn(B, H, device=cuda)))
@@ -848,17 +848,27 @@ def test_enc5_f32_writes_only_its_buffers(cuda, monkeypatch, T, B, H, F):
         want = fwd_plain(*args, cdt)
         bargs = (*args, want[0], want[3], *g, cdt)
         want += bwd_plain(*bargs)
-        for module in (lstm_common, lstm_enc):
+        for module in (lstm_common, lstm_enc, lstm_cat, lstm_scan):
             monkeypatch.setattr(module, 'torch', guarded)
         inputs = len(guarded.buffers)
         got = fwd(*args, cdt)
         got += bwd(*bargs)
     assert guarded.overwritten() == []
+    # the launchers' outputs and scratch went through the guards too
     assert len(guarded.buffers) > inputs + len(got)
     for a, w in zip(got, want):
         scale = max(1.0, w.float().abs().max().item())
         torch.testing.assert_close(a.float(), w.float(), rtol=0,
             atol=LSTM_TOL[cdt] * scale)
+
+
+@pytest.mark.parametrize('T,B,H,F', [(3, 45, 128, 5), (8, 512, 128, 1),
+    (16, 1000, 64, 49), (4, 200, 32, 128), (3, 65, 128, 49)])
+def test_enc5_f32_writes_only_its_buffers(cuda, monkeypatch, T, B, H, F):
+    """Every buffer of an f32 enc5 call between guards (_check_f32_guards)
+    at ragged batches (a last loop tile of 13, 8 or 1 rows), feature
+    widths that are no multiple of 4 and the widest."""
+    _check_f32_guards(cuda, monkeypatch, 'enc5', T, B, H, F)
 
 
 def test_enc5_f32_plan_and_usage(cuda):
@@ -910,68 +920,55 @@ def test_cat_f32_repeats_bit_for_bit(cuda, T, B, H):
 @pytest.mark.parametrize('T,B,H', [(3, 45, 128), (8, 512, 128),
     (16, 1000, 64), (4, 200, 32), (3, 65, 128), (2, 8000, 128)])
 def test_cat_f32_writes_only_its_buffers(cuda, monkeypatch, T, B, H):
-    """Every input, output and scratch buffer of an f32 cat forward and
-    backward call sits between guards; after both calls no guard has
-    changed, at ragged batches (a last loop tile of 13, 8 or 1 rows), dx
-    split over K (few row tiles) and whole, and the results still match
-    the plain versions within LSTM_TOL."""
-    from pufferlib_tpu_torch.ops.cuda import lstm_cat, lstm_common
-    fwd, bwd, fwd_plain, bwd_plain, _ = _lstm_kinds()['cat']
-    cdt = torch.float32
-    guarded = _GuardedTorch()
-    args = tuple(guarded.guarded(t.shape, t.dtype, t.device).copy_(t)
-        for t in _lstm_case('cat', T, B, H, 49, cdt, cuda))
-    g = tuple(guarded.guarded(t.shape, t.dtype, t.device).copy_(t) for t in (
-        torch.randn(T, B, H, device=cuda), torch.randn(B, H, device=cuda),
-        torch.randn(B, H, device=cuda)))
-    with torch.no_grad():
-        want = fwd_plain(*args, cdt)
-        bargs = (*args, want[0], want[3], *g, cdt)
-        want += bwd_plain(*bargs)
-        for module in (lstm_common, lstm_cat):
-            monkeypatch.setattr(module, 'torch', guarded)
-        inputs = len(guarded.buffers)
-        got = fwd(*args, cdt)
-        got += bwd(*bargs)
-    assert guarded.overwritten() == []
-    assert len(guarded.buffers) > inputs + len(got)
-    for a, w in zip(got, want):
-        scale = max(1.0, w.float().abs().max().item())
-        torch.testing.assert_close(a.float(), w.float(), rtol=0,
-            atol=LSTM_TOL[cdt] * scale)
+    """Every buffer of an f32 cat call between guards (_check_f32_guards)
+    at ragged batches (a last loop tile of 13, 8 or 1 rows), dx split over
+    K (few row tiles) and whole."""
+    _check_f32_guards(cuda, monkeypatch, 'cat', T, B, H)
 
 
-@pytest.mark.parametrize('T,B,H', [(16, 1000, 128), (5, 65, 32)])
-def test_cat_f32_autograd_keeps_the_slab(cuda, T, B, H):
-    """lstm_scan_cat in f32 through autograd: one forward and one backward
-    launch, the forward's x @ W_ih slab kept for the backward, and the
-    gradients equal to the launchers' called directly (the slab handed
-    over by kept_gates) bit for bit; the backward launcher refuses a call
+def _check_autograd_keeps_the_slab(cuda, kind, T, B, H):
+    """The f32 scan of `kind` (cat: lstm_scan_cat, fused: lstm_scan_fused)
+    through autograd: one forward and one backward launch, the forward's
+    slab kept for the backward, and the outputs and gradients equal to the
+    launchers' called directly (the slab handed over by
+    kept_for_backward) bit for bit; the backward launcher refuses a call
     without the slab before any launch."""
-    from pufferlib_tpu_torch.ops.cuda import lstm_cat
+    from pufferlib_tpu_torch.ops.cuda import lstm_cat, lstm_scan
+    scan, launch_backward, slab = {
+        'cat': (lstm_cat.lstm_scan_cat, lstm_cat._launch_backward,
+            'x @ W_ih slab'),
+        'fused': (lstm_scan.lstm_scan_fused, lstm_scan._launch_fused_backward,
+            r'x @ W_ih \+ b slab')}[kind]
     cdt = torch.float32
-    fwd, bwd = _lstm_kinds()['cat'][:2]
-    args = _lstm_case('cat', T, B, H, 49, cdt, cuda)
+    fwd, bwd = _lstm_kinds()[kind][:2]
+    fns = _lstm_kinds()[kind][4]
+    args = _lstm_case(kind, T, B, H, 49, cdt, cuda)
     g = (torch.randn(T, B, H, device=cuda), torch.randn(B, H, device=cuda),
         torch.randn(B, H, device=cuda))
     with torch.no_grad():
         outs, hT, cT, cseq = fwd(*args, cdt)
         want = bwd(*args, outs, cseq, *g, cdt)
         before = _launches()
-        with pytest.raises(ValueError, match='x @ W_ih slab'):
-            lstm_cat._launch_backward(*args, outs, cseq, *g, cdt)
+        with pytest.raises(ValueError, match=slab):
+            launch_backward(*args, outs, cseq, *g, cdt)
         assert _launches() == before
     leaves = [t.clone().requires_grad_() for t in args]
-    got = lstm_cat.lstm_scan_cat(*leaves, cdt)
+    got = scan(*leaves, cdt)
     torch.autograd.backward(got, g)
     torch.cuda.synchronize()
     after = _launches()
-    assert after['lstm_cat_forward'] == before['lstm_cat_forward'] + 1
-    assert after['lstm_cat_backward'] == before['lstm_cat_backward'] + 1
+    assert all(after[fn] == before[fn] + 1 for fn in fns)
     for a, w in zip(got, (outs, hT, cT)):
         assert torch.equal(a, w)
     for t, w in zip(leaves, want):
         assert torch.equal(t.grad, w)
+
+
+@pytest.mark.parametrize('T,B,H', [(16, 1000, 128), (5, 65, 32)])
+def test_cat_f32_autograd_keeps_the_slab(cuda, T, B, H):
+    """lstm_scan_cat in f32 through autograd keeps its x @ W_ih slab
+    (_check_autograd_keeps_the_slab)."""
+    _check_autograd_keeps_the_slab(cuda, 'cat', T, B, H)
 
 
 def test_cat_f32_plan_and_usage(cuda):
@@ -999,6 +996,61 @@ def test_cat_f32_plan_and_usage(cuda):
                 rows = 256 // units * rt
                 assert rows >= 32 and H % units == 0 and clusters > 0, (
                     H, B, part, plan)
+    assert _launches() == before
+
+
+# lstm_scan_fused's f32 pair (csrc/lstm_f32.cuh with two sums) over the
+# reach of the FMA cell it replaced: cat's f32 shapes (both loop tilings of
+# each hidden size, ragged batches, one row, one step)
+@pytest.mark.parametrize('T,B,H', CAT_F32_SHAPES)
+def test_fused_f32_matches_plain(cuda, T, B, H):
+    _check_lstm_pair(cuda, 'fused', T, B, H, torch.float32)
+
+
+@pytest.mark.parametrize('T,B,H', [(16, 8192, 128), (16, 1000, 128),
+    (5, 65, 64), (4, 200, 32), (8, 512, 128)])
+def test_fused_f32_repeats_bit_for_bit(cuda, T, B, H):
+    """Fused's f32 loops exchange h and the partial dh_prev through
+    distributed shared memory behind cluster barriers, the split-K and
+    dx's split add their partials in split order, db its tiles' in tile
+    order: twenty runs are equal bit for bit."""
+    _check_deterministic(cuda, 'fused', T, B, H, cdt=torch.float32, runs=20)
+
+
+@pytest.mark.parametrize('T,B,H', [(3, 45, 128), (8, 512, 128),
+    (16, 1000, 64), (4, 200, 32), (3, 65, 128), (2, 8000, 128)])
+def test_fused_f32_writes_only_its_buffers(cuda, monkeypatch, T, B, H):
+    """Every buffer of an f32 fused call between guards
+    (_check_f32_guards), at cat's shapes."""
+    _check_f32_guards(cuda, monkeypatch, 'fused', T, B, H)
+
+
+@pytest.mark.parametrize('T,B,H', [(16, 1000, 128), (5, 65, 32)])
+def test_fused_f32_autograd_keeps_the_slab(cuda, T, B, H):
+    """lstm_scan_fused in f32 through autograd keeps its x @ W_ih + b slab
+    (_check_autograd_keeps_the_slab)."""
+    _check_autograd_keeps_the_slab(cuda, 'fused', T, B, H)
+
+
+def test_fused_f32_plan_and_usage(cuda):
+    """Fused's f32 loops take cat's tilings (lstm_scan.f32_plan equal to
+    lstm_cat.f32_plan at every shape: its forward loop differs only in
+    where the slab is added, its backward loop is cat's); every f32 kernel
+    of lstm_scan's library reports its registers (lstm_scan.f32_usage)
+    without a launch, those built from the same templates as cat's (the
+    backward loops, the projection, dx, dW) as many as cat's."""
+    from pufferlib_tpu_torch.ops.cuda import lstm_cat, lstm_scan
+    before = _launches()
+    shared = ('backward loop (big)', 'backward loop (small)', 'projection',
+        'dx', 'dW')
+    for H in (32, 64, 128):
+        usage = lstm_scan.f32_usage(H)
+        assert len(usage) == 8 and all(r > 0 for r, _ in usage.values())
+        cat_usage = lstm_cat.f32_usage(H)
+        for name in shared:
+            assert usage[name][0] == cat_usage[name][0], (H, name)
+        for B in (1, 512, 1000, 8192):
+            assert lstm_scan.f32_plan(H, B) == lstm_cat.f32_plan(H, B), (H, B)
     assert _launches() == before
 
 

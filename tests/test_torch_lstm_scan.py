@@ -575,18 +575,22 @@ def test_enc5_tensor_core_schedule_keeps_the_function(B, F, D, H, cdt):
             'JAX')
 
 
-def enc5_f32_schedule(*inputs, encoder=True, splits=3, units=32, rows=32):
+def enc5_f32_schedule(*inputs, encoder=True, two_sums=False, splits=3,
+        units=32, rows=32):
     """What the f32 kernels of csrc/lstm_f32.cuh compute, in their order,
     in plain torch: enc5's pair on (feats, h0, c0, w_enc, b_enc, w_ih,
     w_hh, b), or with encoder=False cat's, which is enc5's without the
-    encoder, on (x, h0, c0, w_ih, w_hh, b). Forward: enc5's encoder over
-    all T*B rows as one product, xs = relu(feats @ W_enc + b_enc) (cat: xs
-    = x), then the slab xw = xs @ W_ih over all rows; the loop starts each
-    step's sums from the slab, adds h @ W_hh, then b. Backward: xs again;
-    the pre-pass's activations of [xs | h_prev] @ [W_ih; W_hh] + b as one
-    slab (cat: the forward's slab kept, plus h_prev @ W_hh, then b, each
-    sum the forward's); a reverse loop with only the recurrent product in
-    it: dh_prev
+    encoder, on (x, h0, c0, w_ih, w_hh, b), and with two_sums too
+    lstm_scan_fused's, which is cat's with its sums split in two. Forward:
+    enc5's encoder over all T*B rows as one product, xs = relu(feats @
+    W_enc + b_enc) (cat and fused: xs = x), then the slab xw = xs @ W_ih
+    over all rows (fused: xs @ W_ih + b); the loop starts each step's sums
+    from the slab, adds h @ W_hh, then b (fused: h @ W_hh from zero, the
+    slab added to it). Backward: xs again; the pre-pass's activations of
+    [xs | h_prev] @ [W_ih; W_hh] + b as one slab (cat: the forward's slab
+    kept, plus h_prev @ W_hh, then b, each sum the forward's; fused: the
+    kept slab plus h_prev @ W_hh from zero); a reverse loop with only the
+    recurrent product in it: dh_prev
     the partials of the cluster's blocks, each block's `units` units' four
     gate columns of dg times those rows of W_hh^T, added in rank order,
     and db summed per tile of `rows` batch rows over the steps, the tiles
@@ -596,7 +600,8 @@ def enc5_f32_schedule(*inputs, encoder=True, splits=3, units=32, rows=32):
     partials added in split order (lstm_common.splitk_reference, the
     kernel's split boundaries). The backward returns the plain versions'
     gradients: enc5's (dh0, dc0, dW_enc, db_enc, dW_ih, dW_hh, db), cat's
-    (dx, dh0, dc0, dW_ih, dW_hh, db)."""
+    and fused's (dx, dh0, dc0, dW_ih, dW_hh, db)."""
+    assert not (encoder and two_sums), 'two sums are fused\'s, without an encoder'
     if encoder:
         feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b = inputs
         T, B, F = feats.shape
@@ -608,12 +613,15 @@ def enc5_f32_schedule(*inputs, encoder=True, splits=3, units=32, rows=32):
         xs = x.reshape(T * B, -1)
     H = h0.shape[1]
     D = xs.shape[1]
-    xw = (xs @ w_ih).reshape(T, B, 4 * H)
+    xw = ((xs @ w_ih + b) if two_sums else xs @ w_ih).reshape(T, B, 4 * H)
+    # the bias the loop adds after the recurrent sum (fused's is in xw)
+    after = 0.0 if two_sums else b
     h, c = h0, c0
     outs = torch.empty((T, B, H))
     cseq = torch.empty((T, B, H))
     for t in range(T):
-        i, f, g, o = lstm_common.gate_activations(xw[t] + h @ w_hh + b, H)
+        i, f, g, o = lstm_common.gate_activations(xw[t] + h @ w_hh + after,
+            H)
         c = f * c + i * g
         h = o * torch.tanh(c)
         outs[t], cseq[t] = h, c
@@ -626,7 +634,7 @@ def enc5_f32_schedule(*inputs, encoder=True, splits=3, units=32, rows=32):
         xh = torch.cat([xs, h_prev], dim=1)
         gates = xh @ torch.cat([w_ih, w_hh], dim=0) if encoder else \
             xw.reshape(T * B, 4 * H) + h_prev @ w_hh
-        acts = lstm_common.gate_activations(gates + b, H)
+        acts = lstm_common.gate_activations(gates + after, H)
         dg = torch.empty((T * B, 4 * H))
         db_tiles = torch.zeros((math.ceil(B / rows), 4 * H))
         dh, dc = g_hT, g_cT
@@ -808,6 +816,93 @@ def test_cat_f32_design():
     for D, H in ((96, 128), (128, 64), (256, 256), (200, 128), (512, 512)):
         assert lstm_common.cat_design(D, H, f32) == 'stream'
     assert lstm_common.cat_design(96, 128, torch.bfloat16) == 'resident'
+
+
+@pytest.mark.parametrize('T,B,H,units,rows', CAT_F32_SCHEDULES)
+def test_fused_f32_schedule_keeps_the_function(T, B, H, units, rows):
+    """lstm_scan_fused's f32 schedule (enc5_f32_schedule with two sums:
+    the bias in the projection's slab, the recurrent sum from zero with
+    the slab added after it) against the plain fused versions on the same
+    inputs, and at B % 8 == 0 against the JAX package's lstm_scan_fused in
+    f32, its Pallas kernel in interpret mode, under the loss of its tests.
+    Tolerance 1e-5 of max(1, max |reference|) per tensor: the same f32
+    products summed in another order."""
+    rng = np.random.default_rng(26)
+    D = H
+    arrays = [(rng.standard_normal(shape) * k).astype(np.float32)
+        for shape, k in (((T, B, D), 0.5), ((B, H), 0.3), ((B, H), 0.3),
+            ((D, 4 * H), 0.3), ((H, 4 * H), 0.3), ((4 * H,), 0.3))]
+    x, *rest = [torch.from_numpy(a) for a in arrays]
+    tol = 1e-5
+    fwd, backward = enc5_f32_schedule(x, *rest, encoder=False,
+        two_sums=True, units=units, rows=rows)
+    plain = lstm_scan.lstm_scan_fused_reference(x, *rest, torch.float32)
+    for name, a, w in zip(('outs', 'hT', 'cT', 'cseq'), fwd, plain):
+        assert a.dtype == w.dtype == torch.float32
+        assert_close(a, w, tol, True, f'fused f32 schedule {name}')
+    cot = tuple(torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+        for s in ((T, B, H), (B, H), (B, H)))
+    grads = backward(*cot)
+    want = lstm_scan.lstm_scan_fused_backward_reference(x, *rest, plain[0],
+        plain[3], *cot, torch.float32)
+    for name, a, w in zip(KINDS['fused'][5], grads, want):
+        assert a.dtype == w.dtype and a.shape == w.shape
+        assert_close(a, w, tol, True, f'fused f32 schedule {name}')
+    if B % 8:
+        return
+    # the loss of the JAX tests: g_outs = 2 outs, g_hT = cT, g_cT = hT
+    outs, hT, cT, _ = fwd
+    loss_grads = backward(2 * outs, cT, hT)
+    with pltpu.force_tpu_interpret_mode():
+        jouts, jgrads = jax_run(jax_lstm.lstm_scan_fused, arrays, 'float32',
+            'float32', 0)
+    for name, a, w in zip(('outs', 'hT', 'cT'), fwd, jouts):
+        assert_close(a, w, tol, True, f'fused f32 schedule {name} against '
+            'JAX')
+    for name, a, w in zip(KINDS['fused'][5], loss_grads, jgrads):
+        assert a.shape == tuple(w.shape), name
+        assert_close(a, w, tol, True, f'fused f32 schedule {name} against '
+            'JAX')
+
+
+def test_fused_f32_design():
+    """lstm_scan_fused's f32 C functions run csrc/lstm_f32.cuh ('cluster')
+    with the argument lists of the bf16 ones: lstm_fused_forward's 19 (the
+    x @ W_ih + b slab in the bf16 slab's place) and lstm_fused_backward's
+    30 (the activations and transposed weights in the P slab's place, the
+    slab in the bf16 scratch's); the bf16 ones run the tensor cores
+    ('tc'); lstm_scan's f32 pair keeps the FMA cell ('fma'). The reach is
+    the FMA cell's it replaced: D == H in 32, 64, 128 in f32 (anything
+    else refused before a launch), input widths that are multiples of 8 in
+    bf16."""
+    for fn in ('lstm_fused_forward', 'lstm_fused_backward'):
+        assert lstm_scan.design(fn, torch.float32) == 'cluster'
+        assert lstm_scan.design(fn, torch.bfloat16) == 'tc'
+    for fn in ('lstm_scan_forward', 'lstm_scan_backward'):
+        assert lstm_scan.design(fn, torch.float32) == 'fma'
+        assert lstm_scan.design(fn, torch.bfloat16) == 'tc'
+    for fn in ('lstm_fused_f32_plan', 'lstm_fused_f32_usage',
+            'lstm_fused_tc_usage'):
+        with pytest.raises(ValueError, match='not a launch'):
+            lstm_scan.design(fn, torch.float32)
+    assert len(lstm_scan.KERNEL.functions['lstm_fused_forward']) == 19
+    assert len(lstm_scan.KERNEL.functions['lstm_fused_backward']) == 30
+    f32, bf16 = torch.float32, torch.bfloat16
+    for H in (32, 64, 128):
+        assert lstm_common.cell_shape_error(H, H, f32) is None
+    for D, H in ((96, 128), (128, 64), (256, 256), (48, 48)):
+        assert 'input width equal' in lstm_common.cell_shape_error(D, H, f32)
+    assert lstm_common.cell_shape_error(96, 128, bf16) is None
+    # the f32 backward launcher asks for its forward's slab before it
+    # checks the device, so no launch either way
+    x, h0, c0, w_ih, w_hh, b = (torch.from_numpy(a) for a in make_inputs(
+        'fused', 8, 32, 11, 'float32'))
+    outs, _, _, cseq = lstm_scan.lstm_scan_fused_reference(x, h0, c0, w_ih,
+        w_hh, b, f32)
+    cot = (torch.zeros(T, 8, 32), torch.zeros(8, 32), torch.zeros(8, 32))
+    with pytest.raises(ValueError, match=r'x @ W_ih \+ b slab'):
+        lstm_scan._launch_fused_backward(x, h0, c0, w_ih, w_hh, b, outs, cseq,
+            *cot, f32)
 
 
 def xp_tc_schedule(x_proj, h0, c0, w_hh, cdt, splits):

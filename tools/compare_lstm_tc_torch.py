@@ -16,8 +16,8 @@ one call, T launches each way) at T 16, B 8192, D = H = 128 (the encoder
 kinds: F 49), once for each dtype given (bfloat16 by default); --kind
 keeps only the kinds named (and their extra readings). In
 bfloat16 it also runs the tree's own chip_smoke.time_tc_phases for the
-kinds it has phases of (in float32 enc5's and cat's, where the tree's
-f32 kernels run phases): the last backward phase of fused, cat, enc5, enc
+kinds it has phases of (in float32 enc5's, cat's and fused's, where the
+tree's f32 kernels run phases): the last backward phase of fused, cat, enc5, enc
 and the archived encoder kinds is their weight gradients (the split-K and
 db's ordered sum), scan's and tm's dW_hh alone. An older tree whose kind
 runs on FMA (the archived backwards before their redesign, enc's step
@@ -25,14 +25,15 @@ backward and enc2's forward before theirs, tm before its) has no phases
 of it: its whole call is timed alone. In float32 it also times enc5 at
 memory's shape (config.yaml's memory section: T 8, B 512, F 1) and at
 T 16, B 1000, enc5's streamed pair (lstm_enc_stream_*, called directly)
-at T 16 with B 8192 and 1000, and cat at T 16, B 1000; cat's readings
-carry cuDNN's f32 nn.LSTM beside them. Each turn also prints, for each
+at T 16 with B 8192 and 1000, and cat and fused at T 16, B 1000; cat's
+and fused's readings carry cuDNN's f32 nn.LSTM beside them. Each turn
+also prints, for each
 kind and dtype, the SHA-256 of every output and gradient of one forward
 and backward call on inputs from a fixed seed, that of the forward's
 outputs alone, and that of the backward's gradients alone, the backward
-fed the plain forward's outputs (and cat's device memory through
-autograd: the bytes held from its forward to its backward and the peak
-over both): two trees whose digests of a kind agree
+fed the plain forward's outputs (and cat's and fused's device memory
+through autograd: the bytes held from its forward to its backward and the
+peak over both): two trees whose digests of a kind agree
 compute it bit for bit alike, and two whose forward (backward) digests
 agree compute its forward (backward) so, whatever the other part does. Each
 tree builds its kernels from its own sources at its first turn. Prints a
@@ -52,7 +53,8 @@ F32_EXTRA = (('enc5 memory', 'enc5', 8, 512, 1),
     ('enc5 B=1000', 'enc5', 16, 1000, 49),
     ('enc5_stream', 'enc5_stream', 16, 8192, 49),
     ('enc5_stream B=1000', 'enc5_stream', 16, 1000, 49),
-    ('cat B=1000', 'cat', 16, 1000, 49))
+    ('cat B=1000', 'cat', 16, 1000, 49),
+    ('fused B=1000', 'fused', 16, 1000, 49))
 
 # run inside a tree: its own chip_smoke, its own kernels
 CHILD = r'''
@@ -62,6 +64,10 @@ import torch
 sys.path.insert(0, '.')
 import chip_smoke
 from pufferlib_tpu_torch.ops.cuda.lstm_cat import lstm_scan_cat
+from pufferlib_tpu_torch.ops.cuda.lstm_scan import lstm_scan_fused
+
+# the kinds whose device memory through autograd a turn reads
+SCANS = {'cat': lstm_scan_cat, 'fused': lstm_scan_fused}
 
 
 def sha(tensors):
@@ -83,11 +89,12 @@ def digests(kind):
     return sha(both), sha(outs), sha(alone)
 
 
-def cat_memory(B, T=16, H=128):
-    """Device bytes of one lstm_scan_cat call through autograd at T, B,
-    D = H: held from the end of its forward to its backward (what autograd
-    keeps: outs, cseq, hT, cT and whatever slab the tree's design keeps)
-    and the peak over the forward and backward, both above the inputs."""
+def memory(kind, B, T=16, H=128):
+    """Device bytes of one call of kind's scan (lstm_scan_cat or
+    lstm_scan_fused) through autograd at T, B, D = H: held from the end of
+    its forward to its backward (what autograd keeps: outs, cseq, hT, cT
+    and whatever slab the tree's design keeps) and the peak over the
+    forward and backward, both above the inputs."""
     g = torch.Generator(device='cuda').manual_seed(0)
     cdt = getattr(torch, DTYPE)
 
@@ -99,7 +106,7 @@ def cat_memory(B, T=16, H=128):
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    outs, hT, cT = lstm_scan_cat(*args, cdt)
+    outs, hT, cT = SCANS[kind](*args, cdt)
     torch.cuda.synchronize()
     held = torch.cuda.memory_allocated() - base
     ((outs.float() ** 2).sum() + (hT * cT).sum()).backward()
@@ -127,7 +134,7 @@ for kind in KINDS:
     out[kind] = {**reading(r), 'digest': digest,
         'forward digest': forward_digest, 'backward digest': backward_digest}
     phases = None
-    if DTYPE == 'bfloat16' or kind in ('enc5', 'cat'):
+    if DTYPE == 'bfloat16' or kind in ('enc5', 'cat', 'fused'):
         try:
             phases = chip_smoke.time_tc_phases(torch, flush,
                 np.random.RandomState(0), kind, dtype_name=DTYPE)
@@ -136,15 +143,15 @@ for kind in KINDS:
             # function runs only whole calls)
             pass
     out[kind]['phases'] = phases
-    if kind == 'cat':
-        out[kind]['memory'] = cat_memory(8192)
+    if kind in SCANS:
+        out[kind]['memory'] = memory(kind, 8192)
 if DTYPE == 'float32':
     for label, kind, T, B, F in F32_EXTRA:
         r = chip_smoke.check_lstm(torch, flush, np.random.RandomState(0),
             kind, B, DTYPE, T=T, F=F, timed=True)
         out[label] = {**reading(r), 'phases': None}
-        if kind == 'cat':
-            out[label]['memory'] = cat_memory(B, T)
+        if kind in SCANS:
+            out[label]['memory'] = memory(kind, B, T)
 print(json.dumps(out))
 '''
 

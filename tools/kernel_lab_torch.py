@@ -2,7 +2,7 @@
 GPU, at the LSTM trainer's minibatch shape (a time slab: T=16, B=8192,
 D=H=128, F=49, bf16). The counterpart of tools/kernel_lab.py.
 
-    python3 tools/kernel_lab_torch.py [variant ...]
+    python3 tools/kernel_lab_torch.py [--dtype float32] [variant ...]
 
 Variants: fused, fused-fwd (lstm_scan_fused), xp (lstm_scan), cat
 (lstm_scan_cat), enc (lstm_scan_enc, the step-by-step backward), enc5
@@ -14,6 +14,9 @@ enc's step backward in mode ENC (enc5's backward with f32 activations
 and db from the unrounded dgates), enc2's forward as the encoder, a
 projection GEMM and lstm_scan's loop; tm lstm_scan's loops one step a
 launch.
+--dtype float32 runs the same calls in f32 (inputs and compute dtype),
+where lstm_scan_fused, lstm_scan_cat and enc5 run csrc/lstm_f32.cuh's
+cluster design and the others lstm_common.cuh's FMA cell.
 Default: fused fused-fwd. Each line is the mean device time of one call
 (CUDA events, the L2 flushed before every call) of the forward alone (no
 gradient needed: no cell sequence is written, except by tm) or of
@@ -53,9 +56,10 @@ def bench(name, fn, args, flush, card, grad=True, reps=20):
 
 
 def main(variants=('fused', 'fused-fwd'), device='cuda', T=16, B=8192,
-        H=128, F=49, seed=0):
-    """Run the named variants; returns {(variant, 'fwd+bwd' | 'fwd'): ms}.
-    Needs a CUDA device."""
+        H=128, F=49, seed=0, dtype='bfloat16'):
+    """Run the named variants in the compute dtype `dtype` (bfloat16 or
+    float32); returns {(variant, 'fwd+bwd' | 'fwd'): ms}. Needs a CUDA
+    device."""
     import importlib
     import torch
     from pufferlib_tpu_torch import resolve_device
@@ -78,17 +82,17 @@ def main(variants=('fused', 'fused-fwd'), device='cuda', T=16, B=8192,
     card = card_line()
     flush = l2_flush_buffer(device)
     gen = torch.Generator().manual_seed(seed)
-    bf16 = torch.bfloat16
+    cdt = {'bfloat16': torch.bfloat16, 'float32': torch.float32}[dtype]
 
     def normal(*shape, scale=1.0, dtype=torch.float32, grad=True):
         t = (torch.randn(*shape, generator=gen) * scale).to(dtype).to(device)
         return t.requires_grad_(grad)
-    x = normal(T, B, H, dtype=bf16)
+    x = normal(T, B, H, dtype=cdt)
     h0, c0 = normal(B, H), normal(B, H)
     w_ih = normal(H, 4 * H, scale=0.05)
     w_hh = normal(H, 4 * H, scale=0.05)
     b = normal(4 * H, scale=0.05)
-    cell = (x, h0, c0, w_ih, w_hh, b, bf16)
+    cell = (x, h0, c0, w_ih, w_hh, b, cdt)
     results = {}
 
     def both(variant, name, fn, args):
@@ -103,19 +107,19 @@ def main(variants=('fused', 'fused-fwd'), device='cuda', T=16, B=8192,
         results['fused', 'fwd'] = bench('lstm_scan_fused', lstm_scan_fused,
             cell, flush, card, grad=False)
     if 'xp' in variants or 'tm' in variants:
-        xp = normal(T, B, 4 * H, dtype=bf16)
+        xp = normal(T, B, 4 * H, dtype=cdt)
         if 'xp' in variants:
-            both('xp', 'lstm_scan', lstm_scan, (xp, h0, c0, w_hh, bf16))
+            both('xp', 'lstm_scan', lstm_scan, (xp, h0, c0, w_hh, cdt))
         if 'tm' in variants:
-            both('tm', 'lstm_scan_tm', lstm_scan_tm, (xp, h0, c0, w_hh, bf16))
+            both('tm', 'lstm_scan_tm', lstm_scan_tm, (xp, h0, c0, w_hh, cdt))
     if 'cat' in variants:
         both('cat', 'lstm_scan_cat', lstm_scan_cat, cell)
     enc_variants = [v for v in ENC_VARIANTS if v in variants]
     if enc_variants:
-        feats = normal(T, B, F, dtype=bf16, grad=False)
+        feats = normal(T, B, F, dtype=cdt, grad=False)
         w_enc = normal(F, H, scale=0.1)
         b_enc = torch.zeros(H, device=device, requires_grad=True)
-        eargs = (feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b, bf16)
+        eargs = (feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b, cdt)
         for v in enc_variants:
             # enc and enc5 are production kernels, the rest archived
             mod = lstm_enc if v in ('enc', 'enc5') else importlib.import_module(
@@ -125,4 +129,8 @@ def main(variants=('fused', 'fused-fwd'), device='cuda', T=16, B=8192,
 
 
 if __name__ == '__main__':
-    main(tuple(sys.argv[1:]) or ('fused', 'fused-fwd'))
+    args = sys.argv[1:]
+    dtype = 'bfloat16'
+    if args[:1] == ['--dtype']:
+        dtype, args = args[1], args[2:]
+    main(tuple(args) or ('fused', 'fused-fwd'), dtype=dtype)
