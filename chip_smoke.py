@@ -45,8 +45,13 @@ archived tm's lstm_scan's (its step kernels are lstm_scan's loops one
 step a launch), whose times it prints beside tm's. GAE must equal its plain version bit for bit. The MLP head is held
 to its plain version in bf16 (the tensor-core kernel, at the trainer's
 two shapes, at F = 200 with H = 256 and 512 and O = 17, and with f32 x)
-and in f32 (the FMA kernel); its bf16 kernel runs twice and must agree
-bit for bit, and is timed beside cuBLAS's three-call bf16 composition.
+and in f32 (the register-tiled FMA kernel, at the same two shapes, at the
+CLI phase's f32 squared shapes, B 256 and 4096, at a ragged 1000, with
+bf16 x, at F = 300, x read from device memory, and at F = 200, H = 256,
+O = 17, its weights too); each kernel runs twice and must agree bit for
+bit, and is timed
+beside cuBLAS's three-call composition in its compute dtype (f32 with
+TF32 off).
 Both MLP trainers run a warm-up epoch, three timed ones and the
 rollout/update split. enc5's f32 pair (csrc/lstm_f32.cuh: FMA SGEMMs
 around time loops on thread block clusters; f32 is what config.yaml's
@@ -62,7 +67,10 @@ pair (the same design with fused's two sums: the bias in the projection
 SGEMM's epilogue, the recurrent sum from zero with the slab added after
 it) the same way as cat's, and driven through its entry point by the
 kernel lab in f32 (tools/kernel_lab_torch.py --dtype float32 fused
-fused-fwd) within the validation path's phase.
+fused-fwd enc2) within the validation path's phase; the archived enc2's
+f32 backward (the same design with fused's two sums behind enc5's
+encoder) timed at both batches, twice bit-equal, and launched by that
+f32 lab run.
 
 The Ocean phase: the MLP head is also held to its plain version at the
 Ocean envs' shapes (F = 1, 5 and 30 features; O = 3, 5 and 11 outputs;
@@ -111,7 +119,9 @@ The CLI phase (phase 17): the port's entry point, demo_torch.main,
 trains config.yaml's squared and memory sections for 3 epochs each on the
 card (GAE once an epoch; enc5's pair 16 times an epoch each way in
 memory, f32, as config.yaml names no dtype: that shape is held to its
-plain version first), runs --mode autotune over 8192 and 32768 lanes,
+plain version first), and squared again with --policy.use_kernel True
+(the f32 MLP head kernel 81 times an epoch, at the two shapes held to
+its plain version first), runs --mode autotune over 8192 and 32768 lanes,
 then bench_torch.py in a child process at 10 epochs, whose JSON lines it
 prints as they came, and simple_demo_torch.py in a child process (15
 epochs of squared), whose finite score it prints.
@@ -310,26 +320,34 @@ def mlp_case(torch, rng, B, F, H, O, x_dtype):
     return x, w1, b1, w2, b2
 
 
-def cublas_mlp_ms(torch, flush, x, w1, b1, w2, b2):
-    """The bf16 composition the fused head stands in for, on cuBLAS:
-    addmm, relu (the hidden layer already rounded to bf16), addmm. Three
+def cublas_mlp_ms(torch, flush, x, w1, b1, w2, b2, dtype_name='bfloat16'):
+    """The composition the fused head stands in for, on cuBLAS in the
+    compute dtype: addmm, relu, addmm (in bf16 the hidden layer already
+    rounded to bf16; in f32 with TF32 off, exact f32 products). Three
     calls, so context for the kernel's time, not a single-call yardstick;
-    the port never calls it. Weights converted before the timing."""
-    bf16 = torch.bfloat16
-    w1c, b1c, w2c, b2c = (t.to(bf16) for t in (w1, b1, w2, b2))
-    xc = x.to(bf16)
-    with torch.no_grad():
-        return timed_ms(lambda: torch.addmm(b2c, torch.relu(
-            torch.addmm(b1c, xc, w1c)), w2c), flush)
+    the port never calls it. Inputs converted before the timing."""
+    cdt = getattr(torch, dtype_name)
+    w1c, b1c, w2c, b2c = (t.to(cdt) for t in (w1, b1, w2, b2))
+    xc = x.to(cdt)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            return timed_ms(lambda: torch.addmm(b2c, torch.relu(
+                torch.addmm(b1c, xc, w1c)), w2c), flush)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
 
 
 def check_mlp(torch, mlp, flush, rng, B, dtype_name, F=49, H=128, O=9,
         x_dtype_name=None):
     """The MLP head kernel of compute dtype dtype_name against its plain
     version on x of x_dtype_name (the compute dtype when None), within
-    MLP_TOL; the kernel, the plain version and (bf16) cuBLAS's
-    composition timed beside the bound. In bf16 the configuration the C
-    side picks must be mlp.tc_config's."""
+    MLP_TOL; the kernel, the plain version and cuBLAS's composition in
+    the compute dtype timed beside the bound. The configuration the C
+    side picks (mlp_head_tc_config, mlp_head_f32_config) is logged; in
+    bf16 it must be mlp.tc_config's, the copy that refuses a shape before
+    a launch."""
     cdt = getattr(torch, dtype_name)
     x_dtype = getattr(torch, x_dtype_name or dtype_name)
     x, w1, b1, w2, b2 = mlp_case(torch, rng, B, F, H, O, x_dtype)
@@ -347,49 +365,55 @@ def check_mlp(torch, mlp, flush, rng, B, dtype_name, F=49, H=128, O=9,
     tol = MLP_TOL[dtype_name]
     if not (torch.isfinite(got).all() and err <= tol):
         raise AssertionError(f'MLP head {what}: max abs err {err} > {tol}')
-    kernel = 'FMA'
+    x_bf16 = int(x_dtype == torch.bfloat16)
     if cdt == torch.bfloat16:
-        config = mlp.KERNEL.lib().mlp_head_tc_config(F, H, O,
-            int(x_dtype == torch.bfloat16))
+        config = mlp.KERNEL.lib().mlp_head_tc_config(F, H, O, x_bf16)
         if config != mlp.tc_config(F, H, O, x_dtype):
             raise AssertionError(f'MLP head {what}: the C side takes '
                 f'configuration {config}, mlp.tc_config says '
                 f'{mlp.tc_config(F, H, O, x_dtype)}')
-        kernel = (f'tensor cores, configuration {config} '
-            f'{mlp.TC_CONFIGS[config]}')
+        kernel = f'tensor cores, configuration {config} ' \
+            f'{mlp.TC_CONFIGS[config]}'
+    else:
+        config = mlp.KERNEL.lib().mlp_head_f32_config(F, H, O, x_bf16)
+        kernel = f'FMA, configuration {config} ' \
+            f'{("resident", "streamed")[config]}'
+
     with torch.no_grad():
         ms = timed_ms(lambda: mlp.mlp_head(*args), flush)
         device_ms = profiled_ms(lambda: mlp.mlp_head(*args), flush,
             'mlp_head')
         plain_ms = timed_ms(lambda: mlp.mlp_head_reference(*args), flush,
             reps=5)
-    cublas_ms = cublas_mlp_ms(torch, flush, *args[:5]) \
-        if cdt == torch.bfloat16 else None
+    cublas_ms = cublas_mlp_ms(torch, flush, *args[:5], dtype_name)
     bytes_moved = (B * F * x.element_size() + 4 * (F * H + H + H * O + O)
         + 4 * B * O)
     flops = 2 * B * (F * H + H * O)
     bound_ms, bound_by = bound(bytes_moved, flops, dtype_name)
     log(f'mlp_head {what} ({kernel}): max abs err {err:.3g} (tol {tol}); '
         f'kernel {ms:.4f} ms (profiler: {fmt_ms(device_ms)}), plain '
-        f'{plain_ms:.4f} ms, cuBLAS bf16 '
-        f'addmm-relu-addmm {cublas_ms if cublas_ms is None else round(cublas_ms, 4)} '
-        f'ms, bound {bound_ms:.4f} ms ({bound_by}) on {card_line()}')
+        f'{plain_ms:.4f} ms, cuBLAS {dtype_name} addmm-relu-addmm '
+        f'{cublas_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) on '
+        f'{card_line()}')
     return dict(err=err, ms=ms, device_ms=device_ms, plain_ms=plain_ms,
-        cublas_ms=cublas_ms,
+        cublas_ms=cublas_ms, config=config,
         bound_ms=bound_ms, bound_by=bound_by,
         shape=f'({B}, {F}) {x_dtype_name or dtype_name}, H={H}, O={O}')
 
 
-def check_mlp_bit_equal(torch, mlp, rng, B=131072, F=49, H=128, O=9):
-    """The bf16 kernel twice on the same inputs: equal bit for bit (sums
-    in a fixed order, no atomics)."""
-    args = mlp_case(torch, rng, B, F, H, O, torch.bfloat16)
+def check_mlp_bit_equal(torch, mlp, rng, dtype_name='bfloat16', B=131072,
+        F=49, H=128, O=9):
+    """The kernel of compute dtype dtype_name twice on the same inputs:
+    equal bit for bit (sums in a fixed order, no atomics)."""
+    cdt = getattr(torch, dtype_name)
+    args = mlp_case(torch, rng, B, F, H, O, cdt)
     with torch.no_grad():
-        runs = [mlp.mlp_head(*args, torch.bfloat16) for _ in range(2)]
+        runs = [mlp.mlp_head(*args, cdt) for _ in range(2)]
     torch.cuda.synchronize()
     if not torch.equal(*runs):
-        raise AssertionError(f'MLP head bf16 B={B}: two runs differ')
-    log(f'mlp_head bf16 B={B} F={F} H={H} O={O}: two runs equal bit for bit')
+        raise AssertionError(f'MLP head {dtype_name} B={B}: two runs differ')
+    log(f'mlp_head {dtype_name} B={B} F={F} H={H} O={O}: two runs equal bit '
+        f'for bit')
 
 
 # |kernel - plain| <= tol * max(1, max |plain|), per output and gradient.
@@ -1309,6 +1333,24 @@ OCEAN_PROOFS = {
 }
 
 
+def cli_mlp_shapes(H=128):
+    """The shapes (B, F, H, O) at which the CLI phase's squared run with
+    the fused MLP head launches it: the rollout's lanes at each step and
+    the bootstrap, and each update minibatch's rows, at Default's encoder
+    and head widths on squared's spaces (config.yaml's squared section)."""
+    import pufferlib_tpu_torch.vector as vector
+    from pufferlib_tpu_torch.models import Default
+    from pufferlib_tpu_torch.ocean import env_creator
+    num_envs, _, minibatch_size, _, _ = OCEAN_CONFIGS['squared']
+    vecenv = vector.make(env_creator('squared'), num_envs=num_envs,
+        device='cpu')
+    module = Default(obs_shape=vecenv.single_observation_space.shape,
+        action_space=vecenv.single_action_space, hidden_size=H,
+        emulated=vecenv.emulated)
+    F, O = module.encoder.in_features, module.head.out_features
+    return [(vecenv.num_agents, F, H, O), (minibatch_size, F, H, O)]
+
+
 def ocean_kernel_shapes():
     """The shapes at which phases 12 and 13 launch GAE (T, agent rows),
     the MLP head (B, F, H, O) and enc5 (T, segments, H, F), worked out
@@ -1983,6 +2025,25 @@ def main():
     mlp_runs[8192, 'bfloat16 x float32'] = check_mlp(torch, mlp, flush, rng,
         8192, 'bfloat16', x_dtype_name='float32')
     check_mlp_bit_equal(torch, mlp, rng)
+    # the f32 kernel at the shapes the CLI phase's f32 squared run with the
+    # fused head gives it (the rollout's lanes, the update's minibatch),
+    # then its other reach: ragged, bf16 x, and x and the weights read
+    # from device memory (the streamed configuration) at F = 300 and at F
+    # = 200, H = 256, O = 17
+    cli_mlp = cli_mlp_shapes()
+    log(f'CLI phase shapes: MLP head f32 (B, F, H, O) {cli_mlp}')
+    for B, F, H, O in cli_mlp:
+        mlp_runs[B, f'float32 F={F} H={H} O={O}'] = check_mlp(torch, mlp,
+            flush, rng, B, 'float32', F=F, H=H, O=O)
+    mlp_runs[1000, 'float32'] = check_mlp(torch, mlp, flush, rng, 1000,
+        'float32')
+    mlp_runs[1000, 'float32 x bfloat16'] = check_mlp(torch, mlp, flush, rng,
+        1000, 'float32', x_dtype_name='bfloat16')
+    mlp_runs[1000, 'float32 F=300'] = check_mlp(torch, mlp, flush, rng,
+        1000, 'float32', F=300)
+    mlp_runs[1000, 'float32 F=200 H=256 O=17'] = check_mlp(torch, mlp,
+        flush, rng, 1000, 'float32', F=200, H=256, O=17)
+    check_mlp_bit_equal(torch, mlp, rng, 'float32')
     # every shape the use_kernel runs of phase 12 give it, then the
     # Ocean grid's others
     ocean_grid = [(B, F, H, O) for F, H, O in OCEAN_MLP_SHAPES
@@ -1996,8 +2057,8 @@ def main():
     # cat's and fused's (the same design) at both batches beside cuDNN's
     # f32 nn.LSTM
     lstm_runs = {(kind, B, d): check_lstm(torch, flush, rng, kind, B, d,
-            timed=(B, d) == (8192, 'bfloat16') or (kind in ('cat', 'fused')
-                and d == 'float32') or (kind, B, d) == ('enc5', 8192,
+            timed=(B, d) == (8192, 'bfloat16') or (kind in ('cat', 'fused',
+                'enc2') and d == 'float32') or (kind, B, d) == ('enc5', 8192,
                 'float32'))
         for kind in ('enc5', 'cat', 'scan', 'fused', 'enc')
             + ARCHIVED_ENC_KINDS + ('tm',)
@@ -2042,7 +2103,7 @@ def main():
     check_bit_equal(torch, rng, 'enc5', 8192)
     check_bit_equal(torch, rng, 'enc5', 8192, dtype_name='float32')
     for B in (8192, 1000):
-        for kind in ('cat', 'fused'):
+        for kind in ('cat', 'fused', 'enc2'):
             check_bit_equal(torch, rng, kind, B, dtype_name='float32')
     check_bit_equal(torch, rng, 'enc5', mb // bptt, T=bptt, F=1,
         dtype_name='float32')
@@ -2182,6 +2243,7 @@ def main():
         rng)
 
     mlp_big, mlp_small = (mlp_runs[B, 'bfloat16'] for B in (131072, 8192))
+    mlp_f32 = mlp_runs[131072, 'float32']
     kernels = [
         dict(name='gae', route='cuda',
             source='pufferlib_tpu_torch/csrc/gae.cu',
@@ -2192,7 +2254,8 @@ def main():
             plain_ms=gae_runs[0]['plain_ms'],
             bound_ms=gae_runs[0]['bound_ms'], bound_by=gae_runs[0]['bound_by'],
             library_ms=None, shape=gae_runs[0]['shape'],
-            # demo_torch's squared and memory runs (phase 17)
+            # demo_torch's squared (twice: the plain head, the fused one)
+            # and memory runs (phase 17)
             cli_launches=sum(n['gae_forward'] for n in cli_launches.values()),
             # the host trainer's flat GAE: one column of N - 1 steps, at
             # the Atari batch, once an epoch of phase 14
@@ -2217,6 +2280,26 @@ def main():
             bound_ms_8192=mlp_small['bound_ms'],
             cublas_composition_ms=mlp_big['cublas_ms'],
             cublas_composition_ms_8192=mlp_small['cublas_ms']),
+        # the f32 kernel (mlp_head_f32_kernel), which demo_torch's squared
+        # run with the fused head launches (phase 17): times at the
+        # bench's minibatch and at that run's two shapes; cuBLAS's f32
+        # composition (TF32 off) as context
+        dict(name='mlp_head_f32', route='cuda',
+            source='pufferlib_tpu_torch/csrc/mlp_head.cu',
+            replaces='pufferlib_tpu/ops/pallas/mlp.py:80',
+            launches=cli_launches['squared use_kernel']['mlp_head_forward'],
+            max_abs_err=max(r['err'] for (_, d), r in mlp_runs.items()
+                if d.startswith('float32')),
+            ms=mlp_f32['ms'], device_ms=mlp_f32['device_ms'],
+            plain_ms=mlp_f32['plain_ms'], bound_ms=mlp_f32['bound_ms'],
+            bound_by=mlp_f32['bound_by'], library_ms=None,
+            shape=mlp_f32['shape'], config=mlp_f32['config'],
+            cublas_composition_ms=mlp_f32['cublas_ms'],
+            ms_8192=mlp_runs[8192, 'float32']['ms'],
+            cli_shapes={r['shape']: {k: r[k] for k in ('ms', 'device_ms',
+                'plain_ms', 'bound_ms', 'cublas_ms')} for r in (
+                mlp_runs[B, f'float32 F={F} H={H} O={O}']
+                for B, F, H, O in cli_mlp)}),
     ]
     # (name, check_lstm kind, forward or backward, source, the TPU kernel,
     # launches on the path that runs it)
@@ -2355,6 +2438,23 @@ def main():
             library_ms_1000=fused_f32_1000[f'{part}_lib'],
             phases={k: v for k, v in fused_f32_phases.items()
                 if k.startswith(fn)}))
+    # the archived enc2's f32 backward (csrc/lstm_f32.cuh: enc5's with
+    # fused's two sums), which the kernel lab launches in f32 (phase 10),
+    # at the main shape and at B 1000
+    enc2_f32 = lstm_runs['enc2', 8192, 'float32']
+    enc2_f32_1000 = lstm_runs['enc2', 1000, 'float32']
+    kernels.append(dict(name='lstm_enc2_backward_f32', route='cuda',
+        source='pufferlib_tpu_torch/csrc/lstm_f32.cuh',
+        replaces='pufferlib_tpu/ops/pallas/archive/lstm_enc2.py:273',
+        launches=lab_f32_launches['lstm_enc2_backward'],
+        max_abs_err=max(r['bwd_err'] for (k, _, d), r in lstm_runs.items()
+            if k == 'enc2' and d.startswith('float32')),
+        ms=enc2_f32['bwd_ms'], plain_ms=enc2_f32['bwd_plain_ms'],
+        bound_ms=enc2_f32['bwd_bound'], bound_by=enc2_f32['bwd_by'],
+        library_ms=enc2_f32['bwd_lib'], shape=enc2_f32['shape'],
+        ms_1000=enc2_f32_1000['bwd_ms'],
+        plain_ms_1000=enc2_f32_1000['bwd_plain_ms'],
+        bound_ms_1000=enc2_f32_1000['bwd_bound']))
     rows = {row['name']: row for row in kernels}
     # enc5's launches in demo_torch's memory run (phase 17, f32)
     for part in ('forward', 'backward'):
@@ -2496,13 +2596,17 @@ def run_cli_phase(torch, card):
     (LSTMWrapper(128), the default route: enc5) for CLI_EPOCHS epochs
     each, every launch count set to 0 just before and read just after:
     GAE once an epoch, and in memory enc5's forward and backward 16 times
-    an epoch each (4 update epochs x 4 minibatches), nothing else. Then
+    an epoch each (4 update epochs x 4 minibatches), nothing else; then
+    squared again with --policy.use_kernel True: Default's fused head in
+    f32 (config.yaml names no dtype), 81 launches of the f32 MLP head
+    kernel an epoch (64 rollout steps and the bootstrap at 256 lanes, 4 x
+    4 minibatches of 4096 rows) beside GAE's one. Then
     --mode autotune over CLI_AUTOTUNE_LANES (GAE once an epoch of each
     rung: a warm-up and 8 timed), and bench_torch.py in a child process
     at CLI_BENCH_ENV, its lines printed as they came, each value finite
     and positive; last simple_demo_torch.py in a child process on the
     card, whose finite score it prints. Returns the launches of each
-    training run by env."""
+    training run by name ('squared', 'memory', 'squared use_kernel')."""
     import gc
     import math
     import subprocess
@@ -2521,30 +2625,42 @@ def run_cli_phase(torch, card):
 
     data_dir = os.path.join(REPO, 'experiments', 'chip_smoke_cli')
     train_launches = {}
-    for env, per_epoch in (('squared', {'gae_forward': 1}),
-            ('memory', {'gae_forward': 1, 'lstm_enc_forward': LSTM_PER_EPOCH,
-                'lstm_enc_backward': LSTM_PER_EPOCH})):
+    lanes, squared_batch, minibatch, _, _ = OCEAN_CONFIGS['squared']
+    # the fused head: each rollout step and the bootstrap, and each of
+    # the 4 update epochs' minibatches
+    head_per_epoch = (squared_batch // lanes + 1
+        + 4 * (squared_batch // minibatch))
+    for run, env, flags, per_epoch in (
+            ('squared', 'squared', (), {'gae_forward': 1}),
+            ('memory', 'memory', (), {'gae_forward': 1,
+                'lstm_enc_forward': LSTM_PER_EPOCH,
+                'lstm_enc_backward': LSTM_PER_EPOCH}),
+            # Default's fused head in config.yaml's dtype (f32): the f32
+            # kernel
+            ('squared use_kernel', 'squared', ('--policy.use_kernel',
+                'True'), {'gae_forward': 1,
+                'mlp_head_forward': head_per_epoch})):
         batch = OCEAN_CONFIGS[env][1]
         data, elapsed, launches = counted(['--env', env, '--mode', 'train',
             '--no-train.verbose', '--train.total_timesteps',
-            str(CLI_EPOCHS * batch), '--train.data_dir', data_dir])
+            str(CLI_EPOCHS * batch), '--train.data_dir', data_dir, *flags])
         want = dict.fromkeys(launches, 0)
         for fn, n in per_epoch.items():
             want[fn] = n * CLI_EPOCHS
         if data.epoch != CLI_EPOCHS or launches != want or \
                 data.device.type != 'cuda':
-            raise AssertionError(f'demo_torch --env {env}: {data.epoch} '
-                f'epochs on {data.device}, launches {launches}, expected '
-                f'{want}')
-        losses = check_losses(data, f'demo_torch --env {env}')
-        log(f'cli: demo_torch.main --env {env} (config.yaml section, '
-            f'{data.vecenv.num_envs_total} lanes, batch {batch}): '
-            f'{CLI_EPOCHS} epochs in {elapsed:.2f} s of main() wall, trainer '
-            f'build included; launches '
+            raise AssertionError(f'demo_torch --env {env} {flags}: '
+                f'{data.epoch} epochs on {data.device}, launches {launches}, '
+                f'expected {want}')
+        losses = check_losses(data, f'demo_torch --env {env} {flags}')
+        log(f'cli: demo_torch.main --env {env} {" ".join(flags)} '
+            f'(config.yaml section, {data.vecenv.num_envs_total} lanes, '
+            f'batch {batch}): {CLI_EPOCHS} epochs in {elapsed:.2f} s of '
+            f'main() wall, trainer build included; launches '
             f'{json.dumps({k: v for k, v in launches.items() if v})}; '
             f'losses {json.dumps(losses)}; stats {json.dumps(data.stats)} '
             f'on {card}')
-        train_launches[env] = launches
+        train_launches[run] = launches
         del data
 
     os.environ['PUFFER_AUTOTUNE_LANES'] = ','.join(
@@ -2890,6 +3006,10 @@ LAB_VARIANTS = ('fused', 'fused-fwd', 'xp', 'cat', 'enc', 'enc5', 'enc2',
     'enc3', 'enc4', 'enc6', 'tm')
 
 
+# the lab's variants in its f32 run
+LAB_F32_VARIANTS = ('fused', 'fused-fwd', 'enc2')
+
+
 def run_validation_path(torch):
     """The LSTM kernel-validation path through its two entry points, with
     every launch count set to 0 just before and read just after:
@@ -2898,10 +3018,11 @@ def run_validation_path(torch):
     1024-lane recurrent trainer through the enc5 kernels, which must reach
     score 0.9) and tools/kernel_lab_torch.main over every variant, which
     is the path that launches the archived kernels. Returns the launches
-    by C function, and those of the lab's fused variants in f32
-    (kernel_lab_torch.main(('fused', 'fused-fwd'), dtype='float32'), with
-    every count set to 0 again just before: the path that launches
-    lstm_scan_fused's f32 pair, csrc/lstm_f32.cuh)."""
+    by C function, and those of the lab's fused and enc2 variants in f32
+    (kernel_lab_torch.main(LAB_F32_VARIANTS, dtype='float32'), with every
+    count set to 0 again just before: the path that launches
+    lstm_scan_fused's f32 pair and the archived enc2's f32 backward,
+    csrc/lstm_f32.cuh, beside enc2's FMA forward)."""
     from pufferlib_tpu_torch.ops.cuda import KERNELS
     validate = load_tool('validate_lstm_torch')
     lab = load_tool('kernel_lab_torch')
@@ -2937,13 +3058,14 @@ def run_validation_path(torch):
         f'{json.dumps({k: v for k, v in launches.items() if v})}')
     for k in KERNELS:
         k.reset_counts()
-    f32_ms = lab.main(('fused', 'fused-fwd'), dtype='float32')
+    f32_ms = lab.main(LAB_F32_VARIANTS, dtype='float32')
     torch.cuda.synchronize()
     f32_launches = {fn: n for k in KERNELS for fn, n in k.fn_launches.items()
         if n}
-    if set(f32_launches) != {'lstm_fused_forward', 'lstm_fused_backward'}:
+    if set(f32_launches) != {'lstm_fused_forward', 'lstm_fused_backward',
+            'lstm_enc2_forward', 'lstm_enc2_backward'}:
         raise AssertionError(f'the lab in f32: launches {f32_launches}')
-    log(f'the lab in f32: lstm_scan_fused '
+    log(f'the lab in f32: lstm_scan_fused and the archived enc2 '
         f'{json.dumps({" ".join(k): v for k, v in f32_ms.items()})} ms; '
         f'launches {json.dumps(f32_launches)}')
     return launches, f32_launches

@@ -84,7 +84,17 @@
 //   bf16 in its natural (T, B, 4H) order (the TPU kernel's xp slab), then
 //   mode XP's forward loop (lstm_scan's) on it, the recurrent product its
 //   own f32 sum, added to xp_t after it.
-// * everything else: plain f32 FMA from weights streamed out of L2 in
+// * f32 enc2 backward: csrc/lstm_f32.cuh's enc5 backward with lstm_scan
+//   fused's two sums (in f32 enc2's roundings are the identity, so its
+//   backward is enc5's function with the gates summed as x @ W_ih + b and
+//   h_prev @ W_hh apart): the encoder SGEMM, x @ W_ih + b as one SGEMM
+//   (the bias in its epilogue) into the dgates scratch, the pre-pass
+//   h_prev @ W_hh from zero with that slab added in its epilogue before
+//   the activations, the reverse loop on thread block clusters (W_hh^T on
+//   chip for all T steps, the partial dh_prev through distributed shared
+//   memory), dpre and the split-K SGEMMs. The loop writes the dgates over
+//   the slab after the pre-pass has read it: enc5's scratch, no more.
+// * everything else in f32: plain FMA from weights streamed out of L2 in
 //   chunks, far above the bounds above: the f32 kernels (f32 is the exact
 //   test mode).
 //
@@ -105,6 +115,7 @@
 // weight gradients are split-K with partials added in a fixed order, as in
 // the other LSTM sources.
 #include "lstm_common.cuh"
+#include "lstm_f32.cuh"
 #include "lstm_tc.cuh"
 
 using namespace lstm;
@@ -394,10 +405,12 @@ cudaError_t run_archive_backward(const void* feats, const float* h0, const float
 
 // The encoder-fused backwards: bf16 on the tensor cores (tc::backward in
 // mode MODE; enc2 at any encoder width D the tensor-core kernels take, the
-// others at D == H, their forward's reach), f32 on archive_backward, D ==
-// H. pre: in bf16 the P slab
-// (lstm_tc.cuh slab_index) f32; in f32 the activations slab (T, B, 4H)
-// of the modes that keep one (gates_before_loop: enc3, enc6), else null.
+// others at D == H, their forward's reach); f32, D == H, enc2 on
+// lstm_f32.cuh (enc5_backward with two sums), the others on
+// archive_backward. pre: in bf16 the P slab (lstm_tc.cuh slab_index) f32;
+// in f32 enc2's `work` (lstm_f32.cuh: the activations (T * B * 4H), then
+// W_ih^T and W_hh^T), the others' activations slab (T, B, 4H) where the
+// mode keeps one (gates_before_loop: enc3, enc6), else null.
 template <int MODE>
 struct TcBackward {
     template <int H, typename E>
@@ -421,6 +434,16 @@ struct TcBackward {
                     nullptr, dh0, dc0, dw, db, static_cast<E*>(dg), dw_part, db_part,
                     static_cast<float*>(pre), static_cast<E*>(w16), T, B, D, splits_w, part_rows,
                     phases, stream, enc);
+            } else if constexpr (MODE == ENC2) {
+                // enc5's f32 design with fused's two sums (lstm_f32.cuh)
+                if (D != H) return cudaErrorInvalidValue;
+                return f32::enc5_backward<H, true>(
+                    static_cast<const float*>(feats), h0, c0, w_enc, b_enc, w_ih, w_hh, b,
+                    static_cast<const float*>(outs), static_cast<const float*>(cseq),
+                    static_cast<const float*>(g_outs), g_hT, g_cT, dh0, dc0, dwe, dw, db,
+                    static_cast<float*>(xs), static_cast<float*>(dpre), static_cast<float*>(dg),
+                    dw_part, db_part, dwe_part, static_cast<float*>(pre), T, B, F, splits_w,
+                    splits_e, part_rows, phases, stream);
             } else {
                 if (phases != tc::BACKWARD_PHASES || D != H) return cudaErrorInvalidValue;
                 return run_archive_backward<H, E, MODE>(
@@ -584,13 +607,15 @@ int lstm_enc2_forward(const void* feats, const float* h0, const float* c0,
 // Scratch: xs and dpre (T, B, H) and dg (T, B, 4H) in the compute dtype;
 // dw_part (splits_w, 2H, 4H) and db_part (part_rows, 4H) f32, part_rows =
 // ceil(B / 64) in bf16 and in f32 ceil(B / 32), for enc6 ceil(B / 64);
-// dwe_part (splits_e, F + 1, H) in bf16, (splits_e, F, H) in f32; f32 only
-// (null in bf16): dbe_part (part_rows, H); pre: in bf16 the P slab (as
-// lstm_enc_backward's) f32, in f32 enc3's and enc6's activations slab (T,
+// dwe_part (splits_e, F + 1, H) in bf16 and enc2's f32, (splits_e, F, H)
+// in the other f32 backwards, which alone take dbe_part (part_rows, H)
+// (null elsewhere); pre: in bf16 the P slab (as lstm_enc_backward's) f32,
+// in f32 enc2's as lstm_enc_backward's f32 `pre` (the activations (T * B
+// * 4H), then W_ih^T and W_hh^T), enc3's and enc6's activations slab (T,
 // B, 4H) f32, else null; bf16 only (null in f32): w16 (2H * 4H + 4H * H +
-// B * H + F * H) bf16. phases: 4 runs the whole backward; in bf16, 1 .. 3
-// stop after the encoder and the pre-pass, the loop or dpre (to time
-// them).
+// B * H + F * H) bf16. phases: 4 runs the whole backward; in bf16 and
+// enc2's f32, 1 .. 3 stop after the encoder and the pre-pass, the loop or
+// dpre (to time them).
 #define TC_BACKWARD(NAME, MODE)                                                             \
     int NAME(const void* feats, const float* h0, const float* c0, const float* w_enc,       \
              const float* b_enc, const float* w_ih, const float* w_hh, const float* b,      \

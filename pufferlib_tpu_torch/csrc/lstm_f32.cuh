@@ -9,7 +9,10 @@
 // TF32): the tensor cores have no exact f32 product. Cat is enc5 without
 // the encoder, fused is cat with its sums split in two (TWO_SUMS below):
 // all three pairs run the pieces below (cell_forward, cell_backward), enc5
-// behind its encoder SGEMM and with dx under the relu mask.
+// behind its encoder SGEMM and with dx under the relu mask. The archived
+// enc2's backward (csrc/lstm_archive.cu; the TPU kernel
+// archive/lstm_enc2._bwd) is enc5's with fused's two sums
+// (enc5_backward<H, true>).
 //
 // Bound: at T = 16, B = 8192, D = H = 128 the cat forward does 34.4 GFLOP
 // and its backward 103.1 (enc5 with F = 49: 36.0 and 106.4), against
@@ -1059,9 +1062,16 @@ cudaError_t cell_backward(const float* x, const float* xw, const float* h0, cons
 // (T, B, H), g_hT, g_cT (B, H). Writes dh0, dc0 (B, H), dwe (F + 1, D):
 // dW_enc then db_enc, dw = [dW_ih; dW_hh] (D + H, 4H), db (4H,). Scratch:
 // xs, dpre (T * B * D), dwe_part (splits_e, F + 1, D) and cell_backward's.
-// phases: BACKWARD_PHASES runs it all; 1 .. 3 stop after the encoder and
-// the pre-pass, the loop or dpre.
-template <int H>
+// TWO_SUMS: the archived enc2's backward (csrc/lstm_archive.cu), whose
+// gates are x @ W_ih + b and h_prev @ W_hh summed apart (in f32 its
+// roundings to the compute dtype are the identity): x @ W_ih + b is one
+// SGEMM with the bias in its epilogue, into dg, and cell_backward's
+// pre-pass (fused's) adds it to h_prev @ W_hh. dg holds that slab until
+// the pre-pass has read it and the loop writes the dgates over it: no
+// scratch more than enc5's. phases: BACKWARD_PHASES runs it all; 1 .. 3
+// stop after the encoder (and enc2's projection) and the pre-pass, the
+// loop or dpre.
+template <int H, bool TWO_SUMS = false>
 cudaError_t enc5_backward(const float* feats, const float* h0, const float* c0,
                           const float* w_enc, const float* b_enc, const float* w_ih,
                           const float* w_hh, const float* b, const float* outs,
@@ -1071,7 +1081,7 @@ cudaError_t enc5_backward(const float* feats, const float* h0, const float* c0,
                           float* db_part, float* dwe_part, float* work, int T, int B, int F,
                           int splits_w, int splits_e, int part_rows, int phases,
                           cudaStream_t stream) {
-    constexpr int D = H;
+    constexpr int D = H, G = 4 * H;
     if (splits_e < 1) return cudaErrorInvalidValue;
     if (!aligned16(w_enc) || !aligned16(dwe_part)) return cudaErrorMisalignedAddress;
     cudaError_t err =
@@ -1081,9 +1091,13 @@ cudaError_t enc5_backward(const float* feats, const float* h0, const float* c0,
     err = gemm<false>(Feats<false>{feats, F}, Mat{w_enc, D},
                                   EpiEncoder{xs, b_enc, D}, M, D, F, 1, w_enc, stream);
     if (err != cudaSuccess) return err;
-    if ((err = cell_backward<H>(xs, nullptr, h0, c0, w_ih, w_hh, b, outs, cseq, g_outs, g_hT,
-                                g_cT, dpre, xs, dh0, dc0, dw, db, dg, dw_part, db_part, work,
-                                T, B, D, splits_w, part_rows, phases, stream)) != cudaSuccess ||
+    if (TWO_SUMS && (err = gemm<false>(Mat{xs, D}, Mat{w_ih, G}, EpiStore{dg, G, b}, M, G, D, 1,
+                                       w_ih, stream)) != cudaSuccess)
+        return err;
+    if ((err = cell_backward<H, TWO_SUMS>(xs, TWO_SUMS ? dg : nullptr, h0, c0, w_ih, w_hh, b,
+                                          outs, cseq, g_outs, g_hT, g_cT, dpre, xs, dh0, dc0,
+                                          dw, db, dg, dw_part, db_part, work, T, B, D, splits_w,
+                                          part_rows, phases, stream)) != cudaSuccess ||
         phases < BACKWARD_PHASES)
         return err;
     if ((err = gemm<true>(Feats<true>{feats, F}, Mat{dpre, D}, EpiPartial{dwe_part, F + 1, D},

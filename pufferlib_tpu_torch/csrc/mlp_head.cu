@@ -52,13 +52,52 @@
 //   Where the weights or the ring do not fit, a block holds fewer stages,
 //   then reads its weights' fragments from L2 (f32, rounded as loaded)
 //   instead of shared memory, then takes 16-row tiles (tc::CONFIGS, tried
-//   in order): every (F, H, O) that the f32 kernel serves is served, and
-//   more; beyond the last, the launch is refused.
+//   in order): every (F, H, O) that the first f32 kernel served (a
+//   block's shared memory holding the f32 weights, a 32-row x tile and its
+//   hidden tile: mlp.fma_smem) is served, and more; beyond the last, the
+//   launch is refused.
 //
-// * f32 (the exact test mode): mlp_head_kernel, plain FMA loops (the
-//   tensor cores have no exact f32 product). Weights staged once per
-//   block in shared memory; per 32-row tile the x tile, the hidden tile
-//   (one thread a hidden unit, a warp on one row) and the outputs.
+// * f32 (config.yaml's dtype and the exact test mode):
+//   mlp_head_f32_kernel, FMA only (the tensor cores have no exact f32
+//   product; no TF32). Bound: operations. At F = 49, H = 128, O = 9 a row
+//   is 7424 FMAs, 1.946 GFLOP at B = 131072 (0.029 ms at 67 TFLOP/s).
+//   Design, in the manner of csrc/lstm_f32.cuh's SGEMM:
+//   - persistent blocks of 256 threads walk 64-row tiles, at most two
+//     blocks an SM;
+//   - the resident configuration: W1 (F, Hc) and W2 (Hc, Op), zero-padded
+//     to Hc (whole chunks of 128 hidden units) and Op (a multiple of 4),
+//     and the biases are staged once a block in shared memory by
+//     cp.async (W1 16 bytes a copy where its rows allow, H % 4 == 0, else
+//     4); x tiles move through a two-stage ring by the bf16
+//     kernel's span copy (fetch_span: any element offset), and one pass
+//     lays each into a k-major (F, 64 + 4) tile;
+//   - layer 1 in chunks of 128 hidden units: each thread a register tile
+//     of 4 rows x 8 units, per k one 16-byte load of x and two of W1 for
+//     32 FMAs. Each hidden value is one FMA chain over k in order from
+//     zero, then + b1 and the relu (keeping a NaN): the first f32
+//     kernel's bits. It goes into a padded (64, 132) hidden tile in
+//     shared memory; the hidden layer never reaches device memory;
+//   - layer 2 from the hidden tile: warp w takes hidden units 16w ..
+//     16w + 15 of each chunk (K in eight fixed parts), lane l rows l and
+//     l + 32 and up to 16 outputs (one 16-byte broadcast load of W2 per
+//     four outputs and k). Each part's sums stay in registers across the
+//     chunks, then the parts meet in shared memory and are added in part
+//     order, + b2; the tile's (64, O) rows are stored as one coalesced
+//     span. Outputs past 16 take another pass, layer 1 recomputed;
+//   - where the resident configuration's shared memory passes MAX_SMEM
+//     (its x staging takes about 3 x 64 x F floats: at H = 128, F > 148
+//     with f32 x), the streamed one moves x and W1 through shared memory
+//     KC = 32 values of k at a time, per tile and 128-unit chunk, in two
+//     stages (a chunk copied while the last one's products run; layer 1's
+//     loop is the resident one's), and reads W2 and the biases from
+//     device memory (L2). It holds 82 KB at any shape: every (F, H, O) is
+//     served.
+//   Sums run in a fixed order with no atomics: two runs are bit-equal.
+//   What holds it back (tools/ablate_mlp_head_torch.py --dtype float32,
+//   at B = 131072 on an H100): the layer-1 products, near 35 TFLOP/s, half
+//   the FMA rate, as csrc/lstm_f32.cuh's SGEMMs; layer 2 about a sixth of
+//   the time. 128-row tiles (8 x 8 outputs a thread, one block an SM)
+//   gain nothing there and lose at B = 8192.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -66,73 +105,6 @@
 namespace {
 
 constexpr int MAX_SMEM = 227 * 1024;
-
-// ---------------------------------------------------------------- f32
-
-constexpr int THREADS = 256;
-constexpr int ROWS = 32;
-
-__device__ __forceinline__ float load(const float* p, size_t i) { return p[i]; }
-__device__ __forceinline__ float load(const __nv_bfloat16* p, size_t i) {
-    return __bfloat162float(p[i]);
-}
-
-template <typename Tin>
-__global__ void __launch_bounds__(THREADS) mlp_head_kernel(
-        const Tin* __restrict__ x, const float* __restrict__ w1,
-        const float* __restrict__ b1, const float* __restrict__ w2,
-        const float* __restrict__ b2, float* __restrict__ out,
-        int B, int F, int H, int O) {
-    extern __shared__ float smem[];
-    float* w1s = smem;              // F * H
-    float* w2s = w1s + F * H;       // H * O
-    float* b1s = w2s + H * O;       // H
-    float* b2s = b1s + H;           // O
-    float* xs = b2s + O;            // ROWS * F
-    float* hs = xs + ROWS * F;      // ROWS * H
-
-    for (int i = threadIdx.x; i < F * H; i += THREADS) w1s[i] = w1[i];
-    for (int i = threadIdx.x; i < H * O; i += THREADS) w2s[i] = w2[i];
-    for (int i = threadIdx.x; i < H; i += THREADS) b1s[i] = b1[i];
-    for (int i = threadIdx.x; i < O; i += THREADS) b2s[i] = b2[i];
-
-    const int tiles = (B + ROWS - 1) / ROWS;
-    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-        // weights staged, and the previous tile's xs/hs fully consumed
-        __syncthreads();
-        const size_t row0 = (size_t)tile * ROWS;
-        const int rows = min(ROWS, B - (int)row0);
-        for (int i = threadIdx.x; i < ROWS * F; i += THREADS)
-            xs[i] = i < rows * F ? load(x, row0 * F + i) : 0.f;
-        __syncthreads();
-
-        for (int i = threadIdx.x; i < rows * H; i += THREADS) {
-            const int r = i / H;
-            const int j = i - r * H;
-            const float* xr = xs + r * F;
-            float acc = 0.f;
-            for (int k = 0; k < F; ++k) acc = fmaf(xr[k], w1s[k * H + j], acc);
-            acc += b1s[j];
-            // relu that keeps a NaN, as jax.nn.relu does
-            hs[i] = acc < 0.f ? 0.f : acc;
-        }
-        __syncthreads();
-
-        for (int i = threadIdx.x; i < rows * O; i += THREADS) {
-            const int r = i / O;
-            const int o = i - r * O;
-            const float* hr = hs + r * H;
-            float acc = 0.f;
-            for (int j = 0; j < H; ++j) acc = fmaf(hr[j], w2s[j * O + o], acc);
-            out[row0 * O + i] = acc + b2s[o];
-        }
-    }
-}
-
-size_t smem_bytes(int F, int H, int O) {
-    return sizeof(float) *
-        ((size_t)F * H + (size_t)H * O + H + O + (size_t)ROWS * F + (size_t)ROWS * H);
-}
 
 // the grid: what fits on the card at once (at most max_per_sm blocks an
 // SM), and no more blocks than tiles
@@ -156,20 +128,445 @@ cudaError_t persistent_grid(K kernel, int threads, size_t smem, int tiles, int m
     return cudaSuccess;
 }
 
+// 16 bytes from gmem, of which the first n are read and the rest zero
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int n) {
+    const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n)
+                 : "memory");
+}
+
+// 4 bytes from gmem into shared memory
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+    const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// relu that keeps a NaN, as jax.nn.relu does
+__device__ __forceinline__ float relu(float v) { return v < 0.f ? 0.f : v; }
+
+// One ring slot of raw_bytes: a tile's span of x, plus the chunk that its
+// unaligned start may add and one that a reader may touch past the span's
+// end
+__host__ __device__ inline size_t raw_bytes(int rows, int F, int x_size) {
+    return (size_t)rows * F * x_size + 32;
+}
+
+// Tile `tile`'s span of x (`span` bytes from xbase + tile * span) into the
+// ring slot dst (raw bytes), from the 16-byte boundary at or below its
+// start; bytes past the array's end (xend) are zero-filled. x may start
+// anywhere: a view into the obs storage is read as it is. One commit group
+// per call, empty past the last tile.
+__device__ __forceinline__ void fetch_span(unsigned char* dst, uintptr_t xbase, uintptr_t xend,
+                                           size_t span, size_t raw, int tile, int tiles, int tid,
+                                           int nt) {
+    if (tile < tiles) {
+        const uintptr_t a = (xbase + tile * span) & ~(uintptr_t)15;
+        for (int c = tid; c < (int)(raw / 16); c += nt) {
+            const uintptr_t src = a + 16 * (uintptr_t)c;
+            const int n = src >= xend ? 0 : (xend - src >= 16 ? 16 : (int)(xend - src));
+            cp_async16(dst + 16 * c, reinterpret_cast<const void*>(n ? src : a), n);
+        }
+    }
+    cp_async_commit();
+}
+
+// element i of x as f32
+__device__ __forceinline__ float load_x(const float* p, size_t i) { return p[i]; }
+__device__ __forceinline__ float load_x(const __nv_bfloat16* p, size_t i) {
+    return __bfloat162float(p[i]);
+}
+
+// ---------------------------------------------------------------- f32
+
+namespace f32 {
+
+constexpr int THREADS = 256;
+constexpr int TR = 64;              // rows a tile: a multiple of 64
+constexpr int RG = TR / 64;         // layer 1: a thread's rows, in groups of 4 (64 apart)
+constexpr int RL = TR / 32;         // layer 2: a lane's rows (32 apart)
+constexpr int HC = 128;             // hidden units a chunk: 16 column groups of 8
+constexpr int HSP = HC + 4;         // row stride of the hidden tile
+constexpr int XSP = TR + 4;         // row stride (one k) of the k-major x tile
+constexpr int KP = THREADS / 32;    // layer 2's parts of a chunk's hidden units: a warp each
+constexpr int KPL = HC / KP;        // hidden units a part
+constexpr int OC = 16;              // outputs a pass
+constexpr int PRS = TR + 1;         // row stride of layer 2's partials
+constexpr int STAGES = 2;           // x ring
+constexpr int KC = 32;              // streamed: k a chunk of x and W1
+constexpr int KS = 2;               // streamed: chunk stages
+// blocks an SM: the resident configuration at the trainer's shapes holds
+// 105 KB of shared memory a block, the streamed one 82 KB
+constexpr int MAX_PER_SM = 2;
+constexpr int HS_FLOATS = TR * HSP;  // the hidden tile, then the partials
+static_assert(KP * OC * PRS <= HS_FLOATS, "layer 2's partials fit the hidden tile");
+static_assert(KPL % 4 == 0 && TR % 64 == 0, "the tiling");
+
+// Hc: H padded to whole chunks; Op: O padded to a multiple of 4
+struct Geo {
+    int F, H, O, Hc, Op;
+    __host__ __device__ Geo(int F_, int H_, int O_)
+        : F(F_), H(H_), O(O_), Hc((H_ + HC - 1) / HC * HC), Op((O_ + 3) / 4 * 4) {}
+};
+
+// Shared memory of a block: the hidden tile and, resident (RES), W1 (F,
+// Hc), b1 (Hc), W2 (Hc, Op), b2 (Op), the k-major x tile (F, XSP) and the
+// ring; streamed, KS stages of chunks of W1 (KC, HC) and x (KC, XSP).
+inline size_t smem_bytes(const Geo& g, int x_size, bool res) {
+    if (!res) return 4 * (size_t)(HS_FLOATS + KS * KC * (HC + XSP));
+    const size_t floats = HS_FLOATS + (size_t)g.F * g.Hc + g.Hc + (size_t)g.Hc * g.Op + g.Op +
+                          (size_t)g.F * XSP;
+    return 4 * floats + STAGES * raw_bytes(TR, g.F, x_size);
+}
+
+// the configuration: 0, resident, where its shared memory fits; else 1,
+// streamed
+inline int config(int F, int H, int O, int x_size) {
+    return smem_bytes(Geo(F, H, O), x_size, true) <= (size_t)MAX_SMEM ? 0 : 1;
+}
+
+// Tile row of a thread's layer-1 row i (< 4 RG): groups of 4 rows 64 apart
+__device__ __forceinline__ int row_of(int i, int ty) { return i / 4 * 64 + ty * 4 + i % 4; }
+
+// Layer 1's products over k = 0 .. K - 1 in order: thread (ty, tx) adds
+// x[k][row_of(i, ty)] * w[k][tx*4 + j] and w[k][64 + tx*4 + j] (j < 4) to
+// acc[i][j] and acc[i][4 + j], from the k-major x rows xs (stride XSP) and
+// the W1 rows w (stride ws) in shared memory. Per k a thread loads 4 RG +
+// 8 values, as 16-byte loads, for 32 RG FMAs.
+__device__ __forceinline__ void products(float (&acc)[4 * RG][8], const float* xs, const float* w,
+                                         int ws, int K, int ty, int tx) {
+#pragma unroll 4
+    for (int k = 0; k < K; ++k) {
+        float xv[4 * RG], wv[8];
+#pragma unroll
+        for (int q = 0; q < RG; ++q) {
+            const float4 a = *reinterpret_cast<const float4*>(xs + k * XSP + q * 64 + ty * 4);
+            xv[4 * q] = a.x, xv[4 * q + 1] = a.y, xv[4 * q + 2] = a.z, xv[4 * q + 3] = a.w;
+        }
+        const float* wk = w + (size_t)k * ws + tx * 4;
+        const float4 b0 = *reinterpret_cast<const float4*>(wk);
+        const float4 b1 = *reinterpret_cast<const float4*>(wk + 64);
+        wv[0] = b0.x, wv[1] = b0.y, wv[2] = b0.z, wv[3] = b0.w;
+        wv[4] = b1.x, wv[5] = b1.y, wv[6] = b1.z, wv[7] = b1.w;
+#pragma unroll
+        for (int i = 0; i < 4 * RG; ++i)
+#pragma unroll
+            for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(xv[i], wv[j], acc[i][j]);
+    }
+}
+
+// One element of x into shared memory: f32 by cp.async, bf16 converted
+__device__ __forceinline__ void stage_x(float* dst, const float* src) { cp_async4(dst, src); }
+__device__ __forceinline__ void stage_x(float* dst, const __nv_bfloat16* src) {
+    *dst = __bfloat162float(*src);
+}
+
+// Streamed: rows k0 .. k0 + KC - 1 of the tile's x (k-major, stride XSP)
+// and of W1's columns h0 .. h0 + HC - 1 (stride HC) into one stage of the
+// chunk buffers, zero past B, F and H. One commit group.
 template <typename Tin>
-int launch_fma(const void* x, const float* w1, const float* b1, const float* w2,
-               const float* b2, float* out, int B, int F, int H, int O,
-               cudaStream_t stream) {
-    auto kernel = mlp_head_kernel<Tin>;
-    const size_t smem = smem_bytes(F, H, O);
+__device__ __forceinline__ void stage_chunk(float* xk, float* wk, const Tin* x, const float* w1,
+                                            const Geo& g, int B, int row0, int h0, int k0,
+                                            int tid) {
+    for (int i = tid; i < TR * KC; i += THREADS) {
+        const int r = i / KC, kk = i - r * KC, k = k0 + kk;
+        float* dst = xk + kk * XSP + r;
+        if (row0 + r < B && k < g.F) stage_x(dst, x + (size_t)(row0 + r) * g.F + k);
+        else *dst = 0.f;
+    }
+    for (int i = tid; i < KC * HC; i += THREADS) {
+        const int kk = i / HC, c = i - kk * HC, k = k0 + kk;
+        if (k < g.F && h0 + c < g.H) cp_async4(wk + i, w1 + (size_t)k * g.H + h0 + c);
+        else wk[i] = 0.f;
+    }
+    cp_async_commit();
+}
+
+// Layer 1 of chunk h0 for the tile of rows row0 ..: thread (ty, tx) sums
+// rows row_of(i, ty) (i < 4 RG) of hidden units h0 + tx*4 + j and h0 + 64
+// + tx*4 + j (j < 4), each one FMA chain over k in order from zero.
+// Resident (RES): x from the k-major tile xs, W1 from w1s (rows of Hc,
+// zero past H). Streamed: xs and w1s are KS stages of chunk buffers
+// that KC values of k at a time move through, the next KS - 1 chunks
+// copied while this one's products run.
+template <typename Tin, bool RES>
+__device__ __forceinline__ void layer1(float (&acc)[4 * RG][8], float* xs, const Tin* x,
+                                       int row0, int B, float* w1s, const float* w1,
+                                       const Geo& g, int h0, int tid) {
+    const int ty = tid / 16, tx = tid % 16;
+#pragma unroll
+    for (int i = 0; i < 4 * RG; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+    if constexpr (RES) {
+        products(acc, xs, w1s + h0, g.Hc, g.F, ty, tx);
+    } else {
+        // chunk c in stage c % KS; one commit group a chunk (empty past
+        // the last)
+        const int chunks = (g.F + KC - 1) / KC;
+        auto stage = [&](int c) {
+            if (c < chunks)
+                stage_chunk(xs + c % KS * KC * XSP, w1s + c % KS * KC * HC, x, w1, g, B, row0,
+                            h0, c * KC, tid);
+            else
+                cp_async_commit();
+        };
+        for (int c = 0; c < KS - 1; ++c) stage(c);
+        for (int c = 0; c < chunks; ++c) {
+            // chunk c has landed, with every thread's stores to it, and
+            // every thread is done with chunk c - 1, whose stage the chunk
+            // KS - 1 ahead takes
+            cp_async_wait<KS - 2>();
+            __syncthreads();
+            stage(c + KS - 1);
+            products(acc, xs + c % KS * KC * XSP, w1s + c % KS * KC * HC, HC,
+                     min(KC, g.F - c * KC), ty, tx);
+        }
+    }
+}
+
+// Layer 2 of chunk h0, outputs o0 .. o0 + 4 NQ - 1: warp `warp` takes the
+// chunk's hidden units warp*KPL .. + KPL - 1, lane l rows l + 32 r (r <
+// RL) of the hidden tile; each part's sums continue over the chunks in
+// order.
+// RES: W2 from w2s (Hc, Op), zero past H and O; else from device
+// memory. A part wholly past H adds nothing.
+template <bool RES, int NQ>
+__device__ __forceinline__ void layer2(float (&acc2)[RL][4 * NQ], const float* hs,
+                                       const float* w2s, const float* w2, const Geo& g, int h0,
+                                       int o0, int warp, int lane) {
+    const int kb = h0 + warp * KPL;
+    if (kb >= g.H) return;
+    const float* ha = hs + lane * HSP + warp * KPL;
+#pragma unroll
+    for (int k4 = 0; k4 < KPL; k4 += 4) {
+        float hv[RL][4];
+#pragma unroll
+        for (int r = 0; r < RL; ++r) {
+            const float4 v = *reinterpret_cast<const float4*>(ha + 32 * r * HSP + k4);
+            hv[r][0] = v.x, hv[r][1] = v.y, hv[r][2] = v.z, hv[r][3] = v.w;
+        }
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+            const int k = kb + k4 + kk;
+            float wv[4 * NQ];
+            if constexpr (RES) {
+#pragma unroll
+                for (int q = 0; q < NQ; ++q) {
+                    const float4 w =
+                        *reinterpret_cast<const float4*>(w2s + (size_t)k * g.Op + o0 + 4 * q);
+                    wv[4 * q] = w.x, wv[4 * q + 1] = w.y, wv[4 * q + 2] = w.z, wv[4 * q + 3] = w.w;
+                }
+            } else {
+#pragma unroll
+                for (int o = 0; o < 4 * NQ; ++o)
+                    wv[o] = k < g.H && o0 + o < g.O ? __ldg(w2 + (size_t)k * g.O + o0 + o) : 0.f;
+            }
+#pragma unroll
+            for (int r = 0; r < RL; ++r)
+#pragma unroll
+                for (int o = 0; o < 4 * NQ; ++o) acc2[r][o] = fmaf(hv[r][kk], wv[o], acc2[r][o]);
+        }
+    }
+}
+
+// One pass of the tile: outputs o0 .. o0 + 4 NQ - 1 of rows row0 .. row0
+// + rows - 1, every chunk's layer 1 and layer 2, then the parts added in
+// order, + b2, stored.
+template <typename Tin, bool RES, int NQ>
+__device__ __forceinline__ void tile_pass(float* xs, const Tin* x, float* w1s,
+                                          const float* w1, const float* b1v, const float* w2s,
+                                          const float* w2, const float* b2v, float* hs,
+                                          float* out, const Geo& g, int B, int row0, int rows,
+                                          int o0) {
+    const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16, warp = tid / 32, lane = tid % 32;
+    float acc2[RL][4 * NQ];
+#pragma unroll
+    for (int r = 0; r < RL; ++r)
+#pragma unroll
+        for (int o = 0; o < 4 * NQ; ++o) acc2[r][o] = 0.f;
+    for (int h0 = 0; h0 < g.Hc; h0 += HC) {
+        float acc[4 * RG][8];
+        layer1<Tin, RES>(acc, xs, x, row0, B, w1s, w1, g, h0, tid);
+        // every thread is done with the hidden tile: the last chunk's
+        // layer 2, or the last pass's partials
+        __syncthreads();
+        // + b1, relu
+#pragma unroll
+        for (int i = 0; i < 4 * RG; ++i)
+#pragma unroll
+            for (int half = 0; half < 2; ++half) {
+                const int c = half * 64 + tx * 4;
+                float v[4];
+#pragma unroll
+                for (int q = 0; q < 4; ++q) {
+                    const int h = h0 + c + q;
+                    float bias;
+                    if constexpr (RES) bias = b1v[h];
+                    else bias = h < g.H ? __ldg(b1v + h) : 0.f;
+                    v[q] = relu(acc[i][half * 4 + q] + bias);
+                }
+                *reinterpret_cast<float4*>(hs + row_of(i, ty) * HSP + c) =
+                    make_float4(v[0], v[1], v[2], v[3]);
+            }
+        __syncthreads();
+        layer2<RES, NQ>(acc2, hs, w2s, w2, g, h0, o0, warp, lane);
+    }
+    // every read of the hidden tile done: it takes the parts' partials,
+    // (KP, OC, PRS)
+    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < RL; ++r)
+#pragma unroll
+        for (int o = 0; o < 4 * NQ; ++o) hs[(warp * OC + o) * PRS + lane + 32 * r] = acc2[r][o];
+    __syncthreads();
+    const int on = min(4 * NQ, g.O - o0);
+    for (int i = tid; i < rows * on; i += THREADS) {
+        const int r = i / on, o = i - r * on;
+        float s = hs[o * PRS + r];
+#pragma unroll
+        for (int p = 1; p < KP; ++p) s += hs[(p * OC + o) * PRS + r];
+        float bias;
+        if constexpr (RES) bias = b2v[o0 + o];
+        else bias = __ldg(b2v + o0 + o);
+        out[(size_t)(row0 + r) * g.O + o0 + o] = s + bias;
+    }
+}
+
+template <typename Tin, bool RES>
+__global__ void __launch_bounds__(THREADS, MAX_PER_SM) mlp_head_f32_kernel(
+        const Tin* __restrict__ x, const float* __restrict__ w1, const float* __restrict__ b1,
+        const float* __restrict__ w2, const float* __restrict__ b2, float* __restrict__ out,
+        int B, int F, int H, int O) {
+    const Geo g(F, H, O);
+    // resident: hs | w1s | b1s | w2s | b2s | xs | ring; streamed: hs |
+    // w1s | xs, KS stages of W1 and x chunks each
+    extern __shared__ __align__(16) unsigned char smem[];
+    float* hs = reinterpret_cast<float*>(smem);
+    float* w1s = hs + HS_FLOATS;
+    float* b1s = w1s + (size_t)F * g.Hc;
+    float* w2s = b1s + g.Hc;
+    float* b2s = w2s + (size_t)g.Hc * g.Op;
+    float* xs = RES ? b2s + g.Op : w1s + KS * KC * HC;
+    unsigned char* ring = reinterpret_cast<unsigned char*>(xs + (size_t)F * XSP);
+    const int tid = threadIdx.x;
+    const int tiles = (B + TR - 1) / TR;
+    const size_t span = (size_t)TR * F * sizeof(Tin), RAW = raw_bytes(TR, F, sizeof(Tin));
+    const uintptr_t xbase = reinterpret_cast<uintptr_t>(x);
+    const uintptr_t xend = xbase + (size_t)B * F * sizeof(Tin);
+    if constexpr (RES) {
+        // the weights and biases by cp.async (in the first tile's commit
+        // group), the padding as zeros; W1 in 16-byte pieces where its
+        // rows allow
+        if (H % 4 == 0 && (reinterpret_cast<uintptr_t>(w1) & 15) == 0) {
+            const int q = g.Hc / 4;
+            for (int i = tid; i < F * q; i += THREADS) {
+                const int k = i / q, c = (i - k * q) * 4;
+                float* dst = w1s + (size_t)k * g.Hc + c;
+                if (c < H) cp_async16(dst, w1 + (size_t)k * H + c, 16);
+                else *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+            }
+        } else {
+            for (int i = tid; i < F * g.Hc; i += THREADS) {
+                const int k = i / g.Hc, c = i - k * g.Hc;
+                if (c < H) cp_async4(w1s + i, w1 + (size_t)k * H + c);
+                else w1s[i] = 0.f;
+            }
+        }
+        for (int i = tid; i < g.Hc * g.Op; i += THREADS) {
+            const int k = i / g.Op, o = i - k * g.Op;
+            if (k < H && o < O) cp_async4(w2s + i, w2 + (size_t)k * O + o);
+            else w2s[i] = 0.f;
+        }
+        for (int i = tid; i < g.Hc; i += THREADS) {
+            if (i < H) cp_async4(b1s + i, b1 + i);
+            else b1s[i] = 0.f;
+        }
+        for (int i = tid; i < g.Op; i += THREADS) {
+            if (i < O) cp_async4(b2s + i, b2 + i);
+            else b2s[i] = 0.f;
+        }
+        for (int s = 0; s < STAGES; ++s)
+            fetch_span(ring + s * RAW, xbase, xend, span, RAW, blockIdx.x + s * gridDim.x, tiles,
+                       tid, THREADS);
+    }
+    int slot = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int row0 = tile * TR, rows = min(TR, B - row0);
+        if constexpr (RES) {
+            // this tile's span has landed (and the weights), and every
+            // thread is done with the last tile's x
+            cp_async_wait<STAGES - 1>();
+            __syncthreads();
+            const Tin* src = reinterpret_cast<const Tin*>(ring + slot * RAW) +
+                             ((xbase + tile * span) & 15) / sizeof(Tin);
+            for (int i = tid; i < TR * F; i += THREADS) {
+                const int r = i % TR, k = i / TR;
+                xs[k * XSP + r] = r < rows ? load_x(src, (size_t)r * F + k) : 0.f;
+            }
+            // the k-major tile complete, and the slot free for the tile
+            // STAGES ahead
+            __syncthreads();
+            fetch_span(ring + slot * RAW, xbase, xend, span, RAW, tile + STAGES * gridDim.x,
+                       tiles, tid, THREADS);
+            slot = slot + 1 == STAGES ? 0 : slot + 1;
+        }
+        const float* b1v = RES ? b1s : b1;
+        const float* b2v = RES ? b2s : b2;
+        for (int o0 = 0; o0 < O; o0 += OC) {
+            switch (min(OC, g.Op - o0) / 4) {
+            case 4:
+                tile_pass<Tin, RES, 4>(xs, x, w1s, w1, b1v, w2s, w2, b2v, hs, out, g, B, row0,
+                                       rows, o0);
+                break;
+            case 3:
+                tile_pass<Tin, RES, 3>(xs, x, w1s, w1, b1v, w2s, w2, b2v, hs, out, g, B, row0,
+                                       rows, o0);
+                break;
+            case 2:
+                tile_pass<Tin, RES, 2>(xs, x, w1s, w1, b1v, w2s, w2, b2v, hs, out, g, B, row0,
+                                       rows, o0);
+                break;
+            default:
+                tile_pass<Tin, RES, 1>(xs, x, w1s, w1, b1v, w2s, w2, b2v, hs, out, g, B, row0,
+                                       rows, o0);
+            }
+        }
+    }
+    if constexpr (RES) cp_async_wait<0>();
+}
+
+template <typename Tin, bool RES>
+int launch(const void* x, const float* w1, const float* b1, const float* w2, const float* b2,
+           float* out, int B, int F, int H, int O, cudaStream_t stream) {
+    auto kernel = mlp_head_f32_kernel<Tin, RES>;
+    const size_t smem = smem_bytes(Geo(F, H, O), sizeof(Tin), RES);
     int blocks = 0;
-    cudaError_t err = persistent_grid(kernel, THREADS, smem, (B + ROWS - 1) / ROWS, 1 << 30,
-                                      &blocks);
+    cudaError_t err =
+        persistent_grid(kernel, THREADS, smem, (B + TR - 1) / TR, MAX_PER_SM, &blocks);
     if (err != cudaSuccess) return (int)err;
-    kernel<<<blocks, THREADS, smem, stream>>>(
-        static_cast<const Tin*>(x), w1, b1, w2, b2, out, B, F, H, O);
+    kernel<<<blocks, THREADS, smem, stream>>>(static_cast<const Tin*>(x), w1, b1, w2, b2, out, B,
+                                              F, H, O);
     return (int)cudaGetLastError();
 }
+
+template <typename Tin>
+int forward(const void* x, const float* w1, const float* b1, const float* w2, const float* b2,
+            float* out, int B, int F, int H, int O, cudaStream_t stream) {
+    if (config(F, H, O, sizeof(Tin)) == 0)
+        return launch<Tin, true>(x, w1, b1, w2, b2, out, B, F, H, O, stream);
+    return launch<Tin, false>(x, w1, b1, w2, b2, out, B, F, H, O, stream);
+}
+
+}  // namespace f32
 
 // ---------------------------------------------------------------- bf16
 
@@ -201,13 +598,6 @@ struct Geo {
         : F(F_), H(H_), O(O_), Fp((F_ + 15) / 16 * 16), Hp((H_ + 15) / 16 * 16),
           Op((O_ + 15) / 16 * 16), XS(Fp + 8), W1S(Hp + 8), W2S(Op + 8) {}
 };
-
-// one ring slot: a tile's span of x, plus the chunk that its unaligned
-// start may add and one that the re-layout's word reads may touch past
-// the span's end
-__host__ __device__ inline size_t raw_bytes(int rows, int F, int x_size) {
-    return (size_t)rows * F * x_size + 32;
-}
 
 // Shared memory of a block: the padded x tile, the ring, and where the
 // weights are resident, w1, w2, the biases and the output rows.
@@ -250,22 +640,6 @@ __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint3
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// 16 bytes from gmem, of which the first n are read and the rest zero
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int n) {
-    const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n)
-                 : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-    asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 __device__ __forceinline__ uint32_t pack2(float a, float b) {
     const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
     return *reinterpret_cast<const uint32_t*>(&v);
@@ -275,9 +649,6 @@ __device__ __forceinline__ uint32_t pack2(float a, float b) {
 __device__ __forceinline__ uint32_t bits(const float* p, int i) {
     return __bfloat16_as_ushort(__float2bfloat16_rn(p[i]));
 }
-
-// relu that keeps a NaN, as jax.nn.relu does
-__device__ __forceinline__ float relu(float v) { return v < 0.f ? 0.f : v; }
 
 // element (k, n) of a row-major (K, N) f32 array, 0 past its edges
 __device__ __forceinline__ float at(const float* w, int k, int n, int K, int N) {
@@ -291,12 +662,6 @@ struct Staged {
     bf16* dst;
     int K, N, S;
 };
-
-// 4 bytes from gmem into shared memory
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
-    const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem) : "memory");
-}
 
 // Round flat elements j0 .. j1 - 1 of m, landed at land[0 ..], into its
 // padded copy; (k, n) = divmod(j, N) advances by divmod(nt, N), with no
@@ -502,20 +867,8 @@ __global__ void __launch_bounds__(WARPS * 32) mlp_head_tc_kernel(
     const uintptr_t xbase = reinterpret_cast<uintptr_t>(x);
     const uintptr_t xend = xbase + (size_t)B * F * sizeof(Tin);
 
-    // tile's span into ring slot `slot`, from the 16-byte boundary at or
-    // below its start; bytes past the array's end are zero-filled. One
-    // commit group per call, empty past the last tile.
     auto fetch = [&](int tile, int slot) {
-        if (tile < tiles) {
-            const uintptr_t a = (xbase + tile * span) & ~(uintptr_t)15;
-            unsigned char* dst = ring + slot * RAW;
-            for (int c = tid; c < (int)(RAW / 16); c += NT) {
-                const uintptr_t src = a + 16 * (uintptr_t)c;
-                const int n = src >= xend ? 0 : (xend - src >= 16 ? 16 : (int)(xend - src));
-                cp_async16(dst + 16 * c, reinterpret_cast<const void*>(n ? src : a), n);
-            }
-        }
-        cp_async_commit();
+        fetch_span(ring + slot * RAW, xbase, xend, span, RAW, tile, tiles, tid, NT);
     };
 
     const Staged m1{w1, w1s, F, H, g.W1S};
@@ -651,7 +1004,8 @@ extern "C" {
 // x: (B, F) row-major, bfloat16 when x_bf16 else float32, any element
 // offset. w1: (F, H), b1: (H,), w2: (H, O), b2: (O,), all float32; out:
 // (B, O) float32. cdt_bf16 selects the compute dtype and with it the
-// kernel: bf16 on the tensor cores, f32 on FMA.
+// kernel: bf16 on the tensor cores, f32 on FMA; each takes the
+// configuration that its *_config function below gives.
 int mlp_head_forward(const void* x, int x_bf16, const float* w1,
                      const float* b1, const float* w2, const float* b2,
                      float* out, int B, int F, int H, int O, int cdt_bf16,
@@ -662,10 +1016,9 @@ int mlp_head_forward(const void* x, int x_bf16, const float* w1,
             return tc::forward<__nv_bfloat16>(x, w1, b1, w2, b2, out, B, F, H, O, stream);
         return tc::forward<float>(x, w1, b1, w2, b2, out, B, F, H, O, stream);
     }
-    if (smem_bytes(F, H, O) > (size_t)MAX_SMEM) return (int)cudaErrorInvalidValue;
     if (x_bf16)
-        return launch_fma<__nv_bfloat16>(x, w1, b1, w2, b2, out, B, F, H, O, stream);
-    return launch_fma<float>(x, w1, b1, w2, b2, out, B, F, H, O, stream);
+        return f32::forward<__nv_bfloat16>(x, w1, b1, w2, b2, out, B, F, H, O, stream);
+    return f32::forward<float>(x, w1, b1, w2, b2, out, B, F, H, O, stream);
 }
 
 // The configuration (index into tc::CONFIGS) that the bf16 kernel takes
@@ -674,6 +1027,14 @@ int mlp_head_forward(const void* x, int x_bf16, const float* w1,
 int mlp_head_tc_config(int F, int H, int O, int x_bf16) {
     if (F <= 0 || H <= 0 || O <= 0) return -1;
     return tc::config(F, H, O, x_bf16 ? 2 : 4);
+}
+
+// The configuration that the f32 kernel takes for (F, H, O) with x in
+// bf16 (x_bf16) or f32 (f32::config: 0 resident, 1 streamed), or -1 for
+// a shape no kernel takes.
+int mlp_head_f32_config(int F, int H, int O, int x_bf16) {
+    if (F <= 0 || H <= 0 || O <= 0) return -1;
+    return f32::config(F, H, O, x_bf16 ? 2 : 4);
 }
 
 const char* cuda_error_string(int err) {

@@ -31,8 +31,14 @@ projection rounded in its epilogue), a reverse loop with W_hh in shared
 memory, f32 activations and db from the rounded dgates, then dpre and the
 weight gradients as enc5's backward runs them. Both take enc5's reach in
 bf16: any encoder width D that is a multiple of 8 up to
-lstm_common.tc_max_input(H), up to tc_max_features() features. In f32
-both run on FMA, D == H.
+lstm_common.tc_max_input(H), up to tc_max_features() features. In f32,
+D == H, the forward runs on FMA, and the backward on csrc/lstm_f32.cuh
+(archive.design 'cluster'): in f32 the roundings are the identity, so it
+is enc5's f32 backward with lstm_scan_fused's two sums. The encoder
+SGEMM; x @ W_ih + b as one SGEMM (the bias in its epilogue) into the
+dgates scratch; the pre-pass h_prev @ W_hh from zero with that slab added
+before the activations; enc5's reverse loop on thread block clusters;
+dpre and the weight gradients as SGEMMs.
 """
 import torch
 
@@ -114,8 +120,9 @@ def _launch_forward(feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b, cdt,
 
 
 def _launch_backward(*args, phases=BACKWARD_PHASES):
-    """lstm_enc2_backward: on the tensor cores in bf16, on FMA in f32
-    (archive.launch_tc_backward)."""
+    """lstm_enc2_backward: on the tensor cores in bf16, on lstm_f32.cuh in
+    f32 (archive.launch_tc_backward); phases < 4 stops early, to time a
+    phase."""
     return launch_tc_backward('lstm_enc2_backward', *args, phases=phases)
 
 

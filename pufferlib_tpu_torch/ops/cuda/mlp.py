@@ -14,8 +14,14 @@ either. The x-gradient is zero by contract: observations are constants in
 RL training.
 
 The compute dtype picks the kernel: bf16 runs on the tensor cores, f32
-(the exact test mode) on FMA. mlp_shape_error copies the C side's limits,
-so that a shape the kernel refuses raises before any launch.
+(config.yaml's dtype and the exact test mode) on FMA, register-tiled as
+csrc/lstm_f32.cuh's SGEMMs. The bf16 kernel has configurations tried in
+order by shared memory (tc_config, a copy of the C side's
+mlp_head_tc_config); mlp_shape_error copies the C side's limits, so that
+a shape the kernel refuses raises before any launch. The f32 kernel
+refuses none: where its weights and x tiles do not fit in shared memory
+it reads them from device memory (the C side's mlp_head_f32_config says
+which configuration a shape takes).
 
 mlp_head_reference is the plain version. The wrapper runs it for tensors
 on the CPU, and chip_smoke.py holds the kernel against it on the card.
@@ -32,6 +38,7 @@ __all__ = ['mlp_head', 'mlp_head_reference', 'mlp_shape_error',
 KERNEL = CudaKernel('mlp_head.cu', {
     'mlp_head_forward': [P, I, P, P, P, P, P, I, I, I, I, I, P],
     'mlp_head_tc_config': [I, I, I, I],
+    'mlp_head_f32_config': [I, I, I, I],
 })
 
 _CDTS = (torch.float32, torch.bfloat16)
@@ -72,8 +79,10 @@ def tc_config(F, H, O, x_dtype=torch.bfloat16):
 
 
 def fma_smem(F, H, O):
-    """Shared memory of a block of the f32 kernel (mlp_head.cu smem_bytes):
-    the f32 weights and biases, a 32-row x tile and its hidden tile."""
+    """Shared memory of a block of the first f32 kernel, which held the
+    f32 weights and biases, a 32-row x tile and its hidden tile: its reach
+    was the (F, H, O) with fma_smem <= MAX_SMEM. The yardstick of every
+    later design's reach."""
     return 4 * (F * H + H * O + H + O + 32 * F + 32 * H)
 
 
@@ -90,10 +99,8 @@ def mlp_shape_error(F, H, O, cdt, x_dtype=None):
                 f'of shared memory a block; (F, H, O) = {(F, H, O)} with '
                 f'{x_dtype} x needs {need}')
         return None
-    if fma_smem(F, H, O) > MAX_SMEM:
-        return (f'the f32 MLP head kernel holds its weights in at most '
-            f'{MAX_SMEM} bytes of shared memory; (F, H, O) = {(F, H, O)} '
-            f'needs {fma_smem(F, H, O)}')
+    # f32: every shape (its streamed configuration holds only the hidden
+    # tile in shared memory)
     return None
 
 

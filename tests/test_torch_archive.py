@@ -31,6 +31,7 @@ import jax.numpy as jnp
 from jax.experimental.pallas import tpu as pltpu
 from pufferlib_tpu.ops.pallas import lstm as jax_lstm
 from pufferlib_tpu.ops.pallas import lstm_enc as jax_lstm_enc
+from pufferlib_tpu.ops.pallas.archive import lstm_enc2 as jax_lstm_enc2
 from pufferlib_tpu.ops.pallas.archive import lstm_tm as jax_lstm_tm
 
 from pufferlib_tpu_torch.ops.cuda import archive, lstm_enc, lstm_scan
@@ -396,3 +397,53 @@ def test_archive_kernel_is_built_and_counted_with_the_others():
         with pytest.raises(ValueError, match='kernel'):
             LSTMWrapper(Default((7, 7), spaces.Discrete(5), hidden_size=32),
                 obs_shape=(7, 7), input_size=32, hidden_size=32, kernel=kind)
+
+
+# every C function of the archive that launches a kernel, and the design it
+# runs in (bf16, f32): enc2's f32 backward on csrc/lstm_f32.cuh, every
+# other f32 function on FMA, every bf16 one on the tensor cores
+ARCHIVE_DESIGNS = {
+    'lstm_enc2_forward': ('tc', 'fma'),
+    'lstm_enc2_backward': ('tc', 'cluster'),
+    'lstm_enc3_backward': ('tc', 'fma'),
+    'lstm_enc4_backward': ('tc', 'fma'),
+    'lstm_enc6_backward': ('tc', 'fma'),
+    'lstm_tm_step_forward': ('tc', 'fma'),
+    'lstm_tm_step_backward': ('tc', 'fma'),
+}
+
+
+@pytest.mark.parametrize('fn', sorted(ARCHIVE_DESIGNS))
+def test_archive_design_table(fn):
+    assert archive.design(fn, torch.bfloat16) == ARCHIVE_DESIGNS[fn][0]
+    assert archive.design(fn, torch.float32) == ARCHIVE_DESIGNS[fn][1]
+    assert (fn in archive.F32_FUNCTIONS) == (ARCHIVE_DESIGNS[fn][1]
+        == 'cluster')
+
+
+def test_enc2_f32_backward_matches_jax_bwd():
+    """enc2's plain f32 backward (what its f32 kernel, enc5's backward with
+    two sums, is held to on the card) against the JAX custom_vjp's `_bwd`,
+    its Pallas kernel in interpret mode, on the same residuals (the JAX
+    forward's outs and cseq) and cotangents, at T 3, B 16, H = D 32, F 5:
+    the seven gradients within 1e-4 of max(1, max |reference|)."""
+    T, B, F, H = 3, 16, 5, 32
+    arrays = enc_inputs(21, T=T, B=B, F=F, D=H, H=H)
+    rng = np.random.RandomState(22)
+    cot = [(rng.randn(*s) * 0.5).astype(np.float32)
+        for s in ((T, B, H), (B, H), (B, H))]
+    with pltpu.force_tpu_interpret_mode():
+        (_, _, _), residuals = jax_lstm_enc2._fwd(
+            *(jnp.asarray(a) for a in arrays), jnp.float32)
+        want = jax_lstm_enc2._bwd(jnp.float32, residuals,
+            tuple(jnp.asarray(c) for c in cot))
+    outs, cseq = (torch.from_numpy(np.array(r)) for r in residuals[8:])
+    tensors = [torch.from_numpy(a) for a in arrays]
+    got = port_module('enc2').lstm_enc2_backward_reference(*tensors, outs,
+        cseq, *(torch.from_numpy(c) for c in cot), torch.float32)
+    # JAX returns the feats cotangent first (zero by contract); the port
+    # returns the seven others
+    assert len(want) == 8 and len(got) == len(ENC_GRADS)
+    for name, a, w in zip(ENC_GRADS, got, want[1:]):
+        assert tuple(a.shape) == tuple(w.shape), name
+        assert_close(a, w, 1e-4, True, f'enc2 {name}')

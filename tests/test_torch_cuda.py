@@ -212,6 +212,94 @@ def test_mlp_head_kernel_rejects_bad_inputs(cuda):
             torch.float32)
 
 
+# (B, F, H, O, x dtype, element offset of x): the f32 kernel at the
+# bench's two shapes, ragged batches (a last tile of 40 and 41 rows), the
+# CLI's f32 squared run (256 lanes, 4096-row minibatches; squared's 49
+# features, 8 actions + value), x and the weights read from device memory
+# (the streamed configuration: F = 300 and, with bf16 x, 185 just past
+# the resident one's limit; several hidden chunks and output passes at F
+# = 200, H = 256, O = 17), bf16 x, x at odd element offsets (a view
+# into a larger storage), and H = 130, whose W1 rows the resident
+# configuration stages 4 bytes at a time (16 where H % 4 == 0)
+MLP_F32_CASES = [
+    (8192, 49, 128, 9, torch.float32, 0),
+    (131072, 49, 128, 9, torch.float32, 0),
+    (1000, 49, 128, 9, torch.float32, 0),
+    (1001, 49, 128, 9, torch.float32, 0),
+    (256, 49, 128, 9, torch.float32, 0),
+    (4096, 49, 128, 9, torch.float32, 0),
+    (1000, 200, 256, 17, torch.float32, 0),
+    (1001, 200, 256, 17, torch.bfloat16, 0),
+    (77, 7, 20, 3, torch.float32, 0),
+    (1000, 49, 128, 9, torch.bfloat16, 0),
+    (1001, 49, 128, 9, torch.float32, 3),
+    (1001, 49, 128, 9, torch.bfloat16, 1),
+    (130, 1, 128, 11, torch.float32, 0),
+    (1000, 300, 128, 9, torch.float32, 0),
+    (1001, 185, 128, 9, torch.bfloat16, 3),
+    (1000, 49, 130, 9, torch.float32, 0),
+]
+
+
+@pytest.mark.parametrize('B,F,H,O,x_dtype,offset', MLP_F32_CASES)
+def test_mlp_head_f32_kernel_matches_plain(cuda, B, F, H, O, x_dtype,
+        offset):
+    """f32 compute: the register-tiled FMA kernel, one launch a call,
+    within 1e-4 of the plain version (the same f32 products, layer 2 summed
+    in eight fixed parts), and equal bit for bit across two runs; x read
+    in place at any offset."""
+    from pufferlib_tpu_torch.ops.cuda import mlp
+    rng = np.random.RandomState(B + F + H + O + offset)
+    x, ws = _mlp_case(rng, B, F, H, O, cuda)
+    flat = torch.zeros(offset + x.numel(), dtype=x_dtype, device=cuda)
+    flat[offset:] = x.reshape(-1).to(x_dtype)
+    x = flat[offset:].view(B, F)
+    before = mlp.KERNEL.launches
+    with torch.no_grad():
+        got = mlp.mlp_head(x, *ws, torch.float32)
+        again = mlp.mlp_head(x, *ws, torch.float32)
+        want = mlp.mlp_head_reference(x, *ws, torch.float32)
+    torch.cuda.synchronize()
+    assert mlp.KERNEL.launches == before + 2
+    assert got.shape == (B, O) and got.dtype == torch.float32
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize('offset', [1, 2])
+def test_mlp_head_f32_kernel_reads_w1_at_any_offset(cuda, offset):
+    """W1 a contiguous view that does not start on a 16-byte boundary:
+    the resident configuration stages it 4 bytes at a time; the same
+    numbers as an aligned copy, bit for bit."""
+    from pufferlib_tpu_torch.ops.cuda import mlp
+    rng = np.random.RandomState(offset)
+    x, (w1, b1, w2, b2) = _mlp_case(rng, 1000, 49, 128, 9, cuda)
+    flat = torch.zeros(offset + w1.numel(), device=cuda)
+    flat[offset:] = w1.reshape(-1)
+    w1_view = flat[offset:].view(49, 128)
+    with torch.no_grad():
+        got = mlp.mlp_head(x, w1_view, b1, w2, b2, torch.float32)
+        want = mlp.mlp_head(x, w1, b1, w2, b2, torch.float32)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_mlp_head_f32_config_is_the_kernels(cuda):
+    """The C side's choice of configuration: resident (0) at the
+    trainer's head and up to the resident configuration's limit at H 128
+    (F 148 with f32 x, 184 with bf16 x), streamed (1) past it and at
+    wider heads; -1 for a shape no kernel takes."""
+    from pufferlib_tpu_torch.ops.cuda import mlp
+    lib = mlp.KERNEL.lib()
+    for F, H, O, x_bf16, config in ((49, 128, 9, 0, 0), (49, 128, 9, 1, 0),
+            (148, 128, 9, 0, 0), (149, 128, 9, 0, 1), (184, 128, 9, 1, 0),
+            (185, 128, 9, 1, 1), (300, 128, 9, 0, 1), (200, 256, 17, 0, 1),
+            (4000, 4000, 4000, 0, 1)):
+        assert lib.mlp_head_f32_config(F, H, O, x_bf16) == config, (F, H,
+            O, x_bf16)
+    assert lib.mlp_head_f32_config(0, 128, 9, 0) == -1
+
+
 LSTM_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 
 
@@ -829,13 +917,14 @@ def test_enc5_f32_repeats_bit_for_bit(cuda, T, B, H, F):
 
 def _check_f32_guards(cuda, monkeypatch, kind, T, B, H, F=49):
     """Every input, output and scratch buffer of one f32 forward and
-    backward call of the resident pair `kind` (enc5, cat, fused: the
-    launchers of lstm_enc, lstm_cat, lstm_scan, their scratch through
-    lstm_common) sits between guards; after both calls no guard has
-    changed, and the results still match the plain versions within
-    LSTM_TOL."""
+    backward call of the resident pair `kind` (enc5, cat, fused, the
+    archived enc2: the launchers of lstm_enc, lstm_cat, lstm_scan and the
+    archive, their scratch through lstm_common) sits between guards; after
+    both calls no guard has changed, and the results still match the
+    plain versions within LSTM_TOL."""
     from pufferlib_tpu_torch.ops.cuda import (
-        lstm_cat, lstm_common, lstm_enc, lstm_scan)
+        archive, lstm_cat, lstm_common, lstm_enc, lstm_scan)
+    from pufferlib_tpu_torch.ops.cuda.archive import lstm_enc2
     fwd, bwd, fwd_plain, bwd_plain, _ = _lstm_kinds()[kind]
     cdt = torch.float32
     guarded = _GuardedTorch()
@@ -848,7 +937,8 @@ def _check_f32_guards(cuda, monkeypatch, kind, T, B, H, F=49):
         want = fwd_plain(*args, cdt)
         bargs = (*args, want[0], want[3], *g, cdt)
         want += bwd_plain(*bargs)
-        for module in (lstm_common, lstm_enc, lstm_cat, lstm_scan):
+        for module in (lstm_common, lstm_enc, lstm_cat, lstm_scan, archive,
+                lstm_enc2):
             monkeypatch.setattr(module, 'torch', guarded)
         inputs = len(guarded.buffers)
         got = fwd(*args, cdt)
@@ -1124,12 +1214,14 @@ def test_enc6_bf16_gradients_are_enc5s(cuda, H, B):
 @pytest.mark.parametrize('kind', ARCHIVED_TC)
 def test_archived_bf16_backwards_run_the_tensor_core_path(cuda, kind):
     """In bf16 the C function runs lstm_tc.cuh's path, which needs its
-    scratch (the P slab, the bf16 weights): handed none, it refuses. The
-    FMA kernel, which f32 runs, takes only the whole backward (phases =
-    4) and reads no bf16 weights; enc2's and enc4's read no slab either,
-    enc3's and enc6's their activations slab in the P slab's place, and
-    refuse without it. The launcher's phases 1 .. 3 stop the bf16 path
-    early without an error."""
+    scratch (the P slab, the bf16 weights): handed none, it refuses. In
+    f32 enc2's runs lstm_f32.cuh (archive.design 'cluster'), which needs
+    its work slab in the P slab's place, refuses without it, and takes the
+    phases; the FMA kernel, which the others run in f32, takes only the
+    whole backward (phases = 4) and reads no bf16 weights; enc4's reads no
+    slab either, enc3's and enc6's their activations slab in the P slab's
+    place, and refuse without it. The launcher's phases 1 .. 3 stop the
+    bf16 path early without an error."""
     from pufferlib_tpu_torch.ops.cuda import archive
     fwd, bwd = _lstm_kinds()[kind][:2]
     fn = f'lstm_{kind}_backward'
@@ -1157,9 +1249,11 @@ def test_archived_bf16_backwards_run_the_tensor_core_path(cuda, kind):
                     a[25] = a[26] = None
                     return f(*a)
                 return call
+        cluster = archive.design(fn, cdt) == 'cluster'
+        needs_slab = cdt == torch.bfloat16 or kind in ACTS_SLAB or cluster
         archive.KERNEL._lib = NoScratch()
         try:
-            if cdt == torch.bfloat16 or kind in ACTS_SLAB:
+            if needs_slab:
                 with pytest.raises(RuntimeError):
                     bwd(*args, outs, cseq, *g, cdt)
             else:
@@ -1168,9 +1262,12 @@ def test_archived_bf16_backwards_run_the_tensor_core_path(cuda, kind):
             archive.KERNEL._lib = real
         if cdt == torch.float32:
             bwd(*args, outs, cseq, *g, cdt)
-            with pytest.raises(RuntimeError):
+            if cluster:
                 bwd(*args, outs, cseq, *g, cdt, phases=2)
-        assert seen[0] == (cdt == torch.bfloat16 or kind in ACTS_SLAB)
+            else:
+                with pytest.raises(RuntimeError):
+                    bwd(*args, outs, cseq, *g, cdt, phases=2)
+        assert seen[0] == needs_slab
     args = _lstm_case(kind, T, B, H, F, torch.bfloat16, cuda)
     with torch.no_grad():
         outs, _, _, cseq = fwd(*args, torch.bfloat16)
@@ -1178,6 +1275,19 @@ def test_archived_bf16_backwards_run_the_tensor_core_path(cuda, kind):
             bwd(*args, outs, cseq, *(torch.zeros_like(t) for t in (outs,
                 args[1], args[2])), torch.bfloat16, phases=phases)
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize('B', [8192, 1000])
+def test_enc2_f32_backward_on_the_cluster_design(cuda, monkeypatch, B):
+    """The archived enc2's f32 backward runs csrc/lstm_f32.cuh (enc5's f32
+    backward with lstm_scan_fused's two sums; its projection slab held in
+    the dgates scratch until the loop writes over it): at the bench's
+    batch and a ragged one, within LSTM_TOL of the plain version with
+    every buffer between guards, and five runs equal bit for bit."""
+    from pufferlib_tpu_torch.ops.cuda import archive
+    assert archive.design('lstm_enc2_backward', torch.float32) == 'cluster'
+    _check_f32_guards(cuda, monkeypatch, 'enc2', 16, B, 128)
+    _check_deterministic(cuda, 'enc2', 16, B, 128, cdt=torch.float32, runs=5)
 
 
 @pytest.mark.parametrize('kind', ARCHIVED_TC)

@@ -24,8 +24,8 @@ from jax.experimental.pallas import tpu as pltpu
 from pufferlib_tpu.ops.pallas.mlp import mlp_head_fwd, mlp_head_reference
 
 from pufferlib_tpu_torch.ops.cuda.mlp import (
-    TC_CONFIGS, fma_smem, mlp_head, mlp_head_reference as torch_reference,
-    mlp_shape_error, tc_config)
+    MAX_SMEM, TC_CONFIGS, fma_smem, mlp_head,
+    mlp_head_reference as torch_reference, mlp_shape_error, tc_config)
 
 torch.set_num_threads(1)
 
@@ -200,9 +200,10 @@ def test_bf16_kernel_serves_every_shape_the_fma_kernel_served(x_dtype):
     # past the last configuration
     (4000, 16, 1, torch.bfloat16, torch.bfloat16, None, 'shared memory'),
     (2500, 16, 1, torch.bfloat16, torch.float32, None, 'shared memory'),
-    # f32 compute keeps the FMA kernel and its limit
+    # f32 compute: the FMA kernel, whose streamed configuration serves
+    # every shape
     (49, 128, 9, torch.float32, torch.float32, None, None),
-    (200, 512, 17, torch.float32, torch.float32, None, 'f32 MLP head'),
+    (200, 512, 17, torch.float32, torch.float32, None, None),
     (1, 1, 0, torch.bfloat16, torch.bfloat16, None, 'F, H, O >= 1'),
 ])
 def test_mlp_shape_error_table(F, H, O, cdt, x_dtype, config, error):
@@ -214,3 +215,25 @@ def test_mlp_shape_error_table(F, H, O, cdt, x_dtype, config, error):
     if cdt == torch.bfloat16 and O >= 1:
         assert tc_config(F, H, O, x_dtype) == config
         assert config is None or 0 <= config < len(TC_CONFIGS)
+
+
+@pytest.mark.parametrize('x_dtype', [torch.bfloat16, torch.float32])
+def test_f32_kernel_serves_every_shape_the_fma_kernel_served(x_dtype):
+    """The register-tiled f32 kernel took over from the first FMA kernel,
+    whose limit (fma_smem, its weights in f32 shared memory) was the only
+    one: every (F, H, O) within it is still served, for x in either dtype
+    (the weights resident where they and the x tiles fit, else read from
+    device memory). The largest O per (F, H) is the one to check: shared
+    memory grows with O."""
+    checked = 0
+    for F in range(1, 1900, 19):
+        for H in range(1, 1900, 23):
+            O = (MAX_SMEM // 4 - F * H - H - 32 * F - 32 * H) // (H + 1)
+            if O < 1:
+                continue
+            assert fma_smem(F, H, O) <= MAX_SMEM < fma_smem(F, H, O + 1)
+            for o in (1, O):
+                assert mlp_shape_error(F, H, o, torch.float32,
+                    x_dtype) is None, (F, H, o)
+            checked += 1
+    assert checked > 300

@@ -25,7 +25,8 @@ backward and enc2's forward before theirs, tm before its) has no phases
 of it: its whole call is timed alone. In float32 it also times enc5 at
 memory's shape (config.yaml's memory section: T 8, B 512, F 1) and at
 T 16, B 1000, enc5's streamed pair (lstm_enc_stream_*, called directly)
-at T 16 with B 8192 and 1000, and cat and fused at T 16, B 1000; cat's
+at T 16 with B 8192 and 1000, and cat, fused and the archived enc2 at T
+16, B 1000; cat's
 and fused's readings carry cuDNN's f32 nn.LSTM beside them. Each turn
 also prints, for each
 kind and dtype, the SHA-256 of every output and gradient of one forward
@@ -54,7 +55,8 @@ F32_EXTRA = (('enc5 memory', 'enc5', 8, 512, 1),
     ('enc5_stream', 'enc5_stream', 16, 8192, 49),
     ('enc5_stream B=1000', 'enc5_stream', 16, 1000, 49),
     ('cat B=1000', 'cat', 16, 1000, 49),
-    ('fused B=1000', 'fused', 16, 1000, 49))
+    ('fused B=1000', 'fused', 16, 1000, 49),
+    ('enc2 B=1000', 'enc2', 16, 1000, 49))
 
 # run inside a tree: its own chip_smoke, its own kernels
 CHILD = r'''
