@@ -67,10 +67,12 @@ pair (the same design with fused's two sums: the bias in the projection
 SGEMM's epilogue, the recurrent sum from zero with the slab added after
 it) the same way as cat's, and driven through its entry point by the
 kernel lab in f32 (tools/kernel_lab_torch.py --dtype float32 fused
-fused-fwd enc2) within the validation path's phase; the archived enc2's
-f32 backward (the same design with fused's two sums behind enc5's
-encoder) timed at both batches, twice bit-equal, and launched by that
-f32 lab run.
+fused-fwd enc2 enc4 enc6) within the validation path's phase; the
+archived enc2's f32 backward (the same design with fused's two sums
+behind enc5's encoder) and the archived enc4's and enc6's (enc5's f32
+backward itself, their function in f32) timed at both batches, twice
+bit-equal, and launched by that f32 lab run; enc4's and enc6's f32
+gradients must equal enc5's bit for bit, as enc6's bf16 ones must.
 
 The Ocean phase: the MLP head is also held to its plain version at the
 Ocean envs' shapes (F = 1, 5 and 30 features; O = 3, 5 and 11 outputs;
@@ -891,25 +893,28 @@ def time_tm_launches(torch, flush, rng, T=16, B=8192, H=128):
     return out
 
 
-def check_enc6_is_enc5(torch, rng, B, T=16, F=49, H=128):
-    """The archived enc6 and enc5 in bf16 on the same inputs: enc6's
-    backward is enc5's tensor-core backward (mode ENC6 runs ENC5's
-    reverse loop), so every output and gradient must be equal bit for
-    bit."""
+def check_enc6_is_enc5(torch, rng, B, dtype_name='bfloat16', kind='enc6',
+        T=16, F=49, H=128):
+    """The archived `kind` and enc5 in dtype_name on the same inputs:
+    enc6's backward is enc5's tensor-core backward in bf16 (mode ENC6 runs
+    ENC5's reverse loop), and in f32, where their roundings are the
+    identity, enc6's and enc4's backward is enc5's f32 backward
+    (csrc/lstm_f32.cuh), so every output and gradient must be equal bit
+    for bit."""
     kinds = lstm_kinds()
-    args, grads, cdt = lstm_case(torch, rng, 'enc6', T, B, 'bfloat16', F=F,
+    args, grads, cdt = lstm_case(torch, rng, kind, T, B, dtype_name, F=F,
         H=H)
     runs = []
     with torch.no_grad():
-        for kind in ('enc5', 'enc6'):
-            fwd, bwd = kinds[kind][:2]
+        for k in ('enc5', kind):
+            fwd, bwd = kinds[k][:2]
             outs, hT, cT, cseq = fwd(*args, cdt)
             runs.append((outs, hT, cT, cseq) + bwd(*args, outs, cseq,
                 *grads, cdt))
     torch.cuda.synchronize()
     names = LSTM_OUTS + ENC_GRADS
     unequal = [n for n, a, w in zip(names, *runs) if not torch.equal(a, w)]
-    what = f'enc6 against enc5, bf16 T={T} B={B} H={H} F={F}'
+    what = f'{kind} against enc5, {dtype_name} T={T} B={B} H={H} F={F}'
     if unequal:
         raise AssertionError(f'{what}: they differ in {unequal}')
     log(f'{what}: equal bit for bit in {len(names)} outputs and gradients')
@@ -2058,8 +2063,8 @@ def main():
     # f32 nn.LSTM
     lstm_runs = {(kind, B, d): check_lstm(torch, flush, rng, kind, B, d,
             timed=(B, d) == (8192, 'bfloat16') or (kind in ('cat', 'fused',
-                'enc2') and d == 'float32') or (kind, B, d) == ('enc5', 8192,
-                'float32'))
+                'enc2', 'enc4', 'enc6') and d == 'float32')
+                or (kind, B, d) == ('enc5', 8192, 'float32'))
         for kind in ('enc5', 'cat', 'scan', 'fused', 'enc')
             + ARCHIVED_ENC_KINDS + ('tm',)
         for B in (8192, 1000) for d in ('bfloat16', 'float32')}
@@ -2103,7 +2108,7 @@ def main():
     check_bit_equal(torch, rng, 'enc5', 8192)
     check_bit_equal(torch, rng, 'enc5', 8192, dtype_name='float32')
     for B in (8192, 1000):
-        for kind in ('cat', 'fused', 'enc2'):
+        for kind in ('cat', 'fused', 'enc2', 'enc4', 'enc6'):
             check_bit_equal(torch, rng, kind, B, dtype_name='float32')
     check_bit_equal(torch, rng, 'enc5', mb // bptt, T=bptt, F=1,
         dtype_name='float32')
@@ -2124,14 +2129,20 @@ def main():
     # sources it cannot copy) repeats bit for bit too
     for kind in ('scan', 'fused', 'cat', 'enc', 'tm') + ARCHIVED_ENC_KINDS:
         check_bit_equal(torch, rng, kind, 8192)
-    check_enc6_is_enc5(torch, rng, 8192)
+    # enc6 in both dtypes and enc4 in f32 (their f32 backward is enc5's)
+    # against enc5, at the main shape and at a ragged batch of hidden 64
+    enc5_twins = (('bfloat16', 'enc6'), ('float32', 'enc6'),
+        ('float32', 'enc4'))
+    for d, kind in enc5_twins:
+        check_enc6_is_enc5(torch, rng, 8192, d, kind)
     # the archived tm's bf16 kernels are lstm_scan's one step a launch;
     # then what one launch a step costs against lstm_scan's one a call
     for B in (8192, 1000):
         for xp_dtype_name in ('bfloat16', 'float32'):
             check_tm_is_scan(torch, rng, B, xp_dtype_name)
     tm_launches = time_tm_launches(torch, flush, rng)
-    check_enc6_is_enc5(torch, rng, 980, H=64)
+    for d, kind in enc5_twins:
+        check_enc6_is_enc5(torch, rng, 980, d, kind, H=64)
     for kind in ('enc',) + ARCHIVED_ENC_KINDS:
         check_bit_equal(torch, rng, kind, 1000)
     # cat's streamed design at the Atari update's shape and the others
@@ -2439,22 +2450,25 @@ def main():
             phases={k: v for k, v in fused_f32_phases.items()
                 if k.startswith(fn)}))
     # the archived enc2's f32 backward (csrc/lstm_f32.cuh: enc5's with
-    # fused's two sums), which the kernel lab launches in f32 (phase 10),
-    # at the main shape and at B 1000
-    enc2_f32 = lstm_runs['enc2', 8192, 'float32']
-    enc2_f32_1000 = lstm_runs['enc2', 1000, 'float32']
-    kernels.append(dict(name='lstm_enc2_backward_f32', route='cuda',
-        source='pufferlib_tpu_torch/csrc/lstm_f32.cuh',
-        replaces='pufferlib_tpu/ops/pallas/archive/lstm_enc2.py:273',
-        launches=lab_f32_launches['lstm_enc2_backward'],
-        max_abs_err=max(r['bwd_err'] for (k, _, d), r in lstm_runs.items()
-            if k == 'enc2' and d.startswith('float32')),
-        ms=enc2_f32['bwd_ms'], plain_ms=enc2_f32['bwd_plain_ms'],
-        bound_ms=enc2_f32['bwd_bound'], bound_by=enc2_f32['bwd_by'],
-        library_ms=enc2_f32['bwd_lib'], shape=enc2_f32['shape'],
-        ms_1000=enc2_f32_1000['bwd_ms'],
-        plain_ms_1000=enc2_f32_1000['bwd_plain_ms'],
-        bound_ms_1000=enc2_f32_1000['bwd_bound']))
+    # fused's two sums) and enc4's and enc6's (enc5's own f32 backward),
+    # which the kernel lab launches in f32 (phase 10), at the main shape
+    # and at B 1000
+    for kind, replaces in (('enc2', 'lstm_enc2.py:273'),
+            ('enc4', 'lstm_enc4.py:142'), ('enc6', 'lstm_enc6.py:161')):
+        main_f32 = lstm_runs[kind, 8192, 'float32']
+        f32_1000 = lstm_runs[kind, 1000, 'float32']
+        kernels.append(dict(name=f'lstm_{kind}_backward_f32', route='cuda',
+            source='pufferlib_tpu_torch/csrc/lstm_f32.cuh',
+            replaces=f'pufferlib_tpu/ops/pallas/archive/{replaces}',
+            launches=lab_f32_launches[f'lstm_{kind}_backward'],
+            max_abs_err=max(r['bwd_err'] for (k, _, d), r in
+                lstm_runs.items() if k == kind and d.startswith('float32')),
+            ms=main_f32['bwd_ms'], plain_ms=main_f32['bwd_plain_ms'],
+            bound_ms=main_f32['bwd_bound'], bound_by=main_f32['bwd_by'],
+            library_ms=main_f32['bwd_lib'], shape=main_f32['shape'],
+            ms_1000=f32_1000['bwd_ms'],
+            plain_ms_1000=f32_1000['bwd_plain_ms'],
+            bound_ms_1000=f32_1000['bwd_bound']))
     rows = {row['name']: row for row in kernels}
     # enc5's launches in demo_torch's memory run (phase 17, f32)
     for part in ('forward', 'backward'):
@@ -3007,7 +3021,7 @@ LAB_VARIANTS = ('fused', 'fused-fwd', 'xp', 'cat', 'enc', 'enc5', 'enc2',
 
 
 # the lab's variants in its f32 run
-LAB_F32_VARIANTS = ('fused', 'fused-fwd', 'enc2')
+LAB_F32_VARIANTS = ('fused', 'fused-fwd', 'enc2', 'enc4', 'enc6')
 
 
 def run_validation_path(torch):
@@ -3018,11 +3032,12 @@ def run_validation_path(torch):
     1024-lane recurrent trainer through the enc5 kernels, which must reach
     score 0.9) and tools/kernel_lab_torch.main over every variant, which
     is the path that launches the archived kernels. Returns the launches
-    by C function, and those of the lab's fused and enc2 variants in f32
-    (kernel_lab_torch.main(LAB_F32_VARIANTS, dtype='float32'), with every
-    count set to 0 again just before: the path that launches
-    lstm_scan_fused's f32 pair and the archived enc2's f32 backward,
-    csrc/lstm_f32.cuh, beside enc2's FMA forward)."""
+    by C function, and those of the lab's fused, enc2, enc4 and enc6
+    variants in f32 (kernel_lab_torch.main(LAB_F32_VARIANTS,
+    dtype='float32'), with every count set to 0 again just before: the
+    path that launches lstm_scan_fused's f32 pair and the archived enc2's,
+    enc4's and enc6's f32 backwards, csrc/lstm_f32.cuh, beside enc2's FMA
+    forward and enc5's f32 one, enc4's and enc6's)."""
     from pufferlib_tpu_torch.ops.cuda import KERNELS
     validate = load_tool('validate_lstm_torch')
     lab = load_tool('kernel_lab_torch')
@@ -3063,11 +3078,12 @@ def run_validation_path(torch):
     f32_launches = {fn: n for k in KERNELS for fn, n in k.fn_launches.items()
         if n}
     if set(f32_launches) != {'lstm_fused_forward', 'lstm_fused_backward',
-            'lstm_enc2_forward', 'lstm_enc2_backward'}:
+            'lstm_enc2_forward', 'lstm_enc2_backward', 'lstm_enc_forward',
+            'lstm_enc4_backward', 'lstm_enc6_backward'}:
         raise AssertionError(f'the lab in f32: launches {f32_launches}')
-    log(f'the lab in f32: lstm_scan_fused and the archived enc2 '
-        f'{json.dumps({" ".join(k): v for k, v in f32_ms.items()})} ms; '
-        f'launches {json.dumps(f32_launches)}')
+    log(f'the lab in f32: lstm_scan_fused and the archived enc2, enc4 and '
+        f'enc6 {json.dumps({" ".join(k): v for k, v in f32_ms.items()})} '
+        f'ms; launches {json.dumps(f32_launches)}')
     return launches, f32_launches
 
 

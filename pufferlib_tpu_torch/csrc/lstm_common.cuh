@@ -29,9 +29,10 @@
 //   again streaming the weights in chunks. dgates go to a (T*B, 4H) slab
 //   in the compute dtype; db (and, with ENC, db_enc) are summed per block.
 //   Its pieces (gate_sums, dgates_chain, cols_gemm, store_bias_partials)
-//   also serve the archived schedules of csrc/lstm_archive.cu. Both cell
-//   kernels walk a range of steps, so that a launch per timestep (the
-//   time-major variant) is the same kernel over one step.
+//   also serve the archived enc3's f32 backward (csrc/lstm_archive.cu),
+//   the one archived schedule left on FMA. Both cell kernels walk a range
+//   of steps, so that a launch per timestep (the time-major variant) is
+//   the same kernel over one step.
 // * the split-K (splitk) + reduce_partials: the weight gradients
 //   dW = [x | h_prev]^T dgates (and dW_enc = feats^T dpre) are
 //   contractions over K = T*B rows. The TPU kernels add them into one
@@ -107,7 +108,9 @@ enum Mode {
             // its own dtype S (lstm._fwd_kernel, _bwd_kernel)
     FUSED,  // gates = (x_t @ W_ih + b) + h @ W_hh: two f32 sums, then added
             // (lstm._fwd_fused_kernel, _bwd_fused_kernel)
-    // The archived variants (csrc/lstm_archive.cu), all behind the encoder:
+    // The archived variants (csrc/lstm_archive.cu), all behind the encoder;
+    // on FMA ENC2's forward and ENC3's backward, the others in bf16 only
+    // (csrc/lstm_tc.cuh):
     ENC2,   // FUSED whose first sum passes through the compute dtype before
             // the recurrent one is added; backward with f32 activations and
             // db from the rounded dgates (archive/lstm_enc2)
@@ -335,7 +338,7 @@ __device__ __forceinline__ void load_x_proj(float (&pre)[4][Tile<H>::RPT], const
 }
 
 // The gate pre-activations of one step, into acc, from the operand
-// [x_t | h] in op_s. ENC, ENC3-6: one sum over K = D + H, plus b. ENC2:
+// [x_t | h] in op_s. ENC, ENC3: one sum over K = D + H, plus b. ENC2:
 // (x_t @ W_ih + b), rounded to the compute dtype, + h @ W_hh. XP: pre
 // (x_proj_t, loaded by the caller) + h @ W_hh.
 template <int H, typename E, int MODE, bool PREFETCH>
@@ -366,27 +369,22 @@ __device__ __forceinline__ void gate_sums(float (&acc)[4][Tile<H>::RPT],
     }
 }
 
-// ax[s][i] = sum_k dg_s[k][r0 + i] * W_ih[j][k] and ah[s][i] the same with
-// W_hh, for the NH row tiles dg_s = dg_all + s * G * BT (each (G, BT),
-// already rounded): [dx | dh_prev] = dgates @ [W_ih; W_hh]^T for rows
-// N0 .. N1 of the weights, whose columns are streamed through w_s, each
-// staged chunk serving every tile. A range without W_ih leaves ax at zero,
-// one without W_hh ah. Every thread of the block must call it; it ends
-// with a barrier.
-template <int H, typename E, int N0, int N1, int NH>
-__device__ __forceinline__ void cols_gemm(float (&ax)[NH][Tile<H>::RPT],
-                                          float (&ah)[NH][Tile<H>::RPT],
-                                          const float* dg_all, float* w_s,
-                                          const float* w_ih, const float* w_hh,
-                                          int r0, int j) {
+// ax[i] = sum_k dg[k][r0 + i] * W_ih[j][k] and ah[i] the same with W_hh,
+// dg (G, BT) of shared memory, already rounded: [dx | dh_prev] = dgates @
+// [W_ih; W_hh]^T for rows N0 .. N1 of the weights, whose columns are
+// streamed through w_s. A range without W_ih leaves ax at zero, one
+// without W_hh ah. Every thread of the block must call it; it ends with a
+// barrier.
+template <int H, typename E, int N0, int N1>
+__device__ __forceinline__ void cols_gemm(float (&ax)[Tile<H>::RPT], float (&ah)[Tile<H>::RPT],
+                                          const float* dg, float* w_s, const float* w_ih,
+                                          const float* w_hh, int r0, int j) {
     constexpr int D = Tile<H>::D, G = Tile<H>::G, RPT = Tile<H>::RPT;
     constexpr bool XH = N0 < D, HH = N1 > D;
     using CC = ColChunk<H, N0, N1>;
     constexpr int KS = CC::KS;
 #pragma unroll
-    for (int s = 0; s < NH; ++s)
-#pragma unroll
-        for (int i = 0; i < RPT; ++i) ax[s][i] = ah[s][i] = 0.f;
+    for (int i = 0; i < RPT; ++i) ax[i] = ah[i] = 0.f;
     float4 next[CC::LOADS];
     fetch_cols<H, N0, N1>(next, w_ih, w_hh, 0);
     for (int k0 = 0; k0 < G; k0 += KC) {
@@ -397,25 +395,21 @@ __device__ __forceinline__ void cols_gemm(float (&ax)[NH][Tile<H>::RPT],
         for (int kk = 0; kk < KC; ++kk) {
             const float wx = XH ? w_s[kk * KS + j] : 0.f;
             const float wh = HH ? w_s[kk * KS + D + j] : 0.f;
+            const float4* dv = reinterpret_cast<const float4*>(dg + (k0 + kk) * BT + r0);
 #pragma unroll
-            for (int s = 0; s < NH; ++s) {
-                const float4* dv = reinterpret_cast<const float4*>(
-                    dg_all + s * G * BT + (k0 + kk) * BT + r0);
-#pragma unroll
-                for (int q = 0; q < RPT / 4; ++q) {
-                    const float4 v = dv[q];
-                    if constexpr (XH) {
-                        ax[s][4 * q] = fmaf(v.x, wx, ax[s][4 * q]);
-                        ax[s][4 * q + 1] = fmaf(v.y, wx, ax[s][4 * q + 1]);
-                        ax[s][4 * q + 2] = fmaf(v.z, wx, ax[s][4 * q + 2]);
-                        ax[s][4 * q + 3] = fmaf(v.w, wx, ax[s][4 * q + 3]);
-                    }
-                    if constexpr (HH) {
-                        ah[s][4 * q] = fmaf(v.x, wh, ah[s][4 * q]);
-                        ah[s][4 * q + 1] = fmaf(v.y, wh, ah[s][4 * q + 1]);
-                        ah[s][4 * q + 2] = fmaf(v.z, wh, ah[s][4 * q + 2]);
-                        ah[s][4 * q + 3] = fmaf(v.w, wh, ah[s][4 * q + 3]);
-                    }
+            for (int q = 0; q < RPT / 4; ++q) {
+                const float4 v = dv[q];
+                if constexpr (XH) {
+                    ax[4 * q] = fmaf(v.x, wx, ax[4 * q]);
+                    ax[4 * q + 1] = fmaf(v.y, wx, ax[4 * q + 1]);
+                    ax[4 * q + 2] = fmaf(v.z, wx, ax[4 * q + 2]);
+                    ax[4 * q + 3] = fmaf(v.w, wx, ax[4 * q + 3]);
+                }
+                if constexpr (HH) {
+                    ah[4 * q] = fmaf(v.x, wh, ah[4 * q]);
+                    ah[4 * q + 1] = fmaf(v.y, wh, ah[4 * q + 1]);
+                    ah[4 * q + 2] = fmaf(v.z, wh, ah[4 * q + 2]);
+                    ah[4 * q + 3] = fmaf(v.w, wh, ah[4 * q + 3]);
                 }
             }
         }
@@ -688,16 +682,16 @@ __global__ void __launch_bounds__(NT) cell_backward(
 
         // [dx | dh_prev] = dgates @ [W_ih; W_hh]^T (XP: dh_prev alone),
         // streaming columns
-        float ax[1][RPT], ah[1][RPT];
-        cols_gemm<H, E, MODE == XP ? D : 0, K, 1>(ax, ah, buf, w_s, w_ih, w_hh, r0, j);
+        float ax[RPT], ah[RPT];
+        cols_gemm<H, E, MODE == XP ? D : 0, K>(ax, ah, buf, w_s, w_ih, w_hh, r0, j);
 #pragma unroll
         for (int i = 0; i < RPT; ++i) {
             const int r = r0 + i;
-            dh[i] = ah[0][i];
+            dh[i] = ah[i];
             if (r >= nrows) continue;
             const size_t idx = (base + r) * D + j;
             if constexpr (ENCODER) {
-                const float p = to_cdt<E>(x[i] > 0.f ? ax[0][i] : 0.f);
+                const float p = to_cdt<E>(x[i] > 0.f ? ax[i] : 0.f);
                 st(dpre, idx, p);
                 dbe_acc += p;
             }

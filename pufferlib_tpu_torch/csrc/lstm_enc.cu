@@ -51,8 +51,9 @@
 //   steps in a thread block cluster, whose blocks exchange h (forward) or
 //   the partial dh_prev (backward) through distributed shared memory. The
 //   forward's sums keep the order of the FMA cell (x over k < D, then h,
-//   then b), so its outputs are that kernel's bits. lstm_enc_step_backward
-//   and the archived variants' f32 backwards in csrc/lstm_archive.cu keep
+//   then b), so its outputs are that kernel's bits. The archived enc2's,
+//   enc4's and enc6's f32 backwards (csrc/lstm_archive.cu) call enc5's.
+//   lstm_enc_step_backward and the archived enc3's f32 backward keep
 //   csrc/lstm_common.cuh's FMA kernels: the encoder runs inside the time
 //   loop of each block from a W_enc held in shared memory (F <= 128); the
 //   TPU kernel's tall pre-pass becomes a per-step recompute inside the

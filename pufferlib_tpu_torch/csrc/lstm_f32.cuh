@@ -1062,7 +1062,9 @@ cudaError_t cell_backward(const float* x, const float* xw, const float* h0, cons
 // (T, B, H), g_hT, g_cT (B, H). Writes dh0, dc0 (B, H), dwe (F + 1, D):
 // dW_enc then db_enc, dw = [dW_ih; dW_hh] (D + H, 4H), db (4H,). Scratch:
 // xs, dpre (T * B * D), dwe_part (splits_e, F + 1, D) and cell_backward's.
-// TWO_SUMS: the archived enc2's backward (csrc/lstm_archive.cu), whose
+// The archived enc4's and enc6's f32 backwards (csrc/lstm_archive.cu) are
+// this one, their roundings being the identity in f32. TWO_SUMS: the
+// archived enc2's backward (csrc/lstm_archive.cu), whose
 // gates are x @ W_ih + b and h_prev @ W_hh summed apart (in f32 its
 // roundings to the compute dtype are the identity): x @ W_ih + b is one
 // SGEMM with the bias in its epilogue, into dg, and cell_backward's

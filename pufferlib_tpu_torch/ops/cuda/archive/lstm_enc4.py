@@ -18,7 +18,10 @@ On the card in bf16 the backward is enc5's tensor-core backward
 recompute moves out of the loop into enc5's P pre-pass, (x @ W_ih +
 h_prev @ W_hh) + b over all T*B rows, since [W_ih; W_hh] in bf16 (256 KiB
 at D = H = 128) is more than a block's shared memory. The function is
-the same. In f32 the backward runs on FMA.
+the same. In f32, where the roundings to cdt are the identity and enc4's
+backward computes enc5's function, it is enc5's f32 backward itself
+(csrc/lstm_f32.cuh, design 'cluster', as lstm_enc's enc5 runs it): its
+gradients are enc5's bit for bit.
 """
 import torch
 
@@ -70,8 +73,8 @@ def lstm_enc4_backward_reference(feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b,
 
 
 def _launch_backward(*args, phases=BACKWARD_PHASES):
-    """lstm_enc4_backward: on the tensor cores in bf16, on FMA in f32
-    (archive.launch_tc_backward)."""
+    """lstm_enc4_backward: on the tensor cores in bf16, on lstm_f32.cuh in
+    f32 (archive.launch_tc_backward)."""
     return launch_tc_backward('lstm_enc4_backward', *args, phases=phases)
 
 

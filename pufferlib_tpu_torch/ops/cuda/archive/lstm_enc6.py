@@ -19,8 +19,9 @@ its gradients are enc5's bit for bit. Its two chains are that loop's two
 halves: a block's 64 rows are two halves of 32, eight warps each, each
 half with its own dh/dc chain and its own named barrier, so that one
 half's products run while the other works its cell math. In f32 the
-backward runs on FMA, a block of two tiles of 32 rows, whose shared
-memory bounds the feature width.
+backward is enc5's f32 backward itself (csrc/lstm_f32.cuh, design
+'cluster', as lstm_enc's enc5 runs it), so its gradients are enc5's bit
+for bit there too.
 """
 import torch
 
@@ -31,16 +32,11 @@ from pufferlib_tpu_torch.ops.cuda.lstm_common import BACKWARD_PHASES
 
 __all__ = ['lstm_scan_enc6', 'VARIANT']
 
-# batch rows per block of the f32 FMA kernel: two tiles of
-# lstm_common.ROWS_PER_BLOCK
-ROW_TILES = 2
-
 
 def _launch_backward(*args, phases=BACKWARD_PHASES):
-    """lstm_enc6_backward: on the tensor cores in bf16, on FMA in f32
-    (archive.launch_tc_backward)."""
-    return launch_tc_backward('lstm_enc6_backward', *args, phases=phases,
-        row_tiles=ROW_TILES, acts_slab=True)
+    """lstm_enc6_backward: on the tensor cores in bf16, on lstm_f32.cuh in
+    f32 (archive.launch_tc_backward)."""
+    return launch_tc_backward('lstm_enc6_backward', *args, phases=phases)
 
 
 VARIANT = EncVariant(lstm_enc.lstm_enc_reference,

@@ -277,7 +277,7 @@ def _launch_backward(feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b, outs,
 
 def launch_backward(kernel, fn, feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b,
         outs, cseq, g_outs, g_hT, g_cT, cdt, tc, phases=BACKWARD_PHASES,
-        fma_rows=ROWS_PER_BLOCK, acts_slab=False, cluster=False):
+        acts_slab=False, cluster=False):
     """The backward C function `fn` of `kernel` that takes
     lstm_enc_backward's arguments (enc5's, lstm_scan_enc's step backward,
     and the archived enc2's, enc3's, enc4's and enc6's), on a shape the
@@ -286,9 +286,9 @@ def launch_backward(kernel, fn, feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b,
     run (with their scratch); cluster: enc5's f32 kernels of
     lstm_f32.cuh (their scratch: the activations and the transposed
     weights in the P slab's place, [feats | 1]'s partials); else the FMA
-    ones, whose block takes fma_rows batch rows and, with acts_slab (the
-    archived enc3 and enc6), keeps every step's gate activations in a (T,
-    B, 4H) slab handed over in the P slab's place."""
+    ones, whose block takes ROWS_PER_BLOCK batch rows and, with acts_slab
+    (the archived enc3), keeps every step's gate activations in a (T, B,
+    4H) slab handed over in the P slab's place."""
     T, B, F = feats.shape
     H = h0.shape[1]
     D = w_enc.shape[1]
@@ -315,9 +315,8 @@ def launch_backward(kernel, fn, feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b,
     dpre = torch.empty_like(xs)
     dg = torch.empty((T, B, G), dtype=cdt, device=dev)
     dw_part = torch.empty((splits_w, D + H, G), **f32)
-    # bias partials, a row per block: of 64 batch rows in bf16, fma_rows
-    # in f32
-    part_rows = math.ceil(B / (TC_ROWS_PER_BLOCK if tc else fma_rows))
+    # bias partials, a row per block: of 64 batch rows in bf16, 32 in f32
+    part_rows = math.ceil(B / (TC_ROWS_PER_BLOCK if tc else ROWS_PER_BLOCK))
     db_part = torch.empty((part_rows, G), **f32)
     dwe_part = torch.empty((splits_e, enc_rows, D), **f32)
     dbe_part = None if tc or cluster else torch.empty((part_rows, D), **f32)

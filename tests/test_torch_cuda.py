@@ -17,7 +17,9 @@ the other way inside the recurrence). lstm_scan, lstm_scan_cat,
 lstm_scan_fused and the enc5 pair run their tensor-core kernels in bf16
 (also at input widths other than the hidden size, and enc5 at feature
 widths up to the encoder's limit); in f32 the enc5, cat and fused pairs
-run csrc/lstm_f32.cuh's cluster kernels, lstm_scan its FMA kernels; the
+and the archived enc2, enc4 and enc6 backwards run csrc/lstm_f32.cuh's
+cluster kernels (enc4's and enc6's equal to enc5's bit for bit),
+lstm_scan its FMA kernels; the
 archived tm's step kernels run lstm_scan's bf16 loops one step a launch
 and must equal lstm_scan's bf16 kernels bit for bit.
 """
@@ -835,8 +837,8 @@ def test_enc5_launchers_refuse_what_the_kernels_do_not_serve(cuda):
     that is no multiple of 8 or too wide, a hidden size off {32, 64, 128};
     in f32 (FMA) D != H and more than 128 features. The forward of the
     archived enc3, enc4 and enc6 (_launch_enc_forward), whose backwards
-    run on FMA at D == H, keeps FMA's reach in bf16 too. ValueError, and
-    no launch."""
+    take D == H in f32, keeps that reach in bf16 too. ValueError, and no
+    launch."""
     from pufferlib_tpu_torch.ops.cuda import lstm_common, lstm_enc
     limit = lstm_common.tc_max_features()
     before = _launches()
@@ -918,8 +920,9 @@ def test_enc5_f32_repeats_bit_for_bit(cuda, T, B, H, F):
 def _check_f32_guards(cuda, monkeypatch, kind, T, B, H, F=49):
     """Every input, output and scratch buffer of one f32 forward and
     backward call of the resident pair `kind` (enc5, cat, fused, the
-    archived enc2: the launchers of lstm_enc, lstm_cat, lstm_scan and the
-    archive, their scratch through lstm_common) sits between guards; after
+    archived enc2, enc4 and enc6: the launchers of lstm_enc, lstm_cat,
+    lstm_scan and the archive, their scratch through lstm_common) sits
+    between guards; after
     both calls no guard has changed, and the results still match the
     plain versions within LSTM_TOL."""
     from pufferlib_tpu_torch.ops.cuda import (
@@ -1150,8 +1153,8 @@ def test_fused_f32_plan_and_usage(cuda):
 @pytest.mark.parametrize('cdt', [torch.float32, torch.bfloat16])
 def test_archived_enc_kernels_match_plain(cuda, kind, T, B, H, cdt):
     """enc2, enc3, enc4 and enc6: forward, every gradient, and the
-    forward handed a null cseq. B = 980 leaves enc6's last block (64 rows
-    as two tiles of 32) a short first tile and an empty second one."""
+    forward handed a null cseq. B = 980 leaves a short last block of
+    rows."""
     _check_pair_and_primal(cuda, kind, T, B, H, cdt)
 
 
@@ -1159,9 +1162,9 @@ def test_archived_enc_kernels_match_plain(cuda, kind, T, B, H, cdt):
 # mode ENC5's path with each variant's roundings; enc2's pre-pass rounds
 # its projection): all four
 ARCHIVED_TC = ARCHIVED_ENC
-# those whose f32 FMA kernel keeps every step's activations in a slab,
+# the one whose f32 FMA kernel keeps every step's activations in a slab,
 # handed over in the P slab's place
-ACTS_SLAB = ('enc3', 'enc6')
+ACTS_SLAB = ('enc3',)
 
 
 @pytest.mark.parametrize('kind', ARCHIVED_TC)
@@ -1182,10 +1185,9 @@ def test_archived_tensor_core_backwards_match_plain_and_repeat(cuda, kind, H,
 @pytest.mark.parametrize('B', [8192, 1000, 980])
 def test_enc3_enc6_bf16_backwards_match_plain(cuda, kind, H, B):
     """enc3's and enc6's bf16 backwards on the tensor cores at every
-    hidden size, at the bench batch and at ragged ones (1000; 980, which
-    left enc6's last FMA block of two tiles a short first tile and an
-    empty second one): within 2e-2 of max(1, max |plain|) of the plain
-    versions, with one launch of each C function."""
+    hidden size, at the bench batch and at ragged ones (1000; 980): within
+    2e-2 of max(1, max |plain|) of the plain versions, with one launch of
+    each C function."""
     _check_lstm_pair(cuda, kind, 16, B, H, torch.bfloat16)
 
 
@@ -1215,13 +1217,13 @@ def test_enc6_bf16_gradients_are_enc5s(cuda, H, B):
 def test_archived_bf16_backwards_run_the_tensor_core_path(cuda, kind):
     """In bf16 the C function runs lstm_tc.cuh's path, which needs its
     scratch (the P slab, the bf16 weights): handed none, it refuses. In
-    f32 enc2's runs lstm_f32.cuh (archive.design 'cluster'), which needs
-    its work slab in the P slab's place, refuses without it, and takes the
-    phases; the FMA kernel, which the others run in f32, takes only the
-    whole backward (phases = 4) and reads no bf16 weights; enc4's reads no
-    slab either, enc3's and enc6's their activations slab in the P slab's
-    place, and refuse without it. The launcher's phases 1 .. 3 stop the
-    bf16 path early without an error."""
+    f32 enc2's, enc4's and enc6's run lstm_f32.cuh (archive.design
+    'cluster'), which needs its work slab in the P slab's place, refuses
+    without it, and takes the phases; the FMA kernel, which enc3 runs in
+    f32, takes only the whole backward (phases = 4), reads no bf16
+    weights, and reads its activations slab in the P slab's place,
+    refusing without it. The launcher's phases 1 .. 3 stop the bf16 path
+    early without an error."""
     from pufferlib_tpu_torch.ops.cuda import archive
     fwd, bwd = _lstm_kinds()[kind][:2]
     fn = f'lstm_{kind}_backward'
@@ -1290,6 +1292,50 @@ def test_enc2_f32_backward_on_the_cluster_design(cuda, monkeypatch, B):
     _check_deterministic(cuda, 'enc2', 16, B, 128, cdt=torch.float32, runs=5)
 
 
+@pytest.mark.parametrize('kind', ['enc4', 'enc6'])
+@pytest.mark.parametrize('B', [8192, 1000])
+def test_enc4_enc6_f32_backwards_are_enc5s(cuda, monkeypatch, kind, B):
+    """The archived enc4's and enc6's f32 backwards run csrc/lstm_f32.cuh's
+    enc5 backward with enc5's one sum (archive.design 'cluster'), their
+    function being enc5's in f32: at the bench's batch and a ragged one,
+    within LSTM_TOL of the plain versions with every buffer between guards
+    (_check_f32_guards), two runs equal bit for bit, the seven gradients
+    equal bit for bit to row 4's f32 backward (lstm_enc_backward) on the
+    same inputs, and phases 1 .. 3 stopping early without a fault."""
+    from pufferlib_tpu_torch.ops.cuda import archive
+    assert archive.design(f'lstm_{kind}_backward', torch.float32) == 'cluster'
+    _check_f32_guards(cuda, monkeypatch, kind, 16, B, 128)
+    _check_deterministic(cuda, kind, 16, B, 128, cdt=torch.float32)
+    kinds = _lstm_kinds()
+    args = _lstm_case(kind, 16, B, 128, 49, torch.float32, cuda)
+    g = (torch.randn(16, B, 128, device=cuda), torch.randn(B, 128,
+        device=cuda), torch.randn(B, 128, device=cuda))
+    with torch.no_grad():
+        outs, _, _, cseq = kinds['enc5'][0](*args, torch.float32)
+        bargs = (*args, outs, cseq, *g, torch.float32)
+        want = kinds['enc5'][1](*bargs)
+        got = kinds[kind][1](*bargs)
+        for phases in (1, 2, 3):
+            kinds[kind][1](*bargs, phases=phases)
+    torch.cuda.synchronize()
+    assert len(got) == len(want) == 7
+    for a, w in zip(got, want):
+        assert torch.equal(a, w)
+
+
+@pytest.mark.parametrize('kind', ['enc4', 'enc6'])
+@pytest.mark.parametrize('T,B,F,H', [(3, 45, 128, 32), (5, 980, 49, 64),
+    (2, 64, 128, 128), (3, 65, 108, 128)])
+def test_enc4_enc6_f32_take_every_fma_shape(cuda, monkeypatch, kind, T, B, F,
+        H):
+    """Where the f32 FMA kernels served them (D == H, F <= 128), enc4's and
+    enc6's f32 backwards still run, now on lstm_f32.cuh: the widest
+    feature width at every hidden size (enc6's two-tile FMA block took at
+    most 107 features at hidden size 128), with every buffer between
+    guards and the results within LSTM_TOL of the plain versions."""
+    _check_f32_guards(cuda, monkeypatch, kind, T, B, H, F=F)
+
+
 @pytest.mark.parametrize('kind', ARCHIVED_TC)
 @pytest.mark.parametrize('T,B,F,H', [(3, 45, 7, 32), (4, 200, 49, 64),
     (16, 1000, 49, 128), (2, 64, 128, 128)])
@@ -1298,16 +1344,13 @@ def test_archived_tc_backwards_write_only_their_buffers(cuda, monkeypatch,
         kind, T, B, F, H, cdt):
     """Every input, output and scratch buffer of the archived forward and
     backward (the P slab, the bf16 weights, db_part at 64 rows a block;
-    in f32 enc3's and enc6's activations slab) sits between guards; after
-    both calls no guard has changed, at a ragged last block (45, 200 and
-    1000 rows), at the widest feature width the archive takes (for enc6
-    in f32, whose block of two dgates tiles the launcher refuses past 107
-    features at hidden size 128, that one), and the results still match
-    the plain versions within LSTM_TOL."""
+    in f32 enc3's activations slab, enc2's, enc4's and enc6's work slab)
+    sits between guards; after both calls no guard has changed, at a
+    ragged last block (45, 200 and 1000 rows), at the widest feature width
+    the archive takes, and the results still match the plain versions
+    within LSTM_TOL."""
     from pufferlib_tpu_torch.ops.cuda import archive, lstm_common, lstm_enc
     fwd, bwd, fwd_plain, bwd_plain, _ = _lstm_kinds()[kind]
-    if kind == 'enc6' and cdt == torch.float32 and H == 128:
-        F = min(F, 107)
     guarded = _GuardedTorch()
     args = tuple(guarded.guarded(t.shape, t.dtype, t.device).copy_(t)
         for t in _lstm_case(kind, T, B, H, F, cdt, cuda))
@@ -1684,9 +1727,7 @@ def test_lstm_scan_autograd_on_the_card(cuda):
 def test_archived_launchers_refuse_what_the_kernels_do_not_serve(cuda, kind):
     """The archived kernels keep the others' reach: hidden sizes 32, 64
     and 128, an input width equal to the hidden size, at most 128
-    features; enc6, whose block holds two tiles of dgates, also refuses a
-    feature width that its shared memory cannot hold. ValueError, and no
-    launch."""
+    features. ValueError, and no launch."""
     fwd, bwd = _lstm_kinds()[kind][:2]
     cdt = torch.float32
     before = _launches()
@@ -1709,10 +1750,6 @@ def test_archived_launchers_refuse_what_the_kernels_do_not_serve(cuda, kind):
         with pytest.raises(ValueError, match=message):
             fwd(*args, cdt)
         with pytest.raises(ValueError, match=message):
-            bwd(*args, *rest, cdt)
-    if kind == 'enc6':
-        args, rest = case(2, 8, 128, 128, 128)
-        with pytest.raises(ValueError, match='shared memory'):
             bwd(*args, *rest, cdt)
     assert _launches() == before
 

@@ -1354,17 +1354,17 @@ def test_encoder_scans_at_other_widths_match_pallas_kernel(kind, cdt):
 @pytest.mark.parametrize('kind', ['enc2', 'enc3', 'enc4', 'enc6'])
 def test_archived_backward_design(kind, cdt):
     """Which design each archived backward runs (archive.design): in bf16
-    all four the tensor-core kernels of lstm_tc.cuh ('tc'); in f32 enc2's
-    lstm_f32.cuh ('cluster': enc5's f32 backward with two sums), the
-    others lstm_archive.cu's FMA kernel ('fma'). The C functions' argument
-    lists follow it: the tensor-core ones take lstm_enc_backward's (the P
-    slab, the bf16 weights, the phases), which also carry the f32 kernels'
-    scratch (enc2's work slab, enc3's and enc6's activations slab in the P
-    slab's place)."""
+    all four the tensor-core kernels of lstm_tc.cuh ('tc'); in f32 enc2's,
+    enc4's and enc6's lstm_f32.cuh ('cluster': enc5's f32 backward, enc2's
+    with two sums), enc3's lstm_archive.cu's FMA kernel ('fma'). The C
+    functions' argument lists follow it: the tensor-core ones take
+    lstm_enc_backward's (the P slab, the bf16 weights, the phases), which
+    also carry the f32 kernels' scratch (the work slab of enc2, enc4 and
+    enc6, enc3's activations slab in the P slab's place)."""
     fn = f'lstm_{kind}_backward'
     design = archive.design(fn, TD[cdt])
     assert design == ('tc' if cdt == 'bfloat16' else
-        'cluster' if kind == 'enc2' else 'fma')
+        'fma' if kind == 'enc3' else 'cluster')
     args = archive.KERNEL.functions[fn]
     enc_backward = lstm_enc.KERNEL.functions['lstm_enc_backward']
     assert args == enc_backward and len(args) == 38

@@ -16,8 +16,9 @@ one call, T launches each way) at T 16, B 8192, D = H = 128 (the encoder
 kinds: F 49), once for each dtype given (bfloat16 by default); --kind
 keeps only the kinds named (and their extra readings). In
 bfloat16 it also runs the tree's own chip_smoke.time_tc_phases for the
-kinds it has phases of (in float32 enc5's, cat's and fused's, where the
-tree's f32 kernels run phases): the last backward phase of fused, cat, enc5, enc
+kinds it has phases of (in float32 enc5's, cat's, fused's and the
+archived enc4's and enc6's, where the tree's f32 kernels run phases):
+the last backward phase of fused, cat, enc5, enc
 and the archived encoder kinds is their weight gradients (the split-K and
 db's ordered sum), scan's and tm's dW_hh alone. An older tree whose kind
 runs on FMA (the archived backwards before their redesign, enc's step
@@ -25,16 +26,17 @@ backward and enc2's forward before theirs, tm before its) has no phases
 of it: its whole call is timed alone. In float32 it also times enc5 at
 memory's shape (config.yaml's memory section: T 8, B 512, F 1) and at
 T 16, B 1000, enc5's streamed pair (lstm_enc_stream_*, called directly)
-at T 16 with B 8192 and 1000, and cat, fused and the archived enc2 at T
-16, B 1000; cat's
+at T 16 with B 8192 and 1000, and cat, fused and the archived enc2, enc4
+and enc6 at T 16, B 1000; cat's
 and fused's readings carry cuDNN's f32 nn.LSTM beside them. Each turn
 also prints, for each
 kind and dtype, the SHA-256 of every output and gradient of one forward
 and backward call on inputs from a fixed seed, that of the forward's
 outputs alone, and that of the backward's gradients alone, the backward
-fed the plain forward's outputs (and cat's and fused's device memory
-through autograd: the bytes held from its forward to its backward and the
-peak over both): two trees whose digests of a kind agree
+fed the plain forward's outputs (and the device memory through autograd
+of cat, fused, enc5 and the archived enc4 and enc6, at each of their
+shapes: the bytes held from the forward to the backward and the peak
+over both): two trees whose digests of a kind agree
 compute it bit for bit alike, and two whose forward (backward) digests
 agree compute its forward (backward) so, whatever the other part does. Each
 tree builds its kernels from its own sources at its first turn. Prints a
@@ -56,7 +58,9 @@ F32_EXTRA = (('enc5 memory', 'enc5', 8, 512, 1),
     ('enc5_stream B=1000', 'enc5_stream', 16, 1000, 49),
     ('cat B=1000', 'cat', 16, 1000, 49),
     ('fused B=1000', 'fused', 16, 1000, 49),
-    ('enc2 B=1000', 'enc2', 16, 1000, 49))
+    ('enc2 B=1000', 'enc2', 16, 1000, 49),
+    ('enc4 B=1000', 'enc4', 16, 1000, 49),
+    ('enc6 B=1000', 'enc6', 16, 1000, 49))
 
 # run inside a tree: its own chip_smoke, its own kernels
 CHILD = r'''
@@ -65,11 +69,17 @@ import numpy as np
 import torch
 sys.path.insert(0, '.')
 import chip_smoke
+from pufferlib_tpu_torch.ops.cuda.archive.lstm_enc4 import lstm_scan_enc4
+from pufferlib_tpu_torch.ops.cuda.archive.lstm_enc6 import lstm_scan_enc6
 from pufferlib_tpu_torch.ops.cuda.lstm_cat import lstm_scan_cat
+from pufferlib_tpu_torch.ops.cuda.lstm_enc import lstm_scan_enc5
 from pufferlib_tpu_torch.ops.cuda.lstm_scan import lstm_scan_fused
 
-# the kinds whose device memory through autograd a turn reads
-SCANS = {'cat': lstm_scan_cat, 'fused': lstm_scan_fused}
+# the kinds whose device memory through autograd a turn reads; those that
+# take features behind the fused encoder
+SCANS = {'cat': lstm_scan_cat, 'fused': lstm_scan_fused,
+    'enc5': lstm_scan_enc5, 'enc4': lstm_scan_enc4, 'enc6': lstm_scan_enc6}
+ENCODED = ('enc5', 'enc4', 'enc6')
 
 
 def sha(tensors):
@@ -91,20 +101,25 @@ def digests(kind):
     return sha(both), sha(outs), sha(alone)
 
 
-def memory(kind, B, T=16, H=128):
-    """Device bytes of one call of kind's scan (lstm_scan_cat or
-    lstm_scan_fused) through autograd at T, B, D = H: held from the end of
-    its forward to its backward (what autograd keeps: outs, cseq, hT, cT
-    and whatever slab the tree's design keeps) and the peak over the
-    forward and backward, both above the inputs."""
+def memory(kind, B, T=16, H=128, F=49):
+    """Device bytes of one call of kind's scan (SCANS) through autograd at
+    T, B, D = H (and F features for the encoder kinds, whose features
+    need no gradient): held from the end of its forward to its backward
+    (what autograd keeps: outs, cseq, hT, cT and whatever slab the tree's
+    design keeps) and the peak over the forward and backward, both above
+    the inputs."""
     g = torch.Generator(device='cuda').manual_seed(0)
     cdt = getattr(torch, DTYPE)
 
     def leaf(*shape, dtype=torch.float32):
         return (torch.randn(*shape, device='cuda', generator=g)
             * 0.3).to(dtype).requires_grad_()
-    args = (leaf(T, B, H, dtype=cdt), leaf(B, H), leaf(B, H),
-        leaf(H, 4 * H), leaf(H, 4 * H), leaf(4 * H))
+    if kind in ENCODED:
+        args = (leaf(T, B, F, dtype=cdt).detach(), leaf(B, H), leaf(B, H),
+            leaf(F, H), leaf(H), leaf(H, 4 * H), leaf(H, 4 * H), leaf(4 * H))
+    else:
+        args = (leaf(T, B, H, dtype=cdt), leaf(B, H), leaf(B, H),
+            leaf(H, 4 * H), leaf(H, 4 * H), leaf(4 * H))
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -136,7 +151,8 @@ for kind in KINDS:
     out[kind] = {**reading(r), 'digest': digest,
         'forward digest': forward_digest, 'backward digest': backward_digest}
     phases = None
-    if DTYPE == 'bfloat16' or kind in ('enc5', 'cat', 'fused'):
+    if DTYPE == 'bfloat16' or kind in ('enc5', 'cat', 'fused', 'enc4',
+            'enc6'):
         try:
             phases = chip_smoke.time_tc_phases(torch, flush,
                 np.random.RandomState(0), kind, dtype_name=DTYPE)
@@ -153,7 +169,7 @@ if DTYPE == 'float32':
             kind, B, DTYPE, T=T, F=F, timed=True)
         out[label] = {**reading(r), 'phases': None}
         if kind in SCANS:
-            out[label]['memory'] = memory(kind, B, T)
+            out[label]['memory'] = memory(kind, B, T, F=F)
 print(json.dumps(out))
 '''
 

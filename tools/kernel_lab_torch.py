@@ -15,8 +15,10 @@ and db from the unrounded dgates), enc2's forward as the encoder, a
 projection GEMM and lstm_scan's loop; tm lstm_scan's loops one step a
 launch.
 --dtype float32 runs the same calls in f32 (inputs and compute dtype),
-where lstm_scan_fused, lstm_scan_cat and enc5 run csrc/lstm_f32.cuh's
-cluster design and the others lstm_common.cuh's FMA cell.
+where lstm_scan_fused, lstm_scan_cat, enc5 (the forward of enc, enc3,
+enc4 and enc6 too) and the archived enc2's, enc4's and enc6's backwards
+run csrc/lstm_f32.cuh's cluster design, the others lstm_common.cuh's and
+csrc/lstm_archive.cu's FMA kernels.
 Default: fused fused-fwd. Each line is the mean device time of one call
 (CUDA events, the L2 flushed before every call) of the forward alone (no
 gradient needed: no cell sequence is written, except by tm) or of
