@@ -433,9 +433,11 @@ CELL_GRADS = ('dx', 'dh0', 'dc0', 'dw_ih', 'dw_hh', 'db')
 def lstm_kinds():
     """kind -> (kernel forward, kernel backward, plain forward, plain
     backward, gradient names). 'enc' is lstm_scan_enc: enc5's forward
-    kernel with the step-by-step backward, at enc5's reach; enc3, enc4 and
-    enc6 have that forward too, under their own backwards, at their FMA
-    backwards' reach."""
+    kernel with the step-by-step backward (lstm_enc_step_backward), at
+    enc5's reach; enc3, enc4 and enc6 have that forward too, under their
+    own backwards, at enc5's f32 reach. In f32 the backwards of 'enc',
+    'enc3', 'enc4' and 'enc6' are enc5's f32 backward (check_enc6_is_enc5
+    holds each pair of kind and enc5 bit for bit)."""
     import importlib
     from pufferlib_tpu_torch.ops.cuda import lstm_cat, lstm_enc, lstm_scan
     from pufferlib_tpu_torch.ops.cuda.archive import lstm_tm
@@ -895,12 +897,12 @@ def time_tm_launches(torch, flush, rng, T=16, B=8192, H=128):
 
 def check_enc6_is_enc5(torch, rng, B, dtype_name='bfloat16', kind='enc6',
         T=16, F=49, H=128):
-    """The archived `kind` and enc5 in dtype_name on the same inputs:
-    enc6's backward is enc5's tensor-core backward in bf16 (mode ENC6 runs
-    ENC5's reverse loop), and in f32, where their roundings are the
-    identity, enc6's and enc4's backward is enc5's f32 backward
-    (csrc/lstm_f32.cuh), so every output and gradient must be equal bit
-    for bit."""
+    """`kind` and enc5 in dtype_name on the same inputs: enc6's backward is
+    enc5's tensor-core backward in bf16 (mode ENC6 runs ENC5's reverse
+    loop), and in f32, where their roundings are the identity, the
+    backward of enc6, enc4, enc3 and lstm_scan_enc ('enc') is enc5's f32
+    backward (csrc/lstm_f32.cuh), so every output and gradient must be
+    equal bit for bit."""
     kinds = lstm_kinds()
     args, grads, cdt = lstm_case(torch, rng, kind, T, B, dtype_name, F=F,
         H=H)
@@ -2063,7 +2065,7 @@ def main():
     # f32 nn.LSTM
     lstm_runs = {(kind, B, d): check_lstm(torch, flush, rng, kind, B, d,
             timed=(B, d) == (8192, 'bfloat16') or (kind in ('cat', 'fused',
-                'enc2', 'enc4', 'enc6') and d == 'float32')
+                'enc', 'enc2', 'enc3', 'enc4', 'enc6') and d == 'float32')
                 or (kind, B, d) == ('enc5', 8192, 'float32'))
         for kind in ('enc5', 'cat', 'scan', 'fused', 'enc')
             + ARCHIVED_ENC_KINDS + ('tm',)
@@ -2108,7 +2110,7 @@ def main():
     check_bit_equal(torch, rng, 'enc5', 8192)
     check_bit_equal(torch, rng, 'enc5', 8192, dtype_name='float32')
     for B in (8192, 1000):
-        for kind in ('cat', 'fused', 'enc2', 'enc4', 'enc6'):
+        for kind in ('cat', 'fused', 'enc', 'enc2', 'enc3', 'enc4', 'enc6'):
             check_bit_equal(torch, rng, kind, B, dtype_name='float32')
     check_bit_equal(torch, rng, 'enc5', mb // bptt, T=bptt, F=1,
         dtype_name='float32')
@@ -2129,10 +2131,11 @@ def main():
     # sources it cannot copy) repeats bit for bit too
     for kind in ('scan', 'fused', 'cat', 'enc', 'tm') + ARCHIVED_ENC_KINDS:
         check_bit_equal(torch, rng, kind, 8192)
-    # enc6 in both dtypes and enc4 in f32 (their f32 backward is enc5's)
-    # against enc5, at the main shape and at a ragged batch of hidden 64
+    # enc6 in both dtypes, and enc4, enc3 and lstm_scan_enc in f32 (their
+    # f32 backward is enc5's) against enc5, at the main shape and at a
+    # ragged batch of hidden 64
     enc5_twins = (('bfloat16', 'enc6'), ('float32', 'enc6'),
-        ('float32', 'enc4'))
+        ('float32', 'enc4'), ('float32', 'enc'), ('float32', 'enc3'))
     for d, kind in enc5_twins:
         check_enc6_is_enc5(torch, rng, 8192, d, kind)
     # the archived tm's bf16 kernels are lstm_scan's one step a launch;
@@ -2450,17 +2453,21 @@ def main():
             phases={k: v for k, v in fused_f32_phases.items()
                 if k.startswith(fn)}))
     # the archived enc2's f32 backward (csrc/lstm_f32.cuh: enc5's with
-    # fused's two sums) and enc4's and enc6's (enc5's own f32 backward),
-    # which the kernel lab launches in f32 (phase 10), at the main shape
-    # and at B 1000
-    for kind, replaces in (('enc2', 'lstm_enc2.py:273'),
-            ('enc4', 'lstm_enc4.py:142'), ('enc6', 'lstm_enc6.py:161')):
+    # fused's two sums), lstm_scan_enc's step backward and the archived
+    # enc3's, enc4's and enc6's (enc5's own f32 backward), which the kernel
+    # lab launches in f32 (phase 10), at the main shape and at B 1000
+    for kind, fn, replaces in (
+            ('enc', 'lstm_enc_step_backward', 'lstm_enc.py:241'),
+            ('enc2', 'lstm_enc2_backward', 'archive/lstm_enc2.py:273'),
+            ('enc3', 'lstm_enc3_backward', 'archive/lstm_enc3.py:159'),
+            ('enc4', 'lstm_enc4_backward', 'archive/lstm_enc4.py:142'),
+            ('enc6', 'lstm_enc6_backward', 'archive/lstm_enc6.py:161')):
         main_f32 = lstm_runs[kind, 8192, 'float32']
         f32_1000 = lstm_runs[kind, 1000, 'float32']
-        kernels.append(dict(name=f'lstm_{kind}_backward_f32', route='cuda',
+        kernels.append(dict(name=f'{fn}_f32', route='cuda',
             source='pufferlib_tpu_torch/csrc/lstm_f32.cuh',
-            replaces=f'pufferlib_tpu/ops/pallas/archive/{replaces}',
-            launches=lab_f32_launches[f'lstm_{kind}_backward'],
+            replaces=f'pufferlib_tpu/ops/pallas/{replaces}',
+            launches=lab_f32_launches[fn],
             max_abs_err=max(r['bwd_err'] for (k, _, d), r in
                 lstm_runs.items() if k == kind and d.startswith('float32')),
             ms=main_f32['bwd_ms'], plain_ms=main_f32['bwd_plain_ms'],
@@ -3021,7 +3028,8 @@ LAB_VARIANTS = ('fused', 'fused-fwd', 'xp', 'cat', 'enc', 'enc5', 'enc2',
 
 
 # the lab's variants in its f32 run
-LAB_F32_VARIANTS = ('fused', 'fused-fwd', 'enc2', 'enc4', 'enc6')
+LAB_F32_VARIANTS = ('fused', 'fused-fwd', 'enc', 'enc2', 'enc3', 'enc4',
+    'enc6')
 
 
 def run_validation_path(torch):
@@ -3032,12 +3040,13 @@ def run_validation_path(torch):
     1024-lane recurrent trainer through the enc5 kernels, which must reach
     score 0.9) and tools/kernel_lab_torch.main over every variant, which
     is the path that launches the archived kernels. Returns the launches
-    by C function, and those of the lab's fused, enc2, enc4 and enc6
-    variants in f32 (kernel_lab_torch.main(LAB_F32_VARIANTS,
+    by C function, and those of the lab's fused, enc, enc2, enc3, enc4
+    and enc6 variants in f32 (kernel_lab_torch.main(LAB_F32_VARIANTS,
     dtype='float32'), with every count set to 0 again just before: the
-    path that launches lstm_scan_fused's f32 pair and the archived enc2's,
-    enc4's and enc6's f32 backwards, csrc/lstm_f32.cuh, beside enc2's FMA
-    forward and enc5's f32 one, enc4's and enc6's)."""
+    path that launches lstm_scan_fused's f32 pair, lstm_scan_enc's step
+    backward and the archived enc2's, enc3's, enc4's and enc6's f32
+    backwards, csrc/lstm_f32.cuh, beside enc2's FMA forward and enc5's f32
+    one, the others')."""
     from pufferlib_tpu_torch.ops.cuda import KERNELS
     validate = load_tool('validate_lstm_torch')
     lab = load_tool('kernel_lab_torch')
@@ -3078,12 +3087,14 @@ def run_validation_path(torch):
     f32_launches = {fn: n for k in KERNELS for fn, n in k.fn_launches.items()
         if n}
     if set(f32_launches) != {'lstm_fused_forward', 'lstm_fused_backward',
-            'lstm_enc2_forward', 'lstm_enc2_backward', 'lstm_enc_forward',
+            'lstm_enc_step_backward', 'lstm_enc2_forward',
+            'lstm_enc2_backward', 'lstm_enc_forward', 'lstm_enc3_backward',
             'lstm_enc4_backward', 'lstm_enc6_backward'}:
         raise AssertionError(f'the lab in f32: launches {f32_launches}')
-    log(f'the lab in f32: lstm_scan_fused and the archived enc2, enc4 and '
-        f'enc6 {json.dumps({" ".join(k): v for k, v in f32_ms.items()})} '
-        f'ms; launches {json.dumps(f32_launches)}')
+    log(f'the lab in f32: lstm_scan_fused, lstm_scan_enc and the archived '
+        f'enc2, enc3, enc4 and enc6 '
+        f'{json.dumps({" ".join(k): v for k, v in f32_ms.items()})} ms; '
+        f'launches {json.dumps(f32_launches)}')
     return launches, f32_launches
 
 

@@ -29,8 +29,8 @@
 //   independent half tiles per block, each with its own dh/dc chain, in
 //   one loop body.
 // In f32 the roundings to the compute dtype are the identity, so enc2's,
-// enc4's and enc6's backwards compute enc5's function (enc2's with its
-// gates summed as two sums).
+// enc3's, enc4's and enc6's backwards compute enc5's function (enc2's with
+// its gates summed as two sums).
 // * lstm_tm.lstm_scan_tm (lstm_tm_step_forward, lstm_tm_step_backward):
 //   `_fwd_impl_tm` / `_fwd_kernel_tm` and `_lstm_tm_bwd` / `_bwd_kernel_tm`,
 //   the grid with time outermost: one step of the whole batch per launch,
@@ -64,7 +64,7 @@
 //   recomputes the gates, dx is a GEMM after the loop and dW the split-K.
 //   enc6's two independent half-tile chains are the tensor-core loop's
 //   two halves, each with a barrier of its own. enc3, enc4 and enc6 take
-//   the reach of their FMA forward (D == H, F <= 128), enc2 the
+//   the reach of enc5's f32 kernels (D == H, F <= 128), enc2 the
 //   tensor-core kernels' (any D % 8 == 0 up to lstm_tc_max_input, F up to
 //   lstm_enc_tc_max_features).
 // * bf16 tm: csrc/lstm_tc.cuh's mode XP loops (lstm_scan's) over one step
@@ -87,33 +87,28 @@
 //   bf16 in its natural (T, B, 4H) order (the TPU kernel's xp slab), then
 //   mode XP's forward loop (lstm_scan's) on it, the recurrent product its
 //   own f32 sum, added to xp_t after it.
-// * f32 enc2, enc4 and enc6 backwards: csrc/lstm_f32.cuh's enc5 backward
-//   (enc5_backward<H, TWO_SUMS>), enc4's and enc6's with enc5's one sum,
-//   as lstm_enc.cu's lstm_enc_backward calls it, so their gradients are
-//   enc5's bit for bit; enc2's with lstm_scan_fused's two sums: the
-//   encoder SGEMM, x @ W_ih + b as one SGEMM (the bias in its epilogue)
-//   into the dgates scratch, the pre-pass h_prev @ W_hh from zero with
-//   that slab added in its epilogue before the activations (enc4's and
-//   enc6's: [x | h_prev] @ [W_ih; W_hh] + b in one), the reverse loop on
+// * f32 enc2, enc3, enc4 and enc6 backwards: csrc/lstm_f32.cuh's enc5
+//   backward (enc5_backward<H, TWO_SUMS>), enc3's, enc4's and enc6's with
+//   enc5's one sum, as lstm_enc.cu's lstm_enc_backward calls it, so their
+//   gradients are enc5's bit for bit; enc2's with lstm_scan_fused's two
+//   sums: the encoder SGEMM, x @ W_ih + b as one SGEMM (the bias in its
+//   epilogue) into the dgates scratch, the pre-pass h_prev @ W_hh from
+//   zero with that slab added in its epilogue before the activations (the
+//   others': [x | h_prev] @ [W_ih; W_hh] + b in one), the reverse loop on
 //   thread block clusters (W_hh^T on chip for all T steps, the partial
 //   dh_prev through distributed shared memory), dpre and the split-K
 //   SGEMMs. enc2's loop writes the dgates over its slab after the pre-pass
-//   has read it: enc5's scratch, no more.
-// * everything else in f32 (enc2's forward, enc3's backward, tm): plain
-//   FMA from weights streamed out of L2 in chunks, far above the bounds
-//   above: the f32 kernels (f32 is the exact test mode).
-//
-// FMA design (csrc/lstm_common.cuh): enc3's backward, archive_backward (f32
-// only). The TPU kernel's VMEM slabs of T * bt rows fit no block's shared
-// memory, so the slabs it keeps (the activations, the dgates) live in
-// device memory, written and read back by the thread that owns the
-// element, and the pass before the loop is a loop over t in the same
-// block. tm in f32 is the cell kernels of mode XP walking one step per
-// launch: stream order is the only synchronisation a timestep needs, since
-// batch tiles do not talk to each other; dW_hh is the split-K contraction
-// over the dgates slab once step 0 is done. The weight gradients are
-// split-K with partials added in a fixed order, as in the other LSTM
-// sources.
+//   has read it: enc5's scratch, no more. enc3's TPU kernel keeps its
+//   activations in a slab before the loop, as enc5's f32 backward does.
+// * everything else in f32 (enc2's forward, tm): csrc/lstm_common.cuh's
+//   FMA cell kernels, from weights streamed out of L2 in chunks, far above
+//   the bounds above (f32 is the exact test mode): enc2's forward in mode
+//   ENC2, its encoder inside the time loop from a W_enc held in shared
+//   memory; tm in mode XP walking one step per launch: stream order is the
+//   only synchronisation a timestep needs, since batch tiles do not talk
+//   to each other; dW_hh is the split-K contraction over the dgates slab
+//   once step 0 is done, its partials added in a fixed order, as in the
+//   other LSTM sources.
 #include "lstm_common.cuh"
 #include "lstm_f32.cuh"
 #include "lstm_tc.cuh"
@@ -122,226 +117,13 @@ using namespace lstm;
 
 namespace {
 
-// x_t and the gate activations a (i, f, g, o) of step t for the block's
-// rows: the encoder from feats_t, x_t rounded into op[0 .. D) and the slab
-// xs, h_prev into op[D .. K), the gates as one sum over K plus b, the
-// activations rounded to the compute dtype (enc3 keeps them in a slab). op
-// is (K, BT) of shared memory. Ends on a barrier, after which op and w_s
-// are free.
-template <int H, typename E>
-__device__ __forceinline__ void step_activations(
-        float (&a)[4][Tile<H>::RPT], const E* feats, const float* h0, const E* outs, E* xs,
-        float* op, float* w_s, const float* we_s, float* f_s, const float* w_ih,
-        const float* w_hh, const float (&bias)[4], float be, int t, size_t row0, int nrows,
-        int B, int F, int r0, int j) {
-    constexpr int D = Tile<H>::D, RPT = Tile<H>::RPT;
-    const size_t base = (size_t)t * B + row0;
-    load_rows<E>(f_s, feats, base, F, nrows);
-    __syncthreads();
-    float x[RPT];
-    encode_rows<H>(x, f_s, we_s, be, F, r0, j);
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-        const int r = r0 + i;
-        const float v = to_cdt<E>(x[i]);
-        op[j * BT + r] = v;
-        if (r < nrows) st(xs, (base + r) * D + j, v);
-    }
-    // h_prev: h0 at t = 0, else the stored outs of t - 1
-    if (t == 0)
-        load_rows<E>(op + D * BT, h0, row0, H, nrows);
-    else
-        load_rows<E>(op + D * BT, outs, base - B, H, nrows);
-    __syncthreads();
-    float pre[4][RPT];
-    gate_sums<H, E, ENC3, !two_sums(ENC3)>(a, pre, op, w_s, w_ih, w_hh, bias, r0, j);
-    static_assert(rounded_acts(ENC3), "enc3 stores its activations in the compute dtype");
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-        a[0][i] = to_cdt<E>(sigm(a[0][i]));
-        a[1][i] = to_cdt<E>(sigm(a[1][i]));
-        a[2][i] = to_cdt<E>(tanhf(a[2][i]));
-        a[3][i] = to_cdt<E>(sigm(a[3][i]));
-    }
-}
-
-// dpre = cdt(relu mask of dx) for the thread's rows, x read back from the
-// slab xs; adds dpre into dbe_acc
-template <int H, typename E>
-__device__ __forceinline__ void store_dpre(const float (&dx)[Tile<H>::RPT], const E* xs,
-                                           E* dpre, float& dbe_acc, size_t base, int nrows,
-                                           int r0, int j) {
-    constexpr int D = Tile<H>::D, RPT = Tile<H>::RPT;
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-        const int r = r0 + i;
-        if (r >= nrows) continue;
-        const size_t idx = (base + r) * D + j;
-        const float p = to_cdt<E>(ld(xs, idx) > 0.f ? dx[i] : 0.f);
-        st(dpre, idx, p);
-        dbe_acc += p;
-    }
-}
-
-// enc3's f32 backward. feats (T, B, F), outs, cseq, g_outs (T, B, H) in
-// the compute dtype E; the state, its gradients and the weights f32. Slabs
-// in device memory, all written here: xs and dpre (T, B, D), dg and acts
-// (T, B, 4H), in E. A thread reads back only the slab elements that it
-// wrote itself, so the slabs need no barrier (and carry no __restrict__:
-// they are read after being written). A block takes BT rows.
-template <int H, typename E>
-__global__ void __launch_bounds__(NT) archive_backward(
-        const E* __restrict__ feats, const float* __restrict__ h0,
-        const float* __restrict__ c0, const float* __restrict__ w_enc,
-        const float* __restrict__ b_enc, const float* __restrict__ w_ih,
-        const float* __restrict__ w_hh, const float* __restrict__ b,
-        const E* __restrict__ outs, const E* __restrict__ cseq,
-        const E* __restrict__ g_outs, const float* __restrict__ g_hT,
-        const float* __restrict__ g_cT, float* __restrict__ dh0,
-        float* __restrict__ dc0, E* xs, E* dpre, E* dg, E* acts,
-        float* __restrict__ db_part, float* __restrict__ dbe_part, int T, int B, int F) {
-    using TL = Tile<H>;
-    constexpr int K = TL::K, G = TL::G, RPT = TL::RPT;
-    extern __shared__ __align__(16) float smem[];
-    float* buf = smem;                 // (G, BT): [x_t | h_prev], then dgates
-    float* w_s = buf + G * BT;         // (KC, G) weight rows / (KC, KS) columns
-    float* we_s = w_s + KC * G;        // (F, D) W_enc, rounded
-    float* f_s = we_s + F * TL::D;     // (F, BT) feats_t, rounded
-
-    const int j = threadIdx.x % H, rg = threadIdx.x / H, r0 = rg * RPT;
-    const int row0 = blockIdx.x * BT;
-    const int nrows = min(BT, B - row0);
-    float bias[4];
-#pragma unroll
-    for (int g = 0; g < 4; ++g) bias[g] = b[g * H + j];
-    const float be = b_enc[j];
-    for (int i = threadIdx.x; i < F * TL::D; i += NT) we_s[i] = to_cdt<E>(w_enc[i]);
-
-    // every step's x and gate activations, into the slabs
-    for (int t = 0; t < T; ++t) {
-        float a[4][RPT];
-        step_activations<H, E>(a, feats, h0, outs, xs, buf, w_s, we_s, f_s, w_ih, w_hh, bias,
-                               be, t, (size_t)row0, nrows, B, F, r0, j);
-        const size_t base = (size_t)t * B + row0;
-#pragma unroll
-        for (int i = 0; i < RPT; ++i) {
-            if (r0 + i >= nrows) continue;
-#pragma unroll
-            for (int g = 0; g < 4; ++g) st(acts, (base + r0 + i) * G + g * H + j, a[g][i]);
-        }
-    }
-
-    float dh[RPT], dc[RPT];
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-        const int r = r0 + i;
-        const size_t idx = (size_t)(row0 + r) * H + j;
-        dh[i] = r < nrows ? g_hT[idx] : 0.f;
-        dc[i] = r < nrows ? g_cT[idx] : 0.f;
-    }
-    float db_acc[4] = {0.f, 0.f, 0.f, 0.f};
-    float dbe_acc = 0.f;
-
-    for (int t = T - 1; t >= 0; --t) {
-        // the element-wise chain, its rounded dgates into buf and the slab
-        const size_t base = (size_t)t * B + row0;
-        float a[4][RPT];
-#pragma unroll
-        for (int i = 0; i < RPT; ++i)
-#pragma unroll
-            for (int g = 0; g < 4; ++g)
-                a[g][i] = r0 + i < nrows ? ld(acts, (base + r0 + i) * G + g * H + j) : 0.f;
-#pragma unroll
-        for (int i = 0; i < RPT; ++i) {
-            const int r = r0 + i;
-            const bool ok = r < nrows;
-            const size_t idx = (base + r) * H + j;
-            const float gout = ok ? ld(g_outs, idx) : 0.f;
-            const float ct = ok ? ld(cseq, idx) : 0.f;
-            const float cp = !ok ? 0.f
-                : t == 0 ? c0[(size_t)(row0 + r) * H + j]
-                : ld(cseq, idx - (size_t)B * H);
-            float d[4];
-            dgates_chain(d, dc[i], dh[i] + gout, a[0][i], a[1][i], a[2][i], a[3][i], ct, cp);
-#pragma unroll
-            for (int g = 0; g < 4; ++g) {
-                const float dcg = to_cdt<E>(d[g]);
-                buf[(g * H + j) * BT + r] = dcg;
-                if (ok) {
-                    st(dg, (base + r) * G + g * H + j, dcg);
-                    db_acc[g] += rounded_db(ENC3) ? dcg : d[g];
-                }
-            }
-        }
-        __syncthreads();
-
-        // [dx | dh_prev] = dgates @ [W_ih; W_hh]^T from one stream of
-        // columns
-        float ax[RPT], ah[RPT];
-        cols_gemm<H, E, 0, K>(ax, ah, buf, w_s, w_ih, w_hh, r0, j);
-#pragma unroll
-        for (int i = 0; i < RPT; ++i) dh[i] = ah[i];
-        store_dpre<H, E>(ax, xs, dpre, dbe_acc, base, nrows, r0, j);
-    }
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-        const int r = r0 + i;
-        if (r < nrows) {
-            const size_t idx = (size_t)(row0 + r) * H + j;
-            dh0[idx] = dh[i];
-            dc0[idx] = dc[i];
-        }
-    }
-    // buf is free: the last product ended on a barrier
-    store_bias_partials<H, true>(buf, db_acc, dbe_acc, db_part, dbe_part, rg, j);
-}
-
-inline size_t archive_smem(int H, int F) {
-    return sizeof(float) *
-           ((size_t)4 * H * BT + (size_t)KC * 4 * H + (size_t)F * H + (size_t)F * BT);
-}
-
-// The recurrent kernel, then the weight and bias gradients. part_rows is
-// the number of blocks: ceil(B / 32).
-template <int H, typename E>
-cudaError_t run_archive_backward(const void* feats, const float* h0, const float* c0,
-                                 const float* w_enc, const float* b_enc, const float* w_ih,
-                                 const float* w_hh, const float* b, const void* outs,
-                                 const void* cseq, const void* g_outs, const float* g_hT,
-                                 const float* g_cT, float* dh0, float* dc0, float* dw_enc,
-                                 float* db_enc, float* dw, float* db, void* xs, void* dpre,
-                                 void* dg, void* acts, float* dw_part, float* db_part,
-                                 float* dwe_part, float* dbe_part, int T, int B, int F,
-                                 int splits_w, int splits_e, int part_rows,
-                                 cudaStream_t stream) {
-    const int nblk = (B + BT - 1) / BT;
-    if (part_rows != nblk || splits_w < 1 || splits_e < 1 || !acts)
-        return cudaErrorInvalidValue;
-    auto kernel = archive_backward<H, E>;
-    const size_t smem = archive_smem(H, F);
-    cudaError_t err = prepare(kernel, smem);
-    if (err != cudaSuccess) return err;
-    kernel<<<nblk, NT, smem, stream>>>(
-        static_cast<const E*>(feats), h0, c0, w_enc, b_enc, w_ih, w_hh, b,
-        static_cast<const E*>(outs), static_cast<const E*>(cseq),
-        static_cast<const E*>(g_outs), g_hT, g_cT, dh0, dc0, static_cast<E*>(xs),
-        static_cast<E*>(dpre), static_cast<E*>(dg), static_cast<E*>(acts), db_part,
-        dbe_part, T, B, F);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    return encoder_weight_grads<H, E>(feats, h0, outs, xs, dpre, dg, dw_enc, db_enc, dw, db,
-                                      dw_part, db_part, dwe_part, dbe_part, T, B, F,
-                                      splits_w, splits_e, nblk, stream);
-}
-
 // The encoder-fused backwards: bf16 on the tensor cores (tc::backward in
 // mode MODE; enc2 at any encoder width D the tensor-core kernels take, the
-// others at D == H, their forward's reach); f32, D == H, enc2, enc4 and
-// enc6 on lstm_f32.cuh (enc5_backward: enc2's with two sums, enc4's and
-// enc6's with enc5's one, whose function theirs is in f32), enc3 on
-// archive_backward. pre: in bf16 the P slab (lstm_tc.cuh slab_index) f32;
-// in f32 enc2's, enc4's and enc6's `work` (lstm_f32.cuh: the activations
-// (T * B * 4H), then W_ih^T and W_hh^T), enc3's activations slab (T, B,
-// 4H).
+// others at D == H, their forward's reach); f32, D == H, on lstm_f32.cuh
+// (enc5_backward: enc2's with two sums, enc3's, enc4's and enc6's with
+// enc5's one, whose function theirs is in f32). pre: in bf16 the P slab
+// (lstm_tc.cuh slab_index) f32; in f32 lstm_f32.cuh's `work` (the
+// activations (T * B * 4H), then W_ih^T and W_hh^T).
 template <int MODE>
 struct TcBackward {
     template <int H, typename E>
@@ -365,16 +147,10 @@ struct TcBackward {
                     nullptr, dh0, dc0, dw, db, static_cast<E*>(dg), dw_part, db_part,
                     static_cast<float*>(pre), static_cast<E*>(w16), T, B, D, splits_w, part_rows,
                     phases, stream, enc);
-            } else if constexpr (MODE == ENC3) {
-                if (phases != tc::BACKWARD_PHASES || D != H) return cudaErrorInvalidValue;
-                return run_archive_backward<H, E>(
-                    feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b, outs, cseq, g_outs, g_hT, g_cT,
-                    dh0, dc0, dwe, dwe + (size_t)F * H, dw, db, xs, dpre, dg, pre, dw_part,
-                    db_part, dwe_part, dbe_part, T, B, F, splits_w, splits_e, part_rows, stream);
             } else {
                 // enc5's f32 design (lstm_f32.cuh); enc2's with fused's two
-                // sums, enc4's and enc6's as lstm_enc.cu's lstm_enc_backward
-                // calls it
+                // sums, enc3's, enc4's and enc6's as lstm_enc.cu's
+                // lstm_enc_backward calls it
                 if (D != H) return cudaErrorInvalidValue;
                 return f32::enc5_backward<H, MODE == ENC2>(
                     static_cast<const float*>(feats), h0, c0, w_enc, b_enc, w_ih, w_hh, b,
@@ -492,11 +268,9 @@ struct TmStepBackward {
                 static_cast<E*>(w16), t, t + 1, T, B, splits, phases, stream);
         } else {
             if (w16 || phases != tc::XP_BACKWARD_PHASES) return cudaErrorInvalidValue;
-            return run_backward_steps<H, E, S, XP>(
-                x_proj, h0, c0, nullptr, nullptr, nullptr, w_hh, nullptr, outs, cseq, g_outs,
-                dh_in, dc_in, dh_out, dc_out, nullptr, nullptr, dw_hh, nullptr, dx_proj,
-                nullptr, dg, dw_part, nullptr, nullptr, nullptr, t, t + 1, T, B, 0, splits, 0,
-                (B + BT - 1) / BT, stream);
+            return run_backward_steps<H, E, S>(x_proj, h0, c0, w_hh, outs, cseq, g_outs, dh_in,
+                                               dc_in, dh_out, dc_out, dw_hh, dx_proj, dg,
+                                               dw_part, t, t + 1, T, B, splits, stream);
         }
     }
     template <typename... Args>
@@ -539,14 +313,12 @@ int lstm_enc2_forward(const void* feats, const float* h0, const float* c0,
 // Scratch: xs and dpre (T, B, H) and dg (T, B, 4H) in the compute dtype;
 // dw_part (splits_w, 2H, 4H) and db_part (part_rows, 4H) f32, part_rows =
 // ceil(B / 64) in bf16 and ceil(B / 32) in f32; dwe_part (splits_e, F + 1,
-// H) but in enc3's f32 backward (splits_e, F, H), which alone takes
-// dbe_part (part_rows, H) (null elsewhere); pre: in bf16 the P slab (as
-// lstm_enc_backward's) f32, in f32 enc2's, enc4's and enc6's as
-// lstm_enc_backward's f32 `pre` (the activations (T * B * 4H), then W_ih^T
-// and W_hh^T), enc3's its activations slab (T, B, 4H) f32; bf16 only (null
-// in f32): w16 (2H * 4H + 4H * H + B * H + F * H) bf16. phases: 4 runs the
+// H); dbe_part null (no backward reads it); pre: in bf16 the P slab (as
+// lstm_enc_backward's) f32, in f32 lstm_enc_backward's f32 `pre` (the
+// activations (T * B * 4H), then W_ih^T and W_hh^T); bf16 only (null in
+// f32): w16 (2H * 4H + 4H * H + B * H + F * H) bf16. phases: 4 runs the
 // whole backward; 1 .. 3 stop after the encoder and the pre-pass, the loop
-// or dpre (to time them), but in enc3's f32 backward, which takes 4 alone.
+// or dpre (to time them).
 #define TC_BACKWARD(NAME, MODE)                                                             \
     int NAME(const void* feats, const float* h0, const float* c0, const float* w_enc,       \
              const float* b_enc, const float* w_ih, const float* w_hh, const float* b,      \

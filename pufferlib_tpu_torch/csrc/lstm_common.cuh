@@ -3,36 +3,34 @@
 // those files for which TPU kernel each replaces and what bounds it.
 //
 // The FMA cell kernels below (cell_forward, cell_backward) run in f32
-// what has no other f32 design: lstm_scan (mode XP), lstm_scan_enc's step
-// backward (ENC) and the archived enc2 forward (ENC2) and tm (XP); the
-// f32 pairs of cat and fused (modes CAT and FUSED) and enc5 run
-// csrc/lstm_f32.cuh. A Mode (below) says which function a cell kernel
+// what has no other f32 design: lstm_scan and the archived tm (mode XP,
+// both ways) and the archived enc2's forward (ENC2); the f32 pairs of cat
+// and fused (modes CAT and FUSED), enc5 and every encoder-fused backward
+// (lstm_scan_enc's step backward, the archived enc2, enc3, enc4 and enc6)
+// run csrc/lstm_f32.cuh. A Mode (below) says which function a cell kernel
 // computes per step:
 //
-// * cell_forward: one block per BT = 32 batch rows walks t = 0..T-1. Per
-//   step it builds the operand [x_t | h] (rounded to the compute dtype)
-//   in shared memory, computes gates = [x_t | h] @ [W_ih; W_hh] + b with
-//   f32 accumulation, and updates c and h in registers. [W_ih; W_hh] is
-//   (D+H, 4H) = 256 KiB in f32 at H = 128, more than a block's 227 KiB of
-//   shared memory, so it is streamed from L2 (where it stays resident:
-//   every block reads the same weights) in chunks of KC rows, each
-//   rounded to the compute dtype as it is staged. With ENC the step first
-//   computes x_t = relu(feats_t @ W_enc + b_enc) from a W_enc held in
-//   shared memory, so no encoded sequence ever reaches device memory.
-//   The modes XP and ENC2 keep two f32 sums apart, as their TPU kernels
-//   do: the recurrent h @ W_hh, and the term it is added to (x_proj_t
-//   read from device memory, or x_t @ W_ih + b computed first).
-// * cell_backward: the same blocks walk t = T-1..0. Per step they
-//   recompute the gates from [x_t | h_prev] (h_prev read back from the
+// * cell_forward (XP, ENC2): one block per BT = 32 batch rows walks
+//   t = 0..T-1. Per step it builds the operand [x_t | h] (rounded to the
+//   compute dtype) in shared memory, computes the gates with f32
+//   accumulation, and updates c and h in registers. W_hh, and with ENC2
+//   W_ih, is streamed from L2 (where it stays resident: every block reads
+//   the same weights; [W_ih; W_hh] is (D+H, 4H) = 256 KiB in f32 at
+//   H = 128, more than a block's 227 KiB of shared memory) in chunks of
+//   KC rows, each rounded to the compute dtype as it is staged. ENC2's
+//   step first computes x_t = relu(feats_t @ W_enc + b_enc) from a W_enc
+//   held in shared memory, so no encoded sequence ever reaches device
+//   memory. Both modes keep two f32 sums apart, as their TPU kernels do:
+//   the recurrent h @ W_hh, and the term it is added to (x_proj_t read
+//   from device memory, or x_t @ W_ih + b computed first).
+// * cell_backward (XP): the same blocks walk t = T-1..0. Per step they
+//   recompute the gates from x_proj_t and h_prev (read back from the
 //   stored outs), carry the dh/dc chain in registers, round dgates to the
-//   compute dtype, and compute [dx | dh_prev] = dgates @ [W_ih; W_hh]^T,
-//   again streaming the weights in chunks. dgates go to a (T*B, 4H) slab
-//   in the compute dtype; db (and, with ENC, db_enc) are summed per block.
-//   Its pieces (gate_sums, dgates_chain, cols_gemm, store_bias_partials)
-//   also serve the archived enc3's f32 backward (csrc/lstm_archive.cu),
-//   the one archived schedule left on FMA. Both cell kernels walk a range
-//   of steps, so that a launch per timestep (the time-major variant) is
-//   the same kernel over one step.
+//   compute dtype, and compute dh_prev = dgates @ W_hh^T, streaming W_hh's
+//   columns in chunks. The f32 dgates go to dx_proj, the rounded ones to
+//   the slab that dW_hh reads. Both cell kernels walk a range of steps,
+//   so that a launch per timestep (the time-major variant) is the same
+//   kernel over one step.
 // * the split-K (splitk) + reduce_partials: the weight gradients
 //   dW = [x | h_prev]^T dgates (and dW_enc = feats^T dpre) are
 //   contractions over K = T*B rows. The TPU kernels add them into one
@@ -109,7 +107,7 @@ enum Mode {
     FUSED,  // gates = (x_t @ W_ih + b) + h @ W_hh: two f32 sums, then added
             // (lstm._fwd_fused_kernel, _bwd_fused_kernel)
     // The archived variants (csrc/lstm_archive.cu), all behind the encoder;
-    // on FMA ENC2's forward and ENC3's backward, the others in bf16 only
+    // on FMA ENC2's forward alone, the others in bf16 only
     // (csrc/lstm_tc.cuh):
     ENC2,   // FUSED whose first sum passes through the compute dtype before
             // the recurrent one is added; backward with f32 activations and
@@ -192,44 +190,40 @@ __device__ __forceinline__ void put_rows(float* w_s, const float4 (&r)[RowChunk<
     }
 }
 
-// Column chunk: columns k0 .. k0+KC of rows N0 .. N1 of [W_ih; W_hh]
-// (K, G), read as float4s along the row; stored transposed as
-// w_s[kk * KS + n], with the row stride padded to KS = K + 1 against bank
-// conflicts. A range that leaves out W_ih (N0 = D) or W_hh (N1 = D) stages
-// the other's rows at the same places.
-template <int H, int N0, int N1>
+// Column chunk: columns k0 .. k0+KC of W_hh (H, G), read as float4s along
+// the row; stored transposed as w_s[kk * KS + n], with the row stride
+// padded to KS = H + 1 against bank conflicts.
+template <int H>
 struct ColChunk {
-    static constexpr int KS = Tile<H>::K + 1;
-    static constexpr int TOTAL = KC / 4 * (N1 - N0);  // float4s per chunk
+    static constexpr int KS = H + 1;
+    static constexpr int TOTAL = KC / 4 * H;  // float4s per chunk
     static constexpr int LOADS = (TOTAL + NT - 1) / NT;
     static constexpr bool FULL = TOTAL % NT == 0;
 };
 
-template <int H, int N0, int N1>
-__device__ __forceinline__ void fetch_cols(float4 (&r)[ColChunk<H, N0, N1>::LOADS],
-                                           const float* w_ih, const float* w_hh, int k0) {
-    using CC = ColChunk<H, N0, N1>;
-    constexpr int D = Tile<H>::D, G = Tile<H>::G;
+template <int H>
+__device__ __forceinline__ void fetch_cols(float4 (&r)[ColChunk<H>::LOADS], const float* w_hh,
+                                           int k0) {
+    using CC = ColChunk<H>;
+    constexpr int G = Tile<H>::G;
 #pragma unroll
     for (int q = 0; q < CC::LOADS; ++q) {
         const int idx = threadIdx.x + q * NT;
         if (!CC::FULL && idx >= CC::TOTAL) break;
-        const int n = N0 + idx / (KC / 4), k4 = idx % (KC / 4);
-        const float* row = n < D ? w_ih + (size_t)n * G : w_hh + (size_t)(n - D) * G;
-        r[q] = reinterpret_cast<const float4*>(row + k0)[k4];
+        const int n = idx / (KC / 4), k4 = idx % (KC / 4);
+        r[q] = reinterpret_cast<const float4*>(w_hh + (size_t)n * G + k0)[k4];
     }
 }
 
-template <int H, typename E, int N0, int N1>
-__device__ __forceinline__ void put_cols(float* w_s,
-                                         const float4 (&r)[ColChunk<H, N0, N1>::LOADS]) {
-    using CC = ColChunk<H, N0, N1>;
+template <int H, typename E>
+__device__ __forceinline__ void put_cols(float* w_s, const float4 (&r)[ColChunk<H>::LOADS]) {
+    using CC = ColChunk<H>;
     constexpr int KS = CC::KS;
 #pragma unroll
     for (int q = 0; q < CC::LOADS; ++q) {
         const int idx = threadIdx.x + q * NT;
         if (!CC::FULL && idx >= CC::TOTAL) break;
-        const int n = N0 + idx / (KC / 4), k4 = idx % (KC / 4);
+        const int n = idx / (KC / 4), k4 = idx % (KC / 4);
         const float4 v = to_cdt4(r[q], std::is_same<E, bf16>::value);
         w_s[(4 * k4) * KS + n] = v.x;
         w_s[(4 * k4 + 1) * KS + n] = v.y;
@@ -239,15 +233,13 @@ __device__ __forceinline__ void put_cols(float* w_s,
 }
 
 // acc[g][i] = sum_k op_s[k][r0 + i] * W[k][g*H + j] over KBEG <= k < KEND,
-// rows of [W_ih; W_hh] (all K of them for the combined operand; D..K for
-// the recurrent half alone, 0..D for the input half), with the weights
-// streamed through w_s. op_s is (K, BT), already rounded. Every thread of
-// the block must call it; it ends with a barrier, after which op_s and
-// w_s may be written again. PREFETCH keeps the next chunk in flight
-// during this one: it pays where the block already runs one per SM (the
-// backward, 180 registers), and costs the forward its second block per
-// SM (126 registers without it).
-template <int H, typename E, bool PREFETCH, int KBEG = 0, int KEND = Tile<H>::K>
+// rows of [W_ih; W_hh] (D..K for the recurrent half, 0..D for the input
+// half), with the weights streamed through w_s. op_s is (K, BT), already
+// rounded. Every thread of the block must call it; it ends with a
+// barrier, after which op_s and w_s may be written again. A chunk is
+// fetched when its turn comes: keeping the next one in flight would cost
+// the forward its second block per SM (126 registers without it).
+template <int H, typename E, int KBEG, int KEND>
 __device__ __forceinline__ void gates_gemm(float (&acc)[4][Tile<H>::RPT],
                                            const float* op_s, float* w_s,
                                            const float* w_ih, const float* w_hh,
@@ -259,12 +251,10 @@ __device__ __forceinline__ void gates_gemm(float (&acc)[4][Tile<H>::RPT],
 #pragma unroll
         for (int i = 0; i < RPT; ++i) acc[g][i] = 0.f;
     float4 next[RowChunk<H>::LOADS];
-    if (PREFETCH) fetch_rows<H>(next, w_ih, w_hh, KBEG);
     for (int k0 = KBEG; k0 < KEND; k0 += KC) {
-        if (!PREFETCH) fetch_rows<H>(next, w_ih, w_hh, k0);
+        fetch_rows<H>(next, w_ih, w_hh, k0);
         put_rows<H, E>(w_s, next);
         __syncthreads();
-        if (PREFETCH && k0 + KC < KEND) fetch_rows<H>(next, w_ih, w_hh, k0 + KC);
 #pragma unroll 4
         for (int kk = 0; kk < KC; ++kk) {
             const float* wr = w_s + kk * G;
@@ -338,79 +328,59 @@ __device__ __forceinline__ void load_x_proj(float (&pre)[4][Tile<H>::RPT], const
 }
 
 // The gate pre-activations of one step, into acc, from the operand
-// [x_t | h] in op_s. ENC, ENC3: one sum over K = D + H, plus b. ENC2:
-// (x_t @ W_ih + b), rounded to the compute dtype, + h @ W_hh. XP: pre
-// (x_proj_t, loaded by the caller) + h @ W_hh.
-template <int H, typename E, int MODE, bool PREFETCH>
+// [x_t | h] in op_s: two f32 sums, the recurrent one h @ W_hh added last.
+// ENC2: (x_t @ W_ih + b), rounded to the compute dtype, + h @ W_hh. XP:
+// pre (x_proj_t, loaded by the caller) + h @ W_hh.
+template <int H, typename E, int MODE>
 __device__ __forceinline__ void gate_sums(float (&acc)[4][Tile<H>::RPT],
                                           float (&pre)[4][Tile<H>::RPT], const float* op_s,
                                           float* w_s, const float* w_ih, const float* w_hh,
                                           const float (&bias)[4], int r0, int j) {
     constexpr int D = Tile<H>::D, K = Tile<H>::K, RPT = Tile<H>::RPT;
+    static_assert(MODE == ENC2 || MODE == XP, "the FMA cell runs XP and ENC2");
     if constexpr (MODE == ENC2) {
-        gates_gemm<H, E, PREFETCH, 0, D>(acc, op_s, w_s, w_ih, w_hh, r0, j);
+        gates_gemm<H, E, 0, D>(acc, op_s, w_s, w_ih, w_hh, r0, j);
 #pragma unroll
         for (int g = 0; g < 4; ++g)
 #pragma unroll
             for (int i = 0; i < RPT; ++i) pre[g][i] = to_cdt<E>(acc[g][i] + bias[g]);
     }
-    if constexpr (two_sums(MODE)) {
-        gates_gemm<H, E, PREFETCH, D, K>(acc, op_s, w_s, w_ih, w_hh, r0, j);
+    gates_gemm<H, E, D, K>(acc, op_s, w_s, w_ih, w_hh, r0, j);
 #pragma unroll
-        for (int g = 0; g < 4; ++g)
+    for (int g = 0; g < 4; ++g)
 #pragma unroll
-            for (int i = 0; i < RPT; ++i) acc[g][i] = pre[g][i] + acc[g][i];
-    } else {
-        gates_gemm<H, E, PREFETCH>(acc, op_s, w_s, w_ih, w_hh, r0, j);
-#pragma unroll
-        for (int g = 0; g < 4; ++g)
-#pragma unroll
-            for (int i = 0; i < RPT; ++i) acc[g][i] += bias[g];
-    }
+        for (int i = 0; i < RPT; ++i) acc[g][i] = pre[g][i] + acc[g][i];
 }
 
-// ax[i] = sum_k dg[k][r0 + i] * W_ih[j][k] and ah[i] the same with W_hh,
-// dg (G, BT) of shared memory, already rounded: [dx | dh_prev] = dgates @
-// [W_ih; W_hh]^T for rows N0 .. N1 of the weights, whose columns are
-// streamed through w_s. A range without W_ih leaves ax at zero, one
-// without W_hh ah. Every thread of the block must call it; it ends with a
-// barrier.
-template <int H, typename E, int N0, int N1>
-__device__ __forceinline__ void cols_gemm(float (&ax)[Tile<H>::RPT], float (&ah)[Tile<H>::RPT],
-                                          const float* dg, float* w_s, const float* w_ih,
-                                          const float* w_hh, int r0, int j) {
-    constexpr int D = Tile<H>::D, G = Tile<H>::G, RPT = Tile<H>::RPT;
-    constexpr bool XH = N0 < D, HH = N1 > D;
-    using CC = ColChunk<H, N0, N1>;
+// ah[i] = sum_k dg[k][r0 + i] * W_hh[j][k], dg (G, BT) of shared memory,
+// already rounded: dh_prev = dgates @ W_hh^T, with W_hh's columns streamed
+// through w_s, the next chunk in flight during this one. Every thread of
+// the block must call it; it ends with a barrier.
+template <int H, typename E>
+__device__ __forceinline__ void cols_gemm(float (&ah)[Tile<H>::RPT], const float* dg,
+                                          float* w_s, const float* w_hh, int r0, int j) {
+    constexpr int G = Tile<H>::G, RPT = Tile<H>::RPT;
+    using CC = ColChunk<H>;
     constexpr int KS = CC::KS;
 #pragma unroll
-    for (int i = 0; i < RPT; ++i) ax[i] = ah[i] = 0.f;
+    for (int i = 0; i < RPT; ++i) ah[i] = 0.f;
     float4 next[CC::LOADS];
-    fetch_cols<H, N0, N1>(next, w_ih, w_hh, 0);
+    fetch_cols<H>(next, w_hh, 0);
     for (int k0 = 0; k0 < G; k0 += KC) {
-        put_cols<H, E, N0, N1>(w_s, next);
+        put_cols<H, E>(w_s, next);
         __syncthreads();
-        if (k0 + KC < G) fetch_cols<H, N0, N1>(next, w_ih, w_hh, k0 + KC);
+        if (k0 + KC < G) fetch_cols<H>(next, w_hh, k0 + KC);
 #pragma unroll 4
         for (int kk = 0; kk < KC; ++kk) {
-            const float wx = XH ? w_s[kk * KS + j] : 0.f;
-            const float wh = HH ? w_s[kk * KS + D + j] : 0.f;
+            const float wh = w_s[kk * KS + j];
             const float4* dv = reinterpret_cast<const float4*>(dg + (k0 + kk) * BT + r0);
 #pragma unroll
             for (int q = 0; q < RPT / 4; ++q) {
                 const float4 v = dv[q];
-                if constexpr (XH) {
-                    ax[4 * q] = fmaf(v.x, wx, ax[4 * q]);
-                    ax[4 * q + 1] = fmaf(v.y, wx, ax[4 * q + 1]);
-                    ax[4 * q + 2] = fmaf(v.z, wx, ax[4 * q + 2]);
-                    ax[4 * q + 3] = fmaf(v.w, wx, ax[4 * q + 3]);
-                }
-                if constexpr (HH) {
-                    ah[4 * q] = fmaf(v.x, wh, ah[4 * q]);
-                    ah[4 * q + 1] = fmaf(v.y, wh, ah[4 * q + 1]);
-                    ah[4 * q + 2] = fmaf(v.z, wh, ah[4 * q + 2]);
-                    ah[4 * q + 3] = fmaf(v.w, wh, ah[4 * q + 3]);
-                }
+                ah[4 * q] = fmaf(v.x, wh, ah[4 * q]);
+                ah[4 * q + 1] = fmaf(v.y, wh, ah[4 * q + 1]);
+                ah[4 * q + 2] = fmaf(v.z, wh, ah[4 * q + 2]);
+                ah[4 * q + 3] = fmaf(v.w, wh, ah[4 * q + 3]);
             }
         }
         __syncthreads();
@@ -435,37 +405,9 @@ __device__ __forceinline__ void dgates_chain(float (&d)[4], float& dc, float dhv
     dc = dcv * af;
 }
 
-// The block's bias gradients: every thread's sums added over the row
-// groups in order, into row blockIdx.x of db_part (G wide) and, with
-// ENCODER, dbe_part (D wide). red is RG * (G + D) floats of shared memory
-// whose last use ended on a barrier.
-template <int H, bool ENCODER>
-__device__ __forceinline__ void store_bias_partials(float* red, const float (&db_acc)[4],
-                                                    float dbe_acc, float* db_part,
-                                                    float* dbe_part, int rg, int j) {
-    constexpr int D = Tile<H>::D, G = Tile<H>::G, RG = Tile<H>::RG;
-    float* red_e = red + RG * G;   // (RG, D)
-#pragma unroll
-    for (int g = 0; g < 4; ++g) red[rg * G + g * H + j] = db_acc[g];
-    if constexpr (ENCODER) red_e[rg * D + j] = dbe_acc;
-    __syncthreads();
-    for (int n = threadIdx.x; n < G; n += NT) {
-        float s = 0.f;
-        for (int q = 0; q < RG; ++q) s += red[q * G + n];
-        db_part[(size_t)blockIdx.x * G + n] = s;
-    }
-    if constexpr (ENCODER) {
-        for (int n = threadIdx.x; n < D; n += NT) {
-            float s = 0.f;
-            for (int q = 0; q < RG; ++q) s += red_e[q * D + n];
-            dbe_part[(size_t)blockIdx.x * D + n] = s;
-        }
-    }
-}
-
-// xin: ENC and ENC2, feats (T, B, F); XP, x_proj (T, B, 4H) in its own
-// dtype S (S is E in the other modes): the modes without an encoder but
-// XP (CAT, FUSED) run lstm_f32.cuh in f32 and have no FMA cell. A null
+// xin: ENC2, feats (T, B, F); XP, x_proj (T, B, 4H) in its own dtype S
+// (S is E in ENC2): the other modes run lstm_f32.cuh in f32 and have no
+// FMA cell. A null
 // cseq skips its store: the forward of a call that needs no gradient. The
 // block walks steps t_lo .. t_hi-1 of the sequence, from the state h0, c0
 // before step t_lo to hT, cT after step t_hi-1: the whole sequence in one
@@ -481,7 +423,7 @@ __global__ void __launch_bounds__(NT) cell_forward(
     using TL = Tile<H>;
     constexpr int D = TL::D, K = TL::K, G = TL::G, RPT = TL::RPT;
     constexpr bool ENCODER = has_encoder(MODE);
-    static_assert(ENCODER || MODE == XP, "CAT and FUSED run lstm_f32.cuh in f32");
+    static_assert(MODE == ENC2 || MODE == XP, "the other modes run lstm_f32.cuh in f32");
     extern __shared__ __align__(16) float smem[];
     float* xh_s = smem;               // (K, BT): [x_t | h], rounded
     float* w_s = xh_s + K * BT;       // (KC, G): staged weight rows
@@ -525,7 +467,7 @@ __global__ void __launch_bounds__(NT) cell_forward(
             load_x_proj<H>(pre, xin, base, nrows, r0, j);
         }
         __syncthreads();
-        gate_sums<H, E, MODE, false>(acc, pre, xh_s, w_s, w_ih, w_hh, bias, r0, j);
+        gate_sums<H, E, MODE>(acc, pre, xh_s, w_s, w_ih, w_hh, bias, r0, j);
 #pragma unroll
         for (int i = 0; i < RPT; ++i) {
             const int r = r0 + i;
@@ -554,51 +496,33 @@ __global__ void __launch_bounds__(NT) cell_forward(
     }
 }
 
-// xin as the forward's. xo: ENC and ENC5, the x slab (T, B, D) that the
-// dW_ih contraction reads; XP,
-// dx_proj (T, B, 4H), the f32 dgates stored in x_proj's dtype S. dg is the
-// slab of dgates rounded to the compute dtype that the weight-gradient
-// contractions read; XP passes a null dg where dx_proj serves as that
-// slab (S is E, or S is f32 and the contraction rounds as it loads).
-// dpre and dbe_part are ENC and ENC5 only; XP has no bias and no db_part.
-// The block walks steps t_hi-1 .. t_lo, from the gradients g_hT, g_cT that
-// enter step t_hi-1 to dh0, dc0 that leave step t_lo (h0 and c0 stay the
-// state before step 0): the whole sequence, or one step per launch.
-template <int H, typename E, typename S, int MODE>
+// The reverse of mode XP: x_proj (T, B, 4H) in its own dtype S; dx_proj
+// (T, B, 4H), the f32 dgates stored in S. dg is the slab of dgates rounded
+// to the compute dtype that the dW_hh contraction reads; a null dg where
+// dx_proj serves as that slab (S is E, or S is f32 and the contraction
+// rounds as it loads). The block walks steps t_hi-1 .. t_lo, from the
+// gradients g_hT, g_cT that enter step t_hi-1 to dh0, dc0 that leave step
+// t_lo (h0 and c0 stay the state before step 0): the whole sequence, or
+// one step per launch.
+template <int H, typename E, typename S>
 __global__ void __launch_bounds__(NT) cell_backward(
-        const S* __restrict__ xin, const float* __restrict__ h0,
-        const float* __restrict__ c0, const float* __restrict__ w_enc,
-        const float* __restrict__ b_enc, const float* __restrict__ w_ih,
-        const float* __restrict__ w_hh, const float* __restrict__ b,
+        const S* __restrict__ x_proj, const float* __restrict__ h0,
+        const float* __restrict__ c0, const float* __restrict__ w_hh,
         const E* __restrict__ outs, const E* __restrict__ cseq,
         const E* __restrict__ g_outs, const float* __restrict__ g_hT,
         const float* __restrict__ g_cT, float* __restrict__ dh0,
-        float* __restrict__ dc0, S* __restrict__ xo, E* __restrict__ dpre,
-        E* __restrict__ dg, float* __restrict__ db_part,
-        float* __restrict__ dbe_part, int t_lo, int t_hi, int B, int F) {
+        float* __restrict__ dc0, S* __restrict__ dx_proj, E* __restrict__ dg, int t_lo,
+        int t_hi, int B) {
     using TL = Tile<H>;
-    constexpr int D = TL::D, K = TL::K, G = TL::G, RPT = TL::RPT;
-    constexpr bool ENCODER = has_encoder(MODE);
-    static_assert(ENCODER || MODE == XP, "CAT and FUSED run lstm_f32.cuh in f32");
+    constexpr int D = TL::D, G = TL::G, RPT = TL::RPT;
     extern __shared__ __align__(16) float smem[];
-    float* buf = smem;                // (K, BT) [x_t | h_prev], then (G, BT) dgates
+    float* buf = smem;                // (K, BT) h_prev in rows D .. K, then (G, BT) dgates
     float* w_s = buf + G * BT;        // (KC, G) weight rows / (KC, KS) columns
-    float* we_s = w_s + KC * G;       // encoder: (F, D)
-    float* f_s = we_s + F * D;        // encoder: (F, BT)
 
-    const int j = threadIdx.x % H, rg = threadIdx.x / H, r0 = rg * RPT;
+    const int j = threadIdx.x % H, r0 = (threadIdx.x / H) * RPT;
     const int row0 = blockIdx.x * BT;
     const int nrows = min(BT, B - row0);
-    float bias[4] = {0.f, 0.f, 0.f, 0.f};
-    if constexpr (MODE != XP) {
-#pragma unroll
-        for (int g = 0; g < 4; ++g) bias[g] = b[g * H + j];
-    }
-    float be = 0.f;
-    if constexpr (ENCODER) {
-        be = b_enc[j];
-        for (int i = threadIdx.x; i < F * D; i += NT) we_s[i] = to_cdt<E>(w_enc[i]);
-    }
+    const float bias[4] = {0.f, 0.f, 0.f, 0.f};  // XP has none
     float dh[RPT], dc[RPT];
 #pragma unroll
     for (int i = 0; i < RPT; ++i) {
@@ -607,53 +531,28 @@ __global__ void __launch_bounds__(NT) cell_backward(
         dh[i] = r < nrows ? g_hT[idx] : 0.f;
         dc[i] = r < nrows ? g_cT[idx] : 0.f;
     }
-    float db_acc[4] = {0.f, 0.f, 0.f, 0.f};
-    float dbe_acc = 0.f;
 
     for (int t = t_hi - 1; t >= t_lo; --t) {
         const size_t base = (size_t)t * B + row0;
-        float x[RPT];
         float acc[4][RPT], pre[4][RPT];
-        if constexpr (ENCODER) {
-            load_rows<E>(f_s, xin, base, F, nrows);
-            __syncthreads();
-            encode_rows<H>(x, f_s, we_s, be, F, r0, j);
-#pragma unroll
-            for (int i = 0; i < RPT; ++i) {
-                const int r = r0 + i;
-                x[i] = to_cdt<E>(x[i]);
-                buf[j * BT + r] = x[i];
-                if (r < nrows) st(xo, (base + r) * D + j, x[i]);
-            }
-        } else {
-            load_x_proj<H>(pre, xin, base, nrows, r0, j);
-        }
+        load_x_proj<H>(pre, x_proj, base, nrows, r0, j);
         // h_prev: h0 at t = 0, else the stored outs of t - 1
         if (t == 0)
             load_rows<E>(buf + D * BT, h0, (size_t)row0, H, nrows);
         else
             load_rows<E>(buf + D * BT, outs, base - B, H, nrows);
         __syncthreads();
-        // the second accumulator of XP takes the registers of
-        // the prefetched chunk
-        gate_sums<H, E, MODE, !two_sums(MODE)>(acc, pre, buf, w_s, w_ih, w_hh, bias, r0, j);
+        gate_sums<H, E, XP>(acc, pre, buf, w_s, nullptr, w_hh, bias, r0, j);
 
 #pragma unroll
         for (int i = 0; i < RPT; ++i) {
             const int r = r0 + i;
             const bool ok = r < nrows;
             const size_t idx = (base + r) * H + j;
-            float ai = sigm(acc[0][i]);
-            float af = sigm(acc[1][i]);
-            float ag = tanhf(acc[2][i]);
-            float ao = sigm(acc[3][i]);
-            if constexpr (rounded_acts(MODE)) {
-                // the enc5 activation slab is stored in the compute dtype
-                ai = to_cdt<E>(ai);
-                af = to_cdt<E>(af);
-                ag = to_cdt<E>(ag);
-                ao = to_cdt<E>(ao);
-            }
+            const float ai = sigm(acc[0][i]);
+            const float af = sigm(acc[1][i]);
+            const float ag = tanhf(acc[2][i]);
+            const float ao = sigm(acc[3][i]);
             const float gout = ok ? ld(g_outs, idx) : 0.f;
             const float ct = ok ? ld(cseq, idx) : 0.f;
             const float cp = !ok ? 0.f
@@ -667,35 +566,18 @@ __global__ void __launch_bounds__(NT) cell_backward(
                 buf[(g * H + j) * BT + r] = dcg;
                 if (ok) {
                     const size_t at = (base + r) * G + g * H + j;
-                    if constexpr (MODE == XP) {
-                        st(xo, at, d[g]);
-                        if (dg) st(dg, at, dcg);
-                    } else {
-                        st(dg, at, dcg);
-                        // enc5 sums the rounded slab, the others the f32 dgates
-                        db_acc[g] += rounded_db(MODE) ? dcg : d[g];
-                    }
+                    st(dx_proj, at, d[g]);
+                    if (dg) st(dg, at, dcg);
                 }
             }
         }
         __syncthreads();
 
-        // [dx | dh_prev] = dgates @ [W_ih; W_hh]^T (XP: dh_prev alone),
-        // streaming columns
-        float ax[RPT], ah[RPT];
-        cols_gemm<H, E, MODE == XP ? D : 0, K>(ax, ah, buf, w_s, w_ih, w_hh, r0, j);
+        // dh_prev = dgates @ W_hh^T, streaming columns
+        float ah[RPT];
+        cols_gemm<H, E>(ah, buf, w_s, w_hh, r0, j);
 #pragma unroll
-        for (int i = 0; i < RPT; ++i) {
-            const int r = r0 + i;
-            dh[i] = ah[i];
-            if (r >= nrows) continue;
-            const size_t idx = (base + r) * D + j;
-            if constexpr (ENCODER) {
-                const float p = to_cdt<E>(x[i] > 0.f ? ax[i] : 0.f);
-                st(dpre, idx, p);
-                dbe_acc += p;
-            }
-        }
+        for (int i = 0; i < RPT; ++i) dh[i] = ah[i];
     }
 #pragma unroll
     for (int i = 0; i < RPT; ++i) {
@@ -705,10 +587,6 @@ __global__ void __launch_bounds__(NT) cell_backward(
             dh0[idx] = dh[i];
             dc0[idx] = dc[i];
         }
-    }
-    if constexpr (MODE != XP) {
-        // buf is free: the loop ended on a barrier
-        store_bias_partials<H, ENCODER>(buf, db_acc, dbe_acc, db_part, dbe_part, rg, j);
     }
 }
 
@@ -1106,10 +984,9 @@ inline size_t forward_smem(int H, int F, bool enc) {
                             (enc ? (size_t)F * H + (size_t)F * BT : 0));
 }
 
-// the (KC, 2H + 1) column chunk fits in the (KC, 4H) row chunk's place
-inline size_t backward_smem(int H, int F, bool enc) {
-    return sizeof(float) * ((size_t)4 * H * BT + (size_t)KC * 4 * H +
-                            (enc ? (size_t)F * H + (size_t)F * BT : 0));
+// the (KC, H + 1) column chunk fits in the (KC, 4H) row chunk's place
+inline size_t backward_smem(int H) {
+    return sizeof(float) * ((size_t)4 * H * BT + (size_t)KC * 4 * H);
 }
 
 template <typename Kernel>
@@ -1187,99 +1064,52 @@ cudaError_t splitk(SA a, SB bm, float* part, float* out, int M, int N, long long
     return reduce(part, out, splits, (long long)M * N, stream);
 }
 
-// The weight and bias gradients behind the encoder, after a recurrent
-// kernel has left the x slab xs, the rounded dgates dg and dpre in device
-// memory and its blocks' bias sums in db_part and dbe_part (nblk rows):
-// dw = [xs | h_prev]^T dg (D + H, 4H), dw_enc = feats^T dpre, both split-K,
-// and db, db_enc as the ordered sums of the partials.
-template <int H, typename E>
-cudaError_t encoder_weight_grads(const void* feats, const float* h0, const void* outs,
-                                 const void* xs, const void* dpre, const void* dg,
-                                 float* dw_enc, float* db_enc, float* dw, float* db,
-                                 float* dw_part, float* db_part, float* dwe_part,
-                                 float* dbe_part, int T, int B, int F, int splits_w,
-                                 int splits_e, int nblk, cudaStream_t stream) {
-    constexpr int D = H, G = 4 * H;
-    const long long K = (long long)T * B;
-    XHRows<E> xh{static_cast<const E*>(xs), h0, static_cast<const E*>(outs), B, D, H};
-    Rows<E> dgates{static_cast<const E*>(dg), G};
-    cudaError_t err = splitk<E>(xh, dgates, dw_part, dw, D + H, G, K, splits_w, stream);
-    if (err != cudaSuccess) return err;
-    if ((err = reduce(db_part, db, nblk, G, stream)) != cudaSuccess) return err;
-    Rows<E> f{static_cast<const E*>(feats), F};
-    Rows<E> dp{static_cast<const E*>(dpre), D};
-    if ((err = splitk<E>(f, dp, dwe_part, dw_enc, F, D, K, splits_e, stream)) != cudaSuccess)
-        return err;
-    return reduce(dbe_part, db_enc, nblk, D, stream);
-}
-
-// Steps t_hi-1 .. t_lo of the backward (cell_backward) and, once step 0 is
-// done, the split-K weight gradients and the ordered sums of every
-// partial. dw is [dW_ih; dW_hh] (D + H, 4H); XP: dW_hh (H, 4H) alone, and
-// no db. T is the length of the whole sequence.
-template <int H, typename E, typename S, int MODE>
-cudaError_t run_backward_steps(const void* xin, const float* h0, const float* c0,
-                               const float* w_enc, const float* b_enc, const float* w_ih,
-                               const float* w_hh, const float* b, const void* outs,
-                               const void* cseq, const void* g_outs, const float* g_hT,
-                               const float* g_cT, float* dh0, float* dc0, float* dw_enc,
-                               float* db_enc, float* dw, float* db, void* xo, void* dpre,
-                               void* dg, float* dw_part, float* db_part, float* dwe_part,
-                               float* dbe_part, int t_lo, int t_hi, int T, int B, int F,
-                               int splits_w, int splits_e, int part_rows,
+// Steps t_hi-1 .. t_lo of mode XP's backward (cell_backward) and, once
+// step 0 is done, dW_hh (H, 4H) = h_prev^T dgates by the split-K, its
+// partials added in split order. T is the length of the whole sequence.
+template <int H, typename E, typename S>
+cudaError_t run_backward_steps(const void* x_proj, const float* h0, const float* c0,
+                               const float* w_hh, const void* outs, const void* cseq,
+                               const void* g_outs, const float* g_hT, const float* g_cT,
+                               float* dh0, float* dc0, float* dw_hh, void* dx_proj, void* dg,
+                               float* dw_part, int t_lo, int t_hi, int T, int B, int splits,
                                cudaStream_t stream) {
     constexpr int G = 4 * H;
-    constexpr bool ENCODER = has_encoder(MODE);
-    const int nblk = (B + BT - 1) / BT;
-    if (part_rows != nblk || splits_w < 1 || (ENCODER && splits_e < 1))
-        return cudaErrorInvalidValue;
-    if (t_lo < 0 || t_lo >= t_hi || t_hi > T) return cudaErrorInvalidValue;
+    if (splits < 1 || t_lo < 0 || t_lo >= t_hi || t_hi > T) return cudaErrorInvalidValue;
     // an f32 contraction cannot read its dgates from a bf16 dx_proj
-    if (MODE == XP && !std::is_same<S, E>::value && std::is_same<S, bf16>::value && !dg)
+    if (!std::is_same<S, E>::value && std::is_same<S, bf16>::value && !dg)
         return cudaErrorInvalidValue;
-    auto kernel = cell_backward<H, E, S, MODE>;
-    const size_t smem = backward_smem(H, F, ENCODER);
+    auto kernel = cell_backward<H, E, S>;
+    const size_t smem = backward_smem(H);
     cudaError_t err = prepare(kernel, smem);
     if (err != cudaSuccess) return err;
-    kernel<<<nblk, NT, smem, stream>>>(
-        static_cast<const S*>(xin), h0, c0, w_enc, b_enc, w_ih, w_hh, b,
-        static_cast<const E*>(outs), static_cast<const E*>(cseq),
-        static_cast<const E*>(g_outs), g_hT, g_cT, dh0, dc0, static_cast<S*>(xo),
-        static_cast<E*>(dpre), static_cast<E*>(dg), db_part, dbe_part, t_lo, t_hi, B, F);
+    kernel<<<(B + BT - 1) / BT, NT, smem, stream>>>(
+        static_cast<const S*>(x_proj), h0, c0, w_hh, static_cast<const E*>(outs),
+        static_cast<const E*>(cseq), static_cast<const E*>(g_outs), g_hT, g_cT, dh0, dc0,
+        static_cast<S*>(dx_proj), static_cast<E*>(dg), t_lo, t_hi, B);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
     if (t_lo > 0) return cudaSuccess;
 
     const long long K = (long long)T * B;
-    if constexpr (MODE == XP) {
-        XHRows<E> h_prev{nullptr, h0, static_cast<const E*>(outs), B, 0, H};
-        if (dg) {
-            Rows<E> dgates{static_cast<const E*>(dg), G};
-            return splitk<E>(h_prev, dgates, dw_part, dw, H, G, K, splits_w, stream);
-        }
-        Rows<E, S> dgates{static_cast<const S*>(xo), G};
-        return splitk<E>(h_prev, dgates, dw_part, dw, H, G, K, splits_w, stream);
-    } else {
-        return encoder_weight_grads<H, E>(xin, h0, outs, xo, dpre, dg, dw_enc, db_enc, dw,
-                                          db, dw_part, db_part, dwe_part, dbe_part, T, B, F,
-                                          splits_w, splits_e, nblk, stream);
+    XHRows<E> h_prev{nullptr, h0, static_cast<const E*>(outs), B, 0, H};
+    if (dg) {
+        Rows<E> dgates{static_cast<const E*>(dg), G};
+        return splitk<E>(h_prev, dgates, dw_part, dw_hh, H, G, K, splits, stream);
     }
+    Rows<E, S> dgates{static_cast<const S*>(dx_proj), G};
+    return splitk<E>(h_prev, dgates, dw_part, dw_hh, H, G, K, splits, stream);
 }
 
 // The whole backward in one launch of the recurrent kernel
-template <int H, typename E, typename S, int MODE>
-cudaError_t run_backward(const void* xin, const float* h0, const float* c0,
-                         const float* w_enc, const float* b_enc, const float* w_ih,
-                         const float* w_hh, const float* b, const void* outs,
-                         const void* cseq, const void* g_outs, const float* g_hT,
-                         const float* g_cT, float* dh0, float* dc0, float* dw_enc,
-                         float* db_enc, float* dw, float* db, void* xo, void* dpre,
-                         void* dg, float* dw_part, float* db_part, float* dwe_part,
-                         float* dbe_part, int T, int B, int F, int splits_w,
-                         int splits_e, int part_rows, cudaStream_t stream) {
-    return run_backward_steps<H, E, S, MODE>(
-        xin, h0, c0, w_enc, b_enc, w_ih, w_hh, b, outs, cseq, g_outs, g_hT, g_cT, dh0, dc0,
-        dw_enc, db_enc, dw, db, xo, dpre, dg, dw_part, db_part, dwe_part, dbe_part, 0, T, T,
-        B, F, splits_w, splits_e, part_rows, stream);
+template <int H, typename E, typename S>
+cudaError_t run_backward(const void* x_proj, const float* h0, const float* c0,
+                         const float* w_hh, const void* outs, const void* cseq,
+                         const void* g_outs, const float* g_hT, const float* g_cT, float* dh0,
+                         float* dc0, float* dw_hh, void* dx_proj, void* dg, float* dw_part,
+                         int T, int B, int splits, cudaStream_t stream) {
+    return run_backward_steps<H, E, S>(x_proj, h0, c0, w_hh, outs, cseq, g_outs, g_hT, g_cT,
+                                       dh0, dc0, dw_hh, dx_proj, dg, dw_part, 0, T, T, B,
+                                       splits, stream);
 }
 
 // dispatch on the hidden size and the compute dtype

@@ -15,8 +15,9 @@
 // sums db and db_enc from the rounded values. The step backward keeps the
 // recomputed activations in f32 and sums db from the unrounded dgates, as
 // its TPU kernel does inside its loop; its dgates, dpre and db_enc round
-// as enc5's. The two differ in bf16 only. The feats cotangent is zero by
-// contract.
+// as enc5's. The two differ in bf16 only: in f32 every rounding is the
+// identity, and the step backward runs enc5's f32 backward. The feats
+// cotangent is zero by contract.
 //
 // Bound: at the bench shapes (T = 16, B = 8192, F = 49, D = H = 128,
 // bf16) the forward does 2*T*B*(F*D + (D+H)*4H) = 36.0 GFLOP and the
@@ -44,22 +45,20 @@
 //   GEMM block's weight column holds, F up to what the encoder GEMM's
 //   block holds (lstm_enc_tc_max_features).
 // * f32, the default compute dtype of both packages (exact: no TF32, the
-//   tensor cores have no exact f32 product): lstm_enc_forward and
-//   lstm_enc_backward run csrc/lstm_f32.cuh, D == H. The encoder, x @ W_ih
-//   and the backward's gate recompute, dpre and weight gradients are FMA
-//   SGEMMs over all T*B rows; the time loops keep W_hh on chip for all T
-//   steps in a thread block cluster, whose blocks exchange h (forward) or
-//   the partial dh_prev (backward) through distributed shared memory. The
+//   tensor cores have no exact f32 product): all three run
+//   csrc/lstm_f32.cuh, D == H, F <= 128. The encoder, x @ W_ih and the
+//   backward's gate recompute, dpre and weight gradients are FMA SGEMMs
+//   over all T*B rows; the time loops keep W_hh on chip for all T steps in
+//   a thread block cluster, whose blocks exchange h (forward) or the
+//   partial dh_prev (backward) through distributed shared memory. The
 //   forward's sums keep the order of the FMA cell (x over k < D, then h,
-//   then b), so its outputs are that kernel's bits. The archived enc2's,
-//   enc4's and enc6's f32 backwards (csrc/lstm_archive.cu) call enc5's.
-//   lstm_enc_step_backward and the archived enc3's f32 backward keep
-//   csrc/lstm_common.cuh's FMA kernels: the encoder runs inside the time
-//   loop of each block from a W_enc held in shared memory (F <= 128); the
-//   TPU kernel's tall pre-pass becomes a per-step recompute inside the
-//   backward's loop; the post-loop contractions dW_ih, dW_hh and dW_enc
-//   are split-K over the T*B rows with partial sums added in a fixed
-//   order.
+//   then b), so its outputs are that kernel's bits. lstm_enc_step_backward
+//   runs enc5's f32 backward, and so do the archived enc3's, enc4's and
+//   enc6's (csrc/lstm_archive.cu): in f32 their functions are enc5's, and
+//   their gradients enc5's bit for bit (the archived enc2's runs it with
+//   two sums). The
+//   step backward's TPU kernel recomputes the gates inside its loop; here
+//   the pre-pass recomputes them over all T*B rows before it.
 #include "lstm_common.cuh"
 #include "lstm_f32.cuh"
 #include "lstm_tc.cuh"
@@ -99,8 +98,8 @@ struct Forward {
 
 // The encoder-fused backwards in mode MODE: ENC5 (enc5's) or ENC
 // (lstm_scan_enc's step backward). bf16 on the tensor cores
-// (tc::backward); f32 with D == H, enc5's on lstm_f32.cuh, the step
-// backward on lstm_common.cuh's FMA kernels.
+// (tc::backward); f32 with D == H, both enc5's on lstm_f32.cuh, whose
+// function the step backward's is in f32.
 template <int MODE>
 struct EncBackward {
     template <int H, typename E>
@@ -123,7 +122,7 @@ struct EncBackward {
                     static_cast<const E*>(cseq), static_cast<const E*>(g_outs), g_hT, g_cT,
                     nullptr, dh0, dc0, dw, db, static_cast<E*>(dg), dw_part, db_part, pre,
                     static_cast<E*>(w16), T, B, D, splits_w, part_rows, phases, stream, enc);
-            } else if constexpr (MODE == lstm::ENC5) {
+            } else {
                 if (D != H) return cudaErrorInvalidValue;
                 return lstm::f32::enc5_backward<H>(
                     static_cast<const float*>(feats), h0, c0, w_enc, b_enc, w_ih, w_hh, b,
@@ -132,12 +131,6 @@ struct EncBackward {
                     static_cast<float*>(xs), static_cast<float*>(dpre), static_cast<float*>(dg),
                     dw_part, db_part, dwe_part, pre, T, B, F, splits_w, splits_e, part_rows,
                     phases, stream);
-            } else {
-                if (phases != lstm::tc::BACKWARD_PHASES || D != H) return cudaErrorInvalidValue;
-                return lstm::run_backward<H, E, E, MODE>(
-                    feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b, outs, cseq, g_outs, g_hT, g_cT,
-                    dh0, dc0, dwe, dwe + (size_t)F * D, dw, db, xs, dpre, dg, dw_part, db_part,
-                    dwe_part, dbe_part, T, B, F, splits_w, splits_e, part_rows, stream);
             }
         }
     };
@@ -188,14 +181,12 @@ int lstm_enc_forward(const void* feats, const float* h0, const float* c0,
 // dW_hh] (D + H, 4H) and db (4H,), f32. Scratch: xs and dpre (T, B, D)
 // and dg (T, B, 4H) in the compute dtype; dw_part (splits_w, D + H, 4H)
 // and db_part (part_rows, 4H) f32, part_rows = ceil(B / 64) in bf16 and
-// ceil(B / 32) in f32; dwe_part (splits_e, F + 1, D), but (splits_e, F,
-// D) in the f32 step backward, which alone takes dbe_part (part_rows, D)
-// (null elsewhere); pre: bf16 as the forward's xw, f32 enc5 (lstm_f32.cuh)
-// the activations (T * B * 4H) then W_ih^T and W_hh^T (4H * (D + H)),
-// null in the f32 step backward; w16 bf16 only ((D + H) * 4H + 4H * D +
-// B * H + F * D). f32 takes D == H. phases: 4 runs the whole backward; in
-// bf16 and f32 enc5, 1 .. 3 stop after the encoder and the pre-pass, the
-// loop or dpre (to time them).
+// ceil(B / 32) in f32; dwe_part (splits_e, F + 1, D); dbe_part null (no
+// backward reads it); pre: bf16 as the forward's xw, f32 (lstm_f32.cuh)
+// the activations (T * B * 4H) then W_ih^T and W_hh^T (4H * (D + H)); w16
+// bf16 only ((D + H) * 4H + 4H * D + B * H + F * D). f32 takes D == H.
+// phases: 4 runs the whole backward; 1 .. 3 stop after the encoder and the
+// pre-pass, the loop or dpre (to time them).
 #define ENC_BACKWARD(NAME, MODE)                                                            \
     int NAME(const void* feats, const float* h0, const float* c0, const float* w_enc,       \
              const float* b_enc, const float* w_ih, const float* w_hh, const float* b,      \
@@ -218,7 +209,8 @@ ENC_BACKWARD(lstm_enc_backward, lstm::ENC5)
 
 // The un-hoisted backward of lstm_scan_enc: lstm_enc_backward's arguments,
 // scratch and phases, in mode ENC (f32 activations, db from the unrounded
-// dgates); bf16 on the tensor cores, f32 on FMA with D == H.
+// dgates) on the tensor cores in bf16; in f32, where those roundings are
+// the identity, enc5's f32 backward.
 ENC_BACKWARD(lstm_enc_step_backward, lstm::ENC)
 #undef ENC_BACKWARD
 

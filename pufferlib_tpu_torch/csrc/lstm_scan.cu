@@ -115,11 +115,9 @@ struct ScanBackward {
                 static_cast<E*>(w16), T, B, splits, phases, stream);
         } else {
             if (phases != lstm::tc::XP_BACKWARD_PHASES) return cudaErrorInvalidValue;
-            return lstm::run_backward<H, E, S, lstm::XP>(
-                x_proj, h0, c0, nullptr, nullptr, nullptr, w_hh, nullptr, outs, cseq, g_outs,
-                g_hT, g_cT, dh0, dc0, nullptr, nullptr, dw_hh, nullptr, dx_proj, nullptr, dg,
-                dw_part, nullptr, nullptr, nullptr, T, B, 0, splits, 0,
-                (B + lstm::BT - 1) / lstm::BT, stream);
+            return lstm::run_backward<H, E, S>(x_proj, h0, c0, w_hh, outs, cseq, g_outs, g_hT,
+                                                g_cT, dh0, dc0, dw_hh, dx_proj, dg, dw_part, T,
+                                                B, splits, stream);
         }
     }
     template <typename... Args>

@@ -20,13 +20,13 @@ activations and db from the rounded dgates (enc2's pre-pass rounding its
 projection), enc3 rounded activations and db from the unrounded dgates,
 enc6 enc5's own; enc2's forward the encoder, its projection as a GEMM and
 mode XP's loop. In f32, where every variant's roundings are the identity
-and its backward computes enc5's function, enc2's, enc4's and enc6's
-backwards run csrc/lstm_f32.cuh (design 'cluster'): enc5's f32 backward,
+and its backward computes enc5's function, the four backwards run
+csrc/lstm_f32.cuh (design 'cluster'): enc5's f32 backward, enc3's,
 enc4's and enc6's as lstm_enc's enc5 runs it (so their gradients are
 enc5's bit for bit), enc2's with lstm_scan_fused's two sums (the
-projection x @ W_ih + b an SGEMM of its own). enc3's f32 backward, enc2's
-f32 forward and tm's f32 steps run lstm_archive.cu's and lstm_common.cuh's
-FMA kernels. enc3, enc4 and enc6 take the shapes of enc5's f32 kernels
+projection x @ W_ih + b an SGEMM of its own). enc2's f32 forward and tm's
+f32 steps run lstm_common.cuh's FMA cell kernels ('fma'). enc3, enc4 and
+enc6 take the shapes of enc5's f32 kernels
 (D == H, at most 128 features, hidden sizes 32, 64 and 128) in both
 dtypes; enc2 the same in f32, in bf16 the tensor-core kernels'
 (lstm_common.encoder_shape_error). Each is refused before any launch.
@@ -61,17 +61,17 @@ KERNEL = CudaKernel('lstm_archive.cu', {
 TC_FUNCTIONS = ('lstm_enc2_forward', 'lstm_enc2_backward',
     'lstm_enc3_backward', 'lstm_enc4_backward', 'lstm_enc6_backward',
     'lstm_tm_step_forward', 'lstm_tm_step_backward')
-# the C functions that run csrc/lstm_f32.cuh in f32
-F32_FUNCTIONS = ('lstm_enc2_backward', 'lstm_enc4_backward',
-    'lstm_enc6_backward')
+# the C functions that run csrc/lstm_f32.cuh in f32: the four backwards
+F32_FUNCTIONS = ('lstm_enc2_backward', 'lstm_enc3_backward',
+    'lstm_enc4_backward', 'lstm_enc6_backward')
 
 
 def design(fn, cdt):
     """The design the C function `fn` of KERNEL runs in cdt: 'tc'
     (lstm_tc.cuh's tensor-core kernels: TC_FUNCTIONS in bf16), 'cluster'
     (csrc/lstm_f32.cuh: F32_FUNCTIONS in f32, enc5's backward, enc2's with
-    two sums) or 'fma' (lstm_archive.cu's and lstm_common.cuh's FMA
-    kernels: every other function in f32)."""
+    two sums) or 'fma' (lstm_common.cuh's FMA cell kernels: enc2's forward
+    and tm's steps in f32)."""
     if fn not in KERNEL.functions:
         raise ValueError(f'{fn} is not a C function of {KERNEL.source}')
     if cdt == torch.bfloat16:
@@ -87,25 +87,21 @@ EncVariant = collections.namedtuple('EncVariant',
 
 
 def launch_tc_backward(fn, feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b, outs,
-        cseq, g_outs, g_hT, g_cT, cdt, phases=BACKWARD_PHASES,
-        acts_slab=False):
+        cseq, g_outs, g_hT, g_cT, cdt, phases=BACKWARD_PHASES):
     """Launch the encoder-fused backward `fn` of lstm_archive.cu, whose
     arguments are lstm_enc_backward's: (dh0, dc0, dW_enc, db_enc, dW_ih,
     dW_hh, db), in the design that `fn` runs in cdt. 'tc': the tensor-core
     kernels with their scratch, the f32 P slab and the bf16 weights;
     'cluster': enc5's f32 kernels of lstm_f32.cuh with their scratch;
-    phases < 4 stops either early, to time a phase. 'fma' (enc3's f32
-    backward): the FMA kernel, which with acts_slab keeps every step's
-    gate activations in a (T, B, 4H) slab."""
+    phases < 4 stops either early, to time a phase. enc2 takes enc5's
+    reach in cdt, the others enc5's f32 reach in both dtypes."""
     H = h0.shape[1]
-    kind = design(fn, cdt)
-    if fn == 'lstm_enc2_backward' or kind == 'cluster':
+    if fn == 'lstm_enc2_backward':
         check_encoder_kernel_shape(feats, w_enc, H, cdt)
     else:
         check_fma_encoder_kernel_shape(feats, w_enc, H)
     return lstm_enc.launch_backward(KERNEL, fn, feats, h0, c0, w_enc, b_enc,
-        w_ih, w_hh, b, outs, cseq, g_outs, g_hT, g_cT, cdt, kind == 'tc',
-        phases, acts_slab=acts_slab, cluster=kind == 'cluster')
+        w_ih, w_hh, b, outs, cseq, g_outs, g_hT, g_cT, cdt, phases)
 
 
 class _EncVariantScan(torch.autograd.Function):

@@ -23,7 +23,9 @@ dpre in its epilogue, and dW = [x | h_prev]^T dg and dW_enc by the
 split-K. [W_ih; W_hh] in bf16 (256 KiB at D = H = 128) is more than a
 block's shared memory, so [dx | dh_prev] cannot stay in the loop as on
 the TPU; the function is the same, only the order of f32 sums differs.
-In f32 the backward runs on FMA.
+In f32, where its roundings are the identity and its function is enc5's,
+the backward is enc5's f32 backward (csrc/lstm_f32.cuh), so its
+gradients are enc5's bit for bit.
 """
 import torch
 
@@ -73,10 +75,9 @@ def lstm_enc3_backward_reference(feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b,
 
 
 def _launch_backward(*args, phases=BACKWARD_PHASES):
-    """lstm_enc3_backward: on the tensor cores in bf16, on FMA in f32 with
-    its activations slab (archive.launch_tc_backward)."""
-    return launch_tc_backward('lstm_enc3_backward', *args, phases=phases,
-        acts_slab=True)
+    """lstm_enc3_backward: on the tensor cores in bf16, enc5's f32
+    backward in f32 (archive.launch_tc_backward)."""
+    return launch_tc_backward('lstm_enc3_backward', *args, phases=phases)
 
 
 VARIANT = EncVariant(lstm_enc.lstm_enc_reference,

@@ -21,10 +21,10 @@ CDTS = (torch.float32, torch.bfloat16)
 KERNEL_HIDDEN = (32, 64, 128)
 # batch rows per block of the recurrent kernels (lstm_common.cuh BT)
 ROWS_PER_BLOCK = 32
-# feature widths whose W_enc the encoder-fused FMA kernels hold in shared
-# memory (lstm_common.cuh forward_smem / backward_smem), and the reach
-# enc5's f32 kernels (lstm_f32.cuh) keep; enc5's bf16 kernels take up to
-# tc_max_features()
+# feature widths whose W_enc the encoder-fused FMA kernels held in shared
+# memory (lstm_common.cuh forward_smem: enc2's f32 forward still does),
+# and the reach enc5's f32 kernels (lstm_f32.cuh) keep; enc5's bf16
+# kernels take up to tc_max_features()
 KERNEL_MAX_FEATURES = 128
 # batch rows per block of the tensor-core loops (lstm_tc.cuh BR)
 TC_ROWS_PER_BLOCK = 64
@@ -354,10 +354,10 @@ def cat_design(D, H, cdt):
 
 
 def fma_encoder_shape_error(F, D, H):
-    """Why the encoder-fused FMA kernels (lstm_scan_enc's step backward and
-    the archived variants in both dtypes) and enc5's f32 kernels, which
-    keep their reach, refuse F features, encoder width D and hidden size
-    H, or None."""
+    """Why the encoder-fused kernels at the FMA kernels' reach (enc5's f32
+    kernels, and so lstm_scan_enc's and the archived backwards in f32; the
+    archived enc3, enc4 and enc6 in both dtypes; enc2's FMA forward)
+    refuse F features, encoder width D and hidden size H, or None."""
     err = fma_shape_error(D, H)
     if err is None and F > KERNEL_MAX_FEATURES:
         err = (f'the CUDA encoder-fused LSTM kernels on FMA take at most '
@@ -431,9 +431,9 @@ def check_encoder_kernel_shape(feats, w_enc, H, cdt):
 
 
 def check_fma_encoder_kernel_shape(feats, w_enc, H):
-    """Raise for a launch of an encoder-fused kernel pair whose backward
-    runs on FMA (lstm_scan_enc, the archived variants) that it does not
-    serve."""
+    """Raise for a launch that the archived enc3, enc4 and enc6 do not
+    serve, in either dtype: the FMA kernels' reach
+    (fma_encoder_shape_error)."""
     _refuse(feats.device, fma_encoder_shape_error(feats.shape[2],
         w_enc.shape[1], H))
 

@@ -19,7 +19,8 @@ Replaces three TPU kernels of pufferlib_tpu/ops/pallas/:
   stores them in a slab), carries dW and db through the loop, db from the
   unrounded dgates (enc5 sums the rounded ones), and ends with the same
   relu mask, dW_enc and db_enc. The two backwards are the same function
-  in f32 and differ in bf16.
+  in f32 (on the card, the same kernels and the same bits) and differ in
+  bf16.
 
 feats (T, B, F) is in the compute dtype cdt; the feats cotangent is zero
 by contract (observations are constants in RL training; the caller
@@ -45,9 +46,9 @@ that keep W_hh on chip for all T steps in a thread block cluster (no
 TF32: every product is an f32 FMA). The forward keeps the sums of the
 FMA cell in their order, so lstm_scan_enc's forward and the archived
 enc3, enc4 and enc6 forwards, which run the same C function, keep their
-bits. lstm_scan_enc's step backward keeps the FMA kernels of
-csrc/lstm_common.cuh ('fma'). Both take D == H and at most
-KERNEL_MAX_FEATURES features.
+bits. lstm_scan_enc's step backward, whose roundings are the identity in
+f32, runs enc5's f32 backward too, so its gradients are enc5's bit for
+bit. All take D == H and at most KERNEL_MAX_FEATURES features.
 
 Every other enc5 shape with a hidden size up to
 lstm_common.STREAM_MAX_HIDDEN (padded to a multiple of 32 with zero
@@ -104,20 +105,19 @@ KERNEL = CudaKernel('lstm_enc.cu', {
     'lstm_enc_f32_usage': [I, P],
     'lstm_enc_f32_plan': [I, I, P],
 })
-# the C functions that run csrc/lstm_f32.cuh in f32
-F32_FUNCTIONS = ('lstm_enc_forward', 'lstm_enc_backward')
+# the C functions that run csrc/lstm_f32.cuh in f32: every launch
+F32_FUNCTIONS = ('lstm_enc_forward', 'lstm_enc_backward',
+    'lstm_enc_step_backward')
 
 
 def design(fn, cdt):
     """The design the C function `fn` of KERNEL runs in cdt: 'tc'
-    (csrc/lstm_tc.cuh's tensor-core kernels, every launch in bf16),
-    'cluster' (csrc/lstm_f32.cuh: enc5's pair in f32) or 'fma'
-    (csrc/lstm_common.cuh's: the step backward in f32)."""
-    if fn not in KERNEL.functions:
-        raise ValueError(f'{fn} is not a C function of {KERNEL.source}')
-    if cdt == torch.bfloat16:
-        return 'tc'
-    return 'cluster' if fn in F32_FUNCTIONS else 'fma'
+    (csrc/lstm_tc.cuh's tensor-core kernels, in bf16) or 'cluster'
+    (csrc/lstm_f32.cuh in f32: enc5's pair, and the step backward as
+    enc5's backward)."""
+    if fn not in F32_FUNCTIONS:
+        raise ValueError(f'{fn} is not a launch of {KERNEL.source}')
+    return 'tc' if cdt == torch.bfloat16 else 'cluster'
 
 
 def f32_usage(H):
@@ -269,26 +269,20 @@ def _launch_backward(feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b, outs,
     """lstm_enc_backward, enc5's: (dh0, dc0, dW_enc, db_enc, dW_ih, dW_hh,
     db)."""
     check_encoder_kernel_shape(feats, w_enc, h0.shape[1], cdt)
-    fn = 'lstm_enc_backward'
-    return launch_backward(KERNEL, fn, feats, h0, c0, w_enc, b_enc, w_ih,
-        w_hh, b, outs, cseq, g_outs, g_hT, g_cT, cdt, cdt == torch.bfloat16,
-        phases, cluster=design(fn, cdt) == 'cluster')
+    return launch_backward(KERNEL, 'lstm_enc_backward', feats, h0, c0, w_enc,
+        b_enc, w_ih, w_hh, b, outs, cseq, g_outs, g_hT, g_cT, cdt, phases)
 
 
 def launch_backward(kernel, fn, feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b,
-        outs, cseq, g_outs, g_hT, g_cT, cdt, tc, phases=BACKWARD_PHASES,
-        acts_slab=False, cluster=False):
+        outs, cseq, g_outs, g_hT, g_cT, cdt, phases=BACKWARD_PHASES):
     """The backward C function `fn` of `kernel` that takes
     lstm_enc_backward's arguments (enc5's, lstm_scan_enc's step backward,
     and the archived enc2's, enc3's, enc4's and enc6's), on a shape the
-    caller has checked: (dh0, dc0,
-    dW_enc, db_enc, dW_ih, dW_hh, db). tc: the bf16 tensor-core kernels
-    run (with their scratch); cluster: enc5's f32 kernels of
-    lstm_f32.cuh (their scratch: the activations and the transposed
-    weights in the P slab's place, [feats | 1]'s partials); else the FMA
-    ones, whose block takes ROWS_PER_BLOCK batch rows and, with acts_slab
-    (the archived enc3), keeps every step's gate activations in a (T, B,
-    4H) slab handed over in the P slab's place."""
+    caller has checked: (dh0, dc0, dW_enc, db_enc, dW_ih, dW_hh, db). In
+    bf16 the tensor-core kernels run (with their scratch: the P slab and
+    the bf16 weights); in f32 enc5's kernels of lstm_f32.cuh (their
+    scratch: the activations and the transposed weights in the P slab's
+    place). Both sum db_enc as row F of [feats | 1]^T dpre."""
     T, B, F = feats.shape
     H = h0.shape[1]
     D = w_enc.shape[1]
@@ -305,53 +299,45 @@ def launch_backward(kernel, fn, feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b,
         dwe.zero_()
         return dh0, dc0, dwe[:F], dwe[F], dw[:D].zero_(), dw[D:].zero_(), \
             db.zero_()
-    # bf16 and enc5's f32 sum db_enc as row F of [feats | 1]^T dpre, the
-    # FMA kernels from partials
-    enc_rows = F + 1 if tc or cluster else F
-    min_rows = F32_SPLIT_ROWS if cluster else 1024
+    tc = cdt == torch.bfloat16
+    min_rows = 1024 if tc else F32_SPLIT_ROWS
     splits_w = splitk_splits(D + H, G, T * B, dev, min_rows)
-    splits_e = splitk_splits(enc_rows, D, T * B, dev, min_rows)
+    splits_e = splitk_splits(F + 1, D, T * B, dev, min_rows)
     xs = torch.empty((T, B, D), dtype=cdt, device=dev)
     dpre = torch.empty_like(xs)
     dg = torch.empty((T, B, G), dtype=cdt, device=dev)
     dw_part = torch.empty((splits_w, D + H, G), **f32)
     # bias partials, a row per block: of 64 batch rows in bf16, 32 in f32
+    # (the cluster loops' smallest tile)
     part_rows = math.ceil(B / (TC_ROWS_PER_BLOCK if tc else ROWS_PER_BLOCK))
     db_part = torch.empty((part_rows, G), **f32)
-    dwe_part = torch.empty((splits_e, enc_rows, D), **f32)
-    dbe_part = None if tc or cluster else torch.empty((part_rows, D), **f32)
-    # bf16: the P slab; [W_ih; W_hh], W_ih^T, h0 and W_enc in bf16. enc5's
-    # f32: the activations, W_ih^T and W_hh^T. FMA with acts_slab: the
-    # activations
-    if tc:
-        pre = tc_slab(T, B, H, dev)
-    elif cluster:
-        pre = torch.empty((T * B * G + G * (D + H),), **f32)
-    else:
-        pre = torch.empty((T * B * G,), dtype=cdt, device=dev) \
-            if acts_slab else None
+    dwe_part = torch.empty((splits_e, F + 1, D), **f32)
+    # bf16: the P slab; [W_ih; W_hh], W_ih^T, h0 and W_enc in bf16. f32:
+    # the activations, W_ih^T and W_hh^T
+    pre = tc_slab(T, B, H, dev) if tc else torch.empty(
+        (T * B * G + G * (D + H),), **f32)
     w16 = torch.empty(((D + H) * G + G * D + B * H + F * D,),
         dtype=torch.bfloat16, device=dev) if tc else None
     kernel.launch(fn, ptr(feats), ptr(h0), ptr(c0),
         ptr(w_enc), ptr(b_enc), ptr(w_ih), ptr(w_hh), ptr(b), ptr(outs),
         ptr(cseq), ptr(g_outs), ptr(g_hT), ptr(g_cT), ptr(dh0), ptr(dc0),
         ptr(dwe), ptr(dw), ptr(db), ptr(xs), ptr(dpre), ptr(dg), ptr(dw_part),
-        ptr(db_part), ptr(dwe_part), ptr_or_null(dbe_part), ptr_or_null(pre),
-        ptr_or_null(w16), T, B, F, D, H, int(tc), splits_w, splits_e,
-        part_rows, phases, stream_handle(feats))
+        ptr(db_part), ptr(dwe_part), None, ptr(pre), ptr_or_null(w16), T, B,
+        F, D, H, int(tc), splits_w, splits_e, part_rows, phases,
+        stream_handle(feats))
     return dh0, dc0, dwe[:F], dwe[F], dw[:D], dw[D:], db
 
 
 def _launch_step_backward(feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b, outs,
         cseq, g_outs, g_hT, g_cT, cdt, phases=BACKWARD_PHASES):
     """lstm_enc_step_backward, the un-hoisted backward of lstm_scan_enc, at
-    enc5's reach: (dh0, dc0, dW_enc, db_enc, dW_ih, dW_hh, db). phases < 4
-    stops a bf16 call early, to time a phase."""
+    enc5's reach: (dh0, dc0, dW_enc, db_enc, dW_ih, dW_hh, db); on the
+    tensor cores in bf16, enc5's f32 backward (lstm_f32.cuh) in f32.
+    phases < 4 stops a call early, to time a phase."""
     check_encoder_kernel_shape(feats, w_enc, h0.shape[1], cdt)
-    fn = 'lstm_enc_step_backward'
-    return launch_backward(KERNEL, fn, feats, h0, c0, w_enc, b_enc, w_ih,
-        w_hh, b, outs, cseq, g_outs, g_hT, g_cT, cdt,
-        design(fn, cdt) == 'tc', phases)
+    return launch_backward(KERNEL, 'lstm_enc_step_backward', feats, h0, c0,
+        w_enc, b_enc, w_ih, w_hh, b, outs, cseq, g_outs, g_hT, g_cT, cdt,
+        phases)
 
 
 def _launch_stream_forward(feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b, cdt,
@@ -515,7 +501,8 @@ def lstm_scan_enc(feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b,
         cdt=torch.bfloat16):
     """lstm_scan_enc5's function with the step-by-step backward of
     pufferlib_tpu's lstm_scan_enc: the same forward, and gradients that
-    differ from enc5's in bf16 rounding only. A call none of whose inputs
-    requires a gradient keeps no cell sequence."""
+    differ from enc5's in bf16 rounding only (in f32 on the card, equal to
+    enc5's). A call none of whose inputs requires a gradient keeps no cell
+    sequence."""
     return _LSTMEnc.apply(feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b, cdt,
         needs_cseq(feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b))

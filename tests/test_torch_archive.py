@@ -287,15 +287,16 @@ def test_enc2_is_enc_in_f32_and_rounds_xp_in_bf16():
 
 
 @pytest.mark.parametrize('variant,cdt', [('enc6', 'bfloat16'),
-    ('enc6', 'float32'), ('enc4', 'float32')])
+    ('enc6', 'float32'), ('enc4', 'float32'), ('enc3', 'float32')])
 def test_enc6_gradients_are_enc5_gradients(variant, cdt):
     """enc6 is a schedule of enc5's function: on the CPU the same plain
     versions run, and every output and gradient is equal bit for bit.
-    enc4's backward rounds at its own places, which are the identity in
-    f32, where it computes enc5's function too (and on the card runs
-    enc5's f32 backward): its plain f32 gradients within 1e-6 of max(1,
-    max |enc5's|) of enc5's (the gate recompute a step at a time is the
-    same products summed in another order; equal here)."""
+    enc4's and enc3's backwards round at their own places, which are the
+    identity in f32, where they compute enc5's function too (and on the
+    card run enc5's f32 backward): their plain f32 gradients within 1e-6
+    of max(1, max |enc5's|) of enc5's (enc4's gate recompute a step at a
+    time, enc3's dW carried through its loop: the same products summed in
+    another order)."""
     arrays = enc_inputs(10, cdt)
     got = torch_run(port_scan(variant), arrays, cdt, cdt, 1, enc_loss)
     enc5 = torch_run(lstm_enc.lstm_scan_enc5, arrays, cdt, cdt, 1, enc_loss)
@@ -409,13 +410,12 @@ def test_archive_kernel_is_built_and_counted_with_the_others():
 
 
 # every C function of the archive that launches a kernel, and the design it
-# runs in (bf16, f32): enc2's, enc4's and enc6's f32 backwards on
-# csrc/lstm_f32.cuh, every other f32 function on FMA, every bf16 one on the
-# tensor cores
+# runs in (bf16, f32): the four f32 backwards on csrc/lstm_f32.cuh, enc2's
+# f32 forward and tm's f32 steps on FMA, every bf16 one on the tensor cores
 ARCHIVE_DESIGNS = {
     'lstm_enc2_forward': ('tc', 'fma'),
     'lstm_enc2_backward': ('tc', 'cluster'),
-    'lstm_enc3_backward': ('tc', 'fma'),
+    'lstm_enc3_backward': ('tc', 'cluster'),
     'lstm_enc4_backward': ('tc', 'cluster'),
     'lstm_enc6_backward': ('tc', 'cluster'),
     'lstm_tm_step_forward': ('tc', 'fma'),
@@ -431,7 +431,8 @@ def test_archive_design_table(fn):
         == 'cluster')
 
 
-# (F, H) at the edges of the f32 reach of enc4 and enc6 (D == H): one
+# (F, H) at the edges of the f32 reach of the step backward and enc3, enc4
+# and enc6 (D == H): one
 # feature, the bench's 49, 107 and 108 (enc6's old FMA block of two dgates
 # tiles held at most 107 features at hidden size 128 in its shared memory)
 # and the most, 128; 129 is past lstm_common.KERNEL_MAX_FEATURES
@@ -439,15 +440,18 @@ F32_REACH = [(F, H) for H in (32, 64, 128) for F in (1, 49, 107, 108, 128,
     129)]
 
 
-@pytest.mark.parametrize('variant', ['enc4', 'enc6'])
+@pytest.mark.parametrize('variant', ['enc', 'enc3', 'enc4', 'enc6'])
 @pytest.mark.parametrize('F,H', F32_REACH)
 def test_f32_backward_reach_is_the_fma_kernels(variant, F, H, monkeypatch):
-    """enc4's and enc6's f32 backwards run csrc/lstm_f32.cuh and serve
-    every (F, D, H) that fma_encoder_shape_error allows (their FMA
-    kernel's reach): the launcher checks that shape, refuses nothing past
-    it, and hands lstm_enc.launch_backward the cluster design. The check
-    before a launch is held with the device test taken out (so that CPU
-    tensors reach it); the launch is recorded, not made."""
+    """lstm_scan_enc's step backward (variant 'enc',
+    lstm_enc_step_backward) and the archived enc3's, enc4's and enc6's f32
+    backwards run csrc/lstm_f32.cuh (design 'cluster') and serve every
+    (F, D, H) that fma_encoder_shape_error allows (their FMA kernels'
+    reach): the launcher checks that shape, refuses nothing past it, and
+    hands lstm_enc.launch_backward an f32 call of the function on its own
+    library. The check before a launch is held with the device test taken
+    out (so that CPU tensors reach it); the launch is recorded, not
+    made."""
     from pufferlib_tpu_torch.ops.cuda import lstm_common
 
     def refuse_shape(device, err):
@@ -456,18 +460,24 @@ def test_f32_backward_reach_is_the_fma_kernels(variant, F, H, monkeypatch):
     calls = []
 
     def record(kernel, fn, *args, **kwargs):
-        # after the 13 tensors: cdt, tc, phases
+        # after the 13 tensors: cdt, phases
         calls.append((kernel, fn, args[13:], kwargs))
         return 'launched'
     monkeypatch.setattr(lstm_common, '_refuse', refuse_shape)
     monkeypatch.setattr(lstm_enc, 'launch_backward', record)
+    if variant == 'enc':
+        kernel, fn = lstm_enc.KERNEL, 'lstm_enc_step_backward'
+        launch, design = lstm_enc._launch_step_backward, lstm_enc.design
+    else:
+        kernel, fn = archive.KERNEL, f'lstm_{variant}_backward'
+        launch = port_module(variant).VARIANT.backward_launch
+        design = archive.design
+    assert design(fn, torch.float32) == 'cluster'
     T, B = 2, 3
     tensors = [torch.from_numpy(a) for a in enc_inputs(23, T=T, B=B, F=F,
         D=H, H=H)]
     rest = (torch.zeros(T, B, H), torch.zeros(T, B, H), torch.zeros(T, B, H),
         torch.zeros(B, H), torch.zeros(B, H))
-    launch = port_module(variant).VARIANT.backward_launch
-    fn = f'lstm_{variant}_backward'
     err = lstm_common.fma_encoder_shape_error(F, H, H)
     assert (err is None) == (F <= lstm_common.KERNEL_MAX_FEATURES)
     if err is not None:
@@ -476,9 +486,8 @@ def test_f32_backward_reach_is_the_fma_kernels(variant, F, H, monkeypatch):
         assert calls == []
         return
     assert launch(*tensors, *rest, torch.float32) == 'launched'
-    assert calls == [(archive.KERNEL, fn, (torch.float32, False,
-        lstm_common.BACKWARD_PHASES), dict(acts_slab=False, cluster=True))]
-    assert archive.design(fn, torch.float32) == 'cluster'
+    assert calls == [(kernel, fn, (torch.float32,
+        lstm_common.BACKWARD_PHASES), {})]
 
 
 def test_enc2_f32_backward_matches_jax_bwd():

@@ -919,12 +919,12 @@ def test_enc5_f32_repeats_bit_for_bit(cuda, T, B, H, F):
 
 def _check_f32_guards(cuda, monkeypatch, kind, T, B, H, F=49):
     """Every input, output and scratch buffer of one f32 forward and
-    backward call of the resident pair `kind` (enc5, cat, fused, the
-    archived enc2, enc4 and enc6: the launchers of lstm_enc, lstm_cat,
-    lstm_scan and the archive, their scratch through lstm_common) sits
-    between guards; after
-    both calls no guard has changed, and the results still match the
-    plain versions within LSTM_TOL."""
+    backward call of the resident pair `kind` (enc5, enc, cat, fused, the
+    archived enc2, enc3, enc4 and enc6: the launchers of lstm_enc,
+    lstm_cat, lstm_scan and the archive, their scratch through
+    lstm_common) sits between guards; after both calls no guard has
+    changed, and the results still match the plain versions within
+    LSTM_TOL."""
     from pufferlib_tpu_torch.ops.cuda import (
         archive, lstm_cat, lstm_common, lstm_enc, lstm_scan)
     from pufferlib_tpu_torch.ops.cuda.archive import lstm_enc2
@@ -1162,9 +1162,6 @@ def test_archived_enc_kernels_match_plain(cuda, kind, T, B, H, cdt):
 # mode ENC5's path with each variant's roundings; enc2's pre-pass rounds
 # its projection): all four
 ARCHIVED_TC = ARCHIVED_ENC
-# the one whose f32 FMA kernel keeps every step's activations in a slab,
-# handed over in the P slab's place
-ACTS_SLAB = ('enc3',)
 
 
 @pytest.mark.parametrize('kind', ARCHIVED_TC)
@@ -1217,13 +1214,10 @@ def test_enc6_bf16_gradients_are_enc5s(cuda, H, B):
 def test_archived_bf16_backwards_run_the_tensor_core_path(cuda, kind):
     """In bf16 the C function runs lstm_tc.cuh's path, which needs its
     scratch (the P slab, the bf16 weights): handed none, it refuses. In
-    f32 enc2's, enc4's and enc6's run lstm_f32.cuh (archive.design
-    'cluster'), which needs its work slab in the P slab's place, refuses
-    without it, and takes the phases; the FMA kernel, which enc3 runs in
-    f32, takes only the whole backward (phases = 4), reads no bf16
-    weights, and reads its activations slab in the P slab's place,
-    refusing without it. The launcher's phases 1 .. 3 stop the bf16 path
-    early without an error."""
+    f32 all four run lstm_f32.cuh (archive.design 'cluster'), which needs
+    its work slab in the P slab's place, refuses without it, and takes the
+    phases. The launcher's phases 1 .. 3 stop the bf16 path early without
+    an error."""
     from pufferlib_tpu_torch.ops.cuda import archive
     fwd, bwd = _lstm_kinds()[kind][:2]
     fn = f'lstm_{kind}_backward'
@@ -1251,25 +1245,18 @@ def test_archived_bf16_backwards_run_the_tensor_core_path(cuda, kind):
                     a[25] = a[26] = None
                     return f(*a)
                 return call
-        cluster = archive.design(fn, cdt) == 'cluster'
-        needs_slab = cdt == torch.bfloat16 or kind in ACTS_SLAB or cluster
+        assert archive.design(fn, cdt) == ('tc' if cdt == torch.bfloat16
+            else 'cluster')
         archive.KERNEL._lib = NoScratch()
         try:
-            if needs_slab:
-                with pytest.raises(RuntimeError):
-                    bwd(*args, outs, cseq, *g, cdt)
-            else:
+            with pytest.raises(RuntimeError):
                 bwd(*args, outs, cseq, *g, cdt)
         finally:
             archive.KERNEL._lib = real
         if cdt == torch.float32:
             bwd(*args, outs, cseq, *g, cdt)
-            if cluster:
-                bwd(*args, outs, cseq, *g, cdt, phases=2)
-            else:
-                with pytest.raises(RuntimeError):
-                    bwd(*args, outs, cseq, *g, cdt, phases=2)
-        assert seen[0] == needs_slab
+            bwd(*args, outs, cseq, *g, cdt, phases=2)
+        assert seen[0]
     args = _lstm_case(kind, T, B, H, F, torch.bfloat16, cuda)
     with torch.no_grad():
         outs, _, _, cseq = fwd(*args, torch.bfloat16)
@@ -1292,18 +1279,13 @@ def test_enc2_f32_backward_on_the_cluster_design(cuda, monkeypatch, B):
     _check_deterministic(cuda, 'enc2', 16, B, 128, cdt=torch.float32, runs=5)
 
 
-@pytest.mark.parametrize('kind', ['enc4', 'enc6'])
-@pytest.mark.parametrize('B', [8192, 1000])
-def test_enc4_enc6_f32_backwards_are_enc5s(cuda, monkeypatch, kind, B):
-    """The archived enc4's and enc6's f32 backwards run csrc/lstm_f32.cuh's
-    enc5 backward with enc5's one sum (archive.design 'cluster'), their
-    function being enc5's in f32: at the bench's batch and a ragged one,
-    within LSTM_TOL of the plain versions with every buffer between guards
-    (_check_f32_guards), two runs equal bit for bit, the seven gradients
-    equal bit for bit to row 4's f32 backward (lstm_enc_backward) on the
-    same inputs, and phases 1 .. 3 stopping early without a fault."""
-    from pufferlib_tpu_torch.ops.cuda import archive
-    assert archive.design(f'lstm_{kind}_backward', torch.float32) == 'cluster'
+def _check_f32_backward_is_enc5s(cuda, monkeypatch, kind, B):
+    """`kind`'s f32 backward, which runs csrc/lstm_f32.cuh's enc5 backward
+    with enc5's one sum: at T 16, H 128 and batch B, within LSTM_TOL of its
+    plain versions with every buffer between guards (_check_f32_guards),
+    two runs equal bit for bit, the seven gradients equal bit for bit to
+    row 4's f32 backward (lstm_enc_backward) on the same inputs, and
+    phases 1 .. 3 stopping early without a fault."""
     _check_f32_guards(cuda, monkeypatch, kind, 16, B, 128)
     _check_deterministic(cuda, kind, 16, B, 128, cdt=torch.float32)
     kinds = _lstm_kinds()
@@ -1324,11 +1306,38 @@ def test_enc4_enc6_f32_backwards_are_enc5s(cuda, monkeypatch, kind, B):
 
 
 @pytest.mark.parametrize('kind', ['enc4', 'enc6'])
+@pytest.mark.parametrize('B', [8192, 1000])
+def test_enc4_enc6_f32_backwards_are_enc5s(cuda, monkeypatch, kind, B):
+    """The archived enc4's and enc6's f32 backwards run enc5's
+    (archive.design 'cluster'), their function being enc5's in f32, at
+    the bench's batch and a ragged one (_check_f32_backward_is_enc5s)."""
+    from pufferlib_tpu_torch.ops.cuda import archive
+    assert archive.design(f'lstm_{kind}_backward', torch.float32) == 'cluster'
+    _check_f32_backward_is_enc5s(cuda, monkeypatch, kind, B)
+
+
+@pytest.mark.parametrize('kind', ['enc', 'enc3'])
+@pytest.mark.parametrize('B', [8192, 1000, 980])
+def test_enc_enc3_f32_backwards_are_enc5s(cuda, monkeypatch, kind, B):
+    """lstm_scan_enc's step backward (lstm_enc.design) and the archived
+    enc3's (archive.design) run enc5's f32 backward ('cluster'), their
+    functions being enc5's in f32, at the bench's batch and ragged ones
+    (_check_f32_backward_is_enc5s)."""
+    from pufferlib_tpu_torch.ops.cuda import archive, lstm_enc
+    design = lstm_enc.design('lstm_enc_step_backward', torch.float32) \
+        if kind == 'enc' else archive.design('lstm_enc3_backward',
+            torch.float32)
+    assert design == 'cluster'
+    _check_f32_backward_is_enc5s(cuda, monkeypatch, kind, B)
+
+
+@pytest.mark.parametrize('kind', ['enc', 'enc3', 'enc4', 'enc6'])
 @pytest.mark.parametrize('T,B,F,H', [(3, 45, 128, 32), (5, 980, 49, 64),
     (2, 64, 128, 128), (3, 65, 108, 128)])
 def test_enc4_enc6_f32_take_every_fma_shape(cuda, monkeypatch, kind, T, B, F,
         H):
-    """Where the f32 FMA kernels served them (D == H, F <= 128), enc4's and
+    """Where the f32 FMA kernels served them (D == H, F <= 128),
+    lstm_scan_enc's step backward and the archived enc3's, enc4's and
     enc6's f32 backwards still run, now on lstm_f32.cuh: the widest
     feature width at every hidden size (enc6's two-tile FMA block took at
     most 107 features at hidden size 128), with every buffer between
@@ -1344,7 +1353,7 @@ def test_archived_tc_backwards_write_only_their_buffers(cuda, monkeypatch,
         kind, T, B, F, H, cdt):
     """Every input, output and scratch buffer of the archived forward and
     backward (the P slab, the bf16 weights, db_part at 64 rows a block;
-    in f32 enc3's activations slab, enc2's, enc4's and enc6's work slab)
+    in f32 lstm_f32.cuh's work slab)
     sits between guards; after both calls no guard has changed, at a
     ragged last block (45, 200 and 1000 rows), at the widest feature width
     the archive takes, and the results still match the plain versions
@@ -1432,9 +1441,10 @@ def test_enc_step_backward_and_enc2_forward_run_the_tensor_core_path(cuda):
     """In bf16 lstm_enc_step_backward and lstm_enc2_forward run
     lstm_tc.cuh's path, which needs its scratch (the backward's P slab and
     bf16 weights; the forward's encoded inputs, projection and bf16
-    weights): handed none, they refuse. Their f32 FMA kernels take only
-    the whole call (all phases); the bf16 launchers' phases stop early
-    without an error."""
+    weights): handed none, they refuse. The bf16 launchers' phases stop
+    early without an error; so do the step backward's in f32, where it
+    runs enc5's f32 backward, while enc2's f32 FMA forward takes only the
+    whole call (all phases)."""
     from pufferlib_tpu_torch.ops.cuda import archive, lstm_enc
     T, B, H, F = 3, 70, 64, 49
     for kind, kernel, fn, nulls in (
@@ -1480,11 +1490,12 @@ def test_enc_step_backward_and_enc2_forward_run_the_tensor_core_path(cuda):
         f32 = _lstm_case(kind, T, B, H, F, torch.float32, cuda)
         with torch.no_grad():
             outs, _, _, cseq = fwd(*f32, torch.float32)
-            with pytest.raises(RuntimeError):
-                if kind == 'enc':
+            if kind == 'enc':
+                for phases in (1, 2, 3):
                     bwd(*f32, outs, cseq, *(t.float() for t in g),
-                        torch.float32, phases=2)
-                else:
+                        torch.float32, phases=phases)
+            else:
+                with pytest.raises(RuntimeError):
                     fwd(*f32, torch.float32, phases=1)
     torch.cuda.synchronize()
 

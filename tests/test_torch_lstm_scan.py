@@ -236,6 +236,30 @@ def test_enc_forward_is_enc5_forward(cdt):
         assert any(not torch.equal(a, w) for a, w in zip(enc[1], enc5[1]))
 
 
+@pytest.mark.parametrize('B,H', [(16, 32), (10, 32), (12, 64)])
+def test_enc_f32_gradients_are_enc5_gradients(B, H):
+    """In f32 the step backward's roundings (f32 activations, db from the
+    unrounded dgates) are the identity, so lstm_scan_enc's backward
+    computes enc5's function, and on the card it runs enc5's f32 backward
+    (lstm_enc.design 'cluster'): its plain f32 outputs equal enc5's, its
+    gradients lie within 1e-6 of max(1, max |enc5's|) of enc5's (the gate
+    recompute and dW a step at a time are the same products summed in
+    another order), and dh0, dc0, dW_enc and db_enc are equal."""
+    arrays = make_inputs('enc', B, H, 29 + B + H, 'float32')
+    enc = torch_run(lstm_enc.lstm_scan_enc, arrays, 'float32', 'float32', 1)
+    enc5 = torch_run(lstm_enc.lstm_scan_enc5, arrays, 'float32', 'float32',
+        1)
+    for a, w in zip(enc[0], enc5[0]):
+        assert torch.equal(a, w)
+    names = KINDS['enc'][5]
+    for name, a, w in zip(names, enc[1], enc5[1]):
+        assert_close(a, w, 1e-6, True, f'enc f32 {name}')
+        if name in ('dh0', 'dc0', 'dw_enc', 'db_enc'):
+            assert torch.equal(a, w), name
+    assert lstm_enc.design('lstm_enc_step_backward', torch.float32) == \
+        'cluster'
+
+
 @pytest.mark.parametrize('kind', sorted(KINDS))
 def test_no_cell_sequence_without_gradients(kind, monkeypatch):
     """A call that needs no gradient asks the forward for no cseq (the
@@ -726,12 +750,15 @@ def test_enc5_f32_design():
     argument lists of the bf16 ones: lstm_enc_forward's 23 (the encoded
     inputs and the x @ W_ih slab in the bf16 scratch's places) and
     lstm_enc_backward's 38 (the activations and transposed weights in
-    the P slab's place); lstm_scan_enc's step backward keeps the FMA
-    kernels ('fma'), the bf16 ones the tensor cores ('tc')."""
-    for fn in ('lstm_enc_forward', 'lstm_enc_backward'):
+    the P slab's place); lstm_scan_enc's step backward runs enc5's f32
+    backward ('cluster') with those arguments, the bf16 ones the tensor
+    cores ('tc'). The query functions are no launch."""
+    for fn in ('lstm_enc_forward', 'lstm_enc_backward',
+            'lstm_enc_step_backward'):
         assert lstm_enc.design(fn, torch.float32) == 'cluster'
         assert lstm_enc.design(fn, torch.bfloat16) == 'tc'
-    assert lstm_enc.design('lstm_enc_step_backward', torch.float32) == 'fma'
+    with pytest.raises(ValueError, match='not a launch'):
+        lstm_enc.design('lstm_enc_f32_plan', torch.float32)
     assert len(lstm_enc.KERNEL.functions['lstm_enc_forward']) == 23
     assert len(lstm_enc.KERNEL.functions['lstm_enc_backward']) == 38
     # the same reach as the FMA pair's: D == H in 32, 64, 128 and at most
@@ -1354,17 +1381,15 @@ def test_encoder_scans_at_other_widths_match_pallas_kernel(kind, cdt):
 @pytest.mark.parametrize('kind', ['enc2', 'enc3', 'enc4', 'enc6'])
 def test_archived_backward_design(kind, cdt):
     """Which design each archived backward runs (archive.design): in bf16
-    all four the tensor-core kernels of lstm_tc.cuh ('tc'); in f32 enc2's,
-    enc4's and enc6's lstm_f32.cuh ('cluster': enc5's f32 backward, enc2's
-    with two sums), enc3's lstm_archive.cu's FMA kernel ('fma'). The C
-    functions' argument lists follow it: the tensor-core ones take
-    lstm_enc_backward's (the P slab, the bf16 weights, the phases), which
-    also carry the f32 kernels' scratch (the work slab of enc2, enc4 and
-    enc6, enc3's activations slab in the P slab's place)."""
+    all four the tensor-core kernels of lstm_tc.cuh ('tc'); in f32 all
+    four lstm_f32.cuh ('cluster': enc5's f32 backward, enc2's with two
+    sums). The C functions' argument lists follow it: the tensor-core
+    ones take lstm_enc_backward's (the P slab, the bf16 weights, the
+    phases), which also carry the f32 kernels' scratch (the work slab in
+    the P slab's place)."""
     fn = f'lstm_{kind}_backward'
     design = archive.design(fn, TD[cdt])
-    assert design == ('tc' if cdt == 'bfloat16' else
-        'fma' if kind == 'enc3' else 'cluster')
+    assert design == ('tc' if cdt == 'bfloat16' else 'cluster')
     args = archive.KERNEL.functions[fn]
     enc_backward = lstm_enc.KERNEL.functions['lstm_enc_backward']
     assert args == enc_backward and len(args) == 38
@@ -1375,14 +1400,16 @@ def test_archived_backward_design(kind, cdt):
 def test_step_backward_and_enc2_forward_designs(cdt):
     """lstm_scan_enc's step backward (lstm_enc.design) and the archived
     enc2's forward (archive.design) run the tensor-core kernels of
-    lstm_tc.cuh in bf16 ('tc') and the FMA kernels in f32 ('fma'), as
-    every other encoder-fused kernel does, and so do tm's step kernels
-    (mode XP's loops one step a launch). Their C functions take enc5's
-    argument lists: lstm_enc_backward's 38 (the P slab, the bf16 weights,
-    the phases) and lstm_enc_forward's 23 (the encoded inputs, the slab,
-    the bf16 weights, the phases)."""
+    lstm_tc.cuh in bf16 ('tc'); in f32 the step backward runs enc5's f32
+    backward (lstm_f32.cuh, 'cluster'), enc2's forward the FMA cell
+    ('fma'), and so do tm's step kernels (mode XP's loops one step a
+    launch). Their C functions take enc5's argument lists:
+    lstm_enc_backward's 38 (the P slab, the bf16 weights, the phases) and
+    lstm_enc_forward's 23 (the encoded inputs, the slab, the bf16 weights,
+    the phases)."""
     want = 'tc' if cdt == 'bfloat16' else 'fma'
-    assert lstm_enc.design('lstm_enc_step_backward', TD[cdt]) == want
+    assert lstm_enc.design('lstm_enc_step_backward', TD[cdt]) == (
+        'tc' if cdt == 'bfloat16' else 'cluster')
     assert archive.design('lstm_enc2_forward', TD[cdt]) == want
     for fn in ('lstm_tm_step_forward', 'lstm_tm_step_backward'):
         assert archive.design(fn, TD[cdt]) == want

@@ -16,9 +16,10 @@ projection GEMM and lstm_scan's loop; tm lstm_scan's loops one step a
 launch.
 --dtype float32 runs the same calls in f32 (inputs and compute dtype),
 where lstm_scan_fused, lstm_scan_cat, enc5 (the forward of enc, enc3,
-enc4 and enc6 too) and the archived enc2's, enc4's and enc6's backwards
-run csrc/lstm_f32.cuh's cluster design, the others lstm_common.cuh's and
-csrc/lstm_archive.cu's FMA kernels.
+enc4 and enc6 too; the backward of enc, enc3, enc4 and enc6 too, whose
+function is enc5's in f32) and the archived enc2's backward run
+csrc/lstm_f32.cuh's cluster design, the others (lstm_scan, enc2's
+forward, tm) lstm_common.cuh's FMA cell kernels.
 Default: fused fused-fwd. Each line is the mean device time of one call
 (CUDA events, the L2 flushed before every call) of the forward alone (no
 gradient needed: no cell sequence is written, except by tm) or of
