@@ -700,6 +700,10 @@ ENC2_PHASES = {'forward': ('encoder + projection', 'loop'),
 PHASES = {'enc5': ENC5_PHASES, 'scan': SCAN_PHASES, 'enc': ARCHIVE_PHASES,
     'enc2': ENC2_PHASES, 'enc3': ARCHIVE_PHASES, 'enc4': ARCHIVE_PHASES,
     'enc6': ARCHIVE_PHASES, 'tm': TM_PHASES}
+# lstm_scan's f32 backward (csrc/lstm_f32.cuh): the gates of every step at
+# once, the cluster loop, dW_hh; its forward is the FMA cell, timed whole
+F32_PHASES = {'scan': {'forward': (), 'backward': ('pre-pass', 'loop',
+    'dW')}}
 
 
 def log_tc_usage():
@@ -777,12 +781,15 @@ def time_tc_phases(torch, flush, rng, kind='fused', T=16, B=8192,
     archived 'enc2' pair and the backwards of the archived 'enc3', 'enc4',
     'enc6' and 'tm') at the main shape, or of enc5's, cat's or fused's f32
     kernels (csrc/lstm_f32.cuh, the same phases; the forward's pre-pass is
-    x @ W_ih, fused's x @ W_ih + b) with dtype_name float32: a launch
-    runs the first k phases, so a phase's time is the difference of two
-    such means (cold L2 each)."""
+    x @ W_ih, fused's x @ W_ih + b), of the f32 backwards of the
+    encoder kinds, and of lstm_scan's and tm's f32 backwards (scan: the
+    pre-pass, the loop and dW_hh, F32_PHASES; tm: its steps and dW_hh)
+    with dtype_name float32: a launch runs the first k phases, so a
+    phase's time is the difference of two such means (cold L2 each)."""
     launch_fwd, launch_bwd = lstm_kinds()[kind][:2]
     args, grads, cdt = lstm_case(torch, rng, kind, T, B, dtype_name, F=F)
-    names = PHASES.get(kind, TC_PHASES)
+    names = (F32_PHASES.get(kind) if dtype_name == 'float32' else None) \
+        or PHASES.get(kind, TC_PHASES)
     with torch.no_grad():
         outs, _, _, cseq = launch_fwd(*args, cdt)
         bargs = (*args, outs, cseq, *grads, cdt)
@@ -830,13 +837,17 @@ def check_bit_equal(torch, rng, kind, B, T=16, D=None, F=49, H=128,
         f'gradients')
 
 
-def check_tm_is_scan(torch, rng, B, xp_dtype_name, T=16, H=128):
-    """The archived tm and lstm_scan in bf16 on the same inputs, x_proj in
-    xp_dtype_name: tm's step kernels are lstm_scan's loops one step a
-    launch, the carries in f32 buffers between launches, so every output
-    and gradient must be equal bit for bit."""
+def check_tm_is_scan(torch, rng, B, xp_dtype_name, T=16, H=128,
+        dtype_name='bfloat16'):
+    """The archived tm and lstm_scan in dtype_name on the same inputs,
+    x_proj in xp_dtype_name: in bf16 tm's step kernels are lstm_scan's
+    loops one step a launch; in f32 its forward steps are lstm_scan's FMA
+    cell one step a launch and its step backward lstm_scan's f32 backward
+    (csrc/lstm_f32.cuh) one step a launch; the carries are in f32 buffers
+    between launches, so every output and gradient must be equal bit for
+    bit."""
     kinds = lstm_kinds()
-    args, grads, cdt = lstm_case(torch, rng, 'tm', T, B, 'bfloat16', H=H,
+    args, grads, cdt = lstm_case(torch, rng, 'tm', T, B, dtype_name, H=H,
         xp_dtype_name=xp_dtype_name)
     runs = []
     with torch.no_grad():
@@ -848,7 +859,7 @@ def check_tm_is_scan(torch, rng, B, xp_dtype_name, T=16, H=128):
     torch.cuda.synchronize()
     names = LSTM_OUTS + kinds['tm'][4]
     unequal = [n for n, a, w in zip(names, *runs) if not torch.equal(a, w)]
-    what = f'tm against lstm_scan, bf16 T={T} B={B} H={H} x_proj ' \
+    what = f'tm against lstm_scan, {dtype_name} T={T} B={B} H={H} x_proj ' \
         f'{xp_dtype_name}'
     if unequal:
         raise AssertionError(f'{what}: they differ in {unequal}')
@@ -2062,10 +2073,12 @@ def main():
                 F=F, H=H, O=O)
     # f32: enc5's pair (csrc/lstm_f32.cuh) also timed at the main shape,
     # cat's and fused's (the same design) at both batches beside cuDNN's
-    # f32 nn.LSTM
+    # f32 nn.LSTM, and the f32 backwards of the other kinds (lstm_scan's
+    # and tm's on mode XP's cluster backward) at both batches
     lstm_runs = {(kind, B, d): check_lstm(torch, flush, rng, kind, B, d,
             timed=(B, d) == (8192, 'bfloat16') or (kind in ('cat', 'fused',
-                'enc', 'enc2', 'enc3', 'enc4', 'enc6') and d == 'float32')
+                'enc', 'enc2', 'enc3', 'enc4', 'enc6', 'scan', 'tm')
+                and d == 'float32')
                 or (kind, B, d) == ('enc5', 8192, 'float32'))
         for kind in ('enc5', 'cat', 'scan', 'fused', 'enc')
             + ARCHIVED_ENC_KINDS + ('tm',)
@@ -2104,13 +2117,16 @@ def main():
         dtype_name='float32')
     fused_f32_phases = time_tc_phases(torch, flush, rng, 'fused',
         dtype_name='float32')
+    xp_f32_phases = {kind: time_tc_phases(torch, flush, rng, kind,
+        dtype_name='float32') for kind in XP_KINDS}
     check_burn(torch, flush, rng)
     # enc5's bf16 kernels add every partial sum in a fixed order, and so
     # do its f32 ones, whose loops' clusters meet at barriers each step
     check_bit_equal(torch, rng, 'enc5', 8192)
     check_bit_equal(torch, rng, 'enc5', 8192, dtype_name='float32')
     for B in (8192, 1000):
-        for kind in ('cat', 'fused', 'enc', 'enc2', 'enc3', 'enc4', 'enc6'):
+        for kind in ('cat', 'fused', 'enc', 'enc2', 'enc3', 'enc4', 'enc6',
+                'scan', 'tm'):
             check_bit_equal(torch, rng, kind, B, dtype_name='float32')
     check_bit_equal(torch, rng, 'enc5', mb // bptt, T=bptt, F=1,
         dtype_name='float32')
@@ -2138,11 +2154,13 @@ def main():
         ('float32', 'enc4'), ('float32', 'enc'), ('float32', 'enc3'))
     for d, kind in enc5_twins:
         check_enc6_is_enc5(torch, rng, 8192, d, kind)
-    # the archived tm's bf16 kernels are lstm_scan's one step a launch;
-    # then what one launch a step costs against lstm_scan's one a call
-    for B in (8192, 1000):
-        for xp_dtype_name in ('bfloat16', 'float32'):
-            check_tm_is_scan(torch, rng, B, xp_dtype_name)
+    # the archived tm's kernels are lstm_scan's one step a launch (bf16:
+    # both ways; f32: the FMA forward and the cluster backward); then what
+    # one launch a step costs against lstm_scan's one a call
+    for d in ('bfloat16', 'float32'):
+        for B in (8192, 1000):
+            for xp_dtype_name in ('bfloat16', 'float32'):
+                check_tm_is_scan(torch, rng, B, xp_dtype_name, dtype_name=d)
     tm_launches = time_tm_launches(torch, flush, rng)
     for d, kind in enc5_twins:
         check_enc6_is_enc5(torch, rng, 980, d, kind, H=64)
@@ -2476,6 +2494,30 @@ def main():
             ms_1000=f32_1000['bwd_ms'],
             plain_ms_1000=f32_1000['bwd_plain_ms'],
             bound_ms_1000=f32_1000['bwd_bound']))
+    # lstm_scan's f32 backward and the archived tm's (csrc/lstm_f32.cuh:
+    # mode XP's cluster backward, tm's one step a launch), which the
+    # kernel lab launches in f32 (phase 10), at the main shape and at B
+    # 1000, with their phases at the main shape; max_abs_err over both
+    # x_proj dtypes
+    for kind, fn, replaces in (
+            ('scan', 'lstm_scan_backward', 'lstm.py:236'),
+            ('tm', 'lstm_tm_step_backward', 'archive/lstm_tm.py:199')):
+        main_f32 = lstm_runs[kind, 8192, 'float32']
+        f32_1000 = lstm_runs[kind, 1000, 'float32']
+        kernels.append(dict(name=f'{fn}_f32', route='cuda',
+            source='pufferlib_tpu_torch/csrc/lstm_f32.cuh',
+            replaces=f'pufferlib_tpu/ops/pallas/{replaces}',
+            launches=lab_f32_launches[fn],
+            max_abs_err=max(r['bwd_err'] for (k, _, d), r in
+                lstm_runs.items() if k == kind and d.startswith('float32')),
+            ms=main_f32['bwd_ms'], plain_ms=main_f32['bwd_plain_ms'],
+            bound_ms=main_f32['bwd_bound'], bound_by=main_f32['bwd_by'],
+            library_ms=main_f32['bwd_lib'], shape=main_f32['shape'],
+            ms_1000=f32_1000['bwd_ms'],
+            plain_ms_1000=f32_1000['bwd_plain_ms'],
+            bound_ms_1000=f32_1000['bwd_bound'],
+            phases={k: v for k, v in xp_f32_phases[kind].items()
+                if k.startswith('backward')}))
     rows = {row['name']: row for row in kernels}
     # enc5's launches in demo_torch's memory run (phase 17, f32)
     for part in ('forward', 'backward'):
@@ -3028,8 +3070,8 @@ LAB_VARIANTS = ('fused', 'fused-fwd', 'xp', 'cat', 'enc', 'enc5', 'enc2',
 
 
 # the lab's variants in its f32 run
-LAB_F32_VARIANTS = ('fused', 'fused-fwd', 'enc', 'enc2', 'enc3', 'enc4',
-    'enc6')
+LAB_F32_VARIANTS = ('fused', 'fused-fwd', 'xp', 'enc', 'enc2', 'enc3',
+    'enc4', 'enc6', 'tm')
 
 
 def run_validation_path(torch):
@@ -3040,13 +3082,14 @@ def run_validation_path(torch):
     1024-lane recurrent trainer through the enc5 kernels, which must reach
     score 0.9) and tools/kernel_lab_torch.main over every variant, which
     is the path that launches the archived kernels. Returns the launches
-    by C function, and those of the lab's fused, enc, enc2, enc3, enc4
-    and enc6 variants in f32 (kernel_lab_torch.main(LAB_F32_VARIANTS,
-    dtype='float32'), with every count set to 0 again just before: the
-    path that launches lstm_scan_fused's f32 pair, lstm_scan_enc's step
-    backward and the archived enc2's, enc3's, enc4's and enc6's f32
-    backwards, csrc/lstm_f32.cuh, beside enc2's FMA forward and enc5's f32
-    one, the others')."""
+    by C function, and those of the lab's fused, xp, enc, enc2, enc3,
+    enc4, enc6 and tm variants in f32 (kernel_lab_torch.main(
+    LAB_F32_VARIANTS, dtype='float32'), with every count set to 0 again
+    just before: the path that launches lstm_scan_fused's f32 pair,
+    lstm_scan's and tm's f32 backwards, lstm_scan_enc's step backward and
+    the archived enc2's, enc3's, enc4's and enc6's f32 backwards,
+    csrc/lstm_f32.cuh, beside the FMA forwards of lstm_scan, tm and enc2
+    and enc5's f32 one, the others')."""
     from pufferlib_tpu_torch.ops.cuda import KERNELS
     validate = load_tool('validate_lstm_torch')
     lab = load_tool('kernel_lab_torch')
@@ -3087,14 +3130,18 @@ def run_validation_path(torch):
     f32_launches = {fn: n for k in KERNELS for fn, n in k.fn_launches.items()
         if n}
     if set(f32_launches) != {'lstm_fused_forward', 'lstm_fused_backward',
+            'lstm_scan_forward', 'lstm_scan_backward',
             'lstm_enc_step_backward', 'lstm_enc2_forward',
             'lstm_enc2_backward', 'lstm_enc_forward', 'lstm_enc3_backward',
-            'lstm_enc4_backward', 'lstm_enc6_backward'}:
+            'lstm_enc4_backward', 'lstm_enc6_backward',
+            'lstm_tm_step_forward', 'lstm_tm_step_backward'}:
         raise AssertionError(f'the lab in f32: launches {f32_launches}')
-    log(f'the lab in f32: lstm_scan_fused, lstm_scan_enc and the archived '
-        f'enc2, enc3, enc4 and enc6 '
+    log(f'the lab in f32: lstm_scan_fused, lstm_scan, lstm_scan_enc and '
+        f'the archived enc2, enc3, enc4, enc6 and tm '
         f'{json.dumps({" ".join(k): v for k, v in f32_ms.items()})} ms; '
-        f'launches {json.dumps(f32_launches)}')
+        f'launches {json.dumps(f32_launches)} (lstm_scan_backward '
+        f'{f32_launches["lstm_scan_backward"]}, lstm_tm_step_backward '
+        f'{f32_launches["lstm_tm_step_backward"]})')
     return launches, f32_launches
 
 

@@ -100,15 +100,23 @@
 //   SGEMMs. enc2's loop writes the dgates over its slab after the pre-pass
 //   has read it: enc5's scratch, no more. enc3's TPU kernel keeps its
 //   activations in a slab before the loop, as enc5's f32 backward does.
-// * everything else in f32 (enc2's forward, tm): csrc/lstm_common.cuh's
-//   FMA cell kernels, from weights streamed out of L2 in chunks, far above
+// * f32 tm backward: csrc/lstm_f32.cuh's mode XP backward
+//   (xp_backward_steps, lstm_scan's) over [t, t + 1): the call at t = T - 1
+//   runs the pre-pass over all T*B rows (the gates recompute from x_proj
+//   and h_prev depends on no carry) into the f32 dgates' storage and
+//   transposes W_hh into its scratch; every call runs the cluster reverse
+//   loop over step t, staging its slice of W_hh^T into shared memory, its
+//   dh/dc carries in the (B, H) buffers; the call at t = 0 runs dW_hh as
+//   the split-K SGEMM over all T*B rows with lstm_scan's splits. The
+//   carries are the values lstm_scan's loop keeps in registers, so tm's
+//   f32 gradients are lstm_scan's bit for bit.
+// * the other f32 kernels (enc2's and tm's forwards): csrc/lstm_common.cuh's
+//   FMA cell kernel, from weights streamed out of L2 in chunks, far above
 //   the bounds above (f32 is the exact test mode): enc2's forward in mode
 //   ENC2, its encoder inside the time loop from a W_enc held in shared
 //   memory; tm in mode XP walking one step per launch: stream order is the
 //   only synchronisation a timestep needs, since batch tiles do not talk
-//   to each other; dW_hh is the split-K contraction over the dgates slab
-//   once step 0 is done, its partials added in a fixed order, as in the
-//   other LSTM sources.
+//   to each other.
 #include "lstm_common.cuh"
 #include "lstm_f32.cuh"
 #include "lstm_tc.cuh"
@@ -225,8 +233,9 @@ struct Enc2Forward {
 };
 
 // tm's steps: bf16 on lstm_tc.cuh's mode XP loops (xp_forward_step,
-// xp_backward_steps over [t, t + 1)), f32 on lstm_common.cuh's FMA cell;
-// x_proj in S (bf16 when xp_bf16, else f32)
+// xp_backward_steps over [t, t + 1)); f32, the forward on lstm_common.cuh's
+// FMA cell, the backward on lstm_f32.cuh's xp_backward_steps over [t, t +
+// 1); x_proj in S (bf16 when xp_bf16, else f32)
 template <int H, typename E>
 struct TmStepForward {
     template <typename S>
@@ -267,10 +276,15 @@ struct TmStepBackward {
                 static_cast<S*>(dx_proj), dh_out, dc_out, dw_hh, static_cast<E*>(dg), dw_part,
                 static_cast<E*>(w16), t, t + 1, T, B, splits, phases, stream);
         } else {
-            if (w16 || phases != tc::XP_BACKWARD_PHASES) return cudaErrorInvalidValue;
-            return run_backward_steps<H, E, S>(x_proj, h0, c0, w_hh, outs, cseq, g_outs, dh_in,
-                                               dc_in, dh_out, dc_out, dw_hh, dx_proj, dg,
-                                               dw_part, t, t + 1, T, B, splits, stream);
+            // tm's phases leave out dW_hh (1) or not (2): the f32 backward's
+            // last two
+            if (phases < 1 || phases > tc::XP_BACKWARD_PHASES) return cudaErrorInvalidValue;
+            return f32::xp_backward_steps<H, S>(
+                static_cast<const S*>(x_proj), h0, c0, w_hh, static_cast<const E*>(outs),
+                static_cast<const E*>(cseq), static_cast<const E*>(g_outs), dh_in, dc_in,
+                static_cast<S*>(dx_proj), dh_out, dc_out, dw_hh, static_cast<E*>(dg), dw_part,
+                static_cast<E*>(w16), t, t + 1, T, B, splits,
+                phases + f32::XP_BACKWARD_PHASES - tc::XP_BACKWARD_PHASES, stream);
         }
     }
     template <typename... Args>
@@ -376,13 +390,16 @@ int lstm_tm_step_forward(const void* x_proj, const float* h_in, const float* c_i
 // dtype); dh_in, dc_in: the gradients that enter step t (g_hT, g_cT at
 // t = T - 1), dh_out, dc_out: those that leave it (dh0, dc0 at t = 0),
 // other buffers than dh_in, dc_in, all (B, H) f32. Writes row t of dx_proj
-// (T, B, 4H, x_proj's dtype) and, at t = 0, dw_hh (H, 4H) from the dgates
-// of every step. Scratch: dw_part (splits, H, 4H) f32, and dg (T, B, 4H)
-// in the compute dtype, which is null where x_proj is in the compute
-// dtype (dx_proj is then the slab dW_hh reads); bf16 only (null in f32):
-// w16 (H * 4H + B * H bf16), W_hh and h0 rounded by the call at t = T - 1
-// and read by every later step of the same walk. phases: 2 runs the whole
-// step; in bf16, 1 leaves out dW_hh at t = 0 (to time the steps alone).
+// (T, B, 4H, x_proj's dtype; f32 compute with bf16 x_proj: every row at t
+// = 0) and, at t = 0, dw_hh (H, 4H) from the dgates of every step.
+// Scratch: dw_part (splits, H, 4H) f32, and dg (T, B, 4H) in the compute
+// dtype, which is null where x_proj is in the compute dtype (dx_proj is
+// then the slab dW_hh reads); w16, written by the call at t = T - 1 and
+// read by every later step of the same walk: bf16, W_hh and h0 rounded (H
+// * 4H + B * H bf16), f32, W_hh^T (4H * H f32; f32 compute also writes the
+// activations of every step into its dgates' storage then). phases: 2
+// runs the whole step, 1 leaves out dW_hh at t = 0 (to time the steps
+// alone).
 int lstm_tm_step_backward(const void* x_proj, const float* h0, const float* c0,
                           const float* w_hh, const void* outs, const void* cseq,
                           const void* g_outs, const float* dh_in, const float* dc_in,

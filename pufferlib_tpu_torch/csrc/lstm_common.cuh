@@ -2,50 +2,42 @@
 // csrc/lstm_scan.cu and csrc/lstm_archive.cu, for Hopper (sm_90a). See
 // those files for which TPU kernel each replaces and what bounds it.
 //
-// The FMA cell kernels below (cell_forward, cell_backward) run in f32
-// what has no other f32 design: lstm_scan and the archived tm (mode XP,
-// both ways) and the archived enc2's forward (ENC2); the f32 pairs of cat
-// and fused (modes CAT and FUSED), enc5 and every encoder-fused backward
-// (lstm_scan_enc's step backward, the archived enc2, enc3, enc4 and enc6)
-// run csrc/lstm_f32.cuh. A Mode (below) says which function a cell kernel
-// computes per step:
+// The FMA cell kernel below (cell_forward) runs in f32 the forwards that
+// have no other f32 design: lstm_scan's and the archived tm's (mode XP)
+// and the archived enc2's (ENC2). Every f32 backward and the f32 pairs of
+// cat and fused (modes CAT and FUSED) and enc5 run csrc/lstm_f32.cuh. A
+// Mode (below) says which function a cell kernel computes per step:
 //
 // * cell_forward (XP, ENC2): one block per BT = 32 batch rows walks
-//   t = 0..T-1. Per step it builds the operand [x_t | h] (rounded to the
-//   compute dtype) in shared memory, computes the gates with f32
-//   accumulation, and updates c and h in registers. W_hh, and with ENC2
-//   W_ih, is streamed from L2 (where it stays resident: every block reads
-//   the same weights; [W_ih; W_hh] is (D+H, 4H) = 256 KiB in f32 at
-//   H = 128, more than a block's 227 KiB of shared memory) in chunks of
-//   KC rows, each rounded to the compute dtype as it is staged. ENC2's
-//   step first computes x_t = relu(feats_t @ W_enc + b_enc) from a W_enc
-//   held in shared memory, so no encoded sequence ever reaches device
-//   memory. Both modes keep two f32 sums apart, as their TPU kernels do:
-//   the recurrent h @ W_hh, and the term it is added to (x_proj_t read
-//   from device memory, or x_t @ W_ih + b computed first).
-// * cell_backward (XP): the same blocks walk t = T-1..0. Per step they
-//   recompute the gates from x_proj_t and h_prev (read back from the
-//   stored outs), carry the dh/dc chain in registers, round dgates to the
-//   compute dtype, and compute dh_prev = dgates @ W_hh^T, streaming W_hh's
-//   columns in chunks. The f32 dgates go to dx_proj, the rounded ones to
-//   the slab that dW_hh reads. Both cell kernels walk a range of steps,
-//   so that a launch per timestep (the time-major variant) is the same
-//   kernel over one step.
-// * the split-K (splitk) + reduce_partials: the weight gradients
-//   dW = [x | h_prev]^T dgates (and dW_enc = feats^T dpre) are
-//   contractions over K = T*B rows. The TPU kernels add them into one
-//   output block across a sequential grid; Hopper blocks run at once, so
-//   each block here writes the partial sum of its K-split, and a second
-//   pass adds the partials in split order. No atomics: the result is the
-//   same from run to run. In bf16, operands held as bf16 rows (every
-//   [x | h_prev] and dgates slab) run gemm_tn_splitk_ring: 128 x 128
-//   outputs a block and a 4-stage cp.async ring, so that a split reads its
-//   rows of A N / 128 times and of dg M / 128 times through L2 (about 0.54
-//   GB a call at cat's 256 x 512 output over 131072 rows, where 64 x 64
-//   tiles read 1.07 GB). Sources it cannot copy 16 bytes at a time (enc5's
-//   [feats | 1], feature rows of odd width, a dgates slab kept in f32)
-//   keep the register-staged 64 x 64 kernel gemm_tn_splitk_mma; f32 runs
-//   gemm_tn_splitk on FMA.
+//   steps t_lo..t_hi-1 (the whole sequence, or one step a launch: the
+//   time-major variant). Per step it builds the operand [x_t | h]
+//   (rounded to the compute dtype) in shared memory, computes the gates
+//   with f32 accumulation, and updates c and h in registers. W_hh, and
+//   with ENC2 W_ih, is streamed from L2 (where it stays resident: every
+//   block reads the same weights; [W_ih; W_hh] is (D+H, 4H) = 256 KiB in
+//   f32 at H = 128, more than a block's 227 KiB of shared memory) in
+//   chunks of KC rows, each rounded to the compute dtype as it is staged.
+//   ENC2's step first computes x_t = relu(feats_t @ W_enc + b_enc) from a
+//   W_enc held in shared memory, so no encoded sequence ever reaches
+//   device memory. Both modes keep two f32 sums apart, as their TPU
+//   kernels do: the recurrent h @ W_hh, and the term it is added to
+//   (x_proj_t read from device memory, or x_t @ W_ih + b computed first).
+// * the split-K (splitk) + reduce_partials of the bf16 backwards
+//   (csrc/lstm_tc.cuh): the weight gradients dW = [x | h_prev]^T dgates
+//   (and dW_enc = feats^T dpre) are contractions over K = T*B rows. The
+//   TPU kernels add them into one output block across a sequential grid;
+//   Hopper blocks run at once, so each block here writes the partial sum
+//   of its K-split, and a second pass adds the partials in split order.
+//   No atomics: the result is the same from run to run. Operands held as
+//   bf16 rows (every [x | h_prev] and dgates slab) run
+//   gemm_tn_splitk_ring: 128 x 128 outputs a block and a 4-stage cp.async
+//   ring, so that a split reads its rows of A N / 128 times and of dg M /
+//   128 times through L2 (about 0.54 GB a call at cat's 256 x 512 output
+//   over 131072 rows, where 64 x 64 tiles read 1.07 GB). Sources it
+//   cannot copy 16 bytes at a time (enc5's [feats | 1], feature rows of
+//   odd width) keep the register-staged 64 x 64 kernel
+//   gemm_tn_splitk_mma. The f32 weight gradients are lstm_f32.cuh's
+//   split-K SGEMMs, added by reduce_partials too.
 //
 // Threads: NT = 256 per block. Thread t owns hidden unit j = t % H and
 // rows r0 .. r0+RPT-1 (r0 = (t / H) * RPT) of the block's BT rows, for
@@ -54,11 +46,10 @@
 // the operand) and reads consecutive weight columns (no bank conflicts).
 // H must divide NT: H in {32, 64, 128}; the input width D equals H.
 //
-// The recurrent kernels run plain f32 FMA; the weight-gradient
-// contractions run on bf16 tensor cores in bf16 mode and on FMA in f32.
-// Products of bf16-rounded operands are exact in f32 either way, so in
-// bf16 mode the kernels differ from the plain PyTorch versions only in
-// the order of f32 sums.
+// The cell kernel runs plain f32 FMA; the split-K runs on bf16 tensor
+// cores. Products of bf16-rounded operands are exact in f32, so the bf16
+// kernels differ from the plain PyTorch versions only in the order of f32
+// sums.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -71,7 +62,7 @@ namespace lstm {
 
 constexpr int NT = 256;      // threads per block
 constexpr int BT = 32;       // batch rows per block (ROWS_PER_BLOCK in python)
-constexpr int KC = 16;       // weight rows (or columns) staged per chunk
+constexpr int KC = 16;       // weight rows staged per chunk
 constexpr int MAX_SMEM = 227 * 1024;
 
 using bf16 = __nv_bfloat16;
@@ -121,9 +112,6 @@ enum Mode {
 };
 __host__ __device__ constexpr bool has_encoder(int mode) {
     return mode == ENC || mode == ENC5 || mode >= ENC2;
-}
-__host__ __device__ constexpr bool two_sums(int mode) {
-    return mode == XP || mode == FUSED || mode == ENC2;
 }
 // the gate activations pass through the compute dtype (a stored slab on the TPU)
 __host__ __device__ constexpr bool rounded_acts(int mode) {
@@ -187,48 +175,6 @@ __device__ __forceinline__ void put_rows(float* w_s, const float4 (&r)[RowChunk<
         const int idx = threadIdx.x + q * NT, kk = idx / G4, n4 = idx - kk * G4;
         reinterpret_cast<float4*>(w_s + kk * G)[n4] =
             to_cdt4(r[q], std::is_same<E, bf16>::value);
-    }
-}
-
-// Column chunk: columns k0 .. k0+KC of W_hh (H, G), read as float4s along
-// the row; stored transposed as w_s[kk * KS + n], with the row stride
-// padded to KS = H + 1 against bank conflicts.
-template <int H>
-struct ColChunk {
-    static constexpr int KS = H + 1;
-    static constexpr int TOTAL = KC / 4 * H;  // float4s per chunk
-    static constexpr int LOADS = (TOTAL + NT - 1) / NT;
-    static constexpr bool FULL = TOTAL % NT == 0;
-};
-
-template <int H>
-__device__ __forceinline__ void fetch_cols(float4 (&r)[ColChunk<H>::LOADS], const float* w_hh,
-                                           int k0) {
-    using CC = ColChunk<H>;
-    constexpr int G = Tile<H>::G;
-#pragma unroll
-    for (int q = 0; q < CC::LOADS; ++q) {
-        const int idx = threadIdx.x + q * NT;
-        if (!CC::FULL && idx >= CC::TOTAL) break;
-        const int n = idx / (KC / 4), k4 = idx % (KC / 4);
-        r[q] = reinterpret_cast<const float4*>(w_hh + (size_t)n * G + k0)[k4];
-    }
-}
-
-template <int H, typename E>
-__device__ __forceinline__ void put_cols(float* w_s, const float4 (&r)[ColChunk<H>::LOADS]) {
-    using CC = ColChunk<H>;
-    constexpr int KS = CC::KS;
-#pragma unroll
-    for (int q = 0; q < CC::LOADS; ++q) {
-        const int idx = threadIdx.x + q * NT;
-        if (!CC::FULL && idx >= CC::TOTAL) break;
-        const int n = idx / (KC / 4), k4 = idx % (KC / 4);
-        const float4 v = to_cdt4(r[q], std::is_same<E, bf16>::value);
-        w_s[(4 * k4) * KS + n] = v.x;
-        w_s[(4 * k4 + 1) * KS + n] = v.y;
-        w_s[(4 * k4 + 2) * KS + n] = v.z;
-        w_s[(4 * k4 + 3) * KS + n] = v.w;
     }
 }
 
@@ -352,41 +298,6 @@ __device__ __forceinline__ void gate_sums(float (&acc)[4][Tile<H>::RPT],
         for (int i = 0; i < RPT; ++i) acc[g][i] = pre[g][i] + acc[g][i];
 }
 
-// ah[i] = sum_k dg[k][r0 + i] * W_hh[j][k], dg (G, BT) of shared memory,
-// already rounded: dh_prev = dgates @ W_hh^T, with W_hh's columns streamed
-// through w_s, the next chunk in flight during this one. Every thread of
-// the block must call it; it ends with a barrier.
-template <int H, typename E>
-__device__ __forceinline__ void cols_gemm(float (&ah)[Tile<H>::RPT], const float* dg,
-                                          float* w_s, const float* w_hh, int r0, int j) {
-    constexpr int G = Tile<H>::G, RPT = Tile<H>::RPT;
-    using CC = ColChunk<H>;
-    constexpr int KS = CC::KS;
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) ah[i] = 0.f;
-    float4 next[CC::LOADS];
-    fetch_cols<H>(next, w_hh, 0);
-    for (int k0 = 0; k0 < G; k0 += KC) {
-        put_cols<H, E>(w_s, next);
-        __syncthreads();
-        if (k0 + KC < G) fetch_cols<H>(next, w_hh, k0 + KC);
-#pragma unroll 4
-        for (int kk = 0; kk < KC; ++kk) {
-            const float wh = w_s[kk * KS + j];
-            const float4* dv = reinterpret_cast<const float4*>(dg + (k0 + kk) * BT + r0);
-#pragma unroll
-            for (int q = 0; q < RPT / 4; ++q) {
-                const float4 v = dv[q];
-                ah[4 * q] = fmaf(v.x, wh, ah[4 * q]);
-                ah[4 * q + 1] = fmaf(v.y, wh, ah[4 * q + 1]);
-                ah[4 * q + 2] = fmaf(v.z, wh, ah[4 * q + 2]);
-                ah[4 * q + 3] = fmaf(v.w, wh, ah[4 * q + 3]);
-            }
-        }
-        __syncthreads();
-    }
-}
-
 // One (row, unit) of the reverse step, in the order of operations of the
 // TPU kernels' _bwd_kernel: the f32 dgates d (i, f, g, o) from the gate
 // activations, dhv = dh + g_outs_t, c_t and c_prev. dc comes in as the
@@ -496,100 +407,6 @@ __global__ void __launch_bounds__(NT) cell_forward(
     }
 }
 
-// The reverse of mode XP: x_proj (T, B, 4H) in its own dtype S; dx_proj
-// (T, B, 4H), the f32 dgates stored in S. dg is the slab of dgates rounded
-// to the compute dtype that the dW_hh contraction reads; a null dg where
-// dx_proj serves as that slab (S is E, or S is f32 and the contraction
-// rounds as it loads). The block walks steps t_hi-1 .. t_lo, from the
-// gradients g_hT, g_cT that enter step t_hi-1 to dh0, dc0 that leave step
-// t_lo (h0 and c0 stay the state before step 0): the whole sequence, or
-// one step per launch.
-template <int H, typename E, typename S>
-__global__ void __launch_bounds__(NT) cell_backward(
-        const S* __restrict__ x_proj, const float* __restrict__ h0,
-        const float* __restrict__ c0, const float* __restrict__ w_hh,
-        const E* __restrict__ outs, const E* __restrict__ cseq,
-        const E* __restrict__ g_outs, const float* __restrict__ g_hT,
-        const float* __restrict__ g_cT, float* __restrict__ dh0,
-        float* __restrict__ dc0, S* __restrict__ dx_proj, E* __restrict__ dg, int t_lo,
-        int t_hi, int B) {
-    using TL = Tile<H>;
-    constexpr int D = TL::D, G = TL::G, RPT = TL::RPT;
-    extern __shared__ __align__(16) float smem[];
-    float* buf = smem;                // (K, BT) h_prev in rows D .. K, then (G, BT) dgates
-    float* w_s = buf + G * BT;        // (KC, G) weight rows / (KC, KS) columns
-
-    const int j = threadIdx.x % H, r0 = (threadIdx.x / H) * RPT;
-    const int row0 = blockIdx.x * BT;
-    const int nrows = min(BT, B - row0);
-    const float bias[4] = {0.f, 0.f, 0.f, 0.f};  // XP has none
-    float dh[RPT], dc[RPT];
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-        const int r = r0 + i;
-        const size_t idx = (size_t)(row0 + r) * H + j;
-        dh[i] = r < nrows ? g_hT[idx] : 0.f;
-        dc[i] = r < nrows ? g_cT[idx] : 0.f;
-    }
-
-    for (int t = t_hi - 1; t >= t_lo; --t) {
-        const size_t base = (size_t)t * B + row0;
-        float acc[4][RPT], pre[4][RPT];
-        load_x_proj<H>(pre, x_proj, base, nrows, r0, j);
-        // h_prev: h0 at t = 0, else the stored outs of t - 1
-        if (t == 0)
-            load_rows<E>(buf + D * BT, h0, (size_t)row0, H, nrows);
-        else
-            load_rows<E>(buf + D * BT, outs, base - B, H, nrows);
-        __syncthreads();
-        gate_sums<H, E, XP>(acc, pre, buf, w_s, nullptr, w_hh, bias, r0, j);
-
-#pragma unroll
-        for (int i = 0; i < RPT; ++i) {
-            const int r = r0 + i;
-            const bool ok = r < nrows;
-            const size_t idx = (base + r) * H + j;
-            const float ai = sigm(acc[0][i]);
-            const float af = sigm(acc[1][i]);
-            const float ag = tanhf(acc[2][i]);
-            const float ao = sigm(acc[3][i]);
-            const float gout = ok ? ld(g_outs, idx) : 0.f;
-            const float ct = ok ? ld(cseq, idx) : 0.f;
-            const float cp = !ok ? 0.f
-                : t == 0 ? c0[(size_t)(row0 + r) * H + j]
-                : ld(cseq, idx - (size_t)B * H);
-            float d[4];
-            dgates_chain(d, dc[i], dh[i] + gout, ai, af, ag, ao, ct, cp);
-#pragma unroll
-            for (int g = 0; g < 4; ++g) {
-                const float dcg = to_cdt<E>(d[g]);
-                buf[(g * H + j) * BT + r] = dcg;
-                if (ok) {
-                    const size_t at = (base + r) * G + g * H + j;
-                    st(dx_proj, at, d[g]);
-                    if (dg) st(dg, at, dcg);
-                }
-            }
-        }
-        __syncthreads();
-
-        // dh_prev = dgates @ W_hh^T, streaming columns
-        float ah[RPT];
-        cols_gemm<H, E>(ah, buf, w_s, w_hh, r0, j);
-#pragma unroll
-        for (int i = 0; i < RPT; ++i) dh[i] = ah[i];
-    }
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-        const int r = r0 + i;
-        if (r < nrows) {
-            const size_t idx = (size_t)(row0 + r) * H + j;
-            dh0[idx] = dh[i];
-            dc0[idx] = dc[i];
-        }
-    }
-}
-
 __device__ __forceinline__ uint32_t pack2(float a, float b) {
     const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
     return *reinterpret_cast<const uint32_t*>(&v);
@@ -600,33 +417,22 @@ __device__ __forceinline__ uint4 pack8(float a, float b, float c, float d, float
     return make_uint4(pack2(a, b), pack2(c, d), pack2(e, f), pack2(g, h));
 }
 
-// eight bf16 from a 16-byte aligned address (i a multiple of 8); only
-// the tensor-core path, whose operands are bf16, calls it
+// eight bf16 from a 16-byte aligned address (i a multiple of 8)
 __device__ __forceinline__ uint4 load8_bf16(const bf16* p, size_t i) {
     return *reinterpret_cast<const uint4*>(p + i);
 }
-__device__ __forceinline__ uint4 load8_bf16(const float*, size_t) {
-    return make_uint4(0, 0, 0, 0);  // never called: f32 runs on FMA
-}
 
-// Row k of the operand [x | h_prev] of dW = [x | h_prev]^T dgates: x from
-// a (T*B, D) array, h_prev = h0 (rounded) for the first B rows, else the
-// stored outs of the previous step, which is outs row k - B.
-template <typename E>
+// Row k of the bf16 operand [x | h_prev] of dW = [x | h_prev]^T dgates: x
+// from a (T*B, D) array, h_prev = h0 (rounded) for the first B rows, else
+// the stored outs of the previous step, which is outs row k - B.
 struct XHRows {
-    const E* x;
+    const bf16* x;
     const float* h0;
-    const E* outs;
+    const bf16* outs;
     int B, D, H;
     // h0 already rounded to bf16 (B, H), where the caller has it: the ring
     // then copies those rows too; else they are rounded as they load
     const bf16* h16 = nullptr;
-    __device__ __forceinline__ float operator()(size_t k, int m) const {
-        if (m < D) return ld(x, k * D + m);
-        m -= D;
-        if (k < (size_t)B) return to_cdt<E>(h0[k * H + m]);
-        return ld(outs, (k - B) * H + m);
-    }
     // elements m .. m+7 of row k, as bf16 (m a multiple of 8; D and H
     // are multiples of 8, so the eight never straddle x and h_prev)
     __device__ __forceinline__ uint4 load8(size_t k, int m) const {
@@ -636,8 +442,8 @@ struct XHRows {
         const float* p = h0 + k * H + m;
         return pack8(p[0], p[1], p[2], p[3], p[4], p[5], p[6], p[7]);
     }
-    // where the ring may copy elements m .. m+7 of row k from (bf16 only),
-    // or null: the h0 rows without h16 go through load8
+    // where the ring may copy elements m .. m+7 of row k from, or null:
+    // the h0 rows without h16 go through load8
     __device__ __forceinline__ const bf16* src8(size_t k, int m) const {
         if (m < D) return x + k * D + m;
         m -= D;
@@ -646,27 +452,19 @@ struct XHRows {
     }
 };
 
-// Row k of a (K, width) array stored in S, as values of the compute
-// dtype E (the dgates slab that XP keeps in x_proj's dtype is rounded
-// here, as it is loaded)
-template <typename E, typename S = E>
+// Row k of a (K, width) bf16 array
 struct Rows {
-    const S* p;
+    const bf16* p;
     int width;
-    __device__ __forceinline__ float operator()(size_t k, int m) const {
-        return to_cdt<E>(ld(p, k * width + m));
-    }
     __device__ __forceinline__ uint4 load8(size_t k, int m) const {
         const size_t i = k * width + m;
-        if constexpr (std::is_same<S, bf16>::value) {
-            if (m + 8 <= width && i % 8 == 0) return load8_bf16(p, i);
-        }
+        if (m + 8 <= width && i % 8 == 0) return load8_bf16(p, i);
         float v[8];
 #pragma unroll
         for (int q = 0; q < 8; ++q) v[q] = m + q < width ? ld(p, i + q) : 0.f;
         return pack8(v[0], v[1], v[2], v[3], v[4], v[5], v[6], v[7]);
     }
-    // the ring's copy source (bf16 rows whose width is a multiple of 8)
+    // the ring's copy source (rows whose width is a multiple of 8)
     __device__ __forceinline__ const bf16* src8(size_t k, int m) const {
         return p + k * width + m;
     }
@@ -674,73 +472,24 @@ struct Rows {
 
 // Which operand sources the ring (gemm_tn_splitk_ring) takes: bf16 rows
 // that it can copy 16 bytes at a time. Others (enc5's [feats | 1],
-// feature rows of odd width, a dgates slab rounded as it loads) keep the
-// register-staged kernel.
+// feature rows of odd width) keep the register-staged kernel.
 template <class S>
 struct RingSource : std::false_type {};
 template <>
-struct RingSource<Rows<bf16, bf16>> : std::true_type {};
+struct RingSource<Rows> : std::true_type {};
 template <>
-struct RingSource<XHRows<bf16>> : std::true_type {};
+struct RingSource<XHRows> : std::true_type {};
 
 inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
-inline bool ring_serves(const Rows<bf16, bf16>& r) {
-    return r.width % 8 == 0 && aligned16(r.p);
-}
-inline bool ring_serves(const XHRows<bf16>& r) {
+inline bool ring_serves(const Rows& r) { return r.width % 8 == 0 && aligned16(r.p); }
+inline bool ring_serves(const XHRows& r) {
     return r.D % 8 == 0 && r.H % 8 == 0 && aligned16(r.x) && aligned16(r.outs) &&
            aligned16(r.h16);
 }
 
-constexpr int GT = 64;  // output tile of gemm_tn_splitk
-constexpr int GK = 16;  // its depth per stage
-
-// part[s][m][n] = sum_{k in split s} a(k, m) * bm(k, n); splits on
-// blockIdx.z, (M, N) tiles of 64 x 64 on blockIdx.x/y, 4 x 4 per thread
-template <class SA, class SB>
-__global__ void __launch_bounds__(256) gemm_tn_splitk(SA a, SB bm, float* __restrict__ part,
-                                                      int M, int N, long long K,
-                                                      long long per_split) {
-    __shared__ __align__(16) float as[GK][GT];
-    __shared__ __align__(16) float bs[GK][GT];
-    const int m0 = blockIdx.x * GT, n0 = blockIdx.y * GT;
-    const long long kb = (long long)blockIdx.z * per_split;
-    const long long ke = kb + per_split < K ? kb + per_split : K;
-    const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-    float acc[4][4] = {};
-    for (long long k0 = kb; k0 < ke; k0 += GK) {
-#pragma unroll
-        for (int q = 0; q < GK * GT / 256; ++q) {
-            const int idx = threadIdx.x + q * 256, kk = idx / GT, mm = idx % GT;
-            const long long k = k0 + kk;
-            as[kk][mm] = (k < ke && m0 + mm < M) ? a((size_t)k, m0 + mm) : 0.f;
-            bs[kk][mm] = (k < ke && n0 + mm < N) ? bm((size_t)k, n0 + mm) : 0.f;
-        }
-        __syncthreads();
-#pragma unroll
-        for (int kk = 0; kk < GK; ++kk) {
-            const float4 av = *reinterpret_cast<const float4*>(&as[kk][ty * 4]);
-            const float4 bv = *reinterpret_cast<const float4*>(&bs[kk][tx * 4]);
-            const float ar[4] = {av.x, av.y, av.z, av.w};
-            const float br[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-#pragma unroll
-                for (int jj = 0; jj < 4; ++jj) acc[i][jj] = fmaf(ar[i], br[jj], acc[i][jj]);
-        }
-        __syncthreads();
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
-            const int m = m0 + ty * 4 + i, n = n0 + tx * 4 + jj;
-            if (m < M && n < N) part[((size_t)blockIdx.z * M + m) * N + n] = acc[i][jj];
-        }
-}
-
-// The same contraction on bf16 tensor cores, for bf16 operands (exact in
+// part[s][m][n] = sum_{k in split s} a(k, m) * bm(k, n), the splits on
+// blockIdx.z, on bf16 tensor cores for bf16 operands (exact in
 // bf16: the compute dtype's values): mma.sync m16n8k16 with f32
 // accumulation. Tiles of TM x TN outputs, TK rows of K per stage, staged
 // in shared memory as bf16 with rows padded to TP elements (144 bytes:
@@ -984,11 +733,6 @@ inline size_t forward_smem(int H, int F, bool enc) {
                             (enc ? (size_t)F * H + (size_t)F * BT : 0));
 }
 
-// the (KC, H + 1) column chunk fits in the (KC, 4H) row chunk's place
-inline size_t backward_smem(int H) {
-    return sizeof(float) * ((size_t)4 * H * BT + (size_t)KC * 4 * H);
-}
-
 template <typename Kernel>
 cudaError_t prepare(Kernel kernel, size_t smem) {
     if (smem > (size_t)MAX_SMEM) return cudaErrorInvalidValue;
@@ -1031,85 +775,33 @@ inline cudaError_t reduce(const float* part, float* out, int S, long long n,
     return cudaGetLastError();
 }
 
-// bf16 operands on the tensor cores, through the ring where both sources
-// can be copied 16 bytes at a time (gemm_tn_splitk_ring, 128 x 128 tiles)
-// and else register-staged (gemm_tn_splitk_mma, 64 x 64); f32 ones on FMA
-// (64 x 64). Then the partials added in split order.
-template <typename E, class SA, class SB>
+// dW = a^T bm of bf16 operands on the tensor cores, through the ring where
+// both sources can be copied 16 bytes at a time (gemm_tn_splitk_ring, 128
+// x 128 tiles) and else register-staged (gemm_tn_splitk_mma, 64 x 64).
+// Then the partials added in split order. (f32 weight gradients run
+// lstm_f32.cuh's split-K SGEMM.)
+template <class SA, class SB>
 cudaError_t splitk(SA a, SB bm, float* part, float* out, int M, int N, long long K,
                    int splits, cudaStream_t stream) {
-    static_assert(GT == TM && GT == TN, "one tile grid for both");
     if (splits < 1) return cudaErrorInvalidValue;
-    const long long per_split = (K + splits - 1) / splits;
-    const dim3 grid((M + GT - 1) / GT, (N + GT - 1) / GT, splits);
     cudaError_t err = cudaSuccess;
-    if constexpr (std::is_same<E, bf16>::value && RingSource<SA>::value &&
-                  RingSource<SB>::value) {
-        if (M % 8 == 0 && N % 8 == 0 && ring_serves(a) && ring_serves(bm)) {
+    bool ring = false;
+    if constexpr (RingSource<SA>::value && RingSource<SB>::value) {
+        if ((ring = M % 8 == 0 && N % 8 == 0 && ring_serves(a) && ring_serves(bm))) {
             auto kernel = gemm_tn_splitk_ring<SA, SB>;
             if ((err = prepare(kernel, RING_SMEM)) != cudaSuccess) return err;
             const dim3 rgrid((M + RM - 1) / RM, (N + RN - 1) / RN, splits);
             kernel<<<rgrid, RTHREADS, RING_SMEM, stream>>>(a, bm, part, M, N, K,
                                                           ring_per_split(K, splits));
-        } else {
-            gemm_tn_splitk_mma<SA, SB>
-                <<<grid, 128, 0, stream>>>(a, bm, part, M, N, K, per_split);
         }
-    } else if constexpr (std::is_same<E, bf16>::value) {
-        gemm_tn_splitk_mma<SA, SB><<<grid, 128, 0, stream>>>(a, bm, part, M, N, K, per_split);
-    } else {
-        gemm_tn_splitk<SA, SB><<<grid, 256, 0, stream>>>(a, bm, part, M, N, K, per_split);
+    }
+    if (!ring) {
+        const dim3 grid((M + TM - 1) / TM, (N + TN - 1) / TN, splits);
+        gemm_tn_splitk_mma<SA, SB><<<grid, 128, 0, stream>>>(a, bm, part, M, N, K,
+                                                            (K + splits - 1) / splits);
     }
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
     return reduce(part, out, splits, (long long)M * N, stream);
-}
-
-// Steps t_hi-1 .. t_lo of mode XP's backward (cell_backward) and, once
-// step 0 is done, dW_hh (H, 4H) = h_prev^T dgates by the split-K, its
-// partials added in split order. T is the length of the whole sequence.
-template <int H, typename E, typename S>
-cudaError_t run_backward_steps(const void* x_proj, const float* h0, const float* c0,
-                               const float* w_hh, const void* outs, const void* cseq,
-                               const void* g_outs, const float* g_hT, const float* g_cT,
-                               float* dh0, float* dc0, float* dw_hh, void* dx_proj, void* dg,
-                               float* dw_part, int t_lo, int t_hi, int T, int B, int splits,
-                               cudaStream_t stream) {
-    constexpr int G = 4 * H;
-    if (splits < 1 || t_lo < 0 || t_lo >= t_hi || t_hi > T) return cudaErrorInvalidValue;
-    // an f32 contraction cannot read its dgates from a bf16 dx_proj
-    if (!std::is_same<S, E>::value && std::is_same<S, bf16>::value && !dg)
-        return cudaErrorInvalidValue;
-    auto kernel = cell_backward<H, E, S>;
-    const size_t smem = backward_smem(H);
-    cudaError_t err = prepare(kernel, smem);
-    if (err != cudaSuccess) return err;
-    kernel<<<(B + BT - 1) / BT, NT, smem, stream>>>(
-        static_cast<const S*>(x_proj), h0, c0, w_hh, static_cast<const E*>(outs),
-        static_cast<const E*>(cseq), static_cast<const E*>(g_outs), g_hT, g_cT, dh0, dc0,
-        static_cast<S*>(dx_proj), static_cast<E*>(dg), t_lo, t_hi, B);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    if (t_lo > 0) return cudaSuccess;
-
-    const long long K = (long long)T * B;
-    XHRows<E> h_prev{nullptr, h0, static_cast<const E*>(outs), B, 0, H};
-    if (dg) {
-        Rows<E> dgates{static_cast<const E*>(dg), G};
-        return splitk<E>(h_prev, dgates, dw_part, dw_hh, H, G, K, splits, stream);
-    }
-    Rows<E, S> dgates{static_cast<const S*>(dx_proj), G};
-    return splitk<E>(h_prev, dgates, dw_part, dw_hh, H, G, K, splits, stream);
-}
-
-// The whole backward in one launch of the recurrent kernel
-template <int H, typename E, typename S>
-cudaError_t run_backward(const void* x_proj, const float* h0, const float* c0,
-                         const float* w_hh, const void* outs, const void* cseq,
-                         const void* g_outs, const float* g_hT, const float* g_cT, float* dh0,
-                         float* dc0, float* dw_hh, void* dx_proj, void* dg, float* dw_part,
-                         int T, int B, int splits, cudaStream_t stream) {
-    return run_backward_steps<H, E, S>(x_proj, h0, c0, w_hh, outs, cseq, g_outs, g_hT, g_cT,
-                                       dh0, dc0, dw_hh, dx_proj, dg, dw_part, 0, T, T, B,
-                                       splits, stream);
 }
 
 // dispatch on the hidden size and the compute dtype

@@ -12,14 +12,21 @@
 // behind its encoder SGEMM and with dx under the relu mask. The archived
 // enc2's backward (csrc/lstm_archive.cu; the TPU kernel
 // archive/lstm_enc2._bwd) is enc5's with fused's two sums
-// (enc5_backward<H, true>).
+// (enc5_backward<H, true>). Mode XP's backward (xp_backward_steps: the
+// backward of lstm_scan, csrc/lstm_scan.cu, TPU kernel lstm.py's
+// _lstm_scan_bwd, and of the archived tm, csrc/lstm_archive.cu, TPU kernel
+// archive/lstm_tm._lstm_tm_bwd, one step a launch) is fused's with the
+// projection x_proj given: the pre-pass adds x_proj in place of the kept
+// slab, the loop's dgates are dx_proj, and there is no dx, W_ih or db.
 //
 // Bound: at T = 16, B = 8192, D = H = 128 the cat forward does 34.4 GFLOP
 // and its backward 103.1 (enc5 with F = 49: 36.0 and 106.4), against
 // 0.1-0.3 GB of device memory: bound by operations at 67 TFLOP/s (0.513
 // and 1.539 ms; enc5 0.537 and 1.588). Cat's backward from the kept slab
 // needs 85.9 GFLOP and 0.27 GB more read: 1.282 ms; fused's function has
-// cat's bounds (0.513 and 1.539 ms; 1.282 from its kept slab). At memory's
+// cat's bounds (0.513 and 1.539 ms; 1.282 from its kept slab). Mode XP's
+// backward does the recurrent product's 17.2 GFLOP three times (the gate
+// recompute, dh_prev, dW_hh) against 0.8 GB: 0.769 ms. At memory's
 // shape (T 8, B 512, F 1) enc5's bounds are 0.016 and 0.048 ms, and a
 // step of the loop's latency (a barrier, the cell math) sets the time.
 //
@@ -69,6 +76,12 @@
 //    [feats | 1]^T dpre), split-K SGEMMs whose partials are added in split
 //    order; db the ordered sum of the loop blocks' partials. No atomics:
 //    two runs give the same bits.
+// Mode XP (xp_backward_steps) runs 1 with x_proj as the slab, its
+// activations written into the f32 dgates' own storage (dx_proj, or with
+// bf16 x_proj an f32 scratch rounded into dx_proj after the loop), 2 with
+// no db and the dgates written over the activations, and 4 for dW_hh
+// alone; the time-major tm runs 2 one step a launch, the pre-pass with the
+// first and dW_hh with the last.
 //
 // The SGEMM (sgemm): 128 x 128 outputs a block, 256 threads of 8 x 8,
 // two blocks an SM (128 registers a thread; a few bytes spill), K in
@@ -340,24 +353,30 @@ struct EpiPartial {
     }
 };
 
-// the gate activations i, f, g, o of v + b (the recompute of
-// lstm_common.cuh's cell_backward), or with a non-null slab (fused's kept
-// x @ W_ih + b, (M, 4H)) of slab + v, as the TWO_SUMS forward loop adds
-// them
+// the gate activations i, f, g, o of v + b, or with a non-null slab ((M,
+// 4H) in S: fused's kept x @ W_ih + b, or mode XP's x_proj, f32 or bf16)
+// of slab + v, as the TWO_SUMS forward loop and the FMA cell add them
+template <typename S = float>
 struct EpiActs {
     float* acts;
     const float* b;
     int H;
-    const float* slab;
+    const S* slab;
     __device__ __forceinline__ void operator()(int m, int n, float4 v, int) const {
         float r[4] = {v.x, v.y, v.z, v.w};
         float s[4] = {0.f, 0.f, 0.f, 0.f};
         if (slab) {
-            const float4 p = *reinterpret_cast<const float4*>(slab + (size_t)m * 4 * H + n);
-            s[0] = p.x;
-            s[1] = p.y;
-            s[2] = p.z;
-            s[3] = p.w;
+            const size_t i = (size_t)m * 4 * H + n;
+            if constexpr (std::is_same<S, float>::value) {
+                const float4 p = *reinterpret_cast<const float4*>(slab + i);
+                s[0] = p.x;
+                s[1] = p.y;
+                s[2] = p.z;
+                s[3] = p.w;
+            } else {
+#pragma unroll
+                for (int q = 0; q < 4; ++q) s[q] = ld(slab, i + q);
+            }
         }
         const bool cell = n / H == 2;  // H % 4 == 0: the four share a gate
 #pragma unroll
@@ -596,7 +615,7 @@ __global__ void __launch_bounds__(LTHREADS, 1)
 // batch edge
 template <int H, int RT>
 __device__ __forceinline__ void load_step(float (&a)[4][RT], float (&gout)[RT], float (&ct)[RT],
-                                          float (&cp)[RT], const float* __restrict__ acts,
+                                          float (&cp)[RT], const float* acts,
                                           const float* __restrict__ g_outs,
                                           const float* __restrict__ cseq,
                                           const float* __restrict__ c0, int t, int B, int row0,
@@ -613,15 +632,19 @@ __device__ __forceinline__ void load_step(float (&a)[4][RT], float (&gout)[RT], 
 }
 
 // acts: (T*B, 4H) f32, the gate activations of every step (the pre-pass);
-// w_hh_t: W_hh^T (4H, H). Writes dg (T*B, 4H) f32, dh0, dc0 (B, H) and
-// db_part row blockIdx.x / CS: the block's sums of its gate columns'
-// dgates, added over the row groups in order. Clusters as forward_loop's.
+// w_hh_t: W_hh^T (4H, H). Writes dg (T*B, 4H) f32, dh0, dc0 (B, H) and,
+// unless it is null, db_part row blockIdx.x / CS: the block's sums of its
+// gate columns' dgates, added over the row groups in order. Clusters as
+// forward_loop's. dg may be acts itself (mode XP writes the dgates over
+// their activations): a thread reads an activation, in load_step, before
+// it writes the dgate of that row, unit and gate, and no other thread
+// reads or writes that element; hence neither pointer is __restrict__.
 template <int H, int U, int RT>
 __global__ void __launch_bounds__(LTHREADS, 1)
-    backward_loop(const float* __restrict__ acts, const float* __restrict__ w_hh_t,
+    backward_loop(const float* acts, const float* __restrict__ w_hh_t,
                   const float* __restrict__ c0, const float* __restrict__ cseq,
                   const float* __restrict__ g_outs, const float* __restrict__ g_hT,
-                  const float* __restrict__ g_cT, float* __restrict__ dg,
+                  const float* __restrict__ g_cT, float* dg,
                   float* __restrict__ dh0, float* __restrict__ dc0,
                   float* __restrict__ db_part, int T, int B) {
     using L = Loop<H, U, RT>;
@@ -754,6 +777,7 @@ __global__ void __launch_bounds__(LTHREADS, 1)
             dc0[idx] = dc[i];
         }
     }
+    if (!db_part) return;
     // db: dg_s is free (the loop ended on a barrier after its last read)
     float* red = dg_s;  // (RG, KL)
 #pragma unroll
@@ -892,10 +916,28 @@ cudaError_t run_backward_loop(const float* acts, const float* w_hh_t, const floa
                               cudaStream_t stream) {
     using L = Loop<H, U, RT>;
     const long long tiles = (B + L::R - 1) / L::R;
-    if (tiles > part_rows) return cudaErrorInvalidValue;
+    if (db_part && tiles > part_rows) return cudaErrorInvalidValue;
     *tiles_out = tiles;
     return launch_loop(backward_loop<H, U, RT>, L::CS, tiles, L::BWD_SMEM, stream, acts, w_hh_t,
                        c0, cseq, g_outs, g_hT, g_cT, dg, dh0, dc0, db_part, T, B);
+}
+
+// The reverse loop over T steps of B rows at the tiling plan() picks for
+// B; tiles_out: the loop's row tiles (db_part's rows it wrote)
+template <int H>
+cudaError_t run_planned_backward_loop(const float* acts, const float* w_hh_t, const float* c0,
+                              const float* cseq, const float* g_outs, const float* g_hT,
+                              const float* g_cT, float* dg, float* dh0, float* dc0,
+                              float* db_part, int T, int B, int part_rows, long long* tiles_out,
+                              cudaStream_t stream) {
+    using C = LoopConfigs<H>;
+    return plan<H>(B, true).big
+        ? run_backward_loop<H, C::BIG_U, C::BIG_RT>(acts, w_hh_t, c0, cseq, g_outs, g_hT, g_cT,
+                                                    dg, dh0, dc0, db_part, T, B, part_rows,
+                                                    tiles_out, stream)
+        : run_backward_loop<H, C::SMALL_U, C::SMALL_RT>(acts, w_hh_t, c0, cseq, g_outs, g_hT,
+                                                        g_cT, dg, dh0, dc0, db_part, T, B,
+                                                        part_rows, tiles_out, stream);
 }
 
 inline cudaError_t transpose_into(const float* src, float* dst, int rows, int cols,
@@ -1009,28 +1051,22 @@ cudaError_t cell_backward(const float* x, const float* xw, const float* h0, cons
     if constexpr (TWO_SUMS) {
         // fused's gates: h_prev @ W_hh from zero, then the kept xw (x @
         // W_ih + b) added to it in the epilogue, as the forward loop did
-        err = gemm<false>(h_prev, Mat{w_hh, G}, EpiActs{acts, b, H, xw}, M, G, H, 1, w_ih,
+        err = gemm<false>(h_prev, Mat{w_hh, G}, EpiActs<>{acts, b, H, xw}, M, G, H, 1, w_ih,
                           stream);
     } else {
         // the gate recompute: each sum over k < D + H in order, then b;
         // from the forward's xw, the sums over k < D, it continues over
         // h_prev
-        err = xw ? gemm<false, true>(h_prev, Mat{w_hh, G}, EpiActs{acts, b, H}, M, G, H, 1,
+        err = xw ? gemm<false, true>(h_prev, Mat{w_hh, G}, EpiActs<>{acts, b, H}, M, G, H, 1,
                                      w_ih, stream, xw)
-                 : gemm<false>(xh, WCat{w_ih, w_hh, D, G}, EpiActs{acts, b, H}, M, G, D + H,
+                 : gemm<false>(xh, WCat{w_ih, w_hh, D, G}, EpiActs<>{acts, b, H}, M, G, D + H,
                                1, w_ih, stream);
     }
     if (err != cudaSuccess || phases == 1) return err;
     if ((err = transpose_into(w_hh, w_hh_t, H, G, stream)) != cudaSuccess) return err;
-    using C = LoopConfigs<H>;
     long long tiles = 0;
-    err = plan<H>(B, true).big
-        ? run_backward_loop<H, C::BIG_U, C::BIG_RT>(acts, w_hh_t, c0, cseq, g_outs, g_hT, g_cT,
-                                                    dg, dh0, dc0, db_part, T, B, part_rows,
-                                                    &tiles, stream)
-        : run_backward_loop<H, C::SMALL_U, C::SMALL_RT>(acts, w_hh_t, c0, cseq, g_outs, g_hT,
-                                                        g_cT, dg, dh0, dc0, db_part, T, B,
-                                                        part_rows, &tiles, stream);
+    err = run_planned_backward_loop<H>(acts, w_hh_t, c0, cseq, g_outs, g_hT, g_cT, dg, dh0,
+                                       dc0, db_part, T, B, part_rows, &tiles, stream);
     if (err != cudaSuccess || phases == 2) return err;
     if ((err = transpose_into(w_ih, w_ih_t, D, G, stream)) != cudaSuccess) return err;
     // dx = dg @ W_ih^T; where its tiles leave half the SMs idle (memory's
@@ -1108,6 +1144,89 @@ cudaError_t enc5_backward(const float* feats, const float* h0, const float* c0,
     return reduce(dwe_part, dwe, splits_e, (long long)(F + 1) * D, stream);
 }
 
+constexpr int XP_BACKWARD_PHASES = 3;  // pre-pass, loop, dW_hh
+
+// dst = src rounded to bf16, four values a thread and step (n a multiple
+// of 4): dx_proj in bf16 from the f32 dgates
+__global__ void round_to_bf16(const float* __restrict__ src, bf16* __restrict__ dst,
+                              long long n) {
+    for (long long i = 4 * ((long long)blockIdx.x * blockDim.x + threadIdx.x); i < n;
+         i += 4LL * gridDim.x * blockDim.x) {
+        const float4 v = *reinterpret_cast<const float4*>(src + i);
+        *reinterpret_cast<uint2*>(dst + i) = make_uint2(pack2(v.x, v.y), pack2(v.z, v.w));
+    }
+}
+
+// Mode XP's backward (lstm_scan, csrc/lstm_scan.cu; the archived tm,
+// csrc/lstm_archive.cu), whose gates are x_proj_t + h_prev @ W_hh: the
+// cell's backward (fused's, TWO_SUMS) with the projection given, so no
+// W_ih, dx or db. x_proj (T, B, 4H) in S (f32 or bf16), h0, c0 (B, H),
+// w_hh (H, 4H), outs, cseq, g_outs (T, B, H), f32; g_hT, g_cT the
+// gradients that enter step t1 - 1. Runs steps t1 - 1 down to t0 (the
+// whole backward: [0, T); tm: one step a call, dh/dc carried in g_hT, g_cT
+// in and dh0, dc0 out). The call with t1 == T runs the pre-pass over all
+// T*B rows (h_prev @ W_hh from zero, x_proj added in the epilogue: the
+// FMA cell's two sums, its activations' bits) into the f32 dgates slab,
+// which is dx_proj itself with f32 x_proj and the scratch dg (T * B * 4H
+// f32) with bf16 x_proj, and transposes W_hh into the scratch w_hh_t (4H
+// * H f32); every call runs the reverse loop over its steps, which writes
+// each step's dgates over its activations (no slab more); the call with t0
+// == 0 rounds dg into a bf16 dx_proj, then runs dW_hh (H, 4H) = h_prev^T
+// dg over all T*B rows as the split-K SGEMM (dw_part: (splits, H, 4H)),
+// its partials added in split order. phases: XP_BACKWARD_PHASES runs it
+// all; 1 stops after the pre-pass, 2 after the loop (to time them).
+template <int H, typename S>
+cudaError_t xp_backward_steps(const S* x_proj, const float* h0, const float* c0,
+                              const float* w_hh, const float* outs, const float* cseq,
+                              const float* g_outs, const float* g_hT, const float* g_cT,
+                              S* dx_proj, float* dh0, float* dc0, float* dw_hh, float* dg,
+                              float* dw_part, float* w_hh_t, int t0, int t1, int T, int B,
+                              int splits, int phases, cudaStream_t stream) {
+    constexpr int G = 4 * H;
+    constexpr bool F32 = std::is_same<S, float>::value;
+    if (phases < 1 || phases > XP_BACKWARD_PHASES || splits < 1 || !w_hh_t || (!F32 && !dg) ||
+        t0 < 0 || t0 >= t1 || t1 > T)
+        return cudaErrorInvalidValue;
+    float* slab = F32 ? reinterpret_cast<float*>(dx_proj) : dg;
+    // the SGEMMs copy these rows 16 bytes at a time; x_proj and the bf16
+    // dx_proj are read and written as vectors
+    for (const void* p : {(const void*)h0, (const void*)outs, (const void*)slab,
+                          (const void*)dw_part, (const void*)w_hh_t, (const void*)x_proj,
+                          (const void*)dx_proj})
+        if (!aligned16(p)) return cudaErrorMisalignedAddress;
+    const long long M = (long long)T * B;
+    const XH h_prev{nullptr, h0, outs, B, 0, H};
+    cudaError_t err = cudaSuccess;
+    if (t1 == T) {
+        if ((err = gemm<false>(h_prev, Mat{w_hh, G}, EpiActs<S>{slab, nullptr, H, x_proj}, M, G,
+                               H, 1, w_hh, stream)) != cudaSuccess ||
+            phases == 1)
+            return err;
+        if ((err = transpose_into(w_hh, w_hh_t, H, G, stream)) != cudaSuccess) return err;
+    }
+    // steps t0 .. t1 - 1 as a loop over t1 - t0 steps from their first
+    // row: c_prev of its step 0 is cseq[t0 - 1] (c0 at t0 = 0)
+    const size_t row = (size_t)t0 * B;
+    float* acts = slab + row * G;
+    long long tiles = 0;
+    if ((err = run_planned_backward_loop<H>(acts, w_hh_t, t0 ? cseq + (row - B) * H : c0,
+                                            cseq + row * H, g_outs + row * H, g_hT, g_cT, acts,
+                                            dh0, dc0, nullptr, t1 - t0, B, 0, &tiles,
+                                            stream)) != cudaSuccess ||
+        t0 > 0)
+        return err;
+    if constexpr (!F32) {
+        round_to_bf16<<<(int)std::min<long long>((M * G / 4 + 255) / 256, 1024), 256, 0,
+                        stream>>>(dg, dx_proj, M * G);
+        if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    }
+    if (phases == 2) return cudaSuccess;
+    if ((err = gemm<true>(h_prev, Mat{slab, G}, EpiPartial{dw_part, H, G}, H, G, M, splits,
+                          w_hh, stream)) != cudaSuccess)
+        return err;
+    return reduce(dw_part, dw_hh, splits, (long long)H * G, stream);
+}
+
 // Registers and local (spilled) bytes per thread of the f32 kernels at
 // hidden size H: the forward and backward loops at both tilings (big,
 // small), then the cell's SGEMMs: the projection, the pre-pass (enc5's
@@ -1121,11 +1240,11 @@ cudaError_t usage(int* out) {
     using C = LoopConfigs<H>;
     const void* pre_pass;
     if constexpr (ENCODER)
-        pre_pass = reinterpret_cast<const void*>(sgemm<XH, WCat, false, EpiActs>);
+        pre_pass = reinterpret_cast<const void*>(sgemm<XH, WCat, false, EpiActs<>>);
     else if constexpr (TWO_SUMS)
-        pre_pass = reinterpret_cast<const void*>(sgemm<XH, Mat, false, EpiActs>);
+        pre_pass = reinterpret_cast<const void*>(sgemm<XH, Mat, false, EpiActs<>>);
     else
-        pre_pass = reinterpret_cast<const void*>(sgemm<XH, Mat, false, EpiActs, true>);
+        pre_pass = reinterpret_cast<const void*>(sgemm<XH, Mat, false, EpiActs<>, true>);
     const void* fns[] = {
         reinterpret_cast<const void*>(forward_loop<H, C::BIG_U, C::BIG_RT, TWO_SUMS>),
         reinterpret_cast<const void*>(forward_loop<H, C::SMALL_U, C::SMALL_RT, TWO_SUMS>),

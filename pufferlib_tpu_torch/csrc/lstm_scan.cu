@@ -49,10 +49,19 @@
 //   width D is free (a multiple of 8, up to what a GEMM block's shared
 //   memory holds).
 // * f32 (exact: no TF32, the tensor cores have no exact f32 product),
-//   D == H. lstm_scan runs csrc/lstm_common.cuh's cell kernels on FMA in
-//   mode XP (a block of 32 rows streams W_hh from L2 each step, x_proj_t
-//   read into registers before the recurrent product and added after
-//   it); its scratch pointers are null. lstm_scan_fused runs
+//   D == H. lstm_scan's forward runs csrc/lstm_common.cuh's cell kernel
+//   on FMA in mode XP (a block of 32 rows streams W_hh from L2 each step,
+//   x_proj_t read into registers before the recurrent product and added
+//   after it); its scratch pointer is null. lstm_scan's backward runs
+//   csrc/lstm_f32.cuh's mode XP backward (xp_backward_steps): every
+//   step's gates at once as an FMA SGEMM, h_prev @ W_hh from zero with
+//   x_proj added in its epilogue (the forward's sums) and the activations
+//   written into the f32 dgates' storage (dx_proj, or with bf16 x_proj
+//   the scratch dg); the reverse loop on thread block clusters, W_hh^T on
+//   chip for all T steps, writing the dgates over their activations (no
+//   slab); with bf16 x_proj dg rounded into dx_proj; dW_hh as the split-K
+//   SGEMM. Its scratch: W_hh^T (in w16's place) and the split-K's
+//   partials. lstm_scan_fused runs
 //   csrc/lstm_f32.cuh, cat's f32 design with fused's two sums (TWO_SUMS):
 //   xw = x @ W_ih + b as one FMA SGEMM over all T*B rows (the bias in its
 //   epilogue) into a slab that the caller keeps for the backward (T * B *
@@ -72,8 +81,9 @@
 
 namespace {
 
-// lstm_scan: bf16 on lstm_tc.cuh's mode XP, f32 on lstm_common.cuh's;
-// x_proj in S (bf16 when xp_bf16, else f32)
+// lstm_scan: bf16 on lstm_tc.cuh's mode XP; f32, the forward on
+// lstm_common.cuh's FMA cell, the backward on lstm_f32.cuh's; x_proj in S
+// (bf16 when xp_bf16, else f32)
 template <int H, typename E>
 struct ScanForward {
     template <typename S>
@@ -114,10 +124,11 @@ struct ScanBackward {
                 static_cast<S*>(dx_proj), dh0, dc0, dw_hh, static_cast<E*>(dg), dw_part,
                 static_cast<E*>(w16), T, B, splits, phases, stream);
         } else {
-            if (phases != lstm::tc::XP_BACKWARD_PHASES) return cudaErrorInvalidValue;
-            return lstm::run_backward<H, E, S>(x_proj, h0, c0, w_hh, outs, cseq, g_outs, g_hT,
-                                                g_cT, dh0, dc0, dw_hh, dx_proj, dg, dw_part, T,
-                                                B, splits, stream);
+            return lstm::f32::xp_backward_steps<H, S>(
+                static_cast<const S*>(x_proj), h0, c0, w_hh, static_cast<const E*>(outs),
+                static_cast<const E*>(cseq), static_cast<const E*>(g_outs), g_hT, g_cT,
+                static_cast<S*>(dx_proj), dh0, dc0, dw_hh, static_cast<E*>(dg), dw_part,
+                static_cast<E*>(w16), 0, T, T, B, splits, phases, stream);
         }
     }
     template <typename... Args>
@@ -160,9 +171,11 @@ int lstm_scan_forward(const void* x_proj, const float* h0, const float* c0,
 // (T, B, H, compute dtype), g_hT and g_cT (B, H, f32). Writes dx_proj
 // (T, B, 4H) in x_proj's dtype, dh0, dc0 (B, H) and dw_hh (H, 4H), f32.
 // Scratch: dw_part (splits, H, 4H) f32, and dg (T, B, 4H) in the compute
-// dtype, null unless x_proj and the compute dtype differ; bf16 only (null
-// in f32): w16 (H * 4H + B * H bf16). phases: 2 runs the whole backward;
-// in bf16, 1 stops after the loop (to time it).
+// dtype, null unless x_proj and the compute dtype differ; w16: bf16, W_hh
+// and h0 rounded (H * 4H + B * H bf16), f32, W_hh^T (4H * H f32).
+// phases: bf16, 2 runs the whole backward and 1 stops after the loop;
+// f32, 3 runs it all and 1, 2 stop after the pre-pass, the loop (to time
+// them).
 int lstm_scan_backward(const void* x_proj, const float* h0, const float* c0,
                        const float* w_hh, const void* outs, const void* cseq,
                        const void* g_outs, const float* g_hT, const float* g_cT,

@@ -10,10 +10,10 @@
 // ENC2, ENC3, ENC4 and ENC6: ENC5's backward with other roundings, ENC6
 // with ENC5's own) and the archived enc2's forward (enc2_forward: the
 // encoder, a projection GEMM, mode XP's loop). In f32, the default
-// compute dtype, the enc5, cat and fused pairs run csrc/lstm_f32.cuh (FMA
-// SGEMMs around loops on thread block clusters) and the others keep
-// lstm_common.cuh's cell kernels: the tensor cores have no exact f32
-// product.
+// compute dtype, the enc5, cat and fused pairs and every backward run
+// csrc/lstm_f32.cuh (FMA SGEMMs around loops on thread block clusters)
+// and mode XP's and the archived enc2's forwards keep lstm_common.cuh's
+// cell kernel: the tensor cores have no exact f32 product.
 //
 // Mode XP (lstm.py's lstm_scan: `_lstm_fwd_impl` / `_fwd_kernel` and
 // `_noresid`, `_lstm_scan_bwd` / `_bwd_kernel`) is FUSED without the input
@@ -1515,15 +1515,14 @@ cudaError_t backward(const bf16* x, const float* h0, const float* c0, const floa
     else
         err = rows_gemm(dgs, wit, G, dgs, wit, 0, Bf16Out{dx, D}, M, D, stream);
     if (err != cudaSuccess || phases < 4) return err;
-    const XHRows<bf16> xh{x, h0, outs, B, D, H, h16};
-    const Rows<bf16> dgates{dg, G};
-    if ((err = splitk<bf16>(xh, dgates, dw_part, dw, D + H, G, M, splits, stream)) !=
-        cudaSuccess)
+    const XHRows xh{x, h0, outs, B, D, H, h16};
+    const Rows dgates{dg, G};
+    if ((err = splitk(xh, dgates, dw_part, dw, D + H, G, M, splits, stream)) != cudaSuccess)
         return err;
     if ((err = reduce(db_part, db, nblk, G, stream)) != cudaSuccess) return err;
     if constexpr (ENCODER)
-        err = splitk<bf16>(FeatOnes{enc.feats, enc.F}, Rows<bf16>{enc.dpre, D}, enc.dwe_part,
-                           enc.dwe, enc.F + 1, D, M, enc.splits, stream);
+        err = splitk(FeatOnes{enc.feats, enc.F}, Rows{enc.dpre, D}, enc.dwe_part, enc.dwe,
+                     enc.F + 1, D, M, enc.splits, stream);
     return err;
 }
 
@@ -1587,9 +1586,8 @@ cudaError_t xp_backward_steps(const S* xp, const float* h0, const float* c0,
         xp, h16, c0, w16, outs, cseq, g_outs, g_hT, g_cT, dh0, dc0, dgs,
         F32 ? reinterpret_cast<float*>(dxp) : nullptr, t0, t1, B);
     if ((err = cudaGetLastError()) != cudaSuccess || phases < 2 || t0 > 0) return err;
-    const XHRows<bf16> hp{nullptr, h0, outs, B, 0, H, h16};
-    return splitk<bf16>(hp, Rows<bf16>{dgs, G}, dw_part, dw, H, G, (long long)T * B, splits,
-                        stream);
+    const XHRows hp{nullptr, h0, outs, B, 0, H, h16};
+    return splitk(hp, Rows{dgs, G}, dw_part, dw, H, G, (long long)T * B, splits, stream);
 }
 
 template <int H, typename S>
@@ -1669,7 +1667,7 @@ cudaError_t xp_usage(int* out) {
         reinterpret_cast<const void*>(forward_loop<H, XP, float>),
         reinterpret_cast<const void*>(xp_backward_loop<H, bf16>),
         reinterpret_cast<const void*>(xp_backward_loop<H, float>),
-        reinterpret_cast<const void*>(gemm_tn_splitk_ring<XHRows<bf16>, Rows<bf16>>)};
+        reinterpret_cast<const void*>(gemm_tn_splitk_ring<XHRows, Rows>)};
     return attributes(fns, 5, out);
 }
 

@@ -25,7 +25,15 @@ and, after step 0, dW_hh by the ring split-K over all T*B rows. The carry
 is what lstm_scan's loops keep in registers (c and dh/dc in f32, h in f32
 rounded as it enters the product), so the outputs and gradients equal
 lstm_scan's bf16 kernels' bit for bit. In f32, the exact test mode, a
-step runs lstm_common.cuh's FMA cell.
+forward step runs lstm_common.cuh's FMA cell, and the backward runs
+lstm_scan's f32 backward (csrc/lstm_f32.cuh, design 'cluster') one step a
+launch: the first step (t = T - 1) runs its pre-pass over all T*B rows,
+since the gate recompute from x_proj and h_prev needs no carry, and
+transposes W_hh into the scratch; each step runs the cluster reverse loop
+over its rows, staging W_hh^T's slices into shared memory; the last (t =
+0) rounds the dgates into a bf16 dx_proj and runs dW_hh, the split-K
+SGEMM with lstm_scan's splits. Its gradients are lstm_scan's f32 ones bit
+for bit.
 
 x_proj (T, B, 4H) is float32 or bfloat16 whatever the compute dtype cdt.
 """
@@ -36,7 +44,7 @@ from pufferlib_tpu_torch.ops.cuda.archive import KERNEL, design
 from pufferlib_tpu_torch.ops.cuda.lstm_common import (
     SCAN_BACKWARD_PHASES, backward_inputs, cell_backward_step,
     check_kernel_shape, check_scan_inputs, gate_activations, round_to,
-    splitk_splits)
+    scan_backward_scratch)
 
 __all__ = ['lstm_scan_tm', 'lstm_tm_reference', 'lstm_tm_backward_reference']
 
@@ -126,24 +134,18 @@ def _launch_backward(x_proj, h0, c0, w_hh, outs, cseq, g_outs, g_hT, g_cT,
     dw = torch.empty((H, G), dtype=torch.float32, device=dev)
     if B == 0:
         return dxp, torch.empty_like(h0), torch.empty_like(c0), dw.zero_()
-    tc = design('lstm_tm_step_backward', cdt) == 'tc'
-    splits = splitk_splits(H, G, T * B, dev)
-    # dx_proj is also the slab of dgates that dW_hh = h_prev^T dg reads
-    # where it is in cdt; else the dgates rounded to cdt go to a slab of
-    # their own
-    dg = torch.empty((T, B, G), dtype=cdt, device=dev) \
-        if x_proj.dtype != cdt else None
-    dw_part = torch.empty((splits, H, G), dtype=torch.float32, device=dev)
-    # bf16 scratch: W_hh and h0 rounded by the step at t = T - 1
-    w16 = torch.empty((H * G + B * H,), dtype=torch.bfloat16, device=dev) \
-        if tc else None
+    # lstm_scan's scratch, written by the step at t = T - 1 (bf16: W_hh and
+    # h0 rounded; f32: W_hh^T, and every step's activations where its
+    # dgates go) and read by the later ones; dW_hh's splits are lstm_scan's
+    splits, dg, dw_part, w16 = scan_backward_scratch(T, B, H, cdt,
+        x_proj.dtype, dev)
     # the carried gradients, written in turns as the forward's state
     pairs = ((torch.empty_like(h0), torch.empty_like(c0)),
         (torch.empty_like(h0), torch.empty_like(c0)))
     pair_ptrs = [(ptr(dh), ptr(dc)) for dh, dc in pairs]
     inputs = [ptr(a) for a in (x_proj, h0, c0, w_hh, outs, cseq, g_outs)]
     dxp_p = ptr(dxp)
-    rest = (ptr(dw), ptr_or_null(dg), ptr(dw_part), ptr_or_null(w16))
+    rest = (ptr(dw), ptr_or_null(dg), ptr(dw_part), ptr(w16))
     flags = (T, B, H, int(cdt == torch.bfloat16),
         int(x_proj.dtype == torch.bfloat16), splits, phases,
         stream_handle(x_proj))

@@ -34,9 +34,12 @@ TC_ROWS_PER_BLOCK = 64
 FORWARD_PHASES = 2
 BACKWARD_PHASES = 4
 # lstm_scan's in bf16 (lstm_tc.cuh mode XP): the forward is its loop
-# alone, the backward its loop (which recomputes the gates), then dW
+# alone, the backward its loop (which recomputes the gates), then dW; in
+# f32 (lstm_f32.cuh) the backward is a pre-pass (the gates), the loop,
+# then dW
 SCAN_FORWARD_PHASES = 1
 SCAN_BACKWARD_PHASES = 2
+SCAN_F32_BACKWARD_PHASES = 3
 # shared memory a block may use (lstm_common.cuh MAX_SMEM)
 MAX_SMEM = 227 * 1024
 
@@ -491,6 +494,28 @@ def splitk_reference(a, b, splits):
             part += a[k:end].float().t() @ b[k:end].float()
         out += part
     return out
+
+
+def scan_backward_scratch(T, B, H, cdt, xp_dtype, device):
+    """(splits, dg, dw_part, w16) of mode XP's backward, lstm_scan's and
+    the archived tm's alike: dW_hh's K-splits (the f32 split-K SGEMM's at
+    F32_SPLIT_ROWS rows a split at least), dg (T, B, 4H) in cdt where
+    x_proj is in the other dtype (bf16: the rounded dgates slab; f32: the
+    f32 dgates, which the pre-pass first fills with the activations), else
+    None (dx_proj is that slab), the split-K's partials, and w16: bf16,
+    W_hh and h0 rounded, f32, W_hh^T."""
+    G = 4 * H
+    tc = cdt == torch.bfloat16
+    splits = splitk_splits(H, G, T * B, device,
+        1024 if tc else F32_SPLIT_ROWS)
+    dg = torch.empty((T, B, G), dtype=cdt, device=device) \
+        if xp_dtype != cdt else None
+    dw_part = torch.empty((splits, H, G), dtype=torch.float32,
+        device=device)
+    w16 = torch.empty((H * G + B * H,), dtype=torch.bfloat16,
+        device=device) if tc else torch.empty((G * H,),
+        dtype=torch.float32, device=device)
+    return splits, dg, dw_part, w16
 
 
 def blocks(B):

@@ -34,9 +34,17 @@ neither writes a slab (SCAN_FORWARD_PHASES, SCAN_BACKWARD_PHASES);
 lstm_scan_fused (mode FUSED) the projections as GEMMs over all T*B rows
 with f32 scratch slabs, at any input width D that is a multiple of 8 up
 to lstm_common.tc_max_input(H). In f32 (exact: every product an f32 FMA,
-no TF32), which takes D == H, lstm_scan runs the FMA cell kernels of
-lstm_common.cuh (design 'fma') and lstm_scan_fused csrc/lstm_f32.cuh
-(design 'cluster'), lstm_scan_cat's f32 design with fused's two sums:
+no TF32), which takes D == H, lstm_scan's forward runs the FMA cell
+kernel of lstm_common.cuh (design 'fma'), its backward csrc/lstm_f32.cuh
+(design 'cluster'; SCAN_F32_BACKWARD_PHASES): every step's gates at once
+as an FMA SGEMM, h_prev @ W_hh from zero with x_proj added in its
+epilogue, the activations written where the f32 dgates go (dx_proj, or
+with bf16 x_proj an f32 scratch rounded into dx_proj after the loop),
+then a reverse loop on thread block clusters that writes the dgates over
+them, then dW_hh as a split-K SGEMM; its scratch is W_hh^T and the
+split-K's partials, no slab. lstm_scan_fused runs csrc/lstm_f32.cuh
+(design 'cluster') in both directions, lstm_scan_cat's f32 design with
+fused's two sums:
 xw = x @ W_ih + b as one FMA SGEMM over all T*B rows, the bias in its
 epilogue, then time loops that keep W_hh on chip for all T steps in a
 thread block cluster, each step's h @ W_hh summed from zero and the slab
@@ -63,11 +71,11 @@ from pufferlib_tpu_torch.ops.cuda._build import (
     CudaKernel, I, P, ptr, ptr_or_null, stream_handle)
 from pufferlib_tpu_torch.ops.cuda.lstm_common import (
     BACKWARD_PHASES, F32_KERNELS, FORWARD_PHASES, SCAN_BACKWARD_PHASES,
-    SCAN_FORWARD_PHASES, backward_inputs, cell_backward_step,
-    check_cell_inputs, check_cell_kernel_shape, check_scan_inputs,
-    f32_plan_of, f32_usage_of, forward_outputs, gate_activations,
-    launch_cell_backward, launch_cell_forward, needs_cseq, round_to,
-    scan_cells, splitk_splits)
+    SCAN_F32_BACKWARD_PHASES, SCAN_FORWARD_PHASES, backward_inputs,
+    cell_backward_step, check_cell_inputs, check_cell_kernel_shape,
+    check_scan_inputs, f32_plan_of, f32_usage_of, forward_outputs,
+    gate_activations, launch_cell_backward, launch_cell_forward, needs_cseq,
+    round_to, scan_backward_scratch, scan_cells)
 
 __all__ = ['lstm_scan', 'lstm_scan_fused', 'lstm_scan_reference',
     'lstm_scan_backward_reference', 'lstm_scan_fused_reference',
@@ -90,14 +98,16 @@ KERNEL = CudaKernel('lstm_scan.cu', {
 # csrc/lstm_f32.cuh in f32
 LAUNCHES = ('lstm_scan_forward', 'lstm_scan_backward', 'lstm_fused_forward',
     'lstm_fused_backward')
-F32_FUNCTIONS = ('lstm_fused_forward', 'lstm_fused_backward')
+F32_FUNCTIONS = ('lstm_scan_backward', 'lstm_fused_forward',
+    'lstm_fused_backward')
 
 
 def design(fn, cdt):
     """The design the C function `fn` of KERNEL runs in cdt: 'tc'
     (csrc/lstm_tc.cuh's tensor-core kernels, every one in bf16), 'cluster'
-    (csrc/lstm_f32.cuh, lstm_scan_fused's pair in f32) or 'fma'
-    (lstm_common.cuh's cell kernels, lstm_scan's pair in f32)."""
+    (csrc/lstm_f32.cuh: lstm_scan_fused's pair and lstm_scan's backward
+    in f32) or 'fma' (lstm_common.cuh's cell kernel, lstm_scan's forward
+    in f32)."""
     if fn not in LAUNCHES:
         raise ValueError(f'{fn} is not a launch of {KERNEL.source}')
     if cdt == torch.bfloat16:
@@ -208,7 +218,10 @@ def _launch_scan_forward(x_proj, h0, c0, w_hh, cdt, save_cseq=True,
 
 
 def _launch_scan_backward(x_proj, h0, c0, w_hh, outs, cseq, g_outs, g_hT,
-        g_cT, cdt, phases=SCAN_BACKWARD_PHASES):
+        g_cT, cdt, phases=None):
+    """lstm_scan_backward: (dx_proj, dh0, dc0, dW_hh). phases: the whole
+    backward when None (SCAN_BACKWARD_PHASES in bf16,
+    SCAN_F32_BACKWARD_PHASES in f32), else its first `phases` phases."""
     T, B, G = x_proj.shape
     H = h0.shape[1]
     check_cell_kernel_shape(H, H, cdt, x_proj.device)
@@ -220,20 +233,14 @@ def _launch_scan_backward(x_proj, h0, c0, w_hh, outs, cseq, g_outs, g_hT,
     if B == 0:
         return dxp, dh0, dc0, dw.zero_()
     tc = cdt == torch.bfloat16
-    splits = splitk_splits(H, G, T * B, dev)
-    # dx_proj is also the slab of dgates that dh_prev and dW_hh = h_prev^T
-    # dg read where it is in cdt; else the dgates rounded to cdt go to a
-    # slab of their own
-    dg = torch.empty((T, B, G), dtype=cdt, device=dev) \
-        if x_proj.dtype != cdt else None
-    dw_part = torch.empty((splits, H, G), dtype=torch.float32, device=dev)
-    # bf16 scratch: W_hh and h0 rounded
-    w16 = torch.empty((H * G + B * H,), dtype=torch.bfloat16, device=dev) \
-        if tc else None
+    if phases is None:
+        phases = SCAN_BACKWARD_PHASES if tc else SCAN_F32_BACKWARD_PHASES
+    splits, dg, dw_part, w16 = scan_backward_scratch(T, B, H, cdt,
+        x_proj.dtype, dev)
     KERNEL.launch('lstm_scan_backward', ptr(x_proj), ptr(h0), ptr(c0),
         ptr(w_hh), ptr(outs), ptr(cseq), ptr(g_outs), ptr(g_hT), ptr(g_cT),
         ptr(dxp), ptr(dh0), ptr(dc0), ptr(dw), ptr_or_null(dg),
-        ptr(dw_part), ptr_or_null(w16), T, B, H, int(tc),
+        ptr(dw_part), ptr(w16), T, B, H, int(tc),
         int(x_proj.dtype == torch.bfloat16), splits, phases,
         stream_handle(x_proj))
     return dxp, dh0, dc0, dw

@@ -410,8 +410,9 @@ def test_archive_kernel_is_built_and_counted_with_the_others():
 
 
 # every C function of the archive that launches a kernel, and the design it
-# runs in (bf16, f32): the four f32 backwards on csrc/lstm_f32.cuh, enc2's
-# f32 forward and tm's f32 steps on FMA, every bf16 one on the tensor cores
+# runs in (bf16, f32): the five f32 backwards on csrc/lstm_f32.cuh (tm's is
+# lstm_scan's one step a launch), enc2's f32 forward and tm's f32 forward
+# step on FMA, every bf16 one on the tensor cores
 ARCHIVE_DESIGNS = {
     'lstm_enc2_forward': ('tc', 'fma'),
     'lstm_enc2_backward': ('tc', 'cluster'),
@@ -419,7 +420,7 @@ ARCHIVE_DESIGNS = {
     'lstm_enc4_backward': ('tc', 'cluster'),
     'lstm_enc6_backward': ('tc', 'cluster'),
     'lstm_tm_step_forward': ('tc', 'fma'),
-    'lstm_tm_step_backward': ('tc', 'fma'),
+    'lstm_tm_step_backward': ('tc', 'cluster'),
 }
 
 
@@ -516,3 +517,99 @@ def test_enc2_f32_backward_matches_jax_bwd():
     for name, a, w in zip(ENC_GRADS, got, want[1:]):
         assert tuple(a.shape) == tuple(w.shape), name
         assert_close(a, w, 1e-4, True, f'enc2 {name}')
+
+
+# mode XP's backward: the JAX custom_vjp's forward (for its residuals) and
+# backward, and the port's plain backward
+XP_BWD = {
+    'scan': (jax_lstm._lstm_scan_fwd, jax_lstm._lstm_scan_bwd,
+        lstm_scan.lstm_scan_backward_reference),
+    'tm': (jax_lstm_tm._lstm_tm_fwd, jax_lstm_tm._lstm_tm_bwd,
+        lstm_tm.lstm_tm_backward_reference),
+}
+
+
+def xp_bwd_case(seed, seq, T, B, H):
+    """tm_inputs with x_proj in seq, and cotangents (g_outs, g_hT, g_cT)."""
+    arrays = tm_inputs(seed, seq, T=T, B=B, H=H)
+    rng = np.random.RandomState(seed + 1)
+    cot = [(rng.randn(*s) * 0.5).astype(np.float32)
+        for s in ((T, B, H), (B, H), (B, H))]
+    tensors = [torch.from_numpy(arrays[0]).to(TD[seq])] + [
+        torch.from_numpy(a) for a in arrays[1:]]
+    return arrays, cot, tensors
+
+
+def assert_xp_grads(got, want, seq, what):
+    """dx_proj in x_proj's dtype; in bf16 a dgate one f32 ulp apart may
+    round to the next bf16 value (2e-2 of the scale, the module's bf16
+    tolerance), else 1e-5 of max(1, max |reference|) (the same f32
+    products summed in another order)."""
+    assert len(got) == len(want) == len(TM_GRADS)
+    assert got[0].dtype == TD[seq]
+    for name, a, w in zip(TM_GRADS, got, want):
+        assert tuple(a.shape) == tuple(w.shape), name
+        tol = 2e-2 if a.dtype == torch.bfloat16 else 1e-5
+        assert_close(a, w, tol, True, f'{what} {name}')
+
+
+@pytest.mark.parametrize('seq', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('kind', sorted(XP_BWD))
+def test_xp_f32_backward_matches_jax_bwd(kind, seq):
+    """lstm_scan's and tm's plain f32 backwards (what their kernels, mode
+    XP's backward on csrc/lstm_f32.cuh, are held to on the card) against
+    the JAX custom_vjp's backward, `_lstm_scan_bwd` / `_lstm_tm_bwd`, its
+    Pallas kernel in interpret mode, on the same residuals (the JAX
+    forward's outs and cseq) and cotangents, x_proj in f32 and in bf16
+    under f32 compute, at T 5, B 16 (the Pallas kernels tile B by 8), H
+    32; tolerances of assert_xp_grads."""
+    T, B, H = 5, 16, 32
+    arrays, cot, tensors = xp_bwd_case(31, seq, T, B, H)
+    fwd, bwd, plain = XP_BWD[kind]
+    args = [jnp.asarray(arrays[0]).astype(JD[seq])] + [
+        jnp.asarray(a) for a in arrays[1:]]
+    with pltpu.force_tpu_interpret_mode():
+        _, residuals = fwd(*args, jnp.float32)
+        want = bwd(jnp.float32, residuals, tuple(jnp.asarray(c) for c in cot))
+    outs, cseq = (torch.from_numpy(np.array(r)) for r in residuals[4:])
+    got = plain(*tensors, outs, cseq, *(torch.from_numpy(c) for c in cot),
+        torch.float32)
+    assert_xp_grads(got, want, seq, f'{kind} x_proj {seq}')
+
+
+@pytest.mark.parametrize('seq', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('kind', sorted(XP_BWD))
+def test_xp_f32_backward_at_a_ragged_batch_matches_jax_reference(kind, seq):
+    """The same at T 5, B 10, H 32, a batch no Pallas LSTM kernel tiles:
+    against jax.vjp of the pure-JAX lstm_scan_reference in f32 (tm's
+    function is lstm_scan's), on the port's plain forward's residuals;
+    tolerances of assert_xp_grads."""
+    T, B, H = 5, 10, 32
+    arrays, cot, tensors = xp_bwd_case(33, seq, T, B, H)
+    fwd = lstm_scan.lstm_scan_reference if kind == 'scan' \
+        else lstm_tm.lstm_tm_reference
+    outs, _, _, cseq = fwd(*tensors, torch.float32)
+    got = XP_BWD[kind][2](*tensors, outs, cseq,
+        *(torch.from_numpy(c) for c in cot), torch.float32)
+    args = [jnp.asarray(arrays[0]).astype(JD[seq])] + [
+        jnp.asarray(a) for a in arrays[1:]]
+    _, vjp = jax.vjp(lambda *a: jax_lstm.lstm_scan_reference(*a,
+        jnp.float32), *args)
+    want = vjp(tuple(jnp.asarray(c) for c in cot))
+    assert_xp_grads(got, want, seq, f'{kind} B={B} x_proj {seq}')
+
+
+@pytest.mark.parametrize('seq', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('T,B,H', [(5, 10, 32), (3, 16, 64)])
+def test_tm_f32_backward_is_scan_f32_backward(T, B, H, seq):
+    """The plain f32 backwards of tm and lstm_scan on the same inputs,
+    residuals and cotangents: every gradient equal bit for bit, as their
+    kernels' are on the card (tm runs lstm_scan's f32 backward one step a
+    launch)."""
+    _, cot, tensors = xp_bwd_case(35, seq, T, B, H)
+    outs, _, _, cseq = lstm_scan.lstm_scan_reference(*tensors, torch.float32)
+    rest = (outs, cseq, *(torch.from_numpy(c) for c in cot), torch.float32)
+    tm = lstm_tm.lstm_tm_backward_reference(*tensors, *rest)
+    scan = lstm_scan.lstm_scan_backward_reference(*tensors, *rest)
+    for name, a, w in zip(TM_GRADS, tm, scan):
+        assert a.dtype == w.dtype and torch.equal(a, w), name

@@ -17,11 +17,11 @@ the other way inside the recurrence). lstm_scan, lstm_scan_cat,
 lstm_scan_fused and the enc5 pair run their tensor-core kernels in bf16
 (also at input widths other than the hidden size, and enc5 at feature
 widths up to the encoder's limit); in f32 the enc5, cat and fused pairs
-and the archived enc2, enc4 and enc6 backwards run csrc/lstm_f32.cuh's
-cluster kernels (enc4's and enc6's equal to enc5's bit for bit),
-lstm_scan its FMA kernels; the
-archived tm's step kernels run lstm_scan's bf16 loops one step a launch
-and must equal lstm_scan's bf16 kernels bit for bit.
+and every backward run csrc/lstm_f32.cuh's cluster kernels (enc4's and
+enc6's equal to enc5's bit for bit), lstm_scan's and tm's forwards the
+FMA cell; the archived tm's step kernels run lstm_scan's loops one step a
+launch (bf16: both ways; f32: the backward) and must equal lstm_scan's
+kernels bit for bit in both dtypes.
 """
 import importlib
 
@@ -502,11 +502,11 @@ def test_lstm_cell_launchers_refuse_what_the_kernels_do_not_serve(cuda):
 
 
 def _check_deterministic(cuda, kind, T, B, H, D=None, F=49,
-        cdt=torch.bfloat16, runs=2):
+        cdt=torch.bfloat16, runs=2, xp_dtype=None):
     """`runs` forward and backward calls on the same inputs: every one
     equal to the first bit for bit."""
     fwd, bwd = _lstm_kinds()[kind][:2]
-    args = _lstm_case(kind, T, B, H, F, cdt, cuda, D=D)
+    args = _lstm_case(kind, T, B, H, F, cdt, cuda, xp_dtype, D=D)
     g = (torch.randn(T, B, H, device=cuda).to(cdt),
         torch.randn(B, H, device=cuda), torch.randn(B, H, device=cuda))
     results = []
@@ -917,22 +917,22 @@ def test_enc5_f32_repeats_bit_for_bit(cuda, T, B, H, F):
         runs=20)
 
 
-def _check_f32_guards(cuda, monkeypatch, kind, T, B, H, F=49):
+def _check_f32_guards(cuda, monkeypatch, kind, T, B, H, F=49, xp_dtype=None):
     """Every input, output and scratch buffer of one f32 forward and
     backward call of the resident pair `kind` (enc5, enc, cat, fused, the
-    archived enc2, enc3, enc4 and enc6: the launchers of lstm_enc,
-    lstm_cat, lstm_scan and the archive, their scratch through
-    lstm_common) sits between guards; after both calls no guard has
-    changed, and the results still match the plain versions within
-    LSTM_TOL."""
+    archived enc2, enc3, enc4 and enc6, scan and tm with x_proj in
+    xp_dtype: the launchers of lstm_enc, lstm_cat, lstm_scan and the
+    archive, their scratch through lstm_common) sits between guards; after
+    both calls no guard has changed, and the results still match the plain
+    versions within LSTM_TOL (a bf16 x_proj's)."""
     from pufferlib_tpu_torch.ops.cuda import (
         archive, lstm_cat, lstm_common, lstm_enc, lstm_scan)
-    from pufferlib_tpu_torch.ops.cuda.archive import lstm_enc2
+    from pufferlib_tpu_torch.ops.cuda.archive import lstm_enc2, lstm_tm
     fwd, bwd, fwd_plain, bwd_plain, _ = _lstm_kinds()[kind]
     cdt = torch.float32
     guarded = _GuardedTorch()
     args = tuple(guarded.guarded(t.shape, t.dtype, t.device).copy_(t)
-        for t in _lstm_case(kind, T, B, H, F, cdt, cuda))
+        for t in _lstm_case(kind, T, B, H, F, cdt, cuda, xp_dtype))
     g = tuple(guarded.guarded(t.shape, t.dtype, t.device).copy_(t) for t in (
         torch.randn(T, B, H, device=cuda), torch.randn(B, H, device=cuda),
         torch.randn(B, H, device=cuda)))
@@ -941,7 +941,7 @@ def _check_f32_guards(cuda, monkeypatch, kind, T, B, H, F=49):
         bargs = (*args, want[0], want[3], *g, cdt)
         want += bwd_plain(*bargs)
         for module in (lstm_common, lstm_enc, lstm_cat, lstm_scan, archive,
-                lstm_enc2):
+                lstm_enc2, lstm_tm):
             monkeypatch.setattr(module, 'torch', guarded)
         inputs = len(guarded.buffers)
         got = fwd(*args, cdt)
@@ -949,10 +949,12 @@ def _check_f32_guards(cuda, monkeypatch, kind, T, B, H, F=49):
     assert guarded.overwritten() == []
     # the launchers' outputs and scratch went through the guards too
     assert len(guarded.buffers) > inputs + len(got)
+    tol = LSTM_TOL[xp_dtype or cdt]
     for a, w in zip(got, want):
+        assert a.dtype == w.dtype and a.shape == w.shape
         scale = max(1.0, w.float().abs().max().item())
         torch.testing.assert_close(a.float(), w.float(), rtol=0,
-            atol=LSTM_TOL[cdt] * scale)
+            atol=tol * scale)
 
 
 @pytest.mark.parametrize('T,B,H,F', [(3, 45, 128, 5), (8, 512, 128, 1),
@@ -1554,19 +1556,23 @@ def test_archived_tm_bf16_is_deterministic(cuda, T, B, H):
 
 def test_archived_tm_runs_the_tensor_core_path_in_bf16(cuda):
     """archive.design and TC_FUNCTIONS name tm's step kernels in bf16
-    ('tc'; 'fma' in f32). The bf16 C functions need their scratch (W_hh,
-    and in the backward h0, rounded to bf16): handed none, they refuse
-    before any launch; the f32 ones refuse scratch they do not use. The
-    backward's phases 1 leaves dW_hh out in bf16 and is refused in f32."""
+    ('tc'; in f32 the forward step 'fma', the step backward 'cluster':
+    lstm_scan's f32 backward one step a launch). The bf16 C functions need
+    their scratch (W_hh, and in the backward h0, rounded to bf16), the f32
+    backward its W_hh^T: handed none, they refuse before any launch; the
+    f32 forward refuses scratch it does not use. The backward's phases 1
+    leaves dW_hh out in both dtypes."""
     from pufferlib_tpu_torch.ops.cuda import archive
     fwd, bwd = _lstm_kinds()['tm'][:2]
     T, B, H = 3, 70, 64
     scratch = {'lstm_tm_step_forward': 8, 'lstm_tm_step_backward': 15}
     for cdt in (torch.bfloat16, torch.float32):
-        for fn in scratch:
-            assert archive.design(fn, cdt) == (
-                'tc' if cdt == torch.bfloat16 else 'fma')
-            assert fn in archive.TC_FUNCTIONS
+        bf16 = cdt == torch.bfloat16
+        assert archive.design('lstm_tm_step_forward', cdt) == (
+            'tc' if bf16 else 'fma')
+        assert archive.design('lstm_tm_step_backward', cdt) == (
+            'tc' if bf16 else 'cluster')
+        assert set(scratch) <= set(archive.TC_FUNCTIONS)
         args = _lstm_case('tm', T, B, H, 49, cdt, cuda)
         with torch.no_grad():
             outs, _, _, cseq = fwd(*args, cdt)
@@ -1578,19 +1584,20 @@ def test_archived_tm_runs_the_tensor_core_path_in_bf16(cuda):
 
         class Swapped:
             """The library, with the scratch of tm's calls swapped: null
-            for bf16, a spare buffer for f32."""
+            where the call needs one, a spare buffer for the f32 forward,
+            which needs none."""
 
             def __getattr__(self, name):
                 f = getattr(real, name)
                 if name not in scratch:
                     return f
+                uses = bf16 or name == 'lstm_tm_step_backward'
 
                 def call(*a):
                     a = list(a)
                     i = scratch[name]
-                    assert (a[i] is not None) == (cdt == torch.bfloat16)
-                    a[i] = None if cdt == torch.bfloat16 else \
-                        spare.data_ptr()
+                    assert (a[i] is not None) == uses
+                    a[i] = None if uses else spare.data_ptr()
                     return f(*a)
                 return call
         before = _launches()
@@ -1604,11 +1611,7 @@ def test_archived_tm_runs_the_tensor_core_path_in_bf16(cuda):
             archive.KERNEL._lib = real
         assert _launches() == before
         with torch.no_grad():
-            if cdt == torch.bfloat16:
-                bwd(*args, outs, cseq, *g, cdt, phases=1)
-            else:
-                with pytest.raises(RuntimeError):
-                    bwd(*args, outs, cseq, *g, cdt, phases=1)
+            bwd(*args, outs, cseq, *g, cdt, phases=1)
     torch.cuda.synchronize()
 
 
@@ -1625,6 +1628,78 @@ def test_archived_tm_tc_usage(cuda):
         assert archive.KERNEL.lib().lstm_tm_tc_usage(H, tm) == 0
         assert lstm_scan.KERNEL.lib().lstm_scan_tc_usage(H, scan) == 0
         assert list(tm) == list(scan), (H, list(tm), list(scan))
+
+
+# mode XP's f32 backward (csrc/lstm_f32.cuh): lstm_scan's, and the
+# archived tm's one step a launch, at each hidden size and both loop
+# tilings: a ragged batch, a short last tile, one row; and the bench shape
+XP_F32_SHAPES = [(T, B, H) for H in (32, 64, 128)
+    for T, B in ((16, 1000), (5, 33), (3, 1))] + [(16, 8192, 128)]
+
+
+@pytest.mark.parametrize('kind', XP_KINDS)
+@pytest.mark.parametrize('T,B,H', XP_F32_SHAPES)
+@pytest.mark.parametrize('xp_dtype', [torch.float32, torch.bfloat16])
+def test_xp_f32_backward_matches_plain(cuda, kind, T, B, H, xp_dtype):
+    """lstm_scan's and tm's f32 backwards on the cluster design (tm: T
+    launches of its step backward, counted in _check_lstm_pair) against
+    their plain versions, x_proj in f32 and in bf16 (dx_proj in x_proj's
+    dtype)."""
+    from pufferlib_tpu_torch.ops.cuda import archive, lstm_scan
+    assert lstm_scan.design('lstm_scan_backward', torch.float32) == \
+        archive.design('lstm_tm_step_backward', torch.float32) == 'cluster'
+    _check_lstm_pair(cuda, kind, T, B, H, torch.float32, xp_dtype)
+
+
+@pytest.mark.parametrize('kind', XP_KINDS)
+@pytest.mark.parametrize('T,B,H', [(3, 45, 128), (5, 33, 32), (4, 200, 64),
+    (2, 1, 128)])
+@pytest.mark.parametrize('xp_dtype', [torch.float32, torch.bfloat16])
+def test_xp_f32_backward_writes_only_its_buffers(cuda, monkeypatch, kind, T,
+        B, H, xp_dtype):
+    """Every buffer of an f32 call of lstm_scan or tm between guards
+    (_check_f32_guards): x_proj, dx_proj, the dgates scratch that holds
+    the activations with bf16 x_proj, W_hh^T and the split-K's partials,
+    at ragged batches and one row."""
+    _check_f32_guards(cuda, monkeypatch, kind, T, B, H, xp_dtype=xp_dtype)
+
+
+@pytest.mark.parametrize('kind', XP_KINDS)
+@pytest.mark.parametrize('T,B,H,xp_dtype', [(16, 8192, 128, torch.float32),
+    (16, 1000, 128, torch.bfloat16), (5, 65, 64, torch.float32),
+    (4, 33, 32, torch.bfloat16)])
+def test_xp_f32_backward_repeats_bit_for_bit(cuda, kind, T, B, H, xp_dtype):
+    """The reverse loop's clusters exchange the partial dh_prev through
+    distributed shared memory behind cluster barriers, the loop writes the
+    dgates over the activations it reads, and the split-K adds its
+    partials in split order: twenty runs are equal bit for bit."""
+    _check_deterministic(cuda, kind, T, B, H, cdt=torch.float32, runs=20,
+        xp_dtype=xp_dtype)
+
+
+@pytest.mark.parametrize('T,B,H', TM_SCAN_SHAPES)
+@pytest.mark.parametrize('xp_dtype', [torch.bfloat16, torch.float32])
+def test_archived_tm_f32_is_lstm_scan_bit_for_bit(cuda, T, B, H, xp_dtype):
+    """tm's f32 kernels (the FMA forward one step a launch; lstm_scan's
+    f32 backward one step a launch, the pre-pass with the first step and
+    dW_hh with the last, the dh/dc carries in f32 buffers) on lstm_scan's
+    inputs: every output and gradient equal to lstm_scan's f32 kernels'
+    bit for bit, x_proj in f32 and in bf16."""
+    kinds = _lstm_kinds()
+    cdt = torch.float32
+    args = _lstm_case('tm', T, B, H, 49, cdt, cuda, xp_dtype)
+    g = (torch.randn(T, B, H, device=cuda), torch.randn(B, H, device=cuda),
+        torch.randn(B, H, device=cuda))
+    runs = []
+    with torch.no_grad():
+        for kind in ('scan', 'tm'):
+            fwd, bwd = kinds[kind][:2]
+            outs, hT, cT, cseq = fwd(*args, cdt)
+            runs.append((outs, hT, cT, cseq) + bwd(*args, outs, cseq, *g,
+                cdt))
+    torch.cuda.synchronize()
+    for a, w in zip(*runs):
+        assert a.dtype == w.dtype and torch.equal(a, w)
 
 
 def _check_pair_and_primal(cuda, kind, T, B, H, cdt):

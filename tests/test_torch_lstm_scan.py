@@ -898,16 +898,19 @@ def test_fused_f32_design():
     x @ W_ih + b slab in the bf16 slab's place) and lstm_fused_backward's
     30 (the activations and transposed weights in the P slab's place, the
     slab in the bf16 scratch's); the bf16 ones run the tensor cores
-    ('tc'); lstm_scan's f32 pair keeps the FMA cell ('fma'). The reach is
-    the FMA cell's it replaced: D == H in 32, 64, 128 in f32 (anything
-    else refused before a launch), input widths that are multiples of 8 in
-    bf16."""
-    for fn in ('lstm_fused_forward', 'lstm_fused_backward'):
+    ('tc'); lstm_scan's f32 backward runs lstm_f32.cuh too ('cluster',
+    with its 24 arguments: W_hh^T in the bf16 scratch's place), its f32
+    forward keeps the FMA cell ('fma'). The reach is the FMA cell's it
+    replaced: D == H in 32, 64, 128 in f32 (anything else refused before a
+    launch), input widths that are multiples of 8 in bf16."""
+    for fn in ('lstm_fused_forward', 'lstm_fused_backward',
+            'lstm_scan_backward'):
         assert lstm_scan.design(fn, torch.float32) == 'cluster'
         assert lstm_scan.design(fn, torch.bfloat16) == 'tc'
-    for fn in ('lstm_scan_forward', 'lstm_scan_backward'):
-        assert lstm_scan.design(fn, torch.float32) == 'fma'
-        assert lstm_scan.design(fn, torch.bfloat16) == 'tc'
+    assert lstm_scan.design('lstm_scan_forward', torch.float32) == 'fma'
+    assert lstm_scan.design('lstm_scan_forward', torch.bfloat16) == 'tc'
+    assert len(lstm_scan.KERNEL.functions['lstm_scan_forward']) == 16
+    assert len(lstm_scan.KERNEL.functions['lstm_scan_backward']) == 24
     for fn in ('lstm_fused_f32_plan', 'lstm_fused_f32_usage',
             'lstm_fused_tc_usage'):
         with pytest.raises(ValueError, match='not a launch'):
@@ -1027,6 +1030,139 @@ def test_xp_tensor_core_schedule_keeps_the_function(H, B, seq):
     with pltpu.force_tpu_interpret_mode():
         jax_want = jax_run(jax_lstm.lstm_scan, arrays, cdt, seq, 0)
     compare('scan', (fwd[:3], loss_grads), jax_want, True)
+
+
+def xp_f32_schedule(x_proj, h0, c0, w_hh, outs, cseq, splits=3, units=32,
+        one_step=False):
+    """What the f32 backward of lstm_scan (csrc/lstm_f32.cuh,
+    xp_backward_steps) computes, in its order, in plain torch, from the
+    forward's outs and cseq (x_proj in f32 or bf16): the pre-pass over all
+    T*B rows, the activations of h_prev @ W_hh summed from zero with
+    x_proj added after it (the forward's two sums); the reverse loop
+    without db: the dgates from the activations, dh_prev the partials of
+    the cluster's blocks, each block's `units` units' four gate columns of
+    dg times those rows of W_hh^T, added in rank order; dx_proj the f32
+    dgates in x_proj's dtype (with bf16 x_proj rounded after the loop);
+    dW_hh = h_prev^T dg over the f32 dgates as the split-K, `splits`
+    splits added in split order (lstm_common.splitk_reference). one_step:
+    the archived tm's f32 schedule, the same pieces with the loop one step
+    a call and dh, dc handed from call to call. Returns the backward as a
+    function of the upstream gradients."""
+    T, B, G = x_proj.shape
+    H = h0.shape[1]
+    h_prev = lstm_common.h_prev_rows(h0, outs, torch.float32)
+    acts = lstm_common.gate_activations(
+        h_prev @ w_hh + x_proj.float().reshape(T * B, G), H)
+    cols = [torch.cat([torch.arange(g * H + s * units, g * H + (s + 1) * units)
+        for g in range(4)]) for s in range(H // units)]
+
+    def loop(steps, dh, dc, g_outs, dg):
+        for t in steps:
+            r = slice(t * B, (t + 1) * B)
+            c_prev = c0 if t == 0 else cseq[t - 1].float()
+            d, dc = lstm_common.cell_backward_step([a[r] for a in acts],
+                dh + g_outs[t].float(), dc, cseq[t].float(), c_prev)
+            dg[r] = d
+            dh = d[:, cols[0]] @ w_hh[:, cols[0]].t()
+            for c in cols[1:]:
+                dh = dh + d[:, c] @ w_hh[:, c].t()
+        return dh, dc
+
+    def backward(g_outs, g_hT, g_cT):
+        dg = torch.empty((T * B, G))
+        dh, dc = g_hT.float(), g_cT.float()
+        if one_step:
+            for t in reversed(range(T)):
+                dh, dc = loop([t], dh, dc, g_outs, dg)
+        else:
+            dh, dc = loop(reversed(range(T)), dh, dc, g_outs, dg)
+        dxp = dg.reshape(T, B, G).to(x_proj.dtype)
+        dw = lstm_common.splitk_reference(h_prev, dg, splits)
+        return dxp, dh, dc, dw
+    return backward
+
+
+# (T, B, H, units a loop block, x_proj's dtype): both loop tilings of each
+# hidden size (lstm_f32.cuh LoopConfigs), batches that are whole tiles,
+# short last tiles and ragged (B % 8 != 0), x_proj in f32 and in bf16
+XP_F32_SCHEDULES = [(3, 64, 128, 64, 'float32'), (3, 65, 128, 32, 'bfloat16'),
+    (3, 40, 64, 64, 'bfloat16'), (3, 33, 64, 32, 'float32'),
+    (4, 24, 32, 32, 'bfloat16'), (5, 10, 32, 32, 'float32')]
+
+
+@pytest.mark.parametrize('T,B,H,units,seq', XP_F32_SCHEDULES)
+def test_xp_f32_schedule_keeps_the_function(T, B, H, units, seq):
+    """lstm_scan's f32 backward schedule (xp_f32_schedule, from the plain
+    forward's outs and cseq) against the plain backward on the same
+    inputs, and at B % 8 == 0 against the JAX package's lstm_scan in f32,
+    its Pallas kernel in interpret mode, under the loss of its tests;
+    tm's schedule (the loop one step a call) equal to it bit for bit.
+    Tolerance 1e-5 of max(1, max |reference|) per tensor (the same f32
+    products summed in another order), 2e-2 for a bf16 dx_proj (a dgate
+    one f32 ulp apart rounds to the next bf16 value)."""
+    rng = np.random.default_rng(27)
+    arrays = [(rng.standard_normal(shape) * k).astype(np.float32)
+        for shape, k in (((T, B, 4 * H), 0.5), ((B, H), 0.3), ((B, H), 0.3),
+            ((H, 4 * H), 0.3))]
+    arrays[0] = np.array(jnp.asarray(arrays[0]).astype(JD[seq])
+        .astype(jnp.float32))
+    x_proj = torch.from_numpy(arrays[0]).to(TD[seq])
+    rest = [torch.from_numpy(a) for a in arrays[1:]]
+    f32 = torch.float32
+    outs, hT, cT, cseq = lstm_scan.lstm_scan_reference(x_proj, *rest, f32)
+    backward = xp_f32_schedule(x_proj, *rest, outs, cseq, units=units)
+    tm_backward = xp_f32_schedule(x_proj, *rest, outs, cseq, units=units,
+        one_step=True)
+    cot = tuple(torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+        for s in ((T, B, H), (B, H), (B, H)))
+    grads = backward(*cot)
+    for name, a, w in zip(KINDS['scan'][5], tm_backward(*cot), grads):
+        assert a.dtype == w.dtype and torch.equal(a, w), f'tm {name}'
+    want = lstm_scan.lstm_scan_backward_reference(x_proj, *rest, outs, cseq,
+        *cot, f32)
+
+    def close(got, want, what):
+        for name, a, w in zip(KINDS['scan'][5], got, want):
+            assert a.shape == tuple(w.shape), name
+            tol = 2e-2 if a.dtype == torch.bfloat16 else 1e-5
+            assert_close(a, w, tol, True, f'xp f32 schedule {name} {what}')
+    assert grads[0].dtype == TD[seq]
+    close(grads, want, '')
+    if B % 8:
+        return
+    # the loss of the JAX tests: g_outs = 2 outs, g_hT = cT, g_cT = hT
+    loss_grads = backward(2 * outs, cT, hT)
+    with pltpu.force_tpu_interpret_mode():
+        _, jgrads = jax_run(jax_lstm.lstm_scan, arrays, 'float32', seq, 0)
+    close(loss_grads, jgrads, 'against JAX')
+
+
+def test_f32_fma_backward_is_gone():
+    """The FMA backward of lstm_common.cuh (its reverse cell kernel, the
+    host functions that launched it and the f32 split-K) is gone: every f32
+    backward runs csrc/lstm_f32.cuh. Its reverse loop may write the
+    dgates over their activations (mode XP), so that pair of pointers is
+    not __restrict__."""
+    import os
+    import re
+    csrc = os.path.join(os.path.dirname(lstm_common.__file__), '..', '..',
+        'csrc')
+
+    def source(name):
+        with open(os.path.join(csrc, name)) as f:
+            return f.read()
+    common = source('lstm_common.cuh')
+    for name in ('cell_backward', 'run_backward_steps', 'run_backward',
+            'gemm_tn_splitk', 'backward_smem', 'cols_gemm'):
+        assert not re.search(rf'\b{name}\s*\(', common), name
+    f32 = source('lstm_f32.cuh')
+    loop = re.search(r'backward_loop\((.*?)\)\s*\{', f32, re.S).group(1)
+    params = {p.split()[-1]: p for p in (q.strip() for q in loop.split(','))}
+    for name in ('acts', 'dg'):
+        assert '__restrict__' not in params[name], params[name]
+    assert '__restrict__' in params['w_hh_t']
+    for cu in ('lstm_scan.cu', 'lstm_archive.cu'):
+        assert 'f32::xp_backward_steps<H, S>' in source(cu), cu
 
 
 def tm_tc_schedule(x_proj, h0, c0, w_hh, cdt, splits):
@@ -1402,18 +1538,22 @@ def test_step_backward_and_enc2_forward_designs(cdt):
     enc2's forward (archive.design) run the tensor-core kernels of
     lstm_tc.cuh in bf16 ('tc'); in f32 the step backward runs enc5's f32
     backward (lstm_f32.cuh, 'cluster'), enc2's forward the FMA cell
-    ('fma'), and so do tm's step kernels (mode XP's loops one step a
-    launch). Their C functions take enc5's argument lists:
-    lstm_enc_backward's 38 (the P slab, the bf16 weights, the phases) and
-    lstm_enc_forward's 23 (the encoded inputs, the slab, the bf16 weights,
-    the phases)."""
+    ('fma'), and so does tm's forward step (mode XP's loops one step a
+    launch in bf16), while tm's step backward runs lstm_scan's f32
+    backward one step a launch ('cluster'). Their C functions take enc5's
+    argument lists: lstm_enc_backward's 38 (the P slab, the bf16 weights,
+    the phases) and lstm_enc_forward's 23 (the encoded inputs, the slab,
+    the bf16 weights, the phases); tm's keep 16 and 25."""
     want = 'tc' if cdt == 'bfloat16' else 'fma'
-    assert lstm_enc.design('lstm_enc_step_backward', TD[cdt]) == (
-        'tc' if cdt == 'bfloat16' else 'cluster')
+    cluster = 'tc' if cdt == 'bfloat16' else 'cluster'
+    assert lstm_enc.design('lstm_enc_step_backward', TD[cdt]) == cluster
     assert archive.design('lstm_enc2_forward', TD[cdt]) == want
-    for fn in ('lstm_tm_step_forward', 'lstm_tm_step_backward'):
-        assert archive.design(fn, TD[cdt]) == want
+    for fn, design in (('lstm_tm_step_forward', want),
+            ('lstm_tm_step_backward', cluster)):
+        assert archive.design(fn, TD[cdt]) == design
         assert fn in archive.TC_FUNCTIONS
+    assert len(archive.KERNEL.functions['lstm_tm_step_forward']) == 16
+    assert len(archive.KERNEL.functions['lstm_tm_step_backward']) == 25
     step = lstm_enc.KERNEL.functions['lstm_enc_step_backward']
     assert step == lstm_enc.KERNEL.functions['lstm_enc_backward']
     assert len(step) == 38

@@ -16,9 +16,9 @@ one call, T launches each way) at T 16, B 8192, D = H = 128 (the encoder
 kinds: F 49), once for each dtype given (bfloat16 by default); --kind
 keeps only the kinds named (and their extra readings). In
 bfloat16 it also runs the tree's own chip_smoke.time_tc_phases for the
-kinds it has phases of (in float32 enc5's, cat's, fused's, enc's and the
-archived enc3's, enc4's and enc6's, where the tree's f32 kernels run
-phases):
+kinds it has phases of (in float32 enc5's, cat's, fused's, enc's, the
+archived enc3's, enc4's and enc6's, and scan's and tm's backward, where
+the tree's f32 kernels run phases):
 the last backward phase of fused, cat, enc5, enc
 and the archived encoder kinds is their weight gradients (the split-K and
 db's ordered sum), scan's and tm's dW_hh alone. An older tree whose kind
@@ -27,16 +27,16 @@ backward and enc2's forward before theirs, tm before its) has no phases
 of it: its whole call is timed alone. In float32 it also times enc5 at
 memory's shape (config.yaml's memory section: T 8, B 512, F 1) and at
 T 16, B 1000, enc5's streamed pair (lstm_enc_stream_*, called directly)
-at T 16 with B 8192 and 1000, and cat, fused, enc and the archived enc2,
-enc3, enc4 and enc6 at T 16, B 1000; cat's
+at T 16 with B 8192 and 1000, and cat, fused, enc, scan and the archived
+enc2, enc3, enc4, enc6 and tm at T 16, B 1000; cat's
 and fused's readings carry cuDNN's f32 nn.LSTM beside them. Each turn
 also prints, for each
 kind and dtype, the SHA-256 of every output and gradient of one forward
 and backward call on inputs from a fixed seed, that of the forward's
 outputs alone, and that of the backward's gradients alone, the backward
 fed the plain forward's outputs (and the device memory through autograd
-of cat, fused, enc5, enc and the archived enc3, enc4 and enc6, at each of
-their
+of cat, fused, enc5, enc, scan and the archived enc3, enc4, enc6 and tm,
+at each of their
 shapes: the bytes held from the forward to the backward and the peak
 over both): two trees whose digests of a kind agree
 compute it bit for bit alike, and two whose forward (backward) digests
@@ -64,7 +64,9 @@ F32_EXTRA = (('enc5 memory', 'enc5', 8, 512, 1),
     ('enc2 B=1000', 'enc2', 16, 1000, 49),
     ('enc3 B=1000', 'enc3', 16, 1000, 49),
     ('enc4 B=1000', 'enc4', 16, 1000, 49),
-    ('enc6 B=1000', 'enc6', 16, 1000, 49))
+    ('enc6 B=1000', 'enc6', 16, 1000, 49),
+    ('scan B=1000', 'scan', 16, 1000, 49),
+    ('tm B=1000', 'tm', 16, 1000, 49))
 
 # run inside a tree: its own chip_smoke, its own kernels
 CHILD = r'''
@@ -76,17 +78,20 @@ import chip_smoke
 from pufferlib_tpu_torch.ops.cuda.archive.lstm_enc3 import lstm_scan_enc3
 from pufferlib_tpu_torch.ops.cuda.archive.lstm_enc4 import lstm_scan_enc4
 from pufferlib_tpu_torch.ops.cuda.archive.lstm_enc6 import lstm_scan_enc6
+from pufferlib_tpu_torch.ops.cuda.archive.lstm_tm import lstm_scan_tm
 from pufferlib_tpu_torch.ops.cuda.lstm_cat import lstm_scan_cat
 from pufferlib_tpu_torch.ops.cuda.lstm_enc import (
     lstm_scan_enc, lstm_scan_enc5)
-from pufferlib_tpu_torch.ops.cuda.lstm_scan import lstm_scan_fused
+from pufferlib_tpu_torch.ops.cuda.lstm_scan import lstm_scan, lstm_scan_fused
 
 # the kinds whose device memory through autograd a turn reads; those that
-# take features behind the fused encoder
+# take features behind the fused encoder; those that take x_proj
 SCANS = {'cat': lstm_scan_cat, 'fused': lstm_scan_fused,
     'enc5': lstm_scan_enc5, 'enc': lstm_scan_enc, 'enc3': lstm_scan_enc3,
-    'enc4': lstm_scan_enc4, 'enc6': lstm_scan_enc6}
+    'enc4': lstm_scan_enc4, 'enc6': lstm_scan_enc6, 'scan': lstm_scan,
+    'tm': lstm_scan_tm}
 ENCODED = ('enc5', 'enc', 'enc3', 'enc4', 'enc6')
+PROJECTED = ('scan', 'tm')
 
 
 def sha(tensors):
@@ -124,6 +129,9 @@ def memory(kind, B, T=16, H=128, F=49):
     if kind in ENCODED:
         args = (leaf(T, B, F, dtype=cdt).detach(), leaf(B, H), leaf(B, H),
             leaf(F, H), leaf(H), leaf(H, 4 * H), leaf(H, 4 * H), leaf(4 * H))
+    elif kind in PROJECTED:
+        args = (leaf(T, B, 4 * H, dtype=cdt), leaf(B, H), leaf(B, H),
+            leaf(H, 4 * H))
     else:
         args = (leaf(T, B, H, dtype=cdt), leaf(B, H), leaf(B, H),
             leaf(H, 4 * H), leaf(H, 4 * H), leaf(4 * H))
@@ -159,7 +167,7 @@ for kind in KINDS:
         'forward digest': forward_digest, 'backward digest': backward_digest}
     phases = None
     if DTYPE == 'bfloat16' or kind in ('enc5', 'cat', 'fused', 'enc',
-            'enc3', 'enc4', 'enc6'):
+            'enc3', 'enc4', 'enc6', 'scan', 'tm'):
         try:
             phases = chip_smoke.time_tc_phases(torch, flush,
                 np.random.RandomState(0), kind, dtype_name=DTYPE)
