@@ -72,7 +72,14 @@ archived enc2's f32 backward (the same design with fused's two sums
 behind enc5's encoder) and the archived enc4's and enc6's (enc5's f32
 backward itself, their function in f32) timed at both batches, twice
 bit-equal, and launched by that f32 lab run; enc4's and enc6's f32
-gradients must equal enc5's bit for bit, as enc6's bf16 ones must.
+gradients must equal enc5's bit for bit, as enc6's bf16 ones must;
+lstm_scan's and the archived tm's f32 pairs (fused's forward loop with
+x_proj as its slab, and fused's backward with x_proj given; tm's one step
+a launch) timed at both batches with x_proj in f32 and held to their
+plain versions in both x_proj dtypes, twice bit-equal, tm's outputs and
+gradients equal to lstm_scan's bit for bit, tm's launches a step timed
+against lstm_scan's loop in both dtypes, and launched by that f32 lab
+run.
 
 The Ocean phase: the MLP head is also held to its plain version at the
 Ocean envs' shapes (F = 1, 5 and 30 features; O = 3, 5 and 11 outputs;
@@ -701,7 +708,8 @@ PHASES = {'enc5': ENC5_PHASES, 'scan': SCAN_PHASES, 'enc': ARCHIVE_PHASES,
     'enc2': ENC2_PHASES, 'enc3': ARCHIVE_PHASES, 'enc4': ARCHIVE_PHASES,
     'enc6': ARCHIVE_PHASES, 'tm': TM_PHASES}
 # lstm_scan's f32 backward (csrc/lstm_f32.cuh): the gates of every step at
-# once, the cluster loop, dW_hh; its forward is the FMA cell, timed whole
+# once, the cluster loop, dW_hh; its forward is the cluster loop alone on
+# x_proj (xp_forward: no projection), timed whole
 F32_PHASES = {'scan': {'forward': (), 'backward': ('pre-pass', 'loop',
     'dW')}}
 
@@ -841,11 +849,11 @@ def check_tm_is_scan(torch, rng, B, xp_dtype_name, T=16, H=128,
         dtype_name='bfloat16'):
     """The archived tm and lstm_scan in dtype_name on the same inputs,
     x_proj in xp_dtype_name: in bf16 tm's step kernels are lstm_scan's
-    loops one step a launch; in f32 its forward steps are lstm_scan's FMA
-    cell one step a launch and its step backward lstm_scan's f32 backward
-    (csrc/lstm_f32.cuh) one step a launch; the carries are in f32 buffers
-    between launches, so every output and gradient must be equal bit for
-    bit."""
+    loops one step a launch; in f32 its forward steps are lstm_scan's f32
+    forward (csrc/lstm_f32.cuh, the two-sums cluster loop) one step a
+    launch and its step backward lstm_scan's f32 backward one step a
+    launch; the carries are in f32 buffers between launches, so every
+    output (outs, hT, cT, cseq) and gradient must be equal bit for bit."""
     kinds = lstm_kinds()
     args, grads, cdt = lstm_case(torch, rng, 'tm', T, B, dtype_name, H=H,
         xp_dtype_name=xp_dtype_name)
@@ -866,18 +874,22 @@ def check_tm_is_scan(torch, rng, B, xp_dtype_name, T=16, H=128,
     log(f'{what}: equal bit for bit in {len(names)} outputs and gradients')
 
 
-def time_tm_launches(torch, flush, rng, T=16, B=8192, H=128):
-    """Where the archived tm's one launch a step goes, bf16 at the main
-    shape, beside lstm_scan's one launch a call on the same inputs: for
-    each call, its device time (CUDA events, timed_ms), the device time
-    of its loop kernels alone (torch.profiler, summed over tm's T
-    launches: W_hh's staging and each launch's prologue are inside
-    them; None where the profiler lost them), and the host's time to
-    issue it (issue_ms). Returns {(kind, part): (event ms, kernel ms,
-    issue ms)}."""
+def time_tm_launches(torch, flush, rng, T=16, B=8192, H=128,
+        dtype_name='bfloat16'):
+    """Where the archived tm's one launch a step goes, in dtype_name at
+    the main shape, beside lstm_scan's one launch a call on the same
+    inputs: for each call, its device time (CUDA events, timed_ms), the
+    device time of its loop kernels alone (torch.profiler, summed over
+    tm's T launches: W_hh's staging and each launch's prologue are inside
+    them; in f32 the backward's pre-pass and dW_hh are not; None where the
+    profiler lost them), and the host's time to issue it (issue_ms).
+    Returns {(kind, part): (event ms, kernel ms, issue ms)}."""
     from pufferlib_tpu_torch.ops.cuda.timing import issue_ms
     kinds = lstm_kinds()
-    args, grads, cdt = lstm_case(torch, rng, 'tm', T, B, 'bfloat16', H=H)
+    args, grads, cdt = lstm_case(torch, rng, 'tm', T, B, dtype_name, H=H)
+    # the loop kernels: bf16 lstm_tc.cuh's, f32 lstm_f32.cuh's
+    loops = {'bfloat16': ('forward_loop', 'xp_backward_loop'),
+        'float32': ('forward_loop', 'backward_loop')}[dtype_name]
     out = {}
     with torch.no_grad():
         outs, _, _, cseq = kinds['tm'][0](*args, cdt)
@@ -885,8 +897,8 @@ def time_tm_launches(torch, flush, rng, T=16, B=8192, H=128):
         for kind in ('scan', 'tm'):
             fwd, bwd = kinds[kind][:2]
             for part, fn, name in (
-                    ('forward', lambda f=fwd: f(*args, cdt), 'forward_loop'),
-                    ('backward', lambda b=bwd: b(*bargs), 'xp_backward_loop')):
+                    ('forward', lambda f=fwd: f(*args, cdt), loops[0]),
+                    ('backward', lambda b=bwd: b(*bargs), loops[1])):
                 out[kind, part] = (timed_ms(fn, flush),
                     profiled_ms(fn, flush, name,
                         per_call=T if kind == 'tm' else 1),
@@ -895,8 +907,8 @@ def time_tm_launches(torch, flush, rng, T=16, B=8192, H=128):
     def per_step(a, b):
         return 'not measured' if None in (a, b) else \
             f'{(a - b) / T * 1e3:.2f}'
-    log(f'tm against lstm_scan, bf16 T={T} B={B} H={H}, ms a call (events '
-        '/ loop kernels by the profiler / host issue): ' + '; '.join(
+    log(f'tm against lstm_scan, {dtype_name} T={T} B={B} H={H}, ms a call '
+        '(events / loop kernels by the profiler / host issue): ' + '; '.join(
         f'{kind} {part} ' + ' / '.join(fmt_ms(v) for v in readings)
         for (kind, part), readings in out.items()) + '; tm over lstm_scan '
         'a step, us (events / kernels / issue): ' + '; '.join(
@@ -2154,14 +2166,17 @@ def main():
         ('float32', 'enc4'), ('float32', 'enc'), ('float32', 'enc3'))
     for d, kind in enc5_twins:
         check_enc6_is_enc5(torch, rng, 8192, d, kind)
-    # the archived tm's kernels are lstm_scan's one step a launch (bf16:
-    # both ways; f32: the FMA forward and the cluster backward); then what
-    # one launch a step costs against lstm_scan's one a call
+    # the archived tm's kernels are lstm_scan's one step a launch (both
+    # ways, both dtypes: in f32 the cluster forward and backward); then
+    # what one launch a step costs against lstm_scan's one a call, in each
+    # dtype
     for d in ('bfloat16', 'float32'):
         for B in (8192, 1000):
             for xp_dtype_name in ('bfloat16', 'float32'):
                 check_tm_is_scan(torch, rng, B, xp_dtype_name, dtype_name=d)
     tm_launches = time_tm_launches(torch, flush, rng)
+    tm_f32_launches = time_tm_launches(torch, flush, rng,
+        dtype_name='float32')
     for d, kind in enc5_twins:
         check_enc6_is_enc5(torch, rng, 980, d, kind, H=64)
     for kind in ('enc',) + ARCHIVED_ENC_KINDS:
@@ -2494,30 +2509,42 @@ def main():
             ms_1000=f32_1000['bwd_ms'],
             plain_ms_1000=f32_1000['bwd_plain_ms'],
             bound_ms_1000=f32_1000['bwd_bound']))
-    # lstm_scan's f32 backward and the archived tm's (csrc/lstm_f32.cuh:
-    # mode XP's cluster backward, tm's one step a launch), which the
-    # kernel lab launches in f32 (phase 10), at the main shape and at B
-    # 1000, with their phases at the main shape; max_abs_err over both
-    # x_proj dtypes
-    for kind, fn, replaces in (
-            ('scan', 'lstm_scan_backward', 'lstm.py:236'),
-            ('tm', 'lstm_tm_step_backward', 'archive/lstm_tm.py:199')):
+    # lstm_scan's f32 pair and the archived tm's (csrc/lstm_f32.cuh: mode
+    # XP's cluster forward and backward, tm's one step a launch), which
+    # the kernel lab launches in f32 (phase 10), at the main shape and at
+    # B 1000, with the backward's phases at the main shape; max_abs_err
+    # over both x_proj dtypes; tm's rows carry lstm_scan's f32 call on the
+    # same inputs in the same run, and both calls' loop kernels alone and
+    # host issue (time_tm_launches in f32)
+    for kind, fn, part, replaces in (
+            ('scan', 'lstm_scan_forward', 'fwd', 'lstm.py:185'),
+            ('scan', 'lstm_scan_backward', 'bwd', 'lstm.py:236'),
+            ('tm', 'lstm_tm_step_forward', 'fwd', 'archive/lstm_tm.py:144'),
+            ('tm', 'lstm_tm_step_backward', 'bwd', 'archive/lstm_tm.py:199')):
         main_f32 = lstm_runs[kind, 8192, 'float32']
         f32_1000 = lstm_runs[kind, 1000, 'float32']
+        whole = 'forward' if part == 'fwd' else 'backward'
         kernels.append(dict(name=f'{fn}_f32', route='cuda',
             source='pufferlib_tpu_torch/csrc/lstm_f32.cuh',
             replaces=f'pufferlib_tpu/ops/pallas/{replaces}',
             launches=lab_f32_launches[fn],
-            max_abs_err=max(r['bwd_err'] for (k, _, d), r in
+            max_abs_err=max(r[f'{part}_err'] for (k, _, d), r in
                 lstm_runs.items() if k == kind and d.startswith('float32')),
-            ms=main_f32['bwd_ms'], plain_ms=main_f32['bwd_plain_ms'],
-            bound_ms=main_f32['bwd_bound'], bound_by=main_f32['bwd_by'],
-            library_ms=main_f32['bwd_lib'], shape=main_f32['shape'],
-            ms_1000=f32_1000['bwd_ms'],
-            plain_ms_1000=f32_1000['bwd_plain_ms'],
-            bound_ms_1000=f32_1000['bwd_bound'],
+            ms=main_f32[f'{part}_ms'], plain_ms=main_f32[f'{part}_plain_ms'],
+            bound_ms=main_f32[f'{part}_bound'],
+            bound_by=main_f32[f'{part}_by'],
+            library_ms=main_f32[f'{part}_lib'], shape=main_f32['shape'],
+            ms_1000=f32_1000[f'{part}_ms'],
+            plain_ms_1000=f32_1000[f'{part}_plain_ms'],
+            bound_ms_1000=f32_1000[f'{part}_bound'],
             phases={k: v for k, v in xp_f32_phases[kind].items()
-                if k.startswith('backward')}))
+                if k.startswith(whole)}))
+        if kind == 'tm':
+            kernels[-1].update(
+                lstm_scan_ms=tm_f32_launches['scan', whole][0],
+                kernel_ms=tm_f32_launches['tm', whole][1],
+                lstm_scan_kernel_ms=tm_f32_launches['scan', whole][1],
+                issue_ms=tm_f32_launches['tm', whole][2])
     rows = {row['name']: row for row in kernels}
     # enc5's launches in demo_torch's memory run (phase 17, f32)
     for part in ('forward', 'backward'):
@@ -3085,11 +3112,10 @@ def run_validation_path(torch):
     by C function, and those of the lab's fused, xp, enc, enc2, enc3,
     enc4, enc6 and tm variants in f32 (kernel_lab_torch.main(
     LAB_F32_VARIANTS, dtype='float32'), with every count set to 0 again
-    just before: the path that launches lstm_scan_fused's f32 pair,
-    lstm_scan's and tm's f32 backwards, lstm_scan_enc's step backward and
-    the archived enc2's, enc3's, enc4's and enc6's f32 backwards,
-    csrc/lstm_f32.cuh, beside the FMA forwards of lstm_scan, tm and enc2
-    and enc5's f32 one, the others')."""
+    just before: the path that launches lstm_scan_fused's, lstm_scan's and
+    tm's f32 pairs, lstm_scan_enc's step backward and the archived enc2's,
+    enc3's, enc4's and enc6's f32 backwards and enc5's f32 forward, all
+    csrc/lstm_f32.cuh, beside enc2's FMA forward)."""
     from pufferlib_tpu_torch.ops.cuda import KERNELS
     validate = load_tool('validate_lstm_torch')
     lab = load_tool('kernel_lab_torch')

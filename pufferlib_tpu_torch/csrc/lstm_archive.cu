@@ -110,13 +110,16 @@
 //   the split-K SGEMM over all T*B rows with lstm_scan's splits. The
 //   carries are the values lstm_scan's loop keeps in registers, so tm's
 //   f32 gradients are lstm_scan's bit for bit.
-// * the other f32 kernels (enc2's and tm's forwards): csrc/lstm_common.cuh's
-//   FMA cell kernel, from weights streamed out of L2 in chunks, far above
-//   the bounds above (f32 is the exact test mode): enc2's forward in mode
-//   ENC2, its encoder inside the time loop from a W_enc held in shared
-//   memory; tm in mode XP walking one step per launch: stream order is the
-//   only synchronisation a timestep needs, since batch tiles do not talk
-//   to each other.
+// * f32 tm forward: csrc/lstm_f32.cuh's mode XP forward (xp_forward,
+//   lstm_scan's) over [t, t + 1): the two-sums cluster loop at one step on
+//   step t's rows of x_proj, outs and cseq, h_in, c_in as its h0, c0 and
+//   h_out, c_out as its hT, cT, W_hh staged into shared memory by every
+//   launch; stream order is the only synchronisation a step needs. The
+//   f32 carries are exact, so tm's outputs are lstm_scan's bit for bit.
+// * the other f32 kernel (enc2's forward): csrc/lstm_common.cuh's FMA
+//   cell kernel in mode ENC2, from weights streamed out of L2 in chunks,
+//   far above the bounds above (f32 is the exact test mode), its encoder
+//   inside the time loop from a W_enc held in shared memory.
 #include "lstm_common.cuh"
 #include "lstm_f32.cuh"
 #include "lstm_tc.cuh"
@@ -226,16 +229,16 @@ struct Enc2Forward {
                                        static_cast<E*>(w16), T, B, D, phases, stream);
         } else {
             if (phases != tc::FORWARD_PHASES || D != H) return cudaErrorInvalidValue;
-            return run_forward<H, E, E, ENC2>(feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b, outs,
-                                              cseq, hT, cT, T, B, F, stream);
+            return run_forward<H, E, ENC2>(feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b, outs, cseq,
+                                           hT, cT, T, B, F, stream);
         }
     }
 };
 
 // tm's steps: bf16 on lstm_tc.cuh's mode XP loops (xp_forward_step,
-// xp_backward_steps over [t, t + 1)); f32, the forward on lstm_common.cuh's
-// FMA cell, the backward on lstm_f32.cuh's xp_backward_steps over [t, t +
-// 1); x_proj in S (bf16 when xp_bf16, else f32)
+// xp_backward_steps over [t, t + 1)); f32 on lstm_f32.cuh's (xp_forward,
+// xp_backward_steps over [t, t + 1)); x_proj in S (bf16 when xp_bf16, else
+// f32)
 template <int H, typename E>
 struct TmStepForward {
     template <typename S>
@@ -249,9 +252,9 @@ struct TmStepForward {
                                              c_out, static_cast<E*>(w16), t, T, B, stream);
         } else {
             if (w16) return cudaErrorInvalidValue;
-            return run_forward_steps<H, E, S, XP>(x_proj, h_in, c_in, nullptr, nullptr, nullptr,
-                                                  w_hh, nullptr, outs, cseq, h_out, c_out, t,
-                                                  t + 1, B, 0, stream);
+            return f32::xp_forward<H, S>(static_cast<const S*>(x_proj), h_in, c_in, w_hh,
+                                         static_cast<E*>(outs), static_cast<E*>(cseq), h_out,
+                                         c_out, t, t + 1, T, B, stream);
         }
     }
     template <typename... Args>

@@ -2,26 +2,24 @@
 // csrc/lstm_scan.cu and csrc/lstm_archive.cu, for Hopper (sm_90a). See
 // those files for which TPU kernel each replaces and what bounds it.
 //
-// The FMA cell kernel below (cell_forward) runs in f32 the forwards that
-// have no other f32 design: lstm_scan's and the archived tm's (mode XP)
-// and the archived enc2's (ENC2). Every f32 backward and the f32 pairs of
-// cat and fused (modes CAT and FUSED) and enc5 run csrc/lstm_f32.cuh. A
-// Mode (below) says which function a cell kernel computes per step:
+// The FMA cell kernel below (cell_forward) runs in f32 the one forward
+// that has no other f32 design: the archived enc2's (mode ENC2). Every
+// other f32 kernel (the pairs of enc5, cat, fused and lstm_scan, every
+// f32 backward, tm's step kernels) runs csrc/lstm_f32.cuh. A Mode (below)
+// says which function a cell kernel computes per step:
 //
-// * cell_forward (XP, ENC2): one block per BT = 32 batch rows walks
-//   steps t_lo..t_hi-1 (the whole sequence, or one step a launch: the
-//   time-major variant). Per step it builds the operand [x_t | h]
-//   (rounded to the compute dtype) in shared memory, computes the gates
-//   with f32 accumulation, and updates c and h in registers. W_hh, and
-//   with ENC2 W_ih, is streamed from L2 (where it stays resident: every
-//   block reads the same weights; [W_ih; W_hh] is (D+H, 4H) = 256 KiB in
-//   f32 at H = 128, more than a block's 227 KiB of shared memory) in
-//   chunks of KC rows, each rounded to the compute dtype as it is staged.
-//   ENC2's step first computes x_t = relu(feats_t @ W_enc + b_enc) from a
-//   W_enc held in shared memory, so no encoded sequence ever reaches
-//   device memory. Both modes keep two f32 sums apart, as their TPU
-//   kernels do: the recurrent h @ W_hh, and the term it is added to
-//   (x_proj_t read from device memory, or x_t @ W_ih + b computed first).
+// * cell_forward (ENC2): one block per BT = 32 batch rows walks the whole
+//   sequence. Per step it builds the operand [x_t | h] (rounded to the
+//   compute dtype) in shared memory, computes the gates with f32
+//   accumulation, and updates c and h in registers. [W_ih; W_hh] is
+//   streamed from L2 (where it stays resident: every block reads the same
+//   weights; it is (D+H, 4H) = 256 KiB in f32 at H = 128, more than a
+//   block's 227 KiB of shared memory) in chunks of KC rows, each rounded
+//   to the compute dtype as it is staged. The step first computes x_t =
+//   relu(feats_t @ W_enc + b_enc) from a W_enc held in shared memory, so
+//   no encoded sequence ever reaches device memory. It keeps two f32 sums
+//   apart, as its TPU kernel does: x_t @ W_ih + b computed first, and the
+//   recurrent h @ W_hh added to it.
 // * the split-K (splitk) + reduce_partials of the bf16 backwards
 //   (csrc/lstm_tc.cuh): the weight gradients dW = [x | h_prev]^T dgates
 //   (and dW_enc = feats^T dpre) are contractions over K = T*B rows. The
@@ -261,36 +259,21 @@ __device__ __forceinline__ void load_rows(float* op_s, const S* src, size_t base
     }
 }
 
-// pre[g][i] = x_proj_t[r0 + i][g*H + j] in f32, zero past the batch edge
-template <int H, typename S>
-__device__ __forceinline__ void load_x_proj(float (&pre)[4][Tile<H>::RPT], const S* xp,
-                                            size_t base, int nrows, int r0, int j) {
-    constexpr int G = Tile<H>::G, RPT = Tile<H>::RPT;
-#pragma unroll
-    for (int i = 0; i < RPT; ++i)
-#pragma unroll
-        for (int g = 0; g < 4; ++g)
-            pre[g][i] = r0 + i < nrows ? ld(xp, (base + r0 + i) * G + g * H + j) : 0.f;
-}
-
 // The gate pre-activations of one step, into acc, from the operand
-// [x_t | h] in op_s: two f32 sums, the recurrent one h @ W_hh added last.
-// ENC2: (x_t @ W_ih + b), rounded to the compute dtype, + h @ W_hh. XP:
-// pre (x_proj_t, loaded by the caller) + h @ W_hh.
+// [x_t | h] in op_s: two f32 sums, (x_t @ W_ih + b) rounded to the
+// compute dtype, then the recurrent h @ W_hh added to it (ENC2).
 template <int H, typename E, int MODE>
-__device__ __forceinline__ void gate_sums(float (&acc)[4][Tile<H>::RPT],
-                                          float (&pre)[4][Tile<H>::RPT], const float* op_s,
+__device__ __forceinline__ void gate_sums(float (&acc)[4][Tile<H>::RPT], const float* op_s,
                                           float* w_s, const float* w_ih, const float* w_hh,
                                           const float (&bias)[4], int r0, int j) {
     constexpr int D = Tile<H>::D, K = Tile<H>::K, RPT = Tile<H>::RPT;
-    static_assert(MODE == ENC2 || MODE == XP, "the FMA cell runs XP and ENC2");
-    if constexpr (MODE == ENC2) {
-        gates_gemm<H, E, 0, D>(acc, op_s, w_s, w_ih, w_hh, r0, j);
+    static_assert(MODE == ENC2, "the FMA cell runs ENC2");
+    float pre[4][RPT];
+    gates_gemm<H, E, 0, D>(acc, op_s, w_s, w_ih, w_hh, r0, j);
 #pragma unroll
-        for (int g = 0; g < 4; ++g)
+    for (int g = 0; g < 4; ++g)
 #pragma unroll
-            for (int i = 0; i < RPT; ++i) pre[g][i] = to_cdt<E>(acc[g][i] + bias[g]);
-    }
+        for (int i = 0; i < RPT; ++i) pre[g][i] = to_cdt<E>(acc[g][i] + bias[g]);
     gates_gemm<H, E, D, K>(acc, op_s, w_s, w_ih, w_hh, r0, j);
 #pragma unroll
     for (int g = 0; g < 4; ++g)
@@ -316,44 +299,34 @@ __device__ __forceinline__ void dgates_chain(float (&d)[4], float& dc, float dhv
     dc = dcv * af;
 }
 
-// xin: ENC2, feats (T, B, F); XP, x_proj (T, B, 4H) in its own dtype S
-// (S is E in ENC2): the other modes run lstm_f32.cuh in f32 and have no
-// FMA cell. A null
-// cseq skips its store: the forward of a call that needs no gradient. The
-// block walks steps t_lo .. t_hi-1 of the sequence, from the state h0, c0
-// before step t_lo to hT, cT after step t_hi-1: the whole sequence in one
-// launch, or one step per launch with the state carried in device memory.
-template <int H, typename E, typename S, int MODE>
+// feats (T, B, F) in the compute dtype E. A null cseq skips its store: the
+// forward of a call that needs no gradient. The block walks the whole
+// sequence from the state h0, c0 to hT, cT.
+template <int H, typename E, int MODE>
 __global__ void __launch_bounds__(NT) cell_forward(
-        const S* __restrict__ xin, const float* __restrict__ h0,
+        const E* __restrict__ feats, const float* __restrict__ h0,
         const float* __restrict__ c0, const float* __restrict__ w_enc,
         const float* __restrict__ b_enc, const float* __restrict__ w_ih,
         const float* __restrict__ w_hh, const float* __restrict__ b,
         E* __restrict__ outs, E* __restrict__ cseq, float* __restrict__ hT,
-        float* __restrict__ cT, int t_lo, int t_hi, int B, int F) {
+        float* __restrict__ cT, int T, int B, int F) {
     using TL = Tile<H>;
     constexpr int D = TL::D, K = TL::K, G = TL::G, RPT = TL::RPT;
-    constexpr bool ENCODER = has_encoder(MODE);
-    static_assert(MODE == ENC2 || MODE == XP, "the other modes run lstm_f32.cuh in f32");
+    static_assert(MODE == ENC2, "the other modes run lstm_f32.cuh in f32");
     extern __shared__ __align__(16) float smem[];
     float* xh_s = smem;               // (K, BT): [x_t | h], rounded
     float* w_s = xh_s + K * BT;       // (KC, G): staged weight rows
-    float* we_s = w_s + KC * G;       // encoder: (F, D) W_enc, rounded
-    float* f_s = we_s + F * D;        // encoder: (F, BT) feats_t, rounded
+    float* we_s = w_s + KC * G;       // (F, D) W_enc, rounded
+    float* f_s = we_s + F * D;        // (F, BT) feats_t, rounded
 
     const int j = threadIdx.x % H, r0 = (threadIdx.x / H) * RPT;
     const int row0 = blockIdx.x * BT;
     const int nrows = min(BT, B - row0);
-    float bias[4] = {0.f, 0.f, 0.f, 0.f};
-    if constexpr (MODE != XP) {
+    float bias[4];
 #pragma unroll
-        for (int g = 0; g < 4; ++g) bias[g] = b[g * H + j];
-    }
-    float be = 0.f;
-    if constexpr (ENCODER) {
-        be = b_enc[j];
-        for (int i = threadIdx.x; i < F * D; i += NT) we_s[i] = to_cdt<E>(w_enc[i]);
-    }
+    for (int g = 0; g < 4; ++g) bias[g] = b[g * H + j];
+    const float be = b_enc[j];
+    for (int i = threadIdx.x; i < F * D; i += NT) we_s[i] = to_cdt<E>(w_enc[i]);
     float h[RPT], c[RPT];
 #pragma unroll
     for (int i = 0; i < RPT; ++i) {
@@ -364,21 +337,17 @@ __global__ void __launch_bounds__(NT) cell_forward(
         xh_s[(D + j) * BT + r] = to_cdt<E>(h[i]);
     }
 
-    for (int t = t_lo; t < t_hi; ++t) {
+    for (int t = 0; t < T; ++t) {
         const size_t base = (size_t)t * B + row0;
-        float acc[4][RPT], pre[4][RPT];
-        if constexpr (ENCODER) {
-            load_rows<E>(f_s, xin, base, F, nrows);
-            __syncthreads();
-            float x[RPT];
-            encode_rows<H>(x, f_s, we_s, be, F, r0, j);
-#pragma unroll
-            for (int i = 0; i < RPT; ++i) xh_s[j * BT + r0 + i] = to_cdt<E>(x[i]);
-        } else {
-            load_x_proj<H>(pre, xin, base, nrows, r0, j);
-        }
+        float acc[4][RPT];
+        load_rows<E>(f_s, feats, base, F, nrows);
         __syncthreads();
-        gate_sums<H, E, MODE>(acc, pre, xh_s, w_s, w_ih, w_hh, bias, r0, j);
+        float x[RPT];
+        encode_rows<H>(x, f_s, we_s, be, F, r0, j);
+#pragma unroll
+        for (int i = 0; i < RPT; ++i) xh_s[j * BT + r0 + i] = to_cdt<E>(x[i]);
+        __syncthreads();
+        gate_sums<H, E, MODE>(acc, xh_s, w_s, w_ih, w_hh, bias, r0, j);
 #pragma unroll
         for (int i = 0; i < RPT; ++i) {
             const int r = r0 + i;
@@ -728,9 +697,9 @@ __global__ void reduce_partials(const float* __restrict__ part, float* __restric
     }
 }
 
-inline size_t forward_smem(int H, int F, bool enc) {
-    return sizeof(float) * ((size_t)2 * H * BT + (size_t)KC * 4 * H +
-                            (enc ? (size_t)F * H + (size_t)F * BT : 0));
+inline size_t forward_smem(int H, int F) {
+    return sizeof(float) *
+           ((size_t)2 * H * BT + (size_t)KC * 4 * H + (size_t)F * H + (size_t)F * BT);
 }
 
 template <typename Kernel>
@@ -740,31 +709,20 @@ cudaError_t prepare(Kernel kernel, size_t smem) {
                                 (int)smem);
 }
 
-// Steps t_lo .. t_hi-1 of the forward: h0, c0 the state before step t_lo,
-// hT, cT the state after step t_hi-1
-template <int H, typename E, typename S, int MODE>
-cudaError_t run_forward_steps(const void* xin, const float* h0, const float* c0,
-                              const float* w_enc, const float* b_enc, const float* w_ih,
-                              const float* w_hh, const float* b, void* outs, void* cseq,
-                              float* hT, float* cT, int t_lo, int t_hi, int B, int F,
-                              cudaStream_t stream) {
-    auto kernel = cell_forward<H, E, S, MODE>;
-    const size_t smem = forward_smem(H, F, has_encoder(MODE));
-    cudaError_t err = prepare(kernel, smem);
-    if (err != cudaSuccess) return err;
-    kernel<<<(B + BT - 1) / BT, NT, smem, stream>>>(
-        static_cast<const S*>(xin), h0, c0, w_enc, b_enc, w_ih, w_hh, b,
-        static_cast<E*>(outs), static_cast<E*>(cseq), hT, cT, t_lo, t_hi, B, F);
-    return cudaGetLastError();
-}
-
-template <int H, typename E, typename S, int MODE>
-cudaError_t run_forward(const void* xin, const float* h0, const float* c0,
+// The FMA cell's forward over the whole sequence (mode ENC2)
+template <int H, typename E, int MODE>
+cudaError_t run_forward(const void* feats, const float* h0, const float* c0,
                         const float* w_enc, const float* b_enc, const float* w_ih,
                         const float* w_hh, const float* b, void* outs, void* cseq,
                         float* hT, float* cT, int T, int B, int F, cudaStream_t stream) {
-    return run_forward_steps<H, E, S, MODE>(xin, h0, c0, w_enc, b_enc, w_ih, w_hh, b, outs,
-                                            cseq, hT, cT, 0, T, B, F, stream);
+    auto kernel = cell_forward<H, E, MODE>;
+    const size_t smem = forward_smem(H, F);
+    cudaError_t err = prepare(kernel, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<(B + BT - 1) / BT, NT, smem, stream>>>(
+        static_cast<const E*>(feats), h0, c0, w_enc, b_enc, w_ih, w_hh, b,
+        static_cast<E*>(outs), static_cast<E*>(cseq), hT, cT, T, B, F);
+    return cudaGetLastError();
 }
 
 inline cudaError_t reduce(const float* part, float* out, int S, long long n,

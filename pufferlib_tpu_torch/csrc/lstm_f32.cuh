@@ -12,12 +12,14 @@
 // behind its encoder SGEMM and with dx under the relu mask. The archived
 // enc2's backward (csrc/lstm_archive.cu; the TPU kernel
 // archive/lstm_enc2._bwd) is enc5's with fused's two sums
-// (enc5_backward<H, true>). Mode XP's backward (xp_backward_steps: the
-// backward of lstm_scan, csrc/lstm_scan.cu, TPU kernel lstm.py's
-// _lstm_scan_bwd, and of the archived tm, csrc/lstm_archive.cu, TPU kernel
-// archive/lstm_tm._lstm_tm_bwd, one step a launch) is fused's with the
-// projection x_proj given: the pre-pass adds x_proj in place of the kept
-// slab, the loop's dgates are dx_proj, and there is no dx, W_ih or db.
+// (enc5_backward<H, true>). Mode XP (lstm_scan, csrc/lstm_scan.cu, TPU
+// kernels lstm.py's _lstm_fwd_impl and _lstm_scan_bwd; the archived tm,
+// csrc/lstm_archive.cu, TPU kernels archive/lstm_tm._fwd_impl_tm and
+// _lstm_tm_bwd, one step a launch) is fused's pair with the projection
+// x_proj given: the forward (xp_forward) is fused's loop with x_proj as
+// its slab and no SGEMM; in the backward (xp_backward_steps) the pre-pass
+// adds x_proj in place of the kept slab, the loop's dgates are dx_proj,
+// and there is no dx, W_ih or db.
 //
 // Bound: at T = 16, B = 8192, D = H = 128 the cat forward does 34.4 GFLOP
 // and its backward 103.1 (enc5 with F = 49: 36.0 and 106.4), against
@@ -25,10 +27,12 @@
 // and 1.539 ms; enc5 0.537 and 1.588). Cat's backward from the kept slab
 // needs 85.9 GFLOP and 0.27 GB more read: 1.282 ms; fused's function has
 // cat's bounds (0.513 and 1.539 ms; 1.282 from its kept slab). Mode XP's
-// backward does the recurrent product's 17.2 GFLOP three times (the gate
-// recompute, dh_prev, dW_hh) against 0.8 GB: 0.769 ms. At memory's
-// shape (T 8, B 512, F 1) enc5's bounds are 0.016 and 0.048 ms, and a
-// step of the loop's latency (a barrier, the cell math) sets the time.
+// forward does the recurrent product's 17.2 GFLOP once against 0.2-0.3 GB
+// (x_proj in, outs and cseq out): 0.256 ms; its backward does it three
+// times (the gate recompute, dh_prev, dW_hh) against 0.8 GB: 0.769 ms. At
+// memory's shape (T 8, B 512, F 1) enc5's bounds are 0.016 and 0.048 ms,
+// and a step of the loop's latency (a barrier, the cell math) sets the
+// time.
 //
 // Forward (cell_forward; enc5_forward runs the encoder first):
 // 0. enc5 only: the encoder xs = relu(feats @ W_enc + b_enc), one SGEMM
@@ -51,7 +55,10 @@
 //    keeps fused's two sums, as its FMA kernel did: h @ W_hh from zero,
 //    then the slab (x @ W_ih + b) added to it, so its forward is that
 //    kernel's bits too; the next step's slab is then read during the cell
-//    math and the exchange, not during the product;
+//    math and the exchange, not during the product. Mode XP's forward
+//    (xp_forward) is this TWO_SUMS loop alone, x_proj (f32 or bf16) its
+//    slab, over steps [t0, t1): the whole sequence, or tm's one step a
+//    launch, W_hh staged into shared memory by every launch;
 // Backward (cell_backward; enc5_backward recomputes the encoder first and
 // adds [dW_enc; db_enc] last), tc::backward's hoisted schedule on FMA:
 // 1. a pre-pass: acts = act([x | h_prev] @ [W_ih; W_hh] + b), one SGEMM
@@ -480,27 +487,29 @@ struct Loop {
     static_assert(FWD_SMEM <= (size_t)MAX_SMEM && BWD_SMEM <= (size_t)MAX_SMEM, "shared memory");
 };
 
-// v[g][i] = slab[t][row0 + r0 + i][g * H + u], zero past the batch edge
-template <int H, int RT>
-__device__ __forceinline__ void load_gates(float (&v)[4][RT], const float* __restrict__ slab,
+// v[g][i] = slab[t][row0 + r0 + i][g * H + u] in f32 (a bf16 slab widened,
+// which is exact), zero past the batch edge
+template <int H, int RT, typename S = float>
+__device__ __forceinline__ void load_gates(float (&v)[4][RT], const S* __restrict__ slab,
                                            int t, int B, int row0, int r0, int nrows, int u) {
 #pragma unroll
     for (int i = 0; i < RT; ++i) {
         const bool ok = r0 + i < nrows;
-        const float* p = slab + ((size_t)t * B + row0 + r0 + i) * 4 * H + u;
+        const S* p = slab + ((size_t)t * B + row0 + r0 + i) * 4 * H + u;
 #pragma unroll
-        for (int g = 0; g < 4; ++g) v[g][i] = ok ? p[g * H] : 0.f;
+        for (int g = 0; g < 4; ++g) v[g][i] = ok ? ld(p, (size_t)g * H) : 0.f;
     }
 }
 
 // xw: (T*B, 4H) f32, x_t @ W_ih of every step (the sums over k < D),
-// which each step's sums continue over h, then b; TWO_SUMS: x_t @ W_ih + b,
-// added to h @ W_hh summed from zero (b unused). A null cseq skips its
-// store. The grid is whole clusters of CS blocks along x, cluster
-// blockIdx.x / CS taking rows R * (blockIdx.x / CS) onwards.
-template <int H, int U, int RT, bool TWO_SUMS = false>
+// which each step's sums continue over h, then b; TWO_SUMS: x_t @ W_ih + b
+// (mode XP: x_proj, in S, f32 or bf16), added to h @ W_hh summed from zero
+// (b unused). A null cseq skips its store. The grid is whole clusters of
+// CS blocks along x, cluster blockIdx.x / CS taking rows R * (blockIdx.x /
+// CS) onwards.
+template <int H, int U, int RT, bool TWO_SUMS = false, typename S = float>
 __global__ void __launch_bounds__(LTHREADS, 1)
-    forward_loop(const float* __restrict__ xw, const float* __restrict__ h0,
+    forward_loop(const S* __restrict__ xw, const float* __restrict__ h0,
                  const float* __restrict__ c0, const float* __restrict__ w_hh,
                  const float* __restrict__ b, float* __restrict__ outs, float* __restrict__ cseq,
                  float* __restrict__ hT, float* __restrict__ cT, int T, int B) {
@@ -530,7 +539,7 @@ __global__ void __launch_bounds__(LTHREADS, 1)
 #pragma unroll
     for (int i = 0; i < RT; ++i)
         c[i] = r0 + i < nrows ? c0[(size_t)(row0 + r0 + i) * H + u] : 0.f;
-    load_gates<H, RT>(nx, xw, 0, B, row0, r0, nrows, u);
+    load_gates<H, RT, S>(nx, xw, 0, B, row0, r0, nrows, u);
     // every block of the cluster runs, with its h0 staged, before any
     // block writes into another's shared memory
     cluster.sync();
@@ -540,7 +549,7 @@ __global__ void __launch_bounds__(LTHREADS, 1)
         for (int g = 0; g < 4; ++g)
 #pragma unroll
             for (int i = 0; i < RT; ++i) acc[g][i] = TWO_SUMS ? 0.f : nx[g][i];
-        if (!TWO_SUMS && t + 1 < T) load_gates<H, RT>(nx, xw, t + 1, B, row0, r0, nrows, u);
+        if (!TWO_SUMS && t + 1 < T) load_gates<H, RT, S>(nx, xw, t + 1, B, row0, r0, nrows, u);
         const float* hc = hb + (t & 1) * L::FWD_H + r0 * HP;
         // the sums over k < H continue the slab's over k < D (TWO_SUMS:
         // start from zero), k in order
@@ -570,7 +579,7 @@ __global__ void __launch_bounds__(LTHREADS, 1)
                 acc[g][i] = TWO_SUMS ? nx[g][i] + acc[g][i] : acc[g][i] + bias[g];
         // TWO_SUMS: the next step's slab, read during the cell math, the
         // exchange and the barrier
-        if (TWO_SUMS && t + 1 < T) load_gates<H, RT>(nx, xw, t + 1, B, row0, r0, nrows, u);
+        if (TWO_SUMS && t + 1 < T) load_gates<H, RT, S>(nx, xw, t + 1, B, row0, r0, nrows, u);
 #pragma unroll
         for (int i = 0; i < RT; ++i) {
             const float ig = sigm(acc[0][i]);
@@ -854,13 +863,14 @@ inline double loop_cycles(int H, LoopConfig c, long long B, int maxc, int sms) {
 
 // The tiling of the forward or backward loop at B rows: BIG or SMALL, the
 // one of fewer modelled cycles, with the clusters it may hold at once
-// (cudaOccupancyMaxActiveClusters, kept per kernel).
+// (cudaOccupancyMaxActiveClusters, kept per kernel: the forward loop's
+// instance of TWO_SUMS and slab type S).
 struct Plan {
     LoopConfig config;
     int max_clusters;
     bool big;
 };
-template <int H, bool TWO_SUMS = false>
+template <int H, bool TWO_SUMS = false, typename S = float>
 Plan plan(long long B, bool backward) {
     using C = LoopConfigs<H>;
     using Big = Loop<H, C::BIG_U, C::BIG_RT>;
@@ -870,13 +880,13 @@ Plan plan(long long B, bool backward) {
     if (m[1] < 0)
         m[1] = backward ? max_active_clusters(backward_loop<H, C::BIG_U, C::BIG_RT>, Big::CS,
                                               Big::BWD_SMEM)
-                        : max_active_clusters(forward_loop<H, C::BIG_U, C::BIG_RT, TWO_SUMS>,
+                        : max_active_clusters(forward_loop<H, C::BIG_U, C::BIG_RT, TWO_SUMS, S>,
                                               Big::CS, Big::FWD_SMEM);
     if (m[0] < 0)
         m[0] = backward ? max_active_clusters(backward_loop<H, C::SMALL_U, C::SMALL_RT>,
                                               Small::CS, Small::BWD_SMEM)
                         : max_active_clusters(
-                              forward_loop<H, C::SMALL_U, C::SMALL_RT, TWO_SUMS>, Small::CS,
+                              forward_loop<H, C::SMALL_U, C::SMALL_RT, TWO_SUMS, S>, Small::CS,
                               Small::FWD_SMEM);
     const int sms = sm_count();
     const LoopConfig big{C::BIG_U, C::BIG_RT}, small{C::SMALL_U, C::SMALL_RT};
@@ -898,14 +908,28 @@ cudaError_t launch_loop(Kernel kernel, int cs, long long tiles, size_t smem,
     return cudaGetLastError();
 }
 
-template <int H, int U, int RT, bool TWO_SUMS>
-cudaError_t run_forward_loop(const float* xw, const float* h0, const float* c0,
+template <int H, int U, int RT, bool TWO_SUMS, typename S>
+cudaError_t run_forward_loop(const S* xw, const float* h0, const float* c0,
                              const float* w_hh, const float* b, float* outs, float* cseq,
                              float* hT, float* cT, int T, int B, cudaStream_t stream) {
     using L = Loop<H, U, RT>;
     const long long tiles = (B + L::R - 1) / L::R;
-    return launch_loop(forward_loop<H, U, RT, TWO_SUMS>, L::CS, tiles, L::FWD_SMEM, stream, xw,
-                       h0, c0, w_hh, b, outs, cseq, hT, cT, T, B);
+    return launch_loop(forward_loop<H, U, RT, TWO_SUMS, S>, L::CS, tiles, L::FWD_SMEM, stream,
+                       xw, h0, c0, w_hh, b, outs, cseq, hT, cT, T, B);
+}
+
+// The forward loop over T steps of B rows at the tiling plan() picks for B
+template <int H, bool TWO_SUMS, typename S = float>
+cudaError_t run_planned_forward_loop(const S* xw, const float* h0, const float* c0,
+                                     const float* w_hh, const float* b, float* outs,
+                                     float* cseq, float* hT, float* cT, int T, int B,
+                                     cudaStream_t stream) {
+    using C = LoopConfigs<H>;
+    return plan<H, TWO_SUMS, S>(B, false).big
+        ? run_forward_loop<H, C::BIG_U, C::BIG_RT, TWO_SUMS>(xw, h0, c0, w_hh, b, outs, cseq, hT,
+                                                             cT, T, B, stream)
+        : run_forward_loop<H, C::SMALL_U, C::SMALL_RT, TWO_SUMS>(xw, h0, c0, w_hh, b, outs, cseq,
+                                                                 hT, cT, T, B, stream);
 }
 
 template <int H, int U, int RT>
@@ -972,12 +996,8 @@ cudaError_t cell_forward(const float* x, const float* h0, const float* c0, const
     err = gemm<false>(Mat{x, D}, Mat{w_ih, G}, EpiStore{xw, G, TWO_SUMS ? b : nullptr}, M, G, D,
                       1, w_ih, stream);
     if (err != cudaSuccess || phases == 1) return err;
-    using C = LoopConfigs<H>;
-    if (plan<H, TWO_SUMS>(B, false).big)
-        return run_forward_loop<H, C::BIG_U, C::BIG_RT, TWO_SUMS>(xw, h0, c0, w_hh, b, outs,
-                                                                  cseq, hT, cT, T, B, stream);
-    return run_forward_loop<H, C::SMALL_U, C::SMALL_RT, TWO_SUMS>(xw, h0, c0, w_hh, b, outs,
-                                                                  cseq, hT, cT, T, B, stream);
+    return run_planned_forward_loop<H, TWO_SUMS>(xw, h0, c0, w_hh, b, outs, cseq, hT, cT, T, B,
+                                                 stream);
 }
 
 // feats (T, B, F), h0, c0 (B, H), w_enc (F, D), b_enc (D,), w_ih (D, 4H),
@@ -1142,6 +1162,27 @@ cudaError_t enc5_backward(const float* feats, const float* h0, const float* c0,
                           F + 1, D, M, splits_e, w_ih, stream)) != cudaSuccess)
         return err;
     return reduce(dwe_part, dwe, splits_e, (long long)(F + 1) * D, stream);
+}
+
+// Mode XP's forward (lstm_scan, csrc/lstm_scan.cu; the archived tm,
+// csrc/lstm_archive.cu), whose gates are x_proj_t + h @ W_hh: the two-sums
+// forward loop (fused's) with x_proj as its slab, so no projection SGEMM,
+// no scratch and no b. x_proj (T, B, 4H) in S (f32 or bf16, widened
+// exactly as the loop reads it), h0, c0 (B, H), w_hh (H, 4H), f32. Runs
+// steps t0 .. t1 - 1 from h0, c0, the state before step t0, to hT, cT,
+// the state after step t1 - 1 (the whole forward: [0, T); tm: one step a
+// call), writing those rows of outs and, unless it is null, of cseq (T,
+// B, H) f32. Each sum is h @ W_hh from zero, k in order, then x_proj_t
+// added: the FMA cell's order, so its bits.
+template <int H, typename S>
+cudaError_t xp_forward(const S* x_proj, const float* h0, const float* c0, const float* w_hh,
+                       float* outs, float* cseq, float* hT, float* cT, int t0, int t1, int T,
+                       int B, cudaStream_t stream) {
+    if (t0 < 0 || t0 >= t1 || t1 > T) return cudaErrorInvalidValue;
+    const size_t row = (size_t)t0 * B;
+    return run_planned_forward_loop<H, true, S>(x_proj + row * 4 * H, h0, c0, w_hh, nullptr,
+                                                outs + row * H, cseq ? cseq + row * H : nullptr,
+                                                hT, cT, t1 - t0, B, stream);
 }
 
 constexpr int XP_BACKWARD_PHASES = 3;  // pre-pass, loop, dW_hh

@@ -49,11 +49,14 @@
 //   width D is free (a multiple of 8, up to what a GEMM block's shared
 //   memory holds).
 // * f32 (exact: no TF32, the tensor cores have no exact f32 product),
-//   D == H. lstm_scan's forward runs csrc/lstm_common.cuh's cell kernel
-//   on FMA in mode XP (a block of 32 rows streams W_hh from L2 each step,
-//   x_proj_t read into registers before the recurrent product and added
-//   after it); its scratch pointer is null. lstm_scan's backward runs
-//   csrc/lstm_f32.cuh's mode XP backward (xp_backward_steps): every
+//   D == H. lstm_scan's forward runs csrc/lstm_f32.cuh's mode XP forward
+//   (xp_forward): lstm_scan_fused's two-sums loop on thread block
+//   clusters with x_proj (f32 or bf16, widened exactly) as its slab, no
+//   SGEMM: W_hh on chip for all T steps, h through distributed shared
+//   memory, each step's h @ W_hh summed from zero and x_proj_t added after
+//   it (the order of the FMA cell it replaced, so its bits); its scratch
+//   pointer is null. lstm_scan's backward runs csrc/lstm_f32.cuh's mode
+//   XP backward (xp_backward_steps): every
 //   step's gates at once as an FMA SGEMM, h_prev @ W_hh from zero with
 //   x_proj added in its epilogue (the forward's sums) and the activations
 //   written into the f32 dgates' storage (dx_proj, or with bf16 x_proj
@@ -81,9 +84,8 @@
 
 namespace {
 
-// lstm_scan: bf16 on lstm_tc.cuh's mode XP; f32, the forward on
-// lstm_common.cuh's FMA cell, the backward on lstm_f32.cuh's; x_proj in S
-// (bf16 when xp_bf16, else f32)
+// lstm_scan: bf16 on lstm_tc.cuh's mode XP, f32 on lstm_f32.cuh's; x_proj
+// in S (bf16 when xp_bf16, else f32)
 template <int H, typename E>
 struct ScanForward {
     template <typename S>
@@ -97,9 +99,9 @@ struct ScanForward {
                 static_cast<E*>(cseq), hT, cT, static_cast<E*>(w16), T, B, phases, stream);
         } else {
             if (phases != lstm::tc::XP_FORWARD_PHASES) return cudaErrorInvalidValue;
-            return lstm::run_forward<H, E, S, lstm::XP>(x_proj, h0, c0, nullptr, nullptr,
-                                                        nullptr, w_hh, nullptr, outs, cseq,
-                                                        hT, cT, T, B, 0, stream);
+            return lstm::f32::xp_forward<H, S>(static_cast<const S*>(x_proj), h0, c0, w_hh,
+                                               static_cast<E*>(outs), static_cast<E*>(cseq), hT,
+                                               cT, 0, T, T, B, stream);
         }
     }
     template <typename... Args>

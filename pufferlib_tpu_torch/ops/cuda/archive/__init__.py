@@ -24,9 +24,9 @@ and its backward computes enc5's function, the four backwards run
 csrc/lstm_f32.cuh (design 'cluster'): enc5's f32 backward, enc3's,
 enc4's and enc6's as lstm_enc's enc5 runs it (so their gradients are
 enc5's bit for bit), enc2's with lstm_scan_fused's two sums (the
-projection x @ W_ih + b an SGEMM of its own), and so does tm's f32 step
-backward: lstm_scan's f32 backward one step a launch, its gradients
-lstm_scan's bit for bit. enc2's f32 forward and tm's f32 forward step run
+projection x @ W_ih + b an SGEMM of its own), and so do tm's f32 step
+kernels: lstm_scan's f32 forward and backward one step a launch, its
+outputs and gradients lstm_scan's bit for bit. enc2's f32 forward runs
 lstm_common.cuh's FMA cell kernel ('fma'). enc3, enc4 and
 enc6 take the shapes of enc5's f32 kernels
 (D == H, at most 128 features, hidden sizes 32, 64 and 128) in both
@@ -64,17 +64,18 @@ TC_FUNCTIONS = ('lstm_enc2_forward', 'lstm_enc2_backward',
     'lstm_enc3_backward', 'lstm_enc4_backward', 'lstm_enc6_backward',
     'lstm_tm_step_forward', 'lstm_tm_step_backward')
 # the C functions that run csrc/lstm_f32.cuh in f32: the five backwards
+# and tm's forward step
 F32_FUNCTIONS = ('lstm_enc2_backward', 'lstm_enc3_backward',
-    'lstm_enc4_backward', 'lstm_enc6_backward', 'lstm_tm_step_backward')
+    'lstm_enc4_backward', 'lstm_enc6_backward', 'lstm_tm_step_forward',
+    'lstm_tm_step_backward')
 
 
 def design(fn, cdt):
     """The design the C function `fn` of KERNEL runs in cdt: 'tc'
     (lstm_tc.cuh's tensor-core kernels: TC_FUNCTIONS in bf16), 'cluster'
     (csrc/lstm_f32.cuh: F32_FUNCTIONS in f32, enc5's backward, enc2's with
-    two sums, tm's lstm_scan's mode XP backward) or 'fma'
-    (lstm_common.cuh's FMA cell kernel: enc2's forward and tm's forward
-    step in f32)."""
+    two sums, tm's lstm_scan's mode XP forward and backward) or 'fma'
+    (lstm_common.cuh's FMA cell kernel: enc2's forward in f32)."""
     if fn not in KERNEL.functions:
         raise ValueError(f'{fn} is not a C function of {KERNEL.source}')
     if cdt == torch.bfloat16:

@@ -24,16 +24,17 @@ shared memory by every launch, h @ W_hh and dg_t @ W_hh^T on mma.sync,
 and, after step 0, dW_hh by the ring split-K over all T*B rows. The carry
 is what lstm_scan's loops keep in registers (c and dh/dc in f32, h in f32
 rounded as it enters the product), so the outputs and gradients equal
-lstm_scan's bf16 kernels' bit for bit. In f32, the exact test mode, a
-forward step runs lstm_common.cuh's FMA cell, and the backward runs
-lstm_scan's f32 backward (csrc/lstm_f32.cuh, design 'cluster') one step a
-launch: the first step (t = T - 1) runs its pre-pass over all T*B rows,
-since the gate recompute from x_proj and h_prev needs no carry, and
-transposes W_hh into the scratch; each step runs the cluster reverse loop
-over its rows, staging W_hh^T's slices into shared memory; the last (t =
-0) rounds the dgates into a bf16 dx_proj and runs dW_hh, the split-K
-SGEMM with lstm_scan's splits. Its gradients are lstm_scan's f32 ones bit
-for bit.
+lstm_scan's bf16 kernels' bit for bit. In f32, the exact test mode, both
+run lstm_scan's f32 kernels (csrc/lstm_f32.cuh, design 'cluster') one
+step a launch. A forward step is lstm_scan's cluster loop at one step on
+step t's rows, W_hh staged into shared memory by every launch, the f32 h
+and c carried exactly. In the backward the first step (t = T - 1) runs
+its pre-pass over all T*B rows, since the gate recompute from x_proj and
+h_prev needs no carry, and transposes W_hh into the scratch; each step
+runs the cluster reverse loop over its rows, staging W_hh^T's slices into
+shared memory; the last (t = 0) rounds the dgates into a bf16 dx_proj and
+runs dW_hh, the split-K SGEMM with lstm_scan's splits. Its outputs and
+gradients are lstm_scan's f32 ones bit for bit.
 
 x_proj (T, B, 4H) is float32 or bfloat16 whatever the compute dtype cdt.
 """

@@ -34,17 +34,19 @@ neither writes a slab (SCAN_FORWARD_PHASES, SCAN_BACKWARD_PHASES);
 lstm_scan_fused (mode FUSED) the projections as GEMMs over all T*B rows
 with f32 scratch slabs, at any input width D that is a multiple of 8 up
 to lstm_common.tc_max_input(H). In f32 (exact: every product an f32 FMA,
-no TF32), which takes D == H, lstm_scan's forward runs the FMA cell
-kernel of lstm_common.cuh (design 'fma'), its backward csrc/lstm_f32.cuh
-(design 'cluster'; SCAN_F32_BACKWARD_PHASES): every step's gates at once
-as an FMA SGEMM, h_prev @ W_hh from zero with x_proj added in its
-epilogue, the activations written where the f32 dgates go (dx_proj, or
-with bf16 x_proj an f32 scratch rounded into dx_proj after the loop),
-then a reverse loop on thread block clusters that writes the dgates over
-them, then dW_hh as a split-K SGEMM; its scratch is W_hh^T and the
-split-K's partials, no slab. lstm_scan_fused runs csrc/lstm_f32.cuh
-(design 'cluster') in both directions, lstm_scan_cat's f32 design with
-fused's two sums:
+no TF32), which takes D == H, both pairs run csrc/lstm_f32.cuh (design
+'cluster'). lstm_scan's forward is lstm_scan_fused's forward loop with
+x_proj (f32 or bf16) as its slab and no SGEMM: W_hh on chip for all T
+steps in a thread block cluster, each step's h @ W_hh summed from zero
+and x_proj_t added after it (the order of the FMA cell it replaced, so
+its bits), no scratch. Its backward (SCAN_F32_BACKWARD_PHASES) computes
+every step's gates at once as an FMA SGEMM, h_prev @ W_hh from zero with
+x_proj added in its epilogue, the activations written where the f32
+dgates go (dx_proj, or with bf16 x_proj an f32 scratch rounded into
+dx_proj after the loop), then a reverse loop on thread block clusters
+that writes the dgates over them, then dW_hh as a split-K SGEMM; its
+scratch is W_hh^T and the split-K's partials, no slab. lstm_scan_fused's
+pair is lstm_scan_cat's f32 design with fused's two sums:
 xw = x @ W_ih + b as one FMA SGEMM over all T*B rows, the bias in its
 epilogue, then time loops that keep W_hh on chip for all T steps in a
 thread block cluster, each step's h @ W_hh summed from zero and the slab
@@ -94,25 +96,19 @@ KERNEL = CudaKernel('lstm_scan.cu', {
     'lstm_fused_f32_usage': [I, P],
     'lstm_fused_f32_plan': [I, I, P],
 })
-# the C functions that launch kernels, and those of them that run
-# csrc/lstm_f32.cuh in f32
-LAUNCHES = ('lstm_scan_forward', 'lstm_scan_backward', 'lstm_fused_forward',
-    'lstm_fused_backward')
-F32_FUNCTIONS = ('lstm_scan_backward', 'lstm_fused_forward',
-    'lstm_fused_backward')
+# the C functions that launch kernels, all of which run csrc/lstm_f32.cuh
+# in f32
+F32_FUNCTIONS = ('lstm_scan_forward', 'lstm_scan_backward',
+    'lstm_fused_forward', 'lstm_fused_backward')
 
 
 def design(fn, cdt):
     """The design the C function `fn` of KERNEL runs in cdt: 'tc'
-    (csrc/lstm_tc.cuh's tensor-core kernels, every one in bf16), 'cluster'
-    (csrc/lstm_f32.cuh: lstm_scan_fused's pair and lstm_scan's backward
-    in f32) or 'fma' (lstm_common.cuh's cell kernel, lstm_scan's forward
-    in f32)."""
-    if fn not in LAUNCHES:
+    (csrc/lstm_tc.cuh's tensor-core kernels, every one in bf16) or
+    'cluster' (csrc/lstm_f32.cuh: every one in f32)."""
+    if fn not in F32_FUNCTIONS:
         raise ValueError(f'{fn} is not a launch of {KERNEL.source}')
-    if cdt == torch.bfloat16:
-        return 'tc'
-    return 'cluster' if fn in F32_FUNCTIONS else 'fma'
+    return 'tc' if cdt == torch.bfloat16 else 'cluster'
 
 
 def f32_usage(H):

@@ -410,16 +410,16 @@ def test_archive_kernel_is_built_and_counted_with_the_others():
 
 
 # every C function of the archive that launches a kernel, and the design it
-# runs in (bf16, f32): the five f32 backwards on csrc/lstm_f32.cuh (tm's is
-# lstm_scan's one step a launch), enc2's f32 forward and tm's f32 forward
-# step on FMA, every bf16 one on the tensor cores
+# runs in (bf16, f32): the five f32 backwards and tm's f32 forward step on
+# csrc/lstm_f32.cuh (tm's lstm_scan's one step a launch), enc2's f32
+# forward on FMA, every bf16 one on the tensor cores
 ARCHIVE_DESIGNS = {
     'lstm_enc2_forward': ('tc', 'fma'),
     'lstm_enc2_backward': ('tc', 'cluster'),
     'lstm_enc3_backward': ('tc', 'cluster'),
     'lstm_enc4_backward': ('tc', 'cluster'),
     'lstm_enc6_backward': ('tc', 'cluster'),
-    'lstm_tm_step_forward': ('tc', 'fma'),
+    'lstm_tm_step_forward': ('tc', 'cluster'),
     'lstm_tm_step_backward': ('tc', 'cluster'),
 }
 
@@ -597,6 +597,39 @@ def test_xp_f32_backward_at_a_ragged_batch_matches_jax_reference(kind, seq):
         jnp.float32), *args)
     want = vjp(tuple(jnp.asarray(c) for c in cot))
     assert_xp_grads(got, want, seq, f'{kind} B={B} x_proj {seq}')
+
+
+# mode XP's forward with its cell sequence: the JAX Pallas forward, and
+# the port's plain forward
+XP_FWD = {
+    'scan': (lambda *a: jax_lstm._lstm_fwd_impl(*a, with_cseq=True),
+        lstm_scan.lstm_scan_reference),
+    'tm': (jax_lstm_tm._fwd_impl_tm, lstm_tm.lstm_tm_reference),
+}
+
+
+@pytest.mark.parametrize('seq', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('kind', sorted(XP_FWD))
+def test_xp_f32_forward_matches_jax_fwd(kind, seq):
+    """lstm_scan's and tm's plain f32 forwards (what their kernels, mode
+    XP's forward on csrc/lstm_f32.cuh, are held to on the card) against
+    the JAX forward with its cell sequence, `_lstm_fwd_impl` /
+    `_fwd_impl_tm`, its Pallas kernel in interpret mode, x_proj in f32 and
+    in bf16 under f32 compute, at T 5, B 16, H 32: outs, hT, cT and cseq
+    within 1e-5 of max(1, max |reference|) (the same f32 products summed
+    in another order)."""
+    T, B, H = 5, 16, 32
+    arrays, _, tensors = xp_bwd_case(37, seq, T, B, H)
+    jax_fwd, plain = XP_FWD[kind]
+    args = [jnp.asarray(arrays[0]).astype(JD[seq])] + [
+        jnp.asarray(a) for a in arrays[1:]]
+    with pltpu.force_tpu_interpret_mode():
+        want = jax_fwd(*args, jnp.float32)
+    got = plain(*tensors, torch.float32)
+    assert len(got) == len(want) == 4
+    for name, a, w in zip(('outs', 'hT', 'cT', 'cseq'), got, want):
+        assert a.dtype == torch.float32 and tuple(a.shape) == tuple(w.shape)
+        assert_close(a, w, 1e-5, True, f'{kind} x_proj {seq} {name}')
 
 
 @pytest.mark.parametrize('seq', ['float32', 'bfloat16'])

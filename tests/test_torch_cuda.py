@@ -18,10 +18,11 @@ lstm_scan_fused and the enc5 pair run their tensor-core kernels in bf16
 (also at input widths other than the hidden size, and enc5 at feature
 widths up to the encoder's limit); in f32 the enc5, cat and fused pairs
 and every backward run csrc/lstm_f32.cuh's cluster kernels (enc4's and
-enc6's equal to enc5's bit for bit), lstm_scan's and tm's forwards the
-FMA cell; the archived tm's step kernels run lstm_scan's loops one step a
-launch (bf16: both ways; f32: the backward) and must equal lstm_scan's
-kernels bit for bit in both dtypes.
+enc6's equal to enc5's bit for bit), and so do lstm_scan's and tm's
+forwards (the two-sums loop on x_proj); the archived enc2's forward runs
+the FMA cell. The archived tm's step kernels run lstm_scan's loops one
+step a launch (both ways, both dtypes) and must equal lstm_scan's kernels
+bit for bit.
 """
 import importlib
 
@@ -1556,8 +1557,8 @@ def test_archived_tm_bf16_is_deterministic(cuda, T, B, H):
 
 def test_archived_tm_runs_the_tensor_core_path_in_bf16(cuda):
     """archive.design and TC_FUNCTIONS name tm's step kernels in bf16
-    ('tc'; in f32 the forward step 'fma', the step backward 'cluster':
-    lstm_scan's f32 backward one step a launch). The bf16 C functions need
+    ('tc'; in f32 both 'cluster': lstm_scan's f32 forward and backward one
+    step a launch). The bf16 C functions need
     their scratch (W_hh, and in the backward h0, rounded to bf16), the f32
     backward its W_hh^T: handed none, they refuse before any launch; the
     f32 forward refuses scratch it does not use. The backward's phases 1
@@ -1569,7 +1570,7 @@ def test_archived_tm_runs_the_tensor_core_path_in_bf16(cuda):
     for cdt in (torch.bfloat16, torch.float32):
         bf16 = cdt == torch.bfloat16
         assert archive.design('lstm_tm_step_forward', cdt) == (
-            'tc' if bf16 else 'fma')
+            'tc' if bf16 else 'cluster')
         assert archive.design('lstm_tm_step_backward', cdt) == (
             'tc' if bf16 else 'cluster')
         assert set(scratch) <= set(archive.TC_FUNCTIONS)
@@ -1680,9 +1681,10 @@ def test_xp_f32_backward_repeats_bit_for_bit(cuda, kind, T, B, H, xp_dtype):
 @pytest.mark.parametrize('T,B,H', TM_SCAN_SHAPES)
 @pytest.mark.parametrize('xp_dtype', [torch.bfloat16, torch.float32])
 def test_archived_tm_f32_is_lstm_scan_bit_for_bit(cuda, T, B, H, xp_dtype):
-    """tm's f32 kernels (the FMA forward one step a launch; lstm_scan's
-    f32 backward one step a launch, the pre-pass with the first step and
-    dW_hh with the last, the dh/dc carries in f32 buffers) on lstm_scan's
+    """tm's f32 kernels (lstm_scan's f32 forward, the cluster loop, one
+    step a launch, the h/c carries in f32 buffers; lstm_scan's f32
+    backward one step a launch, the pre-pass with the first step and dW_hh
+    with the last, the dh/dc carries in f32 buffers) on lstm_scan's
     inputs: every output and gradient equal to lstm_scan's f32 kernels'
     bit for bit, x_proj in f32 and in bf16."""
     kinds = _lstm_kinds()
@@ -1700,6 +1702,83 @@ def test_archived_tm_f32_is_lstm_scan_bit_for_bit(cuda, T, B, H, xp_dtype):
     torch.cuda.synchronize()
     for a, w in zip(*runs):
         assert a.dtype == w.dtype and torch.equal(a, w)
+
+
+# mode XP's f32 forward (csrc/lstm_f32.cuh xp_forward): lstm_scan's, and
+# the archived tm's one step a launch, at each hidden size and both loop
+# tilings: the bench's batch, a ragged one, a short last tile, one row
+XP_F32_FORWARD_SHAPES = [(T, B, H) for H in (32, 64, 128)
+    for T, B in ((16, 8192), (16, 1000), (5, 33), (3, 1))]
+
+
+@pytest.mark.parametrize('kind', XP_KINDS)
+@pytest.mark.parametrize('T,B,H', XP_F32_FORWARD_SHAPES)
+@pytest.mark.parametrize('xp_dtype', [torch.float32, torch.bfloat16])
+def test_xp_f32_forward_matches_plain(cuda, kind, T, B, H, xp_dtype):
+    """lstm_scan's and tm's f32 forwards on the cluster design against
+    their plain versions (outs, hT, cT, cseq within LSTM_TOL of f32: the
+    same products summed in another order), x_proj in f32 and in bf16,
+    one launch a call (tm: T); lstm_scan's forward handed no cseq
+    (save_cseq off) gives the same outs, hT and cT bit for bit."""
+    from pufferlib_tpu_torch.ops.cuda import archive, lstm_scan
+    assert lstm_scan.design('lstm_scan_forward', torch.float32) == \
+        archive.design('lstm_tm_step_forward', torch.float32) == 'cluster'
+    fwd, _, fwd_plain, _, fns = _lstm_kinds()[kind]
+    cdt = torch.float32
+    args = _lstm_case(kind, T, B, H, 49, cdt, cuda, xp_dtype)
+    before = _launches()
+    with torch.no_grad():
+        got = fwd(*args, cdt)
+        want = fwd_plain(*args, cdt)
+    torch.cuda.synchronize()
+    after = _launches()
+    assert all(after[fn] == n + (fn == fns[0]) * _steps(kind, T)
+        for fn, n in before.items())
+    for a, w in zip(got, want):
+        assert a.dtype == w.dtype == cdt and a.shape == w.shape
+        scale = max(1.0, w.abs().max().item())
+        torch.testing.assert_close(a, w, rtol=0,
+            atol=LSTM_TOL[cdt] * scale)
+    if kind == 'scan':
+        with torch.no_grad():
+            primal = fwd(*args, cdt, False)
+        torch.cuda.synchronize()
+        assert primal[3] is None
+        for a, w in zip(primal[:3], got[:3]):
+            assert torch.equal(a, w)
+
+
+@pytest.mark.parametrize('kind', XP_KINDS)
+@pytest.mark.parametrize('T,B,H', [(16, 1000, 128), (5, 33, 64), (3, 1, 32),
+    (2, 8192, 128)])
+@pytest.mark.parametrize('xp_dtype', [torch.float32, torch.bfloat16])
+def test_xp_f32_forward_writes_only_its_buffers(cuda, monkeypatch, kind, T,
+        B, H, xp_dtype):
+    """Every buffer of an f32 call of lstm_scan or tm between guards
+    (_check_f32_guards): x_proj, outs, cseq, hT, cT (tm: its two carry
+    pairs) and the backward's, at ragged batches, one row and the bench's
+    batch."""
+    _check_f32_guards(cuda, monkeypatch, kind, T, B, H, xp_dtype=xp_dtype)
+
+
+@pytest.mark.parametrize('kind', XP_KINDS)
+@pytest.mark.parametrize('T,B,H,xp_dtype', [(16, 8192, 128, torch.float32),
+    (16, 8192, 128, torch.bfloat16), (16, 1000, 128, torch.float32),
+    (16, 1000, 64, torch.bfloat16), (5, 65, 32, torch.float32)])
+def test_xp_f32_forward_repeats_bit_for_bit(cuda, kind, T, B, H, xp_dtype):
+    """The forward loop's clusters exchange h through distributed shared
+    memory behind a cluster barrier each step (tm: one step a launch, the
+    carries in device buffers): twenty forwards on the same inputs are
+    equal bit for bit."""
+    fwd = _lstm_kinds()[kind][0]
+    cdt = torch.float32
+    args = _lstm_case(kind, T, B, H, 49, cdt, cuda, xp_dtype)
+    with torch.no_grad():
+        runs = [fwd(*args, cdt) for _ in range(20)]
+    torch.cuda.synchronize()
+    for later in runs[1:]:
+        for a, w in zip(later, runs[0]):
+            assert torch.equal(a, w)
 
 
 def _check_pair_and_primal(cuda, kind, T, B, H, cdt):

@@ -898,16 +898,16 @@ def test_fused_f32_design():
     x @ W_ih + b slab in the bf16 slab's place) and lstm_fused_backward's
     30 (the activations and transposed weights in the P slab's place, the
     slab in the bf16 scratch's); the bf16 ones run the tensor cores
-    ('tc'); lstm_scan's f32 backward runs lstm_f32.cuh too ('cluster',
-    with its 24 arguments: W_hh^T in the bf16 scratch's place), its f32
-    forward keeps the FMA cell ('fma'). The reach is the FMA cell's it
-    replaced: D == H in 32, 64, 128 in f32 (anything else refused before a
-    launch), input widths that are multiples of 8 in bf16."""
+    ('tc'); lstm_scan's f32 pair runs lstm_f32.cuh too ('cluster': its
+    forward with its 16 arguments, the scratch null; its backward with its
+    24, W_hh^T in the bf16 scratch's place). The reach is the FMA cell's
+    it replaced: D == H in 32, 64, 128 in f32 (anything else refused
+    before a launch), input widths that are multiples of 8 in bf16."""
     for fn in ('lstm_fused_forward', 'lstm_fused_backward',
             'lstm_scan_backward'):
         assert lstm_scan.design(fn, torch.float32) == 'cluster'
         assert lstm_scan.design(fn, torch.bfloat16) == 'tc'
-    assert lstm_scan.design('lstm_scan_forward', torch.float32) == 'fma'
+    assert lstm_scan.design('lstm_scan_forward', torch.float32) == 'cluster'
     assert lstm_scan.design('lstm_scan_forward', torch.bfloat16) == 'tc'
     assert len(lstm_scan.KERNEL.functions['lstm_scan_forward']) == 16
     assert len(lstm_scan.KERNEL.functions['lstm_scan_backward']) == 24
@@ -1163,6 +1163,131 @@ def test_f32_fma_backward_is_gone():
     assert '__restrict__' in params['w_hh_t']
     for cu in ('lstm_scan.cu', 'lstm_archive.cu'):
         assert 'f32::xp_backward_steps<H, S>' in source(cu), cu
+
+
+def xp_f32_forward_schedule(x_proj, h0, c0, w_hh, rows, one_step=False):
+    """What the f32 forward of lstm_scan (csrc/lstm_f32.cuh xp_forward:
+    fused's two-sums cluster loop with x_proj as its slab) computes, in
+    its order, in plain torch: the batch in tiles of `rows` rows, a
+    cluster's (the last one short at a ragged B), each tile walking the
+    steps with its own h and c; a step's h @ W_hh summed from zero, then
+    x_proj_t (f32, or bf16 widened) added to it, then the cell. one_step:
+    the archived tm's f32 forward, one launch a step over every tile, the
+    f32 h and c handed from call to call. Returns (outs, hT, cT, cseq)."""
+    T, B, _ = x_proj.shape
+    H = h0.shape[1]
+    outs = torch.empty((T, B, H))
+    cseq = torch.empty((T, B, H))
+    hT, cT = torch.empty((B, H)), torch.empty((B, H))
+
+    def walk(steps, h_in, c_in):
+        """steps over every tile from the state (h_in, c_in) before the
+        first: the state after the last."""
+        h_out, c_out = torch.empty_like(h_in), torch.empty_like(c_in)
+        for r0 in range(0, B, rows):
+            r = slice(r0, min(B, r0 + rows))
+            h, c = h_in[r], c_in[r]
+            for t in steps:
+                acc = h @ w_hh
+                acc = x_proj[t, r].float() + acc
+                i, f, g, o = lstm_common.gate_activations(acc, H)
+                c = f * c + i * g
+                h = o * torch.tanh(c)
+                outs[t, r], cseq[t, r] = h, c
+            h_out[r], c_out[r] = h, c
+        return h_out, c_out
+    if one_step:
+        h, c = h0, c0
+        for t in range(T):
+            h, c = walk([t], h, c)
+    else:
+        h, c = walk(range(T), h0, c0)
+    hT[:], cT[:] = h, c
+    return outs, hT, cT, cseq
+
+
+# (T, B, H, rows a cluster, x_proj's dtype): both loop tilings of each
+# hidden size (lstm_f32.cuh LoopConfigs: big 64 rows at H 64 and 128, 128
+# at H 32; small 32), whole tiles, short last tiles and ragged batches (B
+# % 8 != 0), x_proj in f32 and in bf16 under f32 compute. The batches that
+# B % 8 lets the Pallas kernels take are powers of two: the time-major
+# Pallas grid runs in interpret mode only as one batch tile (it revisits
+# its (B, H) state blocks every step)
+XP_F32_FORWARDS = [(3, 64, 128, 64, 'float32'), (3, 65, 128, 32, 'bfloat16'),
+    (3, 32, 64, 64, 'bfloat16'), (3, 33, 64, 32, 'float32'),
+    (4, 128, 32, 128, 'float32'), (5, 10, 32, 32, 'bfloat16')]
+
+
+@pytest.mark.parametrize('T,B,H,rows,seq', XP_F32_FORWARDS)
+def test_xp_f32_forward_schedule_keeps_the_function(T, B, H, rows, seq):
+    """lstm_scan's f32 forward schedule (xp_f32_forward_schedule) against
+    the plain lstm_scan and lstm_scan_tm forwards on the same inputs, and
+    against the JAX package in f32: at B % 8 == 0 its Pallas lstm_scan and
+    lstm_scan_tm in interpret mode, else its pure reference
+    lstm_scan_reference (tm's function is lstm_scan's). Tolerance 1e-5 of
+    max(1, max |reference|) per tensor (the same f32 products summed in
+    another order). tm's schedule (one step a call) equal to scan's bit
+    for bit."""
+    rng = np.random.default_rng(29)
+    arrays = [(rng.standard_normal(shape) * k).astype(np.float32)
+        for shape, k in (((T, B, 4 * H), 0.5), ((B, H), 0.3), ((B, H), 0.3),
+            ((H, 4 * H), 0.3))]
+    arrays[0] = np.array(jnp.asarray(arrays[0]).astype(JD[seq])
+        .astype(jnp.float32))
+    x_proj = torch.from_numpy(arrays[0]).to(TD[seq])
+    rest = [torch.from_numpy(a) for a in arrays[1:]]
+    f32 = torch.float32
+    got = xp_f32_forward_schedule(x_proj, *rest, rows)
+    tm = xp_f32_forward_schedule(x_proj, *rest, rows, one_step=True)
+    names = ('outs', 'hT', 'cT', 'cseq')
+    for name, a, w in zip(names, tm, got):
+        assert a.dtype == w.dtype and torch.equal(a, w), f'tm {name}'
+    for plain in (lstm_scan.lstm_scan_reference(x_proj, *rest, f32),
+            lstm_tm.lstm_tm_reference(x_proj, *rest, f32)):
+        for name, a, w in zip(names, got, plain):
+            assert a.dtype == w.dtype == f32 and a.shape == w.shape
+            assert_close(a, w, 1e-5, True, f'xp f32 forward schedule {name}')
+    args = [jnp.asarray(arrays[0]).astype(JD[seq])] + [
+        jnp.asarray(a) for a in arrays[1:]]
+    if B % 8:
+        wants = [jax_lstm.lstm_scan_reference(*args, jnp.float32)]
+    else:
+        with pltpu.force_tpu_interpret_mode():
+            wants = [jax_lstm.lstm_scan(*args, jnp.float32),
+                jax_lstm_tm.lstm_scan_tm(*args, jnp.float32)]
+    for want in wants:
+        for name, a, w in zip(names, got, want):
+            assert_close(a, w, 1e-5, True, f'xp f32 forward schedule {name} '
+                'against JAX')
+
+
+def test_f32_fma_xp_forward_is_gone():
+    """Mode XP of lstm_common.cuh's FMA cell (its x_proj load, its branch
+    of the cell kernel, the x_proj type parameter and the step-range
+    launcher) is gone: lstm_scan's and tm's f32 forwards run
+    csrc/lstm_f32.cuh's xp_forward, and the FMA cell serves enc2's f32
+    forward (mode ENC2) alone."""
+    import os
+    import re
+    csrc = os.path.join(os.path.dirname(lstm_common.__file__), '..', '..',
+        'csrc')
+
+    def source(name):
+        with open(os.path.join(csrc, name)) as f:
+            return f.read()
+    common = source('lstm_common.cuh')
+    for name in ('load_x_proj', 'run_forward_steps'):
+        assert not re.search(rf'\b{name}\b', common), name
+    assert 'MODE == XP' not in common and 'MODE != XP' not in common
+    for name in os.listdir(csrc):
+        if name.endswith(('.cu', '.cuh')):
+            text = source(name)
+            assert not re.search(r'run_forward(_steps)?<[^>]*XP>', text), name
+            launches = re.findall(r'\brun_forward<([^>]*)>', text)
+            assert all(a.split(',')[-1].strip() == 'ENC2' for a in launches), (
+                name, launches)
+    for cu in ('lstm_scan.cu', 'lstm_archive.cu'):
+        assert 'f32::xp_forward<H, S>' in source(cu), cu
 
 
 def tm_tc_schedule(x_proj, h0, c0, w_hh, cdt, splits):
@@ -1538,9 +1663,9 @@ def test_step_backward_and_enc2_forward_designs(cdt):
     enc2's forward (archive.design) run the tensor-core kernels of
     lstm_tc.cuh in bf16 ('tc'); in f32 the step backward runs enc5's f32
     backward (lstm_f32.cuh, 'cluster'), enc2's forward the FMA cell
-    ('fma'), and so does tm's forward step (mode XP's loops one step a
-    launch in bf16), while tm's step backward runs lstm_scan's f32
-    backward one step a launch ('cluster'). Their C functions take enc5's
+    ('fma'), while tm's forward step and step backward (mode XP's loops
+    one step a launch in bf16) run lstm_scan's f32 forward and backward
+    one step a launch ('cluster'). Their C functions take enc5's
     argument lists: lstm_enc_backward's 38 (the P slab, the bf16 weights,
     the phases) and lstm_enc_forward's 23 (the encoded inputs, the slab,
     the bf16 weights, the phases); tm's keep 16 and 25."""
@@ -1548,7 +1673,7 @@ def test_step_backward_and_enc2_forward_designs(cdt):
     cluster = 'tc' if cdt == 'bfloat16' else 'cluster'
     assert lstm_enc.design('lstm_enc_step_backward', TD[cdt]) == cluster
     assert archive.design('lstm_enc2_forward', TD[cdt]) == want
-    for fn, design in (('lstm_tm_step_forward', want),
+    for fn, design in (('lstm_tm_step_forward', cluster),
             ('lstm_tm_step_backward', cluster)):
         assert archive.design(fn, TD[cdt]) == design
         assert fn in archive.TC_FUNCTIONS
