@@ -68,10 +68,13 @@ SGEMM's epilogue, the recurrent sum from zero with the slab added after
 it) the same way as cat's, and driven through its entry point by the
 kernel lab in f32 (tools/kernel_lab_torch.py --dtype float32 fused
 fused-fwd enc2 enc4 enc6) within the validation path's phase; the
-archived enc2's f32 backward (the same design with fused's two sums
-behind enc5's encoder) and the archived enc4's and enc6's (enc5's f32
-backward itself, their function in f32) timed at both batches, twice
-bit-equal, and launched by that f32 lab run; enc4's and enc6's f32
+archived enc2's f32 pair (the same design with fused's two sums behind
+enc5's encoder) held to its plain versions at hidden 32, 64 and 128,
+timed at both batches with its forward's phases (the encoder and the
+projection, then the loop), twice bit-equal, and the archived enc4's
+and enc6's f32 backwards (enc5's f32 backward itself, their function in
+f32) timed at both batches, twice bit-equal, all launched by that f32
+lab run; enc4's and enc6's f32
 gradients must equal enc5's bit for bit, as enc6's bf16 ones must;
 lstm_scan's and the archived tm's f32 pairs (fused's forward loop with
 x_proj as its slab, and fused's backward with x_proj given; tm's one step
@@ -787,10 +790,10 @@ def time_tc_phases(torch, flush, rng, kind='fused', T=16, B=8192,
     ('fused': lstm_scan_fused, 'cat': lstm_scan_cat, 'enc5', 'scan':
     lstm_scan with bf16 x_proj, 'enc': lstm_scan_enc's step backward, the
     archived 'enc2' pair and the backwards of the archived 'enc3', 'enc4',
-    'enc6' and 'tm') at the main shape, or of enc5's, cat's or fused's f32
-    kernels (csrc/lstm_f32.cuh, the same phases; the forward's pre-pass is
-    x @ W_ih, fused's x @ W_ih + b), of the f32 backwards of the
-    encoder kinds, and of lstm_scan's and tm's f32 backwards (scan: the
+    'enc6' and 'tm') at the main shape, or of enc5's, cat's, fused's or
+    enc2's f32 kernels (csrc/lstm_f32.cuh, the same phases; the forward's
+    pre-pass is x @ W_ih, fused's and enc2's x @ W_ih + b), of the f32
+    backwards of the encoder kinds, and of lstm_scan's and tm's f32 backwards (scan: the
     pre-pass, the loop and dW_hh, F32_PHASES; tm: its steps and dW_hh)
     with dtype_name float32: a launch runs the first k phases, so a
     phase's time is the difference of two such means (cold L2 each)."""
@@ -2116,9 +2119,9 @@ def main():
     lstm_runs['enc5', mb // bptt, 'float32 F=1 H=128 T=8'] = check_lstm(
         torch, flush, rng, 'enc5', mb // bptt, 'float32', T=bptt, F=1,
         timed=True)
-    # enc5's, cat's and fused's f32 design at the other hidden sizes, both
-    # loop tilings
-    for kind in ('enc5', 'cat', 'fused'):
+    # enc5's, cat's, fused's and enc2's f32 design at the other hidden
+    # sizes, both loop tilings
+    for kind in ('enc5', 'cat', 'fused', 'enc2'):
         for H in (32, 64):
             for B in (8192, 1000):
                 lstm_runs[kind, B, f'float32 H={H}'] = check_lstm(torch,
@@ -2128,6 +2131,8 @@ def main():
     cat_f32_phases = time_tc_phases(torch, flush, rng, 'cat',
         dtype_name='float32')
     fused_f32_phases = time_tc_phases(torch, flush, rng, 'fused',
+        dtype_name='float32')
+    enc2_f32_phases = time_tc_phases(torch, flush, rng, 'enc2',
         dtype_name='float32')
     xp_f32_phases = {kind: time_tc_phases(torch, flush, rng, kind,
         dtype_name='float32') for kind in XP_KINDS}
@@ -2485,6 +2490,25 @@ def main():
             library_ms_1000=fused_f32_1000[f'{part}_lib'],
             phases={k: v for k, v in fused_f32_phases.items()
                 if k.startswith(fn)}))
+    # the archived enc2's f32 forward (csrc/lstm_f32.cuh: enc5's with
+    # fused's two sums), which the kernel lab launches in f32 (phase 10),
+    # at the main shape and at B 1000, with its phases at the main shape
+    enc2_f32 = lstm_runs['enc2', 8192, 'float32']
+    enc2_f32_1000 = lstm_runs['enc2', 1000, 'float32']
+    kernels.append(dict(name='lstm_enc2_forward_f32', route='cuda',
+        source='pufferlib_tpu_torch/csrc/lstm_f32.cuh',
+        replaces='pufferlib_tpu/ops/pallas/archive/lstm_enc2.py:228',
+        launches=lab_f32_launches['lstm_enc2_forward'],
+        max_abs_err=max(r['fwd_err'] for (k, _, d), r in lstm_runs.items()
+            if k == 'enc2' and d.startswith('float32')),
+        ms=enc2_f32['fwd_ms'], plain_ms=enc2_f32['fwd_plain_ms'],
+        bound_ms=enc2_f32['fwd_bound'], bound_by=enc2_f32['fwd_by'],
+        library_ms=enc2_f32['fwd_lib'], shape=enc2_f32['shape'],
+        ms_1000=enc2_f32_1000['fwd_ms'],
+        plain_ms_1000=enc2_f32_1000['fwd_plain_ms'],
+        bound_ms_1000=enc2_f32_1000['fwd_bound'],
+        phases={k: v for k, v in enc2_f32_phases.items()
+            if k.startswith('forward')}))
     # the archived enc2's f32 backward (csrc/lstm_f32.cuh: enc5's with
     # fused's two sums), lstm_scan_enc's step backward and the archived
     # enc3's, enc4's and enc6's (enc5's own f32 backward), which the kernel
@@ -3113,9 +3137,9 @@ def run_validation_path(torch):
     enc4, enc6 and tm variants in f32 (kernel_lab_torch.main(
     LAB_F32_VARIANTS, dtype='float32'), with every count set to 0 again
     just before: the path that launches lstm_scan_fused's, lstm_scan's and
-    tm's f32 pairs, lstm_scan_enc's step backward and the archived enc2's,
-    enc3's, enc4's and enc6's f32 backwards and enc5's f32 forward, all
-    csrc/lstm_f32.cuh, beside enc2's FMA forward)."""
+    tm's f32 pairs, lstm_scan_enc's step backward, the archived enc2's f32
+    pair and enc3's, enc4's and enc6's f32 backwards and enc5's f32
+    forward, all csrc/lstm_f32.cuh)."""
     from pufferlib_tpu_torch.ops.cuda import KERNELS
     validate = load_tool('validate_lstm_torch')
     lab = load_tool('kernel_lab_torch')

@@ -29,8 +29,8 @@
 //   independent half tiles per block, each with its own dh/dc chain, in
 //   one loop body.
 // In f32 the roundings to the compute dtype are the identity, so enc2's,
-// enc3's, enc4's and enc6's backwards compute enc5's function (enc2's with
-// its gates summed as two sums).
+// enc3's, enc4's and enc6's backwards compute enc5's function, and enc2's
+// forward enc5's forward's (enc2's pair with its gates summed as two sums).
 // * lstm_tm.lstm_scan_tm (lstm_tm_step_forward, lstm_tm_step_backward):
 //   `_fwd_impl_tm` / `_fwd_kernel_tm` and `_lstm_tm_bwd` / `_bwd_kernel_tm`,
 //   the grid with time outermost: one step of the whole batch per launch,
@@ -43,7 +43,8 @@
 // Bound: the functions are those of lstm_enc.cu (enc2, 3, 4, 6: bound by
 // bf16 tensor-core operations, about 0.036 ms forward and 0.108 ms backward
 // at T = 16, B = 8192, F = 49, D = H = 128) and of lstm_scan.cu's lstm_scan
-// (tm: bound by bytes, about 0.065 and 0.12 ms).
+// (tm: bound by bytes, about 0.065 and 0.12 ms); in f32 by FMA operations
+// at 67 TFLOP/s (enc2's forward 0.537 ms).
 //
 // Design, by row and compute dtype. The encoder-fused backwards differ in
 // two roundings of the reverse loop (lstm_common.cuh rounded_acts,
@@ -116,10 +117,14 @@
 //   h_out, c_out as its hT, cT, W_hh staged into shared memory by every
 //   launch; stream order is the only synchronisation a step needs. The
 //   f32 carries are exact, so tm's outputs are lstm_scan's bit for bit.
-// * the other f32 kernel (enc2's forward): csrc/lstm_common.cuh's FMA
-//   cell kernel in mode ENC2, from weights streamed out of L2 in chunks,
-//   far above the bounds above (f32 is the exact test mode), its encoder
-//   inside the time loop from a W_enc held in shared memory.
+// * f32 enc2 forward: csrc/lstm_f32.cuh's enc5 forward with
+//   lstm_scan_fused's two sums (enc5_forward<H, true>), the TPU kernel's
+//   own schedule: the encoder xs = relu(feats @ W_enc + b_enc) and the
+//   projection xw = xs @ W_ih + b as two SGEMMs over all T*B rows (the
+//   biases in their epilogues) into f32 scratch, then the loop on thread
+//   block clusters (W_hh on chip for all T steps), each step's h @ W_hh
+//   summed from zero and xw_t added after it. In f32 the TPU kernel's
+//   roundings of x and xp are the identity, so this is its function.
 #include "lstm_common.cuh"
 #include "lstm_f32.cuh"
 #include "lstm_tc.cuh"
@@ -206,7 +211,7 @@ cudaError_t tc_usage(int* out) {
 }
 
 // enc2's forward: bf16 on the tensor cores (tc::enc2_forward), f32 on
-// lstm_common.cuh's FMA cell in mode ENC2, D == H
+// lstm_f32.cuh (enc5_forward with fused's two sums), D == H
 template <int H, typename E>
 struct Enc2Forward {
     static cudaError_t run(const void* feats, const float* h0, const float* c0,
@@ -228,9 +233,11 @@ struct Enc2Forward {
                                        static_cast<E*>(cseq), hT, cT, static_cast<E*>(xp),
                                        static_cast<E*>(w16), T, B, D, phases, stream);
         } else {
-            if (phases != tc::FORWARD_PHASES || D != H) return cudaErrorInvalidValue;
-            return run_forward<H, E, ENC2>(feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b, outs, cseq,
-                                           hT, cT, T, B, F, stream);
+            if (D != H) return cudaErrorInvalidValue;
+            return f32::enc5_forward<H, true>(
+                static_cast<const float*>(feats), h0, c0, w_enc, b_enc, w_ih, w_hh, b,
+                static_cast<float*>(outs), static_cast<float*>(cseq), hT, cT,
+                static_cast<float*>(xs), static_cast<float*>(xp), T, B, F, phases, stream);
         }
     }
 };
@@ -304,11 +311,11 @@ extern "C" {
 // the compute dtype (bf16 when cdt_bf16, else f32); h0, c0: (B, H); w_enc:
 // (F, D); b_enc: (D,); w_ih: (D, 4H), w_hh: (H, 4H); b: (4H,), all f32.
 // Writes outs and, unless it is null, cseq (T, B, H) in the compute dtype,
-// hT and cT (B, H) f32. Scratch, bf16 only (null in f32): xs (T, B, D)
-// bf16, the encoded inputs; xp (T, B, 4H) bf16, the projection; w16 ((D +
-// H) * 4H + F * D) bf16. f32 takes D == H. phases: 2 runs the whole
-// forward; in bf16, 1 stops after the encoder and the projection (to time
-// them).
+// hT and cT (B, H) f32. Scratch: xs (T, B, D), the encoded inputs, and xp
+// (T, B, 4H), the projection x @ W_ih + b, in the compute dtype; w16 ((D +
+// H) * 4H + F * D) bf16, bf16 only (null in f32). f32 takes D == H.
+// phases: 2 runs the whole forward, 1 stops after the encoder and the
+// projection (to time them).
 int lstm_enc2_forward(const void* feats, const float* h0, const float* c0,
                       const float* w_enc, const float* b_enc, const float* w_ih,
                       const float* w_hh, const float* b, void* outs, void* cseq, float* hT,

@@ -33,9 +33,9 @@
 //   recompute, dx and the weight gradients are FMA SGEMMs over all T*B
 //   rows; the time loops keep W_hh on chip for all T steps in a thread
 //   block cluster, whose blocks exchange h (forward) or the partial
-//   dh_prev (backward) through distributed shared memory. The forward's
-//   sums keep the order of the old FMA cell (x over k < D from zero, then
-//   h, then b), so its outputs are that kernel's bits. The backward takes
+//   dh_prev (backward) through distributed shared memory. Each of the
+//   forward's sums is x over k < D from zero, then h, then b, the TPU
+//   kernel's one sum over K = D + H in order. The backward takes
 //   the forward's x @ W_ih slab again (autograd keeps it: T * B * 4H f32,
 //   268 MB at the bench shape) and its gate recompute continues those sums
 //   over h_prev @ W_hh alone, the same chains; it sums dx and the weight

@@ -1,25 +1,16 @@
 // Device code shared by the LSTM kernels csrc/lstm_cat.cu, csrc/lstm_enc.cu,
 // csrc/lstm_scan.cu and csrc/lstm_archive.cu, for Hopper (sm_90a). See
-// those files for which TPU kernel each replaces and what bounds it.
+// those files for which TPU kernel each replaces and what bounds it. The
+// cell kernels themselves are csrc/lstm_tc.cuh's (bf16, tensor cores) and
+// csrc/lstm_f32.cuh's (f32, FMA); this file holds what they share:
 //
-// The FMA cell kernel below (cell_forward) runs in f32 the one forward
-// that has no other f32 design: the archived enc2's (mode ENC2). Every
-// other f32 kernel (the pairs of enc5, cat, fused and lstm_scan, every
-// f32 backward, tm's step kernels) runs csrc/lstm_f32.cuh. A Mode (below)
-// says which function a cell kernel computes per step:
-//
-// * cell_forward (ENC2): one block per BT = 32 batch rows walks the whole
-//   sequence. Per step it builds the operand [x_t | h] (rounded to the
-//   compute dtype) in shared memory, computes the gates with f32
-//   accumulation, and updates c and h in registers. [W_ih; W_hh] is
-//   streamed from L2 (where it stays resident: every block reads the same
-//   weights; it is (D+H, 4H) = 256 KiB in f32 at H = 128, more than a
-//   block's 227 KiB of shared memory) in chunks of KC rows, each rounded
-//   to the compute dtype as it is staged. The step first computes x_t =
-//   relu(feats_t @ W_enc + b_enc) from a W_enc held in shared memory, so
-//   no encoded sequence ever reaches device memory. It keeps two f32 sums
-//   apart, as its TPU kernel does: x_t @ W_ih + b computed first, and the
-//   recurrent h @ W_hh added to it.
+// * device helpers: loads of f32 or bf16 values (ld), the rounding to the
+//   compute dtype (to_cdt), the sigmoid, one (row, unit) of the reverse
+//   step (dgates_chain), bf16 packing, and the host's launch helpers
+//   (prepare, reduce, dispatch on the hidden size and compute dtype);
+// * Mode: the function a bf16 cell kernel computes per step, after its
+//   TPU kernel, and what follows from it (has_encoder, rounded_acts,
+//   rounded_db);
 // * the split-K (splitk) + reduce_partials of the bf16 backwards
 //   (csrc/lstm_tc.cuh): the weight gradients dW = [x | h_prev]^T dgates
 //   (and dW_enc = feats^T dpre) are contractions over K = T*B rows. The
@@ -37,17 +28,9 @@
 //   gemm_tn_splitk_mma. The f32 weight gradients are lstm_f32.cuh's
 //   split-K SGEMMs, added by reduce_partials too.
 //
-// Threads: NT = 256 per block. Thread t owns hidden unit j = t % H and
-// rows r0 .. r0+RPT-1 (r0 = (t / H) * RPT) of the block's BT rows, for
-// all four gates of those (row, unit) pairs, so the cell update needs no
-// exchange between threads. A warp shares its rows (broadcast reads of
-// the operand) and reads consecutive weight columns (no bank conflicts).
-// H must divide NT: H in {32, 64, 128}; the input width D equals H.
-//
-// The cell kernel runs plain f32 FMA; the split-K runs on bf16 tensor
-// cores. Products of bf16-rounded operands are exact in f32, so the bf16
-// kernels differ from the plain PyTorch versions only in the order of f32
-// sums.
+// The split-K runs on bf16 tensor cores. Products of bf16-rounded operands
+// are exact in f32, so the bf16 kernels differ from the plain PyTorch
+// versions only in the order of f32 sums.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -58,9 +41,6 @@
 
 namespace lstm {
 
-constexpr int NT = 256;      // threads per block
-constexpr int BT = 32;       // batch rows per block (ROWS_PER_BLOCK in python)
-constexpr int KC = 16;       // weight rows staged per chunk
 constexpr int MAX_SMEM = 227 * 1024;
 
 using bf16 = __nv_bfloat16;
@@ -68,10 +48,6 @@ using bf16 = __nv_bfloat16;
 __device__ __forceinline__ float ld(const float* p, size_t i) { return p[i]; }
 __device__ __forceinline__ float ld(const bf16* p, size_t i) {
     return __bfloat162float(p[i]);
-}
-__device__ __forceinline__ void st(float* p, size_t i, float v) { p[i] = v; }
-__device__ __forceinline__ void st(bf16* p, size_t i, float v) {
-    p[i] = __float2bfloat16_rn(v);
 }
 
 // v rounded to the compute dtype E, carried in f32
@@ -84,7 +60,8 @@ __device__ __forceinline__ float to_cdt(float v) {
 
 __device__ __forceinline__ float sigm(float x) { return 1.f / (1.f + expf(-x)); }
 
-// The function a cell kernel computes per step, after its TPU kernel
+// The function a bf16 cell kernel (csrc/lstm_tc.cuh) computes per step,
+// after its TPU kernel
 enum Mode {
     CAT,    // gates = [x_t | h] @ [W_ih; W_hh] + b: one sum over K = D + H
     ENC,    // CAT behind the fused encoder; backward with f32 activations
@@ -95,9 +72,7 @@ enum Mode {
             // its own dtype S (lstm._fwd_kernel, _bwd_kernel)
     FUSED,  // gates = (x_t @ W_ih + b) + h @ W_hh: two f32 sums, then added
             // (lstm._fwd_fused_kernel, _bwd_fused_kernel)
-    // The archived variants (csrc/lstm_archive.cu), all behind the encoder;
-    // on FMA ENC2's forward alone, the others in bf16 only
-    // (csrc/lstm_tc.cuh):
+    // The archived variants (csrc/lstm_archive.cu), all behind the encoder:
     ENC2,   // FUSED whose first sum passes through the compute dtype before
             // the recurrent one is added; backward with f32 activations and
             // db from the rounded dgates (archive/lstm_enc2)
@@ -120,167 +95,6 @@ __host__ __device__ constexpr bool rounded_db(int mode) {
     return mode == ENC5 || mode == ENC2 || mode == ENC4 || mode == ENC6;
 }
 
-template <int H>
-struct Tile {
-    static_assert(NT % H == 0, "H must divide the block");
-    static constexpr int D = H, K = D + H, G = 4 * H;
-    static constexpr int RG = NT / H;      // row groups
-    static constexpr int RPT = BT / RG;    // rows per thread
-    static_assert(RPT % 4 == 0, "rows per thread must be a multiple of 4");
-};
-
-__device__ __forceinline__ float4 to_cdt4(float4 v, bool bf16_cdt) {
-    if (bf16_cdt) {
-        v.x = to_cdt<bf16>(v.x);
-        v.y = to_cdt<bf16>(v.y);
-        v.z = to_cdt<bf16>(v.z);
-        v.w = to_cdt<bf16>(v.w);
-    }
-    return v;
-}
-
-// A weight chunk passes through registers on its way to shared memory,
-// which lets a thread fetch its share of chunk c + 1 from L2 before it
-// works on chunk c, so that the load latency hides behind the FMAs.
-//
-// Row chunk: rows k0 .. k0+KC of [W_ih; W_hh] (K, G), a thread's share as
-// LOADS float4s; stored as w_s[kk * G + n].
-template <int H>
-struct RowChunk {
-    static constexpr int G4 = Tile<H>::G / 4;
-    static constexpr int LOADS = KC * G4 / NT;
-    static_assert(KC * G4 % NT == 0, "row chunk must tile the block");
-};
-
-template <int H>
-__device__ __forceinline__ void fetch_rows(float4 (&r)[RowChunk<H>::LOADS],
-                                           const float* w_ih, const float* w_hh, int k0) {
-    constexpr int D = Tile<H>::D, G = Tile<H>::G, G4 = RowChunk<H>::G4;
-#pragma unroll
-    for (int q = 0; q < RowChunk<H>::LOADS; ++q) {
-        const int idx = threadIdx.x + q * NT, kk = idx / G4, n4 = idx - kk * G4;
-        const int k = k0 + kk;
-        const float* row = k < D ? w_ih + (size_t)k * G : w_hh + (size_t)(k - D) * G;
-        r[q] = reinterpret_cast<const float4*>(row)[n4];
-    }
-}
-
-template <int H, typename E>
-__device__ __forceinline__ void put_rows(float* w_s, const float4 (&r)[RowChunk<H>::LOADS]) {
-    constexpr int G = Tile<H>::G, G4 = RowChunk<H>::G4;
-#pragma unroll
-    for (int q = 0; q < RowChunk<H>::LOADS; ++q) {
-        const int idx = threadIdx.x + q * NT, kk = idx / G4, n4 = idx - kk * G4;
-        reinterpret_cast<float4*>(w_s + kk * G)[n4] =
-            to_cdt4(r[q], std::is_same<E, bf16>::value);
-    }
-}
-
-// acc[g][i] = sum_k op_s[k][r0 + i] * W[k][g*H + j] over KBEG <= k < KEND,
-// rows of [W_ih; W_hh] (D..K for the recurrent half, 0..D for the input
-// half), with the weights streamed through w_s. op_s is (K, BT), already
-// rounded. Every thread of the block must call it; it ends with a
-// barrier, after which op_s and w_s may be written again. A chunk is
-// fetched when its turn comes: keeping the next one in flight would cost
-// the forward its second block per SM (126 registers without it).
-template <int H, typename E, int KBEG, int KEND>
-__device__ __forceinline__ void gates_gemm(float (&acc)[4][Tile<H>::RPT],
-                                           const float* op_s, float* w_s,
-                                           const float* w_ih, const float* w_hh,
-                                           int r0, int j) {
-    constexpr int G = Tile<H>::G, RPT = Tile<H>::RPT;
-    static_assert((KEND - KBEG) % KC == 0, "the range must be whole chunks");
-#pragma unroll
-    for (int g = 0; g < 4; ++g)
-#pragma unroll
-        for (int i = 0; i < RPT; ++i) acc[g][i] = 0.f;
-    float4 next[RowChunk<H>::LOADS];
-    for (int k0 = KBEG; k0 < KEND; k0 += KC) {
-        fetch_rows<H>(next, w_ih, w_hh, k0);
-        put_rows<H, E>(w_s, next);
-        __syncthreads();
-#pragma unroll 4
-        for (int kk = 0; kk < KC; ++kk) {
-            const float* wr = w_s + kk * G;
-            const float w[4] = {wr[j], wr[H + j], wr[2 * H + j], wr[3 * H + j]};
-            const float4* xv = reinterpret_cast<const float4*>(op_s + (k0 + kk) * BT + r0);
-#pragma unroll
-            for (int q = 0; q < RPT / 4; ++q) {
-                const float4 v = xv[q];
-#pragma unroll
-                for (int g = 0; g < 4; ++g) {
-                    acc[g][4 * q] = fmaf(v.x, w[g], acc[g][4 * q]);
-                    acc[g][4 * q + 1] = fmaf(v.y, w[g], acc[g][4 * q + 1]);
-                    acc[g][4 * q + 2] = fmaf(v.z, w[g], acc[g][4 * q + 2]);
-                    acc[g][4 * q + 3] = fmaf(v.w, w[g], acc[g][4 * q + 3]);
-                }
-            }
-        }
-        __syncthreads();
-    }
-}
-
-// x[i] = cdt(relu(feats_t[r0 + i] @ W_enc[:, j] + be)) from f_s (F, BT)
-// and we_s (F, D), both already rounded
-template <int H>
-__device__ __forceinline__ void encode_rows(float (&x)[Tile<H>::RPT],
-                                            const float* f_s, const float* we_s,
-                                            float be, int F, int r0, int j) {
-    constexpr int D = Tile<H>::D, RPT = Tile<H>::RPT;
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) x[i] = 0.f;
-    for (int k = 0; k < F; ++k) {
-        const float w = we_s[k * D + j];
-        const float4* fv = reinterpret_cast<const float4*>(f_s + k * BT + r0);
-#pragma unroll
-        for (int q = 0; q < RPT / 4; ++q) {
-            const float4 v = fv[q];
-            x[4 * q] = fmaf(v.x, w, x[4 * q]);
-            x[4 * q + 1] = fmaf(v.y, w, x[4 * q + 1]);
-            x[4 * q + 2] = fmaf(v.z, w, x[4 * q + 2]);
-            x[4 * q + 3] = fmaf(v.w, w, x[4 * q + 3]);
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-        const float v = x[i] + be;
-        x[i] = v < 0.f ? 0.f : v;  // relu that keeps a NaN, as jnp.maximum
-    }
-}
-
-// op_s[k][r] = cdt(src[(base + r) * width + k]) for the block's rows,
-// zero past the batch edge
-template <typename E, typename S>
-__device__ __forceinline__ void load_rows(float* op_s, const S* src, size_t base,
-                                          int width, int nrows) {
-    for (int idx = threadIdx.x; idx < BT * width; idx += NT) {
-        const int r = idx / width, k = idx - r * width;
-        op_s[k * BT + r] = r < nrows ? to_cdt<E>(ld(src, (base + r) * width + k)) : 0.f;
-    }
-}
-
-// The gate pre-activations of one step, into acc, from the operand
-// [x_t | h] in op_s: two f32 sums, (x_t @ W_ih + b) rounded to the
-// compute dtype, then the recurrent h @ W_hh added to it (ENC2).
-template <int H, typename E, int MODE>
-__device__ __forceinline__ void gate_sums(float (&acc)[4][Tile<H>::RPT], const float* op_s,
-                                          float* w_s, const float* w_ih, const float* w_hh,
-                                          const float (&bias)[4], int r0, int j) {
-    constexpr int D = Tile<H>::D, K = Tile<H>::K, RPT = Tile<H>::RPT;
-    static_assert(MODE == ENC2, "the FMA cell runs ENC2");
-    float pre[4][RPT];
-    gates_gemm<H, E, 0, D>(acc, op_s, w_s, w_ih, w_hh, r0, j);
-#pragma unroll
-    for (int g = 0; g < 4; ++g)
-#pragma unroll
-        for (int i = 0; i < RPT; ++i) pre[g][i] = to_cdt<E>(acc[g][i] + bias[g]);
-    gates_gemm<H, E, D, K>(acc, op_s, w_s, w_ih, w_hh, r0, j);
-#pragma unroll
-    for (int g = 0; g < 4; ++g)
-#pragma unroll
-        for (int i = 0; i < RPT; ++i) acc[g][i] = pre[g][i] + acc[g][i];
-}
-
 // One (row, unit) of the reverse step, in the order of operations of the
 // TPU kernels' _bwd_kernel: the f32 dgates d (i, f, g, o) from the gate
 // activations, dhv = dh + g_outs_t, c_t and c_prev. dc comes in as the
@@ -297,83 +111,6 @@ __device__ __forceinline__ void dgates_chain(float (&d)[4], float& dc, float dhv
     d[2] = dgg * (1.f - ag * ag);
     d[3] = dov * ao * (1.f - ao);
     dc = dcv * af;
-}
-
-// feats (T, B, F) in the compute dtype E. A null cseq skips its store: the
-// forward of a call that needs no gradient. The block walks the whole
-// sequence from the state h0, c0 to hT, cT.
-template <int H, typename E, int MODE>
-__global__ void __launch_bounds__(NT) cell_forward(
-        const E* __restrict__ feats, const float* __restrict__ h0,
-        const float* __restrict__ c0, const float* __restrict__ w_enc,
-        const float* __restrict__ b_enc, const float* __restrict__ w_ih,
-        const float* __restrict__ w_hh, const float* __restrict__ b,
-        E* __restrict__ outs, E* __restrict__ cseq, float* __restrict__ hT,
-        float* __restrict__ cT, int T, int B, int F) {
-    using TL = Tile<H>;
-    constexpr int D = TL::D, K = TL::K, G = TL::G, RPT = TL::RPT;
-    static_assert(MODE == ENC2, "the other modes run lstm_f32.cuh in f32");
-    extern __shared__ __align__(16) float smem[];
-    float* xh_s = smem;               // (K, BT): [x_t | h], rounded
-    float* w_s = xh_s + K * BT;       // (KC, G): staged weight rows
-    float* we_s = w_s + KC * G;       // (F, D) W_enc, rounded
-    float* f_s = we_s + F * D;        // (F, BT) feats_t, rounded
-
-    const int j = threadIdx.x % H, r0 = (threadIdx.x / H) * RPT;
-    const int row0 = blockIdx.x * BT;
-    const int nrows = min(BT, B - row0);
-    float bias[4];
-#pragma unroll
-    for (int g = 0; g < 4; ++g) bias[g] = b[g * H + j];
-    const float be = b_enc[j];
-    for (int i = threadIdx.x; i < F * D; i += NT) we_s[i] = to_cdt<E>(w_enc[i]);
-    float h[RPT], c[RPT];
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-        const int r = r0 + i;
-        const size_t idx = (size_t)(row0 + r) * H + j;
-        h[i] = r < nrows ? h0[idx] : 0.f;
-        c[i] = r < nrows ? c0[idx] : 0.f;
-        xh_s[(D + j) * BT + r] = to_cdt<E>(h[i]);
-    }
-
-    for (int t = 0; t < T; ++t) {
-        const size_t base = (size_t)t * B + row0;
-        float acc[4][RPT];
-        load_rows<E>(f_s, feats, base, F, nrows);
-        __syncthreads();
-        float x[RPT];
-        encode_rows<H>(x, f_s, we_s, be, F, r0, j);
-#pragma unroll
-        for (int i = 0; i < RPT; ++i) xh_s[j * BT + r0 + i] = to_cdt<E>(x[i]);
-        __syncthreads();
-        gate_sums<H, E, MODE>(acc, xh_s, w_s, w_ih, w_hh, bias, r0, j);
-#pragma unroll
-        for (int i = 0; i < RPT; ++i) {
-            const int r = r0 + i;
-            const float ig = sigm(acc[0][i]);
-            const float fg = sigm(acc[1][i]);
-            const float gg = tanhf(acc[2][i]);
-            const float og = sigm(acc[3][i]);
-            c[i] = fg * c[i] + ig * gg;
-            h[i] = og * tanhf(c[i]);
-            xh_s[(D + j) * BT + r] = to_cdt<E>(h[i]);
-            if (r < nrows) {
-                const size_t idx = (base + r) * H + j;
-                st(outs, idx, h[i]);
-                if (cseq) st(cseq, idx, c[i]);
-            }
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-        const int r = r0 + i;
-        if (r < nrows) {
-            const size_t idx = (size_t)(row0 + r) * H + j;
-            hT[idx] = h[i];
-            cT[idx] = c[i];
-        }
-    }
 }
 
 __device__ __forceinline__ uint32_t pack2(float a, float b) {
@@ -697,32 +434,11 @@ __global__ void reduce_partials(const float* __restrict__ part, float* __restric
     }
 }
 
-inline size_t forward_smem(int H, int F) {
-    return sizeof(float) *
-           ((size_t)2 * H * BT + (size_t)KC * 4 * H + (size_t)F * H + (size_t)F * BT);
-}
-
 template <typename Kernel>
 cudaError_t prepare(Kernel kernel, size_t smem) {
     if (smem > (size_t)MAX_SMEM) return cudaErrorInvalidValue;
     return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 (int)smem);
-}
-
-// The FMA cell's forward over the whole sequence (mode ENC2)
-template <int H, typename E, int MODE>
-cudaError_t run_forward(const void* feats, const float* h0, const float* c0,
-                        const float* w_enc, const float* b_enc, const float* w_ih,
-                        const float* w_hh, const float* b, void* outs, void* cseq,
-                        float* hT, float* cT, int T, int B, int F, cudaStream_t stream) {
-    auto kernel = cell_forward<H, E, MODE>;
-    const size_t smem = forward_smem(H, F);
-    cudaError_t err = prepare(kernel, smem);
-    if (err != cudaSuccess) return err;
-    kernel<<<(B + BT - 1) / BT, NT, smem, stream>>>(
-        static_cast<const E*>(feats), h0, c0, w_enc, b_enc, w_ih, w_hh, b,
-        static_cast<E*>(outs), static_cast<E*>(cseq), hT, cT, T, B, F);
-    return cudaGetLastError();
 }
 
 inline cudaError_t reduce(const float* part, float* out, int S, long long n,

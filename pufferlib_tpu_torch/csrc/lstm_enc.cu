@@ -50,9 +50,10 @@
 //   backward's gate recompute, dpre and weight gradients are FMA SGEMMs
 //   over all T*B rows; the time loops keep W_hh on chip for all T steps in
 //   a thread block cluster, whose blocks exchange h (forward) or the
-//   partial dh_prev (backward) through distributed shared memory. The
-//   forward's sums keep the order of the FMA cell (x over k < D, then h,
-//   then b), so its outputs are that kernel's bits. lstm_enc_step_backward
+//   partial dh_prev (backward) through distributed shared memory. Each of
+//   the forward's sums is x over k < D from zero, then h over k < H, then
+//   b, the TPU kernel's one sum over K = D + H in order.
+//   lstm_enc_step_backward
 //   runs enc5's f32 backward, and so do the archived enc3's, enc4's and
 //   enc6's (csrc/lstm_archive.cu): in f32 their functions are enc5's, and
 //   their gradients enc5's bit for bit (the archived enc2's runs it with

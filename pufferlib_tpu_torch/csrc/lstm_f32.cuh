@@ -10,9 +10,9 @@
 // the encoder, fused is cat with its sums split in two (TWO_SUMS below):
 // all three pairs run the pieces below (cell_forward, cell_backward), enc5
 // behind its encoder SGEMM and with dx under the relu mask. The archived
-// enc2's backward (csrc/lstm_archive.cu; the TPU kernel
-// archive/lstm_enc2._bwd) is enc5's with fused's two sums
-// (enc5_backward<H, true>). Mode XP (lstm_scan, csrc/lstm_scan.cu, TPU
+// enc2's pair (csrc/lstm_archive.cu; the TPU kernels archive/lstm_enc2._impl
+// and _bwd) is enc5's with fused's two sums (enc5_forward<H, true>,
+// enc5_backward<H, true>). Mode XP (lstm_scan, csrc/lstm_scan.cu, TPU
 // kernels lstm.py's _lstm_fwd_impl and _lstm_scan_bwd; the archived tm,
 // csrc/lstm_archive.cu, TPU kernels archive/lstm_tm._fwd_impl_tm and
 // _lstm_tm_bwd, one step a launch) is fused's pair with the projection
@@ -37,8 +37,8 @@
 // Forward (cell_forward; enc5_forward runs the encoder first):
 // 0. enc5 only: the encoder xs = relu(feats @ W_enc + b_enc), one SGEMM
 //    over T*B rows; x below is xs;
-// 1. xw = x @ W_ih, an SGEMM into a (T*B, 4H) f32 slab (TWO_SUMS, fused:
-//    xw = x @ W_ih + b, the bias added in the SGEMM's epilogue);
+// 1. xw = x @ W_ih, an SGEMM into a (T*B, 4H) f32 slab (TWO_SUMS, fused
+//    and enc2: xw = x @ W_ih + b, the bias added in the SGEMM's epilogue);
 // 2. forward_loop: a cluster of CS = H / U blocks owns R batch rows (U =
 //    32 or 64 units a block and RT = 4 or 16 rows a thread, picked from B:
 //    plan); block `rank` holds the four gate columns of units rank*U ..
@@ -49,13 +49,12 @@
 //    c and h of its unit for RT rows, and writes h into every block of the
 //    cluster through distributed shared memory; one cluster barrier a
 //    step orders those writes before the next step's reads (h is double
-//    buffered). Each sum is the old one-sum-over-K order: x over k < D from
-//    zero (the slab), then h over k < H, then the bias, so the forward is
-//    the bits of the per-step FMA kernel of lstm_common.cuh. TWO_SUMS
-//    keeps fused's two sums, as its FMA kernel did: h @ W_hh from zero,
-//    then the slab (x @ W_ih + b) added to it, so its forward is that
-//    kernel's bits too; the next step's slab is then read during the cell
-//    math and the exchange, not during the product. Mode XP's forward
+//    buffered). Each sum is the one-sum-over-K order of the TPU kernels: x
+//    over k < D from zero (the slab), then h over k < H, then the bias.
+//    TWO_SUMS keeps fused's (and enc2's) two sums, as their TPU kernels
+//    do: h @ W_hh from zero, then the slab (x @ W_ih + b) added to it; the
+//    next step's slab is then read during the cell math and the exchange,
+//    not during the product. Mode XP's forward
 //    (xp_forward) is this TWO_SUMS loop alone, x_proj (f32 or bf16) its
 //    slab, over steps [t0, t1): the whole sequence, or tm's one step a
 //    launch, W_hh staged into shared memory by every launch;
@@ -327,7 +326,7 @@ __global__ void __launch_bounds__(STHREADS, 2)
     }
 }
 
-// the encoder: relu(v + b_enc), as lstm_common.cuh's encode_rows
+// the encoder: relu(v + b_enc), a relu that keeps a NaN as jnp.maximum
 struct EpiEncoder {
     float* xs;
     const float* b_enc;
@@ -362,7 +361,7 @@ struct EpiPartial {
 
 // the gate activations i, f, g, o of v + b, or with a non-null slab ((M,
 // 4H) in S: fused's kept x @ W_ih + b, or mode XP's x_proj, f32 or bf16)
-// of slab + v, as the TWO_SUMS forward loop and the FMA cell add them
+// of slab + v, as the TWO_SUMS forward loop adds them
 template <typename S = float>
 struct EpiActs {
     float* acts;
@@ -1004,8 +1003,11 @@ cudaError_t cell_forward(const float* x, const float* h0, const float* c0, const
 // w_hh (H, 4H), b (4H,), all f32, D == H. Writes outs and, unless null,
 // cseq (T, B, H), hT, cT (B, H). Scratch: xs (T * B * D) and xw (T * B
 // * 4H). phases: FORWARD_PHASES runs the whole forward, 1 stops after the
-// encoder and the projection (to time them).
-template <int H>
+// encoder and the projection (to time them). TWO_SUMS: the archived
+// enc2's forward (csrc/lstm_archive.cu), whose gates are x @ W_ih + b and
+// h @ W_hh summed apart (in f32 its roundings to the compute dtype are the
+// identity): cell_forward's projection and loop with fused's two sums.
+template <int H, bool TWO_SUMS = false>
 cudaError_t enc5_forward(const float* feats, const float* h0, const float* c0,
                          const float* w_enc, const float* b_enc, const float* w_ih,
                          const float* w_hh, const float* b, float* outs, float* cseq, float* hT,
@@ -1019,8 +1021,8 @@ cudaError_t enc5_forward(const float* feats, const float* h0, const float* c0,
     if ((err = gemm<false>(Feats<false>{feats, F}, Mat{w_enc, D}, EpiEncoder{xs, b_enc, D},
                            (long long)T * B, D, F, 1, w_enc, stream)) != cudaSuccess)
         return err;
-    return cell_forward<H>(xs, h0, c0, w_ih, w_hh, b, outs, cseq, hT, cT, xw, T, B, D, phases,
-                           stream);
+    return cell_forward<H, TWO_SUMS>(xs, h0, c0, w_ih, w_hh, b, outs, cseq, hT, cT, xw, T, B, D,
+                                     phases, stream);
 }
 
 // What cell_backward checks before its first launch (enc5_backward before
@@ -1173,7 +1175,7 @@ cudaError_t enc5_backward(const float* feats, const float* h0, const float* c0,
 // the state after step t1 - 1 (the whole forward: [0, T); tm: one step a
 // call), writing those rows of outs and, unless it is null, of cseq (T,
 // B, H) f32. Each sum is h @ W_hh from zero, k in order, then x_proj_t
-// added: the FMA cell's order, so its bits.
+// added: the order of lstm_scan_fused's (and of its TPU kernel's) sums.
 template <int H, typename S>
 cudaError_t xp_forward(const S* x_proj, const float* h0, const float* c0, const float* w_hh,
                        float* outs, float* cseq, float* hT, float* cT, int t0, int t1, int T,
@@ -1207,7 +1209,7 @@ __global__ void round_to_bf16(const float* __restrict__ src, bf16* __restrict__ 
 // whole backward: [0, T); tm: one step a call, dh/dc carried in g_hT, g_cT
 // in and dh0, dc0 out). The call with t1 == T runs the pre-pass over all
 // T*B rows (h_prev @ W_hh from zero, x_proj added in the epilogue: the
-// FMA cell's two sums, its activations' bits) into the f32 dgates slab,
+// forward loop's two sums, its activations' bits) into the f32 dgates slab,
 // which is dx_proj itself with f32 x_proj and the scratch dg (T * B * 4H
 // f32) with bf16 x_proj, and transposes W_hh into the scratch w_hh_t (4H
 // * H f32); every call runs the reverse loop over its steps, which writes

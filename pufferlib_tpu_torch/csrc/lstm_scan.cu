@@ -54,7 +54,8 @@
 //   clusters with x_proj (f32 or bf16, widened exactly) as its slab, no
 //   SGEMM: W_hh on chip for all T steps, h through distributed shared
 //   memory, each step's h @ W_hh summed from zero and x_proj_t added after
-//   it (the order of the FMA cell it replaced, so its bits); its scratch
+//   it (the order of lstm_scan_fused's sums, as the TPU kernels add
+//   x_proj_t after the recurrent sum); its scratch
 //   pointer is null. lstm_scan's backward runs csrc/lstm_f32.cuh's mode
 //   XP backward (xp_backward_steps): every
 //   step's gates at once as an FMA SGEMM, h_prev @ W_hh from zero with
@@ -71,8 +72,8 @@
 //   4H f32, 268 MB at the bench shape), then a loop on thread block
 //   clusters that hold W_hh on chip for all T steps, h crossing the
 //   cluster through distributed shared memory; each step's h @ W_hh is
-//   summed from zero and the slab added after it, the old FMA cell's two
-//   sums in their order, so the outputs are that kernel's bits. The
+//   summed from zero and the slab added after it, the TPU kernel's two
+//   sums in their order. The
 //   backward's gates are h_prev @ W_hh from zero plus the kept slab, the
 //   activations in the SGEMM's epilogue; a reverse loop on the clusters
 //   (the partial dh_prev of each block's gate columns added in rank

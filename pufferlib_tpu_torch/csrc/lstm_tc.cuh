@@ -10,10 +10,10 @@
 // ENC2, ENC3, ENC4 and ENC6: ENC5's backward with other roundings, ENC6
 // with ENC5's own) and the archived enc2's forward (enc2_forward: the
 // encoder, a projection GEMM, mode XP's loop). In f32, the default
-// compute dtype, the enc5, cat and fused pairs and every backward run
-// csrc/lstm_f32.cuh (FMA SGEMMs around loops on thread block clusters)
-// and mode XP's and the archived enc2's forwards keep lstm_common.cuh's
-// cell kernel: the tensor cores have no exact f32 product.
+// compute dtype, every kernel pair (the enc5, cat, fused and lstm_scan
+// pairs, the archived ones) runs csrc/lstm_f32.cuh (FMA SGEMMs around
+// loops on thread block clusters): the tensor cores have no exact f32
+// product.
 //
 // Mode XP (lstm.py's lstm_scan: `_lstm_fwd_impl` / `_fwd_kernel` and
 // `_noresid`, `_lstm_scan_bwd` / `_bwd_kernel`) is FUSED without the input
@@ -111,8 +111,6 @@
 // * staging: W_hh, rounded to bf16 by a small kernel, is copied into
 //   shared memory once per block with cp.async (no register round trip),
 //   rows padded by 16 bytes so that ldmatrix is free of bank conflicts.
-//   The per-step weight chunks of the FMA kernels (16 for the gates, 32
-//   more for [dx | dh_prev], two barriers each) are gone.
 // * tensor cores: every product is mma.sync m16n8k16 on bf16 with f32
 //   accumulation. The forward reads W_hh through ldmatrix.trans as the
 //   B operand of h @ W_hh; the backward reads the same copy without
@@ -1707,8 +1705,7 @@ int usage_at(int H, int* out) {
 
 // The bf16 bodies of the C functions of both cells (lstm_scan.cu's fused
 // pair, lstm_cat.cu's cat pair), for lstm::dispatch: the kernels above.
-// Their f32 bodies are lstm_f32.cuh's f32::CellForward / CellBackward;
-// the f32 branch that ran lstm_common.cuh's FMA cell kernels is gone.
+// Their f32 bodies are lstm_f32.cuh's f32::CellForward / CellBackward.
 template <int MODE, int H>
 struct CellForward {
     static cudaError_t run(const void* x, const float* h0, const float* c0,

@@ -11,27 +11,28 @@ kernel launch for CUDA tensors, no way from one to the other), the
 backwards' launchers and the design each backward runs. Each variant's
 module gives its plain versions, its launchers and its public function.
 
-In bf16 the four backwards, enc2's forward and tm's two step kernels run
-the tensor-core kernels of csrc/lstm_tc.cuh (design): tm mode XP's loops
-(lstm_scan's) one step a launch; the backwards mode ENC5's path (the
-encoder, the P pre-pass, a reverse loop with W_hh in shared memory, dpre
-and the split-K) with each variant's roundings: enc2 and enc4 f32
-activations and db from the rounded dgates (enc2's pre-pass rounding its
-projection), enc3 rounded activations and db from the unrounded dgates,
-enc6 enc5's own; enc2's forward the encoder, its projection as a GEMM and
-mode XP's loop. In f32, where every variant's roundings are the identity
-and its backward computes enc5's function, the four backwards run
-csrc/lstm_f32.cuh (design 'cluster'): enc5's f32 backward, enc3's,
-enc4's and enc6's as lstm_enc's enc5 runs it (so their gradients are
-enc5's bit for bit), enc2's with lstm_scan_fused's two sums (the
-projection x @ W_ih + b an SGEMM of its own), and so do tm's f32 step
-kernels: lstm_scan's f32 forward and backward one step a launch, its
-outputs and gradients lstm_scan's bit for bit. enc2's f32 forward runs
-lstm_common.cuh's FMA cell kernel ('fma'). enc3, enc4 and
-enc6 take the shapes of enc5's f32 kernels
-(D == H, at most 128 features, hidden sizes 32, 64 and 128) in both
-dtypes; enc2 the same in f32, in bf16 the tensor-core kernels'
-(lstm_common.encoder_shape_error). Each is refused before any launch.
+Every C function that launches a kernel (F32_FUNCTIONS: enc2's pair,
+the other three backwards and tm's two step kernels) has two designs, by
+the compute dtype (design). In bf16 all run the tensor-core kernels of
+csrc/lstm_tc.cuh ('tc'): tm mode XP's loops (lstm_scan's) one step a
+launch; the backwards mode ENC5's path (the encoder, the P pre-pass, a
+reverse loop with W_hh in shared memory, dpre and the split-K) with each
+variant's roundings: enc2 and enc4 f32 activations and db from the
+rounded dgates (enc2's pre-pass rounding its projection), enc3 rounded
+activations and db from the unrounded dgates, enc6 enc5's own; enc2's
+forward the encoder, its projection as a GEMM and mode XP's loop. In f32,
+where every variant's roundings are the identity, all run
+csrc/lstm_f32.cuh ('cluster'): enc3's, enc4's and enc6's backwards enc5's
+f32 backward as lstm_enc's enc5 runs it (so their gradients are enc5's
+bit for bit), enc2's pair enc5's f32 forward and backward with
+lstm_scan_fused's two sums (the encoder and the projection x @ W_ih + b
+as SGEMMs of their own, then fused's loops), tm's step kernels
+lstm_scan's f32 forward and backward one step a launch (its outputs and
+gradients lstm_scan's bit for bit). enc3, enc4 and enc6 take the shapes
+of enc5's f32 kernels (D == H, at most 128 features, hidden sizes 32, 64
+and 128) in both dtypes; enc2 the same in f32, in bf16 the tensor-core
+kernels' (lstm_common.encoder_shape_error). Each is refused before any
+launch.
 """
 import collections
 
@@ -59,28 +60,23 @@ KERNEL = CudaKernel('lstm_archive.cu', {
     'lstm_tm_tc_usage': [I, P],
 })
 
-# the C functions with a tensor-core design in bf16
-TC_FUNCTIONS = ('lstm_enc2_forward', 'lstm_enc2_backward',
+# the C functions that launch kernels, all of which run csrc/lstm_f32.cuh
+# in f32
+F32_FUNCTIONS = ('lstm_enc2_forward', 'lstm_enc2_backward',
     'lstm_enc3_backward', 'lstm_enc4_backward', 'lstm_enc6_backward',
     'lstm_tm_step_forward', 'lstm_tm_step_backward')
-# the C functions that run csrc/lstm_f32.cuh in f32: the five backwards
-# and tm's forward step
-F32_FUNCTIONS = ('lstm_enc2_backward', 'lstm_enc3_backward',
-    'lstm_enc4_backward', 'lstm_enc6_backward', 'lstm_tm_step_forward',
-    'lstm_tm_step_backward')
 
 
 def design(fn, cdt):
     """The design the C function `fn` of KERNEL runs in cdt: 'tc'
-    (lstm_tc.cuh's tensor-core kernels: TC_FUNCTIONS in bf16), 'cluster'
-    (csrc/lstm_f32.cuh: F32_FUNCTIONS in f32, enc5's backward, enc2's with
-    two sums, tm's lstm_scan's mode XP forward and backward) or 'fma'
-    (lstm_common.cuh's FMA cell kernel: enc2's forward in f32)."""
+    (csrc/lstm_tc.cuh's tensor-core kernels, every one in bf16) or
+    'cluster' (csrc/lstm_f32.cuh, every one in f32: enc5's pair, enc2's
+    with two sums, tm's lstm_scan's mode XP forward and backward)."""
     if fn not in KERNEL.functions:
         raise ValueError(f'{fn} is not a C function of {KERNEL.source}')
-    if cdt == torch.bfloat16:
-        return 'tc' if fn in TC_FUNCTIONS else 'fma'
-    return 'cluster' if fn in F32_FUNCTIONS else 'fma'
+    if fn not in F32_FUNCTIONS:
+        raise ValueError(f'{fn} is not a launch of {KERNEL.source}')
+    return 'tc' if cdt == torch.bfloat16 else 'cluster'
 
 # One encoder-fused variant: forward(feats, h0, c0, w_enc, b_enc, w_ih,
 # w_hh, b, cdt, save_cseq) -> (outs, hT, cT, cseq) and backward(those

@@ -32,13 +32,17 @@ memory, f32 activations and db from the rounded dgates, then dpre and the
 weight gradients as enc5's backward runs them. Both take enc5's reach in
 bf16: any encoder width D that is a multiple of 8 up to
 lstm_common.tc_max_input(H), up to tc_max_features() features. In f32,
-D == H, the forward runs on FMA, and the backward on csrc/lstm_f32.cuh
-(archive.design 'cluster'): in f32 the roundings are the identity, so it
-is enc5's f32 backward with lstm_scan_fused's two sums. The encoder
-SGEMM; x @ W_ih + b as one SGEMM (the bias in its epilogue) into the
-dgates scratch; the pre-pass h_prev @ W_hh from zero with that slab added
-before the activations; enc5's reverse loop on thread block clusters;
-dpre and the weight gradients as SGEMMs.
+D == H, both run csrc/lstm_f32.cuh (archive.design 'cluster'): in f32
+the roundings are the identity, so the pair is enc5's f32 pair with
+lstm_scan_fused's two sums. The forward is the TPU kernel's schedule:
+the encoder and x @ W_ih + b (the bias in its epilogue) as two SGEMMs
+over all T*B rows into f32 scratch (the encoded inputs and the
+projection), then fused's loop on thread block clusters, W_hh on chip
+for all T steps, each step's h @ W_hh summed from zero and the
+projection added after it. The backward recomputes both SGEMMs (the
+projection into the dgates scratch), runs the pre-pass h_prev @ W_hh
+from zero with that slab added before the activations, enc5's reverse
+loop on thread block clusters, dpre and the weight gradients as SGEMMs.
 """
 import torch
 
@@ -110,9 +114,10 @@ def _projection_scratch(T, B, H, device):
 
 def _launch_forward(feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b, cdt,
         save_cseq=True, phases=FORWARD_PHASES):
-    """lstm_enc2_forward: on the tensor cores in bf16 (phases < 2 stops
-    after the encoder and the projection, to time them), on FMA in f32:
-    (outs, hT, cT, cseq)."""
+    """lstm_enc2_forward: on the tensor cores in bf16, on lstm_f32.cuh in
+    f32 (lstm_enc.launch_forward gives either its scratch); phases < 2
+    stops after the encoder and the projection, to time them: (outs, hT,
+    cT, cseq)."""
     check_encoder_kernel_shape(feats, w_enc, h0.shape[1], cdt)
     return lstm_enc.launch_forward(KERNEL, 'lstm_enc2_forward', feats, h0,
         c0, w_enc, b_enc, w_ih, w_hh, b, cdt, save_cseq, phases,

@@ -28,20 +28,19 @@ default compute dtype of both packages and of every config.yaml section
 'cluster', enc5's f32 design without the encoder), which takes D == H:
 x @ W_ih, the backward's gate recompute, dx = dg @ W_ih^T and the weight
 gradients as FMA SGEMMs over all T*B rows, and time loops that keep W_hh
-on chip for all T steps in a thread block cluster. The forward keeps the
-sums of the FMA cell it replaced in their order, so its outputs are that
-kernel's bits, and returns its x @ W_ih slab (T * B * 4H f32, 268 MB at
-T 16, B 8192, H 128), which the autograd Function keeps: the backward's
-gate recompute starts each sum from it and continues over h_prev @ W_hh
-alone, with the activations as its epilogue (half the products of
-recomputing [x | h_prev] @ [W_ih; W_hh], the same bits). design(fn, cdt)
-says which runs; f32_plan and f32_usage give the f32 loops' tilings and
-the kernels' registers. These resident designs take hidden sizes 32, 64
-and 128. Every
-other shape, at any input width and any hidden size up to
-lstm_common.STREAM_MAX_HIDDEN, runs the second design,
-csrc/lstm_cat_stream.cu (STREAM_KERNEL), in both dtypes (bf16 on the
-tensor cores, f32 on FMA). Its launchers pad a hidden size that is no
+on chip for all T steps in a thread block cluster. Each of the forward's
+sums is x over k < D from zero, then h, then b (the TPU kernel's one sum
+over K = D + H in order), and it returns its x @ W_ih slab (T * B * 4H
+f32, 268 MB at T 16, B 8192, H 128), which the autograd Function keeps:
+the backward's gate recompute starts each sum from it and continues over
+h_prev @ W_hh alone, with the activations as its epilogue (half the
+products of recomputing [x | h_prev] @ [W_ih; W_hh], the same bits).
+design(fn, cdt) says which runs; f32_plan and f32_usage give the f32
+loops' tilings and the kernels' registers. These resident designs take
+hidden sizes 32, 64 and 128. Every other shape, at any input width and
+any hidden size up to lstm_common.STREAM_MAX_HIDDEN, runs the second
+design, csrc/lstm_cat_stream.cu (STREAM_KERNEL), in both dtypes (bf16 on
+the tensor cores, f32 on FMA). Its launchers pad a hidden size that is no
 multiple of 32 with zero units inside each gate block
 (lstm_common.pad_cell) and slice the outputs and gradients back. At few
 batch rows its recurrence is one persistent launch whose blocks each hold

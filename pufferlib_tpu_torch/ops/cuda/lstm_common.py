@@ -13,18 +13,19 @@ from pufferlib_tpu_torch.ops.cuda._build import (
     ptr, ptr_or_null, stream_handle)
 
 CDTS = (torch.float32, torch.bfloat16)
-# Hidden sizes of every CUDA LSTM kernel: the FMA kernels' units tile the
-# 256-thread block (csrc/lstm_common.cuh), the tensor-core loops' groups
-# of 8 units the 16-warp block (csrc/lstm_tc.cuh Geo). The FMA kernels
-# also take only an input width equal to the hidden size (layer 0 with
-# input_size == hidden_size, and every later layer).
+# Hidden sizes of every resident CUDA LSTM kernel: the f32 cluster loops'
+# blocks of 32 or 64 units (csrc/lstm_f32.cuh LoopConfigs), the
+# tensor-core loops' groups of 8 units the 16-warp block (csrc/lstm_tc.cuh
+# Geo). The f32 kernels also take only an input width equal to the hidden
+# size (layer 0 with input_size == hidden_size, and every later layer).
 KERNEL_HIDDEN = (32, 64, 128)
-# batch rows per block of the recurrent kernels (lstm_common.cuh BT)
+# batch rows of the f32 cluster loops' smallest tile (csrc/lstm_f32.cuh
+# LoopConfigs' small tiling): a row of the f32 backwards' db partials each
 ROWS_PER_BLOCK = 32
-# feature widths whose W_enc the encoder-fused FMA kernels held in shared
-# memory (lstm_common.cuh forward_smem: enc2's f32 forward still does),
-# and the reach enc5's f32 kernels (lstm_f32.cuh) keep; enc5's bf16
-# kernels take up to tc_max_features()
+# the feature widths the encoder-fused f32 kernels (csrc/lstm_f32.cuh:
+# enc5's, and so lstm_scan_enc's and the archived ones) take, the reach of
+# the FMA kernels they replaced; enc5's bf16 kernels take up to
+# tc_max_features()
 KERNEL_MAX_FEATURES = 128
 # batch rows per block of the tensor-core loops (lstm_tc.cuh BR)
 TC_ROWS_PER_BLOCK = 64
@@ -218,9 +219,9 @@ def tc_max_features():
 
 
 def fma_shape_error(D, H):
-    """Why the f32 FMA kernels (lstm_common.cuh's cell, lstm_f32.cuh's
-    cluster design; every LSTM kernel but the bf16 tensor-core ones and
-    the streamed pairs) refuse input width D and hidden size H, or None."""
+    """Why the f32 FMA kernels (lstm_f32.cuh's cluster design; every
+    resident LSTM kernel but the bf16 tensor-core ones) refuse input width
+    D and hidden size H, or None."""
     if H not in KERNEL_HIDDEN or D != H:
         return (f'the CUDA LSTM kernels on FMA take hidden sizes '
             f'{KERNEL_HIDDEN} with input width equal to the hidden size; '
@@ -358,9 +359,9 @@ def cat_design(D, H, cdt):
 
 def fma_encoder_shape_error(F, D, H):
     """Why the encoder-fused kernels at the FMA kernels' reach (enc5's f32
-    kernels, and so lstm_scan_enc's and the archived backwards in f32; the
-    archived enc3, enc4 and enc6 in both dtypes; enc2's FMA forward)
-    refuse F features, encoder width D and hidden size H, or None."""
+    kernels, and so lstm_scan_enc's and the archived enc2's in f32; the
+    archived enc3, enc4 and enc6 in both dtypes) refuse F features,
+    encoder width D and hidden size H, or None."""
     err = fma_shape_error(D, H)
     if err is None and F > KERNEL_MAX_FEATURES:
         err = (f'the CUDA encoder-fused LSTM kernels on FMA take at most '

@@ -43,12 +43,13 @@ config.yaml section, the enc5 pair runs csrc/lstm_f32.cuh (design
 'cluster'): the encoder, x @ W_ih, the backward's gate recompute, dpre
 and the weight gradients as FMA SGEMMs over all T*B rows, and time loops
 that keep W_hh on chip for all T steps in a thread block cluster (no
-TF32: every product is an f32 FMA). The forward keeps the sums of the
-FMA cell in their order, so lstm_scan_enc's forward and the archived
-enc3, enc4 and enc6 forwards, which run the same C function, keep their
-bits. lstm_scan_enc's step backward, whose roundings are the identity in
-f32, runs enc5's f32 backward too, so its gradients are enc5's bit for
-bit. All take D == H and at most KERNEL_MAX_FEATURES features.
+TF32: every product is an f32 FMA). Each of the forward's sums is x over
+k < D from zero, then h, then b: the TPU kernel's one sum over K = D + H
+in order. lstm_scan_enc's forward and the archived enc3, enc4 and enc6
+forwards run the same C function. lstm_scan_enc's step backward, whose
+roundings are the identity in f32, runs enc5's f32 backward too, so its
+gradients are enc5's bit for bit. All take D == H and at most
+KERNEL_MAX_FEATURES features.
 
 Every other enc5 shape with a hidden size up to
 lstm_common.STREAM_MAX_HIDDEN (padded to a multiple of 32 with zero
@@ -220,18 +221,18 @@ def _launch_forward(feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b, cdt,
     lstm_scan_enc's): (outs, hT, cT, cseq)."""
     check_encoder_kernel_shape(feats, w_enc, h0.shape[1], cdt)
     return launch_forward(KERNEL, 'lstm_enc_forward', feats, h0, c0, w_enc,
-        b_enc, w_ih, w_hh, b, cdt, save_cseq, phases, tc_slab,
-        f32_scratch=True)
+        b_enc, w_ih, w_hh, b, cdt, save_cseq, phases, tc_slab)
 
 
 def launch_forward(kernel, fn, feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b,
-        cdt, save_cseq, phases, slab, f32_scratch=False):
+        cdt, save_cseq, phases, slab):
     """The forward C function `fn` of `kernel` that takes
     lstm_enc_forward's arguments (enc5's, and the archived enc2's), on a
     shape the caller has checked: (outs, hT, cT, cseq). In bf16 its scratch
     is the encoded inputs, slab(T, B, H, device) (the gate slab the loop
-    reads) and the bf16 weights; in f32 with f32_scratch (lstm_f32.cuh's
-    forward) the encoded inputs and x @ W_ih, (T * B * 4H), else none."""
+    reads) and the bf16 weights; in f32 (lstm_f32.cuh's forward) the
+    encoded inputs and the projection x @ W_ih (enc2's x @ W_ih + b),
+    (T * B * 4H)."""
     T, B, F = feats.shape
     H = h0.shape[1]
     D = w_enc.shape[1]
@@ -239,17 +240,16 @@ def launch_forward(kernel, fn, feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b,
     if B > 0:
         tc = cdt == torch.bfloat16
         dev = feats.device
-        xs = torch.empty((T, B, D), dtype=cdt, device=dev) \
-            if tc or f32_scratch else None
+        xs = torch.empty((T, B, D), dtype=cdt, device=dev)
         xw = slab(T, B, H, dev) if tc else torch.empty((T * B * 4 * H,),
-            dtype=torch.float32, device=dev) if f32_scratch else None
+            dtype=torch.float32, device=dev)
         # [W_ih; W_hh], then W_enc, in bf16
         w16 = torch.empty(((D + H) * 4 * H + F * D,), dtype=torch.bfloat16,
             device=dev) if tc else None
         kernel.launch(fn, ptr(feats), ptr(h0), ptr(c0),
             ptr(w_enc), ptr(b_enc), ptr(w_ih), ptr(w_hh), ptr(b), ptr(outs),
-            ptr_or_null(cseq), ptr(hT), ptr(cT), ptr_or_null(xs),
-            ptr_or_null(xw), ptr_or_null(w16), T, B, F, D, H, int(tc), phases,
+            ptr_or_null(cseq), ptr(hT), ptr(cT), ptr(xs), ptr(xw),
+            ptr_or_null(w16), T, B, F, D, H, int(tc), phases,
             stream_handle(feats))
     return outs, hT, cT, cseq
 

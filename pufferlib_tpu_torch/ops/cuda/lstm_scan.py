@@ -38,19 +38,19 @@ no TF32), which takes D == H, both pairs run csrc/lstm_f32.cuh (design
 'cluster'). lstm_scan's forward is lstm_scan_fused's forward loop with
 x_proj (f32 or bf16) as its slab and no SGEMM: W_hh on chip for all T
 steps in a thread block cluster, each step's h @ W_hh summed from zero
-and x_proj_t added after it (the order of the FMA cell it replaced, so
-its bits), no scratch. Its backward (SCAN_F32_BACKWARD_PHASES) computes
-every step's gates at once as an FMA SGEMM, h_prev @ W_hh from zero with
-x_proj added in its epilogue, the activations written where the f32
-dgates go (dx_proj, or with bf16 x_proj an f32 scratch rounded into
-dx_proj after the loop), then a reverse loop on thread block clusters
-that writes the dgates over them, then dW_hh as a split-K SGEMM; its
-scratch is W_hh^T and the split-K's partials, no slab. lstm_scan_fused's
+and x_proj_t added after it (the TPU kernel's order), no scratch. Its
+backward (SCAN_F32_BACKWARD_PHASES) computes every step's gates at once
+as an FMA SGEMM, h_prev @ W_hh from zero with x_proj added in its
+epilogue, the activations written where the f32 dgates go (dx_proj, or
+with bf16 x_proj an f32 scratch rounded into dx_proj after the loop),
+then a reverse loop on thread block clusters that writes the dgates over
+them, then dW_hh as a split-K SGEMM; its scratch is W_hh^T and the
+split-K's partials, no slab. lstm_scan_fused's
 pair is lstm_scan_cat's f32 design with fused's two sums:
 xw = x @ W_ih + b as one FMA SGEMM over all T*B rows, the bias in its
 epilogue, then time loops that keep W_hh on chip for all T steps in a
 thread block cluster, each step's h @ W_hh summed from zero and the slab
-added after it (the FMA cell's sums in their order: its bits). The
+added after it (the TPU kernel's two sums in their order). The
 forward returns its slab (T * B * 4H f32, 268 MB at T 16, B 8192, H 128),
 which the autograd Function keeps for the backward: the backward's gates
 are h_prev @ W_hh plus the slab, the activations in that SGEMM's

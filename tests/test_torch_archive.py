@@ -410,11 +410,11 @@ def test_archive_kernel_is_built_and_counted_with_the_others():
 
 
 # every C function of the archive that launches a kernel, and the design it
-# runs in (bf16, f32): the five f32 backwards and tm's f32 forward step on
-# csrc/lstm_f32.cuh (tm's lstm_scan's one step a launch), enc2's f32
-# forward on FMA, every bf16 one on the tensor cores
+# runs in (bf16, f32): every bf16 one on the tensor cores, every f32 one on
+# csrc/lstm_f32.cuh (enc2's pair enc5's with two sums, the other three
+# backwards enc5's, tm's lstm_scan's one step a launch)
 ARCHIVE_DESIGNS = {
-    'lstm_enc2_forward': ('tc', 'fma'),
+    'lstm_enc2_forward': ('tc', 'cluster'),
     'lstm_enc2_backward': ('tc', 'cluster'),
     'lstm_enc3_backward': ('tc', 'cluster'),
     'lstm_enc4_backward': ('tc', 'cluster'),
@@ -430,6 +430,80 @@ def test_archive_design_table(fn):
     assert archive.design(fn, torch.float32) == ARCHIVE_DESIGNS[fn][1]
     assert (fn in archive.F32_FUNCTIONS) == (ARCHIVE_DESIGNS[fn][1]
         == 'cluster')
+
+
+@pytest.mark.parametrize('fn', ['lstm_archive_tc_usage', 'lstm_tm_tc_usage'])
+def test_archive_design_refuses_a_query(fn):
+    """The registers-and-spills queries of the archive's library launch
+    nothing, so they have no design: archive.design raises for them in
+    both dtypes, as it does for a name that is no C function of the
+    archive."""
+    for cdt in (torch.bfloat16, torch.float32):
+        with pytest.raises(ValueError, match='not a launch'):
+            archive.design(fn, cdt)
+    with pytest.raises(ValueError, match='not a C function'):
+        archive.design('lstm_enc_forward', torch.float32)
+
+
+# (F, D, H) of enc2's f32 forward: inside enc5's f32 reach (D == H in 32,
+# 64, 128, at most 128 features) and just past it (D != H, 129 features,
+# hidden 96)
+ENC2_F32_FORWARD_SHAPES = [(49, 128, 128), (1, 32, 32), (128, 64, 64),
+    (49, 96, 128), (129, 128, 128), (49, 96, 96)]
+
+
+@pytest.mark.parametrize('F,D,H', ENC2_F32_FORWARD_SHAPES)
+def test_enc2_f32_forward_launch_takes_f32_scratch(F, D, H, monkeypatch):
+    """enc2's f32 forward launches lstm_enc2_forward (design 'cluster':
+    csrc/lstm_f32.cuh's enc5 forward with two sums) through
+    lstm_enc.launch_forward with enc5's f32 scratch: the encoded inputs
+    (T, B, D) and the projection x @ W_ih + b (T * B * 4H), both f32, and
+    no bf16 weights; phases 1 (the encoder and the projection) and 2 (the
+    whole forward) both reach the launch, and a call without a gradient
+    passes no cell sequence. A shape past enc5's f32 reach is refused
+    before any launch. The device check is taken out and the pointers
+    handed over as the tensors themselves, and the launch is recorded,
+    not made, so that CPU tensors reach it."""
+    from pufferlib_tpu_torch.ops.cuda import lstm_common
+
+    def refuse_shape(device, err):
+        if err is not None:
+            raise ValueError(err)
+    calls = []
+
+    def record(fn, *args):
+        calls.append((fn, args))
+    monkeypatch.setattr(lstm_common, '_refuse', refuse_shape)
+    monkeypatch.setattr(lstm_enc, 'ptr', lambda t: t)
+    monkeypatch.setattr(lstm_enc, 'ptr_or_null', lambda t: t)
+    monkeypatch.setattr(lstm_enc, 'stream_handle', lambda t: None)
+    monkeypatch.setattr(archive.KERNEL, 'launch', record)
+    assert archive.design('lstm_enc2_forward', torch.float32) == 'cluster'
+    launch = port_module('enc2').VARIANT.forward_launch
+    T, B = 2, 5
+    tensors = [torch.from_numpy(a) for a in enc_inputs(32, T=T, B=B, F=F,
+        D=D, H=H)]
+    err = lstm_common.fma_encoder_shape_error(F, D, H)
+    assert (err is None) == (D == H and H in lstm_common.KERNEL_HIDDEN
+        and F <= lstm_common.KERNEL_MAX_FEATURES)
+    if err is not None:
+        with pytest.raises(ValueError, match='on FMA'):
+            launch(*tensors, torch.float32)
+        assert calls == []
+        return
+    for phases, save_cseq in ((1, True), (2, True), (2, False)):
+        outs, hT, cT, cseq = launch(*tensors, torch.float32, save_cseq,
+            phases)
+        fn, args = calls[-1]
+        assert fn == 'lstm_enc2_forward' and len(args) == 23
+        assert args[8] is outs and args[9] is cseq
+        assert (cseq is None) != save_cseq
+        xs, xp, w16 = args[12:15]
+        assert xs.dtype == xp.dtype == torch.float32
+        assert xs.shape == (T, B, D) and xp.shape == (T * B * 4 * H,)
+        assert w16 is None
+        assert args[15:22] == (T, B, F, D, H, 0, phases)
+    assert len(calls) == 3
 
 
 # (F, H) at the edges of the f32 reach of the step backward and enc3, enc4

@@ -19,8 +19,8 @@ lstm_scan_fused and the enc5 pair run their tensor-core kernels in bf16
 widths up to the encoder's limit); in f32 the enc5, cat and fused pairs
 and every backward run csrc/lstm_f32.cuh's cluster kernels (enc4's and
 enc6's equal to enc5's bit for bit), and so do lstm_scan's and tm's
-forwards (the two-sums loop on x_proj); the archived enc2's forward runs
-the FMA cell. The archived tm's step kernels run lstm_scan's loops one
+forwards (the two-sums loop on x_proj) and the archived enc2's forward
+(enc5's forward with the two sums). The archived tm's step kernels run lstm_scan's loops one
 step a launch (both ways, both dtypes) and must equal lstm_scan's kernels
 bit for bit.
 """
@@ -1282,6 +1282,34 @@ def test_enc2_f32_backward_on_the_cluster_design(cuda, monkeypatch, B):
     _check_deterministic(cuda, 'enc2', 16, B, 128, cdt=torch.float32, runs=5)
 
 
+@pytest.mark.parametrize('B', [8192, 1000])
+@pytest.mark.parametrize('H', [32, 64, 128])
+def test_enc2_f32_forward_on_the_cluster_design(cuda, monkeypatch, B, H):
+    """The archived enc2's f32 forward runs csrc/lstm_f32.cuh (enc5's f32
+    forward with lstm_scan_fused's two sums: the encoder and x @ W_ih + b
+    as SGEMMs into f32 scratch, then fused's cluster loop): at the bench's
+    batch and a ragged one, at every hidden size (both loop tilings),
+    within LSTM_TOL of the plain version with every buffer between guards,
+    five runs equal bit for bit, a call without a cell sequence writing
+    none and giving the same outputs, and phases 1 (the encoder and the
+    projection) and 2 running without a fault."""
+    from pufferlib_tpu_torch.ops.cuda import archive
+    assert archive.design('lstm_enc2_forward', torch.float32) == 'cluster'
+    _check_f32_guards(cuda, monkeypatch, 'enc2', 16, B, H)
+    _check_deterministic(cuda, 'enc2', 16, B, H, cdt=torch.float32, runs=5)
+    fwd = _lstm_kinds()['enc2'][0]
+    args = _lstm_case('enc2', 16, B, H, 49, torch.float32, cuda)
+    with torch.no_grad():
+        whole = fwd(*args, torch.float32)
+        alone = fwd(*args, torch.float32, save_cseq=False)
+        for phases in (1, 2):
+            fwd(*args, torch.float32, phases=phases)
+    torch.cuda.synchronize()
+    assert alone[3] is None and whole[3] is not None
+    for a, w in zip(alone[:3], whole[:3]):
+        assert torch.equal(a, w)
+
+
 def _check_f32_backward_is_enc5s(cuda, monkeypatch, kind, B):
     """`kind`'s f32 backward, which runs csrc/lstm_f32.cuh's enc5 backward
     with enc5's one sum: at T 16, H 128 and batch B, within LSTM_TOL of its
@@ -1445,9 +1473,9 @@ def test_enc_step_backward_and_enc2_forward_run_the_tensor_core_path(cuda):
     lstm_tc.cuh's path, which needs its scratch (the backward's P slab and
     bf16 weights; the forward's encoded inputs, projection and bf16
     weights): handed none, they refuse. The bf16 launchers' phases stop
-    early without an error; so do the step backward's in f32, where it
-    runs enc5's f32 backward, while enc2's f32 FMA forward takes only the
-    whole call (all phases)."""
+    early without an error; so do the step backward's and enc2's forward's
+    in f32, where they run enc5's f32 backward and enc5's f32 forward with
+    two sums."""
     from pufferlib_tpu_torch.ops.cuda import archive, lstm_enc
     T, B, H, F = 3, 70, 64, 49
     for kind, kernel, fn, nulls in (
@@ -1498,8 +1526,7 @@ def test_enc_step_backward_and_enc2_forward_run_the_tensor_core_path(cuda):
                     bwd(*f32, outs, cseq, *(t.float() for t in g),
                         torch.float32, phases=phases)
             else:
-                with pytest.raises(RuntimeError):
-                    fwd(*f32, torch.float32, phases=1)
+                fwd(*f32, torch.float32, phases=1)
     torch.cuda.synchronize()
 
 
@@ -1556,7 +1583,7 @@ def test_archived_tm_bf16_is_deterministic(cuda, T, B, H):
 
 
 def test_archived_tm_runs_the_tensor_core_path_in_bf16(cuda):
-    """archive.design and TC_FUNCTIONS name tm's step kernels in bf16
+    """archive.design and F32_FUNCTIONS name tm's step kernels in bf16
     ('tc'; in f32 both 'cluster': lstm_scan's f32 forward and backward one
     step a launch). The bf16 C functions need
     their scratch (W_hh, and in the backward h0, rounded to bf16), the f32
@@ -1573,7 +1600,7 @@ def test_archived_tm_runs_the_tensor_core_path_in_bf16(cuda):
             'tc' if bf16 else 'cluster')
         assert archive.design('lstm_tm_step_backward', cdt) == (
             'tc' if bf16 else 'cluster')
-        assert set(scratch) <= set(archive.TC_FUNCTIONS)
+        assert set(scratch) <= set(archive.F32_FUNCTIONS)
         args = _lstm_case('tm', T, B, H, 49, cdt, cuda)
         with torch.no_grad():
             outs, _, _, cseq = fwd(*args, cdt)

@@ -1265,8 +1265,8 @@ def test_f32_fma_xp_forward_is_gone():
     """Mode XP of lstm_common.cuh's FMA cell (its x_proj load, its branch
     of the cell kernel, the x_proj type parameter and the step-range
     launcher) is gone: lstm_scan's and tm's f32 forwards run
-    csrc/lstm_f32.cuh's xp_forward, and the FMA cell serves enc2's f32
-    forward (mode ENC2) alone."""
+    csrc/lstm_f32.cuh's xp_forward (and the rest of the FMA cell went with
+    enc2's f32 forward: test_f32_fma_cell_is_gone)."""
     import os
     import re
     csrc = os.path.join(os.path.dirname(lstm_common.__file__), '..', '..',
@@ -1288,6 +1288,94 @@ def test_f32_fma_xp_forward_is_gone():
                 name, launches)
     for cu in ('lstm_scan.cu', 'lstm_archive.cu'):
         assert 'f32::xp_forward<H, S>' in source(cu), cu
+
+
+def test_f32_fma_cell_is_gone():
+    """lstm_common.cuh's FMA cell (the cell kernel, its launcher, its
+    shared-memory size, its gate sums, its encoder and its weight staging)
+    is gone from every CUDA source: the archived enc2's f32 forward, its
+    last caller, runs csrc/lstm_f32.cuh's enc5 forward with fused's two
+    sums."""
+    import os
+    import re
+    csrc = os.path.join(os.path.dirname(lstm_common.__file__), '..', '..',
+        'csrc')
+
+    def source(name):
+        with open(os.path.join(csrc, name)) as f:
+            return f.read()
+    for name in os.listdir(csrc):
+        if not name.endswith(('.cu', '.cuh')):
+            continue
+        text = source(name)
+        assert not re.search(r'\brun_forward\s*<', text), name
+        assert not re.search(r'\bcell_forward\s*<\s*H\s*,\s*E\b', text), name
+        for gone in ('gate_sums', 'gates_gemm', 'encode_rows', 'forward_smem',
+                'RowChunk', 'fetch_rows', 'put_rows'):
+            assert not re.search(rf'\b{gone}\b', text), (name, gone)
+        assert not re.search(r'\bstruct\s+Tile\b', text), name
+    assert 'f32::enc5_forward<H, true>' in source('lstm_archive.cu')
+
+
+def enc2_f32_forward_schedule(feats, h0, c0, w_enc, b_enc, w_ih, w_hh, b,
+        rows):
+    """What the archived enc2's f32 forward (csrc/lstm_f32.cuh
+    enc5_forward<H, true>) computes, in its order, in plain torch: the
+    encoder over all T*B rows as one product, xs = relu(feats @ W_enc +
+    b_enc); the projection xw = xs @ W_ih + b as one more; then fused's
+    loop on xw (xp_f32_forward_schedule: tiles of `rows` batch rows, each
+    step's h @ W_hh summed from zero and xw_t added after it). Returns
+    (outs, hT, cT, cseq)."""
+    T, B, F = feats.shape
+    H = h0.shape[1]
+    xs = torch.relu(feats.float().reshape(T * B, F) @ w_enc + b_enc)
+    xw = (xs @ w_ih + b).reshape(T, B, 4 * H)
+    return xp_f32_forward_schedule(xw, h0, c0, w_hh, rows)
+
+
+# (T, B, F, H, rows a cluster): both loop tilings of each hidden size
+# (lstm_f32.cuh LoopConfigs: big 64 rows at H 64 and 128, 128 at H 32;
+# small 32), whole tiles and short last tiles at B % 8 == 0 (held to the
+# JAX kernel), ragged batches (B % 8 != 0, held to the plain version);
+# one feature, the bench's 49 and the most, 128
+ENC2_F32_FORWARDS = [(3, 16, 49, 128, 64), (3, 40, 49, 128, 32),
+    (3, 24, 20, 64, 64), (3, 72, 128, 64, 32), (4, 136, 5, 32, 128),
+    (3, 16, 1, 32, 32), (3, 45, 49, 128, 32), (3, 33, 128, 64, 64),
+    (5, 10, 1, 32, 128)]
+
+
+@pytest.mark.parametrize('T,B,F,H,rows', ENC2_F32_FORWARDS)
+def test_enc2_f32_forward_schedule_keeps_the_function(T, B, F, H, rows):
+    """The archived enc2's f32 forward schedule (enc2_f32_forward_schedule)
+    against the plain lstm_enc2_reference on the same inputs, and at B % 8
+    == 0 against the JAX package's Pallas lstm_scan_enc2 in f32 (its
+    `_impl`, which also returns the cell sequence) in interpret mode.
+    Tolerance 1e-5 of max(1, max |reference|) per tensor: the same f32
+    products summed in another order (in f32 the TPU kernel's roundings
+    of x and xp are the identity)."""
+    rng = np.random.default_rng(32)
+    D = H
+    arrays = [(rng.standard_normal(shape) * k).astype(np.float32)
+        for shape, k in (((T, B, F), 0.9), ((B, H), 0.3), ((B, H), 0.3),
+            ((F, D), 0.3), ((D,), 0.3), ((D, 4 * H), 0.3), ((H, 4 * H), 0.3),
+            ((4 * H,), 0.3))]
+    tensors = [torch.from_numpy(a) for a in arrays]
+    tol = 1e-5
+    names = ('outs', 'hT', 'cT', 'cseq')
+    got = enc2_f32_forward_schedule(*tensors, rows)
+    plain = lstm_enc2.lstm_enc2_reference(*tensors, torch.float32)
+    for name, a, w in zip(names, got, plain):
+        assert a.dtype == w.dtype == torch.float32 and a.shape == w.shape
+        assert_close(a, w, tol, True, f'enc2 f32 forward schedule {name}')
+    if B % 8:
+        return
+    with pltpu.force_tpu_interpret_mode():
+        want = jax_archive_enc2._impl(*(jnp.asarray(a) for a in arrays),
+            jnp.float32)
+    for name, a, w in zip(names, got, want):
+        assert a.shape == tuple(w.shape), name
+        assert_close(a, w, tol, True, f'enc2 f32 forward schedule {name} '
+            'against JAX')
 
 
 def tm_tc_schedule(x_proj, h0, c0, w_hh, cdt, splits):
@@ -1654,7 +1742,7 @@ def test_archived_backward_design(kind, cdt):
     args = archive.KERNEL.functions[fn]
     enc_backward = lstm_enc.KERNEL.functions['lstm_enc_backward']
     assert args == enc_backward and len(args) == 38
-    assert fn in archive.TC_FUNCTIONS
+    assert fn in archive.F32_FUNCTIONS
 
 
 @pytest.mark.parametrize('cdt', sorted(TD))
@@ -1662,21 +1750,24 @@ def test_step_backward_and_enc2_forward_designs(cdt):
     """lstm_scan_enc's step backward (lstm_enc.design) and the archived
     enc2's forward (archive.design) run the tensor-core kernels of
     lstm_tc.cuh in bf16 ('tc'); in f32 the step backward runs enc5's f32
-    backward (lstm_f32.cuh, 'cluster'), enc2's forward the FMA cell
-    ('fma'), while tm's forward step and step backward (mode XP's loops
-    one step a launch in bf16) run lstm_scan's f32 forward and backward
-    one step a launch ('cluster'). Their C functions take enc5's
-    argument lists: lstm_enc_backward's 38 (the P slab, the bf16 weights,
-    the phases) and lstm_enc_forward's 23 (the encoded inputs, the slab,
-    the bf16 weights, the phases); tm's keep 16 and 25."""
-    want = 'tc' if cdt == 'bfloat16' else 'fma'
+    backward (lstm_f32.cuh, 'cluster'), enc2's forward enc5's f32 forward
+    with two sums ('cluster'), and tm's forward step and step backward
+    (mode XP's loops one step a launch in bf16) lstm_scan's f32 forward
+    and backward one step a launch ('cluster'). Their C functions take
+    enc5's argument lists: lstm_enc_backward's 38 (the P slab, the bf16
+    weights, the phases) and lstm_enc_forward's 23 (the encoded inputs,
+    the slab, the bf16 weights, the phases); tm's keep 16 and 25. The
+    registers queries launch nothing and have no design."""
     cluster = 'tc' if cdt == 'bfloat16' else 'cluster'
     assert lstm_enc.design('lstm_enc_step_backward', TD[cdt]) == cluster
-    assert archive.design('lstm_enc2_forward', TD[cdt]) == want
+    assert archive.design('lstm_enc2_forward', TD[cdt]) == cluster
     for fn, design in (('lstm_tm_step_forward', cluster),
             ('lstm_tm_step_backward', cluster)):
         assert archive.design(fn, TD[cdt]) == design
-        assert fn in archive.TC_FUNCTIONS
+        assert fn in archive.F32_FUNCTIONS
+    for fn in ('lstm_archive_tc_usage', 'lstm_tm_tc_usage'):
+        with pytest.raises(ValueError, match='not a launch'):
+            archive.design(fn, TD[cdt])
     assert len(archive.KERNEL.functions['lstm_tm_step_forward']) == 16
     assert len(archive.KERNEL.functions['lstm_tm_step_backward']) == 25
     step = lstm_enc.KERNEL.functions['lstm_enc_step_backward']

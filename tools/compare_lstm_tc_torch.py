@@ -17,8 +17,8 @@ kinds: F 49), once for each dtype given (bfloat16 by default); --kind
 keeps only the kinds named (and their extra readings). In
 bfloat16 it also runs the tree's own chip_smoke.time_tc_phases for the
 kinds it has phases of (in float32 enc5's, cat's, fused's, enc's, the
-archived enc3's, enc4's and enc6's, and scan's and tm's backward, where
-the tree's f32 kernels run phases):
+archived enc2's, enc3's, enc4's and enc6's, and scan's and tm's backward,
+where the tree's f32 kernels run phases):
 the last backward phase of fused, cat, enc5, enc
 and the archived encoder kinds is their weight gradients (the split-K and
 db's ordered sum), scan's and tm's dW_hh alone. An older tree whose kind
@@ -35,8 +35,8 @@ kind and dtype, the SHA-256 of every output and gradient of one forward
 and backward call on inputs from a fixed seed, that of the forward's
 outputs alone, and that of the backward's gradients alone, the backward
 fed the plain forward's outputs (and the device memory through autograd
-of cat, fused, enc5, enc, scan and the archived enc3, enc4, enc6 and tm,
-at each of their
+of cat, fused, enc5, enc, scan and the archived enc2, enc3, enc4, enc6
+and tm, at each of their
 shapes: the bytes held from the forward to the backward and the peak
 over both): two trees whose digests of a kind agree
 compute it bit for bit alike, and two whose forward (backward) digests
@@ -75,6 +75,7 @@ import numpy as np
 import torch
 sys.path.insert(0, '.')
 import chip_smoke
+from pufferlib_tpu_torch.ops.cuda.archive.lstm_enc2 import lstm_scan_enc2
 from pufferlib_tpu_torch.ops.cuda.archive.lstm_enc3 import lstm_scan_enc3
 from pufferlib_tpu_torch.ops.cuda.archive.lstm_enc4 import lstm_scan_enc4
 from pufferlib_tpu_torch.ops.cuda.archive.lstm_enc6 import lstm_scan_enc6
@@ -87,10 +88,10 @@ from pufferlib_tpu_torch.ops.cuda.lstm_scan import lstm_scan, lstm_scan_fused
 # the kinds whose device memory through autograd a turn reads; those that
 # take features behind the fused encoder; those that take x_proj
 SCANS = {'cat': lstm_scan_cat, 'fused': lstm_scan_fused,
-    'enc5': lstm_scan_enc5, 'enc': lstm_scan_enc, 'enc3': lstm_scan_enc3,
-    'enc4': lstm_scan_enc4, 'enc6': lstm_scan_enc6, 'scan': lstm_scan,
-    'tm': lstm_scan_tm}
-ENCODED = ('enc5', 'enc', 'enc3', 'enc4', 'enc6')
+    'enc5': lstm_scan_enc5, 'enc': lstm_scan_enc, 'enc2': lstm_scan_enc2,
+    'enc3': lstm_scan_enc3, 'enc4': lstm_scan_enc4, 'enc6': lstm_scan_enc6,
+    'scan': lstm_scan, 'tm': lstm_scan_tm}
+ENCODED = ('enc5', 'enc', 'enc2', 'enc3', 'enc4', 'enc6')
 PROJECTED = ('scan', 'tm')
 
 
@@ -167,7 +168,7 @@ for kind in KINDS:
         'forward digest': forward_digest, 'backward digest': backward_digest}
     phases = None
     if DTYPE == 'bfloat16' or kind in ('enc5', 'cat', 'fused', 'enc',
-            'enc3', 'enc4', 'enc6', 'scan', 'tm'):
+            'enc2', 'enc3', 'enc4', 'enc6', 'scan', 'tm'):
         try:
             phases = chip_smoke.time_tc_phases(torch, flush,
                 np.random.RandomState(0), kind, dtype_name=DTYPE)

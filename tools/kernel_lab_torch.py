@@ -15,12 +15,12 @@ and db from the unrounded dgates), enc2's forward as the encoder, a
 projection GEMM and lstm_scan's loop; tm lstm_scan's loops one step a
 launch.
 --dtype float32 runs the same calls in f32 (inputs and compute dtype),
-where lstm_scan_fused, lstm_scan_cat, enc5 (the forward of enc, enc3,
-enc4 and enc6 too; the backward of enc, enc3, enc4 and enc6 too, whose
-function is enc5's in f32), the archived enc2's backward and both ways
-of lstm_scan and tm (mode XP's, tm's one step a launch) run
-csrc/lstm_f32.cuh's cluster design, enc2's forward lstm_common.cuh's FMA
-cell kernel.
+where every variant runs csrc/lstm_f32.cuh's cluster design:
+lstm_scan_fused, lstm_scan_cat, enc5 (the forward of enc, enc3, enc4 and
+enc6 too; the backward of enc, enc3, enc4 and enc6 too, whose function
+is enc5's in f32), the archived enc2's pair (enc5's with fused's two
+sums) and both ways of lstm_scan and tm (mode XP's, tm's one step a
+launch).
 Default: fused fused-fwd. Each line is the mean device time of one call
 (CUDA events, the L2 flushed before every call) of the forward alone (no
 gradient needed: no cell sequence is written, except by tm) or of
