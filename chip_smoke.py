@@ -168,17 +168,23 @@ within 60 epochs); PolicyPool on the card (forced heads routed by the
 cycle map, a TransformerPolicy pool against each policy alone); and
 examples/selfplay_torch.py.
 
-The zoo and frameworks phase (phase 20): cat's streamed pair
-against its plain version in f32 at the zoo updates' shapes (T 16; B 512
-and D = H = 256, B 1024 and 256, B 512 and 512), timed beside its bound,
-the plain version and cuDNN's nn.LSTM; config.yaml's nethack section at
+The zoo and frameworks phase (phase 20): cat's resident f32 pair at
+hidden 256 (csrc/lstm_f32.cuh, clusters of 8 blocks) against its plain
+version at the zoo updates' shapes (T 16, D = H = 256; B 512, a ragged
+1000, 1024), each timed beside its bound, the plain version, cuDNN's
+nn.LSTM and cat's streamed pair on the same inputs, run twice bit for
+bit, and its phases timed at B 512 and 1024; the streamed pair against
+its plain version at pokemon_red's (B 512, D = H = 512), timed likewise;
+config.yaml's nethack section at
 full width (nethack.Policy h256 + LSTM 256, 128 fake NLE envs through
 the binding's own wrappers in HostMultiprocessing, ppo_host) for 2
 counted epochs after a warm-up, launches asserted (cat's pair 16 times
-an epoch, GAE once, nothing else), peak memory; one counted epoch each
-of nmmo, nmmo3 and pokemon_red on their fakes (ZOO_OTHERS names the
-cuts); a reference LSTMWrapper(Default) checkpoint (h128 on squared,
-the reference's key layout, from a seed) through torch_import.convert,
+an epoch on the design lstm_common.cat_design names, the resident one at
+H 256, GAE once, nothing else), peak memory; one counted epoch each
+of nmmo, nmmo3 (the resident pair) and pokemon_red (the streamed one) on
+their fakes (ZOO_OTHERS names the cuts); a reference
+LSTMWrapper(Default) checkpoint (h128 on squared, the reference's key
+layout, from a seed) through torch_import.convert,
 held through enc5 and the plain scan to nn.Linear + nn.LSTM + split
 heads on (8192, 16) segments, forward and gradients; demo_torch.py
 --mode eval playing it. stable_baselines3 and ray are not installed on
@@ -768,9 +774,10 @@ def log_tc_usage():
             f'lstm_common.tc_max_features() = {tc_max_features()}')
     # enc5's, cat's and fused's f32 kernels (csrc/lstm_f32.cuh) and the
     # tilings their loops take at memory's, a ragged and the bench's batch
+    # (cat's also at hidden 256, clusters of 8 blocks: one tiling)
     for kind, module in (('enc5', lstm_enc), ('cat', lstm_cat),
             ('fused', lstm_scan)):
-        for H in (32, 64, 128):
+        for H in (32, 64, 128) + ((256,) if kind == 'cat' else ()):
             log(f'  {kind} f32 kernels, H={H}: ' + ', '.join(
                 f'{name} {regs} registers, {spill} bytes spilled'
                 for name, (regs, spill) in module.f32_usage(H).items()))
@@ -785,7 +792,7 @@ def log_tc_usage():
 
 
 def time_tc_phases(torch, flush, rng, kind='fused', T=16, B=8192,
-        dtype_name='bfloat16', F=49):
+        dtype_name='bfloat16', F=49, H=128):
     """Device ms of each phase of the bf16 tensor-core kernels of `kind`
     ('fused': lstm_scan_fused, 'cat': lstm_scan_cat, 'enc5', 'scan':
     lstm_scan with bf16 x_proj, 'enc': lstm_scan_enc's step backward, the
@@ -795,10 +802,12 @@ def time_tc_phases(torch, flush, rng, kind='fused', T=16, B=8192,
     pre-pass is x @ W_ih, fused's and enc2's x @ W_ih + b), of the f32
     backwards of the encoder kinds, and of lstm_scan's and tm's f32 backwards (scan: the
     pre-pass, the loop and dW_hh, F32_PHASES; tm: its steps and dW_hh)
-    with dtype_name float32: a launch runs the first k phases, so a
-    phase's time is the difference of two such means (cold L2 each)."""
+    with dtype_name float32 (cat's also at H 256, D = H): a launch runs
+    the first k phases, so a phase's time is the difference of two such
+    means (cold L2 each)."""
     launch_fwd, launch_bwd = lstm_kinds()[kind][:2]
-    args, grads, cdt = lstm_case(torch, rng, kind, T, B, dtype_name, F=F)
+    args, grads, cdt = lstm_case(torch, rng, kind, T, B, dtype_name, F=F,
+        H=H)
     names = (F32_PHASES.get(kind) if dtype_name == 'float32' else None) \
         or PHASES.get(kind, TC_PHASES)
     with torch.no_grad():
@@ -816,8 +825,8 @@ def time_tc_phases(torch, flush, rng, kind='fused', T=16, B=8192,
     title = {'enc5': 'enc5', 'scan': 'lstm_scan'}.get(kind,
         f'archived {kind}' if kind in ARCHIVED_ENC_KINDS + ('tm',)
         else f'lstm_scan_{kind}')
-    log(f'{title} {dtype_name} phases T={T} B={B} F={F} H=128, ms: ' + ', '.join(
-        f'{k} {v:.4f}' for k, v in phases.items())
+    log(f'{title} {dtype_name} phases T={T} B={B} F={F} H={H}, ms: '
+        + ', '.join(f'{k} {v:.4f}' for k, v in phases.items())
         + (f'; whole forward {fwd[-1]:.4f}' if fwd else '')
         + f'; whole backward {bwd[-1]:.4f} on {card_line()}')
     return phases
@@ -2284,8 +2293,8 @@ def main():
     # pokemon_red) and the frameworks bridge (a reference checkpoint
     # through torch_import, held to the reference math, then played by
     # demo_torch's eval)
-    zoo_runs, zoo_launches, import_launches, zoo_peak = run_zoo_phase(torch,
-        card, l2_flush_buffer(), rng)
+    zoo_runs, zoo_phases, zoo_launches, import_launches, zoo_peak = \
+        run_zoo_phase(torch, card, l2_flush_buffer(), rng)
 
     # phase 21: the last zoo bindings (config.yaml's minigrid section
     # through enc5's streamed design, one epoch of each other section on
@@ -2627,34 +2636,58 @@ def main():
     kernels[-6]['kernels_per_call'] = stream_per_call['float32'][16][0]
     kernels[-5]['kernels_per_call'] = stream_per_call['float32'][16][1]
     # phase 20: the zoo trainers' flat GAE; enc5's launches in the
-    # reference checkpoint's check; cat's streamed pair at the nethack
-    # update's shape (rows named _zoo; launches: the nethack trainer's
-    # counted epochs), its launches in each zoo trainer and its times at
-    # the other zoo shapes
+    # reference checkpoint's check; cat's resident f32 pair at hidden 256
+    # at the nethack update's shape (rows named _f32_h256; launches: the
+    # nethack trainer's counted epochs), its launches in each zoo trainer,
+    # its times at the other zoo shapes and the streamed pair's beside
+    # them, its phases; the streamed pair at pokemon_red's update shape
+    # (rows named _zoo; launches: pokemon_red's counted epoch)
     rows['gae']['zoo_launches'] = {name: n['gae_forward'] for name, n in
         zoo_launches.items()}
     for part in ('forward', 'backward'):
         rows[f'lstm_enc5_{part}']['import_launches'] = \
             import_launches[f'lstm_enc_{part}']
-    nethack = zoo_runs[ZOO_CAT_SHAPES[0]]
+
+    def timings(r, part):
+        return dict(ms=r[f'{part}_ms'], plain_ms=r[f'{part}_plain_ms'],
+            bound_ms=r[f'{part}_bound'], library_ms=r[f'{part}_lib'])
+    nethack = zoo_runs['cat', ZOO_CAT_SHAPES[0]]
+    for fn, part, replaces, whole in (
+            ('lstm_cat_forward', 'fwd', 'lstm_cat.py:131', 'forward'),
+            ('lstm_cat_backward', 'bwd', 'lstm_cat.py:185', 'backward')):
+        kernels.append(dict(name=f'{fn}_f32_h256', route='cuda',
+            source='pufferlib_tpu_torch/csrc/lstm_f32.cuh',
+            replaces=f'pufferlib_tpu/ops/pallas/{replaces}',
+            launches=zoo_launches['nethack'][fn],
+            max_abs_err=max(r[f'{part}_err'] for (k, _), r in
+                zoo_runs.items() if k == 'cat'),
+            ms=nethack[f'{part}_ms'], plain_ms=nethack[f'{part}_plain_ms'],
+            bound_ms=nethack[f'{part}_bound'], bound_by=nethack[f'{part}_by'],
+            library_ms=nethack[f'{part}_lib'], shape=nethack['shape'],
+            streamed_ms=zoo_runs['cat_stream', ZOO_CAT_SHAPES[0]][
+                f'{part}_ms'],
+            zoo_launches={name: n[fn] for name, n in zoo_launches.items()},
+            other_shapes={zoo_runs['cat', shape]['shape']: dict(
+                **timings(zoo_runs['cat', shape], part), streamed_ms=zoo_runs[
+                    'cat_stream', shape][f'{part}_ms'])
+                for shape in ZOO_CAT_SHAPES[1:]},
+            phases={f'B={B}': {k: v for k, v in p.items()
+                if k.startswith(whole)} for B, p in zoo_phases.items()},
+            nethack_peak_memory_bytes=zoo_peak))
+    pokemon = zoo_runs['cat_stream', ZOO_STREAM_SHAPES[0]]
     for fn, part, replaces in (
             ('lstm_cat_stream_forward', 'fwd', 'lstm_cat.py:131'),
             ('lstm_cat_stream_backward', 'bwd', 'lstm_cat.py:185')):
         kernels.append(dict(name=f'{fn}_zoo', route='cuda',
             source='pufferlib_tpu_torch/csrc/lstm_cat_stream.cu',
             replaces=f'pufferlib_tpu/ops/pallas/{replaces}',
-            launches=zoo_launches['nethack'][fn],
-            max_abs_err=max(r[f'{part}_err'] for r in zoo_runs.values()),
-            ms=nethack[f'{part}_ms'], plain_ms=nethack[f'{part}_plain_ms'],
-            bound_ms=nethack[f'{part}_bound'], bound_by=nethack[f'{part}_by'],
-            library_ms=nethack[f'{part}_lib'], shape=nethack['shape'],
-            zoo_launches={name: n[fn] for name, n in zoo_launches.items()},
-            other_shapes={r['shape']: dict(ms=r[f'{part}_ms'],
-                plain_ms=r[f'{part}_plain_ms'],
-                bound_ms=r[f'{part}_bound'],
-                library_ms=r[f'{part}_lib']) for shape, r in
-                zoo_runs.items() if shape != ZOO_CAT_SHAPES[0]},
-            nethack_peak_memory_bytes=zoo_peak))
+            launches=zoo_launches['pokemon_red'][fn],
+            max_abs_err=max(r[f'{part}_err'] for (k, _), r in
+                zoo_runs.items() if k == 'cat_stream'),
+            ms=pokemon[f'{part}_ms'], plain_ms=pokemon[f'{part}_plain_ms'],
+            bound_ms=pokemon[f'{part}_bound'], bound_by=pokemon[f'{part}_by'],
+            library_ms=pokemon[f'{part}_lib'], shape=pokemon['shape'],
+            zoo_launches={name: n[fn] for name, n in zoo_launches.items()}))
     # phase 21: the flat GAE of each section's trainer and the cleanrl
     # example's GAE; enc5's streamed pair at minigrid's update shape (rows
     # named _minigrid; launches: its trainer's counted epochs), and its
@@ -3623,9 +3656,9 @@ def run_transformer_phase(torch, card):
 # at its own widths: nethack.Policy h256 in LSTMWrapper(256, 256), f32,
 # 128 envs, batch 32768, minibatch 8192, bptt 16, lr 2.5e-4, through
 # HostMultiprocessing (8 workers, the card machine's cores, 64 envs a
-# recv: two groups in flight) and ppo_host. The update runs cat's streamed
-# design at T 16, B 512 (8192 / 16), D = H = 256 in f32; the flat GAE once
-# an epoch.
+# recv: two groups in flight) and ppo_host. The update runs cat's resident
+# f32 pair at T 16, B 512 (8192 / 16), D = H = 256 (clusters of 8
+# blocks); the flat GAE once an epoch.
 NETHACK = dict(num_envs=128, num_workers=8, env_batch=64, batch_size=32768,
     minibatch_size=8192, bptt=16, lr=2.5e-4, hidden=256)
 # the other zoo sections, one counted epoch each (after a warm-up epoch)
@@ -3643,9 +3676,12 @@ ZOO_OTHERS = {
     'pokemon_red': dict(num_envs=64, batch_size=32768, minibatch_size=8192,
         lr=2.5e-4, hidden=512),
 }
-# cat's streamed pair at the shapes of those updates, in f32: (T, B, D, H)
-ZOO_CAT_SHAPES = ((16, 512, 256, 256), (16, 1024, 256, 256),
-    (16, 512, 512, 512))
+# (T, B, D, H) in f32 of those updates: cat's resident pair at hidden 256
+# (nethack's, minihack's and nmmo's B 512, a ragged 1000, nmmo3's 1024),
+# each beside the streamed pair, which runs pokemon_red's hidden 512
+ZOO_CAT_SHAPES = ((16, 512, 256, 256), (16, 1000, 256, 256),
+    (16, 1024, 256, 256))
+ZOO_STREAM_SHAPES = ((16, 512, 512, 512),)
 # the frameworks check: a reference LSTMWrapper(Default) checkpoint at h128
 # on squared (49 features, 8 actions), on an (8192, 16) segment batch
 IMPORT_CHECK = dict(B=8192, T=16, hidden=128, features=49, actions=8)
@@ -3857,15 +3893,20 @@ def _zoo_config(name, batch_size, minibatch_size, lr):
         checkpoint_interval=10 ** 6, seed=0)
 
 
-def _zoo_want(config, launches, epochs):
+def _zoo_want(config, launches, epochs, hidden):
     """The launches an epoch of a zoo trainer must make: the flat GAE once,
-    cat's streamed pair once a minibatch, nothing else."""
+    cat's pair once a minibatch on the design lstm_common.cat_design
+    names for D = H = hidden in f32 (resident: lstm_cat_*; streamed:
+    lstm_cat_stream_*), nothing else."""
+    import torch
+    from pufferlib_tpu_torch.ops.cuda.lstm_common import cat_design
     minibatches = config.update_epochs * (config.batch_size
         // config.minibatch_size)
     want = dict.fromkeys(launches, 0)
     want['gae_forward'] = epochs
-    want['lstm_cat_stream_forward'] = want['lstm_cat_stream_backward'] = \
-        minibatches * epochs
+    pair = 'lstm_cat' if cat_design(hidden, hidden, torch.float32) == \
+        'resident' else 'lstm_cat_stream'
+    want[f'{pair}_forward'] = want[f'{pair}_backward'] = minibatches * epochs
     return want
 
 
@@ -3896,7 +3937,7 @@ def run_nethack_trainer(torch, card, epochs=2):
     finally:
         ppo_host.close(data)
     peak = torch.cuda.max_memory_allocated()
-    want = _zoo_want(config, launches, epochs)
+    want = _zoo_want(config, launches, epochs, H)
     if launches != want:
         raise AssertionError(f'nethack: launches {launches}, expected {want}')
     if 'episode_return' not in data.stats:
@@ -3918,6 +3959,7 @@ def run_zoo_other(torch, card, name):
     import functools
     from pufferlib_tpu_torch import vector_host
     from pufferlib_tpu_torch.environments.test import host_fixtures
+    from pufferlib_tpu_torch.ops.cuda.lstm_common import cat_design
     from pufferlib_tpu_torch.training import ppo_host
     z = ZOO_OTHERS[name]
     H = z['hidden']
@@ -3948,28 +3990,31 @@ def run_zoo_other(torch, card, name):
         elapsed, launches = _host_epochs(torch, ppo_host, data, 1)
     finally:
         ppo_host.close(data)
-    want = _zoo_want(config, launches, 1)
+    want = _zoo_want(config, launches, 1, H)
     if launches != want:
         raise AssertionError(f'{name}: launches {launches}, expected {want}')
     agents = f' of {z["agents"]} agents' if 'agents' in z else ''
+    design = cat_design(H, H, torch.float32)
     _host_line(data, f'{name} host trainer ({z["num_envs"]} fake envs'
         f'{agents}, HostSerial; {name}.Policy h{H} + LSTM '
-        f'{H} f32 (cat), batch {z["batch_size"]}, minibatch '
+        f'{H} f32 (cat, {design} design), batch {z["batch_size"]}, minibatch '
         f'{z["minibatch_size"]}, bptt 16, lr {z["lr"]})', elapsed, 1,
         launches, card)
     return launches
 
 
 def run_zoo_phase(torch, card, flush, rng):
-    """Phase 20. cat's streamed pair against its plain version at the zoo
-    updates' shapes (timed beside its bound, the plain version and cuDNN's
-    nn.LSTM), then the nethack trainer, one epoch of nmmo, nmmo3 and
-    pokemon_red, the reference checkpoint through torch_import (enc5 and
-    plain routes against the reference math) and demo_torch's eval of it.
-    stable_baselines3 and ray are not installed on the card's machine:
+    """Phase 20. cat's resident f32 pair at hidden 256 against its plain
+    version at ZOO_CAT_SHAPES (timed beside its bound, the plain version,
+    cuDNN's nn.LSTM and the streamed pair on the same inputs; twice bit for
+    bit; its phases at B 512 and 1024), the streamed pair at
+    ZOO_STREAM_SHAPES, then the nethack trainer, one epoch of nmmo, nmmo3
+    and pokemon_red, the reference checkpoint through torch_import (enc5
+    and plain routes against the reference math) and demo_torch's eval of
+    it. stable_baselines3 and ray are not installed on the card's machine:
     their bridges are held on the CPU only (tests/test_torch_frameworks.py).
-    Returns ({shape: check_lstm's result}, {trainer: launches}, import
-    launches, nethack peak memory)."""
+    Returns ({(kind, shape): check_lstm's result}, {B: cat's f32 phases at
+    H 256}, {trainer: launches}, import launches, nethack peak memory)."""
     import importlib.util
     for package in ('stable_baselines3', 'ray'):
         log(f'{package}: ' + ('installed, not run here' if
@@ -3977,15 +4022,23 @@ def run_zoo_phase(torch, card, flush, rng):
             'bridge is held on the CPU only'))
     runs = {}
     for T, B, D, H in ZOO_CAT_SHAPES:
-        runs[T, B, D, H] = check_lstm(torch, flush, rng, 'cat_stream', B,
-            'float32', T=T, H=H, D=D, timed=True)
+        for kind in ('cat', 'cat_stream'):
+            runs[kind, (T, B, D, H)] = check_lstm(torch, flush, rng, kind, B,
+                'float32', T=T, H=H, D=D, timed=True)
+        check_bit_equal(torch, rng, 'cat', B, T=T, D=D, H=H,
+            dtype_name='float32')
+    for T, B, D, H in ZOO_STREAM_SHAPES:
+        runs['cat_stream', (T, B, D, H)] = check_lstm(torch, flush, rng,
+            'cat_stream', B, 'float32', T=T, H=H, D=D, timed=True)
+    phases = {B: time_tc_phases(torch, flush, rng, 'cat', T=16, B=B,
+        dtype_name='float32', H=256) for B in (512, 1024)}
     launches = {}
     launches['nethack'], peak = run_nethack_trainer(torch, card)
     for name in ZOO_OTHERS:
         launches[name] = run_zoo_other(torch, card, name)
     import_launches, ref_sd = check_reference_import(torch, card)
     run_reference_eval(torch, card, ref_sd)
-    return runs, launches, import_launches, peak
+    return runs, phases, launches, import_launches, peak
 
 
 # phase 21: the last zoo bindings. MINIGRID is config.yaml's minigrid

@@ -29,7 +29,9 @@
 //   which differs only in where the bias enters the sum.
 // * f32, the default compute dtype of both packages (exact: no TF32, the
 //   tensor cores have no exact f32 product): csrc/lstm_f32.cuh, enc5's f32
-//   design without the encoder, D == H. x @ W_ih, the backward's gate
+//   design without the encoder, D == H, at hidden sizes 32 to 128 and (cat
+//   alone of the families) 256, whose loops run clusters of 8 blocks of 32
+//   units. x @ W_ih, the backward's gate
 //   recompute, dx and the weight gradients are FMA SGEMMs over all T*B
 //   rows; the time loops keep W_hh on chip for all T steps in a thread
 //   block cluster, whose blocks exchange h (forward) or the partial
@@ -59,6 +61,10 @@ struct Backward : std::conditional_t<std::is_same<E, lstm::bf16>::value,
                                      lstm::tc::CellBackward<lstm::CAT, H>,
                                      lstm::f32::CellBackward<H, false>> {};
 
+// the hidden sizes of the f32 pair: every family's, and 256 on clusters
+// of 8 blocks (lstm_f32.cuh LoopConfigs)
+using F32Hidden = lstm::Hidden<32, 64, 128, 256>;
+
 }  // namespace
 
 extern "C" {
@@ -80,8 +86,8 @@ int lstm_cat_forward(const void* x, const float* h0, const float* c0,
     if (!lstm::aligned16(w_ih) || !lstm::aligned16(w_hh))
         return (int)cudaErrorMisalignedAddress;
     if (!xw || (cdt_bf16 && !w16)) return (int)cudaErrorInvalidValue;
-    return lstm::dispatch<Forward>(H, cdt_bf16, x, h0, c0, w_ih, w_hh, b, outs, cseq, hT,
-                                   cT, xw, w16, T, B, D, phases, stream);
+    return lstm::dispatch<Forward, F32Hidden>(H, cdt_bf16, x, h0, c0, w_ih, w_hh, b, outs,
+                                              cseq, hT, cT, xw, w16, T, B, D, phases, stream);
 }
 
 // Inputs as the forward's plus its outs and cseq and the gradients g_outs
@@ -108,10 +114,10 @@ int lstm_cat_backward(const void* x, const float* h0, const float* c0,
     if (!lstm::aligned16(w_ih) || !lstm::aligned16(w_hh))
         return (int)cudaErrorMisalignedAddress;
     if (!pre || !aux) return (int)cudaErrorInvalidValue;
-    return lstm::dispatch<Backward>(H, cdt_bf16, x, h0, c0, w_ih, w_hh, b, outs, cseq,
-                                    g_outs, g_hT, g_cT, dx, dh0, dc0, dw, db, dg, dw_part,
-                                    db_part, pre, aux, T, B, D, splits, part_rows, phases,
-                                    stream);
+    return lstm::dispatch<Backward, F32Hidden>(H, cdt_bf16, x, h0, c0, w_ih, w_hh, b, outs,
+                                               cseq, g_outs, g_hT, g_cT, dx, dh0, dc0, dw, db,
+                                               dg, dw_part, db_part, pre, aux, T, B, D, splits,
+                                               part_rows, phases, stream);
 }
 
 // Registers and spilled bytes per thread of the bf16 kernels of the cat
@@ -135,6 +141,7 @@ int lstm_cat_f32_usage(int H, int* out) {
         case 32: return (int)lstm::f32::usage<32, false>(out);
         case 64: return (int)lstm::f32::usage<64, false>(out);
         case 128: return (int)lstm::f32::usage<128, false>(out);
+        case 256: return (int)lstm::f32::usage<256, false>(out);
     }
     return (int)cudaErrorInvalidValue;
 }
@@ -147,6 +154,7 @@ int lstm_cat_f32_plan(int H, int B, int* out) {
         case 32: return (int)lstm::f32::loop_plan<32>(B, out);
         case 64: return (int)lstm::f32::loop_plan<64>(B, out);
         case 128: return (int)lstm::f32::loop_plan<128>(B, out);
+        case 256: return (int)lstm::f32::loop_plan<256>(B, out);
     }
     return (int)cudaErrorInvalidValue;
 }

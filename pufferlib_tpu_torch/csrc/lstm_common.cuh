@@ -478,23 +478,28 @@ cudaError_t splitk(SA a, SB bm, float* part, float* out, int M, int N, long long
     return reduce(part, out, splits, (long long)M * N, stream);
 }
 
-// dispatch on the hidden size and the compute dtype
-template <template <int, typename> class Fn, typename... Args>
+// The hidden sizes a family's kernels are built for
+template <int... Hs>
+struct Hidden {};
+// every family's, in both dtypes
+using KernelHidden = Hidden<32, 64, 128>;
+
+// Fn<H, E>::run(args...) for the runtime H among Hs, else
+// cudaErrorInvalidValue
+template <template <int, typename> class Fn, typename E, int... Hs, typename... Args>
+int dispatch_over(Hidden<Hs...>, int H, Args... args) {
+    int err = (int)cudaErrorInvalidValue;
+    (void)((H == Hs && (err = (int)Fn<Hs, E>::run(args...), true)) || ...);
+    return err;
+}
+
+// dispatch on the hidden size and the compute dtype: bf16 at KernelHidden,
+// f32 at F32 (KernelHidden, but for cat's f32 pair, csrc/lstm_cat.cu,
+// which adds 256)
+template <template <int, typename> class Fn, class F32 = KernelHidden, typename... Args>
 int dispatch(int H, int bf16_cdt, Args... args) {
-    if (bf16_cdt) {
-        switch (H) {
-            case 32: return (int)Fn<32, bf16>::run(args...);
-            case 64: return (int)Fn<64, bf16>::run(args...);
-            case 128: return (int)Fn<128, bf16>::run(args...);
-        }
-    } else {
-        switch (H) {
-            case 32: return (int)Fn<32, float>::run(args...);
-            case 64: return (int)Fn<64, float>::run(args...);
-            case 128: return (int)Fn<128, float>::run(args...);
-        }
-    }
-    return (int)cudaErrorInvalidValue;
+    return bf16_cdt ? dispatch_over<Fn, bf16>(KernelHidden{}, H, args...)
+                    : dispatch_over<Fn, float>(F32{}, H, args...);
 }
 
 }  // namespace lstm

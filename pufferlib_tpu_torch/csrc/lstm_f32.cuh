@@ -41,10 +41,13 @@
 //    and enc2: xw = x @ W_ih + b, the bias added in the SGEMM's epilogue);
 // 2. forward_loop: a cluster of CS = H / U blocks owns R batch rows (U =
 //    32 or 64 units a block and RT = 4 or 16 rows a thread, picked from B:
-//    plan); block `rank` holds the four gate columns of units rank*U ..
-//    rank*U+U-1 of W_hh in shared memory (4 U H floats: 128 KiB at U 64,
-//    H 128) for all T steps, and every block holds the whole h_t of its R
-//    rows. Each step a
+//    plan; at H 256, which cat's pair alone is built for, U 32 and RT 4 in
+//    clusters of 8 blocks, the portable maximum, of 9 row groups: R 36);
+//    block `rank` holds the
+//    four gate columns of units rank*U .. rank*U+U-1 of W_hh in shared
+//    memory (4 U H floats: 128 KiB at U 64, H 128 and at U 32, H 256) for
+//    all T steps, and every block holds the whole h_t of its R rows. Each
+//    step a
 //    thread starts its sums from the slab, adds h @ W_hh and b, updates
 //    c and h of its unit for RT rows, and writes h into every block of the
 //    cluster through distributed shared memory; one cluster barrier a
@@ -460,16 +463,25 @@ __global__ void transpose(const float* __restrict__ src, float* __restrict__ dst
 
 constexpr int LTHREADS = 256;
 
+// Row groups of a loop block of U units at hidden size H: LTHREADS / U,
+// but 9 at H 256 (288 threads, R 36 rows a cluster of 8). An H100 holds
+// 15 such clusters at once (cudaOccupancyMaxActiveClusters, 132 SMs), and
+// a loop's time goes by waves of them: at R 36 config.yaml's nethack and
+// nmmo updates (B 512) are one wave and nmmo3's (B 1024) two, at R 32 two
+// and three.
+constexpr int row_groups(int H, int U) { return H > 128 ? 9 : LTHREADS / U; }
+
 // A loop block owns U units (all four gate columns of each) of the
-// cluster's R = (256 / U) * RT batch rows; thread t owns unit t % U and RT
-// rows of row group t / U. A warp shares its rows (broadcast reads of h
-// and dgates) and reads consecutive units' weights.
+// cluster's R = RG * RT batch rows; thread t owns unit t % U and RT rows
+// of row group t / U. A warp shares its rows (broadcast reads of h and
+// dgates) and reads consecutive units' weights.
 template <int H, int U, int RT>
 struct Loop {
-    static_assert(H % U == 0 && LTHREADS % U == 0 && RT % 4 == 0, "the loop's tiling");
-    static_assert(H / U <= 4, "a thread's partials of at most four ranks");
     static constexpr int CS = H / U;               // blocks of a cluster
-    static constexpr int RG = LTHREADS / U;        // row groups
+    static constexpr int RG = row_groups(H, U);    // row groups
+    static constexpr int THREADS = RG * U;         // threads of a block
+    static_assert(H % U == 0 && U % 32 == 0 && RT % 4 == 0, "the loop's tiling");
+    static_assert(CS <= 8, "clusters of at most eight blocks (the portable size)");
     static constexpr int R = RG * RT;              // rows of a cluster
     static constexpr int G = 4 * H;
     static constexpr int HP = H + 4;               // row stride of an h buffer
@@ -507,7 +519,7 @@ __device__ __forceinline__ void load_gates(float (&v)[4][RT], const S* __restric
 // CS blocks along x, cluster blockIdx.x / CS taking rows R * (blockIdx.x /
 // CS) onwards.
 template <int H, int U, int RT, bool TWO_SUMS = false, typename S = float>
-__global__ void __launch_bounds__(LTHREADS, 1)
+__global__ void __launch_bounds__(Loop<H, U, RT>::THREADS, 1)
     forward_loop(const S* __restrict__ xw, const float* __restrict__ h0,
                  const float* __restrict__ c0, const float* __restrict__ w_hh,
                  const float* __restrict__ b, float* __restrict__ outs, float* __restrict__ cseq,
@@ -522,11 +534,11 @@ __global__ void __launch_bounds__(LTHREADS, 1)
     const int row0 = (int)(blockIdx.x / CS) * R;
     const int nrows = min(R, B - row0);
     const int j = threadIdx.x % U, r0 = threadIdx.x / U * RT, u = rank * U + j;
-    for (int i = threadIdx.x; i < H * U; i += LTHREADS) {
+    for (int i = threadIdx.x; i < H * U; i += L::THREADS) {
         const float* w = w_hh + (size_t)(i / U) * G + rank * U + i % U;
         *reinterpret_cast<float4*>(w_s + 4 * i) = make_float4(w[0], w[H], w[2 * H], w[3 * H]);
     }
-    for (int i = threadIdx.x; i < R * H; i += LTHREADS) {
+    for (int i = threadIdx.x; i < R * H; i += L::THREADS) {
         const int r = i / H, k = i % H;
         hb[r * HP + k] = r < nrows ? h0[(size_t)(row0 + r) * H + k] : 0.f;
     }
@@ -648,7 +660,7 @@ __device__ __forceinline__ void load_step(float (&a)[4][RT], float (&gout)[RT], 
 // it writes the dgate of that row, unit and gate, and no other thread
 // reads or writes that element; hence neither pointer is __restrict__.
 template <int H, int U, int RT>
-__global__ void __launch_bounds__(LTHREADS, 1)
+__global__ void __launch_bounds__(Loop<H, U, RT>::THREADS, 1)
     backward_loop(const float* acts, const float* __restrict__ w_hh_t,
                   const float* __restrict__ c0, const float* __restrict__ cseq,
                   const float* __restrict__ g_outs, const float* __restrict__ g_hT,
@@ -658,7 +670,9 @@ __global__ void __launch_bounds__(LTHREADS, 1)
     using L = Loop<H, U, RT>;
     constexpr int CS = L::CS, R = L::R, G = L::G, KL = L::KL, KP = L::KP, RG = L::RG;
     extern __shared__ __align__(16) float smem_loop[];
-    float* wt_s = smem_loop;          // (KL, U, CS): W_hh[m * U + l][column kl]
+    // (KL, U, CS): W_hh[m * U + l][column kl]; at CS 8 (KL, 2, U, 4), ranks
+    // 4q .. 4q+3 in plane q, so that a warp's float4 reads are consecutive
+    float* wt_s = smem_loop;
     float* dg_s = wt_s + L::BWD_W;    // (R, KP): the step's dgates of the block's columns
     float* part = dg_s + L::BWD_DG;   // (CS, R, U): rank s's partial dh_prev of my units
     cg::cluster_group cluster = cg::this_cluster();
@@ -667,14 +681,18 @@ __global__ void __launch_bounds__(LTHREADS, 1)
     const int nrows = min(R, B - row0);
     const int j = threadIdx.x % U, rg = threadIdx.x / U, r0 = rg * RT, u = rank * U + j;
     // local column kl = g * U + jj is gate g of unit rank * U + jj
-    for (int i = threadIdx.x; i < KL * U; i += LTHREADS) {
+    for (int i = threadIdx.x; i < KL * U; i += L::THREADS) {
         const int kl = i / U, l = i % U;
         const float* w = w_hh_t + (size_t)((kl / U) * H + rank * U + kl % U) * H + l;
-        float v[4];
+        float v[CS];
 #pragma unroll
         for (int m = 0; m < CS; ++m) v[m] = w[m * U];
         float* dst = wt_s + (size_t)i * CS;
-        if constexpr (CS == 4) {
+        if constexpr (CS == 8) {
+            dst = wt_s + ((size_t)kl * 2 * U + l) * 4;
+            *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+            *reinterpret_cast<float4*>(dst + 4 * U) = make_float4(v[4], v[5], v[6], v[7]);
+        } else if constexpr (CS == 4) {
             *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
         } else if constexpr (CS == 2) {
             *reinterpret_cast<float2*>(dst) = make_float2(v[0], v[1]);
@@ -740,7 +758,19 @@ __global__ void __launch_bounds__(LTHREADS, 1)
 #pragma unroll
             for (int kk = 0; kk < 4; ++kk) {
                 const float* p = wt_s + ((kl + kk) * U + j) * CS;
-                if constexpr (CS == 4) {
+                if constexpr (CS == 8) {
+                    p = wt_s + ((size_t)(kl + kk) * 2 * U + j) * 4;
+                    const float4 v0 = *reinterpret_cast<const float4*>(p);
+                    const float4 v1 = *reinterpret_cast<const float4*>(p + 4 * U);
+                    w[kk][0] = v0.x;
+                    w[kk][1] = v0.y;
+                    w[kk][2] = v0.z;
+                    w[kk][3] = v0.w;
+                    w[kk][4] = v1.x;
+                    w[kk][5] = v1.y;
+                    w[kk][6] = v1.z;
+                    w[kk][7] = v1.w;
+                } else if constexpr (CS == 4) {
                     const float4 v = *reinterpret_cast<const float4*>(p);
                     w[kk][0] = v.x;
                     w[kk][1] = v.y;
@@ -791,7 +821,7 @@ __global__ void __launch_bounds__(LTHREADS, 1)
 #pragma unroll
     for (int g = 0; g < 4; ++g) red[rg * KL + g * U + j] = db_acc[g];
     __syncthreads();
-    for (int n = threadIdx.x; n < KL; n += LTHREADS) {
+    for (int n = threadIdx.x; n < KL; n += L::THREADS) {
         float s = 0.f;
         for (int q = 0; q < RG; ++q) s += red[q * KL + n];
         db_part[(size_t)(blockIdx.x / CS) * G + (n / U) * H + rank * U + n % U] = s;
@@ -805,27 +835,34 @@ constexpr int DX_MAX_SPLITS = 4;    // dx's partials fit the (T*B, 4H) activatio
 constexpr int BACKWARD_PHASES = 4;  // (encoder +) pre-pass, loop, dx, dW + db
 
 // A loop's tiling: U units a block (clusters of H / U blocks), RT rows a
-// thread. Each hidden size has two: BIG, many rows a thread for large
-// batches (the FMAs of a thread's 4 x RT sums outweigh its shared loads),
-// and SMALL, few, for small ones (more clusters on the card). plan()
-// picks by the model of loop_cycles.
+// thread. Each hidden size up to 128 has two: BIG, many rows a thread for
+// large batches (the FMAs of a thread's 4 x RT sums outweigh its shared
+// loads), and SMALL, few, for small ones (more clusters on the card).
+// plan() picks by the model of loop_cycles. H 256 (ONE) has SMALL alone,
+// clusters of 8 blocks of U 32, RT 4 and 9 row groups (row_groups: a
+// forward block 201.1 KiB of shared memory, a backward one 182.6): W_hh's
+// slice at U 64 (256 KiB) or RT 8's two h buffers (274 KiB a forward
+// block) are past a block's shared memory. BIG names SMALL there, so no
+// tiling past it is instantiated.
 struct LoopConfig {
     int U, RT;
 };
 template <int H>
 struct LoopConfigs {
-    static constexpr int BIG_U = H == 32 ? 32 : 64, BIG_RT = 16, SMALL_U = 32, SMALL_RT = 4;
+    static constexpr bool ONE = H > 128;
+    static constexpr int SMALL_U = 32, SMALL_RT = 4;
+    static constexpr int BIG_U = ONE ? SMALL_U : H == 32 ? 32 : 64, BIG_RT = ONE ? SMALL_RT : 16;
 };
 
-inline cudaLaunchConfig_t cluster_config(cudaLaunchAttribute& attr, int cs, int clusters,
-                                         size_t smem, cudaStream_t stream) {
+inline cudaLaunchConfig_t cluster_config(cudaLaunchAttribute& attr, int cs, int threads,
+                                         int clusters, size_t smem, cudaStream_t stream) {
     attr.id = cudaLaunchAttributeClusterDimension;
     attr.val.clusterDim.x = cs;
     attr.val.clusterDim.y = 1;
     attr.val.clusterDim.z = 1;
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = dim3(cs * clusters);
-    cfg.blockDim = dim3(LTHREADS);
+    cfg.blockDim = dim3(threads);
     cfg.dynamicSmemBytes = smem;
     cfg.stream = stream;
     cfg.attrs = &attr;
@@ -833,12 +870,13 @@ inline cudaLaunchConfig_t cluster_config(cudaLaunchAttribute& attr, int cs, int 
     return cfg;
 }
 
-// clusters of the kernel the card holds at once (0 if none fits)
-template <typename Kernel>
-int max_active_clusters(Kernel kernel, int cs, size_t smem) {
+// clusters of the loop L's kernel the card holds at once (0 if none
+// fits)
+template <class L, typename Kernel>
+int max_active_clusters(Kernel kernel, size_t smem) {
     if (prepare(kernel, smem) != cudaSuccess) return 0;
     cudaLaunchAttribute attr;
-    const cudaLaunchConfig_t cfg = cluster_config(attr, cs, 1, smem, 0);
+    const cudaLaunchConfig_t cfg = cluster_config(attr, L::CS, L::THREADS, 1, smem, 0);
     int n = 0;
     return cudaOccupancyMaxActiveClusters(&n, kernel, &cfg) == cudaSuccess ? n : 0;
 }
@@ -849,7 +887,9 @@ int max_active_clusters(Kernel kernel, int cs, size_t smem) {
 // wavefronts (2 RT + 32 a k: h broadcast, W 512 bytes a warp) over H,
 // plus the cluster barrier, the exchange and the cell math (estimated at
 // 1500, 2500 and 4500 cycles for clusters of 1, 2 and 4 blocks); blocks
-// that share an SM share its rate. It only ranks the two tilings.
+// that share an SM share its rate. It only ranks the two tilings of H up
+// to 128: H 256 has one (clusters of 8, which it has no estimate of), and
+// plan() does not call it there.
 inline double loop_cycles(int H, LoopConfig c, long long B, int maxc, int sms) {
     const int cs = H / c.U, rows = LTHREADS / c.U * c.RT;
     const long long tiles = (B + rows - 1) / rows;
@@ -861,9 +901,9 @@ inline double loop_cycles(int H, LoopConfig c, long long B, int maxc, int sms) {
 }
 
 // The tiling of the forward or backward loop at B rows: BIG or SMALL, the
-// one of fewer modelled cycles, with the clusters it may hold at once
-// (cudaOccupancyMaxActiveClusters, kept per kernel: the forward loop's
-// instance of TWO_SUMS and slab type S).
+// one of fewer modelled cycles (at H 256 SMALL, the one tiling), with the
+// clusters it may hold at once (cudaOccupancyMaxActiveClusters, kept per
+// kernel: the forward loop's instance of TWO_SUMS and slab type S).
 struct Plan {
     LoopConfig config;
     int max_clusters;
@@ -876,33 +916,39 @@ Plan plan(long long B, bool backward) {
     using Small = Loop<H, C::SMALL_U, C::SMALL_RT>;
     static int maxc[2][2] = {{-1, -1}, {-1, -1}};  // [backward][big]
     int* m = maxc[backward ? 1 : 0];
-    if (m[1] < 0)
-        m[1] = backward ? max_active_clusters(backward_loop<H, C::BIG_U, C::BIG_RT>, Big::CS,
-                                              Big::BWD_SMEM)
-                        : max_active_clusters(forward_loop<H, C::BIG_U, C::BIG_RT, TWO_SUMS, S>,
-                                              Big::CS, Big::FWD_SMEM);
     if (m[0] < 0)
-        m[0] = backward ? max_active_clusters(backward_loop<H, C::SMALL_U, C::SMALL_RT>,
-                                              Small::CS, Small::BWD_SMEM)
-                        : max_active_clusters(
-                              forward_loop<H, C::SMALL_U, C::SMALL_RT, TWO_SUMS, S>, Small::CS,
+        m[0] = backward ? max_active_clusters<Small>(
+                              backward_loop<H, C::SMALL_U, C::SMALL_RT>, Small::BWD_SMEM)
+                        : max_active_clusters<Small>(
+                              forward_loop<H, C::SMALL_U, C::SMALL_RT, TWO_SUMS, S>,
                               Small::FWD_SMEM);
-    const int sms = sm_count();
     const LoopConfig big{C::BIG_U, C::BIG_RT}, small{C::SMALL_U, C::SMALL_RT};
-    bool use_big = m[1] > 0;
-    if (m[1] > 0 && m[0] > 0)
-        use_big = loop_cycles(H, big, B, m[1], sms) <= loop_cycles(H, small, B, m[0], sms);
-    return {use_big ? big : small, use_big ? m[1] : m[0], use_big};
+    if constexpr (C::ONE) {
+        return {small, m[0], false};
+    } else {
+        if (m[1] < 0)
+            m[1] = backward
+                ? max_active_clusters<Big>(backward_loop<H, C::BIG_U, C::BIG_RT>, Big::BWD_SMEM)
+                : max_active_clusters<Big>(forward_loop<H, C::BIG_U, C::BIG_RT, TWO_SUMS, S>,
+                                           Big::FWD_SMEM);
+        const int sms = sm_count();
+        bool use_big = m[1] > 0;
+        if (m[1] > 0 && m[0] > 0)
+            use_big = loop_cycles(H, big, B, m[1], sms) <= loop_cycles(H, small, B, m[0], sms);
+        return {use_big ? big : small, use_big ? m[1] : m[0], use_big};
+    }
 }
 
-template <typename Kernel, typename... Args>
-cudaError_t launch_loop(Kernel kernel, int cs, long long tiles, size_t smem,
-                        cudaStream_t stream, Args... args) {
+// the loop L's kernel over `tiles` clusters
+template <class L, typename Kernel, typename... Args>
+cudaError_t launch_loop(Kernel kernel, long long tiles, size_t smem, cudaStream_t stream,
+                        Args... args) {
     cudaError_t err = prepare(kernel, smem);
     if (err != cudaSuccess) return err;
-    if (tiles > 0x7fffffff / cs) return cudaErrorInvalidValue;
+    if (tiles > 0x7fffffff / L::CS) return cudaErrorInvalidValue;
     cudaLaunchAttribute attr;
-    const cudaLaunchConfig_t cfg = cluster_config(attr, cs, (int)tiles, smem, stream);
+    const cudaLaunchConfig_t cfg =
+        cluster_config(attr, L::CS, L::THREADS, (int)tiles, smem, stream);
     if ((err = cudaLaunchKernelEx(&cfg, kernel, args...)) != cudaSuccess) return err;
     return cudaGetLastError();
 }
@@ -913,8 +959,8 @@ cudaError_t run_forward_loop(const S* xw, const float* h0, const float* c0,
                              float* hT, float* cT, int T, int B, cudaStream_t stream) {
     using L = Loop<H, U, RT>;
     const long long tiles = (B + L::R - 1) / L::R;
-    return launch_loop(forward_loop<H, U, RT, TWO_SUMS, S>, L::CS, tiles, L::FWD_SMEM, stream,
-                       xw, h0, c0, w_hh, b, outs, cseq, hT, cT, T, B);
+    return launch_loop<L>(forward_loop<H, U, RT, TWO_SUMS, S>, tiles, L::FWD_SMEM, stream, xw,
+                          h0, c0, w_hh, b, outs, cseq, hT, cT, T, B);
 }
 
 // The forward loop over T steps of B rows at the tiling plan() picks for B
@@ -941,8 +987,8 @@ cudaError_t run_backward_loop(const float* acts, const float* w_hh_t, const floa
     const long long tiles = (B + L::R - 1) / L::R;
     if (db_part && tiles > part_rows) return cudaErrorInvalidValue;
     *tiles_out = tiles;
-    return launch_loop(backward_loop<H, U, RT>, L::CS, tiles, L::BWD_SMEM, stream, acts, w_hh_t,
-                       c0, cseq, g_outs, g_hT, g_cT, dg, dh0, dc0, db_part, T, B);
+    return launch_loop<L>(backward_loop<H, U, RT>, tiles, L::BWD_SMEM, stream, acts, w_hh_t, c0,
+                          cseq, g_outs, g_hT, g_cT, dg, dh0, dc0, db_part, T, B);
 }
 
 // The reverse loop over T steps of B rows at the tiling plan() picks for
@@ -1272,10 +1318,10 @@ cudaError_t xp_backward_steps(const S* x_proj, const float* h0, const float* c0,
 
 // Registers and local (spilled) bytes per thread of the f32 kernels at
 // hidden size H: the forward and backward loops at both tilings (big,
-// small), then the cell's SGEMMs: the projection, the pre-pass (enc5's
-// over [xs | h_prev]; without ENCODER cat's, over h_prev from the kept
-// slab, or with TWO_SUMS fused's, over h_prev from zero, the kept slab
-// added after), dx (with or without the mask: one kernel) and dW; with
+// small; at H 256 the one tiling in both places), then the cell's SGEMMs:
+// the projection, the pre-pass (enc5's over [xs | h_prev]; without
+// ENCODER cat's, over h_prev from the kept slab, or with TWO_SUMS fused's,
+// over h_prev from zero, the kept slab added after), dx (with or without the mask: one kernel) and dW; with
 // ENCODER also enc5's encoder and [dW_enc; db_enc]. Two ints a kernel:
 // sixteen, or twenty
 template <int H, bool ENCODER, bool TWO_SUMS = false>

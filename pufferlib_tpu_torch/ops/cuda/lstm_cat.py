@@ -37,7 +37,10 @@ h_prev @ W_hh alone, with the activations as its epilogue (half the
 products of recomputing [x | h_prev] @ [W_ih; W_hh], the same bits).
 design(fn, cdt) says which runs; f32_plan and f32_usage give the f32
 loops' tilings and the kernels' registers. These resident designs take
-hidden sizes 32, 64 and 128. Every other shape, at any input width and
+hidden sizes 32, 64 and 128, and in f32 also 256 (lstm_common.
+CAT_F32_HIDDEN: its loops run clusters of 8 blocks of 32 units, one
+tiling; config.yaml's nethack, minihack, nmmo and nmmo3 LSTMs). Every
+other shape, at any input width and
 any hidden size up to lstm_common.STREAM_MAX_HIDDEN, runs the second
 design, csrc/lstm_cat_stream.cu (STREAM_KERNEL), in both dtypes (bf16 on
 the tensor cores, f32 on FMA). Its launchers pad a hidden size that is no
@@ -67,8 +70,9 @@ from pufferlib_tpu_torch.ops.cuda._build import CudaKernel, I, P
 from pufferlib_tpu_torch.ops.cuda._build import ptr, ptr_or_null, stream_handle
 from pufferlib_tpu_torch.ops.cuda.lstm_common import (
     BACKWARD_PHASES, F32_KERNELS, FORWARD_PHASES, STREAM_ROWS,
-    backward_inputs, cat_design, cat_shape_error, cell_backward_step,
-    check_cell_inputs, f32_plan_of, f32_usage_of, forward_outputs,
+    backward_inputs, cat_cell_shape_error, cat_design, cat_shape_error,
+    cell_backward_step, check_cell_inputs, f32_plan_of, f32_usage_of,
+    forward_outputs,
     gate_activations, launch_cell_backward, launch_cell_forward, pad_cell,
     pad_units, round_to, scan_forward, stream_hidden, stream_shape_error,
     stream_splits, unpad_cell_grads, unpad_units)
@@ -170,7 +174,7 @@ def _launch_forward(x, h0, c0, w_ih, w_hh, b, cdt, phases=FORWARD_PHASES):
         device=x.device) if design('lstm_cat_forward', cdt) == 'cluster' \
         else None
     return (*launch_cell_forward(KERNEL, 'lstm_cat_forward', x, h0, c0,
-        w_ih, w_hh, b, cdt, True, phases, xw), xw)
+        w_ih, w_hh, b, cdt, True, phases, xw, cat_cell_shape_error), xw)
 
 
 def _launch_backward(x, h0, c0, w_ih, w_hh, b, outs, cseq, g_outs, g_hT,
@@ -181,7 +185,8 @@ def _launch_backward(x, h0, c0, w_ih, w_hh, b, outs, cseq, g_outs, g_hT,
         raise ValueError("lstm_cat_backward in float32 takes its forward's "
             'x @ W_ih slab (the fifth output of _launch_forward)')
     return launch_cell_backward(KERNEL, 'lstm_cat_backward', x, h0, c0, w_ih,
-        w_hh, b, outs, cseq, g_outs, g_hT, g_cT, cdt, phases, xw)
+        w_hh, b, outs, cseq, g_outs, g_hT, g_cT, cdt, phases, xw,
+        cat_cell_shape_error)
 
 
 def check_stream(device, D, H, cdt):

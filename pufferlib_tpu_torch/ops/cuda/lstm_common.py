@@ -19,6 +19,10 @@ CDTS = (torch.float32, torch.bfloat16)
 # Geo). The f32 kernels also take only an input width equal to the hidden
 # size (layer 0 with input_size == hidden_size, and every later layer).
 KERNEL_HIDDEN = (32, 64, 128)
+# Hidden sizes of cat's resident f32 pair (csrc/lstm_cat.cu): the others',
+# and 256, whose loops run clusters of 8 blocks of 32 units (lstm_f32.cuh
+# LoopConfigs). Every other family's f32 reach stays KERNEL_HIDDEN.
+CAT_F32_HIDDEN = KERNEL_HIDDEN + (256,)
 # batch rows of the f32 cluster loops' smallest tile (csrc/lstm_f32.cuh
 # LoopConfigs' small tiling): a row of the f32 backwards' db partials each
 ROWS_PER_BLOCK = 32
@@ -340,11 +344,24 @@ def stream_splits(M, N, K, device):
     return max(1, min(math.ceil(8 * sms / tiles), K // 1024))
 
 
+def cat_cell_shape_error(D, H, cdt):
+    """Why cat's resident kernels (csrc/lstm_cat.cu) refuse (D, H) in cdt,
+    or None: fused's reach (cell_shape_error) in bf16; in f32 D == H at
+    CAT_F32_HIDDEN, the FMA kernels' hidden sizes and 256."""
+    if cdt == torch.bfloat16:
+        return tc_shape_error(D, H)
+    if H not in CAT_F32_HIDDEN or D != H:
+        return (f'the resident CUDA cat kernels in float32 take hidden sizes '
+            f'{CAT_F32_HIDDEN} with input width equal to the hidden size; '
+            f'got input {D}, hidden {H}')
+    return None
+
+
 def cat_shape_error(D, H, cdt):
     """Why neither design of the cat pair serves (D, H) in cdt, or None:
-    the resident-weight kernels (cell_shape_error) where they serve, else
-    the streamed ones (stream_shape_error)."""
-    resident = cell_shape_error(D, H, cdt)
+    the resident-weight kernels (cat_cell_shape_error) where they serve,
+    else the streamed ones (stream_shape_error)."""
+    resident = cat_cell_shape_error(D, H, cdt)
     if resident is None:
         return None
     stream = stream_shape_error(D, H, cdt)
@@ -354,7 +371,8 @@ def cat_shape_error(D, H, cdt):
 def cat_design(D, H, cdt):
     """'resident' where lstm_cat.cu's kernels serve (D, H) in cdt, else
     'stream' (csrc/lstm_cat_stream.cu); call after cat_shape_error."""
-    return 'resident' if cell_shape_error(D, H, cdt) is None else 'stream'
+    return 'resident' if cat_cell_shape_error(D, H, cdt) is None \
+        else 'stream'
 
 
 def fma_encoder_shape_error(F, D, H):
@@ -569,15 +587,18 @@ def tc_slab(T, B, H, device):
 
 
 def launch_cell_forward(kernel, fn, x, h0, c0, w_ih, w_hh, b, cdt,
-        save_cseq=True, phases=FORWARD_PHASES, xw=None):
+        save_cseq=True, phases=FORWARD_PHASES, xw=None,
+        reach=cell_shape_error):
     """The forward C function `fn` of a cell pair (lstm_cat_forward,
     lstm_fused_forward): (outs, hT, cT, cseq). In bf16 its scratch is the
     slab and the bf16 [W_ih; W_hh]; in f32, xw, the slab csrc/lstm_f32.cuh
     writes (cat's x @ W_ih, fused's x @ W_ih + b: T * B * 4H f32, which
-    the caller allocates and keeps for the backward)."""
+    the caller allocates and keeps for the backward). reach: why the
+    pair's kernels refuse (D, H, cdt), or None (cat's is
+    cat_cell_shape_error)."""
     T, B, D = x.shape
     H = h0.shape[1]
-    check_cell_kernel_shape(D, H, cdt, x.device)
+    _refuse(x.device, reach(D, H, cdt))
     outs, hT, cT, cseq = forward_outputs(T, h0, c0, cdt, save_cseq)
     if B > 0:
         tc = cdt == torch.bfloat16
@@ -593,18 +614,19 @@ def launch_cell_forward(kernel, fn, x, h0, c0, w_ih, w_hh, b, cdt,
 
 
 def launch_cell_backward(kernel, fn, x, h0, c0, w_ih, w_hh, b, outs, cseq,
-        g_outs, g_hT, g_cT, cdt, phases=BACKWARD_PHASES, xw=None):
+        g_outs, g_hT, g_cT, cdt, phases=BACKWARD_PHASES, xw=None,
+        reach=cell_shape_error):
     """The backward C function `fn` of a cell pair (lstm_cat_backward,
     lstm_fused_backward): (dx, dh0, dc0, dW_ih, dW_hh, db). xw: in f32,
     the slab the pair's forward wrote, which csrc/lstm_f32.cuh's kernels
     take in bf16's aux slot (their scratch the activations and the
     transposed weights in the P slab's place, the split-K's partials at
     F32_SPLIT_ROWS rows a split at least); the caller checks it is
-    there."""
+    there. reach: as launch_cell_forward's."""
     T, B, D = x.shape
     H = h0.shape[1]
     G = 4 * H
-    check_cell_kernel_shape(D, H, cdt, x.device)
+    _refuse(x.device, reach(D, H, cdt))
     dev = x.device
     dx = torch.empty_like(x)
     dh0 = torch.empty_like(h0)

@@ -560,11 +560,14 @@ def test_lstm_cat_stream_is_deterministic(cuda, T, B, D, H):
 
 
 def test_lstm_scan_cat_picks_the_design_by_shape(cuda):
-    """lstm_scan_cat launches the resident kernels where they serve and
-    the streamed ones elsewhere (hidden 100 padded to 128); a hidden size
-    no design takes raises before a launch."""
+    """lstm_scan_cat launches the resident kernels where they serve (f32
+    at hidden 256 among them) and the streamed ones elsewhere (bf16 at
+    hidden 256; hidden 100 padded to 128); a hidden size no design takes
+    raises before a launch."""
     from pufferlib_tpu_torch.ops.cuda.lstm_cat import lstm_scan_cat
     for D, H, cdt, fn in ((128, 128, torch.bfloat16, 'lstm_cat_forward'),
+            (256, 256, torch.float32, 'lstm_cat_forward'),
+            (256, 256, torch.bfloat16, 'lstm_cat_stream_forward'),
             (96, 128, torch.float32, 'lstm_cat_stream_forward'),
             (512, 512, torch.bfloat16, 'lstm_cat_stream_forward'),
             (100, 100, torch.float32, 'lstm_cat_stream_forward')):
@@ -1092,6 +1095,71 @@ def test_cat_f32_plan_and_usage(cuda):
                 rows = 256 // units * rt
                 assert rows >= 32 and H % units == 0 and clusters > 0, (
                     H, B, part, plan)
+    assert _launches() == before
+
+
+# cat's f32 pair at hidden 256 (D = H; clusters of 8 blocks of 32 units, 9
+# row groups: 36 rows a cluster): config.yaml's nethack, minihack and nmmo
+# updates (B 512), nmmo3's (B 1024), a ragged batch whose last tile holds
+# 28 rows (B 1000), one of 8 rows (B 1052), one row, one step
+CAT_F32_H256_SHAPES = [(16, 512, 256), (16, 1000, 256), (16, 1024, 256),
+    (16, 1052, 256), (1, 1, 256), (3, 45, 256)]
+
+
+@pytest.mark.parametrize('T,B,H', CAT_F32_H256_SHAPES)
+def test_cat_f32_h256_matches_plain(cuda, T, B, H):
+    """Forward, dx and every other gradient of cat's f32 pair at H 256
+    against lstm_cat_reference / lstm_cat_backward_reference within
+    LSTM_TOL, one launch each way."""
+    _check_lstm_pair(cuda, 'cat', T, B, H, torch.float32)
+
+
+@pytest.mark.parametrize('T,B', [(16, 512), (16, 1000), (16, 1024)])
+def test_cat_f32_h256_repeats_bit_for_bit(cuda, T, B):
+    """At H 256 the loops' clusters are of 8 blocks: h goes to eight
+    blocks a step and the partial dh_prev of eight ranks are added in rank
+    order; twenty runs are equal bit for bit."""
+    _check_deterministic(cuda, 'cat', T, B, 256, cdt=torch.float32,
+        runs=20)
+
+
+@pytest.mark.parametrize('T,B', [(16, 512), (16, 1000), (16, 1024),
+    (3, 45)])
+def test_cat_f32_h256_writes_only_its_buffers(cuda, monkeypatch, T, B):
+    """Every buffer of an f32 cat call at H 256 between guards
+    (_check_f32_guards), at whole tiles and ragged last tiles."""
+    _check_f32_guards(cuda, monkeypatch, 'cat', T, B, 256)
+
+
+def test_cat_f32_h256_autograd_keeps_the_slab(cuda):
+    """lstm_scan_cat in f32 at H 256 through autograd keeps its x @ W_ih
+    slab (_check_autograd_keeps_the_slab) and launches the resident
+    pair."""
+    _check_autograd_keeps_the_slab(cuda, 'cat', 16, 512, 256)
+
+
+def test_cat_f32_h256_plan_and_usage(cuda):
+    """At H 256 cat's f32 loops have one tiling: 32 units a block and 4
+    rows a thread in clusters of 8 blocks, every cluster the card may hold
+    at once (more than 0) at every batch, forward and backward; every f32
+    kernel reports its registers and no spilled byte in the loops
+    (lstm_cat.f32_usage, both tiling slots the one loop) without a
+    launch. The other families are not built for H 256."""
+    from pufferlib_tpu_torch.ops.cuda import lstm_cat, lstm_enc, lstm_scan
+    before = _launches()
+    usage = lstm_cat.f32_usage(256)
+    assert len(usage) == 8 and all(r > 0 for r, _ in usage.values())
+    for part in ('forward', 'backward'):
+        big, small = (usage[f'{part} loop ({t})'] for t in ('big', 'small'))
+        assert big == small and small[1] == 0, (part, usage)
+    for B in (1, 512, 1000, 1024, 8192):
+        plan = lstm_cat.f32_plan(256, B)
+        for part in ('forward', 'backward'):
+            units, rt, clusters = plan[part]
+            assert (units, rt) == (32, 4) and clusters > 0, (B, part, plan)
+    for fn in (lstm_enc.f32_plan, lstm_scan.f32_plan):
+        with pytest.raises(RuntimeError, match='cudaError'):
+            fn(256, 512)
     assert _launches() == before
 
 

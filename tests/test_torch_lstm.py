@@ -107,6 +107,16 @@ def test_cat_plain_matches_pallas_kernel_streamed_shape(dtype):
 
 
 @pytest.mark.parametrize('dtype', sorted(DTYPES))
+def test_cat_plain_matches_pallas_kernel_resident_hidden_256(dtype):
+    """The same at input width and hidden size 256, config.yaml's nethack,
+    minihack, nmmo and nmmo3 LSTMs: in f32 cat's resident design serves it
+    on the card (clusters of 8 blocks), in bf16 the streamed one. Weights
+    at 1 / sqrt(fan-in) and tolerances relative, as the streamed shape's
+    (sums over K = 512 and 4H = 1024 terms)."""
+    _check_cat_plain(dtype, 256, 256, w_scale=512 ** -0.5)
+
+
+@pytest.mark.parametrize('dtype', sorted(DTYPES))
 def test_cat_plain_matches_pallas_kernel_streamed_hidden_48(dtype):
     """The same at hidden 48, no multiple of 32: on the card the streamed
     design runs it padded to 64 units (lstm_common.pad_cell)."""
@@ -422,6 +432,95 @@ def test_kernels_refuse_shapes_they_do_not_serve():
         lstm_scan_cat(torch.zeros(T, B, H), *(torch.zeros(B, H),) * 2,
             torch.zeros(H, 4 * H), torch.zeros(H, 4 * H),
             torch.zeros(4 * H), torch.bfloat16)
+
+
+# (D, H, cdt) -> the design cat's wrapper launches on the card, or the
+# message of its refusal. The resident kernels take H 32-128 with D % 8 ==
+# 0 in bf16 and D == H at H 32-256 in f32 (H 256 on clusters of 8 blocks);
+# lstm_scan_fused's f32 kernels keep H 32-128 (cell_shape_error)
+CAT_DESIGNS = [
+    ((256, 256, torch.float32), 'resident'),
+    ((128, 128, torch.float32), 'resident'),
+    ((32, 32, torch.float32), 'resident'),
+    ((96, 128, torch.bfloat16), 'resident'),
+    ((256, 256, torch.bfloat16), 'stream'),
+    ((9, 256, torch.float32), 'stream'),
+    ((128, 256, torch.float32), 'stream'),
+    ((512, 512, torch.float32), 'stream'),
+    ((200, 200, torch.float32), 'stream'),
+    ((96, 128, torch.float32), 'stream'),
+    ((832, 832, torch.float32), 'up to 800'),
+]
+
+
+@pytest.mark.parametrize('case', range(len(CAT_DESIGNS)))
+def test_cat_design(case):
+    """cat_design: the resident kernels where cat_cell_shape_error serves
+    the shape (f32 H 256 among them), else the streamed ones;
+    cat_shape_error names what neither takes. lstm_scan_fused's f32 reach
+    stays H 32-128, and the FMA reach the archived kinds name is
+    unchanged."""
+    (D, hidden, cdt), want = CAT_DESIGNS[case]
+    err = lstm_common.cat_shape_error(D, hidden, cdt)
+    if want in ('resident', 'stream'):
+        assert err is None
+        assert lstm_common.cat_design(D, hidden, cdt) == want
+        assert (lstm_common.cat_cell_shape_error(D, hidden, cdt) is None) \
+            == (want == 'resident')
+    else:
+        assert err is not None and want in err
+    if cdt == torch.float32 and D == hidden == 256:
+        with pytest.raises(ValueError, match=r'\(32, 64, 128\) with input'):
+            lstm_common.check_cell_kernel_shape(D, hidden, cdt,
+                torch.device('cuda'))
+        assert '(32, 64, 128)' in lstm_common.fma_shape_error(D, hidden)
+        assert '(32, 64, 128, 256)' in lstm_common.cat_cell_shape_error(
+            D, 128 + hidden, cdt)
+
+
+# config.yaml's sections that train an LSTM (use_rnn), with the update's
+# batch rows (minibatch / bptt) and the design cat runs there in f32,
+# config.yaml's dtype (it names none). The procgen -exp sections have no
+# Recurrent dict and no policy hidden_size: config.cli gives D = H = 128
+# (their ProcgenResnet emits mlp_width 256 features, which an LSTM of input
+# 128 refuses at its first call, in the JAX package as in the port)
+CONFIG_LSTMS = {
+    'nethack': (256, 256, 512, 'resident'),
+    'minihack': (256, 256, 512, 'resident'),
+    'nmmo': (256, 256, 512, 'resident'),
+    'nmmo3': (256, 256, 1024, 'resident'),
+    'pokemon_red': (512, 512, 512, 'stream'),
+    'bigfish-exp': (128, 128, 1152, 'resident'),
+    'starpilot-exp': (128, 128, 1152, 'resident'),
+}
+
+
+@pytest.mark.parametrize('section', sorted(CONFIG_LSTMS))
+def test_config_lstm_sections_cat_design(section):
+    """Each LSTM section of config.yaml, read by config.cli.load_config,
+    with (D, H) worked out as cli.make_policy does (the env package's
+    Recurrent dict, then config.yaml's rnn section, the hidden size from
+    it or from the policy's hidden_size, 128 by default; the input size
+    the hidden size unless given): on the card the default route sends it
+    to cat (its policy has no encoder contract), and cat to the design
+    named. H 256 (nethack, minihack, nmmo, nmmo3) runs cat's resident f32
+    pair; pokemon_red's H 512 the streamed one."""
+    from pufferlib_tpu_torch.config import cli
+    args, env_module, _ = cli.load_config(section, argv=['--env', section])
+    assert args.use_rnn
+    rnn = dict(getattr(env_module, 'Recurrent', None) or {})
+    rnn.update(dict(args.rnn))
+    hidden = rnn.pop('hidden_size', dict(args.policy).get('hidden_size',
+        128))
+    D = rnn.get('input_size', hidden)
+    B = args.train.minibatch_size // args.train.bptt_horizon
+    want_D, want_H, want_B, design = CONFIG_LSTMS[section]
+    assert (D, hidden, B) == (want_D, want_H, want_B)
+    f32 = torch.float32
+    assert lstm_route('enc5', None, 'cuda', args.train.bptt_horizon, D,
+        hidden, None, 1, f32) == 'cat'
+    assert lstm_common.cat_shape_error(D, hidden, f32) is None
+    assert lstm_common.cat_design(D, hidden, f32) == design
 
 
 # lstm_route's arguments at the LSTM trainer's shapes (bench.py's LSTM

@@ -772,11 +772,12 @@ def test_enc5_f32_design():
 
 # (T, B, H, units a loop block, rows a cluster): cat's f32 pair at both
 # loop tilings of each hidden size (lstm_f32.cuh LoopConfigs: big 64 units
-# and 64 rows at H 64 and 128, 32 and 128 at H 32; small 32 and 32), at
-# batches that are whole tiles, short last tiles, and ragged (B % 8 != 0)
+# and 64 rows at H 64 and 128, 32 and 128 at H 32; small 32 and 32; H 256
+# one, 32 units and 36 rows in clusters of 8 blocks), at batches that are
+# whole tiles, short last tiles, and ragged (B % 8 != 0)
 CAT_F32_SCHEDULES = [(3, 64, 128, 64, 64), (3, 65, 128, 32, 32),
     (3, 40, 64, 64, 64), (3, 33, 64, 32, 32), (3, 136, 32, 32, 128),
-    (4, 45, 32, 32, 32)]
+    (4, 45, 32, 32, 32), (3, 72, 256, 32, 36), (3, 41, 256, 32, 36)]
 
 
 @pytest.mark.parametrize('T,B,H,units,rows', CAT_F32_SCHEDULES)
@@ -828,8 +829,9 @@ def test_cat_f32_design():
     argument lists of the bf16 ones: lstm_cat_forward's 19 (the x @ W_ih
     slab in the bf16 slab's place) and lstm_cat_backward's 30 (the
     activations and transposed weights in the P slab's place); the bf16
-    ones run the tensor cores ('tc'). The reach is the FMA cell's it
-    replaced: D == H in 32, 64, 128 resident, the rest streamed."""
+    ones run the tensor cores ('tc'). The f32 reach is D == H in 32, 64,
+    128 (the FMA cell's it replaced) and 256 (clusters of 8 blocks)
+    resident, the rest streamed; bf16 at H 256 streamed."""
     for fn in ('lstm_cat_forward', 'lstm_cat_backward'):
         assert lstm_cat.design(fn, torch.float32) == 'cluster'
         assert lstm_cat.design(fn, torch.bfloat16) == 'tc'
@@ -838,11 +840,12 @@ def test_cat_f32_design():
     assert len(lstm_cat.KERNEL.functions['lstm_cat_forward']) == 19
     assert len(lstm_cat.KERNEL.functions['lstm_cat_backward']) == 30
     f32 = torch.float32
-    for H in (32, 64, 128):
+    for H in (32, 64, 128, 256):
         assert lstm_common.cat_design(H, H, f32) == 'resident'
-    for D, H in ((96, 128), (128, 64), (256, 256), (200, 128), (512, 512)):
+    for D, H in ((96, 128), (128, 64), (9, 256), (200, 128), (512, 512)):
         assert lstm_common.cat_design(D, H, f32) == 'stream'
     assert lstm_common.cat_design(96, 128, torch.bfloat16) == 'resident'
+    assert lstm_common.cat_design(256, 256, torch.bfloat16) == 'stream'
 
 
 @pytest.mark.parametrize('T,B,H,units,rows', CAT_F32_SCHEDULES)

@@ -29,8 +29,14 @@ memory's shape (config.yaml's memory section: T 8, B 512, F 1) and at
 T 16, B 1000, enc5's streamed pair (lstm_enc_stream_*, called directly)
 at T 16 with B 8192 and 1000, and cat, fused, enc, scan and the archived
 enc2, enc3, enc4, enc6 and tm at T 16, B 1000; cat's
-and fused's readings carry cuDNN's f32 nn.LSTM beside them. Each turn
-also prints, for each
+and fused's readings carry cuDNN's f32 nn.LSTM beside them; and cat at
+D = H = 256 (T 16; B 512, 1000 and 1024: config.yaml's nethack, minihack
+and nmmo updates, a ragged batch, nmmo3's) through lstm_scan_cat's
+autograd, as a trainer's update calls it, so that each tree runs the
+design its own route takes there (the reading's shape names it: a tree
+before the resident pair took hidden 256 runs the streamed one), beside
+cuDNN's f32 nn.LSTM and with the device memory through autograd. Each
+turn also prints, for each
 kind and dtype, the SHA-256 of every output and gradient of one forward
 and backward call on inputs from a fixed seed, that of the forward's
 outputs alone, and that of the backward's gradients alone, the backward
@@ -41,9 +47,10 @@ shapes: the bytes held from the forward to the backward and the peak
 over both): two trees whose digests of a kind agree
 compute it bit for bit alike, and two whose forward (backward) digests
 agree compute its forward (backward) so, whatever the other part does. Each
-tree builds its kernels from its own sources at its first turn. Prints a
-line per reading and, last, one JSON object with every reading and the
-card's name and power limit.
+tree builds its kernels from its own sources at its first turn, each
+source alone on first use, and that turn prints nvcc's seconds for each.
+Prints a line per reading and, last, one JSON object with every reading
+and the card's name and power limit.
 """
 import argparse
 import json
@@ -67,6 +74,11 @@ F32_EXTRA = (('enc5 memory', 'enc5', 8, 512, 1),
     ('enc6 B=1000', 'enc6', 16, 1000, 49),
     ('scan B=1000', 'scan', 16, 1000, 49),
     ('tm B=1000', 'tm', 16, 1000, 49))
+# float32 only: (label, T, B, H) of cat at D = H through lstm_scan_cat's
+# autograd
+ROUTE_F32 = (('cat route H=256 B=512', 16, 512, 256),
+    ('cat route H=256 B=1000', 16, 1000, 256),
+    ('cat route H=256 B=1024', 16, 1024, 256))
 
 # run inside a tree: its own chip_smoke, its own kernels
 CHILD = r'''
@@ -148,6 +160,45 @@ def memory(kind, B, T=16, H=128, F=49):
         'peak bytes': torch.cuda.max_memory_allocated() - base}
 
 
+def route(T, B, H):
+    """lstm_scan_cat at T, B, D = H through autograd, the call of a
+    trainer's update: the forward (its inputs requiring gradients, so that
+    it keeps what its backward takes) and the backward
+    (torch.autograd.grad over the kept graph) by CUDA events, cold L2,
+    mean of 20; the plain versions (mean of 5), the bound of the design
+    this tree's route takes, cuDNN's f32 nn.LSTM and the device memory
+    through autograd beside them."""
+    from pufferlib_tpu_torch.ops.cuda.lstm_cat import (
+        lstm_cat_backward_reference, lstm_cat_reference)
+    from pufferlib_tpu_torch.ops.cuda.lstm_common import cat_design
+    args, grads, cdt = chip_smoke.lstm_case(torch, np.random.RandomState(0),
+        'cat', T, B, DTYPE, H=H)
+    design = cat_design(H, H, cdt)
+    leaves = [t.detach().requires_grad_() for t in args]
+    fwd = chip_smoke.timed_ms(lambda: lstm_scan_cat(*leaves, cdt), flush)
+    outs = lstm_scan_cat(*leaves, cdt)
+    bwd = chip_smoke.timed_ms(lambda: torch.autograd.grad(outs, leaves,
+        grads, retain_graph=True), flush)
+    with torch.no_grad():
+        want = lstm_cat_reference(*args, cdt)
+        bargs = (*args, want[0], want[3], *grads, cdt)
+        fwd_plain = chip_smoke.timed_ms(lambda: lstm_cat_reference(*args,
+            cdt), flush, reps=5)
+        bwd_plain = chip_smoke.timed_ms(lambda: lstm_cat_backward_reference(
+            *bargs), flush, reps=5)
+    (fwd_bound, _), (bwd_bound, _) = chip_smoke.lstm_bounds(
+        'cat' if design == 'resident' else 'cat_stream', args, T, B, H,
+        DTYPE)
+    fwd_lib, bwd_lib = chip_smoke.cudnn_lstm_ms(torch, flush, args, grads[0])
+    return {'forward': fwd, 'backward': bwd, 'forward plain': fwd_plain,
+        'backward plain': bwd_plain, 'forward bound': fwd_bound,
+        'backward bound': bwd_bound, 'forward library': fwd_lib,
+        'backward library': bwd_lib, 'phases': None,
+        'shape': f'T={T} B={B} D=H={H} {DTYPE}, lstm_scan_cat through '
+            f'autograd: the {design} design',
+        'memory': memory('cat', B, T, H=H)}
+
+
 def reading(r):
     return {'forward': r['fwd_ms'], 'backward': r['bwd_ms'],
         'forward plain': r['fwd_plain_ms'], 'backward plain':
@@ -186,7 +237,13 @@ if DTYPE == 'float32':
         out[label] = {**reading(r), 'phases': None}
         if kind in SCANS:
             out[label]['memory'] = memory(kind, B, T, F=F)
-print(json.dumps(out))
+    for label, T, B, H in ROUTE_F32:
+        out[label] = route(T, B, H)
+# nvcc's seconds for each source this turn built (a tree's first turn
+# builds each source alone, on first use)
+from pufferlib_tpu_torch.ops.cuda import KERNELS
+print(json.dumps({'results': out, 'build seconds': {k.source:
+    k.build_seconds for k in KERNELS if k.build_seconds is not None}}))
 '''
 
 
@@ -210,13 +267,19 @@ def main():
         kinds = tuple(k for k in KINDS if not args.kind or k in args.kind)
         extra = tuple(e for e in F32_EXTRA
             if not args.kind or e[1] in args.kind)
+        routes = ROUTE_F32 if not args.kind or 'cat' in args.kind else ()
         code = (f'KINDS = {kinds!r}\nF32_EXTRA = {extra!r}\n'
-            f'DTYPE = {dtype!r}\n' + CHILD)
+            f'ROUTE_F32 = {routes!r}\nDTYPE = {dtype!r}\n' + CHILD)
         for turn, tree in enumerate(order):
             out = subprocess.run([sys.executable, '-c', code], cwd=tree,
                 check=True, stdout=subprocess.PIPE, text=True).stdout
             result = json.loads(out.strip().splitlines()[-1])
-            for kind, r in result.items():
+            built = result['build seconds']
+            readings.append(dict(turn=turn, tree=tree, dtype=dtype,
+                part='build seconds', seconds=built))
+            print(f'turn {turn} {tree} {dtype}: nvcc seconds of the sources '
+                f'it built {json.dumps(built)}', flush=True)
+            for kind, r in result['results'].items():
                 for part in ('forward', 'backward'):
                     readings.append(dict(turn=turn, tree=tree, dtype=dtype,
                         kind=kind, part=part, ms=r[part],
